@@ -1,0 +1,308 @@
+"""The paged programs (the port's counterpart of ``deepspeed_tpu/
+inference/v2/model_runner.py``).
+
+* :func:`paged_prefill` — one bucket-padded prompt: causal attention
+  through the flash-attention forward, K/V scattered into the prompt's
+  pages.
+* :func:`paged_prefill_chunk` — one chunk of a prompt at a start offset
+  (chunked prefill): the chunk's queries attend the sequence's page
+  window through the flash forward with ``q_offset = start``.
+* :func:`paged_decode` — one token for every decode slot: K/V written
+  into each row's current page, attention through the paged decode
+  kernel.
+
+The pools are updated IN PLACE (``index_put_`` on each layer's slice of
+``pools["k"]``/``pools["v"]``): that replaces the JAX engine's donation
+of the pool buffers to each jitted program, and the functions return
+the same dict they were given.  Scatters stay unconditional: inactive
+rows and pad chunks write to the trash page (ragged.py); duplicate
+indices there are harmless because no live token reads the trash page.
+
+Attention takes the kernels for CUDA tensors and their plain versions
+for CPU tensors; the plain paged attention (the JAX runner's
+``_gather_window_attend``, :344) lives beside its kernel as
+``ops/paged_attention.gather_window_attend``.  One exception, kept from the JAX engine by design
+(model_runner.py:277-281 there): chunked prefill with an int8 KV pool
+attends through the plain formulation on every device, so that the
+chunk's own keys enter at full precision exactly as in whole-prompt
+prefill.  ``paged_prefill_chunk.plain_quant_calls`` counts those calls.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ...models.transformer import (ParamTree, TransformerConfig, _mm, _norm, _repeat_kv,
+                                   alibi_slopes, attn_qkv, logits_fn, mlp_block)
+from ...ops.flash_attention import flash_attention_fwd
+from ...ops.paged_attention import paged_decode_attention
+
+Pools = Dict[str, torch.Tensor]
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., KVH, D] -> (int8 codes, fp32 scale [..., KVH]) per head."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.round(xf / s[..., None]).to(torch.int8)
+    return q, s
+
+
+def _alibi_bias(cfg: TransformerConfig, qpos: torch.Tensor,
+                kpos: torch.Tensor) -> torch.Tensor:
+    """ALiBi score bias: qpos [..., Q], kpos [..., K] -> [..., NH, Q, K]."""
+    rel = (qpos[..., :, None] - kpos[..., None, :]).float()
+    slopes = alibi_slopes(cfg.n_heads, device=rel.device)
+    return -slopes[:, None, None] * rel[..., None, :, :]
+
+
+def _slopes(cfg: TransformerConfig, device) -> torch.Tensor | None:
+    return alibi_slopes(cfg.n_heads, device=device) if cfg.position == "alibi" else None
+
+
+def _attn_out(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
+              attn: torch.Tensor) -> torch.Tensor:
+    """Output projection + residual/parallel-block epilogue shared by the
+    prefill/chunk/decode layer bodies."""
+    attn_delta = _mm(cfg, attn, layer.attn.wo)
+    if cfg.use_bias:
+        attn_delta = attn_delta + layer.attn.bo
+    if cfg.parallel_block:
+        return mlp_block(cfg, layer, x) + attn_delta
+    return mlp_block(cfg, layer, x + attn_delta)
+
+
+def _write_pages(pools: Pools, layer_idx: int, rows: torch.Tensor,
+                 k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:
+    """Scatter whole pages of fresh K/V into one layer's pools, in place
+    (quantizing when the pool is int8) — shared by whole-prompt and
+    chunked prefill.  rows: [n] page indices; k/v_pages [n, ps, KVH, D]."""
+    k_c, v_c = pools["k"][layer_idx], pools["v"][layer_idx]
+    if "k_scale" in pools:
+        kq, ksc = _kv_quantize(k_pages)
+        vq, vsc = _kv_quantize(v_pages)
+        k_c[rows] = kq
+        v_c[rows] = vq
+        pools["k_scale"][layer_idx][rows] = ksc
+        pools["v_scale"][layer_idx][rows] = vsc
+    else:
+        k_c[rows] = k_pages.to(k_c.dtype)
+        v_c[rows] = v_pages.to(v_c.dtype)
+
+
+def _embed(cfg: TransformerConfig, params: ParamTree, ids: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token (+ learned position) embedding (+ bloom embedding norm);
+    ids/positions [B, T] -> [B, T, H]."""
+    x = params.embed.tok[ids]
+    if cfg.position == "learned":
+        pos_idx = torch.clamp(positions, max=params.embed.pos.shape[0] - 1)
+        x = x + params.embed.pos[pos_idx]
+    if "norm" in params.embed:
+        x = _norm(x, params.embed.norm.scale, params.embed.norm.get("bias"),
+                  cfg.norm, cfg.norm_eps)
+    return x
+
+
+def _final_logits(cfg: TransformerConfig, params: ParamTree,
+                  x: torch.Tensor) -> torch.Tensor:
+    hidden = _norm(x, params.final_norm.scale, params.final_norm.get("bias"),
+                   cfg.norm, cfg.norm_eps)
+    return logits_fn(cfg, params, hidden)
+
+
+@torch.no_grad()
+def paged_prefill(cfg: TransformerConfig, params: ParamTree, pools: Pools,
+                  ids: torch.Tensor, page_rows: torch.Tensor, length: int
+                  ) -> Tuple[torch.Tensor, Pools]:
+    """Prefill one prompt.
+
+    ids: [S_pad] bucket-padded prompt; page_rows: [S_pad // page_size]
+    page index per chunk (trash for pad chunks); length: real prompt
+    length.  Pad tokens past ``length`` see only earlier slots (causal)
+    and their outputs are discarded.  Returns (last-token logits [V],
+    pools updated in place)."""
+    S = ids.shape[0]
+    ps = pools["k"].shape[2]
+    positions = torch.arange(S, device=ids.device)[None]
+    x = _embed(cfg, params, ids[None], positions)  # [1, S, H]
+    rows = page_rows.long()
+    slopes = _slopes(cfg, ids.device)
+    for i, layer in enumerate(params.layers):
+        q, k, v = attn_qkv(cfg, layer, x, positions)
+        _write_pages(pools, i, rows, k[0].reshape(S // ps, ps, *k.shape[2:]),
+                     v[0].reshape(S // ps, ps, *v.shape[2:]))
+        attn, _ = flash_attention_fwd(q, k, v, causal=True, alibi_slopes=slopes)
+        x = _attn_out(cfg, layer, x, attn.reshape(1, S, -1))
+    return _final_logits(cfg, params, x[:, length - 1])[0], pools
+
+
+def _chunk_attend_concat(cfg: TransformerConfig, q: torch.Tensor, kp: torch.Tensor,
+                         vp: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         start: int) -> torch.Tensor:
+    """The JAX chunk formulation (model_runner.py:312-332): keys =
+    [pooled window, masked to < start | this chunk's fresh keys, causal].
+    q [1, C, NH, D]; kp/vp [S_prev, KVH, D]; k/v [1, C, KVH, D]."""
+    C = q.shape[1]
+    S_prev = kp.shape[0]
+    dev = q.device
+    kk = torch.cat([kp.to(q.dtype)[None], k], dim=1)
+    vv = torch.cat([vp.to(q.dtype)[None], v], dim=1)
+    g = cfg.n_heads // cfg.kv_heads
+    kk, vv = _repeat_kv(kk, g), _repeat_kv(vv, g)
+    scores = torch.einsum("btnd,bsnd->bnts", q, kk).float() / math.sqrt(cfg.head_dim)
+    if cfg.position == "alibi":
+        scores = scores + _alibi_bias(
+            cfg, start + torch.arange(C, device=dev),
+            torch.cat([torch.arange(S_prev, device=dev),
+                       start + torch.arange(C, device=dev)]))
+    prev_vis = (torch.arange(S_prev, device=dev) < start)[None, :].expand(C, S_prev)
+    causal = torch.arange(C, device=dev)[:, None] >= torch.arange(C, device=dev)[None, :]
+    mask = torch.cat([prev_vis, causal], dim=1)
+    scores = torch.where(mask[None, None], scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnts,bsnd->btnd", probs, vv).reshape(1, C, -1)
+
+
+@torch.no_grad()
+def paged_prefill_chunk(cfg: TransformerConfig, params: ParamTree, pools: Pools,
+                        ids: torch.Tensor, chunk_rows: torch.Tensor,
+                        prev_table: torch.Tensor, start: int, n: int
+                        ) -> Tuple[torch.Tensor, Pools]:
+    """Prefill ONE CHUNK of a prompt.
+
+    ids: [C] chunk tokens (C a multiple of page_size); chunk_rows:
+    [C // ps] pages receiving this chunk's K/V; prev_table: [MPb] the
+    sequence's page-table prefix covering the window THROUGH this chunk
+    (pool-slot index == global position); start: global position of
+    ids[0] (a host int: the flash kernel takes it as its q_offset); n:
+    valid tokens.  Returns (logits of token start+n-1 — meaningful on the
+    final chunk — and the pools, updated in place)."""
+    quant = "k_scale" in pools
+    C = ids.shape[0]
+    ps = pools["k"].shape[2]
+    S_prev = prev_table.shape[0] * ps
+    positions = start + torch.arange(C, device=ids.device)[None]
+    x = _embed(cfg, params, ids[None], positions)
+    rows = chunk_rows.long()
+    table = prev_table.long()
+    slopes = _slopes(cfg, ids.device)
+    if quant:
+        paged_prefill_chunk.plain_quant_calls += 1
+    for i, layer in enumerate(params.layers):
+        q, k, v = attn_qkv(cfg, layer, x, positions)
+        _write_pages(pools, i, rows, k[0].reshape(C // ps, ps, *k.shape[2:]),
+                     v[0].reshape(C // ps, ps, *v.shape[2:]))
+        k_c, v_c = pools["k"][i], pools["v"][i]
+        kp = k_c[table].reshape(S_prev, *k_c.shape[2:])
+        vp = v_c[table].reshape(S_prev, *v_c.shape[2:])
+        if quant:
+            kp = kp.float() * pools["k_scale"][i][table].reshape(S_prev, -1)[..., None]
+            vp = vp.float() * pools["v_scale"][i][table].reshape(S_prev, -1)[..., None]
+            attn = _chunk_attend_concat(cfg, q, kp, vp, k, v, start)
+        else:
+            # the window covers the chunk's own slots: offset-flash's causal
+            # mask handles previous chunks, in-chunk causality and the
+            # trash/pad slots (they sit above every real query)
+            attn, _ = flash_attention_fwd(q, kp.to(x.dtype)[None], vp.to(x.dtype)[None],
+                                          causal=True, q_offset=start, alibi_slopes=slopes)
+            attn = attn.reshape(1, C, -1)
+        x = _attn_out(cfg, layer, x, attn)
+    return _final_logits(cfg, params, x[:, n - 1])[0], pools
+
+
+paged_prefill_chunk.plain_quant_calls = 0
+
+
+@torch.no_grad()
+def paged_decode(cfg: TransformerConfig, params: ParamTree, pools: Pools,
+                 last_tokens: torch.Tensor, positions: torch.Tensor,
+                 page_table: torch.Tensor, active: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Pools]:
+    """One token for every decode slot.
+
+    last_tokens: [B]; positions: [B] int32 position of that token;
+    page_table: [B, MP] int32 (trash-filled beyond each sequence's
+    pages); active: [B] bool.  Returns (logits [B, V], pools updated in
+    place)."""
+    quant = "k_scale" in pools
+    B = last_tokens.shape[0]
+    ps = pools["k"].shape[2]
+    trash = pools["k"].shape[1] - 1
+    x = _embed(cfg, params, last_tokens[:, None], positions.long()[:, None])  # [B, 1, H]
+    pos = positions.long()
+    # clamp the page lookup for inactive rows; their write goes to trash
+    page_idx = torch.where(
+        active,
+        page_table.long()[torch.arange(B, device=pos.device),
+                          torch.clamp(pos // ps, max=page_table.shape[1] - 1)],
+        torch.full_like(pos, trash))
+    off = pos % ps
+    slopes = _slopes(cfg, last_tokens.device)
+    for i, layer in enumerate(params.layers):
+        q, k, v = attn_qkv(cfg, layer, x, pos[:, None])
+        k_c, v_c = pools["k"][i], pools["v"][i]
+        ks_c = vs_c = None
+        if quant:
+            ks_c, vs_c = pools["k_scale"][i], pools["v_scale"][i]
+            kq, ksc = _kv_quantize(k[:, 0])
+            vq, vsc = _kv_quantize(v[:, 0])
+            k_c[page_idx, off] = kq
+            v_c[page_idx, off] = vq
+            ks_c[page_idx, off] = ksc
+            vs_c[page_idx, off] = vsc
+        else:
+            k_c[page_idx, off] = k[:, 0].to(k_c.dtype)
+            v_c[page_idx, off] = v[:, 0].to(v_c.dtype)
+        attn = paged_decode_attention(q[:, 0], k_c, v_c, page_table, positions,
+                                      k_scale=ks_c, v_scale=vs_c,
+                                      alibi_slopes=slopes).reshape(B, 1, -1)
+        x = _attn_out(cfg, layer, x, attn)
+    return _final_logits(cfg, params, x)[:, 0], pools
+
+
+def _row_seed(seed: int, sid: int, position: int) -> int:
+    """Counter-based per-(seed, request, position) stream id: a
+    splitmix64 mix of the three, so a row's noise never depends on its
+    slot or on what else is batched."""
+    z = (seed * 0x9E3779B97F4A7C15 + sid * 0xBF58476D1CE4E5B9
+         + position * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
+
+
+@torch.no_grad()
+def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, seed: int,
+                  sids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Greedy argmax, or Gumbel-max categorical at temperature > 0.
+
+    The noise of row b is drawn from a ``torch.Generator`` seeded from
+    (seed, sids[b], positions[b]) — the request's stable id and the
+    position the sampled token will occupy — never from the slot or the
+    dispatch, so a preempted-and-readmitted stream keeps its noise and
+    co-batched requests at equal positions never share it.  (The JAX
+    package folds a PRNG key the same way; the bits differ, greedy
+    decoding is the cross-framework parity gate.)  logits [B, V]; temps
+    [B] (<= 0 = greedy); sids/positions [B].  Returns [B] int32."""
+    z = logits.float()
+    out = torch.argmax(z, dim=-1).to(torch.int32)
+    temps_h = temps.tolist()
+    rows = [b for b, t in enumerate(temps_h) if t > 0.0]
+    if rows:
+        sids_h, pos_h = sids.tolist(), positions.tolist()
+        V = z.shape[-1]
+        noise = torch.empty((len(rows), V), dtype=torch.float32, device=z.device)
+        for j, b in enumerate(rows):
+            gen = torch.Generator(device=z.device)
+            gen.manual_seed(_row_seed(seed, int(sids_h[b]), int(pos_h[b])))
+            u = torch.rand((V,), generator=gen, device=z.device,
+                           dtype=torch.float32)
+            noise[j] = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
+        idx = torch.tensor(rows, device=z.device)
+        t = temps[idx].float().clamp(min=1e-6)[:, None]
+        out[idx] = torch.argmax(z[idx] / t + noise, dim=-1).to(torch.int32)
+    return out

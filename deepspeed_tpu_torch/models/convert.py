@@ -1,0 +1,83 @@
+"""The weight bridge between the JAX package and the port.
+
+The JAX parameter tree (``init_transformer_params`` layout: nested dicts,
+layers stacked on axis 0 as ``[L, ...]``, matmul weights ``[in, out]``)
+crosses as numpy arrays.  The port keeps the ``[in, out]`` layout
+(``x @ W``), so no leaf is transposed; the only reshaping is splitting
+the stacked layer axis into per-layer trees and back.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..accelerator import DeviceLike, resolve_device
+from .transformer import ParamTree, TransformerConfig
+
+
+def _to_tensor(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
+        # bfloat16 numpy arrays (ml_dtypes) are widened first: torch cannot
+        # read them directly
+        return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=dtype)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig,
+                      device: DeviceLike = None,
+                      dtype: torch.dtype = torch.float32) -> ParamTree:
+    """JAX parameter tree (numpy leaves) -> the port's ``ParamTree`` with
+    floating leaves cast to ``dtype`` on ``device`` (None means ``cuda``,
+    as everywhere in the port)."""
+    device = resolve_device(device)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else _to_tensor(v, device, dtype)
+                for k, v in node.items()}
+
+    out = {k: walk(v) for k, v in tree.items() if k != "layers"}
+    stacked = walk(tree["layers"])
+    n = cfg.n_layers
+    depth = {leaf.shape[0] for leaf in _leaves(stacked)}
+    if depth != {n}:
+        raise ValueError(f"stacked layer axis {sorted(depth)} != n_layers {n}")
+
+    def pick(node, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i].clone()
+                for k, v in node.items()}
+
+    out["layers"] = [pick(stacked, i) for i in range(n)]
+    return ParamTree(out)
+
+
+def params_to_numpy(params: ParamTree) -> Dict[str, Any]:
+    """The reverse: per-layer trees stacked back on axis 0, fp32 numpy."""
+
+    def walk(mod):
+        out = {}
+        for name, p in mod._parameters.items():
+            out[name] = p.detach().float().cpu().numpy()
+        for name, child in mod._modules.items():
+            if isinstance(child, torch.nn.ModuleList):
+                per = [walk(c) for c in child]
+                out[name] = _stack(per)
+            else:
+                out[name] = walk(child)
+        return out
+
+    return walk(params)
+
+
+def _leaves(node):
+    for v in node.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def _stack(trees):
+    first = trees[0]
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[k] for t in trees]) for k, v in first.items()}

@@ -1,0 +1,321 @@
+"""Transformer model core — the serving subset of ``deepspeed_tpu/models/
+transformer.py``.
+
+Parameters live in :class:`ParamTree` modules that mirror the JAX
+parameter tree name for name (``params.embed.tok``,
+``params.layers[i].attn.wq``), so the weight bridge (``convert.py``) is a
+mechanical walk.  Two differences from the JAX layout:
+
+* the JAX tree stacks layers on a leading ``[L, ...]`` axis for
+  ``lax.scan``; here ``params.layers`` is an ``nn.ModuleList`` with one
+  tree per layer, because PyTorch runs the layer loop eagerly;
+* matmul weights keep the JAX ``[in, out]`` layout (``x @ W``), so no
+  transposes cross the bridge.
+
+The functions below are plain functions on tensors with the JAX
+rounding points kept: ``_norm`` and ``_rope`` compute in fp32 and cast
+back, and the plain attention takes the softmax in fp32 and casts the
+probabilities back to the input dtype before the PV product.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..accelerator import DeviceLike, resolve_device
+
+#: ROADMAP items that bring the parts of the JAX model core this slice
+#: leaves out (named in the NotImplementedError each one raises)
+ROADMAP_MOE = "ROADMAP Queue 1 'Model families and MoE'"
+ROADMAP_WQ = "ROADMAP Queue 1 'Inference v1 and quantization'"
+
+
+@dataclasses.dataclass
+class TransformerConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: Optional[int] = None  # GQA; None => MHA
+    intermediate_size: Optional[int] = None  # None => 4x (gelu) / llama 8/3 rule
+    max_seq_len: int = 2048
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    activation: str = "swiglu"  # swiglu | gelu | gelu_exact | relu
+    position: str = "rope"  # rope | learned | alibi | none
+    causal: bool = True
+    #: bloom-style word_embeddings_layernorm on a pre-norm model
+    embed_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    use_bias: bool = False  # gpt2/bert style proj biases
+    qkv_bias: bool = False  # bias on q/k/v only (qwen2 style)
+    rotary_pct: float = 1.0  # fraction of head_dim under rope (phi/neox)
+    parallel_block: bool = False  # x + attn(ln x) + mlp(ln x)
+    parallel_norms: int = 1
+    post_norm: bool = False
+    dtype: torch.dtype = torch.float32  # params storage dtype at init
+    moe_experts: int = 0
+    head_dim_override: Optional[int] = None
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.hidden_size // self.n_heads
+
+    @property
+    def ffn_size(self) -> int:
+        if self.intermediate_size:
+            return self.intermediate_size
+        if self.activation == "swiglu":
+            return ((int(self.hidden_size * 8 / 3) + 255) // 256) * 256
+        return 4 * self.hidden_size
+
+
+class ParamTree(nn.Module):
+    """A named tree of parameters: tensor leaves become frozen
+    ``nn.Parameter``s, dict children become sub-trees, and a list of
+    dicts becomes an ``nn.ModuleList`` (the per-layer trees)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for name, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(name, nn.Parameter(v, requires_grad=False))
+            elif isinstance(v, dict):
+                self.add_module(name, ParamTree(v))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(name, nn.ModuleList(ParamTree(t) for t in v))
+            else:
+                raise TypeError(f"parameter leaf {name!r}: {type(v)}")
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def get(self, name: str, default: Any = None) -> Any:
+        return getattr(self, name) if name in self else default
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_transformer_params(cfg: TransformerConfig, generator: torch.Generator,
+                            device: torch.device) -> ParamTree:
+    """The JAX initialiser's tree and scales (normal, std 0.02; output
+    projections 0.02/sqrt(2L); norm scales 1, biases 0), drawn from
+    ``generator`` on ``device``.  torch and JAX draw different numbers
+    from the same seed: parity tests carry JAX's weights across with
+    ``convert.params_from_numpy`` instead."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(f"MoE layers are not ported yet ({ROADMAP_MOE})")
+    if cfg.post_norm:
+        raise NotImplementedError(
+            f"post-norm encoders are not ported yet ({ROADMAP_MOE})")
+    H, L = cfg.hidden_size, cfg.n_layers
+    D, NH, KVH = cfg.head_dim, cfg.n_heads, cfg.kv_heads
+    Fs, V = cfg.ffn_size, cfg.vocab_size
+    dt = cfg.dtype
+    std = 0.02
+    proj_out_std = std / math.sqrt(2 * L)
+
+    def nrm(*shape, s=std):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * s).to(dt)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dt)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=dt)
+
+    def norm():
+        n = {"scale": ones(H)}
+        if cfg.norm == "layernorm":
+            n["bias"] = zeros(H)
+        return n
+
+    p: Dict[str, Any] = {"embed": {"tok": nrm(V, H)}, "final_norm": norm()}
+    if cfg.embed_norm:
+        p["embed"]["norm"] = norm()
+    if cfg.position == "learned":
+        p["embed"]["pos"] = nrm(cfg.max_seq_len, H)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": nrm(H, V)}
+    layers = []
+    for _ in range(L):
+        attn = {"wq": nrm(H, NH * D), "wk": nrm(H, KVH * D),
+                "wv": nrm(H, KVH * D), "wo": nrm(NH * D, H, s=proj_out_std)}
+        if cfg.use_bias or cfg.qkv_bias:
+            attn.update(bq=zeros(NH * D), bk=zeros(KVH * D), bv=zeros(KVH * D))
+        if cfg.use_bias:
+            attn["bo"] = zeros(H)
+        if cfg.activation == "swiglu":
+            mlp = {"w_gate": nrm(H, Fs), "w_up": nrm(H, Fs),
+                   "w_down": nrm(Fs, H, s=proj_out_std)}
+        else:
+            mlp = {"w_up": nrm(H, Fs), "w_down": nrm(Fs, H, s=proj_out_std)}
+        if cfg.use_bias:
+            mlp.update(b_up=zeros(Fs), b_down=zeros(H))
+        layer = {"attn": attn, "mlp": mlp, "norm1": norm()}
+        if not cfg.parallel_block or cfg.parallel_norms >= 2:
+            layer["norm2"] = norm()
+        layers.append(layer)
+    p["layers"] = layers
+    return ParamTree(p)
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+def _mm(cfg: TransformerConfig, x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``x @ W``: the weight-access seam.  Weight-only quantized
+    ``{"wq", "scale"}`` leaves are not ported in this slice."""
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(
+            f"weight-only quantized weights are not ported yet ({ROADMAP_WQ})")
+    return x @ w
+
+
+def _norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+          kind: str, eps: float) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        out = xf * scale.float()
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+        if bias is not None:
+            out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def _rope(x: torch.Tensor, theta: float, positions: torch.Tensor,
+          pct: float = 1.0) -> torch.Tensor:
+    """Rotary embedding on [..., S, NH, D] (split-half rotation, fp32
+    angles); ``pct`` < 1 rotates only the leading fraction of the head
+    dim (phi/gpt-neox partial rotary).  positions: [B, S]."""
+    d_full = x.shape[-1]
+    d = d_full if pct >= 1.0 else (int(d_full * pct) // 2) * 2
+    x_rot, x_pass = x[..., :d], x[..., d:]
+    freqs = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32, device=x.device)
+                      / d * math.log(theta))
+    angles = positions[:, :, None, None].float() * freqs  # [B, S, 1, d/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return out if d == d_full else torch.cat([out, x_pass], dim=-1)
+
+
+def alibi_slopes(n_heads: int, device: DeviceLike = None) -> torch.Tensor:
+    """ALiBi per-head slopes (Press et al.; HF bloom's build_alibi_tensor),
+    on ``device`` (None means ``cuda``)."""
+    device = resolve_device(device)
+    p = 2 ** math.floor(math.log2(n_heads))
+    base = [2 ** (-(2 ** -(math.log2(p) - 3)) * (i + 1)) for i in range(p)]
+    if p < n_heads:
+        base += [2 ** (-(2 ** -(math.log2(2 * p) - 3)) * (i + 1))
+                 for i in range(0, 2 * (n_heads - p), 2)]
+    return torch.tensor(base, dtype=torch.float32, device=device)
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, KVH, D] -> [B, S, KVH * n_rep, D] (jnp.repeat on axis 2)."""
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, mask: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain attention, [B, S, NH, D] (k/v already repeated to NH
+    heads): scores in the input dtype, fp32 softmax, probabilities cast
+    back before the PV product.  ``bias`` is broadcastable to
+    [B, NH, S_q, S_k]; ``mask`` is a [B, S_k] keep-mask."""
+    d = q.shape[-1]
+    scores = torch.einsum("bsnd,btnd->bnst", q, k).float() / math.sqrt(d)
+    if bias is not None:
+        scores = scores + bias
+    if causal:
+        s_q, s_k = scores.shape[-2], scores.shape[-1]
+        cmask = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device).tril(s_k - s_q)
+        scores = torch.where(cmask, scores, torch.full_like(scores, -1e30))
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, :].bool(), scores,
+                             torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v)
+
+
+def attn_qkv(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
+             positions: torch.Tensor):
+    """norm1 + QKV projection + rope.  x: [B, T, H] -> q [B, T, NH, D],
+    k/v [B, T, KVH, D] (pre-GQA-repeat).  positions: [B, T]."""
+    B, T, _ = x.shape
+    NH, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    a = layer.attn
+    qb = cfg.use_bias or cfg.qkv_bias
+    h = x if cfg.post_norm else _norm(x, layer.norm1.scale,
+                                      layer.norm1.get("bias"), cfg.norm,
+                                      cfg.norm_eps)
+    q = _mm(cfg, h, a.wq)
+    k = _mm(cfg, h, a.wk)
+    v = _mm(cfg, h, a.wv)
+    if qb:
+        q, k, v = q + a.bq, k + a.bk, v + a.bv
+    q, k, v = q.reshape(B, T, NH, D), k.reshape(B, T, KVH, D), v.reshape(B, T, KVH, D)
+    if cfg.position == "rope":
+        q = _rope(q, cfg.rope_theta, positions, cfg.rotary_pct)
+        k = _rope(k, cfg.rope_theta, positions, cfg.rotary_pct)
+    return q, k, v
+
+
+def mlp_block(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor
+              ) -> torch.Tensor:
+    """norm2 + FFN with residual: ``x + ffn(norm(x))``.  A parallel block
+    with one shared norm (falcon-7b/phi) reads norm1."""
+    ln = layer.norm1 if cfg.parallel_block and cfg.parallel_norms < 2 else layer.norm2
+    h = _norm(x, ln.scale, ln.get("bias"), cfg.norm, cfg.norm_eps)
+    return x + _ffn(cfg, layer, h)
+
+
+def _ffn(cfg: TransformerConfig, layer: ParamTree, h: torch.Tensor) -> torch.Tensor:
+    """The raw dense FFN (no norm, no residual)."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(f"MoE layers are not ported yet ({ROADMAP_MOE})")
+    m = layer.mlp
+    if cfg.activation == "swiglu":
+        return _mm(cfg, F.silu(_mm(cfg, h, m.w_gate)) * _mm(cfg, h, m.w_up), m.w_down)
+    if cfg.activation == "relu":
+        act = F.relu
+    elif cfg.activation == "gelu_exact":
+        act = F.gelu
+    else:  # "gelu" = tanh approximation (HF gelu_new)
+        act = lambda t: F.gelu(t, approximate="tanh")  # noqa: E731
+    up = _mm(cfg, h, m.w_up)
+    if cfg.use_bias:
+        up = up + m.b_up
+    out = _mm(cfg, act(up), m.w_down)
+    if cfg.use_bias:
+        out = out + m.b_down
+    return out
+
+
+def logits_fn(cfg: TransformerConfig, params: ParamTree,
+              hidden: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return hidden @ params.embed.tok.T
+    out = _mm(cfg, hidden, params.lm_head.w)
+    b = params.lm_head.get("b")
+    return out if b is None else out + b

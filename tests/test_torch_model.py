@@ -1,0 +1,200 @@
+"""The port's model core vs the JAX package's, on the JAX package's own
+initialised weights carried across as numpy (``params_from_numpy``).
+
+Tolerances: fp32 1e-5 (same formulas, same rounding points; CPU matmul
+summation order differs); bf16 2e-2 relative (bf16 matmuls round their
+outputs, and XLA and PyTorch accumulate in different orders)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.models import llama as jllama
+from deepspeed_tpu.models import transformer as jt
+from deepspeed_tpu_torch.models import llama as tllama
+from deepspeed_tpu_torch.models import transformer as tt
+from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+
+torch.set_num_threads(2)
+
+TOL = {"fp32": 1e-5, "bf16": 2e-2}
+JNP = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+CONFIGS = {
+    "tiny": dict(size="tiny"),
+    # narrow GQA: hidden 128, 4 layers, 8 heads over 2 kv heads, vocab 512
+    "gqa": dict(size="tiny", hidden_size=128, n_layers=4, n_heads=8,
+                n_kv_heads=2, intermediate_size=256, vocab_size=512),
+}
+
+
+def _configs(name):
+    kw = dict(CONFIGS[name])
+    size = kw.pop("size")
+    return (jllama.llama_config(size, max_seq_len=64, **kw),
+            tllama.llama_config(size, max_seq_len=64, **kw))
+
+
+def _weights(jcfg, tcfg, dt, seed=0):
+    """JAX init -> numpy (fp32) -> (JAX tree in dt, port ParamTree in dt)."""
+    tree = jax.tree_util.tree_map(np.asarray, jt.init_transformer_params(
+        jcfg, jax.random.PRNGKey(seed)))
+    jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, JNP[dt]), tree)
+    return tree, jp, params_from_numpy(tree, tcfg, "cpu", TORCH[dt])
+
+
+def _layer(jp, i):
+    return jax.tree_util.tree_map(lambda a: a[i], jp["layers"])
+
+
+def _close(got, want, dt):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL[dt], rtol=TOL[dt])
+
+
+def _x(shape, dt, seed=1):
+    a = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    return jnp.asarray(a, JNP[dt]), torch.from_numpy(a).to(TORCH[dt])
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_norm(kind, dt):
+    xj, xt = _x((2, 5, 32), dt)
+    s = np.random.RandomState(2).rand(32).astype(np.float32) + 0.5
+    b = np.random.RandomState(3).randn(32).astype(np.float32)
+    want = jt._norm(xj, jnp.asarray(s, JNP[dt]), jnp.asarray(b, JNP[dt]), kind, 1e-5)
+    got = tt._norm(xt, torch.from_numpy(s).to(TORCH[dt]),
+                   torch.from_numpy(b).to(TORCH[dt]), kind, 1e-5)
+    assert got.dtype == TORCH[dt]
+    _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("pct", [1.0, 0.5])
+def test_rope(pct, dt):
+    xj, xt = _x((2, 7, 4, 32), dt)
+    pos = np.array([[3, 4, 5, 6, 7, 8, 9], [100, 101, 102, 103, 104, 105, 106]])
+    want = jt._rope(xj, 10000.0, jnp.asarray(pos), pct)
+    got = tt._rope(xt, 10000.0, torch.from_numpy(pos), pct)
+    _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["tiny", "gqa"])
+def test_attn_qkv(name, dt):
+    jcfg, tcfg = _configs(name)
+    _, jp, tp = _weights(jcfg, tcfg, dt)
+    xj, xt = _x((2, 6, jcfg.hidden_size), dt)
+    pos = np.tile(np.arange(6)[None] + 3, (2, 1))
+    want = jt.attn_qkv(jcfg, _layer(jp, 1), xj, jnp.asarray(pos))
+    got = tt.attn_qkv(tcfg, tp.layers[1], xt, torch.from_numpy(pos))
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        _close(g, w, dt)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["tiny", "gqa"])
+def test_mlp_block(name, dt):
+    jcfg, tcfg = _configs(name)
+    _, jp, tp = _weights(jcfg, tcfg, dt)
+    xj, xt = _x((2, 6, jcfg.hidden_size), dt)
+    want, _ = jt.mlp_block(jcfg, _layer(jp, 0), xj, training=False)
+    _close(tt.mlp_block(tcfg, tp.layers[0], xt), want, dt)
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_exact", "relu"])
+def test_mlp_block_dense_activations_with_bias(act):
+    """Non-llama FFNs: layernorm + biased up/down projections."""
+    kw = dict(vocab_size=64, hidden_size=32, n_layers=2, n_heads=4, max_seq_len=32,
+              norm="layernorm", activation=act, position="learned", use_bias=True)
+    jcfg = jt.TransformerConfig(**kw)
+    tcfg = tt.TransformerConfig(**kw)
+    tree, jp, tp = _weights(jcfg, tcfg, "fp32")
+    # non-zero biases so the bias terms are exercised
+    rng = np.random.RandomState(4)
+    for name in ("b_up", "b_down"):
+        tree["layers"]["mlp"][name] = rng.randn(*tree["layers"]["mlp"][name].shape
+                                                ).astype(np.float32)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = params_from_numpy(tree, tcfg, "cpu")
+    xj, xt = _x((1, 5, 32), "fp32")
+    want, _ = jt.mlp_block(jcfg, _layer(jp, 1), xj, training=False)
+    _close(tt.mlp_block(tcfg, tp.layers[1], xt), want, "fp32")
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("tie", [False, True])
+def test_logits_fn(tie, dt):
+    jcfg, tcfg = _configs("gqa")
+    jcfg = dataclasses.replace(jcfg, tie_embeddings=tie)
+    tcfg = dataclasses.replace(tcfg, tie_embeddings=tie)
+    _, jp, tp = _weights(jcfg, tcfg, dt)
+    xj, xt = _x((2, 3, jcfg.hidden_size), dt)
+    _close(tt.logits_fn(tcfg, tp, xt), jt.logits_fn(jcfg, jp, xj), dt)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True), (True, True)])
+def test_xla_attention(causal, masked, dt):
+    """The plain attention (kv already repeated), with an end-aligned
+    causal mask over Sq < Sk, a [B, Sk] keep-mask and an additive bias."""
+    qj, qt = _x((2, 5, 4, 16), dt, seed=5)
+    kj, kt = _x((2, 7, 4, 16), dt, seed=6)
+    vj, vt = _x((2, 7, 4, 16), dt, seed=7)
+    bias = np.random.RandomState(8).randn(1, 4, 5, 7).astype(np.float32)
+    keep = np.ones((2, 7), bool)
+    keep[1, :3] = False
+    mj, mt = (jnp.asarray(keep), torch.from_numpy(keep)) if masked else (None, None)
+    want = jt.xla_attention(qj, kj, vj, causal, mj, bias=jnp.asarray(bias))
+    got = tt.xla_attention(qt, kt, vt, causal, mt, bias=torch.from_numpy(bias))
+    _close(got, want, dt)
+
+
+def test_alibi_slopes_match():
+    for n in (4, 8, 12, 32):
+        np.testing.assert_array_equal(tt.alibi_slopes(n, device="cpu").numpy(),
+                                      np.asarray(jt.alibi_slopes(n)))
+
+
+def test_weight_bridge_round_trip_and_layout():
+    jcfg, tcfg = _configs("gqa")
+    tree, _, tp = _weights(jcfg, tcfg, "fp32")
+    assert len(tp.layers) == jcfg.n_layers
+    assert tuple(tp.layers[2].attn.wk.shape) == tree["layers"]["attn"]["wk"].shape[1:]
+    back = params_to_numpy(tp)
+    flat_a = jax.tree_util.tree_leaves_with_path(tree)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, a in flat_a:
+        np.testing.assert_array_equal(flat_b[path], a)
+
+
+def test_init_shapes_match_jax_tree():
+    """The port's own seeded init builds the JAX tree, leaf for leaf."""
+    jcfg, tcfg = _configs("gqa")
+    tree = jax.eval_shape(lambda k: jt.init_transformer_params(jcfg, k),
+                          jax.random.PRNGKey(0))
+    mine = params_to_numpy(tllama.llama_model(config=tcfg).init_params(
+        torch.Generator().manual_seed(0), "cpu"))
+    want = {jax.tree_util.keystr(p): leaf.shape
+            for p, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+    got = {jax.tree_util.keystr(p): leaf.shape
+           for p, leaf in jax.tree_util.tree_leaves_with_path(mine)}
+    assert got == want
+
+
+def test_not_ported_model_features_raise():
+    cfg = tt.TransformerConfig(vocab_size=32, hidden_size=16, n_layers=1, n_heads=2,
+                               moe_experts=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tt.init_transformer_params(cfg, torch.Generator(), "cpu")
+    cfg = tt.TransformerConfig(vocab_size=32, hidden_size=16, n_layers=1, n_heads=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tt._mm(cfg, torch.zeros(1, 16), {"wq": None, "scale": None})

@@ -34,7 +34,7 @@ from ...accelerator import resolve_device
 from ...models.convert import params_from_numpy
 from ...models.transformer import ParamTree, TransformerConfig
 from ...runtime.config_utils import ConfigModel
-from ...runtime.precision import cast_params
+from ...runtime.precision import cast_tree
 from ...utils.logging import logger
 from .model_runner import (paged_decode, paged_prefill, paged_prefill_chunk,
                            sample_tokens)
@@ -197,7 +197,7 @@ class InferenceEngineV2:
             params = params_from_numpy(params, self.cfg, self.device, dtype)
         elif not isinstance(params, ParamTree):
             raise TypeError(f"params must be a ParamTree or a numpy tree, not {type(params)}")
-        self.params = cast_params(params.to(self.device), dtype)
+        self.params = cast_tree(params.to(self.device), dtype)
         self.param_bytes = sum(p.numel() * p.element_size()
                                for p in self.params.parameters())
         self._pools = PagedKVCache.init(

@@ -1,5 +1,11 @@
 """The weight bridge between the JAX package and the port.
 
+Training: ``deepspeed_tpu_torch.initialize(model_parameters=tree)`` adopts a
+JAX-layout numpy tree (or a port ``ParamTree``) leaf for leaf through
+:func:`adopt_params`, and ``params_to_numpy(engine.get_params())`` gives the
+fp32 master back in the JAX layout, so tests compare master weights after N
+steps of both engines.
+
 The JAX parameter tree (``init_transformer_params`` layout: nested dicts,
 layers stacked on axis 0 as ``[L, ...]``, matmul weights ``[in, out]``)
 crosses as numpy arrays.  The port keeps the ``[in, out]`` layout
@@ -81,3 +87,19 @@ def _stack(trees):
     first = trees[0]
     return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
             else np.stack([t[k] for t in trees]) for k, v in first.items()}
+
+
+def adopt_params(given: Any, cfg: TransformerConfig, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32) -> ParamTree:
+    """Parameters handed to the training engine: a JAX-layout tree of numpy
+    arrays (converted by :func:`params_from_numpy`) or a ``ParamTree``,
+    copied leaf for leaf into ``dtype`` on ``device`` — the caller's
+    tensors are never updated in place by the optimizer."""
+    device = resolve_device(device)
+    if isinstance(given, ParamTree):
+        return given.map(lambda t: t.to(device=device, dtype=dtype, copy=True)
+                         if t.is_floating_point() else t.to(device=device, copy=True))
+    if isinstance(given, dict):
+        return params_from_numpy(given, cfg, device, dtype)
+    raise TypeError(f"model_parameters: a JAX-layout dict of arrays or a ParamTree, "
+                    f"got {type(given)}")

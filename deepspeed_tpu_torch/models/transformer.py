@@ -1,5 +1,5 @@
-"""Transformer model core — the serving subset of ``deepspeed_tpu/models/
-transformer.py``.
+"""Transformer model core — the serving and single-device training subset
+of ``deepspeed_tpu/models/transformer.py``.
 
 Parameters live in :class:`ParamTree` modules that mirror the JAX
 parameter tree name for name (``params.embed.tok``,
@@ -12,6 +12,12 @@ mechanical walk.  Two differences from the JAX layout:
 * matmul weights keep the JAX ``[in, out]`` layout (``x @ W``), so no
   transposes cross the bridge.
 
+The training forward (:func:`transformer_forward`, :func:`causal_lm_loss`)
+runs the layers as a Python loop where JAX scans them, and differentiates
+through PyTorch autograd; attention goes through :func:`_pick_attn`, which
+takes the flash kernels (forward A, backward A' and A'') on a CUDA device
+and the plain attention on the CPU, as JAX picks flash on the TPU.
+
 The functions below are plain functions on tensors with the JAX
 rounding points kept: ``_norm`` and ``_rope`` compute in fp32 and cast
 back, and the plain attention takes the softmax in fp32 and casts the
@@ -22,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +40,8 @@ from ..accelerator import DeviceLike, resolve_device
 #: leaves out (named in the NotImplementedError each one raises)
 ROADMAP_MOE = "ROADMAP Queue 1 'Model families and MoE'"
 ROADMAP_WQ = "ROADMAP Queue 1 'Inference v1 and quantization'"
+ROADMAP_SP = "ROADMAP Queue 1 'Sequence parallelism'"
+ROADMAP_REMAT = "ROADMAP Queue 1 #2b 'Activation checkpointing'"
 
 
 @dataclasses.dataclass
@@ -61,7 +69,15 @@ class TransformerConfig:
     parallel_norms: int = 1
     post_norm: bool = False
     dtype: torch.dtype = torch.float32  # params storage dtype at init
+    #: the JAX config's dropout field, which its model core never applies;
+    #: only 0.0 is accepted here
+    dropout: float = 0.0
+    #: activation checkpointing of each block (True raises: not ported yet)
+    remat: bool = False
+    attn_impl: str = "auto"  # auto | xla | flash (ulysses | ring | fpdt raise)
     moe_experts: int = 0
+    #: tiled logits + loss: sequence chunk size (0 = off)
+    loss_chunk: int = 0
     head_dim_override: Optional[int] = None
 
     @property
@@ -82,19 +98,21 @@ class TransformerConfig:
 
 
 class ParamTree(nn.Module):
-    """A named tree of parameters: tensor leaves become frozen
-    ``nn.Parameter``s, dict children become sub-trees, and a list of
-    dicts becomes an ``nn.ModuleList`` (the per-layer trees)."""
+    """A named tree of parameters: tensor leaves become ``nn.Parameter``s,
+    dict children become sub-trees, and a list of dicts becomes an
+    ``nn.ModuleList`` (the per-layer trees).  Leaves are frozen unless
+    ``requires_grad`` (the training engine's compute copy)."""
 
-    def __init__(self, tree: Dict[str, Any]):
+    def __init__(self, tree: Dict[str, Any], requires_grad: bool = False):
         super().__init__()
         for name, v in tree.items():
             if isinstance(v, torch.Tensor):
-                self.register_parameter(name, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=requires_grad and v.is_floating_point()))
             elif isinstance(v, dict):
-                self.add_module(name, ParamTree(v))
+                self.add_module(name, ParamTree(v, requires_grad))
             elif isinstance(v, (list, tuple)):
-                self.add_module(name, nn.ModuleList(ParamTree(t) for t in v))
+                self.add_module(name, nn.ModuleList(ParamTree(t, requires_grad) for t in v))
             else:
                 raise TypeError(f"parameter leaf {name!r}: {type(v)}")
 
@@ -103,6 +121,20 @@ class ParamTree(nn.Module):
 
     def get(self, name: str, default: Any = None) -> Any:
         return getattr(self, name) if name in self else default
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor],
+            requires_grad: bool = False) -> "ParamTree":
+        """A new tree of the same structure with ``fn`` applied to every
+        leaf (e.g. the training engine's compute-dtype copy)."""
+
+        def walk(mod: nn.Module) -> Dict[str, Any]:
+            out: Dict[str, Any] = {n: fn(p.detach()) for n, p in mod._parameters.items()}
+            for n, child in mod._modules.items():
+                out[n] = ([walk(c) for c in child] if isinstance(child, nn.ModuleList)
+                          else walk(child))
+            return out
+
+        return ParamTree(walk(self), requires_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -319,3 +351,162 @@ def logits_fn(cfg: TransformerConfig, params: ParamTree,
     out = _mm(cfg, hidden, params.lm_head.w)
     b = params.lm_head.get("b")
     return out if b is None else out + b
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss
+# ---------------------------------------------------------------------------
+def _pick_attn(cfg: TransformerConfig, device: torch.device) -> Callable:
+    """The attention for ``cfg.attn_impl``: "auto" takes flash on a CUDA
+    device and the plain attention on the CPU (JAX: flash on the TPU);
+    "flash" takes the flash path on either (on the CPU its plain forward and
+    backward); "xla" the plain attention.  Flash reads grouped KV heads
+    itself and builds ALiBi from the indices."""
+    impl = cfg.attn_impl
+    if impl in ("ulysses", "ring", "fpdt"):
+        raise NotImplementedError(f"attn_impl={impl!r} is not ported yet ({ROADMAP_SP})")
+    if impl not in ("auto", "xla", "flash"):
+        raise ValueError(f"unknown attn_impl {impl!r}")
+    if impl == "auto":
+        impl = "flash" if device.type == "cuda" else "xla"
+    if impl == "xla":
+        return xla_attention
+    from ..ops.flash_attention import flash_attention
+
+    def fn(q, k, v, causal, mask=None, alibi=None):
+        return flash_attention(q, k, v, causal=causal, segment_mask=mask, alibi_slopes=alibi)
+
+    fn.handles_gqa = True
+    fn.handles_alibi = True
+    return fn
+
+
+def _block(cfg: TransformerConfig, x: torch.Tensor, layer: ParamTree,
+           positions: torch.Tensor, mask: Optional[torch.Tensor],
+           attn_fn: Callable) -> torch.Tensor:
+    """One transformer block, [B, S, H] -> [B, S, H]."""
+    B, S, _ = x.shape
+    NH, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q, k, v = attn_qkv(cfg, layer, x, positions)
+    if not getattr(attn_fn, "handles_gqa", False):
+        k = _repeat_kv(k, NH // KVH)
+        v = _repeat_kv(v, NH // KVH)
+    if cfg.position == "alibi":
+        slopes = alibi_slopes(NH, device=x.device)
+        if getattr(attn_fn, "handles_alibi", False):
+            attn = attn_fn(q, k, v, cfg.causal, mask, alibi=slopes)
+        else:
+            rel = (positions[:, None, :, None] - positions[:, None, None, :]).float()
+            attn = attn_fn(q, k, v, cfg.causal, mask, bias=-slopes[None, :, None, None] * rel)
+    else:
+        attn = attn_fn(q, k, v, cfg.causal, mask)
+    attn_delta = _mm(cfg, attn.reshape(B, S, NH * D), layer.attn.wo)
+    if cfg.use_bias:
+        attn_delta = attn_delta + layer.attn.bo
+    if cfg.parallel_block:
+        return mlp_block(cfg, layer, x) + attn_delta
+    return mlp_block(cfg, layer, x + attn_delta)
+
+
+def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, S] int tokens -> ([B, S, H] final hidden states, aux loss (0 for
+    dense models)).  The JAX ``lax.scan`` over the stacked layers is a
+    loop over the per-layer trees."""
+    if cfg.remat:
+        raise NotImplementedError(f"remat is not ported yet ({ROADMAP_REMAT})")
+    if cfg.dropout:
+        raise ValueError("dropout: the model core applies none (the JAX package's field is "
+                         "unused too); leave it at 0.0")
+    if cfg.post_norm or cfg.moe_experts > 0:
+        raise NotImplementedError(
+            f"post-norm encoders and MoE layers are not ported yet ({ROADMAP_MOE})")
+    B, S = input_ids.shape
+    x = params.embed.tok[input_ids]
+    positions = torch.arange(S, device=input_ids.device).expand(B, S)
+    if cfg.position == "learned":
+        x = x + params.embed.pos[:S][None]
+    if "norm" in params.embed:
+        n = params.embed.norm
+        x = _norm(x, n.scale, n.get("bias"), cfg.norm, cfg.norm_eps)
+    attn_fn = _pick_attn(cfg, x.device)
+    for layer in params.layers:
+        x = _block(cfg, x, layer, positions, mask, attn_fn)
+    fn = params.final_norm
+    hidden = _norm(x, fn.scale, fn.get("bias"), cfg.norm, cfg.norm_eps)
+    return hidden, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def nll_pick(logp: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-logp[target] (JAX contracts with a one-hot for its partitioner; a
+    gather picks the same value and has the same gradient)."""
+    return -logp.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def _tiled_nll(cfg: TransformerConfig, params: ParamTree, hidden: torch.Tensor,
+               targets: torch.Tensor, mask: Optional[torch.Tensor], chunk: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum of the NLL and of the mask over sequence chunks, each chunk's
+    logits recomputed in the backward (``torch.utils.checkpoint``), so the
+    full [B, S, V] logits never exist at once."""
+    from torch.utils.checkpoint import checkpoint
+
+    def chunk_nll(h, t, m):
+        logp = torch.log_softmax(logits_fn(cfg, params, h).float(), dim=-1)
+        return (nll_pick(logp, t) * m).sum(), m.sum()
+
+    S = hidden.shape[1]
+    nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, chunk):
+        h, t = hidden[:, s0:s0 + chunk], targets[:, s0:s0 + chunk]
+        m = (mask[:, s0:s0 + chunk] if mask is not None
+             else torch.ones(t.shape, dtype=torch.float32, device=t.device))
+        ds, dc = checkpoint(chunk_nll, h, t, m, use_reentrant=False)
+        nll_sum, cnt = nll_sum + ds, cnt + dc
+    return nll_sum, cnt
+
+
+def causal_lm_loss(cfg: TransformerConfig, params: ParamTree, batch: Any,
+                   rng: Any = None) -> torch.Tensor:
+    """Next-token cross entropy.  batch: dict(input_ids, optional labels,
+    optional attention_mask) or a raw [B, S] token tensor."""
+    if isinstance(batch, dict):
+        ids = batch["input_ids"]
+        labels = batch.get("labels", ids)
+        mask = batch.get("attention_mask")
+    else:
+        ids, labels, mask = batch, batch, None
+    hidden, aux = transformer_forward(cfg, params, ids, mask)
+    hidden = hidden[:, :-1]
+    targets = labels[:, 1:]
+    m = mask[:, 1:].float() if mask is not None else None
+    if cfg.loss_chunk and hidden.shape[1] > cfg.loss_chunk:
+        if hidden.shape[1] % cfg.loss_chunk == 0:
+            nll_sum, cnt = _tiled_nll(cfg, params, hidden, targets, m, cfg.loss_chunk)
+            return nll_sum / torch.clamp_min(cnt, 1.0) + aux
+        from ..utils.logging import warning_once
+
+        warning_once(f"loss_chunk={cfg.loss_chunk} does not divide sequence "
+                     f"{hidden.shape[1]} (seq_len-1); materializing the full [B, S, V] "
+                     f"logits — pick a loss_chunk dividing seq_len-1")
+    logp = torch.log_softmax(logits_fn(cfg, params, hidden).float(), dim=-1)
+    nll = nll_pick(logp, targets)
+    if m is not None:
+        return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0) + aux
+    return nll.mean() + aux
+
+
+def param_count(cfg: TransformerConfig) -> int:
+    """Stored parameter count of a dense model."""
+    mlp = cfg.hidden_size * cfg.ffn_size * (3 if cfg.activation == "swiglu" else 2)
+    return (cfg.vocab_size * cfg.hidden_size * (1 if cfg.tie_embeddings else 2)
+            + cfg.n_layers * (cfg.hidden_size * cfg.head_dim * (cfg.n_heads + 2 * cfg.kv_heads)
+                              + cfg.n_heads * cfg.head_dim * cfg.hidden_size + mlp))
+
+
+def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
+    """6 * N + attention flops per token (training forward and backward),
+    the JAX formula for a dense model."""
+    return 6.0 * param_count(cfg) + 12 * cfg.n_layers * cfg.hidden_size * seq_len

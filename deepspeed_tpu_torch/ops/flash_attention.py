@@ -1,28 +1,39 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_attention_fwd.cu``
-and its plain PyTorch version.
+"""Flash attention: the CUDA kernels ``csrc/flash_attention_fwd.cu``
+(forward) and ``csrc/flash_attention_bwd.cu`` (dQ; dK and dV), their plain
+PyTorch versions, and the autograd function the training path calls.
 
-Replaces the TPU kernel ``deepspeed_tpu/ops/pallas/flash_attention.py``
-``_fwd_kernel`` (forward only; the dq/dkv backward kernels come with the
-training slice).  Layout at the public functions is the JAX package's:
-q ``[B, Sq, NH, D]``, k/v ``[B, Sk, KVH, D]`` with ``NH % KVH == 0``
-(query head h reads KV head ``h // (NH // KVH)``).  The kernel reads these
+Replaces the TPU kernels of ``deepspeed_tpu/ops/pallas/flash_attention.py``:
+``_fwd_kernel`` (kernel A), ``_bwd_dq_kernel`` (kernel A') and
+``_bwd_dkv_kernel`` (kernel A''), and with them ``_flash_bhsd``'s custom
+VJP.  Layout at the public functions is the JAX package's: q
+``[B, Sq, NH, D]``, k/v ``[B, Sk, KVH, D]`` with ``NH % KVH == 0`` (query
+head h reads KV head ``h // (NH // KVH)``).  The kernels read these
 through their strides, so strided views (the QKV projection reshaped)
 need no copy.
 
-:func:`flash_attention_fwd` launches the kernel for CUDA tensors and runs
-:func:`flash_attention_fwd_plain` for CPU tensors — the tensor's device
-is the only switch, and a CUDA tensor the kernel cannot take raises.
-Each launch adds one to ``flash_attention_fwd.launches``.
+Each wrapper (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
+:func:`flash_attention_bwd_dkv`) launches its kernel for CUDA tensors and
+runs the plain version for CPU tensors — the tensor's device is the only
+switch, and a CUDA tensor the kernel cannot take raises.  Each launch adds
+one to the wrapper's ``launches``.
 
-On the card the kernel and the plain version differ by rounding: the
-kernel keeps the scores, the softmax statistics and the output sums in
+:func:`flash_attention` is the training entry (the counterpart of the JAX
+``flash_attention``): a ``torch.autograd.Function`` whose forward is kernel
+A and whose backward is kernels A' and A''.
+
+On the card the forward kernel and its plain version differ by rounding:
+the kernel keeps the scores, the softmax statistics and the output sums in
 fp32 and rounds only the probabilities (the PV operand) to the input
 dtype, while the plain version (the XLA formulation of the JAX prefill
 programs) also forms the scores in the input dtype.  Against the plain
 version computed in fp32 from the same inputs, the kernel's output is
 within its own rounding plus ~3.5e-3 (bf16) and its LSE within ~1e-6
 (``chip_smoke.FLASH_TOL``, ``LSE_TOL``); fp32 runs on the FMA pipes in
-fp32 throughout.
+fp32 throughout.  The backward kernels keep every sum in fp32, as the TPU
+ones do; in bf16/fp16 they round P and dS to the input dtype as
+tensor-core operands, which their plain version (fp32 throughout, like
+the TPU kernels) does not; in fp32 they run on the FMA pipes and differ
+from it by summation order only (``chip_smoke.FLASH_BWD_TOL``).
 """
 
 from __future__ import annotations
@@ -47,6 +58,13 @@ _SIG = {"dstpu_flash_attention_fwd": [
     _I, _I, _I, ctypes.c_float,        # valid_k q_offset causal sm_scale
     _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v strides (b, s, h)
     _P]}                               # stream
+_BWD_COMMON = [
+    _P, _P, _P, _P, _P, _P, _P,        # q k v dO lse delta slopes
+    _I, _I, _I, _I, _I, _I, _I,        # dtype B NH KVH Sq Sk D
+    _I, ctypes.c_float,                # causal sm_scale
+    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L]  # q/k/v/dO strides (b, s, h)
+_BWD_SIG = {"dstpu_flash_attention_bwd_dq": _BWD_COMMON + [_P, _P],  # dq stream
+            "dstpu_flash_attention_bwd_dkv": _BWD_COMMON + [_P, _P, _P]}  # dk dv stream
 
 
 def _rows_ok(t: torch.Tensor) -> bool:
@@ -146,3 +164,212 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention_fwd.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# backward: kernels A' (dQ) and A'' (dK, dV)
+# ---------------------------------------------------------------------------
+def _bwd_from_delta(q, k, v, do, lse, delta, causal, sm_scale, alibi_slopes):
+    """dq, dk, dv by the recompute formulas in fp32 (not autograd of the
+    forward); ``delta`` = rowsum(O * dO) as ``[B, NH, Sq]``."""
+    B, Sq, NH, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    g = NH // KVH
+    scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    kk = torch.repeat_interleave(kf, g, dim=2) if g > 1 else kf
+    vv = torch.repeat_interleave(vf, g, dim=2) if g > 1 else vf
+    s = torch.einsum("btnd,bsnd->bnts", qf, kk) * scale
+    rows = torch.arange(Sq, device=q.device)
+    cols = torch.arange(Sk, device=q.device)
+    if alibi_slopes is not None:
+        rel = (rows[:, None] - cols[None, :]).float()
+        s = s - alibi_slopes.to(device=q.device, dtype=torch.float32)[:, None, None] * rel
+    vis = (rows[:, None] >= cols[None, :]) if causal else torch.ones(
+        (Sq, Sk), dtype=torch.bool, device=q.device)
+    p = torch.where(vis, torch.exp(s - lse[..., None].float()), torch.zeros_like(s))
+    dp = torch.einsum("btnd,bsnd->bnts", dof, vv)
+    ds = p * (dp - delta[..., None].float()) * scale
+    dq = torch.einsum("bnts,bsnd->btnd", ds, kk)
+    dk = torch.einsum("bnts,btnd->bsnd", ds, qf).reshape(B, Sk, KVH, g, D).sum(3)
+    dv = torch.einsum("bnts,btnd->bsnd", p, dof).reshape(B, Sk, KVH, g, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(O * dO) in fp32 as ``[B, NH, Sq]`` (``flash_attention.py:243``)."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, sm_scale: Optional[float] = None,
+                              alibi_slopes: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of kernels A' and A'': P recomputed from q, k and
+    ``lse`` ``[B, NH, Sq]``, dS = P * (dO V^T - delta) * scale, and dQ = dS K,
+    dK = dS^T Q and dV = P^T dO, the last two summed over each KV head's
+    query heads, all in fp32.  Returns (dq, dk, dv) in q's, k's and v's
+    dtypes."""
+    return _bwd_from_delta(q, k, v, do, lse, _delta(o, do), causal, sm_scale, alibi_slopes)
+
+
+def _bwd_checks(q, k, v, do, lse, delta, alibi_slopes):
+    B, Sq, NH, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or do.shape != q.shape:
+        raise ValueError(f"q/k/v/dO shapes {tuple(q.shape)}/{tuple(k.shape)}/"
+                         f"{tuple(v.shape)}/{tuple(do.shape)} do not match")
+    if NH % KVH != 0:
+        raise ValueError(f"n_heads {NH} not a multiple of kv heads {KVH}")
+    if any(t.device != q.device for t in (k, v, do, lse, delta)) or q.device.type != "cuda":
+        raise ValueError("flash attention backward: all tensors on one CUDA device")
+    if k.dtype != q.dtype or v.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"q/k/v/dO dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, NH, Sq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 [B, NH, Sq], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    # read through strides; the bf16/fp16 kernels copy rows 16 bytes at a time
+    q, k, v, do = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v, do))
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).contiguous()
+        if slopes.shape != (NH,):
+            raise ValueError(f"alibi_slopes shape {tuple(slopes.shape)} != ({NH},)")
+    return q, k, v, do, slopes
+
+
+def _bwd_launch(fn: str, q, k, v, do, lse, delta, slopes, causal, sm_scale, outs):
+    B, Sq, NH, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
+    lib = op_builder.load("flash_attention_bwd", _BWD_SIG)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if slopes is None else slopes.data_ptr(),
+            op_builder.dtype_code(q.dtype), B, NH, KVH, Sq, Sk, D, int(bool(causal)), scale,
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), do.stride(0), do.stride(1), do.stride(2),
+            *(t.data_ptr() for t in outs), torch.cuda.current_stream(q.device).cuda_stream)
+    op_builder.check(err, fn[len("dstpu_"):])
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+                           causal: bool = True, sm_scale: Optional[float] = None,
+                           alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel A': dQ ``[B, Sq, NH, D]`` in q's dtype, from the forward's
+    ``lse`` and ``delta`` = rowsum(O * dO), both fp32 ``[B, NH, Sq]``."""
+    if q.device.type == "cpu":
+        return _bwd_from_delta(q, k, v, do, lse, delta, causal, sm_scale, alibi_slopes)[0]
+    q, k, v, do, slopes = _bwd_checks(q, k, v, do, lse, delta, alibi_slopes)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("dstpu_flash_attention_bwd_dq", q, k, v, do, lse, delta, slopes, causal,
+                sm_scale, (dq,))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+                            causal: bool = True, sm_scale: Optional[float] = None,
+                            alibi_slopes: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A'': (dK, dV) ``[B, Sk, KVH, D]`` in k's dtype, each KV head's
+    gradient summed in fp32 over its query heads."""
+    if q.device.type == "cpu":
+        return _bwd_from_delta(q, k, v, do, lse, delta, causal, sm_scale, alibi_slopes)[1:]
+    q, k, v, do, slopes = _bwd_checks(q, k, v, do, lse, delta, alibi_slopes)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch("dstpu_flash_attention_bwd_dkv", q, k, v, do, lse, delta, slopes, causal,
+                sm_scale, (dk, dv))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                        sm_scale: Optional[float] = None,
+                        alibi_slopes: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the attention whose forward gave (o, lse): delta as a
+    PyTorch reduction, then kernels A' and A'' (their plain version on the
+    CPU)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         sm_scale=sm_scale, alibi_slopes=alibi_slopes)
+    delta = _delta(o, do)
+    kw = dict(causal=causal, sm_scale=sm_scale, alibi_slopes=alibi_slopes)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel A forward, kernels A' and A'' backward (the JAX custom VJP of
+    ``_flash_bhsd``): the forward keeps q, k, v, o and the fp32 lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, alibi_slopes):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                                     alibi_slopes=alibi_slopes)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale, ctx.alibi_slopes = causal, sm_scale, alibi_slopes
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale,
+                                         alibi_slopes=ctx.alibi_slopes)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    segment_mask: Optional[torch.Tensor] = None,
+                    sm_scale: Optional[float] = None,
+                    alibi_slopes: Optional[torch.Tensor] = None,
+                    q_offset: Optional[int] = None) -> torch.Tensor:
+    """The public attention on ``[B, S, NH, D]`` (the JAX ``flash_attention``,
+    ``flash_attention.py:322``), differentiable in q, k and v.
+
+    GQA-native: k/v may carry KVH < NH heads.  ``alibi_slopes`` ``[NH]``
+    builds the bias inside the kernels from the indices.  ``segment_mask``
+    (a ``[B, Sk]`` keep-mask) goes to the plain attention with the KV heads
+    repeated, as the JAX function does.  ``q_offset`` places query i at
+    position ``q_offset + i``; it is forward-only, as in JAX, and raises
+    when an input requires grad."""
+    B, Sq, NH, D = q.shape
+    KVH = k.shape[2]
+    if NH % KVH != 0:
+        raise ValueError(f"n_heads {NH} not a multiple of kv heads {KVH}")
+    if segment_mask is not None:
+        from ..models.transformer import _repeat_kv, xla_attention
+
+        bias = None
+        if alibi_slopes is not None:
+            # end-aligned like xla_attention's causal mask: query i sits at
+            # position Sk - Sq + i
+            Sk = k.shape[1]
+            rel = ((Sk - Sq + torch.arange(Sq, device=q.device))[:, None]
+                   - torch.arange(Sk, device=q.device)[None, :]).float()
+            bias = -alibi_slopes.to(q.device).float()[None, :, None, None] * rel
+        return xla_attention(q, _repeat_kv(k, NH // KVH), _repeat_kv(v, NH // KVH), causal,
+                             segment_mask, bias=bias)
+    if q_offset is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash_attention: q_offset is forward-only (the backward kernels take no "
+                "offset, as in the JAX package); call it under torch.no_grad()")
+        return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   alibi_slopes=alibi_slopes, q_offset=int(q_offset))[0]
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, alibi_slopes)

@@ -25,7 +25,9 @@ from typing import Dict, Iterable, List, Optional, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
     "flash_attention_fwd": CSRC / "flash_attention_fwd.cu",
+    "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
     "paged_attention": CSRC / "paged_attention.cu",
+    "fused_adam": CSRC / "fused_adam.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

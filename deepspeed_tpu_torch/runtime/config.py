@@ -1,0 +1,254 @@
+"""DeepSpeed-compatible JSON configuration — the single-device training
+subset of ``deepspeed_tpu/runtime/config.py``.
+
+Ported: the batch-size triangle (train_batch_size = micro_batch *
+grad_accum * dp_world_size), the ``fp16``, ``bf16``, ``optimizer`` and
+``scheduler`` blocks, ``zero_optimization.stage`` (0 and 1: on one device
+stage 1 is the same math as stage 0), ``gradient_clipping``,
+``data_types.grad_accum_dtype``, ``seed`` and ``steps_per_print``.
+
+A block that turns on something the port does not have yet raises
+``NotImplementedError`` naming the ROADMAP item that brings it; a block
+that is present but off is accepted.  Unknown keys inside the ported
+blocks warn and are ignored, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, Optional
+
+from .config_utils import AUTO, ConfigModel
+
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+
+#: ROADMAP items named by the NotImplementedError of each unported block
+ROADMAP_ZERO = "ROADMAP Queue 1 #8 'ZeRO 1/2/3 across ranks'"
+ROADMAP_OFFLOAD = "ROADMAP Queue 1 #14 'Offload variants'"
+ROADMAP_PIPE = "ROADMAP Queue 1 #12 'Pipeline'"
+ROADMAP_TELEMETRY = "ROADMAP Queue 1 #16 'Training telemetry and resilience'"
+ROADMAP_COMM = "ROADMAP Queue 1 #9 'Communication and ZeRO++'"
+ROADMAP_REST = "ROADMAP Queue 1 #17 'Remaining modules'"
+ROADMAP_SERVING = "ROADMAP Queue 1 #15 'Serving fleet'"
+
+#: top-level blocks whose "enabled" flag turns on an unported feature
+_ENABLED_BLOCKS = {
+    "telemetry": ROADMAP_TELEMETRY,
+    "resilience": ROADMAP_TELEMETRY,
+    "tensorboard": ROADMAP_REST,
+    "wandb": ROADMAP_REST,
+    "comet": ROADMAP_REST,
+    "csv_monitor": ROADMAP_REST,
+    "flops_profiler": ROADMAP_REST,
+    "comms_logger": ROADMAP_COMM,
+    "gradient_compression": ROADMAP_COMM,
+    "hybrid_engine": ROADMAP_OFFLOAD,
+    "elasticity": ROADMAP_REST,
+}
+#: top-level flags that are off unless true
+_TRUE_FLAGS = {"sanity_checks": ROADMAP_TELEMETRY, "wall_clock_breakdown": ROADMAP_TELEMETRY,
+               "prescale_gradients": ROADMAP_COMM, "memory_breakdown": ROADMAP_TELEMETRY}
+#: zero_optimization keys that switch on a mechanism beyond stage 0/1
+_ZERO_ON = ("zero_quantized_weights", "zero_quantized_gradients",
+            "zero_hierarchical_grad_reduce", "overlap_grad_reduce", "zero3_param_prefetch",
+            "grad_reduce_error_feedback")
+
+
+@dataclasses.dataclass
+class FP16Config(ConfigModel):
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0.0  # 0 => dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = 1.0
+
+
+@dataclasses.dataclass
+class BF16Config(ConfigModel):
+    enabled: bool = False
+    #: an fp32 master copy of the params for the optimizer (always kept)
+    master_weights: bool = True
+
+
+@dataclasses.dataclass
+class ZeroConfig(ConfigModel):
+    """``zero_optimization``: the stage only (0 or 1 on one device)."""
+
+    stage: int = 0
+
+    def validate(self) -> None:
+        if self.stage not in (0, 1, 2, 3):
+            raise ValueError(f"zero_optimization.stage must be 0-3, got {self.stage}")
+        if self.stage >= 2:
+            raise NotImplementedError(
+                f"zero_optimization.stage {self.stage} is not ported yet ({ROADMAP_ZERO}); "
+                "stages 0 and 1 train on one device")
+
+
+@dataclasses.dataclass
+class OptimizerConfig(ConfigModel):
+    type: str = "adamw"
+    params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class SchedulerConfig(ConfigModel):
+    type: Optional[str] = None
+    params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def _refuse_unported(config: Dict[str, Any]) -> None:
+    """Raise for any block that enables something not ported yet."""
+    for key, item in _ENABLED_BLOCKS.items():
+        block = config.get(key)
+        if isinstance(block, dict) and block.get("enabled"):
+            raise NotImplementedError(f"'{key}' is not ported yet ({item})")
+    for key, item in _TRUE_FLAGS.items():
+        if config.get(key):
+            raise NotImplementedError(f"'{key}' is not ported yet ({item})")
+    zero = config.get("zero_optimization") or {}
+    for key in ("offload_param", "offload_optimizer"):
+        dev = (zero.get(key) or {}).get("device", "none")
+        if dev not in ("none", None):
+            raise NotImplementedError(
+                f"zero_optimization.{key} (device {dev!r}) is not ported yet ({ROADMAP_OFFLOAD})")
+    if (zero.get("zenflow") or {}).get("enabled"):
+        raise NotImplementedError(f"zero_optimization.zenflow is not ported yet ({ROADMAP_OFFLOAD})")
+    for key in _ZERO_ON:
+        if zero.get(key):
+            raise NotImplementedError(
+                f"zero_optimization.{key} is not ported yet ({ROADMAP_COMM})")
+    mics = zero.get("mics_shard_size", -1)
+    if mics not in (-1, None, 0, 1):
+        raise NotImplementedError(f"zero_optimization.mics_shard_size is not ported yet "
+                                  f"({ROADMAP_ZERO})")
+    mesh = config.get("mesh") or {}
+    for axis, size in mesh.items():
+        if axis != "axis_order" and size not in (-1, 1):
+            raise NotImplementedError(
+                f"mesh axis {axis}={size}: the port trains on one device ({ROADMAP_ZERO})")
+    if (config.get("pipeline") or {}).get("hop_compression") not in (None, False):
+        raise NotImplementedError(f"pipeline is not ported yet ({ROADMAP_PIPE})")
+    if config.get("serving"):
+        raise NotImplementedError(f"the serving block is not ported yet ({ROADMAP_SERVING})")
+    if (config.get("communication_data_type") is not None
+            or float(config.get("gradient_predivide_factor", 1.0)) != 1.0):
+        raise NotImplementedError(f"gradient communication settings are not ported yet "
+                                  f"({ROADMAP_COMM})")
+
+
+@dataclasses.dataclass
+class DeepSpeedConfig:
+    """Parsed top-level config (a dict or a JSON path)."""
+
+    raw: Dict[str, Any]
+    train_batch_size: Optional[int]
+    train_micro_batch_size_per_gpu: Optional[int]
+    gradient_accumulation_steps: Optional[int]
+    steps_per_print: int
+    gradient_clipping: float
+    seed: int
+    fp16: FP16Config
+    bf16: BF16Config
+    zero_config: ZeroConfig
+    optimizer: OptimizerConfig
+    scheduler: SchedulerConfig
+    gradient_accumulation_dtype: str
+
+    def __init__(self, config: Any, dp_world_size: Optional[int] = None):
+        if isinstance(config, str):
+            with open(config) as f:
+                config = json.load(f)
+        if config is None:
+            config = {}
+        if not isinstance(config, dict):
+            raise TypeError(f"config must be a dict or json path, got {type(config)}")
+        self.raw = config
+        _refuse_unported(config)
+
+        g = config.get
+        self.train_batch_size = _maybe_int(g(TRAIN_BATCH_SIZE))
+        self.train_micro_batch_size_per_gpu = _maybe_int(g(TRAIN_MICRO_BATCH_SIZE_PER_GPU))
+        self.gradient_accumulation_steps = _maybe_int(g(GRADIENT_ACCUMULATION_STEPS))
+        self.steps_per_print = max(1, int(g("steps_per_print", 10) or 1))
+        self.gradient_clipping = float(g("gradient_clipping", 0.0))
+        self.seed = int(g("seed", 1234))
+        self.gradient_accumulation_dtype = (g("data_types") or {}).get(
+            "grad_accum_dtype", "fp32") or "fp32"
+        if self.gradient_accumulation_dtype not in ("fp32", "fp16", "bf16"):
+            raise ValueError(f"data_types.grad_accum_dtype must be fp32, fp16 or bf16, got "
+                             f"{self.gradient_accumulation_dtype!r}")
+
+        self.fp16 = FP16Config.from_dict(g("fp16"))
+        self.bf16 = BF16Config.from_dict(g("bf16") or g("bfloat16"))
+        self.zero_config = ZeroConfig.from_dict(
+            {"stage": (g("zero_optimization") or {}).get("stage", 0)})
+        self.optimizer = OptimizerConfig.from_dict(g("optimizer"))
+        self.scheduler = SchedulerConfig.from_dict(g("scheduler"))
+
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
+        if dp_world_size is not None:
+            self.resolve_batch_size(dp_world_size)
+
+    # -- batch-size triangle ------------------------------------------------
+    def resolve_batch_size(self, dp_world_size: int) -> None:
+        """train_batch = micro_batch * grad_accum * dp_world_size: any two
+        determine the third; one alone takes the others as 1 or derived;
+        none gives micro 1, gas 1."""
+        tb, mb, gas = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+                       self.gradient_accumulation_steps)
+        if all(v is not None for v in (tb, mb, gas)):
+            if tb != mb * gas * dp_world_size:
+                raise ValueError(
+                    f"Batch-size inconsistency: train_batch_size={tb} != "
+                    f"micro({mb}) * gas({gas}) * dp({dp_world_size})")
+        elif tb is not None and mb is not None:
+            gas = tb // (mb * dp_world_size)
+            if gas * mb * dp_world_size != tb:
+                raise ValueError(
+                    f"train_batch_size {tb} not divisible by micro*dp = {mb * dp_world_size}")
+        elif tb is not None and gas is not None:
+            mb = tb // (gas * dp_world_size)
+            if mb * gas * dp_world_size != tb:
+                raise ValueError(
+                    f"train_batch_size {tb} not divisible by gas*dp = {gas * dp_world_size}")
+        elif mb is not None:
+            gas = gas or 1
+            tb = mb * gas * dp_world_size
+        elif tb is not None:
+            mb = tb // dp_world_size
+            gas = 1
+            if mb * dp_world_size != tb:
+                raise ValueError(f"train_batch_size {tb} not divisible by dp {dp_world_size}")
+        else:
+            mb, gas = 1, 1
+            tb = mb * gas * dp_world_size
+        self.train_batch_size, self.train_micro_batch_size_per_gpu = tb, mb
+        self.gradient_accumulation_steps = gas
+
+    @property
+    def zero_enabled(self) -> bool:
+        return self.zero_config.stage > 0
+
+    @property
+    def compute_dtype(self):
+        import torch
+
+        if self.bf16.enabled:
+            return torch.bfloat16
+        if self.fp16.enabled:
+            return torch.float16
+        return torch.float32
+
+
+def _maybe_int(v: Any) -> Optional[int]:
+    if v is None or v == AUTO:
+        return None
+    return int(v)

@@ -1,0 +1,360 @@
+"""The training engine — the single-device subset of ``deepspeed_tpu/
+runtime/engine.py``.
+
+The engine owns a :class:`TrainState`: the fp32 master parameters, the
+optimizer state, a gradient-accumulation buffer in ``grad_accum_dtype``,
+the fp16 loss-scale state and the step counters.  One optimizer step:
+
+  * the compute-dtype copy of the master (``_compute_params``) is refreshed
+    once per step (params only change at the boundary) and is what autograd
+    differentiates: the backward runs through bf16 (or fp16) leaves and the
+    gradients are cast to ``grad_accum_dtype`` afterwards, as the JAX
+    engine differentiates its cast copy (``engine.py:896-997``);
+  * fp16 scales the loss in fp32 before the backward;
+  * at the boundary the gradients are divided by ``gas`` (times the loss
+    scale), their global norm is taken before clipping, and the optimizer
+    updates the master — through kernel C in place when the optimizer is
+    the fused one (``direct_update``), else by adding the updates;
+  * an fp16 step whose gradients overflow leaves params and moments
+    untouched, still updates the loss scale, and counts as skipped; the
+    schedule is indexed by the steps actually taken.
+
+``train_batch`` returns the loss as a device tensor.  A bf16 or fp32 step
+makes no host sync: the learning rate, the step count, the norm and the
+loss scale stay on the device.  An fp16 step syncs once, on its overflow
+verdict, to decide whether the optimizer runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from ..accelerator import DeviceLike, resolve_device
+from ..models.convert import adopt_params
+from ..models.transformer import ParamTree
+from ..utils.logging import logger
+from .config import DeepSpeedConfig
+from .lr_schedules import LRSchedulerShim, get_schedule
+from .module import ModelSpec, as_model_spec
+from .optimizers import build_optimizer
+from .precision import (LossScaleState, cast_tree, check_overflow, clip_by_global_norm,
+                        global_grad_norm, update_loss_scale)
+
+_ACC_DTYPES = {"fp32": torch.float32, "fp16": torch.float16, "bf16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class TrainState:
+    """All mutable training state."""
+
+    step: torch.Tensor  # optimizer steps taken (int32, on the device)
+    micro_step: int  # micro-steps accumulated since the last boundary
+    params: ParamTree  # fp32 master
+    opt_state: Any
+    grad_acc: Optional[List[torch.Tensor]]  # grad_accum_dtype; None while empty
+    loss_scale: Optional[LossScaleState]
+    skipped_steps: torch.Tensor  # int32, on the device
+    global_grad_norm: torch.Tensor  # fp32, from the last boundary
+
+
+def _to_device(batch: Any, device: torch.device) -> Any:
+    if isinstance(batch, dict):
+        return {k: _to_device(v, device) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_to_device(v, device) for v in batch)
+    if isinstance(batch, np.ndarray):
+        batch = torch.from_numpy(batch)
+    if isinstance(batch, torch.Tensor):
+        return batch.to(device, non_blocking=True)
+    return batch
+
+
+def _index(batch: Any, i: int) -> Any:
+    """Micro-batch ``i`` of a batch whose leaves carry a leading gas dim."""
+    if isinstance(batch, dict):
+        return {k: _index(v, i) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_index(v, i) for v in batch)
+    return batch[i]
+
+
+def stack_microbatches(micro_batches: List[Any]) -> Any:
+    """Stack micro-batches on a new leading (gas) dim, leaf by leaf."""
+    first = micro_batches[0]
+    if isinstance(first, dict):
+        return {k: stack_microbatches([m[k] for m in micro_batches]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_microbatches([m[i] for m in micro_batches])
+                           for i in range(len(first)))
+    if isinstance(first, np.ndarray):
+        return np.stack(micro_batches)
+    return torch.stack([torch.as_tensor(m) for m in micro_batches])
+
+
+class DeepSpeedTPUEngine:
+    def __init__(self, model: Any, config: Any, model_parameters: Any = None,
+                 lr_scheduler: Any = None, client_optimizer: Any = None,
+                 device: DeviceLike = None, seed: Optional[int] = None):
+        self.device = resolve_device(device)
+        self.config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+        self.config.resolve_batch_size(1)
+        self.model: ModelSpec = as_model_spec(model)
+        self.compute_dtype = self.config.compute_dtype
+        self.grad_accum_dtype = _ACC_DTYPES[self.config.gradient_accumulation_dtype]
+        self.fp16_enabled = self.config.fp16.enabled
+
+        if lr_scheduler is not None and not callable(lr_scheduler):
+            raise TypeError("lr_scheduler must be a callable step -> lr schedule; "
+                            f"got {type(lr_scheduler)}")
+        base = float(self.config.optimizer.params.get("lr", 1e-3))
+        self.lr_schedule = lr_scheduler if lr_scheduler is not None else get_schedule(
+            self.config.scheduler.type, self.config.scheduler.params, base)
+        if client_optimizer is not None:
+            if not (callable(getattr(client_optimizer, "init", None))
+                    and callable(getattr(client_optimizer, "update", None))):
+                raise TypeError("optimizer must be a GradientTransformation (init, update) "
+                                f"over lists of tensors; got {type(client_optimizer)}")
+            self.optimizer = client_optimizer
+        else:
+            self.optimizer, _ = build_optimizer(
+                self.config.optimizer.type, self.config.optimizer.params, self.lr_schedule)
+        self.lr_scheduler = LRSchedulerShim(self.lr_schedule)
+
+        self.global_steps = 0
+        self.micro_steps = 0
+        self._cached_loss = None
+        # True while forward() has written the accumulation buffer without
+        # reaching a step() boundary (train_batch then drops it)
+        self._acc_dirty = False
+        self.state = self._init_state(model_parameters,
+                                      self.config.seed if seed is None else seed)
+        self._master = [p for _, p in self.state.params.named_parameters()]
+        # the compute-dtype copy autograd differentiates, refreshed from the
+        # master once per optimizer step (in fp32, the master's own storage)
+        self._compute = self.state.params.map(lambda t: t.to(self.compute_dtype),
+                                               requires_grad=True)
+        self._compute_leaves = [p for _, p in self._compute.named_parameters()]
+        self._compute_fresh = True
+        logger.info(f"DeepSpeedTPUEngine (torch) initialized: device={self.device} "
+                    f"zero_stage={self.config.zero_config.stage} dtype={self.compute_dtype} "
+                    f"micro_bs={self.config.train_micro_batch_size_per_gpu} "
+                    f"gas={self.config.gradient_accumulation_steps}")
+
+    # ------------------------------------------------------------------ init
+    def _init_state(self, model_parameters: Any, seed: int) -> TrainState:
+        cfg = self.model.config
+        if model_parameters is not None:
+            params = adopt_params(model_parameters, cfg, self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = cast_tree(self.model.init_params(gen, self.device), torch.float32)
+        for p in params.parameters():
+            p.requires_grad_(False)
+        leaves = [p for _, p in params.named_parameters()]
+        dev = self.device
+        return TrainState(
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+            micro_step=0,
+            params=params,
+            opt_state=self.optimizer.init(leaves),
+            grad_acc=None,
+            loss_scale=(LossScaleState.create(self.config.fp16, dev)
+                        if self.fp16_enabled else None),
+            skipped_steps=torch.zeros((), dtype=torch.int32, device=dev),
+            global_grad_norm=torch.zeros((), dtype=torch.float32, device=dev))
+
+    # ------------------------------------------------------------- the step
+    def _compute_params(self) -> ParamTree:
+        """The compute-dtype copy of the master, refreshed in place when the
+        master moved since the last refresh."""
+        if not self._compute_fresh:
+            with torch.no_grad():
+                for c, m in zip(self._compute_leaves, self._master):
+                    c.copy_(m)
+            self._compute_fresh = True
+        return self._compute
+
+    def _micro_grads(self, batch: Any, want_overflow: bool = False):
+        """One micro-batch: (grads in grad_accum_dtype, loss, the fp16
+        overflow verdict over the post-cast grads when ``want_overflow``)."""
+        params = self._compute_params()
+        loss = self.model.loss_fn(params, batch, None)
+        scaled = loss.float() * self.state.loss_scale.cur_scale if self.fp16_enabled else loss
+        grads = torch.autograd.grad(scaled, self._compute_leaves, allow_unused=True)
+        grads = [torch.zeros(c.shape, dtype=self.grad_accum_dtype, device=c.device)
+                 if g is None else g.to(self.grad_accum_dtype)
+                 for g, c in zip(grads, self._compute_leaves)]
+        bad = check_overflow(grads) if self.fp16_enabled and want_overflow else None
+        return grads, loss.detach().float(), bad
+
+    def _accumulate(self, grads: List[torch.Tensor]) -> None:
+        if self.state.grad_acc is None:
+            self.state.grad_acc = grads
+        else:
+            for acc, g in zip(self.state.grad_acc, grads):
+                acc.add_(g)
+        self.state.micro_step += 1
+
+    def _apply_step(self, grads_src: Optional[List[torch.Tensor]] = None,
+                    overflow: Optional[torch.Tensor] = None) -> None:
+        """Boundary update from ``grads_src`` (gas = 1: the micro-step's
+        grads, straight through) or the accumulation buffer.  ``overflow``:
+        the fp16 verdict already taken over ``grads_src``."""
+        st = self.state
+        src = st.grad_acc if grads_src is None else grads_src
+        if src is None:
+            raise RuntimeError("step(): no gradients accumulated since the last step")
+        gas = self.config.gradient_accumulation_steps or 1
+        # fp32 copies of non-fp32 grads; fp32 grads are this step's own
+        # buffers (autograd outputs or the accumulator) and are scaled in place
+        grads = [g.float() for g in src]
+        if self.fp16_enabled:
+            denom = float(gas) * st.loss_scale.cur_scale
+            for g in grads:
+                g.div_(denom)
+        else:
+            for g in grads:
+                g.div_(float(gas))
+        norm = global_grad_norm(grads)
+        clip = self.config.gradient_clipping
+        if clip > 0:
+            grads = clip_by_global_norm(grads, norm, clip)
+        skipped = 0
+        if self.fp16_enabled:
+            if overflow is None:
+                overflow = check_overflow(grads)
+            # the one host sync of an fp16 step: whether the optimizer runs
+            skipped = int(bool(overflow))
+            st.loss_scale = update_loss_scale(st.loss_scale, overflow, self.config.fp16)
+        if not skipped:
+            self._update(grads)
+            st.step = st.step + 1
+            # an fp32 compute copy shares the master's storage: never stale
+            self._compute_fresh = self.compute_dtype == torch.float32
+        st.skipped_steps = st.skipped_steps + skipped
+        st.global_grad_norm = norm
+        st.grad_acc = None
+        st.micro_step = 0
+
+    def _update(self, grads: List[torch.Tensor]) -> None:
+        direct = getattr(self.optimizer, "direct_update", None)
+        if direct is not None:
+            direct(grads, self.state.opt_state, self._master)  # kernel C, in place
+            return
+        updates, self.state.opt_state = self.optimizer.update(grads, self.state.opt_state,
+                                                              self._master)
+        with torch.no_grad():
+            for p, u in zip(self._master, updates):
+                p.add_(u.to(p.dtype))
+
+    def _train_batch(self, batches: Any) -> torch.Tensor:
+        gas = self.config.gradient_accumulation_steps or 1
+        if gas == 1:
+            grads, loss, bad = self._micro_grads(_index(batches, 0),
+                                                 want_overflow=self.fp16_enabled)
+            self._apply_step(grads_src=grads, overflow=bad)
+            return loss
+        losses = []
+        for i in range(gas):
+            grads, loss, _ = self._micro_grads(_index(batches, i))
+            self._accumulate(grads)
+            del grads  # free this micro-step's grads before the next backward
+            losses.append(loss)
+        self._apply_step()
+        return torch.stack(losses).mean()
+
+    # ------------------------------------------------------------ public API
+    def train_batch(self, batch: Any = None, data_iter: Optional[Iterator] = None
+                    ) -> torch.Tensor:
+        """One full optimizer step.  ``batch`` leaves carry a leading dim of
+        ``gradient_accumulation_steps`` (:func:`stack_microbatches`), or
+        ``data_iter`` yields the gas micro-batches.  Returns the mean loss
+        as a device tensor."""
+        gas = self.config.gradient_accumulation_steps or 1
+        if batch is None:
+            if data_iter is None:
+                raise ValueError("train_batch needs a batch or a data iterator")
+            batch = stack_microbatches([next(data_iter) for _ in range(gas)])
+        if self._acc_dirty:
+            # abandoned forward() micro-steps: drop their accumulation
+            self.state.grad_acc = None
+            self.state.micro_step = 0
+            self.micro_steps -= self.micro_steps % gas
+            self._acc_dirty = False
+        loss = self._train_batch(_to_device(batch, self.device))
+        self.global_steps += 1
+        self.micro_steps += gas
+        return loss
+
+    def forward(self, batch: Any) -> torch.Tensor:
+        """DeepSpeed-compatible micro-step: loss AND gradients in one pass
+        (accumulated); ``backward`` then only counts the micro-step."""
+        grads, loss, _ = self._micro_grads(_to_device(batch, self.device))
+        self._accumulate(grads)
+        self._acc_dirty = True
+        self._cached_loss = loss
+        return loss
+
+    __call__ = forward
+
+    def backward(self, loss: Any = None) -> Any:
+        self.micro_steps += 1
+        return loss if loss is not None else self._cached_loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self.micro_steps % (self.config.gradient_accumulation_steps or 1) == 0
+
+    def step(self) -> None:
+        """The optimizer at the gas boundary."""
+        if self.is_gradient_accumulation_boundary():
+            self._apply_step()
+            self._acc_dirty = False
+            self.global_steps += 1
+            self.lr_scheduler.step()
+
+    def eval_batch(self, batch: Any) -> Any:
+        """The model's ``apply_fn`` (else its loss) on the compute copy."""
+        batch = _to_device(batch, self.device)
+        with torch.no_grad():
+            p = self._compute_params()
+            if self.model.apply_fn is not None:
+                return self.model.apply_fn(p, batch)
+            return self.model.loss_fn(p, batch, None)
+
+    # ---------------------------------------------------------- accessors
+    def get_lr(self) -> List[float]:
+        return [float(self.lr_schedule(int(self.state.step)))]
+
+    def get_global_grad_norm(self) -> float:
+        return float(self.state.global_grad_norm)
+
+    def loss_scale(self) -> float:
+        if self.state.loss_scale is None:
+            return 1.0
+        return float(self.state.loss_scale.cur_scale)
+
+    @property
+    def skipped_steps(self) -> int:
+        return int(self.state.skipped_steps)
+
+    def get_params(self, dtype: Optional[torch.dtype] = None) -> ParamTree:
+        """The fp32 master (a cast copy when ``dtype`` is given);
+        ``models.convert.params_to_numpy`` turns it into the JAX layout."""
+        p = self.state.params
+        return p.map(lambda t: t.to(dtype)) if dtype is not None else p
+
+    def train_micro_batch_size_per_gpu(self) -> int:
+        return self.config.train_micro_batch_size_per_gpu
+
+    def gradient_accumulation_steps(self) -> int:
+        return self.config.gradient_accumulation_steps
+
+    def train_batch_size(self) -> int:
+        return self.config.train_batch_size
+
+    def zero_optimization_stage(self) -> int:
+        return self.config.zero_config.stage

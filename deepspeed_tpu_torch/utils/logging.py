@@ -43,3 +43,12 @@ def _env_log_level(default: int = logging.INFO) -> int:
 
 
 logger = _create_logger(level=_env_log_level())
+
+_WARNED_ONCE: set = set()
+
+
+def warning_once(message: str) -> None:
+    """Log ``message`` as a warning the first time it is seen."""
+    if message not in _WARNED_ONCE:
+        _WARNED_ONCE.add(message)
+        logger.warning(message)

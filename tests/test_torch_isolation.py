@@ -16,6 +16,7 @@ from deepspeed_tpu_torch.inference.v2.ragged import KVBlockConfig, PagedKVCache
 from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from deepspeed_tpu_torch.models.llama import llama_model
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
 from deepspeed_tpu_torch.runtime.module import ModelSpec
 
 torch.set_num_threads(2)
@@ -75,7 +76,8 @@ def test_relative_imports_stay_inside_the_port():
 
 def test_entry_points_default_to_cuda():
     for fn in (InferenceEngineV2, ModelSpec.init_params, resolve_device,
-               params_from_numpy, PagedKVCache.init, alibi_slopes):
+               params_from_numpy, PagedKVCache.init, alibi_slopes,
+               deepspeed_tpu_torch.initialize, DeepSpeedTPUEngine):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()  # this machine has no CUDA: the default is not the CPU
@@ -93,3 +95,13 @@ def test_public_builders_raise_without_cuda():
                   lambda: alibi_slopes(cfg.n_heads)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
+
+
+def test_training_entry_point_raises_without_cuda():
+    """``initialize`` with no device trains on CUDA, never silently on the
+    CPU; ``device="cpu"`` is the explicit opt-in."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=llama_model("tiny"), config={})
+    engine, *_ = deepspeed_tpu_torch.initialize(model=llama_model("tiny"), config={},
+                                                device="cpu")
+    assert engine.device.type == "cpu"

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and quantized-inference
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,7 +45,38 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 9. training parity: a 2-layer llama-1b-width model on the card and on the
    CPU from the same weights and batches, fp32 for 3 steps and fp16 through
    an overflow step (``TRAIN_PARITY_TOL``; loss scale and skipped steps
-   equal).
+   equal);
+10. kernel W, the weight-only quantized matmul, against its plain version
+    computed in fp32 on the same inputs (``WQ_TOL``) at llama-7b's four
+    matrix shapes, decode (M = 8) and prefill (M = 900), int8 and int4, bf16
+    x (timed beside its bound, its plain version and, as context only, a
+    cuBLAS bf16 GEMM on the dequantized weight), fp16 and fp32 x, and padded
+    K with unaligned x and codes;
+11. kernels Q and DQ, int8 block quantize / dequantize, bit-equal to their
+    plain versions (lengths off 128, more rows than ``block_rows``, an
+    all-zero row; fp32, bf16, fp16), timed on llama-1b's 65.5M-element
+    ``embed.tok``;
+12. quantized serving: ``InferenceEngineV2(quant_bits=8)`` and ``=4``
+    serving llama-7b at full width and depth (bf16, seeded random weights),
+    12 greedy requests through 8 slots, whole-prompt prefill.  Counters
+    zeroed before and read after each drive: exactly 7 x 32 + 1 = 225 W
+    launches per prefill and per decode call, flash and paged on every
+    layer; the last-token prefill logits of one prompt by cosine
+    (``WQ_COSINE``, ``WQ_DEQUANT_COSINE``): at 2 layers of llama-7b's width
+    against the bf16 engine (int8 > 0.999, the JAX package's limit) and
+    against the bf16 model on the dequantized weights (both > 0.999), and
+    reported at full depth beside the bf16 engine's own cosine against
+    fp32; param bytes, peak memory, TTFT, tokens/s, a profiled decode
+    step;
+13. dense-cache inference: ``deepspeed_tpu_torch.init_inference`` ->
+    ``generate`` on llama-1b at full width and depth (bf16, B = 4, 128-token
+    prompts, 32 greedy tokens), ``module_quantize`` (one Q and one DQ launch
+    per stacked leaf of two or more dimensions: 11) and ``generate`` again;
+    ``lora_linear`` over an int8 base launches DQ;
+14. quantized parity: a 2-layer llama-1b-width model in fp32 on the card and
+    on the CPU from the same weights: identical greedy streams from
+    ``InferenceEngineV2`` with ``quant_bits`` 8 and 4, and from
+    ``InferenceEngine.generate`` before and after ``module_quantize``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA card,
@@ -98,6 +130,26 @@ FLASH_BWD_TOL = {torch.bfloat16: (2.2e-2, 2.0 ** -8), torch.float16: (7e-4, 2.0 
 #: 2^-20, a few ulps).  A bf16 first moment may then round to the
 #: neighbouring bf16 value (rtol 2^-7).  atol: twice the observed 1.5e-10.
 ADAM_TOL = {torch.float32: (3e-10, 2.0 ** -20), torch.bfloat16: (3e-10, 2.0 ** -7)}
+#: Kernel W sums each group's x . q in fp32 and scales it once; its plain
+#: version multiplies x by the fp32 dequantized weight (the JAX kernel's
+#: x @ (q * s)).  rtol is the output's rounding; atol about twice the
+#: largest need observed on an H100 in this script's cases (PERF.md): bf16
+#: 1.3e-5 (K = 11008), fp16 6.6e-6, fp32 1.8e-5 (outputs up to |11|, fp32
+#: sums in other orders).
+WQ_TOL = {torch.bfloat16: (2.6e-5, 2.0 ** -8), torch.float16: (1.3e-5, 2.0 ** -11),
+          torch.float32: (3.6e-5, 2.0 ** -24)}
+#: Cosine of the quantized engines' last-token prefill logits, on a 2-layer
+#: model of llama-7b's width (the JAX package's check is on a 2-layer model,
+#: tests/unit/test_inference_v2.py:255): against the bf16 engine, int8 is
+#: held to the JAX limit 0.999.  JAX's int4 limit (0.98) is for its 64-wide
+#: model; at 4096 wide the int4 codes themselves move a random model's
+#: logits further, so int4 is reported there, not held.  Against the bf16
+#: engine run on the dequantized weights both widths are held to
+#: WQ_DEQUANT_COSINE: the kernel path computes what the codes say.  At full
+#: depth random weights amplify every rounding from layer to layer; there
+#: the cosines are reported beside the bf16 engine's own against fp32.
+WQ_COSINE = {8: 0.999}
+WQ_DEQUANT_COSINE = 0.999
 PARITY_LOGITS_TOL = 2e-3
 DEV = "cuda"
 
@@ -760,11 +812,14 @@ def profile_steps(eng, requests, warm_steps: int, steps: int):
     return rec
 
 
-def drive(eng, requests, fa, pa):
-    """Zero the launch counters, serve ``requests`` to completion through
-    put/step, read the counters.  Returns the phase record."""
+def drive(eng, requests, fa, pa, wq=None):
+    """Zero the launch counters (kernel W's too when ``wq`` is given), serve
+    ``requests`` to completion through put/step, read the counters.  Returns
+    the phase record."""
     fa.flash_attention_fwd.launches = 0
     pa.paged_decode_attention.launches = 0
+    if wq is not None:
+        wq.wq_matmul.launches = 0
     before = eng.stats()
     t_put, first, streams, reasons, step_ms = {}, {}, {}, {}, []
     for r in requests:
@@ -786,6 +841,8 @@ def drive(eng, requests, fa, pa):
     wall = time.perf_counter() - t0
     launches = {"flash": fa.flash_attention_fwd.launches,
                 "paged": pa.paged_decode_attention.launches}
+    if wq is not None:
+        launches["wq_matmul"] = wq.wq_matmul.launches
     st = {k: v - before[k] for k, v in eng.stats().items()}
     ttft = sorted(first.values())
     return {"streams": streams, "reasons": reasons, "launches": launches, "stats": st,
@@ -896,6 +953,416 @@ def parity_phase():
     print(json.dumps({"parity": rec}))
     return rec
 
+# -- phase 10: kernel W, the weight-only quantized matmul --------------------
+
+#: llama-7b's weight shapes (K, N): q/k/v/o, gate/up, down, the LM head
+WQ_SHAPES = {"attn_4096x4096": (4096, 4096), "mlp_up_4096x11008": (4096, 11008),
+             "mlp_down_11008x4096": (11008, 4096), "lm_head_4096x32000": (4096, 32000)}
+
+
+def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
+    """Kernel W against its plain version computed in fp32 on the same x,
+    codes and scales (a seeded normal weight, std 0.02, quantized)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    codes, scale = wq.quantize_weight(torch.randn((K, N), generator=g, device=DEV) * 0.02,
+                                      bits, group)
+    x = torch.randn((M, K), generator=g, device=DEV).to(dtype)
+    kw = dict(bits=bits, group=group)
+    out = wq.wq_matmul(x, codes, scale, **kw)
+    ref = wq.wq_matmul_plain(x.float(), codes, scale, **kw)
+    torch.cuda.synchronize()
+    tol = WQ_TOL[dtype]
+    err, atol_used, ok = max_err(out, ref, tol)
+    rec = {"case": name, "shape": [M, K, N], "bits": bits, "group": group,
+           "dtype": str(dtype)[6:], "max_abs_err": err, "atol_used": atol_used,
+           "ref_max_abs": ref.abs().max().item(), "tol": tol}
+    print(json.dumps({"wq_check": rec}))
+    check(bool(torch.isfinite(out).all()), f"wq {name}: non-finite output")
+    check(ok, f"wq {name}: kernel vs fp32 plain beyond {tol} (max abs {err:.3g}, "
+          f"atol used {atol_used:.3g})")
+    if timed:
+        item = x.element_size()
+        nbytes = codes.numel() + scale.numel() * 4 + x.numel() * item + M * N * item
+        b_ms, b_by = bound(nbytes, 2.0 * M * K * N, dtype)
+        wd = wq.dequantize_weight(codes, scale, k=K, dtype=dtype, **kw)
+        rec.update(ms=device_ms(lambda: wq.wq_matmul(x, codes, scale, **kw)),
+                   plain_ms=device_ms(lambda: wq.wq_matmul_plain(x, codes, scale, **kw),
+                                      iters=5, warmup=2),
+                   library_ms=None, context_cublas_dequantized_ms=device_ms(lambda: x @ wd),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=2.0 * M * K * N)
+        del wd
+    print(json.dumps({"wq": rec}))
+    return rec
+
+
+def wq_phase(wq):
+    """Kernel W at llama-7b's shapes, decode and prefill, int8 and int4
+    (timed, bf16 x), fp16 and fp32 x, and padded or unaligned corners."""
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    recs = []
+    for bits in (8, 4):
+        for name, (K, N) in WQ_SHAPES.items():
+            for M in (8, 900):
+                recs.append(wq_case(wq, f"{name}_m{M}_int{bits}", M, K, N, bits, bf16,
+                                    timed=True))
+        for dt in (fp16, fp32):
+            for M in (8, 900):
+                recs.append(wq_case(wq, f"attn_m{M}_int{bits}_{str(dt)[6:]}", M, 4096, 4096,
+                                    bits, dt))
+        recs.append(wq_case(wq, f"padded_k4000_int{bits}", 900, 4000, 384, bits, bf16))
+        recs.append(wq_case(wq, f"odd_k1003_n200_g64_int{bits}", 8, 1003, 200, bits, bf16,
+                            group=64))
+        recs.append(wq_case(wq, f"odd_k1003_n200_g64_int{bits}_fp32", 900, 1003, 200, bits,
+                            fp32, group=64))
+    return recs
+
+
+# -- phase 11: kernels Q and DQ, int8 block quantize / dequantize ------------
+
+def quant_case(qz, name, n, dtype, zero_row=None, timed=False, seed=0):
+    """Kernels Q and DQ against their plain versions, bit for bit (DQ on the
+    kernel's own codes and scales)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = (torch.randn((n,), generator=g, device=DEV) * 3.0).to(dtype)
+    if zero_row is not None:
+        x[zero_row * 128:(zero_row + 1) * 128] = 0
+    q, s, length = qz.quantize_int8(x)
+    q_ref, s_ref, _ = qz.quantize_int8_plain(x)
+    y = qz.dequantize_int8(q, s, length, dtype)
+    y_ref = qz.dequantize_int8_plain(q, s, length, dtype)
+    torch.cuda.synchronize()
+    rec = {"case": name, "n": n, "rows": q.shape[0], "dtype": str(dtype)[6:],
+           "codes_equal": torch.equal(q, q_ref), "scales_equal": torch.equal(s, s_ref),
+           "dequant_equal": torch.equal(y, y_ref),
+           "max_abs_err": max((q.int() - q_ref.int()).abs().max().item(),
+                              (s - s_ref).abs().max().item(),
+                              (y.float() - y_ref.float()).abs().max().item())}
+    print(json.dumps({"quant_check": rec}))
+    check(rec["codes_equal"] and rec["scales_equal"],
+          f"quantize_int8 {name}: codes/scales differ from the plain version")
+    check(rec["dequant_equal"], f"dequantize_int8 {name}: differs from the plain version")
+    if zero_row is not None:
+        floor = torch.tensor(1e-12) * torch.tensor(1.0 / 127.0)
+        check(s[zero_row, 0].item() == floor.item() and not q[zero_row].any(),
+              f"quantize_int8 {name}: the all-zero row missed the 1e-12 scale floor")
+    if timed:
+        item = x.element_size()
+        rows = q.shape[0]
+        q_bytes = n * item + q.numel() + rows * 4
+        dq_bytes = q.numel() + rows * 4 + n * item
+        qb, qby = bound(q_bytes, 4.0 * n, torch.float32)
+        dqb, dqby = bound(dq_bytes, 1.0 * n, torch.float32)
+        rec.update(
+            quant_ms=device_ms(lambda: qz.quantize_int8(x)),
+            quant_plain_ms=device_ms(lambda: qz.quantize_int8_plain(x), iters=5, warmup=2),
+            quant_bound_ms=qb, quant_bound_by=qby, quant_bytes=q_bytes,
+            dequant_ms=device_ms(lambda: qz.dequantize_int8(q, s, length, dtype)),
+            dequant_plain_ms=device_ms(lambda: qz.dequantize_int8_plain(q, s, length, dtype),
+                                       iters=5, warmup=2),
+            dequant_bound_ms=dqb, dequant_bound_by=dqby, dequant_bytes=dq_bytes)
+    print(json.dumps({"quant": rec}))
+    return rec
+
+
+def quant_phase(qz):
+    """Kernels Q and DQ on llama-1b's embedding (timed) and odd corners."""
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    odd = 128 * 300 + 17  # not a multiple of 128; more rows than block_rows (256)
+    return [
+        quant_case(qz, "embed_tok_65.5M_bf16", 32000 * 2048, bf16, timed=True),
+        quant_case(qz, "embed_tok_65.5M_fp32", 32000 * 2048, fp32),
+        quant_case(qz, "odd_38417_fp32_zero_row", odd, fp32, zero_row=5),
+        quant_case(qz, "odd_38417_bf16_zero_row", odd, bf16, zero_row=299),
+        quant_case(qz, "odd_38417_fp16_zero_row", odd, fp16, zero_row=0),
+        quant_case(qz, "three_fp32", 3, fp32),
+    ]
+
+
+# -- phase 12: quantized serving of llama-7b --------------------------------
+
+PROBE_N, PROBE_BUCKET = 300, 512  # the logits probe: one prompt in a 512 bucket
+
+
+def prefill_probe(cfg, params, ids, dtype):
+    """Last-token logits (fp64) of the probe prompt through paged_prefill on
+    a KV pool of its own."""
+    from deepspeed_tpu_torch.inference.v2.model_runner import paged_prefill
+    from deepspeed_tpu_torch.inference.v2.ragged import KVBlockConfig, PagedKVCache
+
+    pages = PROBE_BUCKET // 16
+    block = KVBlockConfig(page_size=16, num_pages=pages, max_seqs=1, max_pages_per_seq=pages)
+    pools = PagedKVCache.init(cfg.n_layers, cfg.kv_heads, cfg.head_dim, block, dtype,
+                              device=DEV)
+    rows = torch.arange(pages, dtype=torch.int32, device=DEV)
+    return paged_prefill(cfg, params, pools, ids, rows, PROBE_N)[0].double()
+
+
+def cosine(a, b) -> float:
+    return F.cosine_similarity(a, b, dim=0).item()
+
+
+def dequantized(qparams, like, bits, group):
+    """``qparams`` with every ``{"wq", "scale"}`` sub-tree dequantized in
+    full to the dtype of the matching leaf of ``like`` (its float tree)."""
+    from deepspeed_tpu_torch.models.transformer import ParamTree
+    from deepspeed_tpu_torch.ops.wq_matmul import dequantize_weight
+
+    def walk(q, f):
+        out = {}
+        for n, p in f._parameters.items():
+            sub = q._modules.get(n)
+            out[n] = (q._parameters[n].detach() if sub is None else dequantize_weight(
+                sub.wq, sub.scale, bits=bits, group=group, k=p.shape[0], dtype=p.dtype))
+        for n, child in f._modules.items():
+            out[n] = ([walk(qc, fc) for qc, fc in zip(q._modules[n], child)]
+                      if isinstance(child, torch.nn.ModuleList) else walk(q._modules[n], child))
+        return out
+
+    return ParamTree(walk(qparams, like))
+
+
+def quant_cosine_probe(model, ids):
+    """``model`` (2 layers of llama-7b's width) through the bf16 and the
+    quant_bits 8 and 4 engines: cosine against the bf16 engine (int8 held
+    to ``WQ_COSINE``) and against the bf16 model on the dequantized weights
+    (held to ``WQ_DEQUANT_COSINE``)."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceConfig
+
+    base = dict(dtype="bf16", page_size=16, max_seqs=1, max_pages_per_seq=32, num_pages=32)
+    eng = InferenceEngineV2(model, RaggedInferenceConfig(**base), seed=5)
+    ref = prefill_probe(eng.cfg, eng.params, ids, torch.bfloat16)
+    out = {}
+    for bits in (8, 4):
+        q = InferenceEngineV2(model, RaggedInferenceConfig(**base, quant_bits=bits),
+                              params=eng.params)
+        logits = prefill_probe(q.cfg, q.params, ids, torch.bfloat16)
+        ref_dq = prefill_probe(model.config, dequantized(q.params, eng.params, bits,
+                                                         q.cfg.wq_group), ids, torch.bfloat16)
+        rec = out[f"int{bits}"] = {"vs_bf16": cosine(logits, ref),
+                                   "vs_dequantized_bf16": cosine(logits, ref_dq)}
+        where = f"int{bits} at {model.config.n_layers} layers"
+        check(rec["vs_dequantized_bf16"] > WQ_DEQUANT_COSINE,
+              f"{where}: prefill logits cosine {rec['vs_dequantized_bf16']:.5f} vs the "
+              f"dequantized weights <= {WQ_DEQUANT_COSINE}")
+        check(bits not in WQ_COSINE or rec["vs_bf16"] > WQ_COSINE[bits],
+              f"{where}: prefill logits cosine {rec['vs_bf16']:.5f} vs bf16 <= "
+              f"{WQ_COSINE.get(bits)}")
+    print(json.dumps({"quant_cosine_2_layers": out}))
+    return out
+
+
+def quant_engine_phase(fa, pa, wq):
+    """llama-7b at full width and depth through InferenceEngineV2 with
+    quant_bits 8 and 4 over the same seeded bf16 weights; the bf16 engine
+    and an fp32 copy of its weights give the reference logits."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    model = llama_model("7b", max_seq_len=2048, dtype=torch.bfloat16)
+    L = model.config.n_layers
+    per_call = 7 * L + 1
+    rng = torch.Generator().manual_seed(1234)
+    lengths = [16, 900] + torch.randint(17, 900, (10,), generator=rng).tolist()
+    prompts = [torch.randint(0, model.config.vocab_size, (n,), generator=rng).tolist()
+               for n in lengths]
+    base = dict(dtype="bf16", page_size=16, max_seqs=8, max_pages_per_seq=64, num_pages=576)
+    ids = torch.zeros(PROBE_BUCKET, dtype=torch.long)
+    ids[:PROBE_N] = torch.tensor(prompts[1][:PROBE_N])
+    ids = ids.to(DEV)
+    results = {"cosine_2_layers": quant_cosine_probe(
+        llama_model("7b", max_seq_len=2048, n_layers=2, dtype=torch.bfloat16), ids)}
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngineV2(model, RaggedInferenceConfig(**base), seed=0)
+    results["bf16"] = {"init_s": time.perf_counter() - t0, "param_bytes": eng.param_bytes}
+    params = eng.params
+    eng.close()
+    del eng
+    ref = prefill_probe(model.config, params, ids, torch.bfloat16)
+    params32 = params.map(lambda t: t.float())
+    ref32 = prefill_probe(model.config, params32, ids, torch.float32)
+    del params32
+    results["bf16"].update(cosine_vs_fp32=cosine(ref, ref32),
+                           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    torch.cuda.empty_cache()
+    for bits in (8, 4):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = InferenceEngineV2(model, RaggedInferenceConfig(**base, quant_bits=bits,
+                                                             quant_group=128),
+                                params=params, seed=0)
+        init_s = time.perf_counter() - t0
+        leaf = eng.params.layers[0].attn.wq
+        check(eng.cfg.wq_bits == bits and model.config.wq_bits == 0,
+              f"int{bits}: wq_bits not on the engine's own config copy")
+        code_dtype = torch.int8 if bits == 8 else torch.uint8
+        check(leaf.wq.device.type == DEV and leaf.wq.dtype == code_dtype
+              and leaf.scale.dtype == torch.float32, f"int{bits}: quantized leaf layout")
+        logits = prefill_probe(eng.cfg, eng.params, ids, torch.bfloat16)
+        check(bool(torch.isfinite(logits).all()), f"int{bits}: non-finite prefill logits")
+        cos, cos32 = cosine(logits, ref), cosine(logits, ref32)
+        # warm-up (cuBLAS handles, allocator): one short request, not counted
+        eng.generate_all([RaggedRequest(prompt_ids=prompts[0][:32], max_new_tokens=2)])
+        rec = drive(eng, [RaggedRequest(prompt_ids=p, max_new_tokens=32) for p in prompts],
+                    fa, pa, wq)
+        st, la = rec.pop("stats"), rec["launches"]
+        calls, steps = st["prefill_calls"], st["decode_model_invocations"]
+        check(len(rec["reasons"]) == len(prompts)
+              and all(r == "length" for r in rec["reasons"].values())
+              and all(len(t) == 32 for t in rec["streams"].values()),
+              f"int{bits}: {rec['reasons']}")
+        check(calls > 0 and la["wq_matmul"] == per_call * (calls + steps),
+              f"int{bits}: wq_matmul launches {la['wq_matmul']} != {per_call} x "
+              f"({calls} prefill + {steps} decode calls)")
+        check(la["flash"] == L * calls and la["paged"] == L * steps,
+              f"int{bits}: flash/paged launches {la} vs {L} x {calls}/{steps}")
+        rec["decode_profile"] = profile_steps(
+            eng, [RaggedRequest(prompt_ids=p[:64], max_new_tokens=8) for p in prompts[:8]],
+            warm_steps=2, steps=4)
+        rec.update(stats=st, param_bytes=eng.param_bytes, cosine_vs_bf16=cos,
+                   cosine_vs_fp32=cos32, init_s=init_s,
+                   wq_per_model_call=per_call,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        rec.pop("streams")
+        results[f"int{bits}"] = rec
+        print(json.dumps({"quant_engine": f"int{bits}", **{k: v for k, v in rec.items()
+                                                          if k != "reasons"}}))
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 13: init_inference -> generate -> module_quantize -----------------
+
+def inference_v1_phase(qz):
+    """llama-1b at full width and depth through the dense-cache engine, then
+    module_quantize (kernels Q and DQ, counted) and generate again; then a
+    LoRA layer over an int8 base."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.linear.optimized_linear import (LoRAConfig, QuantizationConfig,
+                                                             init_lora_linear, lora_linear)
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    model = llama_model("1b", max_seq_len=2048, dtype=torch.bfloat16)
+    V = model.config.vocab_size
+    eng = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"})
+    check(eng.device.type == DEV, f"init_inference engine device is not {DEV}")
+    g = torch.Generator(device=DEV).manual_seed(42)
+    ids = torch.randint(0, V, (4, 128), generator=g, device=DEV)
+    eng.generate(ids[:, :16], max_new_tokens=2)  # warm-up
+
+    def timed_generate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(ids, max_new_tokens=32)
+        torch.cuda.synchronize()
+        check(out.shape == (4, 160) and torch.equal(out[:, :128], ids)
+              and bool(((out >= 0) & (out < V)).all()), f"generate: bad stream {out.shape}")
+        return out, time.perf_counter() - t0
+
+    out0, gen_s = timed_generate()
+    n_leaves = sum(1 for _, ndim, ts in eng._stacked_leaves()
+                   if ndim >= 2 and ts[0].is_floating_point())
+    qz.quantize_int8.launches = qz.dequantize_int8.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.module_quantize()
+    torch.cuda.synchronize()
+    mq_s = time.perf_counter() - t0
+    mq = {"quantize_int8": qz.quantize_int8.launches,
+          "dequantize_int8": qz.dequantize_int8.launches}
+    check(mq["quantize_int8"] == mq["dequantize_int8"] == n_leaves,
+          f"module_quantize: launches {mq} != one pair per stacked leaf ({n_leaves})")
+    check(all(bool(torch.isfinite(p).all()) for p in eng.params.parameters()),
+          "module_quantize: non-finite parameter")
+    out1, gen_q_s = timed_generate()
+
+    lora = LoRAConfig(lora_r=16, lora_alpha=32)
+    qz.quantize_int8.launches = qz.dequantize_int8.launches = 0
+    lp = init_lora_linear(g, 2048, 5504, lora, quantize=QuantizationConfig(),
+                          dtype=torch.bfloat16)
+    x = torch.randn((512, 2048), generator=g, device=DEV).to(torch.bfloat16)
+    y = lora_linear(lp, x, lora)
+    lora_l = {"quantize_int8": qz.quantize_int8.launches,
+              "dequantize_int8": qz.dequantize_int8.launches}
+    check(lora_l == {"quantize_int8": 1, "dequantize_int8": 1},
+          f"lora over an int8 base: launches {lora_l}")
+    n = 2048 * 5504
+    base = qz.dequantize_int8_plain(lp["base_q"], lp["base_scale"], n, torch.bfloat16)
+    check(torch.equal(qz.dequantize_int8(lp["base_q"], lp["base_scale"], n, torch.bfloat16),
+                      base), "lora_linear: the kernel-dequantized base differs from the plain")
+    base = base.reshape(2048, 5504)
+    y_ref = x @ base + (x @ lp["lora_a"]) @ lp["lora_b"] * (lora.lora_alpha / lora.lora_r)
+    err, _, ok = max_err(y, y_ref, FLASH_TOL[torch.bfloat16])
+    check(ok, f"lora_linear: output differs from the plain base's by {err:.3g}")
+    rec = {"model": "llama-1b", "batch": [4, 128], "new_tokens": 32, "generate_s": gen_s,
+           "decode_tok_per_s": 4 * 32 / gen_s, "module_quantize_s": mq_s,
+           "generate_after_quantize_s": gen_q_s, "stacked_leaves_quantized": n_leaves,
+           "module_quantize_launches": mq, "lora_launches": lora_l,
+           "greedy_tokens_unchanged_share":
+               (out1[:, 128:] == out0[:, 128:]).float().mean().item()}
+    print(json.dumps({"inference_v1": rec}))
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 14: card vs CPU parity of the quantized paths ---------------------
+
+def quant_parity_phase():
+    import copy
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    model = llama_model("1b", max_seq_len=2048, n_layers=2)
+    params = model.init_params(torch.Generator().manual_seed(7), "cpu")
+    rng = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, model.config.vocab_size, (n,), generator=rng).tolist()
+               for n in (7, 40, 100, 23)]
+    rec = {}
+    for bits in (8, 4):
+        cfg = dict(dtype="fp32", page_size=16, max_seqs=4, max_pages_per_seq=16, num_pages=64,
+                   quant_bits=bits, quant_group=128)
+        engines = {dev: InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
+                                          params=copy.deepcopy(params), device=dev)
+                   for dev in ("cuda", "cpu")}
+        codes = {dev: e.params.layers[1].mlp.w_down.wq.cpu() for dev, e in engines.items()}
+        check(torch.equal(codes["cuda"], codes["cpu"]),
+              f"quant parity int{bits}: codes quantized on the card differ from the CPU's")
+        streams = {dev: e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=8)
+                                        for p in prompts]) for dev, e in engines.items()}
+        check(streams["cuda"] == streams["cpu"],
+              f"quant parity int{bits}: greedy streams differ: {streams}")
+        rec[f"engine_v2_int{bits}"] = {"streams_identical": True, "requests": len(prompts)}
+        del engines
+    ids = torch.randint(0, model.config.vocab_size, (2, 24), generator=rng)
+    engines = {dev: deepspeed_tpu_torch.init_inference(model, config={"dtype": "fp32"},
+                                                       params=copy.deepcopy(params), device=dev)
+               for dev in ("cuda", "cpu")}
+    for stage in ("generate", "generate_after_module_quantize"):
+        if stage != "generate":
+            for e in engines.values():
+                e.module_quantize()
+            diff = max((pc.cpu() - ph).abs().max().item() for pc, ph in zip(
+                engines["cuda"].params.parameters(), engines["cpu"].params.parameters()))
+            check(diff == 0.0, f"quant parity: module_quantize params differ by {diff}")
+        out = {dev: e.generate(ids, max_new_tokens=8).cpu() for dev, e in engines.items()}
+        check(torch.equal(out["cuda"], out["cpu"]),
+              f"quant parity {stage}: greedy streams differ: {out}")
+        rec[f"inference_v1_{stage}"] = {"streams_identical": True, "batch": list(ids.shape)}
+    print(json.dumps({"quant_parity": rec}))
+    return rec
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -907,6 +1374,8 @@ def main() -> int:
         from deepspeed_tpu_torch.ops import fused_adam as fadam
         from deepspeed_tpu_torch.ops import op_builder
         from deepspeed_tpu_torch.ops import paged_attention as pa
+        from deepspeed_tpu_torch.ops import quantization as qz
+        from deepspeed_tpu_torch.ops import wq_matmul as wq
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 3
@@ -933,11 +1402,16 @@ def main() -> int:
     paged = paged_phase(pa)
     bwd = flash_bwd_phase(fa)
     adam = adam_phase(fadam)
+    wq_recs = wq_phase(wq)
+    quant = quant_phase(qz)
 
     eng = engine_phase(fa, pa)
     par = parity_phase()
     train = train_phase(fa, fadam)
     tpar = train_parity_phase()
+    qeng = quant_engine_phase(fa, pa, wq)
+    v1 = inference_v1_phase(qz)
+    qpar = quant_parity_phase()
 
     def timed(recs, keys):
         return {r["case"]: {k: r[k] for k in keys} for r in recs if keys[0] in r}
@@ -946,7 +1420,16 @@ def main() -> int:
     main_paged = paged[0]
     main_bwd = bwd[0]
     main_adam = adam[0]
+    main_wq = next(r for r in wq_recs if r["case"] == "mlp_up_4096x11008_m8_int8")
+    main_q = quant[0]
+    q_serving = {m: qeng[m]["launches"] for m in ("int8", "int4")}
     serve_fwd = sum(r["launches"]["flash"] for r in eng.values())
+    serve_paged = sum(r["launches"]["paged"] for r in eng.values())
+    q_fwd = sum(la["flash"] for la in q_serving.values())
+    q_paged = sum(la["paged"] for la in q_serving.values())
+    codec_l = {k: v1["module_quantize_launches"][k] + v1["lora_launches"][k]
+               for k in ("quantize_int8", "dequantize_int8")}
+    codec_shape = "n=65,536,000 bf16 (llama-1b embed.tok)"
     train_l = {k: train["launches"][k] + train["gas2"]["launches"][k]
                for k in train["launches"]}
     bwd_shape = "B=4 S=1024 NH=32 KVH=8 D=64 bf16 causal"
@@ -954,8 +1437,9 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:38",
-         "launches": serve_fwd + train_l["flash_fwd"],
-         "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"]},
+         "launches": serve_fwd + q_fwd + train_l["flash_fwd"],
+         "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
+                              "quantized_serving": q_fwd},
          "max_abs_err": max(r["max_abs_err"] for r in flash), "checked": True,
          "ms": main_flash["ms"], "kernel_ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"], "bound_ms": main_flash["bound_ms"],
@@ -983,7 +1467,8 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:35",
-         "launches": sum(r["launches"]["paged"] for r in eng.values()),
+         "launches": serve_paged + q_paged,
+         "launches_by_path": {"serving": serve_paged, "quantized_serving": q_paged},
          "max_abs_err": max(r["max_abs_err"] for r in paged), "checked": True,
          "ms": main_paged["ms"], "kernel_ms": main_paged["ms"],
          "plain_ms": main_paged["plain_ms"], "bound_ms": main_paged["bound_ms"],
@@ -999,6 +1484,41 @@ def main() -> int:
          "bound_ms": main_adam["bound_ms"], "bound_by": main_adam["bound_by"],
          "library_ms": main_adam["library_ms"], "shape": "n=65,536,000 fp32 p/g/m/v",
          "timed_cases": timed(adam, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))},
+        {"name": "wq_matmul", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/wq_matmul.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/wq_matmul.py:78",
+         "launches": sum(la["wq_matmul"] for la in q_serving.values()),
+         "launches_by_path": {f"quantized_serving_{m}": la["wq_matmul"]
+                              for m, la in q_serving.items()},
+         "max_abs_err": max(r["max_abs_err"] for r in wq_recs), "checked": True,
+         "ms": main_wq["ms"], "plain_ms": main_wq["plain_ms"], "bound_ms": main_wq["bound_ms"],
+         "bound_by": main_wq["bound_by"], "library_ms": None,
+         "library_note": "no single PyTorch call computes the grouped-scale int8/int4 product",
+         "context_cublas_dequantized_ms": main_wq["context_cublas_dequantized_ms"],
+         "shape": "M=8 K=4096 N=11008 int8 group 128 bf16 (llama-7b decode, gate/up)",
+         "timed_cases": timed(wq_recs, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "context_cublas_dequantized_ms"))},
+        {"name": "quantize_int8", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/quantization.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/quantization.py:20",
+         "launches": codec_l["quantize_int8"],
+         "launches_by_path": {"module_quantize": v1["module_quantize_launches"]["quantize_int8"],
+                              "lora_init": v1["lora_launches"]["quantize_int8"]},
+         "max_abs_err": max(r["max_abs_err"] for r in quant), "checked": True,
+         "ms": main_q["quant_ms"], "plain_ms": main_q["quant_plain_ms"],
+         "bound_ms": main_q["quant_bound_ms"], "bound_by": main_q["quant_bound_by"],
+         "library_ms": None, "shape": codec_shape},
+        {"name": "dequantize_int8", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/quantization.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/quantization.py:29",
+         "launches": codec_l["dequantize_int8"],
+         "launches_by_path": {"module_quantize":
+                              v1["module_quantize_launches"]["dequantize_int8"],
+                              "lora_linear": v1["lora_launches"]["dequantize_int8"]},
+         "max_abs_err": max(r["max_abs_err"] for r in quant), "checked": True,
+         "ms": main_q["dequant_ms"], "plain_ms": main_q["dequant_plain_ms"],
+         "bound_ms": main_q["dequant_bound_ms"], "bound_by": main_q["dequant_bound_by"],
+         "library_ms": None, "shape": codec_shape},
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"engine_summary": {m: {k: r[k] for k in (
@@ -1012,6 +1532,12 @@ def main() -> int:
         "train_profile": train["profile"], "gas2": train["gas2"],
         "train_parity": {n: {"steps": r["steps"], "params_max_abs_diff": r["params_max_abs_diff"]}
                          for n, r in tpar.items()}}))
+    print(json.dumps({"quant_summary": {m: {k: r[k] for k in (
+        "param_bytes", "cosine_vs_bf16", "cosine_vs_fp32", "peak_mem_gb", "ttft_mean_s",
+        "ttft_p50_s", "ttft_max_s", "prefill_tok_per_s", "decode_tok_per_s", "mean_step_ms",
+        "launches", "decode_profile")} for m, r in qeng.items() if m in ("int8", "int4")},
+        "bf16": qeng["bf16"], "cosine_2_layers": qeng["cosine_2_layers"],
+        "inference_v1": v1, "quant_parity": qpar}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,28 +5,35 @@ model_runner.py`` has its counterpart at ``deepspeed_tpu_torch/inference/
 v2/model_runner.py``).  The port imports ``torch`` and numpy only: never
 JAX and nothing of ``deepspeed_tpu``.
 
-Two slices are ported.  Serving: :class:`InferenceEngineV2` (paged
+Three slices are ported.  Serving: :class:`InferenceEngineV2` (paged
 continuous batching) over a llama-family transformer, with hand-written
 CUDA kernels for flash-attention forward (prefill) and paged decode
-attention.  Training on one device: :func:`initialize` returns a
+attention, and weight-only int8/int4 weights (``quant_bits``) through the
+``wq_matmul`` kernel.  Training on one device: :func:`initialize` returns a
 :class:`DeepSpeedTPUEngine` whose ``train_batch`` runs the model forward
 through the flash kernel, the backward through the flash dQ and dK/dV
-kernels, and AdamW through the fused-Adam kernel.  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; without a CUDA device
-they raise.
+kernels, and AdamW through the fused-Adam kernel.  Dense-cache inference:
+:func:`init_inference` returns an :class:`InferenceEngine` (``generate``,
+``forward``, ``module_quantize`` through the int8 quantize/dequantize
+kernels).  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a CUDA device they raise.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 from .accelerator import DeviceLike
+from .inference.engine import InferenceConfig, InferenceEngine
 from .runtime.config import DeepSpeedConfig
 from .runtime.engine import DeepSpeedTPUEngine, TrainState
 from .runtime.module import ModelSpec
 
 __version__ = "0.2.0"
-__all__ = ["initialize", "DeepSpeedConfig", "DeepSpeedTPUEngine", "TrainState", "ModelSpec"]
+__all__ = ["initialize", "init_inference", "default_inference_config", "DeepSpeedConfig",
+           "DeepSpeedTPUEngine", "TrainState", "ModelSpec", "InferenceConfig",
+           "InferenceEngine"]
 
 
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
@@ -56,3 +63,31 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                                 model_parameters=model_parameters, lr_scheduler=lr_scheduler,
                                 client_optimizer=optimizer, device=device, seed=seed)
     return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+def init_inference(model: Any = None, config: Any = None, device: DeviceLike = None,
+                   **kwargs: Any) -> InferenceEngine:
+    """Create a dense-cache inference engine (``deepspeed_tpu.init_inference``).
+
+    ``config``: an :class:`InferenceConfig` or a dict of its fields; keyword
+    arguments naming a field override it, and ``params`` hands the engine
+    its weights (a ``ParamTree`` or a JAX-layout numpy tree).  ``device``
+    None means ``cuda``.  A Hugging Face checkpoint directory as ``model``
+    is not ported yet."""
+    cfg = config if isinstance(config, InferenceConfig) else InferenceConfig.from_dict(
+        config if isinstance(config, dict) else {})
+    for k, v in kwargs.items():
+        if hasattr(cfg, k):
+            setattr(cfg, k, v)
+    cfg.validate()
+    if isinstance(model, str) and os.path.isdir(model):
+        raise NotImplementedError(
+            "init_inference from a Hugging Face checkpoint directory: checkpoint/hf_import.py "
+            "is not ported yet (ROADMAP Queue 1 #17 'Remaining modules')")
+    return InferenceEngine(model, cfg, params=kwargs.get("params"), device=device)
+
+
+def default_inference_config() -> Dict[str, Any]:
+    """The default inference config as a dict, to edit and pass back to
+    :func:`init_inference`."""
+    return InferenceConfig().to_dict()

@@ -14,10 +14,12 @@ samples on the host with numpy, exactly as the JAX engine does.
 
 This slice ports the single-replica scheduler: admission by priority
 class, KV-pressure preemption, deadlines, whole-prompt and chunked
-prefill, and the one-token decode loop.  The prefix cache, the KV tiers,
-speculative and multi-step decode, weight-only quantization and the
-telemetry layer are not ported yet; setting one of their knobs raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+prefill, the one-token decode loop, and weight-only int8/int4 weights
+(``quant_bits``: every projection and the LM head through the
+``wq_matmul`` kernel).  The prefix cache, the KV tiers, speculative and
+multi-step decode and the telemetry layer are not ported yet; setting one
+of their knobs raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ...models.convert import params_from_numpy
 from ...models.transformer import ParamTree, TransformerConfig
 from ...runtime.config_utils import ConfigModel
 from ...runtime.precision import cast_tree
+from ..quantization import quantize_inference_params
 from ...utils.logging import logger
 from .model_runner import (paged_decode, paged_prefill, paged_prefill_chunk,
                            sample_tokens)
@@ -44,7 +47,6 @@ from .ragged import (PRIORITY_NORMAL, BlockAllocator, KVBlockConfig,
 ROADMAP_PREFIX = "ROADMAP Queue 1 'Serving: prefix cache, KV export and tiers'"
 ROADMAP_SPEC = "ROADMAP Queue 1 'Serving: speculative and multi-step decode'"
 ROADMAP_TELEMETRY = "ROADMAP Queue 1 'Serving telemetry'"
-ROADMAP_WQ = "ROADMAP Queue 1 'Inference v1 and quantization'"
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
@@ -89,6 +91,8 @@ class RaggedInferenceConfig(ConfigModel):
     #: chunked prefill: prompts run in chunks of this many tokens (rounded
     #: up to page_size) so decode steps interleave; 0 = whole-prompt
     prefill_chunk: int = 0
+    #: weight-only quantized weights: 8 or 4 bits (0 = off), per group of
+    #: ``quant_group`` rows; matrices under ``quant_min_size`` elements stay
     quant_bits: int = 0
     quant_group: int = 128
     quant_min_size: int = 1 << 14
@@ -120,7 +124,6 @@ class RaggedInferenceConfig(ConfigModel):
             ("enable_prefix_cache", self.enable_prefix_cache, ROADMAP_PREFIX),
             ("kv_tier", self.kv_tier is not None, ROADMAP_PREFIX),
             ("decode_horizon > 1", self.decode_horizon > 1, ROADMAP_SPEC),
-            ("quant_bits", self.quant_bits != 0, ROADMAP_WQ),
             ("timeline_every_n_steps", self.timeline_every_n_steps != 0,
              ROADMAP_TELEMETRY),
             ("timeline_artifact_dir", self.timeline_artifact_dir != "",
@@ -132,6 +135,8 @@ class RaggedInferenceConfig(ConfigModel):
             if is_set:
                 raise NotImplementedError(
                     f"RaggedInferenceConfig.{name}: not ported yet ({item})")
+        if self.quant_bits not in (0, 4, 8):
+            raise ValueError(f"quant_bits must be 0, 4 or 8, got {self.quant_bits}")
         if self.decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, got {self.decode_horizon}")
         self.speculative.validate()
@@ -168,7 +173,12 @@ class InferenceEngineV2:
     serving dtype in place), the JAX parameter tree as numpy arrays, or
     None for random weights drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``.  ``device``: None means ``cuda``; without a
-    CUDA device only an explicit ``"cpu"`` runs."""
+    CUDA device only an explicit ``"cpu"`` runs.
+
+    With ``config.quant_bits`` the engine casts to the serving dtype
+    first, then quantizes into a new tree (the given tree keeps its
+    weights), and sets ``wq_bits``/``wq_group`` on its own model-config
+    copy; ``param_bytes`` is then the quantized tree's bytes."""
 
     def __init__(self, model: Any, config: Optional[RaggedInferenceConfig] = None,
                  params: Any = None, seed: int = 0, device: Any = None):
@@ -178,6 +188,8 @@ class InferenceEngineV2:
         if not hasattr(model, "config") or not isinstance(model.config, TransformerConfig):
             raise TypeError("InferenceEngineV2 needs a models/* model carrying "
                             "a TransformerConfig")
+        # own COPY of the model config: the quantization flags must not leak
+        # into other engines sharing the model object
         self.cfg: TransformerConfig = dataclasses.replace(model.config)
         if self.cfg.post_norm:
             raise NotImplementedError(
@@ -197,9 +209,17 @@ class InferenceEngineV2:
             params = params_from_numpy(params, self.cfg, self.device, dtype)
         elif not isinstance(params, ParamTree):
             raise TypeError(f"params must be a ParamTree or a numpy tree, not {type(params)}")
+        # cast first: cast_tree casts every floating leaf, so it must never
+        # run after quantization (the scales stay fp32)
         self.params = cast_tree(params.to(self.device), dtype)
         self.param_bytes = sum(p.numel() * p.element_size()
                                for p in self.params.parameters())
+        if self.config.quant_bits:
+            self.cfg.wq_bits = int(self.config.quant_bits)
+            self.cfg.wq_group = int(self.config.quant_group)
+            self.params, _, self.param_bytes = quantize_inference_params(
+                self.params, self.cfg.wq_bits, self.cfg.wq_group,
+                min_size=self.config.quant_min_size)
         self._pools = PagedKVCache.init(
             self.cfg.n_layers, self.cfg.kv_heads, self.cfg.head_dim, block,
             dtype, kv_quant=self.config.kv_quant, device=self.device)

@@ -35,8 +35,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from ...models.transformer import (ParamTree, TransformerConfig, _mm, _norm, _repeat_kv,
-                                   alibi_slopes, attn_qkv, logits_fn, mlp_block)
+from ...models.transformer import (ParamTree, TransformerConfig, _attn_out, _embed,
+                                   _final_logits, _repeat_kv, alibi_slopes, attn_qkv)
 from ...ops.flash_attention import flash_attention_fwd
 from ...ops.paged_attention import paged_decode_attention
 
@@ -63,18 +63,6 @@ def _slopes(cfg: TransformerConfig, device) -> torch.Tensor | None:
     return alibi_slopes(cfg.n_heads, device=device) if cfg.position == "alibi" else None
 
 
-def _attn_out(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
-              attn: torch.Tensor) -> torch.Tensor:
-    """Output projection + residual/parallel-block epilogue shared by the
-    prefill/chunk/decode layer bodies."""
-    attn_delta = _mm(cfg, attn, layer.attn.wo)
-    if cfg.use_bias:
-        attn_delta = attn_delta + layer.attn.bo
-    if cfg.parallel_block:
-        return mlp_block(cfg, layer, x) + attn_delta
-    return mlp_block(cfg, layer, x + attn_delta)
-
-
 def _write_pages(pools: Pools, layer_idx: int, rows: torch.Tensor,
                  k_pages: torch.Tensor, v_pages: torch.Tensor) -> None:
     """Scatter whole pages of fresh K/V into one layer's pools, in place
@@ -91,27 +79,6 @@ def _write_pages(pools: Pools, layer_idx: int, rows: torch.Tensor,
     else:
         k_c[rows] = k_pages.to(k_c.dtype)
         v_c[rows] = v_pages.to(v_c.dtype)
-
-
-def _embed(cfg: TransformerConfig, params: ParamTree, ids: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    """Token (+ learned position) embedding (+ bloom embedding norm);
-    ids/positions [B, T] -> [B, T, H]."""
-    x = params.embed.tok[ids]
-    if cfg.position == "learned":
-        pos_idx = torch.clamp(positions, max=params.embed.pos.shape[0] - 1)
-        x = x + params.embed.pos[pos_idx]
-    if "norm" in params.embed:
-        x = _norm(x, params.embed.norm.scale, params.embed.norm.get("bias"),
-                  cfg.norm, cfg.norm_eps)
-    return x
-
-
-def _final_logits(cfg: TransformerConfig, params: ParamTree,
-                  x: torch.Tensor) -> torch.Tensor:
-    hidden = _norm(x, params.final_norm.scale, params.final_norm.get("bias"),
-                   cfg.norm, cfg.norm_eps)
-    return logits_fn(cfg, params, hidden)
 
 
 @torch.no_grad()

@@ -10,7 +10,10 @@ The JAX parameter tree (``init_transformer_params`` layout: nested dicts,
 layers stacked on axis 0 as ``[L, ...]``, matmul weights ``[in, out]``)
 crosses as numpy arrays.  The port keeps the ``[in, out]`` layout
 (``x @ W``), so no leaf is transposed; the only reshaping is splitting
-the stacked layer axis into per-layer trees and back.
+the stacked layer axis into per-layer trees and back.  Weight-only
+quantized ``{"wq", "scale"}`` sub-trees cross both ways like any other:
+their codes keep their integer type and their scales stay fp32 whatever
+the tree's dtype.
 """
 
 from __future__ import annotations
@@ -38,11 +41,14 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig,
                       dtype: torch.dtype = torch.float32) -> ParamTree:
     """JAX parameter tree (numpy leaves) -> the port's ``ParamTree`` with
     floating leaves cast to ``dtype`` on ``device`` (None means ``cuda``,
-    as everywhere in the port)."""
+    as everywhere in the port); the scales of a quantized sub-tree stay
+    fp32."""
     device = resolve_device(device)
 
     def walk(node):
-        return {k: walk(v) if isinstance(v, dict) else _to_tensor(v, device, dtype)
+        quantized = _is_quantized(node)
+        return {k: walk(v) if isinstance(v, dict) else
+                _to_tensor(v, device, torch.float32 if quantized and k == "scale" else dtype)
                 for k, v in node.items()}
 
     out = {k: walk(v) for k, v in tree.items() if k != "layers"}
@@ -61,12 +67,14 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig,
 
 
 def params_to_numpy(params: ParamTree) -> Dict[str, Any]:
-    """The reverse: per-layer trees stacked back on axis 0, fp32 numpy."""
+    """The reverse: per-layer trees stacked back on axis 0, floating leaves
+    as fp32 numpy, integer leaves (quantized codes) in their own type."""
 
     def walk(mod):
         out = {}
         for name, p in mod._parameters.items():
-            out[name] = p.detach().float().cpu().numpy()
+            t = p.detach()
+            out[name] = (t.float() if t.is_floating_point() else t).cpu().numpy()
         for name, child in mod._modules.items():
             if isinstance(child, torch.nn.ModuleList):
                 per = [walk(c) for c in child]
@@ -76,6 +84,11 @@ def params_to_numpy(params: ParamTree) -> Dict[str, Any]:
         return out
 
     return walk(params)
+
+
+def _is_quantized(node) -> bool:
+    """A weight-only quantized ``{"wq": codes, "scale": scales}`` node."""
+    return isinstance(node, dict) and set(node) == {"wq", "scale"}
 
 
 def _leaves(node):

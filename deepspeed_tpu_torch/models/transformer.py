@@ -1,5 +1,5 @@
-"""Transformer model core — the serving and single-device training subset
-of ``deepspeed_tpu/models/transformer.py``.
+"""Transformer model core — the serving (paged and dense-cache) and
+single-device training subset of ``deepspeed_tpu/models/transformer.py``.
 
 Parameters live in :class:`ParamTree` modules that mirror the JAX
 parameter tree name for name (``params.embed.tok``,
@@ -11,6 +11,11 @@ mechanical walk.  Two differences from the JAX layout:
   tree per layer, because PyTorch runs the layer loop eagerly;
 * matmul weights keep the JAX ``[in, out]`` layout (``x @ W``), so no
   transposes cross the bridge.
+
+A weight leaf may be a weight-only quantized ``{"wq", "scale"}`` sub-tree
+(``inference/quantization.py``); :func:`_mm` sends those to the
+``wq_matmul`` kernel.  :func:`forward_with_cache` is the dense KV-cache
+path of the inference v1 engine.
 
 The training forward (:func:`transformer_forward`, :func:`causal_lm_loss`)
 runs the layers as a Python loop where JAX scans them, and differentiates
@@ -39,7 +44,6 @@ from ..accelerator import DeviceLike, resolve_device
 #: ROADMAP items that bring the parts of the JAX model core this slice
 #: leaves out (named in the NotImplementedError each one raises)
 ROADMAP_MOE = "ROADMAP Queue 1 'Model families and MoE'"
-ROADMAP_WQ = "ROADMAP Queue 1 'Inference v1 and quantization'"
 ROADMAP_SP = "ROADMAP Queue 1 'Sequence parallelism'"
 ROADMAP_REMAT = "ROADMAP Queue 1 #2b 'Activation checkpointing'"
 
@@ -78,6 +82,11 @@ class TransformerConfig:
     moe_experts: int = 0
     #: tiled logits + loss: sequence chunk size (0 = off)
     loss_chunk: int = 0
+    #: weight-only quantized inference: big matmul weights stored as int8 /
+    #: int4 codes + fp32 group scales; 0 = off.  Set by InferenceEngineV2 on
+    #: ITS OWN config copy, never on a shared one.
+    wq_bits: int = 0
+    wq_group: int = 128
     head_dim_override: Optional[int] = None
 
     @property
@@ -209,11 +218,14 @@ def init_transformer_params(cfg: TransformerConfig, generator: torch.Generator,
 # forward pieces
 # ---------------------------------------------------------------------------
 def _mm(cfg: TransformerConfig, x: torch.Tensor, w: Any) -> torch.Tensor:
-    """``x @ W``: the weight-access seam.  Weight-only quantized
-    ``{"wq", "scale"}`` leaves are not ported in this slice."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"weight-only quantized weights are not ported yet ({ROADMAP_WQ})")
+    """``x @ W`` through the weight-access seam: W is a plain tensor or a
+    weight-only quantized ``{"wq", "scale"}`` sub-tree, which goes to the
+    ``wq_matmul`` kernel (its plain version on the CPU) with the config's
+    ``wq_bits`` and ``wq_group``."""
+    if isinstance(w, ParamTree) and "wq" in w:
+        from ..ops.wq_matmul import wq_matmul
+
+        return wq_matmul(x, w.wq, w.scale, bits=cfg.wq_bits, group=cfg.wq_group)
     return x @ w
 
 
@@ -344,8 +356,43 @@ def _ffn(cfg: TransformerConfig, layer: ParamTree, h: torch.Tensor) -> torch.Ten
     return out
 
 
+def _attn_out(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
+              attn: torch.Tensor) -> torch.Tensor:
+    """Output projection + residual/parallel-block epilogue of a block, shared
+    by the training forward and the paged and dense-cache inference
+    bodies.  attn: [B, T, NH * D]."""
+    attn_delta = _mm(cfg, attn, layer.attn.wo)
+    if cfg.use_bias:
+        attn_delta = attn_delta + layer.attn.bo
+    if cfg.parallel_block:
+        return mlp_block(cfg, layer, x) + attn_delta
+    return mlp_block(cfg, layer, x + attn_delta)
+
+
+def _embed(cfg: TransformerConfig, params: ParamTree, ids: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token (+ learned position) embedding (+ bloom embedding norm) of the
+    inference paths; ids/positions [B, T] -> [B, T, H]."""
+    x = params.embed.tok[ids]
+    if cfg.position == "learned":
+        pos_idx = torch.clamp(positions, max=params.embed.pos.shape[0] - 1)
+        x = x + params.embed.pos[pos_idx]
+    if "norm" in params.embed:
+        x = _norm(x, params.embed.norm.scale, params.embed.norm.get("bias"),
+                  cfg.norm, cfg.norm_eps)
+    return x
+
+
+def _final_logits(cfg: TransformerConfig, params: ParamTree,
+                  x: torch.Tensor) -> torch.Tensor:
+    hidden = _norm(x, params.final_norm.scale, params.final_norm.get("bias"),
+                   cfg.norm, cfg.norm_eps)
+    return logits_fn(cfg, params, hidden)
+
+
 def logits_fn(cfg: TransformerConfig, params: ParamTree,
               hidden: torch.Tensor) -> torch.Tensor:
+    """LM-head logits; a weight-only quantized head goes through ``_mm``."""
     if cfg.tie_embeddings:
         return hidden @ params.embed.tok.T
     out = _mm(cfg, hidden, params.lm_head.w)
@@ -400,12 +447,7 @@ def _block(cfg: TransformerConfig, x: torch.Tensor, layer: ParamTree,
             attn = attn_fn(q, k, v, cfg.causal, mask, bias=-slopes[None, :, None, None] * rel)
     else:
         attn = attn_fn(q, k, v, cfg.causal, mask)
-    attn_delta = _mm(cfg, attn.reshape(B, S, NH * D), layer.attn.wo)
-    if cfg.use_bias:
-        attn_delta = attn_delta + layer.attn.bo
-    if cfg.parallel_block:
-        return mlp_block(cfg, layer, x) + attn_delta
-    return mlp_block(cfg, layer, x + attn_delta)
+    return _attn_out(cfg, layer, x, attn.reshape(B, S, NH * D))
 
 
 def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: torch.Tensor,
@@ -496,6 +538,77 @@ def causal_lm_loss(cfg: TransformerConfig, params: ParamTree, batch: Any,
     if m is not None:
         return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0) + aux
     return nll.mean() + aux
+
+
+# ---------------------------------------------------------------------------
+# dense KV-cache decode path (inference v1)
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                  dtype: Optional[torch.dtype] = None,
+                  device: DeviceLike = None) -> Dict[str, Any]:
+    """``{"k", "v"}`` of ``[L, B, max_len, KVH, D]`` zeros and ``"length"``
+    (a host int), on ``device`` (None means ``cuda``)."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device), "length": 0}
+
+
+def _block_decode(cfg: TransformerConfig, x: torch.Tensor, layer: ParamTree,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  position: int) -> torch.Tensor:
+    """One block for the token slice x ``[B, T, H]`` at positions
+    ``[position, position + T)``: writes this slice's K/V into the layer's
+    cache views ``[B, S, KVH, D]`` in place, then attends the cache through
+    the plain attention, as JAX computes it (scores in the input type, fp32
+    softmax, token t sees slots <= position + t).  JAX attends all S slots
+    with the later ones masked; here the slots past ``position + T``, which
+    the mask zeroes exactly, are not read."""
+    B, T, _ = x.shape
+    NH, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    dev = x.device
+    q, k, v = attn_qkv(cfg, layer, x, (position + torch.arange(T, device=dev))[None].expand(B, T))
+    end = position + T
+    k_cache[:, position:end] = k.to(k_cache.dtype)
+    v_cache[:, position:end] = v.to(v_cache.dtype)
+    kk = _repeat_kv(k_cache[:, :end], NH // KVH)
+    vv = _repeat_kv(v_cache[:, :end], NH // KVH)
+    scores = torch.einsum("btnd,bsnd->bnts", q, kk).float() / math.sqrt(D)
+    limit = (position + torch.arange(T, device=dev))[:, None]
+    slot = torch.arange(end, device=dev)[None, :]
+    if cfg.position == "alibi":
+        scores = scores - alibi_slopes(NH, device=dev)[None, :, None, None] \
+            * (limit - slot).float()
+    scores = torch.where(slot <= limit, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    return _attn_out(cfg, layer, x,
+                     torch.einsum("bnts,bsnd->btnd", probs, vv).reshape(B, T, NH * D))
+
+
+@torch.no_grad()
+def forward_with_cache(cfg: TransformerConfig, params: ParamTree, input_ids: torch.Tensor,
+                       cache: Dict[str, Any], position: int
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Prefill or decode: run ``[B, T]`` tokens against and into the cache
+    from ``position`` (a host int, the same for every row, as the JAX
+    engine's dense decode uses).  Returns (logits ``[B, T, V]``, the cache,
+    updated in place with ``"length"`` = position + T)."""
+    if cfg.post_norm:
+        raise NotImplementedError(
+            "post_norm models (BERT-style encoders) have no KV-cache generative path")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(f"MoE layers are not ported yet ({ROADMAP_MOE})")
+    B, T = input_ids.shape
+    if position + T > cache["k"].shape[2]:
+        raise ValueError(f"positions [{position}, {position + T}) exceed the cache's "
+                         f"{cache['k'].shape[2]} slots")
+    positions = (position + torch.arange(T, device=input_ids.device))[None].expand(B, T)
+    x = _embed(cfg, params, input_ids, positions)
+    for i, layer in enumerate(params.layers):
+        x = _block_decode(cfg, x, layer, cache["k"][i], cache["v"][i], position)
+    cache["length"] = position + T
+    return _final_logits(cfg, params, x), cache
 
 
 def param_count(cfg: TransformerConfig) -> int:

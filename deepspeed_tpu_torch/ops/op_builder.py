@@ -28,6 +28,8 @@ SOURCES = {
     "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
     "paged_attention": CSRC / "paged_attention.cu",
     "fused_adam": CSRC / "fused_adam.cu",
+    "wq_matmul": CSRC / "wq_matmul.cu",
+    "quantization": CSRC / "quantization.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

@@ -62,6 +62,12 @@ class ConfigModel:
     def validate(self) -> None:
         """Override for cross-field checks; raise ValueError on bad config."""
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The fields as a dict (nested config models as dicts), which
+        ``from_dict`` takes back."""
+        return {f.name: (v.to_dict() if isinstance(v, ConfigModel) else v)
+                for f in dataclasses.fields(self) for v in (getattr(self, f.name),)}
+
 
 def _resolve(cls: type, field: dataclasses.Field) -> Any:
     """Resolve possibly-string annotations (from __future__ annotations)."""

@@ -3,10 +3,12 @@ weights, in fp32 on the CPU.
 
 Greedy generations must be token-identical: across queueing (more
 requests than slots), chunked prefill, int8 KV, KV-pool pressure
-(preemption), and with the JAX side running both Pallas kernels in
-interpret mode (``DSTPU_PAGED_KERNEL=1``).  The programs' logits are
-compared directly with a tolerance of 1e-4 (fp32, 2 layers; CPU matmul
-summation order is the only difference)."""
+(preemption), weight-only int8 and int4 weights (``quant_bits``), and with
+the JAX side running both Pallas kernels in interpret mode
+(``DSTPU_PAGED_KERNEL=1``).  The programs' logits are compared directly
+with a tolerance of 1e-4 (fp32, 2 layers; CPU matmul summation order is
+the only difference).  The weight-only quantized trees are held to JAX's
+bit for bit: the same leaves, the same codes and scales."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.inference.quantization import \
+    quantize_inference_params as jax_quantize_params
 from deepspeed_tpu.inference.v2 import InferenceEngineV2 as JaxEngine
 from deepspeed_tpu.inference.v2 import RaggedInferenceConfig as JaxConfig
 from deepspeed_tpu.inference.v2 import RaggedRequest as JaxRequest
@@ -26,8 +30,9 @@ from deepspeed_tpu_torch.inference.v2 import (BlockAllocator, InferenceEngineV2,
                                               KVBlockConfig, PagedKVCache,
                                               RaggedInferenceConfig, RaggedRequest,
                                               RejectedError)
+from deepspeed_tpu_torch.inference.quantization import quantize_inference_params
 from deepspeed_tpu_torch.inference.v2 import model_runner as tmr
-from deepspeed_tpu_torch.models.convert import params_from_numpy
+from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from deepspeed_tpu_torch.models.llama import llama_model
 
 torch.set_num_threads(2)
@@ -222,7 +227,7 @@ def test_bounded_queue_rejects(weights):
 
 @pytest.mark.parametrize("knob", [
     {"enable_prefix_cache": True}, {"kv_tier": {"enabled": True}},
-    {"speculative": {"mode": "ngram"}}, {"decode_horizon": 4}, {"quant_bits": 8},
+    {"speculative": {"mode": "ngram"}}, {"decode_horizon": 4}, {"slo_tpot_s": 0.5},
     {"timeline_every_n_steps": 5}, {"slo_ttft_s": 0.5}])
 def test_not_ported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -285,3 +290,88 @@ def test_block_allocator_matches_jax_line_for_line():
             (ta.free_pages, ta.used_pages, ta.lru_pages, ta.evictions)
         assert [ja.refcount(p) for p in range(12)] == [ta.refcount(p) for p in range(12)]
     ta.check_invariants([held])
+
+
+# -- weight-only quantized weights (quant_bits) --------------------------------
+#: the JAX package's own quantized-engine test sizes
+#: (tests/unit/test_inference_v2.py:229-234): tiny matrices, group 64
+QUANT = dict(quant_group=64, quant_min_size=1024)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_inference_params_matches_jax(weights, bits):
+    """The same leaves quantized, per-layer codes and scales equal to the
+    stacked JAX ones, the same byte counts, fp32 scales."""
+    _, params, np_params = weights
+    want, jb, ja = jax_quantize_params(params, bits, 64, min_size=1024)
+    tparams = params_from_numpy(np_params, llama_model("tiny").config, "cpu")
+    got, tb, ta = quantize_inference_params(tparams, bits, 64, min_size=1024)
+    assert (tb, ta) == (jb, ja)
+    w, g = _flat(jax.tree_util.tree_map(np.asarray, want)), _flat(params_to_numpy(got))
+    assert sorted(w) == sorted(g)
+    quantized = sorted(k for k in w if k.endswith("/wq"))
+    assert quantized == ["layers/attn/wk/wq", "layers/attn/wo/wq", "layers/attn/wq/wq",
+                         "layers/attn/wv/wq", "layers/mlp/w_down/wq", "layers/mlp/w_gate/wq",
+                         "layers/mlp/w_up/wq", "lm_head/w/wq"]
+    for k in w:
+        assert g[k].dtype == w[k].dtype, k
+        np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    leaf = got.layers[1].attn.wq
+    assert leaf.wq.dtype == (torch.int8 if bits == 8 else torch.uint8)
+    assert leaf.scale.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("case", ["queueing", "chunked"])
+def test_quantized_greedy_streams_token_identical(weights, bits, case):
+    cfg = dict(BASE, **CASES[case], quant_bits=bits, **QUANT)
+    prompts = _prompts(seed=9)
+    jmodel, params, _ = weights
+    jeng = JaxEngine(jmodel, JaxConfig(**cfg), params=params)
+    want = jeng.generate_all([JaxRequest(prompt_ids=p, max_new_tokens=8) for p in prompts])
+    eng = _port_engine(weights, cfg)
+    got = eng.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=8) for p in prompts])
+    assert got == want
+    assert eng.param_bytes == jeng.param_bytes
+    assert eng.cfg.wq_bits == bits and eng.cfg.wq_group == 64
+    assert "wq" in eng.params.lm_head.w and "wq" in eng.params.layers[0].mlp.w_down
+    assert eng.params.layers[0].mlp.w_down.scale.dtype == torch.float32
+
+
+def test_quantized_engine_keeps_flags_and_weights_of_its_caller(weights):
+    """The flags land on the engine's own config copy, and the tree it was
+    given keeps its float weights (the engine quantizes into a new tree)."""
+    model = llama_model("tiny", max_seq_len=256)
+    tparams = params_from_numpy(weights[2], model.config, "cpu")
+    fp = InferenceEngineV2(model, RaggedInferenceConfig(**BASE), params=tparams, device="cpu")
+    q8 = InferenceEngineV2(model, RaggedInferenceConfig(**BASE, quant_bits=8, **QUANT),
+                           params=tparams, device="cpu")
+    assert model.config.wq_bits == 0 and fp.cfg.wq_bits == 0 and q8.cfg.wq_bits == 8
+    assert isinstance(tparams.layers[0].attn.wq, torch.Tensor)
+    assert q8.param_bytes < fp.param_bytes * 0.72
+    with pytest.raises(ValueError, match="quant_bits"):
+        RaggedInferenceConfig.from_dict(dict(BASE, quant_bits=6))
+
+
+def test_quantized_tree_crosses_the_bridge_with_fp32_scales(weights):
+    """params_to_numpy keeps the codes' integer type; params_from_numpy in
+    bf16 casts the float leaves but not the scales."""
+    tparams = params_from_numpy(weights[2], llama_model("tiny").config, "cpu")
+    q, _, _ = quantize_inference_params(tparams, 4, 64, min_size=1024)
+    tree = params_to_numpy(q)
+    assert tree["layers"]["attn"]["wq"]["wq"].dtype == np.uint8
+    back = params_from_numpy(tree, llama_model("tiny").config, "cpu", torch.bfloat16)
+    assert back.layers[1].attn.wq.scale.dtype == torch.float32
+    assert back.layers[1].attn.wq.wq.dtype == torch.uint8
+    assert back.layers[1].norm1.scale.dtype == torch.bfloat16
+    assert torch.equal(back.layers[1].attn.wq.scale, q.layers[1].attn.wq.scale)

@@ -11,11 +11,13 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+from deepspeed_tpu_torch.linear.optimized_linear import init_lora_linear
 from deepspeed_tpu_torch.inference.v2.ragged import KVBlockConfig, PagedKVCache
 from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from deepspeed_tpu_torch.models.llama import llama_model
-from deepspeed_tpu_torch.models.transformer import alibi_slopes
+from deepspeed_tpu_torch.models.transformer import alibi_slopes, init_kv_cache
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
 from deepspeed_tpu_torch.runtime.module import ModelSpec
 
@@ -77,7 +79,9 @@ def test_relative_imports_stay_inside_the_port():
 def test_entry_points_default_to_cuda():
     for fn in (InferenceEngineV2, ModelSpec.init_params, resolve_device,
                params_from_numpy, PagedKVCache.init, alibi_slopes,
-               deepspeed_tpu_torch.initialize, DeepSpeedTPUEngine):
+               deepspeed_tpu_torch.initialize, DeepSpeedTPUEngine,
+               deepspeed_tpu_torch.init_inference, InferenceEngine, init_kv_cache,
+               init_lora_linear):
         assert inspect.signature(fn).parameters["device"].default is None, fn
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()  # this machine has no CUDA: the default is not the CPU
@@ -92,7 +96,10 @@ def test_public_builders_raise_without_cuda():
     cfg = model.config
     for build in (lambda: params_from_numpy(tree, cfg),
                   lambda: PagedKVCache.init(cfg.n_layers, cfg.kv_heads, cfg.head_dim, block),
-                  lambda: alibi_slopes(cfg.n_heads)):
+                  lambda: alibi_slopes(cfg.n_heads),
+                  lambda: init_kv_cache(cfg, 1, 8),
+                  lambda: deepspeed_tpu_torch.init_inference(model, params=tree),
+                  lambda: init_lora_linear(torch.Generator(), 4, 4, None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
 

@@ -204,9 +204,26 @@ def test_not_ported_model_features_raise():
                                moe_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.init_transformer_params(cfg, torch.Generator(), "cpu")
-    cfg = tt.TransformerConfig(vocab_size=32, hidden_size=16, n_layers=1, n_heads=2)
+    cfg = tt.TransformerConfig(vocab_size=32, hidden_size=16, n_layers=1, n_heads=2,
+                               post_norm=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt._mm(cfg, torch.zeros(1, 16), {"wq": None, "scale": None})
+        tt.init_transformer_params(cfg, torch.Generator(), "cpu")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_mm_sends_a_quantized_subtree_to_wq_matmul(bits):
+    """The weight seam: a ``{"wq", "scale"}`` sub-tree goes through
+    ``wq_matmul`` with the config's bits and group, a tensor through ``@``."""
+    from deepspeed_tpu_torch.ops.wq_matmul import quantize_weight, wq_matmul_plain
+
+    w = torch.from_numpy(np.random.RandomState(0).randn(96, 40).astype(np.float32))
+    codes, scale = quantize_weight(w, bits, group=32)
+    cfg = tt.TransformerConfig(vocab_size=32, hidden_size=96, n_layers=1, n_heads=2,
+                               wq_bits=bits, wq_group=32)
+    x = torch.from_numpy(np.random.RandomState(1).randn(3, 96).astype(np.float32))
+    got = tt._mm(cfg, x, tt.ParamTree({"wq": codes, "scale": scale}))
+    assert torch.equal(got, wq_matmul_plain(x, codes, scale, bits=bits, group=32))
+    assert torch.equal(tt._mm(cfg, x, w), x @ w)
 
 
 # ---------------------------------------------------------------------------

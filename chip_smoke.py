@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and quantized-inference
-paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, quantized-inference and
+MoE-serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -76,7 +76,26 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 14. quantized parity: a 2-layer llama-1b-width model in fp32 on the card and
     on the CPU from the same weights: identical greedy streams from
     ``InferenceEngineV2`` with ``quant_bits`` 8 and 4, and from
-    ``InferenceEngine.generate`` before and after ``module_quantize``.
+    ``InferenceEngine.generate`` before and after ``module_quantize``;
+15. kernel G, the grouped expert matmul, against its plain version computed
+    in fp32 on the same inputs (``GMM_TOL``) at Mixtral-8x7b's shapes in the
+    router's padded layouts, decode (8 tokens: P = 1152) and prefill (1024
+    tokens: P = 3072), gate/up (4096 x 14336) and down (14336 x 4096), bf16
+    (timed beside its bound, its plain version, ``torch._grouped_mm`` and,
+    as context, a dense cuBLAS GEMM of the same rows), fp16 and fp32; a
+    non-monotone block -> expert map at block_rows 8 and 16, ragged F and
+    H, one expert for every block;
+16. MoE serving: Mixtral-8x7b at full width and 16 of 32 layers (bf16,
+    dropless, seeded random weights) through ``InferenceEngineV2``, the 12
+    requests of phase 4 with whole-prompt and 256-token chunked prefill,
+    exactly 3 x 16 G launches per prefill, chunk and decode call, flash and
+    paged on every layer; TTFT, tokens/s, profiled decode and prefill steps,
+    peak memory; then ``init_inference`` -> ``generate`` on the same tree (B
+    = 4, 128-token prompts, 16 greedy tokens, 48 G launches per call);
+17. MoE parity: a 1-layer Mixtral-8x7b-width model in fp32 on the card and
+    on the CPU from the same weights, dropless and capacity: prefill logits
+    within ``PARITY_LOGITS_TOL``, identical router top-2 choices, identical
+    greedy streams from ``InferenceEngineV2`` and ``init_inference``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA card,
@@ -812,14 +831,16 @@ def profile_steps(eng, requests, warm_steps: int, steps: int):
     return rec
 
 
-def drive(eng, requests, fa, pa, wq=None):
-    """Zero the launch counters (kernel W's too when ``wq`` is given), serve
-    ``requests`` to completion through put/step, read the counters.  Returns
-    the phase record."""
+def drive(eng, requests, fa, pa, wq=None, gmm=None):
+    """Zero the launch counters (kernel W's and G's too when ``wq`` or
+    ``gmm`` is given), serve ``requests`` to completion through put/step,
+    read the counters.  Returns the phase record."""
     fa.flash_attention_fwd.launches = 0
     pa.paged_decode_attention.launches = 0
     if wq is not None:
         wq.wq_matmul.launches = 0
+    if gmm is not None:
+        gmm.grouped_matmul.launches = 0
     before = eng.stats()
     t_put, first, streams, reasons, step_ms = {}, {}, {}, {}, []
     for r in requests:
@@ -843,6 +864,8 @@ def drive(eng, requests, fa, pa, wq=None):
                 "paged": pa.paged_decode_attention.launches}
     if wq is not None:
         launches["wq_matmul"] = wq.wq_matmul.launches
+    if gmm is not None:
+        launches["grouped_matmul"] = gmm.grouped_matmul.launches
     st = {k: v - before[k] for k, v in eng.stats().items()}
     ttft = sorted(first.values())
     return {"streams": streams, "reasons": reasons, "launches": launches, "stats": st,
@@ -1363,6 +1386,303 @@ def quant_parity_phase():
     return rec
 
 
+# -- phase 15: kernel G, the grouped expert matmul ---------------------------
+
+#: Kernel G against its plain version computed in fp32 from the same inputs.
+#: rtol is the output's rounding, as above; bf16 and fp16 products are exact
+#: in fp32, so atol covers only the fp32 sums taken in another order (K up
+#: to 14336, outputs up to |14|): about twice the largest need observed on
+#: an H100 (PERF.md): 7.1e-5 bf16, 1.15e-4 fp16, 1.21e-5 fp32.
+GMM_TOL = {torch.bfloat16: (1.5e-4, 2.0 ** -8), torch.float16: (2.5e-4, 2.0 ** -11),
+           torch.float32: (2.5e-5, 2.0 ** -24)}
+MIXTRAL_E, MIXTRAL_H, MIXTRAL_F = 8, 4096, 14336
+
+
+def routed_block_expert(tokens, E, K, block_rows, seed):
+    """The dropless router's padded layout for ``tokens`` random top-``K``
+    assignments (``moe/sharded_moe.sort_pad_by_expert``): (dest rows of the
+    assignments, n_rows, block_expert)."""
+    from deepspeed_tpu_torch.moe.sharded_moe import _top_k, sort_pad_by_expert
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    idx = _top_k(torch.randn((tokens, E), generator=g, device=DEV), K)
+    _, dest, n_rows, be = sort_pad_by_expert(idx.reshape(-1), E, block_rows)
+    return dest, n_rows, be
+
+
+def grouped_mm_offs(be, E, block_rows):
+    """The ``offs`` of ``torch._grouped_mm`` for a non-decreasing
+    ``block_expert``: the end row of each expert's blocks."""
+    return (torch.bincount(be.long(), minlength=E).cumsum(0) * block_rows).to(torch.int32)
+
+
+def gmm_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_tokens=None,
+             order=None, timed=False, seed=0):
+    """Kernel G against its plain version computed in fp32 on the same x, w
+    and block_expert.  ``routed_tokens``: x holds that many tokens' top-2
+    assignments in the router's padded layout (zero padding rows, as on the
+    main path); else every row is random and ``order`` (or a random draw)
+    gives the block -> expert map."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = (torch.randn((E, H, F), generator=g, device=DEV) * 0.02).to(dtype)
+    if routed_tokens is not None:
+        dest, n_rows, be = routed_block_expert(routed_tokens, E, 2, block_rows, seed + 1)
+        check(n_rows == P, f"gmm {name}: router layout has {n_rows} rows, not {P}")
+        x = torch.zeros((P, H), device=DEV, dtype=dtype)
+        x[dest] = torch.randn((dest.numel(), H), generator=g, device=DEV).to(dtype)
+    else:
+        x = torch.randn((P, H), generator=g, device=DEV).to(dtype)
+        be = (torch.tensor(order, dtype=torch.int32, device=DEV) if order is not None else
+              torch.randint(0, E, (P // block_rows,), generator=g, device=DEV,
+                            dtype=torch.int32))
+    out = gm.grouped_matmul(x, w, be, block_rows)
+    ref = gm.grouped_matmul_plain(x.float(), w.float(), be, block_rows)
+    torch.cuda.synchronize()
+    tol = GMM_TOL[dtype]
+    err, atol_used, ok = max_err(out, ref, tol)
+    distinct = int(torch.unique(be).numel())
+    rec = {"case": name, "shape": [P, H, F], "E": E, "block_rows": block_rows,
+           "dtype": str(dtype)[6:], "distinct_experts": distinct,
+           "block_expert_head": be[:12].tolist(), "max_abs_err": err, "atol_used": atol_used,
+           "ref_max_abs": ref.abs().max().item(), "tol": tol}
+    print(json.dumps({"gmm_check": rec}))
+    check(bool(torch.isfinite(out).all()), f"gmm {name}: non-finite output")
+    check(ok, f"gmm {name}: kernel vs fp32 plain beyond {tol} (max abs {err:.3g}, "
+          f"atol used {atol_used:.3g})")
+    if timed:
+        item = x.element_size()
+        nbytes = (P * H + distinct * H * F + P * F) * item + be.numel() * 4
+        ops = 2.0 * P * H * F
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        monotone = bool((be[1:] >= be[:-1]).all())
+        lib_name = "torch._grouped_mm" if monotone and hasattr(torch, "_grouped_mm") else None
+        offs = grouped_mm_offs(be, E, block_rows) if lib_name else None
+        rec.update(
+            ms=device_ms(lambda: gm.grouped_matmul(x, w, be, block_rows)),
+            plain_ms=device_ms(lambda: gm.grouped_matmul_plain(x, w, be, block_rows),
+                               iters=5, warmup=2),
+            library=lib_name,
+            library_ms=(device_ms(lambda: torch._grouped_mm(x, w, offs=offs))
+                        if lib_name else None),
+            context_cublas_dense_ms=device_ms(lambda: x @ w[0]),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=ops)
+    print(json.dumps({"gmm": rec}))
+    return rec
+
+
+def gmm_phase(gm):
+    """Kernel G at Mixtral-8x7b's main-path shapes (timed: the decode and
+    prefill layouts of the router, gate/up and down) and the corners."""
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    H, F = MIXTRAL_H, MIXTRAL_F
+    recs = []
+    for P, tokens in ((1152, 8), (3072, 1024)):
+        for nm, (k, n) in (("up", (H, F)), ("down", (F, H))):
+            recs.append(gmm_case(gm, f"{'decode' if P == 1152 else 'prefill'}_{nm}_p{P}",
+                                 P, k, n, 128, bf16, routed_tokens=tokens, timed=True))
+    recs += [
+        gmm_case(gm, "decode_up_p1152_fp16", 1152, H, F, 128, fp16, routed_tokens=8),
+        gmm_case(gm, "prefill_down_p3072_fp16", 3072, F, H, 128, fp16, routed_tokens=1024),
+        gmm_case(gm, "decode_up_p1152_fp32", 1152, H, F, 128, fp32, routed_tokens=8),
+        gmm_case(gm, "prefill_up_p3072_fp32", 3072, H, F, 128, fp32, routed_tokens=1024),
+        gmm_case(gm, "nonmonotone_br8_bf16", 40, 32, 48, 8, bf16, E=3,
+                 order=[0, 2, 1, 1, 0]),
+        gmm_case(gm, "nonmonotone_br16_p1152_bf16", 1152, H, 1024, 16, bf16),
+        gmm_case(gm, "nonmonotone_br16_fp32", 1152, 1024, 512, 16, fp32),
+        gmm_case(gm, "ragged_f100_bf16", 1152, H, 100, 128, bf16),
+        gmm_case(gm, "ragged_f100_fp32", 1152, H, 100, 128, fp32),
+        gmm_case(gm, "ragged_h1003_f200_br16_fp16", 256, 1003, 200, 16, fp16),
+        gmm_case(gm, "one_expert_all_blocks_bf16", 1152, H, 2048, 128, bf16,
+                 order=[5] * 9),
+    ]
+    return recs
+
+
+# -- phase 16: Mixtral-8x7b serving ------------------------------------------
+
+MIXTRAL_LAYERS = 16  # of 32: 16 layers of bf16 weights fill 47 GB of the 80 GB card
+
+
+def mixtral_engine_phase(fa, pa, gmm):
+    """Mixtral-8x7b at full width and 16 layers, bf16, dropless
+    (``moe_drop_tokens=False``), seeded random weights, through
+    ``InferenceEngineV2`` (whole-prompt and 256-token chunked prefill, the 12
+    requests of phase 4) and ``init_inference`` -> ``generate`` on the same
+    tree.  Counters zeroed before and read after each drive: exactly
+    3 x layers G launches per prefill, chunk and decode call, flash and paged
+    on every layer."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.models.transformer import param_count
+
+    model = mixtral_model("8x7b", max_seq_len=2048, n_layers=MIXTRAL_LAYERS,
+                          dtype=torch.bfloat16, moe_drop_tokens=False)
+    L = model.config.n_layers
+    per_call = 3 * L
+    rng = torch.Generator().manual_seed(1234)
+    lengths = [16, 900] + torch.randint(17, 900, (10,), generator=rng).tolist()
+    prompts = [torch.randint(0, model.config.vocab_size, (n,), generator=rng).tolist()
+               for n in lengths]
+    torch.cuda.reset_peak_memory_stats()
+    results, params = {"params": param_count(model.config)}, None
+    for mode, chunk in (("whole_prompt", 0), ("chunked_256", 256)):
+        cfg = RaggedInferenceConfig(dtype="bf16", page_size=16, max_seqs=8,
+                                    max_pages_per_seq=64, num_pages=576, prefill_chunk=chunk)
+        t0 = time.perf_counter()
+        eng = InferenceEngineV2(model, cfg, params=params, seed=0)
+        init_s = time.perf_counter() - t0
+        params = eng.params
+        check(eng.device.type == "cuda" and all(
+            p.is_cuda and p.dtype == torch.bfloat16 for p in eng.params.parameters()),
+            "mixtral: params are not bf16 on cuda")
+        eng.generate_all([RaggedRequest(prompt_ids=prompts[0][:32], max_new_tokens=2)])
+        rec = drive(eng, [RaggedRequest(prompt_ids=p, max_new_tokens=32) for p in prompts],
+                    fa, pa, gmm=gmm)
+        st, la = rec["stats"], rec["launches"]
+        calls = st["prefill_calls"] + st["prefill_chunk_calls"]
+        steps = st["decode_model_invocations"]
+        check(len(rec["reasons"]) == len(prompts)
+              and all(r == "length" for r in rec["reasons"].values())
+              and all(len(t) == 32 for t in rec["streams"].values()),
+              f"mixtral {mode}: {rec['reasons']}")
+        check(calls > 0 and steps > 0 and la["grouped_matmul"] == per_call * (calls + steps),
+              f"mixtral {mode}: grouped_matmul launches {la['grouped_matmul']} != {per_call} x "
+              f"({calls} prefill + {steps} decode calls)")
+        check(la["flash"] == L * calls and la["paged"] == L * steps,
+              f"mixtral {mode}: flash/paged launches {la} vs {L} x {calls}/{steps}")
+        if not chunk:
+            rec["decode_profile"] = profile_steps(
+                eng, [RaggedRequest(prompt_ids=p[:64], max_new_tokens=8) for p in prompts[:8]],
+                warm_steps=2, steps=4)
+            rec["prefill_profile"] = profile_steps(
+                eng, [RaggedRequest(prompt_ids=prompts[1], max_new_tokens=1)],
+                warm_steps=0, steps=1)
+        rec.update(init_s=init_s, param_bytes=eng.param_bytes, gmm_per_model_call=per_call,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        rec.pop("streams")
+        results[mode] = rec
+        print(json.dumps({"mixtral_engine": mode, **{k: v for k, v in rec.items()
+                                                     if k != "reasons"}}))
+        eng.close()
+        del eng
+
+    # the dense-cache engine on the same tree: B = 4 prompts of 128 tokens
+    eng = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"}, params=params)
+    g = torch.Generator(device=DEV).manual_seed(42)
+    ids = torch.randint(0, model.config.vocab_size, (4, 128), generator=g, device=DEV)
+    eng.generate(ids[:, :16], max_new_tokens=2)  # warm-up
+    gmm.grouped_matmul.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(ids, max_new_tokens=16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = gmm.grouped_matmul.launches
+    check(out.shape == (4, 144) and torch.equal(out[:, :128], ids)
+          and bool(((out >= 0) & (out < model.config.vocab_size)).all()),
+          f"mixtral generate: bad stream {tuple(out.shape)}")
+    check(launches == per_call * 16,
+          f"mixtral generate: grouped_matmul launches {launches} != {per_call} x 16 calls")
+    results["generate"] = {"batch": [4, 128], "new_tokens": 16, "generate_s": gen_s,
+                           "decode_tok_per_s": 4 * 16 / gen_s,
+                           "launches": {"grouped_matmul": launches}}
+    results["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    print(json.dumps({"mixtral_generate": results["generate"],
+                      "peak_mem_gb": results["peak_mem_gb"]}))
+    del eng, params
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 17: card vs CPU parity of the MoE paths ---------------------------
+
+def record_routing():
+    """Patch the router so every call appends its top-k expert indices to
+    the returned list (restore with the returned function)."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    seen, orig = [], sharded_moe._gate_and_aux
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        seen.append(out[1].cpu())
+        return out
+
+    sharded_moe._gate_and_aux = wrapped
+    return seen, lambda: setattr(sharded_moe, "_gate_and_aux", orig)
+
+
+def moe_parity_phase():
+    """A 1-layer Mixtral-8x7b-width model in fp32 on the card and on the CPU
+    from the same weights, dropless and capacity: prefill logits within
+    ``PARITY_LOGITS_TOL`` with identical router top-2 choices, and identical
+    greedy streams from ``InferenceEngineV2`` and ``init_inference``."""
+    import copy
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+    from deepspeed_tpu_torch.inference.v2.model_runner import paged_prefill
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+
+    t_start = time.perf_counter()
+    base = mixtral_model("8x7b", max_seq_len=2048, n_layers=1)
+    params = base.init_params(torch.Generator(device=DEV).manual_seed(7), DEV).map(
+        lambda t: t.cpu())
+    torch.cuda.empty_cache()
+    rng = torch.Generator().manual_seed(10)
+    prompts = [torch.randint(0, base.config.vocab_size, (n,), generator=rng).tolist()
+               for n in (9, 40)]
+    cfg = dict(dtype="fp32", page_size=16, max_seqs=2, max_pages_per_seq=8, num_pages=16)
+    ids = torch.zeros(64, dtype=torch.long)
+    ids[:40] = torch.tensor(prompts[1])
+    rows = torch.arange(4, dtype=torch.int32)
+    dense_ids = torch.randint(0, base.config.vocab_size, (2, 12), generator=rng)
+    out = {}
+    for drop in (False, True):
+        model = mixtral_model("8x7b", max_seq_len=2048, n_layers=1, moe_drop_tokens=drop)
+        engines = {dev: InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
+                                          params=copy.deepcopy(params), device=dev)
+                   for dev in ("cuda", "cpu")}
+        streams = {dev: e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=4)
+                                        for p in prompts]) for dev, e in engines.items()}
+        check(streams["cuda"] == streams["cpu"],
+              f"moe parity drop={drop}: greedy streams differ: {streams}")
+        logits, routes = {}, {}
+        for dev, e in engines.items():
+            seen, restore = record_routing()
+            try:
+                logits[dev], _ = paged_prefill(e.cfg, e.params, e._pools, ids.to(e.device),
+                                               rows.to(e.device), 40)
+            finally:
+                restore()
+            routes[dev] = seen
+        err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
+        check(err <= PARITY_LOGITS_TOL, f"moe parity drop={drop}: prefill logits max err "
+              f"{err:.3g}")
+        check(len(routes["cuda"]) == len(routes["cpu"]) == 1
+              and torch.equal(routes["cuda"][0], routes["cpu"][0]),
+              f"moe parity drop={drop}: router top-2 choices differ")
+        del engines
+        dense = {dev: deepspeed_tpu_torch.init_inference(
+            model, config={"dtype": "fp32"}, params=copy.deepcopy(params), device=dev)
+            for dev in ("cuda", "cpu")}
+        gen = {dev: e.generate(dense_ids, max_new_tokens=4).cpu() for dev, e in dense.items()}
+        check(torch.equal(gen["cuda"], gen["cpu"]),
+              f"moe parity drop={drop}: init_inference greedy streams differ: {gen}")
+        del dense
+        torch.cuda.empty_cache()
+        out[f"drop_tokens_{drop}"] = {
+            "streams_identical": True, "router_choices_identical": True,
+            "generate_identical": True, "prefill_logits_max_abs_err": err,
+            "logits_max_abs": logits["cpu"].abs().max().item(), "tol": PARITY_LOGITS_TOL}
+    out["seconds"] = time.perf_counter() - t_start
+    print(json.dumps({"moe_parity": out}))
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1372,6 +1692,7 @@ def main() -> int:
     try:
         from deepspeed_tpu_torch.ops import flash_attention as fa
         from deepspeed_tpu_torch.ops import fused_adam as fadam
+        from deepspeed_tpu_torch.ops import grouped_matmul as gm
         from deepspeed_tpu_torch.ops import op_builder
         from deepspeed_tpu_torch.ops import paged_attention as pa
         from deepspeed_tpu_torch.ops import quantization as qz
@@ -1404,6 +1725,7 @@ def main() -> int:
     adam = adam_phase(fadam)
     wq_recs = wq_phase(wq)
     quant = quant_phase(qz)
+    gmm_recs = gmm_phase(gm)
 
     eng = engine_phase(fa, pa)
     par = parity_phase()
@@ -1412,6 +1734,8 @@ def main() -> int:
     qeng = quant_engine_phase(fa, pa, wq)
     v1 = inference_v1_phase(qz)
     qpar = quant_parity_phase()
+    moe = mixtral_engine_phase(fa, pa, gm)
+    mpar = moe_parity_phase()
 
     def timed(recs, keys):
         return {r["case"]: {k: r[k] for k in keys} for r in recs if keys[0] in r}
@@ -1423,6 +1747,12 @@ def main() -> int:
     main_wq = next(r for r in wq_recs if r["case"] == "mlp_up_4096x11008_m8_int8")
     main_q = quant[0]
     q_serving = {m: qeng[m]["launches"] for m in ("int8", "int4")}
+    moe_modes = ("whole_prompt", "chunked_256")
+    moe_fwd = sum(moe[m]["launches"]["flash"] for m in moe_modes)
+    moe_paged = sum(moe[m]["launches"]["paged"] for m in moe_modes)
+    moe_gmm = {**{f"moe_serving_{m}": moe[m]["launches"]["grouped_matmul"] for m in moe_modes},
+               "moe_generate": moe["generate"]["launches"]["grouped_matmul"]}
+    main_gmm = next(r for r in gmm_recs if r["case"] == "decode_up_p1152")
     serve_fwd = sum(r["launches"]["flash"] for r in eng.values())
     serve_paged = sum(r["launches"]["paged"] for r in eng.values())
     q_fwd = sum(la["flash"] for la in q_serving.values())
@@ -1437,9 +1767,9 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:38",
-         "launches": serve_fwd + q_fwd + train_l["flash_fwd"],
+         "launches": serve_fwd + q_fwd + train_l["flash_fwd"] + moe_fwd,
          "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
-                              "quantized_serving": q_fwd},
+                              "quantized_serving": q_fwd, "moe_serving": moe_fwd},
          "max_abs_err": max(r["max_abs_err"] for r in flash), "checked": True,
          "ms": main_flash["ms"], "kernel_ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"], "bound_ms": main_flash["bound_ms"],
@@ -1467,8 +1797,9 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:35",
-         "launches": serve_paged + q_paged,
-         "launches_by_path": {"serving": serve_paged, "quantized_serving": q_paged},
+         "launches": serve_paged + q_paged + moe_paged,
+         "launches_by_path": {"serving": serve_paged, "quantized_serving": q_paged,
+                              "moe_serving": moe_paged},
          "max_abs_err": max(r["max_abs_err"] for r in paged), "checked": True,
          "ms": main_paged["ms"], "kernel_ms": main_paged["ms"],
          "plain_ms": main_paged["plain_ms"], "bound_ms": main_paged["bound_ms"],
@@ -1519,6 +1850,19 @@ def main() -> int:
          "ms": main_q["dequant_ms"], "plain_ms": main_q["dequant_plain_ms"],
          "bound_ms": main_q["dequant_bound_ms"], "bound_by": main_q["dequant_bound_by"],
          "library_ms": None, "shape": codec_shape},
+        {"name": "grouped_matmul", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/grouped_matmul.py:29",
+         "launches": sum(moe_gmm.values()), "launches_by_path": moe_gmm,
+         "max_abs_err": max(r["max_abs_err"] for r in gmm_recs), "checked": True,
+         "ms": main_gmm["ms"], "plain_ms": main_gmm["plain_ms"],
+         "bound_ms": main_gmm["bound_ms"], "bound_by": main_gmm["bound_by"],
+         "library_ms": main_gmm["library_ms"], "library": main_gmm["library"],
+         "context_cublas_dense_ms": main_gmm["context_cublas_dense_ms"],
+         "shape": "P=1152 H=4096 F=14336 E=8 block_rows 128 bf16 (Mixtral-8x7b decode, "
+                  "8 slots, gate/up)",
+         "timed_cases": timed(gmm_recs, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                         "context_cublas_dense_ms"))},
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
     print(json.dumps({"engine_summary": {m: {k: r[k] for k in (
@@ -1538,6 +1882,14 @@ def main() -> int:
         "launches", "decode_profile")} for m, r in qeng.items() if m in ("int8", "int4")},
         "bf16": qeng["bf16"], "cosine_2_layers": qeng["cosine_2_layers"],
         "inference_v1": v1, "quant_parity": qpar}))
+    print(json.dumps({"moe_summary": {m: {k: moe[m][k] for k in (
+        "ttft_mean_s", "ttft_p50_s", "ttft_max_s", "prefill_tok_per_s", "decode_tok_per_s",
+        "mean_step_ms", "steps", "wall_s", "launches", "param_bytes", "peak_mem_gb")}
+        for m in moe_modes},
+        "decode_profile": moe["whole_prompt"]["decode_profile"],
+        "prefill_profile": moe["whole_prompt"]["prefill_profile"],
+        "generate": moe["generate"], "params": moe["params"], "peak_mem_gb": moe["peak_mem_gb"],
+        "moe_parity": mpar}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,11 +5,13 @@ model_runner.py`` has its counterpart at ``deepspeed_tpu_torch/inference/
 v2/model_runner.py``).  The port imports ``torch`` and numpy only: never
 JAX and nothing of ``deepspeed_tpu``.
 
-Three slices are ported.  Serving: :class:`InferenceEngineV2` (paged
+Four slices are ported.  Serving: :class:`InferenceEngineV2` (paged
 continuous batching) over a llama-family transformer, with hand-written
 CUDA kernels for flash-attention forward (prefill) and paged decode
 attention, and weight-only int8/int4 weights (``quant_bits``) through the
-``wq_matmul`` kernel.  Training on one device: :func:`initialize` returns a
+``wq_matmul`` kernel.  MoE serving: mixtral models (``models/mixtral.py``)
+through both serving engines, the dropless layer's expert matmuls through
+the ``grouped_matmul`` kernel.  Training on one device: :func:`initialize` returns a
 :class:`DeepSpeedTPUEngine` whose ``train_batch`` runs the model forward
 through the flash kernel, the backward through the flash dQ and dK/dV
 kernels, and AdamW through the fused-Adam kernel.  Dense-cache inference:

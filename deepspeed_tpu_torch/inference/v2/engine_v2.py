@@ -16,7 +16,8 @@ This slice ports the single-replica scheduler: admission by priority
 class, KV-pressure preemption, deadlines, whole-prompt and chunked
 prefill, the one-token decode loop, and weight-only int8/int4 weights
 (``quant_bits``: every projection and the LM head through the
-``wq_matmul`` kernel).  The prefix cache, the KV tiers, speculative and
+``wq_matmul`` kernel; MoE expert leaves stay full precision, as in JAX).
+Mixtral MoE models serve through the same programs.  The prefix cache, the KV tiers, speculative and
 multi-step decode and the telemetry layer are not ported yet; setting one
 of their knobs raises ``NotImplementedError`` naming the ROADMAP item that
 brings it.

@@ -18,6 +18,12 @@ the same dict they were given.  Scatters stay unconditional: inactive
 rows and pad chunks write to the trash page (ragged.py); duplicate
 indices there are harmless because no live token reads the trash page.
 
+Every program ends each layer in ``_attn_out``, whose FFN is
+``mlp_block(..., training=False)`` as in the JAX runner (:64): an MoE
+layer routes every row it is given, the bucket-padded prompt rows and the
+inactive decode slots included, and drops the aux loss.  The dropless MoE
+runs its three expert matmuls through kernel G on a CUDA device.
+
 Attention takes the kernels for CUDA tensors and their plain versions
 for CPU tensors; the plain paged attention (the JAX runner's
 ``_gather_window_attend``, :344) lives beside its kernel as
@@ -103,7 +109,7 @@ def paged_prefill(cfg: TransformerConfig, params: ParamTree, pools: Pools,
         _write_pages(pools, i, rows, k[0].reshape(S // ps, ps, *k.shape[2:]),
                      v[0].reshape(S // ps, ps, *v.shape[2:]))
         attn, _ = flash_attention_fwd(q, k, v, causal=True, alibi_slopes=slopes)
-        x = _attn_out(cfg, layer, x, attn.reshape(1, S, -1))
+        x, _ = _attn_out(cfg, layer, x, attn.reshape(1, S, -1))
     return _final_logits(cfg, params, x[:, length - 1])[0], pools
 
 
@@ -177,7 +183,7 @@ def paged_prefill_chunk(cfg: TransformerConfig, params: ParamTree, pools: Pools,
             attn, _ = flash_attention_fwd(q, kp.to(x.dtype)[None], vp.to(x.dtype)[None],
                                           causal=True, q_offset=start, alibi_slopes=slopes)
             attn = attn.reshape(1, C, -1)
-        x = _attn_out(cfg, layer, x, attn)
+        x, _ = _attn_out(cfg, layer, x, attn)
     return _final_logits(cfg, params, x[:, n - 1])[0], pools
 
 
@@ -227,7 +233,7 @@ def paged_decode(cfg: TransformerConfig, params: ParamTree, pools: Pools,
         attn = paged_decode_attention(q[:, 0], k_c, v_c, page_table, positions,
                                       k_scale=ks_c, v_scale=vs_c,
                                       alibi_slopes=slopes).reshape(B, 1, -1)
-        x = _attn_out(cfg, layer, x, attn)
+        x, _ = _attn_out(cfg, layer, x, attn)
     return _final_logits(cfg, params, x)[:, 0], pools
 
 

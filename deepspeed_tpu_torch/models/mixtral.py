@@ -1,0 +1,52 @@
+"""Mixtral-style MoE decoder (the port's counterpart of
+``deepspeed_tpu/models/mixtral.py``).  Every layer's FFN is a top-k MoE
+over ``moe_experts`` swiglu experts; ``moe_drop_tokens=False`` takes the
+dropless grouped-matmul path."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..runtime.module import ModelSpec
+from .transformer import (TransformerConfig, causal_lm_loss, flops_per_token,
+                          init_transformer_params, logits_fn, transformer_forward)
+
+SIZES = {
+    # name: (hidden, layers, heads, kv_heads, ffn, vocab, experts, top_k)
+    "tiny": (64, 2, 4, 4, 128, 256, 4, 2),
+    "8x160m": (768, 12, 12, 12, 2048, 32000, 8, 2),
+    "8x7b": (4096, 32, 32, 8, 14336, 32000, 8, 2),
+}
+
+
+def mixtral_config(size: str = "8x7b", max_seq_len: int = 2048,
+                   **overrides) -> TransformerConfig:
+    h, l, nh, kvh, ffn, vocab, experts, top_k = SIZES[size]
+    cfg = TransformerConfig(
+        vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh, n_kv_heads=kvh,
+        intermediate_size=ffn, max_seq_len=max_seq_len, norm="rmsnorm",
+        activation="swiglu", position="rope", causal=True,
+        moe_experts=experts, moe_top_k=top_k)
+    for k, v in overrides.items():
+        if not hasattr(cfg, k):
+            raise AttributeError(f"TransformerConfig has no field {k!r}")
+        setattr(cfg, k, v)
+    return cfg
+
+
+def mixtral_model(size: str = "8x7b", max_seq_len: int = 2048,
+                  config: Optional[TransformerConfig] = None,
+                  **overrides) -> ModelSpec:
+    """The serving and eval model; its ``loss_fn`` raises until MoE
+    training is ported (``causal_lm_loss``)."""
+    cfg = config or mixtral_config(size, max_seq_len, **overrides)
+
+    def apply_fn(params, batch):
+        ids = batch["input_ids"] if isinstance(batch, dict) else batch
+        return logits_fn(cfg, params, transformer_forward(cfg, params, ids)[0])
+
+    return ModelSpec(
+        cfg, lambda gen, dev: init_transformer_params(cfg, gen, dev),
+        loss_fn=lambda params, batch, rng: causal_lm_loss(cfg, params, batch, rng),
+        apply_fn=apply_fn,
+        flops_per_sample=flops_per_token(cfg, cfg.max_seq_len) * cfg.max_seq_len)

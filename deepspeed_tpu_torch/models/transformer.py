@@ -17,6 +17,14 @@ A weight leaf may be a weight-only quantized ``{"wq", "scale"}`` sub-tree
 ``wq_matmul`` kernel.  :func:`forward_with_cache` is the dense KV-cache
 path of the inference v1 engine.
 
+With ``moe_experts > 0`` every layer's FFN is a mixtral-style MoE
+(``moe/sharded_moe.py``): a router ``[H, E]`` and stacked experts
+``[E, H, F]`` / ``[E, F, H]``, optionally a qwen2-moe shared expert and a
+PR-MoE dense residual.  ``mlp_block`` returns the layer's aux loss beside
+its output; serving passes ``training=False`` (the capacity path then
+prices capacity with ``eval_capacity_factor``) and drops the aux.  MoE
+serves but does not train yet: :func:`causal_lm_loss` raises for it.
+
 The training forward (:func:`transformer_forward`, :func:`causal_lm_loss`)
 runs the layers as a Python loop where JAX scans them, and differentiates
 through PyTorch autograd; attention goes through :func:`_pick_attn`, which
@@ -43,7 +51,8 @@ from ..accelerator import DeviceLike, resolve_device
 
 #: ROADMAP items that bring the parts of the JAX model core this slice
 #: leaves out (named in the NotImplementedError each one raises)
-ROADMAP_MOE = "ROADMAP Queue 1 'Model families and MoE'"
+ROADMAP_FAMILIES = "ROADMAP Queue 1 #10c 'Post-norm and other model families'"
+ROADMAP_MOE_TRAIN = "ROADMAP Queue 1 #10a 'MoE training (grouped-matmul backward)'"
 ROADMAP_SP = "ROADMAP Queue 1 'Sequence parallelism'"
 ROADMAP_REMAT = "ROADMAP Queue 1 #2b 'Activation checkpointing'"
 
@@ -79,7 +88,22 @@ class TransformerConfig:
     #: activation checkpointing of each block (True raises: not ported yet)
     remat: bool = False
     attn_impl: str = "auto"  # auto | xla | flash (ulysses | ring | fpdt raise)
+    # MoE (mixtral-style: every layer's MLP is replaced when moe_experts > 0)
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01
+    #: qwen2-moe shared expert: its FFN width (0 = off); its output is added
+    #: to the routed output, scaled by sigmoid(x @ shared_gate) per token
+    moe_shared_expert: int = 0
+    #: renormalize the kept top-k gate probs to sum 1 (mixtral)
+    moe_norm_topk: bool = True
+    moe_drop_tokens: bool = True  # False => dropless sort + grouped-matmul path
+    #: EP dispatch: "auto" | "spmd" (one device: the local path either way)
+    moe_ep_dispatch: str = "auto"
+    #: PR-MoE residual: a dense MLP beside the MoE, mixed by a learned
+    #: 2-way coefficient
+    moe_use_residual: bool = False
     #: tiled logits + loss: sequence chunk size (0 = off)
     loss_chunk: int = 0
     #: weight-only quantized inference: big matmul weights stored as int8 /
@@ -156,11 +180,9 @@ def init_transformer_params(cfg: TransformerConfig, generator: torch.Generator,
     ``generator`` on ``device``.  torch and JAX draw different numbers
     from the same seed: parity tests carry JAX's weights across with
     ``convert.params_from_numpy`` instead."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(f"MoE layers are not ported yet ({ROADMAP_MOE})")
     if cfg.post_norm:
         raise NotImplementedError(
-            f"post-norm encoders are not ported yet ({ROADMAP_MOE})")
+            f"post-norm encoders are not ported yet ({ROADMAP_FAMILIES})")
     H, L = cfg.hidden_size, cfg.n_layers
     D, NH, KVH = cfg.head_dim, cfg.n_heads, cfg.kv_heads
     Fs, V = cfg.ffn_size, cfg.vocab_size
@@ -199,7 +221,9 @@ def init_transformer_params(cfg: TransformerConfig, generator: torch.Generator,
             attn.update(bq=zeros(NH * D), bk=zeros(KVH * D), bv=zeros(KVH * D))
         if cfg.use_bias:
             attn["bo"] = zeros(H)
-        if cfg.activation == "swiglu":
+        if cfg.moe_experts > 0:
+            mlp = _init_moe(cfg, nrm, zeros, proj_out_std)
+        elif cfg.activation == "swiglu":
             mlp = {"w_gate": nrm(H, Fs), "w_up": nrm(H, Fs),
                    "w_down": nrm(Fs, H, s=proj_out_std)}
         else:
@@ -212,6 +236,24 @@ def init_transformer_params(cfg: TransformerConfig, generator: torch.Generator,
         layers.append(layer)
     p["layers"] = layers
     return ParamTree(p)
+
+
+def _init_moe(cfg: TransformerConfig, nrm: Callable, zeros: Callable,
+              proj_out_std: float) -> Dict[str, torch.Tensor]:
+    """One layer's MoE leaves, the JAX tree's: router ``[H, E]``, experts
+    ``w_gate``/``w_up`` ``[E, H, F]`` and ``w_down`` ``[E, F, H]`` (whatever
+    the activation), the PR-MoE residual and the shared expert."""
+    H, E, Fs = cfg.hidden_size, cfg.moe_experts, cfg.ffn_size
+    mlp = {"router": nrm(H, E), "w_gate": nrm(E, H, Fs), "w_up": nrm(E, H, Fs),
+           "w_down": nrm(E, Fs, H, s=proj_out_std)}
+    if cfg.moe_use_residual:
+        mlp.update(res_w_up=nrm(H, Fs), res_w_down=nrm(Fs, H, s=proj_out_std),
+                   coef=zeros(H, 2))
+    if cfg.moe_shared_expert > 0:
+        Fsh = cfg.moe_shared_expert
+        mlp.update(shared_w_gate=nrm(H, Fsh), shared_w_up=nrm(H, Fsh),
+                   shared_w_down=nrm(Fsh, H, s=proj_out_std), shared_gate=zeros(H, 1))
+    return mlp
 
 
 # ---------------------------------------------------------------------------
@@ -325,22 +367,56 @@ def attn_qkv(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
     return q, k, v
 
 
-def mlp_block(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor
-              ) -> torch.Tensor:
-    """norm2 + FFN with residual: ``x + ffn(norm(x))``.  A parallel block
-    with one shared norm (falcon-7b/phi) reads norm1."""
+Aux = Optional[torch.Tensor]
+
+
+def mlp_block(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
+              training: bool = True) -> Tuple[torch.Tensor, Aux]:
+    """norm2 + FFN with residual: ``(x + ffn(norm(x)), aux)``, aux the MoE
+    load-balance loss (None for a dense FFN, where JAX returns 0).  A
+    parallel block with one shared norm (falcon-7b/phi) reads norm1."""
     ln = layer.norm1 if cfg.parallel_block and cfg.parallel_norms < 2 else layer.norm2
     h = _norm(x, ln.scale, ln.get("bias"), cfg.norm, cfg.norm_eps)
-    return x + _ffn(cfg, layer, h)
+    h, aux = _ffn(cfg, layer, h, training)
+    return x + h, aux
 
 
-def _ffn(cfg: TransformerConfig, layer: ParamTree, h: torch.Tensor) -> torch.Tensor:
-    """The raw dense FFN (no norm, no residual)."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(f"MoE layers are not ported yet ({ROADMAP_MOE})")
+def _moe_ffn(cfg: TransformerConfig, m: ParamTree, h: torch.Tensor,
+             training: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN: routed experts, plus the shared expert and the PR-MoE
+    residual when the config has them."""
+    from ..moe.sharded_moe import MoEConfig, _gelu, moe_ffn
+
+    moe_cfg = MoEConfig(num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                        capacity_factor=cfg.moe_capacity_factor,
+                        aux_loss_coef=cfg.moe_aux_coef, drop_tokens=cfg.moe_drop_tokens,
+                        norm_topk=cfg.moe_norm_topk, ep_dispatch=cfg.moe_ep_dispatch)
+    experts = {k: getattr(m, k) for k in ("w_gate", "w_up", "w_down") if k in m}
+    out, aux = moe_ffn(h, m.router, experts, moe_cfg, activation=cfg.activation,
+                       training=training)
+    if cfg.moe_shared_expert > 0:
+        # qwen2-moe: the shared expert sees every token, gated per token
+        sh = _mm(cfg, F.silu(_mm(cfg, h, m.shared_w_gate)) * _mm(cfg, h, m.shared_w_up),
+                 m.shared_w_down)
+        sgate = torch.sigmoid((h @ m.shared_gate).float())
+        out = out + (sgate * sh.float()).to(out.dtype)
+    if cfg.moe_use_residual:
+        # PR-MoE: a dense MLP beside the MoE, mixed per token
+        act = F.silu if cfg.activation == "swiglu" else _gelu
+        res = _mm(cfg, act(_mm(cfg, h, m.res_w_up)), m.res_w_down)
+        coef = torch.softmax((h @ m.coef).float(), dim=-1)
+        out = (out * coef[..., 0:1] + res * coef[..., 1:2]).to(out.dtype)
+    return out, aux
+
+
+def _ffn(cfg: TransformerConfig, layer: ParamTree, h: torch.Tensor,
+         training: bool = True) -> Tuple[torch.Tensor, Aux]:
+    """The raw FFN (no norm, no residual) and its aux loss (None: dense)."""
     m = layer.mlp
+    if cfg.moe_experts > 0:
+        return _moe_ffn(cfg, m, h, training)
     if cfg.activation == "swiglu":
-        return _mm(cfg, F.silu(_mm(cfg, h, m.w_gate)) * _mm(cfg, h, m.w_up), m.w_down)
+        return _mm(cfg, F.silu(_mm(cfg, h, m.w_gate)) * _mm(cfg, h, m.w_up), m.w_down), None
     if cfg.activation == "relu":
         act = F.relu
     elif cfg.activation == "gelu_exact":
@@ -353,20 +429,22 @@ def _ffn(cfg: TransformerConfig, layer: ParamTree, h: torch.Tensor) -> torch.Ten
     out = _mm(cfg, act(up), m.w_down)
     if cfg.use_bias:
         out = out + m.b_down
-    return out
+    return out, None
 
 
 def _attn_out(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
-              attn: torch.Tensor) -> torch.Tensor:
+              attn: torch.Tensor, training: bool = False) -> Tuple[torch.Tensor, Aux]:
     """Output projection + residual/parallel-block epilogue of a block, shared
-    by the training forward and the paged and dense-cache inference
-    bodies.  attn: [B, T, NH * D]."""
+    by the training forward (``training=True``) and the paged and
+    dense-cache inference bodies.  attn: [B, T, NH * D].  Returns (the
+    block's output, the FFN's aux loss)."""
     attn_delta = _mm(cfg, attn, layer.attn.wo)
     if cfg.use_bias:
         attn_delta = attn_delta + layer.attn.bo
     if cfg.parallel_block:
-        return mlp_block(cfg, layer, x) + attn_delta
-    return mlp_block(cfg, layer, x + attn_delta)
+        out, aux = mlp_block(cfg, layer, x, training)
+        return out + attn_delta, aux
+    return mlp_block(cfg, layer, x + attn_delta, training)
 
 
 def _embed(cfg: TransformerConfig, params: ParamTree, ids: torch.Tensor,
@@ -430,8 +508,8 @@ def _pick_attn(cfg: TransformerConfig, device: torch.device) -> Callable:
 
 def _block(cfg: TransformerConfig, x: torch.Tensor, layer: ParamTree,
            positions: torch.Tensor, mask: Optional[torch.Tensor],
-           attn_fn: Callable) -> torch.Tensor:
-    """One transformer block, [B, S, H] -> [B, S, H]."""
+           attn_fn: Callable) -> Tuple[torch.Tensor, Aux]:
+    """One transformer block, [B, S, H] -> ([B, S, H], aux)."""
     B, S, _ = x.shape
     NH, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     q, k, v = attn_qkv(cfg, layer, x, positions)
@@ -447,23 +525,24 @@ def _block(cfg: TransformerConfig, x: torch.Tensor, layer: ParamTree,
             attn = attn_fn(q, k, v, cfg.causal, mask, bias=-slopes[None, :, None, None] * rel)
     else:
         attn = attn_fn(q, k, v, cfg.causal, mask)
-    return _attn_out(cfg, layer, x, attn.reshape(B, S, NH * D))
+    return _attn_out(cfg, layer, x, attn.reshape(B, S, NH * D), training=True)
 
 
 def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: torch.Tensor,
                         mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, S] int tokens -> ([B, S, H] final hidden states, aux loss (0 for
-    dense models)).  The JAX ``lax.scan`` over the stacked layers is a
-    loop over the per-layer trees."""
+    """[B, S] int tokens -> ([B, S, H] final hidden states, aux loss summed
+    over the layers (0 for dense models)).  The JAX ``lax.scan`` over the
+    stacked layers is a loop over the per-layer trees.  MoE layers run as
+    JAX's training block does (``training=True``: capacity from
+    ``moe_capacity_factor``)."""
     if cfg.remat:
         raise NotImplementedError(f"remat is not ported yet ({ROADMAP_REMAT})")
     if cfg.dropout:
         raise ValueError("dropout: the model core applies none (the JAX package's field is "
                          "unused too); leave it at 0.0")
-    if cfg.post_norm or cfg.moe_experts > 0:
-        raise NotImplementedError(
-            f"post-norm encoders and MoE layers are not ported yet ({ROADMAP_MOE})")
+    if cfg.post_norm:
+        raise NotImplementedError(f"post-norm encoders are not ported yet ({ROADMAP_FAMILIES})")
     B, S = input_ids.shape
     x = params.embed.tok[input_ids]
     positions = torch.arange(S, device=input_ids.device).expand(B, S)
@@ -473,11 +552,14 @@ def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: to
         n = params.embed.norm
         x = _norm(x, n.scale, n.get("bias"), cfg.norm, cfg.norm_eps)
     attn_fn = _pick_attn(cfg, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        x = _block(cfg, x, layer, positions, mask, attn_fn)
+        x, a = _block(cfg, x, layer, positions, mask, attn_fn)
+        if a is not None:
+            aux = aux + a
     fn = params.final_norm
     hidden = _norm(x, fn.scale, fn.get("bias"), cfg.norm, cfg.norm_eps)
-    return hidden, torch.zeros((), dtype=torch.float32, device=x.device)
+    return hidden, aux
 
 
 def nll_pick(logp: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -513,7 +595,11 @@ def _tiled_nll(cfg: TransformerConfig, params: ParamTree, hidden: torch.Tensor,
 def causal_lm_loss(cfg: TransformerConfig, params: ParamTree, batch: Any,
                    rng: Any = None) -> torch.Tensor:
     """Next-token cross entropy.  batch: dict(input_ids, optional labels,
-    optional attention_mask) or a raw [B, S] token tensor."""
+    optional attention_mask) or a raw [B, S] token tensor.  MoE models
+    raise: the grouped matmul has no backward yet."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(f"training an MoE model is not ported yet "
+                                  f"({ROADMAP_MOE_TRAIN})")
     if isinstance(batch, dict):
         ids = batch["input_ids"]
         labels = batch.get("labels", ids)
@@ -583,7 +669,7 @@ def _block_decode(cfg: TransformerConfig, x: torch.Tensor, layer: ParamTree,
     scores = torch.where(slot <= limit, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     return _attn_out(cfg, layer, x,
-                     torch.einsum("bnts,bsnd->btnd", probs, vv).reshape(B, T, NH * D))
+                     torch.einsum("bnts,bsnd->btnd", probs, vv).reshape(B, T, NH * D))[0]
 
 
 @torch.no_grad()
@@ -597,8 +683,6 @@ def forward_with_cache(cfg: TransformerConfig, params: ParamTree, input_ids: tor
     if cfg.post_norm:
         raise NotImplementedError(
             "post_norm models (BERT-style encoders) have no KV-cache generative path")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(f"MoE layers are not ported yet ({ROADMAP_MOE})")
     B, T = input_ids.shape
     if position + T > cache["k"].shape[2]:
         raise ValueError(f"positions [{position}, {position + T}) exceed the cache's "
@@ -611,15 +695,37 @@ def forward_with_cache(cfg: TransformerConfig, params: ParamTree, input_ids: tor
     return _final_logits(cfg, params, x), cache
 
 
-def param_count(cfg: TransformerConfig) -> int:
-    """Stored parameter count of a dense model."""
+def _moe_mlp_params(cfg: TransformerConfig, experts: int) -> int:
+    """One layer's FFN parameters by the JAX formula: a dense FFN, or
+    ``experts`` expert FFNs plus the router, the PR-MoE residual and the
+    shared expert."""
     mlp = cfg.hidden_size * cfg.ffn_size * (3 if cfg.activation == "swiglu" else 2)
+    if cfg.moe_experts <= 0:
+        return mlp
+    mlp = mlp * experts + cfg.hidden_size * cfg.moe_experts
+    if cfg.moe_use_residual:
+        mlp += 2 * cfg.hidden_size * cfg.ffn_size + 2 * cfg.hidden_size
+    if cfg.moe_shared_expert > 0:
+        mlp += 3 * cfg.hidden_size * cfg.moe_shared_expert + cfg.hidden_size
+    return mlp
+
+
+def param_count(cfg: TransformerConfig) -> int:
+    """Stored parameter count: embeddings, attention and ALL experts' FFNs
+    (what the weight bytes need); ``flops_per_token`` prices only the
+    active top-k experts."""
+    mlp = _moe_mlp_params(cfg, cfg.moe_experts)
     return (cfg.vocab_size * cfg.hidden_size * (1 if cfg.tie_embeddings else 2)
             + cfg.n_layers * (cfg.hidden_size * cfg.head_dim * (cfg.n_heads + 2 * cfg.kv_heads)
                               + cfg.n_heads * cfg.head_dim * cfg.hidden_size + mlp))
 
 
 def flops_per_token(cfg: TransformerConfig, seq_len: int) -> float:
-    """6 * N + attention flops per token (training forward and backward),
-    the JAX formula for a dense model."""
-    return 6.0 * param_count(cfg) + 12 * cfg.n_layers * cfg.hidden_size * seq_len
+    """6 * N_active + attention flops per token (training forward and
+    backward), the JAX formula: an MoE layer counts its router and the
+    ``moe_top_k`` experts a token flows through."""
+    mlp = _moe_mlp_params(cfg, cfg.moe_top_k)
+    n_params = (cfg.vocab_size * cfg.hidden_size * (1 if cfg.tie_embeddings else 2)
+                + cfg.n_layers * (cfg.hidden_size * cfg.head_dim * (cfg.n_heads + 2 * cfg.kv_heads)
+                                  + cfg.n_heads * cfg.head_dim * cfg.hidden_size + mlp))
+    return 6.0 * n_params + 12 * cfg.n_layers * cfg.hidden_size * seq_len

@@ -30,6 +30,7 @@ SOURCES = {
     "fused_adam": CSRC / "fused_adam.cu",
     "wq_matmul": CSRC / "wq_matmul.cu",
     "quantization": CSRC / "quantization.cu",
+    "grouped_matmul": CSRC / "grouped_matmul.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

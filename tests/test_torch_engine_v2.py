@@ -5,7 +5,8 @@ Greedy generations must be token-identical: across queueing (more
 requests than slots), chunked prefill, int8 KV, KV-pool pressure
 (preemption), weight-only int8 and int4 weights (``quant_bits``), and with
 the JAX side running both Pallas kernels in interpret mode
-(``DSTPU_PAGED_KERNEL=1``).  The programs' logits are compared directly
+(``DSTPU_PAGED_KERNEL=1``), and for the mixtral MoE under both
+``moe_drop_tokens`` settings.  The programs' logits are compared directly
 with a tolerance of 1e-4 (fp32, 2 layers; CPU matmul summation order is
 the only difference).  The weight-only quantized trees are held to JAX's
 bit for bit: the same leaves, the same codes and scales."""
@@ -26,6 +27,7 @@ from deepspeed_tpu.inference.v2.ragged import BlockAllocator as JaxAllocator
 from deepspeed_tpu.inference.v2.ragged import KVBlockConfig as JaxBlock
 from deepspeed_tpu.inference.v2.ragged import PagedKVCache as JaxKVCache
 from deepspeed_tpu.models.llama import llama_model as jax_llama
+from deepspeed_tpu.models.mixtral import mixtral_model as jax_mixtral
 from deepspeed_tpu_torch.inference.v2 import (BlockAllocator, InferenceEngineV2,
                                               KVBlockConfig, PagedKVCache,
                                               RaggedInferenceConfig, RaggedRequest,
@@ -34,6 +36,7 @@ from deepspeed_tpu_torch.inference.quantization import quantize_inference_params
 from deepspeed_tpu_torch.inference.v2 import model_runner as tmr
 from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from deepspeed_tpu_torch.models.llama import llama_model
+from deepspeed_tpu_torch.models.mixtral import mixtral_model
 
 torch.set_num_threads(2)
 
@@ -375,3 +378,54 @@ def test_quantized_tree_crosses_the_bridge_with_fp32_scales(weights):
     assert back.layers[1].attn.wq.wq.dtype == torch.uint8
     assert back.layers[1].norm1.scale.dtype == torch.bfloat16
     assert torch.equal(back.layers[1].attn.wq.scale, q.layers[1].attn.wq.scale)
+
+
+# -- mixtral (MoE): dropless grouped matmul and the capacity path ------------
+MOE_CASES = {"queueing": {}, "chunked": dict(prefill_chunk=16),
+             "kv_quant": dict(kv_quant=True), "quant_bits_8": dict(quant_bits=8, **QUANT)}
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    params = jax_mixtral("tiny", max_seq_len=256).init_params(jax.random.PRNGKey(1))
+    return params, jax.tree_util.tree_map(np.asarray, params)
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+@pytest.mark.parametrize("drop", [False, True])
+def test_mixtral_greedy_streams_token_identical(moe_weights, drop, case):
+    """Every prefill, chunk and decode call routes its bucket-padded prompt
+    rows and inactive slots through the MoE, as the JAX runner does; the
+    capacity path (drop_tokens) prices capacity with the eval factor."""
+    params, np_params = moe_weights
+    cfg = dict(BASE, **MOE_CASES[case])
+    prompts = _prompts(seed=10)
+    jeng = JaxEngine(jax_mixtral("tiny", max_seq_len=256, moe_drop_tokens=drop),
+                     JaxConfig(**cfg), params=params)
+    want = jeng.generate_all([JaxRequest(prompt_ids=p, max_new_tokens=8) for p in prompts])
+    eng = InferenceEngineV2(mixtral_model("tiny", max_seq_len=256, moe_drop_tokens=drop),
+                            RaggedInferenceConfig(**cfg), params=np_params, device="cpu")
+    got = eng.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=8) for p in prompts])
+    assert got == want
+    assert eng.param_bytes == jeng.param_bytes
+
+
+def test_mixtral_quantized_tree_keeps_experts_full_precision(moe_weights):
+    """quant_bits: the attention projections and the head are quantized as
+    JAX quantizes them; the [E, H, F] expert leaves and the router stay
+    full precision, leaf for leaf."""
+    params, np_params = moe_weights
+    want, jb, ja = jax_quantize_params(params, 8, 64, min_size=1024)
+    tparams = params_from_numpy(np_params, mixtral_model("tiny").config, "cpu")
+    got, tb, ta = quantize_inference_params(tparams, 8, 64, min_size=1024)
+    assert (tb, ta) == (jb, ja)
+    w, g = _flat(jax.tree_util.tree_map(np.asarray, want)), _flat(params_to_numpy(got))
+    assert sorted(w) == sorted(g)
+    assert sorted(k for k in w if k.endswith("/wq")) == [
+        "layers/attn/wk/wq", "layers/attn/wo/wq", "layers/attn/wq/wq", "layers/attn/wv/wq",
+        "lm_head/w/wq"]
+    for k in w:
+        assert g[k].dtype == w[k].dtype, k
+        np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        assert got.layers[0].mlp.get(name).dtype == torch.float32

@@ -1,0 +1,90 @@
+"""The port's grouped (block-diagonal) expert matmul vs the JAX package's
+``grouped_matmul``, through its XLA branch and through the Pallas kernel in
+interpret mode (as the JAX package's own tests run it on the CPU).
+
+Tolerances: fp32 1e-5 (both sum in fp32, in other orders); bf16: both
+multiply the bf16 inputs in fp32 and round once to bf16, so a fp32 sum that
+differs in its last bits may round to the neighbouring bf16 value: one bf16
+ulp, rtol 2^-7."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.pallas.grouped_matmul import grouped_matmul as jax_gmm
+from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+torch.set_num_threads(2)
+
+TOL = {"fp32": (1e-5, 1e-5), "bf16": (1e-6, 2.0 ** -7)}  # (atol, rtol)
+JNP = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _inputs(block_rows, dt, E=3, H=32, F=48, order=(0, 2, 1, 1, 0), seed=0):
+    """x [len(order) * block_rows, H], w [E, H, F] and a non-monotone
+    block -> expert map, as numpy, rounded to ``dt`` first."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(len(order) * block_rows, H).astype(np.float32)
+    w = rng.randn(E, H, F).astype(np.float32)
+    if dt == "bf16":
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+        w = np.asarray(jnp.asarray(w, jnp.bfloat16), np.float32)
+    return x, w, np.asarray(order, np.int32)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("block_rows", [8, 128])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_plain_matches_jax(impl, block_rows, dt):
+    x, w, be = _inputs(block_rows, dt)
+    want = jax_gmm(jnp.asarray(x, JNP[dt]), jnp.asarray(w, JNP[dt]), jnp.asarray(be),
+                   block_rows=block_rows, impl=impl)
+    got = gm.grouped_matmul_plain(torch.from_numpy(x).to(TORCH[dt]),
+                                  torch.from_numpy(w).to(TORCH[dt]), torch.from_numpy(be),
+                                  block_rows=block_rows)
+    assert got.dtype == TORCH[dt] and tuple(got.shape) == want.shape
+    atol, rtol = TOL[dt]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+def test_plain_gathers_in_chunks_like_one_einsum(monkeypatch):
+    """More blocks than ``PLAIN_BLOCKS_PER_CHUNK``: the chunked gather gives
+    what one gather of every block gives."""
+    x, w, be = _inputs(8, "fp32", order=(2, 0, 1, 2, 2, 0, 1))
+    xt, wt, bt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(be)
+    want = torch.einsum("bph,bhf->bpf", xt.reshape(7, 8, -1), wt[bt.long()]).reshape(56, -1)
+    monkeypatch.setattr(gm, "PLAIN_BLOCKS_PER_CHUNK", 3)
+    np.testing.assert_allclose(gm.grouped_matmul_plain(xt, wt, bt, 8).numpy(), want.numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_wrapper_takes_the_plain_version_on_the_cpu_without_counting():
+    x, w, be = _inputs(8, "fp32")
+    args = (torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(be))
+    before = gm.grouped_matmul.launches
+    assert torch.equal(gm.grouped_matmul(*args, block_rows=8),
+                       gm.grouped_matmul_plain(*args, block_rows=8))
+    assert gm.grouped_matmul.launches == before
+
+
+def test_rows_must_fill_whole_blocks():
+    x, w, be = _inputs(8, "fp32")
+    with pytest.raises(ValueError, match="whole blocks"):
+        gm.grouped_matmul(torch.from_numpy(x[:-1]), torch.from_numpy(w),
+                          torch.from_numpy(be), block_rows=8)
+    with pytest.raises(ValueError, match="block_expert"):
+        gm.grouped_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                          torch.from_numpy(be[:-1]), block_rows=8)
+
+
+def test_expert_index_is_clamped():
+    """An index outside [0, E) takes the nearest expert (the kernel clamps
+    too: it never reads outside ``w``)."""
+    x, w, _ = _inputs(8, "fp32")
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = gm.grouped_matmul_plain(xt, wt, torch.tensor([-1, 5, 1, 1, 0], dtype=torch.int32), 8)
+    want = gm.grouped_matmul_plain(xt, wt, torch.tensor([0, 2, 1, 1, 0], dtype=torch.int32), 8)
+    assert torch.equal(got, want)

@@ -3,7 +3,8 @@
 the JAX package's, on the same numpy weights on the CPU.
 
 Greedy generations must be token-identical in fp32, before and after
-``module_quantize``; ``module_quantize`` must leave every parameter
+``module_quantize``, for llama and for the mixtral MoE under both
+``moe_drop_tokens`` settings; ``module_quantize`` must leave every parameter
 bit-equal to JAX's (its int8 codec runs as the JAX kernels do, in
 interpret mode here), including at a width whose leaves do not fill
 128-wide rows, where rows span layer boundaries of JAX's stacked leaves.
@@ -24,12 +25,14 @@ from deepspeed_tpu.inference.engine import InferenceEngine as JaxEngine
 from deepspeed_tpu.linear import optimized_linear as jlin
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu.models.llama import llama_model as jax_llama
+from deepspeed_tpu.models.mixtral import mixtral_model as jax_mixtral
 from deepspeed_tpu_torch.inference.engine import (InferenceConfig, InferenceEngine,
                                                   filter_logits)
 from deepspeed_tpu_torch.linear import optimized_linear as tlin
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from deepspeed_tpu_torch.models.llama import llama_model
+from deepspeed_tpu_torch.models.mixtral import mixtral_model
 
 torch.set_num_threads(2)
 
@@ -249,3 +252,31 @@ def test_default_inference_config_round_trip(tiny):
     eng = deepspeed_tpu_torch.init_inference(tm, config=cfg, params=np_params, device="cpu")
     assert eng.generate(np.zeros((1, 4), np.int32), max_new_tokens=2).shape == (1, 6)
     assert eng.config.max_seq_len == 64 and eng.params.embed.tok.dtype == torch.float32
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_mixtral_generate_and_module_quantize_match_jax(drop):
+    """The dense-cache path through the MoE (``forward_with_cache`` ->
+    ``mlp_block(training=False)``): greedy streams equal JAX's, and
+    ``module_quantize`` codes the stacked [L, E, H, F] expert leaves leaf for
+    leaf as JAX does, after which the streams still agree."""
+    jm = jax_mixtral("tiny", max_seq_len=64, moe_drop_tokens=drop)
+    tm = mixtral_model("tiny", max_seq_len=64, moe_drop_tokens=drop)
+    params = jm.init_params(jax.random.PRNGKey(2))
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    jeng = JaxEngine(jm, JaxConfig(dtype="fp32"), params=params)
+    teng = deepspeed_tpu_torch.init_inference(tm, config={"dtype": "fp32"}, params=np_params,
+                                              device="cpu")
+    prompt = _prompt(B=3, T=9, seed=7)
+    np.testing.assert_array_equal(teng.generate(prompt, max_new_tokens=8).numpy(),
+                                  np.asarray(jeng.generate(prompt, max_new_tokens=8)))
+    np.testing.assert_allclose(teng(prompt).numpy(), np.asarray(jeng(prompt)), atol=1e-5,
+                               rtol=1e-5)
+    jeng.module_quantize()
+    teng.module_quantize()
+    want = _flat(jax.tree_util.tree_map(np.asarray, jeng.params))
+    got = _flat(params_to_numpy(teng.params))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(teng.generate(prompt, max_new_tokens=8).numpy(),
+                                  np.asarray(jeng.generate(prompt, max_new_tokens=8)))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, quantized-inference and
-MoE-serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, quantized-inference,
+MoE-serving, block-sparse and evoformer attention paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -95,7 +95,30 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 17. MoE parity: a 1-layer Mixtral-8x7b-width model in fp32 on the card and
     on the CPU from the same weights, dropless and capacity: prefill logits
     within ``PARITY_LOGITS_TOL``, identical router top-2 choices, identical
-    greedy streams from ``InferenceEngineV2`` and ``init_inference``.
+    greedy streams from ``InferenceEngineV2`` and ``init_inference``;
+18. kernel S, block-sparse attention, against its plain version computed in
+    fp32 on the same inputs (``SPARSE_TOL``) at BERT-large's heads at S =
+    4096 (B = 1, H = 16, D = 64, bf16, block 128) for the Fixed,
+    BSLongformer and BigBird layouts, causal and not (timed beside the
+    bound of their visible block pairs, the plain version and SDPA on the
+    layout expanded to a boolean mask), and corners (Dense, fp16 and fp32,
+    heads from a 1-head layout, block 256, an all-empty layout row whose
+    output is 0); the path: the six main calls of the entry point, counter
+    zeroed before and read after (one launch each); a CUDA call with
+    inputs that require a gradient raises;
+19. kernels E, E', E'' (evoformer forward, dQ + dbias1, dK/dV + dbias2)
+    against their plain versions computed in fp32 (``EVO_TOL``,
+    ``EVO_BWD_TOL``, ``EVO_DBIAS_TOL``) at AlphaFold 2's MSA row attention
+    with pair bias (B = 1, S = 512, N = 384, H = 8, D = 32, bf16) and its
+    triangle attention (S = N = 384, H = 4), timed beside their bounds, the
+    plain versions and SDPA with the biases summed into a float mask (and
+    its backward); corners: no bias, bias1 only, [None, b2], D = 16/64/128,
+    ragged N = 300 and Q != K, fp16, fp32, a row masked by -1e9;
+20. the evoformer training path: ``DS4Sci_EvoformerAttention(q, k, v,
+    [b1, b2])`` -> ``backward`` at the main shape, one E, E' and E''
+    launch and no plain call, the five gradients within ``EVO_BWD_TOL`` of
+    plain fp32 autograd through ``evoformer_attention_xla``, bit-equal
+    across two calls, and a peak memory below the 2.42 GB of the scores.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA card,
@@ -1683,6 +1706,427 @@ def moe_parity_phase():
     return out
 
 
+# -- phase 18: kernel S, block-sparse attention -------------------------------
+
+#: Kernel S against its plain version computed in fp32 from the same
+#: inputs.  It is the flash-forward tile (probabilities rounded to the input
+#: type as the PV operand, everything else fp32), so the reasons are
+#: FLASH_TOL's: rtol the output's rounding, atol about twice the largest
+#: need observed on an H100 in this phase (PERF.md): 2.12e-3 bf16, 2.69e-4
+#: fp16 (D = 128), 1.51e-6 fp32 (sums over up to 1,152 keys in another
+#: order).
+SPARSE_TOL = {torch.bfloat16: (4.5e-3, 2.0 ** -8), torch.float16: (6e-4, 2.0 ** -11),
+              torch.float32: (3e-6, 2.0 ** -24)}
+#: BERT-large's heads at the long sequence of DeepSpeed's sparse-attention
+#: tutorial: B = 1, S = 4096, H = 16, D = 64, layout block 128
+SPARSE_SHAPE = (1, 4096, 16, 64)
+
+
+def sparse_configs(sa, H):
+    """The three layouts of the reference's defaults (Fixed 4 local / 1
+    global, BSLongformer window 3 / global (0,), BigBird 1 random / window 3
+    / 1 global)."""
+    return {"fixed": sa.FixedSparsityConfig(num_heads=H, block=128, num_local_blocks=4,
+                                            num_global_blocks=1),
+            "bslongformer": sa.BSLongformerSparsityConfig(
+                num_heads=H, block=128, num_sliding_window_blocks=3, global_block_indices=(0,)),
+            "bigbird": sa.BigBirdSparsityConfig(num_heads=H, block=128, num_random_blocks=1,
+                                                num_sliding_window_blocks=3,
+                                                num_global_blocks=1)}
+
+
+def empty_row_config(sa, H, row):
+    """A Fixed layout with block row ``row`` of every head off: its queries
+    see no key, and their output is 0."""
+    class EmptyRow(sa.FixedSparsityConfig):
+        def make_layout(self, seq_len):
+            lay = super().make_layout(seq_len)
+            lay[:, row, :] = False
+            return lay
+    return EmptyRow(num_heads=H, block=128)
+
+
+def sparse_pairs(layout, causal, B):
+    """Visible block pairs of a ``[H, NB, NB]`` layout, a diagonal block
+    counting half under causal."""
+    lay = torch.as_tensor(layout).bool()
+    if not causal:
+        return float(lay.sum().item()) * B
+    nb = lay.shape[1]
+    below = lay & torch.ones((nb, nb), dtype=torch.bool).tril(-1)
+    diag = lay & torch.eye(nb, dtype=torch.bool)
+    return (float(below.sum().item()) + 0.5 * float(diag.sum().item())) * B
+
+
+def sparse_case(sa, name, cfg, causal, dtype, shape=None, timed=False, seed=0,
+                empty_block_row=None):
+    B, S, H, D = SPARSE_SHAPE if shape is None else shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=DEV).to(dtype) for _ in range(3))
+    before = sa.sparse_attention.launches
+    out = sa.sparse_attention(q, k, v, cfg, causal=causal)
+    check(sa.sparse_attention.launches == before + 1,
+          f"sparse {name}: {sa.sparse_attention.launches - before} launches for one call")
+    ref = sa.sparse_attention_plain(q.float(), k.float(), v.float(), cfg, causal)
+    torch.cuda.synchronize()
+    tol = SPARSE_TOL[dtype]
+    err, atol_used, ok = max_err(out, ref, tol)
+    layout = cfg.make_layout(S)
+    rec = {"case": name, "shape": [B, S, H, D], "block": cfg.block, "dtype": str(dtype)[6:],
+           "causal": causal, "layout_heads": int(layout.shape[0]),
+           "layout_density": float(layout.mean()), "max_abs_err": err, "atol_used": atol_used,
+           "tol": tol}
+    print(json.dumps({"sparse_check": rec}))
+    check(bool(torch.isfinite(out).all()), f"sparse {name}: non-finite output")
+    check(ok, f"sparse {name}: kernel vs fp32 plain beyond {tol} (max abs {err:.3g}, "
+          f"atol used {atol_used:.3g})")
+    if empty_block_row is not None:
+        rows = slice(empty_block_row * cfg.block, (empty_block_row + 1) * cfg.block)
+        check(bool((out[:, rows] == 0).all()), f"sparse {name}: an empty layout row is not 0")
+        rec["empty_row_zero"] = True
+    if timed:
+        lay_h = torch.as_tensor(layout, device=DEV).bool().expand(H, *layout.shape[1:])
+        pairs = sparse_pairs(layout if layout.shape[0] == H else
+                             layout.repeat(H, axis=0), causal, B)
+        item = q.element_size()
+        nbytes = 4 * q.numel() * item
+        ops = 4.0 * D * cfg.block ** 2 * pairs
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        blk = torch.ones((cfg.block, cfg.block), dtype=torch.bool, device=DEV)
+        mask = torch.kron(lay_h.to(torch.int32), blk.to(torch.int32)) > 0  # [H, S, S]
+        if causal:
+            mask &= torch.ones((S, S), dtype=torch.bool, device=DEV).tril()
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        rec.update(
+            ms=device_ms(lambda: sa.sparse_attention(q, k, v, cfg, causal=causal)),
+            plain_ms=device_ms(lambda: sa.sparse_attention_plain(q, k, v, cfg, causal),
+                               iters=5, warmup=2),
+            library_ms=device_ms(lambda: sdpa(qh, kh, vh, mask[None], 1)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=ops, block_pairs=pairs)
+        del mask
+    print(json.dumps({"sparse": rec}))
+    return rec
+
+
+def sparse_phase(sa):
+    """Kernel S at BERT-large's heads, S = 4096 (timed: the three default
+    layouts, causal and not) and the corners."""
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    H = SPARSE_SHAPE[2]
+    recs = []
+    for nm, cfg in sparse_configs(sa, H).items():
+        for causal in (True, False):
+            recs.append(sparse_case(sa, f"{nm}_{'causal' if causal else 'full'}", cfg, causal,
+                                    bf16, timed=True))
+    fixed = sparse_configs(sa, H)["fixed"]
+    recs += [
+        sparse_case(sa, "dense_causal", sa.DenseSparsityConfig(num_heads=4, block=128), True,
+                    bf16, shape=(2, 1024, 4, 64)),
+        sparse_case(sa, "fixed_fp16_d128", fixed, True, fp16, shape=(1, 2048, H, 128)),
+        sparse_case(sa, "bigbird_fp32_d32", sparse_configs(sa, H)["bigbird"], False, fp32,
+                    shape=(1, 1024, H, 32)),
+        sparse_case(sa, "fixed_fp32_causal_d16", fixed, True, fp32, shape=(2, 512, H, 16)),
+        sparse_case(sa, "bslongformer_heads_from_1", sa.BSLongformerSparsityConfig(
+            num_heads=1, block=128), True, bf16, shape=(2, 2048, 8, 64)),
+        sparse_case(sa, "bigbird_block_256", sa.BigBirdSparsityConfig(num_heads=4, block=256),
+                    False, bf16, shape=(1, 2048, 4, 64)),
+        sparse_case(sa, "empty_row_causal", empty_row_config(sa, 4, 3), True, bf16,
+                    shape=(1, 1024, 4, 64), empty_block_row=3),
+        sparse_case(sa, "empty_row_full_fp32", empty_row_config(sa, 4, 5), False, fp32,
+                    shape=(1, 1024, 4, 64), empty_block_row=5),
+    ]
+    # the path: a user's calls of the entry point at the main shape, the
+    # three default layouts causal and not, counter zeroed before, read after
+    B, S, H, D = SPARSE_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(11)
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=DEV).to(bf16) for _ in range(3))
+    calls = [(cfg, causal) for cfg in sparse_configs(sa, H).values() for causal in (True, False)]
+    torch.cuda.synchronize()
+    sa.sparse_attention.launches = 0
+    outs = [sa.sparse_attention(q, k, v, cfg, causal=causal) for cfg, causal in calls]
+    torch.cuda.synchronize()
+    launches = sa.sparse_attention.launches
+    check(launches == len(calls) and all(
+        o.shape == q.shape and bool(torch.isfinite(o).all()) for o in outs),
+        f"sparse path: {launches} launches for {len(calls)} calls, or a bad output")
+    recs[0]["path_launches"] = launches
+    # the kernel has no backward (nor has the JAX one): inputs that require
+    # a gradient raise on the card
+    q = torch.randn((1, 256, H, 64), device=DEV, dtype=bf16, requires_grad=True)
+    try:
+        sa.sparse_attention(q, q, q, fixed)
+    except NotImplementedError as e:
+        recs[0]["grad_raises"] = str(e)[:80]
+    else:
+        check(False, "sparse: a CUDA call with inputs that require grad did not raise")
+    return recs
+
+
+# -- phase 19: kernels E, E', E'', evoformer attention ------------------------
+
+#: Kernels E, E', E'' against their plain versions computed in fp32 from the
+#: same inputs (the backward from the kernel's own lse and delta, as in
+#: phase 6).  rtol is each output's rounding (2^-8 bf16, 2^-11 fp16, 2^-24
+#: fp32; the kernels' bias gradients are fp32: 2^-20, a few ulps).  atol is
+#: about twice the largest need observed on an H100 (PERF.md).  E rounds P
+#: to the input type as the PV operand, as flash does (need 1.94e-3 bf16,
+#: 1.96e-4 fp16, 2.5e-6 fp32).  E' and E'' round P and dS as tensor-core
+#: operands (1.43e-2 bf16 dV, 1.25e-3 fp16; none beyond rtol in fp32).
+#: Phase 20 holds the training call's gradients, in the inputs' and biases'
+#: bf16, to the same EVO_BWD_TOL against fp32 autograd of the formulation;
+#: there delta comes from the bf16-rounded output, and dbias1 sums that
+#: over 3,072 (h, q) rows per key (need 6.5e-2 at |dbias1| up to ~50),
+#: which sets the bf16 limit.  The fp32 bias gradients of E' and E'' are
+#: sums in another order over up to 4,096 terms (1.6e-5 bf16 inputs, 7.7e-6
+#: fp16, 2e-6 fp32).
+EVO_TOL = {torch.bfloat16: (4e-3, 2.0 ** -8), torch.float16: (4e-4, 2.0 ** -11),
+           torch.float32: (5e-6, 2.0 ** -24)}
+EVO_BWD_TOL = {torch.bfloat16: (1.3e-1, 2.0 ** -8), torch.float16: (2.5e-3, 2.0 ** -11),
+               torch.float32: (1e-5, 2.0 ** -24)}
+EVO_DBIAS_TOL = {torch.bfloat16: (4e-5, 2.0 ** -20), torch.float16: (2e-5, 2.0 ** -20),
+                 torch.float32: (5e-6, 2.0 ** -20)}
+EVO_LSE_TOL = 1e-4  # plus 2^-22 relative: a -1e9-masked row's lse is ~-1e9
+#: AlphaFold 2's MSA row attention with pair bias at the fine-tuning crop
+#: (Jumper et al. 2021, Suppl. Alg. 7, Table 4): B, S = N_seq, N = N_res, H, D
+EVO_MAIN = (1, 512, 384, 8, 32)
+#: triangle attention at the same crop (Alg. 13-14): S = N = 384, H = 4
+EVO_TRIANGLE = (1, 384, 384, 4, 32)
+
+
+def evo_inputs(shape, dtype, biases, seed, K=None, masked_row=None):
+    """q, k, v, dO in ``dtype``; bias1 [B,S,1,1,K] / bias2 [B,1,H,Q,K] in
+    ``dtype`` per ``biases`` ("b1", "b2"); ``masked_row`` (b, s) gets
+    AlphaFold's 1e9 * (mask - 1) = -1e9 on every key in bias1."""
+    B, S, N, H, D = shape
+    K = N if K is None else K
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((B, S, N, H, D), generator=g, device=DEV).to(dtype)
+    k, v = (torch.randn((B, S, K, H, D), generator=g, device=DEV).to(dtype) for _ in range(2))
+    do = torch.randn((B, S, N, H, D), generator=g, device=DEV).to(dtype)
+    b1 = b2 = None
+    if "b1" in biases:
+        b1 = torch.randn((B, S, 1, 1, K), generator=g, device=DEV)
+        if masked_row is not None:
+            b1[masked_row] = -1e9
+        b1 = b1.to(dtype)
+    if "b2" in biases:
+        b2 = torch.randn((B, 1, H, N, K), generator=g, device=DEV).to(dtype)
+    return q, k, v, do, b1, b2
+
+
+def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=None,
+             timed=False, seed=0):
+    B, S, N, H, D = shape
+    q, k, v, do, b1, b2 = evo_inputs(shape, dtype, biases, seed, K, masked_row)
+    K = k.shape[2]
+    b1f = None if b1 is None else b1.reshape(B, S, K).float()
+    b2f = None if b2 is None else b2.reshape(B, H, N, K).float()
+    counts = [f.launches for f in (ev.evoformer_attn_fwd, ev.evoformer_attn_bwd_dq,
+                                   ev.evoformer_attn_bwd_dkv)]
+    o, lse = ev.evoformer_attn_fwd(q, k, v, b1f, b2f)
+    delta = ev._delta(o, do)
+    dq, db1 = ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)
+    dk, dv, db2 = ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f)
+    check([f.launches for f in (ev.evoformer_attn_fwd, ev.evoformer_attn_bwd_dq,
+                                ev.evoformer_attn_bwd_dkv)] == [c + 1 for c in counts],
+          f"evo {name}: not one launch of each kernel")
+    o_ref, lse_ref = ev.evoformer_attn_fwd_plain(q.float(), k.float(), v.float(), b1f, b2f)
+    grads_ref = ev.evoformer_attn_bwd_plain(q.float(), k.float(), v.float(), do.float(), lse,
+                                            delta, b1f, b2f)
+    torch.cuda.synchronize()
+    rec = {"case": name, "shape": [B, S, N, K, H, D], "dtype": str(dtype)[6:],
+           "biases": list(biases), "masked_row": masked_row, "tol": EVO_TOL[dtype],
+           "bwd_tol": EVO_BWD_TOL[dtype], "dbias_tol": EVO_DBIAS_TOL[dtype]}
+    err, atol_used, ok = max_err(o, o_ref, EVO_TOL[dtype])
+    lse_err = (lse - lse_ref).abs()
+    lse_ok = bool((lse_err <= EVO_LSE_TOL + 2.0 ** -22 * lse_ref.abs()).all())
+    rec.update(o_max_abs_err=err, o_atol_used=atol_used, lse_max_abs_err=lse_err.max().item())
+    check(bool(torch.isfinite(o).all()), f"evo {name}: non-finite output")
+    check(ok, f"evo {name}: E vs fp32 plain beyond {EVO_TOL[dtype]} (max abs {err:.3g}, "
+          f"atol used {atol_used:.3g})")
+    check(lse_ok, f"evo {name}: lse beyond {EVO_LSE_TOL} (max abs {rec['lse_max_abs_err']:.3g})")
+    for nm, out, want in zip(("dq", "dk", "dv", "db1", "db2"), (dq, dk, dv, db1, db2),
+                             grads_ref):
+        check((out is None) == (want is None), f"evo {name}: {nm} presence differs")
+        if out is None:
+            continue
+        tol = EVO_DBIAS_TOL[dtype] if nm.startswith("db") else EVO_BWD_TOL[dtype]
+        e, used, good = max_err(out, want, tol)
+        rec[f"{nm}_max_abs_err"], rec[f"{nm}_atol_used"] = e, used
+        rec[f"{nm}_ref_max_abs"] = want.abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"evo {name}: non-finite {nm}")
+        # a row masked by -1e9 is held in the forward only: its fp32 lse
+        # cannot hold log K, so the backward's P = exp(s - lse) sums to K on
+        # that row in the TPU kernels, the port's kernels and the plain
+        # version alike (ROADMAP Queue 3), and its gradients are K times too
+        # large for any limit scaled to a normal row
+        check(good or masked_row is not None, f"evo {name}: {nm} vs fp32 plain beyond {tol} "
+              f"(max abs {e:.3g}, atol used {used:.3g})")
+    rec["max_abs_err"] = err
+    if masked_row is None:  # the gradients held to their limits
+        rec["bwd_max_abs_err"] = max(rec[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
+    if masked_row is not None:
+        # AlphaFold's fully masked row: every score is -1e9 in fp32, the
+        # softmax uniform, and the output the plain version's
+        bm, sm = masked_row
+        rec["masked_row_o_max_abs_err"] = (o[bm, sm].float() - o_ref[bm, sm]).abs().max().item()
+    print(json.dumps({"evo_check": rec}))
+    if timed:
+        item = q.element_size()
+        pairs = float(B * S * H * N * K)
+        qkvo = (q.numel() + k.numel() + v.numel() + o.numel()) * item
+        bias_b = sum(t.numel() * 4 for t in (b1f, b2f) if t is not None)
+        stats = 2 * lse.numel() * 4
+        f_b, f_by = bound(qkvo + lse.numel() * 4 + bias_b, 4.0 * D * pairs, dtype)
+        # q, k, v, dO (dO the size of o) in; dq, or dk and dv, out
+        dq_b, dq_by = bound(qkvo + q.numel() * item + stats + bias_b
+                            + (0 if b1f is None else b1f.numel() * 4), 6.0 * D * pairs, dtype)
+        dkv_b, dkv_by = bound(qkvo + 2 * k.numel() * item + stats + bias_b
+                              + (0 if b2f is None else b2f.numel() * 4), 8.0 * D * pairs, dtype)
+        # SDPA yardstick: [B*S, H, N, D] views, the biases summed into one float mask
+        qh, kh, vh = (t.reshape(B * S, t.shape[2], H, D).transpose(1, 2).detach()
+                      .requires_grad_() for t in (q, k, v))
+        doh = do.reshape(B * S, N, H, D).transpose(1, 2)
+        mask = torch.zeros((B, S, H, N, K), device=DEV)
+        for t in (b1f[:, :, None, None] if b1f is not None else None,
+                  b2f[:, None] if b2f is not None else None):
+            if t is not None:
+                mask += t
+        mask = mask.reshape(B * S, H, N, K).to(dtype)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(lib_fwd(), (qh, kh, vh), doh)
+
+        with torch.no_grad():
+            lib_f = device_ms(lib_fwd)
+        lib_fb = device_ms(lib_fwd_bwd)
+        del mask
+        rec.update(
+            fwd_ms=device_ms(lambda: ev.evoformer_attn_fwd(q, k, v, b1f, b2f)),
+            dq_ms=device_ms(lambda: ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)),
+            dkv_ms=device_ms(lambda: ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f,
+                                                               b2f)),
+            fwd_plain_ms=device_ms(lambda: ev.evoformer_attn_fwd_plain(q, k, v, b1f, b2f),
+                                   iters=3, warmup=1),
+            bwd_plain_ms=device_ms(lambda: ev.evoformer_attn_bwd_plain(
+                q, k, v, do, lse, delta, b1f, b2f), iters=3, warmup=1),
+            library_fwd_ms=lib_f, library_bwd_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb,
+            fwd_bound_ms=f_b, fwd_bound_by=f_by, dq_bound_ms=dq_b, dq_bound_by=dq_by,
+            dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by, pairs=pairs)
+    print(json.dumps({"evo": rec}))
+    return rec
+
+
+def evo_phase(ev):
+    """Kernels E, E', E'' at AlphaFold 2's MSA row attention with pair bias
+    and its triangle attention (timed) and the corners."""
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    B, S, N, H, D = EVO_MAIN
+    return [
+        evo_case(ev, "msa_row_pair_bias", EVO_MAIN, bf16, timed=True),
+        evo_case(ev, "triangle", EVO_TRIANGLE, bf16, timed=True),
+        evo_case(ev, "no_bias", (1, 64, N, H, D), bf16, biases=()),
+        evo_case(ev, "bias1_only", (1, 64, N, H, D), bf16, biases=("b1",)),
+        evo_case(ev, "pair_bias_only", (1, 64, N, H, D), bf16, biases=("b2",)),
+        evo_case(ev, "d16", (2, 16, 256, 4, 16), bf16),
+        evo_case(ev, "d64", (1, 32, 256, 8, 64), bf16),
+        evo_case(ev, "d128", (1, 16, 256, 4, 128), bf16),
+        evo_case(ev, "ragged_n300", (1, 32, 300, 8, 32), bf16),
+        evo_case(ev, "ragged_q200_k300_d64", (2, 8, 200, 4, 64), bf16, K=300),
+        evo_case(ev, "fp16", (1, 32, 256, 8, 32), fp16),
+        evo_case(ev, "fp32", (1, 16, 200, 4, 32), fp32),
+        evo_case(ev, "fp32_d128_bias1", (1, 8, 130, 2, 128), fp32, biases=("b1",)),
+        evo_case(ev, "masked_row", (1, 16, 256, 8, 32), bf16, masked_row=(0, 5)),
+        evo_case(ev, "masked_row_fp32", (1, 8, 100, 4, 16), fp32, masked_row=(0, 3)),
+    ]
+
+
+# -- phase 20: the evoformer training path ------------------------------------
+
+def _evo_step(fn, args, g):
+    """out = fn(*args); (out * g).sum().backward(); returns the five grads."""
+    for t in args[:3] + tuple(args[3]):
+        t.grad = None
+    out = fn(*args)
+    (out.float() * g).sum().backward()
+    return [t.grad for t in args[:3]] + [b.grad for b in args[3]]
+
+
+def evo_train_phase(ev):
+    """``DS4Sci_EvoformerAttention(q, k, v, [b1, b2])`` -> ``backward`` at
+    AlphaFold 2's MSA row attention (bf16): one E, E' and E'' launch per
+    call and no plain call, the five gradients within EVO_BWD_TOL of plain
+    autograd through ``evoformer_attention_xla`` in fp32 on the same inputs,
+    bit-equal across two calls, and a peak memory below what the scores
+    alone would take."""
+    dtype = torch.bfloat16
+    B, S, N, H, D = EVO_MAIN
+    q, k, v, do, b1, b2 = evo_inputs(EVO_MAIN, dtype, ("b1", "b2"), seed=3)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    biases = [b1.detach().requires_grad_(), b2.detach().requires_grad_()]
+    g = do.float()
+    scores_bytes = 4.0 * B * S * H * N * N
+    counters = (ev.evoformer_attn_fwd, ev.evoformer_attn_bwd_dq, ev.evoformer_attn_bwd_dkv)
+
+    def kernel_call():
+        return _evo_step(ev.DS4Sci_EvoformerAttention, (*leaves, biases), g)
+
+    kernel_call()  # warm-up (builds, caches)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    ev.evoformer_attention.plain_calls = 0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads = [t.clone() for t in kernel_call()]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {c.__name__: c.launches for c in counters}
+    check(launches == {"evoformer_attn_fwd": 1, "evoformer_attn_bwd_dq": 1,
+                       "evoformer_attn_bwd_dkv": 1} and ev.evoformer_attention.plain_calls == 0,
+          f"evo train: launches {launches}, plain calls {ev.evoformer_attention.plain_calls}")
+    again = kernel_call()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "evo train: gradients differ between two calls")
+    check(peak < scores_bytes, f"evo train: kernel path peak {peak / 1e9:.3f} GB is not below "
+          f"the {scores_bytes / 1e9:.3f} GB of the scores")
+    check([tuple(t.shape) for t in grads[3:]] == [tuple(b1.shape), tuple(b2.shape)]
+          and all(t.dtype == dtype for t in grads), "evo train: bias gradient shape or dtype")
+
+    ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref_biases = [t.detach().float().requires_grad_() for t in (b1, b2)]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref = _evo_step(ev.evoformer_attention_xla, (*ref_leaves, ref_biases), g)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    rec = {"shape": [B, S, N, H, D], "dtype": "bfloat16", "launches": launches,
+           "plain_calls": 0, "bit_equal_across_calls": True, "wall_ms": wall_ms,
+           "peak_gb": peak / 1e9, "plain_peak_gb": plain_peak / 1e9,
+           "scores_gb": scores_bytes / 1e9, "tol": EVO_BWD_TOL[dtype]}
+    for nm, got, want in zip(("dq", "dk", "dv", "db1", "db2"), grads, ref):
+        tol = EVO_BWD_TOL[dtype]
+        e, used, good = max_err(got, want, tol)
+        rec[f"{nm}_max_abs_err"], rec[f"{nm}_atol_used"] = e, used
+        rec[f"{nm}_ref_max_abs"] = want.abs().max().item()
+        check(good, f"evo train: {nm} vs fp32 xla autograd beyond {tol} (max abs {e:.3g}, "
+              f"atol used {used:.3g})")
+    rec["kernel_fwd_bwd_ms"] = device_ms(kernel_call, iters=5, warmup=1)
+    rec["plain_fwd_bwd_ms"] = device_ms(
+        lambda: _evo_step(ev.evoformer_attention_xla, (*ref_leaves, ref_biases), g),
+        iters=3, warmup=1)
+    del ref, ref_leaves, ref_biases
+    torch.cuda.empty_cache()
+    print(json.dumps({"evo_train": rec}))
+    return rec
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1690,12 +2134,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
+        from deepspeed_tpu_torch.ops import evoformer_attn as ev
         from deepspeed_tpu_torch.ops import flash_attention as fa
         from deepspeed_tpu_torch.ops import fused_adam as fadam
         from deepspeed_tpu_torch.ops import grouped_matmul as gm
         from deepspeed_tpu_torch.ops import op_builder
         from deepspeed_tpu_torch.ops import paged_attention as pa
         from deepspeed_tpu_torch.ops import quantization as qz
+        from deepspeed_tpu_torch.ops import sparse_attention as sa
         from deepspeed_tpu_torch.ops import wq_matmul as wq
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
@@ -1726,6 +2172,8 @@ def main() -> int:
     wq_recs = wq_phase(wq)
     quant = quant_phase(qz)
     gmm_recs = gmm_phase(gm)
+    sparse = sparse_phase(sa)
+    evo = evo_phase(ev)
 
     eng = engine_phase(fa, pa)
     par = parity_phase()
@@ -1736,6 +2184,7 @@ def main() -> int:
     qpar = quant_parity_phase()
     moe = mixtral_engine_phase(fa, pa, gm)
     mpar = moe_parity_phase()
+    evo_train = evo_train_phase(ev)
 
     def timed(recs, keys):
         return {r["case"]: {k: r[k] for k in keys} for r in recs if keys[0] in r}
@@ -1763,6 +2212,9 @@ def main() -> int:
     train_l = {k: train["launches"][k] + train["gas2"]["launches"][k]
                for k in train["launches"]}
     bwd_shape = "B=4 S=1024 NH=32 KVH=8 D=64 bf16 causal"
+    main_sparse = sparse[0]
+    main_evo = evo[0]
+    evo_shape = "B=1 S=512 N=384 H=8 D=32 bf16, bias1 and bias2 (AlphaFold 2 MSA row attention)"
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1863,8 +2315,56 @@ def main() -> int:
                   "8 slots, gate/up)",
          "timed_cases": timed(gmm_recs, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                          "context_cublas_dense_ms"))},
+        {"name": "sparse_attention", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/sparse_attention.py:128",
+         "launches": main_sparse["path_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in sparse), "checked": True,
+         "ms": main_sparse["ms"], "plain_ms": main_sparse["plain_ms"],
+         "bound_ms": main_sparse["bound_ms"], "bound_by": main_sparse["bound_by"],
+         "library_ms": main_sparse["library_ms"],
+         "library_note": "SDPA with the layout expanded to a boolean mask",
+         "shape": "B=1 S=4096 H=16 D=64 bf16 block 128, Fixed (4 local, 1 global), causal",
+         "timed_cases": timed(sparse, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))},
+        {"name": "evoformer_attn_fwd", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/evoformer_attn.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/evoformer_attn.py:48",
+         "launches": evo_train["launches"]["evoformer_attn_fwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in evo), "checked": True,
+         "ms": main_evo["fwd_ms"], "plain_ms": main_evo["fwd_plain_ms"],
+         "bound_ms": main_evo["fwd_bound_ms"], "bound_by": main_evo["fwd_bound_by"],
+         "library_ms": main_evo["library_fwd_ms"],
+         "library_note": "SDPA with bias1 + bias2 summed into a float attn_mask",
+         "shape": evo_shape, "timed_cases": timed(evo, ("fwd_ms", "fwd_plain_ms",
+                                                        "fwd_bound_ms", "library_fwd_ms"))},
+        {"name": "evoformer_attn_bwd_dq", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/evoformer_attn.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/evoformer_attn.py:145",
+         "launches": evo_train["launches"]["evoformer_attn_bwd_dq"],
+         "max_abs_err": max(max(r["dq_max_abs_err"], r.get("db1_max_abs_err", 0.0))
+                            for r in evo if r["masked_row"] is None), "checked": True,
+         "ms": main_evo["dq_ms"], "plain_ms": main_evo["bwd_plain_ms"],
+         "bound_ms": main_evo["dq_bound_ms"], "bound_by": main_evo["dq_bound_by"],
+         "library_ms": main_evo["library_bwd_ms"], "shape": evo_shape,
+         "note": "plain_ms and library_ms compute the whole backward (library: no bias grads)",
+         "timed_cases": timed(evo, ("dq_ms", "bwd_plain_ms", "dq_bound_ms",
+                                    "library_bwd_ms"))},
+        {"name": "evoformer_attn_bwd_dkv", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/evoformer_attn.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/evoformer_attn.py:196",
+         "launches": evo_train["launches"]["evoformer_attn_bwd_dkv"],
+         "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"],
+                                r.get("db2_max_abs_err", 0.0))
+                            for r in evo if r["masked_row"] is None), "checked": True,
+         "ms": main_evo["dkv_ms"], "plain_ms": main_evo["bwd_plain_ms"],
+         "bound_ms": main_evo["dkv_bound_ms"], "bound_by": main_evo["dkv_bound_by"],
+         "library_ms": main_evo["library_bwd_ms"], "shape": evo_shape,
+         "note": "plain_ms and library_ms compute the whole backward (library: no bias grads)",
+         "timed_cases": timed(evo, ("dkv_ms", "bwd_plain_ms", "dkv_bound_ms",
+                                    "library_bwd_ms"))},
     ]
-    check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
+    check(len(kernels) == 13 and all(k["launches"] > 0 for k in kernels),
+          "a kernel of the path never launched")
     print(json.dumps({"engine_summary": {m: {k: r[k] for k in (
         "ttft_mean_s", "ttft_p50_s", "ttft_max_s", "prefill_tok_per_s", "decode_tok_per_s",
         "mean_step_ms", "steps", "wall_s", "launches")} for m, r in eng.items()},
@@ -1890,6 +2390,9 @@ def main() -> int:
         "prefill_profile": moe["whole_prompt"]["prefill_profile"],
         "generate": moe["generate"], "params": moe["params"], "peak_mem_gb": moe["peak_mem_gb"],
         "moe_parity": mpar}))
+    print(json.dumps({"evo_summary": {"train": evo_train, "cases": {r["case"]: {
+        k: r[k] for k in ("max_abs_err", "bwd_max_abs_err") if k in r} for r in evo}},
+        "sparse_summary": {r["case"]: r["max_abs_err"] for r in sparse}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,1389 @@
+// Evoformer attention for Hopper (sm_90a), plain C interface for ctypes:
+// forward (kernel E), dQ + dbias1 (kernel E') and dK/dV + dbias2 (kernel E'').
+//
+// Replaces the Pallas TPU kernels deepspeed_tpu/ops/pallas/evoformer_attn.py
+// :_fwd_kernel (E), :_bwd_dq_kernel (E') and :_bwd_dkv_kernel (E''), the
+// custom VJP behind DS4Sci_EvoformerAttention.  q, k, v, dO are
+// [B, S, N, H, D] (batch, MSA rows, residues, heads, head dim), read through
+// their strides; attention runs over N for each (b, s, h):
+//   x[i, j]  = (q[i] . k[j]) * sm_scale + bias1[b, s, j] + bias2[b, h, i, j]
+//              (added in this order, fp32; either bias may be absent)
+//   o[i]     = sum_j softmax(x[i])_j v[j],  lse[i] = m_i + log l_i
+//   p[i, j]  = exp(x[i, j] - lse[i]),  dp = dO[i] . v[j]
+//   ds[i, j] = p (dp - delta[i]),  delta = rowsum(o * dO) (computed outside)
+//   dq = sm_scale ds k,  dk = sm_scale ds^T q,  dv = p^T dO
+//   dbias1[b, s, j]    = sum over (h, i) of ds      (E')
+//   dbias2[b, h, i, j] = sum over s of ds           (E'')
+// Keys j >= K are masked (NEG_INF = -1e30 in the forward, p = 0 after) and
+// rows i >= Q are never stored: the tails are masked here, where JAX pads
+// them in memory.  The [B, S, H, Q, K] scores (2.42 GB in fp32 at
+// AlphaFold 2's MSA row attention, B=1 S=512 N=384 H=8) are never written.
+//
+// Bias gradients are sums across what the TPU grid runs in order (dbias1
+// over (h, q-block), dbias2 over s, the fastest grid axis).  Hopper runs
+// blocks in parallel and in no order, and the port's gradients must repeat
+// bit for bit, so no float atomics are used:
+//   E'  one block per (b, s, chunk of the (h, q-tile) units) loops its
+//       units; each warp sums its 16 rows of ds per column by a fixed
+//       shuffle tree into its own row of shared memory, and the block adds
+//       the 4 warps' rows in order at the end.  With more than one chunk
+//       the chunks' fp32 partials are added in chunk order by a second pass.
+//   E'' one block per (b, h, 64-key tile, chunk of s) loops s and, for each,
+//       every query tile: dK/dV of (b, s, h, key tile) sum in registers over
+//       the query tiles, and dbias2[:, key tile] sums over the chunk's s in
+//       shared memory ([Q][64 + 4] fp32, each element owned by one lane).
+//       The s chunks (sized so the grid covers the SMs twice; 48 blocks at
+//       the main shape without them) write fp32 partials that the second
+//       pass adds in chunk order.
+//
+// What bounds it on the H100: at the main shape (D = 32, bf16) the forward
+// moves q, k, v and o (100.7 MB each) for 77 GFLOP: 0.12 ms of bytes
+// against 0.08 ms of tensor-core time, so the bytes bound it.  In practice
+// the per-score work (scale, two bias adds, mask, exp) sets all three
+// kernels.  bias2 [B, H, Q, K] fp32 (4.7 MB) is read once per s by every
+// kernel (2.4 GB of L2 reads per kernel at the main shape); its tiles and
+// bias1's are staged by cp.async with the operand tiles of the same step,
+// and a tile kept where the s loop reuses it is a later design.
+//
+// Design, bf16 and fp16: the flash-attention tiles (csrc/flash_attention_*.cu)
+// — 4 warps of 16 rows, mma.sync m16n8k16 with fp32 accumulators, 16-byte
+// cp.async tiles with padded rows, P and dS rounded to the input type only as
+// tensor-core operands.  fp32: the same loops on the FMA pipes (16 x 16
+// threads, 4 x 4 patches), fp32 throughout.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kB = 64;           // query and key tile
+constexpr int kMmaWarps = 4;
+constexpr int kFmaThreads = 256;
+constexpr int kDbPad = kB + 4;   // dbias2 accumulator row: conflict-free lane updates
+constexpr int kMaxSmem = 232448; // a block's shared memory on the H100 (227 KB)
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse_in, *delta, *b1, *b2;
+  void *o, *dq, *dk, *dv;
+  float *lse, *db1, *db2, *part;
+  int B, S, Q, K, H, chunks;
+  float sm_scale;
+  long long qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh;
+};
+
+__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// staged bias2 rows: [q][k] for E and E' (lanes read column pairs: a row
+// of 64 + 8 floats keeps them conflict-free), [q][key] for E'' (lanes read
+// down a column: 64 + 4)
+constexpr int kB2Ld = kB + 8;
+constexpr int kB2LdT = kB + 4;
+
+// the scaled score plus the staged bias tiles (local row and column), in
+// the TPU kernel's order; a null tile is an absent bias
+__device__ __forceinline__ float add_bias(float x, const float* b1s, const float* b2s, int ld,
+                                          int lr, int lc) {
+  if (b1s) x += b1s[lc];
+  if (b2s) x += b2s[lr * ld + lc];
+  return x;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <typename T> struct Mma;
+template <> struct Mma<__nv_bfloat16> {
+  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <> struct Mma<__half> {
+  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+// 16-byte async copy; n = 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// rows [r0, r0 + nrows) x columns [c0, c0 + 64) of a row-major fp32 matrix
+// with n_rows x n_cols valid entries into smem (row stride ld_dst) by
+// cp.async, zero outside; 16 bytes at a time when every row starts 16-byte
+// aligned and n_cols % 4 == 0 (vec), else 4.  The bias tiles go with the
+// operand tiles of the same step, so their loads are in flight while the
+// previous step computes.
+__device__ __forceinline__ void stage_window(float* dst, int ld_dst, const float* src,
+                                             long long ld_src, int r0, int nrows, int n_rows,
+                                             int c0, int n_cols, bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < nrows * (kB / 4); i += blockDim.x) {
+      const int r = i / (kB / 4), c = (i % (kB / 4)) * 4;
+      const int row = r0 + r, col = c0 + c;
+      const bool ok = row < n_rows && col < n_cols;
+      cp_async16(dst + r * ld_dst + c, ok ? src + row * ld_src + col : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * kB; i += blockDim.x) {
+      const int r = i / kB, c = i % kB;
+      const int row = r0 + r, col = c0 + c;
+      const bool ok = row < n_rows && col < n_cols;
+      cp_async4(dst + r * ld_dst + c, ok ? src + row * ld_src + col : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// the biases of one (b, s, h) in device memory: bias1's row and bias2's
+// [Q, K] matrix, null when absent
+struct BiasSrc {
+  const float* b1;
+  const float* b2;
+  int Q, K;
+  bool vec;
+  __device__ BiasSrc(const Args& a, int b, int s, int h)
+      : b1(a.b1 ? a.b1 + ((long long)b * a.S + s) * a.K : nullptr),
+        b2(a.b2 ? a.b2 + ((long long)b * a.H + h) * a.Q * a.K : nullptr),
+        Q(a.Q), K(a.K), vec(a.K % 4 == 0) {}
+  // bias1 [c0, c0 + 64) into b1s and bias2 rows [r0, r0 + nrows) x columns
+  // [c0, c0 + 64) into b2s with row stride ld
+  __device__ __forceinline__ void stage(float* b1s, float* b2s, int ld, int r0, int nrows,
+                                        int c0) const {
+    if (b1) stage_window(b1s, 0, b1, 0, 0, 1, 1, c0, K, vec);
+    if (b2) stage_window(b2s, ld, b2, K, r0, nrows, Q, c0, K, vec);
+  }
+};
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ uint32_t lds32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+// B fragment (16 rows x 8 columns) of a row-major [row][col] tile, transposed
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* row_addr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row_addr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+// this lane's part of the A fragment (rows r0 and r0 + 8, columns c0, c0 + 1
+// and c0 + 8, c0 + 9) of a row-major tile
+__device__ __forceinline__ void load_a(uint32_t* f, const uint16_t* tile, int RS, int r0, int c0) {
+  const uint16_t* p = tile + r0 * RS + c0;
+  f[0] = lds32(p);
+  f[1] = lds32(p + 8 * RS);
+  f[2] = lds32(p + 8);
+  f[3] = lds32(p + 8 * RS + 8);
+}
+// rows [r0, r0 + nrows) of one (b, s, h) into a padded smem tile by 16-byte
+// cp.async; rows at or past n are zero-filled
+template <typename T, int D>
+__device__ __forceinline__ void stage_async(T* dst, const T* src, long long row_stride, int r0,
+                                            int nrows, int n) {
+  constexpr int RS = D + 8, CPR = D / 8;
+  for (int i = threadIdx.x; i < nrows * CPR; i += kMmaWarps * 32) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const int row = r0 + r;
+    cp_async16(dst + r * RS + c, src + (long long)min(row, n - 1) * row_stride + c,
+               row < n ? 16 : 0);
+  }
+}
+// the same into an fp32 tile [kB][D + 1] by plain loads (FMA kernels)
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long row_stride,
+                                           int r0, int n) {
+  constexpr int DP = D + 1;
+  for (int idx = threadIdx.x; idx < kB * D; idx += kFmaThreads) {
+    const int r = idx / D, d = idx % D;
+    const int row = r0 + r;
+    dst[r * DP + d] = row < n ? src[(long long)row * row_stride + d] : 0.f;
+  }
+}
+
+// ===========================================================================
+// kernel E: forward
+// ===========================================================================
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  return sizeof(uint16_t) * 5 * kB * (D + 8);  // Q + 2 x (K, V); the bias tiles follow
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaWarps * 32) evo_fwd_mma_kernel(Args a) {
+  constexpr int RS = D + 8, KT = D / 16, NT = kB / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kB][RS]
+  T* Ks = Qs + kB * RS;                    // [2][kB][RS]
+  T* Vs = Ks + 2 * kB * RS;                // [2][kB][RS]
+  float* b1s = reinterpret_cast<float*>(Vs + 2 * kB * RS);  // [2][kB]
+  float* b2s = b1s + 2 * kB;                                // [2][kB][kB2Ld]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = cdiv(a.Q, kB);
+  const int qt = blockIdx.x % nq;
+  const int bsh = blockIdx.x / nq;
+  const int h = bsh % a.H, bs = bsh / a.H;
+  const int s = bs % a.S, b = bs / a.S;
+  const int q_start = qt * kB;
+  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + s * a.qss + h * a.qsh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + s * a.kss + h * a.ksh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + s * a.vss + h * a.vsh;
+  const BiasSrc bias(a, b, s, h);
+
+  stage_async<T, D>(Qs, qb, a.qsn, q_start, kB, a.Q);
+  cp_async_commit();
+  auto load_kv = [&](int buf, int k0) {
+    stage_async<T, D>(Ks + buf * kB * RS, kb, a.ksn, k0, kB, a.K);
+    stage_async<T, D>(Vs + buf * kB * RS, vb, a.vsn, k0, kB, a.K);
+    bias.stage(b1s + buf * kB, b2s + buf * kB * kB2Ld, kB2Ld, q_start, kB, k0);
+    cp_async_commit();
+  };
+  const int n_tiles = cdiv(a.K, kB);
+  load_kv(0, 0);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const int r0 = warp * 16 + (lane >> 2);  // this lane's rows: r0 and r0 + 8
+  const int cq = (lane & 3) * 2;           // and its column pair
+  uint32_t qf[KT][4];
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) load_a(qf[kt], reinterpret_cast<const uint16_t*>(Qs), RS, r0, kt * 16 + cq);
+
+  float oacc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int cur = t & 1;
+    const int k0 = t * kB;
+    if (t + 1 < n_tiles) {
+      load_kv(cur ^ 1, k0 + kB);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kc = Ks + cur * kB * RS;
+    const T* Vc = Vs + cur * kB * RS;
+    const float* b1c = bias.b1 ? b1s + cur * kB : nullptr;
+    const float* b2c = bias.b2 ? b2s + cur * kB * kB2Ld : nullptr;
+
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+      const T* kr = Kc + (nt * 8 + (lane >> 2)) * RS + cq;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const uint32_t bk[2] = {lds32(kr + kt * 16), lds32(kr + kt * 16 + 8)};
+        Mma<T>::run(sc[nt], qf[kt], bk);
+      }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lr = r0 + (e >> 1) * 8, lc = nt * 8 + cq + (e & 1);
+        // the K tail is masked; rows past Q read zeros and are not stored
+        const float x = k0 + lc < a.K
+                            ? add_bias(sc[nt][e] * a.sm_scale, b1c, b2c, kB2Ld, lr, lc)
+                            : kNegInf;
+        sc[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        oacc[dt][2 * i] *= alpha;
+        oacc[dt][2 * i + 1] *= alpha;
+      }
+    }
+    uint32_t pf[NT / 2][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p0 = expf(sc[nt][0] - m[0]), p1 = expf(sc[nt][1] - m[0]);
+      const float p2 = expf(sc[nt][2] - m[1]), p3 = expf(sc[nt][3] - m[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(p0, p1);
+      pf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(p2, p3);
+    }
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      const T* vr = Vc + (j * 16 + (lane & 15)) * RS;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        uint32_t bv[2];
+        ldmatrix_x2_trans(bv, vr + dt * 8);
+        Mma<T>::run(oacc[dt], pf[j], bv);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer cur before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lc = fmaxf(quad_sum(l[i]), 1e-30f);
+    const int qi = q_start + r0 + 8 * i;
+    if (qi >= a.Q) continue;
+    T* orow = static_cast<T*>(a.o) + (((long long)bs * a.Q + qi) * a.H + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(orow + dt * 8 + cq) =
+          Mma<T>::pack(oacc[dt][2 * i] / lc, oacc[dt][2 * i + 1] / lc);
+    if ((lane & 3) == 0) a.lse[((long long)bs * a.H + h) * a.Q + qi] = m[i] + logf(lc);
+  }
+}
+
+template <int D>
+constexpr size_t fwd_fma_smem() {
+  // Qs[kB][D+1] + Ks[kB][D+1] + Vs[kB][D+1] + Ps[kB][kB+1], fp32
+  return sizeof(float) * (3 * kB * (D + 1) + kB * (kB + 1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFmaThreads) evo_fwd_fma_kernel(Args a) {
+  constexpr int DP = D + 1, PP = kB + 1, NC = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;           // [kB][DP]
+  float* Ks = Qs + kB * DP;   // [kB][DP]
+  float* Vs = Ks + kB * DP;   // [kB][DP]
+  float* Ps = Vs + kB * DP;   // [kB][PP]
+  float* b1s = Ps + kB * PP;  // [kB]
+  float* b2s = b1s + kB;      // [kB][kB2Ld]
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int nq = cdiv(a.Q, kB);
+  const int qt = blockIdx.x % nq;
+  const int bsh = blockIdx.x / nq;
+  const int h = bsh % a.H, bs = bsh / a.H;
+  const int s = bs % a.S, b = bs / a.S;
+  const int q_start = qt * kB;
+  const float* qb = static_cast<const float*>(a.q) + b * a.qsb + s * a.qss + h * a.qsh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ksb + s * a.kss + h * a.ksh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vsb + s * a.vss + h * a.vsh;
+  const BiasSrc bias(a, b, s, h);
+  const float* b1c = bias.b1 ? b1s : nullptr;
+  const float* b2c = bias.b2 ? b2s : nullptr;
+
+  stage_rows<D>(Qs, qb, a.qsn, q_start, a.Q);
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  }
+  const int n_tiles = cdiv(a.K, kB);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kB;
+    __syncthreads();  // the previous tile's readers are done with Ks/Vs/Ps
+    bias.stage(b1s, b2s, kB2Ld, q_start, kB, k0);
+    cp_async_commit();
+    stage_rows<D>(Ks, kb, a.ksn, k0, a.K);
+    stage_rows<D>(Vs, vb, a.vsn, k0, a.K);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float sc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[r][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qv[r] = Qs[(ty * 4 + r) * DP + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[r][j] = fmaf(qv[r], kv[j], sc[r][j]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int lc = tx + 16 * j;
+        const float x = k0 + lc < a.K
+                            ? add_bias(sc[r][j] * a.sm_scale, b1c, b2c, kB2Ld, ty * 4 + r, lc)
+                            : kNegInf;
+        sc[r][j] = x;
+        mt = fmaxf(mt, x);
+      }
+      mt = half_warp_max(mt);
+      const float m_new = fmaxf(m[r], mt);
+      const float alpha = expf(m[r] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[r][j] - m_new);
+        Ps[(ty * 4 + r) * PP + tx + 16 * j] = p;
+        psum += p;
+      }
+      psum = half_warp_sum(psum);
+      l[r] = l[r] * alpha + psum;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
+    }
+    __syncwarp();  // a row group's Ps rows are written by its own half-warp
+#pragma unroll 4
+    for (int kk = 0; kk < kB; ++kk) {
+      float pv[4], vv[NC];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pv[r] = Ps[(ty * 4 + r) * PP + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) vv[c] = Vs[kk * DP + tx + 16 * c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(pv[r], vv[c], acc[r][c]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = q_start + ty * 4 + r;
+    if (qi >= a.Q) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    float* orow = static_cast<float*>(a.o) + (((long long)bs * a.Q + qi) * a.H + h) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[r][c] / lc;
+    if (tx == 0) a.lse[((long long)bs * a.H + h) * a.Q + qi] = m[r] + logf(lc);
+  }
+}
+
+// ===========================================================================
+// kernel E': dQ and dbias1.  One block per (b, s, chunk); the chunk's units
+// are (h, query tile) pairs, h major.  With no bias1 every unit is a chunk.
+// ===========================================================================
+__device__ __forceinline__ void unit_range(const Args& a, int chunk, int units, int* u0, int* u1) {
+  const int per = cdiv(units, a.chunks);
+  *u0 = min(units, chunk * per);
+  *u1 = min(units, *u0 + per);
+}
+
+// the 4 warps' (or the block's) dbias1 rows added in order, to db1 or to
+// the chunk's partial row
+__device__ __forceinline__ void store_db1(const Args& a, const float* rows, int n_rows, int Kp,
+                                          long long bs, int chunk) {
+  float* dst = a.chunks > 1 ? a.part + (bs * a.chunks + chunk) * a.K : a.db1 + bs * a.K;
+  for (int col = threadIdx.x; col < a.K; col += blockDim.x) {
+    float v = rows[col];
+    for (int w = 1; w < n_rows; ++w) v += rows[w * Kp + col];
+    dst[col] = v;
+  }
+}
+
+template <int D>
+constexpr size_t dq_mma_tiles() {  // Q, dO + 2 x (K, V)
+  return sizeof(uint16_t) * 6 * kB * (D + 8);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dq_mma_kernel(Args a) {
+  constexpr int RS = D + 8, KT = D / 16, NT = kB / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kB][RS]
+  T* dOs = Qs + kB * RS;                   // [kB][RS]
+  T* Ks = dOs + kB * RS;                   // [2][kB][RS]
+  T* Vs = Ks + 2 * kB * RS;                // [2][kB][RS]
+  float* b1s = reinterpret_cast<float*>(Vs + 2 * kB * RS);  // [2][kB]
+  float* b2s = b1s + 2 * kB;                                // [2][kB][kB2Ld]
+  float* db1w = b2s + 2 * kB * kB2Ld;                       // [4 warps][Kp]
+  const uint16_t* Qh = reinterpret_cast<const uint16_t*>(Qs);
+  const uint16_t* dOh = reinterpret_cast<const uint16_t*>(dOs);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunk = blockIdx.x % a.chunks;
+  const int bs = blockIdx.x / a.chunks;
+  const int s = bs % a.S, b = bs / a.S;
+  const int nq = cdiv(a.Q, kB), n_tiles = cdiv(a.K, kB), Kp = n_tiles * kB;
+  const bool want_db1 = a.db1 != nullptr;
+  int u0, u1;
+  unit_range(a, chunk, a.H * nq, &u0, &u1);
+  if (want_db1)
+    for (int i = threadIdx.x; i < kMmaWarps * Kp; i += kMmaWarps * 32) db1w[i] = 0.f;
+
+  const int r0 = warp * 16 + (lane >> 2);  // this lane's rows: r0 and r0 + 8
+  const int cq = (lane & 3) * 2;           // and its column pair
+  for (int u = u0; u < u1; ++u) {
+    const int h = u / nq, q_start = (u % nq) * kB;
+    const T* qb = static_cast<const T*>(a.q) + b * a.qsb + s * a.qss + h * a.qsh;
+    const T* ob = static_cast<const T*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
+    const T* kb = static_cast<const T*>(a.k) + b * a.ksb + s * a.kss + h * a.ksh;
+    const T* vb = static_cast<const T*>(a.v) + b * a.vsb + s * a.vss + h * a.vsh;
+    const BiasSrc bias(a, b, s, h);
+    auto load_kv = [&](int buf, int k0) {
+      stage_async<T, D>(Ks + buf * kB * RS, kb, a.ksn, k0, kB, a.K);
+      stage_async<T, D>(Vs + buf * kB * RS, vb, a.vsn, k0, kB, a.K);
+      bias.stage(b1s + buf * kB, b2s + buf * kB * kB2Ld, kB2Ld, q_start, kB, k0);
+      cp_async_commit();
+    };
+    __syncthreads();  // the previous unit is done with every tile
+    stage_async<T, D>(Qs, qb, a.qsn, q_start, kB, a.Q);
+    stage_async<T, D>(dOs, ob, a.dsn, q_start, kB, a.Q);
+    cp_async_commit();
+    load_kv(0, 0);
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const long long rowbase = ((long long)bs * a.H + h) * a.Q;
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q_start + r0 + 8 * i;
+      lse_r[i] = row < a.Q ? a.lse_in[rowbase + row] : 0.f;
+      dl_r[i] = row < a.Q ? a.delta[rowbase + row] : 0.f;
+    }
+    float acc[DT][4];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int cur = t & 1;
+      const int k0 = t * kB;
+      if (t + 1 < n_tiles) {
+        load_kv(cur ^ 1, k0 + kB);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* Kc = Ks + cur * kB * RS;
+      const T* Vc = Vs + cur * kB * RS;
+      const float* b1c = bias.b1 ? b1s + cur * kB : nullptr;
+      const float* b2c = bias.b2 ? b2s + cur * kB * kB2Ld : nullptr;
+
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t qa[4], oa[4];
+        load_a(qa, Qh, RS, r0, kt * 16 + cq);
+        load_a(oa, dOh, RS, r0, kt * 16 + cq);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const T* kr = Kc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
+          const T* vr = Vc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
+          const uint32_t bk[2] = {lds32(kr), lds32(kr + 8)};
+          const uint32_t bv[2] = {lds32(vr), lds32(vr + 8)};
+          Mma<T>::run(sc[nt], qa, bk);
+          Mma<T>::run(dp[nt], oa, bv);
+        }
+      }
+      uint32_t dsf[NT / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int lr = r0 + 8 * i, lc = nt * 8 + cq + (e & 1);
+          float p = 0.f;
+          if (q_start + lr < a.Q && k0 + lc < a.K)
+            p = expf(add_bias(sc[nt][e] * a.sm_scale, b1c, b2c, kB2Ld, lr, lc) - lse_r[i]);
+          ds[e] = p * (dp[nt][e] - dl_r[i]);
+        }
+        if (want_db1) {
+          // column sums of this warp's 16 rows: a fixed shuffle tree
+          float c0 = ds[0] + ds[2], c1 = ds[1] + ds[3];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            c0 += __shfl_xor_sync(0xffffffffu, c0, off);
+            c1 += __shfl_xor_sync(0xffffffffu, c1, off);
+          }
+          if (lane < 4) {
+            float* w = db1w + warp * Kp + k0 + nt * 8 + cq;
+            w[0] += c0;
+            w[1] += c1;
+          }
+        }
+        dsf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(ds[0] * a.sm_scale, ds[1] * a.sm_scale);
+        dsf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(ds[2] * a.sm_scale, ds[3] * a.sm_scale);
+      }
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        const T* kr = Kc + (j * 16 + (lane & 15)) * RS;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          uint32_t bk[2];
+          ldmatrix_x2_trans(bk, kr + dt * 8);
+          Mma<T>::run(acc[dt], dsf[j], bk);
+        }
+      }
+      __syncthreads();  // every warp is done with buffer cur before it is refilled
+    }
+
+    T* dq = static_cast<T*>(a.dq);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q_start + r0 + 8 * i;
+      if (qi >= a.Q) continue;
+      T* row = dq + (((long long)bs * a.Q + qi) * a.H + h) * D;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<uint32_t*>(row + dt * 8 + cq) =
+            Mma<T>::pack(acc[dt][2 * i], acc[dt][2 * i + 1]);
+    }
+  }
+  if (want_db1) {
+    __syncthreads();
+    store_db1(a, db1w, kMmaWarps, Kp, bs, chunk);
+  }
+}
+
+template <int D>
+constexpr size_t dq_fma_tiles() {  // Q, dO, K, V tiles + dS, fp32
+  return sizeof(float) * (4 * kB * (D + 1) + kB * (kB + 1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFmaThreads) evo_bwd_dq_fma_kernel(Args a) {
+  constexpr int DP = D + 1, PP = kB + 1, NC = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;            // [kB][DP]
+  float* dOs = Qs + kB * DP;   // [kB][DP]
+  float* Ks = dOs + kB * DP;   // [kB][DP]
+  float* Vs = Ks + kB * DP;    // [kB][DP]
+  float* dSs = Vs + kB * DP;   // [kB][PP]
+  float* b1s = dSs + kB * PP;  // [kB]
+  float* b2s = b1s + kB;       // [kB][kB2Ld]
+  float* db1s = b2s + kB * kB2Ld;  // [Kp]
+  __shared__ float lse_s[kB], delta_s[kB];
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int chunk = blockIdx.x % a.chunks;
+  const int bs = blockIdx.x / a.chunks;
+  const int s = bs % a.S, b = bs / a.S;
+  const int nq = cdiv(a.Q, kB), n_tiles = cdiv(a.K, kB), Kp = n_tiles * kB;
+  const bool want_db1 = a.db1 != nullptr;
+  int u0, u1;
+  unit_range(a, chunk, a.H * nq, &u0, &u1);
+  if (want_db1)
+    for (int i = tid; i < Kp; i += kFmaThreads) db1s[i] = 0.f;
+
+  for (int u = u0; u < u1; ++u) {
+    const int h = u / nq, q_start = (u % nq) * kB;
+    const float* qb = static_cast<const float*>(a.q) + b * a.qsb + s * a.qss + h * a.qsh;
+    const float* ob = static_cast<const float*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
+    const float* kb = static_cast<const float*>(a.k) + b * a.ksb + s * a.kss + h * a.ksh;
+    const float* vb = static_cast<const float*>(a.v) + b * a.vsb + s * a.vss + h * a.vsh;
+    const BiasSrc bias(a, b, s, h);
+    const float* b1c = bias.b1 ? b1s : nullptr;
+    const float* b2c = bias.b2 ? b2s : nullptr;
+    const long long rowbase = ((long long)bs * a.H + h) * a.Q;
+    __syncthreads();  // the previous unit is done with Qs/dOs/lse_s
+    stage_rows<D>(Qs, qb, a.qsn, q_start, a.Q);
+    stage_rows<D>(dOs, ob, a.dsn, q_start, a.Q);
+    if (tid < kB) {
+      const int qi = q_start + tid;
+      lse_s[tid] = qi < a.Q ? a.lse_in[rowbase + qi] : 0.f;
+      delta_s[tid] = qi < a.Q ? a.delta[rowbase + qi] : 0.f;
+    }
+    float acc[4][NC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kB;
+      __syncthreads();  // the previous tile's readers are done with Ks/Vs/dSs
+      bias.stage(b1s, b2s, kB2Ld, q_start, kB, k0);
+      cp_async_commit();
+      stage_rows<D>(Ks, kb, a.ksn, k0, a.K);
+      stage_rows<D>(Vs, vb, a.vsn, k0, a.K);
+      cp_async_wait<0>();
+      __syncthreads();
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[r][j] = dp[r][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float qv[4], ov[4], kv[4], vv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          qv[r] = Qs[(ty * 4 + r) * DP + d];
+          ov[r] = dOs[(ty * 4 + r) * DP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          kv[j] = Ks[(tx + 16 * j) * DP + d];
+          vv[j] = Vs[(tx + 16 * j) * DP + d];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[r][j] = fmaf(qv[r], kv[j], sc[r][j]);
+            dp[r][j] = fmaf(ov[r], vv[j], dp[r][j]);
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int lr = ty * 4 + r, row = q_start + lr;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int lc = tx + 16 * j;
+          float p = 0.f;
+          if (row < a.Q && k0 + lc < a.K)
+            p = expf(add_bias(sc[r][j] * a.sm_scale, b1c, b2c, kB2Ld, lr, lc) - lse_s[lr]);
+          dSs[lr * PP + lc] = p * (dp[r][j] - delta_s[lr]);
+        }
+      }
+      __syncthreads();  // dbias1 reads every row of dS
+      if (want_db1 && tid < kB) {
+        float v = 0.f;
+        for (int r = 0; r < kB; ++r) v += dSs[r * PP + tid];
+        db1s[k0 + tid] += v;
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < kB; ++kk) {
+        float dsv[4], kv[NC];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsv[r] = dSs[(ty * 4 + r) * PP + kk];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) kv[c] = Ks[kk * DP + tx + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(dsv[r], kv[c], acc[r][c]);
+      }
+    }
+    float* dq = static_cast<float*>(a.dq);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int qi = q_start + ty * 4 + r;
+      if (qi >= a.Q) continue;
+      float* row = dq + (((long long)bs * a.Q + qi) * a.H + h) * D;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) row[tx + 16 * c] = acc[r][c] * a.sm_scale;
+    }
+  }
+  if (want_db1) {
+    __syncthreads();
+    store_db1(a, db1s, 1, Kp, bs, chunk);
+  }
+}
+
+// ===========================================================================
+// kernel E'': dK, dV and dbias2.  One block per (b, h, key tile, chunk of s).
+// With no bias2 every s is a chunk.
+// ===========================================================================
+// query rows per step: 32 at D = 128 keeps the fp32 dK/dV accumulators and
+// the S/dP tiles in registers
+template <int D>
+struct DkvTile {
+  static constexpr int BQ = D == 128 ? 32 : 64;
+};
+template <int D>
+constexpr size_t dkv_mma_tiles() {  // K, V + 2 x (Q, dO)
+  return sizeof(uint16_t) * (2 * kB + 4 * DkvTile<D>::BQ) * (D + 8);
+}
+template <int D>
+constexpr size_t dkv_fma_tiles() {  // K, V, Q, dO tiles + P^T, dS^T, fp32
+  return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * (kB + 1));
+}
+
+struct DkvBlock {
+  int b, h, k_start, chunk, s0, s1;
+  __device__ DkvBlock(const Args& a) {
+    const int nk = cdiv(a.K, kB);
+    chunk = blockIdx.x % a.chunks;
+    const int r = blockIdx.x / a.chunks;
+    k_start = (r % nk) * kB;
+    const int bh = r / nk;
+    h = bh % a.H;
+    b = bh / a.H;
+    const int per = cdiv(a.S, a.chunks);
+    s0 = min(a.S, chunk * per);
+    s1 = min(a.S, s0 + per);
+  }
+};
+
+// the block's dbias2 columns [k_start, k_start + 64), rows < Q, to db2 or
+// to the chunk's partial
+__device__ __forceinline__ void store_db2(const Args& a, const float* db2s, const DkvBlock& blk) {
+  const long long bh = (long long)blk.b * a.H + blk.h;
+  float* dst = a.chunks > 1 ? a.part + (bh * a.chunks + blk.chunk) * a.Q * a.K
+                            : a.db2 + bh * a.Q * a.K;
+  for (int i = threadIdx.x; i < a.Q * kB; i += blockDim.x) {
+    const int row = i / kB, lk = i % kB;
+    if (blk.k_start + lk < a.K)
+      dst[(long long)row * a.K + blk.k_start + lk] = db2s[row * kDbPad + lk];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a) {
+  constexpr int RS = D + 8, KT = D / 16, DT = D / 8;
+  constexpr int BQ = DkvTile<D>::BQ, NT = BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [kB][RS]
+  T* Vs = Ks + kB * RS;                    // [kB][RS]
+  T* Qs = Vs + kB * RS;                    // [2][BQ][RS]
+  T* dOs = Qs + 2 * BQ * RS;               // [2][BQ][RS]
+  float* b1s = reinterpret_cast<float*>(dOs + 2 * BQ * RS);  // [kB] of this s
+  float* b2s = b1s + kB;                                     // [2][BQ][kB2LdT]
+  float* db2s = b2s + 2 * BQ * kB2LdT;                       // [nq * BQ][kDbPad]
+  __shared__ float lse_s[2][64], dl_s[2][64];
+  const uint16_t* Kh = reinterpret_cast<const uint16_t*>(Ks);
+  const uint16_t* Vh = reinterpret_cast<const uint16_t*>(Vs);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const DkvBlock blk(a);
+  const int b = blk.b, h = blk.h, k_start = blk.k_start;
+  const int nq = cdiv(a.Q, BQ);
+  const bool want_db2 = a.db2 != nullptr;
+  if (want_db2)
+    for (int i = threadIdx.x; i < nq * BQ * kDbPad; i += kMmaWarps * 32) db2s[i] = 0.f;
+
+  const int r0 = warp * 16 + (lane >> 2);  // this lane's keys: r0 and r0 + 8
+  const int cq = (lane & 3) * 2;
+  for (int s = blk.s0; s < blk.s1; ++s) {
+    const long long bs = (long long)b * a.S + s;
+    const T* kb = static_cast<const T*>(a.k) + b * a.ksb + s * a.kss + h * a.ksh;
+    const T* vb = static_cast<const T*>(a.v) + b * a.vsb + s * a.vss + h * a.vsh;
+    const T* qb = static_cast<const T*>(a.q) + b * a.qsb + s * a.qss + h * a.qsh;
+    const T* ob = static_cast<const T*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
+    const long long rowbase = (bs * a.H + h) * a.Q;
+    const BiasSrc bias(a, b, s, h);
+    const float* b1c = bias.b1 ? b1s : nullptr;
+    auto load_q = [&](int buf, int q0) {
+      stage_async<T, D>(Qs + buf * BQ * RS, qb, a.qsn, q0, BQ, a.Q);
+      stage_async<T, D>(dOs + buf * BQ * RS, ob, a.dsn, q0, BQ, a.Q);
+      if (bias.b2)
+        stage_window(b2s + buf * BQ * kB2LdT, kB2LdT, bias.b2, a.K, q0, BQ, a.Q, k_start, a.K,
+                     bias.vec);
+      cp_async_commit();
+      if (threadIdx.x < BQ) {
+        const int qi = q0 + threadIdx.x;
+        lse_s[buf][threadIdx.x] = qi < a.Q ? a.lse_in[rowbase + qi] : 0.f;
+        dl_s[buf][threadIdx.x] = qi < a.Q ? a.delta[rowbase + qi] : 0.f;
+      }
+    };
+    __syncthreads();  // the previous s is done with every tile
+    stage_async<T, D>(Ks, kb, a.ksn, k_start, kB, a.K);
+    stage_async<T, D>(Vs, vb, a.vsn, k_start, kB, a.K);
+    if (bias.b1) stage_window(b1s, 0, bias.b1, 0, 0, 1, 1, k_start, a.K, bias.vec);
+    cp_async_commit();
+    load_q(0, 0);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float dk[DT][4], dv[DT][4];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+
+    for (int it = 0; it < nq; ++it) {
+      const int cur = it & 1;
+      const int q0 = it * BQ;
+      if (it + 1 < nq) {
+        load_q(cur ^ 1, q0 + BQ);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* Qc = Qs + cur * BQ * RS;
+      const T* dOc = dOs + cur * BQ * RS;
+      const float* b2c = bias.b2 ? b2s + cur * BQ * kB2LdT : nullptr;
+
+      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t ka[4], va[4];
+        load_a(ka, Kh, RS, r0, kt * 16 + cq);
+        load_a(va, Vh, RS, r0, kt * 16 + cq);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const T* qr = Qc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
+          const T* orr = dOc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
+          const uint32_t bq[2] = {lds32(qr), lds32(qr + 8)};
+          const uint32_t bo[2] = {lds32(orr), lds32(orr + 8)};
+          Mma<T>::run(sc[nt], ka, bq);
+          Mma<T>::run(dp[nt], va, bo);
+        }
+      }
+      uint32_t pf[NT / 2][4], dsf[NT / 2][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lk = r0 + 8 * (e >> 1);
+          const int key = k_start + lk;
+          const int lq = nt * 8 + cq + (e & 1);
+          const int row = q0 + lq;
+          p[e] = 0.f;
+          if (row < a.Q && key < a.K)
+            p[e] = expf(add_bias(sc[nt][e] * a.sm_scale, b1c, b2c, kB2LdT, lq, lk) -
+                        lse_s[cur][lq]);
+          ds[e] = p[e] * (dp[nt][e] - dl_s[cur][lq]);
+          if (want_db2) db2s[row * kDbPad + lk] += ds[e];
+        }
+        pf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(p[0], p[1]);
+        pf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(p[2], p[3]);
+        dsf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(ds[0] * a.sm_scale, ds[1] * a.sm_scale);
+        dsf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(ds[2] * a.sm_scale, ds[3] * a.sm_scale);
+      }
+      // dV += P^T dO and dK += dS^T Q
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        const T* orow = dOc + (j * 16 + (lane & 15)) * RS;
+        const T* qrow = Qc + (j * 16 + (lane & 15)) * RS;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          uint32_t bo[2], bq[2];
+          ldmatrix_x2_trans(bo, orow + dt * 8);
+          Mma<T>::run(dv[dt], pf[j], bo);
+          ldmatrix_x2_trans(bq, qrow + dt * 8);
+          Mma<T>::run(dk[dt], dsf[j], bq);
+        }
+      }
+      __syncthreads();  // every warp is done with buffer cur before it is refilled
+    }
+
+    T* dkp = static_cast<T*>(a.dk);
+    T* dvp = static_cast<T*>(a.dv);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = k_start + r0 + 8 * i;
+      if (key >= a.K) continue;
+      const long long off = ((bs * a.K + key) * a.H + h) * D;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        *reinterpret_cast<uint32_t*>(dkp + off + dt * 8 + cq) =
+            Mma<T>::pack(dk[dt][2 * i], dk[dt][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dvp + off + dt * 8 + cq) =
+            Mma<T>::pack(dv[dt][2 * i], dv[dt][2 * i + 1]);
+      }
+    }
+  }
+  if (want_db2) {
+    __syncthreads();
+    store_db2(a, db2s, blk);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFmaThreads) evo_bwd_dkv_fma_kernel(Args a) {
+  constexpr int DP = D + 1, PP = kB + 1, NC = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;            // [kB][DP]
+  float* Vs = Ks + kB * DP;    // [kB][DP]
+  float* Qs = Vs + kB * DP;    // [kB][DP]
+  float* dOs = Qs + kB * DP;   // [kB][DP]
+  float* Pt = dOs + kB * DP;   // [kB keys][PP]
+  float* dSt = Pt + kB * PP;   // [kB keys][PP]
+  float* b1s = dSt + kB * PP;  // [kB] of this s
+  float* b2s = b1s + kB;       // [kB][kB2LdT]
+  float* db2s = b2s + kB * kB2LdT;  // [nq * kB][kDbPad]
+  __shared__ float lse_s[kB], delta_s[kB];
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const DkvBlock blk(a);
+  const int b = blk.b, h = blk.h, k_start = blk.k_start;
+  const int nq = cdiv(a.Q, kB);
+  const bool want_db2 = a.db2 != nullptr;
+  if (want_db2)
+    for (int i = tid; i < nq * kB * kDbPad; i += kFmaThreads) db2s[i] = 0.f;
+
+  for (int s = blk.s0; s < blk.s1; ++s) {
+    const long long bs = (long long)b * a.S + s;
+    const float* kb = static_cast<const float*>(a.k) + b * a.ksb + s * a.kss + h * a.ksh;
+    const float* vb = static_cast<const float*>(a.v) + b * a.vsb + s * a.vss + h * a.vsh;
+    const float* qb = static_cast<const float*>(a.q) + b * a.qsb + s * a.qss + h * a.qsh;
+    const float* ob = static_cast<const float*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
+    const long long rowbase = (bs * a.H + h) * a.Q;
+    const BiasSrc bias(a, b, s, h);
+    const float* b1c = bias.b1 ? b1s : nullptr;
+    const float* b2c = bias.b2 ? b2s : nullptr;
+    __syncthreads();  // the previous s is done with Ks/Vs/b1s
+    if (bias.b1) stage_window(b1s, 0, bias.b1, 0, 0, 1, 1, k_start, a.K, bias.vec);
+    cp_async_commit();
+    stage_rows<D>(Ks, kb, a.ksn, k_start, a.K);
+    stage_rows<D>(Vs, vb, a.vsn, k_start, a.K);
+    float dk[4][NC], dv[4][NC];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.f;
+
+    for (int it = 0; it < nq; ++it) {
+      const int q0 = it * kB;
+      __syncthreads();  // the previous tile's readers are done with Qs/dOs/Pt/dSt/b2s
+      if (bias.b2)
+        stage_window(b2s, kB2LdT, bias.b2, a.K, q0, kB, a.Q, k_start, a.K, bias.vec);
+      cp_async_commit();
+      stage_rows<D>(Qs, qb, a.qsn, q0, a.Q);
+      stage_rows<D>(dOs, ob, a.dsn, q0, a.Q);
+      if (tid < kB) {
+        const int qi = q0 + tid;
+        lse_s[tid] = qi < a.Q ? a.lse_in[rowbase + qi] : 0.f;
+        delta_s[tid] = qi < a.Q ? a.delta[rowbase + qi] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // s^T and dp^T: keys ty*4 + r against queries tx + 16 j
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[r][j] = dp[r][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          kv[r] = Ks[(ty * 4 + r) * DP + d];
+          vv[r] = Vs[(ty * 4 + r) * DP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qv[j] = Qs[(tx + 16 * j) * DP + d];
+          ov[j] = dOs[(tx + 16 * j) * DP + d];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[r][j] = fmaf(qv[j], kv[r], sc[r][j]);
+            dp[r][j] = fmaf(ov[j], vv[r], dp[r][j]);
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int lk = ty * 4 + r, key = k_start + lk;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int lq = tx + 16 * j, row = q0 + lq;
+          float p = 0.f;
+          if (row < a.Q && key < a.K)
+            p = expf(add_bias(sc[r][j] * a.sm_scale, b1c, b2c, kB2LdT, lq, lk) - lse_s[lq]);
+          const float ds = p * (dp[r][j] - delta_s[lq]);
+          if (want_db2) db2s[row * kDbPad + lk] += ds;
+          Pt[lk * PP + lq] = p;
+          dSt[lk * PP + lq] = ds;
+        }
+      }
+      __syncwarp();  // a key group's P^T / dS^T rows are its own half-warp's
+#pragma unroll 4
+      for (int qq = 0; qq < kB; ++qq) {
+        float pv[4], dsv[4], ov[NC], qv[NC];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pv[r] = Pt[(ty * 4 + r) * PP + qq];
+          dsv[r] = dSt[(ty * 4 + r) * PP + qq];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          ov[c] = dOs[qq * DP + tx + 16 * c];
+          qv[c] = Qs[qq * DP + tx + 16 * c];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            dv[r][c] = fmaf(pv[r], ov[c], dv[r][c]);
+            dk[r][c] = fmaf(dsv[r], qv[c], dk[r][c]);
+          }
+      }
+    }
+    float* dkp = static_cast<float*>(a.dk);
+    float* dvp = static_cast<float*>(a.dv);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int key = k_start + ty * 4 + r;
+      if (key >= a.K) continue;
+      const long long off = ((bs * a.K + key) * a.H + h) * D;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        dkp[off + tx + 16 * c] = dk[r][c] * a.sm_scale;
+        dvp[off + tx + 16 * c] = dv[r][c];
+      }
+    }
+  }
+  if (want_db2) {
+    __syncthreads();
+    store_db2(a, db2s, blk);
+  }
+}
+
+// ===========================================================================
+// the second pass: out[r, j] = sum over c, in order, of part[r, c, j]
+// ===========================================================================
+__global__ void reduce_chunks_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                     long long rows, int chunks, long long len) {
+  const long long n = rows * len;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / len, j = i % len;
+    const float* p = part + r * chunks * len + j;
+    float v = p[0];
+    for (int c = 1; c < chunks; ++c) v += p[c * len];
+    out[i] = v;
+  }
+}
+
+cudaError_t reduce_chunks(const float* part, float* out, long long rows, int chunks,
+                          long long len, cudaStream_t st) {
+  const long long n = rows * len;
+  const long long blocks = (n + 255) / 256;
+  const int grid = blocks < 4096 ? (int)blocks : 4096;
+  reduce_chunks_kernel<<<grid, 256, 0, st>>>(part, out, rows, chunks, len);
+  return cudaGetLastError();
+}
+
+// ===========================================================================
+// launch
+// ===========================================================================
+template <typename Kernel>
+cudaError_t opt_in_max(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSmem - 2048);
+}
+
+enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// dynamic shared memory of each kernel; a shape that needs more than a
+// block has is refused with cudaErrorInvalidConfiguration
+template <int D>
+size_t smem_bytes(Pass pass, bool fp32, const Args& a) {
+  const int Kp = (a.K + kB - 1) / kB * kB;
+  const size_t nbuf = fp32 ? 1 : 2;  // bias tiles: single-buffered on the FMA pipes
+  if (pass == kFwd || pass == kDq) {
+    const size_t bias = sizeof(float) * nbuf * (kB + kB * kB2Ld);  // laid out always
+    if (pass == kFwd) return (fp32 ? fwd_fma_smem<D>() : fwd_mma_smem<D>()) + bias;
+    return (fp32 ? dq_fma_tiles<D>() + (a.db1 ? sizeof(float) * Kp : 0)
+                 : dq_mma_tiles<D>() + (a.db1 ? sizeof(float) * kMmaWarps * Kp : 0)) + bias;
+  }
+  const int bq = fp32 ? kB : DkvTile<D>::BQ;
+  const size_t bias = sizeof(float) * (kB + nbuf * bq * kB2LdT);
+  const size_t db2 = a.db2 ? sizeof(float) * ((a.Q + bq - 1) / bq) * bq * kDbPad : 0;
+  return (fp32 ? dkv_fma_tiles<D>() : dkv_mma_tiles<D>()) + bias + db2;
+}
+
+template <typename T, int D>
+cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
+  constexpr bool fp32 = std::is_same<T, float>::value;
+  const size_t smem = smem_bytes<D>(pass, fp32, a);
+  if (smem > (size_t)kMaxSmem - 2048) return cudaErrorInvalidConfiguration;
+  const int threads = fp32 ? kFmaThreads : kMmaWarps * 32;
+  const int nq = (a.Q + kB - 1) / kB, nk = (a.K + kB - 1) / kB;
+  if (pass == kFwd) {
+    const dim3 grid(a.B * a.S * a.H * nq);
+    if constexpr (fp32) {
+      static const cudaError_t attr = opt_in_max(evo_fwd_fma_kernel<D>);
+      if (attr != cudaSuccess) return attr;
+      evo_fwd_fma_kernel<D><<<grid, threads, smem, st>>>(a);
+    } else {
+      static const cudaError_t attr = opt_in_max(evo_fwd_mma_kernel<T, D>);
+      if (attr != cudaSuccess) return attr;
+      evo_fwd_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
+    }
+  } else if (pass == kDq) {
+    const dim3 grid(a.B * a.S * a.chunks);
+    if constexpr (fp32) {
+      static const cudaError_t attr = opt_in_max(evo_bwd_dq_fma_kernel<D>);
+      if (attr != cudaSuccess) return attr;
+      evo_bwd_dq_fma_kernel<D><<<grid, threads, smem, st>>>(a);
+    } else {
+      static const cudaError_t attr = opt_in_max(evo_bwd_dq_mma_kernel<T, D>);
+      if (attr != cudaSuccess) return attr;
+      evo_bwd_dq_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
+    }
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || a.db1 == nullptr || a.chunks == 1) return e;
+    return reduce_chunks(a.part, a.db1, (long long)a.B * a.S, a.chunks, a.K, st);
+  } else {
+    const dim3 grid(a.B * a.H * nk * a.chunks);
+    if constexpr (fp32) {
+      static const cudaError_t attr = opt_in_max(evo_bwd_dkv_fma_kernel<D>);
+      if (attr != cudaSuccess) return attr;
+      evo_bwd_dkv_fma_kernel<D><<<grid, threads, smem, st>>>(a);
+    } else {
+      static const cudaError_t attr = opt_in_max(evo_bwd_dkv_mma_kernel<T, D>);
+      if (attr != cudaSuccess) return attr;
+      evo_bwd_dkv_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
+    }
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || a.db2 == nullptr || a.chunks == 1) return e;
+    return reduce_chunks(a.part, a.db2, (long long)a.B * a.H, a.chunks, (long long)a.Q * a.K,
+                         st);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(Pass pass, int D, const Args& a, cudaStream_t st) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(pass, a, st);
+    case 32:
+      return launch<T, 32>(pass, a, st);
+    case 64:
+      return launch<T, 64>(pass, a, st);
+    case 128:
+      return launch<T, 128>(pass, a, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(Pass pass, int dtype, int D, const Args& a, void* stream) {
+  if (a.Q <= 0 || a.K <= 0 || a.H <= 0 || a.chunks <= 0) return (int)cudaErrorInvalidValue;
+  if (a.B == 0 || a.S == 0) return (int)cudaSuccess;
+  if (a.chunks > 1 && ((pass == kDq && a.db1) || (pass == kDkv && a.db2)) && a.part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return (int)dispatch_d<float>(pass, D, a, st);
+    case 1:
+      return (int)dispatch_d<__nv_bfloat16>(pass, D, a, st);
+    case 2:
+      return (int)dispatch_d<__half>(pass, D, a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16 (q, k, v, dO, o and dq/dk/dv).  q and
+// dO [B, S, Q, H, D], k and v [B, S, K, H, D], read through the given
+// element strides (batch, row, residue, head; the head dim contiguous, and
+// for bf16/fp16 every row 16-byte aligned).  bias1 [B, S, K] and bias2
+// [B, H, Q, K] fp32 contiguous, or null.  lse and delta [B, S, H, Q] fp32
+// contiguous.  o, dq [B, S, Q, H, D] and dk, dv [B, S, K, H, D] contiguous,
+// written whole.  db1 [B, S, K] / db2 [B, H, Q, K] fp32 or null (no bias
+// gradient); with chunks > 1, part holds the chunks' fp32 partials
+// ([B*S, chunks, K] for E', [B*H, chunks, Q*K] for E'').  D is 16, 32, 64
+// or 128.  Each returns cudaGetLastError() after its launches, or
+// cudaErrorInvalidConfiguration (9), launching nothing, when the shape needs
+// more shared memory than a block has (the bias-gradient accumulators grow
+// with K for E' and with Q for E'').
+#define DSTPU_EVO_STRIDES                                                                    \
+  long long qsb, long long qss, long long qsn, long long qsh, long long ksb, long long kss,  \
+      long long ksn, long long ksh, long long vsb, long long vss, long long vsn, long long vsh
+
+extern "C" int dstpu_evoformer_attn_fwd(const void* q, const void* k, const void* v,
+                                        const void* b1, const void* b2, void* o, void* lse,
+                                        int dtype, int B, int S, int Q, int K, int H, int D,
+                                        float sm_scale, DSTPU_EVO_STRIDES, void* stream) {
+  const Args a{q, k, v, nullptr, nullptr, nullptr, static_cast<const float*>(b1),
+               static_cast<const float*>(b2), o, nullptr, nullptr, nullptr,
+               static_cast<float*>(lse), nullptr, nullptr, nullptr, B, S, Q, K, H, 1, sm_scale,
+               qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, 0, 0, 0, 0};
+  return dispatch(kFwd, dtype, D, a, stream);
+}
+
+extern "C" int dstpu_evoformer_attn_bwd_dq(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, const void* b1, const void* b2,
+                                           void* dq, void* db1, void* part, int dtype, int B,
+                                           int S, int Q, int K, int H, int D, float sm_scale,
+                                           int chunks, DSTPU_EVO_STRIDES, long long dsb,
+                                           long long dss, long long dsn, long long dsh,
+                                           void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const float*>(b1), static_cast<const float*>(b2), nullptr, dq,
+               nullptr, nullptr, nullptr, static_cast<float*>(db1), nullptr,
+               static_cast<float*>(part), B, S, Q, K, H, chunks, sm_scale, qsb, qss, qsn, qsh,
+               ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh};
+  return dispatch(kDq, dtype, D, a, stream);
+}
+
+extern "C" int dstpu_evoformer_attn_bwd_dkv(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse,
+                                            const void* delta, const void* b1, const void* b2,
+                                            void* dk, void* dv, void* db2, void* part,
+                                            int dtype, int B, int S, int Q, int K, int H, int D,
+                                            float sm_scale, int chunks, DSTPU_EVO_STRIDES,
+                                            long long dsb, long long dss, long long dsn,
+                                            long long dsh, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const float*>(b1), static_cast<const float*>(b2), nullptr, nullptr,
+               dk, dv, nullptr, nullptr, static_cast<float*>(db2), static_cast<float*>(part),
+               B, S, Q, K, H, chunks, sm_scale, qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb,
+               vss, vsn, vsh, dsb, dss, dsn, dsh};
+  return dispatch(kDkv, dtype, D, a, stream);
+}

@@ -1,0 +1,403 @@
+"""Evoformer attention (DS4Science ``DS4Sci_EvoformerAttention``): the CUDA
+kernels ``csrc/evoformer_attn.cu`` — E (forward), E' (dQ and dbias1) and
+E'' (dK, dV and dbias2) — their plain PyTorch versions, the autograd
+function over them, and the dispatcher users call.
+
+Counterpart of both ``deepspeed_tpu/ops/evoformer_attn.py`` (the XLA
+formulation and the dispatch rule) and ``deepspeed_tpu/ops/pallas/
+evoformer_attn.py`` (the TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel``,
+``_bwd_dkv_kernel`` and their custom VJP ``_evo_core``).  Layout is the
+JAX package's: q/k/v ``[B, S, N, H, D]`` (batch, MSA rows, residues,
+heads, head dim); attention runs over N for each (b, s, h), with up to two
+additive biases, ``bias1 [B, S, 1, 1, K]`` (the row mask) and ``bias2
+[B, 1, H, Q, K]`` (the pair bias).  The kernels read q/k/v through their
+strides, so no transpose is made.
+
+:func:`evoformer_attention` follows the JAX dispatch rule word for word:
+``impl="auto"`` takes the kernels only for 5-D operands with the exact
+bias layouts and D in {16, 32, 64, 128}; every other call takes
+:func:`evoformer_attention_xla`, as JAX takes its XLA path — that branch is
+the reference's design, not a fallback, and
+``evoformer_attention.plain_calls`` counts it.  The kernel branch is
+:class:`_EvoformerAttention`; each of its passes (:func:`evoformer_attn_fwd`,
+:func:`evoformer_attn_bwd_dq`, :func:`evoformer_attn_bwd_dkv`) launches its
+kernel for CUDA tensors and runs its plain version for CPU tensors, and
+counts its launches in ``launches``.
+
+Gradients come back as JAX's autodiff returns them: the kernel branch casts
+the biases to fp32 ``[B, S, K]`` / ``[B, H, Q, K]`` outside the autograd
+function, so autograd reshapes dbias1 to ``[B, S, 1, 1, K]`` and dbias2 to
+``[B, 1, H, Q, K]`` in each bias's dtype; a ``None`` slot has no gradient.
+The bias gradients are sums taken in a fixed order (no float atomics), so
+the card's gradients repeat bit for bit from call to call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import op_builder
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+#: the kernels' query and key tile
+TILE = 64
+#: the kernels' answer to a shape whose bias-gradient accumulator does not
+#: fit a block's shared memory (cudaErrorInvalidConfiguration)
+_TOO_MUCH_SMEM = 9
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_STRIDES = [_L] * 12  # q, k, v: (batch, row, residue, head)
+_SIG = {
+    "dstpu_evoformer_attn_fwd": [_P] * 7 + [_I] * 7 + [_F] + _STRIDES + [_P],
+    "dstpu_evoformer_attn_bwd_dq": [_P] * 11 + [_I] * 7 + [_F, _I] + _STRIDES + [_L] * 4 + [_P],
+    "dstpu_evoformer_attn_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I] + _STRIDES + [_L] * 4
+    + [_P],
+}
+
+
+# ---------------------------------------------------------------------------
+# the XLA formulation and the dispatcher (deepspeed_tpu/ops/evoformer_attn.py)
+# ---------------------------------------------------------------------------
+def evoformer_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            biases: Sequence[Optional[torch.Tensor]] = ()) -> torch.Tensor:
+    """The unfused formulation (materializes the ``[..., H, Q, K]`` scores):
+    scores in fp32 plus every bias broadcast, softmax, probabilities
+    rounded to q's dtype before PV (``evoformer_attn.py:26-39``)."""
+    if len(biases) > 2:
+        raise ValueError("evoformer attention takes at most two biases")
+    d = q.shape[-1]
+    scores = torch.einsum("...qhd,...khd->...hqk", q, k).float()
+    scores = scores / math.sqrt(d)
+    for b in biases:
+        if b is not None:
+            scores = scores + b.float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("...hqk,...khd->...qhd", probs, v)
+
+
+def evoformer_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        biases: Sequence[Optional[torch.Tensor]] = (),
+                        impl: str = "auto") -> torch.Tensor:
+    """DS4Sci_EvoformerAttention semantics.  q/k/v ``[B, S, N, H, D]``;
+    ``biases``: up to two (``bias1 [B, S, 1, 1, K]``, ``bias2 [B, 1, H, Q,
+    K]``).  Returns ``[B, S, N, H, D]``.
+
+    ``impl`` keeps the JAX package's names: ``"pallas"`` = kernels E, E',
+    E'' under autograd (their plain passes on the CPU); ``"xla"`` = the
+    unfused formulation; ``"auto"`` takes the kernels when the operands are
+    5-D with the exact bias layouts per position and D in {16, 32, 64, 128},
+    else the formulation."""
+    if len(biases) > 2:
+        raise ValueError("evoformer attention takes at most two biases")
+    use_kernel = impl == "pallas"
+    if impl == "auto" and q.ndim == 5:
+        B, S, Q, H, D = q.shape
+        K = k.shape[2]
+        # per-POSITION shapes: biases[0] is the mask bias and biases[1] the
+        # pair bias; a lone pair-shaped bias in slot 0 broadcasts through
+        # the formulation
+        shapes_ok = (
+            (len(biases) < 1 or biases[0] is None
+             or tuple(biases[0].shape) == (B, S, 1, 1, K))
+            and (len(biases) < 2 or biases[1] is None
+                 or tuple(biases[1].shape) == (B, 1, H, Q, K)))
+        use_kernel = shapes_ok and D in HEAD_DIMS
+    if use_kernel:
+        return evoformer_attention_kernel(q, k, v, biases)
+    evoformer_attention.plain_calls += 1
+    return evoformer_attention_xla(q, k, v, biases)
+
+
+evoformer_attention.plain_calls = 0
+
+# torch-API-compatible alias
+DS4Sci_EvoformerAttention = evoformer_attention
+
+
+def evoformer_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               biases: Sequence[Optional[torch.Tensor]] = ()) -> torch.Tensor:
+    """The fused path (``evoformer_attention_pallas``): the biases checked
+    against their layouts and cast to fp32 ``[B, S, K]`` / ``[B, H, Q, K]``,
+    then :class:`_EvoformerAttention`."""
+    if len(biases) > 2:
+        raise ValueError("evoformer attention takes at most two biases")
+    B, S, Q, H, D = q.shape
+    K = k.shape[2]
+    b1 = biases[0] if len(biases) > 0 else None
+    b2 = biases[1] if len(biases) > 1 else None
+    if b1 is not None:
+        if tuple(b1.shape) != (B, S, 1, 1, K):
+            raise ValueError(f"bias1 must be [B,S,1,1,K]; got {tuple(b1.shape)}")
+        b1 = b1.reshape(B, S, K).float().contiguous()
+    if b2 is not None:
+        if tuple(b2.shape) != (B, 1, H, Q, K):
+            raise ValueError(f"bias2 must be [B,1,H,Q,K]; got {tuple(b2.shape)}")
+        b2 = b2.reshape(B, H, Q, K).float().contiguous()
+    return _EvoformerAttention.apply(q, k, v, b1, b2)
+
+
+class _EvoformerAttention(torch.autograd.Function):
+    """Kernel E forward; delta, then kernels E' and E'' backward (the JAX
+    custom VJP ``_evo_core``).  Saves q, k, v, the fp32 biases, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, b1, b2):
+        o, lse = evoformer_attn_fwd(q, k, v, b1, b2)
+        ctx.save_for_backward(q, k, v, b1, b2, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, b1, b2, o, lse = ctx.saved_tensors
+        return evoformer_attn_bwd(q, k, v, o, lse, do, b1, b2)
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the passes
+# ---------------------------------------------------------------------------
+def _scores(q, k, b1, b2):
+    """fp32 scores ``[B, S, H, Q, K]`` with the biases added in the
+    kernels' order."""
+    s = torch.einsum("bsqhd,bskhd->bshqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    if b1 is not None:
+        s = s + b1.float()[:, :, None, None, :]
+    if b2 is not None:
+        s = s + b2.float()[:, None]
+    return s
+
+
+def evoformer_attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             b1: Optional[torch.Tensor] = None,
+                             b2: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel E, fp32 inside as the TPU kernel:
+    (o ``[B, S, Q, H, D]`` in q's dtype, lse ``[B, S, H, Q]`` fp32).
+    ``b1`` ``[B, S, K]``, ``b2`` ``[B, H, Q, K]`` or None.  The output is
+    normalized by the row's sum, as the kernel's is: ``exp(s - lse)`` would
+    not be for a row masked by -1e9, whose fp32 lse cannot hold log K."""
+    s = _scores(q, k, b1, b2)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bshqk,bskhd->bsqhd", p, v.float())
+    return o.to(q.dtype), lse
+
+
+def evoformer_attn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                             b1: Optional[torch.Tensor] = None,
+                             b2: Optional[torch.Tensor] = None):
+    """The plain version of kernels E' and E'': P recomputed from ``lse``,
+    dS = P (dO V^T - delta), dq = scale dS K, dk = scale dS^T Q, dv = P^T dO,
+    dbias1 = dS summed over (h, q) ``[B, S, K]`` and dbias2 = dS summed over
+    s ``[B, H, Q, K]``, all in fp32.  Returns (dq, dk, dv, db1, db2), the
+    first three in q's, k's and v's dtypes, a bias gradient None where its
+    bias is."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, b1, b2) - lse.float()[..., None])
+    dp = torch.einsum("bsqhd,bskhd->bshqk", do.float(), v.float())
+    ds = p * (dp - delta.float()[..., None])
+    dq = torch.einsum("bshqk,bskhd->bsqhd", ds, k.float()) * scale
+    dk = torch.einsum("bshqk,bsqhd->bskhd", ds, q.float()) * scale
+    dv = torch.einsum("bshqk,bsqhd->bskhd", p, do.float())
+    db1 = ds.sum((2, 3)) if b1 is not None else None
+    db2 = ds.sum(1) if b2 is not None else None
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), db1, db2
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(o * dO) in fp32 as ``[B, S, H, Q]`` (``evoformer_attn.py:261``)."""
+    return (o.float() * do.float()).sum(-1).transpose(2, 3).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+def _rows_ok(t: torch.Tensor) -> bool:
+    if t.stride(4) != 1:
+        return False
+    if t.dtype == torch.float32:
+        return True
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:4])
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _dims(q, k):
+    if q.ndim != 5 or k.ndim != 5:
+        raise ValueError(f"evoformer kernels take [B, S, N, H, D]; got {tuple(q.shape)}")
+    B, S, Q, H, D = q.shape
+    K = k.shape[2]
+    if k.shape != (B, S, K, H, D):
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    return B, S, Q, K, H, D
+
+
+def _checks(q, k, v, b1, b2, extra=()):
+    """Device, dtype, shape and layout checks of a kernel launch; returns the
+    dims and q/k/v/extra with rows the kernels can read."""
+    B, S, Q, K, H, D = _dims(q, k)
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} does not match k {tuple(k.shape)}")
+    tensors = (q, k, v, *extra)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("evoformer kernels: every tensor on one CUDA device")
+    if any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"evoformer kernels: q/k/v/dO dtypes differ: "
+                        f"{[t.dtype for t in tensors]}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"evoformer kernels: head_dim {D} not in {HEAD_DIMS}")
+    for name, t, shape in (("bias1", b1, (B, S, K)), ("bias2", b2, (B, H, Q, K))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32
+                              or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"evoformer kernels: {name} must be contiguous fp32 {shape} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)}")
+    rows = tuple(t if _rows_ok(t) else t.contiguous() for t in tensors)
+    return (B, S, Q, K, H, D), rows
+
+
+def _strides(*ts):
+    return [s for t in ts for s in t.stride()[:4]]
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def evoformer_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       b1: Optional[torch.Tensor] = None, b2: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E: (o ``[B, S, Q, H, D]`` in q's dtype, lse ``[B, S, H, Q]``
+    fp32).  ``b1`` fp32 ``[B, S, K]``, ``b2`` fp32 ``[B, H, Q, K]`` or None."""
+    if q.device.type == "cpu":
+        return evoformer_attn_fwd_plain(q, k, v, b1, b2)
+    (B, S, Q, K, H, D), (q, k, v) = _checks(q, k, v, b1, b2)
+    o = torch.empty((B, S, Q, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, S, H, Q), dtype=torch.float32, device=q.device)
+    lib = op_builder.load("evoformer_attn", _SIG)
+    with torch.cuda.device(q.device):
+        err = lib.dstpu_evoformer_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(b1), _ptr(b2), o.data_ptr(),
+            lse.data_ptr(), op_builder.dtype_code(q.dtype), B, S, Q, K, H, D,
+            1.0 / math.sqrt(D), *_strides(q, k, v),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _check(err, "evoformer_attn_fwd", Q, K, D, q.dtype)
+    evoformer_attn_fwd.launches += 1
+    return o, lse
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(err: int, what: str, Q: int, K: int, D: int, dtype) -> None:
+    if err == _TOO_MUCH_SMEM:
+        raise NotImplementedError(
+            f"{what}: Q={Q}, K={K}, D={D} {dtype} needs more shared memory for the kernel's "
+            f"tiles and bias-gradient accumulator than a block has on this card")
+    op_builder.check(err, what)
+
+
+def _bwd_inputs(q, k, v, do, lse, delta, b1, b2):
+    dims, (q, k, v, do) = _checks(q, k, v, b1, b2, (do,))
+    B, S, Q, K, H, D = dims
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, S, H, Q) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 [B, S, H, Q], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    return dims, (q, k, v, do)
+
+
+def evoformer_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                          b1: Optional[torch.Tensor] = None, b2: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel E': (dq in q's dtype, dbias1 fp32 ``[B, S, K]`` or None when
+    ``b1`` is None), from the forward's ``lse`` and ``delta`` = rowsum(o *
+    dO), both fp32 ``[B, S, H, Q]``."""
+    if q.device.type == "cpu":
+        dq, _, _, db1, _ = evoformer_attn_bwd_plain(q, k, v, do, lse, delta, b1, b2)
+        return dq, db1
+    (B, S, Q, K, H, D), (q, k, v, do) = _bwd_inputs(q, k, v, do, lse, delta, b1, b2)
+    want = b1 is not None
+    units = H * _cdiv(Q, TILE)
+    # one unit per block without bias1; with it, (h, q-tile) chunks sized so
+    # that about two blocks per SM run, their partials added in order
+    chunks = units if not want else min(units, max(1, _cdiv(2 * _sm_count(q.device), B * S)))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    db1 = torch.empty((B, S, K), dtype=torch.float32, device=q.device) if want else None
+    part = (torch.empty((B * S, chunks, K), dtype=torch.float32, device=q.device)
+            if want and chunks > 1 else None)
+    lib = op_builder.load("evoformer_attn", _SIG)
+    with torch.cuda.device(q.device):
+        err = lib.dstpu_evoformer_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(b1), _ptr(b2), dq.data_ptr(), _ptr(db1), _ptr(part),
+            op_builder.dtype_code(q.dtype), B, S, Q, K, H, D, 1.0 / math.sqrt(D), chunks,
+            *_strides(q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
+    _check(err, "evoformer_attn_bwd_dq", Q, K, D, q.dtype)
+    evoformer_attn_bwd_dq.launches += 1
+    return dq, db1
+
+
+def evoformer_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                           b1: Optional[torch.Tensor] = None, b2: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel E'': (dk, dv in k's dtype, dbias2 fp32 ``[B, H, Q, K]`` or
+    None when ``b2`` is None)."""
+    if q.device.type == "cpu":
+        _, dk, dv, _, db2 = evoformer_attn_bwd_plain(q, k, v, do, lse, delta, b1, b2)
+        return dk, dv, db2
+    (B, S, Q, K, H, D), (q, k, v, do) = _bwd_inputs(q, k, v, do, lse, delta, b1, b2)
+    want = b2 is not None
+    # one s per block without bias2; with it (one block per SM: the dbias2
+    # accumulator takes ~100 KB of shared memory), s chunks sized so that the
+    # grid fills about four waves (B * H * key tiles alone is 48 blocks at
+    # AlphaFold 2's MSA row attention, 528 with 11 chunks on 132 SMs), their
+    # partials added in order
+    blocks = B * H * _cdiv(K, TILE)
+    chunks = S if not want else min(S, max(1, _cdiv(4 * _sm_count(q.device), blocks)))
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    db2 = torch.empty((B, H, Q, K), dtype=torch.float32, device=q.device) if want else None
+    part = (torch.empty((B * H, chunks, Q * K), dtype=torch.float32, device=q.device)
+            if want and chunks > 1 else None)
+    lib = op_builder.load("evoformer_attn", _SIG)
+    with torch.cuda.device(q.device):
+        err = lib.dstpu_evoformer_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(b1), _ptr(b2), dk.data_ptr(), dv.data_ptr(), _ptr(db2),
+            _ptr(part), op_builder.dtype_code(q.dtype), B, S, Q, K, H, D, 1.0 / math.sqrt(D),
+            chunks, *_strides(q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
+    _check(err, "evoformer_attn_bwd_dkv", Q, K, D, q.dtype)
+    evoformer_attn_bwd_dkv.launches += 1
+    return dk, dv, db2
+
+
+evoformer_attn_fwd.launches = 0
+evoformer_attn_bwd_dq.launches = 0
+evoformer_attn_bwd_dkv.launches = 0
+
+
+def evoformer_attn_bwd(q, k, v, o, lse, do, b1=None, b2=None):
+    """(dq, dk, dv, dbias1, dbias2) of the attention whose forward gave
+    (o, lse): delta as a PyTorch reduction, then kernels E' and E'' (their
+    plain version on the CPU)."""
+    delta = _delta(o, do)
+    if q.device.type == "cpu":
+        return evoformer_attn_bwd_plain(q, k, v, do, lse, delta, b1, b2)
+    dq, db1 = evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1, b2)
+    dk, dv, db2 = evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1, b2)
+    return dq, dk, dv, db1, db2

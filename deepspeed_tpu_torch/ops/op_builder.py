@@ -31,6 +31,8 @@ SOURCES = {
     "wq_matmul": CSRC / "wq_matmul.cu",
     "quantization": CSRC / "quantization.cu",
     "grouped_matmul": CSRC / "grouped_matmul.cu",
+    "sparse_attention": CSRC / "sparse_attention.cu",
+    "evoformer_attn": CSRC / "evoformer_attn.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

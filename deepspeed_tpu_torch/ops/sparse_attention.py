@@ -1,0 +1,263 @@
+"""Block-sparse attention: the CUDA kernel ``csrc/sparse_attention.cu``
+(kernel S), its plain PyTorch version, and the ``SparsityConfig`` family
+that builds the block layouts.
+
+Replaces the TPU kernel ``deepspeed_tpu/ops/pallas/sparse_attention.py``
+``_sparse_attn_kernel`` (via ``sparse_attention``).  Layout at the public
+function is the JAX package's: q, k, v ``[B, S, H, D]`` -> ``[B, S, H, D]``.
+A config's ``make_layout(S)`` gives ``[H, S / block, S / block]`` (1 = the
+block pair is computed); a 1-head layout is broadcast over the heads.
+
+The layout builders are numpy copies of the JAX package's, draw for draw
+(BigBird's random blocks come from ``np.random.RandomState(seed)`` in the
+same order), so every layout is bit-equal to JAX's.
+
+:func:`sparse_attention` launches kernel S for CUDA tensors and runs
+:func:`sparse_attention_plain` for CPU tensors (or when the caller asks for
+``impl="xla"``, as in JAX); a CUDA tensor the kernel cannot take raises.
+Each launch adds one to ``sparse_attention.launches``.  The JAX package has
+no VJP for the kernel, and neither has the port: a CUDA call whose inputs
+require a gradient raises ``NotImplementedError``.
+
+Kernel S walks, for each query tile, only the on-blocks of its layout row:
+the wrapper turns the layout into compact per-head lists (CSR: row
+pointers and block columns, the columns at or below the diagonal when
+causal), built once per (layout, causal, device) and kept on the device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import op_builder
+
+HEAD_DIMS = (16, 32, 64, 128)
+#: rows and keys of the kernel's tile; a layout block is cut into tiles
+KERNEL_TILE = 64
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIG = {"dstpu_sparse_attention": [
+    _P, _P, _P, _P, _P, _P,              # q k v o row_ptr cols
+    _I, _I, _I, _I, _I, _I, _I, _I,      # dtype B S H D layout_heads block causal
+    ctypes.c_float,                      # sm_scale
+    _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v strides (b, s, h)
+    _P]}                                 # stream
+
+
+# --------------------------------------------------------------- layouts
+@dataclasses.dataclass
+class SparsityConfig:
+    """Base layout builder (reference sparse_attention/sparsity_config.py)."""
+
+    num_heads: int = 1
+    block: int = 128
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def _nb(self, seq_len: int) -> int:
+        if seq_len % self.block:
+            raise ValueError(f"seq_len {seq_len} not divisible by block "
+                             f"{self.block}")
+        return seq_len // self.block
+
+
+@dataclasses.dataclass
+class DenseSparsityConfig(SparsityConfig):
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        nb = self._nb(seq_len)
+        return np.ones((self.num_heads, nb, nb), bool)
+
+
+@dataclasses.dataclass
+class FixedSparsityConfig(SparsityConfig):
+    """Local band + periodic global columns: ``num_local_blocks`` band, the
+    last ``num_global_blocks`` of every earlier window seen by all rows."""
+
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        nb = self._nb(seq_len)
+        lay = np.zeros((self.num_heads, nb, nb), bool)
+        for qi in range(nb):
+            lo = (qi // self.num_local_blocks) * self.num_local_blocks
+            lay[:, qi, lo:min(lo + self.num_local_blocks, nb)] = True
+            for w in range(0, qi + 1, self.num_local_blocks):
+                g0 = max(w + self.num_local_blocks - self.num_global_blocks, 0)
+                lay[:, qi, g0:min(w + self.num_local_blocks, nb)] = True
+        return lay
+
+
+@dataclasses.dataclass
+class BSLongformerSparsityConfig(SparsityConfig):
+    """Sliding window + designated global blocks."""
+
+    num_sliding_window_blocks: int = 3
+    global_block_indices: tuple = (0,)
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        nb = self._nb(seq_len)
+        lay = np.zeros((self.num_heads, nb, nb), bool)
+        half = self.num_sliding_window_blocks // 2
+        for qi in range(nb):
+            lay[:, qi, max(0, qi - half):min(nb, qi + half + 1)] = True
+        for g in self.global_block_indices:
+            if g < nb:
+                lay[:, :, g] = True  # everyone attends to global
+                lay[:, g, :] = True  # global attends to everyone
+        return lay
+
+
+@dataclasses.dataclass
+class BigBirdSparsityConfig(SparsityConfig):
+    """Random + sliding window + global.  Random blocks are drawn per head
+    from ``np.random.RandomState(seed)`` (layouts must agree across
+    data-parallel workers, and with the JAX package's)."""
+
+    num_random_blocks: int = 1
+    num_sliding_window_blocks: int = 3
+    num_global_blocks: int = 1
+    seed: int = 0
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        nb = self._nb(seq_len)
+        lay = np.zeros((self.num_heads, nb, nb), bool)
+        half = self.num_sliding_window_blocks // 2
+        rng = np.random.RandomState(self.seed)
+        for qi in range(nb):
+            lay[:, qi, max(0, qi - half):min(nb, qi + half + 1)] = True
+        g = min(self.num_global_blocks, nb)
+        lay[:, :, :g] = True
+        lay[:, :g, :] = True
+        for h in range(self.num_heads):
+            for qi in range(nb):
+                for r in rng.choice(nb, size=min(self.num_random_blocks, nb),
+                                    replace=False):
+                    lay[h, qi, r] = True
+        return lay
+
+
+def _layout(config: SparsityConfig, S: int, H: int) -> np.ndarray:
+    """The config's int32 layout ``[1 or H, NB, NB]``; raises when its heads
+    are neither 1 nor H (as the JAX function does)."""
+    layout = np.asarray(config.make_layout(S), np.int32)
+    if layout.shape[0] not in (1, H):
+        raise ValueError(f"layout heads {layout.shape[0]} != {H}")
+    return layout
+
+
+# --------------------------------------------------------------- plain
+def sparse_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           config: SparsityConfig, causal: bool = True) -> torch.Tensor:
+    """The plain version, the JAX function's ``impl='xla'`` branch
+    (``sparse_attention.py:188-200``): dense scores in fp32 under the
+    layout expanded to a ``[H, S, S]`` mask; rows with no visible key give
+    0.  Differentiable by autograd."""
+    B, S, H, D = q.shape
+    layout = torch.as_tensor(_layout(config, S, H), device=q.device)
+    layout = layout.expand(H, *layout.shape[1:])
+    blk = torch.ones((config.block, config.block), dtype=torch.int32, device=q.device)
+    mask = torch.kron(layout, blk) > 0  # [H, S, S]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / math.sqrt(D))
+    s = torch.where(mask[None], s, torch.full_like(s, float("-inf")))
+    if causal:
+        cm = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(cm[None, None], s, torch.full_like(s, float("-inf")))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+# --------------------------------------------------------------- kernel S
+_LISTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def block_lists(layout: np.ndarray, causal: bool, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per layout head and block row, the ascending block columns to visit
+    (only those at or below the diagonal when causal) as CSR on ``device``:
+    ``row_ptr`` int32 ``[heads * NB + 1]`` and ``cols`` int32.  Built once
+    per (layout, causal, device) and cached."""
+    lay = np.ascontiguousarray(layout, dtype=np.int32)
+    key = (hashlib.sha256(lay.tobytes()).hexdigest(), lay.shape, bool(causal), str(device))
+    hit = _LISTS.get(key)
+    if hit is not None:
+        return hit
+    on = lay > 0
+    if causal:
+        on = on & np.tril(np.ones(on.shape[1:], bool))[None]
+    counts = on.reshape(-1, on.shape[2]).sum(axis=1)
+    row_ptr = np.zeros(counts.size + 1, np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    cols = np.nonzero(on.reshape(-1, on.shape[2]))[1].astype(np.int32)
+    if cols.size == 0:
+        cols = np.zeros(1, np.int32)  # a valid pointer; no row reads it
+    out = (torch.as_tensor(row_ptr, device=device), torch.as_tensor(cols, device=device))
+    _LISTS[key] = out
+    return out
+
+
+def _rows_ok(t: torch.Tensor) -> bool:
+    if t.stride(3) != 1:
+        return False
+    if t.dtype == torch.float32:
+        return True
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     config: SparsityConfig, causal: bool = True,
+                     impl: str = "pallas") -> torch.Tensor:
+    """q/k/v ``[B, S, H, D]`` -> ``[B, S, H, D]``, block-sparse per
+    ``config``.  As in JAX, ``impl="xla"`` runs the plain version (the
+    numeric oracle); any other value (JAX's default name ``"pallas"``)
+    leaves the choice to the device: kernel S on CUDA, the plain version on
+    the CPU."""
+    B, S, H, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"sparse_attention: q/k/v shapes {tuple(q.shape)}/{tuple(k.shape)}/"
+                         f"{tuple(v.shape)} differ")
+    layout = _layout(config, S, H)  # raises on a seq_len off the block
+    if impl == "xla" or q.device.type == "cpu":
+        return sparse_attention_plain(q, k, v, config, causal)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"sparse_attention: q/k/v on {q.device}/{k.device}/{v.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "sparse_attention: kernel S is forward only; the JAX package's Pallas kernel "
+            "has no VJP either. Call it under torch.no_grad(), or pass impl='xla' for the "
+            "differentiable plain version")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"sparse_attention: q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"sparse_attention: head_dim {D} not in the kernel's {HEAD_DIMS}")
+    if config.block % KERNEL_TILE:
+        raise ValueError(f"sparse_attention: kernel S cuts layout blocks into {KERNEL_TILE}-row "
+                         f"tiles; block {config.block} is not a multiple of {KERNEL_TILE}")
+    q, k, v = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v))
+    row_ptr, cols = block_lists(layout, causal, q.device)
+    o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lib = op_builder.load("sparse_attention", _SIG)
+    with torch.cuda.device(q.device):
+        err = lib.dstpu_sparse_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), row_ptr.data_ptr(),
+            cols.data_ptr(), op_builder.dtype_code(q.dtype), B, S, H, D, layout.shape[0],
+            config.block, int(bool(causal)), 1.0 / math.sqrt(D),
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    op_builder.check(err, "sparse_attention")
+    sparse_attention.launches += 1
+    return o
+
+
+sparse_attention.launches = 0

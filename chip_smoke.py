@@ -12,10 +12,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 2. kernel A, flash-attention forward, against its plain PyTorch version
    computed in fp32 on the same inputs (limits in ``FLASH_TOL``/``LSE_TOL``) on
    the card at llama-1b prefill shapes (+ a chunked-prefill window,
-   ALiBi, fp32 and fp16 cases), timed beside its bound, its plain version
+   ALiBi, fp32 and fp16 cases, D = 80 and 96), timed beside its bound, its plain version
    and ``F.scaled_dot_product_attention`` as a yardstick;
 3. kernel B, paged decode attention, the same way at the llama-1b decode
-   shape (+ int8 pages, a NaN-poisoned trash page, ALiBi; ``PAGED_TOL``);
+   shape (+ int8 pages, a NaN-poisoned trash page, ALiBi, D = 80 and 96;
+   ``PAGED_TOL``);
 4. the engine: ``InferenceEngineV2`` serving llama-1b at full width and
    depth in bf16 with random seeded weights, 12 greedy requests through
    8 slots, once with whole-prompt prefill and once with 256-token
@@ -28,8 +29,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 6. kernels A' (dQ) and A'' (dK, dV), flash-attention backward, against
    their plain version computed in fp32 from the same inputs, lse and delta
    (``FLASH_BWD_TOL``) at the llama-1b training shape (B=4 S=1024 NH=32
-   KVH=8 D=64 bf16 causal; timed beside their bounds, the plain version and
-   SDPA's backward) and GQA, ALiBi, uneven-S, fp16 and fp32 corners;
+   KVH=8 D=64 bf16 causal) and llama-7b's heads (B=2 S=2048 NH=KVH=32
+   D=128), both timed beside their bounds, the plain version and SDPA's
+   backward, and GQA, ALiBi, uneven-S, D = 80 and 96, fp16 and fp32
+   corners; bf16/fp16 gradients bit-equal across two calls, and strided
+   q/k/v/dO views bit-equal to their contiguous copies;
 7. kernel C, fused Adam, against its plain version (``ADAM_TOL``) on the
    65.5M-element embedding leaf of llama-1b (timed beside its bound and
    ``torch._fused_adamw_``) and odd-sized, unaligned and bf16-moment leaves;
@@ -50,8 +54,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     computed in fp32 on the same inputs (``WQ_TOL``) at llama-7b's four
     matrix shapes, decode (M = 8) and prefill (M = 900), int8 and int4, bf16
     x (timed beside its bound, its plain version and, as context only, a
-    cuBLAS bf16 GEMM on the dequantized weight), fp16 and fp32 x, and padded
-    K with unaligned x and codes;
+    cuBLAS bf16 GEMM on the dequantized weight; for int4 at group 128,
+    ``torch._weight_int4pack_mm`` on the repacked codes), fp16 and fp32 x,
+    padded K with unaligned x and codes, and groups 16 and 48;
 11. kernels Q and DQ, int8 block quantize / dequantize, bit-equal to their
     plain versions (lengths off 128, more rows than ``block_rows``, an
     all-zero row; fp32, bf16, fp16), timed on llama-1b's 65.5M-element
@@ -103,7 +108,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     bound of their visible block pairs, the plain version and SDPA on the
     layout expanded to a boolean mask), and corners (Dense, fp16 and fp32,
     heads from a 1-head layout, block 256, an all-empty layout row whose
-    output is 0); the path: the six main calls of the entry point, counter
+    output is 0, D = 80, blocks 16, 32 and 48 with S off a multiple of 64);
+    the path: the six main calls of the entry point, counter
     zeroed before and read after (one launch each); a CUDA call with
     inputs that require a gradient raises;
 19. kernels E, E', E'' (evoformer forward, dQ + dbias1, dK/dV + dbias2)
@@ -113,7 +119,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     triangle attention (S = N = 384, H = 4), timed beside their bounds, the
     plain versions and SDPA with the biases summed into a float mask (and
     its backward); corners: no bias, bias1 only, [None, b2], D = 16/64/128,
-    ragged N = 300 and Q != K, fp16, fp32, a row masked by -1e9;
+    ragged N = 300 and Q != K, fp16, fp32, a row masked by -1e9, and the
+    query ranges of E'' past one block's dbias2 accumulator (N = 640 bf16,
+    N = 300 fp32 D = 128); every backward bit-equal across two calls;
 20. the evoformer training path: ``DS4Sci_EvoformerAttention(q, k, v,
     [b1, b2])`` -> ``backward`` at the main shape, one E, E' and E''
     launch and no plain call, the five gradients within ``EVO_BWD_TOL`` of
@@ -454,6 +462,11 @@ def flash_phase(fa):
         flash_case(fa, "bf16_d32_valid_k", 2, 100, 160, 4, 2, 32, bf16, causal=False,
                    valid_k=131),
         flash_case(fa, "fp16_chunk_d64", 1, 48, 192, 8, 2, 64, fp16, q_offset=100),
+        # head dims of phi 2 (80) and gpt-neox 20b (96)
+        flash_case(fa, "d80_gqa_s300", 2, 300, 300, 8, 2, 80, bf16),
+        flash_case(fa, "d96_chunk_alibi", 1, 100, 357, 4, 4, 96, bf16, q_offset=257,
+                   alibi=True),
+        flash_case(fa, "fp32_d80_full", 1, 70, 90, 4, 1, 80, fp32, causal=False),
     ]
 
 
@@ -467,6 +480,9 @@ def paged_phase(pa):
                    timed=True),
         paged_case(pa, "alibi_fp32_21_pages", 4, 8, 2, 32, 16, 21, fp32, alibi=True),
         paged_case(pa, "mha_d128_fp16_one_run", 3, 8, 8, 128, 8, 6, fp16),
+        # head dims of phi 2 (80) and gpt-neox 20b (96)
+        paged_case(pa, "d80_gqa_20_pages", 4, 32, 8, 80, 16, 20, bf16, poison=True),
+        paged_case(pa, "int8_d96_alibi", 3, 8, 4, 96, 16, 12, bf16, quant=True, alibi=True),
     ]
 
 
@@ -503,6 +519,14 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
         check(ok, f"flash bwd {name}: {nm} vs fp32 plain beyond {tol} "
               f"(max abs {err:.3g}, atol used {atol_used:.3g})")
     rec["max_abs_err"] = max(rec[f"{nm}_max_abs_err"] for nm in ("dq", "dk", "dv"))
+    if dtype != torch.float32:
+        # no atomics: a second call gives the same bits
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in ((dq, dq2), (dk, dk2), (dv, dv2)))
+        check(same, f"flash bwd {name}: gradients differ between two calls")
+        rec["bit_equal_across_calls"] = same
     print(json.dumps({"flash_bwd_check": rec}))
     if timed:
         rows = torch.arange(S, device=DEV)
@@ -533,15 +557,42 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
         with torch.no_grad():
             lib_f = device_ms(lib_fwd)
         lib_fb = device_ms(lib_fwd_bwd)
+        dq_ms = device_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw))
+        dkv_ms = device_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
         rec.update(
-            dq_ms=device_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)),
-            dkv_ms=device_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+            dq_ms=dq_ms, dkv_ms=dkv_ms, dq_dkv_ms=dq_ms + dkv_ms,
             plain_ms=device_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
                                iters=5, warmup=2),
             library_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb, library_fwd_ms=lib_f,
             dq_bound_ms=dq_b, dq_bound_by=dq_by, dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by,
+            dq_bound_share=dq_b / dq_ms, dkv_bound_share=dkv_b / dkv_ms,
+            dq_tflops=6.0 * D * pairs / dq_ms / 1e9, dkv_tflops=8.0 * D * pairs / dkv_ms / 1e9,
             bwd_bound_ms=all_b, bwd_bound_by=all_by, pairs=pairs)
     print(json.dumps({"flash_bwd": rec}))
+    return rec
+
+
+def flash_bwd_strided_case(fa, B=2, S=200, NH=8, KVH=2, D=64, dtype=torch.bfloat16):
+    """The backward kernels read q, k, v and dO through their strides (TMA
+    maps): [B, H, S, D] tensors viewed as [B, S, H, D] give the same bits
+    as their contiguous copies."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    q, do = (torch.randn((B, NH, S, D), generator=g, device=DEV).to(dtype).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn((B, KVH, S, D), generator=g, device=DEV).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa._delta(o, do)
+    got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    want = (fa.flash_attention_bwd_dq(qc, kc, vc, doc, lse, delta),
+            *fa.flash_attention_bwd_dkv(qc, kc, vc, doc, lse, delta))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, want))
+    check(same, "flash bwd: strided views give other bits than their contiguous copies")
+    rec = {"case": "strided_views", "shape": [B, S, NH, KVH, D], "bit_equal_to_contiguous": same}
+    print(json.dumps({"flash_bwd_check": rec}))
     return rec
 
 
@@ -556,7 +607,14 @@ def flash_bwd_phase(fa):
         flash_bwd_case(fa, "fp32_gqa_s200_d16", 1, 200, 8, 2, 16, fp32),
         flash_bwd_case(fa, "fp32_alibi_full_s100", 2, 100, 4, 4, 64, fp32, causal=False,
                        alibi=True),
-    ]
+        # head dims of phi 2 (80) and gpt-neox 20b (96), ragged S
+        flash_bwd_case(fa, "d80_gqa_s300", 2, 300, 8, 2, 80, bf16),
+        flash_bwd_case(fa, "d96_full_alibi_s257", 1, 257, 4, 4, 96, bf16, causal=False,
+                       alibi=True),
+        flash_bwd_case(fa, "fp16_d80_full_s130", 1, 130, 4, 2, 80, fp16, causal=False),
+        # llama-7b's heads
+        flash_bwd_case(fa, "llama7b_b2_s2048_d128", 2, 2048, 32, 32, 128, bf16, timed=True),
+    ] + [flash_bwd_strided_case(fa)]
 
 
 # -- phase 7: fused Adam -----------------------------------------------------
@@ -718,7 +776,9 @@ def train_phase(fa, fadam, steps=8, gas2_steps=2):
     med = sorted(step_ms)[len(step_ms) // 2]
     tokens = TRAIN_MICRO * TRAIN_SEQ
     fpt = flops_per_token(cfg, TRAIN_SEQ)
-    prof = profile_window(lambda: engine.train_batch(batch), 1, top_n=10)
+    prof = profile_window(lambda: engine.train_batch(batch), 1, top_n=10,
+                          groups={"flash_bwd_dq": "flash_bwd_dq_wgmma",
+                                  "flash_bwd_dkv": "flash_bwd_dkv_wgmma"})
     rec = {"model": "llama-1b", "layers": L, "params": n_params, "leaves": n_leaves,
            "seq": TRAIN_SEQ, "micro_batch": TRAIN_MICRO, "dtype": "bf16", "init_s": init_s,
            "losses": losses, "step_ms": step_ms, "median_step_ms": med,
@@ -825,20 +885,27 @@ def train_parity_phase():
 
 # -- phase 4: the engine -----------------------------------------------------
 
-def profile_window(fn, steps: int, top_n: int = 8):
+def profile_window(fn, steps: int, top_n: int = 8, groups=None):
     """Run ``fn`` ``steps`` times under torch.profiler: wall and device-busy
     ms per step, the device's idle share, and the top kernels by device
-    time (None where the profiler recorded no device time)."""
+    time (None where the profiler recorded no device time).  ``groups``
+    (name -> a fragment of kernel names) adds each group's device ms per
+    step and its share of the device time."""
     from torch.profiler import ProfilerActivity
 
     busy_us, wall_us, dev = _profiled_us(
         fn, steps, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:top_n]
-    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
-            "device_busy_ms_per_step": busy_us / steps / 1e3 if dev else None,
-            "device_idle_share": 1.0 - busy_us / wall_us if dev else None,
-            "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / steps / 1e3
-                                        for e in top}}
+    rec = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+           "device_busy_ms_per_step": busy_us / steps / 1e3 if dev else None,
+           "device_idle_share": 1.0 - busy_us / wall_us if dev else None,
+           "top_kernels_ms_per_step": {e.key[:70]: e.self_device_time_total / steps / 1e3
+                                       for e in top}}
+    for name, frag in (groups or {}).items():
+        us = sum(e.self_device_time_total for e in dev if frag in e.key)
+        rec[f"{name}_ms_per_step"] = us / steps / 1e3 if dev else None
+        rec[f"{name}_share_of_device"] = us / busy_us if dev and busy_us else None
+    return rec
 
 
 def profile_steps(eng, requests, warm_steps: int, steps: int):
@@ -1006,6 +1073,22 @@ WQ_SHAPES = {"attn_4096x4096": (4096, 4096), "mlp_up_4096x11008": (4096, 11008),
              "mlp_down_11008x4096": (11008, 4096), "lm_head_4096x32000": (4096, 32000)}
 
 
+def int4pack_library(codes, scale, x, group):
+    """``torch._weight_int4pack_mm`` on the same int4 codes (the one PyTorch
+    call computing W's int4 product), repacked here, outside any timing, by
+    ``torch._convert_weight_to_int4pack``: its layout is [N, K/2] with the
+    even K row in the high nibble, and it dequantizes (code - 8) * scale +
+    zero, so zero points of 0 and the scales in bf16 (its scale type) give
+    W's function up to the scales' rounding.  A yardstick: the port never
+    calls it."""
+    vals = torch.stack([codes & 0xF, codes >> 4], dim=1).reshape(-1, codes.shape[1])
+    vt = vals.t().contiguous()  # [N, Kp], each the code + 8
+    packed = ((vt[:, ::2] << 4) | vt[:, 1::2]).to(torch.uint8)
+    w = torch._convert_weight_to_int4pack(packed, 8)
+    sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16).contiguous()
+    return lambda: torch._weight_int4pack_mm(x, w, group, sz)
+
+
 def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
     """Kernel W against its plain version computed in fp32 on the same x,
     codes and scales (a seeded normal weight, std 0.02, quantized)."""
@@ -1031,10 +1114,24 @@ def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
         nbytes = codes.numel() + scale.numel() * 4 + x.numel() * item + M * N * item
         b_ms, b_by = bound(nbytes, 2.0 * M * K * N, dtype)
         wd = wq.dequantize_weight(codes, scale, k=K, dtype=dtype, **kw)
+        library_ms = None
+        if bits == 4 and dtype == torch.bfloat16 and codes.shape[0] * 2 == K:
+            try:
+                lib = int4pack_library(codes, scale, x, group)
+                lib_out = lib()
+                torch.cuda.synchronize()
+                rec["library_max_abs_err"] = (lib_out.float() - ref).abs().max().item()
+                library_ms = device_ms(lib)
+            except (RuntimeError, NotImplementedError, TypeError) as e:
+                rec["library_error"] = f"{type(e).__name__}: {str(e)[:300]}"
+        else:
+            rec["library_note"] = ("no single PyTorch call: _weight_int8pack_mm scales per "
+                                   "channel, not per group" if bits == 8 else "not timed")
         rec.update(ms=device_ms(lambda: wq.wq_matmul(x, codes, scale, **kw)),
                    plain_ms=device_ms(lambda: wq.wq_matmul_plain(x, codes, scale, **kw),
                                       iters=5, warmup=2),
-                   library_ms=None, context_cublas_dequantized_ms=device_ms(lambda: x @ wd),
+                   library_ms=library_ms,
+                   context_cublas_dequantized_ms=device_ms(lambda: x @ wd),
                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=2.0 * M * K * N)
         del wd
     print(json.dumps({"wq": rec}))
@@ -1060,6 +1157,15 @@ def wq_phase(wq):
                             group=64))
         recs.append(wq_case(wq, f"odd_k1003_n200_g64_int{bits}_fp32", 900, 1003, 200, bits,
                             fp32, group=64))
+    # groups off the kernel's 32-row stage (the reference takes any group
+    # dividing the padded K): 16 for int8, 48 for int4
+    recs += [
+        wq_case(wq, "attn_m8_g16_int8", 8, 4096, 4096, 8, bf16, group=16, timed=True),
+        wq_case(wq, "attn_m900_g16_int8_fp16", 900, 4096, 1024, 8, fp16, group=16),
+        wq_case(wq, "attn_m8_g48_int4", 8, 4096, 4096, 4, bf16, group=48, timed=True),
+        wq_case(wq, "m900_k4000_g48_int4", 900, 4000, 1000, 4, bf16, group=48),
+        wq_case(wq, "odd_k1003_g48_int4_fp32", 37, 1003, 200, 4, fp32, group=48),
+    ]
     return recs
 
 
@@ -1735,7 +1841,7 @@ def sparse_configs(sa, H):
                                                 num_global_blocks=1)}
 
 
-def empty_row_config(sa, H, row):
+def empty_row_config(sa, H, row, block=128):
     """A Fixed layout with block row ``row`` of every head off: its queries
     see no key, and their output is 0."""
     class EmptyRow(sa.FixedSparsityConfig):
@@ -1743,7 +1849,7 @@ def empty_row_config(sa, H, row):
             lay = super().make_layout(seq_len)
             lay[:, row, :] = False
             return lay
-    return EmptyRow(num_heads=H, block=128)
+    return EmptyRow(num_heads=H, block=block)
 
 
 def sparse_pairs(layout, causal, B):
@@ -1834,6 +1940,24 @@ def sparse_phase(sa):
                     shape=(1, 1024, 4, 64), empty_block_row=3),
         sparse_case(sa, "empty_row_full_fp32", empty_row_config(sa, 4, 5), False, fp32,
                     shape=(1, 1024, 4, 64), empty_block_row=5),
+        # head dim 80 (phi 2) at block 128
+        sparse_case(sa, "fixed_d80", fixed, True, bf16, shape=(1, 1024, H, 80)),
+        # blocks under the 64-row tile (DeepSpeed's GPU default is 16) and
+        # off it (48), S not a multiple of 64
+        sparse_case(sa, "fixed_block16_causal_d80", sa.FixedSparsityConfig(
+            num_heads=H, block=16, num_local_blocks=4, num_global_blocks=1), True, bf16,
+            shape=(1, 1040, H, 80)),
+        sparse_case(sa, "bigbird_block32_full", sa.BigBirdSparsityConfig(
+            num_heads=H, block=32, num_random_blocks=2, num_sliding_window_blocks=3,
+            num_global_blocks=1), False, bf16, shape=(1, 1056, H, 64)),
+        sparse_case(sa, "bslongformer_block16_fp32", sa.BSLongformerSparsityConfig(
+            num_heads=4, block=16, num_sliding_window_blocks=5, global_block_indices=(0, 7)),
+            True, fp32, shape=(2, 528, 4, 32)),
+        sparse_case(sa, "fixed_block48_fp16_d96", sa.FixedSparsityConfig(
+            num_heads=4, block=48, num_local_blocks=3, num_global_blocks=1), False, fp16,
+            shape=(1, 1008, 4, 96)),
+        sparse_case(sa, "empty_row_block32", empty_row_config(sa, 4, 7, block=32), True, bf16,
+                    shape=(1, 544, 4, 64), empty_block_row=7),
     ]
     # the path: a user's calls of the entry point at the main shape, the
     # three default layouts causal and not, counter zeroed before, read after
@@ -1962,6 +2086,15 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
         # large for any limit scaled to a normal row
         check(good or masked_row is not None, f"evo {name}: {nm} vs fp32 plain beyond {tol} "
               f"(max abs {e:.3g}, atol used {used:.3g})")
+    # no atomics: a second backward gives the same bits
+    again = (*ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f),
+             *ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f))
+    torch.cuda.synchronize()
+    same = all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip((dq, db1, dk, dv, db2), again))
+    check(same, f"evo {name}: gradients differ between two calls")
+    rec["bit_equal_across_calls"] = same
+    rec["qranges"] = ev.dkv_query_ranges(q.dtype, N, D, b2f is not None)
     rec["max_abs_err"] = err
     if masked_row is None:  # the gradients held to their limits
         rec["bwd_max_abs_err"] = max(rec[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
@@ -2041,6 +2174,10 @@ def evo_phase(ev):
         evo_case(ev, "fp32_d128_bias1", (1, 8, 130, 2, 128), fp32, biases=("b1",)),
         evo_case(ev, "masked_row", (1, 16, 256, 8, 32), bf16, masked_row=(0, 5)),
         evo_case(ev, "masked_row_fp32", (1, 8, 100, 4, 16), fp32, masked_row=(0, 3)),
+        # past the residues whose whole dbias2 accumulator fits a block: E''
+        # cuts the query axis into ranges (ROADMAP Queue 3 #F1)
+        evo_case(ev, "ranges_n640_bf16", (1, 8, 640, 4, 32), bf16),
+        evo_case(ev, "ranges_n300_fp32_d128", (1, 4, 300, 2, 128), fp32),
     ]
 
 
@@ -2232,18 +2369,24 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:132",
          "launches": train_l["flash_bwd_dq"],
-         "max_abs_err": max(r["dq_max_abs_err"] for r in bwd), "checked": True,
+         "max_abs_err": max(r["dq_max_abs_err"] for r in bwd if "dq_max_abs_err" in r),
+         "checked": True,
          "ms": main_bwd["dq_ms"], "plain_ms": main_bwd["plain_ms"],
          "bound_ms": main_bwd["dq_bound_ms"], "bound_by": main_bwd["dq_bound_by"],
+         "bound_share": main_bwd["dq_bound_share"], "dq_dkv_ms": main_bwd["dq_dkv_ms"],
          "library_ms": main_bwd["library_ms"], "shape": bwd_shape,
-         "note": "plain_ms and library_ms compute dq, dk and dv together"},
+         "note": "plain_ms and library_ms compute dq, dk and dv together",
+         "timed_cases": timed(bwd, ("dq_ms", "dkv_ms", "dq_dkv_ms", "library_ms", "dq_bound_ms",
+                                    "dkv_bound_ms", "dq_bound_share", "dkv_bound_share"))},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:165",
          "launches": train_l["flash_bwd_dkv"],
-         "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"]) for r in bwd),
+         "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"]) for r in bwd
+                           if "dk_max_abs_err" in r),
          "checked": True, "ms": main_bwd["dkv_ms"], "plain_ms": main_bwd["plain_ms"],
          "bound_ms": main_bwd["dkv_bound_ms"], "bound_by": main_bwd["dkv_bound_by"],
+         "bound_share": main_bwd["dkv_bound_share"], "dq_dkv_ms": main_bwd["dq_dkv_ms"],
          "library_ms": main_bwd["library_ms"], "shape": bwd_shape,
          "note": "plain_ms and library_ms compute dq, dk and dv together"},
         {"name": "paged_decode_attention", "route": "cuda",
@@ -2276,7 +2419,12 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in wq_recs), "checked": True,
          "ms": main_wq["ms"], "plain_ms": main_wq["plain_ms"], "bound_ms": main_wq["bound_ms"],
          "bound_by": main_wq["bound_by"], "library_ms": None,
-         "library_note": "no single PyTorch call computes the grouped-scale int8/int4 product",
+         "library_note": "int8: no single PyTorch call (_weight_int8pack_mm scales per "
+                         "channel, not per group); int4: library_int4_ms",
+         "library_int4_ms": {r["case"]: r.get("library_ms") for r in wq_recs
+                             if r["bits"] == 4 and "library_ms" in r and r["group"] == 128},
+         "library_int4_error": next((r["library_error"] for r in wq_recs
+                                     if "library_error" in r), None),
          "context_cublas_dequantized_ms": main_wq["context_cublas_dequantized_ms"],
          "shape": "M=8 K=4096 N=11008 int8 group 128 bf16 (llama-7b decode, gate/up)",
          "timed_cases": timed(wq_recs, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -28,13 +28,19 @@
 //       shuffle tree into its own row of shared memory, and the block adds
 //       the 4 warps' rows in order at the end.  With more than one chunk
 //       the chunks' fp32 partials are added in chunk order by a second pass.
-//   E'' one block per (b, h, 64-key tile, chunk of s) loops s and, for each,
-//       every query tile: dK/dV of (b, s, h, key tile) sum in registers over
-//       the query tiles, and dbias2[:, key tile] sums over the chunk's s in
-//       shared memory ([Q][64 + 4] fp32, each element owned by one lane).
-//       The s chunks (sized so the grid covers the SMs twice; 48 blocks at
-//       the main shape without them) write fp32 partials that the second
-//       pass adds in chunk order.
+//   E'' one block per (b, h, 64-key tile, chunk of s, query range) loops s
+//       and, for each, the query tiles of its range: dK/dV of (b, s, h, key
+//       tile) sum in registers over those tiles, and dbias2[range, key tile]
+//       sums over the chunk's s in shared memory ([range rows][64 + 4] fp32,
+//       each element owned by one lane).  The s chunks (sized so the grid
+//       covers the SMs four times; 48 blocks at the main shape without
+//       them) write fp32 partials that the second pass adds in chunk order.
+//       The query axis is one range while its accumulator fits a block
+//       (AlphaFold 2's N = 384 does, up to ~576 residues in bf16); past
+//       that it is cut into the fewest ranges whose accumulator lets two
+//       blocks share an SM, and each range writes fp32 dK/dV partials that a
+//       second pass adds in range order and rounds once.  So E'' takes any
+//       query length, with no atomics.
 //
 // What bounds it on the H100: at the main shape (D = 32, bf16) the forward
 // moves q, k, v and o (100.7 MB each) for 77 GFLOP: 0.12 ms of bytes
@@ -56,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -75,9 +82,11 @@ struct Args {
   int B, S, Q, K, H, chunks;
   float sm_scale;
   long long qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh;
+  int qranges;     // E'': query ranges (1: the whole axis)
+  float* kv_part;  // E'' with qranges > 1: fp32 [qranges][2][B, S, K, H, D] dK/dV partials
 };
 
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // staged bias2 rows: [q][k] for E and E' (lanes read column pairs: a row
 // of 64 + 8 floats keeps them conflict-free), [q][key] for E'' (lanes read
@@ -853,12 +862,20 @@ constexpr size_t dkv_fma_tiles() {  // K, V, Q, dO tiles + P^T, dS^T, fp32
   return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * (kB + 1));
 }
 
+// query tiles of bq rows per query range (the last range may hold fewer)
+__host__ __device__ __forceinline__ int range_tiles(int Q, int bq, int qranges) {
+  return cdiv(cdiv(Q, bq), qranges);
+}
+
 struct DkvBlock {
   int b, h, k_start, chunk, s0, s1;
-  __device__ DkvBlock(const Args& a) {
+  int range, it0, it1;  // the query tiles [it0, it1) of this block's range
+  __device__ DkvBlock(const Args& a, int bq) {
     const int nk = cdiv(a.K, kB);
-    chunk = blockIdx.x % a.chunks;
-    const int r = blockIdx.x / a.chunks;
+    range = blockIdx.x % a.qranges;
+    const int x = blockIdx.x / a.qranges;
+    chunk = x % a.chunks;
+    const int r = x / a.chunks;
     k_start = (r % nk) * kB;
     const int bh = r / nk;
     h = bh % a.H;
@@ -866,20 +883,34 @@ struct DkvBlock {
     const int per = cdiv(a.S, a.chunks);
     s0 = min(a.S, chunk * per);
     s1 = min(a.S, s0 + per);
+    const int tiles = range_tiles(a.Q, bq, a.qranges);
+    it0 = range * tiles;
+    it1 = min(cdiv(a.Q, bq), it0 + tiles);
   }
 };
 
-// the block's dbias2 columns [k_start, k_start + 64), rows < Q, to db2 or
-// to the chunk's partial
-__device__ __forceinline__ void store_db2(const Args& a, const float* db2s, const DkvBlock& blk) {
+// the block's dbias2 rows [it0 * bq, min(Q, it1 * bq)) x columns [k_start,
+// k_start + 64), to db2 or to the chunk's partial; db2s holds the range's
+// rows from local row 0
+__device__ __forceinline__ void store_db2(const Args& a, const float* db2s, const DkvBlock& blk,
+                                          int bq) {
   const long long bh = (long long)blk.b * a.H + blk.h;
   float* dst = a.chunks > 1 ? a.part + (bh * a.chunks + blk.chunk) * a.Q * a.K
                             : a.db2 + bh * a.Q * a.K;
-  for (int i = threadIdx.x; i < a.Q * kB; i += blockDim.x) {
+  const int row0 = blk.it0 * bq, rows = min(a.Q, blk.it1 * bq) - row0;
+  for (int i = threadIdx.x; i < rows * kB; i += blockDim.x) {
     const int row = i / kB, lk = i % kB;
     if (blk.k_start + lk < a.K)
-      dst[(long long)row * a.K + blk.k_start + lk] = db2s[row * kDbPad + lk];
+      dst[(long long)(row0 + row) * a.K + blk.k_start + lk] = db2s[row * kDbPad + lk];
   }
+}
+
+// the fp32 dK (dv = false) or dV partial of query range `range`, when the
+// query axis is cut into ranges
+template <int D>
+__device__ __forceinline__ float* kv_partial(const Args& a, int range, bool dv) {
+  const long long n = (long long)a.B * a.S * a.K * a.H * D;
+  return a.kv_part + (2LL * range + (dv ? 1 : 0)) * n;
 }
 
 template <typename T, int D>
@@ -899,12 +930,13 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a)
   const uint16_t* Vh = reinterpret_cast<const uint16_t*>(Vs);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const DkvBlock blk(a);
+  const DkvBlock blk(a, BQ);
   const int b = blk.b, h = blk.h, k_start = blk.k_start;
-  const int nq = cdiv(a.Q, BQ);
+  const int qr0 = blk.it0 * BQ;  // first row of this block's query range
   const bool want_db2 = a.db2 != nullptr;
   if (want_db2)
-    for (int i = threadIdx.x; i < nq * BQ * kDbPad; i += kMmaWarps * 32) db2s[i] = 0.f;
+    for (int i = threadIdx.x; i < (blk.it1 - blk.it0) * BQ * kDbPad; i += kMmaWarps * 32)
+      db2s[i] = 0.f;
 
   const int r0 = warp * 16 + (lane >> 2);  // this lane's keys: r0 and r0 + 8
   const int cq = (lane & 3) * 2;
@@ -935,7 +967,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a)
     stage_async<T, D>(Vs, vb, a.vsn, k_start, kB, a.K);
     if (bias.b1) stage_window(b1s, 0, bias.b1, 0, 0, 1, 1, k_start, a.K, bias.vec);
     cp_async_commit();
-    load_q(0, 0);
+    load_q(0, qr0);
     cp_async_wait<0>();
     __syncthreads();
 
@@ -945,10 +977,10 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
 
-    for (int it = 0; it < nq; ++it) {
-      const int cur = it & 1;
+    for (int it = blk.it0; it < blk.it1; ++it) {
+      const int cur = (it - blk.it0) & 1;
       const int q0 = it * BQ;
-      if (it + 1 < nq) {
+      if (it + 1 < blk.it1) {
         load_q(cur ^ 1, q0 + BQ);
         cp_async_wait<1>();
       } else {
@@ -958,6 +990,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a)
       const T* Qc = Qs + cur * BQ * RS;
       const T* dOc = dOs + cur * BQ * RS;
       const float* b2c = bias.b2 ? b2s + cur * BQ * kB2LdT : nullptr;
+      float* db2t = db2s + (q0 - qr0) * kDbPad;  // this tile's rows of the accumulator
 
       // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
       float sc[NT][4], dp[NT][4];
@@ -995,7 +1028,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a)
             p[e] = expf(add_bias(sc[nt][e] * a.sm_scale, b1c, b2c, kB2LdT, lq, lk) -
                         lse_s[cur][lq]);
           ds[e] = p[e] * (dp[nt][e] - dl_s[cur][lq]);
-          if (want_db2) db2s[row * kDbPad + lk] += ds[e];
+          if (want_db2) db2t[lq * kDbPad + lk] += ds[e];
         }
         pf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(p[0], p[1]);
         pf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(p[2], p[3]);
@@ -1021,6 +1054,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a)
 
     T* dkp = static_cast<T*>(a.dk);
     T* dvp = static_cast<T*>(a.dv);
+    float* dkf = a.qranges > 1 ? kv_partial<D>(a, blk.range, false) : nullptr;
+    float* dvf = a.qranges > 1 ? kv_partial<D>(a, blk.range, true) : nullptr;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int key = k_start + r0 + 8 * i;
@@ -1028,16 +1063,23 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a)
       const long long off = ((bs * a.K + key) * a.H + h) * D;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
-        *reinterpret_cast<uint32_t*>(dkp + off + dt * 8 + cq) =
-            Mma<T>::pack(dk[dt][2 * i], dk[dt][2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(dvp + off + dt * 8 + cq) =
-            Mma<T>::pack(dv[dt][2 * i], dv[dt][2 * i + 1]);
+        if (dkf != nullptr) {  // this range's fp32 partials
+          *reinterpret_cast<float2*>(dkf + off + dt * 8 + cq) =
+              make_float2(dk[dt][2 * i], dk[dt][2 * i + 1]);
+          *reinterpret_cast<float2*>(dvf + off + dt * 8 + cq) =
+              make_float2(dv[dt][2 * i], dv[dt][2 * i + 1]);
+        } else {
+          *reinterpret_cast<uint32_t*>(dkp + off + dt * 8 + cq) =
+              Mma<T>::pack(dk[dt][2 * i], dk[dt][2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(dvp + off + dt * 8 + cq) =
+              Mma<T>::pack(dv[dt][2 * i], dv[dt][2 * i + 1]);
+        }
       }
     }
   }
   if (want_db2) {
     __syncthreads();
-    store_db2(a, db2s, blk);
+    store_db2(a, db2s, blk, BQ);
   }
 }
 
@@ -1058,12 +1100,12 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dkv_fma_kernel(Args a) {
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const DkvBlock blk(a);
+  const DkvBlock blk(a, kB);
   const int b = blk.b, h = blk.h, k_start = blk.k_start;
-  const int nq = cdiv(a.Q, kB);
+  const int qr0 = blk.it0 * kB;  // first row of this block's query range
   const bool want_db2 = a.db2 != nullptr;
   if (want_db2)
-    for (int i = tid; i < nq * kB * kDbPad; i += kFmaThreads) db2s[i] = 0.f;
+    for (int i = tid; i < (blk.it1 - blk.it0) * kB * kDbPad; i += kFmaThreads) db2s[i] = 0.f;
 
   for (int s = blk.s0; s < blk.s1; ++s) {
     const long long bs = (long long)b * a.S + s;
@@ -1086,7 +1128,7 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dkv_fma_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.f;
 
-    for (int it = 0; it < nq; ++it) {
+    for (int it = blk.it0; it < blk.it1; ++it) {
       const int q0 = it * kB;
       __syncthreads();  // the previous tile's readers are done with Qs/dOs/Pt/dSt/b2s
       if (bias.b2)
@@ -1102,6 +1144,7 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dkv_fma_kernel(Args a) {
       cp_async_wait<0>();
       __syncthreads();
 
+      float* db2t = db2s + (q0 - qr0) * kDbPad;  // this tile's rows of the accumulator
       // s^T and dp^T: keys ty*4 + r against queries tx + 16 j
       float sc[4][4], dp[4][4];
 #pragma unroll
@@ -1139,7 +1182,7 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dkv_fma_kernel(Args a) {
           if (row < a.Q && key < a.K)
             p = expf(add_bias(sc[r][j] * a.sm_scale, b1c, b2c, kB2LdT, lq, lk) - lse_s[lq]);
           const float ds = p * (dp[r][j] - delta_s[lq]);
-          if (want_db2) db2s[row * kDbPad + lk] += ds;
+          if (want_db2) db2t[lq * kDbPad + lk] += ds;
           Pt[lk * PP + lq] = p;
           dSt[lk * PP + lq] = ds;
         }
@@ -1167,8 +1210,9 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dkv_fma_kernel(Args a) {
           }
       }
     }
-    float* dkp = static_cast<float*>(a.dk);
-    float* dvp = static_cast<float*>(a.dv);
+    // the outputs, or this query range's partials (fp32 either way)
+    float* dkp = a.qranges > 1 ? kv_partial<D>(a, blk.range, false) : static_cast<float*>(a.dk);
+    float* dvp = a.qranges > 1 ? kv_partial<D>(a, blk.range, true) : static_cast<float*>(a.dv);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int key = k_start + ty * 4 + r;
@@ -1183,7 +1227,7 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dkv_fma_kernel(Args a) {
   }
   if (want_db2) {
     __syncthreads();
-    store_db2(a, db2s, blk);
+    store_db2(a, db2s, blk, kB);
   }
 }
 
@@ -1200,6 +1244,27 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part, float* __re
     float v = p[0];
     for (int c = 1; c < chunks; ++c) v += p[c * len];
     out[i] = v;
+  }
+}
+
+// dK and dV from the query ranges' partials: out[i] = sum over r, in
+// order, of part[r][which][i], rounded once to T
+template <typename T>
+__global__ void reduce_ranges_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                                     T* __restrict__ dv, int qranges, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < 2 * n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int which = i >= n;
+    const long long j = i - which * n;
+    const float* p = part + which * n + j;
+    float v = p[0];
+    for (int r = 1; r < qranges; ++r) v += p[2 * r * n];
+    if constexpr (std::is_same<T, float>::value)
+      (which ? dv : dk)[j] = v;
+    else if constexpr (std::is_same<T, __half>::value)
+      (which ? dv : dk)[j] = __float2half_rn(v);
+    else
+      (which ? dv : dk)[j] = __float2bfloat16_rn(v);
   }
 }
 
@@ -1237,8 +1302,31 @@ size_t smem_bytes(Pass pass, bool fp32, const Args& a) {
   }
   const int bq = fp32 ? kB : DkvTile<D>::BQ;
   const size_t bias = sizeof(float) * (kB + nbuf * bq * kB2LdT);
-  const size_t db2 = a.db2 ? sizeof(float) * ((a.Q + bq - 1) / bq) * bq * kDbPad : 0;
+  const size_t db2 =
+      a.db2 ? sizeof(float) * range_tiles(a.Q, bq, a.qranges) * bq * kDbPad : 0;
   return (fp32 ? dkv_fma_tiles<D>() : dkv_mma_tiles<D>()) + bias + db2;
+}
+
+// the query ranges of E'': 1 while the whole axis's dbias2 accumulator fits
+// a block, else the fewest ranges that let two blocks share an SM (or,
+// failing that, fit one).  Ranges hold whole query tiles and none is empty.
+template <int D>
+int dkv_qranges(bool fp32, int Q, bool db2) {
+  Args a{};
+  a.Q = Q;
+  a.db2 = db2 ? reinterpret_cast<float*>(16) : nullptr;  // only tested for null
+  a.qranges = 1;
+  const size_t limit = (size_t)kMaxSmem - 2048;
+  if (smem_bytes<D>(kDkv, fp32, a) <= limit) return 1;
+  const int bq = fp32 ? kB : DkvTile<D>::BQ;
+  const int nq = cdiv(Q, bq);
+  for (const size_t cap : {limit / 2 - 1024, limit}) {
+    for (int r = 2; r <= nq; ++r) {
+      a.qranges = cdiv(nq, range_tiles(Q, bq, r));  // no empty range
+      if (smem_bytes<D>(kDkv, fp32, a) <= cap) return a.qranges;
+    }
+  }
+  return nq;
 }
 
 template <typename T, int D>
@@ -1274,7 +1362,10 @@ cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
     if (e != cudaSuccess || a.db1 == nullptr || a.chunks == 1) return e;
     return reduce_chunks(a.part, a.db1, (long long)a.B * a.S, a.chunks, a.K, st);
   } else {
-    const dim3 grid(a.B * a.H * nk * a.chunks);
+    if (a.qranges != dkv_qranges<D>(fp32, a.Q, a.db2 != nullptr) ||
+        (a.qranges > 1 && a.kv_part == nullptr))
+      return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.H * nk * a.chunks * a.qranges);
     if constexpr (fp32) {
       static const cudaError_t attr = opt_in_max(evo_bwd_dkv_fma_kernel<D>);
       if (attr != cudaSuccess) return attr;
@@ -1285,7 +1376,15 @@ cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
       evo_bwd_dkv_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
     }
     cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess || a.db2 == nullptr || a.chunks == 1) return e;
+    if (e != cudaSuccess) return e;
+    if (a.qranges > 1) {
+      const long long n = (long long)a.B * a.S * a.K * a.H * D;
+      const long long blocks = (2 * n + 255) / 256;
+      reduce_ranges_kernel<T><<<blocks < 4096 ? (int)blocks : 4096, 256, 0, st>>>(
+          a.kv_part, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qranges, n);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    if (a.db2 == nullptr || a.chunks == 1) return e;
     return reduce_chunks(a.part, a.db2, (long long)a.B * a.H, a.chunks, (long long)a.Q * a.K,
                          st);
   }
@@ -1336,11 +1435,13 @@ int dispatch(Pass pass, int dtype, int D, const Args& a, void* stream) {
 // contiguous.  o, dq [B, S, Q, H, D] and dk, dv [B, S, K, H, D] contiguous,
 // written whole.  db1 [B, S, K] / db2 [B, H, Q, K] fp32 or null (no bias
 // gradient); with chunks > 1, part holds the chunks' fp32 partials
-// ([B*S, chunks, K] for E', [B*H, chunks, Q*K] for E'').  D is 16, 32, 64
-// or 128.  Each returns cudaGetLastError() after its launches, or
-// cudaErrorInvalidConfiguration (9), launching nothing, when the shape needs
-// more shared memory than a block has (the bias-gradient accumulators grow
-// with K for E' and with Q for E'').
+// ([B*S, chunks, K] for E', [B*H, chunks, Q*K] for E'').  E'' cuts the
+// query axis into qranges ranges (dstpu_evoformer_attn_dkv_qranges); above
+// one, kv_part holds their fp32 dK/dV partials ([qranges][2][B*S*K*H*D]).
+// D is 16, 32, 64 or 128.  Each returns cudaGetLastError() after its
+// launches, or cudaErrorInvalidConfiguration (9), launching nothing, when
+// the shape needs more shared memory than a block has (E' only: its dbias1
+// accumulator grows with K; E'' takes every Q).
 #define DSTPU_EVO_STRIDES                                                                    \
   long long qsb, long long qss, long long qsn, long long qsh, long long ksb, long long kss,  \
       long long ksn, long long ksh, long long vsb, long long vss, long long vsn, long long vsh
@@ -1352,7 +1453,8 @@ extern "C" int dstpu_evoformer_attn_fwd(const void* q, const void* k, const void
   const Args a{q, k, v, nullptr, nullptr, nullptr, static_cast<const float*>(b1),
                static_cast<const float*>(b2), o, nullptr, nullptr, nullptr,
                static_cast<float*>(lse), nullptr, nullptr, nullptr, B, S, Q, K, H, 1, sm_scale,
-               qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, 0, 0, 0, 0};
+               qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, 0, 0, 0, 0, 1,
+               nullptr};
   return dispatch(kFwd, dtype, D, a, stream);
 }
 
@@ -1368,7 +1470,7 @@ extern "C" int dstpu_evoformer_attn_bwd_dq(const void* q, const void* k, const v
                static_cast<const float*>(b1), static_cast<const float*>(b2), nullptr, dq,
                nullptr, nullptr, nullptr, static_cast<float*>(db1), nullptr,
                static_cast<float*>(part), B, S, Q, K, H, chunks, sm_scale, qsb, qss, qsn, qsh,
-               ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh};
+               ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh, 1, nullptr};
   return dispatch(kDq, dtype, D, a, stream);
 }
 
@@ -1376,14 +1478,35 @@ extern "C" int dstpu_evoformer_attn_bwd_dkv(const void* q, const void* k, const 
                                             const void* dout, const void* lse,
                                             const void* delta, const void* b1, const void* b2,
                                             void* dk, void* dv, void* db2, void* part,
-                                            int dtype, int B, int S, int Q, int K, int H, int D,
-                                            float sm_scale, int chunks, DSTPU_EVO_STRIDES,
-                                            long long dsb, long long dss, long long dsn,
-                                            long long dsh, void* stream) {
+                                            void* kv_part, int dtype, int B, int S, int Q,
+                                            int K, int H, int D, float sm_scale, int chunks,
+                                            int qranges, DSTPU_EVO_STRIDES, long long dsb,
+                                            long long dss, long long dsn, long long dsh,
+                                            void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const float*>(b1), static_cast<const float*>(b2), nullptr, nullptr,
                dk, dv, nullptr, nullptr, static_cast<float*>(db2), static_cast<float*>(part),
                B, S, Q, K, H, chunks, sm_scale, qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb,
-               vss, vsn, vsh, dsb, dss, dsn, dsh};
+               vss, vsn, vsh, dsb, dss, dsn, dsh, qranges, static_cast<float*>(kv_part)};
   return dispatch(kDkv, dtype, D, a, stream);
+}
+
+// the query ranges E'' takes for this dtype, query length, head dim and
+// whether dbias2 is wanted: the qranges that dstpu_evoformer_attn_bwd_dkv
+// must be given (above 1, kv_part holds 2 * qranges * B * S * K * H * D
+// floats); 0 for a head dim the kernels do not take.
+extern "C" int dstpu_evoformer_attn_dkv_qranges(int dtype, int Q, int D, int want_db2) {
+  const bool fp32 = dtype == 0;
+  switch (D) {
+    case 16:
+      return dkv_qranges<16>(fp32, Q, want_db2);
+    case 32:
+      return dkv_qranges<32>(fp32, Q, want_db2);
+    case 64:
+      return dkv_qranges<64>(fp32, Q, want_db2);
+    case 128:
+      return dkv_qranges<128>(fp32, Q, want_db2);
+    default:
+      return 0;
+  }
 }

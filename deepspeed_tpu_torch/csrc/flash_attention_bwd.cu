@@ -15,30 +15,76 @@
 //   dV[j]    = sum_{h in group} sum_i p[i, j] dO[i]
 // with query head h reading KV head h / (NH / KVH), exactly as the forward.
 // delta is a [B, NH, Sq] fp32 input computed outside (as JAX computes it
-// outside the Pallas calls).  The TPU kernels cast every input to fp32;
-// here fp32 inputs stay fp32 end to end, and bf16/fp16 inputs keep fp32
-// sums but enter the tensor cores in their own type (below).
+// outside the Pallas calls).  D is any multiple of 16 from 16 to 128.
 //
 // What bounds it on the H100: the arithmetic.  At llama-1b training shapes
-// (B = 4, S = 1024, 32 heads over 8 KV heads, D = 64, causal) the backward
-// needs 10 * D flops per visible (query, key) pair, 43 GFLOP, against
-// ~50 MB of q/k/v/o/dO/dq/dk/dv/lse/delta traffic: far above the ridge, so
-// the tensor cores set the least time (43 us at 989 TFLOP/s).  Splitting it
-// into a dQ kernel and a dK/dV kernel recomputes S and dP in both (14 * D
-// flops per pair in all), which keeps each kernel free of atomics.
+// (B = 4, S = 1024, 32 heads over 8 KV heads, D = 64, causal) dQ needs 6 * D
+// and dK/dV 8 * D flops per visible (query, key) pair (S and dP are
+// recomputed in both, which keeps each kernel free of atomics): 26 + 35 us
+// at 989 TFLOP/s, against ~50 MB of q/k/v/o/dO/dq/dk/dv/lse/delta traffic
+// (15 us).  So the tensor cores set the least time, and only wgmma reaches
+// their rate.
 //
-// Two designs per kernel, chosen by dtype:
+// bf16 and fp16 (training), both kernels: two warpgroups of 64 rows each
+// per block and one block per SM, so a thread may hold 255 registers.
+//   Copies.  Tiles arrive by TMA (cp.async.bulk.tensor) from tensor maps
+//   over [B, S, H, D] with the tensors' own strides, so strided views need
+//   no copy and rows past S arrive as zeros.  A map sees D as D/8 panels of
+//   8 columns, a dimension of its own, so one copy lands a whole tile as
+//   [D/8][rows][8].  Thread 0 keeps a ring of kStages = 5 stages kAhead = 3 tiles
+//   ahead of the one computed, under mbarriers (full: the bytes landed;
+//   empty: both warpgroups are done with the stage); the stage it refills
+//   held the tile two before the current one.  A'' also brings each query
+//   tile's lse and delta rows by bulk copies on the same barrier (when Sq is
+//   a multiple of 4; else each thread loads its columns while the tile
+//   lands).  Why no producer warp: ptxas sizes every thread of a block for
+//   a whole number of warpgroups, so a 9th warp (or a producer warpgroup,
+//   whose setmaxnreg did not lift the cap) limits all threads to 168
+//   registers, and the D-wide dK/dV accumulators spilled.  Issuing from a
+//   consumer costs it nothing once each tile is one copy: with a copy per
+//   panel, and lse staged by a warp's loads, the same kernels ran 25-50 %
+//   slower on the card.
+//   Layout.  No swizzle: 8 rows of a panel are one 128-byte wgmma core
+//   matrix.  The same tile serves as a K-major operand (S = Q K^T: core
+//   matrices 128 bytes apart along the rows, a panel apart along D) and as
+//   an MN-major one (dQ += dS K, dV += P^T dO, dK += dS^T Q: a panel apart
+//   along D, 128 bytes apart along the rows), so nothing is stored twice or
+//   transposed, and every D that is a multiple of 8 needs no padding.
+//   Products.  S and dP are wgmma with both operands in shared memory; P
+//   and dS are packed from the fp32 accumulators into bf16/fp16 A fragments
+//   in registers, the A operand of the second pair.  Each warpgroup issues
+//   S, then dP, and forms P while dP is on the tensor cores; A'' issues
+//   dV += P^T dO before it forms dS^T, so that product runs under the dS^T
+//   arithmetic.  (Letting the last products of a tile finish under the next
+//   tile's S, releasing its stage a tile later, was slower on the card.)
+//   p = exp2(s * scale * log2(e) - lse * log2(e)).  The causal/ragged mask
+//   and the ALiBi term are compiled into separate versions of the
+//   per-element code, and the masked one runs only on tiles that cross the
+//   diagonal or the ragged edge; tiles wholly masked for a warpgroup are
+//   skipped.  sm_scale multiplies dS once, in the epilogue (dQ, dK).
 //
-// bf16 and fp16 (training): the four products of each kernel run on the
-// tensor cores (mma.sync m16n8k16, fp32 accumulators), 4 warps of 16 rows
-// each, with the forward kernel's fragment layouts.  S and dP stay fp32 in
-// the accumulators; P and dS are rounded to the input type only as mma
-// operands, taken straight from the accumulator registers; the second
-// operand of dS K, P^T dO and dS^T Q comes from ldmatrix.trans on the
-// row-major tile.  Tiles move by 16-byte cp.async, double-buffered: key
-// tiles for dQ, query tiles (of every query head of the group in turn) for
-// dK/dV.  lse and delta ride in registers (dQ: per row) or shared memory
-// (dK/dV: per column).
+// A'' (dK/dV): one block per (b, KV head, 128-key tile); each warpgroup holds
+// 64 keys' dK and dV in fp32 registers across every query head of the group
+// and every query tile (64 queries per step; 32 for D > 96, which keeps
+// S^T, dP^T and the D-wide dK/dV accumulators in registers).  K and V are
+// loaded once; Q, dO, lse and delta stream.  Under causal attention key
+// tile 0 walks every query tile and the last one walks 2 (an 8x spread at
+// S = 1024): the grid is ordered heaviest tiles first (block x -> key tile
+// x / (B * KVH)), so the light tiles fill the SMs at the end.
+//
+// A' (dQ): one block per (b * NH + h, 128-query tile), each warpgroup 64
+// rows.  Q and dO are loaded once; K and V stream in 64-key tiles.  Causal
+// blocks are ordered heaviest (last query tile) first.
+//
+// What the card gave (H100 80GB HBM3, 700 W; chip_smoke.py phase 6, numbers
+// in PERF.md section 6 rows 2-3): at the llama-1b training shape about 4x
+// the ops bound per kernel, 2.6x faster than the mma.sync kernels this
+// replaces and within ~10 % of SDPA's backward; at D = 128 the 32-query
+// step of A'' leaves it ~1.7x SDPA's.
+//
+// No atomics: every output element is written once by the block that owns
+// it, after sums taken in a fixed order, so gradients are bit-equal across
+// calls.
 //
 // fp32 (tests and small references): the FMA pipes, fp32 throughout.
 // dQ: one block of 256 threads per (b * NH + h, 64-row query tile),
@@ -47,22 +93,13 @@
 // (tiles wholly above it are skipped), staging K and V, and each thread
 // computes a 4 x 4 patch of s and dp (rows ty*4.., columns tx + 16 j), turns
 // it into ds in shared memory, and accumulates its 4 rows x D/16 columns of
-// dQ in registers.  One store per element at the end.
-//
-// dK/dV, both versions: the TPU kernel runs its grid over (KV head, key
-// tile, query head of the group) in order and carries fp32 dK/dV scratch
-// across the group axis.  Blocks on Hopper run in no order, so here one
-// block per (b * KVH + kv head, 64-key tile) loops over the q_per_kv query
-// heads of its group and over their query tiles itself (from the tile
-// holding the diagonal on, when causal), keeping its keys' dK and dV in
-// fp32 registers across the whole group: no atomics, no second pass, and
-// one store in k's dtype at the end.  Rows past Sq and keys past Sk are
-// masked here (JAX pads them).
-//
-// Shared-memory rows are padded (D + 1 floats on the FMA pipes, D + 8
-// halves for the tensor cores) so that the lanes' column and fragment reads
-// fall in distinct banks.
+// dQ in registers.  One store per element at the end.  dK/dV: one block per
+// (b * KVH + kv head, 64-key tile) loops over the query heads of its group
+// and their query tiles itself, keeping its keys' dK and dV in registers
+// across the whole group.  Shared-memory rows are padded to D + 1 floats so
+// that the lanes' column reads fall in distinct banks.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -72,9 +109,8 @@
 
 namespace {
 
-constexpr int kB = 64;         // query-tile and key-tile size
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 patch each
-
+constexpr int kB = 64;         // fp32 kernels: query-tile and key-tile size
+constexpr int kThreads = 256;  // fp32 kernels: 16 x 16 threads, 4 x 4 patch each
 // rows [r0, r0 + kB) of one head of a [B, S, H, D] fp32 tensor into smem
 // [kB][D + 1]; rows at or past S become zeros
 template <int D>
@@ -95,6 +131,7 @@ struct Args {
   int B, NH, KVH, Sq, Sk, causal;
   float sm_scale;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh;
+  int lse_bulk;   // bf16/fp16 dK/dV: lse and delta rows ride bulk copies (Sq % 4 == 0)
 };
 
 template <int D>
@@ -368,383 +405,816 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
 
 
 // ---------------------------------------------------------------------------
-// tensor-core kernels (bf16, fp16)
+// Hopper kernels (bf16, fp16): wgmma fed by TMA
 // ---------------------------------------------------------------------------
-constexpr int kMmaWarps = 4;
+constexpr int kThreadsWg = 256;     // two consumer warpgroups, 64 rows each
+constexpr int kStages = 5;          // ring depth of the streamed tiles
+constexpr int kAhead = 3;           // tiles in flight ahead of the one computed
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
+template <typename T> struct Cvt;
+template <> struct Cvt<__nv_bfloat16> {
   __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
-template <> struct Mma<__half> {
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
+template <> struct Cvt<__half> {
   __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
 
-// 16-byte async copy; n = 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
-// B fragment (16 rows x 8 columns) of a row-major [row][col] tile, transposed
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* row_addr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row_addr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
-// this lane's part of the A fragment (16 rows from r0 - lane/4, 16 columns)
-// of a row-major tile: rows r0 and r0 + 8, columns c0, c0 + 1 and c0 + 8, c0 + 9
-__device__ __forceinline__ void load_a(uint32_t* f, const uint16_t* tile, int RS, int r0, int c0) {
-  const uint16_t* p = tile + r0 * RS + c0;
-  f[0] = lds32(p);
-  f[1] = lds32(p + 8 * RS);
-  f[2] = lds32(p + 8);
-  f[3] = lds32(p + 8 * RS + 8);
-}
-
-// rows [r0, r0 + nrows) of one head of a [B, S, H, D] tensor into a padded
-// smem tile by 16-byte cp.async; rows at or past S are zero-filled
-template <typename T, int D>
-__device__ __forceinline__ void stage_async(T* dst, const T* src, long long row_stride, int r0,
-                                            int nrows, int S) {
-  constexpr int RS = D + 8, CPR = D / 8;
-  for (int i = threadIdx.x; i < nrows * CPR; i += kMmaWarps * 32) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const int row = r0 + r;
-    cp_async16(dst + r * RS + c, src + (long long)min(row, S - 1) * row_stride + c,
-               row < S ? 16 : 0);
+// spin until the phase of parity `parity` has completed.  A wait of more
+// than 4 s can only be a fault of the pipeline: it traps, so the launch
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0)
+      t0 = now;
+    else if (now - t0 > 4000000000ull)
+      __trap();
   }
 }
-
-template <int D>
-constexpr size_t dq_mma_smem_bytes() {  // Q, dO + 2 x (K, V)
-  return sizeof(uint16_t) * 6 * kB * (D + 8);
+// rows [row0, row0 + R) of one head of a [B, S, H, D] tensor as D/8 column
+// panels [D/8][R][8] at dst, in one TMA copy; rows past S arrive as zeros.
+// The map's dimensions are (8, H, S, D/8, B), its box (8, 1, R, D/8, 1).
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, int row0, int head,
+                                         int batch, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(head), "r"(row0), "r"(0), "r"(batch),
+      "r"(smem_u32(bar))
+      : "memory");
 }
-// query rows per step of the dK/dV kernel: 32 at D = 128 to keep the fp32
-// dK/dV accumulators and the S/dP tiles in registers
-template <int D>
-struct DkvTile {
-  static constexpr int BQ = D == 128 ? 32 : 64;
+// `bytes` (a multiple of 16) from 16-byte aligned global memory to shared
+// memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// wgmma shared-memory descriptor, no swizzle: lbo = bytes between core
+// matrices along K, sbo = bytes between core matrices along M or N
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep registers that an asynchronous wgmma reads or writes live and in
+// place up to this point
+template <int N> __device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// the A fragments of a 64 x N accumulator's columns taken 16 at a time (the
+// accumulator of columns 16 kq .. 16 kq + 15 is the A fragment of k-step kq)
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int kq = 0; kq < N / 16; ++kq)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) f[kq][r] = Cvt<T>::pack(acc[8 * kq + 2 * r], acc[8 * kq + 2 * r + 1]);
+}
+
+// m64nNk16, fp32 accumulators.  SS: A and B K-major in shared memory.  RS: A
+// from registers, B MN-major in shared memory.  d += A B (SS: d = A B when
+// acc is 0).
+template <typename T, int N> struct WgmmaSS;
+template <typename T, int N> struct WgmmaRS;
+template <> struct WgmmaSS<__nv_bfloat16, 32> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  }
 };
+template <> struct WgmmaSS<__nv_bfloat16, 64> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaRS<__nv_bfloat16, 16> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__nv_bfloat16, 32> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__nv_bfloat16, 48> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__nv_bfloat16, 64> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__nv_bfloat16, 80> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__nv_bfloat16, 96> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__nv_bfloat16, 112> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__nv_bfloat16, 128> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaSS<__half, 32> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaSS<__half, 64> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaRS<__half, 16> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__half, 32> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__half, 48> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__half, 64> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__half, 80> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__half, 96> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__half, 112> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgmmaRS<__half, 128> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// P^T of one 64-key x BQ-query tile of A'', in place of S^T.  Rows are keys
+// key0 and key0 + 8, columns queries q0 + 8 j + cq (+ 1).
+template <bool ALIBI, bool EDGE, int BQ>
+__device__ __forceinline__ void dkv_probs(float (&s)[BQ / 2], const float (&lse2)[BQ / 4],
+                                          int q0, int key0, int cq, const Args& a,
+                                          float scale2, float slope2) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+    const int lq = 8 * j + cq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const int qi = q0 + lq + (e & 1);
+      const int key = key0 + 8 * (e >> 1);
+      float x = fmaf(s[i], scale2, -lse2[2 * j + (e & 1)]);
+      if (ALIBI) x -= slope2 * (float)(qi - key);
+      float p = ex2(x);
+      if (EDGE && !(qi < a.Sq && key < a.Sk && (!a.causal || qi >= key))) p = 0.f;
+      s[i] = p;
+    }
+  }
+}
+
+// dS^T (unscaled) = P^T (dP^T - delta), in place of dP^T
+template <int BQ>
+__device__ __forceinline__ void dkv_dscores(float (&dp)[BQ / 2], const float (&p)[BQ / 2],
+                                            const float (&dl)[BQ / 4]) {
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) dp[i] = p[i] * (dp[i] - dl[2 * (i >> 2) + (i & 1)]);
+}
+
+// P of one 64-query x 64-key tile of A', in place of S.  Rows are queries
+// row0 and row0 + 8, columns keys k0 + 8 j + cq (+ 1).
+template <bool ALIBI, bool EDGE>
+__device__ __forceinline__ void dq_probs(float (&s)[32], const float* lse2, int row0, int k0,
+                                         int cq, const Args& a, float scale2, float slope2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const int qi = row0 + 8 * (e >> 1);
+      const int key = k0 + 8 * j + cq + (e & 1);
+      float x = fmaf(s[i], scale2, -lse2[e >> 1]);
+      if (ALIBI) x -= slope2 * (float)(qi - key);
+      float p = ex2(x);
+      if (EDGE && !(key < a.Sk && (!a.causal || qi >= key))) p = 0.f;
+      s[i] = p;
+    }
+  }
+}
+
 template <int D>
-constexpr size_t dkv_mma_smem_bytes() {  // K, V + 2 x (Q, dO)
-  return sizeof(uint16_t) * (2 * kB + 4 * DkvTile<D>::BQ) * (D + 8);
-}
+struct DkvCfg {
+  static constexpr int BK = 128;                // keys per block, 64 per consumer
+  static constexpr int BQ = D <= 96 ? 64 : 32;  // queries per pipeline step
+  static constexpr int K_BYTES = BK * D * 2;    // one of K, V
+  static constexpr int Q_BYTES = BQ * D * 2;    // one of Q, dO (per stage)
+  static constexpr size_t smem =
+      128 + 2 * K_BYTES + kStages * (2 * Q_BYTES + 2 * BQ * 4) + (1 + 2 * kStages) * 8;
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaWarps * 32) flash_bwd_dq_mma_kernel(Args a) {
-  constexpr int RS = D + 8, KT = D / 16, NT = kB / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kB][RS]
-  T* dOs = Qs + kB * RS;                   // [kB][RS]
-  T* Ks = dOs + kB * RS;                   // [2][kB][RS]
-  T* Vs = Ks + 2 * kB * RS;                // [2][kB][RS]
-  const uint16_t* Qh = reinterpret_cast<const uint16_t*>(Qs);
-  const uint16_t* dOh = reinterpret_cast<const uint16_t*>(dOs);
+__global__ void __launch_bounds__(kThreadsWg, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using C = DkvCfg<D>;
+  constexpr int BK = C::BK, BQ = C::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  T* Ks = reinterpret_cast<T*>(base);  // [D/8][BK][8]
+  T* Vs = Ks + BK * D;                 // [D/8][BK][8]
+  T* Qs = Vs + BK * D;                 // [kStages][D/8][BQ][8]
+  T* dOs = Qs + kStages * BQ * D;      // [kStages][D/8][BQ][8]
+  float* lse_s = reinterpret_cast<float*>(dOs + kStages * BQ * D);  // [kStages][BQ]
+  float* dl_s = lse_s + kStages * BQ;                               // [kStages][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dl_s + kStages * BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / a.NH, h = bh % a.NH;
-  const int kvh = h / (a.NH / a.KVH);
-  const int q_start = blockIdx.x * kB;
-  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-  const T* ob = static_cast<const T*>(a.dout) + b * a.dsb + h * a.dsh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
-
-  stage_async<T, D>(Qs, qb, a.qss, q_start, kB, a.Sq);
-  stage_async<T, D>(dOs, ob, a.dss, q_start, kB, a.Sq);
-  cp_async_commit();
-  auto load_kv = [&](int buf, int k0) {
-    stage_async<T, D>(Ks + buf * kB * RS, kb, a.kss, k0, kB, a.Sk);
-    stage_async<T, D>(Vs + buf * kB * RS, vb, a.vss, k0, kB, a.Sk);
-    cp_async_commit();
-  };
-  int k_end = a.Sk;
-  if (a.causal) k_end = min(k_end, q_start + kB);  // keys past the tile's last row
-  const int n_tiles = (k_end + kB - 1) / kB;
-  if (n_tiles > 0) {
-    load_kv(0, 0);
-    cp_async_wait<1>();
-  } else {
-    cp_async_wait<0>();
-  }
-  __syncthreads();
-
-  const int r0 = warp * 16 + (lane >> 2);  // this lane's rows: r0 and r0 + 8
-  const int cq = (lane & 3) * 2;           // and its column pair
-  const long long rowbase = ((long long)b * a.NH + h) * a.Sq;
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q_start + r0 + 8 * i;
-    lse_r[i] = row < a.Sq ? a.lse[rowbase + row] : 0.f;
-    dl_r[i] = row < a.Sq ? a.delta[rowbase + row] : 0.f;
-  }
-  const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int cur = t & 1;
-    const int k0 = t * kB;
-    if (t + 1 < n_tiles) {
-      load_kv(cur ^ 1, k0 + kB);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* Kc = Ks + cur * kB * RS;
-    const T* Vc = Vs + cur * kB * RS;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      uint32_t qa[4], oa[4];
-      load_a(qa, Qh, RS, r0, kt * 16 + cq);
-      load_a(oa, dOh, RS, r0, kt * 16 + cq);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const T* kr = Kc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
-        const T* vr = Vc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
-        const uint32_t bk[2] = {lds32(kr), lds32(kr + 8)};
-        const uint32_t bv[2] = {lds32(vr), lds32(vr + 8)};
-        Mma<T>::run(s[nt], qa, bk);
-        Mma<T>::run(dp[nt], oa, bv);
-      }
-    }
-    // dS = P (dP - delta) scale, P recomputed from lse; packed as A fragments
-    uint32_t dsf[NT / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int row = q_start + r0 + 8 * i;
-        const int col = k0 + nt * 8 + cq + (e & 1);
-        float x = s[nt][e] * a.sm_scale;
-        if (a.slopes != nullptr) x -= slope * (float)(row - col);
-        const bool vis = row < a.Sq && col < a.Sk && (!a.causal || row >= col);
-        const float p = vis ? expf(x - lse_r[i]) : 0.f;
-        ds[e] = p * (dp[nt][e] - dl_r[i]) * a.sm_scale;
-      }
-      dsf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(ds[0], ds[1]);
-      dsf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(ds[2], ds[3]);
-    }
-    // dQ += dS K
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      const T* kr = Kc + (j * 16 + (lane & 15)) * RS;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bk[2];
-        ldmatrix_x2_trans(bk, kr + dt * 8);
-        Mma<T>::run(acc[dt], dsf[j], bk);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer cur before it is refilled
-  }
-
-  T* dq = static_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q_start + r0 + 8 * i;
-    if (qi >= a.Sq) continue;
-    T* row = dq + (((long long)b * a.Sq + qi) * a.NH + h) * D;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(row + dt * 8 + cq) =
-          Mma<T>::pack(acc[dt][2 * i], acc[dt][2 * i + 1]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kMmaWarps * 32) flash_bwd_dkv_mma_kernel(Args a) {
-  constexpr int RS = D + 8, KT = D / 16, DT = D / 8;
-  constexpr int BQ = DkvTile<D>::BQ, NT = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [kB][RS]
-  T* Vs = Ks + kB * RS;                    // [kB][RS]
-  T* Qs = Vs + kB * RS;                    // [2][BQ][RS]
-  T* dOs = Qs + 2 * BQ * RS;               // [2][BQ][RS]
-  __shared__ float lse_s[2][64], dl_s[2][64];
-  const uint16_t* Kh = reinterpret_cast<const uint16_t*>(Ks);
-  const uint16_t* Vh = reinterpret_cast<const uint16_t*>(Vs);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bk = blockIdx.y;
-  const int b = bk / a.KVH, kvh = bk % a.KVH;
+  const int BH = a.B * a.KVH;
+  const int kb = blockIdx.x / BH;  // heaviest key tiles (most query tiles) first
+  const int b = (blockIdx.x % BH) / a.KVH, kvh = (blockIdx.x % BH) % a.KVH;
   const int group = a.NH / a.KVH;
-  const int k_start = blockIdx.x * kB;
-  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
-
-  stage_async<T, D>(Ks, kb, a.kss, k_start, kB, a.Sk);
-  stage_async<T, D>(Vs, vb, a.vss, k_start, kB, a.Sk);
-  cp_async_commit();
-
-  // the steps: every query head of the group, each over its query tiles
-  // from the one holding this key tile's first key (when causal)
-  const int first = a.causal ? k_start / BQ : 0;
-  const int n_q = (a.Sq + BQ - 1) / BQ;
-  const int per_head = max(n_q - first, 0);
+  const int k0 = kb * BK;
+  // query tiles wholly before this key tile see none of it when causal
+  const int first = a.causal ? k0 / BQ : 0;
+  const int per_head = max((a.Sq + BQ - 1) / BQ - first, 0);
   const int total = group * per_head;
-  auto load_q = [&](int buf, int it) {
-    const int h = kvh * group + it / per_head;
-    const int q0 = (first + it % per_head) * BQ;
-    const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-    const T* ob = static_cast<const T*>(a.dout) + b * a.dsb + h * a.dsh;
-    stage_async<T, D>(Qs + buf * BQ * RS, qb, a.qss, q0, BQ, a.Sq);
-    stage_async<T, D>(dOs + buf * BQ * RS, ob, a.dss, q0, BQ, a.Sq);
-    cp_async_commit();
-    if (threadIdx.x < BQ) {
-      const int qi = q0 + threadIdx.x;
-      const long long rowbase = ((long long)b * a.NH + h) * a.Sq;
-      lse_s[buf][threadIdx.x] = qi < a.Sq ? a.lse[rowbase + qi] : 0.f;
-      dl_s[buf][threadIdx.x] = qi < a.Sq ? a.delta[rowbase + qi] : 0.f;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kThreadsWg);
     }
-  };
-  if (total > 0) {
-    load_q(0, 0);
-    cp_async_wait<1>();
-  } else {
-    cp_async_wait<0>();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // a ragged last tile's bulk copies stop at Sq: the rest of its lse and
+  // delta rows keeps earlier (finite) values, masked out with p = 0
+  for (int i = threadIdx.x; i < 2 * kStages * BQ; i += kThreadsWg) lse_s[i] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // before the copies land
   __syncthreads();
 
-  const int r0 = warp * 16 + (lane >> 2);  // this lane's keys: r0 and r0 + 8
-  const int cq = (lane & 3) * 2;
-  float dk[DT][4], dv[DT][4];
+  // warpgroup c holds keys [kw, kw + 64)
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x - 128 * c;
+  const int lane = tid & 31;
+  // thread 0 keeps the ring kAhead tiles ahead: for tile t it waits until
+  // both warpgroups are done with the stage's previous tile (t - kStages)
+  // and issues the copies of Q and dO, and of the rows' lse and delta
+  const bool issuer = threadIdx.x == 0;
+  const bool bulk = a.lse_bulk != 0;
+  auto issue = [&](int t) {
+    const int st = t % kStages;
+    if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
+    const int h = kvh * group + t / per_head;
+    const int q0 = (first + t % per_head) * BQ;
+    const uint32_t nb = bulk ? 4u * min(BQ, a.Sq - q0) : 0u;
+    mbar_arrive_tx(&full[st], 2 * C::Q_BYTES + 2 * nb);
+    tma_tile(Qs + st * BQ * D, &tq, q0, h, b, &full[st]);
+    tma_tile(dOs + st * BQ * D, &tdo, q0, h, b, &full[st]);
+    if (bulk) {
+      const long long row = ((long long)b * a.NH + h) * a.Sq + q0;
+      bulk_copy(lse_s + st * BQ, a.lse + row, nb, &full[st]);
+      bulk_copy(dl_s + st * BQ, a.delta + row, nb, &full[st]);
+    }
+  };
+  if (issuer) {
+    mbar_arrive_tx(kv_full, 2 * C::K_BYTES);
+    tma_tile(Ks, &tk, k0, kvh, b, kv_full);
+    tma_tile(Vs, &tv, k0, kvh, b, kv_full);
+    for (int t = 0; t < min(total, kAhead); ++t) issue(t);
+  }
+  const int kw = k0 + 64 * c;
+  const int key0 = kw + 16 * (tid >> 5) + (lane >> 2);  // this lane's keys: key0, key0 + 8
+  const int cq = (lane & 3) * 2;                        // and its column pair
+  const float scale2 = a.sm_scale * kLog2e;
+  const T* Kw = Ks + 64 * c * 8;
+  const T* Vw = Vs + 64 * c * 8;
+
+  float dk[D / 2], dv[D / 2], s[BQ / 2], dp[BQ / 2];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+  for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+  uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+  mbar_wait(kv_full, 0);
 
   for (int it = 0; it < total; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < total) {
-      load_q(cur ^ 1, it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    if (issuer && it + kAhead < total) issue(it + kAhead);
+    const int stage = it % kStages;
     const int h = kvh * group + it / per_head;
     const int q0 = (first + it % per_head) * BQ;
-    const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
-    const T* Qc = Qs + cur * BQ * RS;
-    const T* dOc = dOs + cur * BQ * RS;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
-    float s[NT][4], dp[NT][4];
+    // a tile wholly before this warpgroup's first key is masked out whole
+    const bool active = kw < a.Sk && !(a.causal && q0 + BQ - 1 < kw);
+    // this thread's columns' lse * log2(e) and delta: from the stage's bulk
+    // copies, or (Sq off a multiple of 4) loaded here while the tile lands
+    float lse2[BQ / 4], dl[BQ / 4];
+    if (active && !bulk) {
+      const long long rowbase = ((long long)b * a.NH + h) * a.Sq;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        for (int e = 0; e < 2; ++e) {
+          const int qi = q0 + 8 * j + cq + e;
+          lse2[2 * j + e] = qi < a.Sq ? __ldg(a.lse + rowbase + qi) * kLog2e : 0.f;
+          dl[2 * j + e] = qi < a.Sq ? __ldg(a.delta + rowbase + qi) : 0.f;
+        }
+    }
+    mbar_wait(&full[stage], (it / kStages) & 1);
+    if (active && bulk) {
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      uint32_t ka[4], va[4];
-      load_a(ka, Kh, RS, r0, kt * 16 + cq);
-      load_a(va, Vh, RS, r0, kt * 16 + cq);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const T* qr = Qc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
-        const T* orr = dOc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
-        const uint32_t bq[2] = {lds32(qr), lds32(qr + 8)};
-        const uint32_t bo[2] = {lds32(orr), lds32(orr + 8)};
-        Mma<T>::run(s[nt], ka, bq);
-        Mma<T>::run(dp[nt], va, bo);
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + stage * BQ + 8 * j + cq);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl_s + stage * BQ + 8 * j + cq);
+        lse2[2 * j] = l2.x * kLog2e;
+        lse2[2 * j + 1] = l2.y * kLog2e;
+        dl[2 * j] = d2.x;
+        dl[2 * j + 1] = d2.y;
       }
     }
-    // P^T and dS^T, packed as A fragments over the query (k) dimension
-    uint32_t pf[NT / 2][4], dsf[NT / 2][4];
+    const T* Qc = Qs + stage * BQ * D;
+    const T* dOc = dOs + stage * BQ * D;
+    if (active) {
+      // S^T = K Q^T, then dP^T = V dO^T (64 keys x BQ queries): P is
+      // formed while dP^T is still on the tensor cores
+      wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float p[4], ds[4];
+      for (int kk = 0; kk < D / 16; ++kk)
+        WgmmaSS<T, BQ>::run(s, gmma_desc(Kw + kk * 2 * BK * 8, BK * 16, 128),
+                            gmma_desc(Qc + kk * 2 * BQ * 8, BQ * 16, 128), kk > 0);
+      wg_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k_start + r0 + 8 * (e >> 1);
-        const int lq = nt * 8 + cq + (e & 1);
-        const int row = q0 + lq;
-        float x = s[nt][e] * a.sm_scale;
-        if (a.slopes != nullptr) x -= slope * (float)(row - key);
-        const bool vis = row < a.Sq && key < a.Sk && (!a.causal || row >= key);
-        p[e] = vis ? expf(x - lse_s[cur][lq]) : 0.f;
-        ds[e] = p[e] * (dp[nt][e] - dl_s[cur][lq]) * a.sm_scale;
-      }
-      pf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(p[0], p[1]);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(p[2], p[3]);
-      dsf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(ds[0], ds[1]);
-      dsf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(ds[2], ds[3]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        WgmmaSS<T, BQ>::run(dp, gmma_desc(Vw + kk * 2 * BK * 8, BK * 16, 128),
+                            gmma_desc(dOc + kk * 2 * BQ * 8, BQ * 16, 128), kk > 0);
+      wg_commit();
     }
-    // dV += P^T dO and dK += dS^T Q
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      const T* orow = dOc + (j * 16 + (lane & 15)) * RS;
-      const T* qrow = Qc + (j * 16 + (lane & 15)) * RS;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bo[2], bq[2];
-        ldmatrix_x2_trans(bo, orow + dt * 8);
-        Mma<T>::run(dv[dt], pf[j], bo);
-        ldmatrix_x2_trans(bq, qrow + dt * 8);
-        Mma<T>::run(dk[dt], dsf[j], bq);
+    if (active) {
+      wg_wait<1>();
+      pin(s);
+      const bool edge = (a.causal && q0 < kw + 63) || q0 + BQ > a.Sq || kw + 64 > a.Sk;
+      if (a.slopes != nullptr) {
+        const float slope2 = a.slopes[h] * kLog2e;
+        if (edge)
+          dkv_probs<true, true, BQ>(s, lse2, q0, key0, cq, a, scale2, slope2);
+        else
+          dkv_probs<true, false, BQ>(s, lse2, q0, key0, cq, a, scale2, slope2);
+      } else if (edge) {
+        dkv_probs<false, true, BQ>(s, lse2, q0, key0, cq, a, scale2, 0.f);
+      } else {
+        dkv_probs<false, false, BQ>(s, lse2, q0, key0, cq, a, scale2, 0.f);
       }
+      pack_a<T, BQ>(pf, s);
+      wg_wait<0>();
+      pin(dp);
+      // dV += P^T dO (dO read MN-major) runs while dS^T is formed
+      wg_fence();
+#pragma unroll
+      for (int kq = 0; kq < BQ / 16; ++kq)
+        WgmmaRS<T, D>::run(dv, pf[kq], gmma_desc(dOc + kq * 16 * 8, 128, BQ * 16));
+      wg_commit();
+      dkv_dscores<BQ>(dp, s, dl);
+      pack_a<T, BQ>(dsf, dp);
+      // dK += dS^T Q, Q read MN-major
+      wg_fence();
+#pragma unroll
+      for (int kq = 0; kq < BQ / 16; ++kq)
+        WgmmaRS<T, D>::run(dk, dsf[kq], gmma_desc(Qc + kq * 16 * 8, 128, BQ * 16));
+      wg_commit();
+      wg_wait<0>();
+      pin(dv);
+      pin(dk);
+      pin(pf);
+      pin(dsf);
     }
-    __syncthreads();  // every warp is done with buffer cur before it is refilled
+    mbar_arrive(&empty[stage]);
   }
 
   T* dkp = static_cast<T*>(a.dk);
   T* dvp = static_cast<T*>(a.dv);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = k_start + r0 + 8 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
     if (key >= a.Sk) continue;
     const long long off = (((long long)b * a.Sk + key) * a.KVH + kvh) * D;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(dkp + off + dt * 8 + cq) =
-          Mma<T>::pack(dk[dt][2 * i], dk[dt][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dvp + off + dt * 8 + cq) =
-          Mma<T>::pack(dv[dt][2 * i], dv[dt][2 * i + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dkp + off + 8 * j + cq) =
+          Cvt<T>::pack(dk[4 * j + 2 * r] * a.sm_scale, dk[4 * j + 2 * r + 1] * a.sm_scale);
+      *reinterpret_cast<uint32_t*>(dvp + off + 8 * j + cq) =
+          Cvt<T>::pack(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
+  }
+}
+
+template <int D>
+struct DqCfg {
+  static constexpr int BQ = 128;              // queries per block, 64 per consumer
+  static constexpr int BK = 64;               // keys per pipeline step
+  static constexpr int Q_BYTES = BQ * D * 2;  // one of Q, dO
+  static constexpr int K_BYTES = BK * D * 2;  // one of K, V (per stage)
+  static constexpr size_t smem = 128 + 2 * Q_BYTES + kStages * 2 * K_BYTES + (1 + 2 * kStages) * 8;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreadsWg, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using C = DqCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  T* Qs = reinterpret_cast<T*>(base);  // [D/8][BQ][8]
+  T* dOs = Qs + BQ * D;                // [D/8][BQ][8]
+  T* Ks = dOs + BQ * D;                // [kStages][D/8][BK][8]
+  T* Vs = Ks + kStages * BK * D;       // [kStages][D/8][BK][8]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * BK * D);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int BH = a.B * a.NH;
+  const int n_qb = (a.Sq + BQ - 1) / BQ;
+  // heaviest query tiles (the most keys under causal attention) first
+  const int qb = a.causal ? n_qb - 1 - (int)(blockIdx.x / BH) : (int)(blockIdx.x / BH);
+  const int b = (blockIdx.x % BH) / a.NH, h = (blockIdx.x % BH) % a.NH;
+  const int kvh = h / (a.NH / a.KVH);
+  const int q0 = qb * BQ;
+  int k_end = a.Sk;
+  if (a.causal) k_end = min(k_end, q0 + BQ);  // keys past the tile's last row
+  const int n_kt = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kThreadsWg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 keeps the ring kAhead key tiles ahead: for tile t it waits
+  // until both warpgroups are done with the stage's previous tile
+  const bool issuer = threadIdx.x == 0;
+  auto issue = [&](int t) {
+    const int st = t % kStages;
+    if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
+    mbar_arrive_tx(&full[st], 2 * C::K_BYTES);
+    tma_tile(Ks + st * BK * D, &tk, t * BK, kvh, b, &full[st]);
+    tma_tile(Vs + st * BK * D, &tv, t * BK, kvh, b, &full[st]);
+  };
+  if (issuer) {
+    mbar_arrive_tx(q_full, 2 * C::Q_BYTES);
+    tma_tile(Qs, &tq, q0, h, b, q_full);
+    tma_tile(dOs, &tdo, q0, h, b, q_full);
+    for (int t = 0; t < min(n_kt, kAhead); ++t) issue(t);
+  }
+
+  // warpgroup c holds queries [qw, qw + 64)
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x - 128 * c;
+  const int lane = tid & 31;
+  const int qw = q0 + 64 * c;
+  const int row0 = qw + 16 * (tid >> 5) + (lane >> 2);  // this lane's rows: row0, row0 + 8
+  const int cq = (lane & 3) * 2;
+  const float scale2 = a.sm_scale * kLog2e;
+  const long long rowbase = ((long long)b * a.NH + h) * a.Sq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    lse2[r] = qi < a.Sq ? a.lse[rowbase + qi] * kLog2e : 0.f;
+    dl[r] = qi < a.Sq ? a.delta[rowbase + qi] : 0.f;
+  }
+  const float slope2 = a.slopes != nullptr ? a.slopes[h] * kLog2e : 0.f;
+  const T* Qw = Qs + 64 * c * 8;
+  const T* dOw = dOs + 64 * c * 8;
+
+  float dq[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  uint32_t dsf[4][4];
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_kt; ++t) {
+    if (issuer && t + kAhead < n_kt) issue(t + kAhead);
+    const int stage = t % kStages;
+    const int k0 = t * BK;
+    mbar_wait(&full[stage], (t / kStages) & 1);
+    // a key tile wholly past this warpgroup's last row is masked out whole
+    const bool active = qw < a.Sq && !(a.causal && k0 > qw + 63);
+    const T* Kc = Ks + stage * BK * D;
+    const T* Vc = Vs + stage * BK * D;
+    if (active) {
+      // S = Q K^T, then dP = dO V^T (64 queries x 64 keys): P is formed
+      // while dP is still on the tensor cores
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        WgmmaSS<T, 64>::run(s, gmma_desc(Qw + kk * 2 * BQ * 8, BQ * 16, 128),
+                            gmma_desc(Kc + kk * 2 * BK * 8, BK * 16, 128), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        WgmmaSS<T, 64>::run(dp, gmma_desc(dOw + kk * 2 * BQ * 8, BQ * 16, 128),
+                            gmma_desc(Vc + kk * 2 * BK * 8, BK * 16, 128), kk > 0);
+      wg_commit();
+    }
+    if (active) {
+      wg_wait<1>();
+      pin(s);
+      const bool edge = (a.causal && k0 + BK - 1 > qw) || k0 + BK > a.Sk;
+      if (a.slopes != nullptr) {
+        if (edge)
+          dq_probs<true, true>(s, lse2, row0, k0, cq, a, scale2, slope2);
+        else
+          dq_probs<true, false>(s, lse2, row0, k0, cq, a, scale2, slope2);
+      } else if (edge) {
+        dq_probs<false, true>(s, lse2, row0, k0, cq, a, scale2, 0.f);
+      } else {
+        dq_probs<false, false>(s, lse2, row0, k0, cq, a, scale2, 0.f);
+      }
+      wg_wait<0>();
+      pin(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
+      pack_a<T, 64>(dsf, dp);
+      // dQ += dS K, K read MN-major
+      wg_fence();
+#pragma unroll
+      for (int kq = 0; kq < BK / 16; ++kq)
+        WgmmaRS<T, D>::run(dq, dsf[kq], gmma_desc(Kc + kq * 16 * 8, 128, BK * 16));
+      wg_commit();
+      wg_wait<0>();
+      pin(dq);
+      pin(dsf);
+    }
+    mbar_arrive(&empty[stage]);
+  }
+
+  T* dqp = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= a.Sq) continue;
+    T* row = dqp + (((long long)b * a.Sq + qi) * a.NH + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + cq) =
+          Cvt<T>::pack(dq[4 * j + 2 * r] * a.sm_scale, dq[4 * j + 2 * r + 1] * a.sm_scale);
   }
 }
 
@@ -757,37 +1227,107 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// fp32 on the FMA pipes, bf16/fp16 on the tensor cores
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// the TMA map of a [B, S, H, D] tensor read through its element strides
+// (batch sb, sequence ss, head sh): R rows of one head as D/8 panels of 8
+// columns, the panel index a dimension of its own 16 bytes apart, so one
+// copy lands a tile.  Dims (8, H, S, D/8, B), box (8, 1, R, D/8, 1).
+template <typename T>
+cudaError_t tile_map(CUtensorMap* m, const void* ptr, int D, int S, int H, int B, long long sb,
+                     long long ss, long long sh, int R) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapDataType dt = std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dims[5] = {8, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)D / 8, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {sh * e, ss * e, 16, sb * e};
+  const cuuint32_t box[5] = {8, 1, (cuuint32_t)R, (cuuint32_t)D / 8, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = enc(m, dt, 5, const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the four maps of q, k, v, dO: q and dO in boxes of rq rows, k and v of rk
+template <typename T, int D>
+cudaError_t make_maps(const Args& a, int rq, int rk, CUtensorMap* m) {
+  cudaError_t e;
+  if ((e = tile_map<T>(&m[0], a.q, D, a.Sq, a.NH, a.B, a.qsb, a.qss, a.qsh, rq)) != cudaSuccess ||
+      (e = tile_map<T>(&m[1], a.k, D, a.Sk, a.KVH, a.B, a.ksb, a.kss, a.ksh, rk)) != cudaSuccess ||
+      (e = tile_map<T>(&m[2], a.v, D, a.Sk, a.KVH, a.B, a.vsb, a.vss, a.vsh, rk)) != cudaSuccess ||
+      (e = tile_map<T>(&m[3], a.dout, D, a.Sq, a.NH, a.B, a.dsb, a.dss, a.dsh, rq)) != cudaSuccess)
+    return e;
+  return cudaSuccess;
+}
+
+// fp32 on the FMA pipes, bf16/fp16 by wgmma
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.Sq + kB - 1) / kB, a.B * a.NH);
   if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid((a.Sq + kB - 1) / kB, a.B * a.NH);
     constexpr size_t smem = dq_smem_bytes<D>();
     static cudaError_t attr = opt_in(flash_bwd_dq_kernel<D>, smem);
     if (attr != cudaSuccess) return attr;
     flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(a);
   } else {
-    constexpr size_t smem = dq_mma_smem_bytes<D>();
-    static cudaError_t attr = opt_in(flash_bwd_dq_mma_kernel<T, D>, smem);
+    using C = DqCfg<D>;
+    CUtensorMap m[4];
+    const cudaError_t e = make_maps<T, D>(a, C::BQ, C::BK, m);
+    if (e != cudaSuccess) return e;
+    static cudaError_t attr = opt_in(flash_bwd_dq_wgmma_kernel<T, D>, C::smem);
     if (attr != cudaSuccess) return attr;
-    flash_bwd_dq_mma_kernel<T, D><<<grid, kMmaWarps * 32, smem, stream>>>(a);
+    const unsigned blocks = (unsigned)((a.Sq + C::BQ - 1) / C::BQ) * a.B * a.NH;
+    flash_bwd_dq_wgmma_kernel<T, D><<<blocks, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2],
+                                                                             m[3], a);
   }
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.Sk + kB - 1) / kB, a.B * a.KVH);
   if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid((a.Sk + kB - 1) / kB, a.B * a.KVH);
     constexpr size_t smem = dkv_smem_bytes<D>();
     static cudaError_t attr = opt_in(flash_bwd_dkv_kernel<D>, smem);
     if (attr != cudaSuccess) return attr;
     flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(a);
   } else {
-    constexpr size_t smem = dkv_mma_smem_bytes<D>();
-    static cudaError_t attr = opt_in(flash_bwd_dkv_mma_kernel<T, D>, smem);
+    using C = DkvCfg<D>;
+    CUtensorMap m[4];
+    const cudaError_t e = make_maps<T, D>(a, C::BQ, C::BK, m);
+    if (e != cudaSuccess) return e;
+    Args t = a;
+    t.lse_bulk = a.Sq % 4 == 0 && reinterpret_cast<uintptr_t>(a.lse) % 16 == 0 &&
+                 reinterpret_cast<uintptr_t>(a.delta) % 16 == 0;
+    static cudaError_t attr = opt_in(flash_bwd_dkv_wgmma_kernel<T, D>, C::smem);
     if (attr != cudaSuccess) return attr;
-    flash_bwd_dkv_mma_kernel<T, D><<<grid, kMmaWarps * 32, smem, stream>>>(a);
+    const unsigned blocks = (unsigned)((a.Sk + C::BK - 1) / C::BK) * a.B * a.KVH;
+    flash_bwd_dkv_wgmma_kernel<T, D><<<blocks, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2],
+                                                                              m[3], t);
   }
   return cudaGetLastError();
 }
@@ -795,14 +1335,18 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_d(bool dkv, int D, const Args& a, cudaStream_t st) {
   switch (D) {
-    case 16:
-      return dkv ? launch_dkv<T, 16>(a, st) : launch_dq<T, 16>(a, st);
-    case 32:
-      return dkv ? launch_dkv<T, 32>(a, st) : launch_dq<T, 32>(a, st);
-    case 64:
-      return dkv ? launch_dkv<T, 64>(a, st) : launch_dq<T, 64>(a, st);
-    case 128:
-      return dkv ? launch_dkv<T, 128>(a, st) : launch_dq<T, 128>(a, st);
+#define DSTPU_BWD_CASE(d) \
+  case d:                 \
+    return dkv ? launch_dkv<T, d>(a, st) : launch_dq<T, d>(a, st);
+    DSTPU_BWD_CASE(16)
+    DSTPU_BWD_CASE(32)
+    DSTPU_BWD_CASE(48)
+    DSTPU_BWD_CASE(64)
+    DSTPU_BWD_CASE(80)
+    DSTPU_BWD_CASE(96)
+    DSTPU_BWD_CASE(112)
+    DSTPU_BWD_CASE(128)
+#undef DSTPU_BWD_CASE
     default:
       return cudaErrorInvalidValue;
   }
@@ -829,10 +1373,11 @@ int dispatch(bool dkv, int dtype, int D, const Args& a, void* stream) {
 
 // dtype: 0 = fp32, 1 = bf16, 2 = fp16 (q, k, v, dO and the gradients).
 // q and dO [B, Sq, NH, D], k and v [B, Sk, KVH, D], read through the given
-// element strides (batch, sequence, head; the last dim contiguous).  lse and
-// delta [B, NH, Sq] fp32 contiguous; slopes [NH] fp32 or null.  dq
-// [B, Sq, NH, D] and dk, dv [B, Sk, KVH, D] contiguous, written whole.  D is
-// 16, 32, 64 or 128.  Returns cudaGetLastError() after the launch.
+// element strides (batch, sequence, head; the last dim contiguous; for
+// bf16/fp16 each base and stride a multiple of 16 bytes).  lse and delta
+// [B, NH, Sq] fp32 contiguous; slopes [NH] fp32 or null.  dq [B, Sq, NH, D]
+// and dk, dv [B, Sk, KVH, D] contiguous, written whole.  D is a multiple of
+// 16 from 16 to 128.  Returns cudaGetLastError() after the launch.
 #define DSTPU_BWD_PARAMS                                                                      \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,             \
       const void *delta, const void *slopes, int dtype, int B, int NH, int KVH, int Sq,       \

@@ -524,7 +524,8 @@ cudaError_t dispatch_dtype(int dtype, const Args& a, cudaStream_t stream) {
 // dtype: 0 = fp32, 1 = bf16, 2 = fp16.  q [B, Sq, NH, D] and k/v [B, Sk, KVH, D]
 // with the given element strides (the last dim contiguous; for bf16/fp16 every
 // row 16-byte aligned); o [B, Sq, NH, D] contiguous in q's dtype; lse
-// [B, NH, Sq] fp32; slopes [NH] fp32 or null.  D is 16, 32, 64 or 128.
+// [B, NH, Sq] fp32; slopes [NH] fp32 or null.  D is a multiple of 16 from 16
+// to 128.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int dstpu_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* slopes,
@@ -542,8 +543,16 @@ extern "C" int dstpu_flash_attention_fwd(
       return (int)dispatch_dtype<16>(dtype, a, st);
     case 32:
       return (int)dispatch_dtype<32>(dtype, a, st);
+    case 48:
+      return (int)dispatch_dtype<48>(dtype, a, st);
     case 64:
       return (int)dispatch_dtype<64>(dtype, a, st);
+    case 80:
+      return (int)dispatch_dtype<80>(dtype, a, st);
+    case 96:
+      return (int)dispatch_dtype<96>(dtype, a, st);
+    case 112:
+      return (int)dispatch_dtype<112>(dtype, a, st);
     case 128:
       return (int)dispatch_dtype<128>(dtype, a, st);
     default:

@@ -352,15 +352,19 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <typename T, typename KT>
 cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, KT, 16>(a, stream);
-    case 32:
-      return launch<T, KT, 32>(a, stream);
-    case 64:
-      return launch<T, KT, 64>(a, stream);
-    case 128:
-      return launch<T, KT, 128>(a, stream);
+  switch (D) {  // every multiple of 16 from 16 to 128 (a row is whole 16-byte copies)
+#define DSTPU_PAGED_CASE(d) \
+  case d:                   \
+    return launch<T, KT, d>(a, stream);
+    DSTPU_PAGED_CASE(16)
+    DSTPU_PAGED_CASE(32)
+    DSTPU_PAGED_CASE(48)
+    DSTPU_PAGED_CASE(64)
+    DSTPU_PAGED_CASE(80)
+    DSTPU_PAGED_CASE(96)
+    DSTPU_PAGED_CASE(112)
+    DSTPU_PAGED_CASE(128)
+#undef DSTPU_PAGED_CASE
     default:
       return cudaErrorInvalidValue;
   }
@@ -376,8 +380,8 @@ cudaError_t dispatch_quant(int quant, int D, const Args& a, cudaStream_t stream)
 // dtype (of q and out; of the pools unless quant): 0 = fp32, 1 = bf16, 2 = fp16.
 // q [B, NH, D]; pools [P, ps, KVH, D] (int8 when quant, with fp32 scales
 // [P, ps, KVH]), 16-byte aligned; page_table [B, MP] int32; positions [B]
-// int32; slopes [NH] fp32 or null; out [B, NH, D].  All contiguous.  D is 16,
-// 32, 64 or 128.  Each sequence's pages are split across blocks of
+// int32; slopes [NH] fp32 or null; out [B, NH, D].  All contiguous.  D is a
+// multiple of 16 from 16 to 128.  Each sequence's pages are split across blocks of
 // pages_per_split pages; when MP > pages_per_split, part is fp32 scratch of
 // B * KVH * ceil(MP / pages_per_split) * (NH / KVH) * (D + 2) floats.
 // Returns cudaGetLastError() after the launches (0 = launched).

@@ -17,10 +17,23 @@
 // when causal), and each CUDA block owns one (b, h, 64-row query tile) and
 // walks the on-blocks of its layout row only: an off-layout block costs no
 // load at all, and under causal the walk stops at the diagonal.  A layout
-// block (128 by default) is cut into 64-key tiles; in the diagonal block the
-// tiles wholly above the query tile's last row are not visited.  Keys are
-// masked only on the diagonal (S is a multiple of the block, so there are
-// no ragged tails).
+// block that is a multiple of 64 (128 by default) is cut into 64-key tiles;
+// in the diagonal block the tiles wholly above the query tile's last row are
+// not visited, and keys are masked only on the diagonal (S is a multiple of
+// the block, so there are no ragged tails).
+//
+// Blocks that are a multiple of 16 but not of 64 (DeepSpeed's GPU default
+// is 16): the tile stays 64 x 64, and the wrapper ORs the layout, taken at
+// 16 x 16 units, into 64 x 64 tiles.  The lists then name the tiles to
+// visit, and each visited tile carries a 16-bit mask of its units (bit 4 *
+// row unit + column unit); a unit that is off is masked like the diagonal.
+// A 16-row unit is one warp's rows, so a warp reads 4 bits per tile.  This
+// keeps the tensor-core tile (and the block >= 64 path, timed in PERF.md)
+// as it is, where a 16- or 32-row tile would quarter the work per K/V load;
+// the cost is the masked compare on such tiles and the off units inside a
+// visited tile.  S need only be a multiple of 16 there: rows and keys past S
+// are zero-filled on load, their units are off, and rows past S are not
+// stored.
 //
 // What bounds it on the H100: the arithmetic.  At B = 1, S = 4096, H = 16,
 // D = 64 (BERT-large's heads at a long sequence) a visible 128 x 128 block
@@ -57,6 +70,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
+// exp(s - m) of a score; GUARD: 0 for a masked one (s = kNegInf) whatever
+// m is, also when its whole row is masked so far
+template <bool GUARD = true>
+__device__ __forceinline__ float prob(float s, float m) {
+  return GUARD && s == kNegInf ? 0.f : expf(s - m);
+}
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -71,8 +90,8 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 struct Args {
   const void *q, *k, *v;
   void* o;
-  const int *row_ptr, *cols;
-  int B, S, H, Hl, block, causal;
+  const int *row_ptr, *cols, *masks;  // masks: null, or one per entry of cols
+  int B, S, H, Hl, block, causal;     // block: of the lists (64 with masks)
   float sm_scale;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
 };
@@ -81,16 +100,18 @@ struct Args {
 // kBK-key tiles.  tile(t) is the first key of the t-th tile.
 struct Walk {
   const int* cols;
-  int per;      // kBK tiles per layout block
+  const int* masks;  // null: every unit of a visited tile is on
+  int per;           // kBK tiles per layout block
   int block;
   int n_tiles;
 
   __device__ Walk(const Args& a, int h, int q_start) {
-    const int nb = a.S / a.block;
+    const int nb = (a.S + a.block - 1) / a.block;
     const int qi = q_start / a.block;
     const int row = (a.Hl == 1 ? 0 : h) * nb + qi;
     const int begin = a.row_ptr[row], end = a.row_ptr[row + 1];
     cols = a.cols + begin;
+    masks = a.masks != nullptr ? a.masks + begin : nullptr;
     block = a.block;
     per = a.block / kBK;
     n_tiles = (end - begin) * per;
@@ -100,6 +121,10 @@ struct Walk {
       n_tiles -= per - ((q_start - qi * a.block) / kBK + 1);
   }
   __device__ __forceinline__ int tile(int t) const { return cols[t / per] * block + (t % per) * kBK; }
+  // the 4 bits of row unit r of tile t (bit c: column unit c is on)
+  __device__ __forceinline__ int unit_bits(int t, int r) const {
+    return masks != nullptr ? (masks[t] >> (4 * r)) & 0xF : 0xF;
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -139,6 +164,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
+// the same, reading n (16 or 0) bytes: n = 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -158,7 +188,10 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(uint16_t) * 5 * kBQ * (D + 8);  // Q + 2 x (K, V) tiles, padded rows
 }
 
-template <typename T, int D>
+// UNITS: the lists are of 64 x 64 tiles with 16 x 16 unit masks (blocks off
+// the tile; S a multiple of 16 only).  Without it, the block-multiple path:
+// no unit test per score and no ragged rows.
+template <typename T, int D, bool UNITS>
 __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a) {
   constexpr int RS = D + 8;   // padded row (+16 bytes): conflict-free fragment reads
   constexpr int KT = D / 16;
@@ -184,7 +217,12 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
 
   for (int i = tid; i < kBQ * CPR; i += kMmaWarps * 32) {
     const int r = i / CPR, c = (i % CPR) * 8;
-    cp_async16(Qs + r * RS + c, qb + (long long)(q_start + r) * a.qss + c);
+    const int qi = q_start + r;
+    if constexpr (UNITS)  // rows past S (S a multiple of 16 only) read zeros
+      cp_async16(Qs + r * RS + c, qb + (long long)min(qi, a.S - 1) * a.qss + c,
+                 qi < a.S ? 16 : 0);
+    else
+      cp_async16(Qs + r * RS + c, qb + (long long)qi * a.qss + c);
   }
   cp_async_commit();
 
@@ -193,9 +231,16 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
     T* vd = Vs + buf * kBK * RS;
     for (int i = tid; i < kBK * CPR; i += kMmaWarps * 32) {
       const int r = i / CPR, c = (i % CPR) * 8;
-      const long long row = k0 + r;
-      cp_async16(kd + r * RS + c, kb + row * a.kss + c);
-      cp_async16(vd + r * RS + c, vb + row * a.vss + c);
+      if constexpr (UNITS) {
+        const int n = k0 + r < a.S ? 16 : 0;
+        const long long row = min(k0 + r, a.S - 1);
+        cp_async16(kd + r * RS + c, kb + row * a.kss + c, n);
+        cp_async16(vd + r * RS + c, vb + row * a.vss + c, n);
+      } else {
+        const long long row = k0 + r;
+        cp_async16(kd + r * RS + c, kb + row * a.kss + c);
+        cp_async16(vd + r * RS + c, vb + row * a.vss + c);
+      }
     }
     cp_async_commit();
   };
@@ -254,8 +299,10 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
       }
     }
 
-    // only a tile that reaches past the query tile's first row is masked
+    // only a tile that reaches past the query tile's first row, or that
+    // holds units that are off, is masked
     const bool diag = a.causal && k0 + kBK - 1 > q_start;
+    const int bits = UNITS ? walk.unit_bits(t, warp) : 0xF;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -263,7 +310,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
       for (int e = 0; e < 4; ++e) {
         const int row = row_g + (e >> 1) * 8;
         const int col = k0 + nt * 8 + cq + (e & 1);
-        const float x = (diag && row < col) ? kNegInf : s[nt][e] * a.sm_scale;
+        const bool off = (diag && row < col) || (UNITS && !((bits >> (nt >> 1)) & 1));
+        const float x = off ? kNegInf : s[nt][e] * a.sm_scale;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -283,8 +331,10 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
     uint32_t pf[NT / 2][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const float p0 = expf(s[nt][0] - m[0]), p1 = expf(s[nt][1] - m[0]);
-      const float p2 = expf(s[nt][2] - m[1]), p3 = expf(s[nt][3] - m[1]);
+      // a masked key adds 0, also (UNITS) to a row that has seen no key yet;
+      // without units every row sees a key in each tile it visits
+      const float p0 = prob<UNITS>(s[nt][0], m[0]), p1 = prob<UNITS>(s[nt][1], m[0]);
+      const float p2 = prob<UNITS>(s[nt][2], m[1]), p3 = prob<UNITS>(s[nt][3], m[1]);
       l[0] += p0 + p1;
       l[1] += p2 + p3;
       pf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(p0, p1);
@@ -308,6 +358,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
     // l is 0 only for a row that visited no tile: its output is 0
     const float lc = fmaxf(quad_sum(l[i]), 1e-20f);
     const int qi = q_start + r0 + 8 * i;
+    if (UNITS && qi >= a.S) continue;
     T* orow = static_cast<T*>(a.o) + (((long long)b * a.S + qi) * a.H + h) * D;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
@@ -352,7 +403,8 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
 
   for (int idx = tid; idx < kBQ * D; idx += kFmaThreads) {
     const int r = idx / D, d = idx % D;
-    Qs[r * DP + d] = qb[(long long)(q_start + r) * a.qss + d];
+    const int qi = q_start + r;
+    Qs[r * DP + d] = qi < a.S ? qb[(long long)qi * a.qss + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -370,8 +422,9 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
     for (int idx = tid; idx < kBK * D; idx += kFmaThreads) {
       const int r = idx / D, d = idx % D;
       const long long kj = k0 + r;
-      Ks[r * DP + d] = kb[kj * a.kss + d];
-      Vs[r * D + d] = vb[kj * a.vss + d];
+      const bool in = kj < a.S;
+      Ks[r * DP + d] = in ? kb[kj * a.kss + d] : 0.f;
+      Vs[r * D + d] = in ? vb[kj * a.vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -394,6 +447,7 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
     }
 
     const bool diag = a.causal && k0 + kBK - 1 > q_start;
+    const int bits = walk.unit_bits(t, ty >> 2);  // rows ty*4.. lie in unit ty / 4
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = q_start + ty * 4 + r;
@@ -401,7 +455,8 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        s[r][j] = (diag && row < col) ? kNegInf : s[r][j] * a.sm_scale;
+        const bool off = (diag && row < col) || !((bits >> j) & 1);
+        s[r][j] = off ? kNegInf : s[r][j] * a.sm_scale;
         mt = fmaxf(mt, s[r][j]);
       }
       mt = half_warp_max(mt);
@@ -410,7 +465,7 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[r][j] - m_new);
+        const float p = prob(s[r][j], m_new);
         Ps[(ty * 4 + r) * PP + tx + 16 * j] = p;
         psum += p;
       }
@@ -439,6 +494,7 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int qi = q_start + ty * 4 + r;
+    if (qi >= a.S) continue;
     const float lc = fmaxf(l[r], 1e-20f);
     float* orow = static_cast<float*>(a.o) + (((long long)b * a.S + qi) * a.H + h) * D;
 #pragma unroll
@@ -455,24 +511,33 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <typename T, int D, bool UNITS>
+cudaError_t launch_mma_units(const Args& a, dim3 grid, cudaStream_t st) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  static const cudaError_t attr = opt_in(sparse_attn_mma_kernel<T, D, UNITS>, smem);
+  if (attr != cudaSuccess) return attr;
+  sparse_attn_mma_kernel<T, D, UNITS><<<grid, kMmaWarps * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_mma(const Args& a, dim3 grid, cudaStream_t st) {
+  return a.masks != nullptr ? launch_mma_units<T, D, true>(a, grid, st)
+                            : launch_mma_units<T, D, false>(a, grid, st);
+}
+
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
-  const dim3 grid(a.S / kBQ, a.B * a.H);
+  const dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.H);
   if (dtype == 0) {
     constexpr size_t smem = fma_smem_bytes<D>();
     static const cudaError_t attr = opt_in(sparse_attn_fma_kernel<D>, smem);
     if (attr != cudaSuccess) return attr;
     sparse_attn_fma_kernel<D><<<grid, kFmaThreads, smem, st>>>(a);
   } else if (dtype == 1) {
-    constexpr size_t smem = mma_smem_bytes<D>();
-    static const cudaError_t attr = opt_in(sparse_attn_mma_kernel<__nv_bfloat16, D>, smem);
-    if (attr != cudaSuccess) return attr;
-    sparse_attn_mma_kernel<__nv_bfloat16, D><<<grid, kMmaWarps * 32, smem, st>>>(a);
+    return launch_mma<__nv_bfloat16, D>(a, grid, st);
   } else if (dtype == 2) {
-    constexpr size_t smem = mma_smem_bytes<D>();
-    static const cudaError_t attr = opt_in(sparse_attn_mma_kernel<__half, D>, smem);
-    if (attr != cudaSuccess) return attr;
-    sparse_attn_mma_kernel<__half, D><<<grid, kMmaWarps * 32, smem, st>>>(a);
+    return launch_mma<__half, D>(a, grid, st);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -485,32 +550,42 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
 // given element strides (the last dim contiguous; for bf16/fp16 every row
 // 16-byte aligned); o [B, S, H, D] contiguous.  row_ptr [Hl * NB + 1] and
 // cols: the layout's on-blocks per (layout head, block row), ascending, only
-// those at or below the diagonal when causal (NB = S / block; Hl is 1 or H).
-// block is a multiple of 64, S a multiple of block; D is 16, 32, 64 or 128.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// those at or below the diagonal when causal (NB = ceil(S / block); Hl is 1
+// or H).  Without masks, block is a multiple of 64 and S a multiple of
+// block.  With masks (int32, one per entry of cols: the entry's 16 x 16 unit
+// bits), the lists are of 64 x 64 tiles, block is 64 and S a multiple of 16.
+// D is a multiple of 16 from 16 to 128.  Returns cudaGetLastError() after
+// the launch (0 = launched).
 extern "C" int dstpu_sparse_attention(const void* q, const void* k, const void* v, void* o,
-                                      const void* row_ptr, const void* cols, int dtype, int B,
+                                      const void* row_ptr, const void* cols,
+                                      const void* masks, int dtype, int B,
                                       int S, int H, int D, int Hl, int block, int causal,
                                       float sm_scale, long long qsb, long long qss,
                                       long long qsh, long long ksb, long long kss,
                                       long long ksh, long long vsb, long long vss,
                                       long long vsh, void* stream) {
-  if (block <= 0 || block % kBK != 0 || S % block != 0 || (Hl != 1 && Hl != H) || H <= 0)
+  const bool units = masks != nullptr;
+  if (block <= 0 || block % kBK != 0 || (units ? block != kBK || S % 16 : S % block) ||
+      (Hl != 1 && Hl != H) || H <= 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaSuccess;
   const Args a{q, k, v, o, static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
-               B, S, H, Hl, block, causal, sm_scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
-               vsh};
+               static_cast<const int*>(masks), B, S, H, Hl, block, causal, sm_scale, qsb, qss,
+               qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16:
-      return (int)launch<16>(dtype, a, st);
-    case 32:
-      return (int)launch<32>(dtype, a, st);
-    case 64:
-      return (int)launch<64>(dtype, a, st);
-    case 128:
-      return (int)launch<128>(dtype, a, st);
+#define DSTPU_SPARSE_CASE(d) \
+  case d:                    \
+    return (int)launch<d>(dtype, a, st);
+    DSTPU_SPARSE_CASE(16)
+    DSTPU_SPARSE_CASE(32)
+    DSTPU_SPARSE_CASE(48)
+    DSTPU_SPARSE_CASE(64)
+    DSTPU_SPARSE_CASE(80)
+    DSTPU_SPARSE_CASE(96)
+    DSTPU_SPARSE_CASE(112)
+    DSTPU_SPARSE_CASE(128)
+#undef DSTPU_SPARSE_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -38,6 +38,16 @@
 // Design, fp32 x (tests and references): the same tiles and split on the
 // fp32 FMA pipes out of shared memory — 16 x 16 threads, BM/16 rows by 4
 // columns each — so fp32 stays fp32 end to end (no TF32).
+//
+// Groups that are not a multiple of the 32-row stage (the reference takes
+// any group that divides the padded K; the serving default is 128): a stage
+// then holds rows of more than one group, so there is no group sum to scale
+// once.  These take the FMA-pipe kernel for every x type, with each code
+// multiplied by its own row's scale in fp32 as the stage is staged (q * s,
+// the TPU kernel's own product), x widened to fp32, and the sums in fp32; K
+// splits still fall on group boundaries, and a stage past its split's last
+// row reads zeros.  They differ from the plain version by fp32 summation
+// order only; the group-multiple path above is unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -47,7 +57,7 @@
 namespace {
 
 constexpr int kBN = 64;  // output columns per block
-constexpr int kBK = 32;  // rows of K per stage; the group must be a multiple
+constexpr int kBK = 32;  // rows of K per stage (groups off it: the ROWSCALE kernel)
 
 template <typename T> struct Mma;
 template <> struct Mma<__nv_bfloat16> {
@@ -79,6 +89,9 @@ template <> struct Mma<__half> {
   __device__ __forceinline__ static __half cvt(float f) { return __float2half_rn(f); }
 };
 
+__device__ __forceinline__ float to_float(float f) { return f; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 f) { return __bfloat162float(f); }
+__device__ __forceinline__ float to_float(__half f) { return __half2float(f); }
 __device__ __forceinline__ float to_out(float f, float*) { return f; }
 __device__ __forceinline__ __nv_bfloat16 to_out(float f, __nv_bfloat16*) {
   return __float2bfloat16_rn(f);
@@ -327,12 +340,12 @@ wq_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
 }
 
 // ---------------------------------------------------------------------------
-// FMA-pipe kernel (fp32 x)
+// FMA-pipe kernel (fp32 x; any x with ROWSCALE, for groups off the stage)
 // ---------------------------------------------------------------------------
-template <int BITS, int BM>
+template <typename T, int BITS, int BM, bool ROWSCALE>
 __global__ void __launch_bounds__(256)
-wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
-              const float* __restrict__ scale, float* __restrict__ out, float* __restrict__ ws,
+wq_fma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
+              const float* __restrict__ scale, T* __restrict__ out, float* __restrict__ ws,
               int M, int K, int N, int group, int groups_per_split, int n_groups, int w_vec) {
   constexpr int TM = BM / 16;          // rows per thread
   constexpr int XS = BM + 4;           // padded rows of the transposed x tile
@@ -349,10 +362,14 @@ wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
   const int g_begin = blockIdx.z * groups_per_split;
   const int g_end = min(g_begin + groups_per_split, n_groups);
   const int stages_per_group = group / kBK;
-  const int n_stages = max(g_end - g_begin, 0) * stages_per_group;
   const int k_begin = g_begin * group;
+  const int k_end = max(g_end, g_begin) * group;  // this split's rows: [k_begin, k_end)
+  const int n_stages = ROWSCALE ? (k_end - k_begin + kBK - 1) / kBK
+                                : max(g_end - g_begin, 0) * stages_per_group;
   const int w_row = BITS == 8 ? tid >> 3 : tid >> 4;
   const int w_col = BITS == 8 ? (tid & 7) * 8 : (tid & 15) * 4;
+  // with ROWSCALE the last stage may run past the split: its rows read zeros
+  const int k_lim = ROWSCALE ? min(K, k_end) : K;
 
   float xr[XE];
   uint32_t wr[WBYTES / 4];
@@ -361,12 +378,28 @@ wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
     for (int e = 0; e < XE; ++e) {
       const int idx = tid + e * 256;
       const int m = m0 + idx / kBK, k = k0 + idx % kBK;
-      xr[e] = (m < M && k < K) ? __ldg(x + (long long)m * K + k) : 0.f;
+      xr[e] = (m < M && k < k_lim) ? to_float(x[(long long)m * K + k]) : 0.f;
     }
-    const long long row = BITS == 8 ? (long long)(k0 + w_row) : (long long)(k0 / 2 + w_row);
-    load_codes<WBYTES>(wr, codes + row * N + n0 + w_col, n0 + w_col, N, w_vec != 0);
+    const int k_first = BITS == 8 ? k0 + w_row : k0 + 2 * w_row;  // this run's first K row
+    if (!ROWSCALE || k_first < k_end) {
+      const long long row = BITS == 8 ? (long long)(k0 + w_row) : (long long)(k0 / 2 + w_row);
+      load_codes<WBYTES>(wr, codes + row * N + n0 + w_col, n0 + w_col, N, w_vec != 0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < WBYTES / 4; ++i) wr[i] = 0u;
+    }
   };
-  auto store_stage = [&](int buf) {
+  // the code of K row k (local row r) and column n0 + w_col + j, times its
+  // row's scale with ROWSCALE
+  auto weight = [&](float q, int k, int j) {
+    if constexpr (ROWSCALE) {
+      const int n = n0 + w_col + j;
+      return (k < k_end && n < N) ? q * __ldg(scale + (long long)(k / group) * N + n) : 0.f;
+    } else {
+      return q;
+    }
+  };
+  auto store_stage = [&](int buf, int k0) {
 #pragma unroll
     for (int e = 0; e < XE; ++e) {
       const int idx = tid + e * 256;
@@ -375,12 +408,13 @@ wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
     if constexpr (BITS == 8) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        sw[buf][w_row][w_col + j] = static_cast<float>(byte_of(wr[j / 4], j % 4));
+        sw[buf][w_row][w_col + j] =
+            weight(static_cast<float>(byte_of(wr[j / 4], j % 4)), k0 + w_row, j);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        sw[buf][2 * w_row][w_col + j] = lo_nibble(wr[0], j);
-        sw[buf][2 * w_row + 1][w_col + j] = hi_nibble(wr[0], j);
+        sw[buf][2 * w_row][w_col + j] = weight(lo_nibble(wr[0], j), k0 + 2 * w_row, j);
+        sw[buf][2 * w_row + 1][w_col + j] = weight(hi_nibble(wr[0], j), k0 + 2 * w_row + 1, j);
       }
     }
   };
@@ -393,14 +427,14 @@ wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
 
   if (n_stages > 0) {
     load_stage(k_begin);
-    store_stage(0);
+    store_stage(0, k_begin);
   }
   __syncthreads();
   for (int s = 0; s < n_stages; ++s) {
     const int buf = s & 1;
     if (s + 1 < n_stages) load_stage(k_begin + (s + 1) * kBK);
-    const int gs = s % stages_per_group;
-    if (gs == 0) {
+    const int gs = ROWSCALE ? 0 : s % stages_per_group;
+    if (!ROWSCALE && gs == 0) {
       const long long g = g_begin + s / stages_per_group;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -408,6 +442,7 @@ wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
         sc[j] = n < N ? __ldg(scale + g * N + n) : 0.f;
       }
     }
+    // with ROWSCALE the staged weights carry their scales: sum into acc
 #pragma unroll 8
     for (int k = 0; k < kBK; ++k) {
       const float4 w = *reinterpret_cast<const float4*>(&sw[buf][k][tx * 4]);
@@ -416,10 +451,15 @@ wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
       for (int i = 0; i < TM; ++i) {
         const float xv = sx[buf][k][ty * TM + i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) gacc[i][j] = fmaf(xv, wv[j], gacc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          if (ROWSCALE)
+            acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
+          else
+            gacc[i][j] = fmaf(xv, wv[j], gacc[i][j]);
+        }
       }
     }
-    if (gs == stages_per_group - 1) {
+    if (!ROWSCALE && gs == stages_per_group - 1) {
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -428,7 +468,7 @@ wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
           gacc[i][j] = 0.f;
         }
     }
-    if (s + 1 < n_stages) store_stage(buf ^ 1);
+    if (s + 1 < n_stages) store_stage(buf ^ 1, k_begin + (s + 1) * kBK);
     __syncthreads();
   }
 
@@ -443,7 +483,7 @@ wq_fma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ codes,
       if (ws != nullptr)
         ws[(long long)blockIdx.z * M * N + (long long)m * N + n] = acc[i][j];
       else
-        out[(long long)m * N + n] = acc[i][j];
+        out[(long long)m * N + n] = to_out(acc[i][j], out);
     }
   }
 }
@@ -485,23 +525,23 @@ cudaError_t launch_mma(const void* x, const void* codes, const float* scale, voi
   return cudaGetLastError();
 }
 
-template <int BITS>
+template <typename T, int BITS, bool ROWSCALE>
 cudaError_t launch_fma(const void* x, const void* codes, const float* scale, void* out,
                        float* ws, int M, int K, int N, int group, int gps, int n_groups,
                        int splits, int tile_m, cudaStream_t st) {
   const int w_vec = BITS == 8 ? (N % 8 == 0 && aligned(codes, 8))
                               : (N % 4 == 0 && aligned(codes, 4));
-  const float* xf = static_cast<const float*>(x);
+  const T* xt = static_cast<const T*>(x);
   const uint8_t* c = static_cast<const uint8_t*>(codes);
-  float* o = static_cast<float*>(out);
+  T* o = static_cast<T*>(out);
   if (tile_m != 16 && tile_m != 64) return cudaErrorInvalidValue;
   const dim3 grid((N + kBN - 1) / kBN, (M + tile_m - 1) / tile_m, splits);
   if (tile_m == 16)
-    wq_fma_kernel<BITS, 16><<<grid, 256, 0, st>>>(xf, c, scale, o, ws, M, K, N, group, gps,
-                                                  n_groups, w_vec);
+    wq_fma_kernel<T, BITS, 16, ROWSCALE><<<grid, 256, 0, st>>>(xt, c, scale, o, ws, M, K, N,
+                                                                group, gps, n_groups, w_vec);
   else
-    wq_fma_kernel<BITS, 64><<<grid, 256, 0, st>>>(xf, c, scale, o, ws, M, K, N, group, gps,
-                                                  n_groups, w_vec);
+    wq_fma_kernel<T, BITS, 64, ROWSCALE><<<grid, 256, 0, st>>>(xt, c, scale, o, ws, M, K, N,
+                                                                group, gps, n_groups, w_vec);
   return cudaGetLastError();
 }
 
@@ -517,8 +557,9 @@ cudaError_t launch_reduce(const float* ws, void* out, long long mn, int splits, 
 
 // out [M, N] = x [M, K] @ dequant(codes, scale).  dtype: 0 fp32, 1 bf16,
 // 2 fp16 (x and out); bits 8 (codes int8 [Kp, N]) or 4 (packed uint8
-// [Kp/2, N]); scale fp32 [n_groups, N]; group a multiple of 32, Kp =
-// n_groups * group >= K.  Output tiles are tile_m (16 or 64) x 64.  K is
+// [Kp/2, N]); scale fp32 [n_groups, N]; any group (even for bits 4), Kp =
+// n_groups * group >= K; a group off the 32-row stage takes the FMA-pipe
+// kernel with per-row scales.  Output tiles are tile_m (16 or 64) x 64.  K is
 // split into `splits` runs of `groups_per_split` groups; with splits >
 // 1, ws is an fp32 [splits, M, N] workspace and a second kernel sums it into
 // out.  All tensors contiguous.  Returns cudaGetLastError() after the
@@ -527,7 +568,7 @@ extern "C" int dstpu_wq_matmul(const void* x, const void* codes, const void* sca
                                void* ws, int dtype, int bits, int M, int K, int N, int group,
                                int n_groups, int splits, int groups_per_split, int tile_m,
                                void* stream) {
-  if (M < 0 || K <= 0 || N <= 0 || group <= 0 || group % kBK != 0 || n_groups <= 0 ||
+  if (M < 0 || K <= 0 || N <= 0 || group <= 0 || (bits == 4 && group % 2) || n_groups <= 0 ||
       (long long)n_groups * group < K || splits < 1 || groups_per_split < 1 ||
       (long long)splits * groups_per_split < n_groups || (splits > 1 && ws == nullptr) ||
       (bits != 8 && bits != 4))
@@ -538,11 +579,29 @@ extern "C" int dstpu_wq_matmul(const void* x, const void* codes, const void* sca
   float* w = splits > 1 ? static_cast<float*>(ws) : nullptr;
   cudaError_t err;
   const int gps = groups_per_split;
+  // a group off the stage: the FMA-pipe kernel, codes scaled per row
+  if (group % kBK != 0) {
+    switch (dtype * 10 + bits) {
+#define DSTPU_WQ_ROWSCALE(code, T, b)                                                      \
+  case code:                                                                               \
+    err = launch_fma<T, b, true>(x, codes, s, out, w, M, K, N, group, gps, n_groups, splits, \
+                                 tile_m, st);                                              \
+    break;
+      DSTPU_WQ_ROWSCALE(8, float, 8)
+      DSTPU_WQ_ROWSCALE(4, float, 4)
+      DSTPU_WQ_ROWSCALE(18, __nv_bfloat16, 8)
+      DSTPU_WQ_ROWSCALE(14, __nv_bfloat16, 4)
+      DSTPU_WQ_ROWSCALE(28, __half, 8)
+      DSTPU_WQ_ROWSCALE(24, __half, 4)
+#undef DSTPU_WQ_ROWSCALE
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
   switch (dtype * 10 + bits) {
-    case 8: err = launch_fma<8>(x, codes, s, out, w, M, K, N, group, gps, n_groups, splits,
-                                tile_m, st); break;
-    case 4: err = launch_fma<4>(x, codes, s, out, w, M, K, N, group, gps, n_groups, splits,
-                                tile_m, st); break;
+    case 8: err = launch_fma<float, 8, false>(x, codes, s, out, w, M, K, N, group, gps,
+                                              n_groups, splits, tile_m, st); break;
+    case 4: err = launch_fma<float, 4, false>(x, codes, s, out, w, M, K, N, group, gps,
+                                              n_groups, splits, tile_m, st); break;
     case 18: err = launch_mma<__nv_bfloat16, 8>(x, codes, s, out, w, M, K, N, group, gps,
                                                 n_groups, splits, tile_m, st); break;
     case 14: err = launch_mma<__nv_bfloat16, 4>(x, codes, s, out, w, M, K, N, group, gps,
@@ -552,6 +611,7 @@ extern "C" int dstpu_wq_matmul(const void* x, const void* codes, const void* sca
     case 24: err = launch_mma<__half, 4>(x, codes, s, out, w, M, K, N, group, gps, n_groups,
                                          splits, tile_m, st); break;
     default: return (int)cudaErrorInvalidValue;
+  }
   }
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long mn = (long long)M * N;

@@ -58,8 +58,9 @@ _STRIDES = [_L] * 12  # q, k, v: (batch, row, residue, head)
 _SIG = {
     "dstpu_evoformer_attn_fwd": [_P] * 7 + [_I] * 7 + [_F] + _STRIDES + [_P],
     "dstpu_evoformer_attn_bwd_dq": [_P] * 11 + [_I] * 7 + [_F, _I] + _STRIDES + [_L] * 4 + [_P],
-    "dstpu_evoformer_attn_bwd_dkv": [_P] * 12 + [_I] * 7 + [_F, _I] + _STRIDES + [_L] * 4
-    + [_P],
+    "dstpu_evoformer_attn_bwd_dkv": [_P] * 13 + [_I] * 7 + [_F, _I, _I] + _STRIDES
+    + [_L] * 4 + [_P],
+    "dstpu_evoformer_attn_dkv_qranges": [_I] * 4,
 }
 
 
@@ -303,7 +304,8 @@ def _check(err: int, what: str, Q: int, K: int, D: int, dtype) -> None:
     if err == _TOO_MUCH_SMEM:
         raise NotImplementedError(
             f"{what}: Q={Q}, K={K}, D={D} {dtype} needs more shared memory for the kernel's "
-            f"tiles and bias-gradient accumulator than a block has on this card")
+            f"tiles and bias-gradient accumulator than a block has on this card (E' with "
+            f"bias1 past ~5,500 keys; ROADMAP Queue 3 #F1)")
     op_builder.check(err, what)
 
 
@@ -351,6 +353,15 @@ def evoformer_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, db1
 
 
+def dkv_query_ranges(dtype, Q: int, D: int, want_db2: bool) -> int:
+    """How many query ranges kernel E'' cuts Q into on the card: 1 while its
+    dbias2 accumulator over the whole query axis fits a block, more past
+    that (the kernel's own rule, asked of the built library)."""
+    lib = op_builder.load("evoformer_attn", _SIG)
+    return lib.dstpu_evoformer_attn_dkv_qranges(op_builder.dtype_code(dtype), Q, D,
+                                                int(want_db2))
+
+
 def evoformer_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                            b1: Optional[torch.Tensor] = None, b2: Optional[torch.Tensor] = None
@@ -367,20 +378,28 @@ def evoformer_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # grid fills about four waves (B * H * key tiles alone is 48 blocks at
     # AlphaFold 2's MSA row attention, 528 with 11 chunks on 132 SMs), their
     # partials added in order
-    blocks = B * H * _cdiv(K, TILE)
+    lib = op_builder.load("evoformer_attn", _SIG)
+    dtype = op_builder.dtype_code(q.dtype)
+    # the query axis in ranges whose dbias2 accumulators fit a block (one
+    # range up to ~576 residues in bf16); each range's dK/dV are fp32
+    # partials that the kernel's second pass adds in range order
+    qranges = dkv_query_ranges(q.dtype, Q, D, want)
+    blocks = B * H * _cdiv(K, TILE) * qranges
     chunks = S if not want else min(S, max(1, _cdiv(4 * _sm_count(q.device), blocks)))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     db2 = torch.empty((B, H, Q, K), dtype=torch.float32, device=q.device) if want else None
     part = (torch.empty((B * H, chunks, Q * K), dtype=torch.float32, device=q.device)
             if want and chunks > 1 else None)
-    lib = op_builder.load("evoformer_attn", _SIG)
+    kv_part = (torch.empty((qranges, 2, k.numel()), dtype=torch.float32, device=q.device)
+               if qranges > 1 else None)
     with torch.cuda.device(q.device):
         err = lib.dstpu_evoformer_attn_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _ptr(b1), _ptr(b2), dk.data_ptr(), dv.data_ptr(), _ptr(db2),
-            _ptr(part), op_builder.dtype_code(q.dtype), B, S, Q, K, H, D, 1.0 / math.sqrt(D),
-            chunks, *_strides(q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
+            _ptr(part), _ptr(kv_part), dtype, B, S, Q, K, H, D, 1.0 / math.sqrt(D),
+            chunks, qranges, *_strides(q, k, v, do),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _check(err, "evoformer_attn_bwd_dkv", Q, K, D, q.dtype)
     evoformer_attn_bwd_dkv.launches += 1
     return dk, dv, db2

@@ -30,9 +30,9 @@ version computed in fp32 from the same inputs, the kernel's output is
 within its own rounding plus ~3.5e-3 (bf16) and its LSE within ~1e-6
 (``chip_smoke.FLASH_TOL``, ``LSE_TOL``); fp32 runs on the FMA pipes in
 fp32 throughout.  The backward kernels keep every sum in fp32, as the TPU
-ones do; in bf16/fp16 they round P and dS to the input dtype as
-tensor-core operands, which their plain version (fp32 throughout, like
-the TPU kernels) does not; in fp32 they run on the FMA pipes and differ
+ones do; in bf16/fp16 they round P and dS (before its scale) to the input
+dtype as tensor-core operands, which their plain version (fp32
+throughout, like the TPU kernels) does not; in fp32 they run on the FMA pipes and differ
 from it by summation order only (``chip_smoke.FLASH_BWD_TOL``).
 """
 
@@ -47,7 +47,22 @@ import torch
 from . import op_builder
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+
+
+def kernel_takes_head_dim(D: int) -> bool:
+    """The head dims the attention kernels (flash forward and backward,
+    paged decode, block-sparse S) take on the card: every multiple of 16
+    from 16 to 128, which covers every config of the repo (64, 80, 96,
+    128).  The JAX kernels block over the whole D and set no such rule."""
+    return D % 16 == 0 and 16 <= D <= 128
+
+
+def check_head_dim(D: int, what: str) -> None:
+    """Raise for a head dim the kernels do not take (ROADMAP Queue 3 #F2)."""
+    if not kernel_takes_head_dim(D):
+        raise ValueError(f"{what}: head_dim {D} is not a multiple of 16 in [16, 128], "
+                         f"the kernels' rule (ROADMAP Queue 3 #F2)")
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,6 +88,12 @@ def _rows_ok(t: torch.Tensor) -> bool:
     if t.dtype == torch.float32:
         return True
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """A [B, S, H, D] tensor the backward kernels' TMA maps read in place:
+    rows 16-byte aligned and no stride 0 (a map's strides are positive)."""
+    return _rows_ok(t) and (t.dtype == torch.float32 or min(t.stride()[:3]) > 0)
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -133,8 +154,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention_fwd: q/k/v on {q.device}/{k.device}/{v.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(D, "flash_attention_fwd")
     # the kernel reads rows through their strides; the bf16/fp16 kernel copies
     # them 16 bytes at a time, so each row must start 16-byte aligned
     q, k, v = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v))
@@ -225,14 +245,14 @@ def _bwd_checks(q, k, v, do, lse, delta, alibi_slopes):
         raise ValueError("flash attention backward: all tensors on one CUDA device")
     if k.dtype != q.dtype or v.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError(f"q/k/v/dO dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(D, "flash attention backward")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (B, NH, Sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 [B, NH, Sq], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    # read through strides; the bf16/fp16 kernels copy rows 16 bytes at a time
-    q, k, v, do = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v, do))
+    # read through strides; the bf16/fp16 kernels load tiles by TMA, whose
+    # maps take 16-byte aligned bases and positive 16-byte strides
+    q, k, v, do = (t if _tma_ok(t) else t.contiguous() for t in (q, k, v, do))
     slopes = None
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).contiguous()

@@ -32,9 +32,9 @@ from typing import Optional
 import torch
 
 from . import op_builder
+from .flash_attention import check_head_dim
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -138,8 +138,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
             raise ValueError(f"scale shape {tuple(k_scale.shape)} != {(P, ps, KVH)}")
     elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"pool dtype {k_pool.dtype} != q dtype {q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(D, "paged_decode_attention")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_decode_attention copies pool rows 16 bytes at a time: "
                          "the pools must be 16-byte aligned")

@@ -37,16 +37,26 @@ import numpy as np
 import torch
 
 from . import op_builder
+from .flash_attention import check_head_dim
 
-HEAD_DIMS = (16, 32, 64, 128)
-#: rows and keys of the kernel's tile; a layout block is cut into tiles
+#: rows and keys of the kernel's tile; a layout block that is a multiple of
+#: it is cut into tiles, a smaller one is masked inside the tile at
+#: ``KERNEL_UNIT`` granularity
 KERNEL_TILE = 64
+KERNEL_UNIT = 16
+
+
+def kernel_takes_block(block: int) -> bool:
+    """The layout blocks kernel S takes on the card: every multiple of 16
+    (the reference takes any block that divides S; DeepSpeed's GPU default
+    is 16)."""
+    return block > 0 and block % KERNEL_UNIT == 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIG = {"dstpu_sparse_attention": [
-    _P, _P, _P, _P, _P, _P,              # q k v o row_ptr cols
+    _P, _P, _P, _P, _P, _P, _P,          # q k v o row_ptr cols masks
     _I, _I, _I, _I, _I, _I, _I, _I,      # dtype B S H D layout_heads block causal
     ctypes.c_float,                      # sm_scale
     _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v strides (b, s, h)
@@ -179,7 +189,7 @@ def sparse_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # --------------------------------------------------------------- kernel S
-_LISTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_LISTS: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
 
 
 def block_lists(layout: np.ndarray, causal: bool, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,13 +205,49 @@ def block_lists(layout: np.ndarray, causal: bool, device) -> Tuple[torch.Tensor,
     on = lay > 0
     if causal:
         on = on & np.tril(np.ones(on.shape[1:], bool))[None]
-    counts = on.reshape(-1, on.shape[2]).sum(axis=1)
-    row_ptr = np.zeros(counts.size + 1, np.int32)
-    np.cumsum(counts, out=row_ptr[1:])
-    cols = np.nonzero(on.reshape(-1, on.shape[2]))[1].astype(np.int32)
-    if cols.size == 0:
-        cols = np.zeros(1, np.int32)  # a valid pointer; no row reads it
-    out = (torch.as_tensor(row_ptr, device=device), torch.as_tensor(cols, device=device))
+    out = tuple(torch.as_tensor(x, device=device) for x in _csr(on))
+    _LISTS[key] = out
+    return out
+
+
+def _csr(on: np.ndarray, *per_entry: np.ndarray):
+    """CSR of a boolean ``[heads, rows, cols]``: row_ptr, the ascending
+    columns of each row, and each array of ``per_entry`` taken at them."""
+    flat = on.reshape(-1, on.shape[2])
+    row_ptr = np.zeros(flat.shape[0] + 1, np.int32)
+    np.cumsum(flat.sum(axis=1), out=row_ptr[1:])
+    picked = [np.nonzero(flat)[1].astype(np.int32)]
+    picked += [x.reshape(flat.shape)[flat].astype(np.int32) for x in per_entry]
+    # an empty list still needs a valid pointer; no row reads it
+    return (row_ptr, *(x if x.size else np.zeros(1, np.int32) for x in picked))
+
+
+def unit_lists(layout: np.ndarray, block: int, S: int, causal: bool, device
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """For a block that is not a multiple of ``KERNEL_TILE``: the layout at
+    16 x 16 units, ORed into 64 x 64 tiles (the last one ragged when S is
+    not a multiple of 64).  Returns the tiles' CSR lists, as
+    :func:`block_lists` at tile granularity, and per listed tile its 16-bit
+    unit mask (bit ``4 * row unit + column unit``) as int32."""
+    lay = np.ascontiguousarray(layout, dtype=np.int32)
+    key = ("units", hashlib.sha256(lay.tobytes()).hexdigest(), lay.shape, block, S,
+           bool(causal), str(device))
+    hit = _LISTS.get(key)
+    if hit is not None:
+        return hit
+    per, n_units = block // KERNEL_UNIT, S // KERNEL_UNIT
+    tpu = KERNEL_TILE // KERNEL_UNIT  # units per tile side
+    nt = -(-n_units // tpu)
+    units = np.repeat(np.repeat(lay > 0, per, axis=1), per, axis=2)
+    pad = nt * tpu - n_units
+    units = np.pad(units, ((0, 0), (0, pad), (0, pad)))
+    units = units.reshape(lay.shape[0], nt, tpu, nt, tpu).transpose(0, 1, 3, 2, 4)
+    bits = (units.reshape(lay.shape[0], nt, nt, tpu * tpu).astype(np.int64)
+            << np.arange(tpu * tpu)).sum(-1)
+    on = bits != 0
+    if causal:
+        on = on & np.tril(np.ones((nt, nt), bool))[None]
+    out = tuple(torch.as_tensor(x, device=device) for x in _csr(on, bits))
     _LISTS[key] = out
     return out
 
@@ -238,20 +284,25 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "differentiable plain version")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"sparse_attention: q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"sparse_attention: head_dim {D} not in the kernel's {HEAD_DIMS}")
-    if config.block % KERNEL_TILE:
-        raise ValueError(f"sparse_attention: kernel S cuts layout blocks into {KERNEL_TILE}-row "
-                         f"tiles; block {config.block} is not a multiple of {KERNEL_TILE}")
+    check_head_dim(D, "sparse_attention")
+    if not kernel_takes_block(config.block):
+        raise ValueError(f"sparse_attention: kernel S takes layout blocks that are a multiple "
+                         f"of {KERNEL_UNIT}; block {config.block} is not (ROADMAP Queue 3 #F2)")
     q, k, v = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v))
-    row_ptr, cols = block_lists(layout, causal, q.device)
+    block, masks = config.block, None
+    if block % KERNEL_TILE:
+        row_ptr, cols, masks = unit_lists(layout, block, S, causal, q.device)
+        block = KERNEL_TILE
+    else:
+        row_ptr, cols = block_lists(layout, causal, q.device)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = op_builder.load("sparse_attention", _SIG)
     with torch.cuda.device(q.device):
         err = lib.dstpu_sparse_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), row_ptr.data_ptr(),
-            cols.data_ptr(), op_builder.dtype_code(q.dtype), B, S, H, D, layout.shape[0],
-            config.block, int(bool(causal)), 1.0 / math.sqrt(D),
+            cols.data_ptr(), None if masks is None else masks.data_ptr(),
+            op_builder.dtype_code(q.dtype), B, S, H, D, layout.shape[0],
+            block, int(bool(causal)), 1.0 / math.sqrt(D),
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -16,14 +16,18 @@ torch, as they are plain jnp in JAX.
 
 :func:`wq_matmul` launches the kernel for CUDA tensors and runs
 :func:`wq_matmul_plain` for CPU tensors; a CUDA tensor the kernel cannot
-take raises (the kernel needs ``group % 32 == 0``).  Each launch adds one to
-``wq_matmul.launches``.
+take raises.  The kernel takes every group the reference takes (any
+positive group dividing the padded K, even for int4).  Each launch adds
+one to ``wq_matmul.launches``.
 
 The plain version is the JAX function's XLA branch: dequantize the whole
-weight to fp32, multiply in fp32, cast to x's type.  The kernel sums each
-group's ``x . q`` in fp32 and scales it once, where the TPU kernel
+weight to fp32, multiply in fp32, cast to x's type.  For groups that are a
+multiple of ``KERNEL_K_STEP`` (the serving default, 128) the kernel sums
+each group's ``x . q`` in fp32 and scales it once, where the TPU kernel
 multiplies by ``q * s``: the same function, different fp32 rounding
-(``chip_smoke.WQ_TOL``).
+(``chip_smoke.WQ_TOL``).  Other groups run on the FMA pipes with each code
+scaled by its row's scale in fp32 (the TPU kernel's ``q * s``), so they
+differ from the plain version by fp32 summation order only.
 """
 
 from __future__ import annotations
@@ -43,7 +47,9 @@ _SIG = {"dstpu_wq_matmul": [
     _I, _I, _I, _I, _I, _I, _I,     # dtype bits M K N group n_groups
     _I, _I, _I, _P]}                # splits groups_per_split tile_m stream
 
-#: K rows per pipeline stage of the kernel: the group must be a multiple
+#: K rows per pipeline stage of the kernel: a group that is a multiple takes
+#: the tensor cores (bf16/fp16 x), scaling each group's sum once; any other
+#: group the FMA pipes, scaling each code
 KERNEL_K_STEP = 32
 #: the kernels' output tiles (rows, columns) and how many blocks of each an
 #: SM holds at once: decode rows (M <= 16), then the bf16/fp16 and fp32
@@ -127,10 +133,18 @@ def wq_matmul_plain(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *
     return (x.reshape(-1, K).float() @ w).to(x.dtype).reshape(*x.shape[:-1], N)
 
 
-def _tile(M: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+def kernel_takes_group(group: int, bits: int) -> bool:
+    """The groups kernel W takes on the card: every group the reference
+    takes, any positive one (even for int4; it must also divide the padded
+    K, which :func:`_check` holds)."""
+    return group > 0 and (bits != 4 or group % 2 == 0)
+
+
+def _tile(M: int, dtype: torch.dtype, group: int = 128) -> Tuple[int, int, int]:
     if M <= TILE_DECODE[0]:
         return TILE_DECODE
-    return TILE_FMA if dtype == torch.float32 else TILE_MMA
+    fma = dtype == torch.float32 or group % KERNEL_K_STEP
+    return TILE_FMA if fma else TILE_MMA
 
 
 def _splits(sm_count: int, tiles: int, n_groups: int,
@@ -154,16 +168,16 @@ def wq_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
     K, Kp, N = _check(x, codes, scale, bits, group)
     if x.device.type != "cuda" or codes.device != x.device or scale.device != x.device:
         raise ValueError(f"wq_matmul: x/codes/scale on {x.device}/{codes.device}/{scale.device}")
-    if group % KERNEL_K_STEP:
-        raise ValueError(f"wq_matmul: the kernel takes groups that are a multiple of "
-                         f"{KERNEL_K_STEP}, got {group}")
+    if not kernel_takes_group(group, bits):
+        raise ValueError(f"wq_matmul: group {group} is not one the kernel takes "
+                         f"(positive, even for int4; ROADMAP Queue 3 #F2)")
     if not (codes.is_contiguous() and scale.is_contiguous()):
         raise ValueError("wq_matmul takes contiguous codes and scales")
     xm = x.reshape(-1, K).contiguous()
     M = xm.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     n_groups = Kp // group
-    tm, tn, per_sm = _tile(M, x.dtype)
+    tm, tn, per_sm = _tile(M, x.dtype, group)
     splits, per = _splits(torch.cuda.get_device_properties(x.device).multi_processor_count,
                           -(-M // tm) * -(-N // tn), n_groups, per_sm)
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)

@@ -1,0 +1,271 @@
+"""The shapes the port's kernels take on the card, and the plain paths at
+the shapes that rule newly admits, against the JAX package.
+
+On the CPU the wrappers run their plain versions, so these tests hold the
+port's function at the new shapes (head dims 80 and 96 in flash forward
+and backward, 80 in paged decode, sparse layout blocks of 16 and 32,
+``wq_matmul`` groups of 16 and 48) against the JAX package's Pallas
+kernels in interpret mode on the same numpy inputs.  The kernels
+themselves are held against these plain versions on the card by
+``chip_smoke.py``.  The acceptance rules (``kernel_takes_head_dim``,
+``kernel_takes_block``, ``kernel_takes_group``) and the layout kernel S
+walks for blocks under its 64-row tile are pure Python and are checked
+here directly.
+
+Tolerances are those of the existing tests of each op: flash forward fp32
+1e-5 and bf16 2e-2 (``test_torch_flash_attention.py``), flash gradients
+fp32 2e-5 and bf16 2e-2 (``test_torch_flash_attention_bwd.py``), paged
+decode 1e-5 (``test_torch_paged_attention.py``), sparse 2e-5
+(``test_torch_sparse_attention.py``), and ``wq_matmul`` 2e-5 plus one
+output rounding for bf16 x (``test_torch_wq_matmul.py``); the reasons are
+given there and do not change with the shape."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.models import families, llama, mixtral
+from deepspeed_tpu.models.transformer import alibi_slopes as jax_alibi_slopes
+from deepspeed_tpu.ops.pallas import sparse_attention as jsa
+from deepspeed_tpu.ops.pallas import wq_matmul as jwq
+from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
+from deepspeed_tpu.ops.pallas.paged_attention import paged_decode_attention as jax_paged
+from deepspeed_tpu_torch.models.transformer import alibi_slopes
+from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops import paged_attention as pa
+from deepspeed_tpu_torch.ops import sparse_attention as sa
+from deepspeed_tpu_torch.ops import wq_matmul as twq
+
+torch.set_num_threads(2)
+
+JNP = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
+TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+# ------------------------------------------------------------------ rules
+def _config_head_dims():
+    """Every model config of the JAX package: (family, size) -> head dim."""
+    fams = {"llama": (llama.SIZES, llama.llama_config),
+            "mixtral": (mixtral.SIZES, mixtral.mixtral_config),
+            "mistral": (families.MISTRAL_SIZES, families.mistral_config),
+            "qwen": (families.QWEN_SIZES, families.qwen_config),
+            "phi": (families.PHI_SIZES, families.phi_config),
+            "opt": (families.OPT_SIZES, families.opt_config),
+            "falcon": (families.FALCON_SIZES, families.falcon_config),
+            "bloom": (families.BLOOM_SIZES, families.bloom_config),
+            "gpt_neox": (families.NEOX_SIZES, families.gpt_neox_config)}
+    return {(f, s): cfg(s).head_dim for f, (sizes, cfg) in fams.items() for s in sizes}
+
+
+def test_every_config_head_dim_is_one_the_kernels_take():
+    dims = _config_head_dims()
+    assert {dims[("phi", "2")], dims[("gpt_neox", "20b")]} == {80, 96}
+    assert {d for d in dims.values() if not fa.kernel_takes_head_dim(d)} == set()
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_head_dim_rule_takes_multiples_of_16_to_128(D):
+    assert fa.kernel_takes_head_dim(D)
+    fa.check_head_dim(D, "flash")
+
+
+@pytest.mark.parametrize("D", [0, 8, 24, 40, 72, 100, 136, 256])
+def test_head_dim_rule_refuses_the_rest_naming_f2(D):
+    assert not fa.kernel_takes_head_dim(D)
+    with pytest.raises(ValueError, match="#F2"):
+        fa.check_head_dim(D, "flash")
+
+
+@pytest.mark.parametrize("block,ok", [(16, True), (32, True), (48, True), (64, True),
+                                      (128, True), (8, False), (40, False), (0, False)])
+def test_sparse_block_rule(block, ok):
+    assert sa.kernel_takes_block(block) is ok
+
+
+@pytest.mark.parametrize("group,bits,ok", [(16, 8, True), (48, 4, True), (128, 4, True),
+                                           (10, 8, True), (6, 4, True), (7, 8, True),
+                                           (7, 4, False), (0, 8, False), (-32, 8, False)])
+def test_wq_group_rule(group, bits, ok):
+    assert twq.kernel_takes_group(group, bits) is ok
+
+
+@pytest.mark.parametrize("group", [16, 48, 10])
+def test_wq_groups_off_the_stage_take_the_fma_tile(group):
+    """Off the 32-row stage the kernel runs on the FMA pipes for every x
+    type, so its tile and occupancy are the fp32 kernel's."""
+    assert twq._tile(900, torch.bfloat16, group) == twq.TILE_FMA
+    assert twq._tile(900, torch.bfloat16, 128) == twq.TILE_MMA
+    assert twq._tile(8, torch.bfloat16, group) == twq.TILE_DECODE
+
+
+def test_backward_tma_rows_rule():
+    """The backward kernels' TMA maps read [B, S, H, D] views in place when
+    their strides are positive 16-byte multiples; anything else is copied."""
+    qkv = torch.zeros((2, 64, 3, 4, 32), dtype=torch.bfloat16)
+    assert fa._tma_ok(qkv[:, :, 0])  # the QKV projection's q view
+    assert fa._tma_ok(torch.zeros((2, 4, 64, 32), dtype=torch.bfloat16).transpose(1, 2))
+    assert not fa._tma_ok(torch.zeros((2, 64, 4, 36), dtype=torch.bfloat16)[..., :32])
+    assert not fa._tma_ok(torch.zeros((2, 64, 1, 32), dtype=torch.bfloat16).expand(2, 64, 4, 32))
+    assert fa._tma_ok(torch.zeros((2, 64, 1, 32)).expand(2, 64, 4, 32))  # fp32: FMA kernels
+
+
+# ------------------------------------------------- kernel S's unit layout
+def _unit_walk(layout, block, S, causal):
+    """The visible (query, key) pairs as kernel S walks them for a block off
+    its tile: the listed 64 x 64 tiles, each unit whose bit is set, and the
+    diagonal when causal."""
+    row_ptr, cols, masks = (t.numpy() for t in sa.unit_lists(layout, block, S, causal, "cpu"))
+    heads, nt = layout.shape[0], -(-S // sa.KERNEL_TILE)
+    u, tpu = sa.KERNEL_UNIT, sa.KERNEL_TILE // sa.KERNEL_UNIT
+    vis = np.zeros((heads, nt * sa.KERNEL_TILE, nt * sa.KERNEL_TILE), bool)
+    for h in range(heads):
+        for qt in range(nt):
+            r = h * nt + qt
+            for e in range(row_ptr[r], row_ptr[r + 1]):
+                for bit in range(tpu * tpu):
+                    if (masks[e] >> bit) & 1:
+                        r0 = qt * sa.KERNEL_TILE + (bit // tpu) * u
+                        c0 = cols[e] * sa.KERNEL_TILE + (bit % tpu) * u
+                        vis[h, r0:r0 + u, c0:c0 + u] = True
+    vis = vis[:, :S, :S]
+    if causal:
+        vis &= np.tril(np.ones((S, S), bool))
+    return vis
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cfg,S", [
+    (lambda m: m.FixedSparsityConfig(num_heads=2, block=16, num_local_blocks=4,
+                                     num_global_blocks=1), 1040),
+    (lambda m: m.BigBirdSparsityConfig(num_heads=2, block=32, num_random_blocks=2), 1056),
+    (lambda m: m.BSLongformerSparsityConfig(num_heads=1, block=16,
+                                            num_sliding_window_blocks=5,
+                                            global_block_indices=(0, 7)), 528),
+    (lambda m: m.FixedSparsityConfig(num_heads=2, block=48, num_local_blocks=3), 1008),
+])
+def test_unit_lists_cover_exactly_the_layout(cfg, S, causal):
+    """Blocks under the 64-row tile: the tiles kernel S visits and their
+    unit masks cover the layout expanded to [H, S, S] (and the causal
+    triangle) exactly, S off a multiple of 64 included."""
+    c = cfg(sa)
+    layout = sa._layout(c, S, c.num_heads)
+    want = np.kron(layout > 0, np.ones((c.block, c.block), bool))
+    if causal:
+        want &= np.tril(np.ones((S, S), bool))
+    np.testing.assert_array_equal(_unit_walk(layout, c.block, S, causal), want)
+
+
+# ---------------------------------------------- plain paths vs JAX kernels
+def _flash_inputs(seed, b, s, nh, kvh, d):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, s, nh, d).astype(np.float32), rng.randn(b, s, kvh, d).astype(np.float32),
+            rng.randn(b, s, kvh, d).astype(np.float32), rng.randn(b, s, nh, d).astype(np.float32))
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("D", [80, 96])
+def test_flash_forward_head_dims_match_jax(D, alibi, dt):
+    q, k, v, _ = _flash_inputs(0, 1, 40, 4, 2, D)
+    jkw = {"alibi_slopes": jax_alibi_slopes(4)} if alibi else {}
+    tkw = {"alibi_slopes": alibi_slopes(4, device="cpu")} if alibi else {}
+    want = jax_flash(*(jnp.asarray(a, JNP[dt]) for a in (q, k, v)), causal=True, block_q=16,
+                     block_k=16, **jkw)
+    got, _ = fa.flash_attention_fwd(*(torch.from_numpy(a).to(TORCH[dt]) for a in (q, k, v)),
+                                    causal=True, **tkw)
+    tol = {"fp32": 1e-5, "bf16": 2e-2}[dt]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [80, 96])
+def test_flash_grads_head_dims_match_jax(D, causal, dt):
+    """Gradients of sum(o * dO) through the port's flash_attention (plain
+    forward and backward on the CPU) vs jax.grad through the Pallas
+    kernels, GQA 4 over 2 and S = 40 off the 16-row tiles."""
+    q, k, v, do = _flash_inputs(1, 1, 40, 4, 2, D)
+    args = [jnp.asarray(a, JNP[dt]) for a in (q, k, v)]
+    cot = jnp.asarray(do, JNP[dt])
+
+    def loss(q_, k_, v_):
+        o = jax_flash(q_, k_, v_, causal=causal, block_q=16, block_k=16)
+        return jnp.sum((o * cot).astype(jnp.float32))
+
+    want = [np.asarray(g.astype(jnp.float32)) for g in jax.grad(loss, (0, 1, 2))(*args)]
+    t = [torch.from_numpy(a).to(TORCH[dt]).requires_grad_() for a in (q, k, v)]
+    fa.flash_attention(*t, causal=causal).backward(torch.from_numpy(do).to(TORCH[dt]))
+    tol = {"fp32": 2e-5, "bf16": 2e-2}[dt]
+    for x, w in zip(t, want):
+        np.testing.assert_allclose(x.grad.float().numpy(), w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_head_dim_80_matches_jax(quant, alibi):
+    rng = np.random.RandomState(2)
+    B, NH, KVH, D, ps, MP = 3, 8, 2, 80, 8, 4
+    P = B * MP + 1
+    q = rng.randn(B, NH, D).astype(np.float32)
+    if quant:
+        k = rng.randint(-127, 128, (P, ps, KVH, D)).astype(np.int8)
+        v = rng.randint(-127, 128, (P, ps, KVH, D)).astype(np.int8)
+        ks, vs = ((rng.rand(P, ps, KVH) * 0.05 + 0.01).astype(np.float32) for _ in range(2))
+    else:
+        k, v = (rng.randn(P, ps, KVH, D).astype(np.float32) for _ in range(2))
+        ks = vs = None
+    pos = np.array([5, 17, 30], np.int32)
+    table = np.full((B, MP), P - 1, np.int32)
+    perm, n = rng.permutation(P - 1), 0
+    for b, p in enumerate(pos):
+        table[b, :p // ps + 1] = perm[n:n + p // ps + 1]
+        n += p // ps + 1
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    want = jax_paged(j(q), j(k), j(v), j(table), j(pos), k_scale=j(ks), v_scale=j(vs),
+                     alibi_slopes=jax_alibi_slopes(NH) if alibi else None)
+    got = pa.paged_decode_attention(t(q), t(k), t(v), t(table), t(pos), k_scale=t(ks),
+                                    v_scale=t(vs),
+                                    alibi_slopes=alibi_slopes(NH, device="cpu") if alibi else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name,block", [("fixed", 16), ("bslongformer", 32), ("bigbird", 16)])
+def test_sparse_small_blocks_match_jax_pallas(name, block, causal):
+    cfgs = {"fixed": lambda m: m.FixedSparsityConfig(num_heads=2, block=block,
+                                                      num_local_blocks=2, num_global_blocks=1),
+            "bslongformer": lambda m: m.BSLongformerSparsityConfig(
+                num_heads=2, block=block, num_sliding_window_blocks=3,
+                global_block_indices=(0,)),
+            "bigbird": lambda m: m.BigBirdSparsityConfig(num_heads=2, block=block,
+                                                         num_random_blocks=1,
+                                                         num_sliding_window_blocks=3,
+                                                         num_global_blocks=1)}
+    rng = np.random.RandomState(3)
+    q, k, v = ((rng.randn(1, 128, 2, 64) * 0.3).astype(np.float32) for _ in range(3))
+    want = np.asarray(jsa.sparse_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                           cfgs[name](jsa), causal=causal, impl="pallas"))
+    got = sa.sparse_attention(*(torch.from_numpy(x) for x in (q, k, v)), cfgs[name](sa),
+                              causal=causal).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("bits,group,K", [(8, 16, 128), (4, 48, 200), (8, 48, 144)])
+def test_wq_matmul_groups_off_the_stage_match_jax(bits, group, K, dt):
+    w = np.random.RandomState(4).randn(K, 96).astype(np.float32) * 0.02
+    x = np.random.RandomState(5).randn(2, 5, K).astype(np.float32)
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    jc, js = jwq.quantize_weight(jnp.asarray(w), bits, group=group)
+    tc, ts = twq.quantize_weight(torch.from_numpy(w), bits, group=group)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    got = twq.wq_matmul(torch.from_numpy(x).to(tdt), tc, ts, bits=bits, group=group)
+    rtol = 2e-5 if dt == "fp32" else 2.0 ** -8
+    for impl in ("pallas", "xla"):
+        want = jwq.wq_matmul(jnp.asarray(x, jdt), jc, js, bits=bits, group=group, impl=impl)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=2e-5, rtol=rtol, err_msg=impl)

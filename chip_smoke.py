@@ -8,15 +8,22 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 
 0. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 1. build every CUDA kernel of the path from ``deepspeed_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together; the sources include
+   ``csrc/hopper.cuh``), and beside them the previous versions of the
+   three kernels this version redesigned or rebuilt, from
+   ``baselines/previous/`` (flash forward, flash backward, grouped matmul);
 2. kernel A, flash-attention forward, against its plain PyTorch version
    computed in fp32 on the same inputs (limits in ``FLASH_TOL``/``LSE_TOL``) on
    the card at llama-1b prefill shapes (+ a chunked-prefill window,
-   ALiBi, fp32 and fp16 cases, D = 80 and 96), timed beside its bound, its plain version
-   and ``F.scaled_dot_product_attention`` as a yardstick;
+   ALiBi, fp32 and fp16 cases, D = 72, 80, 96, 160 and 256, strided q/k/v
+   views bit-equal to contiguous copies), timed beside its bound, its plain
+   version and ``F.scaled_dot_product_attention`` as a yardstick at the
+   serving shape, the training shape (B=4) and llama-7b's heads (D=128),
+   the previous kernel timed in turns with the new one (previous, new,
+   new, previous) and held to the same limits;
 3. kernel B, paged decode attention, the same way at the llama-1b decode
-   shape (+ int8 pages, a NaN-poisoned trash page, ALiBi, D = 80 and 96;
-   ``PAGED_TOL``);
+   shape (+ int8 pages, a NaN-poisoned trash page, ALiBi, D = 72, 80, 96
+   and 160; ``PAGED_TOL``);
 4. the engine: ``InferenceEngineV2`` serving llama-1b at full width and
    depth in bf16 with random seeded weights, 12 greedy requests through
    8 slots, once with whole-prompt prefill and once with 256-token
@@ -31,9 +38,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
    (``FLASH_BWD_TOL``) at the llama-1b training shape (B=4 S=1024 NH=32
    KVH=8 D=64 bf16 causal) and llama-7b's heads (B=2 S=2048 NH=KVH=32
    D=128), both timed beside their bounds, the plain version and SDPA's
-   backward, and GQA, ALiBi, uneven-S, D = 80 and 96, fp16 and fp32
-   corners; bf16/fp16 gradients bit-equal across two calls, and strided
-   q/k/v/dO views bit-equal to their contiguous copies;
+   backward, and GQA, ALiBi, uneven-S, D = 72, 80, 96 and 160, fp16 and
+   fp32 corners; bf16/fp16 gradients bit-equal across two calls, strided
+   q/k/v/dO views bit-equal to their contiguous copies, and at the
+   training shape bit-equal to the previous build's (the kernels now built
+   from ``csrc/hopper.cuh``), timed in turns with it;
 7. kernel C, fused Adam, against its plain version (``ADAM_TOL``) on the
    65.5M-element embedding leaf of llama-1b (timed beside its bound and
    ``torch._fused_adamw_``) and odd-sized, unaligned and bf16-moment leaves;
@@ -87,9 +96,12 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     router's padded layouts, decode (8 tokens: P = 1152) and prefill (1024
     tokens: P = 3072), gate/up (4096 x 14336) and down (14336 x 4096), bf16
     (timed beside its bound, its plain version, ``torch._grouped_mm`` and,
-    as context, a dense cuBLAS GEMM of the same rows), fp16 and fp32; a
+    as context, a dense cuBLAS GEMM of the same rows; the bound counts the
+    routed rows, 2 x tokens, not the padded P), fp16 and fp32; a
     non-monotone block -> expert map at block_rows 8 and 16, ragged F and
-    H, one expert for every block;
+    H, one expert for every block; the count of used blocks (``n_used``)
+    skipping the padding, bit-equal across calls; the previous kernel timed
+    in turns with the new one at the four timed shapes;
 16. MoE serving: Mixtral-8x7b at full width and 16 of 32 layers (bf16,
     dropless, seeded random weights) through ``InferenceEngineV2``, the 12
     requests of phase 4 with whole-prompt and 256-token chunked prefill,
@@ -108,7 +120,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     bound of their visible block pairs, the plain version and SDPA on the
     layout expanded to a boolean mask), and corners (Dense, fp16 and fp32,
     heads from a 1-head layout, block 256, an all-empty layout row whose
-    output is 0, D = 80, blocks 16, 32 and 48 with S off a multiple of 64);
+    output is 0, D = 72, 80 and 160, blocks 8, 16, 24, 32 and 48 with S off
+    a multiple of 64);
     the path: the six main calls of the entry point, counter
     zeroed before and read after (one launch each); a CUDA call with
     inputs that require a gradient raises;
@@ -121,7 +134,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     its backward); corners: no bias, bias1 only, [None, b2], D = 16/64/128,
     ragged N = 300 and Q != K, fp16, fp32, a row masked by -1e9, and the
     query ranges of E'' past one block's dbias2 accumulator (N = 640 bf16,
-    N = 300 fp32 D = 128); every backward bit-equal across two calls;
+    N = 300 fp32 D = 128), and the key ranges of E' past one block's
+    dbias1 accumulator (K = 6,000 bf16 and 16,000 fp32 at D = 128); every
+    backward bit-equal across two calls;
 20. the evoformer training path: ``DS4Sci_EvoformerAttention(q, k, v,
     [b1, b2])`` -> ``backward`` at the main shape, one E, E' and E''
     launch and no plain call, the five gradients within ``EVO_BWD_TOL`` of
@@ -202,6 +217,88 @@ WQ_COSINE = {8: 0.999}
 WQ_DEQUANT_COSINE = 0.999
 PARITY_LOGITS_TOL = 2e-3
 DEV = "cuda"
+#: the previous versions of the kernels this version redesigned (A, G) or
+#: rebuilt from ``csrc/hopper.cuh`` (A', A''), built beside the new ones and
+#: timed in turns with them; their sources sit in BASELINE_DIR
+BASELINE_DIR = os.path.join(ROOT, "baselines", "previous")
+
+
+def register_baselines(op_builder):
+    """Add the previous kernels' sources to the builder under ``*_previous``
+    names and give their C signatures."""
+    import ctypes
+    from pathlib import Path
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sigs = {"flash_attention_fwd": {"dstpu_flash_attention_fwd": [P] * 6 + [I] * 10
+                                    + [ctypes.c_float] + [L] * 9 + [P]},
+            "grouped_matmul": {"dstpu_grouped_matmul": [P] * 4 + [I] * 7 + [P]},
+            "flash_attention_bwd": None}  # the same signature as today's
+    for name in sigs:
+        op_builder.SOURCES[name + "_previous"] = Path(BASELINE_DIR) / f"{name}.cu"
+    return sigs
+
+
+class Baseline:
+    """The previous kernels, called through their own C entry points."""
+
+    def __init__(self, op_builder, fa, sigs):
+        self.ob, self.fa = op_builder, fa
+        self.fwd = op_builder.load("flash_attention_fwd_previous", sigs["flash_attention_fwd"])
+        self.bwd = op_builder.load("flash_attention_bwd_previous", fa._BWD_SIG)
+        self.gmm = op_builder.load("grouped_matmul_previous", sigs["grouped_matmul"])
+
+    def flash_fwd(self, q, k, v, causal=True, q_offset=0, valid_k=None):
+        B, Sq, NH, D = q.shape
+        Sk, KVH = k.shape[1], k.shape[2]
+        o = torch.empty_like(q)
+        lse = torch.empty((B, NH, Sq), dtype=torch.float32, device=DEV)
+        err = self.fwd.dstpu_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), None,
+            self.ob.dtype_code(q.dtype), B, NH, KVH, Sq, Sk, D,
+            Sk if valid_k is None else valid_k, q_offset, int(causal), 1.0 / math.sqrt(D),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            torch.cuda.current_stream().cuda_stream)
+        self.ob.check(err, "flash_attention_fwd (previous)")
+        return o, lse
+
+    def flash_bwd(self, q, k, v, do, lse, delta, causal=True):
+        B, S, NH, D = q.shape
+        KVH = k.shape[2]
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), None, self.ob.dtype_code(q.dtype), B, NH, KVH, S, S, D,
+                int(causal), 1.0 / math.sqrt(D), *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *do.stride()[:3])
+        st = torch.cuda.current_stream().cuda_stream
+        self.ob.check(self.bwd.dstpu_flash_attention_bwd_dq(*args, dq.data_ptr(), st),
+                      "flash_attention_bwd_dq (previous)")
+        self.ob.check(self.bwd.dstpu_flash_attention_bwd_dkv(*args, dk.data_ptr(),
+                                                             dv.data_ptr(), st),
+                      "flash_attention_bwd_dkv (previous)")
+        return dq, dk, dv
+
+    def grouped_matmul(self, x, w, be, block_rows):
+        P, H = x.shape
+        E, _, F_ = w.shape
+        out = torch.empty((P, F_), dtype=x.dtype, device=DEV)
+        err = self.gmm.dstpu_grouped_matmul(
+            x.data_ptr(), w.data_ptr(), be.data_ptr(), out.data_ptr(),
+            self.ob.dtype_code(x.dtype), P, H, F_, E, block_rows, int(block_rows >= 128),
+            torch.cuda.current_stream().cuda_stream)
+        self.ob.check(err, "grouped_matmul (previous)")
+        return out
+
+
+#: set in main(): the previous kernels
+BASE = None
+
+
+def turns(prev, new):
+    """Device ms of ``prev`` and ``new`` timed in turns (prev, new, new,
+    prev) in one process on one card: (prev mean, new mean, the four)."""
+    t = [device_ms(prev), device_ms(new), device_ms(new), device_ms(prev)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
 class SmokeFailure(SystemExit):
@@ -316,13 +413,20 @@ def warm_clocks(seconds: float = 1.0) -> None:
 # -- phase 2: flash-attention forward ---------------------------------------
 
 def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
-               alibi=False, valid_k=None, timed=False, seed=0):
+               alibi=False, valid_k=None, timed=False, seed=0, strided=False):
+    """Kernel A against its plain version; ``strided``: q/k/v are views of
+    one [B, S, 3, H, D] projection (Sq == Sk, NH == KVH), read in place and
+    bit-equal to their contiguous copies."""
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
 
     g = torch.Generator(device=DEV).manual_seed(seed)
-    q = torch.randn((B, Sq, NH, D), generator=g, device=DEV).to(dtype)
-    k = torch.randn((B, Sk, KVH, D), generator=g, device=DEV).to(dtype)
-    v = torch.randn((B, Sk, KVH, D), generator=g, device=DEV).to(dtype)
+    if strided:
+        qkv = torch.randn((B, Sq, 3, NH, D), generator=g, device=DEV).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = torch.randn((B, Sq, NH, D), generator=g, device=DEV).to(dtype)
+        k = torch.randn((B, Sk, KVH, D), generator=g, device=DEV).to(dtype)
+        v = torch.randn((B, Sk, KVH, D), generator=g, device=DEV).to(dtype)
     slopes = alibi_slopes(NH, device=DEV) if alibi else None
     kw = dict(causal=causal, q_offset=q_offset, alibi_slopes=slopes, valid_k=valid_k)
     o, lse = fa.flash_attention_fwd(q, k, v, **kw)
@@ -339,6 +443,12 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
     check(ok, f"flash {name}: kernel vs fp32 plain beyond {FLASH_TOL[dtype]} "
           f"(max abs {err:.3g}, atol used {atol_used:.3g})")
     check(lse_err <= LSE_TOL, f"flash {name}: lse beyond {LSE_TOL} (max abs {lse_err:.3g})")
+    if strided:
+        oc, lc = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(o, oc) and torch.equal(lse, lc)
+        check(same, f"flash {name}: strided views give other bits than contiguous copies")
+        rec["bit_equal_to_contiguous"] = same
     if timed:
         rows = q_offset + torch.arange(Sq, device=DEV)
         vis = (rows[:, None] >= torch.arange(Sk, device=DEV)[None, :]) if causal \
@@ -356,10 +466,24 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
             rel = (rows[:, None] - torch.arange(Sk, device=DEV)[None, :]).float()
             mask = torch.where(vis, -slopes[:, None, None] * rel, float("-inf")).to(dtype)
         rec.update(
-            ms=device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw)),
             plain_ms=device_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
             library_ms=device_ms(lambda: sdpa(qh, kh, vh, mask, NH // KVH, top_left)),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=4.0 * D * pairs)
+        if alibi or BASE is None:
+            rec["ms"] = device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+        else:
+            # the previous kernel on the same inputs, held to the same limits
+            pkw = dict(causal=causal, q_offset=q_offset, valid_k=valid_k)
+            po, plse = BASE.flash_fwd(q, k, v, **pkw)
+            torch.cuda.synchronize()
+            p_err, _, p_ok = max_err(po, o_ref, FLASH_TOL[dtype])
+            check(p_ok and (plse - lse_ref).abs().max().item() <= LSE_TOL,
+                  f"flash {name}: the previous kernel is beyond the limits")
+            prev_ms, rec["ms"], four = turns(lambda: BASE.flash_fwd(q, k, v, **pkw),
+                                             lambda: fa.flash_attention_fwd(q, k, v, **kw))
+            rec.update(previous_ms=prev_ms, turns_prev_new_new_prev=four,
+                       previous_max_abs_err=p_err)
+        rec.update(bound_share=b_ms / rec["ms"], tflops=4.0 * D * pairs / rec["ms"] / 1e9)
     print(json.dumps({"flash": rec}))
     return rec
 
@@ -467,6 +591,16 @@ def flash_phase(fa):
         flash_case(fa, "d96_chunk_alibi", 1, 100, 357, 4, 4, 96, bf16, q_offset=257,
                    alibi=True),
         flash_case(fa, "fp32_d80_full", 1, 70, 90, 4, 1, 80, fp32, causal=False),
+        # the training forward (llama-1b, micro-batch 4) and llama-7b's heads
+        flash_case(fa, "train_b4_s1024", 4, 1024, 1024, 32, 8, 64, bf16, timed=True),
+        flash_case(fa, "llama7b_s1024_d128", 1, 1024, 1024, 32, 32, 128, bf16, timed=True),
+        # head dims off 16 and past 128 (zero-filled columns), strided views
+        flash_case(fa, "d72_gqa_s300", 2, 300, 300, 8, 2, 72, bf16),
+        flash_case(fa, "d160_chunk", 1, 100, 300, 4, 2, 160, bf16, q_offset=200),
+        flash_case(fa, "d256_alibi", 1, 260, 260, 4, 4, 256, bf16, alibi=True),
+        flash_case(fa, "d100_full", 1, 70, 90, 4, 1, 100, bf16, causal=False),
+        flash_case(fa, "fp32_d160", 1, 70, 90, 4, 2, 160, fp32),
+        flash_case(fa, "strided_qkv_views", 2, 200, 200, 8, 8, 64, bf16, strided=True),
     ]
 
 
@@ -483,6 +617,10 @@ def paged_phase(pa):
         # head dims of phi 2 (80) and gpt-neox 20b (96)
         paged_case(pa, "d80_gqa_20_pages", 4, 32, 8, 80, 16, 20, bf16, poison=True),
         paged_case(pa, "int8_d96_alibi", 3, 8, 4, 96, 16, 12, bf16, quant=True, alibi=True),
+        # head dims off 16 (rows read in place at 72, tails zero-filled) and past 128
+        paged_case(pa, "d72_gqa_20_pages", 4, 32, 8, 72, 16, 20, bf16, poison=True),
+        paged_case(pa, "int8_d72", 3, 8, 4, 72, 16, 12, bf16, quant=True),
+        paged_case(pa, "d160_alibi", 3, 8, 2, 160, 16, 12, bf16, alibi=True),
     ]
 
 
@@ -528,6 +666,22 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
         check(same, f"flash bwd {name}: gradients differ between two calls")
         rec["bit_equal_across_calls"] = same
     print(json.dumps({"flash_bwd_check": rec}))
+    if timed and BASE is not None and not alibi and dtype != torch.float32:
+        # the previous build (its own copy of the Hopper helpers) on the same
+        # inputs: the same bits, and its time in turns
+        prev = BASE.flash_bwd(q, k, v, do, lse, delta, causal=causal)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), prev))
+        check(same, f"flash bwd {name}: other bits than the previous build")
+        rec["bit_equal_to_previous"] = same
+
+        def new_bwd():
+            fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+        p_ms, n_ms, four = turns(lambda: BASE.flash_bwd(q, k, v, do, lse, delta, causal),
+                                 new_bwd)
+        rec.update(previous_dq_dkv_ms=p_ms, turns_dq_dkv_prev_new_new_prev=four)
     if timed:
         rows = torch.arange(S, device=DEV)
         vis = (rows[:, None] >= rows[None, :]) if causal else \
@@ -612,6 +766,10 @@ def flash_bwd_phase(fa):
         flash_bwd_case(fa, "d96_full_alibi_s257", 1, 257, 4, 4, 96, bf16, causal=False,
                        alibi=True),
         flash_bwd_case(fa, "fp16_d80_full_s130", 1, 130, 4, 2, 80, fp16, causal=False),
+        # head dims off 16 (zero columns) and past 128 (halves of the columns)
+        flash_bwd_case(fa, "d72_gqa_s300", 2, 300, 8, 2, 72, bf16),
+        flash_bwd_case(fa, "d160_alibi_s200", 1, 200, 4, 2, 160, bf16, alibi=True),
+        flash_bwd_case(fa, "fp32_d160_s100", 1, 100, 4, 2, 160, fp32),
         # llama-7b's heads
         flash_bwd_case(fa, "llama7b_b2_s2048_d128", 2, 2048, 32, 32, 128, bf16, timed=True),
     ] + [flash_bwd_strided_case(fa)]
@@ -1564,8 +1722,13 @@ def gmm_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_tokens=No
         be = (torch.tensor(order, dtype=torch.int32, device=DEV) if order is not None else
               torch.randint(0, E, (P // block_rows,), generator=g, device=DEV,
                             dtype=torch.int32))
-    out = gm.grouped_matmul(x, w, be, block_rows)
-    ref = gm.grouped_matmul_plain(x.float(), w.float(), be, block_rows)
+    # the main path passes the count of blocks that hold a routed row
+    n_used = None
+    if routed_tokens is not None:
+        n_used = (torch.where(dest < P, dest, -block_rows).max() // block_rows + 1).to(
+            torch.int32).reshape(1)
+    out = gm.grouped_matmul(x, w, be, block_rows, n_used)
+    ref = gm.grouped_matmul_plain(x.float(), w.float(), be, block_rows, n_used)
     torch.cuda.synchronize()
     tol = GMM_TOL[dtype]
     err, atol_used, ok = max_err(out, ref, tol)
@@ -1578,17 +1741,41 @@ def gmm_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_tokens=No
     check(bool(torch.isfinite(out).all()), f"gmm {name}: non-finite output")
     check(ok, f"gmm {name}: kernel vs fp32 plain beyond {tol} (max abs {err:.3g}, "
           f"atol used {atol_used:.3g})")
+    if dtype != torch.float32:
+        again = gm.grouped_matmul(x, w, be, block_rows, n_used)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"gmm {name}: outputs differ between two calls")
+        rec["bit_equal_across_calls"] = True
+    if n_used is not None:
+        rec["n_used"] = int(n_used.item())
+        # skipped blocks are the zero padding's own result
+        full = gm.grouped_matmul(x, w, be, block_rows)
+        torch.cuda.synchronize()
+        check(torch.equal(full, out), f"gmm {name}: skipping the padding changed the output")
     if timed:
         item = x.element_size()
-        nbytes = (P * H + distinct * H * F + P * F) * item + be.numel() * 4
-        ops = 2.0 * P * H * F
+        # the work the inputs need: the routed rows (2 per token), each
+        # expert's matrix once, the output rows written
+        rows = P if routed_tokens is None else 2 * routed_tokens
+        nbytes = (rows * H + distinct * H * F + P * F) * item + be.numel() * 4
+        ops = 2.0 * rows * H * F
         b_ms, b_by = bound(nbytes, ops, dtype)
         monotone = bool((be[1:] >= be[:-1]).all())
         lib_name = "torch._grouped_mm" if monotone and hasattr(torch, "_grouped_mm") else None
         offs = grouped_mm_offs(be, E, block_rows) if lib_name else None
+        if BASE is not None:
+            prev = BASE.grouped_matmul(x, w, be, block_rows)
+            torch.cuda.synchronize()
+            p_err, _, p_ok = max_err(prev, ref, tol)
+            check(p_ok, f"gmm {name}: the previous kernel is beyond {tol}")
+            prev_ms, ms, four = turns(lambda: BASE.grouped_matmul(x, w, be, block_rows),
+                                      lambda: gm.grouped_matmul(x, w, be, block_rows, n_used))
+            rec.update(previous_ms=prev_ms, turns_prev_new_new_prev=four)
+        else:
+            ms = device_ms(lambda: gm.grouped_matmul(x, w, be, block_rows, n_used))
         rec.update(
-            ms=device_ms(lambda: gm.grouped_matmul(x, w, be, block_rows)),
-            plain_ms=device_ms(lambda: gm.grouped_matmul_plain(x, w, be, block_rows),
+            ms=ms, bound_share=b_ms / ms, routed_rows=rows,
+            plain_ms=device_ms(lambda: gm.grouped_matmul_plain(x, w, be, block_rows, n_used),
                                iters=5, warmup=2),
             library=lib_name,
             library_ms=(device_ms(lambda: torch._grouped_mm(x, w, offs=offs))
@@ -1958,6 +2145,20 @@ def sparse_phase(sa):
             shape=(1, 1008, 4, 96)),
         sparse_case(sa, "empty_row_block32", empty_row_config(sa, 4, 7, block=32), True, bf16,
                     shape=(1, 544, 4, 64), empty_block_row=7),
+        # blocks off 16 (each element of a partly visible unit tested against
+        # the layout) and head dims off 16 and past 128
+        sparse_case(sa, "fixed_block8_causal", sa.FixedSparsityConfig(
+            num_heads=4, block=8, num_local_blocks=4, num_global_blocks=1), True, bf16,
+            shape=(1, 520, 4, 64)),
+        sparse_case(sa, "bigbird_block24_full", sa.BigBirdSparsityConfig(
+            num_heads=4, block=24, num_random_blocks=2), False, bf16, shape=(1, 600, 4, 64)),
+        sparse_case(sa, "bslongformer_block24_fp32", sa.BSLongformerSparsityConfig(
+            num_heads=4, block=24, num_sliding_window_blocks=3), True, fp32,
+            shape=(1, 360, 4, 32)),
+        sparse_case(sa, "fixed_d72", sa.FixedSparsityConfig(num_heads=4, block=128), True,
+                    bf16, shape=(1, 1024, 4, 72)),
+        sparse_case(sa, "fixed_d160_full", sa.FixedSparsityConfig(num_heads=4, block=128),
+                    False, bf16, shape=(1, 1024, 4, 160)),
     ]
     # the path: a user's calls of the entry point at the main shape, the
     # three default layouts causal and not, counter zeroed before, read after
@@ -2095,6 +2296,9 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
     check(same, f"evo {name}: gradients differ between two calls")
     rec["bit_equal_across_calls"] = same
     rec["qranges"] = ev.dkv_query_ranges(q.dtype, N, D, b2f is not None)
+    rec["kranges"] = ev.dq_key_ranges(q.dtype, K, D, b1f is not None)
+    if name.startswith("key_ranges"):
+        check(rec["kranges"] > 1, f"evo {name}: E' did not cut the key axis")
     rec["max_abs_err"] = err
     if masked_row is None:  # the gradients held to their limits
         rec["bwd_max_abs_err"] = max(rec[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
@@ -2178,6 +2382,11 @@ def evo_phase(ev):
         # cuts the query axis into ranges (ROADMAP Queue 3 #F1)
         evo_case(ev, "ranges_n640_bf16", (1, 8, 640, 4, 32), bf16),
         evo_case(ev, "ranges_n300_fp32_d128", (1, 4, 300, 2, 128), fp32),
+        # past the keys whose whole dbias1 accumulator fits a block: E' cuts
+        # the key axis into ranges (ROADMAP Queue 3 #F1, closed)
+        evo_case(ev, "key_ranges_k6000_bf16_d128", (1, 2, 64, 2, 128), bf16, K=6000),
+        evo_case(ev, "key_ranges_k16000_fp32_d128", (1, 1, 64, 2, 128), fp32, K=16000,
+                 biases=("b1",)),
     ]
 
 
@@ -2292,6 +2501,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
+    global BASE
+    sigs = register_baselines(op_builder)
     t0 = time.perf_counter()
     secs = op_builder.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per kernel "
@@ -2301,6 +2512,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
+    BASE = Baseline(op_builder, fa, sigs)
     warm_clocks()
     flash = flash_phase(fa)
     paged = paged_phase(pa)
@@ -2363,8 +2575,10 @@ def main() -> int:
          "ms": main_flash["ms"], "kernel_ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"], "bound_ms": main_flash["bound_ms"],
          "bound_by": main_flash["bound_by"], "library_ms": main_flash["library_ms"],
+         "previous_ms": main_flash.get("previous_ms"),
          "shape": "B=1 S=1024 NH=32 KVH=8 D=64 bf16 causal",
-         "timed_cases": timed(flash, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))},
+         "timed_cases": timed(flash, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "previous_ms", "bound_share"))},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:132",
@@ -2459,10 +2673,12 @@ def main() -> int:
          "bound_ms": main_gmm["bound_ms"], "bound_by": main_gmm["bound_by"],
          "library_ms": main_gmm["library_ms"], "library": main_gmm["library"],
          "context_cublas_dense_ms": main_gmm["context_cublas_dense_ms"],
+         "previous_ms": main_gmm.get("previous_ms"),
          "shape": "P=1152 H=4096 F=14336 E=8 block_rows 128 bf16 (Mixtral-8x7b decode, "
                   "8 slots, gate/up)",
          "timed_cases": timed(gmm_recs, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                         "context_cublas_dense_ms"))},
+                                         "context_cublas_dense_ms", "previous_ms",
+                                         "bound_share"))},
         {"name": "sparse_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/sparse_attention.py:128",

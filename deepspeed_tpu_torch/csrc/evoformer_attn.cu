@@ -28,6 +28,13 @@
 //       shuffle tree into its own row of shared memory, and the block adds
 //       the 4 warps' rows in order at the end.  With more than one chunk
 //       the chunks' fp32 partials are added in chunk order by a second pass.
+//       The key axis is one range while the [4 warps][K] fp32 dbias1
+//       accumulator fits a block (K up to ~5,500 in bf16, ~20,000 in fp32);
+//       past that it is cut into the fewest ranges that fit, a grid axis of
+//       their own: each range's blocks sum dbias1 for its own keys (disjoint
+//       columns) and write fp32 partials of their dQ rows, which a second
+//       pass adds in range order and rounds once.  So E' takes any K, with
+//       no atomics.
 //   E'' one block per (b, h, 64-key tile, chunk of s, query range) loops s
 //       and, for each, the query tiles of its range: dK/dV of (b, s, h, key
 //       tile) sum in registers over those tiles, and dbias2[range, key tile]
@@ -84,6 +91,8 @@ struct Args {
   long long qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh;
   int qranges;     // E'': query ranges (1: the whole axis)
   float* kv_part;  // E'' with qranges > 1: fp32 [qranges][2][B, S, K, H, D] dK/dV partials
+  int kranges;     // E': key ranges (1: the whole axis)
+  float* dq_part;  // E' with kranges > 1: fp32 [kranges][B, S, Q, H, D] dQ partials
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -532,16 +541,32 @@ __device__ __forceinline__ void unit_range(const Args& a, int chunk, int units, 
 }
 
 // the 4 warps' (or the block's) dbias1 rows added in order, to db1 or to
-// the chunk's partial row
+// the chunk's partial row: columns [k_lo, k_hi) of the key range held by
+// rows of Kp floats
 __device__ __forceinline__ void store_db1(const Args& a, const float* rows, int n_rows, int Kp,
-                                          long long bs, int chunk) {
+                                          long long bs, int chunk, int k_lo, int k_hi) {
   float* dst = a.chunks > 1 ? a.part + (bs * a.chunks + chunk) * a.K : a.db1 + bs * a.K;
-  for (int col = threadIdx.x; col < a.K; col += blockDim.x) {
-    float v = rows[col];
-    for (int w = 1; w < n_rows; ++w) v += rows[w * Kp + col];
+  for (int col = k_lo + threadIdx.x; col < k_hi; col += blockDim.x) {
+    float v = rows[col - k_lo];
+    for (int w = 1; w < n_rows; ++w) v += rows[w * Kp + col - k_lo];
     dst[col] = v;
   }
 }
+
+// E''s block: (b * S + s, chunk, key range), and the key tiles [t0, t1) of
+// its range
+struct DqBlock {
+  int bs, chunk, t0, t1;
+  __device__ DqBlock(const Args& a) {
+    const int kr = blockIdx.x % a.kranges;
+    const int x = blockIdx.x / a.kranges;
+    chunk = x % a.chunks;
+    bs = x / a.chunks;
+    const int n_tiles = cdiv(a.K, kB), per = cdiv(n_tiles, a.kranges);
+    t0 = min(n_tiles, kr * per);
+    t1 = min(n_tiles, t0 + per);
+  }
+};
 
 template <int D>
 constexpr size_t dq_mma_tiles() {  // Q, dO + 2 x (K, V)
@@ -563,10 +588,12 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dq_mma_kernel(Args a) 
   const uint16_t* dOh = reinterpret_cast<const uint16_t*>(dOs);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunk = blockIdx.x % a.chunks;
-  const int bs = blockIdx.x / a.chunks;
+  const DqBlock blk(a);
+  const int chunk = blk.chunk, bs = blk.bs;
   const int s = bs % a.S, b = bs / a.S;
-  const int nq = cdiv(a.Q, kB), n_tiles = cdiv(a.K, kB), Kp = n_tiles * kB;
+  // this block's key tiles [t0, t1); Kp floats of dbias1 per warp row
+  const int nq = cdiv(a.Q, kB), t0 = blk.t0, n_tiles = blk.t1, Kp = cdiv(cdiv(a.K, kB), a.kranges) * kB;
+  const int k_lo = t0 * kB;
   const bool want_db1 = a.db1 != nullptr;
   int u0, u1;
   unit_range(a, chunk, a.H * nq, &u0, &u1);
@@ -592,7 +619,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dq_mma_kernel(Args a) 
     stage_async<T, D>(Qs, qb, a.qsn, q_start, kB, a.Q);
     stage_async<T, D>(dOs, ob, a.dsn, q_start, kB, a.Q);
     cp_async_commit();
-    load_kv(0, 0);
+    load_kv(t0 & 1, k_lo);
     cp_async_wait<1>();
     __syncthreads();
 
@@ -610,7 +637,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dq_mma_kernel(Args a) 
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
-    for (int t = 0; t < n_tiles; ++t) {
+    for (int t = t0; t < n_tiles; ++t) {
       const int cur = t & 1;
       const int k0 = t * kB;
       if (t + 1 < n_tiles) {
@@ -667,7 +694,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dq_mma_kernel(Args a) 
             c1 += __shfl_xor_sync(0xffffffffu, c1, off);
           }
           if (lane < 4) {
-            float* w = db1w + warp * Kp + k0 + nt * 8 + cq;
+            float* w = db1w + warp * Kp + k0 - k_lo + nt * 8 + cq;
             w[0] += c0;
             w[1] += c1;
           }
@@ -693,16 +720,24 @@ __global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dq_mma_kernel(Args a) 
     for (int i = 0; i < 2; ++i) {
       const int qi = q_start + r0 + 8 * i;
       if (qi >= a.Q) continue;
-      T* row = dq + (((long long)bs * a.Q + qi) * a.H + h) * D;
+      const long long off = (((long long)bs * a.Q + qi) * a.H + h) * D;
+      if (a.kranges > 1) {  // this key range's fp32 partial
+        float* row = a.dq_part + (long long)(blockIdx.x % a.kranges) * a.B * a.S * a.Q * a.H * D + off;
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<uint32_t*>(row + dt * 8 + cq) =
-            Mma<T>::pack(acc[dt][2 * i], acc[dt][2 * i + 1]);
+        for (int dt = 0; dt < DT; ++dt)
+          *reinterpret_cast<float2*>(row + dt * 8 + cq) =
+              make_float2(acc[dt][2 * i], acc[dt][2 * i + 1]);
+      } else {
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt)
+          *reinterpret_cast<uint32_t*>(dq + off + dt * 8 + cq) =
+              Mma<T>::pack(acc[dt][2 * i], acc[dt][2 * i + 1]);
+      }
     }
   }
   if (want_db1) {
     __syncthreads();
-    store_db1(a, db1w, kMmaWarps, Kp, bs, chunk);
+    store_db1(a, db1w, kMmaWarps, Kp, bs, chunk, k_lo, min(a.K, n_tiles * kB));
   }
 }
 
@@ -727,10 +762,11 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dq_fma_kernel(Args a) {
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const int chunk = blockIdx.x % a.chunks;
-  const int bs = blockIdx.x / a.chunks;
+  const DqBlock blk(a);
+  const int chunk = blk.chunk, bs = blk.bs;
   const int s = bs % a.S, b = bs / a.S;
-  const int nq = cdiv(a.Q, kB), n_tiles = cdiv(a.K, kB), Kp = n_tiles * kB;
+  const int nq = cdiv(a.Q, kB), t0 = blk.t0, n_tiles = blk.t1, Kp = cdiv(cdiv(a.K, kB), a.kranges) * kB;
+  const int k_lo = t0 * kB;
   const bool want_db1 = a.db1 != nullptr;
   int u0, u1;
   unit_range(a, chunk, a.H * nq, &u0, &u1);
@@ -761,7 +797,7 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dq_fma_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
 
-    for (int t = 0; t < n_tiles; ++t) {
+    for (int t = t0; t < n_tiles; ++t) {
       const int k0 = t * kB;
       __syncthreads();  // the previous tile's readers are done with Ks/Vs/dSs
       bias.stage(b1s, b2s, kB2Ld, q_start, kB, k0);
@@ -812,7 +848,7 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dq_fma_kernel(Args a) {
       if (want_db1 && tid < kB) {
         float v = 0.f;
         for (int r = 0; r < kB; ++r) v += dSs[r * PP + tid];
-        db1s[k0 + tid] += v;
+        db1s[k0 - k_lo + tid] += v;
       }
 #pragma unroll 4
       for (int kk = 0; kk < kB; ++kk) {
@@ -832,14 +868,18 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dq_fma_kernel(Args a) {
     for (int r = 0; r < 4; ++r) {
       const int qi = q_start + ty * 4 + r;
       if (qi >= a.Q) continue;
-      float* row = dq + (((long long)bs * a.Q + qi) * a.H + h) * D;
+      const long long off = (((long long)bs * a.Q + qi) * a.H + h) * D;
+      // this key range's partial when the key axis is cut
+      float* row = a.kranges > 1
+                       ? a.dq_part + (long long)(blockIdx.x % a.kranges) * a.B * a.S * a.Q * a.H * D + off
+                       : dq + off;
 #pragma unroll
       for (int c = 0; c < NC; ++c) row[tx + 16 * c] = acc[r][c] * a.sm_scale;
     }
   }
   if (want_db1) {
     __syncthreads();
-    store_db1(a, db1s, 1, Kp, bs, chunk);
+    store_db1(a, db1s, 1, Kp, bs, chunk, k_lo, min(a.K, n_tiles * kB));
   }
 }
 
@@ -1268,6 +1308,24 @@ __global__ void reduce_ranges_kernel(const float* __restrict__ part, T* __restri
   }
 }
 
+// dQ from the key ranges' partials: out[i] = sum over r, in order, of
+// part[r][i], rounded once to T
+template <typename T>
+__global__ void reduce_kranges_kernel(const float* __restrict__ part, T* __restrict__ dq,
+                                      int kranges, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float v = part[i];
+    for (int r = 1; r < kranges; ++r) v += part[r * n + i];
+    if constexpr (std::is_same<T, float>::value)
+      dq[i] = v;
+    else if constexpr (std::is_same<T, __half>::value)
+      dq[i] = __float2half_rn(v);
+    else
+      dq[i] = __float2bfloat16_rn(v);
+  }
+}
+
 cudaError_t reduce_chunks(const float* part, float* out, long long rows, int chunks,
                           long long len, cudaStream_t st) {
   const long long n = rows * len;
@@ -1292,7 +1350,8 @@ enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
 // block has is refused with cudaErrorInvalidConfiguration
 template <int D>
 size_t smem_bytes(Pass pass, bool fp32, const Args& a) {
-  const int Kp = (a.K + kB - 1) / kB * kB;
+  // E': the dbias1 accumulator spans one key range
+  const int Kp = cdiv(cdiv(a.K, kB), a.kranges) * kB;
   const size_t nbuf = fp32 ? 1 : 2;  // bias tiles: single-buffered on the FMA pipes
   if (pass == kFwd || pass == kDq) {
     const size_t bias = sizeof(float) * nbuf * (kB + kB * kB2Ld);  // laid out always
@@ -1329,6 +1388,22 @@ int dkv_qranges(bool fp32, int Q, bool db2) {
   return nq;
 }
 
+// the key ranges of E': 1 while the whole axis's dbias1 accumulator fits a
+// block, else the fewest that fit.  Ranges hold whole key tiles and none is
+// empty.
+template <int D>
+int dq_kranges(bool fp32, int K, bool db1) {
+  Args a{};
+  a.K = K;
+  a.db1 = db1 ? reinterpret_cast<float*>(16) : nullptr;  // only tested for null
+  const int nk = cdiv(K, kB);
+  for (int r = 1; r <= nk; ++r) {
+    a.kranges = cdiv(nk, cdiv(nk, r));  // no empty range
+    if (smem_bytes<D>(kDq, fp32, a) <= (size_t)kMaxSmem - 2048) return a.kranges;
+  }
+  return nk;
+}
+
 template <typename T, int D>
 cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
   constexpr bool fp32 = std::is_same<T, float>::value;
@@ -1348,7 +1423,10 @@ cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
       evo_fwd_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
     }
   } else if (pass == kDq) {
-    const dim3 grid(a.B * a.S * a.chunks);
+    if (a.kranges != dq_kranges<D>(fp32, a.K, a.db1 != nullptr) ||
+        (a.kranges > 1 && a.dq_part == nullptr))
+      return cudaErrorInvalidValue;
+    const dim3 grid(a.B * a.S * a.chunks * a.kranges);
     if constexpr (fp32) {
       static const cudaError_t attr = opt_in_max(evo_bwd_dq_fma_kernel<D>);
       if (attr != cudaSuccess) return attr;
@@ -1359,7 +1437,15 @@ cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
       evo_bwd_dq_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
     }
     cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess || a.db1 == nullptr || a.chunks == 1) return e;
+    if (e != cudaSuccess) return e;
+    if (a.kranges > 1) {
+      const long long n = (long long)a.B * a.S * a.Q * a.H * D;
+      const long long blocks = (n + 255) / 256;
+      reduce_kranges_kernel<T><<<blocks < 4096 ? (int)blocks : 4096, 256, 0, st>>>(
+          a.dq_part, static_cast<T*>(a.dq), a.kranges, n);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    if (a.db1 == nullptr || a.chunks == 1) return e;
     return reduce_chunks(a.part, a.db1, (long long)a.B * a.S, a.chunks, a.K, st);
   } else {
     if (a.qranges != dkv_qranges<D>(fp32, a.Q, a.db2 != nullptr) ||
@@ -1438,10 +1524,10 @@ int dispatch(Pass pass, int dtype, int D, const Args& a, void* stream) {
 // ([B*S, chunks, K] for E', [B*H, chunks, Q*K] for E'').  E'' cuts the
 // query axis into qranges ranges (dstpu_evoformer_attn_dkv_qranges); above
 // one, kv_part holds their fp32 dK/dV partials ([qranges][2][B*S*K*H*D]).
+// E' cuts the key axis into kranges ranges (dstpu_evoformer_attn_dq_kranges);
+// above one, dq_part holds their fp32 dQ partials ([kranges][B*S*Q*H*D]).
 // D is 16, 32, 64 or 128.  Each returns cudaGetLastError() after its
-// launches, or cudaErrorInvalidConfiguration (9), launching nothing, when
-// the shape needs more shared memory than a block has (E' only: its dbias1
-// accumulator grows with K; E'' takes every Q).
+// launches; E' and E'' take every K and Q.
 #define DSTPU_EVO_STRIDES                                                                    \
   long long qsb, long long qss, long long qsn, long long qsh, long long ksb, long long kss,  \
       long long ksn, long long ksh, long long vsb, long long vss, long long vsn, long long vsh
@@ -1454,23 +1540,24 @@ extern "C" int dstpu_evoformer_attn_fwd(const void* q, const void* k, const void
                static_cast<const float*>(b2), o, nullptr, nullptr, nullptr,
                static_cast<float*>(lse), nullptr, nullptr, nullptr, B, S, Q, K, H, 1, sm_scale,
                qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, 0, 0, 0, 0, 1,
-               nullptr};
+               nullptr, 1, nullptr};
   return dispatch(kFwd, dtype, D, a, stream);
 }
 
 extern "C" int dstpu_evoformer_attn_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse,
                                            const void* delta, const void* b1, const void* b2,
-                                           void* dq, void* db1, void* part, int dtype, int B,
-                                           int S, int Q, int K, int H, int D, float sm_scale,
-                                           int chunks, DSTPU_EVO_STRIDES, long long dsb,
-                                           long long dss, long long dsn, long long dsh,
-                                           void* stream) {
+                                           void* dq, void* db1, void* part, void* dq_part,
+                                           int dtype, int B, int S, int Q, int K, int H, int D,
+                                           float sm_scale, int chunks, int kranges,
+                                           DSTPU_EVO_STRIDES, long long dsb, long long dss,
+                                           long long dsn, long long dsh, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const float*>(b1), static_cast<const float*>(b2), nullptr, dq,
                nullptr, nullptr, nullptr, static_cast<float*>(db1), nullptr,
                static_cast<float*>(part), B, S, Q, K, H, chunks, sm_scale, qsb, qss, qsn, qsh,
-               ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh, 1, nullptr};
+               ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh, 1, nullptr, kranges,
+               static_cast<float*>(dq_part)};
   return dispatch(kDq, dtype, D, a, stream);
 }
 
@@ -1487,7 +1574,8 @@ extern "C" int dstpu_evoformer_attn_bwd_dkv(const void* q, const void* k, const 
                static_cast<const float*>(b1), static_cast<const float*>(b2), nullptr, nullptr,
                dk, dv, nullptr, nullptr, static_cast<float*>(db2), static_cast<float*>(part),
                B, S, Q, K, H, chunks, sm_scale, qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb,
-               vss, vsn, vsh, dsb, dss, dsn, dsh, qranges, static_cast<float*>(kv_part)};
+               vss, vsn, vsh, dsb, dss, dsn, dsh, qranges, static_cast<float*>(kv_part), 1,
+               nullptr};
   return dispatch(kDkv, dtype, D, a, stream);
 }
 
@@ -1506,6 +1594,26 @@ extern "C" int dstpu_evoformer_attn_dkv_qranges(int dtype, int Q, int D, int wan
       return dkv_qranges<64>(fp32, Q, want_db2);
     case 128:
       return dkv_qranges<128>(fp32, Q, want_db2);
+    default:
+      return 0;
+  }
+}
+
+// the key ranges E' takes for this dtype, key length, head dim and whether
+// dbias1 is wanted: the kranges that dstpu_evoformer_attn_bwd_dq must be
+// given (above 1, dq_part holds kranges * B * S * Q * H * D floats); 0 for
+// a head dim the kernels do not take.
+extern "C" int dstpu_evoformer_attn_dq_kranges(int dtype, int K, int D, int want_db1) {
+  const bool fp32 = dtype == 0;
+  switch (D) {
+    case 16:
+      return dq_kranges<16>(fp32, K, want_db1);
+    case 32:
+      return dq_kranges<32>(fp32, K, want_db1);
+    case 64:
+      return dq_kranges<64>(fp32, K, want_db1);
+    case 128:
+      return dq_kranges<128>(fp32, K, want_db1);
     default:
       return 0;
   }

@@ -32,6 +32,13 @@
 // block; with one run per sequence the block writes the output, otherwise
 // it writes its (m, l, acc) and a second kernel merges the runs.
 //
+// Head dims: the kernel runs at D rounded up to a multiple of 16 (32 past
+// 128) and reads the pools at their own width Dt: a chunk of a row that lies
+// wholly inside Dt and is 16-byte aligned is a cp.async copy, the rest of a
+// row (the tail of D = 72, every chunk of an odd D) is loaded element by
+// element with zeros past Dt, so q . k is unchanged, the extra output
+// columns are not stored, and the cache is read in place at its own width.
+//
 // What bounds it on the H100: bytes.  Decode at B = 8 x 1024 tokens reads
 // 16.8 MB of bf16 KV per layer and does ~2 FLOP per byte, so the least time
 // is the KV traffic over 3.35 TB/s (~5 us).
@@ -61,6 +68,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
+
+// the raw bits of one KT, for copies that zero-fill past the head dim
+template <int N> struct RawOf;
+template <> struct RawOf<1> { using T = uint8_t; };
+template <> struct RawOf<2> { using T = uint16_t; };
+template <> struct RawOf<4> { using T = uint32_t; };
 
 // 16 bytes of KT from shared memory as floats.
 template <typename KT> struct Vec {
@@ -120,8 +133,8 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
                     const KT* __restrict__ v_pool, const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, const int* __restrict__ page_table,
                     const int* __restrict__ positions, const float* __restrict__ slopes,
-                    T* __restrict__ out, float* __restrict__ part, int NH, int KVH, int ps,
-                    int MP, int pages_per_split, float scale) {
+                    T* __restrict__ out, float* __restrict__ part, int NH, int KVH, int Dt,
+                    int ps, int MP, int pages_per_split, float scale) {
   constexpr int VN = Vec<KT>::N;       // elements per 16-byte copy
   constexpr int VPR = D / VN;          // copies per K/V row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -159,8 +172,9 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
   float* al = ls + G;
   float* acc = reinterpret_cast<float*>(wbase + L.acc);
 
-  const T* qb = q + ((long long)b * NH + (long long)kvh * G) * D;
-  for (int idx = tid; idx < G * D; idx += blockDim.x) qs[idx] = to_f(qb[idx]) * scale;
+  const T* qb = q + ((long long)b * NH + (long long)kvh * G) * Dt;
+  for (int idx = tid; idx < G * D; idx += blockDim.x)
+    qs[idx] = idx % D < Dt ? to_f(qb[(idx / D) * Dt + idx % D]) * scale : 0.f;
   for (int idx = lane; idx < G * D; idx += 32) acc[idx] = 0.f;
   for (int g = lane; g < G; g += 32) {
     ms[g] = kNegInf;
@@ -169,7 +183,7 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
   __syncthreads();
 
   const int* table = page_table + (long long)b * MP;
-  const long long row_stride = (long long)KVH * D;  // between slots of a page
+  const long long row_stride = (long long)KVH * Dt;  // between slots of a page
 
   // copy page jp's K/V rows of this head into buffer buf (one commit group)
   auto fetch = [&](int buf, int jp) {
@@ -178,9 +192,23 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
     KT* vd = vbuf + (size_t)buf * ps * D;
     for (int i = lane; i < ps * VPR; i += 32) {
       const int s = i / VPR, c = (i % VPR) * VN;
-      const long long off = (slot0 + s) * row_stride + (long long)kvh * D + c;
-      cp_async16(kd + s * krow + c, k_pool + off);
-      cp_async16(vd + s * D + c, v_pool + off);
+      const long long off = (slot0 + s) * row_stride + (long long)kvh * Dt + c;
+      const KT* ks = k_pool + off;
+      const KT* vs = v_pool + off;
+      if (c + VN <= Dt &&
+          ((reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) & 15) == 0) {
+        cp_async16(kd + s * krow + c, ks);
+        cp_async16(vd + s * D + c, vs);
+      } else {  // the row's tail past Dt (or an unaligned row): zeros there
+        using R = typename RawOf<sizeof(KT)>::T;
+        R* kr = reinterpret_cast<R*>(kd + s * krow + c);
+        R* vr = reinterpret_cast<R*>(vd + s * D + c);
+#pragma unroll
+        for (int j = 0; j < VN; ++j) {
+          kr[j] = c + j < Dt ? reinterpret_cast<const R*>(ks)[j] : R(0);
+          vr[j] = c + j < Dt ? reinterpret_cast<const R*>(vs)[j] : R(0);
+        }
+      }
     }
     cp_async_commit();
   };
@@ -259,7 +287,7 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
 
   // merge the warps' partial softmax states: into the output, or into
   // this split's partial for paged_merge_kernel
-  T* ob = out + ((long long)b * NH + (long long)kvh * G) * D;
+  T* ob = out + ((long long)b * NH + (long long)kvh * G) * Dt;
   const unsigned char* w0 = smem + up16((size_t)G * D * 4);
   for (int idx = tid; idx < G * D; idx += blockDim.x) {
     const int g = idx / D;
@@ -275,7 +303,7 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
       a += wacc[idx] * f;
     }
     if (pb == nullptr) {
-      ob[idx] = from_f<T>(a / fmaxf(l, 1e-30f));
+      if (idx % D < Dt) ob[g * Dt + idx % D] = from_f<T>(a / fmaxf(l, 1e-30f));
     } else {
       float* pg = pb + g * (D + 2);
       pg[idx % D] = a;
@@ -291,14 +319,15 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
 // sum_s e^(m_s - m) l_s, with m the largest m_s.
 template <typename T, int D>
 __global__ void paged_merge_kernel(const float* __restrict__ part, T* __restrict__ out,
-                                   int NH, int KVH, int n_split) {
+                                   int NH, int KVH, int Dt, int n_split) {
   const int G = NH / KVH;
   const int b = blockIdx.x / KVH;
   const int kvh = blockIdx.x % KVH;
   const float* pb = part + (size_t)blockIdx.x * n_split * G * (D + 2);
-  T* ob = out + ((long long)b * NH + (long long)kvh * G) * D;
+  T* ob = out + ((long long)b * NH + (long long)kvh * G) * Dt;
   for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
     const int g = idx / D, d = idx % D;
+    if (d >= Dt) continue;
     float m = kNegInf;
     for (int s = 0; s < n_split; ++s) m = fmaxf(m, pb[(s * G + g) * (D + 2) + D]);
     float l = 0.f, a = 0.f;
@@ -308,14 +337,14 @@ __global__ void paged_merge_kernel(const float* __restrict__ part, T* __restrict
       l += ps_[D + 1] * f;
       a += ps_[d] * f;
     }
-    ob[idx] = from_f<T>(a / fmaxf(l, 1e-30f));
+    ob[g * Dt + d] = from_f<T>(a / fmaxf(l, 1e-30f));
   }
 }
 
 struct Args {
   const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *page_table, *positions, *slopes;
   void *out, *part;
-  int B, NH, KVH, ps, MP, pages_per_split;
+  int B, NH, KVH, Dt, ps, MP, pages_per_split;
   float scale;
 };
 
@@ -340,19 +369,19 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const KT*>(a.v_pool), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.page_table),
       static_cast<const int*>(a.positions), static_cast<const float*>(a.slopes),
-      static_cast<T*>(a.out), part, a.NH, a.KVH, a.ps, a.MP, a.pages_per_split, a.scale);
+      static_cast<T*>(a.out), part, a.NH, a.KVH, a.Dt, a.ps, a.MP, a.pages_per_split, a.scale);
   if (part != nullptr) {
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     paged_merge_kernel<T, D><<<a.B * a.KVH, 128, 0, stream>>>(part, static_cast<T*>(a.out),
-                                                            a.NH, a.KVH, n_split);
+                                                            a.NH, a.KVH, a.Dt, n_split);
   }
   return cudaGetLastError();
 }
 
 template <typename T, typename KT>
 cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {  // every multiple of 16 from 16 to 128 (a row is whole 16-byte copies)
+  switch (D <= 128 ? (D + 15) / 16 * 16 : (D + 31) / 32 * 32) {  // the kernel's head dim
 #define DSTPU_PAGED_CASE(d) \
   case d:                   \
     return launch<T, KT, d>(a, stream);
@@ -364,6 +393,10 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
     DSTPU_PAGED_CASE(96)
     DSTPU_PAGED_CASE(112)
     DSTPU_PAGED_CASE(128)
+    DSTPU_PAGED_CASE(160)
+    DSTPU_PAGED_CASE(192)
+    DSTPU_PAGED_CASE(224)
+    DSTPU_PAGED_CASE(256)
 #undef DSTPU_PAGED_CASE
     default:
       return cudaErrorInvalidValue;
@@ -380,10 +413,11 @@ cudaError_t dispatch_quant(int quant, int D, const Args& a, cudaStream_t stream)
 // dtype (of q and out; of the pools unless quant): 0 = fp32, 1 = bf16, 2 = fp16.
 // q [B, NH, D]; pools [P, ps, KVH, D] (int8 when quant, with fp32 scales
 // [P, ps, KVH]), 16-byte aligned; page_table [B, MP] int32; positions [B]
-// int32; slopes [NH] fp32 or null; out [B, NH, D].  All contiguous.  D is a
-// multiple of 16 from 16 to 128.  Each sequence's pages are split across blocks of
-// pages_per_split pages; when MP > pages_per_split, part is fp32 scratch of
-// B * KVH * ceil(MP / pages_per_split) * (NH / KVH) * (D + 2) floats.
+// int32; slopes [NH] fp32 or null; out [B, NH, D].  All contiguous.  D is 1
+// to 256; the kernel runs at Dk, D rounded up to 16 (to 32 past 128).  Each
+// sequence's pages are split across blocks of pages_per_split pages; when
+// MP > pages_per_split, part is fp32 scratch of
+// B * KVH * ceil(MP / pages_per_split) * (NH / KVH) * (Dk + 2) floats.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int dstpu_paged_decode_attention(const void* q, const void* k_pool,
                                             const void* v_pool, const void* k_scale,
@@ -399,8 +433,9 @@ extern "C" int dstpu_paged_decode_attention(const void* q, const void* k_pool,
   if ((reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool)) & 15)
     return (int)cudaErrorMisalignedAddress;
   if (B == 0) return (int)cudaSuccess;
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
   const Args a{q,   k_pool, v_pool, quant ? k_scale : nullptr, quant ? v_scale : nullptr,
-               page_table, positions, slopes, out, part, B, NH, KVH, ps, MP,
+               page_table, positions, slopes, out, part, B, NH, KVH, D, ps, MP,
                pages_per_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

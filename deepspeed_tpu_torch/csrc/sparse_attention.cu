@@ -31,9 +31,22 @@
 // keeps the tensor-core tile (and the block >= 64 path, timed in PERF.md)
 // as it is, where a 16- or 32-row tile would quarter the work per K/V load;
 // the cost is the masked compare on such tiles and the off units inside a
-// visited tile.  S need only be a multiple of 16 there: rows and keys past S
+// visited tile.  S need only be a multiple of the block there: rows and keys past S
 // are zero-filled on load, their units are off, and rows past S are not
 // stored.
+//
+// Blocks that are not a multiple of 16 (the reference takes any block that
+// divides S): the same 64 x 64 tiles over 16 x 16 units, a unit on when any
+// of its elements is visible.  The wrapper marks units that are only partly
+// visible with a second 16-bit mask (bits 16-31); inside those the kernel
+// (ELEM) tests each element's own layout entry (row / block, col / block),
+// read from a byte copy of the layout.  Fully visible units and every layout
+// whose block is a multiple of 16 keep the code above.
+//
+// Head dims: the wrapper pads rows to a multiple of 16 (32 past 128) with
+// zero columns; past 128 each block computes one half of the output columns
+// (a grid axis over the halves, S = QK^T still over the whole D), so the
+// register budget stays that of D <= 128.
 //
 // What bounds it on the H100: the arithmetic.  At B = 1, S = 4096, H = 16,
 // D = 64 (BERT-large's heads at a long sequence) a visible 128 x 128 block
@@ -91,7 +104,9 @@ struct Args {
   const void *q, *k, *v;
   void* o;
   const int *row_ptr, *cols, *masks;  // masks: null, or one per entry of cols
+  const uint8_t* layout;              // ELEM: the layout [Hl, NB, NB] as bytes
   int B, S, H, Hl, block, causal;     // block: of the lists (64 with masks)
+  int lblock;                         // the layout's own block (ELEM)
   float sm_scale;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
 };
@@ -125,7 +140,18 @@ struct Walk {
   __device__ __forceinline__ int unit_bits(int t, int r) const {
     return masks != nullptr ? (masks[t] >> (4 * r)) & 0xF : 0xF;
   }
+  // the 4 bits of row unit r of tile t whose units are only partly visible
+  __device__ __forceinline__ int partial_bits(int t, int r) const {
+    return (masks[t] >> (16 + 4 * r)) & 0xF;
+  }
 };
+
+// an element of a partly visible unit: its own layout entry (ELEM)
+__device__ __forceinline__ bool elem_on(const Args& a, int h, int row, int col) {
+  const int nb = a.S / a.lblock;
+  return row < a.S && col < a.S &&
+         a.layout[((long long)(a.Hl == 1 ? 0 : h) * nb + row / a.lblock) * nb + col / a.lblock];
+}
 
 // ---------------------------------------------------------------------------
 // tensor-core kernel (bf16, fp16)
@@ -189,14 +215,15 @@ constexpr size_t mma_smem_bytes() {
 }
 
 // UNITS: the lists are of 64 x 64 tiles with 16 x 16 unit masks (blocks off
-// the tile; S a multiple of 16 only).  Without it, the block-multiple path:
+// the tile; S any multiple of the block).  Without it, the block-multiple path:
 // no unit test per score and no ragged rows.
-template <typename T, int D, bool UNITS>
+template <typename T, int D, bool UNITS, bool ELEM>
 __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a) {
   constexpr int RS = D + 8;   // padded row (+16 bytes): conflict-free fragment reads
   constexpr int KT = D / 16;
   constexpr int NT = kBK / 8;
-  constexpr int DT = D / 8;
+  constexpr int DO = D > 128 ? D / 2 : D;  // output columns of this block
+  constexpr int DT = DO / 8;
   constexpr int CPR = D / 8;  // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][RS]
@@ -210,6 +237,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
   const int b = bh / a.H;
   const int h = bh % a.H;
   const int q_start = blockIdx.x * kBQ;
+  const int col0 = DO < D ? (int)blockIdx.z * DO : 0;
   const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
   const T* kb = static_cast<const T*>(a.k) + b * a.ksb + h * a.ksh;
   const T* vb = static_cast<const T*>(a.v) + b * a.vsb + h * a.vsh;
@@ -218,7 +246,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
   for (int i = tid; i < kBQ * CPR; i += kMmaWarps * 32) {
     const int r = i / CPR, c = (i % CPR) * 8;
     const int qi = q_start + r;
-    if constexpr (UNITS)  // rows past S (S a multiple of 16 only) read zeros
+    if constexpr (UNITS)  // rows past S read zeros
       cp_async16(Qs + r * RS + c, qb + (long long)min(qi, a.S - 1) * a.qss + c,
                  qi < a.S ? 16 : 0);
     else
@@ -303,6 +331,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
     // holds units that are off, is masked
     const bool diag = a.causal && k0 + kBK - 1 > q_start;
     const int bits = UNITS ? walk.unit_bits(t, warp) : 0xF;
+    const int pbits = ELEM ? walk.partial_bits(t, warp) : 0;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -310,7 +339,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
       for (int e = 0; e < 4; ++e) {
         const int row = row_g + (e >> 1) * 8;
         const int col = k0 + nt * 8 + cq + (e & 1);
-        const bool off = (diag && row < col) || (UNITS && !((bits >> (nt >> 1)) & 1));
+        const bool off = (diag && row < col) || (UNITS && !((bits >> (nt >> 1)) & 1)) ||
+                         (ELEM && ((pbits >> (nt >> 1)) & 1) && !elem_on(a, h, row, col));
         const float x = off ? kNegInf : s[nt][e] * a.sm_scale;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -346,7 +376,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         uint32_t bv[2];
-        ldmatrix_x2_trans(bv, vr + dt * 8);
+        ldmatrix_x2_trans(bv, vr + col0 + dt * 8);
         Mma<T>::run(oacc[dt], pf[j], bv);
       }
     }
@@ -359,7 +389,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a)
     const float lc = fmaxf(quad_sum(l[i]), 1e-20f);
     const int qi = q_start + r0 + 8 * i;
     if (UNITS && qi >= a.S) continue;
-    T* orow = static_cast<T*>(a.o) + (((long long)b * a.S + qi) * a.H + h) * D;
+    T* orow = static_cast<T*>(a.o) + (((long long)b * a.S + qi) * a.H + h) * D + col0;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + cq) =
@@ -378,7 +408,7 @@ constexpr size_t fma_smem_bytes() {
   return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-template <int D>
+template <int D, bool ELEM>
 __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
   constexpr int DP = D + 1;
   constexpr int PP = kBK + 1;
@@ -448,6 +478,7 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
 
     const bool diag = a.causal && k0 + kBK - 1 > q_start;
     const int bits = walk.unit_bits(t, ty >> 2);  // rows ty*4.. lie in unit ty / 4
+    const int pbits = ELEM ? walk.partial_bits(t, ty >> 2) : 0;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = q_start + ty * 4 + r;
@@ -455,7 +486,8 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        const bool off = (diag && row < col) || !((bits >> j) & 1);
+        const bool off = (diag && row < col) || !((bits >> j) & 1) ||
+                         (ELEM && ((pbits >> j) & 1) && !elem_on(a, h, row, col));
         s[r][j] = off ? kNegInf : s[r][j] * a.sm_scale;
         mt = fmaxf(mt, s[r][j]);
       }
@@ -511,29 +543,37 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int D, bool UNITS>
+template <typename T, int D, bool UNITS, bool ELEM>
 cudaError_t launch_mma_units(const Args& a, dim3 grid, cudaStream_t st) {
   constexpr size_t smem = mma_smem_bytes<D>();
-  static const cudaError_t attr = opt_in(sparse_attn_mma_kernel<T, D, UNITS>, smem);
+  static const cudaError_t attr = opt_in(sparse_attn_mma_kernel<T, D, UNITS, ELEM>, smem);
   if (attr != cudaSuccess) return attr;
-  sparse_attn_mma_kernel<T, D, UNITS><<<grid, kMmaWarps * 32, smem, st>>>(a);
+  grid.z = D > 128 ? 2 : 1;  // halves of the output columns
+  sparse_attn_mma_kernel<T, D, UNITS, ELEM><<<grid, kMmaWarps * 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_mma(const Args& a, dim3 grid, cudaStream_t st) {
-  return a.masks != nullptr ? launch_mma_units<T, D, true>(a, grid, st)
-                            : launch_mma_units<T, D, false>(a, grid, st);
+  if (a.layout != nullptr) return launch_mma_units<T, D, true, true>(a, grid, st);
+  return a.masks != nullptr ? launch_mma_units<T, D, true, false>(a, grid, st)
+                            : launch_mma_units<T, D, false, false>(a, grid, st);
+}
+
+template <int D, bool ELEM>
+cudaError_t launch_fma(const Args& a, dim3 grid, cudaStream_t st) {
+  constexpr size_t smem = fma_smem_bytes<D>();
+  static const cudaError_t attr = opt_in(sparse_attn_fma_kernel<D, ELEM>, smem);
+  if (attr != cudaSuccess) return attr;
+  sparse_attn_fma_kernel<D, ELEM><<<grid, kFmaThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
   const dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.H);
   if (dtype == 0) {
-    constexpr size_t smem = fma_smem_bytes<D>();
-    static const cudaError_t attr = opt_in(sparse_attn_fma_kernel<D>, smem);
-    if (attr != cudaSuccess) return attr;
-    sparse_attn_fma_kernel<D><<<grid, kFmaThreads, smem, st>>>(a);
+    return a.layout != nullptr ? launch_fma<D, true>(a, grid, st) : launch_fma<D, false>(a, grid, st);
   } else if (dtype == 1) {
     return launch_mma<__nv_bfloat16, D>(a, grid, st);
   } else if (dtype == 2) {
@@ -553,25 +593,29 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
 // those at or below the diagonal when causal (NB = ceil(S / block); Hl is 1
 // or H).  Without masks, block is a multiple of 64 and S a multiple of
 // block.  With masks (int32, one per entry of cols: the entry's 16 x 16 unit
-// bits), the lists are of 64 x 64 tiles, block is 64 and S a multiple of 16.
-// D is a multiple of 16 from 16 to 128.  Returns cudaGetLastError() after
+// bits, and in bits 16-31 those of partly visible units), the lists are of
+// 64 x 64 tiles and block is 64; then layout (null, or the layout as bytes
+// [Hl, S / lblock, S / lblock]) gives the partial units' elements.  D is a
+// multiple of 16 to 128, of 32 to 256.  Returns cudaGetLastError() after
 // the launch (0 = launched).
 extern "C" int dstpu_sparse_attention(const void* q, const void* k, const void* v, void* o,
                                       const void* row_ptr, const void* cols,
-                                      const void* masks, int dtype, int B,
-                                      int S, int H, int D, int Hl, int block, int causal,
+                                      const void* masks, const void* layout, int dtype, int B,
+                                      int S, int H, int D, int Hl, int block, int lblock,
+                                      int causal,
                                       float sm_scale, long long qsb, long long qss,
                                       long long qsh, long long ksb, long long kss,
                                       long long ksh, long long vsb, long long vss,
                                       long long vsh, void* stream) {
   const bool units = masks != nullptr;
-  if (block <= 0 || block % kBK != 0 || (units ? block != kBK || S % 16 : S % block) ||
+  if (block <= 0 || block % kBK != 0 || (units ? block != kBK : S % block) ||
+      (layout != nullptr && (!units || lblock <= 0 || S % lblock != 0)) ||
       (Hl != 1 && Hl != H) || H <= 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaSuccess;
   const Args a{q, k, v, o, static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
-               static_cast<const int*>(masks), B, S, H, Hl, block, causal, sm_scale, qsb, qss,
-               qsh, ksb, kss, ksh, vsb, vss, vsh};
+               static_cast<const int*>(masks), static_cast<const uint8_t*>(layout), B, S, H, Hl,
+               block, causal, lblock, sm_scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
 #define DSTPU_SPARSE_CASE(d) \
@@ -585,6 +629,10 @@ extern "C" int dstpu_sparse_attention(const void* q, const void* k, const void* 
     DSTPU_SPARSE_CASE(96)
     DSTPU_SPARSE_CASE(112)
     DSTPU_SPARSE_CASE(128)
+    DSTPU_SPARSE_CASE(160)
+    DSTPU_SPARSE_CASE(192)
+    DSTPU_SPARSE_CASE(224)
+    DSTPU_SPARSE_CASE(256)
 #undef DSTPU_SPARSE_CASE
     default:
       return (int)cudaErrorInvalidValue;

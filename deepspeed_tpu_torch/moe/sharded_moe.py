@@ -195,12 +195,14 @@ def _gelu(t: torch.Tensor) -> torch.Tensor:
 
 
 def _expert_ffn_blocks(xs: torch.Tensor, experts: Experts, block_expert: torch.Tensor,
-                       activation: str, block_rows: int) -> torch.Tensor:
-    """The three grouped matmuls of one FFN over sorted+padded tokens."""
+                       activation: str, block_rows: int,
+                       n_used: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The three grouped matmuls of one FFN over sorted+padded tokens;
+    ``n_used`` (a device int32) lets them skip the all-padding blocks."""
     from ..ops.grouped_matmul import grouped_matmul
 
     def gm(a, w):
-        return grouped_matmul(a, w, block_expert, block_rows)
+        return grouped_matmul(a, w, block_expert, block_rows, n_used)
 
     if activation == "swiglu":
         h = F.silu(gm(xs, experts["w_gate"])) * gm(xs, experts["w_up"])
@@ -231,7 +233,11 @@ def moe_ffn_dropless(x: torch.Tensor, gate_w: torch.Tensor, experts: Experts,
     # one spare row takes what JAX's scatter drops (dest == n_rows)
     xs = torch.zeros((n_rows + 1, H), dtype=x.dtype, device=x.device)
     xs.index_copy_(0, dest, xt[token_of])
-    ys = _expert_ffn_blocks(xs[:n_rows], experts, block_expert, activation, block_rows)
+    # the blocks up to the last one that holds an assignment: the rest are
+    # all padding, so the grouped matmuls skip them (read on the device)
+    n_used = (torch.where(dest < n_rows, dest, -block_rows).max() // block_rows + 1).to(
+        torch.int32).reshape(1)
+    ys = _expert_ffn_blocks(xs[:n_rows], experts, block_expert, activation, block_rows, n_used)
 
     # the combine, per token in ascending expert order: row of each
     # assignment (t, k) in the buffer, then its gated output

@@ -46,9 +46,6 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 #: the kernels' query and key tile
 TILE = 64
-#: the kernels' answer to a shape whose bias-gradient accumulator does not
-#: fit a block's shared memory (cudaErrorInvalidConfiguration)
-_TOO_MUCH_SMEM = 9
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,10 +54,12 @@ _F = ctypes.c_float
 _STRIDES = [_L] * 12  # q, k, v: (batch, row, residue, head)
 _SIG = {
     "dstpu_evoformer_attn_fwd": [_P] * 7 + [_I] * 7 + [_F] + _STRIDES + [_P],
-    "dstpu_evoformer_attn_bwd_dq": [_P] * 11 + [_I] * 7 + [_F, _I] + _STRIDES + [_L] * 4 + [_P],
+    "dstpu_evoformer_attn_bwd_dq": [_P] * 12 + [_I] * 7 + [_F, _I, _I] + _STRIDES + [_L] * 4
+                                   + [_P],
     "dstpu_evoformer_attn_bwd_dkv": [_P] * 13 + [_I] * 7 + [_F, _I, _I] + _STRIDES
     + [_L] * 4 + [_P],
     "dstpu_evoformer_attn_dkv_qranges": [_I] * 4,
+    "dstpu_evoformer_attn_dq_kranges": [_I] * 4,
 }
 
 
@@ -291,22 +290,13 @@ def evoformer_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), op_builder.dtype_code(q.dtype), B, S, Q, K, H, D,
             1.0 / math.sqrt(D), *_strides(q, k, v),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _check(err, "evoformer_attn_fwd", Q, K, D, q.dtype)
+    op_builder.check(err, "evoformer_attn_fwd")
     evoformer_attn_fwd.launches += 1
     return o, lse
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _check(err: int, what: str, Q: int, K: int, D: int, dtype) -> None:
-    if err == _TOO_MUCH_SMEM:
-        raise NotImplementedError(
-            f"{what}: Q={Q}, K={K}, D={D} {dtype} needs more shared memory for the kernel's "
-            f"tiles and bias-gradient accumulator than a block has on this card (E' with "
-            f"bias1 past ~5,500 keys; ROADMAP Queue 3 #F1)")
-    op_builder.check(err, what)
 
 
 def _bwd_inputs(q, k, v, do, lse, delta, b1, b2):
@@ -341,16 +331,32 @@ def evoformer_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     db1 = torch.empty((B, S, K), dtype=torch.float32, device=q.device) if want else None
     part = (torch.empty((B * S, chunks, K), dtype=torch.float32, device=q.device)
             if want and chunks > 1 else None)
+    # the key axis in ranges whose dbias1 accumulators fit a block (one range
+    # up to ~5,500 keys in bf16); each range's dQ rows are fp32 partials that
+    # the kernel's second pass adds in range order
+    kranges = dq_key_ranges(q.dtype, K, D, want)
+    dq_part = (torch.empty((kranges, q.numel()), dtype=torch.float32, device=q.device)
+               if kranges > 1 else None)
     lib = op_builder.load("evoformer_attn", _SIG)
     with torch.cuda.device(q.device):
         err = lib.dstpu_evoformer_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _ptr(b1), _ptr(b2), dq.data_ptr(), _ptr(db1), _ptr(part),
-            op_builder.dtype_code(q.dtype), B, S, Q, K, H, D, 1.0 / math.sqrt(D), chunks,
-            *_strides(q, k, v, do), torch.cuda.current_stream(q.device).cuda_stream)
-    _check(err, "evoformer_attn_bwd_dq", Q, K, D, q.dtype)
+            _ptr(dq_part), op_builder.dtype_code(q.dtype), B, S, Q, K, H, D,
+            1.0 / math.sqrt(D), chunks, kranges, *_strides(q, k, v, do),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    op_builder.check(err, "evoformer_attn_bwd_dq")
     evoformer_attn_bwd_dq.launches += 1
     return dq, db1
+
+
+def dq_key_ranges(dtype, K: int, D: int, want_db1: bool) -> int:
+    """How many key ranges kernel E' cuts K into on the card: 1 while its
+    dbias1 accumulator over the whole key axis fits a block, more past that
+    (the kernel's own rule, asked of the built library)."""
+    lib = op_builder.load("evoformer_attn", _SIG)
+    return lib.dstpu_evoformer_attn_dq_kranges(op_builder.dtype_code(dtype), K, D,
+                                               int(want_db1))
 
 
 def dkv_query_ranges(dtype, Q: int, D: int, want_db2: bool) -> int:
@@ -400,7 +406,7 @@ def evoformer_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _ptr(part), _ptr(kv_part), dtype, B, S, Q, K, H, D, 1.0 / math.sqrt(D),
             chunks, qranges, *_strides(q, k, v, do),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _check(err, "evoformer_attn_bwd_dkv", Q, K, D, q.dtype)
+    op_builder.check(err, "evoformer_attn_bwd_dkv")
     evoformer_attn_bwd_dkv.launches += 1
     return dk, dv, db2
 

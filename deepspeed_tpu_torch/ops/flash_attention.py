@@ -49,19 +49,41 @@ from . import op_builder
 NEG_INF = -1e30
 
 
+#: the widest head the attention kernels take; no public model has a wider
+#: one (ROADMAP Queue 3 #F2 keeps the rest)
+MAX_HEAD_DIM = 256
+
+
 def kernel_takes_head_dim(D: int) -> bool:
     """The head dims the attention kernels (flash forward and backward,
-    paged decode, block-sparse S) take on the card: every multiple of 16
-    from 16 to 128, which covers every config of the repo (64, 80, 96,
-    128).  The JAX kernels block over the whole D and set no such rule."""
-    return D % 16 == 0 and 16 <= D <= 128
+    paged decode, block-sparse S) take on the card: every D from 1 to 256,
+    as the JAX kernels, which block over the whole D."""
+    return 1 <= D <= MAX_HEAD_DIM
+
+
+def padded_head_dim(D: int) -> int:
+    """The head dim a kernel runs at for a head of D: D rounded up to a
+    multiple of 16 (of 32 past 128).  The extra columns are zeros, which
+    leave q . k unchanged and give output columns that are not kept."""
+    return -(-D // 16) * 16 if D <= 128 else -(-D // 32) * 32
 
 
 def check_head_dim(D: int, what: str) -> None:
     """Raise for a head dim the kernels do not take (ROADMAP Queue 3 #F2)."""
     if not kernel_takes_head_dim(D):
-        raise ValueError(f"{what}: head_dim {D} is not a multiple of 16 in [16, 128], "
-                         f"the kernels' rule (ROADMAP Queue 3 #F2)")
+        raise ValueError(f"{what}: head_dim {D} is outside [1, {MAX_HEAD_DIM}], the "
+                         f"kernels' rule (ROADMAP Queue 3 #F2)")
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` [..., D] with zero columns up to ``width``: a new contiguous
+    tensor (``t`` itself when it is already that wide)."""
+    D = t.shape[-1]
+    if D == width:
+        return t
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., :D] = t
+    return out
 
 
 _P = ctypes.c_void_p
@@ -69,7 +91,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIG = {"dstpu_flash_attention_fwd": [
     _P, _P, _P, _P, _P, _P,            # q k v o lse slopes
-    _I, _I, _I, _I, _I, _I, _I,        # dtype B NH KVH Sq Sk D
+    _I, _I, _I, _I, _I, _I, _I, _I,    # dtype B NH KVH Sq Sk D Dm
     _I, _I, _I, ctypes.c_float,        # valid_k q_offset causal sm_scale
     _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v strides (b, s, h)
     _P]}                               # stream
@@ -155,9 +177,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
     check_head_dim(D, "flash_attention_fwd")
-    # the kernel reads rows through their strides; the bf16/fp16 kernel copies
-    # them 16 bytes at a time, so each row must start 16-byte aligned
-    q, k, v = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.float32:
+        # the FMA kernel reads rows through their strides, zero past D
+        q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    elif D % 8:
+        # TMA maps take rows whose strides are whole 16-byte units: copy into
+        # zero-padded rows
+        q, k, v = (pad_head_dim(t, -(-D // 8) * 8) for t in (q, k, v))
+    else:
+        # the TMA maps read strided views in place; the kernel's columns past
+        # D (D = 72 runs the 80-wide kernel) arrive as zeros
+        q, k, v = (t if _tma_ok(t) else t.contiguous() for t in (q, k, v))
     slopes = None
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).contiguous()
@@ -171,7 +201,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.dstpu_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             None if slopes is None else slopes.data_ptr(),
-            op_builder.dtype_code(q.dtype), B, NH, KVH, Sq, Sk, D, valid_k,
+            op_builder.dtype_code(q.dtype), B, NH, KVH, Sq, Sk, D, q.shape[3], valid_k,
             int(q_offset), int(bool(causal)), scale,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -250,9 +280,15 @@ def _bwd_checks(q, k, v, do, lse, delta, alibi_slopes):
         if t.shape != (B, NH, Sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 [B, NH, Sq], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    # read through strides; the bf16/fp16 kernels load tiles by TMA, whose
-    # maps take 16-byte aligned bases and positive 16-byte strides
-    q, k, v, do = (t if _tma_ok(t) else t.contiguous() for t in (q, k, v, do))
+    Dk = padded_head_dim(D)
+    if Dk != D:
+        # the kernels run at Dk: zero columns leave S and dP unchanged, and
+        # the gradients' extra columns are dropped
+        q, k, v, do = (pad_head_dim(t, Dk) for t in (q, k, v, do))
+    else:
+        # read through strides; the bf16/fp16 kernels load tiles by TMA, whose
+        # maps take 16-byte aligned bases and positive 16-byte strides
+        q, k, v, do = (t if _tma_ok(t) else t.contiguous() for t in (q, k, v, do))
     slopes = None
     if alibi_slopes is not None:
         slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).contiguous()
@@ -261,10 +297,9 @@ def _bwd_checks(q, k, v, do, lse, delta, alibi_slopes):
     return q, k, v, do, slopes
 
 
-def _bwd_launch(fn: str, q, k, v, do, lse, delta, slopes, causal, sm_scale, outs):
+def _bwd_launch(fn: str, q, k, v, do, lse, delta, slopes, causal, scale, outs):
     B, Sq, NH, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
     lib = op_builder.load("flash_attention_bwd", _BWD_SIG)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn)(
@@ -277,6 +312,10 @@ def _bwd_launch(fn: str, q, k, v, do, lse, delta, slopes, causal, sm_scale, outs
     op_builder.check(err, fn[len("dstpu_"):])
 
 
+def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
                            causal: bool = True, sm_scale: Optional[float] = None,
@@ -285,12 +324,14 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` and ``delta`` = rowsum(O * dO), both fp32 ``[B, NH, Sq]``."""
     if q.device.type == "cpu":
         return _bwd_from_delta(q, k, v, do, lse, delta, causal, sm_scale, alibi_slopes)[0]
+    D = q.shape[3]
+    scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
     q, k, v, do, slopes = _bwd_checks(q, k, v, do, lse, delta, alibi_slopes)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("dstpu_flash_attention_bwd_dq", q, k, v, do, lse, delta, slopes, causal,
-                sm_scale, (dq,))
+                scale, (dq,))
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, D)
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -302,13 +343,15 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient summed in fp32 over its query heads."""
     if q.device.type == "cpu":
         return _bwd_from_delta(q, k, v, do, lse, delta, causal, sm_scale, alibi_slopes)[1:]
+    D = q.shape[3]
+    scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
     q, k, v, do, slopes = _bwd_checks(q, k, v, do, lse, delta, alibi_slopes)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("dstpu_flash_attention_bwd_dkv", q, k, v, do, lse, delta, slopes, causal,
-                sm_scale, (dk, dv))
+                scale, (dk, dv))
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 flash_attention_bwd_dq.launches = 0

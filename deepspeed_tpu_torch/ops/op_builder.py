@@ -3,10 +3,12 @@
 
 At first use each ``csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and
-loaded with ``ctypes``.  Libraries land in ``build/kernels/`` at the repo
-root (git-ignored; ``DSTPU_TORCH_BUILD`` overrides), named by a digest of
-the source and flags, so an edited source is rebuilt and never read
-stale.  All sources build in parallel, one ``nvcc`` each.  A build
+loaded with ``ctypes``.  Sources include the shared headers of ``csrc/``
+(``hopper.cuh``: mbarriers, TMA, ``wgmma``) through ``-I csrc``.
+Libraries land in ``build/kernels/`` at the repo root (git-ignored;
+``DSTPU_TORCH_BUILD`` overrides), named by a digest of the source, every
+``csrc/*.cuh`` header and the flags, so an edited source or header is
+rebuilt and never read stale.  All sources build in parallel, one ``nvcc`` each.  A build
 failure raises: nothing falls back.
 """
 
@@ -35,7 +37,7 @@ SOURCES = {
     "evoformer_attn": CSRC / "evoformer_attn.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I", str(CSRC)]
 
 
 class KernelBuildError(RuntimeError):
@@ -61,7 +63,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS[:-1]).encode())  # not the checkout's path
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from . import op_builder
-from .flash_attention import check_head_dim
+from .flash_attention import check_head_dim, padded_head_dim
 
 NEG_INF = -1e30
 
@@ -149,7 +149,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
             raise ValueError(f"alibi_slopes shape {tuple(slopes.shape)} != ({NH},)")
     out = torch.empty_like(q)
     n_split = -(-MP // PAGES_PER_SPLIT)
-    part = (torch.empty((B * KVH * n_split * (NH // KVH) * (D + 2),), dtype=torch.float32,
+    part = (torch.empty((B * KVH * n_split * (NH // KVH) * (padded_head_dim(D) + 2),),
+                        dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)
     lib = op_builder.load("paged_attention", _SIG)
     with torch.cuda.device(q.device):

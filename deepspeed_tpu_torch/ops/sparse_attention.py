@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import op_builder
-from .flash_attention import check_head_dim
+from .flash_attention import check_head_dim, pad_head_dim, padded_head_dim
 
 #: rows and keys of the kernel's tile; a layout block that is a multiple of
 #: it is cut into tiles, a smaller one is masked inside the tile at
@@ -47,17 +47,17 @@ KERNEL_UNIT = 16
 
 
 def kernel_takes_block(block: int) -> bool:
-    """The layout blocks kernel S takes on the card: every multiple of 16
-    (the reference takes any block that divides S; DeepSpeed's GPU default
-    is 16)."""
-    return block > 0 and block % KERNEL_UNIT == 0
+    """The layout blocks kernel S takes on the card: every block, as the
+    reference (which takes any block that divides S; the layout raises on
+    one that does not)."""
+    return block > 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIG = {"dstpu_sparse_attention": [
-    _P, _P, _P, _P, _P, _P, _P,          # q k v o row_ptr cols masks
-    _I, _I, _I, _I, _I, _I, _I, _I,      # dtype B S H D layout_heads block causal
+    _P, _P, _P, _P, _P, _P, _P, _P,      # q k v o row_ptr cols masks layout
+    _I, _I, _I, _I, _I, _I, _I, _I, _I,  # dtype B S H D layout_heads block layout_block causal
     ctypes.c_float,                      # sm_scale
     _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v strides (b, s, h)
     _P]}                                 # stream
@@ -226,30 +226,62 @@ def unit_lists(layout: np.ndarray, block: int, S: int, causal: bool, device
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """For a block that is not a multiple of ``KERNEL_TILE``: the layout at
     16 x 16 units, ORed into 64 x 64 tiles (the last one ragged when S is
-    not a multiple of 64).  Returns the tiles' CSR lists, as
-    :func:`block_lists` at tile granularity, and per listed tile its 16-bit
-    unit mask (bit ``4 * row unit + column unit``) as int32."""
+    not a multiple of 64).  A unit is on when any of its elements is
+    visible; it is partial when some are not (its rows or columns cross a
+    block edge that is not a multiple of 16, or S).  Returns the tiles' CSR
+    lists, as :func:`block_lists` at tile granularity, and per listed tile
+    its unit mask as int32: bit ``4 * row unit + column unit`` on, the same
+    bit + 16 partial (the kernel tests each element of a partial unit
+    against the layout)."""
     lay = np.ascontiguousarray(layout, dtype=np.int32)
     key = ("units", hashlib.sha256(lay.tobytes()).hexdigest(), lay.shape, block, S,
            bool(causal), str(device))
     hit = _LISTS.get(key)
     if hit is not None:
         return hit
-    per, n_units = block // KERNEL_UNIT, S // KERNEL_UNIT
+    n_units = -(-S // KERNEL_UNIT)
     tpu = KERNEL_TILE // KERNEL_UNIT  # units per tile side
     nt = -(-n_units // tpu)
-    units = np.repeat(np.repeat(lay > 0, per, axis=1), per, axis=2)
+    # the layout blocks each unit's elements fall in: [blk_lo, blk_hi]
+    lo = np.arange(n_units) * KERNEL_UNIT
+    hi = np.minimum(lo + KERNEL_UNIT, S) - 1
+    blk_lo, blk_hi = lo // block, hi // block
+    span = np.arange(lay.shape[1])
+    meet = ((span[None, :] >= blk_lo[:, None]) & (span[None, :] <= blk_hi[:, None])).astype(
+        np.int64)  # [units, blocks]
+    on_blocks = meet[None] @ (lay > 0).astype(np.int64) @ meet.T[None]  # [heads, units, units]
+    size = blk_hi - blk_lo + 1
+    full = hi - lo + 1 == KERNEL_UNIT
+    whole = (size[:, None] * size[None, :]) * (full[:, None] & full[None, :])
+    any_on = on_blocks > 0
+    partial = any_on & (on_blocks != whole[None])
     pad = nt * tpu - n_units
-    units = np.pad(units, ((0, 0), (0, pad), (0, pad)))
-    units = units.reshape(lay.shape[0], nt, tpu, nt, tpu).transpose(0, 1, 3, 2, 4)
-    bits = (units.reshape(lay.shape[0], nt, nt, tpu * tpu).astype(np.int64)
-            << np.arange(tpu * tpu)).sum(-1)
+
+    def tiles(x):
+        x = np.pad(x, ((0, 0), (0, pad), (0, pad)))
+        x = x.reshape(lay.shape[0], nt, tpu, nt, tpu).transpose(0, 1, 3, 2, 4)
+        return (x.reshape(lay.shape[0], nt, nt, tpu * tpu).astype(np.int64)
+                << np.arange(tpu * tpu)).sum(-1)
+
+    bits = tiles(any_on) | (tiles(partial) << 16)
     on = bits != 0
     if causal:
         on = on & np.tril(np.ones((nt, nt), bool))[None]
+    # the upper bits as a signed int32, as the kernel reads them
+    bits = bits.astype(np.uint32).view(np.int32)
     out = tuple(torch.as_tensor(x, device=device) for x in _csr(on, bits))
     _LISTS[key] = out
     return out
+
+
+def _layout_bytes(layout: np.ndarray, device) -> torch.Tensor:
+    """The layout as uint8 ``[heads, NB, NB]`` on ``device`` (cached)."""
+    lay = np.ascontiguousarray(layout, dtype=np.int32)
+    key = ("bytes", hashlib.sha256(lay.tobytes()).hexdigest(), lay.shape, str(device))
+    hit = _LISTS.get(key)
+    if hit is None:
+        hit = _LISTS[key] = (torch.as_tensor((lay > 0).astype(np.uint8), device=device),)
+    return hit[0]
 
 
 def _rows_ok(t: torch.Tensor) -> bool:
@@ -285,30 +317,34 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"sparse_attention: q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
     check_head_dim(D, "sparse_attention")
-    if not kernel_takes_block(config.block):
-        raise ValueError(f"sparse_attention: kernel S takes layout blocks that are a multiple "
-                         f"of {KERNEL_UNIT}; block {config.block} is not (ROADMAP Queue 3 #F2)")
-    q, k, v = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v))
-    block, masks = config.block, None
+    Dk = padded_head_dim(D)
+    if Dk != D:  # the kernel runs at Dk on zero-padded rows; the extra columns are dropped
+        q, k, v = (pad_head_dim(t, Dk) for t in (q, k, v))
+    else:
+        q, k, v = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v))
+    block, masks, elems = config.block, None, None
     if block % KERNEL_TILE:
         row_ptr, cols, masks = unit_lists(layout, block, S, causal, q.device)
+        if block % KERNEL_UNIT:  # partial units test each element against the layout
+            elems = _layout_bytes(layout, q.device)
         block = KERNEL_TILE
     else:
         row_ptr, cols = block_lists(layout, causal, q.device)
-    o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
     lib = op_builder.load("sparse_attention", _SIG)
     with torch.cuda.device(q.device):
         err = lib.dstpu_sparse_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), row_ptr.data_ptr(),
             cols.data_ptr(), None if masks is None else masks.data_ptr(),
-            op_builder.dtype_code(q.dtype), B, S, H, D, layout.shape[0],
-            block, int(bool(causal)), 1.0 / math.sqrt(D),
+            None if elems is None else elems.data_ptr(),
+            op_builder.dtype_code(q.dtype), B, S, H, Dk, layout.shape[0],
+            block, config.block, int(bool(causal)), 1.0 / math.sqrt(D),
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "sparse_attention")
     sparse_attention.launches += 1
-    return o
+    return o if Dk == D else o[..., :D].contiguous()
 
 
 sparse_attention.launches = 0

@@ -232,3 +232,28 @@ def test_row_masked_by_1e9_matches_the_jax_kernels_not_autodiff():
     masked_dq = np.abs(got_g[0][0, 1]).max()
     assert masked_dq > 2 * np.abs(xla_g[0][0, 1]).max()
     np.testing.assert_allclose(got_g[0][1], xla_g[0][1], rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_bias1_gradient_past_the_old_key_limit_matches_jax():
+    """K = 12,000 keys with bias1: past the ~5,500 (bf16) to ~20,000 (fp32)
+    keys whose whole dbias1 accumulator fit one block, where the card's
+    kernel E' now cuts the key axis into ranges.  The port's plain passes
+    (its CPU path) against jax.grad through the Pallas kernels in
+    interpret mode; Q = 8 rows keep it small.  Tolerances as above: the
+    sums over 12,000 keys are fp32 on both sides in other orders."""
+    rng = np.random.RandomState(7)
+    K = 12000
+    q = rng.randn(1, 1, 8, 2, 16).astype(np.float32)
+    k, v = (rng.randn(1, 1, K, 2, 16).astype(np.float32) for _ in range(2))
+    b1 = rng.randn(1, 1, 1, 1, K).astype(np.float32)
+    do = rng.randn(1, 1, 8, 2, 16).astype(np.float32)
+
+    def loss(q_, k_, v_, b_):
+        o = jax_pallas(q_, k_, v_, [b_], block_q=8, block_k=512)
+        return jnp.sum(o * jnp.asarray(do))
+
+    want = jax.grad(loss, (0, 1, 2, 3))(*(jnp.asarray(a) for a in (q, k, v, b1)))
+    t = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, b1)]
+    ev.DS4Sci_EvoformerAttention(t[0], t[1], t[2], [t[3]]).backward(torch.from_numpy(do))
+    for x, w in zip(t, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), rtol=GRAD_TOL, atol=GRAD_TOL)

@@ -88,3 +88,47 @@ def test_expert_index_is_clamped():
     got = gm.grouped_matmul_plain(xt, wt, torch.tensor([-1, 5, 1, 1, 0], dtype=torch.int32), 8)
     want = gm.grouped_matmul_plain(xt, wt, torch.tensor([0, 2, 1, 1, 0], dtype=torch.int32), 8)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("n_used", [0, 2, 4, 5])
+def test_plain_with_n_used_is_jax_on_the_used_blocks_and_zeros_after(n_used, dt):
+    """``n_used`` (the blocks that hold a real row, a device int): the rows
+    of the first n_used blocks are JAX's ``grouped_matmul`` (through the
+    Pallas kernel in interpret mode), the rest zeros, whatever x holds
+    there; without it the function is JAX's on every row."""
+    block_rows = 8
+    x, w, be = _inputs(block_rows, dt)
+    want = np.asarray(jax_gmm(jnp.asarray(x, JNP[dt]), jnp.asarray(w, JNP[dt]),
+                              jnp.asarray(be), block_rows=block_rows, impl="pallas"), np.float32)
+    xt, wt = torch.from_numpy(x).to(TORCH[dt]), torch.from_numpy(w).to(TORCH[dt])
+    nu = torch.tensor([n_used], dtype=torch.int32)
+    got = gm.grouped_matmul(xt, wt, torch.from_numpy(be), block_rows, nu).float().numpy()
+    rows = n_used * block_rows
+    atol, rtol = TOL[dt]
+    np.testing.assert_allclose(got[:rows], want[:rows], atol=atol, rtol=rtol)
+    assert not got[rows:].any()
+    full = gm.grouped_matmul(xt, wt, torch.from_numpy(be), block_rows).float().numpy()
+    np.testing.assert_allclose(full, want, atol=atol, rtol=rtol)
+
+
+def test_n_used_must_be_one_int32():
+    x, w, be = _inputs(8, "fp32")
+    args = (torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(be), 8)
+    with pytest.raises(ValueError, match="n_used"):
+        gm.grouped_matmul(*args, torch.tensor([1, 2], dtype=torch.int32))
+    with pytest.raises(ValueError, match="n_used"):
+        gm.grouped_matmul(*args, torch.tensor([1], dtype=torch.int64))
+
+
+def test_dropless_layer_counts_the_blocks_it_uses():
+    """The router's padded layout: the blocks up to the last that holds an
+    assignment are used; the trailing all-padding ones are not."""
+    from deepspeed_tpu_torch.moe.sharded_moe import sort_pad_by_expert
+
+    key = torch.tensor([3, 0, 3, 1, 3, 0, 3], dtype=torch.int64)  # experts 0, 1, 3 of 4
+    _, dest, n_rows, be = sort_pad_by_expert(key, 4, 2)
+    n_used = int((torch.where(dest < n_rows, dest, -2).max() // 2 + 1).item())
+    # expert 0: 2 rows (1 block), 1: 1 row (1 block), 3: 4 rows (2 blocks)
+    assert n_used == 4 and n_rows // 2 > n_used
+    assert be[:n_used].tolist() == [0, 1, 3, 3]

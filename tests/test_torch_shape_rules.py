@@ -2,10 +2,11 @@
 the shapes that rule newly admits, against the JAX package.
 
 On the CPU the wrappers run their plain versions, so these tests hold the
-port's function at the new shapes (head dims 80 and 96 in flash forward
-and backward, 80 in paged decode, sparse layout blocks of 16 and 32,
-``wq_matmul`` groups of 16 and 48) against the JAX package's Pallas
-kernels in interpret mode on the same numpy inputs.  The kernels
+port's function at the shapes the kernels take (head dims 72, 80, 96 and
+160 in flash forward and backward, 72 and 80 in paged decode, sparse
+layout blocks of 8, 16, 24 and 32, ``wq_matmul`` groups of 16 and 48)
+against the JAX package's Pallas kernels in interpret mode on the same
+numpy inputs.  The kernels
 themselves are held against these plain versions on the card by
 ``chip_smoke.py``.  The acceptance rules (``kernel_takes_head_dim``,
 ``kernel_takes_block``, ``kernel_takes_group``) and the layout kernel S
@@ -71,17 +72,49 @@ def test_head_dim_rule_takes_multiples_of_16_to_128(D):
     fa.check_head_dim(D, "flash")
 
 
-@pytest.mark.parametrize("D", [0, 8, 24, 40, 72, 100, 136, 256])
+def test_head_dim_rule_takes_every_d_from_1_to_256():
+    for D in range(1, 257):
+        assert fa.kernel_takes_head_dim(D), D
+        fa.check_head_dim(D, "flash")
+
+
+@pytest.mark.parametrize("D", [0, -1, 257, 264, 288, 320, 512, 1024])
 def test_head_dim_rule_refuses_the_rest_naming_f2(D):
+    """Past 256 no public model has a head; ROADMAP keeps that as #F2."""
     assert not fa.kernel_takes_head_dim(D)
     with pytest.raises(ValueError, match="#F2"):
         fa.check_head_dim(D, "flash")
 
 
+@pytest.mark.parametrize("D,Dk", [(1, 16), (7, 16), (8, 16), (16, 16), (72, 80), (100, 112),
+                                  (128, 128), (129, 160), (160, 160), (161, 192), (255, 256),
+                                  (256, 256)])
+def test_padded_head_dim_is_the_kernels_width(D, Dk):
+    """The kernels run at D rounded up to 16 (to 32 past 128); pad_head_dim
+    adds zero columns up to that width and leaves the rest as it was."""
+    assert fa.padded_head_dim(D) == Dk
+    t = torch.randn(2, 3, 1, D)
+    p = fa.pad_head_dim(t, Dk)
+    assert p.shape == (2, 3, 1, Dk) and torch.equal(p[..., :D], t)
+    assert not p[..., D:].any()
+    assert fa.pad_head_dim(t, D) is t
+
+
 @pytest.mark.parametrize("block,ok", [(16, True), (32, True), (48, True), (64, True),
-                                      (128, True), (8, False), (40, False), (0, False)])
+                                      (128, True), (8, True), (40, True), (0, False)])
 def test_sparse_block_rule(block, ok):
     assert sa.kernel_takes_block(block) is ok
+
+
+def test_sparse_block_rule_takes_every_block_that_divides_s():
+    """Every block that divides S, as the reference: its layout builds and
+    the kernel's rule takes it."""
+    S = 240
+    for block in range(1, S + 1):
+        if S % block == 0:
+            assert sa.kernel_takes_block(block), block
+            cfg = sa.FixedSparsityConfig(num_heads=1, block=block, num_local_blocks=2)
+            assert sa._layout(cfg, S, 1).shape == (1, S // block, S // block)
 
 
 @pytest.mark.parametrize("group,bits,ok", [(16, 8, True), (48, 4, True), (128, 4, True),
@@ -135,6 +168,35 @@ def _unit_walk(layout, block, S, causal):
     return vis
 
 
+def _element_walk(layout, block, S, causal):
+    """As :func:`_unit_walk` for any block: inside a unit whose partial bit
+    (bit + 16) is set, each element's own layout entry decides."""
+    row_ptr, cols, masks = (t.numpy() for t in sa.unit_lists(layout, block, S, causal, "cpu"))
+    heads, nt = layout.shape[0], -(-S // sa.KERNEL_TILE)
+    u, tpu = sa.KERNEL_UNIT, sa.KERNEL_TILE // sa.KERNEL_UNIT
+    span = nt * sa.KERNEL_TILE
+    elem = np.zeros((heads, span, span), bool)
+    elem[:, :S, :S] = np.kron(layout > 0, np.ones((block, block), bool))
+    vis = np.zeros((heads, span, span), bool)
+    for h in range(heads):
+        for qt in range(nt):
+            r = h * nt + qt
+            for e in range(row_ptr[r], row_ptr[r + 1]):
+                m = int(masks[e]) & 0xFFFFFFFF
+                for bit in range(tpu * tpu):
+                    if (m >> bit) & 1:
+                        r0 = qt * sa.KERNEL_TILE + (bit // tpu) * u
+                        c0 = cols[e] * sa.KERNEL_TILE + (bit % tpu) * u
+                        blk = np.ones((u, u), bool)
+                        if (m >> (16 + bit)) & 1:
+                            blk = elem[h, r0:r0 + u, c0:c0 + u]
+                        vis[h, r0:r0 + u, c0:c0 + u] |= blk
+    vis = vis[:, :S, :S]
+    if causal:
+        vis &= np.tril(np.ones((S, S), bool))
+    return vis
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("cfg,S", [
     (lambda m: m.FixedSparsityConfig(num_heads=2, block=16, num_local_blocks=4,
@@ -157,6 +219,28 @@ def test_unit_lists_cover_exactly_the_layout(cfg, S, causal):
     np.testing.assert_array_equal(_unit_walk(layout, c.block, S, causal), want)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cfg,S", [
+    (lambda m: m.FixedSparsityConfig(num_heads=2, block=8, num_local_blocks=4,
+                                     num_global_blocks=1), 520),
+    (lambda m: m.BigBirdSparsityConfig(num_heads=2, block=24, num_random_blocks=2), 600),
+    (lambda m: m.BSLongformerSparsityConfig(num_heads=1, block=24,
+                                            num_sliding_window_blocks=3,
+                                            global_block_indices=(0, 5)), 360),
+    (lambda m: m.FixedSparsityConfig(num_heads=1, block=40, num_local_blocks=2), 200),
+])
+def test_unit_lists_cover_blocks_off_16_exactly(cfg, S, causal):
+    """Blocks that are not a multiple of 16: the visited tiles, their unit
+    masks and the element test inside partial units give exactly the
+    layout expanded to [H, S, S]; a unit with no visible element is off."""
+    c = cfg(sa)
+    layout = sa._layout(c, S, c.num_heads)
+    want = np.kron(layout > 0, np.ones((c.block, c.block), bool))
+    if causal:
+        want &= np.tril(np.ones((S, S), bool))
+    np.testing.assert_array_equal(_element_walk(layout, c.block, S, causal), want)
+
+
 # ---------------------------------------------- plain paths vs JAX kernels
 def _flash_inputs(seed, b, s, nh, kvh, d):
     rng = np.random.RandomState(seed)
@@ -166,7 +250,7 @@ def _flash_inputs(seed, b, s, nh, kvh, d):
 
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
 @pytest.mark.parametrize("alibi", [False, True])
-@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("D", [72, 80, 96, 160])
 def test_flash_forward_head_dims_match_jax(D, alibi, dt):
     q, k, v, _ = _flash_inputs(0, 1, 40, 4, 2, D)
     jkw = {"alibi_slopes": jax_alibi_slopes(4)} if alibi else {}
@@ -182,7 +266,7 @@ def test_flash_forward_head_dims_match_jax(D, alibi, dt):
 
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("D", [72, 80, 96, 160])
 def test_flash_grads_head_dims_match_jax(D, causal, dt):
     """Gradients of sum(o * dO) through the port's flash_attention (plain
     forward and backward on the CPU) vs jax.grad through the Pallas
@@ -203,11 +287,12 @@ def test_flash_grads_head_dims_match_jax(D, causal, dt):
         np.testing.assert_allclose(x.grad.float().numpy(), w, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("D", [72, 80])
 @pytest.mark.parametrize("alibi", [False, True])
 @pytest.mark.parametrize("quant", [False, True])
-def test_paged_head_dim_80_matches_jax(quant, alibi):
+def test_paged_head_dim_80_matches_jax(quant, alibi, D):
     rng = np.random.RandomState(2)
-    B, NH, KVH, D, ps, MP = 3, 8, 2, 80, 8, 4
+    B, NH, KVH, ps, MP = 3, 8, 2, 8, 4
     P = B * MP + 1
     q = rng.randn(B, NH, D).astype(np.float32)
     if quant:
@@ -234,7 +319,9 @@ def test_paged_head_dim_80_matches_jax(quant, alibi):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("name,block", [("fixed", 16), ("bslongformer", 32), ("bigbird", 16)])
+@pytest.mark.parametrize("name,block", [("fixed", 16), ("bslongformer", 32), ("bigbird", 16),
+                                        ("fixed", 8), ("bigbird", 8), ("bslongformer", 24),
+                                        ("fixed", 24)])
 def test_sparse_small_blocks_match_jax_pallas(name, block, causal):
     cfgs = {"fixed": lambda m: m.FixedSparsityConfig(num_heads=2, block=block,
                                                       num_local_blocks=2, num_global_blocks=1),
@@ -246,7 +333,8 @@ def test_sparse_small_blocks_match_jax_pallas(name, block, causal):
                                                          num_sliding_window_blocks=3,
                                                          num_global_blocks=1)}
     rng = np.random.RandomState(3)
-    q, k, v = ((rng.randn(1, 128, 2, 64) * 0.3).astype(np.float32) for _ in range(3))
+    S = 128 if block % 8 == 0 and 128 % block == 0 else 120
+    q, k, v = ((rng.randn(1, S, 2, 64) * 0.3).astype(np.float32) for _ in range(3))
     want = np.asarray(jsa.sparse_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                            cfgs[name](jsa), causal=causal, impl="pallas"))
     got = sa.sparse_attention(*(torch.from_numpy(x) for x in (q, k, v)), cfgs[name](sa),

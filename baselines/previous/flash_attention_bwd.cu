@@ -15,7 +15,11 @@
 //   dV[j]    = sum_{h in group} sum_i p[i, j] dO[i]
 // with query head h reading KV head h / (NH / KVH), exactly as the forward.
 // delta is a [B, NH, Sq] fp32 input computed outside (as JAX computes it
-// outside the Pallas calls).  D is any multiple of 16 from 16 to 128.
+// outside the Pallas calls).  D is a multiple of 16 to 128 or of 32 to 256
+// (the wrapper pads other head dims with zero columns); past 128 each block
+// computes one half of the gradients' columns (a grid axis over the halves)
+// while S and dP still take the whole D, so the register budget stays that
+// of D <= 128, and the ring is as deep as the tiles let a block hold.
 //
 // What bounds it on the H100: the arithmetic.  At llama-1b training shapes
 // (B = 4, S = 1024, 32 heads over 8 KV heads, D = 64, causal) dQ needs 6 * D
@@ -107,6 +111,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kB = 64;         // fp32 kernels: query-tile and key-tile size
@@ -134,13 +140,25 @@ struct Args {
   int lse_bulk;   // bf16/fp16 dK/dV: lse and delta rows ride bulk copies (Sq % 4 == 0)
 };
 
+// fp32 past D = 128: four [kB][D + 1] tiles would not fit a block, so the
+// operands that only the score loop reads (Q and dO in A', K and V in A'')
+// are read there from global memory (L1) instead of being staged
 template <int D>
-constexpr size_t dq_smem_bytes() {  // Q, dO, K, V tiles + dS
-  return sizeof(float) * (4 * kB * (D + 1) + kB * (kB + 1));
+__host__ __device__ constexpr int staged_tiles() {
+  return D > 128 ? 2 : 4;
 }
 template <int D>
-constexpr size_t dkv_smem_bytes() {  // K, V, Q, dO tiles + P^T, dS^T
-  return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * (kB + 1));
+constexpr size_t dq_smem_bytes() {  // Q, dO (D <= 128), K, V tiles + dS
+  return sizeof(float) * (staged_tiles<D>() * kB * (D + 1) + kB * (kB + 1));
+}
+template <int D>
+constexpr size_t dkv_smem_bytes() {  // K, V (D <= 128), Q, dO tiles + P^T, dS^T
+  return sizeof(float) * (staged_tiles<D>() * kB * (D + 1) + 2 * kB * (kB + 1));
+}
+// row r of a [B, S, H, D] fp32 head, or null past S
+__device__ __forceinline__ const float* row_or_null(const float* base, long long stride, int r,
+                                                    int S) {
+  return r < S ? base + (long long)r * stride : nullptr;
 }
 
 // ---------------------------------------------------------------------------
@@ -151,10 +169,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   constexpr int DP = D + 1;
   constexpr int PP = kB + 1;
   constexpr int NC = D / 16;
+  constexpr bool GQ = D > 128;  // Q and dO read from global memory
   extern __shared__ float smem[];
-  float* Qs = smem;           // [kB][DP]
-  float* dOs = Qs + kB * DP;  // [kB][DP]
-  float* Ks = dOs + kB * DP;  // [kB][DP]
+  float* Qs = smem;                     // [kB][DP] (D <= 128)
+  float* dOs = Qs + (GQ ? 0 : kB * DP);  // [kB][DP] (D <= 128)
+  float* Ks = dOs + (GQ ? 0 : kB * DP);  // [kB][DP]
   float* Vs = Ks + kB * DP;   // [kB][DP]
   float* dSs = Vs + kB * DP;  // [kB][PP]
   __shared__ float lse_s[kB], delta_s[kB];
@@ -171,8 +190,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   const float* ob = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
   const long long rowbase = ((long long)b * a.NH + h) * a.Sq;
 
-  stage_rows<D>(Qs, qb, a.qss, q_start, a.Sq);
-  stage_rows<D>(dOs, ob, a.dss, q_start, a.Sq);
+  if constexpr (!GQ) {
+    stage_rows<D>(Qs, qb, a.qss, q_start, a.Sq);
+    stage_rows<D>(dOs, ob, a.dss, q_start, a.Sq);
+  }
+  const float* qg[4];
+  const float* og[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    qg[r] = row_or_null(qb, a.qss, q_start + ty * 4 + r, a.Sq);
+    og[r] = row_or_null(ob, a.dss, q_start + ty * 4 + r, a.Sq);
+  }
   if (tid < kB) {
     const int qi = q_start + tid;
     lse_s[tid] = qi < a.Sq ? a.lse[rowbase + qi] : 0.f;
@@ -206,8 +234,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
       float qv[4], ov[4], kv[4], vv[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        qv[r] = Qs[(ty * 4 + r) * DP + d];
-        ov[r] = dOs[(ty * 4 + r) * DP + d];
+        if constexpr (GQ) {
+          qv[r] = qg[r] != nullptr ? __ldg(qg[r] + d) : 0.f;
+          ov[r] = og[r] != nullptr ? __ldg(og[r] + d) : 0.f;
+        } else {
+          qv[r] = Qs[(ty * 4 + r) * DP + d];
+          ov[r] = dOs[(ty * 4 + r) * DP + d];
+        }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -271,10 +304,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   constexpr int DP = D + 1;
   constexpr int PP = kB + 1;
   constexpr int NC = D / 16;
+  constexpr bool GK = D > 128;  // K and V read from global memory
   extern __shared__ float smem[];
-  float* Ks = smem;           // [kB][DP]
-  float* Vs = Ks + kB * DP;   // [kB][DP]
-  float* Qs = Vs + kB * DP;   // [kB][DP]
+  float* Ks = smem;                    // [kB][DP] (D <= 128)
+  float* Vs = Ks + (GK ? 0 : kB * DP);  // [kB][DP] (D <= 128)
+  float* Qs = Vs + (GK ? 0 : kB * DP);  // [kB][DP]
   float* dOs = Qs + kB * DP;  // [kB][DP]
   float* Pt = dOs + kB * DP;  // [kB keys][PP]
   float* dSt = Pt + kB * PP;  // [kB keys][PP]
@@ -289,8 +323,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   const float* kb = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
   const float* vb = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
 
-  stage_rows<D>(Ks, kb, a.kss, k_start, a.Sk);
-  stage_rows<D>(Vs, vb, a.vss, k_start, a.Sk);
+  if constexpr (!GK) {
+    stage_rows<D>(Ks, kb, a.kss, k_start, a.Sk);
+    stage_rows<D>(Vs, vb, a.vss, k_start, a.Sk);
+  }
+  const float* kg[4];
+  const float* vg[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    kg[r] = row_or_null(kb, a.kss, k_start + ty * 4 + r, a.Sk);
+    vg[r] = row_or_null(vb, a.vss, k_start + ty * 4 + r, a.Sk);
+  }
 
   float dk[4][NC], dv[4][NC];
 #pragma unroll
@@ -330,8 +373,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
         float kv[4], vv[4], qv[4], ov[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          kv[r] = Ks[(ty * 4 + r) * DP + d];
-          vv[r] = Vs[(ty * 4 + r) * DP + d];
+          if constexpr (GK) {
+            kv[r] = kg[r] != nullptr ? __ldg(kg[r] + d) : 0.f;
+            vv[r] = vg[r] != nullptr ? __ldg(vg[r] + d) : 0.f;
+          } else {
+            kv[r] = Ks[(ty * 4 + r) * DP + d];
+            vv[r] = Vs[(ty * 4 + r) * DP + d];
+          }
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -408,394 +456,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
 // Hopper kernels (bf16, fp16): wgmma fed by TMA
 // ---------------------------------------------------------------------------
 constexpr int kThreadsWg = 256;     // two consumer warpgroups, 64 rows each
-constexpr int kStages = 5;          // ring depth of the streamed tiles
-constexpr int kAhead = 3;           // tiles in flight ahead of the one computed
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kSmemCap = 232448 - 1024;
 
-template <typename T> struct Cvt;
-template <> struct Cvt<__nv_bfloat16> {
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-template <> struct Cvt<__half> {
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
+// the ring of streamed tiles: up to 5 stages (5 for every D <= 128), and
+// tiles in flight ahead of the one computed such that the stage refilled
+// held the tile two before the current one (the previous one for rings of
+// fewer than 4 stages: past D = 128 Q/dO or K/V fill most of the block)
+__host__ __device__ constexpr int ring_stages(size_t fixed, size_t stage) {
+  return (int)((kSmemCap - fixed) / stage) < 5 ? (int)((kSmemCap - fixed) / stage) : 5;
+}
+__host__ __device__ constexpr int ring_ahead(int stages) { return stages >= 4 ? stages - 2 : stages - 1; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// past D = 128 each block computes one half of the gradients' columns (a
+// grid axis over the halves); S and dP still take the whole D
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return D > 128 ? D / 2 : D;
 }
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// arrive and add `bytes` to the transaction count the phase waits for
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// spin until the phase of parity `parity` has completed.  A wait of more
-// than 4 s can only be a fault of the pipeline: it traps, so the launch
-// fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint64_t t0 = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (t0 == 0)
-      t0 = now;
-    else if (now - t0 > 4000000000ull)
-      __trap();
-  }
-}
-// rows [row0, row0 + R) of one head of a [B, S, H, D] tensor as D/8 column
-// panels [D/8][R][8] at dst, in one TMA copy; rows past S arrive as zeros.
-// The map's dimensions are (8, H, S, D/8, B), its box (8, 1, R, D/8, 1).
-__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, int row0, int head,
-                                         int batch, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(head), "r"(row0), "r"(0), "r"(batch),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-// `bytes` (a multiple of 16) from 16-byte aligned global memory to shared
-// memory, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-// wgmma shared-memory descriptor, no swizzle: lbo = bytes between core
-// matrices along K, sbo = bytes between core matrices along M or N
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups of this warpgroup are in flight
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep registers that an asynchronous wgmma reads or writes live and in
-// place up to this point
-template <int N> __device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N> __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-// the A fragments of a 64 x N accumulator's columns taken 16 at a time (the
-// accumulator of columns 16 kq .. 16 kq + 15 is the A fragment of k-step kq)
-template <typename T, int N>
-__device__ __forceinline__ void pack_a(uint32_t (&f)[N / 16][4], const float (&acc)[N / 2]) {
-#pragma unroll
-  for (int kq = 0; kq < N / 16; ++kq)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) f[kq][r] = Cvt<T>::pack(acc[8 * kq + 2 * r], acc[8 * kq + 2 * r + 1]);
-}
-
-// m64nNk16, fp32 accumulators.  SS: A and B K-major in shared memory.  RS: A
-// from registers, B MN-major in shared memory.  d += A B (SS: d = A B when
-// acc is 0).
-template <typename T, int N> struct WgmmaSS;
-template <typename T, int N> struct WgmmaRS;
-template <> struct WgmmaSS<__nv_bfloat16, 32> {
-  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-};
-template <> struct WgmmaSS<__nv_bfloat16, 64> {
-  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-};
-template <> struct WgmmaRS<__nv_bfloat16, 16> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__nv_bfloat16, 32> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__nv_bfloat16, 48> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__nv_bfloat16, 64> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__nv_bfloat16, 80> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__nv_bfloat16, 96> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__nv_bfloat16, 112> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-        "%48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__nv_bfloat16, 128> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
-        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaSS<__half, 32> {
-  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-};
-template <> struct WgmmaSS<__half, 64> {
-  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-};
-template <> struct WgmmaRS<__half, 16> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__half, 32> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__half, 48> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__half, 64> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__half, 80> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__half, 96> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__half, 112> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-        "%48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-template <> struct WgmmaRS<__half, 128> {
-  __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
-        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
 
 // P^T of one 64-key x BQ-query tile of A'', in place of S^T.  Rows are keys
 // key0 and key0 + 8, columns queries q0 + 8 j + cq (+ 1).
@@ -855,8 +532,10 @@ struct DkvCfg {
   static constexpr int BQ = D <= 96 ? 64 : 32;  // queries per pipeline step
   static constexpr int K_BYTES = BK * D * 2;    // one of K, V
   static constexpr int Q_BYTES = BQ * D * 2;    // one of Q, dO (per stage)
+  static constexpr int STAGES = ring_stages(2 * K_BYTES, 2 * Q_BYTES + 2 * BQ * 4);
+  static constexpr int AHEAD = ring_ahead(STAGES);
   static constexpr size_t smem =
-      128 + 2 * K_BYTES + kStages * (2 * Q_BYTES + 2 * BQ * 4) + (1 + 2 * kStages) * 8;
+      128 + 2 * K_BYTES + STAGES * (2 * Q_BYTES + 2 * BQ * 4) + (1 + 2 * STAGES) * 8;
 };
 
 template <typename T, int D>
@@ -866,7 +545,8 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
                                const __grid_constant__ CUtensorMap tv,
                                const __grid_constant__ CUtensorMap tdo, const Args a) {
   using C = DkvCfg<D>;
-  constexpr int BK = C::BK, BQ = C::BQ;
+  constexpr int BK = C::BK, BQ = C::BQ, kStages = C::STAGES, kAhead = C::AHEAD;
+  constexpr int DO = out_cols<D>();  // the gradient columns of this block
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
   T* Ks = reinterpret_cast<T*>(base);  // [D/8][BK][8]
@@ -940,9 +620,12 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
   const T* Kw = Ks + 64 * c * 8;
   const T* Vw = Vs + 64 * c * 8;
 
-  float dk[D / 2], dv[D / 2], s[BQ / 2], dp[BQ / 2];
+  // this block's columns [col0, col0 + DO) of dK and dV, as panel offsets
+  const int col0 = DO < D ? (int)blockIdx.y * DO : 0;
+  const int pan0 = col0 / 8 * BQ * 8;
+  float dk[DO / 2], dv[DO / 2], s[BQ / 2], dp[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
   uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
@@ -1020,7 +703,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       wg_fence();
 #pragma unroll
       for (int kq = 0; kq < BQ / 16; ++kq)
-        WgmmaRS<T, D>::run(dv, pf[kq], gmma_desc(dOc + kq * 16 * 8, 128, BQ * 16));
+        WgmmaRS<T, DO>::run(dv, pf[kq], gmma_desc(dOc + pan0 + kq * 16 * 8, 128, BQ * 16));
       wg_commit();
       dkv_dscores<BQ>(dp, s, dl);
       pack_a<T, BQ>(dsf, dp);
@@ -1028,7 +711,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       wg_fence();
 #pragma unroll
       for (int kq = 0; kq < BQ / 16; ++kq)
-        WgmmaRS<T, D>::run(dk, dsf[kq], gmma_desc(Qc + kq * 16 * 8, 128, BQ * 16));
+        WgmmaRS<T, DO>::run(dk, dsf[kq], gmma_desc(Qc + pan0 + kq * 16 * 8, 128, BQ * 16));
       wg_commit();
       wg_wait<0>();
       pin(dv);
@@ -1045,9 +728,9 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= a.Sk) continue;
-    const long long off = (((long long)b * a.Sk + key) * a.KVH + kvh) * D;
+    const long long off = (((long long)b * a.Sk + key) * a.KVH + kvh) * D + col0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DO / 8; ++j) {
       *reinterpret_cast<uint32_t*>(dkp + off + 8 * j + cq) =
           Cvt<T>::pack(dk[4 * j + 2 * r] * a.sm_scale, dk[4 * j + 2 * r + 1] * a.sm_scale);
       *reinterpret_cast<uint32_t*>(dvp + off + 8 * j + cq) =
@@ -1062,7 +745,9 @@ struct DqCfg {
   static constexpr int BK = 64;               // keys per pipeline step
   static constexpr int Q_BYTES = BQ * D * 2;  // one of Q, dO
   static constexpr int K_BYTES = BK * D * 2;  // one of K, V (per stage)
-  static constexpr size_t smem = 128 + 2 * Q_BYTES + kStages * 2 * K_BYTES + (1 + 2 * kStages) * 8;
+  static constexpr int STAGES = ring_stages(2 * Q_BYTES, 2 * K_BYTES);
+  static constexpr int AHEAD = ring_ahead(STAGES);
+  static constexpr size_t smem = 128 + 2 * Q_BYTES + STAGES * 2 * K_BYTES + (1 + 2 * STAGES) * 8;
 };
 
 template <typename T, int D>
@@ -1072,7 +757,8 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
                               const __grid_constant__ CUtensorMap tv,
                               const __grid_constant__ CUtensorMap tdo, const Args a) {
   using C = DqCfg<D>;
-  constexpr int BQ = C::BQ, BK = C::BK;
+  constexpr int BQ = C::BQ, BK = C::BK, kStages = C::STAGES, kAhead = C::AHEAD;
+  constexpr int DO = out_cols<D>();  // the dQ columns of this block
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
   T* Qs = reinterpret_cast<T*>(base);  // [D/8][BQ][8]
@@ -1141,9 +827,12 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
   const T* Qw = Qs + 64 * c * 8;
   const T* dOw = dOs + 64 * c * 8;
 
-  float dq[D / 2], s[32], dp[32];
+  // this block's columns [col0, col0 + DO) of dQ, as a panel offset of K
+  const int col0 = DO < D ? (int)blockIdx.y * DO : 0;
+  const int pan0 = col0 / 8 * BK * 8;
+  float dq[DO / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) dq[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   uint32_t dsf[4][4];
@@ -1196,7 +885,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       wg_fence();
 #pragma unroll
       for (int kq = 0; kq < BK / 16; ++kq)
-        WgmmaRS<T, D>::run(dq, dsf[kq], gmma_desc(Kc + kq * 16 * 8, 128, BK * 16));
+        WgmmaRS<T, DO>::run(dq, dsf[kq], gmma_desc(Kc + pan0 + kq * 16 * 8, 128, BK * 16));
       wg_commit();
       wg_wait<0>();
       pin(dq);
@@ -1210,9 +899,9 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + 8 * r;
     if (qi >= a.Sq) continue;
-    T* row = dqp + (((long long)b * a.Sq + qi) * a.NH + h) * D;
+    T* row = dqp + (((long long)b * a.Sq + qi) * a.NH + h) * D + col0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DO / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j + cq) =
           Cvt<T>::pack(dq[4 * j + 2 * r] * a.sm_scale, dq[4 * j + 2 * r + 1] * a.sm_scale);
   }
@@ -1221,65 +910,14 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                  : nullptr;
-  }();
-  return fn;
-}
-
-// the TMA map of a [B, S, H, D] tensor read through its element strides
-// (batch sb, sequence ss, head sh): R rows of one head as D/8 panels of 8
-// columns, the panel index a dimension of its own 16 bytes apart, so one
-// copy lands a tile.  Dims (8, H, S, D/8, B), box (8, 1, R, D/8, 1).
-template <typename T>
-cudaError_t tile_map(CUtensorMap* m, const void* ptr, int D, int S, int H, int B, long long sb,
-                     long long ss, long long sh, int R) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const CUtensorMapDataType dt = std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t e = sizeof(T);
-  const cuuint64_t dims[5] = {8, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)D / 8, (cuuint64_t)B};
-  const cuuint64_t strides[4] = {sh * e, ss * e, 16, sb * e};
-  const cuuint32_t box[5] = {8, 1, (cuuint32_t)R, (cuuint32_t)D / 8, 1};
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = enc(m, dt, 5, const_cast<void*>(ptr), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // the four maps of q, k, v, dO: q and dO in boxes of rq rows, k and v of rk
 template <typename T, int D>
 cudaError_t make_maps(const Args& a, int rq, int rk, CUtensorMap* m) {
   cudaError_t e;
-  if ((e = tile_map<T>(&m[0], a.q, D, a.Sq, a.NH, a.B, a.qsb, a.qss, a.qsh, rq)) != cudaSuccess ||
-      (e = tile_map<T>(&m[1], a.k, D, a.Sk, a.KVH, a.B, a.ksb, a.kss, a.ksh, rk)) != cudaSuccess ||
-      (e = tile_map<T>(&m[2], a.v, D, a.Sk, a.KVH, a.B, a.vsb, a.vss, a.vsh, rk)) != cudaSuccess ||
-      (e = tile_map<T>(&m[3], a.dout, D, a.Sq, a.NH, a.B, a.dsb, a.dss, a.dsh, rq)) != cudaSuccess)
+  if ((e = tile_map<T>(&m[0], a.q, D, D, a.Sq, a.NH, a.B, a.qsb, a.qss, a.qsh, rq)) != cudaSuccess ||
+      (e = tile_map<T>(&m[1], a.k, D, D, a.Sk, a.KVH, a.B, a.ksb, a.kss, a.ksh, rk)) != cudaSuccess ||
+      (e = tile_map<T>(&m[2], a.v, D, D, a.Sk, a.KVH, a.B, a.vsb, a.vss, a.vsh, rk)) != cudaSuccess ||
+      (e = tile_map<T>(&m[3], a.dout, D, D, a.Sq, a.NH, a.B, a.dsb, a.dss, a.dsh, rq)) != cudaSuccess)
     return e;
   return cudaSuccess;
 }
@@ -1300,9 +938,9 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     static cudaError_t attr = opt_in(flash_bwd_dq_wgmma_kernel<T, D>, C::smem);
     if (attr != cudaSuccess) return attr;
-    const unsigned blocks = (unsigned)((a.Sq + C::BQ - 1) / C::BQ) * a.B * a.NH;
-    flash_bwd_dq_wgmma_kernel<T, D><<<blocks, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2],
-                                                                             m[3], a);
+    const dim3 grid((unsigned)((a.Sq + C::BQ - 1) / C::BQ) * a.B * a.NH, D / out_cols<D>());
+    flash_bwd_dq_wgmma_kernel<T, D><<<grid, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2],
+                                                                           m[3], a);
   }
   return cudaGetLastError();
 }
@@ -1325,9 +963,9 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
                  reinterpret_cast<uintptr_t>(a.delta) % 16 == 0;
     static cudaError_t attr = opt_in(flash_bwd_dkv_wgmma_kernel<T, D>, C::smem);
     if (attr != cudaSuccess) return attr;
-    const unsigned blocks = (unsigned)((a.Sk + C::BK - 1) / C::BK) * a.B * a.KVH;
-    flash_bwd_dkv_wgmma_kernel<T, D><<<blocks, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2],
-                                                                              m[3], t);
+    const dim3 grid((unsigned)((a.Sk + C::BK - 1) / C::BK) * a.B * a.KVH, D / out_cols<D>());
+    flash_bwd_dkv_wgmma_kernel<T, D><<<grid, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2],
+                                                                            m[3], t);
   }
   return cudaGetLastError();
 }
@@ -1346,6 +984,10 @@ cudaError_t dispatch_d(bool dkv, int D, const Args& a, cudaStream_t st) {
     DSTPU_BWD_CASE(96)
     DSTPU_BWD_CASE(112)
     DSTPU_BWD_CASE(128)
+    DSTPU_BWD_CASE(160)
+    DSTPU_BWD_CASE(192)
+    DSTPU_BWD_CASE(224)
+    DSTPU_BWD_CASE(256)
 #undef DSTPU_BWD_CASE
     default:
       return cudaErrorInvalidValue;
@@ -1377,7 +1019,7 @@ int dispatch(bool dkv, int dtype, int D, const Args& a, void* stream) {
 // bf16/fp16 each base and stride a multiple of 16 bytes).  lse and delta
 // [B, NH, Sq] fp32 contiguous; slopes [NH] fp32 or null.  dq [B, Sq, NH, D]
 // and dk, dv [B, Sk, KVH, D] contiguous, written whole.  D is a multiple of
-// 16 from 16 to 128.  Returns cudaGetLastError() after the launch.
+// 16 to 128 or of 32 to 256.  Returns cudaGetLastError() after the launch.
 #define DSTPU_BWD_PARAMS                                                                      \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,             \
       const void *delta, const void *slopes, int dtype, int B, int NH, int KVH, int Sq,       \

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel deepspeed_tpu/ops/pallas/flash_attention.py
 // :_fwd_kernel (via _fwd / flash_attention), the attention of the paged
 // prefill programs (whole-prompt and chunked prefill with a runtime
-// q_offset).
+// q_offset) and of the training forward.
 //
 // What it computes, per query head h of batch b (query head h reads KV head
 // h / q_per_kv, so GQA never materialises the repeat):
@@ -19,34 +19,54 @@
 // What bounds it on the H100: the arithmetic.  Causal attention at S = 1024,
 // 32 heads over 8 KV heads, D = 64 is 4.3 GFLOP against 10.6 MB of
 // q/k/v/o/lse traffic, far above the ~295 FLOP/byte ridge, so the least
-// time is the tensor-core rate (4.3 us at 989 TFLOP/s).
+// time is the tensor-core rate (4.3 us at 989 TFLOP/s), which only wgmma
+// reaches.
 //
-// Design, bf16 and fp16 (the serving path): one block of 4 warps per
-// (b*NH + h, 64-row query tile); each warp owns 16 query rows.  Q is staged
-// once through shared memory into mma.sync A fragments held in registers.
-// K/V tiles of 64 keys are copied into shared memory with 16-byte cp.async,
-// double-buffered (tile t+1 in flight while tile t is computed).  S = QK^T
-// and O += PV run on the tensor cores (mma.sync m16n8k16, fp32
-// accumulators); P is rounded to the input type only as the PV operand,
-// straight from the S accumulators' register layout; V's B fragments come
-// from ldmatrix.trans.  The running (m, l) of each row stay in registers and
-// reduce over the 4 lanes that share a row.  Key tiles wholly above the
-// causal diagonal or past valid_k are skipped.  Not yet: wgmma, TMA, warp
-// specialisation (later work).
+// Design, bf16 and fp16 (serving and training): one block of two consumer
+// warpgroups per (b * NH + h, 128-row query tile), each warpgroup 64 rows;
+// one block per SM, so a thread may hold 255 registers.
+//   Copies.  Q arrives once, K and V tiles of BK keys (128 for D <= 64, 64
+//   above) through a ring of up to 5 stages, by TMA from tensor maps over
+//   [B, S, H, D] with the tensors' own strides (strided views are read in
+//   place), in column blocks of W = 64, 32 or 16 (the widest that divides
+//   the kernel's D) swizzled at W, so every TMA request is a row of 2 W
+//   bytes (csrc/hopper.cuh; 16-byte panels, 4-8 times the requests, held
+//   the first version of this kernel to ~60 % of its present speed on the
+//   card).  Thread 0 issues every copy, as in the backward: a producer warp
+//   would cap every thread at 168 registers.  Rows past S and columns past
+//   a head dim that is not the kernel's (D = 72 runs the D = 80 kernel)
+//   arrive as zeros, which leave q . k unchanged and give output columns
+//   that are not stored.
+//   Products.  S = Q K^T by wgmma with both operands in shared memory
+//   (K-major); the online softmax in registers, in the log2 domain (ex2 of
+//   s * sm_scale * log2(e)); O += P V by wgmma with P packed from the S
+//   accumulators as the register A operand and V read MN-major from the same
+//   panels, so nothing is transposed.  Each warpgroup keeps the tensor
+//   cores busy under its own softmax: it issues S of tile t and P V of tile
+//   t - 1 together, forms tile t's probabilities while P V runs, and only
+//   then rescales O (the stage of tile t - 1 is released a tile late, so the
+//   ring runs STAGES - 2 tiles ahead).  The two warpgroups of a block run
+//   independently, so one's softmax also overlaps the other's products.
+//   Masks.  The causal/ragged mask and the ALiBi term are compiled into
+//   separate versions of the per-element code; the masked one runs only on
+//   tiles that cross the diagonal or valid_k.  Key tiles past the causal
+//   diagonal of a block are never loaded; a warpgroup skips the loaded tiles
+//   wholly past its own last row.  Causal query tiles run heaviest first.
+//   D up to 256: the O accumulator is D/2 fp32 registers a thread (128 at
+//   D = 256, where the ring is 2 stages of 64 keys).
 //
-// Design, fp32 (tests and small references): the same tiling on the fp32 FMA
-// pipes out of shared memory — a 16x16 thread grid, 4 rows x 4 strided
-// columns per thread — so fp32 stays fp32 end to end (no TF32).
+// Design, fp32 (tests and small references): one block of 256 threads per
+// 64-row query tile on the fp32 FMA pipes out of shared memory — a 16x16
+// thread grid, 4 rows x 4 strided columns per thread — so fp32 stays fp32
+// end to end (no TF32).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kBQ = 64;  // fp32 kernel: query- and key-tile rows
 constexpr int kBK = 64;
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -72,237 +92,258 @@ __device__ __forceinline__ bool visible(int row, int col, int valid_k, int causa
   return col < valid_k && (!causal || row >= col);
 }
 
-// ---------------------------------------------------------------------------
-// tensor-core kernel (bf16, fp16)
-// ---------------------------------------------------------------------------
-constexpr int kMmaWarps = 4;
-
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-template <> struct Mma<__half> {
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  const float* slopes;
+  int B, NH, KVH, Sq, Sk, D, Dm, valid_k, q_offset, causal;  // D: true head dim; Dm: the maps'
+  float sm_scale;
+  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
 };
 
-// 16-byte async copy; n = 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-// B fragment (16 keys x 8 dims) of a row-major [key][dim] tile, transposed
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* row_addr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row_addr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
+// ---------------------------------------------------------------------------
+// Hopper kernel (bf16, fp16): wgmma fed by TMA
+// ---------------------------------------------------------------------------
+constexpr int kThreadsWg = 256;  // two consumer warpgroups, 64 rows each
+constexpr size_t kSmemCap = 232448 - 1024;
 
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(uint16_t) * 5 * kBQ * (D + 8);  // Q + 2 x (K, V) tiles, padded rows
+struct FwdCfg {
+  static constexpr int BQ = 128;                // queries per block, 64 per warpgroup
+  static constexpr int BK = D <= 64 ? 128 : 64;  // keys per pipeline step
+  // columns of a swizzled block: the widest of 64, 32, 16 that divides D
+  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;   // one of K, V
+  static constexpr int FIT = (int)((kSmemCap - Q_BYTES) / (2 * KV_BYTES));
+  static constexpr int STAGES = FIT < 5 ? FIT : 5;
+  // tiles in flight ahead of the one computed: a tile's stage is released
+  // while the next tile is computed (its P V runs under that tile's
+  // softmax), so the stage refilled held the tile two before the current one
+  static constexpr int AHEAD = STAGES - 2;
+  static constexpr size_t smem =
+      1024 + Q_BYTES + (size_t)STAGES * 2 * KV_BYTES + (1 + 2 * STAGES) * 8;
+  static_assert(STAGES >= 2, "ring");
+};
+
+// the scores of one 64-query x BK-key tile in the log2 domain, masked to
+// -1e30.  Rows are positions row0 and row0 + 8, columns keys k0 + 8 j + cq (+ 1).
+template <bool ALIBI, bool EDGE, int BK>
+__device__ __forceinline__ void fwd_scores(float (&s)[BK / 2], int row0, int k0, int cq,
+                                           const Args& a, float scale2, float slope2) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const int row = row0 + 8 * (e >> 1);
+      const int col = k0 + 8 * j + cq + (e & 1);
+      float x = s[i] * scale2;
+      if (ALIBI) x -= slope2 * (float)(row - col);
+      if (EDGE && !visible(row, col, a.valid_k, a.causal)) x = kNegInf;
+      s[i] = x;
+    }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse,
-                     const float* __restrict__ slopes, int NH, int KVH, int Sq, int Sk,
-                     int valid_k, int q_offset, int causal, float sm_scale,
-                     long long qsb, long long qss, long long qsh,
-                     long long ksb, long long kss, long long ksh,
-                     long long vsb, long long vss, long long vsh) {
-  constexpr int RS = D + 8;   // padded row (+16 bytes): conflict-free fragment reads
-  constexpr int KT = D / 16;  // k-steps of QK^T over the head dim
-  constexpr int NT = kBK / 8; // 8-key n-tiles of S
-  constexpr int DT = D / 8;   // 8-dim n-tiles of O
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][RS]
-  T* Ks = Qs + kBQ * RS;                   // [2][BK][RS]
-  T* Vs = Ks + 2 * kBK * RS;               // [2][BK][RS]
+__global__ void __launch_bounds__(kThreadsWg, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Args a) {
+  using C = FwdCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::STAGES, AHEAD = C::AHEAD, W = C::W;
+  // an 8-row atom of a swizzled block; K steps of 16 columns
+  constexpr uint32_t SBO = 16 * W;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzling repeats every 1024 bytes at most: tiles start on that
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* Qs = reinterpret_cast<T*>(base);  // [D/W][BQ][W]
+  T* Ks = Qs + BQ * D;                 // [ST][D/W][BK][W]
+  T* Vs = Ks + ST * BK * D;            // [ST][D/W][BK][W]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * BK * D);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / NH;
-  const int h = bh % NH;
-  const int kvh = h / (NH / KVH);
-  const int q_start = blockIdx.x * kBQ;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + kvh * ksh;
-  const T* vb = v + b * vsb + kvh * vsh;
+  const int BH = a.B * a.NH;
+  const int n_qb = (a.Sq + BQ - 1) / BQ;
+  // heaviest query tiles (the most keys under causal attention) first
+  const int qb = a.causal ? n_qb - 1 - (int)(blockIdx.x / BH) : (int)(blockIdx.x / BH);
+  const int b = (blockIdx.x % BH) / a.NH, h = (blockIdx.x % BH) % a.NH;
+  const int kvh = h / (a.NH / a.KVH);
+  const int q0 = qb * BQ;
+  // keys past the tile's last row are above the diagonal for every row
+  int k_end = a.valid_k;
+  if (a.causal) k_end = min(k_end, a.q_offset + q0 + BQ);
+  const int n_kt = k_end > 0 ? (k_end + BK - 1) / BK : 0;
 
-  for (int i = tid; i < kBQ * CPR; i += kMmaWarps * 32) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const int qi = q_start + r;
-    cp_async16(Qs + r * RS + c, qb + (long long)min(qi, Sq - 1) * qss + c, qi < Sq ? 16 : 0);
-  }
-  cp_async_commit();
-
-  auto load_kv = [&](int buf, int k0) {
-    T* kd = Ks + buf * kBK * RS;
-    T* vd = Vs + buf * kBK * RS;
-    for (int i = tid; i < kBK * CPR; i += kMmaWarps * 32) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const int kj = k0 + r;
-      const int n = kj < Sk ? 16 : 0;
-      const long long row = kj < Sk ? kj : 0;
-      cp_async16(kd + r * RS + c, kb + row * kss + c, n);
-      cp_async16(vd + r * RS + c, vb + row * vss + c, n);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kThreadsWg);
     }
-    cp_async_commit();
-  };
-
-  // keys past this tile's last row are above the diagonal for every row
-  int k_end = valid_k;
-  if (causal) k_end = min(k_end, q_offset + q_start + kBQ);
-  const int n_tiles = k_end > 0 ? (k_end + kBK - 1) / kBK : 0;
-  if (n_tiles > 0) {
-    load_kv(0, 0);
-    cp_async_wait<1>();
-  } else {
-    cp_async_wait<0>();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int r0 = warp * 16 + (lane >> 2);  // this lane's rows: r0 and r0 + 8
-  const int cq = (lane & 3) * 2;           // and its column pair
-  uint32_t qf[KT][4];
+  // thread 0 keeps the ring AHEAD tiles ahead: for tile t it waits until
+  // both warpgroups are done with the stage's previous tile
+  const bool issuer = threadIdx.x == 0;
+  auto issue = [&](int t) {
+    const int st = t % ST;
+    if (t >= ST) mbar_wait(&empty[st], (t / ST - 1) & 1);
+    mbar_arrive_tx(&full[st], 2 * C::KV_BYTES);
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const T* p = Qs + r0 * RS + kt * 16 + cq;
-    qf[kt][0] = lds32(p);
-    qf[kt][1] = lds32(p + 8 * RS);
-    qf[kt][2] = lds32(p + 8);
-    qf[kt][3] = lds32(p + 8 * RS + 8);
+    for (int cb = 0; cb < D / W; ++cb) {
+      tma_load_4d(Ks + (st * D + cb * W) * BK, &tk, cb * W, kvh, t * BK, b, &full[st]);
+      tma_load_4d(Vs + (st * D + cb * W) * BK, &tv, cb * W, kvh, t * BK, b, &full[st]);
+    }
+  };
+  if (issuer) {
+    mbar_arrive_tx(q_full, C::Q_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < D / W; ++cb) tma_load_4d(Qs + cb * W * BQ, &tq, cb * W, h, q0, b, q_full);
+    for (int t = 0; t < min(n_kt, AHEAD); ++t) issue(t);
   }
 
-  float oacc[DT][4];
+  // warpgroup c holds queries [qw, qw + 64)
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x - 128 * c;
+  const int lane = tid & 31;
+  const int qw = q0 + 64 * c;
+  const int lrow = qw + 16 * (tid >> 5) + (lane >> 2);  // this lane's rows: lrow, lrow + 8
+  const int row0 = a.q_offset + lrow;                    // and their positions
+  const int cq = (lane & 3) * 2;                         // and its column pair
+  const int last_pos = a.q_offset + qw + 63;             // the warpgroup's last row
+  const bool live = qw < a.Sq;
+  const float scale2 = a.sm_scale * kLog2e;
+  const float slope2 = a.slopes != nullptr ? a.slopes[h] * kLog2e : 0.f;
+  const T* Qw = Qs + 64 * c * W;  // this warpgroup's rows of each column block
+
+  float o[D / 2], s[BK / 2];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const float slope = slopes != nullptr ? slopes[h] : 0.f;
-  const int row_g = q_offset + q_start + r0;  // global position of row r0
+  uint32_t pf[BK / 16][4];
+  // the key tiles this warpgroup computes: a tile wholly past its last row
+  // is masked out whole under causal attention
+  const int n_act = !live ? 0 : a.causal ? min(n_kt, last_pos / BK + 1) : n_kt;
+  mbar_wait(q_full, 0);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int cur = t & 1;
-    const int k0 = t * kBK;
-    if (t + 1 < n_tiles) {
-      load_kv(cur ^ 1, k0 + kBK);
-      cp_async_wait<1>();
+  // S = Q K^T of tile t, committed
+  auto qk = [&](int t) {
+    const int stage = t % ST;
+    mbar_wait(&full[stage], (t / ST) & 1);
+    const T* Kc = Ks + stage * BK * D;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // column block kk * 16 / W, then 16 columns (32 bytes) into its rows
+      const int cb = kk * 16 / W, off = kk * 16 % W;
+      WgmmaSS<T, BK>::run(s, gmma_desc_sw<W>(Qw + cb * W * BQ + off, 16, SBO),
+                          gmma_desc_sw<W>(Kc + cb * W * BK + off, 16, SBO), kk > 0);
+    }
+    wg_commit();
+  };
+  // O += P V of tile t (P in pf), committed; V read MN-major: its column
+  // blocks W * BK apart, 16 keys (rows) per step
+  auto pv = [&](int t) {
+    const T* Vc = Vs + (t % ST) * BK * D;
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < BK / 16; ++kq)
+      WgmmaRS<T, D>::run(o, pf[kq], gmma_desc_sw<W>(Vc + kq * 16 * W, W * BK * 2, SBO));
+    wg_commit();
+  };
+
+  for (int t = 0; t < n_kt; ++t) {
+    if (issuer && t + AHEAD < n_kt) issue(t + AHEAD);
+    if (t >= n_act) {  // loaded for the other warpgroup only
+      mbar_wait(&full[t % ST], (t / ST) & 1);
+      mbar_arrive(&empty[t % ST]);
+      continue;
+    }
+    const int k0 = t * BK;
+    qk(t);
+    if (t > 0) {
+      pv(t - 1);
+      wg_wait<1>();  // S of tile t is done; P V of tile t - 1 runs on
     } else {
-      cp_async_wait<0>();
+      wg_wait<0>();
     }
-    __syncthreads();
-    const T* Kc = Ks + cur * kBK * RS;
-    const T* Vc = Vs + cur * kBK * RS;
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const T* kr = Kc + (nt * 8 + (lane >> 2)) * RS + cq;
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        const uint32_t bk[2] = {lds32(kr + kt * 16), lds32(kr + kt * 16 + 8)};
-        Mma<T>::run(s[nt], qf[kt], bk);
-      }
+    pin(s);
+    const bool edge = (a.causal && k0 + BK - 1 > a.q_offset + qw) || k0 + BK > a.valid_k;
+    if (a.slopes != nullptr) {
+      if (edge)
+        fwd_scores<true, true, BK>(s, row0, k0, cq, a, scale2, slope2);
+      else
+        fwd_scores<true, false, BK>(s, row0, k0, cq, a, scale2, slope2);
+    } else if (edge) {
+      fwd_scores<false, true, BK>(s, row0, k0, cq, a, scale2, 0.f);
+    } else {
+      fwd_scores<false, false, BK>(s, row0, k0, cq, a, scale2, 0.f);
     }
-
-    float mx[2] = {kNegInf, kNegInf};
+    // online softmax of the lane's two rows (element i is row (i >> 1) & 1)
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row_g + (e >> 1) * 8;
-        const int col = k0 + nt * 8 + cq + (e & 1);
-        float x = s[nt][e] * sm_scale;
-        if (slopes != nullptr) x -= slope * (float)(row - col);
-        x = visible(row, col, valid_k, causal) ? x : kNegInf;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        oacc[dt][2 * i] *= alpha;
-        oacc[dt][2 * i + 1] *= alpha;
-      }
-    }
-
-    // P as A fragments: the S accumulators of n-tiles 2j and 2j+1 are the
-    // A fragment of key k-step j
-    uint32_t pf[NT / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float p0 = expf(s[nt][0] - m[0]), p1 = expf(s[nt][1] - m[0]);
-      const float p2 = expf(s[nt][2] - m[1]), p3 = expf(s[nt][3] - m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(p2, p3);
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      const T* vr = Vc + (j * 16 + (lane & 15)) * RS;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bv[2];
-        ldmatrix_x2_trans(bv, vr + dt * 8);
-        Mma<T>::run(oacc[dt], pf[j], bv);
-      }
+    for (int i = 0; i < BK / 2; ++i) {
+      const float p = ex2(s[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += p;
+      s[i] = p;
     }
-    __syncthreads();  // every warp is done with buffer cur before it is refilled
+    wg_wait<0>();  // P V of tile t - 1: its stage is free, O may be rescaled
+    pin(o);
+    pin(pf);
+    if (t > 0) mbar_arrive(&empty[(t - 1) % ST]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    pack_a<T, BK>(pf, s);
+    if (t == n_act - 1) {  // the last tile's P V, then its stage
+      pv(t);
+      wg_wait<0>();
+      pin(o);
+      pin(pf);
+      mbar_arrive(&empty[t % ST]);
+    }
   }
 
+  if (!live) return;
+  const float lc[2] = {fmaxf(quad_sum(l[0]), 1e-30f), fmaxf(quad_sum(l[1]), 1e-30f)};
+  T* op = static_cast<T*>(a.o);
+  float* lse = static_cast<float*>(a.lse);
+  const bool pairs = (a.D & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float lc = fmaxf(quad_sum(l[i]), 1e-30f);
-    const int qi = q_start + r0 + 8 * i;
-    if (qi >= Sq) continue;
-    T* orow = o + (((long long)b * Sq + qi) * NH + h) * D;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = lrow + 8 * r;
+    if (qi >= a.Sq) continue;
+    T* row = op + (((long long)b * a.Sq + qi) * a.NH + h) * a.D;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + cq) =
-          Mma<T>::pack(oacc[dt][2 * i] / lc, oacc[dt][2 * i + 1] / lc);
-    if ((lane & 3) == 0) lse[((long long)b * NH + h) * Sq + qi] = m[i] + logf(lc);
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + cq;
+      const float v0 = o[4 * j + 2 * r] / lc[r], v1 = o[4 * j + 2 * r + 1] / lc[r];
+      if (pairs && col + 1 < a.D) {
+        *reinterpret_cast<uint32_t*>(row + col) = Cvt<T>::pack(v0, v1);
+      } else {
+        const uint32_t pk = Cvt<T>::pack(v0, v1);
+        if (col < a.D) reinterpret_cast<uint16_t*>(row)[col] = (uint16_t)(pk & 0xFFFFu);
+        if (col + 1 < a.D) reinterpret_cast<uint16_t*>(row)[col + 1] = (uint16_t)(pk >> 16);
+      }
+    }
+    if ((lane & 3) == 0)
+      lse[((long long)b * a.NH + h) * a.Sq + qi] =
+          (m[r] == kNegInf ? kNegInf : m[r] * kLn2) + logf(lc[r]);
   }
 }
 
@@ -322,8 +363,8 @@ __global__ void __launch_bounds__(kFmaThreads)
 flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, const float* __restrict__ slopes, int NH,
-                     int KVH, int Sq, int Sk, int valid_k, int q_offset, int causal,
-                     float sm_scale, long long qsb, long long qss, long long qsh,
+                     int KVH, int Sq, int Sk, int Dt, int valid_k, int q_offset,
+                     int causal, float sm_scale, long long qsb, long long qss, long long qsh,
                      long long ksb, long long kss, long long ksh,
                      long long vsb, long long vss, long long vsh) {
   constexpr int DP = D + 1;       // padded row: conflict-free column reads
@@ -351,7 +392,7 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int idx = tid; idx < kBQ * D; idx += kFmaThreads) {
     const int r = idx / D, d = idx % D;
     const int qi = q_start + r;
-    Qs[r * DP + d] = qi < Sq ? qb[qi * qss + d] : 0.f;
+    Qs[r * DP + d] = qi < Sq && d < Dt ? qb[qi * qss + d] : 0.f;
   }
 
   const float slope = slopes != nullptr ? slopes[h] : 0.f;
@@ -374,7 +415,7 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < kBK * D; idx += kFmaThreads) {
       const int r = idx / D, d = idx % D;
       const int kj = k0 + r;
-      const bool in = kj < Sk;
+      const bool in = kj < Sk && d < Dt;
       Ks[r * DP + d] = in ? kb[kj * kss + d] : 0.f;
       Vs[r * D + d] = in ? vb[kj * vss + d] : 0.f;
     }
@@ -447,9 +488,10 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q_start + ty * 4 + r;
     if (qi >= Sq) continue;
     const float lc = fmaxf(l[r], 1e-30f);
-    float* orow = o + (((long long)b * Sq + qi) * NH + h) * D;
+    float* orow = o + (((long long)b * Sq + qi) * NH + h) * Dt;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[r][c] / lc;
+    for (int c = 0; c < NC; ++c)
+      if (tx + 16 * c < Dt) orow[tx + 16 * c] = acc[r][c] / lc;
     if (tx == 0) lse[((long long)b * NH + h) * Sq + qi] = m[r] + logf(lc);
   }
 }
@@ -457,51 +499,36 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-struct Args {
-  const void *q, *k, *v;
-  void *o, *lse;
-  const void* slopes;
-  int B, NH, KVH, Sq, Sk, valid_k, q_offset, causal;
-  float sm_scale;
-  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
-};
-
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem, bool* done) {
-  if (*done || smem <= 48 * 1024) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  *done = e == cudaSuccess;
-  return e;
-}
-
 template <typename T, int D>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  static bool attr_set = false;
-  const cudaError_t e = opt_in(flash_fwd_mma_kernel<T, D>, smem, &attr_set);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.NH);
-  flash_fwd_mma_kernel<T, D><<<grid, kMmaWarps * 32, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), static_cast<float*>(a.lse), static_cast<const float*>(a.slopes),
-      a.NH, a.KVH, a.Sq, a.Sk, a.valid_k, a.q_offset, a.causal, a.sm_scale, a.qsb, a.qss,
-      a.qsh, a.ksb, a.kss, a.ksh, a.vsb, a.vss, a.vsh);
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  CUtensorMap m[3];
+  cudaError_t e;
+  if ((e = head_map_sw<T>(&m[0], a.q, a.Dm, a.Sq, a.NH, a.B, a.qsb, a.qss, a.qsh, C::BQ,
+                          C::W)) != cudaSuccess ||
+      (e = head_map_sw<T>(&m[1], a.k, a.Dm, a.Sk, a.KVH, a.B, a.ksb, a.kss, a.ksh, C::BK,
+                          C::W)) != cudaSuccess ||
+      (e = head_map_sw<T>(&m[2], a.v, a.Dm, a.Sk, a.KVH, a.B, a.vsb, a.vss, a.vsh, C::BK,
+                          C::W)) != cudaSuccess)
+    return e;
+  static const cudaError_t attr = opt_in(flash_fwd_wgmma_kernel<T, D>, C::smem);
+  if (attr != cudaSuccess) return attr;
+  const unsigned blocks = (unsigned)((a.Sq + C::BQ - 1) / C::BQ) * a.B * a.NH;
+  flash_fwd_wgmma_kernel<T, D><<<blocks, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2], a);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_fma(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = fma_smem_bytes<D>();
-  static bool attr_set = false;
-  const cudaError_t e = opt_in(flash_fwd_fma_kernel<D>, smem, &attr_set);
-  if (e != cudaSuccess) return e;
+  static const cudaError_t attr = opt_in(flash_fwd_fma_kernel<D>, smem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.NH);
   flash_fwd_fma_kernel<D><<<grid, kFmaThreads, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), static_cast<float*>(a.lse),
-      static_cast<const float*>(a.slopes), a.NH, a.KVH, a.Sq, a.Sk, a.valid_k, a.q_offset,
-      a.causal, a.sm_scale, a.qsb, a.qss, a.qsh, a.ksb, a.kss, a.ksh, a.vsb, a.vss, a.vsh);
+      a.slopes, a.NH, a.KVH, a.Sq, a.Sk, a.D, a.valid_k, a.q_offset, a.causal, a.sm_scale,
+      a.qsb, a.qss, a.qsh, a.ksb, a.kss, a.ksh, a.vsb, a.vss, a.vsh);
   return cudaGetLastError();
 }
 
@@ -511,9 +538,9 @@ cudaError_t dispatch_dtype(int dtype, const Args& a, cudaStream_t stream) {
     case 0:
       return launch_fma<D>(a, stream);
     case 1:
-      return launch_mma<__nv_bfloat16, D>(a, stream);
+      return launch_wgmma<__nv_bfloat16, D>(a, stream);
     case 2:
-      return launch_mma<__half, D>(a, stream);
+      return launch_wgmma<__half, D>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -521,40 +548,46 @@ cudaError_t dispatch_dtype(int dtype, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16, 2 = fp16.  q [B, Sq, NH, D] and k/v [B, Sk, KVH, D]
-// with the given element strides (the last dim contiguous; for bf16/fp16 every
-// row 16-byte aligned); o [B, Sq, NH, D] contiguous in q's dtype; lse
-// [B, NH, Sq] fp32; slopes [NH] fp32 or null.  D is a multiple of 16 from 16
-// to 128.
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16.  q [B, Sq, NH, *] and k/v [B, Sk, KVH, *]
+// with the given element strides (the last dim contiguous); D (1 to 256) is
+// the head dim of the output and of the fp32 reads; for bf16/fp16 the maps
+// read Dm >= D columns (Dm a multiple of 8, every base and stride 16-byte
+// aligned and positive; columns D..Dm zero).  The kernel runs at D rounded up
+// to a multiple of 16 (to 32 past 128).  o [B, Sq, NH, D] contiguous in q's
+// dtype; lse [B, NH, Sq] fp32; slopes [NH] fp32 or null.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int dstpu_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* slopes,
-    int dtype, int B, int NH, int KVH, int Sq, int Sk, int D, int valid_k, int q_offset,
-    int causal, float sm_scale, long long qsb, long long qss, long long qsh, long long ksb,
-    long long kss, long long ksh, long long vsb, long long vss, long long vsh,
+    int dtype, int B, int NH, int KVH, int Sq, int Sk, int D, int Dm, int valid_k,
+    int q_offset, int causal, float sm_scale, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss, long long vsh,
     void* stream) {
-  if (KVH <= 0 || NH % KVH != 0 || valid_k > Sk || Sq <= 0 || Sk <= 0)
+  if (KVH <= 0 || NH % KVH != 0 || valid_k > Sk || valid_k <= 0 || Sq <= 0 || Sk <= 0 ||
+      D < 1 || D > 256 || (dtype != 0 && (Dm < D || Dm % 8 != 0)))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, lse, slopes, B, NH, KVH, Sq, Sk, valid_k, q_offset, causal,
-               sm_scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  if (B == 0) return (int)cudaSuccess;
+  const Args a{q, k, v, o, lse, static_cast<const float*>(slopes), B, NH, KVH, Sq, Sk, D, Dm,
+               valid_k, q_offset, causal, sm_scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+               vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return (int)dispatch_dtype<16>(dtype, a, st);
-    case 32:
-      return (int)dispatch_dtype<32>(dtype, a, st);
-    case 48:
-      return (int)dispatch_dtype<48>(dtype, a, st);
-    case 64:
-      return (int)dispatch_dtype<64>(dtype, a, st);
-    case 80:
-      return (int)dispatch_dtype<80>(dtype, a, st);
-    case 96:
-      return (int)dispatch_dtype<96>(dtype, a, st);
-    case 112:
-      return (int)dispatch_dtype<112>(dtype, a, st);
-    case 128:
-      return (int)dispatch_dtype<128>(dtype, a, st);
+  // the kernel's head dim: D rounded up to 16, past 128 to 32
+  switch (D <= 128 ? (D + 15) / 16 * 16 : (D + 31) / 32 * 32) {
+#define DSTPU_FWD_CASE(d) \
+  case d:                 \
+    return (int)dispatch_dtype<d>(dtype, a, st);
+    DSTPU_FWD_CASE(16)
+    DSTPU_FWD_CASE(32)
+    DSTPU_FWD_CASE(48)
+    DSTPU_FWD_CASE(64)
+    DSTPU_FWD_CASE(80)
+    DSTPU_FWD_CASE(96)
+    DSTPU_FWD_CASE(112)
+    DSTPU_FWD_CASE(128)
+    DSTPU_FWD_CASE(160)
+    DSTPU_FWD_CASE(192)
+    DSTPU_FWD_CASE(224)
+    DSTPU_FWD_CASE(256)
+#undef DSTPU_FWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

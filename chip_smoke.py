@@ -9,21 +9,25 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 0. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 1. build every CUDA kernel of the path from ``deepspeed_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together; the sources include
-   ``csrc/hopper.cuh``), and beside them the previous versions of the
-   three kernels this version redesigned or rebuilt, from
-   ``baselines/previous/`` (flash forward, flash backward, grouped matmul);
+   ``csrc/hopper.cuh`` and ``csrc/wide_head.cuh``), and beside them the
+   previous versions of the six sources this version changed, from
+   ``baselines/previous/`` (W and E redesigned; flash forward and
+   backward, paged decode and S given a runtime-head-dim path past 256);
 2. kernel A, flash-attention forward, against its plain PyTorch version
    computed in fp32 on the same inputs (limits in ``FLASH_TOL``/``LSE_TOL``) on
    the card at llama-1b prefill shapes (+ a chunked-prefill window,
    ALiBi, fp32 and fp16 cases, D = 72, 80, 96, 160 and 256, strided q/k/v
-   views bit-equal to contiguous copies), timed beside its bound, its plain
-   version and ``F.scaled_dot_product_attention`` as a yardstick at the
-   serving shape, the training shape (B=4) and llama-7b's heads (D=128),
-   the previous kernel timed in turns with the new one (previous, new,
-   new, previous) and held to the same limits;
+   views bit-equal to contiguous copies; D = 288, 320 and 512 in bf16 and
+   fp32, causal and a chunk window with ALiBi, through the runtime-head-dim
+   kernel), timed beside its bound, its plain version and
+   ``F.scaled_dot_product_attention`` as a yardstick at the serving shape,
+   the training shape (B=4), llama-7b's heads (D=128) and D = 512; the
+   previous build timed in turns with the new one (previous, new, new,
+   previous) and bit-equal to it;
 3. kernel B, paged decode attention, the same way at the llama-1b decode
    shape (+ int8 pages, a NaN-poisoned trash page, ALiBi, D = 72, 80, 96
-   and 160; ``PAGED_TOL``);
+   and 160, and D = 288, 320 and 512 with bf16 and int8 pages; ``PAGED_TOL``;
+   the timed cases bit-equal to the previous build and timed in turns);
 4. the engine: ``InferenceEngineV2`` serving llama-1b at full width and
    depth in bf16 with random seeded weights, 12 greedy requests through
    8 slots, once with whole-prompt prefill and once with 256-token
@@ -39,10 +43,10 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
    KVH=8 D=64 bf16 causal) and llama-7b's heads (B=2 S=2048 NH=KVH=32
    D=128), both timed beside their bounds, the plain version and SDPA's
    backward, and GQA, ALiBi, uneven-S, D = 72, 80, 96 and 160, fp16 and
-   fp32 corners; bf16/fp16 gradients bit-equal across two calls, strided
-   q/k/v/dO views bit-equal to their contiguous copies, and at the
-   training shape bit-equal to the previous build's (the kernels now built
-   from ``csrc/hopper.cuh``), timed in turns with it;
+   fp32 corners, D = 288, 320 and 512 (bf16 causal, fp32 full; timed at
+   512); bf16/fp16 gradients bit-equal across two calls, strided q/k/v/dO
+   views bit-equal to their contiguous copies, and at the timed shapes up
+   to D = 256 bit-equal to the previous build's, timed in turns with it;
 7. kernel C, fused Adam, against its plain version (``ADAM_TOL``) on the
    65.5M-element embedding leaf of llama-1b (timed beside its bound and
    ``torch._fused_adamw_``) and odd-sized, unaligned and bf16-moment leaves;
@@ -62,10 +66,12 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 10. kernel W, the weight-only quantized matmul, against its plain version
     computed in fp32 on the same inputs (``WQ_TOL``) at llama-7b's four
     matrix shapes, decode (M = 8) and prefill (M = 900), int8 and int4, bf16
-    x (timed beside its bound, its plain version and, as context only, a
-    cuBLAS bf16 GEMM on the dequantized weight; for int4 at group 128,
-    ``torch._weight_int4pack_mm`` on the repacked codes), fp16 and fp32 x,
-    padded K with unaligned x and codes, and groups 16 and 48;
+    x (timed beside its bound, its plain version, the previous kernel in
+    turns and, as context only, a cuBLAS bf16 GEMM on the dequantized
+    weight; for int4 at group 128, ``torch._weight_int4pack_mm`` on the
+    repacked codes), M = 1, 16, 17 and 64, fp16 and fp32 x, padded K,
+    unaligned K and N, and groups 64, 16 and 48; every output bit-equal
+    across two calls;
 11. kernels Q and DQ, int8 block quantize / dequantize, bit-equal to their
     plain versions (lengths off 128, more rows than ``block_rows``, an
     all-zero row; fp32, bf16, fp16), timed on llama-1b's 65.5M-element
@@ -81,7 +87,7 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     against the bf16 model on the dequantized weights (both > 0.999), and
     reported at full depth beside the bf16 engine's own cosine against
     fp32; param bytes, peak memory, TTFT, tokens/s, a profiled decode
-    step;
+    step with W's share of its device time;
 13. dense-cache inference: ``deepspeed_tpu_torch.init_inference`` ->
     ``generate`` on llama-1b at full width and depth (bf16, B = 4, 128-token
     prompts, 32 greedy tokens), ``module_quantize`` (one Q and one DQ launch
@@ -100,8 +106,7 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     routed rows, 2 x tokens, not the padded P), fp16 and fp32; a
     non-monotone block -> expert map at block_rows 8 and 16, ragged F and
     H, one expert for every block; the count of used blocks (``n_used``)
-    skipping the padding, bit-equal across calls; the previous kernel timed
-    in turns with the new one at the four timed shapes;
+    skipping the padding, bit-equal across calls;
 16. MoE serving: Mixtral-8x7b at full width and 16 of 32 layers (bf16,
     dropless, seeded random weights) through ``InferenceEngineV2``, the 12
     requests of phase 4 with whole-prompt and 256-token chunked prefill,
@@ -121,7 +126,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     layout expanded to a boolean mask), and corners (Dense, fp16 and fp32,
     heads from a 1-head layout, block 256, an all-empty layout row whose
     output is 0, D = 72, 80 and 160, blocks 8, 16, 24, 32 and 48 with S off
-    a multiple of 64);
+    a multiple of 64, D = 288, 320 and 512, timed at 512); the timed cases
+    up to D = 256 bit-equal to the previous build and timed in turns;
     the path: the six main calls of the entry point, counter
     zeroed before and read after (one launch each); a CUDA call with
     inputs that require a gradient raises;
@@ -130,9 +136,13 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     ``EVO_BWD_TOL``, ``EVO_DBIAS_TOL``) at AlphaFold 2's MSA row attention
     with pair bias (B = 1, S = 512, N = 384, H = 8, D = 32, bf16) and its
     triangle attention (S = N = 384, H = 4), timed beside their bounds, the
-    plain versions and SDPA with the biases summed into a float mask (and
-    its backward); corners: no bias, bias1 only, [None, b2], D = 16/64/128,
-    ragged N = 300 and Q != K, fp16, fp32, a row masked by -1e9, and the
+    plain versions, E against the previous E in turns, and SDPA with the
+    biases summed into a float mask (and its backward, without and with the
+    mask's gradient reduced to dbias1 and dbias2: E' + E''s same-function
+    yardstick); E' and E'' bit-equal to the previous build's; corners: no
+    bias, bias1 only, [None, b2], D = 16/64/128, ragged N = 300 and Q != K,
+    fp16, fp32, a row masked by -1e9, K = 700 past the pair bias E keeps
+    resident, an odd count of MSA rows, and the
     query ranges of E'' past one block's dbias2 accumulator (N = 640 bf16,
     N = 300 fp32 D = 128), and the key ranges of E' past one block's
     dbias1 accumulator (K = 6,000 bf16 and 16,000 fp32 at D = 128); every
@@ -217,77 +227,100 @@ WQ_COSINE = {8: 0.999}
 WQ_DEQUANT_COSINE = 0.999
 PARITY_LOGITS_TOL = 2e-3
 DEV = "cuda"
-#: the previous versions of the kernels this version redesigned (A, G) or
-#: rebuilt from ``csrc/hopper.cuh`` (A', A''), built beside the new ones and
-#: timed in turns with them; their sources sit in BASELINE_DIR
+#: the previous versions of the kernels this version changed: W and E
+#: (redesigned), A, A', A'', B and S (a runtime-head-dim path added past 256,
+#: their kernels up to 256 untouched), built beside the new ones; W and E
+#: are timed in turns with them, and A, A', A'', B and S must give their
+#: bits.  Their sources sit in BASELINE_DIR.
 BASELINE_DIR = os.path.join(ROOT, "baselines", "previous")
+BASELINE_KERNELS = ("wq_matmul", "evoformer_attn", "flash_attention_fwd",
+                    "flash_attention_bwd", "paged_attention", "sparse_attention")
 
 
 def register_baselines(op_builder):
     """Add the previous kernels' sources to the builder under ``*_previous``
-    names and give their C signatures."""
-    import ctypes
+    names."""
     from pathlib import Path
 
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    sigs = {"flash_attention_fwd": {"dstpu_flash_attention_fwd": [P] * 6 + [I] * 10
-                                    + [ctypes.c_float] + [L] * 9 + [P]},
-            "grouped_matmul": {"dstpu_grouped_matmul": [P] * 4 + [I] * 7 + [P]},
-            "flash_attention_bwd": None}  # the same signature as today's
-    for name in sigs:
+    for name in BASELINE_KERNELS:
         op_builder.SOURCES[name + "_previous"] = Path(BASELINE_DIR) / f"{name}.cu"
-    return sigs
 
 
 class Baseline:
-    """The previous kernels, called through their own C entry points."""
+    """The previous kernels.  Those whose C entry points kept their
+    signatures run through today's wrappers with the previous library
+    swapped in (``swapped``); W and E's forward, whose entry points changed,
+    through their own."""
 
-    def __init__(self, op_builder, fa, sigs):
-        self.ob, self.fa = op_builder, fa
-        self.fwd = op_builder.load("flash_attention_fwd_previous", sigs["flash_attention_fwd"])
-        self.bwd = op_builder.load("flash_attention_bwd_previous", fa._BWD_SIG)
-        self.gmm = op_builder.load("grouped_matmul_previous", sigs["grouped_matmul"])
+    def __init__(self, op_builder):
+        import ctypes
 
-    def flash_fwd(self, q, k, v, causal=True, q_offset=0, valid_k=None):
-        B, Sq, NH, D = q.shape
-        Sk, KVH = k.shape[1], k.shape[2]
-        o = torch.empty_like(q)
-        lse = torch.empty((B, NH, Sq), dtype=torch.float32, device=DEV)
-        err = self.fwd.dstpu_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), None,
-            self.ob.dtype_code(q.dtype), B, NH, KVH, Sq, Sk, D,
-            Sk if valid_k is None else valid_k, q_offset, int(causal), 1.0 / math.sqrt(D),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            torch.cuda.current_stream().cuda_stream)
-        self.ob.check(err, "flash_attention_fwd (previous)")
-        return o, lse
+        from deepspeed_tpu_torch.ops import evoformer_attn as ev
+        from deepspeed_tpu_torch.ops import flash_attention as fa
+        from deepspeed_tpu_torch.ops import paged_attention as pa
+        from deepspeed_tpu_torch.ops import sparse_attention as sa
+        from deepspeed_tpu_torch.ops import wq_matmul as wq
 
-    def flash_bwd(self, q, k, v, do, lse, delta, causal=True):
-        B, S, NH, D = q.shape
-        KVH = k.shape[2]
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), None, self.ob.dtype_code(q.dtype), B, NH, KVH, S, S, D,
-                int(causal), 1.0 / math.sqrt(D), *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], *do.stride()[:3])
-        st = torch.cuda.current_stream().cuda_stream
-        self.ob.check(self.bwd.dstpu_flash_attention_bwd_dq(*args, dq.data_ptr(), st),
-                      "flash_attention_bwd_dq (previous)")
-        self.ob.check(self.bwd.dstpu_flash_attention_bwd_dkv(*args, dk.data_ptr(),
-                                                             dv.data_ptr(), st),
-                      "flash_attention_bwd_dkv (previous)")
-        return dq, dk, dv
+        P, I, L, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        self.ob, self.ev, self.wq = op_builder, ev, wq
+        today = {"flash_attention_fwd": fa._SIG, "flash_attention_bwd": fa._BWD_SIG,
+                 "paged_attention": pa._SIG, "sparse_attention": sa._SIG,
+                 "wq_matmul": wq._SIG, "evoformer_attn": ev._SIG}
+        prev = {**today, "wq_matmul": {"dstpu_wq_matmul": [P] * 5 + [I] * 10 + [P]},
+                "evoformer_attn": {**ev._SIG, "dstpu_evoformer_attn_fwd":
+                                   [P] * 7 + [I] * 7 + [Fl] + [L] * 12 + [P]}}
+        self.libs = {n: op_builder.load(n + "_previous", prev[n]) for n in BASELINE_KERNELS}
+        for n in BASELINE_KERNELS:  # today's, loaded before any swap
+            op_builder.load(n, today[n])
 
-    def grouped_matmul(self, x, w, be, block_rows):
-        P, H = x.shape
-        E, _, F_ = w.shape
-        out = torch.empty((P, F_), dtype=x.dtype, device=DEV)
-        err = self.gmm.dstpu_grouped_matmul(
-            x.data_ptr(), w.data_ptr(), be.data_ptr(), out.data_ptr(),
-            self.ob.dtype_code(x.dtype), P, H, F_, E, block_rows, int(block_rows >= 128),
-            torch.cuda.current_stream().cuda_stream)
-        self.ob.check(err, "grouped_matmul (previous)")
+    def swapped(self, name, fn):
+        """``fn()`` with the previous library of ``name`` in place of today's
+        (the same C signature), today's restored after."""
+        cur = self.ob._libs[name]
+        self.ob._libs[name] = self.libs[name]
+        try:
+            return fn()
+        finally:
+            self.ob._libs[name] = cur
+
+    def wq_matmul(self, x, codes, scale, bits, group=128):
+        """The previous W (mma.sync, 16- or 64-row tiles, 32-row stages)."""
+        K = x.shape[-1]
+        N = codes.shape[1]
+        M = x.numel() // K
+        n_groups = scale.shape[0]
+        tm, per_sm = (16, 8) if M <= 16 else ((64, 4) if x.dtype != torch.float32
+                                             and group % 32 == 0 else (64, 2))
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        # its split rule: K split at group boundaries until the blocks cover
+        # the SMs per_sm times (rounded up)
+        target, tiles = per_sm * sms, -(-M // tm) * -(-N // 64)
+        splits, per = 1, n_groups
+        if tiles < target:
+            per = -(-n_groups // min(n_groups, -(-target // tiles)))
+            splits = -(-n_groups // per)
+        ws = torch.empty((splits, M, N), dtype=torch.float32, device=DEV) if splits > 1 else None
+        out = torch.empty((M, N), dtype=x.dtype, device=DEV)
+        err = self.libs["wq_matmul"].dstpu_wq_matmul(
+            x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), self.ob.dtype_code(x.dtype), bits, M, K, N,
+            group, n_groups, splits, per, tm, torch.cuda.current_stream().cuda_stream)
+        self.ob.check(err, "wq_matmul (previous)")
         return out
+
+    def evo_fwd(self, q, k, v, b1, b2):
+        """The previous E (the cp.async tile kernel for every shape)."""
+        B, S, Q, H, D = q.shape
+        K = k.shape[2]
+        o = torch.empty((B, S, Q, H, D), dtype=q.dtype, device=DEV)
+        lse = torch.empty((B, S, H, Q), dtype=torch.float32, device=DEV)
+        err = self.libs["evoformer_attn"].dstpu_evoformer_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), self.ev._ptr(b1), self.ev._ptr(b2),
+            o.data_ptr(), lse.data_ptr(), self.ob.dtype_code(q.dtype), B, S, Q, K, H, D,
+            1.0 / math.sqrt(D), *self.ev._strides(q, k, v),
+            torch.cuda.current_stream().cuda_stream)
+        self.ob.check(err, "evoformer_attn_fwd (previous)")
+        return o, lse
 
 
 #: set in main(): the previous kernels
@@ -469,20 +502,22 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
             plain_ms=device_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
             library_ms=device_ms(lambda: sdpa(qh, kh, vh, mask, NH // KVH, top_left)),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=4.0 * D * pairs)
-        if alibi or BASE is None:
+        if BASE is None or D > 256:  # the previous build took D up to 256
             rec["ms"] = device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
         else:
-            # the previous kernel on the same inputs, held to the same limits
-            pkw = dict(causal=causal, q_offset=q_offset, valid_k=valid_k)
-            po, plse = BASE.flash_fwd(q, k, v, **pkw)
+            # the previous build on the same inputs: the same bits (its
+            # kernels up to D = 256 are today's), and its time in turns
+            def prev():
+                return BASE.swapped("flash_attention_fwd",
+                                    lambda: fa.flash_attention_fwd(q, k, v, **kw))
+
+            po, plse = prev()
             torch.cuda.synchronize()
-            p_err, _, p_ok = max_err(po, o_ref, FLASH_TOL[dtype])
-            check(p_ok and (plse - lse_ref).abs().max().item() <= LSE_TOL,
-                  f"flash {name}: the previous kernel is beyond the limits")
-            prev_ms, rec["ms"], four = turns(lambda: BASE.flash_fwd(q, k, v, **pkw),
-                                             lambda: fa.flash_attention_fwd(q, k, v, **kw))
+            same = torch.equal(po, o) and torch.equal(plse, lse)
+            check(same, f"flash {name}: other bits than the previous build")
+            prev_ms, rec["ms"], four = turns(prev, lambda: fa.flash_attention_fwd(q, k, v, **kw))
             rec.update(previous_ms=prev_ms, turns_prev_new_new_prev=four,
-                       previous_max_abs_err=p_err)
+                       bit_equal_to_previous=same)
         rec.update(bound_share=b_ms / rec["ms"], tflops=4.0 * D * pairs / rec["ms"] / 1e9)
     print(json.dumps({"flash": rec}))
     return rec
@@ -563,8 +598,23 @@ def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False
             vv = v_pool[table.long()].reshape(B, S, KVH, D).transpose(1, 2)
             return sdpa(q[:, :, None], kk, vv, vis, G)
 
+        def new():
+            return pa.paged_decode_attention(*args, **kw)
+
+        if BASE is not None and D <= 256:
+            # the previous build on the same inputs: the same bits (its
+            # kernel up to D = 256 is today's), and its time in turns
+            def prev():
+                return BASE.swapped("paged_attention", new)
+
+            same = torch.equal(prev(), out)
+            check(same, f"paged {name}: other bits than the previous build")
+            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
+            rec["bit_equal_to_previous"] = same
+        else:
+            ms = device_ms(new)
         rec.update(
-            ms=device_ms(lambda: pa.paged_decode_attention(*args, **kw)),
+            ms=ms,
             plain_ms=device_ms(lambda: pa.paged_decode_attention_plain(*args, **kw)),
             library_ms=None if quant else device_ms(library),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=ops)
@@ -601,6 +651,13 @@ def flash_phase(fa):
         flash_case(fa, "d100_full", 1, 70, 90, 4, 1, 100, bf16, causal=False),
         flash_case(fa, "fp32_d160", 1, 70, 90, 4, 2, 160, fp32),
         flash_case(fa, "strided_qkv_views", 2, 200, 200, 8, 8, 64, bf16, strided=True),
+        # head dims past 256: the runtime-head-dim kernel (causal, and a chunk
+        # window with ALiBi), timed at D = 512
+        *(flash_case(fa, f"wide_d{D}_{nm}", 1, 150, 150, 4, 2, D, dt)
+          for D in (288, 320, 512) for nm, dt in (("bf16", bf16), ("fp32", fp32))),
+        *(flash_case(fa, f"wide_d{D}_chunk_alibi", 1, 60, 200, 4, 2, D, bf16, q_offset=140,
+                     alibi=True) for D in (288, 320, 512)),
+        flash_case(fa, "wide_d512_s1024", 1, 1024, 1024, 8, 8, 512, bf16, timed=True),
     ]
 
 
@@ -621,6 +678,13 @@ def paged_phase(pa):
         paged_case(pa, "d72_gqa_20_pages", 4, 32, 8, 72, 16, 20, bf16, poison=True),
         paged_case(pa, "int8_d72", 3, 8, 4, 72, 16, 12, bf16, quant=True),
         paged_case(pa, "d160_alibi", 3, 8, 2, 160, 16, 12, bf16, alibi=True),
+        # head dims past 256: the runtime-head-dim kernel, bf16 and int8 pages
+        *(paged_case(pa, f"wide_d{D}", 3, 8, 2, D, 16, 12, bf16, poison=True)
+          for D in (288, 320, 512)),
+        *(paged_case(pa, f"wide_int8_d{D}_alibi", 3, 8, 2, D, 16, 12, bf16, quant=True,
+                     alibi=True) for D in (288, 320, 512)),
+        paged_case(pa, "wide_fp32_d320", 2, 8, 4, 320, 16, 10, fp32),
+        paged_case(pa, "wide_d512_b8_ctx1024", 8, 32, 8, 512, 16, 64, bf16, timed=True),
     ]
 
 
@@ -666,21 +730,22 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
         check(same, f"flash bwd {name}: gradients differ between two calls")
         rec["bit_equal_across_calls"] = same
     print(json.dumps({"flash_bwd_check": rec}))
-    if timed and BASE is not None and not alibi and dtype != torch.float32:
-        # the previous build (its own copy of the Hopper helpers) on the same
-        # inputs: the same bits, and its time in turns
-        prev = BASE.flash_bwd(q, k, v, do, lse, delta, causal=causal)
+    if timed and BASE is not None and dtype != torch.float32 and D <= 256:
+        # the previous build on the same inputs: the same bits (its kernels
+        # up to D = 256 are today's), and its time in turns
+        def new_bwd():
+            return (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                    *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+        def prev_bwd():
+            return BASE.swapped("flash_attention_bwd", new_bwd)
+
+        prev = prev_bwd()
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), prev))
         check(same, f"flash bwd {name}: other bits than the previous build")
         rec["bit_equal_to_previous"] = same
-
-        def new_bwd():
-            fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-            fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-
-        p_ms, n_ms, four = turns(lambda: BASE.flash_bwd(q, k, v, do, lse, delta, causal),
-                                 new_bwd)
+        p_ms, n_ms, four = turns(prev_bwd, new_bwd)
         rec.update(previous_dq_dkv_ms=p_ms, turns_dq_dkv_prev_new_new_prev=four)
     if timed:
         rows = torch.arange(S, device=DEV)
@@ -772,6 +837,13 @@ def flash_bwd_phase(fa):
         flash_bwd_case(fa, "fp32_d160_s100", 1, 100, 4, 2, 160, fp32),
         # llama-7b's heads
         flash_bwd_case(fa, "llama7b_b2_s2048_d128", 2, 2048, 32, 32, 128, bf16, timed=True),
+        # head dims past 256: the runtime-head-dim kernels
+        *(flash_bwd_case(fa, f"wide_d{D}_{nm}", 1, 150, 4, 2, D, dt, causal=causal)
+          for D in (288, 320, 512)
+          for nm, dt, causal in (("bf16", bf16, True), ("fp32_full", fp32, False))),
+        flash_bwd_case(fa, "wide_d320_alibi_full", 1, 130, 4, 4, 320, bf16, causal=False,
+                       alibi=True),
+        flash_bwd_case(fa, "wide_d512_s1024", 1, 1024, 8, 8, 512, bf16, timed=True),
     ] + [flash_bwd_strided_case(fa)]
 
 
@@ -1066,14 +1138,15 @@ def profile_window(fn, steps: int, top_n: int = 8, groups=None):
     return rec
 
 
-def profile_steps(eng, requests, warm_steps: int, steps: int):
+def profile_steps(eng, requests, warm_steps: int, steps: int, groups=None):
     """Queue ``requests``, run ``warm_steps`` engine steps, then profile the
-    next ``steps``; the engine is run dry afterwards."""
+    next ``steps`` (``groups`` as in :func:`profile_window`); the engine is
+    run dry afterwards."""
     for r in requests:
         eng.put(r)
     for _ in range(warm_steps):
         eng.step()
-    rec = profile_window(eng.step, steps)
+    rec = profile_window(eng.step, steps, groups=groups)
     while eng.has_work():
         eng.step()
     return rec
@@ -1256,17 +1329,21 @@ def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
     x = torch.randn((M, K), generator=g, device=DEV).to(dtype)
     kw = dict(bits=bits, group=group)
     out = wq.wq_matmul(x, codes, scale, **kw)
+    again = wq.wq_matmul(x, codes, scale, **kw)
     ref = wq.wq_matmul_plain(x.float(), codes, scale, **kw)
     torch.cuda.synchronize()
     tol = WQ_TOL[dtype]
     err, atol_used, ok = max_err(out, ref, tol)
+    tile = wq._tile(M, dtype, group, wq._tma_ok(x, codes, K, N))
     rec = {"case": name, "shape": [M, K, N], "bits": bits, "group": group,
            "dtype": str(dtype)[6:], "max_abs_err": err, "atol_used": atol_used,
-           "ref_max_abs": ref.abs().max().item(), "tol": tol}
+           "ref_max_abs": ref.abs().max().item(), "tol": tol, "kernel": tile.kernel,
+           "tile": [tile.rows, tile.cols], "bit_equal_across_calls": torch.equal(out, again)}
     print(json.dumps({"wq_check": rec}))
     check(bool(torch.isfinite(out).all()), f"wq {name}: non-finite output")
     check(ok, f"wq {name}: kernel vs fp32 plain beyond {tol} (max abs {err:.3g}, "
           f"atol used {atol_used:.3g})")
+    check(rec["bit_equal_across_calls"], f"wq {name}: outputs differ between two calls")
     if timed:
         item = x.element_size()
         nbytes = codes.numel() + scale.numel() * 4 + x.numel() * item + M * N * item
@@ -1285,7 +1362,22 @@ def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
         else:
             rec["library_note"] = ("no single PyTorch call: _weight_int8pack_mm scales per "
                                    "channel, not per group" if bits == 8 else "not timed")
-        rec.update(ms=device_ms(lambda: wq.wq_matmul(x, codes, scale, **kw)),
+        def new():
+            return wq.wq_matmul(x, codes, scale, **kw)
+
+        if BASE is not None:
+            # the previous kernel on the same inputs, held to the same limit,
+            # and its time in turns
+            prev = BASE.wq_matmul(x, codes, scale, **kw)
+            torch.cuda.synchronize()
+            p_err, _, p_ok = max_err(prev, ref, tol)
+            check(p_ok, f"wq {name}: the previous kernel is beyond {tol}")
+            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(
+                lambda: BASE.wq_matmul(x, codes, scale, **kw), new)
+            rec["previous_max_abs_err"] = p_err
+        else:
+            ms = device_ms(new)
+        rec.update(ms=ms, bound_share=b_ms / ms,
                    plain_ms=device_ms(lambda: wq.wq_matmul_plain(x, codes, scale, **kw),
                                       iters=5, warmup=2),
                    library_ms=library_ms,
@@ -1298,7 +1390,9 @@ def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
 
 def wq_phase(wq):
     """Kernel W at llama-7b's shapes, decode and prefill, int8 and int4
-    (timed, bf16 x), fp16 and fp32 x, and padded or unaligned corners."""
+    (timed, bf16 x, in turns with the previous kernel), the token tiles of
+    every M class, fp16 and fp32 x, groups 64, 16 and 48, and padded or
+    unaligned corners."""
     bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
     recs = []
     for bits in (8, 4):
@@ -1306,16 +1400,23 @@ def wq_phase(wq):
             for M in (8, 900):
                 recs.append(wq_case(wq, f"{name}_m{M}_int{bits}", M, K, N, bits, bf16,
                                     timed=True))
+        # one slot, the 16- and 32-token tiles' edges, two warpgroups at 64
+        for M in (1, 16, 17, 64):
+            recs.append(wq_case(wq, f"mlp_up_m{M}_int{bits}", M, 4096, 11008, bits, bf16))
         for dt in (fp16, fp32):
             for M in (8, 900):
                 recs.append(wq_case(wq, f"attn_m{M}_int{bits}_{str(dt)[6:]}", M, 4096, 4096,
                                     bits, dt))
+        recs.append(wq_case(wq, f"attn_m8_g64_int{bits}", 8, 4096, 4096, bits, bf16, group=64))
+        recs.append(wq_case(wq, f"m900_g64_int{bits}_fp16", 900, 4096, 1024, bits, fp16,
+                            group=64))
         recs.append(wq_case(wq, f"padded_k4000_int{bits}", 900, 4000, 384, bits, bf16))
+        # K and N that TMA cannot read: the FMA kernel
         recs.append(wq_case(wq, f"odd_k1003_n200_g64_int{bits}", 8, 1003, 200, bits, bf16,
                             group=64))
         recs.append(wq_case(wq, f"odd_k1003_n200_g64_int{bits}_fp32", 900, 1003, 200, bits,
                             fp32, group=64))
-    # groups off the kernel's 32-row stage (the reference takes any group
+    # groups off the tensor-core kernel's stage (the reference takes any group
     # dividing the padded K): 16 for int8, 48 for int4
     recs += [
         wq_case(wq, "attn_m8_g16_int8", 8, 4096, 4096, 8, bf16, group=16, timed=True),
@@ -1531,7 +1632,7 @@ def quant_engine_phase(fa, pa, wq):
               f"int{bits}: flash/paged launches {la} vs {L} x {calls}/{steps}")
         rec["decode_profile"] = profile_steps(
             eng, [RaggedRequest(prompt_ids=p[:64], max_new_tokens=8) for p in prompts[:8]],
-            warm_steps=2, steps=4)
+            warm_steps=2, steps=4, groups={"wq": "wq_"})
         rec.update(stats=st, param_bytes=eng.param_bytes, cosine_vs_bf16=cos,
                    cosine_vs_fp32=cos32, init_s=init_s,
                    wq_per_model_call=per_call,
@@ -1763,16 +1864,7 @@ def gmm_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_tokens=No
         monotone = bool((be[1:] >= be[:-1]).all())
         lib_name = "torch._grouped_mm" if monotone and hasattr(torch, "_grouped_mm") else None
         offs = grouped_mm_offs(be, E, block_rows) if lib_name else None
-        if BASE is not None:
-            prev = BASE.grouped_matmul(x, w, be, block_rows)
-            torch.cuda.synchronize()
-            p_err, _, p_ok = max_err(prev, ref, tol)
-            check(p_ok, f"gmm {name}: the previous kernel is beyond {tol}")
-            prev_ms, ms, four = turns(lambda: BASE.grouped_matmul(x, w, be, block_rows),
-                                      lambda: gm.grouped_matmul(x, w, be, block_rows, n_used))
-            rec.update(previous_ms=prev_ms, turns_prev_new_new_prev=four)
-        else:
-            ms = device_ms(lambda: gm.grouped_matmul(x, w, be, block_rows, n_used))
+        ms = device_ms(lambda: gm.grouped_matmul(x, w, be, block_rows, n_used))
         rec.update(
             ms=ms, bound_share=b_ms / ms, routed_rows=rows,
             plain_ms=device_ms(lambda: gm.grouped_matmul_plain(x, w, be, block_rows, n_used),
@@ -2090,8 +2182,24 @@ def sparse_case(sa, name, cfg, causal, dtype, shape=None, timed=False, seed=0,
         if causal:
             mask &= torch.ones((S, S), dtype=torch.bool, device=DEV).tril()
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+        def new():
+            return sa.sparse_attention(q, k, v, cfg, causal=causal)
+
+        if BASE is not None and D <= 256:
+            # the previous build on the same inputs: the same bits (its
+            # kernel up to D = 256 is today's), and its time in turns
+            def prev():
+                return BASE.swapped("sparse_attention", new)
+
+            same = torch.equal(prev(), out)
+            check(same, f"sparse {name}: other bits than the previous build")
+            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
+            rec["bit_equal_to_previous"] = same
+        else:
+            ms = device_ms(new)
         rec.update(
-            ms=device_ms(lambda: sa.sparse_attention(q, k, v, cfg, causal=causal)),
+            ms=ms,
             plain_ms=device_ms(lambda: sa.sparse_attention_plain(q, k, v, cfg, causal),
                                iters=5, warmup=2),
             library_ms=device_ms(lambda: sdpa(qh, kh, vh, mask[None], 1)),
@@ -2159,6 +2267,15 @@ def sparse_phase(sa):
                     bf16, shape=(1, 1024, 4, 72)),
         sparse_case(sa, "fixed_d160_full", sa.FixedSparsityConfig(num_heads=4, block=128),
                     False, bf16, shape=(1, 1024, 4, 160)),
+        # head dims past 256: the runtime-head-dim kernel
+        *(sparse_case(sa, f"wide_d{D}_{nm}", sa.FixedSparsityConfig(
+            num_heads=4, block=32, num_local_blocks=2, num_global_blocks=1), causal, dt,
+            shape=(1, 256, 4, D)) for D in (288, 320, 512)
+          for nm, dt, causal in (("bf16_causal", bf16, True), ("fp32_full", fp32, False))),
+        sparse_case(sa, "wide_d320_bigbird_block24", sa.BigBirdSparsityConfig(
+            num_heads=4, block=24, num_random_blocks=2), False, bf16, shape=(1, 264, 4, 320)),
+        sparse_case(sa, "wide_d512_fixed_s4096", fixed, True, bf16, shape=(1, 4096, H, 512),
+                    timed=True),
     ]
     # the path: a user's calls of the entry point at the main shape, the
     # three default layouts causal and not, counter zeroed before, read after
@@ -2295,6 +2412,22 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
                for x, y in zip((dq, db1, dk, dv, db2), again))
     check(same, f"evo {name}: gradients differ between two calls")
     rec["bit_equal_across_calls"] = same
+    if BASE is not None:
+        # E' and E'' are the previous build's: the same bits from the same
+        # inputs, lse and delta
+        prev = BASE.swapped("evoformer_attn", lambda: (
+            *ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f),
+            *ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f)))
+        torch.cuda.synchronize()
+        same = all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip((dq, db1, dk, dv, db2), prev))
+        check(same, f"evo {name}: E'/E'' give other bits than the previous build")
+        rec["bwd_bit_equal_to_previous"] = same
+    rec["fwd_stages"] = ev.fwd_stages(q.dtype, K, D, b2f is not None)
+    if "past_resident" in name:
+        check(rec["fwd_stages"] == 0, f"evo {name}: the pair bias was kept resident")
+    if timed:
+        check(rec["fwd_stages"] > 0, f"evo {name}: E did not keep the pair bias resident")
     rec["qranges"] = ev.dkv_query_ranges(q.dtype, N, D, b2f is not None)
     rec["kranges"] = ev.dq_key_ranges(q.dtype, K, D, b1f is not None)
     if name.startswith("key_ranges"):
@@ -2330,6 +2463,7 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
             if t is not None:
                 mask += t
         mask = mask.reshape(B * S, H, N, K).to(dtype)
+        mask_g = mask.detach().requires_grad_()
 
         def lib_fwd():
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
@@ -2337,12 +2471,41 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
         def lib_fwd_bwd():
             torch.autograd.grad(lib_fwd(), (qh, kh, vh), doh)
 
+        def lib_fwd_bwd_bias():
+            # the same function as E' + E'': SDPA's backward with the float
+            # mask requiring grad returns dS summed nowhere; two sums reduce
+            # it to dbias1 [B, S, K] and dbias2 [B, H, Q, K]
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask_g)
+            g = torch.autograd.grad(out, (qh, kh, vh, mask_g), doh)[3].reshape(B, S, H, N, K)
+            return g.float().sum((2, 3)), g.float().sum(1)
+
         with torch.no_grad():
             lib_f = device_ms(lib_fwd)
         lib_fb = device_ms(lib_fwd_bwd)
-        del mask
+        try:
+            lib_fbb = device_ms(lib_fwd_bwd_bias, iters=5, warmup=2)
+        except (RuntimeError, NotImplementedError) as e:  # no backend returns the mask's grad
+            lib_fbb = None
+            rec["library_bias_error"] = f"{type(e).__name__}: {str(e)[:300]}"
+        del mask, mask_g
+
+        def new_fwd():
+            return ev.evoformer_attn_fwd(q, k, v, b1f, b2f)
+
+        if BASE is not None:
+            # the previous E on the same inputs, held to the same limits,
+            # and its time in turns
+            po, plse = BASE.evo_fwd(q, k, v, b1f, b2f)
+            torch.cuda.synchronize()
+            p_err, _, p_ok = max_err(po, o_ref, EVO_TOL[dtype])
+            check(p_ok, f"evo {name}: the previous E is beyond {EVO_TOL[dtype]}")
+            rec["previous_fwd_ms"], fwd_ms, rec["turns_prev_new_new_prev"] = turns(
+                lambda: BASE.evo_fwd(q, k, v, b1f, b2f), new_fwd)
+        else:
+            fwd_ms = device_ms(new_fwd)
         rec.update(
-            fwd_ms=device_ms(lambda: ev.evoformer_attn_fwd(q, k, v, b1f, b2f)),
+            library_bwd_bias_ms=None if lib_fbb is None else lib_fbb - lib_f,
+            fwd_ms=fwd_ms, fwd_bound_share=f_b / fwd_ms,
             dq_ms=device_ms(lambda: ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)),
             dkv_ms=device_ms(lambda: ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f,
                                                                b2f)),
@@ -2376,6 +2539,17 @@ def evo_phase(ev):
         evo_case(ev, "fp16", (1, 32, 256, 8, 32), fp16),
         evo_case(ev, "fp32", (1, 16, 200, 4, 32), fp32),
         evo_case(ev, "fp32_d128_bias1", (1, 8, 130, 2, 128), fp32, biases=("b1",)),
+        # D = 64 and 128 with bias1 only, and D = 64 at 128 keys: the
+        # resident-bias kernel (D = 64 and 128 with a wider pair bias take the
+        # tile kernel)
+        evo_case(ev, "d64_bias1_only", (1, 16, 300, 8, 64), bf16, biases=("b1",)),
+        evo_case(ev, "d64_k128", (1, 16, 128, 4, 64), bf16),
+        evo_case(ev, "d128_bias1_only", (1, 8, 200, 4, 128), bf16, biases=("b1",)),
+        # past the keys whose pair-bias rows fit a block: the tile kernel
+        evo_case(ev, "k700_past_resident_bias2", (1, 4, 100, 4, 32), bf16, K=700),
+        # an odd count of MSA rows: warpgroup 1 of the last block has fewer
+        evo_case(ev, "odd_s3_ragged_n130", (1, 3, 130, 2, 32), bf16),
+        evo_case(ev, "fp16_bias1_only_d16", (1, 8, 100, 2, 16), fp16, biases=("b1",)),
         evo_case(ev, "masked_row", (1, 16, 256, 8, 32), bf16, masked_row=(0, 5)),
         evo_case(ev, "masked_row_fp32", (1, 8, 100, 4, 16), fp32, masked_row=(0, 3)),
         # past the residues whose whole dbias2 accumulator fits a block: E''
@@ -2502,7 +2676,7 @@ def main() -> int:
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     global BASE
-    sigs = register_baselines(op_builder)
+    register_baselines(op_builder)
     t0 = time.perf_counter()
     secs = op_builder.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per kernel "
@@ -2512,7 +2686,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
-    BASE = Baseline(op_builder, fa, sigs)
+    BASE = Baseline(op_builder)
     warm_clocks()
     flash = flash_phase(fa)
     paged = paged_phase(pa)
@@ -2536,7 +2710,7 @@ def main() -> int:
     evo_train = evo_train_phase(ev)
 
     def timed(recs, keys):
-        return {r["case"]: {k: r[k] for k in keys} for r in recs if keys[0] in r}
+        return {r["case"]: {k: r.get(k) for k in keys} for r in recs if keys[0] in r}
 
     main_flash = next(r for r in flash if r["case"] == "prefill_s1024")
     main_paged = paged[0]
@@ -2633,6 +2807,11 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in wq_recs), "checked": True,
          "ms": main_wq["ms"], "plain_ms": main_wq["plain_ms"], "bound_ms": main_wq["bound_ms"],
          "bound_by": main_wq["bound_by"], "library_ms": None,
+         "previous_ms": main_wq.get("previous_ms"), "bound_share": main_wq.get("bound_share"),
+         "decode_step_device_ms": {m: qeng[m]["decode_profile"]["device_busy_ms_per_step"]
+                                   for m in ("int8", "int4")},
+         "decode_step_wq_ms": {m: qeng[m]["decode_profile"].get("wq_ms_per_step")
+                               for m in ("int8", "int4")},
          "library_note": "int8: no single PyTorch call (_weight_int8pack_mm scales per "
                          "channel, not per group); int4: library_int4_ms",
          "library_int4_ms": {r["case"]: r.get("library_ms") for r in wq_recs
@@ -2642,7 +2821,8 @@ def main() -> int:
          "context_cublas_dequantized_ms": main_wq["context_cublas_dequantized_ms"],
          "shape": "M=8 K=4096 N=11008 int8 group 128 bf16 (llama-7b decode, gate/up)",
          "timed_cases": timed(wq_recs, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                        "context_cublas_dequantized_ms"))},
+                                        "context_cublas_dequantized_ms", "previous_ms",
+                                        "bound_share"))},
         {"name": "quantize_int8", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/quantization.cu",
          "replaces": "deepspeed_tpu/ops/pallas/quantization.py:20",
@@ -2699,8 +2879,12 @@ def main() -> int:
          "bound_ms": main_evo["fwd_bound_ms"], "bound_by": main_evo["fwd_bound_by"],
          "library_ms": main_evo["library_fwd_ms"],
          "library_note": "SDPA with bias1 + bias2 summed into a float attn_mask",
+         "previous_ms": main_evo.get("previous_fwd_ms"),
+         "bound_share": main_evo.get("fwd_bound_share"),
          "shape": evo_shape, "timed_cases": timed(evo, ("fwd_ms", "fwd_plain_ms",
-                                                        "fwd_bound_ms", "library_fwd_ms"))},
+                                                        "fwd_bound_ms", "library_fwd_ms",
+                                                        "previous_fwd_ms",
+                                                        "fwd_bound_share"))},
         {"name": "evoformer_attn_bwd_dq", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/evoformer_attn.cu",
          "replaces": "deepspeed_tpu/ops/pallas/evoformer_attn.py:145",
@@ -2709,10 +2893,14 @@ def main() -> int:
                             for r in evo if r["masked_row"] is None), "checked": True,
          "ms": main_evo["dq_ms"], "plain_ms": main_evo["bwd_plain_ms"],
          "bound_ms": main_evo["dq_bound_ms"], "bound_by": main_evo["dq_bound_by"],
-         "library_ms": main_evo["library_bwd_ms"], "shape": evo_shape,
-         "note": "plain_ms and library_ms compute the whole backward (library: no bias grads)",
+         "library_ms": main_evo["library_bwd_bias_ms"],
+         "library_no_bias_grad_ms": main_evo["library_bwd_ms"], "shape": evo_shape,
+         "note": "plain_ms and library_ms compute the whole backward; library_ms: SDPA's "
+                 "backward with the float mask requiring grad, plus the two sums that "
+                 "reduce its gradient to dbias1 and dbias2 (library_no_bias_grad_ms: "
+                 "without the mask's gradient)",
          "timed_cases": timed(evo, ("dq_ms", "bwd_plain_ms", "dq_bound_ms",
-                                    "library_bwd_ms"))},
+                                    "library_bwd_ms", "library_bwd_bias_ms"))},
         {"name": "evoformer_attn_bwd_dkv", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/evoformer_attn.cu",
          "replaces": "deepspeed_tpu/ops/pallas/evoformer_attn.py:196",
@@ -2722,10 +2910,14 @@ def main() -> int:
                             for r in evo if r["masked_row"] is None), "checked": True,
          "ms": main_evo["dkv_ms"], "plain_ms": main_evo["bwd_plain_ms"],
          "bound_ms": main_evo["dkv_bound_ms"], "bound_by": main_evo["dkv_bound_by"],
-         "library_ms": main_evo["library_bwd_ms"], "shape": evo_shape,
-         "note": "plain_ms and library_ms compute the whole backward (library: no bias grads)",
+         "library_ms": main_evo["library_bwd_bias_ms"],
+         "library_no_bias_grad_ms": main_evo["library_bwd_ms"], "shape": evo_shape,
+         "note": "plain_ms and library_ms compute the whole backward; library_ms: SDPA's "
+                 "backward with the float mask requiring grad, plus the two sums that "
+                 "reduce its gradient to dbias1 and dbias2 (library_no_bias_grad_ms: "
+                 "without the mask's gradient)",
          "timed_cases": timed(evo, ("dkv_ms", "bwd_plain_ms", "dkv_bound_ms",
-                                    "library_bwd_ms"))},
+                                    "library_bwd_ms", "library_bwd_bias_ms"))},
     ]
     check(len(kernels) == 13 and all(k["launches"] > 0 for k in kernels),
           "a kernel of the path never launched")

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's wgmma kernels (sm_90a):
 // mbarriers, TMA copies, wgmma descriptors and the m64nNk16 wrappers, and the
 // host's tensor-map encoder.  Included by csrc/flash_attention_fwd.cu (kernel
-// A), csrc/flash_attention_bwd.cu (A', A'') and csrc/grouped_matmul.cu (G);
+// A), csrc/flash_attention_bwd.cu (A', A''), csrc/grouped_matmul.cu (G),
+// csrc/wq_matmul.cu (W) and csrc/evoformer_attn.cu (E);
 // each is its own library, so everything here has internal linkage.
 //
 // Tiles land in shared memory as [cols/8][rows][8] panels with no swizzle:
@@ -89,7 +90,7 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, int 
       "r"(smem_u32(bar))
       : "memory");
 }
-// one TMA copy of a 2-, 3- or 4-D box at coordinates (c0, c1[, c2[, c3]])
+// one TMA copy of a 2-, 3-, 4- or 5-D box at coordinates (c0, c1[, c2[, c3]])
 // of `map` into shared memory, completing on `bar`; out-of-bounds elements
 // arrive as zeros
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
@@ -114,6 +115,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
       "r"(smem_u32(bar))
       : "memory");
 }

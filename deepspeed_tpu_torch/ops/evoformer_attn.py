@@ -53,7 +53,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _STRIDES = [_L] * 12  # q, k, v: (batch, row, residue, head)
 _SIG = {
-    "dstpu_evoformer_attn_fwd": [_P] * 7 + [_I] * 7 + [_F] + _STRIDES + [_P],
+    "dstpu_evoformer_attn_fwd": [_P] * 7 + [_I] * 7 + [_F, _I] + _STRIDES + [_P],
     "dstpu_evoformer_attn_bwd_dq": [_P] * 12 + [_I] * 7 + [_F, _I, _I] + _STRIDES + [_L] * 4
                                    + [_P],
     "dstpu_evoformer_attn_bwd_dkv": [_P] * 13 + [_I] * 7 + [_F, _I, _I] + _STRIDES
@@ -265,6 +265,32 @@ def _checks(q, k, v, b1, b2, extra=()):
     return (B, S, Q, K, H, D), rows
 
 
+#: a block's shared memory on the H100 as the kernels opt in to it, and
+#: what the resident-bias kernel keeps out of it (alignment, barriers)
+_SMEM = 232448 - 2048
+_SMEM_FIXED = 1024 + 256
+#: the resident-bias kernel's deepest ring (stages per warpgroup)
+FWD_MAX_STAGES = 4
+
+
+def fwd_stages(dtype: torch.dtype, K: int, D: int, has_b2: bool) -> int:
+    """Kernel E's ring for these shapes: the stages per warpgroup of the
+    resident-bias tensor-core kernel, or 0 for the tile kernel (fp32, or a
+    pair bias too wide to keep: its [64][K] rows, times log2(e), stay in
+    shared memory beside two warpgroups' double-buffered Q tiles and bias1
+    rows and rings of K and V tiles of 128 keys (64 past D = 64), and at
+    least two stages must fit; at D = 32 that is K up to 512)."""
+    if dtype == torch.float32:
+        return 0
+    bk = 128 if D <= 64 else 64           # keys per tile
+    cols = _cdiv(K, bk) * bk
+    bias = 4 * TILE * (cols + 8) if has_b2 else 0
+    bias += 4 * 2 * 2 * cols              # each warpgroup's two bias1 rows
+    free = _SMEM - _SMEM_FIXED - bias - 4 * TILE * D * 2  # two Q tiles per warpgroup
+    stages = free // (4 * bk * D * 2)     # a K and a V tile per warpgroup
+    return min(FWD_MAX_STAGES, stages) if stages >= 2 else 0
+
+
 def _strides(*ts):
     return [s for t in ts for s in t.stride()[:4]]
 
@@ -281,6 +307,9 @@ def evoformer_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return evoformer_attn_fwd_plain(q, k, v, b1, b2)
     (B, S, Q, K, H, D), (q, k, v) = _checks(q, k, v, b1, b2)
+    stages = fwd_stages(q.dtype, K, D, b2 is not None)
+    if stages:  # TMA maps take positive strides only
+        q, k, v = (t if min(t.stride()[:4]) > 0 else t.contiguous() for t in (q, k, v))
     o = torch.empty((B, S, Q, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, S, H, Q), dtype=torch.float32, device=q.device)
     lib = op_builder.load("evoformer_attn", _SIG)
@@ -288,7 +317,7 @@ def evoformer_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.dstpu_evoformer_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(b1), _ptr(b2), o.data_ptr(),
             lse.data_ptr(), op_builder.dtype_code(q.dtype), B, S, Q, K, H, D,
-            1.0 / math.sqrt(D), *_strides(q, k, v),
+            1.0 / math.sqrt(D), stages, *_strides(q, k, v),
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "evoformer_attn_fwd")
     evoformer_attn_fwd.launches += 1

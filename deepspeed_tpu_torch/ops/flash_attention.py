@@ -49,30 +49,32 @@ from . import op_builder
 NEG_INF = -1e30
 
 
-#: the widest head the attention kernels take; no public model has a wider
-#: one (ROADMAP Queue 3 #F2 keeps the rest)
-MAX_HEAD_DIM = 256
+#: the widest head of the compile-time instantiations; past it the kernels
+#: take D as an argument (the runtime-head-dim path, fp32 on the FMA pipes)
+WIDEST_INSTANCE = 256
 
 
 def kernel_takes_head_dim(D: int) -> bool:
     """The head dims the attention kernels (flash forward and backward,
-    paged decode, block-sparse S) take on the card: every D from 1 to 256,
-    as the JAX kernels, which block over the whole D."""
-    return 1 <= D <= MAX_HEAD_DIM
+    paged decode, block-sparse S) take on the card: every D >= 1, as the
+    JAX kernels, which block over the whole D."""
+    return D >= 1
 
 
 def padded_head_dim(D: int) -> int:
-    """The head dim a kernel runs at for a head of D: D rounded up to a
-    multiple of 16 (of 32 past 128).  The extra columns are zeros, which
-    leave q . k unchanged and give output columns that are not kept."""
+    """The head dim a kernel runs at for a head of D: up to 256, D rounded
+    up to a multiple of 16 (of 32 past 128), the extra columns zeros, which
+    leave q . k unchanged and give output columns that are not kept; past
+    256, D itself (the runtime-head-dim kernels read rows at their width)."""
+    if D > WIDEST_INSTANCE:
+        return D
     return -(-D // 16) * 16 if D <= 128 else -(-D // 32) * 32
 
 
 def check_head_dim(D: int, what: str) -> None:
-    """Raise for a head dim the kernels do not take (ROADMAP Queue 3 #F2)."""
+    """Raise for a head dim the kernels do not take (none below 1)."""
     if not kernel_takes_head_dim(D):
-        raise ValueError(f"{what}: head_dim {D} is outside [1, {MAX_HEAD_DIM}], the "
-                         f"kernels' rule (ROADMAP Queue 3 #F2)")
+        raise ValueError(f"{what}: head_dim {D} is not positive")
 
 
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -177,8 +179,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
     check_head_dim(D, "flash_attention_fwd")
-    if q.dtype == torch.float32:
-        # the FMA kernel reads rows through their strides, zero past D
+    if q.dtype == torch.float32 or D > WIDEST_INSTANCE:
+        # the FMA kernels read rows through their strides, zero past D
         q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     elif D % 8:
         # TMA maps take rows whose strides are whole 16-byte units: copy into

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from . import op_builder
-from .flash_attention import check_head_dim, pad_head_dim, padded_head_dim
+from .flash_attention import (WIDEST_INSTANCE, check_head_dim, pad_head_dim,
+                              padded_head_dim)
 
 #: rows and keys of the kernel's tile; a layout block that is a multiple of
 #: it is cut into tiles, a smaller one is masked inside the tile at
@@ -323,7 +324,11 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         q, k, v = (t if _rows_ok(t) else t.contiguous() for t in (q, k, v))
     block, masks, elems = config.block, None, None
-    if block % KERNEL_TILE:
+    if D > WIDEST_INSTANCE:  # the runtime-head-dim kernel: unit lists, every element tested
+        row_ptr, cols, masks = unit_lists(layout, block, S, causal, q.device)
+        elems = _layout_bytes(layout, q.device)
+        block = KERNEL_TILE
+    elif block % KERNEL_TILE:
         row_ptr, cols, masks = unit_lists(layout, block, S, causal, q.device)
         if block % KERNEL_UNIT:  # partial units test each element against the layout
             elems = _layout_bytes(layout, q.device)

@@ -21,19 +21,22 @@ positive group dividing the padded K, even for int4).  Each launch adds
 one to ``wq_matmul.launches``.
 
 The plain version is the JAX function's XLA branch: dequantize the whole
-weight to fp32, multiply in fp32, cast to x's type.  For groups that are a
-multiple of ``KERNEL_K_STEP`` (the serving default, 128) the kernel sums
-each group's ``x . q`` in fp32 and scales it once, where the TPU kernel
-multiplies by ``q * s``: the same function, different fp32 rounding
-(``chip_smoke.WQ_TOL``).  Other groups run on the FMA pipes with each code
-scaled by its row's scale in fp32 (the TPU kernel's ``q * s``), so they
-differ from the plain version by fp32 summation order only.
+weight to fp32, multiply in fp32, cast to x's type.  On the serving path
+(bf16/fp16 x, groups that are a multiple of ``KERNEL_K_STEP``, the default
+128) the kernel runs on the tensor cores with W's columns in wgmma's 64
+rows and the tokens in its N (:func:`_tile`), sums each group's ``x . q``
+in fp32 and scales it once, where the TPU kernel multiplies by ``q * s``:
+the same function, different fp32 rounding (``chip_smoke.WQ_TOL``).  fp32
+x, other groups and layouts TMA cannot read run on the FMA pipes; a group
+off their 32-row stage scales each code by its row's scale in fp32 (the
+TPU kernel's ``q * s``), so it differs from the plain version by fp32
+summation order only.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,18 +48,28 @@ _I = ctypes.c_int
 _SIG = {"dstpu_wq_matmul": [
     _P, _P, _P, _P, _P,             # x codes scale out ws
     _I, _I, _I, _I, _I, _I, _I,     # dtype bits M K N group n_groups
-    _I, _I, _I, _P]}                # splits groups_per_split tile_m stream
+    _I, _I, _I, _I, _P]}            # splits groups_per_split tile_m wgmma stream
 
-#: K rows per pipeline stage of the kernel: a group that is a multiple takes
-#: the tensor cores (bf16/fp16 x), scaling each group's sum once; any other
-#: group the FMA pipes, scaling each code
-KERNEL_K_STEP = 32
-#: the kernels' output tiles (rows, columns) and how many blocks of each an
-#: SM holds at once: decode rows (M <= 16), then the bf16/fp16 and fp32
-#: kernels at more rows
-TILE_DECODE = (16, 64, 8)
-TILE_MMA = (64, 64, 4)
-TILE_FMA = (64, 64, 2)
+#: K rows per pipeline stage of the tensor-core kernel: a group that is a
+#: multiple takes it (bf16/fp16 x), scaling each group's sum once
+KERNEL_K_STEP = 64
+#: the tensor-core kernel's token tiles (wgmma's N): the smallest that holds
+#: M, 128-token tiles past that
+TOKEN_TILES = (8, 16, 32, 64, 128)
+
+
+class Tile(NamedTuple):
+    """A kernel's block: ``rows`` tokens x ``cols`` output columns, and how
+    many such blocks an SM holds at once."""
+    kernel: str  # "wgmma" (tensor cores, TMA-fed) or "fma" (FMA pipes)
+    rows: int
+    cols: int
+    per_sm: int
+
+
+#: the FMA-pipe kernel's tiles: up to 16 rows, then 64
+TILE_FMA_DECODE = Tile("fma", 16, 64, 8)
+TILE_FMA = Tile("fma", 64, 64, 2)
 
 
 def quantize_weight(w: torch.Tensor, bits: int = 8,
@@ -140,21 +153,36 @@ def kernel_takes_group(group: int, bits: int) -> bool:
     return group > 0 and (bits != 4 or group % 2 == 0)
 
 
-def _tile(M: int, dtype: torch.dtype, group: int = 128) -> Tuple[int, int, int]:
-    if M <= TILE_DECODE[0]:
-        return TILE_DECODE
-    fma = dtype == torch.float32 or group % KERNEL_K_STEP
-    return TILE_FMA if fma else TILE_MMA
+def _tile(M: int, dtype: torch.dtype, group: int = 128, tma: bool = True) -> Tile:
+    """The kernel and block for M tokens: the tensor-core kernel for bf16/fp16
+    x with a group that is a multiple of its stage and rows and codes TMA can
+    read (``tma``), one warpgroup per 64 columns (two past 32 tokens, one
+    block an SM; up to 32 tokens several blocks share an SM); else the FMA
+    kernel."""
+    if dtype != torch.float32 and group % KERNEL_K_STEP == 0 and tma:
+        rows = next((t for t in TOKEN_TILES if M <= t), TOKEN_TILES[-1])
+        if rows > 32:
+            return Tile("wgmma", rows, 128, 1)
+        return Tile("wgmma", rows, 64, 4 if rows <= 16 else 3)
+    return TILE_FMA_DECODE if M <= TILE_FMA_DECODE.rows else TILE_FMA
+
+
+def _tma_ok(x: torch.Tensor, codes: torch.Tensor, K: int, N: int) -> bool:
+    """x's rows and the codes' rows as TMA reads them: 16-byte strides and
+    16-byte aligned bases (K % 8 == 0 for 16-bit x, N % 16 == 0 bytes)."""
+    return K % 8 == 0 and N % 16 == 0 and x.data_ptr() % 16 == 0 and codes.data_ptr() % 16 == 0
 
 
 def _splits(sm_count: int, tiles: int, n_groups: int,
             blocks_per_sm: int) -> Tuple[int, int]:
-    """(splits, groups per split): split K at group boundaries until the
-    blocks fill every SM (``blocks_per_sm`` each)."""
+    """(splits, groups per split): split K at group boundaries into as many
+    splits as one wave of blocks holds (``blocks_per_sm`` on every SM), so
+    the blocks fill the SMs and none waits for a second wave."""
     target = blocks_per_sm * sm_count
-    if tiles >= target:
+    want = min(n_groups, target // tiles)
+    if want <= 1:
         return 1, n_groups
-    per = -(-n_groups // min(n_groups, -(-target // tiles)))
+    per = -(-n_groups // want)
     return -(-n_groups // per), per
 
 
@@ -170,16 +198,16 @@ def wq_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"wq_matmul: x/codes/scale on {x.device}/{codes.device}/{scale.device}")
     if not kernel_takes_group(group, bits):
         raise ValueError(f"wq_matmul: group {group} is not one the kernel takes "
-                         f"(positive, even for int4; ROADMAP Queue 3 #F2)")
+                         f"(positive, even for int4: kernel_takes_group)")
     if not (codes.is_contiguous() and scale.is_contiguous()):
         raise ValueError("wq_matmul takes contiguous codes and scales")
     xm = x.reshape(-1, K).contiguous()
     M = xm.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     n_groups = Kp // group
-    tm, tn, per_sm = _tile(M, x.dtype, group)
+    tile = _tile(M, x.dtype, group, _tma_ok(xm, codes, K, N))
     splits, per = _splits(torch.cuda.get_device_properties(x.device).multi_processor_count,
-                          -(-M // tm) * -(-N // tn), n_groups, per_sm)
+                          -(-M // tile.rows) * -(-N // tile.cols), n_groups, tile.per_sm)
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     lib = op_builder.load("wq_matmul", _SIG)
@@ -187,7 +215,7 @@ def wq_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
         err = lib.dstpu_wq_matmul(
             xm.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), op_builder.dtype_code(x.dtype), bits,
-            M, K, N, group, n_groups, splits, per, tm,
+            M, K, N, group, n_groups, splits, per, tile.rows, int(tile.kernel == "wgmma"),
             torch.cuda.current_stream(x.device).cuda_stream)
     op_builder.check(err, "wq_matmul")
     wq_matmul.launches += 1

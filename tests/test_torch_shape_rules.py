@@ -2,8 +2,9 @@
 the shapes that rule newly admits, against the JAX package.
 
 On the CPU the wrappers run their plain versions, so these tests hold the
-port's function at the shapes the kernels take (head dims 72, 80, 96 and
-160 in flash forward and backward, 72 and 80 in paged decode, sparse
+port's function at the shapes the kernels take (head dims 72, 80, 96, 160,
+288 and 320 in flash forward and backward, 72, 80, 288 and 320 in paged
+decode, 288 and 320 in sparse attention, sparse
 layout blocks of 8, 16, 24 and 32, ``wq_matmul`` groups of 16 and 48)
 against the JAX package's Pallas kernels in interpret mode on the same
 numpy inputs.  The kernels
@@ -34,6 +35,7 @@ from deepspeed_tpu.ops.pallas import wq_matmul as jwq
 from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from deepspeed_tpu.ops.pallas.paged_attention import paged_decode_attention as jax_paged
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
+from deepspeed_tpu_torch.ops import evoformer_attn as ev
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops import sparse_attention as sa
@@ -80,18 +82,25 @@ def test_head_dim_rule_takes_every_d_from_1_to_256():
 
 @pytest.mark.parametrize("D", [0, -1, 257, 264, 288, 320, 512, 1024])
 def test_head_dim_rule_refuses_the_rest_naming_f2(D):
-    """Past 256 no public model has a head; ROADMAP keeps that as #F2."""
-    assert not fa.kernel_takes_head_dim(D)
-    with pytest.raises(ValueError, match="#F2"):
+    """Every head dim the reference takes is taken: past 256 the
+    runtime-head-dim kernels run it (the refusal there is closed); only a
+    head dim below 1 raises."""
+    if D >= 1:
+        assert fa.kernel_takes_head_dim(D)
         fa.check_head_dim(D, "flash")
+    else:
+        assert not fa.kernel_takes_head_dim(D)
+        with pytest.raises(ValueError, match="not positive"):
+            fa.check_head_dim(D, "flash")
 
 
 @pytest.mark.parametrize("D,Dk", [(1, 16), (7, 16), (8, 16), (16, 16), (72, 80), (100, 112),
                                   (128, 128), (129, 160), (160, 160), (161, 192), (255, 256),
-                                  (256, 256)])
+                                  (256, 256), (257, 257), (288, 288), (321, 321), (1024, 1024)])
 def test_padded_head_dim_is_the_kernels_width(D, Dk):
-    """The kernels run at D rounded up to 16 (to 32 past 128); pad_head_dim
-    adds zero columns up to that width and leaves the rest as it was."""
+    """The kernels run at D rounded up to 16 (to 32 past 128) up to 256 and
+    at D itself past it; pad_head_dim adds zero columns up to that width and
+    leaves the rest as it was."""
     assert fa.padded_head_dim(D) == Dk
     t = torch.randn(2, 3, 1, D)
     p = fa.pad_head_dim(t, Dk)
@@ -126,11 +135,47 @@ def test_wq_group_rule(group, bits, ok):
 
 @pytest.mark.parametrize("group", [16, 48, 10])
 def test_wq_groups_off_the_stage_take_the_fma_tile(group):
-    """Off the 32-row stage the kernel runs on the FMA pipes for every x
-    type, so its tile and occupancy are the fp32 kernel's."""
+    """Off the tensor-core kernel's 64-row stage the kernel runs on the FMA
+    pipes for every x type, so its tile and occupancy are the fp32
+    kernel's; groups that are a multiple of the stage take the tensor-core
+    kernel's token tiles."""
     assert twq._tile(900, torch.bfloat16, group) == twq.TILE_FMA
-    assert twq._tile(900, torch.bfloat16, 128) == twq.TILE_MMA
-    assert twq._tile(8, torch.bfloat16, group) == twq.TILE_DECODE
+    assert twq._tile(900, torch.bfloat16, 128) == twq.Tile("wgmma", 128, 128, 1)
+    assert twq._tile(8, torch.bfloat16, group) == twq.TILE_FMA_DECODE
+    assert twq._tile(8, torch.bfloat16, 64) == twq.Tile("wgmma", 8, 64, 4)
+
+
+@pytest.mark.parametrize("D,K,stages", [(32, 384, 3), (32, 512, 2), (32, 513, 0),
+                                         (32, 700, 0), (16, 384, 4), (16, 640, 2),
+                                         (16, 641, 0), (64, 128, 2), (64, 129, 0),
+                                         (128, 64, 2), (128, 65, 0)])
+def test_evoformer_forward_keeps_the_pair_bias_resident_up_to_its_limit(D, K, stages):
+    """Kernel E keeps a query tile's pair-bias rows [64][K] in shared memory
+    beside two warpgroups' Q buffers, bias1 rows and K/V rings of 128-key
+    tiles (64 past D = 64; at most 4 stages, at least 2); past the K where
+    they no longer fit it takes the tile kernel, which stages bias2 per tile
+    (stages 0), as does fp32.  AlphaFold 2's MSA row attention (K = 384,
+    D = 32) keeps it."""
+    for dt in (torch.bfloat16, torch.float16):
+        assert ev.fwd_stages(dt, K, D, True) == stages
+        # without a pair bias only the bias1 rows grow with K
+        assert ev.fwd_stages(dt, K, D, False) >= 2
+    assert ev.fwd_stages(torch.float32, K, D, True) == 0
+    # the smem the kernel asks for fits a block whenever the rule takes it
+    if stages:
+        bk = 128 if D <= 64 else 64
+        cols = -(-K // bk) * bk
+        tiles = 2 * (2 * 64 + 2 * stages * bk) * D * 2
+        bias = 4 * 64 * (cols + 8) + 4 * 2 * 2 * cols  # bias2 rows, two bias1 rows a warpgroup
+        assert 1024 + tiles + bias + 8 * 2 * (4 + 2 * stages) <= 232448 - 2048
+
+
+def test_evoformer_resident_limit_falls_with_k():
+    """Fewer stages as K grows, never more: the limit is one threshold."""
+    for D in (16, 32, 64, 128):
+        st = [ev.fwd_stages(torch.bfloat16, K, D, True) for K in range(1, 1500, 7)]
+        assert all(a >= b for a, b in zip(st, st[1:]))
+        assert st[0] >= 2
 
 
 def test_backward_tma_rows_rule():

@@ -87,19 +87,52 @@ def test_wq_matmul_rejects_bad_layouts():
     (132, 256, 32, 1), (132, 32, 86, 1)])
 def test_split_k_covers_every_group_once(sms, tiles, n_groups, per_sm):
     """The kernel's split of K: whole groups, every group in exactly one
-    split, no empty split, and no split when the tiles fill the card."""
+    split, no empty split, no split when the tiles fill the card, and no
+    more blocks than one wave holds."""
     splits, per = twq._splits(sms, tiles, n_groups, per_sm)
     assert 1 <= splits <= n_groups and splits * per >= n_groups > (splits - 1) * per
     target = per_sm * sms
     if tiles >= target:
         assert splits == 1
     else:
-        assert 1 < splits <= -(-target // tiles) or n_groups == 1
+        assert splits * tiles <= target or splits == 1
+        assert splits > 1 or target // tiles < 2 or n_groups == 1
 
 
 def test_tiles_follow_rows_and_type():
-    """Decode rows take the 16-row tile; more rows the prefill tile of the
-    tensor-core (bf16/fp16) or FMA (fp32) kernel."""
-    assert twq._tile(8, torch.bfloat16) == twq.TILE_DECODE
-    assert twq._tile(900, torch.float16) == twq.TILE_MMA
+    """bf16/fp16 x takes the tensor-core kernel with the token tile that
+    holds M (128-token tiles past that); fp32 x takes the FMA kernel, whose
+    tile is 16 rows at decode and 64 past it."""
+    assert twq._tile(8, torch.bfloat16) == twq.Tile("wgmma", 8, 64, 4)
+    assert twq._tile(900, torch.float16) == twq.Tile("wgmma", 128, 128, 1)
     assert twq._tile(17, torch.float32) == twq.TILE_FMA
+    assert twq._tile(8, torch.float32) == twq.TILE_FMA_DECODE
+
+
+@pytest.mark.parametrize("M,rows,cols,per_sm", [
+    (1, 8, 64, 4), (8, 8, 64, 4), (9, 16, 64, 4), (16, 16, 64, 4), (17, 32, 64, 3),
+    (32, 32, 64, 3), (33, 64, 128, 1), (64, 64, 128, 1), (65, 128, 128, 1),
+    (900, 128, 128, 1)])
+def test_token_tile_is_the_smallest_that_holds_m(M, rows, cols, per_sm):
+    """wgmma's N is the token count: decode (8 slots) runs m64n8 with no
+    padded rows; a single warpgroup per block (several blocks an SM) up to
+    32 tokens, two past that (one block an SM)."""
+    for dt in (torch.bfloat16, torch.float16):
+        t = twq._tile(M, dt)
+        assert t == twq.Tile("wgmma", rows, cols, per_sm)
+        assert M <= t.rows or t.rows == twq.TOKEN_TILES[-1]
+        assert twq._tile(M, dt, 64) == t  # any group that is a multiple of the stage
+    # a layout TMA cannot read takes the FMA kernel at the same M
+    assert twq._tile(M, torch.bfloat16, 128, tma=False).kernel == "fma"
+
+
+def test_tma_rule_reads_aligned_rows_and_codes():
+    """The tensor-core kernel reads x and the codes by TMA: K % 8 == 0 (x's
+    rows 16-byte strides), N % 16 == 0 (the codes' rows) and 16-byte aligned
+    bases; anything else takes the FMA kernel."""
+    x = torch.zeros((3, 1024), dtype=torch.bfloat16)
+    codes = torch.zeros((1024, 256), dtype=torch.int8)
+    assert twq._tma_ok(x, codes, 1024, 256)
+    assert not twq._tma_ok(x, codes, 1003, 256)
+    assert not twq._tma_ok(x, codes, 1024, 200)
+    assert not twq._tma_ok(x.view(-1)[1:1025].view(1, 1024), codes, 1024, 256)

@@ -53,16 +53,49 @@
 // moves q, k, v and o (100.7 MB each) for 77 GFLOP: 0.12 ms of bytes
 // against 0.08 ms of tensor-core time, so the bytes bound it.  In practice
 // the per-score work (scale, two bias adds, mask, exp) sets all three
-// kernels.  bias2 [B, H, Q, K] fp32 (4.7 MB) is read once per s by every
-// kernel (2.4 GB of L2 reads per kernel at the main shape); its tiles and
-// bias1's are staged by cp.async with the operand tiles of the same step,
-// and a tile kept where the s loop reuses it is a later design.
+// kernels: 6.04e8 scores, ~0.16 ms of exponentials alone at 16 a clock per
+// SM.  bias2 [B, H, Q, K] fp32 (4.7 MB) is read once per s by a kernel that
+// stages it per tile (2.4 GB of L2 reads at the main shape).
 //
-// Design, bf16 and fp16: the flash-attention tiles (csrc/flash_attention_*.cu)
-// — 4 warps of 16 rows, mma.sync m16n8k16 with fp32 accumulators, 16-byte
-// cp.async tiles with padded rows, P and dS rounded to the input type only as
-// tensor-core operands.  fp32: the same loops on the FMA pipes (16 x 16
-// threads, 4 x 4 patches), fp32 throughout.
+// Kernel E, bf16 and fp16, while a 64-query tile's pair-bias rows fit a
+// block beside the rings (K up to 512 at D = 32; any K up to ~10,000 without
+// bias2):
+//   Work.  One block of two consumer warpgroups and a producer warp per
+//   (b, h, 64-query tile, chunk of up to 16 MSA rows s); warpgroup c takes
+//   the chunk's s of parity c, so one warpgroup's softmax runs under the
+//   other's products.  The block loads its bias2 rows [64][K] once, times
+//   log2(e), into shared memory and keeps them for every s of the chunk:
+//   0.15 GB of L2 reads at the main shape instead of 2.4 GB.
+//   Copies.  One 5-D TMA map per operand over [B, S, N, H, D] with the real
+//   strides (one request per tile instead of four per row), tiles swizzled
+//   at W = 16, 32 or 64 columns, key tiles of 128 rows up to D = 64 (64
+//   past it).  One lane of the producer warp walks each warpgroup's
+//   (s, key tile) pairs as one stream through its ring of up to 4 stages,
+//   so the ring never drains at an s boundary, and the next s's Q tile and
+//   bias1 row (a bulk copy when K % 4 == 0) land in the second buffer
+//   under the current s; the consumers only wait and release.  (With the
+//   copies issued by a consumer thread, that thread's waits for its
+//   warpgroup's releases stalled the whole warpgroup.)
+//   Products.  S = Q K^T by wgmma m64nBKk16 (both K-major in shared
+//   memory), P V by m64nDk16 with P from registers and V MN-major; S of
+//   tile t and P V of tile t - 1 are issued together and tile t's softmax
+//   runs under P V.
+//   Per score.  x = fma(s, sm_scale * log2(e), bias2' + bias1 * log2(e)),
+//   bias2' resident and pre-scaled, bias1 read once per column pair, exp2
+//   by ex2.approx, the K tail masked on the edge tile only; lse is written
+//   in natural-log units.  O is zeroed once: each s starts from m = -1e30,
+//   whose rescale factor 0 clears the last s's sums, so no instruction but
+//   wgmma and that rescale writes the accumulators inside the loop (zeroing
+//   them there serialized every wgmma).
+// Past the pair bias that fits, and for fp32: the tile kernel below.
+//
+// Tile kernel (E), E' and E'', bf16 and fp16: the flash-attention tiles
+// (csrc/flash_attention_*.cu) — 4 warps of 16 rows, mma.sync m16n8k16 with
+// fp32 accumulators, 16-byte cp.async tiles with padded rows (bias tiles
+// staged with the operand tiles of the same step), P and dS rounded to the
+// input type only as tensor-core operands.  fp32: the same loops on the FMA
+// pipes (16 x 16 threads, 4 x 4 patches), fp32 throughout, with accurate
+// exponentials.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -72,9 +105,12 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kB = 64;           // query and key tile
 constexpr int kMmaWarps = 4;
 constexpr int kFmaThreads = 256;
@@ -93,6 +129,7 @@ struct Args {
   float* kv_part;  // E'' with qranges > 1: fp32 [qranges][2][B, S, K, H, D] dK/dV partials
   int kranges;     // E': key ranges (1: the whole axis)
   float* dq_part;  // E' with kranges > 1: fp32 [kranges][B, S, Q, H, D] dQ partials
+  int fwd_stages;  // E, bf16/fp16: the resident-bias kernel's ring (0: the tile kernel)
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -527,6 +564,320 @@ __global__ void __launch_bounds__(kFmaThreads) evo_fwd_fma_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[r][c] / lc;
     if (tx == 0) a.lse[((long long)bs * a.H + h) * a.Q + qi] = m[r] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel E, bf16 and fp16: wgmma fed by TMA, the pair bias resident
+// ---------------------------------------------------------------------------
+constexpr int kEvoWgThreads = 256;  // two consumer warpgroups, alternate s (+ a producer warp)
+
+struct FwdWgArgs {
+  const float *b1, *b2;  // fp32 [B, S, K] and [B, H, Q, K], or null
+  void* o;
+  float* lse;
+  int B, S, Q, K, H, nq, nkt, chunks, s_per, stages, ldb;
+  float sm_scale;
+};
+
+// columns of a swizzled block of a D-wide tile: 16, 32 or 64 (rows of 32,
+// 64 or 128 bytes)
+template <int D>
+__host__ __device__ constexpr int evo_w() {
+  return D % 64 == 0 ? 64 : D;
+}
+// keys per tile: 128 up to D = 64 (half the per-tile waits and copies per
+// key), 64 past it (the D-wide accumulators and S in registers)
+template <int D>
+__host__ __device__ constexpr int evo_bk() {
+  return D <= 64 ? 128 : 64;
+}
+
+// the scores of one 64-query x BK-key tile in the log2 domain:
+// s * sm_scale * log2(e) + (bias2' + bias1 * log2(e)), bias2' the resident
+// pair bias (pre-scaled) and b1r the s's bias1 row at this tile (raw, zeros
+// when absent), each bias column pair read once for both of the lane's rows;
+// keys at or past K masked to -1e30 on the edge tile
+template <bool B2, bool EDGE, int BK>
+__device__ __forceinline__ void evo_scores(float (&s)[BK / 2], const float* b2r0,
+                                           const float* b2r1, const float* b1r, int k0, int cq,
+                                           int K, float scale2) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    float2 p0 = make_float2(0.f, 0.f), p1 = make_float2(0.f, 0.f);
+    if (B2) {
+      p0 = *reinterpret_cast<const float2*>(b2r0 + 8 * j + cq);
+      p1 = *reinterpret_cast<const float2*>(b2r1 + 8 * j + cq);
+    }
+    const float2 c = *reinterpret_cast<const float2*>(b1r + 8 * j + cq);
+    const float bias[4] = {fmaf(c.x, kLog2e, p0.x), fmaf(c.y, kLog2e, p0.y),
+                           fmaf(c.x, kLog2e, p1.x), fmaf(c.y, kLog2e, p1.y)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fmaf(s[4 * j + e], scale2, bias[e]);
+      if (EDGE && k0 + 8 * j + cq + (e & 1) >= K) x = kNegInf;
+      s[4 * j + e] = x;
+    }
+  }
+}
+
+template <typename T, int D, bool B2>
+__global__ void __launch_bounds__(kEvoWgThreads + 32, 1)
+    evo_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const FwdWgArgs a) {
+  constexpr int W = evo_w<D>();
+  constexpr int BK = evo_bk<D>();
+  constexpr int TILE = kB * D;           // elements of one 64-row Q tile
+  constexpr int KT = BK * D;             // elements of one BK-row K or V tile
+  constexpr uint32_t SBO = 16 * W;       // an 8-row atom of a swizzled block
+  const int ST = a.stages;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzling repeats every 1024 bytes at most: tiles start on that
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int cols = a.nkt * BK;  // keys rounded up to the tile
+  // per warpgroup: Q [2][D/W][64][W], then K and V [ST][2][D/W][BK][W]
+  auto qs_of = [&](int c) { return reinterpret_cast<T*>(base) + c * (2 * TILE + 2 * ST * KT); };
+  float* b2s =
+      reinterpret_cast<float*>(base + (size_t)2 * (2 * TILE + 2 * ST * KT) * sizeof(T));
+  // per warpgroup: the bias1 rows of its current and next s [2][cols]
+  float* b1s_all = b2s + (B2 ? kB * a.ldb : 0);
+  // per warpgroup: q_full[2], q_empty[2], full[ST], empty[ST]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(b1s_all + 2 * 2 * cols);
+  auto bars_of = [&](int c) { return bars + c * (4 + 2 * ST); };
+
+  // block -> (b, h, chunk of s, query tile), the query tile fastest: the
+  // blocks of one (b, h, chunk) read the same K and V tiles
+  const int qt = blockIdx.x % a.nq;
+  const int rest = blockIdx.x / a.nq;
+  const int chunk = rest % a.chunks;
+  const int bh = rest / a.chunks;
+  const int h = bh % a.H, b = bh / a.H;
+  const int q0 = qt * kB;
+  const int s0 = chunk * a.s_per, s1 = min(a.S, s0 + a.s_per);
+  const int nkt = a.nkt;
+  // warpgroup c takes s0 + c, s0 + c + 2, ...: one stream of ns(c) x nkt key tiles
+  auto ns_of = [&](int c) { return s1 - s0 > c ? (s1 - s0 - c + 1) / 2 : 0; };
+  // bias1 rows ride the Q tile's barrier when TMA's bulk copy can take them
+  const bool b1_bulk = a.b1 != nullptr && a.K % 4 == 0;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < 2; ++c) {
+      uint64_t* br = bars_of(c);
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(&br[i], 1);          // q_full
+        mbar_init(&br[2 + i], 128);    // q_empty
+      }
+      for (int i = 0; i < ST; ++i) {
+        mbar_init(&br[4 + i], 1);      // full
+        mbar_init(&br[4 + ST + i], 128);  // empty
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // the pair bias rows of this query tile, once for every s of the chunk,
+  // times log2(e); rows past Q and keys past K are zeros.  Each warp takes
+  // rows, each lane 4 columns at a time (16-byte loads when K % 4 == 0).
+  // (Left to the consumers alone, under the producer's first copies, the
+  // load was slower on the card.)
+  const int warp_id = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  if (B2) {
+    const float* src = a.b2 + ((long long)b * a.H + h) * a.Q * a.K;
+    const bool vec = a.K % 4 == 0;
+#pragma unroll 2
+    for (int r = warp_id; r < kB; r += n_warps) {
+      const int q = q0 + r;
+      const float* row = src + (long long)q * a.K;
+      for (int c4 = 4 * wl; c4 < cols; c4 += 128) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q < a.Q) {
+          if (vec && c4 + 4 <= a.K) {
+            v = __ldg(reinterpret_cast<const float4*>(row + c4));
+          } else {
+            float e[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) e[i] = c4 + i < a.K ? __ldg(row + c4 + i) : 0.f;
+            v = make_float4(e[0], e[1], e[2], e[3]);
+          }
+        }
+        *reinterpret_cast<float4*>(b2s + r * a.ldb + c4) =
+            make_float4(v.x * kLog2e, v.y * kLog2e, v.z * kLog2e, v.w * kLog2e);
+      }
+    }
+  }
+  if (a.b1 == nullptr)  // no bias1: both warpgroups' rows are zeros
+    for (int i = threadIdx.x; i < 2 * 2 * cols; i += blockDim.x) b1s_all[i] = 0.f;
+  __syncthreads();
+
+  if (threadIdx.x >= kEvoWgThreads) {
+    // the producer warp: one lane walks both warpgroups' streams in turn,
+    // each tile into its warpgroup's ring once that stage is released; the
+    // first tile of an s also brings the s's Q tile (and bias1 row) into
+    // the warpgroup's other Q buffer once that one is released
+    if (wl != 0) return;
+    auto issue = [&](int c, int t) {
+      const int j = t / nkt, kt = t % nkt;
+      const int s = s0 + c + 2 * j;
+      uint64_t* br = bars_of(c);
+      T* Qs = qs_of(c);
+      if (kt == 0) {
+        const int qb = j & 1;
+        if (j >= 2) mbar_wait(&br[2 + qb], ((j >> 1) - 1) & 1);
+        mbar_arrive_tx(&br[qb], TILE * sizeof(T) + (b1_bulk ? a.K * 4 : 0));
+#pragma unroll
+        for (int cb = 0; cb < D / W; ++cb)
+          tma_load_5d(Qs + qb * TILE + cb * W * kB, &tq, cb * W, h, q0, s, b, &br[qb]);
+        if (b1_bulk)
+          bulk_copy(b1s_all + (c * 2 + qb) * cols, a.b1 + ((long long)b * a.S + s) * a.K,
+                    a.K * 4, &br[qb]);
+      }
+      const int st = t % ST;
+      if (t >= ST) mbar_wait(&br[4 + ST + st], (t / ST - 1) & 1);
+      mbar_arrive_tx(&br[4 + st], 2 * KT * sizeof(T));
+      T* Kd = Qs + 2 * TILE + st * 2 * KT;
+#pragma unroll
+      for (int cb = 0; cb < D / W; ++cb) {
+        tma_load_5d(Kd + cb * W * BK, &tk, cb * W, h, kt * BK, s, b, &br[4 + st]);
+        tma_load_5d(Kd + KT + cb * W * BK, &tv, cb * W, h, kt * BK, s, b, &br[4 + st]);
+      }
+    };
+    const int n0 = ns_of(0) * nkt, n1 = ns_of(1) * nkt;
+    for (int t = 0; t < max(n0, n1); ++t) {
+      if (t < n0) issue(0, t);
+      if (t < n1) issue(1, t);
+    }
+    return;
+  }
+
+  const int c = threadIdx.x / 128;  // this thread's warpgroup
+  T* Qs = qs_of(c);
+  T* KVs = Qs + 2 * TILE;
+  float* b1s = b1s_all + c * 2 * cols;
+  uint64_t* q_full = bars_of(c);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_full + 4;
+  uint64_t* empty = full + ST;
+  const int n = ns_of(c) * nkt;
+
+  const int tid = threadIdx.x - 128 * c;
+  const int lane = tid & 31;
+  const int lrow = 16 * (tid >> 5) + (lane >> 2);  // this lane's rows: lrow, lrow + 8
+  const int cq = (lane & 3) * 2;                   // and its column pair
+  const float scale2 = a.sm_scale * kLog2e;
+  const float* b2r0 = b2s + lrow * a.ldb;
+  const float* b2r1 = b2r0 + 8 * a.ldb;
+
+  // O is zeroed once: a new s starts from m = -1e30, whose alpha (0) clears
+  // the previous s's sums on its first tile, so no instruction but wgmma
+  // and that rescale defines the accumulators inside the loop
+  float o[D / 2], s[BK / 2];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  uint32_t pf[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  // S = Q K^T of stream tile t, committed
+  auto qk = [&](int t, const T* Qc) {
+    const int stage = t % ST;
+    mbar_wait(&full[stage], (t / ST) & 1);
+    const T* Kc = KVs + stage * 2 * KT;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int cb = kk * 16 / W, off = kk * 16 % W;
+      WgmmaSS<T, BK>::run(s, gmma_desc_sw<W>(Qc + cb * W * kB + off, 16, SBO),
+                          gmma_desc_sw<W>(Kc + cb * W * BK + off, 16, SBO), kk > 0);
+    }
+    wg_commit();
+  };
+  // O += P V of stream tile t (P in pf), committed; V read MN-major
+  auto pv = [&](int t) {
+    const T* Vc = KVs + (t % ST) * 2 * KT + KT;
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < BK / 16; ++kq)
+      WgmmaRS<T, D>::run(o, pf[kq], gmma_desc_sw<W>(Vc + kq * 16 * W, W * BK * 2, SBO));
+    wg_commit();
+  };
+
+  for (int t = 0; t < n; ++t) {
+    const int j = t / nkt, kt = t % nkt;
+    const int qb = j & 1;
+    const int sj = s0 + c + 2 * j;
+    const int k0 = kt * BK;
+    if (kt == 0) {  // a new s: its Q tile (and bias1 row), fresh statistics
+      if (a.b1 != nullptr && !b1_bulk) {  // rows off 16 bytes: the warpgroup loads it
+        const float* src = a.b1 + ((long long)b * a.S + sj) * a.K;
+        for (int i = tid; i < a.K; i += 128) b1s[qb * cols + i] = __ldg(src + i);
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      }
+      mbar_wait(&q_full[qb], (j >> 1) & 1);
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.f;
+    }
+    qk(t, Qs + qb * TILE);
+    if (kt > 0) {
+      pv(t - 1);
+      wg_wait<1>();  // S of tile t is done; P V of tile t - 1 runs on
+    } else {
+      wg_wait<0>();
+    }
+    pin(s);
+    const float* b1r = b1s + qb * cols + k0;
+    if (k0 + BK > a.K)
+      evo_scores<B2, true, BK>(s, b2r0 + k0, b2r1 + k0, b1r, k0, cq, a.K, scale2);
+    else
+      evo_scores<B2, false, BK>(s, b2r0 + k0, b2r1 + k0, b1r, k0, cq, a.K, scale2);
+    // online softmax of the lane's two rows (element i is row (i >> 1) & 1)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float p = ex2(s[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += p;
+      s[i] = p;
+    }
+    wg_wait<0>();  // P V of tile t - 1: its stage is free, O may be rescaled
+    pin(o);
+    pin(pf);
+    if (kt > 0) mbar_arrive(&empty[(t - 1) % ST]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    pack_a<T, BK>(pf, s);
+    if (kt == nkt - 1) {  // the s's last tile: its P V, then its output
+      pv(t);
+      wg_wait<0>();
+      pin(o);
+      pin(pf);
+      mbar_arrive(&empty[t % ST]);
+      mbar_arrive(&q_empty[qb]);
+      const float lc[2] = {fmaxf(quad_sum(l[0]), 1e-30f), fmaxf(quad_sum(l[1]), 1e-30f)};
+      const long long bs = (long long)b * a.S + sj;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + lrow + 8 * r;
+        if (qi >= a.Q) continue;
+        T* orow = static_cast<T*>(a.o) + ((bs * a.Q + qi) * a.H + h) * D;
+#pragma unroll
+        for (int jd = 0; jd < D / 8; ++jd)
+          *reinterpret_cast<uint32_t*>(orow + 8 * jd + cq) =
+              Cvt<T>::pack(o[4 * jd + 2 * r] / lc[r], o[4 * jd + 2 * r + 1] / lc[r]);
+        if ((lane & 3) == 0) a.lse[(bs * a.H + h) * a.Q + qi] = m[r] * kLn2 + logf(lc[r]);
+      }
+    }
   }
 }
 
@@ -1404,9 +1755,85 @@ int dq_kranges(bool fp32, int K, bool db1) {
   return nk;
 }
 
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return n;
+}
+
+// the TMA map of a [B, S, N, H, D] tensor read through its element strides
+// in boxes of R rows (residues) x W columns of one (b, s, h), swizzled at W:
+// dims (D, H, N, S, B), box (W, 1, R, 1, 1); rows past N arrive as zeros
+template <typename T>
+cudaError_t evo_map(CUtensorMap* m, const void* p, int D, int H, int N, int S, int B,
+                    long long sh, long long sn, long long ss, long long sb, int W, int R) {
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {sh * e, sn * e, ss * e, sb * e};
+  const cuuint32_t box[5] = {(cuuint32_t)W, 1, (cuuint32_t)R, 1, 1};
+  return encode_map<T>(m, p, 5, dims, strides, box,
+                       W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// kernel E on wgmma with the pair bias resident: blocks of s_per rows of
+// the MSA (16: 8 per warpgroup, fewer while the grid would not cover the
+// SMs twice), each block's dynamic shared memory the two warpgroups' Q
+// buffers and rings and the [64][ldb] pair-bias rows
+template <typename T, int D>
+cudaError_t launch_fwd_wgmma(const Args& a, cudaStream_t st) {
+  constexpr int W = evo_w<D>(), BK = evo_bk<D>();
+  const int ST = a.fwd_stages;
+  const int nq = cdiv(a.Q, kB), nkt = cdiv(a.K, BK);
+  const int ldb = nkt * BK + 8;  // +8: the lanes' column pairs fall in distinct banks
+  const size_t tiles = (size_t)2 * (2 * kB + 2 * ST * BK) * D * sizeof(T);
+  const size_t smem = 1024 + tiles + (a.b2 ? sizeof(float) * kB * ldb : 0) +
+                      sizeof(float) * 2 * 2 * nkt * BK + sizeof(uint64_t) * 2 * (4 + 2 * ST);
+  if (ST < 2 || smem > (size_t)kMaxSmem - 2048) return cudaErrorInvalidConfiguration;
+  CUtensorMap m[3];
+  cudaError_t e;
+  if ((e = evo_map<T>(&m[0], a.q, D, a.H, a.Q, a.S, a.B, a.qsh, a.qsn, a.qss, a.qsb, W,
+                      kB)) != cudaSuccess ||
+      (e = evo_map<T>(&m[1], a.k, D, a.H, a.K, a.S, a.B, a.ksh, a.ksn, a.kss, a.ksb, W,
+                      BK)) != cudaSuccess ||
+      (e = evo_map<T>(&m[2], a.v, D, a.H, a.K, a.S, a.B, a.vsh, a.vsn, a.vss, a.vsb, W,
+                      BK)) != cudaSuccess)
+    return e;
+  int s_per = 16;
+  while (s_per > 2 && (long long)a.B * a.H * nq * cdiv(a.S, s_per) < 2LL * sm_count())
+    s_per /= 2;
+  s_per = min(s_per, a.S);
+  const int chunks = cdiv(a.S, s_per);
+  const FwdWgArgs w{a.b1, a.b2, a.o, a.lse, a.B, a.S, a.Q, a.K, a.H, nq, nkt, chunks, s_per,
+                    ST, ldb, a.sm_scale};
+  const dim3 grid((unsigned)((long long)a.B * a.H * chunks * nq));
+  constexpr int threads = kEvoWgThreads + 32;  // two consumer warpgroups, a producer warp
+  if (a.b2) {
+    static const cudaError_t attr = opt_in_max(evo_fwd_wgmma_kernel<T, D, true>);
+    if (attr != cudaSuccess) return attr;
+    evo_fwd_wgmma_kernel<T, D, true><<<grid, threads, smem, st>>>(m[0], m[1], m[2], w);
+  } else {
+    static const cudaError_t attr = opt_in_max(evo_fwd_wgmma_kernel<T, D, false>);
+    if (attr != cudaSuccess) return attr;
+    evo_fwd_wgmma_kernel<T, D, false><<<grid, threads, smem, st>>>(m[0], m[1], m[2], w);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
   constexpr bool fp32 = std::is_same<T, float>::value;
+  if constexpr (!fp32) {
+    if (pass == kFwd && a.fwd_stages > 0) return launch_fwd_wgmma<T, D>(a, st);
+  }
+  if (pass == kFwd && a.fwd_stages > 0) return cudaErrorInvalidValue;  // fp32: FMA only
   const size_t smem = smem_bytes<D>(pass, fp32, a);
   if (smem > (size_t)kMaxSmem - 2048) return cudaErrorInvalidConfiguration;
   const int threads = fp32 ? kFmaThreads : kMmaWarps * 32;
@@ -1526,8 +1953,11 @@ int dispatch(Pass pass, int dtype, int D, const Args& a, void* stream) {
 // one, kv_part holds their fp32 dK/dV partials ([qranges][2][B*S*K*H*D]).
 // E' cuts the key axis into kranges ranges (dstpu_evoformer_attn_dq_kranges);
 // above one, dq_part holds their fp32 dQ partials ([kranges][B*S*Q*H*D]).
-// D is 16, 32, 64 or 128.  Each returns cudaGetLastError() after its
-// launches; E' and E'' take every K and Q.
+// D is 16, 32, 64 or 128.  E with stages > 0 (bf16/fp16) runs the
+// resident-bias wgmma kernel with a ring of that many stages per warpgroup
+// (q/k/v strides positive; refused when its shared memory does not fit a
+// block), with 0 the cp.async tile kernel.  Each returns cudaGetLastError()
+// after its launches; E' and E'' take every K and Q.
 #define DSTPU_EVO_STRIDES                                                                    \
   long long qsb, long long qss, long long qsn, long long qsh, long long ksb, long long kss,  \
       long long ksn, long long ksh, long long vsb, long long vss, long long vsn, long long vsh
@@ -1535,12 +1965,13 @@ int dispatch(Pass pass, int dtype, int D, const Args& a, void* stream) {
 extern "C" int dstpu_evoformer_attn_fwd(const void* q, const void* k, const void* v,
                                         const void* b1, const void* b2, void* o, void* lse,
                                         int dtype, int B, int S, int Q, int K, int H, int D,
-                                        float sm_scale, DSTPU_EVO_STRIDES, void* stream) {
+                                        float sm_scale, int stages, DSTPU_EVO_STRIDES,
+                                        void* stream) {
   const Args a{q, k, v, nullptr, nullptr, nullptr, static_cast<const float*>(b1),
                static_cast<const float*>(b2), o, nullptr, nullptr, nullptr,
                static_cast<float*>(lse), nullptr, nullptr, nullptr, B, S, Q, K, H, 1, sm_scale,
                qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, 0, 0, 0, 0, 1,
-               nullptr, 1, nullptr};
+               nullptr, 1, nullptr, stages};
   return dispatch(kFwd, dtype, D, a, stream);
 }
 

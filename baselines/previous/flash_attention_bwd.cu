@@ -90,6 +90,11 @@
 // it, after sums taken in a fixed order, so gradients are bit-equal across
 // calls.
 //
+// Head dims past 256, every type: the runtime-head-dim kernels
+// (csrc/wide_head.cuh) on the FMA pipes, fp32 throughout, the gradients'
+// columns in parts of 128 over a grid axis and S and dP over the whole head
+// in 32-column chunks.  No public model has such a head; right, not fast.
+//
 // fp32 (tests and small references): the FMA pipes, fp32 throughout.
 // dQ: one block of 256 threads per (b * NH + h, 64-row query tile),
 // as the forward.  Q, dO, lse and delta of the tile are staged once in
@@ -112,6 +117,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "wide_head.cuh"
 
 namespace {
 
@@ -908,6 +914,176 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
 }
 
 // ---------------------------------------------------------------------------
+// runtime head dim (past 256), any of the three types: csrc/wide_head.cuh
+// ---------------------------------------------------------------------------
+// dQ: one block of 256 threads per (64-row query tile, b * NH + h, part of
+// at most 128 columns of dQ).  For each key tile up to the causal diagonal,
+// S = Q K^T and dP = dO V^T over the whole head in 32-column chunks, then
+// dS = P (dP - delta) into shared memory and dQ += dS K for the part.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) flash_bwd_dq_wide_kernel(const Args a, int D) {
+  extern __shared__ float wsm[];
+  float* As = wsm;                         // [64][kWideLd]
+  float* Bs = As + kWideRows * kWideLd;    // [64][kWideLd]
+  float* DS = Bs + kWideRows * kWideLd;    // [64][kWidePd]
+  float* Ks = DS + kWideRows * kWidePd;    // [64][kWidePart]
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int b = blockIdx.y / a.NH, h = blockIdx.y % a.NH;
+  const int kvh = h / (a.NH / a.KVH);
+  const int q_start = blockIdx.x * kWideRows;
+  const int c0 = blockIdx.z * kWidePart;
+  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
+  const T* dob = static_cast<const T*>(a.dout) + b * a.dsb + h * a.dsh;
+  const long long rowbase = ((long long)b * a.NH + h) * a.Sq;
+  const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
+  float lse[4], dl[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = q_start + ty * 4 + r;
+    lse[r] = qi < a.Sq ? a.lse[rowbase + qi] : 0.f;
+    dl[r] = qi < a.Sq ? a.delta[rowbase + qi] : 0.f;
+  }
+  int k_end = a.Sk;
+  if (a.causal) k_end = min(k_end, q_start + kWideRows);
+  const int n_tiles = (k_end + kWideRows - 1) / kWideRows;
+  float dq[4][8] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kWideRows;
+    float s[4][4] = {}, dp[4][4] = {};
+    wide_dot(s, As, Bs, qb, a.qss, q_start, a.Sq, kb, a.kss, k0, a.Sk, D);
+    wide_dot(dp, As, Bs, dob, a.dss, q_start, a.Sq, vb, a.vss, k0, a.Sk, D);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q_start + ty * 4 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float sv = s[r][j] * a.sm_scale;
+        if (a.slopes != nullptr) sv -= slope * (float)(row - col);
+        const bool vis = row < a.Sq && col < a.Sk && (!a.causal || row >= col);
+        const float p = vis ? expf(sv - lse[r]) : 0.f;
+        DS[(ty * 4 + r) * kWidePd + tx + 16 * j] = p * (dp[r][j] - dl[r]);
+      }
+    }
+    wide_stage(Ks, kWidePart, kWidePart, kb, a.kss, k0, a.Sk, c0, D);
+    __syncthreads();
+    wide_pv(dq, DS, Ks);
+  }
+  T* dqp = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = q_start + ty * 4 + r;
+    if (qi >= a.Sq) continue;
+    T* row = dqp + (((long long)b * a.Sq + qi) * a.NH + h) * D;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = c0 + tx + 16 * c;
+      if (col < D) wide_put(row + col, dq[r][c] * a.sm_scale);
+    }
+  }
+}
+
+// dK/dV: one block of 256 threads per (64-key tile, b * KVH + kv head, part
+// of at most 128 columns); it walks every query head of the group and each
+// of their query tiles at or below the causal diagonal, with the patch's
+// rows keys and its columns queries: S^T = K Q^T and dP^T = V dO^T over the
+// whole head, then P^T and dS^T into shared memory and dK += dS^T Q,
+// dV += P^T dO for the part.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) flash_bwd_dkv_wide_kernel(const Args a, int D) {
+  extern __shared__ float wsm[];
+  float* As = wsm;                         // [64][kWideLd]
+  float* Bs = As + kWideRows * kWideLd;    // [64][kWideLd]
+  float* PT = Bs + kWideRows * kWideLd;    // [64 keys][kWidePd]
+  float* DST = PT + kWideRows * kWidePd;   // [64 keys][kWidePd]
+  float* Qp = DST + kWideRows * kWidePd;   // [64 queries][kWidePart]
+  float* dOp = Qp + kWideRows * kWidePart; // [64 queries][kWidePart]
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int b = blockIdx.y / a.KVH, kvh = blockIdx.y % a.KVH;
+  const int G = a.NH / a.KVH;
+  const int k_start = blockIdx.x * kWideRows;
+  const int c0 = blockIdx.z * kWidePart;
+  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
+  float dk[4][8] = {}, dv[4][8] = {};
+  // query tiles with a row at or past this key tile's first key (causal)
+  const int qt0 = a.causal ? k_start / kWideRows : 0;
+  const int n_qt = (a.Sq + kWideRows - 1) / kWideRows;
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+    const T* dob = static_cast<const T*>(a.dout) + b * a.dsb + h * a.dsh;
+    const long long rowbase = ((long long)b * a.NH + h) * a.Sq;
+    const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q_start = qt * kWideRows;
+      float s[4][4] = {}, dp[4][4] = {};
+      wide_dot(s, As, Bs, kb, a.kss, k_start, a.Sk, qb, a.qss, q_start, a.Sq, D);
+      wide_dot(dp, As, Bs, vb, a.vss, k_start, a.Sk, dob, a.dss, q_start, a.Sq, D);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = q_start + tx + 16 * j;
+        const float lse = qi < a.Sq ? a.lse[rowbase + qi] : 0.f;
+        const float dl = qi < a.Sq ? a.delta[rowbase + qi] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int key = k_start + ty * 4 + r;
+          float sv = s[r][j] * a.sm_scale;
+          if (a.slopes != nullptr) sv -= slope * (float)(qi - key);
+          const bool vis = qi < a.Sq && key < a.Sk && (!a.causal || qi >= key);
+          const float p = vis ? expf(sv - lse) : 0.f;
+          PT[(ty * 4 + r) * kWidePd + tx + 16 * j] = p;
+          DST[(ty * 4 + r) * kWidePd + tx + 16 * j] = p * (dp[r][j] - dl);
+        }
+      }
+      wide_stage(Qp, kWidePart, kWidePart, qb, a.qss, q_start, a.Sq, c0, D);
+      wide_stage(dOp, kWidePart, kWidePart, dob, a.dss, q_start, a.Sq, c0, D);
+      __syncthreads();
+      wide_pv(dk, DST, Qp);
+      wide_pv(dv, PT, dOp);
+    }
+  }
+  T* dkp = static_cast<T*>(a.dk);
+  T* dvp = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = k_start + ty * 4 + r;
+    if (key >= a.Sk) continue;
+    const long long off = (((long long)b * a.Sk + key) * a.KVH + kvh) * D;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = c0 + tx + 16 * c;
+      if (col < D) {
+        wide_put(dkp + off + col, dk[r][c] * a.sm_scale);
+        wide_put(dvp + off + col, dv[r][c]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(bool dkv, int D, const Args& a, cudaStream_t stream) {
+  const unsigned parts = (D + kWidePart - 1) / kWidePart;
+  if (dkv) {
+    constexpr size_t smem = sizeof(float) * (2 * kWideRows * kWideLd + 2 * kWideRows * kWidePd +
+                                             2 * kWideRows * kWidePart);
+    static const cudaError_t attr = opt_in(flash_bwd_dkv_wide_kernel<T>, smem);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid((a.Sk + kWideRows - 1) / kWideRows, a.B * a.KVH, parts);
+    flash_bwd_dkv_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(a, D);
+  } else {
+    constexpr size_t smem = wide_fwd_smem();  // As, Bs, dS, a K part
+    static const cudaError_t attr = opt_in(flash_bwd_dq_wide_kernel<T>, smem);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid((a.Sq + kWideRows - 1) / kWideRows, a.B * a.NH, parts);
+    flash_bwd_dq_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(a, D);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 // the four maps of q, k, v, dO: q and dO in boxes of rq rows, k and v of rk
@@ -999,6 +1175,14 @@ int dispatch(bool dkv, int dtype, int D, const Args& a, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (a.B == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > 256) {  // the runtime-head-dim kernels, every type
+    switch (dtype) {
+      case 0: return (int)launch_wide<float>(dkv, D, a, st);
+      case 1: return (int)launch_wide<__nv_bfloat16>(dkv, D, a, st);
+      case 2: return (int)launch_wide<__half>(dkv, D, a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (dtype) {
     case 0:
       return (int)dispatch_d<float>(dkv, D, a, st);
@@ -1019,7 +1203,9 @@ int dispatch(bool dkv, int dtype, int D, const Args& a, void* stream) {
 // bf16/fp16 each base and stride a multiple of 16 bytes).  lse and delta
 // [B, NH, Sq] fp32 contiguous; slopes [NH] fp32 or null.  dq [B, Sq, NH, D]
 // and dk, dv [B, Sk, KVH, D] contiguous, written whole.  D is a multiple of
-// 16 to 128 or of 32 to 256.  Returns cudaGetLastError() after the launch.
+// 16 to 128 or of 32 to 256, or any D past 256 (the runtime-head-dim
+// kernels, rows read at D with any alignment).  Returns cudaGetLastError()
+// after the launch.
 #define DSTPU_BWD_PARAMS                                                                      \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,             \
       const void *delta, const void *slopes, int dtype, int B, int NH, int KVH, int Sq,       \

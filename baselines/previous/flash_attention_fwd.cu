@@ -59,8 +59,14 @@
 // 64-row query tile on the fp32 FMA pipes out of shared memory — a 16x16
 // thread grid, 4 rows x 4 strided columns per thread — so fp32 stays fp32
 // end to end (no TF32).
+//
+// Head dims past 256, every type: the runtime-head-dim kernel
+// (csrc/wide_head.cuh), fp32 on the FMA pipes with the output columns in
+// parts of 128 over a grid axis and S over the whole head in 32-column
+// chunks.  No public model has such a head; it is right, not fast.
 
 #include "hopper.cuh"
+#include "wide_head.cuh"
 
 namespace {
 
@@ -497,6 +503,108 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// runtime head dim (past 256), any of the three types: csrc/wide_head.cuh
+// ---------------------------------------------------------------------------
+// One block of 256 threads per (64-row query tile, b * NH + h, part of at
+// most 128 output columns); S over the whole head in 32-column chunks, the
+// softmax as in the fp32 kernel, O += P V for the part's columns.  Every
+// part recomputes S; part 0 writes the lse.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) flash_fwd_wide_kernel(const Args a) {
+  extern __shared__ float wsm[];
+  float* As = wsm;                         // [64][kWideLd]
+  float* Bs = As + kWideRows * kWideLd;    // [64][kWideLd]
+  float* Ps = Bs + kWideRows * kWideLd;    // [64][kWidePd]
+  float* Vs = Ps + kWideRows * kWidePd;    // [64][kWidePart]
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int bh = blockIdx.y;
+  const int b = bh / a.NH, h = bh % a.NH;
+  const int kvh = h / (a.NH / a.KVH);
+  const int q_start = blockIdx.x * kWideRows;
+  const int c0 = blockIdx.z * kWidePart;  // this block's output columns
+  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + kvh * a.vsh;
+  const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
+  int k_end = a.valid_k;
+  if (a.causal) k_end = min(k_end, a.q_offset + q_start + kWideRows);
+  const int n_tiles = k_end > 0 ? (k_end + kWideRows - 1) / kWideRows : 0;
+
+  float m[4], l[4], acc[4][8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kWideRows;
+    float s[4][4] = {};
+    wide_dot(s, As, Bs, qb, a.qss, q_start, a.Sq, kb, a.kss, k0, a.Sk, a.D);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = a.q_offset + q_start + ty * 4 + r;
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float sv = s[r][j] * a.sm_scale;
+        if (a.slopes != nullptr) sv -= slope * (float)(row - col);
+        s[r][j] = visible(row, col, a.valid_k, a.causal) ? sv : kNegInf;
+        mt = fmaxf(mt, s[r][j]);
+      }
+      mt = half_warp_max(mt);
+      const float m_new = fmaxf(m[r], mt);
+      const float alpha = expf(m[r] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[r][j] - m_new);
+        Ps[(ty * 4 + r) * kWidePd + tx + 16 * j] = p;
+        psum += p;
+      }
+      psum = half_warp_sum(psum);
+      l[r] = l[r] * alpha + psum;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] *= alpha;
+    }
+    wide_stage(Vs, kWidePart, kWidePart, vb, a.vss, k0, a.Sk, c0, a.D);
+    __syncthreads();
+    wide_pv(acc, Ps, Vs);
+  }
+
+  T* op = static_cast<T*>(a.o);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = q_start + ty * 4 + r;
+    if (qi >= a.Sq) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    T* orow = op + (((long long)b * a.Sq + qi) * a.NH + h) * a.D;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = c0 + tx + 16 * c;
+      if (col < a.D) wide_put(orow + col, acc[r][c] / lc);
+    }
+    if (tx == 0 && blockIdx.z == 0)
+      static_cast<float*>(a.lse)[((long long)b * a.NH + h) * a.Sq + qi] = m[r] + logf(lc);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = wide_fwd_smem();
+  static const cudaError_t attr = opt_in(flash_fwd_wide_kernel<T>, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.Sq + kWideRows - 1) / kWideRows, a.B * a.NH,
+                  (a.D + kWidePart - 1) / kWidePart);
+  flash_fwd_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 template <typename T, int D>
@@ -549,11 +657,12 @@ cudaError_t dispatch_dtype(int dtype, const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16, 2 = fp16.  q [B, Sq, NH, *] and k/v [B, Sk, KVH, *]
-// with the given element strides (the last dim contiguous); D (1 to 256) is
-// the head dim of the output and of the fp32 reads; for bf16/fp16 the maps
-// read Dm >= D columns (Dm a multiple of 8, every base and stride 16-byte
-// aligned and positive; columns D..Dm zero).  The kernel runs at D rounded up
-// to a multiple of 16 (to 32 past 128).  o [B, Sq, NH, D] contiguous in q's
+// with the given element strides (the last dim contiguous); D >= 1 is the
+// head dim of the output and of the fp32 reads; up to 256, for bf16/fp16 the
+// maps read Dm >= D columns (Dm a multiple of 8, every base and stride
+// 16-byte aligned and positive; columns D..Dm zero), and the kernel runs at D
+// rounded up to a multiple of 16 (to 32 past 128).  Past 256 the
+// runtime-head-dim kernel reads the rows at D, any alignment (Dm unused).  o [B, Sq, NH, D] contiguous in q's
 // dtype; lse [B, NH, Sq] fp32; slopes [NH] fp32 or null.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int dstpu_flash_attention_fwd(
@@ -563,13 +672,21 @@ extern "C" int dstpu_flash_attention_fwd(
     long long ksb, long long kss, long long ksh, long long vsb, long long vss, long long vsh,
     void* stream) {
   if (KVH <= 0 || NH % KVH != 0 || valid_k > Sk || valid_k <= 0 || Sq <= 0 || Sk <= 0 ||
-      D < 1 || D > 256 || (dtype != 0 && (Dm < D || Dm % 8 != 0)))
+      D < 1 || (D <= 256 && dtype != 0 && (Dm < D || Dm % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const Args a{q, k, v, o, lse, static_cast<const float*>(slopes), B, NH, KVH, Sq, Sk, D, Dm,
                valid_k, q_offset, causal, sm_scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
                vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > 256) {  // the runtime-head-dim kernel, every type
+    switch (dtype) {
+      case 0: return (int)launch_wide<float>(a, st);
+      case 1: return (int)launch_wide<__nv_bfloat16>(a, st);
+      case 2: return (int)launch_wide<__half>(a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   // the kernel's head dim: D rounded up to 16, past 128 to 32
   switch (D <= 128 ? (D + 15) / 16 * 16 : (D + 31) / 32 * 32) {
 #define DSTPU_FWD_CASE(d) \

@@ -1,0 +1,728 @@
+// Grouped (block-diagonal) expert matmul for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces the Pallas TPU kernel deepspeed_tpu/ops/pallas/grouped_matmul.py
+// :_gmm_kernel (via grouped_matmul): the three expert matmuls of every
+// dropless MoE layer (moe/sharded_moe.py _expert_ffn_blocks), three launches
+// per layer on every prefill, prefill-chunk and decode call.
+//
+// What it computes, for x [P, H] (rows sorted by expert and padded so that
+// every block of block_rows rows belongs to one expert), stacked expert
+// weights w [E, H, F] and block_expert [P / block_rows] int32:
+//   out[r, :] = x[r, :] @ w[block_expert[r / block_rows]]
+// with fp32 sums rounded once to x's type, as the TPU kernel computes
+// x_f32 @ w_f32 per block.  Products of bf16 or fp16 operands are exact in
+// fp32, so the tensor-core path differs from it in summation order only.
+// An expert index outside [0, E) is clamped (the router never makes one).
+//
+// What bounds it on the H100, at Mixtral-8x7b's widths (H 4096, F 14336):
+// decode (P = 1152: 16 assignments padded into 9 blocks of 128 rows, most
+// of them zero) is bound by the bytes of the expert weights, ~7-8 distinct
+// 117 MB matrices per call, ~0.28 ms at 3.35 TB/s; prefill of a 1024-token
+// bucket (P = 3072) by the tensor cores, 361 GFLOP, 0.365 ms at 989 TFLOP/s.
+//
+// Rows of blocks at or past *n_used (an optional device int: the blocks that
+// hold a real row, from the router) are written as zeros without being
+// computed, which is what zero padding rows give.
+//
+// Design, bf16 and fp16, block_rows a multiple of 128 and H, F multiples of 8
+// (the main path): wgmma fed by TMA.  Row tiles of 128 rows; one block of two
+// consumer warpgroups per (run of up to two consecutive row tiles of one
+// expert, 128-column tile, K split): a block starts at every even tile and
+// at every tile whose expert differs from the one before, and takes the next
+// tile too when that one is odd and shares its expert.  Its K loop is
+// k-major over both tiles, so each 64 x 128 weight tile is read once for the
+// pair; the blocks of one column tile sit side by side in the grid, so the
+// rest of a run's blocks meet the same weight tiles in L2.  Warpgroup c
+// holds rows 64 c .. 64 c + 63 of each tile (64 x 128 fp32 accumulators per
+// tile).  Thread 0 issues the copies into a ring of 4 stages: per tile one
+// box of 128 rows x 64 of x's K, and two boxes of 64 of w's K rows x 64
+// columns, each with TMA's 128-byte swizzle (rows of 128 bytes: 8 times
+// fewer TMA requests than 16-byte panels, which held the first version of
+// this kernel below the mma.sync one on the card).  x is the K-major A
+// operand, w the MN-major B operand, so nothing is transposed.  Blocks whose rows are all
+// past *n_used load nothing.  At decode the down projection (K = 14336 over
+// 32 column tiles) has too few blocks to fill the card: K is split, each
+// split writes fp32 partials of its rows, and a second pass adds them in
+// split order and rounds once (no atomics, so G is bit-reproducible).
+//
+// Other bf16/fp16 layouts (block_rows under 128 or off a multiple of it,
+// ragged or unaligned H or F): the mma.sync kernel — one block of 8
+// warps per 128 x 128 output tile (4 warps per 16 x 64 tile for small
+// blocks), a 3-stage cp.async ring with 16-byte copies (per-element loads
+// where H or F are ragged), ldmatrix fragments.
+//
+// Design, fp32 (tests and references): a 64 x 64 (or 16 x 64) tile on the
+// fp32 FMA pipes out of shared memory, 16 x 16 threads, so fp32 stays fp32
+// end to end (no TF32).
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int kBK = 64;      // rows of K per stage (tensor-core kernel)
+constexpr int kBKF = 32;     // rows of K per stage (FMA kernel)
+constexpr int kStages = 3;   // cp.async ring depth
+
+template <typename T> struct Mma;
+template <> struct Mma<__nv_bfloat16> {
+  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ __forceinline__ static uint16_t cvt(float f) {
+    __nv_bfloat16 v = __float2bfloat16_rn(f);
+    return *reinterpret_cast<uint16_t*>(&v);
+  }
+};
+template <> struct Mma<__half> {
+  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ __forceinline__ static uint16_t cvt(float f) {
+    __half v = __float2half_rn(f);
+    return *reinterpret_cast<uint16_t*>(&v);
+  }
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row_addr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row_addr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row_addr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row_addr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The rows [m0, m_end) of this tile: its row block and the block's expert.
+struct TileRows {
+  int m0, m_end, e;
+  bool skip;  // the tile's block is past *n_used: its rows are written as zeros
+};
+__device__ __forceinline__ TileRows tile_rows(const int* __restrict__ block_expert,
+                                              const int* __restrict__ n_used, int P, int E,
+                                              int block_rows, int tiles_per_block, int bm) {
+  const int blk = blockIdx.x / tiles_per_block;
+  TileRows t;
+  t.skip = n_used != nullptr && blk >= __ldg(n_used);
+  t.m0 = blk * block_rows + (blockIdx.x % tiles_per_block) * bm;
+  t.m_end = min(min(t.m0 + bm, (blk + 1) * block_rows), P);
+  const int e = __ldg(block_expert + blk);
+  t.e = e < 0 ? 0 : (e >= E ? E - 1 : e);
+  return t;
+}
+
+// rows [m0, m_end) x columns [n0, n0 + bn) of out, as zeros
+template <typename U>
+__device__ __forceinline__ void zero_tile(U* out, const TileRows& tr, int n0, int bn, int F,
+                                          int threads) {
+  const int w = min(bn, F - n0);
+  for (int i = threadIdx.x; i < (tr.m_end - tr.m0) * w; i += threads)
+    out[(long long)(tr.m0 + i / w) * F + n0 + i % w] = U(0);
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync kernel (bf16, fp16 off the wgmma kernel's layouts)
+// ---------------------------------------------------------------------------
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
+__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, 2)
+gmm_mma_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
+               const int* __restrict__ block_expert, const int* __restrict__ n_used,
+               uint16_t* __restrict__ out, int P, int H, int F, int E, int block_rows,
+               int tiles_per_block, int x_vec, int w_vec) {
+  constexpr int THREADS = WARPS_M * WARPS_N * 32;
+  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // a warp's tile
+  constexpr int MT = WM / 16, NT = WN / 8;             // its m16 and n8 pieces
+  static_assert(MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
+  constexpr int XS = kBK + 8;                          // padded rows: conflict-free ldmatrix
+  constexpr int WS = BN + 8;
+  constexpr int X_ELEMS = BM * XS, W_ELEMS = kBK * WS;
+  constexpr int XCHUNKS = BM * kBK / 8, WCHUNKS = kBK * BN / 8;  // 16-byte chunks per stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* sx = reinterpret_cast<uint16_t*>(smem_raw);  // [kStages][BM][XS]
+  uint16_t* sw = sx + kStages * X_ELEMS;                  // [kStages][kBK][WS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wr0 = (warp / WARPS_N) * WM;
+  const int wc0 = (warp % WARPS_N) * WN;
+  const TileRows tr = tile_rows(block_expert, n_used, P, E, block_rows, tiles_per_block, BM);
+  const int n0 = blockIdx.y * BN;
+  if (tr.skip) {
+    zero_tile(out, tr, n0, BN, F, THREADS);
+    return;
+  }
+  const uint16_t* we = w + (long long)tr.e * H * F;
+  const int nk = (H + kBK - 1) / kBK;
+
+  auto load_stage = [&](int buf, int kt) {
+    const int k0 = kt * kBK;
+    uint16_t* dx = sx + buf * X_ELEMS;
+    uint16_t* dw = sw + buf * W_ELEMS;
+    for (int c = tid; c < XCHUNKS; c += THREADS) {
+      const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
+      const int m = tr.m0 + r, k = k0 + kc;
+      uint16_t* dst = dx + r * XS + kc;
+      if (x_vec) {  // H % 8 == 0: a chunk is all in or all out
+        const bool ok = m < tr.m_end && k < H;
+        cp_async16(dst, ok ? x + (long long)m * H + k : x, ok ? 16 : 0);
+      } else {
+        const uint16_t* src = x + (long long)m * H + k;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dst[j] = (m < tr.m_end && k + j < H) ? src[j] : uint16_t(0);
+      }
+    }
+    for (int c = tid; c < WCHUNKS; c += THREADS) {
+      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+      const int k = k0 + r, n = n0 + nc;
+      uint16_t* dst = dw + r * WS + nc;
+      if (w_vec) {  // F % 8 == 0
+        const bool ok = k < H && n < F;
+        cp_async16(dst, ok ? we + (long long)k * F + n : we, ok ? 16 : 0);
+      } else {
+        const uint16_t* src = we + (long long)k * F + n;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dst[j] = (k < H && n + j < F) ? src[j] : uint16_t(0);
+      }
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();  // stage kt has landed (this thread's copies)
+    __syncthreads();               // ... everyone's; and stage kt-1's buffer is free
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk) load_stage(nxt % kStages, nxt);
+    cp_async_commit();
+    const uint16_t* bx = sx + (kt % kStages) * X_ELEMS;
+    const uint16_t* bw = sw + (kt % kStages) * W_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t b[NT / 2][4];  // two n8 pieces per ldmatrix
+#pragma unroll
+      for (int j2 = 0; j2 < NT / 2; ++j2)
+        ldmatrix_x4_trans(b[j2], bw + (kk + (lane & 15)) * WS + wc0 + j2 * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, bx + (wr0 + mt * 16 + (lane & 15)) * XS + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int j2 = 0; j2 < NT / 2; ++j2) {
+          Mma<T>::run(acc[mt][2 * j2], a, b[j2]);
+          Mma<T>::run(acc[mt][2 * j2 + 1], a, b[j2] + 2);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool pair_store = (F & 1) == 0;
+  const int cq = 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + wc0 + j * 8 + cq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = tr.m0 + wr0 + mt * 16 + (lane >> 2) + half * 8;
+        if (m >= tr.m_end || n >= F) continue;
+        const float v0 = acc[mt][j][half * 2], v1 = acc[mt][j][half * 2 + 1];
+        uint16_t* dst = out + (long long)m * F + n;
+        if (pair_store) {
+          *reinterpret_cast<uint32_t*>(dst) = Mma<T>::pack(v0, v1);
+        } else {
+          dst[0] = Mma<T>::cvt(v0);
+          if (n + 1 < F) dst[1] = Mma<T>::cvt(v1);
+        }
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// FMA-pipe kernel (fp32)
+// ---------------------------------------------------------------------------
+template <int BM>
+__global__ void __launch_bounds__(256)
+gmm_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const int* __restrict__ block_expert, const int* __restrict__ n_used,
+               float* __restrict__ out, int P, int H, int F, int E, int block_rows,
+               int tiles_per_block) {
+  constexpr int BN = 64;
+  constexpr int TM = BM / 16;                      // rows per thread
+  constexpr int XS = BM + 4;                       // padded rows of the transposed x tile
+  constexpr int XE = (BM * kBKF + 255) / 256;       // x elements per thread per stage
+  __shared__ __align__(16) float sx[2][kBKF][XS];   // [k][m]
+  __shared__ __align__(16) float sw[2][kBKF][BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;  // columns tx*4 .. +3
+  const int ty = tid >> 4;  // rows ty*TM .. +TM-1
+  const TileRows tr = tile_rows(block_expert, n_used, P, E, block_rows, tiles_per_block, BM);
+  const int n0 = blockIdx.y * BN;
+  if (tr.skip) {
+    zero_tile(out, tr, n0, BN, F, 256);
+    return;
+  }
+  const float* we = w + (long long)tr.e * H * F;
+  const int nk = (H + kBKF - 1) / kBKF;
+  const int w_row = tid >> 3, w_col = (tid & 7) * 8;  // 8 weights a thread per stage
+
+  float xr[XE], wr[8];
+  auto load_stage = [&](int k0) {
+#pragma unroll
+    for (int e = 0; e < XE; ++e) {
+      const int idx = tid + e * 256;
+      const int m = tr.m0 + idx / kBKF, k = k0 + idx % kBKF;
+      xr[e] = (idx < BM * kBKF && m < tr.m_end && k < H) ? __ldg(x + (long long)m * H + k) : 0.f;
+    }
+    const int k = k0 + w_row;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + w_col + j;
+      wr[j] = (k < H && n < F) ? __ldg(we + (long long)k * F + n) : 0.f;
+    }
+  };
+  auto store_stage = [&](int buf) {
+#pragma unroll
+    for (int e = 0; e < XE; ++e) {
+      const int idx = tid + e * 256;
+      if (idx < BM * kBKF) sx[buf][idx % kBKF][idx / kBKF] = xr[e];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sw[buf][w_row][w_col + j] = wr[j];
+  };
+
+  float acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  load_stage(0);
+  store_stage(0);
+  __syncthreads();
+  for (int s = 0; s < nk; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < nk) load_stage((s + 1) * kBKF);
+#pragma unroll 8
+    for (int k = 0; k < kBKF; ++k) {
+      const float4 wv4 = *reinterpret_cast<const float4*>(&sw[buf][k][tx * 4]);
+      const float wv[4] = {wv4.x, wv4.y, wv4.z, wv4.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float xv = sx[buf][k][ty * TM + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
+      }
+    }
+    if (s + 1 < nk) store_stage(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = tr.m0 + ty * TM + i;
+    if (m >= tr.m_end) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < F) out[(long long)m * F + n] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma kernel (bf16, fp16; block_rows a multiple of 128, H and F of 8)
+// ---------------------------------------------------------------------------
+constexpr int kWgThreads = 256;  // two consumer warpgroups
+constexpr int kWgBM = 128;       // rows of a row tile, 64 per warpgroup
+constexpr int kWgBN = 128;       // output columns of a block
+constexpr int kWgTiles = 2;      // row tiles of one expert a block takes at most
+constexpr int kWgBK = 64;        // K per pipeline step
+constexpr int kWgStages = 4;
+// steps in flight ahead of the one computed: a step's stage is released
+// once the next step's products are issued (wgmma keeps one group in
+// flight), so the stage refilled held the step two before the current one
+constexpr int kWgAhead = 2;
+constexpr int kWgX = kWgBM * kWgBK;  // elements of one x tile
+constexpr int kWgW = kWgBK * kWgBN;  // elements of one w tile
+constexpr size_t kWgSmem =
+    1024 + (size_t)kWgStages * (kWgTiles * kWgX + kWgW) * 2 + 2 * kWgStages * 8;
+// descriptor strides of the 128-byte-swizzled tiles: 8-row atoms of 1024
+// bytes; w's two 64-column atoms (64 K rows each) 8 KB apart
+constexpr uint32_t kSbo = 1024, kWLbo = 64 * 64 * 2, kXLbo = 16;
+
+struct WgArgs {
+  const int* block_expert;
+  const int* n_used;  // null, or the device count of blocks holding a real row
+  void* out;
+  float* part;        // K split: fp32 partials [splits][P][F], else null
+  int P, H, F, E, block_rows, steps_per_split;
+};
+
+__device__ __forceinline__ int tile_expert(const WgArgs& a, int t) {
+  const int e = __ldg(a.block_expert + (long long)t * kWgBM / a.block_rows);
+  return e < 0 ? 0 : (e >= a.E ? a.E - 1 : e);
+}
+
+// the K loop and the epilogue of NT live row tiles (1 or 2, a compile-time
+// count, so no product is issued under a branch)
+template <typename T, int NT, typename Issue>
+__device__ __forceinline__ void gmm_tiles(const WgArgs& a, const T* Xs, const T* Ws,
+                                          uint64_t* full, uint64_t* empty, int steps,
+                                          bool issuer, Issue issue, int t0, int n0) {
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x - 128 * c;
+  const int lane = tid & 31;
+  float acc[NT][kWgBN / 2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < kWgBN / 2; ++i) acc[j][i] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    if (issuer && i + kWgAhead < steps) issue(i + kWgAhead);
+    const int st = i % kWgStages;
+    mbar_wait(&full[st], (i / kWgStages) & 1);
+    const T* Wc = Ws + st * kWgW;
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const T* Xc = Xs + (st * kWgTiles + j) * kWgX + 64 * c * kWgBK;  // this warpgroup's rows
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        WgmmaSSt<T, kWgBN>::run(acc[j], gmma_desc_sw<64>(Xc + kk * 16, kXLbo, kSbo),
+                                gmma_desc_sw<64>(Wc + kk * 16 * 64, kWLbo, kSbo), 1);
+    }
+    wg_commit();
+    wg_wait<1>();  // step i - 1's products are done: its stage is free
+    if (i > 0) mbar_arrive(&empty[(i - 1) % kWgStages]);
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) pin(acc[j]);
+
+  // rows 64 c + 16 warp + lane / 4 (+ 8) of each tile, columns
+  // n0 + 8 q + 2 (lane % 4) (+ 1)
+  T* out = static_cast<T*>(a.out);
+  const int rw = 64 * c + 16 * (tid >> 5) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long row = (long long)(t0 + j) * kWgBM + rw + 8 * r;
+#pragma unroll
+      for (int q = 0; q < kWgBN / 8; ++q) {
+        const int col = n0 + 8 * q + cq;
+        if (col >= a.F) continue;
+        const float v0 = acc[j][4 * q + 2 * r], v1 = acc[j][4 * q + 2 * r + 1];
+        if (a.part != nullptr)
+          *reinterpret_cast<float2*>(a.part + ((long long)blockIdx.z * a.P + row) * a.F + col) =
+              make_float2(v0, v1);
+        else
+          *reinterpret_cast<uint32_t*>(out + row * a.F + col) = Cvt<T>::pack(v0, v1);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw, const WgArgs a) {
+  const int n_tiles = a.P / kWgBM;
+  const int t0 = blockIdx.x;
+  const int e = tile_expert(a, t0);
+  // blocks start at even tiles and at run starts; an odd tile of a run is
+  // its even neighbour's second tile
+  if (kWgTiles == 2 && (t0 & 1) && tile_expert(a, t0 - 1) == e) return;
+  const int nt = (kWgTiles == 2 && !(t0 & 1) && t0 + 1 < n_tiles && tile_expert(a, t0 + 1) == e)
+                     ? 2
+                     : 1;
+  const int used = a.n_used != nullptr
+                       ? min(__ldg(a.n_used) * (a.block_rows / kWgBM), n_tiles)
+                       : n_tiles;
+  const int live = max(0, min(nt, used - t0));  // tiles with a real row
+  const int n0 = blockIdx.y * kWgBN;
+  const int nk = (a.H + kWgBK - 1) / kWgBK;
+  const int kk0 = blockIdx.z * a.steps_per_split;
+  const int steps = live > 0 ? min(nk, kk0 + a.steps_per_split) - kk0 : 0;
+
+  T* out = static_cast<T*>(a.out);
+  if (a.part == nullptr && live < nt) {  // rows past the real ones: zeros
+    const int r0 = (t0 + live) * kWgBM, rows = (nt - live) * kWgBM;
+    const int w = min(kWgBN, a.F - n0);
+    for (int i = threadIdx.x; i < rows * (w / 2); i += kWgThreads)
+      *reinterpret_cast<uint32_t*>(out + (long long)(r0 + i / (w / 2)) * a.F + n0 +
+                                   2 * (i % (w / 2))) = 0u;
+  }
+  if (steps <= 0) return;
+
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzling repeats every 1024 bytes: tiles start on that
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* Xs = reinterpret_cast<T*>(base);       // [stages][tiles][BM][BK], rows of 128 bytes
+  T* Ws = Xs + kWgStages * kWgTiles * kWgX;  // [stages][BN/64][BK][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ws + kWgStages * kWgW);
+  uint64_t* empty = full + kWgStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 keeps the ring kWgAhead steps ahead: step i brings the live
+  // tiles' x columns and the expert's w rows of K step kk0 + i
+  const bool issuer = threadIdx.x == 0;
+  auto issue = [&](int i) {
+    const int st = i % kWgStages;
+    if (i >= kWgStages) mbar_wait(&empty[st], (i / kWgStages - 1) & 1);
+    const int k = (kk0 + i) * kWgBK;
+    mbar_arrive_tx(&full[st], (uint32_t)(live * kWgX + kWgW) * 2u);
+    for (int j = 0; j < live; ++j)
+      tma_load_2d(Xs + (st * kWgTiles + j) * kWgX, &tx, k, (t0 + j) * kWgBM, &full[st]);
+    for (int h = 0; h < kWgBN / 64; ++h)
+      tma_load_3d(Ws + st * kWgW + h * 64 * kWgBK, &tw, n0 + 64 * h, k, e, &full[st]);
+  };
+  if (issuer)
+    for (int i = 0; i < min(steps, kWgAhead); ++i) issue(i);
+  if (kWgTiles == 2 && live == 2)
+    gmm_tiles<T, kWgTiles>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
+  else
+    gmm_tiles<T, 1>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
+}
+
+// out = the splits' partials added in split order, rounded once; rows of
+// blocks past *n_used are zeros
+template <typename T>
+__global__ void gmm_reduce_kernel(const float* __restrict__ part, T* __restrict__ out,
+                                  const int* __restrict__ n_used, int P, int F, int block_rows,
+                                  int splits) {
+  const long long n = (long long)P * F;
+  const long long live = n_used != nullptr ? min((long long)__ldg(n_used) * block_rows, (long long)P) * F : n;
+  for (long long i = 2 * ((long long)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+       i += 2LL * gridDim.x * blockDim.x) {
+    float2 v = make_float2(0.f, 0.f);
+    if (i < live) {
+      v = *reinterpret_cast<const float2*>(part + i);
+      for (int s = 1; s < splits; ++s) {
+        const float2 p = *reinterpret_cast<const float2*>(part + s * n + i);
+        v.x += p.x;
+        v.y += p.y;
+      }
+    }
+    *reinterpret_cast<uint32_t*>(out + i) = Cvt<T>::pack(v.x, v.y);
+  }
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return n;
+}
+
+// the K splits of a layout: 1 unless the blocks (at most one per expert and
+// column tile when every expert holds one tile, as at decode) would not
+// cover the card twice; every split gets at least 8 K steps
+int gmm_splits(int P, int H, int F, int E) {
+  const int col_tiles = (F + kWgBN - 1) / kWgBN;
+  const int row_tiles = P / kWgBM;
+  if (row_tiles > 2 * E) return 1;
+  const int blocks = min(row_tiles, E) * col_tiles;
+  const int nk = (H + kWgBK - 1) / kWgBK;
+  int s = (2 * sm_count() + blocks - 1) / blocks;
+  s = min(s, max(1, nk / 8));
+  return max(1, min(s, 8));
+}
+
+template <typename T>
+cudaError_t launch_wgmma(const void* x, const void* w, const int* be, const int* n_used,
+                         void* out, void* part, int P, int H, int F, int E, int block_rows,
+                         cudaStream_t st) {
+  // x as (H, P), boxes of 64 x 128; w as (F, H, E), boxes of 64 x 64 x 1;
+  // K past H and columns past F arrive as zeros
+  CUtensorMap m[2];
+  const cuuint64_t e = 2;
+  const cuuint64_t xd[2] = {(cuuint64_t)H, (cuuint64_t)P};
+  const cuuint64_t xs[1] = {(cuuint64_t)H * e};
+  const cuuint32_t xb[2] = {kWgBK, kWgBM};
+  const cuuint64_t wd[3] = {(cuuint64_t)F, (cuuint64_t)H, (cuuint64_t)E};
+  const cuuint64_t ws[2] = {(cuuint64_t)F * e, (cuuint64_t)H * F * e};
+  const cuuint32_t wb[3] = {64, kWgBK, 1};
+  cudaError_t err;
+  if ((err = encode_map<T>(&m[0], x, 2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = encode_map<T>(&m[1], w, 3, wd, ws, wb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
+    return err;
+  static const cudaError_t attr = opt_in(gmm_wgmma_kernel<T>, kWgSmem);
+  if (attr != cudaSuccess) return attr;
+  const int nk = (H + kWgBK - 1) / kWgBK;
+  const int splits = part != nullptr ? gmm_splits(P, H, F, E) : 1;
+  const int per = (nk + splits - 1) / splits;
+  const int used_splits = (nk + per - 1) / per;  // no split is empty
+  const WgArgs a{be, n_used, out, used_splits > 1 ? static_cast<float*>(part) : nullptr,
+                 P, H, F, E, block_rows, per};
+  const dim3 grid((unsigned)(P / kWgBM), (unsigned)((F + kWgBN - 1) / kWgBN),
+                  (unsigned)used_splits);
+  gmm_wgmma_kernel<T><<<grid, kWgThreads, kWgSmem, st>>>(m[0], m[1], a);
+  if (used_splits > 1) {
+    const cudaError_t e1 = cudaGetLastError();
+    if (e1 != cudaSuccess) return e1;
+    const long long pairs = (long long)P * F / 2;
+    const int blocks = (int)min((pairs + 255) / 256, (long long)(8 * sm_count()));
+    gmm_reduce_kernel<T><<<blocks, 256, 0, st>>>(static_cast<const float*>(part),
+                                                 static_cast<T*>(out), n_used, P, F,
+                                                 block_rows, used_splits);
+  }
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16u == 0; }
+
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
+cudaError_t launch_mma(const void* x, const void* w, const int* be, const int* n_used, void* out,
+                       int P, int H, int F, int E, int block_rows, cudaStream_t st) {
+  constexpr int XS = kBK + 8, WS = BN + 8;
+  constexpr int SMEM = kStages * (BM * XS + kBK * WS) * 2;
+  auto kern = gmm_mma_kernel<T, BM, BN, WARPS_M, WARPS_N>;
+  static bool attr_set = false;  // once per instantiation and process
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int tiles_per_block = (block_rows + BM - 1) / BM;
+  const long long row_tiles = (long long)(P / block_rows) * tiles_per_block;
+  const int col_tiles = (F + BN - 1) / BN;
+  if (row_tiles > 0x7fffffffLL || col_tiles > 65535) return cudaErrorInvalidConfiguration;
+  const int x_vec = (H % 8 == 0) && aligned16(x);
+  const int w_vec = (F % 8 == 0) && aligned16(w);
+  const dim3 grid((unsigned)row_tiles, (unsigned)col_tiles);
+  kern<<<grid, WARPS_M * WARPS_N * 32, SMEM, st>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), be, n_used,
+      static_cast<uint16_t*>(out), P, H, F, E, block_rows, tiles_per_block, x_vec, w_vec);
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_fma(const void* x, const void* w, const int* be, const int* n_used, void* out,
+                       int P, int H, int F, int E, int block_rows, cudaStream_t st) {
+  const int tiles_per_block = (block_rows + BM - 1) / BM;
+  const long long row_tiles = (long long)(P / block_rows) * tiles_per_block;
+  const int col_tiles = (F + 63) / 64;
+  if (row_tiles > 0x7fffffffLL || col_tiles > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)row_tiles, (unsigned)col_tiles);
+  gmm_fma_kernel<BM><<<grid, 256, 0, st>>>(static_cast<const float*>(x),
+                                            static_cast<const float*>(w), be, n_used,
+                                            static_cast<float*>(out), P, H, F, E, block_rows,
+                                            tiles_per_block);
+  return cudaGetLastError();
+}
+
+// the layouts the wgmma kernel takes; the others take the mma.sync kernel
+bool wgmma_layout(const void* x, const void* w, int dtype, int H, int F, int block_rows) {
+  return dtype != 0 && block_rows % kWgBM == 0 && H % 8 == 0 && F % 8 == 0 && aligned16(x) &&
+         aligned16(w);
+}
+
+}  // namespace
+
+// the K splits dstpu_grouped_matmul takes for this layout on this card (1: no
+// partials, also off the wgmma kernel); above 1 the caller passes part, fp32
+// [splits][P][F]
+extern "C" int dstpu_grouped_matmul_splits(const void* x, const void* w, int dtype, int P, int H,
+                                           int F, int E, int block_rows) {
+  return P > 0 && wgmma_layout(x, w, dtype, H, F, block_rows) ? gmm_splits(P, H, F, E) : 1;
+}
+
+// out [P, F] = x [P, H] @ w[block_expert[r / block_rows]] for every row r;
+// rows of blocks at or past *n_used (n_used null: none) are zeros.
+// dtype: 0 fp32, 1 bf16, 2 fp16 (x, w and out); w [E, H, F]; block_expert
+// [P / block_rows] int32; P a multiple of block_rows.  bf16/fp16 with
+// block_rows a multiple of 128, H and F multiples of 8 and 16-byte aligned x
+// and w take the wgmma kernel (part: null, or the fp32 scratch of
+// dstpu_grouped_matmul_splits); otherwise big_tile 1 takes the 128-row
+// tile (64 rows in fp32), 0 the 16-row one.  All tensors contiguous.
+// Returns cudaGetLastError() after the launches (0 = launched).
+extern "C" int dstpu_grouped_matmul(const void* x, const void* w, const void* block_expert,
+                                    const void* n_used, void* out, void* part, int dtype, int P,
+                                    int H, int F, int E, int block_rows, int big_tile,
+                                    void* stream) {
+  if (P < 0 || H <= 0 || F <= 0 || E <= 0 || block_rows <= 0 || P % block_rows != 0)
+    return (int)cudaErrorInvalidValue;
+  if (P == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* be = static_cast<const int*>(block_expert);
+  const int* nu = static_cast<const int*>(n_used);
+  if (wgmma_layout(x, w, dtype, H, F, block_rows))
+    return dtype == 1 ? (int)launch_wgmma<__nv_bfloat16>(x, w, be, nu, out, part, P, H, F, E,
+                                                         block_rows, st)
+                      : (int)launch_wgmma<__half>(x, w, be, nu, out, part, P, H, F, E,
+                                                  block_rows, st);
+  switch (dtype * 2 + (big_tile ? 1 : 0)) {
+    case 0: return (int)launch_fma<16>(x, w, be, nu, out, P, H, F, E, block_rows, st);
+    case 1: return (int)launch_fma<64>(x, w, be, nu, out, P, H, F, E, block_rows, st);
+    case 2: return (int)launch_mma<__nv_bfloat16, 16, 64, 1, 4>(x, w, be, nu, out, P, H, F, E,
+                                                                 block_rows, st);
+    case 3: return (int)launch_mma<__nv_bfloat16, 128, 128, 2, 4>(x, w, be, nu, out, P, H, F,
+                                                                   E, block_rows, st);
+    case 4: return (int)launch_mma<__half, 16, 64, 1, 4>(x, w, be, nu, out, P, H, F, E,
+                                                          block_rows, st);
+    case 5: return (int)launch_mma<__half, 128, 128, 2, 4>(x, w, be, nu, out, P, H, F, E,
+                                                            block_rows, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -39,6 +39,10 @@
 // element with zeros past Dt, so q . k is unchanged, the extra output
 // columns are not stored, and the cache is read in place at its own width.
 //
+// Head dims past 256: the runtime-head-dim kernel below, the same split of
+// the pages with the output columns in parts of 128 over a grid axis, the
+// pages read from device memory as they are (no staging), fp32 throughout.
+//
 // What bounds it on the H100: bytes.  Decode at B = 8 x 1024 tokens reads
 // 16.8 MB of bf16 KV per layer and does ~2 FLOP per byte, so the least time
 // is the KV traffic over 3.35 TB/s (~5 us).
@@ -341,6 +345,154 @@ __global__ void paged_merge_kernel(const float* __restrict__ part, T* __restrict
   }
 }
 
+// ---------------------------------------------------------------------------
+// runtime head dim (past 256)
+// ---------------------------------------------------------------------------
+// One block of 8 warps per (b, kv head, run of pages, part of at most 128
+// output columns), the GQA group's G query rows together.  For each page:
+// the (row, slot) dot products over the whole head, one per warp at a time
+// with the lanes striding D, from the query and the page in device memory;
+// the online softmax per row; then acc += p v for the part's columns.  The
+// scores and the softmax state are the same in every part (each part
+// recomputes them); the part's columns go to the output, or to the run's
+// partial for paged_merge_wide_kernel, part 0 writing m and l.
+constexpr int kWidePart = 128;
+constexpr int kWideWarps = 8;
+
+template <typename T, typename KT>
+__global__ void __launch_bounds__(kWideWarps * 32)
+paged_decode_wide_kernel(const T* __restrict__ q, const KT* __restrict__ k_pool,
+                         const KT* __restrict__ v_pool, const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale, const int* __restrict__ page_table,
+                         const int* __restrict__ positions, const float* __restrict__ slopes,
+                         T* __restrict__ out, float* __restrict__ part, int NH, int KVH, int D,
+                         int ps, int MP, int pages_per_split, float scale) {
+  extern __shared__ float wsm[];
+  const int G = NH / KVH;
+  float* sc = wsm;           // [G][ps]: scores, then probabilities
+  float* acc = sc + G * ps;  // [G][kWidePart]
+  float* ms = acc + G * kWidePart;
+  float* ls = ms + G;
+  float* al = ls + G;
+  const int b = blockIdx.x / KVH, kvh = blockIdx.x % KVH;
+  const int c0 = blockIdx.z * kWidePart;
+  const int pw = min(kWidePart, D - c0);  // this part's columns
+  const int pos = positions[b];
+  const int n_pages = min(pos / ps + 1, MP);
+  const int p0 = blockIdx.y * pages_per_split;
+  const int p1 = min(p0 + pages_per_split, n_pages);
+  float* pb = part == nullptr ? nullptr
+                              : part + ((size_t)blockIdx.x * gridDim.y + blockIdx.y) * G * (D + 2);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (p0 >= p1) {  // the sequence ends before this run: an empty partial
+    if (pb != nullptr)
+      for (int i = tid; i < G * pw; i += blockDim.x) {
+        const int g = i / pw;
+        pb[g * (D + 2) + c0 + i % pw] = 0.f;
+        if (blockIdx.z == 0 && i % pw == 0) {
+          pb[g * (D + 2) + D] = kNegInf;
+          pb[g * (D + 2) + D + 1] = 0.f;
+        }
+      }
+    return;
+  }
+  for (int i = tid; i < G * kWidePart; i += blockDim.x) acc[i] = 0.f;
+  for (int g = tid; g < G; g += blockDim.x) {
+    ms[g] = kNegInf;
+    ls[g] = 0.f;
+  }
+  const int* table = page_table + (long long)b * MP;
+  const T* qb = q + ((long long)b * NH + (long long)kvh * G) * D;
+  __syncthreads();
+
+  for (int jp = p0; jp < p1; ++jp) {
+    const long long slot0 = (long long)table[jp] * ps;
+    const int n_valid = min(ps, pos - jp * ps + 1);  // live slots of this page
+    for (int pair = warp; pair < G * n_valid; pair += kWideWarps) {
+      const int g = pair / n_valid, s = pair % n_valid;
+      const T* qr = qb + (long long)g * D;
+      const KT* kr = k_pool + ((slot0 + s) * KVH + kvh) * D;
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32) dot = fmaf(to_f(qr[d]) * scale, to_f(kr[d]), dot);
+      dot = warp_sum(dot);
+      if (k_scale != nullptr) dot *= k_scale[(slot0 + s) * KVH + kvh];
+      if (slopes != nullptr) dot -= slopes[kvh * G + g] * (float)(pos - (jp * ps + s));
+      if (lane == 0) sc[g * ps + s] = dot;
+    }
+    __syncthreads();
+    for (int g = warp; g < G; g += kWideWarps) {
+      float mt = kNegInf;
+      for (int s = lane; s < n_valid; s += 32) mt = fmaxf(mt, sc[g * ps + s]);
+      mt = warp_max(mt);
+      const float m_prev = ms[g];
+      const float m_new = fmaxf(m_prev, mt);
+      float psum = 0.f;
+      for (int s = lane; s < n_valid; s += 32) {
+        const float p = expf(sc[g * ps + s] - m_new);
+        psum += p;
+        // the V scale rides on the probability (l keeps the unscaled sum)
+        sc[g * ps + s] = v_scale != nullptr ? p * v_scale[(slot0 + s) * KVH + kvh] : p;
+      }
+      psum = warp_sum(psum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        al[g] = alpha;
+        ls[g] = ls[g] * alpha + psum;
+        ms[g] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < G * pw; i += blockDim.x) {
+      const int g = i / pw, c = c0 + i % pw;
+      const float* pr = sc + g * ps;
+      float a = acc[g * kWidePart + i % pw] * al[g];
+      for (int s = 0; s < n_valid; ++s)
+        a = fmaf(pr[s], to_f(v_pool[((slot0 + s) * KVH + kvh) * D + c]), a);
+      acc[g * kWidePart + i % pw] = a;
+    }
+    __syncthreads();
+  }
+
+  T* ob = out + ((long long)b * NH + (long long)kvh * G) * D;
+  for (int i = tid; i < G * pw; i += blockDim.x) {
+    const int g = i / pw, c = c0 + i % pw;
+    const float a = acc[g * kWidePart + i % pw];
+    if (pb == nullptr) {
+      ob[g * D + c] = from_f<T>(a / fmaxf(ls[g], 1e-30f));
+    } else {
+      pb[g * (D + 2) + c] = a;
+      if (blockIdx.z == 0 && i % pw == 0) {
+        pb[g * (D + 2) + D] = ms[g];
+        pb[g * (D + 2) + D + 1] = ls[g];
+      }
+    }
+  }
+}
+
+// paged_merge_kernel at a runtime head dim
+template <typename T>
+__global__ void paged_merge_wide_kernel(const float* __restrict__ part, T* __restrict__ out,
+                                        int NH, int KVH, int D, int n_split) {
+  const int G = NH / KVH;
+  const int b = blockIdx.x / KVH;
+  const int kvh = blockIdx.x % KVH;
+  const float* pb = part + (size_t)blockIdx.x * n_split * G * (D + 2);
+  T* ob = out + ((long long)b * NH + (long long)kvh * G) * D;
+  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+    const int g = idx / D, d = idx % D;
+    float m = kNegInf;
+    for (int s = 0; s < n_split; ++s) m = fmaxf(m, pb[((size_t)s * G + g) * (D + 2) + D]);
+    float l = 0.f, a = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float* ps_ = pb + ((size_t)s * G + g) * (D + 2);
+      const float f = expf(ps_[D] - m);
+      l += ps_[D + 1] * f;
+      a += ps_[d] * f;
+    }
+    ob[g * D + d] = from_f<T>(a / fmaxf(l, 1e-30f));
+  }
+}
+
 struct Args {
   const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *page_table, *positions, *slopes;
   void *out, *part;
@@ -380,7 +532,35 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 template <typename T, typename KT>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  const int G = a.NH / a.KVH;
+  const size_t smem = sizeof(float) * ((size_t)G * a.ps + (size_t)G * kWidePart + 3 * G);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(paged_decode_wide_kernel<T, KT>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const int n_split = (a.MP + a.pages_per_split - 1) / a.pages_per_split;
+  float* part = n_split > 1 ? static_cast<float*>(a.part) : nullptr;
+  const dim3 grid(a.B * a.KVH, n_split, (a.Dt + kWidePart - 1) / kWidePart);
+  paged_decode_wide_kernel<T, KT><<<grid, kWideWarps * 32, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KT*>(a.k_pool),
+      static_cast<const KT*>(a.v_pool), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.page_table),
+      static_cast<const int*>(a.positions), static_cast<const float*>(a.slopes),
+      static_cast<T*>(a.out), part, a.NH, a.KVH, a.Dt, a.ps, a.MP, a.pages_per_split, a.scale);
+  if (part != nullptr) {
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    paged_merge_wide_kernel<T><<<a.B * a.KVH, 128, 0, stream>>>(part, static_cast<T*>(a.out),
+                                                                a.NH, a.KVH, a.Dt, n_split);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, typename KT>
 cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
+  if (D > 256) return launch_wide<T, KT>(a, stream);  // runtime head dim
   switch (D <= 128 ? (D + 15) / 16 * 16 : (D + 31) / 32 * 32) {  // the kernel's head dim
 #define DSTPU_PAGED_CASE(d) \
   case d:                   \
@@ -413,11 +593,12 @@ cudaError_t dispatch_quant(int quant, int D, const Args& a, cudaStream_t stream)
 // dtype (of q and out; of the pools unless quant): 0 = fp32, 1 = bf16, 2 = fp16.
 // q [B, NH, D]; pools [P, ps, KVH, D] (int8 when quant, with fp32 scales
 // [P, ps, KVH]), 16-byte aligned; page_table [B, MP] int32; positions [B]
-// int32; slopes [NH] fp32 or null; out [B, NH, D].  All contiguous.  D is 1
-// to 256; the kernel runs at Dk, D rounded up to 16 (to 32 past 128).  Each
-// sequence's pages are split across blocks of pages_per_split pages; when
-// MP > pages_per_split, part is fp32 scratch of
-// B * KVH * ceil(MP / pages_per_split) * (NH / KVH) * (Dk + 2) floats.
+// int32; slopes [NH] fp32 or null; out [B, NH, D].  All contiguous.  D >= 1;
+// up to 256 the kernel runs at Dk, D rounded up to 16 (to 32 past 128), past
+// 256 the runtime-head-dim kernel at Dk = D.  Each sequence's pages are
+// split across blocks of pages_per_split pages; when MP > pages_per_split,
+// part is fp32 scratch of B * KVH * ceil(MP / pages_per_split) * (NH / KVH) *
+// (Dk + 2) floats.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int dstpu_paged_decode_attention(const void* q, const void* k_pool,
                                             const void* v_pool, const void* k_scale,
@@ -433,7 +614,7 @@ extern "C" int dstpu_paged_decode_attention(const void* q, const void* k_pool,
   if ((reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool)) & 15)
     return (int)cudaErrorMisalignedAddress;
   if (B == 0) return (int)cudaSuccess;
-  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D < 1) return (int)cudaErrorInvalidValue;
   const Args a{q,   k_pool, v_pool, quant ? k_scale : nullptr, quant ? v_scale : nullptr,
                page_table, positions, slopes, out, part, B, NH, KVH, D, ps, MP,
                pages_per_split, scale};

@@ -43,6 +43,9 @@
 // read from a byte copy of the layout.  Fully visible units and every layout
 // whose block is a multiple of 16 keep the code above.
 //
+// Head dims past 256 (every type): the runtime-head-dim kernel
+// (csrc/wide_head.cuh) walks the unit lists on the FMA pipes, S over the whole
+// head in 32-column chunks, the output in parts of 128 columns.
 // Head dims: the wrapper pads rows to a multiple of 16 (32 past 128) with
 // zero columns; past 128 each block computes one half of the output columns
 // (a grid axis over the halves, S = QK^T still over the whole D), so the
@@ -68,6 +71,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wide_head.cuh"
 
 namespace {
 
@@ -535,12 +540,107 @@ __global__ void __launch_bounds__(kFmaThreads) sparse_attn_fma_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// runtime head dim (past 256), any of the three types: csrc/wide_head.cuh
+// ---------------------------------------------------------------------------
+// The walk of the fp32 kernel over 64 x 64 tiles with unit masks, every
+// element of a partly visible unit tested against the layout (the wrapper
+// passes both for every layout here), with S over the whole head in
+// 32-column chunks and the output columns in parts of 128 over a grid axis.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) sparse_attn_wide_kernel(const Args a, int D) {
+  extern __shared__ float wsm[];
+  float* As = wsm;                         // [64][kWideLd]
+  float* Bs = As + kWideRows * kWideLd;    // [64][kWideLd]
+  float* Ps = Bs + kWideRows * kWideLd;    // [64][kWidePd]
+  float* Vs = Ps + kWideRows * kWidePd;    // [64][kWidePart]
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int q_start = blockIdx.x * kBQ;
+  const int c0 = blockIdx.z * kWidePart;
+  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + h * a.ksh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + h * a.vsh;
+  const Walk walk(a, h, q_start);
+
+  float m[4], l[4], acc[4][8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  }
+  for (int t = 0; t < walk.n_tiles; ++t) {
+    const int k0 = walk.tile(t);
+    float s[4][4] = {};
+    wide_dot(s, As, Bs, qb, a.qss, q_start, a.S, kb, a.kss, k0, a.S, D);
+    const bool diag = a.causal && k0 + kBK - 1 > q_start;
+    const int bits = walk.unit_bits(t, ty >> 2);  // rows ty*4.. lie in unit ty / 4
+    const int pbits = walk.partial_bits(t, ty >> 2);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q_start + ty * 4 + r;
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool off = (diag && row < col) || !((bits >> j) & 1) ||
+                         (((pbits >> j) & 1) && !elem_on(a, h, row, col));
+        s[r][j] = off ? kNegInf : s[r][j] * a.sm_scale;
+        mt = fmaxf(mt, s[r][j]);
+      }
+      mt = half_warp_max(mt);
+      const float m_new = fmaxf(m[r], mt);
+      const float alpha = expf(m[r] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = prob(s[r][j], m_new);
+        Ps[(ty * 4 + r) * kWidePd + tx + 16 * j] = p;
+        psum += p;
+      }
+      psum = half_warp_sum(psum);
+      l[r] = l[r] * alpha + psum;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] *= alpha;
+    }
+    wide_stage(Vs, kWidePart, kWidePart, vb, a.vss, k0, a.S, c0, D);
+    __syncthreads();
+    wide_pv(acc, Ps, Vs);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = q_start + ty * 4 + r;
+    if (qi >= a.S) continue;
+    const float lc = fmaxf(l[r], 1e-20f);
+    T* orow = static_cast<T*>(a.o) + (((long long)b * a.S + qi) * a.H + h) * D;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = c0 + tx + 16 * c;
+      if (col < D) wide_put(orow + col, acc[r][c] / lc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 template <typename Kernel>
 cudaError_t opt_in(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T>
+cudaError_t launch_wide(int D, const Args& a, cudaStream_t st) {
+  constexpr size_t smem = wide_fwd_smem();
+  static const cudaError_t attr = opt_in(sparse_attn_wide_kernel<T>, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.H, (D + kWidePart - 1) / kWidePart);
+  sparse_attn_wide_kernel<T><<<grid, kWideThreads, smem, st>>>(a, D);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, bool UNITS, bool ELEM>
@@ -596,8 +696,10 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
 // bits, and in bits 16-31 those of partly visible units), the lists are of
 // 64 x 64 tiles and block is 64; then layout (null, or the layout as bytes
 // [Hl, S / lblock, S / lblock]) gives the partial units' elements.  D is a
-// multiple of 16 to 128, of 32 to 256.  Returns cudaGetLastError() after
-// the launch (0 = launched).
+// multiple of 16 to 128, of 32 to 256, or any D past 256 (the
+// runtime-head-dim kernel: masks and layout required, rows read at D with
+// any alignment).  Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int dstpu_sparse_attention(const void* q, const void* k, const void* v, void* o,
                                       const void* row_ptr, const void* cols,
                                       const void* masks, const void* layout, int dtype, int B,
@@ -612,11 +714,20 @@ extern "C" int dstpu_sparse_attention(const void* q, const void* k, const void* 
       (layout != nullptr && (!units || lblock <= 0 || S % lblock != 0)) ||
       (Hl != 1 && Hl != H) || H <= 0)
     return (int)cudaErrorInvalidValue;
+  if (D > 256 && (!units || layout == nullptr)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaSuccess;
   const Args a{q, k, v, o, static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
                static_cast<const int*>(masks), static_cast<const uint8_t*>(layout), B, S, H, Hl,
                block, causal, lblock, sm_scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > 256) {  // the runtime-head-dim kernel, every type
+    switch (dtype) {
+      case 0: return (int)launch_wide<float>(D, a, st);
+      case 1: return (int)launch_wide<__nv_bfloat16>(D, a, st);
+      case 2: return (int)launch_wide<__half>(D, a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (D) {
 #define DSTPU_SPARSE_CASE(d) \
   case d:                    \

@@ -10,9 +10,10 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 1. build every CUDA kernel of the path from ``deepspeed_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together; the sources include
    ``csrc/hopper.cuh`` and ``csrc/wide_head.cuh``), and beside them the
-   previous versions of the six sources this version changed, from
-   ``baselines/previous/`` (W and E redesigned; flash forward and
-   backward, paged decode and S given a runtime-head-dim path past 256);
+   parent commit's build of seven sources, from ``baselines/previous/``
+   with the parent's ``hopper.cuh`` (paged decode B and evoformer dK/dV
+   E'' redesigned; A, A', A'', S, W, G, E and E' must give the parent's
+   bits);
 2. kernel A, flash-attention forward, against its plain PyTorch version
    computed in fp32 on the same inputs (limits in ``FLASH_TOL``/``LSE_TOL``) on
    the card at llama-1b prefill shapes (+ a chunked-prefill window,
@@ -22,12 +23,16 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
    kernel), timed beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` as a yardstick at the serving shape,
    the training shape (B=4), llama-7b's heads (D=128) and D = 512; the
-   previous build timed in turns with the new one (previous, new, new,
-   previous) and bit-equal to it;
-3. kernel B, paged decode attention, the same way at the llama-1b decode
-   shape (+ int8 pages, a NaN-poisoned trash page, ALiBi, D = 72, 80, 96
-   and 160, and D = 288, 320 and 512 with bf16 and int8 pages; ``PAGED_TOL``;
-   the timed cases bit-equal to the previous build and timed in turns);
+   parent's build timed in turns with this one (parent, new, new, parent)
+   and bit-equal to it;
+3. kernel B, paged decode attention, the same way at the decode shapes of
+   llama-1b (bf16 and int8 pages), llama-7b (bf16 and int8 pages) and
+   Mixtral-8x7b (+ a NaN-poisoned trash page, ALiBi, D = 72, 80, 96 and
+   160, falcon-7b's 71 query heads over one KV head, 16 query heads of
+   256 over 2, fp32 pools at D = 200 and 256, pages of 128 and 256
+   slots, and D = 288, 320 and 512 with bf16 and int8 pages; ``PAGED_TOL``;
+   every output bit-equal across two calls; the parent's kernel held to
+   the same limit and timed in turns; past D = 256 the parent's bits);
 4. the engine: ``InferenceEngineV2`` serving llama-1b at full width and
    depth in bf16 with random seeded weights, 12 greedy requests through
    8 slots, once with whole-prompt prefill and once with 256-token
@@ -45,8 +50,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
    backward, and GQA, ALiBi, uneven-S, D = 72, 80, 96 and 160, fp16 and
    fp32 corners, D = 288, 320 and 512 (bf16 causal, fp32 full; timed at
    512); bf16/fp16 gradients bit-equal across two calls, strided q/k/v/dO
-   views bit-equal to their contiguous copies, and at the timed shapes up
-   to D = 256 bit-equal to the previous build's, timed in turns with it;
+   views bit-equal to their contiguous copies, and at the timed shapes
+   bit-equal to the parent's build, timed in turns with it;
 7. kernel C, fused Adam, against its plain version (``ADAM_TOL``) on the
    65.5M-element embedding leaf of llama-1b (timed beside its bound and
    ``torch._fused_adamw_``) and odd-sized, unaligned and bf16-moment leaves;
@@ -66,10 +71,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 10. kernel W, the weight-only quantized matmul, against its plain version
     computed in fp32 on the same inputs (``WQ_TOL``) at llama-7b's four
     matrix shapes, decode (M = 8) and prefill (M = 900), int8 and int4, bf16
-    x (timed beside its bound, its plain version, the previous kernel in
-    turns and, as context only, a cuBLAS bf16 GEMM on the dequantized
-    weight; for int4 at group 128, ``torch._weight_int4pack_mm`` on the
-    repacked codes), M = 1, 16, 17 and 64, fp16 and fp32 x, padded K,
+    x (timed beside its bound, its plain version, the parent's build in
+    turns and bit-equal to it, and, as context only, a cuBLAS bf16 GEMM on
+    the dequantized weight; for int4 at group 128,
+    ``torch._weight_int4pack_mm`` on the repacked codes), M = 1, 16, 17 and
+    64, fp16 and fp32 x, padded K,
     unaligned K and N, and groups 64, 16 and 48; every output bit-equal
     across two calls;
 11. kernels Q and DQ, int8 block quantize / dequantize, bit-equal to their
@@ -106,7 +112,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     routed rows, 2 x tokens, not the padded P), fp16 and fp32; a
     non-monotone block -> expert map at block_rows 8 and 16, ragged F and
     H, one expert for every block; the count of used blocks (``n_used``)
-    skipping the padding, bit-equal across calls;
+    skipping the padding, bit-equal across calls; the timed cases bit-equal
+    to the parent's build and timed in turns;
 16. MoE serving: Mixtral-8x7b at full width and 16 of 32 layers (bf16,
     dropless, seeded random weights) through ``InferenceEngineV2``, the 12
     requests of phase 4 with whole-prompt and 256-token chunked prefill,
@@ -127,7 +134,7 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     heads from a 1-head layout, block 256, an all-empty layout row whose
     output is 0, D = 72, 80 and 160, blocks 8, 16, 24, 32 and 48 with S off
     a multiple of 64, D = 288, 320 and 512, timed at 512); the timed cases
-    up to D = 256 bit-equal to the previous build and timed in turns;
+    bit-equal to the parent's build and timed in turns;
     the path: the six main calls of the entry point, counter
     zeroed before and read after (one launch each); a CUDA call with
     inputs that require a gradient raises;
@@ -136,10 +143,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     ``EVO_BWD_TOL``, ``EVO_DBIAS_TOL``) at AlphaFold 2's MSA row attention
     with pair bias (B = 1, S = 512, N = 384, H = 8, D = 32, bf16) and its
     triangle attention (S = N = 384, H = 4), timed beside their bounds, the
-    plain versions, E against the previous E in turns, and SDPA with the
-    biases summed into a float mask (and its backward, without and with the
-    mask's gradient reduced to dbias1 and dbias2: E' + E''s same-function
-    yardstick); E' and E'' bit-equal to the previous build's; corners: no
+    plain versions, E and E'' against the parent's in turns, and SDPA with
+    the biases summed into a float mask (and its backward, without and with
+    the mask's gradient reduced to dbias1 and dbias2: E' + E''s
+    same-function yardstick); E and E' bit-equal to the parent's build, the
+    parent's E'' held to the same limits; corners: no
     bias, bias1 only, [None, b2], D = 16/64/128, ragged N = 300 and Q != K,
     fp16, fp32, a row masked by -1e9, K = 700 past the pair bias E keeps
     resident, an odd count of MSA rows, and the
@@ -227,14 +235,16 @@ WQ_COSINE = {8: 0.999}
 WQ_DEQUANT_COSINE = 0.999
 PARITY_LOGITS_TOL = 2e-3
 DEV = "cuda"
-#: the previous versions of the kernels this version changed: W and E
-#: (redesigned), A, A', A'', B and S (a runtime-head-dim path added past 256,
-#: their kernels up to 256 untouched), built beside the new ones; W and E
-#: are timed in turns with them, and A, A', A'', B and S must give their
-#: bits.  Their sources sit in BASELINE_DIR.
+#: the parent commit's build of the kernels, built beside today's from
+#: their sources in BASELINE_DIR (which holds the parent's hopper.cuh, found
+#: before csrc's by their includes): B (paged decode) and E'' (evoformer dK/dV)
+#: were redesigned and are timed in turns with the parent's, held to the
+#: same limits; every other kernel timed here (A, A', A'', B past head dim
+#: 256, S, W, E, E' and G) must give the parent's bits.
 BASELINE_DIR = os.path.join(ROOT, "baselines", "previous")
 BASELINE_KERNELS = ("wq_matmul", "evoformer_attn", "flash_attention_fwd",
-                    "flash_attention_bwd", "paged_attention", "sparse_attention")
+                    "flash_attention_bwd", "paged_attention", "sparse_attention",
+                    "grouped_matmul")
 
 
 def register_baselines(op_builder):
@@ -247,28 +257,31 @@ def register_baselines(op_builder):
 
 
 class Baseline:
-    """The previous kernels.  Those whose C entry points kept their
-    signatures run through today's wrappers with the previous library
-    swapped in (``swapped``); W and E's forward, whose entry points changed,
-    through their own."""
+    """The parent's kernels.  Those whose C entry points kept their
+    signatures run through today's wrappers with the parent's library
+    swapped in (``swapped``); B and E'', whose entry points changed, through
+    the parent's wrapper code (``paged_decode``, ``evo_bwd_dkv``)."""
 
     def __init__(self, op_builder):
         import ctypes
 
         from deepspeed_tpu_torch.ops import evoformer_attn as ev
         from deepspeed_tpu_torch.ops import flash_attention as fa
+        from deepspeed_tpu_torch.ops import grouped_matmul as gm
         from deepspeed_tpu_torch.ops import paged_attention as pa
         from deepspeed_tpu_torch.ops import sparse_attention as sa
         from deepspeed_tpu_torch.ops import wq_matmul as wq
 
         P, I, L, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        self.ob, self.ev, self.wq = op_builder, ev, wq
+        self.ob, self.ev = op_builder, ev
         today = {"flash_attention_fwd": fa._SIG, "flash_attention_bwd": fa._BWD_SIG,
                  "paged_attention": pa._SIG, "sparse_attention": sa._SIG,
-                 "wq_matmul": wq._SIG, "evoformer_attn": ev._SIG}
-        prev = {**today, "wq_matmul": {"dstpu_wq_matmul": [P] * 5 + [I] * 10 + [P]},
-                "evoformer_attn": {**ev._SIG, "dstpu_evoformer_attn_fwd":
-                                   [P] * 7 + [I] * 7 + [Fl] + [L] * 12 + [P]}}
+                 "wq_matmul": wq._SIG, "evoformer_attn": ev._SIG, "grouped_matmul": gm._SIG}
+        prev = {**today,
+                "paged_attention": {"dstpu_paged_decode_attention":
+                                    [P] * 10 + [I] * 9 + [Fl, P]},
+                "evoformer_attn": {**ev._SIG, "dstpu_evoformer_attn_bwd_dkv":
+                                   [P] * 13 + [I] * 7 + [Fl, I, I] + [L] * 16 + [P]}}
         self.libs = {n: op_builder.load(n + "_previous", prev[n]) for n in BASELINE_KERNELS}
         for n in BASELINE_KERNELS:  # today's, loaded before any swap
             op_builder.load(n, today[n])
@@ -283,47 +296,59 @@ class Baseline:
         finally:
             self.ob._libs[name] = cur
 
-    def wq_matmul(self, x, codes, scale, bits, group=128):
-        """The previous W (mma.sync, 16- or 64-row tiles, 32-row stages)."""
-        K = x.shape[-1]
-        N = codes.shape[1]
-        M = x.numel() // K
-        n_groups = scale.shape[0]
-        tm, per_sm = (16, 8) if M <= 16 else ((64, 4) if x.dtype != torch.float32
-                                             and group % 32 == 0 else (64, 2))
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        # its split rule: K split at group boundaries until the blocks cover
-        # the SMs per_sm times (rounded up)
-        target, tiles = per_sm * sms, -(-M // tm) * -(-N // 64)
-        splits, per = 1, n_groups
-        if tiles < target:
-            per = -(-n_groups // min(n_groups, -(-target // tiles)))
-            splits = -(-n_groups // per)
-        ws = torch.empty((splits, M, N), dtype=torch.float32, device=DEV) if splits > 1 else None
-        out = torch.empty((M, N), dtype=x.dtype, device=DEV)
-        err = self.libs["wq_matmul"].dstpu_wq_matmul(
-            x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), self.ob.dtype_code(x.dtype), bits, M, K, N,
-            group, n_groups, splits, per, tm, torch.cuda.current_stream().cuda_stream)
-        self.ob.check(err, "wq_matmul (previous)")
+    def paged_decode(self, q, k_pool, v_pool, table, pos, k_scale=None, v_scale=None,
+                     alibi_slopes=None):
+        """The parent's B (blocks of up to 8 warps over runs of 8 pages, the
+        runs merged by a second kernel through fp32 scratch)."""
+        B, NH, D = q.shape
+        P, ps, KVH, _ = k_pool.shape
+        MP = table.shape[1]
+        quant = k_scale is not None
+        Dk = D if D > 256 else (-(-D // 16) * 16 if D <= 128 else -(-D // 32) * 32)
+        runs = -(-MP // 8)
+        part = (torch.empty((B * KVH * runs * (NH // KVH) * (Dk + 2),), dtype=torch.float32,
+                            device=DEV) if runs > 1 else None)
+        slopes = None if alibi_slopes is None else alibi_slopes.float().contiguous()
+        out = torch.empty_like(q)
+        err = self.libs["paged_attention"].dstpu_paged_decode_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+            table.data_ptr(), pos.data_ptr(), None if slopes is None else slopes.data_ptr(),
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            self.ob.dtype_code(q.dtype), int(quant), B, NH, KVH, D, ps, MP, 8,
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+        self.ob.check(err, "paged_decode_attention (previous)")
         return out
 
-    def evo_fwd(self, q, k, v, b1, b2):
-        """The previous E (the cp.async tile kernel for every shape)."""
+    def evo_bwd_dkv(self, q, k, v, do, lse, delta, b1, b2):
+        """The parent's E'' (mma.sync, 64-key x 64-query tiles, bias2 staged
+        per tile by cp.async)."""
+        ev = self.ev
         B, S, Q, H, D = q.shape
         K = k.shape[2]
-        o = torch.empty((B, S, Q, H, D), dtype=q.dtype, device=DEV)
-        lse = torch.empty((B, S, H, Q), dtype=torch.float32, device=DEV)
-        err = self.libs["evoformer_attn"].dstpu_evoformer_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), self.ev._ptr(b1), self.ev._ptr(b2),
-            o.data_ptr(), lse.data_ptr(), self.ob.dtype_code(q.dtype), B, S, Q, K, H, D,
-            1.0 / math.sqrt(D), *self.ev._strides(q, k, v),
-            torch.cuda.current_stream().cuda_stream)
-        self.ob.check(err, "evoformer_attn_fwd (previous)")
-        return o, lse
+        want = b2 is not None
+        lib = self.libs["evoformer_attn"]
+        qranges = lib.dstpu_evoformer_attn_dkv_qranges(self.ob.dtype_code(q.dtype), Q, D,
+                                                       int(want))
+        blocks = B * H * -(-K // 64) * qranges
+        chunks = S if not want else min(S, max(1, -(-4 * ev._sm_count(q.device) // blocks)))
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        db2 = torch.empty((B, H, Q, K), dtype=torch.float32, device=DEV) if want else None
+        part = (torch.empty((B * H, chunks, Q * K), dtype=torch.float32, device=DEV)
+                if want and chunks > 1 else None)
+        kv_part = (torch.empty((qranges, 2, k.numel()), dtype=torch.float32, device=DEV)
+                   if qranges > 1 else None)
+        err = lib.dstpu_evoformer_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), ev._ptr(b1), ev._ptr(b2), dk.data_ptr(), dv.data_ptr(),
+            ev._ptr(db2), ev._ptr(part), ev._ptr(kv_part), self.ob.dtype_code(q.dtype),
+            B, S, Q, K, H, D, 1.0 / math.sqrt(D), chunks, qranges,
+            *ev._strides(q, k, v, do), torch.cuda.current_stream().cuda_stream)
+        self.ob.check(err, "evoformer_attn_bwd_dkv (previous)")
+        return dk, dv, db2
 
 
-#: set in main(): the previous kernels
+#: set in main(): the parent's kernels
 BASE = None
 
 
@@ -502,11 +527,11 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
             plain_ms=device_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
             library_ms=device_ms(lambda: sdpa(qh, kh, vh, mask, NH // KVH, top_left)),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=4.0 * D * pairs)
-        if BASE is None or D > 256:  # the previous build took D up to 256
+        if BASE is None:
             rec["ms"] = device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
         else:
-            # the previous build on the same inputs: the same bits (its
-            # kernels up to D = 256 are today's), and its time in turns
+            # the parent's build on the same inputs: the same bits (its
+            # kernels are today's), and its time in turns
             def prev():
                 return BASE.swapped("flash_attention_fwd",
                                     lambda: fa.flash_attention_fwd(q, k, v, **kw))
@@ -514,7 +539,7 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
             po, plse = prev()
             torch.cuda.synchronize()
             same = torch.equal(po, o) and torch.equal(plse, lse)
-            check(same, f"flash {name}: other bits than the previous build")
+            check(same, f"flash {name}: other bits than the parent's build")
             prev_ms, rec["ms"], four = turns(prev, lambda: fa.flash_attention_fwd(q, k, v, **kw))
             rec.update(previous_ms=prev_ms, turns_prev_new_new_prev=four,
                        bit_equal_to_previous=same)
@@ -526,7 +551,9 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
 # -- phase 3: paged decode attention ----------------------------------------
 
 def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False,
-               alibi=False, timed=False, seed=0):
+               alibi=False, timed=False, seed=0, parent=True):
+    """Kernel B against its fp32 plain version; with ``parent`` (a shape
+    the parent's build takes) the parent's kernel on the same inputs."""
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
 
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -558,17 +585,42 @@ def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False
     args = (q, k_pool, v_pool, table, pos)
     kw = dict(k_scale=k_scale, v_scale=v_scale, alibi_slopes=slopes)
     out = pa.paged_decode_attention(*args, **kw)
+    again = pa.paged_decode_attention(*args, **kw)
     pools32 = (k_pool, v_pool) if quant else (k_pool.float(), v_pool.float())
     ref = pa.paged_decode_attention_plain(q.float(), *pools32, table, pos, **kw)
     torch.cuda.synchronize()
     err, atol_used, ok = max_err(out, ref, PAGED_TOL[dtype])
     rec = {"case": name, "shape": [B, NH, KVH, D, ps, MP], "dtype": str(dtype)[6:],
            "quant": quant, "alibi": alibi, "positions": pos.tolist(),
-           "max_abs_err": err, "atol_used": atol_used, "tol": PAGED_TOL[dtype]}
+           "max_abs_err": err, "atol_used": atol_used, "tol": PAGED_TOL[dtype],
+           "resident": (pa.resident_blocks(dtype, quant, D, ps, MP, pa.row_groups(NH // KVH)[1])
+                        if D <= 256 else None),
+           "n_split": pa.split_count(B, KVH, MP, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count, pa.row_groups(NH // KVH)[0],
+                                     pa.resident_blocks(dtype, quant, D, ps, MP,
+                                                        pa.row_groups(NH // KVH)[1]))
+           if D <= 256 else None,
+           "row_groups": pa.row_groups(NH // KVH), "chunk": pa.page_chunk(ps),
+           "tma": pa.tma_pages(D), "bit_equal_across_calls": torch.equal(out, again)}
     print(json.dumps({"paged_check": rec}))
     check(bool(torch.isfinite(out).all()), f"paged {name}: non-finite output")
     check(ok, f"paged {name}: kernel vs fp32 plain beyond {PAGED_TOL[dtype]} "
           f"(max abs {err:.3g}, atol used {atol_used:.3g})")
+    check(rec["bit_equal_across_calls"], f"paged {name}: outputs differ between two calls")
+    if BASE is not None and parent:
+        # the parent's build on the same inputs: past head dim 256 (the
+        # runtime-head-dim kernel, unchanged) its bits; up to 256 (B
+        # redesigned) the same limit
+        prev_out = BASE.paged_decode(*args, **kw)
+        torch.cuda.synchronize()
+        if D > 256:
+            same = torch.equal(prev_out, out)
+            check(same, f"paged {name}: other bits than the parent's build")
+            rec["bit_equal_to_previous"] = same
+        else:
+            p_err, _, p_ok = max_err(prev_out, ref, PAGED_TOL[dtype])
+            check(p_ok, f"paged {name}: the parent's kernel is beyond {PAGED_TOL[dtype]}")
+            rec["previous_max_abs_err"] = p_err
     if poison:
         # NaN in the trash page: the kernel never loads it, so its output
         # is bit-identical to the clean run
@@ -601,20 +653,24 @@ def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False
         def new():
             return pa.paged_decode_attention(*args, **kw)
 
-        if BASE is not None and D <= 256:
-            # the previous build on the same inputs: the same bits (its
-            # kernel up to D = 256 is today's), and its time in turns
-            def prev():
-                return BASE.swapped("paged_attention", new)
-
-            same = torch.equal(prev(), out)
-            check(same, f"paged {name}: other bits than the previous build")
-            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
-            rec["bit_equal_to_previous"] = same
+        if BASE is not None:  # the parent's kernel in turns
+            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(
+                lambda: BASE.paged_decode(*args, **kw), new)
         else:
             ms = device_ms(new)
+        if D <= 256 and not quant:
+            # every split count on the same inputs, in turns (1, 2, 4, 8, 8,
+            # 4, 2, 1): what the rule's pick (``n_split``) is worth
+            rule, sweep = pa.split_count, {}
+            try:
+                for n in (1, 2, 4, 8, 8, 4, 2, 1):
+                    pa.split_count = lambda *_, n=n, **__: n
+                    sweep.setdefault(n, []).append(device_ms(new))
+            finally:
+                pa.split_count = rule
+            rec["split_sweep_ms"] = {n: sum(t) / len(t) for n, t in sweep.items()}
         rec.update(
-            ms=ms,
+            ms=ms, bound_share=b_ms / ms,
             plain_ms=device_ms(lambda: pa.paged_decode_attention_plain(*args, **kw)),
             library_ms=None if quant else device_ms(library),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=ops)
@@ -669,6 +725,14 @@ def paged_phase(pa):
                    timed=True),
         paged_case(pa, "int8_pages", 8, 32, 8, 64, 16, 64, bf16, quant=True, poison=True,
                    timed=True),
+        # the decode shapes of the large served models: llama-7b (MHA, 32 KV
+        # heads of 128) in bf16 and int8 pages, Mixtral-8x7b (8 KV heads of 128)
+        paged_case(pa, "llama7b_b8_ctx1024", 8, 32, 32, 128, 16, 64, bf16, poison=True,
+                   timed=True),
+        paged_case(pa, "llama7b_int8_pages", 8, 32, 32, 128, 16, 64, bf16, quant=True,
+                   poison=True, timed=True),
+        paged_case(pa, "mixtral_b8_ctx1024", 8, 32, 8, 128, 16, 64, bf16, poison=True,
+                   timed=True),
         paged_case(pa, "alibi_fp32_21_pages", 4, 8, 2, 32, 16, 21, fp32, alibi=True),
         paged_case(pa, "mha_d128_fp16_one_run", 3, 8, 8, 128, 8, 6, fp16),
         # head dims of phi 2 (80) and gpt-neox 20b (96)
@@ -678,6 +742,20 @@ def paged_phase(pa):
         paged_case(pa, "d72_gqa_20_pages", 4, 32, 8, 72, 16, 20, bf16, poison=True),
         paged_case(pa, "int8_d72", 3, 8, 4, 72, 16, 12, bf16, quant=True),
         paged_case(pa, "d160_alibi", 3, 8, 2, 160, 16, 12, bf16, alibi=True),
+        # wide GQA groups (falcon-7b: 71 query heads over one KV head, in row
+        # groups), gemma-like 8 rows of 256, fp32 pools past 160 (fewer
+        # warps), pages of 128 and 256 slots (staged in chunks of 16)
+        paged_case(pa, "falcon7b_71_to_1", 4, 71, 1, 64, 16, 20, bf16, poison=True),
+        paged_case(pa, "int8_falcon7b_alibi", 3, 71, 1, 64, 16, 12, bf16, quant=True,
+                   alibi=True),
+        paged_case(pa, "g8_d256", 3, 16, 2, 256, 16, 12, bf16, poison=True),
+        paged_case(pa, "fp32_d256", 3, 4, 2, 256, 16, 12, fp32, alibi=True),
+        paged_case(pa, "fp32_d200_g8", 2, 8, 1, 200, 16, 10, fp32),
+        paged_case(pa, "ps128_pages", 3, 8, 2, 64, 128, 6, bf16, poison=True),
+        paged_case(pa, "int8_ps256_d128", 2, 8, 2, 128, 256, 3, bf16, quant=True, poison=True),
+        # (the parent's one warp of two 128-slot fp32 pages overflows shared memory)
+        paged_case(pa, "fp32_ps128_d256", 2, 4, 1, 256, 128, 3, fp32, poison=True,
+                   parent=False),
         # head dims past 256: the runtime-head-dim kernel, bf16 and int8 pages
         *(paged_case(pa, f"wide_d{D}", 3, 8, 2, D, 16, 12, bf16, poison=True)
           for D in (288, 320, 512)),
@@ -730,9 +808,9 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
         check(same, f"flash bwd {name}: gradients differ between two calls")
         rec["bit_equal_across_calls"] = same
     print(json.dumps({"flash_bwd_check": rec}))
-    if timed and BASE is not None and dtype != torch.float32 and D <= 256:
-        # the previous build on the same inputs: the same bits (its kernels
-        # up to D = 256 are today's), and its time in turns
+    if timed and BASE is not None and dtype != torch.float32:
+        # the parent's build on the same inputs: the same bits (its kernels
+        # are today's), and its time in turns
         def new_bwd():
             return (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
                     *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
@@ -743,7 +821,7 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
         prev = prev_bwd()
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), prev))
-        check(same, f"flash bwd {name}: other bits than the previous build")
+        check(same, f"flash bwd {name}: other bits than the parent's build")
         rec["bit_equal_to_previous"] = same
         p_ms, n_ms, four = turns(prev_bwd, new_bwd)
         rec.update(previous_dq_dkv_ms=p_ms, turns_dq_dkv_prev_new_new_prev=four)
@@ -1243,7 +1321,8 @@ def engine_phase(fa, pa):
             # the 900-token prompt alone (max_new_tokens=1: no decode)
             rec["decode_profile"] = profile_steps(
                 eng, [RaggedRequest(prompt_ids=p[:64], max_new_tokens=8)
-                      for p in prompts[:cfg.max_seqs]], warm_steps=2, steps=4)
+                      for p in prompts[:cfg.max_seqs]], warm_steps=2, steps=4,
+                groups={"paged": "paged_decode"})
             rec["prefill_profile"] = profile_steps(
                 eng, [RaggedRequest(prompt_ids=prompts[1], max_new_tokens=1)],
                 warm_steps=0, steps=1)
@@ -1366,15 +1445,15 @@ def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
             return wq.wq_matmul(x, codes, scale, **kw)
 
         if BASE is not None:
-            # the previous kernel on the same inputs, held to the same limit,
-            # and its time in turns
-            prev = BASE.wq_matmul(x, codes, scale, **kw)
-            torch.cuda.synchronize()
-            p_err, _, p_ok = max_err(prev, ref, tol)
-            check(p_ok, f"wq {name}: the previous kernel is beyond {tol}")
-            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(
-                lambda: BASE.wq_matmul(x, codes, scale, **kw), new)
-            rec["previous_max_abs_err"] = p_err
+            # the parent's build on the same inputs: its bits, and its time
+            # in turns
+            def prev():
+                return BASE.swapped("wq_matmul", new)
+
+            same = torch.equal(prev(), out)
+            check(same, f"wq {name}: other bits than the parent's build")
+            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
+            rec["bit_equal_to_previous"] = same
         else:
             ms = device_ms(new)
         rec.update(ms=ms, bound_share=b_ms / ms,
@@ -1390,9 +1469,9 @@ def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
 
 def wq_phase(wq):
     """Kernel W at llama-7b's shapes, decode and prefill, int8 and int4
-    (timed, bf16 x, in turns with the previous kernel), the token tiles of
-    every M class, fp16 and fp32 x, groups 64, 16 and 48, and padded or
-    unaligned corners."""
+    (timed, bf16 x, bit-equal to the parent's build and in turns with it),
+    the token tiles of every M class, fp16 and fp32 x, groups 64, 16 and 48,
+    and padded or unaligned corners."""
     bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
     recs = []
     for bits in (8, 4):
@@ -1632,7 +1711,7 @@ def quant_engine_phase(fa, pa, wq):
               f"int{bits}: flash/paged launches {la} vs {L} x {calls}/{steps}")
         rec["decode_profile"] = profile_steps(
             eng, [RaggedRequest(prompt_ids=p[:64], max_new_tokens=8) for p in prompts[:8]],
-            warm_steps=2, steps=4, groups={"wq": "wq_"})
+            warm_steps=2, steps=4, groups={"wq": "wq_", "paged": "paged_decode"})
         rec.update(stats=st, param_bytes=eng.param_bytes, cosine_vs_bf16=cos,
                    cosine_vs_fp32=cos32, init_s=init_s,
                    wq_per_model_call=per_call,
@@ -1864,7 +1943,21 @@ def gmm_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_tokens=No
         monotone = bool((be[1:] >= be[:-1]).all())
         lib_name = "torch._grouped_mm" if monotone and hasattr(torch, "_grouped_mm") else None
         offs = grouped_mm_offs(be, E, block_rows) if lib_name else None
-        ms = device_ms(lambda: gm.grouped_matmul(x, w, be, block_rows, n_used))
+        def new():
+            return gm.grouped_matmul(x, w, be, block_rows, n_used)
+
+        if BASE is not None:
+            # the parent's build on the same inputs: its bits, and its time
+            # in turns
+            def prev():
+                return BASE.swapped("grouped_matmul", new)
+
+            same = torch.equal(prev(), out)
+            check(same, f"gmm {name}: other bits than the parent's build")
+            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
+            rec["bit_equal_to_previous"] = same
+        else:
+            ms = device_ms(new)
         rec.update(
             ms=ms, bound_share=b_ms / ms, routed_rows=rows,
             plain_ms=device_ms(lambda: gm.grouped_matmul_plain(x, w, be, block_rows, n_used),
@@ -1963,7 +2056,7 @@ def mixtral_engine_phase(fa, pa, gmm):
         if not chunk:
             rec["decode_profile"] = profile_steps(
                 eng, [RaggedRequest(prompt_ids=p[:64], max_new_tokens=8) for p in prompts[:8]],
-                warm_steps=2, steps=4)
+                warm_steps=2, steps=4, groups={"paged": "paged_decode"})
             rec["prefill_profile"] = profile_steps(
                 eng, [RaggedRequest(prompt_ids=prompts[1], max_new_tokens=1)],
                 warm_steps=0, steps=1)
@@ -2186,14 +2279,14 @@ def sparse_case(sa, name, cfg, causal, dtype, shape=None, timed=False, seed=0,
         def new():
             return sa.sparse_attention(q, k, v, cfg, causal=causal)
 
-        if BASE is not None and D <= 256:
-            # the previous build on the same inputs: the same bits (its
-            # kernel up to D = 256 is today's), and its time in turns
+        if BASE is not None:
+            # the parent's build on the same inputs: the same bits (its
+            # kernel is today's), and its time in turns
             def prev():
                 return BASE.swapped("sparse_attention", new)
 
             same = torch.equal(prev(), out)
-            check(same, f"sparse {name}: other bits than the previous build")
+            check(same, f"sparse {name}: other bits than the parent's build")
             rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
             rec["bit_equal_to_previous"] = same
         else:
@@ -2413,16 +2506,26 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
     check(same, f"evo {name}: gradients differ between two calls")
     rec["bit_equal_across_calls"] = same
     if BASE is not None:
-        # E' and E'' are the previous build's: the same bits from the same
-        # inputs, lse and delta
-        prev = BASE.swapped("evoformer_attn", lambda: (
-            *ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f),
-            *ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f)))
+        # E and E' are the parent's build's: the same bits from the same
+        # inputs (and lse, delta); the parent's E'' is held to the same limits
+        p_o, p_lse, p_dq, p_db1 = BASE.swapped("evoformer_attn", lambda: (
+            *ev.evoformer_attn_fwd(q, k, v, b1f, b2f),
+            *ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)))
+        p_dkv = BASE.evo_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f)
         torch.cuda.synchronize()
         same = all((x is None and y is None) or torch.equal(x, y)
-                   for x, y in zip((dq, db1, dk, dv, db2), prev))
-        check(same, f"evo {name}: E'/E'' give other bits than the previous build")
-        rec["bwd_bit_equal_to_previous"] = same
+                   for x, y in zip((o, lse, dq, db1), (p_o, p_lse, p_dq, p_db1)))
+        check(same, f"evo {name}: E/E' give other bits than the parent's build")
+        rec["fwd_dq_bit_equal_to_previous"] = same
+        for nm, out, want in zip(("dk", "dv", "db2"), p_dkv,
+                                 (grads_ref[1], grads_ref[2], grads_ref[4])):
+            if out is None:
+                continue
+            tol = EVO_DBIAS_TOL[dtype] if nm == "db2" else EVO_BWD_TOL[dtype]
+            e, _, good = max_err(out, want, tol)
+            rec[f"previous_{nm}_max_abs_err"] = e
+            check(good or masked_row is not None,
+                  f"evo {name}: the parent's {nm} is beyond {tol} (max abs {e:.3g})")
     rec["fwd_stages"] = ev.fwd_stages(q.dtype, K, D, b2f is not None)
     if "past_resident" in name:
         check(rec["fwd_stages"] == 0, f"evo {name}: the pair bias was kept resident")
@@ -2492,23 +2595,23 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
         def new_fwd():
             return ev.evoformer_attn_fwd(q, k, v, b1f, b2f)
 
+        def new_dkv():
+            return ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f)
+
         if BASE is not None:
-            # the previous E on the same inputs, held to the same limits,
-            # and its time in turns
-            po, plse = BASE.evo_fwd(q, k, v, b1f, b2f)
-            torch.cuda.synchronize()
-            p_err, _, p_ok = max_err(po, o_ref, EVO_TOL[dtype])
-            check(p_ok, f"evo {name}: the previous E is beyond {EVO_TOL[dtype]}")
+            # the parent's E and E'' on the same inputs, timed in turns
             rec["previous_fwd_ms"], fwd_ms, rec["turns_prev_new_new_prev"] = turns(
-                lambda: BASE.evo_fwd(q, k, v, b1f, b2f), new_fwd)
+                lambda: BASE.swapped("evoformer_attn", new_fwd), new_fwd)
+            rec["previous_dkv_ms"], dkv_ms, rec["dkv_turns_prev_new_new_prev"] = turns(
+                lambda: BASE.evo_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f), new_dkv)
         else:
-            fwd_ms = device_ms(new_fwd)
+            fwd_ms, dkv_ms = device_ms(new_fwd), device_ms(new_dkv)
         rec.update(
             library_bwd_bias_ms=None if lib_fbb is None else lib_fbb - lib_f,
             fwd_ms=fwd_ms, fwd_bound_share=f_b / fwd_ms,
             dq_ms=device_ms(lambda: ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)),
-            dkv_ms=device_ms(lambda: ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f,
-                                                               b2f)),
+            dkv_ms=dkv_ms, dkv_bound_share=dkv_b / dkv_ms,
+            dkv_query_ranges=ev.dkv_query_ranges(q.dtype, N, D, b2f is not None),
             fwd_plain_ms=device_ms(lambda: ev.evoformer_attn_fwd_plain(q, k, v, b1f, b2f),
                                    iters=3, warmup=1),
             bwd_plain_ms=device_ms(lambda: ev.evoformer_attn_bwd_plain(
@@ -2688,26 +2791,35 @@ def main() -> int:
 
     BASE = Baseline(op_builder)
     warm_clocks()
-    flash = flash_phase(fa)
-    paged = paged_phase(pa)
-    bwd = flash_bwd_phase(fa)
-    adam = adam_phase(fadam)
-    wq_recs = wq_phase(wq)
-    quant = quant_phase(qz)
-    gmm_recs = gmm_phase(gm)
-    sparse = sparse_phase(sa)
-    evo = evo_phase(ev)
+    phase_s = {}
 
-    eng = engine_phase(fa, pa)
-    par = parity_phase()
-    train = train_phase(fa, fadam)
-    tpar = train_parity_phase()
-    qeng = quant_engine_phase(fa, pa, wq)
-    v1 = inference_v1_phase(qz)
-    qpar = quant_parity_phase()
-    moe = mixtral_engine_phase(fa, pa, gm)
-    mpar = moe_parity_phase()
-    evo_train = evo_train_phase(ev)
+    def phase(fn, *args):  # fn(*args), its wall seconds kept under its name
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[fn.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    flash = phase(flash_phase, fa)
+    paged = phase(paged_phase, pa)
+    bwd = phase(flash_bwd_phase, fa)
+    adam = phase(adam_phase, fadam)
+    wq_recs = phase(wq_phase, wq)
+    quant = phase(quant_phase, qz)
+    gmm_recs = phase(gmm_phase, gm)
+    sparse = phase(sparse_phase, sa)
+    evo = phase(evo_phase, ev)
+
+    eng = phase(engine_phase, fa, pa)
+    par = phase(parity_phase)
+    train = phase(train_phase, fa, fadam)
+    tpar = phase(train_parity_phase)
+    qeng = phase(quant_engine_phase, fa, pa, wq)
+    v1 = phase(inference_v1_phase, qz)
+    qpar = phase(quant_parity_phase)
+    moe = phase(mixtral_engine_phase, fa, pa, gm)
+    mpar = phase(moe_parity_phase)
+    evo_train = phase(evo_train_phase, ev)
+    print(json.dumps({"phase_seconds": phase_s}))
 
     def timed(recs, keys):
         return {r["case"]: {k: r.get(k) for k in keys} for r in recs if keys[0] in r}
@@ -2787,8 +2899,21 @@ def main() -> int:
          "ms": main_paged["ms"], "kernel_ms": main_paged["ms"],
          "plain_ms": main_paged["plain_ms"], "bound_ms": main_paged["bound_ms"],
          "bound_by": main_paged["bound_by"], "library_ms": main_paged["library_ms"],
+         "previous_ms": main_paged.get("previous_ms"),
+         "bound_share": main_paged.get("bound_share"),
+         "decode_step_paged_ms": {
+             "llama1b_serving": eng["whole_prompt"]["decode_profile"].get("paged_ms_per_step"),
+             "llama7b_int8": qeng["int8"]["decode_profile"].get("paged_ms_per_step"),
+             "mixtral_8x7b": moe["whole_prompt"]["decode_profile"].get("paged_ms_per_step")},
+         "decode_step_paged_share": {
+             "llama1b_serving":
+                 eng["whole_prompt"]["decode_profile"].get("paged_share_of_device"),
+             "llama7b_int8": qeng["int8"]["decode_profile"].get("paged_share_of_device"),
+             "mixtral_8x7b": moe["whole_prompt"]["decode_profile"].get("paged_share_of_device")},
          "shape": "B=8 NH=32 KVH=8 D=64 ps=16 MP=64 bf16",
-         "timed_cases": timed(paged, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))},
+         "timed_cases": timed(paged, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "previous_ms", "bound_share", "n_split",
+                                      "split_sweep_ms"))},
         {"name": "fused_adam", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
          "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:23",
@@ -2911,13 +3036,16 @@ def main() -> int:
          "ms": main_evo["dkv_ms"], "plain_ms": main_evo["bwd_plain_ms"],
          "bound_ms": main_evo["dkv_bound_ms"], "bound_by": main_evo["dkv_bound_by"],
          "library_ms": main_evo["library_bwd_bias_ms"],
+         "previous_ms": main_evo.get("previous_dkv_ms"),
+         "bound_share": main_evo.get("dkv_bound_share"),
          "library_no_bias_grad_ms": main_evo["library_bwd_ms"], "shape": evo_shape,
          "note": "plain_ms and library_ms compute the whole backward; library_ms: SDPA's "
                  "backward with the float mask requiring grad, plus the two sums that "
                  "reduce its gradient to dbias1 and dbias2 (library_no_bias_grad_ms: "
                  "without the mask's gradient)",
          "timed_cases": timed(evo, ("dkv_ms", "bwd_plain_ms", "dkv_bound_ms",
-                                    "library_bwd_ms", "library_bwd_bias_ms"))},
+                                    "library_bwd_ms", "library_bwd_bias_ms",
+                                    "previous_dkv_ms", "dkv_bound_share"))},
     ]
     check(len(kernels) == 13 and all(k["launches"] > 0 for k in kernels),
           "a kernel of the path never launched")

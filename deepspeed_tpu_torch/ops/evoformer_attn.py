@@ -56,7 +56,7 @@ _SIG = {
     "dstpu_evoformer_attn_fwd": [_P] * 7 + [_I] * 7 + [_F, _I] + _STRIDES + [_P],
     "dstpu_evoformer_attn_bwd_dq": [_P] * 12 + [_I] * 7 + [_F, _I, _I] + _STRIDES + [_L] * 4
                                    + [_P],
-    "dstpu_evoformer_attn_bwd_dkv": [_P] * 13 + [_I] * 7 + [_F, _I, _I] + _STRIDES
+    "dstpu_evoformer_attn_bwd_dkv": [_P] * 13 + [_I] * 7 + [_F] + [_I] * 4 + _STRIDES
     + [_L] * 4 + [_P],
     "dstpu_evoformer_attn_dkv_qranges": [_I] * 4,
     "dstpu_evoformer_attn_dq_kranges": [_I] * 4,
@@ -397,6 +397,27 @@ def dkv_query_ranges(dtype, Q: int, D: int, want_db2: bool) -> int:
                                                 int(want_db2))
 
 
+def dkv_chunks(S: int, blocks: int, sms: int, want_db2: bool) -> int:
+    """Chunks of the MSA rows s that kernel E'' splits each (b, h, key tile,
+    query range) into.  Without bias2 every s is a chunk.  With it (one
+    block per SM: the dbias2 accumulator fills shared memory) the chunks
+    make the grid cover the SMs about four times (48 blocks at AlphaFold
+    2's MSA row attention before chunks, 528 with 11), and their fp32
+    dbias2 partials are added in chunk order by the second pass."""
+    if not want_db2:
+        return S
+    return min(S, max(1, _cdiv(4 * sms, blocks)))
+
+
+def _padded_rows(t: Optional[torch.Tensor], width: int) -> Optional[torch.Tensor]:
+    """``t`` (fp32, contiguous) with its last dim zero-padded to ``width``
+    and 16-byte aligned: kernel E'' copies these rows in whole 16-byte
+    chunks.  ``t`` itself when it is already so."""
+    if t is None or (t.shape[-1] == width and t.data_ptr() % 16 == 0):
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
 def evoformer_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                            b1: Optional[torch.Tensor] = None, b2: Optional[torch.Tensor] = None
@@ -408,19 +429,22 @@ def evoformer_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dk, dv, db2
     (B, S, Q, K, H, D), (q, k, v, do) = _bwd_inputs(q, k, v, do, lse, delta, b1, b2)
     want = b2 is not None
-    # one s per block without bias2; with it (one block per SM: the dbias2
-    # accumulator takes ~100 KB of shared memory), s chunks sized so that the
-    # grid fills about four waves (B * H * key tiles alone is 48 blocks at
-    # AlphaFold 2's MSA row attention, 528 with 11 chunks on 132 SMs), their
-    # partials added in order
     lib = op_builder.load("evoformer_attn", _SIG)
     dtype = op_builder.dtype_code(q.dtype)
-    # the query axis in ranges whose dbias2 accumulators fit a block (one
-    # range up to ~576 residues in bf16); each range's dK/dV are fp32
-    # partials that the kernel's second pass adds in range order
+    if q.dtype == torch.float32:  # the FMA kernel
+        ldb, ldq = K, Q
+    else:
+        # the wgmma kernel: TMA maps take positive strides, and the bias,
+        # lse and delta rows move in 16-byte chunks
+        q, k, v, do = (t if min(t.stride()[:4]) > 0 else t.contiguous() for t in (q, k, v, do))
+        ldb, ldq = _cdiv(K, 4) * 4, _cdiv(Q, 4) * 4
+        b1, b2 = _padded_rows(b1, ldb), _padded_rows(b2, ldb)
+        lse, delta = _padded_rows(lse, ldq), _padded_rows(delta, ldq)
+    # the query axis in ranges whose dbias2 accumulators fit a block; each
+    # range's dK/dV are fp32 partials that the kernel's second pass adds in
+    # range order
     qranges = dkv_query_ranges(q.dtype, Q, D, want)
-    blocks = B * H * _cdiv(K, TILE) * qranges
-    chunks = S if not want else min(S, max(1, _cdiv(4 * _sm_count(q.device), blocks)))
+    chunks = dkv_chunks(S, B * H * _cdiv(K, TILE) * qranges, _sm_count(q.device), want)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     db2 = torch.empty((B, H, Q, K), dtype=torch.float32, device=q.device) if want else None
@@ -433,7 +457,7 @@ def evoformer_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _ptr(b1), _ptr(b2), dk.data_ptr(), dv.data_ptr(), _ptr(db2),
             _ptr(part), _ptr(kv_part), dtype, B, S, Q, K, H, D, 1.0 / math.sqrt(D),
-            chunks, qranges, *_strides(q, k, v, do),
+            chunks, qranges, ldb, ldq, *_strides(q, k, v, do),
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "evoformer_attn_bwd_dkv")
     evoformer_attn_bwd_dkv.launches += 1

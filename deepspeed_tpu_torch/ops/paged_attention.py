@@ -26,8 +26,9 @@ product, as the JAX programs do.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,13 +39,86 @@ NEG_INF = -1e30
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: pages of one sequence each block of the kernel takes; longer tables are
-#: split across blocks and merged by a second kernel
+#: head dims past 256 (the runtime-head-dim kernel): pages of one sequence
+#: each block takes; longer tables are split across blocks and merged by a
+#: second kernel
 PAGES_PER_SPLIT = 8
-_SIG = {"dstpu_paged_decode_attention": [
-    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale table positions slopes out part
-    _I, _I, _I, _I, _I, _I, _I, _I, _I,      # dtype quant B NH KVH D ps MP pages_per_split
-    ctypes.c_float, _P]}                     # scale stream
+#: up to 256: the most blocks (one thread-block cluster) that share one
+#: sequence's pages, the blocks per SM the split count aims at, the most
+#: query rows of one kv head a block takes, and the most slots of a page a
+#: block stages at a time
+MAX_SPLIT = 8
+BLOCKS_PER_SM = 2
+MAX_ROWS = 8
+MAX_CHUNK = 16
+_SIG = {
+    "dstpu_paged_decode_attention": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # q k v k_scale v_scale table positions slopes out
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,  # dtype quant B NH KVH D ps MP P
+        _I, _I, _I, _I,                      # n_split rows chunk tma
+        ctypes.c_float, _P],                 # scale stream
+    "dstpu_paged_decode_resident": [_I] * 7,  # dtype quant D ps MP rows chunk
+    "dstpu_paged_decode_attention_wide": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # ... out part
+        _I, _I, _I, _I, _I, _I, _I, _I,          # dtype quant B NH KVH D ps MP
+        _I, ctypes.c_float, _P],                 # pages_per_split scale stream
+}
+
+
+def row_groups(G: int) -> Tuple[int, int]:
+    """(row groups, query rows a block) up to head dim 256: a kv head's
+    ``G`` query rows go to one block while they are at most ``MAX_ROWS``
+    (every K/V byte then read once for the group); more (falcon-7b's 71
+    over one KV head) are cut into the fewest groups of at most
+    ``MAX_ROWS`` rows, near-equal, over a grid axis, so that a block's
+    accumulators fit shared memory at every head dim."""
+    n = -(-G // MAX_ROWS)
+    return n, -(-G // n)
+
+
+def page_chunk(ps: int) -> int:
+    """Slots a block stages at a time up to head dim 256: the largest
+    divisor of the page size ``ps`` up to ``MAX_CHUNK``, so that a stage
+    stays small at any page size (a page of 16 slots is one chunk; 128 or
+    256 slots, eight or sixteen) and no chunk straddles two pages."""
+    return max(c for c in range(1, min(ps, MAX_CHUNK) + 1) if ps % c == 0)
+
+
+def split_count(B: int, KVH: int, MP: int, sms: int, groups: int = 1,
+                resident: int = BLOCKS_PER_SM) -> int:
+    """Blocks per (sequence, kv head, row group) up to head dim 256, one
+    cluster whose blocks each take an equal run of the sequence's live
+    chunks and merge through distributed shared memory: enough that the
+    grid holds about ``BLOCKS_PER_SM`` blocks an SM, but never more than
+    the ``resident`` blocks an SM holds at once (the kernel's shared memory
+    decides: one at Mixtral-8x7b's decode shape, three at llama-1b's), so
+    the grid runs in one wave; at most ``MAX_SPLIT`` (a portable cluster)
+    and at most the table's ``MP`` pages; 1 once ``B * KVH * groups``
+    covers the SMs."""
+    per_sm = max(1, min(BLOCKS_PER_SM, resident))
+    target = per_sm * sms // max(1, B * KVH * groups)
+    return max(1, min(MAX_SPLIT, MP, target))
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(dtype: torch.dtype, quant: bool, D: int, ps: int, MP: int,
+                    rows: int) -> int:
+    """Blocks of the kernel (head dim up to 256) one SM of the current card
+    holds at once for these shapes: the built library's own answer, from
+    its shared-memory plan, warps and registers."""
+    lib = op_builder.load("paged_attention", _SIG)
+    return lib.dstpu_paged_decode_resident(op_builder.dtype_code(dtype), int(quant), D, ps, MP,
+                                           rows, page_chunk(ps))
+
+
+def tma_pages(D: int) -> bool:
+    """Whether the kernel copies its chunks by TMA (else by cp.async): the
+    rows are the kernel's full width (D a multiple of 16, of 32 past 128),
+    so every row and stride is a whole number of 16-byte vectors (TMA's
+    stride rule) and the box is one row.  Head dims off those widths are
+    read in place by cp.async, their tails zero-filled; past 256 the
+    runtime-head-dim kernel reads device memory directly."""
+    return D <= 256 and padded_head_dim(D) == D
 
 
 def gather_window_attend(q: torch.Tensor, k_c: torch.Tensor, v_c: torch.Tensor,
@@ -148,25 +222,35 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
         if slopes.shape != (NH,):
             raise ValueError(f"alibi_slopes shape {tuple(slopes.shape)} != ({NH},)")
     out = torch.empty_like(q)
-    n_split = -(-MP // PAGES_PER_SPLIT)
-    part = (torch.empty((B * KVH * n_split * (NH // KVH) * (padded_head_dim(D) + 2),),
-                        dtype=torch.float32,
-                        device=q.device) if n_split > 1 else None)
     lib = op_builder.load("paged_attention", _SIG)
-    with torch.cuda.device(q.device):
-        err = lib.dstpu_paged_decode_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None,
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
             page_table.data_ptr(), positions.data_ptr(),
-            None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(),
-            op_builder.dtype_code(q.dtype), int(quant), B, NH, KVH, D, ps, MP,
-            PAGES_PER_SPLIT, 1.0 / math.sqrt(D),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            None if slopes is None else slopes.data_ptr(), out.data_ptr())
+    dims = (op_builder.dtype_code(q.dtype), int(quant), B, NH, KVH, D, ps, MP)
+    with torch.cuda.device(q.device):
+        if D <= 256:
+            groups, rows = row_groups(NH // KVH)
+            n_split = split_count(B, KVH, MP, _sm_count(q.device), groups,
+                                  resident_blocks(q.dtype, quant, D, ps, MP, rows))
+            err = lib.dstpu_paged_decode_attention(
+                *ptrs, *dims, P, n_split, rows, page_chunk(ps), int(tma_pages(D)),
+                1.0 / math.sqrt(D), stream)
+        else:  # the runtime-head-dim kernel; runs of pages merged by a second kernel
+            runs = -(-MP // PAGES_PER_SPLIT)
+            part = (torch.empty((B * KVH * runs * (NH // KVH) * (D + 2),),
+                                dtype=torch.float32, device=q.device) if runs > 1 else None)
+            err = lib.dstpu_paged_decode_attention_wide(
+                *ptrs, None if part is None else part.data_ptr(), *dims, PAGES_PER_SPLIT,
+                1.0 / math.sqrt(D), stream)
     op_builder.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

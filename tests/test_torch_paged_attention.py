@@ -135,3 +135,82 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("DSTPU_TORCH_BUILD", str(tmp_path / "build"))
     with pytest.raises(op_builder.KernelBuildError, match="nvcc"):
         op_builder.build()
+
+
+@pytest.mark.parametrize("B,KVH,MP,sms,groups,resident,n", [
+    (8, 8, 64, 132, 1, 3, 4),     # llama-1b decode: 64 (b, kv head) pairs, 3 blocks an SM
+    (8, 8, 64, 132, 1, 1, 2),     # Mixtral-8x7b: the same pairs, one block an SM
+    (8, 32, 64, 132, 1, 2, 1),    # llama-7b: 256 pairs cover the SMs already
+    (1, 8, 64, 132, 1, 2, 8),     # one sequence: the cluster limit
+    (8, 8, 2, 132, 1, 2, 2),      # no more splits than pages of the table
+    (64, 32, 64, 132, 1, 2, 1),   # far past a wave
+    (3, 8, 12, 132, 1, 1, 5),
+    (4, 8, 20, 16, 1, 2, 1),      # a small card
+    (8, 1, 64, 132, 9, 2, 3),     # falcon-7b: one kv head, 71 query rows in 9 groups
+    (8, 1, 64, 132, 9, 1, 1),
+    (1, 1, 64, 132, 9, 2, 8),
+    (8, 4, 64, 132, 2, 2, 4),
+    (8, 8, 64, 132, 1, 0, 2),     # no answer from the card counts as one block an SM
+])
+def test_split_count_covers_the_sms_within_a_cluster(B, KVH, MP, sms, groups, resident, n):
+    """Up to head dim 256 each (sequence, kv head, row group) is split over
+    a cluster of blocks: enough that the grid holds about two blocks an SM
+    but no more than an SM holds at once (one wave), at most 8 (a portable
+    cluster) and at most the table's pages."""
+    assert pa.split_count(B, KVH, MP, sms, groups, resident) == n
+    assert 1 <= n <= pa.MAX_SPLIT
+
+
+@pytest.mark.parametrize("resident", [1, 2, 3, 8])
+def test_split_count_never_leaves_the_grid_short_of_a_wave(resident):
+    """Whenever fewer than the SMs' worth of (sequence, kv head, row group)
+    blocks exist, the splits bring the grid past half the SMs (unless the
+    cluster limit or the table's pages stop it), and never past the blocks
+    the SMs hold at once unless the pairs alone do."""
+    sms = 132
+    for B in (1, 2, 4, 8, 16):
+        for KVH in (1, 2, 4, 8, 32):
+            for groups in (1, 2, 9):
+                pairs = B * KVH * groups
+                n = pa.split_count(B, KVH, 64, sms, groups, resident)
+                assert pairs * n >= min(sms // 2 + 1, pairs * pa.MAX_SPLIT)
+                assert pairs * n <= max(min(pa.BLOCKS_PER_SM, resident) * sms, pairs)
+
+
+@pytest.mark.parametrize("D,tma", [
+    (64, True), (128, True), (16, True), (160, True), (256, True), (224, True),
+    (72, False),   # rows off 16 are read in place by cp.async, tails zero-filled
+    (100, False), (33, False), (136, False), (1, False),
+    (288, False),  # the runtime-head-dim kernel reads device memory directly
+])
+def test_tma_pages_rule(D, tma):
+    """Chunks are TMA copies when the rows are the kernel's full width
+    (every stride then a whole number of 16-byte vectors, the box one row),
+    at every page size: a box holds one chunk of at most 16 slots.
+    Otherwise every lane copies its vectors by cp.async."""
+    assert pa.tma_pages(D) is tma
+
+
+@pytest.mark.parametrize("G,groups,rows", [
+    (1, 1, 1), (4, 1, 4), (8, 1, 8),  # llama-7b, llama-1b / Mixtral, gemma-like: one block
+    (9, 2, 5), (16, 2, 8), (17, 3, 6),
+    (71, 9, 8),                        # falcon-7b: 71 query heads over one KV head
+    (128, 16, 8),
+])
+def test_row_groups_bound_a_block_to_eight_rows(G, groups, rows):
+    """A kv head's query rows go to one block up to 8 and to the fewest
+    near-equal groups of at most 8 past that; every group holds a row."""
+    assert pa.row_groups(G) == (groups, rows)
+    assert rows <= pa.MAX_ROWS and (groups - 1) * rows < G <= groups * rows
+
+
+@pytest.mark.parametrize("ps,chunk", [
+    (16, 16), (8, 8), (1, 1), (32, 16), (128, 16), (256, 16),
+    (24, 12), (48, 16), (17, 1), (257, 1), (100, 10),
+])
+def test_page_chunk_divides_the_page(ps, chunk):
+    """A block stages the largest divisor of the page size up to 16 slots,
+    so no chunk straddles two pages and a stage stays small at pages of
+    128 or 256 slots."""
+    assert pa.page_chunk(ps) == chunk
+    assert ps % chunk == 0 and chunk <= pa.MAX_CHUNK

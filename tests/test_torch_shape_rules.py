@@ -402,3 +402,30 @@ def test_wq_matmul_groups_off_the_stage_match_jax(bits, group, K, dt):
         want = jwq.wq_matmul(jnp.asarray(x, jdt), jc, js, bits=bits, group=group, impl=impl)
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                    atol=2e-5, rtol=rtol, err_msg=impl)
+
+
+# ------------------------------------------------- kernel E'' (wgmma) host rules
+@pytest.mark.parametrize("S,blocks,sms,want,chunks", [
+    (512, 48, 132, True, 11),    # AlphaFold 2's MSA row attention: 528 blocks
+    (384, 24, 132, True, 22),    # its triangle attention (H = 4)
+    (512, 48, 132, False, 512),  # no bias2: every s its own block
+    (3, 8, 132, True, 3),        # never more chunks than s
+    (512, 1000, 132, True, 1),
+])
+def test_evoformer_dkv_chunks(S, blocks, sms, want, chunks):
+    """Kernel E'' splits the MSA rows into chunks that make the grid cover
+    the SMs about four times when it sums dbias2 over them; without bias2
+    every s is a chunk."""
+    assert ev.dkv_chunks(S, blocks, sms, want) == chunks
+
+
+def test_evoformer_dkv_padded_rows():
+    """Bias, lse and delta rows reach kernel E'' padded to a multiple of 4
+    floats (16-byte chunks) with zeros; rows already so pass as they are."""
+    t = torch.arange(2 * 130, dtype=torch.float32).reshape(2, 130)
+    p = ev._padded_rows(t, 132)
+    assert p.shape == (2, 132) and p.is_contiguous()
+    assert torch.equal(p[:, :130], t) and not p[:, 130:].any()
+    u = torch.zeros((2, 128))
+    assert ev._padded_rows(u, 128) is u
+    assert ev._padded_rows(None, 8) is None

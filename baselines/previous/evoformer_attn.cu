@@ -43,11 +43,11 @@
 //       covers the SMs four times; 48 blocks at the main shape without
 //       them) write fp32 partials that the second pass adds in chunk order.
 //       The query axis is one range while its accumulator fits a block
-//       (AlphaFold 2's N = 384 does, up to ~576 residues in bf16); past
-//       that it is cut into the fewest ranges whose accumulator lets two
-//       blocks share an SM, and each range writes fp32 dK/dV partials that a
-//       second pass adds in range order and rounds once.  So E'' takes any
-//       query length, with no atomics.
+//       (AlphaFold 2's N = 384 does: up to 384 residues at D <= 32 in
+//       bf16/fp16, 512 in fp32); past that it is cut into the fewest ranges
+//       that fit, and each range writes fp32 dK/dV partials that a second
+//       pass adds in range order and rounds once.  So E'' takes any query
+//       length, with no atomics.
 //
 // What bounds it on the H100: at the main shape (D = 32, bf16) the forward
 // moves q, k, v and o (100.7 MB each) for 77 GFLOP: 0.12 ms of bytes
@@ -89,7 +89,22 @@
 //   them there serialized every wgmma).
 // Past the pair bias that fits, and for fp32: the tile kernel below.
 //
-// Tile kernel (E), E' and E'', bf16 and fp16: the flash-attention tiles
+// Kernel E'', bf16 and fp16: two consumer warpgroups on wgmma fed by TMA,
+// the structure of the flash backward's dK/dV kernel (A'') with E's 5-D
+// maps (see evo_bwd_dkv_wgmma_kernel).  What held the mma.sync kernel it
+// replaces to 26x its bound: its pipeline drained at every s (K/V re-staged
+// behind a wait and a barrier before any query tile), it staged bias2 by
+// cp.async per (s, query tile), took accurate expf of a sum through
+// pointers that might be null for every score, and ran one warpgroup a
+// block.  Here one stream of (s, query step) pairs runs through a TMA ring
+// with the next s's K/V landing under the current s; bias2 arrives as one
+// swizzled TMA tile a step (L2 reads, ~2.4 GB at the main shape: shared
+// memory holds the [384][68] fp32 dbias2 accumulator, not the pair bias
+// too); a score costs an fma, an add, a subtract, a multiply and
+// ex2.approx, the mask only on the edge tile; and two warpgroups split each
+// step's query rows.
+//
+// Tile kernel (E), E', bf16 and fp16: the flash-attention tiles
 // (csrc/flash_attention_*.cu) — 4 warps of 16 rows, mma.sync m16n8k16 with
 // fp32 accumulators, 16-byte cp.async tiles with padded rows (bias tiles
 // staged with the operand tiles of the same step), P and dS rounded to the
@@ -130,6 +145,8 @@ struct Args {
   int kranges;     // E': key ranges (1: the whole axis)
   float* dq_part;  // E' with kranges > 1: fp32 [kranges][B, S, Q, H, D] dQ partials
   int fwd_stages;  // E, bf16/fp16: the resident-bias kernel's ring (0: the tile kernel)
+  int dkv_stages;  // E'', bf16/fp16: the wgmma kernel's ring stages
+  int ldb, ldq;    // E'', bf16/fp16: bias rows padded to ldb floats, lse/delta rows to ldq
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -1235,19 +1252,9 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dq_fma_kernel(Args a) {
 }
 
 // ===========================================================================
-// kernel E'': dK, dV and dbias2.  One block per (b, h, key tile, chunk of s).
-// With no bias2 every s is a chunk.
+// kernel E'': dK, dV and dbias2.  One block per (b, h, 64-key tile, chunk of
+// s, query range).  With no bias2 every s is a chunk.
 // ===========================================================================
-// query rows per step: 32 at D = 128 keeps the fp32 dK/dV accumulators and
-// the S/dP tiles in registers
-template <int D>
-struct DkvTile {
-  static constexpr int BQ = D == 128 ? 32 : 64;
-};
-template <int D>
-constexpr size_t dkv_mma_tiles() {  // K, V + 2 x (Q, dO)
-  return sizeof(uint16_t) * (2 * kB + 4 * DkvTile<D>::BQ) * (D + 8);
-}
 template <int D>
 constexpr size_t dkv_fma_tiles() {  // K, V, Q, dO tiles + P^T, dS^T, fp32
   return sizeof(float) * (4 * kB * (D + 1) + 2 * kB * (kB + 1));
@@ -1304,173 +1311,372 @@ __device__ __forceinline__ float* kv_partial(const Args& a, int range, bool dv) 
   return a.kv_part + (2LL * range + (dv ? 1 : 0)) * n;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dkv_mma_kernel(Args a) {
-  constexpr int RS = D + 8, KT = D / 16, DT = D / 8;
-  constexpr int BQ = DkvTile<D>::BQ, NT = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [kB][RS]
-  T* Vs = Ks + kB * RS;                    // [kB][RS]
-  T* Qs = Vs + kB * RS;                    // [2][BQ][RS]
-  T* dOs = Qs + 2 * BQ * RS;               // [2][BQ][RS]
-  float* b1s = reinterpret_cast<float*>(dOs + 2 * BQ * RS);  // [kB] of this s
-  float* b2s = b1s + kB;                                     // [2][BQ][kB2LdT]
-  float* db2s = b2s + 2 * BQ * kB2LdT;                       // [nq * BQ][kDbPad]
-  __shared__ float lse_s[2][64], dl_s[2][64];
-  const uint16_t* Kh = reinterpret_cast<const uint16_t*>(Ks);
-  const uint16_t* Vh = reinterpret_cast<const uint16_t*>(Vs);
+// ---------------------------------------------------------------------------
+// kernel E'', bf16 and fp16: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+constexpr int kDkvThreads = 256;  // two consumer warpgroups; thread 0 issues the copies
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const DkvBlock blk(a, BQ);
-  const int b = blk.b, h = blk.h, k_start = blk.k_start;
-  const int qr0 = blk.it0 * BQ;  // first row of this block's query range
-  const bool want_db2 = a.db2 != nullptr;
-  if (want_db2)
-    for (int i = threadIdx.x; i < (blk.it1 - blk.it0) * BQ * kDbPad; i += kMmaWarps * 32)
-      db2s[i] = 0.f;
+// query rows of a pipeline step, half to each warpgroup: 128 up to D = 32,
+// 64 past it (the D-wide dK/dV accumulators in registers, the stage in
+// shared memory beside the dbias2 accumulator)
+template <int D>
+__host__ __device__ constexpr int dkv_rows() {
+  return D <= 32 ? 128 : 64;
+}
 
-  const int r0 = warp * 16 + (lane >> 2);  // this lane's keys: r0 and r0 + 8
-  const int cq = (lane & 3) * 2;
-  for (int s = blk.s0; s < blk.s1; ++s) {
-    const long long bs = (long long)b * a.S + s;
-    const T* kb = static_cast<const T*>(a.k) + b * a.ksb + s * a.kss + h * a.ksh;
-    const T* vb = static_cast<const T*>(a.v) + b * a.vsb + s * a.vss + h * a.vsh;
-    const T* qb = static_cast<const T*>(a.q) + b * a.qsb + s * a.qss + h * a.qsh;
-    const T* ob = static_cast<const T*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
-    const long long rowbase = (bs * a.H + h) * a.Q;
-    const BiasSrc bias(a, b, s, h);
-    const float* b1c = bias.b1 ? b1s : nullptr;
-    auto load_q = [&](int buf, int q0) {
-      stage_async<T, D>(Qs + buf * BQ * RS, qb, a.qsn, q0, BQ, a.Q);
-      stage_async<T, D>(dOs + buf * BQ * RS, ob, a.dsn, q0, BQ, a.Q);
-      if (bias.b2)
-        stage_window(b2s + buf * BQ * kB2LdT, kB2LdT, bias.b2, a.K, q0, BQ, a.Q, k_start, a.K,
-                     bias.vec);
-      cp_async_commit();
-      if (threadIdx.x < BQ) {
-        const int qi = q0 + threadIdx.x;
-        lse_s[buf][threadIdx.x] = qi < a.Q ? a.lse_in[rowbase + qi] : 0.f;
-        dl_s[buf][threadIdx.x] = qi < a.Q ? a.delta[rowbase + qi] : 0.f;
-      }
-    };
-    __syncthreads();  // the previous s is done with every tile
-    stage_async<T, D>(Ks, kb, a.ksn, k_start, kB, a.K);
-    stage_async<T, D>(Vs, vb, a.vsn, k_start, kB, a.K);
-    if (bias.b1) stage_window(b1s, 0, bias.b1, 0, 0, 1, 1, k_start, a.K, bias.vec);
-    cp_async_commit();
-    load_q(0, qr0);
-    cp_async_wait<0>();
-    __syncthreads();
+// E''s dynamic shared memory: alignment slack | the K and V tiles of two s |
+// the ring (per stage: the Q and dO tiles, the bias2 tile) | per stage: lse
+// and delta rows | two bias1 rows | the dbias2 accumulator of acc_rows query
+// rows | the barriers (full, empty per stage; K/V full and empty per buffer)
+template <int D>
+__host__ __device__ constexpr size_t dkv_wg_smem(int stages, bool b2, int acc_rows) {
+  return 1024 + (size_t)2 * 2 * kB * D * 2 +
+         (size_t)stages * (2 * dkv_rows<D>() * D * 2 + (b2 ? dkv_rows<D>() * kB * 4 : 0)) +
+         (size_t)stages * 2 * dkv_rows<D>() * 4 + 2 * kB * 4 +
+         (b2 ? (size_t)acc_rows * kDbPad * 4 : 0) + (size_t)(2 * stages + 4) * 8;
+}
 
-    float dk[DT][4], dv[DT][4];
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+constexpr int kDkvMaxStages = 4;  // E''s deepest ring
 
-    for (int it = blk.it0; it < blk.it1; ++it) {
-      const int cur = (it - blk.it0) & 1;
-      const int q0 = it * BQ;
-      if (it + 1 < blk.it1) {
-        load_q(cur ^ 1, q0 + BQ);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* Qc = Qs + cur * BQ * RS;
-      const T* dOc = dOs + cur * BQ * RS;
-      const float* b2c = bias.b2 ? b2s + cur * BQ * kB2LdT : nullptr;
-      float* db2t = db2s + (q0 - qr0) * kDbPad;  // this tile's rows of the accumulator
+// E''s plan in bf16/fp16: the fewest query ranges (whole steps each, none
+// empty) whose dbias2 accumulator fits a block beside a ring of two stages,
+// then the deepest ring (up to kDkvMaxStages) that fits beside it.  One
+// range up to 384 residues at D <= 32 (AlphaFold 2's crops), 448 at D = 64
+// and 192 at D = 128; past that each range writes fp32 dK/dV partials that
+// the second pass adds in range order.  Returns the ranges; *stages the ring.
+template <int D>
+int dkv_wg_plan(int Q, bool b2, int* stages) {
+  constexpr int R = dkv_rows<D>();
+  const size_t limit = (size_t)kMaxSmem - 2048;
+  const int nq = cdiv(Q, R);
+  for (int r = 1; r <= nq; ++r) {
+    const int qranges = cdiv(nq, range_tiles(Q, R, r));  // no empty range
+    const int rows = range_tiles(Q, R, qranges) * R;
+    if (dkv_wg_smem<D>(2, b2, rows) > limit) continue;
+    int st = 2;
+    while (st < kDkvMaxStages && dkv_wg_smem<D>(st + 1, b2, rows) <= limit) ++st;
+    *stages = st;
+    return qranges;
+  }
+  return 0;  // one step always fits
+}
 
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
-      float sc[NT][4], dp[NT][4];
+// P^T of one 64-key x BQ-query tile in place of S^T.  Element i = 4 jj + e
+// is key key0 + 8 (e >> 1), query q0 + 8 jj + cq + (e & 1).  The score
+// takes the biases and lse in the plain version's order, in natural-log
+// units, before the one conversion to log2 units and ex2: a row masked by
+// -1e9 then rounds as the plain version and the TPU kernel round it
+// (ROADMAP Queue 3 #F3).  b2c: the warpgroup's rows of the stage's bias2
+// tile, b2col the lane's swizzled columns per key and column parity.
+template <bool B2, bool EDGE, int BQ>
+__device__ __forceinline__ void dkv_wg_probs(float (&s)[BQ / 2], const float* b2c,
+                                             const int (&b2col)[2][2], const float (&b1k)[2],
+                                             const float (&lse)[BQ / 4], int q0, int key0, int cq,
+                                             int Q, int K, float sm_scale) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+  for (int jj = 0; jj < BQ / 8; ++jj) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        uint32_t ka[4], va[4];
-        load_a(ka, Kh, RS, r0, kt * 16 + cq);
-        load_a(va, Vh, RS, r0, kt * 16 + cq);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const T* qr = Qc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
-          const T* orr = dOc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
-          const uint32_t bq[2] = {lds32(qr), lds32(qr + 8)};
-          const uint32_t bo[2] = {lds32(orr), lds32(orr + 8)};
-          Mma<T>::run(sc[nt], ka, bq);
-          Mma<T>::run(dp[nt], va, bo);
-        }
-      }
-      uint32_t pf[NT / 2][4], dsf[NT / 2][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int lk = r0 + 8 * (e >> 1);
-          const int key = k_start + lk;
-          const int lq = nt * 8 + cq + (e & 1);
-          const int row = q0 + lq;
-          p[e] = 0.f;
-          if (row < a.Q && key < a.K)
-            p[e] = expf(add_bias(sc[nt][e] * a.sm_scale, b1c, b2c, kB2LdT, lq, lk) -
-                        lse_s[cur][lq]);
-          ds[e] = p[e] * (dp[nt][e] - dl_s[cur][lq]);
-          if (want_db2) db2t[lq * kDbPad + lk] += ds[e];
-        }
-        pf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(p[0], p[1]);
-        pf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(p[2], p[3]);
-        dsf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(ds[0] * a.sm_scale, ds[1] * a.sm_scale);
-        dsf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(ds[2] * a.sm_scale, ds[3] * a.sm_scale);
-      }
-      // dV += P^T dO and dK += dS^T Q
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        const T* orow = dOc + (j * 16 + (lane & 15)) * RS;
-        const T* qrow = Qc + (j * 16 + (lane & 15)) * RS;
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          uint32_t bo[2], bq[2];
-          ldmatrix_x2_trans(bo, orow + dt * 8);
-          Mma<T>::run(dv[dt], pf[j], bo);
-          ldmatrix_x2_trans(bq, qrow + dt * 8);
-          Mma<T>::run(dk[dt], dsf[j], bq);
-        }
-      }
-      __syncthreads();  // every warp is done with buffer cur before it is refilled
-    }
-
-    T* dkp = static_cast<T*>(a.dk);
-    T* dvp = static_cast<T*>(a.dv);
-    float* dkf = a.qranges > 1 ? kv_partial<D>(a, blk.range, false) : nullptr;
-    float* dvf = a.qranges > 1 ? kv_partial<D>(a, blk.range, true) : nullptr;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int key = k_start + r0 + 8 * i;
-      if (key >= a.K) continue;
-      const long long off = ((bs * a.K + key) * a.H + h) * D;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        if (dkf != nullptr) {  // this range's fp32 partials
-          *reinterpret_cast<float2*>(dkf + off + dt * 8 + cq) =
-              make_float2(dk[dt][2 * i], dk[dt][2 * i + 1]);
-          *reinterpret_cast<float2*>(dvf + off + dt * 8 + cq) =
-              make_float2(dv[dt][2 * i], dv[dt][2 * i + 1]);
-        } else {
-          *reinterpret_cast<uint32_t*>(dkp + off + dt * 8 + cq) =
-              Mma<T>::pack(dk[dt][2 * i], dk[dt][2 * i + 1]);
-          *reinterpret_cast<uint32_t*>(dvp + off + dt * 8 + cq) =
-              Mma<T>::pack(dv[dt][2 * i], dv[dt][2 * i + 1]);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * jj + e, r = e >> 1, par = e & 1;
+      const int lq = 8 * jj + cq + par;
+      float x = fmaf(s[i], sm_scale, b1k[r]);
+      if (B2) x += b2c[lq * 32 + b2col[r][par]];
+      float p = ex2((x - lse[2 * jj + par]) * kLog2e);
+      if (EDGE && !(q0 + lq < Q && key0 + 8 * r < K)) p = 0.f;
+      s[i] = p;
     }
   }
-  if (want_db2) {
+}
+
+// One block of two consumer warpgroups per (b, h, 64-key tile, chunk of s,
+// query range).  The block walks one stream of (s, query step) pairs; each
+// step's R query rows are half for each warpgroup, which hold the same 64
+// keys' dK and dV in fp32 registers over the s's steps.  Thread 0 keeps the
+// ring kAhead steps ahead: the Q and dO tiles (5-D TMA maps, swizzled at W
+// columns), the bias2 tile [R][64] (a 3-D TMA map over bias2, two boxes of
+// 32 keys swizzled at 128 bytes) and the lse and delta rows (bulk copies);
+// the next s's K and V tiles and bias1 row land in the other buffer under
+// the current s, so the ring never drains at an s boundary.  Products:
+// S^T = K Q^T and dP^T = V dO^T by wgmma m64nBQk16 (both operands K-major
+// in shared memory), then dV += P^T dO and dK += dS^T Q by m64nDk16 with
+// P^T and dS^T from registers (rounded to T only as tensor-core operands)
+// and dO and Q read MN-major; the first product of an s starts the sums.
+// dbias2: each dS^T element is added by the one thread that owns it into
+// the range's [rows][64 + 4] fp32 accumulator, over the chunk's s in
+// order.  At an s's last step warpgroup 1's dK (then dV) sums join
+// warpgroup 0's through the s's K/V tiles, which are free by then, and
+// warpgroup 0 stores them (fp32 partials when the query axis is cut).
+template <typename T, int D, bool B2>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    evo_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tb2, const Args a) {
+  constexpr int W = evo_w<D>();
+  constexpr int R = dkv_rows<D>(), BQ = R / 2;
+  constexpr int KVT = kB * D;  // elements of a K or V tile
+  constexpr int QT = R * D;    // elements of a Q or dO tile
+  constexpr int B2T = R * kB;  // floats of a bias2 tile
+  constexpr uint32_t SBO = 16 * W;
+  constexpr size_t kStage = 2 * QT * sizeof(T) + (B2 ? B2T * 4 : 0);
+  const int ST = a.dkv_stages;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzling repeats every 1024 bytes: tiles start on that
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* kvs = reinterpret_cast<T*>(base);  // [2][K, V][D/W][64][W]
+  unsigned char* ring = base + (size_t)2 * 2 * KVT * sizeof(T);
+  float* stats = reinterpret_cast<float*>(ring + ST * kStage);  // [ST][lse, delta][R]
+  float* b1s = stats + ST * 2 * R;                               // [2][64]
+  float* db2s = b1s + 2 * kB;                                    // [acc_rows][kDbPad]
+  const int acc_rows = range_tiles(a.Q, R, a.qranges) * R;
+  uint64_t* full = reinterpret_cast<uint64_t*>(db2s + (B2 ? acc_rows * kDbPad : 0));
+  uint64_t* empty = full + ST;
+  uint64_t* kv_full = empty + ST;
+  uint64_t* kv_empty = kv_full + 2;
+
+  const DkvBlock blk(a, R);
+  const int b = blk.b, h = blk.h, k0 = blk.k_start;
+  const int qr0 = blk.it0 * R;  // first row of this block's query range
+  const int nqt = blk.it1 - blk.it0;
+  const int n = (blk.s1 - blk.s0) * nqt;
+  const int bh = b * a.H + h;
+  // steps in flight ahead of the one computed: at most a stage short of the
+  // ring, and at most an s's steps, so that thread 0 never waits on a
+  // release that it gives itself later in the same step
+  const int ahead = min(ST >= 4 ? ST - 2 : ST - 1, nqt);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kDkvThreads);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_empty[i], kDkvThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // lse, delta and bias1 entries that a ragged copy stops short of keep
+  // finite values (their scores are masked)
+  for (int i = threadIdx.x; i < ST * 2 * R + 2 * kB; i += kDkvThreads) stats[i] = 0.f;
+  if (B2)
+    for (int i = threadIdx.x; i < acc_rows * kDbPad; i += kDkvThreads) db2s[i] = 0.f;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // before the copies land
+  __syncthreads();
+
+  // bias1 keys [k0, k0 + nb1) of a row padded to ldb floats (a multiple of 4)
+  const int nb1 = a.b1 != nullptr ? min(kB, a.ldb - k0) : 0;
+  auto issue = [&](int t) {
+    const int j = t / nqt, qi = t % nqt;
+    const int s = blk.s0 + j;
+    if (qi == 0) {  // an s's first step: its K and V tiles and bias1 row
+      const int kb = j & 1;
+      if (j >= 2) mbar_wait(&kv_empty[kb], ((j >> 1) - 1) & 1);
+      mbar_arrive_tx(&kv_full[kb], 2 * KVT * sizeof(T) + nb1 * 4);
+      T* Kd = kvs + kb * 2 * KVT;
+#pragma unroll
+      for (int cb = 0; cb < D / W; ++cb) {
+        tma_load_5d(Kd + cb * W * kB, &tk, cb * W, h, k0, s, b, &kv_full[kb]);
+        tma_load_5d(Kd + KVT + cb * W * kB, &tv, cb * W, h, k0, s, b, &kv_full[kb]);
+      }
+      if (nb1 > 0)
+        bulk_copy(b1s + kb * kB, a.b1 + ((long long)b * a.S + s) * a.ldb + k0, nb1 * 4,
+                  &kv_full[kb]);
+    }
+    const int st = t % ST;
+    if (t >= ST) mbar_wait(&empty[st], (t / ST - 1) & 1);
+    const int q0 = (blk.it0 + qi) * R;
+    const int nst = min(R, a.ldq - q0);  // lse and delta floats (ldq a multiple of 4)
+    unsigned char* sb = ring + st * kStage;
+    T* Qd = reinterpret_cast<T*>(sb);
+    mbar_arrive_tx(&full[st], 2 * QT * sizeof(T) + (B2 ? B2T * 4 : 0) + 2 * nst * 4);
+#pragma unroll
+    for (int cb = 0; cb < D / W; ++cb) {
+      tma_load_5d(Qd + cb * W * R, &tq, cb * W, h, q0, s, b, &full[st]);
+      tma_load_5d(Qd + QT + cb * W * R, &tdo, cb * W, h, q0, s, b, &full[st]);
+    }
+    if (B2) {
+      float* b2d = reinterpret_cast<float*>(sb + 2 * QT * sizeof(T));
+      tma_load_3d(b2d, &tb2, k0, q0, bh, &full[st]);
+      tma_load_3d(b2d + R * 32, &tb2, k0 + 32, q0, bh, &full[st]);
+    }
+    const long long row = (((long long)b * a.S + s) * a.H + h) * a.ldq + q0;
+    bulk_copy(stats + st * 2 * R, a.lse_in + row, nst * 4, &full[st]);
+    bulk_copy(stats + st * 2 * R + R, a.delta + row, nst * 4, &full[st]);
+  };
+
+  const int c = threadIdx.x >> 7;  // this thread's warpgroup: rows [c BQ, (c + 1) BQ) of a step
+  const int tid = threadIdx.x & 127, lane = tid & 31;
+  const int krow = 16 * (tid >> 5) + (lane >> 2);  // the lane's keys: krow, krow + 8 of the tile
+  const int cq = (lane & 3) * 2;                   // and its query column pair
+  // the lane's bias2 entries in a stage's tile, swizzled at 128 bytes (a
+  // row's 16-byte chunks XOR the row mod 8, here cq + parity): per key r
+  // and column parity e, the offset from the row's start
+  int b2col[2][2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kl = krow + 8 * r;
+      b2col[r][e] = (kl >> 5) * R * 32 + ((((kl & 31) >> 2) ^ (cq + e)) << 2) + (kl & 3);
+    }
+
+  float dk[D / 2], dv[D / 2], s[BQ / 2], dp[BQ / 2];
+  uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+  if (threadIdx.x == 0)
+    for (int t = 0; t < min(n, ahead); ++t) issue(t);
+  float b1k[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n; ++t) {
+    if (threadIdx.x == 0 && t + ahead < n) issue(t + ahead);
+    const int j = t / nqt, qi = t % nqt, kb = j & 1;
+    const int st = t % ST;
+    const int q0 = (blk.it0 + qi) * R + c * BQ;  // this warpgroup's first query row
+    const T* Kc = kvs + kb * 2 * KVT;
+    const T* Vc = Kc + KVT;
+    if (qi == 0) {  // a new s: its K/V tiles and the lane's two bias1 entries
+      mbar_wait(&kv_full[kb], (j >> 1) & 1);
+      b1k[0] = b1s[kb * kB + krow];
+      b1k[1] = b1s[kb * kB + krow + 8];
+    }
+    mbar_wait(&full[st], (t / ST) & 1);
+    const unsigned char* sb = ring + st * kStage;
+    const T* Qc = reinterpret_cast<const T*>(sb);
+    const T* dOc = Qc + QT;
+    const float* b2c = reinterpret_cast<const float*>(sb + 2 * QT * sizeof(T)) + c * BQ * 32;
+    const float* lsc = stats + st * 2 * R + c * BQ;
+    float lse[BQ / 4], dl[BQ / 4];
+#pragma unroll
+    for (int jj = 0; jj < BQ / 8; ++jj) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lsc + 8 * jj + cq);
+      const float2 d2 = *reinterpret_cast<const float2*>(lsc + R + 8 * jj + cq);
+      lse[2 * jj] = l2.x;
+      lse[2 * jj + 1] = l2.y;
+      dl[2 * jj] = d2.x;
+      dl[2 * jj + 1] = d2.y;
+    }
+
+    // S^T = K Q^T, then dP^T = V dO^T (64 keys x BQ queries)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int cb = kk * 16 / W, off = kk * 16 % W;
+      WgmmaSS<T, BQ>::run(s, gmma_desc_sw<W>(Kc + cb * W * kB + off, 16, SBO),
+                          gmma_desc_sw<W>(Qc + cb * W * R + c * BQ * W + off, 16, SBO), kk > 0);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int cb = kk * 16 / W, off = kk * 16 % W;
+      WgmmaSS<T, BQ>::run(dp, gmma_desc_sw<W>(Vc + cb * W * kB + off, 16, SBO),
+                          gmma_desc_sw<W>(dOc + cb * W * R + c * BQ * W + off, 16, SBO), kk > 0);
+    }
+    wg_commit();
+    wg_wait<1>();
+    pin(s);
+    if (q0 + BQ > a.Q || k0 + kB > a.K)  // the ragged edge: masked elements
+      dkv_wg_probs<B2, true, BQ>(s, b2c, b2col, b1k, lse, q0, k0 + krow, cq, a.Q, a.K,
+                                 a.sm_scale);
+    else
+      dkv_wg_probs<B2, false, BQ>(s, b2c, b2col, b1k, lse, q0, k0 + krow, cq, a.Q, a.K,
+                                  a.sm_scale);
+    pack_a<T, BQ>(pf, s);
+    wg_wait<0>();
+    pin(dp);
+    const int more = qi > 0;  // 0: the s's first step starts the dK/dV sums
+    // dV += P^T dO (dO read MN-major) runs while dS^T is formed
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq)
+      WgmmaRS<T, D>::run(dv, pf[kq],
+                          gmma_desc_sw<W>(dOc + c * BQ * W + kq * 16 * W, W * R * 2, SBO),
+                          more | kq);
+    wg_commit();
+    // dS^T = P^T (dP^T - delta) in place of dP^T, and into dbias2
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) dp[i] = s[i] * (dp[i] - dl[2 * (i >> 2) + (i & 1)]);
+    if (B2) {
+      float* acc = db2s + (q0 - qr0 + cq) * kDbPad + krow;
+#pragma unroll
+      for (int jj = 0; jj < BQ / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[(8 * jj + (e & 1)) * kDbPad + 8 * (e >> 1)] += dp[4 * jj + e];
+    }
+    pack_a<T, BQ>(dsf, dp);
+    // dK += dS^T Q (Q read MN-major)
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq)
+      WgmmaRS<T, D>::run(dk, dsf[kq],
+                          gmma_desc_sw<W>(Qc + c * BQ * W + kq * 16 * W, W * R * 2, SBO),
+                          more | kq);
+    wg_commit();
+    wg_wait<0>();
+    pin(dv);
+    pin(dk);
+    pin(pf);
+    pin(dsf);
+    mbar_arrive(&empty[st]);
+
+    if (qi == nqt - 1) {
+      // the s's dK and dV: warpgroup 1's sums join warpgroup 0's through the
+      // s's K and V tiles (256 D bytes: dK, then dV), free once both
+      // warpgroups are past their products
+      float* xb = reinterpret_cast<float*>(kvs + kb * 2 * KVT);
+      __syncthreads();
+      if (c == 1)
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) xb[i * 128 + tid] = dk[i];
+      __syncthreads();
+      if (c == 0)
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dk[i] += xb[i * 128 + tid];
+      __syncthreads();
+      if (c == 1)
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) xb[i * 128 + tid] = dv[i];
+      __syncthreads();
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dv[i] += xb[i * 128 + tid];
+        const long long bs = (long long)b * a.S + blk.s0 + j;
+        float* dkf = a.qranges > 1 ? kv_partial<D>(a, blk.range, false) : nullptr;
+        float* dvf = a.qranges > 1 ? kv_partial<D>(a, blk.range, true) : nullptr;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = k0 + krow + 8 * r;
+          if (key >= a.K) continue;
+          const long long off = ((bs * a.K + key) * a.H + h) * D;
+#pragma unroll
+          for (int jd = 0; jd < D / 8; ++jd) {
+            const float k0v = dk[4 * jd + 2 * r] * a.sm_scale;
+            const float k1v = dk[4 * jd + 2 * r + 1] * a.sm_scale;
+            const float v0 = dv[4 * jd + 2 * r], v1 = dv[4 * jd + 2 * r + 1];
+            if (dkf != nullptr) {  // this query range's fp32 partials
+              *reinterpret_cast<float2*>(dkf + off + 8 * jd + cq) = make_float2(k0v, k1v);
+              *reinterpret_cast<float2*>(dvf + off + 8 * jd + cq) = make_float2(v0, v1);
+            } else {
+              *reinterpret_cast<uint32_t*>(static_cast<T*>(a.dk) + off + 8 * jd + cq) =
+                  Cvt<T>::pack(k0v, k1v);
+              *reinterpret_cast<uint32_t*>(static_cast<T*>(a.dv) + off + 8 * jd + cq) =
+                  Cvt<T>::pack(v0, v1);
+            }
+          }
+        }
+      }
+      // the generic writes to the tiles before TMA refills them
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&kv_empty[kb]);
+    }
+  }
+  if (B2) {
     __syncthreads();
-    store_db2(a, db2s, blk, BQ);
+    store_db2(a, db2s, blk, R);
   }
 }
 
@@ -1710,30 +1916,29 @@ size_t smem_bytes(Pass pass, bool fp32, const Args& a) {
     return (fp32 ? dq_fma_tiles<D>() + (a.db1 ? sizeof(float) * Kp : 0)
                  : dq_mma_tiles<D>() + (a.db1 ? sizeof(float) * kMmaWarps * Kp : 0)) + bias;
   }
-  const int bq = fp32 ? kB : DkvTile<D>::BQ;
-  const size_t bias = sizeof(float) * (kB + nbuf * bq * kB2LdT);
-  const size_t db2 =
-      a.db2 ? sizeof(float) * range_tiles(a.Q, bq, a.qranges) * bq * kDbPad : 0;
-  return (fp32 ? dkv_fma_tiles<D>() : dkv_mma_tiles<D>()) + bias + db2;
+  // E'' on the FMA pipes (fp32; bf16/fp16 take dkv_wg_smem)
+  const size_t bias = sizeof(float) * (kB + kB * kB2LdT);
+  const size_t db2 = a.db2 ? sizeof(float) * range_tiles(a.Q, kB, a.qranges) * kB * kDbPad : 0;
+  return dkv_fma_tiles<D>() + bias + db2;
 }
 
-// the query ranges of E'': 1 while the whole axis's dbias2 accumulator fits
-// a block, else the fewest ranges that let two blocks share an SM (or,
-// failing that, fit one).  Ranges hold whole query tiles and none is empty.
+// the query ranges of E'' in fp32: 1 while the whole axis's dbias2
+// accumulator fits a block, else the fewest ranges that let two blocks
+// share an SM (or, failing that, fit one).  Ranges hold whole query tiles
+// and none is empty.  (bf16/fp16: dkv_wg_plan.)
 template <int D>
-int dkv_qranges(bool fp32, int Q, bool db2) {
+int dkv_qranges(int Q, bool db2) {
   Args a{};
   a.Q = Q;
   a.db2 = db2 ? reinterpret_cast<float*>(16) : nullptr;  // only tested for null
   a.qranges = 1;
   const size_t limit = (size_t)kMaxSmem - 2048;
-  if (smem_bytes<D>(kDkv, fp32, a) <= limit) return 1;
-  const int bq = fp32 ? kB : DkvTile<D>::BQ;
-  const int nq = cdiv(Q, bq);
+  if (smem_bytes<D>(kDkv, true, a) <= limit) return 1;
+  const int nq = cdiv(Q, kB);
   for (const size_t cap : {limit / 2 - 1024, limit}) {
     for (int r = 2; r <= nq; ++r) {
-      a.qranges = cdiv(nq, range_tiles(Q, bq, r));  // no empty range
-      if (smem_bytes<D>(kDkv, fp32, a) <= cap) return a.qranges;
+      a.qranges = cdiv(nq, range_tiles(Q, kB, r));  // no empty range
+      if (smem_bytes<D>(kDkv, true, a) <= cap) return a.qranges;
     }
   }
   return nq;
@@ -1827,11 +2032,77 @@ cudaError_t launch_fwd_wgmma(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// bias2 [B * H, Q, ldb] fp32 as a 3-D map (K, Q, B * H), box (32, R, 1)
+// swizzled at 128 bytes: one copy lands 32 keys of R query rows; keys past
+// K and rows past Q arrive as zeros
+cudaError_t bias2_map(CUtensorMap* m, const float* b2, int K, int Q, int BH, int ldb, int R) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)Q, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)ldb * 4, (cuuint64_t)Q * ldb * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)R, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(b2), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// kernel E'' on wgmma at its plan (dkv_wg_plan: the caller's qranges must
+// be the plan's), then the second passes
+template <typename T, int D>
+cudaError_t launch_dkv_wgmma(const Args& args, cudaStream_t st) {
+  constexpr int W = evo_w<D>(), R = dkv_rows<D>();
+  Args a = args;
+  const bool b2 = a.b2 != nullptr;
+  if (a.qranges != dkv_wg_plan<D>(a.Q, b2, &a.dkv_stages) || a.ldb < a.K || a.ldb % 4 != 0 ||
+      a.ldq < a.Q || a.ldq % 4 != 0 || (a.qranges > 1 && a.kv_part == nullptr))
+    return cudaErrorInvalidConfiguration;
+  const size_t smem = dkv_wg_smem<D>(a.dkv_stages, b2, range_tiles(a.Q, R, a.qranges) * R);
+  CUtensorMap m[5] = {};
+  cudaError_t e;
+  if ((e = evo_map<T>(&m[0], a.q, D, a.H, a.Q, a.S, a.B, a.qsh, a.qsn, a.qss, a.qsb, W, R)) !=
+          cudaSuccess ||
+      (e = evo_map<T>(&m[1], a.k, D, a.H, a.K, a.S, a.B, a.ksh, a.ksn, a.kss, a.ksb, W, kB)) !=
+          cudaSuccess ||
+      (e = evo_map<T>(&m[2], a.v, D, a.H, a.K, a.S, a.B, a.vsh, a.vsn, a.vss, a.vsb, W, kB)) !=
+          cudaSuccess ||
+      (e = evo_map<T>(&m[3], a.dout, D, a.H, a.Q, a.S, a.B, a.dsh, a.dsn, a.dss, a.dsb, W, R)) !=
+          cudaSuccess ||
+      (b2 && (e = bias2_map(&m[4], a.b2, a.K, a.Q, a.B * a.H, a.ldb, R)) != cudaSuccess))
+    return e;
+  const int nk = cdiv(a.K, kB);
+  const dim3 grid((unsigned)((long long)a.B * a.H * nk * a.chunks * a.qranges));
+  if (b2) {
+    static const cudaError_t attr = opt_in_max(evo_bwd_dkv_wgmma_kernel<T, D, true>);
+    if (attr != cudaSuccess) return attr;
+    evo_bwd_dkv_wgmma_kernel<T, D, true>
+        <<<grid, kDkvThreads, smem, st>>>(m[0], m[1], m[2], m[3], m[4], a);
+  } else {
+    static const cudaError_t attr = opt_in_max(evo_bwd_dkv_wgmma_kernel<T, D, false>);
+    if (attr != cudaSuccess) return attr;
+    evo_bwd_dkv_wgmma_kernel<T, D, false>
+        <<<grid, kDkvThreads, smem, st>>>(m[0], m[1], m[2], m[3], m[4], a);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (a.qranges > 1) {
+    const long long n = (long long)a.B * a.S * a.K * a.H * D;
+    const long long blocks = (2 * n + 255) / 256;
+    reduce_ranges_kernel<T><<<blocks < 4096 ? (int)blocks : 4096, 256, 0, st>>>(
+        a.kv_part, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qranges, n);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (a.db2 == nullptr || a.chunks == 1) return e;
+  return reduce_chunks(a.part, a.db2, (long long)a.B * a.H, a.chunks, (long long)a.Q * a.K, st);
+}
+
 template <typename T, int D>
 cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
   constexpr bool fp32 = std::is_same<T, float>::value;
   if constexpr (!fp32) {
     if (pass == kFwd && a.fwd_stages > 0) return launch_fwd_wgmma<T, D>(a, st);
+    if (pass == kDkv) return launch_dkv_wgmma<T, D>(a, st);
   }
   if (pass == kFwd && a.fwd_stages > 0) return cudaErrorInvalidValue;  // fp32: FMA only
   const size_t smem = smem_bytes<D>(pass, fp32, a);
@@ -1875,19 +2146,13 @@ cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
     if (a.db1 == nullptr || a.chunks == 1) return e;
     return reduce_chunks(a.part, a.db1, (long long)a.B * a.S, a.chunks, a.K, st);
   } else {
-    if (a.qranges != dkv_qranges<D>(fp32, a.Q, a.db2 != nullptr) ||
+    if (a.qranges != dkv_qranges<D>(a.Q, a.db2 != nullptr) ||
         (a.qranges > 1 && a.kv_part == nullptr))
       return cudaErrorInvalidValue;
     const dim3 grid(a.B * a.H * nk * a.chunks * a.qranges);
-    if constexpr (fp32) {
-      static const cudaError_t attr = opt_in_max(evo_bwd_dkv_fma_kernel<D>);
-      if (attr != cudaSuccess) return attr;
-      evo_bwd_dkv_fma_kernel<D><<<grid, threads, smem, st>>>(a);
-    } else {
-      static const cudaError_t attr = opt_in_max(evo_bwd_dkv_mma_kernel<T, D>);
-      if (attr != cudaSuccess) return attr;
-      evo_bwd_dkv_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
-    }
+    static const cudaError_t attr = opt_in_max(evo_bwd_dkv_fma_kernel<D>);
+    if (attr != cudaSuccess) return attr;
+    evo_bwd_dkv_fma_kernel<D><<<grid, threads, smem, st>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     if (a.qranges > 1) {
@@ -1951,6 +2216,10 @@ int dispatch(Pass pass, int dtype, int D, const Args& a, void* stream) {
 // ([B*S, chunks, K] for E', [B*H, chunks, Q*K] for E'').  E'' cuts the
 // query axis into qranges ranges (dstpu_evoformer_attn_dkv_qranges); above
 // one, kv_part holds their fp32 dK/dV partials ([qranges][2][B*S*K*H*D]).
+// E'' in bf16/fp16 reads bias1 and bias2 rows padded to ldb floats
+// ([B, S, ldb], [B, H, Q, ldb]) and lse and delta rows padded to ldq
+// ([B, S, H, ldq]), ldb >= K and ldq >= Q multiples of 4, 16-byte aligned,
+// q/k/v/dO strides positive (TMA); fp32 takes ldb = K and ldq = Q.
 // E' cuts the key axis into kranges ranges (dstpu_evoformer_attn_dq_kranges);
 // above one, dq_part holds their fp32 dQ partials ([kranges][B*S*Q*H*D]).
 // D is 16, 32, 64 or 128.  E with stages > 0 (bf16/fp16) runs the
@@ -1998,15 +2267,15 @@ extern "C" int dstpu_evoformer_attn_bwd_dkv(const void* q, const void* k, const 
                                             void* dk, void* dv, void* db2, void* part,
                                             void* kv_part, int dtype, int B, int S, int Q,
                                             int K, int H, int D, float sm_scale, int chunks,
-                                            int qranges, DSTPU_EVO_STRIDES, long long dsb,
-                                            long long dss, long long dsn, long long dsh,
-                                            void* stream) {
+                                            int qranges, int ldb, int ldq,
+                                            DSTPU_EVO_STRIDES, long long dsb, long long dss,
+                                            long long dsn, long long dsh, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const float*>(b1), static_cast<const float*>(b2), nullptr, nullptr,
                dk, dv, nullptr, nullptr, static_cast<float*>(db2), static_cast<float*>(part),
                B, S, Q, K, H, chunks, sm_scale, qsb, qss, qsn, qsh, ksb, kss, ksn, ksh, vsb,
                vss, vsn, vsh, dsb, dss, dsn, dsh, qranges, static_cast<float*>(kv_part), 1,
-               nullptr};
+               nullptr, 0, 0, ldb, ldq};
   return dispatch(kDkv, dtype, D, a, stream);
 }
 
@@ -2014,17 +2283,23 @@ extern "C" int dstpu_evoformer_attn_bwd_dkv(const void* q, const void* k, const 
 // whether dbias2 is wanted: the qranges that dstpu_evoformer_attn_bwd_dkv
 // must be given (above 1, kv_part holds 2 * qranges * B * S * K * H * D
 // floats); 0 for a head dim the kernels do not take.
+template <int D>
+int dkv_ranges(bool fp32, int Q, bool want_db2) {
+  int stages = 0;
+  return fp32 ? dkv_qranges<D>(Q, want_db2) : dkv_wg_plan<D>(Q, want_db2, &stages);
+}
+
 extern "C" int dstpu_evoformer_attn_dkv_qranges(int dtype, int Q, int D, int want_db2) {
   const bool fp32 = dtype == 0;
   switch (D) {
     case 16:
-      return dkv_qranges<16>(fp32, Q, want_db2);
+      return dkv_ranges<16>(fp32, Q, want_db2);
     case 32:
-      return dkv_qranges<32>(fp32, Q, want_db2);
+      return dkv_ranges<32>(fp32, Q, want_db2);
     case 64:
-      return dkv_qranges<64>(fp32, Q, want_db2);
+      return dkv_ranges<64>(fp32, Q, want_db2);
     case 128:
-      return dkv_qranges<128>(fp32, Q, want_db2);
+      return dkv_ranges<128>(fp32, Q, want_db2);
     default:
       return 0;
   }

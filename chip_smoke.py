@@ -11,9 +11,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
    (one ``nvcc`` per source, all started together; the sources include
    ``csrc/hopper.cuh`` and ``csrc/wide_head.cuh``), and beside them the
    parent commit's build of seven sources, from ``baselines/previous/``
-   with the parent's ``hopper.cuh`` (paged decode B and evoformer dK/dV
-   E'' redesigned; A, A', A'', S, W, G, E and E' must give the parent's
-   bits);
+   with the parent's ``hopper.cuh`` (block-sparse S in bf16/fp16 and
+   evoformer dQ E' redesigned: held to the same limits through the parent's
+   wrapper code and timed in turns; A, A', A'', B, S in fp32 and past head
+   dim 256, W, G, E and E'' must give the parent's bits); ptxas's
+   registers and spills per kernel, and the kernels that spill by name;
 2. kernel A, flash-attention forward, against its plain PyTorch version
    computed in fp32 on the same inputs (limits in ``FLASH_TOL``/``LSE_TOL``) on
    the card at llama-1b prefill shapes (+ a chunked-prefill window,
@@ -31,8 +33,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
    160, falcon-7b's 71 query heads over one KV head, 16 query heads of
    256 over 2, fp32 pools at D = 200 and 256, pages of 128 and 256
    slots, and D = 288, 320 and 512 with bf16 and int8 pages; ``PAGED_TOL``;
-   every output bit-equal across two calls; the parent's kernel held to
-   the same limit and timed in turns; past D = 256 the parent's bits);
+   every output bit-equal across two calls and to the parent's build,
+   timed in turns with it);
 4. the engine: ``InferenceEngineV2`` serving llama-1b at full width and
    depth in bf16 with random seeded weights, 12 greedy requests through
    8 slots, once with whole-prompt prefill and once with 256-token
@@ -132,34 +134,40 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     bound of their visible block pairs, the plain version and SDPA on the
     layout expanded to a boolean mask), and corners (Dense, fp16 and fp32,
     heads from a 1-head layout, block 256, an all-empty layout row whose
-    output is 0, D = 72, 80 and 160, blocks 8, 16, 24, 32 and 48 with S off
-    a multiple of 64, D = 288, 320 and 512, timed at 512); the timed cases
-    bit-equal to the parent's build and timed in turns;
-    the path: the six main calls of the entry point, counter
-    zeroed before and read after (one launch each); a CUDA call with
-    inputs that require a gradient raises;
+    output is 0, D = 72, 80 and 160, blocks 8, 16, 24, 32, 48 and 64 with S
+    off a multiple of 128, q/k/v read by cp.async (rows 8-byte aligned, and
+    K/V expanded over the heads), D = 288, 320 and 512, timed at 512), every
+    output bit-equal across two calls; the parent's kernel on the same
+    inputs held to the same limit in bf16/fp16 (its bits in fp32 and past
+    256), the timed cases timed in turns with it;
+    the path: the six main calls of the entry point, counter zeroed before
+    and read after (one launch each), the profiler naming the wgmma kernel
+    in each; a CUDA call with inputs that require a gradient raises;
 19. kernels E, E', E'' (evoformer forward, dQ + dbias1, dK/dV + dbias2)
     against their plain versions computed in fp32 (``EVO_TOL``,
     ``EVO_BWD_TOL``, ``EVO_DBIAS_TOL``) at AlphaFold 2's MSA row attention
     with pair bias (B = 1, S = 512, N = 384, H = 8, D = 32, bf16) and its
     triangle attention (S = N = 384, H = 4), timed beside their bounds, the
-    plain versions, E and E'' against the parent's in turns, and SDPA with
+    plain versions, each against the parent's in turns, and SDPA with
     the biases summed into a float mask (and its backward, without and with
     the mask's gradient reduced to dbias1 and dbias2: E' + E''s
-    same-function yardstick); E and E' bit-equal to the parent's build, the
-    parent's E'' held to the same limits; corners: no
+    same-function yardstick); E and E'' bit-equal to the parent's build, the
+    parent's E' held to the same limits; corners: no
     bias, bias1 only, [None, b2], D = 16/64/128, ragged N = 300 and Q != K,
     fp16, fp32, a row masked by -1e9, K = 700 past the pair bias E keeps
     resident, an odd count of MSA rows, and the
     query ranges of E'' past one block's dbias2 accumulator (N = 640 bf16,
     N = 300 fp32 D = 128), and the key ranges of E' past one block's
-    dbias1 accumulator (K = 6,000 bf16 and 16,000 fp32 at D = 128); every
-    backward bit-equal across two calls;
+    dbias1 accumulator (K = 6,000 bf16 and 16,000 fp32 at D = 128), and
+    E''s K/V tiles at the last K that keeps them resident per head and the
+    first that streams them (bf16, D = 32 and 128); every backward bit-equal
+    across two calls;
 20. the evoformer training path: ``DS4Sci_EvoformerAttention(q, k, v,
     [b1, b2])`` -> ``backward`` at the main shape, one E, E' and E''
-    launch and no plain call, the five gradients within ``EVO_BWD_TOL`` of
-    plain fp32 autograd through ``evoformer_attention_xla``, bit-equal
-    across two calls, and a peak memory below the 2.42 GB of the scores.
+    launch and no plain call (the profiler naming E''s wgmma kernel), the
+    five gradients within ``EVO_BWD_TOL`` of plain fp32 autograd through
+    ``evoformer_attention_xla``, bit-equal across two calls, and a peak
+    memory below the 2.42 GB of the scores.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA card,
@@ -237,10 +245,11 @@ PARITY_LOGITS_TOL = 2e-3
 DEV = "cuda"
 #: the parent commit's build of the kernels, built beside today's from
 #: their sources in BASELINE_DIR (which holds the parent's hopper.cuh, found
-#: before csrc's by their includes): B (paged decode) and E'' (evoformer dK/dV)
-#: were redesigned and are timed in turns with the parent's, held to the
-#: same limits; every other kernel timed here (A, A', A'', B past head dim
-#: 256, S, W, E, E' and G) must give the parent's bits.
+#: before csrc's by their includes): S in bf16/fp16 (block-sparse) and E'
+#: (evoformer dQ) were redesigned and are timed in turns with the parent's,
+#: held to the same limits; every other kernel timed here (A, A', A'', B,
+#: S in fp32 and past head dim 256, W, G, E and E'') must give the parent's
+#: bits.
 BASELINE_DIR = os.path.join(ROOT, "baselines", "previous")
 BASELINE_KERNELS = ("wq_matmul", "evoformer_attn", "flash_attention_fwd",
                     "flash_attention_bwd", "paged_attention", "sparse_attention",
@@ -259,8 +268,9 @@ def register_baselines(op_builder):
 class Baseline:
     """The parent's kernels.  Those whose C entry points kept their
     signatures run through today's wrappers with the parent's library
-    swapped in (``swapped``); B and E'', whose entry points changed, through
-    the parent's wrapper code (``paged_decode``, ``evo_bwd_dkv``)."""
+    swapped in (``swapped``); S in bf16/fp16 and E', whose entry points
+    changed, through the parent's wrapper code (``sparse_attention``,
+    ``evo_bwd_dq``)."""
 
     def __init__(self, op_builder):
         import ctypes
@@ -273,15 +283,20 @@ class Baseline:
         from deepspeed_tpu_torch.ops import wq_matmul as wq
 
         P, I, L, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        self.ob, self.ev = op_builder, ev
+        self.ob, self.ev, self.sa, self.fa = op_builder, ev, sa, fa
         today = {"flash_attention_fwd": fa._SIG, "flash_attention_bwd": fa._BWD_SIG,
                  "paged_attention": pa._SIG, "sparse_attention": sa._SIG,
                  "wq_matmul": wq._SIG, "evoformer_attn": ev._SIG, "grouped_matmul": gm._SIG}
         prev = {**today,
-                "paged_attention": {"dstpu_paged_decode_attention":
-                                    [P] * 10 + [I] * 9 + [Fl, P]},
-                "evoformer_attn": {**ev._SIG, "dstpu_evoformer_attn_bwd_dkv":
-                                   [P] * 13 + [I] * 7 + [Fl, I, I] + [L] * 16 + [P]}}
+                "sparse_attention": {"dstpu_sparse_attention":
+                                     sa._SIG["dstpu_sparse_attention"]},
+                "evoformer_attn": {
+                    "dstpu_evoformer_attn_fwd": ev._SIG["dstpu_evoformer_attn_fwd"],
+                    "dstpu_evoformer_attn_bwd_dkv": ev._SIG["dstpu_evoformer_attn_bwd_dkv"],
+                    "dstpu_evoformer_attn_dkv_qranges": [I] * 4,
+                    "dstpu_evoformer_attn_bwd_dq": [P] * 12 + [I] * 7 + [Fl, I, I] + [L] * 16
+                    + [P],
+                    "dstpu_evoformer_attn_dq_kranges": [I] * 4}}
         self.libs = {n: op_builder.load(n + "_previous", prev[n]) for n in BASELINE_KERNELS}
         for n in BASELINE_KERNELS:  # today's, loaded before any swap
             op_builder.load(n, today[n])
@@ -296,56 +311,64 @@ class Baseline:
         finally:
             self.ob._libs[name] = cur
 
-    def paged_decode(self, q, k_pool, v_pool, table, pos, k_scale=None, v_scale=None,
-                     alibi_slopes=None):
-        """The parent's B (blocks of up to 8 warps over runs of 8 pages, the
-        runs merged by a second kernel through fp32 scratch)."""
-        B, NH, D = q.shape
-        P, ps, KVH, _ = k_pool.shape
-        MP = table.shape[1]
-        quant = k_scale is not None
-        Dk = D if D > 256 else (-(-D // 16) * 16 if D <= 128 else -(-D // 32) * 32)
-        runs = -(-MP // 8)
-        part = (torch.empty((B * KVH * runs * (NH // KVH) * (Dk + 2),), dtype=torch.float32,
-                            device=DEV) if runs > 1 else None)
-        slopes = None if alibi_slopes is None else alibi_slopes.float().contiguous()
-        out = torch.empty_like(q)
-        err = self.libs["paged_attention"].dstpu_paged_decode_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-            table.data_ptr(), pos.data_ptr(), None if slopes is None else slopes.data_ptr(),
-            out.data_ptr(), None if part is None else part.data_ptr(),
-            self.ob.dtype_code(q.dtype), int(quant), B, NH, KVH, D, ps, MP, 8,
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
-        self.ob.check(err, "paged_decode_attention (previous)")
-        return out
+    def sparse_attention(self, q, k, v, cfg, causal):
+        """The parent's S in bf16/fp16 (mma.sync, 64-row query tiles of 4
+        warps, K/V double-buffered by cp.async; 64 x 64 unit masks for
+        blocks off 64)."""
+        sa, fa = self.sa, self.fa
+        B, S, H, D = q.shape
+        layout = sa._layout(cfg, S, H)
+        Dk = fa.padded_head_dim(D)
+        if Dk != D:
+            q, k, v = (fa.pad_head_dim(t, Dk) for t in (q, k, v))
+        else:
+            q, k, v = (t if sa._rows_ok(t) else t.contiguous() for t in (q, k, v))
+        block, masks, elems = cfg.block, None, None
+        if block % sa.KERNEL_TILE:
+            row_ptr, cols, masks = sa.unit_lists(layout, block, S, causal, q.device)
+            if block % sa.KERNEL_UNIT:
+                elems = sa._layout_bytes(layout, q.device)
+            block = sa.KERNEL_TILE
+        else:
+            row_ptr, cols = sa.block_lists(layout, causal, q.device)
+        o = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
+        err = self.libs["sparse_attention"].dstpu_sparse_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), row_ptr.data_ptr(),
+            cols.data_ptr(), None if masks is None else masks.data_ptr(),
+            None if elems is None else elems.data_ptr(), self.ob.dtype_code(q.dtype), B, S, H,
+            Dk, layout.shape[0], block, cfg.block, int(bool(causal)), 1.0 / math.sqrt(D),
+            q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), torch.cuda.current_stream().cuda_stream)
+        self.ob.check(err, "sparse_attention (previous)")
+        return o if Dk == D else o[..., :D].contiguous()
 
-    def evo_bwd_dkv(self, q, k, v, do, lse, delta, b1, b2):
-        """The parent's E'' (mma.sync, 64-key x 64-query tiles, bias2 staged
-        per tile by cp.async)."""
+    def evo_bwd_dq(self, q, k, v, do, lse, delta, b1, b2):
+        """The parent's E' (mma.sync, one block per (b, s, chunk of (h,
+        64-row query tile) units), K/V restaged per unit by cp.async)."""
         ev = self.ev
         B, S, Q, H, D = q.shape
         K = k.shape[2]
-        want = b2 is not None
+        want = b1 is not None
         lib = self.libs["evoformer_attn"]
-        qranges = lib.dstpu_evoformer_attn_dkv_qranges(self.ob.dtype_code(q.dtype), Q, D,
-                                                       int(want))
-        blocks = B * H * -(-K // 64) * qranges
-        chunks = S if not want else min(S, max(1, -(-4 * ev._sm_count(q.device) // blocks)))
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        db2 = torch.empty((B, H, Q, K), dtype=torch.float32, device=DEV) if want else None
-        part = (torch.empty((B * H, chunks, Q * K), dtype=torch.float32, device=DEV)
+        units = H * -(-Q // 64)
+        chunks = units if not want else min(units, max(1, -(-2 * ev._sm_count(q.device)
+                                                          // (B * S))))
+        kranges = lib.dstpu_evoformer_attn_dq_kranges(self.ob.dtype_code(q.dtype), K, D,
+                                                      int(want))
+        dq = torch.empty_like(q)
+        db1 = torch.empty((B, S, K), dtype=torch.float32, device=DEV) if want else None
+        part = (torch.empty((B * S, chunks, K), dtype=torch.float32, device=DEV)
                 if want and chunks > 1 else None)
-        kv_part = (torch.empty((qranges, 2, k.numel()), dtype=torch.float32, device=DEV)
-                   if qranges > 1 else None)
-        err = lib.dstpu_evoformer_attn_bwd_dkv(
+        dq_part = (torch.empty((kranges, q.numel()), dtype=torch.float32, device=DEV)
+                   if kranges > 1 else None)
+        err = lib.dstpu_evoformer_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), ev._ptr(b1), ev._ptr(b2), dk.data_ptr(), dv.data_ptr(),
-            ev._ptr(db2), ev._ptr(part), ev._ptr(kv_part), self.ob.dtype_code(q.dtype),
-            B, S, Q, K, H, D, 1.0 / math.sqrt(D), chunks, qranges,
-            *ev._strides(q, k, v, do), torch.cuda.current_stream().cuda_stream)
-        self.ob.check(err, "evoformer_attn_bwd_dkv (previous)")
-        return dk, dv, db2
+            delta.data_ptr(), ev._ptr(b1), ev._ptr(b2), dq.data_ptr(), ev._ptr(db1),
+            ev._ptr(part), ev._ptr(dq_part), self.ob.dtype_code(q.dtype), B, S, Q, K, H, D,
+            1.0 / math.sqrt(D), chunks, kranges, *ev._strides(q, k, v, do),
+            torch.cuda.current_stream().cuda_stream)
+        self.ob.check(err, "evoformer_attn_bwd_dq (previous)")
+        return dq, db1
 
 
 #: set in main(): the parent's kernels
@@ -427,6 +450,35 @@ def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
     ms = start.elapsed_time(end) / iters
     print(json.dumps({"timing_fallback": "cuda_events", "ms": ms}))
     return ms
+
+
+def demangle(name):
+    """A kernel's C++ name from its symbol (``c++filt`` where there is one)."""
+    try:
+        return subprocess.run(["c++filt", name], capture_output=True, text=True,
+                              timeout=10).stdout.strip() or name
+    except (OSError, subprocess.SubprocessError, TypeError):
+        return name
+
+
+def profiled_kernels(fn) -> dict:
+    """{kernel name: launches} of the device kernels one call of ``fn``
+    launched, as torch.profiler recorded them: the fullest of
+    ``PROFILER_WINDOWS`` windows (a window can record none of its kernels
+    without an error)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = {}
+    for _ in range(PROFILER_WINDOWS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if sum(names.values()) > sum(best.values()):
+            best = names
+    return best
 
 
 def max_err(out, ref, tol):
@@ -551,9 +603,9 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
 # -- phase 3: paged decode attention ----------------------------------------
 
 def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False,
-               alibi=False, timed=False, seed=0, parent=True):
-    """Kernel B against its fp32 plain version; with ``parent`` (a shape
-    the parent's build takes) the parent's kernel on the same inputs."""
+               alibi=False, timed=False, seed=0):
+    """Kernel B against its fp32 plain version and the parent's build on
+    the same inputs."""
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
 
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -607,20 +659,16 @@ def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False
     check(ok, f"paged {name}: kernel vs fp32 plain beyond {PAGED_TOL[dtype]} "
           f"(max abs {err:.3g}, atol used {atol_used:.3g})")
     check(rec["bit_equal_across_calls"], f"paged {name}: outputs differ between two calls")
-    if BASE is not None and parent:
-        # the parent's build on the same inputs: past head dim 256 (the
-        # runtime-head-dim kernel, unchanged) its bits; up to 256 (B
-        # redesigned) the same limit
-        prev_out = BASE.paged_decode(*args, **kw)
-        torch.cuda.synchronize()
-        if D > 256:
-            same = torch.equal(prev_out, out)
-            check(same, f"paged {name}: other bits than the parent's build")
-            rec["bit_equal_to_previous"] = same
-        else:
-            p_err, _, p_ok = max_err(prev_out, ref, PAGED_TOL[dtype])
-            check(p_ok, f"paged {name}: the parent's kernel is beyond {PAGED_TOL[dtype]}")
-            rec["previous_max_abs_err"] = p_err
+    def new():
+        return pa.paged_decode_attention(*args, **kw)
+
+    def prev():
+        return BASE.swapped("paged_attention", new)
+
+    if BASE is not None:  # the parent's build on the same inputs: its bits
+        same = torch.equal(prev(), out)
+        check(same, f"paged {name}: other bits than the parent's build")
+        rec["bit_equal_to_previous"] = same
     if poison:
         # NaN in the trash page: the kernel never loads it, so its output
         # is bit-identical to the clean run
@@ -650,12 +698,8 @@ def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False
             vv = v_pool[table.long()].reshape(B, S, KVH, D).transpose(1, 2)
             return sdpa(q[:, :, None], kk, vv, vis, G)
 
-        def new():
-            return pa.paged_decode_attention(*args, **kw)
-
         if BASE is not None:  # the parent's kernel in turns
-            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(
-                lambda: BASE.paged_decode(*args, **kw), new)
+            rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
         else:
             ms = device_ms(new)
         if D <= 256 and not quant:
@@ -753,9 +797,7 @@ def paged_phase(pa):
         paged_case(pa, "fp32_d200_g8", 2, 8, 1, 200, 16, 10, fp32),
         paged_case(pa, "ps128_pages", 3, 8, 2, 64, 128, 6, bf16, poison=True),
         paged_case(pa, "int8_ps256_d128", 2, 8, 2, 128, 256, 3, bf16, quant=True, poison=True),
-        # (the parent's one warp of two 128-slot fp32 pages overflows shared memory)
-        paged_case(pa, "fp32_ps128_d256", 2, 4, 1, 256, 128, 3, fp32, poison=True,
-                   parent=False),
+        paged_case(pa, "fp32_ps128_d256", 2, 4, 1, 256, 128, 3, fp32, poison=True),
         # head dims past 256: the runtime-head-dim kernel, bf16 and int8 pages
         *(paged_case(pa, f"wide_d{D}", 3, 8, 2, D, 16, 12, bf16, poison=True)
           for D in (288, 320, 512)),
@@ -2237,14 +2279,30 @@ def sparse_pairs(layout, causal, B):
 
 
 def sparse_case(sa, name, cfg, causal, dtype, shape=None, timed=False, seed=0,
-                empty_block_row=None):
+                empty_block_row=None, view=None, route=None):
+    """Kernel S against its fp32 plain version and the parent's build.
+    ``view``: "strided" reads q/k/v as the first D columns of wider rows (8
+    bytes apart past 16-byte multiples), "expand_kv" K and V of one head
+    expanded over the heads (stride 0); ``route`` the copy route kernel S
+    must take (0 TMA, else cp.async bytes)."""
     B, S, H, D = SPARSE_SHAPE if shape is None else shape
     g = torch.Generator(device=DEV).manual_seed(seed)
-    q, k, v = (torch.randn((B, S, H, D), generator=g, device=DEV).to(dtype) for _ in range(3))
+    if view == "strided":
+        q, k, v = (torch.randn((B, S, H, D + 4), generator=g, device=DEV).to(dtype)[..., :D]
+                   for _ in range(3))
+    elif view == "expand_kv":
+        q = torch.randn((B, S, H, D), generator=g, device=DEV).to(dtype)
+        k, v = (torch.randn((B, S, 1, D), generator=g, device=DEV).to(dtype).expand(B, S, H, D)
+                for _ in range(2))
+    else:
+        q, k, v = (torch.randn((B, S, H, D), generator=g, device=DEV).to(dtype)
+                   for _ in range(3))
+    wgmma = dtype != torch.float32 and D <= 256
     before = sa.sparse_attention.launches
     out = sa.sparse_attention(q, k, v, cfg, causal=causal)
-    check(sa.sparse_attention.launches == before + 1,
-          f"sparse {name}: {sa.sparse_attention.launches - before} launches for one call")
+    again = sa.sparse_attention(q, k, v, cfg, causal=causal)
+    check(sa.sparse_attention.launches == before + 2,
+          f"sparse {name}: {sa.sparse_attention.launches - before} launches for two calls")
     ref = sa.sparse_attention_plain(q.float(), k.float(), v.float(), cfg, causal)
     torch.cuda.synchronize()
     tol = SPARSE_TOL[dtype]
@@ -2253,15 +2311,45 @@ def sparse_case(sa, name, cfg, causal, dtype, shape=None, timed=False, seed=0,
     rec = {"case": name, "shape": [B, S, H, D], "block": cfg.block, "dtype": str(dtype)[6:],
            "causal": causal, "layout_heads": int(layout.shape[0]),
            "layout_density": float(layout.mean()), "max_abs_err": err, "atol_used": atol_used,
-           "tol": tol}
+           "tol": tol, "bit_equal_across_calls": torch.equal(out, again)}
+    if wgmma:
+        rec["copy_route"] = sa.copy_route(q, k, v)
+        rec["key_tile"] = sa.cta_key_tile(sa.padded_head_dim(D), cfg.block % sa.CTA_ROWS != 0)
+        rec["unit_masks"] = cfg.block % sa.CTA_ROWS != 0
     print(json.dumps({"sparse_check": rec}))
     check(bool(torch.isfinite(out).all()), f"sparse {name}: non-finite output")
     check(ok, f"sparse {name}: kernel vs fp32 plain beyond {tol} (max abs {err:.3g}, "
           f"atol used {atol_used:.3g})")
+    check(rec["bit_equal_across_calls"], f"sparse {name}: outputs differ between two calls")
+    if route is not None:
+        check(rec.get("copy_route") == route,
+              f"sparse {name}: copy route {rec.get('copy_route')}, not {route}")
     if empty_block_row is not None:
         rows = slice(empty_block_row * cfg.block, (empty_block_row + 1) * cfg.block)
         check(bool((out[:, rows] == 0).all()), f"sparse {name}: an empty layout row is not 0")
         rec["empty_row_zero"] = True
+
+    def new():
+        return sa.sparse_attention(q, k, v, cfg, causal=causal)
+
+    if wgmma:  # redesigned: the parent's kernel through its own wrapper code
+        def prev():
+            return BASE.sparse_attention(q, k, v, cfg, causal)
+    else:  # fp32 and past 256 unchanged: the parent's library under today's wrapper
+        def prev():
+            return BASE.swapped("sparse_attention", new)
+
+    if BASE is not None:
+        p_out = prev()
+        torch.cuda.synchronize()
+        if wgmma:
+            p_err, _, p_ok = max_err(p_out, ref, tol)
+            check(p_ok, f"sparse {name}: the parent's kernel is beyond {tol}")
+            rec["previous_max_abs_err"] = p_err
+        else:
+            same = torch.equal(p_out, out)
+            check(same, f"sparse {name}: other bits than the parent's build")
+            rec["bit_equal_to_previous"] = same
     if timed:
         lay_h = torch.as_tensor(layout, device=DEV).bool().expand(H, *layout.shape[1:])
         pairs = sparse_pairs(layout if layout.shape[0] == H else
@@ -2275,24 +2363,12 @@ def sparse_case(sa, name, cfg, causal, dtype, shape=None, timed=False, seed=0,
         if causal:
             mask &= torch.ones((S, S), dtype=torch.bool, device=DEV).tril()
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-
-        def new():
-            return sa.sparse_attention(q, k, v, cfg, causal=causal)
-
-        if BASE is not None:
-            # the parent's build on the same inputs: the same bits (its
-            # kernel is today's), and its time in turns
-            def prev():
-                return BASE.swapped("sparse_attention", new)
-
-            same = torch.equal(prev(), out)
-            check(same, f"sparse {name}: other bits than the parent's build")
+        if BASE is not None:  # the parent's build on the same inputs, in turns
             rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
-            rec["bit_equal_to_previous"] = same
         else:
             ms = device_ms(new)
         rec.update(
-            ms=ms,
+            ms=ms, bound_share=b_ms / ms,
             plain_ms=device_ms(lambda: sa.sparse_attention_plain(q, k, v, cfg, causal),
                                iters=5, warmup=2),
             library_ms=device_ms(lambda: sdpa(qh, kh, vh, mask[None], 1)),
@@ -2369,6 +2445,22 @@ def sparse_phase(sa):
             num_heads=4, block=24, num_random_blocks=2), False, bf16, shape=(1, 264, 4, 320)),
         sparse_case(sa, "wide_d512_fixed_s4096", fixed, True, bf16, shape=(1, 4096, H, 512),
                     timed=True),
+        # block 64 (two layout rows per 128-row query tile: unit masks), and
+        # DeepSpeed's GPU default block 16 at the main shape, timed
+        sparse_case(sa, "bigbird_block64_causal", sa.BigBirdSparsityConfig(
+            num_heads=H, block=64, num_random_blocks=2), True, bf16, shape=(1, 1024, H, 64)),
+        sparse_case(sa, "fixed_block16_causal_s4096", sa.FixedSparsityConfig(
+            num_heads=H, block=16, num_local_blocks=8, num_global_blocks=1), True, bf16,
+            timed=True),
+        # q/k/v that TMA cannot read in place: rows 8 bytes past 16-byte
+        # multiples, and K/V of one head expanded over the heads (stride 0)
+        sparse_case(sa, "strided_rows_cp8", fixed, True, bf16, shape=(1, 1024, H, 64),
+                    view="strided", route=8),
+        sparse_case(sa, "expand_kv_cp16_fp16", fixed, False, fp16, shape=(1, 1024, H, 64),
+                    view="expand_kv", route=16),
+        sparse_case(sa, "strided_rows_cp8_block24", sa.BigBirdSparsityConfig(
+            num_heads=4, block=24, num_random_blocks=2), True, bf16, shape=(1, 600, 4, 64),
+            view="strided", route=8),
     ]
     # the path: a user's calls of the entry point at the main shape, the
     # three default layouts causal and not, counter zeroed before, read after
@@ -2385,6 +2477,12 @@ def sparse_phase(sa):
         o.shape == q.shape and bool(torch.isfinite(o).all()) for o in outs),
         f"sparse path: {launches} launches for {len(calls)} calls, or a bad output")
     recs[0]["path_launches"] = launches
+    # the same six calls under the profiler: the wgmma kernel once per call
+    names = profiled_kernels(lambda: [sa.sparse_attention(q, k, v, cfg, causal=causal)
+                                      for cfg, causal in calls])
+    recs[0]["path_kernels"] = names
+    check(sum(n for k, n in names.items() if "sparse_attn_wgmma_kernel" in k) == len(calls),
+          f"sparse path: the profiler saw {names}, not {len(calls)} wgmma launches")
     # the kernel has no backward (nor has the JAX one): inputs that require
     # a gradient raise on the card
     q = torch.randn((1, 256, H, 64), device=DEV, dtype=bf16, requires_grad=True)
@@ -2450,7 +2548,9 @@ def evo_inputs(shape, dtype, biases, seed, K=None, masked_row=None):
 
 
 def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=None,
-             timed=False, seed=0):
+             timed=False, seed=0, resident=None):
+    """Kernels E, E', E'' against their fp32 plain versions and the parent's
+    build; ``resident``: whether E' must keep K and V resident per head."""
     B, S, N, H, D = shape
     q, k, v, do, b1, b2 = evo_inputs(shape, dtype, biases, seed, K, masked_row)
     K = k.shape[2]
@@ -2505,23 +2605,31 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
                for x, y in zip((dq, db1, dk, dv, db2), again))
     check(same, f"evo {name}: gradients differ between two calls")
     rec["bit_equal_across_calls"] = same
+    # the parent's E' through the parent's wrapper code (its entry point
+    # changed): in fp32 the same FMA kernel, in bf16/fp16 the mma.sync one
+    def prev_dq():
+        return BASE.evo_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)
+
     if BASE is not None:
-        # E and E' are the parent's build's: the same bits from the same
-        # inputs (and lse, delta); the parent's E'' is held to the same limits
-        p_o, p_lse, p_dq, p_db1 = BASE.swapped("evoformer_attn", lambda: (
+        # E and E'' (and E' in fp32) are the parent's build's: the same bits
+        # from the same inputs (and lse, delta); the parent's E' in
+        # bf16/fp16 is held to the same limits
+        p_o, p_lse, p_dk, p_dv, p_db2 = BASE.swapped("evoformer_attn", lambda: (
             *ev.evoformer_attn_fwd(q, k, v, b1f, b2f),
-            *ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)))
-        p_dkv = BASE.evo_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f)
+            *ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f)))
+        p_dq = prev_dq()
         torch.cuda.synchronize()
         same = all((x is None and y is None) or torch.equal(x, y)
-                   for x, y in zip((o, lse, dq, db1), (p_o, p_lse, p_dq, p_db1)))
-        check(same, f"evo {name}: E/E' give other bits than the parent's build")
-        rec["fwd_dq_bit_equal_to_previous"] = same
-        for nm, out, want in zip(("dk", "dv", "db2"), p_dkv,
-                                 (grads_ref[1], grads_ref[2], grads_ref[4])):
+                   for x, y in zip((o, lse, dk, dv, db2), (p_o, p_lse, p_dk, p_dv, p_db2)))
+        if dtype == torch.float32:
+            same = same and all((x is None and y is None) or torch.equal(x, y)
+                                for x, y in zip((dq, db1), p_dq))
+        check(same, f"evo {name}: E/E'' (E' in fp32) give other bits than the parent's build")
+        rec["unchanged_bit_equal_to_previous"] = same
+        for nm, out, want in zip(("dq", "db1"), p_dq, (grads_ref[0], grads_ref[3])):
             if out is None:
                 continue
-            tol = EVO_DBIAS_TOL[dtype] if nm == "db2" else EVO_BWD_TOL[dtype]
+            tol = EVO_DBIAS_TOL[dtype] if nm == "db1" else EVO_BWD_TOL[dtype]
             e, _, good = max_err(out, want, tol)
             rec[f"previous_{nm}_max_abs_err"] = e
             check(good or masked_row is not None,
@@ -2532,9 +2640,14 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
     if timed:
         check(rec["fwd_stages"] > 0, f"evo {name}: E did not keep the pair bias resident")
     rec["qranges"] = ev.dkv_query_ranges(q.dtype, N, D, b2f is not None)
-    rec["kranges"] = ev.dq_key_ranges(q.dtype, K, D, b1f is not None)
+    plan = ev.dq_plan(q.dtype, B, S, N, K, H, D, b1f is not None, b2f is not None)
+    rec["dq_plan"] = plan._asdict()
+    rec["kranges"] = plan.kranges
     if name.startswith("key_ranges"):
         check(rec["kranges"] > 1, f"evo {name}: E' did not cut the key axis")
+    if resident is not None:
+        check(plan.resident == int(resident),
+              f"evo {name}: E' plan {plan}, K/V resident should be {resident}")
     rec["max_abs_err"] = err
     if masked_row is None:  # the gradients held to their limits
         rec["bwd_max_abs_err"] = max(rec[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv"))
@@ -2598,18 +2711,26 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
         def new_dkv():
             return ev.evoformer_attn_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f)
 
+        def new_dq():
+            return ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)
+
         if BASE is not None:
-            # the parent's E and E'' on the same inputs, timed in turns
+            # the parent's E, E' and E'' on the same inputs, timed in turns
             rec["previous_fwd_ms"], fwd_ms, rec["turns_prev_new_new_prev"] = turns(
                 lambda: BASE.swapped("evoformer_attn", new_fwd), new_fwd)
+            rec["previous_dq_ms"], dq_ms, rec["dq_turns_prev_new_new_prev"] = turns(
+                prev_dq, new_dq)
             rec["previous_dkv_ms"], dkv_ms, rec["dkv_turns_prev_new_new_prev"] = turns(
-                lambda: BASE.evo_bwd_dkv(q, k, v, do, lse, delta, b1f, b2f), new_dkv)
+                lambda: BASE.swapped("evoformer_attn", new_dkv), new_dkv)
         else:
-            fwd_ms, dkv_ms = device_ms(new_fwd), device_ms(new_dkv)
+            fwd_ms, dq_ms, dkv_ms = device_ms(new_fwd), device_ms(new_dq), device_ms(new_dkv)
+        lib_bwd_bias = None if lib_fbb is None else lib_fbb - lib_f
         rec.update(
-            library_bwd_bias_ms=None if lib_fbb is None else lib_fbb - lib_f,
+            library_bwd_bias_ms=lib_bwd_bias,
             fwd_ms=fwd_ms, fwd_bound_share=f_b / fwd_ms,
-            dq_ms=device_ms(lambda: ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)),
+            dq_ms=dq_ms, dq_bound_share=dq_b / dq_ms,
+            dq_dkv_ms=dq_ms + dkv_ms,
+            dq_dkv_vs_library=None if lib_bwd_bias is None else (dq_ms + dkv_ms) / lib_bwd_bias,
             dkv_ms=dkv_ms, dkv_bound_share=dkv_b / dkv_ms,
             dkv_query_ranges=ev.dkv_query_ranges(q.dtype, N, D, b2f is not None),
             fwd_plain_ms=device_ms(lambda: ev.evoformer_attn_fwd_plain(q, k, v, b1f, b2f),
@@ -2621,6 +2742,16 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
             dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by, pairs=pairs)
     print(json.dumps({"evo": rec}))
     return rec
+
+
+def dq_resident_limit(ev, D):
+    """The last K (a multiple of E''s key tile) at which E' in bf16 with
+    both biases keeps a head's K and V tiles resident, as its plan says."""
+    bk = 64 if D <= 64 else 32
+    K = bk
+    while ev.dq_plan(torch.bfloat16, 1, 4, 128, K + bk, 2, D, True, True).resident:
+        K += bk
+    return K
 
 
 def evo_phase(ev):
@@ -2664,6 +2795,11 @@ def evo_phase(ev):
         evo_case(ev, "key_ranges_k6000_bf16_d128", (1, 2, 64, 2, 128), bf16, K=6000),
         evo_case(ev, "key_ranges_k16000_fp32_d128", (1, 1, 64, 2, 128), fp32, K=16000,
                  biases=("b1",)),
+        # E' at the last K whose K/V tiles stay resident per head and one key
+        # past it (K/V streamed through a ring), D = 32 and 128
+        *(evo_case(ev, f"{'resident' if r else 'streamed'}_k{Kr + (0 if r else 1)}_d{Dr}",
+                   (1, 4, 128, 2, Dr), bf16, K=Kr + (0 if r else 1), resident=r)
+          for Dr in (32, 128) for Kr in (dq_resident_limit(ev, Dr),) for r in (True, False)),
     ]
 
 
@@ -2717,6 +2853,11 @@ def evo_train_phase(ev):
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(grads, again)),
           "evo train: gradients differ between two calls")
+    # the profiler names the kernels of a call: E, E' and E'' on wgmma
+    names = profiled_kernels(kernel_call)
+    for kern in ("evo_fwd_wgmma_kernel", "evo_bwd_dq_wgmma_kernel", "evo_bwd_dkv_wgmma_kernel"):
+        check(sum(n for k, n in names.items() if kern in k) == 1,
+              f"evo train: the profiler saw {names}, not one {kern}")
     check(peak < scores_bytes, f"evo train: kernel path peak {peak / 1e9:.3f} GB is not below "
           f"the {scores_bytes / 1e9:.3f} GB of the scores")
     check([tuple(t.shape) for t in grads[3:]] == [tuple(b1.shape), tuple(b2.shape)]
@@ -2730,6 +2871,7 @@ def evo_train_phase(ev):
     torch.cuda.synchronize()
     plain_peak = torch.cuda.max_memory_allocated() - base
     rec = {"shape": [B, S, N, H, D], "dtype": "bfloat16", "launches": launches,
+           "kernels": names,
            "plain_calls": 0, "bit_equal_across_calls": True, "wall_ms": wall_ms,
            "peak_gb": peak / 1e9, "plain_peak_gb": plain_peak / 1e9,
            "scores_gb": scores_bytes / 1e9, "tol": EVO_BWD_TOL[dtype]}
@@ -2784,10 +2926,19 @@ def main() -> int:
     secs = op_builder.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per kernel "
           + json.dumps({k: round(v, 1) for k, v in secs.items()}))
+    spills = {}
     for name, log in op_builder.build_log.items():
+        fn = None
         for line in log["log"].splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line.strip()
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {name}: {line.strip()}")
+            if "spill stores" in line and not line.strip().endswith(
+                    "0 bytes spill stores, 0 bytes spill loads"):
+                spills.setdefault(name, []).append(f"{demangle(fn)}: {line.strip()}")
+    # the kernels that spill, by name
+    print(json.dumps({"ptxas_spills": spills}))
 
     BASE = Baseline(op_builder)
     warm_clocks()
@@ -2808,6 +2959,7 @@ def main() -> int:
     gmm_recs = phase(gmm_phase, gm)
     sparse = phase(sparse_phase, sa)
     evo = phase(evo_phase, ev)
+    evo_train = phase(evo_train_phase, ev)
 
     eng = phase(engine_phase, fa, pa)
     par = phase(parity_phase)
@@ -2818,7 +2970,6 @@ def main() -> int:
     qpar = phase(quant_parity_phase)
     moe = phase(mixtral_engine_phase, fa, pa, gm)
     mpar = phase(moe_parity_phase)
-    evo_train = phase(evo_train_phase, ev)
     print(json.dumps({"phase_seconds": phase_s}))
 
     def timed(recs, keys):
@@ -2993,8 +3144,12 @@ def main() -> int:
          "bound_ms": main_sparse["bound_ms"], "bound_by": main_sparse["bound_by"],
          "library_ms": main_sparse["library_ms"],
          "library_note": "SDPA with the layout expanded to a boolean mask",
+         "previous_ms": main_sparse.get("previous_ms"),
+         "bound_share": main_sparse.get("bound_share"),
+         "path_kernels": main_sparse["path_kernels"],
          "shape": "B=1 S=4096 H=16 D=64 bf16 block 128, Fixed (4 local, 1 global), causal",
-         "timed_cases": timed(sparse, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))},
+         "timed_cases": timed(sparse, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "previous_ms", "bound_share"))},
         {"name": "evoformer_attn_fwd", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/evoformer_attn.cu",
          "replaces": "deepspeed_tpu/ops/pallas/evoformer_attn.py:48",
@@ -3019,13 +3174,18 @@ def main() -> int:
          "ms": main_evo["dq_ms"], "plain_ms": main_evo["bwd_plain_ms"],
          "bound_ms": main_evo["dq_bound_ms"], "bound_by": main_evo["dq_bound_by"],
          "library_ms": main_evo["library_bwd_bias_ms"],
+         "previous_ms": main_evo.get("previous_dq_ms"),
+         "bound_share": main_evo.get("dq_bound_share"),
+         "dq_dkv_ms": main_evo["dq_dkv_ms"], "dq_dkv_vs_library": main_evo["dq_dkv_vs_library"],
+         "plan": main_evo["dq_plan"],
          "library_no_bias_grad_ms": main_evo["library_bwd_ms"], "shape": evo_shape,
          "note": "plain_ms and library_ms compute the whole backward; library_ms: SDPA's "
                  "backward with the float mask requiring grad, plus the two sums that "
                  "reduce its gradient to dbias1 and dbias2 (library_no_bias_grad_ms: "
                  "without the mask's gradient)",
          "timed_cases": timed(evo, ("dq_ms", "bwd_plain_ms", "dq_bound_ms",
-                                    "library_bwd_ms", "library_bwd_bias_ms"))},
+                                    "library_bwd_ms", "library_bwd_bias_ms", "previous_dq_ms",
+                                    "dq_bound_share", "dq_dkv_ms", "dq_dkv_vs_library"))},
         {"name": "evoformer_attn_bwd_dkv", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/evoformer_attn.cu",
          "replaces": "deepspeed_tpu/ops/pallas/evoformer_attn.py:196",

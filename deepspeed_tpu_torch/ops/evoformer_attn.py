@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,13 +54,24 @@ _F = ctypes.c_float
 _STRIDES = [_L] * 12  # q, k, v: (batch, row, residue, head)
 _SIG = {
     "dstpu_evoformer_attn_fwd": [_P] * 7 + [_I] * 7 + [_F, _I] + _STRIDES + [_P],
-    "dstpu_evoformer_attn_bwd_dq": [_P] * 12 + [_I] * 7 + [_F, _I, _I] + _STRIDES + [_L] * 4
-                                   + [_P],
+    "dstpu_evoformer_attn_bwd_dq": [_P] * 12 + [_I] * 7 + [_F] + [_I] * 4 + _STRIDES
+    + [_L] * 4 + [_P],
     "dstpu_evoformer_attn_bwd_dkv": [_P] * 13 + [_I] * 7 + [_F] + [_I] * 4 + _STRIDES
     + [_L] * 4 + [_P],
     "dstpu_evoformer_attn_dkv_qranges": [_I] * 4,
-    "dstpu_evoformer_attn_dq_kranges": [_I] * 4,
+    "dstpu_evoformer_attn_dq_plan": [_I] * 9 + [_P],
 }
+
+
+class DqPlan(NamedTuple):
+    """Kernel E''s plan for a shape, as the library answers it."""
+
+    kranges: int    #: key ranges (a grid axis; dQ partials added in order above 1)
+    chunks: int     #: chunks of a (b, s)'s work (dbias1 partials added in order above 1)
+    resident: int   #: bf16/fp16: 1 when a head's K/V tiles stay for all its steps
+    kv_stages: int  #: bf16/fp16: K/V tiles held (resident) or the ring's stages
+    q_stages: int   #: bf16/fp16: the Q/dO ring's stages
+    b2_stages: int  #: bf16/fp16: the bias2 ring's stages
 
 
 # ---------------------------------------------------------------------------
@@ -352,40 +363,52 @@ def evoformer_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, db1
     (B, S, Q, K, H, D), (q, k, v, do) = _bwd_inputs(q, k, v, do, lse, delta, b1, b2)
     want = b1 is not None
-    units = H * _cdiv(Q, TILE)
-    # one unit per block without bias1; with it, (h, q-tile) chunks sized so
-    # that about two blocks per SM run, their partials added in order
-    chunks = units if not want else min(units, max(1, _cdiv(2 * _sm_count(q.device), B * S)))
+    if q.dtype == torch.float32:  # the FMA kernel
+        ldb, ldq = K, Q
+    else:
+        # the wgmma kernel: TMA maps take positive strides, and the bias,
+        # lse and delta rows move in 16-byte chunks
+        q, k, v, do = (t if min(t.stride()[:4]) > 0 else t.contiguous() for t in (q, k, v, do))
+        ldb, ldq = _cdiv(K, 4) * 4, _cdiv(Q, 4) * 4
+        b1, b2 = _padded_rows(b1, ldb), _padded_rows(b2, ldb)
+        lse, delta = _padded_rows(lse, ldq), _padded_rows(delta, ldq)
+    # the library's plan: the key axis in ranges whose dbias1 rows fit a
+    # block (each range's dQ rows fp32 partials that the kernel's second
+    # pass adds in range order), and the chunks of a (b, s)'s work (their
+    # dbias1 partials added in chunk order)
+    plan = dq_plan(q.dtype, B, S, Q, K, H, D, want, b2 is not None)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     db1 = torch.empty((B, S, K), dtype=torch.float32, device=q.device) if want else None
-    part = (torch.empty((B * S, chunks, K), dtype=torch.float32, device=q.device)
-            if want and chunks > 1 else None)
-    # the key axis in ranges whose dbias1 accumulators fit a block (one range
-    # up to ~5,500 keys in bf16); each range's dQ rows are fp32 partials that
-    # the kernel's second pass adds in range order
-    kranges = dq_key_ranges(q.dtype, K, D, want)
-    dq_part = (torch.empty((kranges, q.numel()), dtype=torch.float32, device=q.device)
-               if kranges > 1 else None)
+    part = (torch.empty((B * S, plan.chunks, K), dtype=torch.float32, device=q.device)
+            if want and plan.chunks > 1 else None)
+    dq_part = (torch.empty((plan.kranges, q.numel()), dtype=torch.float32, device=q.device)
+               if plan.kranges > 1 else None)
     lib = op_builder.load("evoformer_attn", _SIG)
     with torch.cuda.device(q.device):
         err = lib.dstpu_evoformer_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _ptr(b1), _ptr(b2), dq.data_ptr(), _ptr(db1), _ptr(part),
             _ptr(dq_part), op_builder.dtype_code(q.dtype), B, S, Q, K, H, D,
-            1.0 / math.sqrt(D), chunks, kranges, *_strides(q, k, v, do),
+            1.0 / math.sqrt(D), plan.chunks, plan.kranges, ldb, ldq, *_strides(q, k, v, do),
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "evoformer_attn_bwd_dq")
     evoformer_attn_bwd_dq.launches += 1
     return dq, db1
 
 
-def dq_key_ranges(dtype, K: int, D: int, want_db1: bool) -> int:
-    """How many key ranges kernel E' cuts K into on the card: 1 while its
-    dbias1 accumulator over the whole key axis fits a block, more past that
-    (the kernel's own rule, asked of the built library)."""
+def dq_plan(dtype, B: int, S: int, Q: int, K: int, H: int, D: int, want_db1: bool,
+            has_b2: bool) -> DqPlan:
+    """Kernel E''s plan on the card, the library's own (nothing here mirrors
+    its shared-memory sums): the key ranges (1 while the dbias1 rows of the
+    whole key axis fit a block beside the tiles, more past that), the
+    chunks, and in bf16/fp16 whether K and V stay resident per head and the
+    rings' stages."""
     lib = op_builder.load("evoformer_attn", _SIG)
-    return lib.dstpu_evoformer_attn_dq_kranges(op_builder.dtype_code(dtype), K, D,
-                                               int(want_db1))
+    out = (ctypes.c_int * 6)()
+    op_builder.check(lib.dstpu_evoformer_attn_dq_plan(
+        op_builder.dtype_code(dtype), B, S, Q, K, H, D, int(want_db1), int(has_b2), out),
+        "evoformer_attn_dq_plan")
+    return DqPlan(*out)
 
 
 def dkv_query_ranges(dtype, Q: int, D: int, want_db2: bool) -> int:

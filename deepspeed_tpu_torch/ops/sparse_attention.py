@@ -21,8 +21,14 @@ require a gradient raises ``NotImplementedError``.
 
 Kernel S walks, for each query tile, only the on-blocks of its layout row:
 the wrapper turns the layout into compact per-head lists (CSR: row
-pointers and block columns, the columns at or below the diagonal when
+pointers and the key tiles to visit, none wholly above the diagonal when
 causal), built once per (layout, causal, device) and kept on the device.
+In bf16/fp16 a block of the kernel takes a 128-row query tile
+(``CTA_ROWS``) and key tiles of :func:`cta_key_tile` keys (:func:`cta_lists`;
+a layout block off 128 marks each listed tile's 16 x 16 units), and reads
+q, k and v by TMA or, where TMA cannot read a tensor in place, by cp.async
+(:func:`copy_route`); fp32 and head dims past 256 walk 64 x 64 tiles
+(:func:`block_lists`, :func:`unit_lists`).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import ctypes
 import dataclasses
 import hashlib
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +46,22 @@ from . import op_builder
 from .flash_attention import (WIDEST_INSTANCE, check_head_dim, pad_head_dim,
                               padded_head_dim)
 
-#: rows and keys of the kernel's tile; a layout block that is a multiple of
-#: it is cut into tiles, a smaller one is masked inside the tile at
-#: ``KERNEL_UNIT`` granularity
+#: rows and keys of the fp32 (and runtime-head-dim) kernel's tile; a layout
+#: block that is a multiple of it is cut into tiles, a smaller one is masked
+#: inside the tile at ``KERNEL_UNIT`` granularity
 KERNEL_TILE = 64
 KERNEL_UNIT = 16
+#: query rows of a block of kernel S in bf16/fp16 (two warpgroups of 64)
+CTA_ROWS = 128
+
+
+def cta_key_tile(D: int, masked: bool = False) -> int:
+    """Keys per tile of kernel S in bf16/fp16 at the kernel's head dim D
+    (:func:`padded_head_dim`): 128 up to D = 64 when the lists carry no
+    unit masks (a layout block that is a multiple of 128), else 64 (half
+    the masked-off work in a tile of small blocks; past D = 64 the D-wide
+    output accumulators in registers)."""
+    return 128 if D <= 64 and not masked else 64
 
 
 def kernel_takes_block(block: int) -> bool:
@@ -60,6 +77,12 @@ _SIG = {"dstpu_sparse_attention": [
     _P, _P, _P, _P, _P, _P, _P, _P,      # q k v o row_ptr cols masks layout
     _I, _I, _I, _I, _I, _I, _I, _I, _I,  # dtype B S H D layout_heads block layout_block causal
     ctypes.c_float,                      # sm_scale
+    _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v strides (b, s, h)
+    _P],                                 # stream
+    "dstpu_sparse_attention_wgmma": [
+    _P, _P, _P, _P, _P, _P, _P, _P,      # q k v o row_ptr cols masks layout
+    _I, _I, _I, _I, _I, _I, _I, _I, _I,  # dtype B S H D layout_heads layout_block causal cp
+    _I, ctypes.c_float,                  # key tile, sm_scale
     _L, _L, _L, _L, _L, _L, _L, _L, _L,  # q/k/v strides (b, s, h)
     _P]}                                 # stream
 
@@ -240,22 +263,10 @@ def unit_lists(layout: np.ndarray, block: int, S: int, causal: bool, device
     hit = _LISTS.get(key)
     if hit is not None:
         return hit
-    n_units = -(-S // KERNEL_UNIT)
+    any_on, partial = _unit_grid(lay, block, S)
+    n_units = any_on.shape[1]
     tpu = KERNEL_TILE // KERNEL_UNIT  # units per tile side
     nt = -(-n_units // tpu)
-    # the layout blocks each unit's elements fall in: [blk_lo, blk_hi]
-    lo = np.arange(n_units) * KERNEL_UNIT
-    hi = np.minimum(lo + KERNEL_UNIT, S) - 1
-    blk_lo, blk_hi = lo // block, hi // block
-    span = np.arange(lay.shape[1])
-    meet = ((span[None, :] >= blk_lo[:, None]) & (span[None, :] <= blk_hi[:, None])).astype(
-        np.int64)  # [units, blocks]
-    on_blocks = meet[None] @ (lay > 0).astype(np.int64) @ meet.T[None]  # [heads, units, units]
-    size = blk_hi - blk_lo + 1
-    full = hi - lo + 1 == KERNEL_UNIT
-    whole = (size[:, None] * size[None, :]) * (full[:, None] & full[None, :])
-    any_on = on_blocks > 0
-    partial = any_on & (on_blocks != whole[None])
     pad = nt * tpu - n_units
 
     def tiles(x):
@@ -271,6 +282,83 @@ def unit_lists(layout: np.ndarray, block: int, S: int, causal: bool, device
     # the upper bits as a signed int32, as the kernel reads them
     bits = bits.astype(np.uint32).view(np.int32)
     out = tuple(torch.as_tensor(x, device=device) for x in _csr(on, bits))
+    _LISTS[key] = out
+    return out
+
+
+def _unit_grid(lay: np.ndarray, block: int, S: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The layout ``[heads, NB, NB]`` at 16 x 16 units: (on, partial), each
+    boolean ``[heads, units, units]``.  A unit is on when any of its
+    elements is visible, partial when some are not (its rows or columns
+    cross a block edge that is not a multiple of 16, or S)."""
+    n_units = -(-S // KERNEL_UNIT)
+    # the layout blocks each unit's elements fall in: [blk_lo, blk_hi]
+    lo = np.arange(n_units) * KERNEL_UNIT
+    hi = np.minimum(lo + KERNEL_UNIT, S) - 1
+    blk_lo, blk_hi = lo // block, hi // block
+    span = np.arange(lay.shape[1])
+    meet = ((span[None, :] >= blk_lo[:, None]) & (span[None, :] <= blk_hi[:, None])).astype(
+        np.int64)  # [units, blocks]
+    on_blocks = meet[None] @ (lay > 0).astype(np.int64) @ meet.T[None]  # [heads, units, units]
+    size = blk_hi - blk_lo + 1
+    full = hi - lo + 1 == KERNEL_UNIT
+    whole = (size[:, None] * size[None, :]) * (full[:, None] & full[None, :])
+    any_on = on_blocks > 0
+    return any_on, any_on & (on_blocks != whole[None])
+
+
+def cta_lists(layout: np.ndarray, block: int, S: int, causal: bool, bk: int, device
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel S's walk in bf16/fp16: per layout head and 128-row query tile
+    (``CTA_ROWS``), the ascending ``bk``-key tiles to visit as CSR on
+    ``device`` (``row_ptr`` int32 ``[heads * ceil(S / 128) + 1]``, ``cols``
+    int32 key-tile indices), under causal none wholly above the query
+    tile's last row.  A block that is a multiple of 128 makes each query
+    tile one layout row and each key tile part of one layout block: every
+    listed tile is on whole, and ``masks`` is None.  Any other block: a
+    tile is listed when any of its 16 x 16 units is on, and ``masks`` is
+    uint8 ``[entries, 16]``: byte r the tile's key units on for row unit r
+    (bit u: keys 16 u .. 16 u + 15 of the tile), byte 8 + r those only
+    partly visible, whose elements the kernel tests against the layout.
+    Built once per (layout, block, S, causal, bk, device) and cached."""
+    lay = np.ascontiguousarray(layout, dtype=np.int32)
+    key = ("cta", hashlib.sha256(lay.tobytes()).hexdigest(), lay.shape, block, S,
+           bool(causal), bk, str(device))
+    hit = _LISTS.get(key)
+    if hit is not None:
+        return hit
+    heads = lay.shape[0]
+    nq, nk = -(-S // CTA_ROWS), -(-S // bk)
+    if block % CTA_ROWS == 0:
+        rows = np.arange(nq) * CTA_ROWS // block
+        cols = np.arange(nk) * bk // block
+        on = lay[:, rows][:, :, cols] > 0  # [heads, nq, nk]
+        mask16 = None
+    else:
+        ur, uc = CTA_ROWS // KERNEL_UNIT, bk // KERNEL_UNIT  # units per tile side
+        any_on, partial = _unit_grid(lay, block, S)
+        n_units = any_on.shape[1]
+
+        def per_row_unit(x):  # [heads, nq, nk, ur] bytes: bit u = key unit u
+            x = np.pad(x, ((0, 0), (0, nq * ur - n_units), (0, nk * uc - n_units)))
+            x = x.reshape(heads, nq, ur, nk, uc).transpose(0, 1, 3, 2, 4).astype(np.int64)
+            return (x << np.arange(uc)).sum(-1).astype(np.uint8)
+
+        on_bits = per_row_unit(any_on)
+        mask16 = np.zeros((heads, nq, nk, 16), np.uint8)
+        mask16[..., :ur] = on_bits
+        mask16[..., 8:8 + ur] = per_row_unit(partial)
+        on = on_bits.any(-1)
+    if causal:  # key tiles that start past the query tile's last row
+        on = on & (np.arange(nk)[None, :] * bk
+                   <= np.arange(nq)[:, None] * CTA_ROWS + CTA_ROWS - 1)[None]
+    row_ptr, cols = _csr(on)
+    masks = None
+    if mask16 is not None:
+        masks = mask16.reshape(-1, nk, 16)[on.reshape(-1, nk)]
+        masks = torch.as_tensor(masks if masks.size else np.zeros((1, 16), np.uint8),
+                                device=device)
+    out = (torch.as_tensor(row_ptr, device=device), torch.as_tensor(cols, device=device), masks)
     _LISTS[key] = out
     return out
 
@@ -291,6 +379,29 @@ def _rows_ok(t: torch.Tensor) -> bool:
     if t.dtype == torch.float32:
         return True
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def _cp_bytes(t: torch.Tensor) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) that divides ``t``'s base and
+    every stride in bytes, or 0 (no cp.async reads its rows in place)."""
+    if t.stride(3) != 1:
+        return 0
+    item = t.element_size()
+    for n in (16, 8, 4):
+        if t.data_ptr() % n == 0 and all(s * item % n == 0 for s in t.stride()[:3]):
+            return n
+    return 0
+
+
+def copy_route(*ts: torch.Tensor) -> int:
+    """How kernel S reads q, k and v ``[B, S, H, D]`` in bf16/fp16: 0 when
+    TMA can read them all in place (rows 16-byte aligned, every stride a
+    positive multiple of 16 bytes: a map's strides are positive), else the
+    bytes of each cp.async the block's threads copy tiles with (the widest
+    that every tensor allows; the caller copies a tensor that allows none)."""
+    if all(_cp_bytes(t) == 16 and min(t.stride()[:3]) > 0 for t in ts):
+        return 0
+    return min(_cp_bytes(t) for t in ts)
 
 
 def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -319,6 +430,8 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"sparse_attention: q/k/v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
     check_head_dim(D, "sparse_attention")
     Dk = padded_head_dim(D)
+    if q.dtype != torch.float32 and D <= WIDEST_INSTANCE:
+        return _sparse_wgmma(q, k, v, config, layout, causal, D, Dk)
     if Dk != D:  # the kernel runs at Dk on zero-padded rows; the extra columns are dropped
         q, k, v = (pad_head_dim(t, Dk) for t in (q, k, v))
     else:
@@ -353,3 +466,32 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 sparse_attention.launches = 0
+
+
+def _sparse_wgmma(q, k, v, config, layout, causal, D, Dk):
+    """Kernel S in bf16/fp16 at a head dim up to 256: one block per (b, h,
+    128-row query tile) over :func:`cta_lists`, q/k/v read by TMA or
+    cp.async (:func:`copy_route`)."""
+    B, S, H, _ = q.shape
+    if Dk != D:  # the kernel runs at Dk on zero-padded rows; the extra columns are dropped
+        q, k, v = (pad_head_dim(t, Dk) for t in (q, k, v))
+    else:
+        q, k, v = (t if _cp_bytes(t) else t.contiguous() for t in (q, k, v))
+    cp = copy_route(q, k, v)
+    bk = cta_key_tile(Dk, masked=config.block % CTA_ROWS != 0)
+    row_ptr, cols, masks = cta_lists(layout, config.block, S, causal, bk, q.device)
+    elems = _layout_bytes(layout, q.device) if config.block % KERNEL_UNIT else None
+    o = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
+    lib = op_builder.load("sparse_attention", _SIG)
+    with torch.cuda.device(q.device):
+        err = lib.dstpu_sparse_attention_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), row_ptr.data_ptr(),
+            cols.data_ptr(), None if masks is None else masks.data_ptr(),
+            None if elems is None else elems.data_ptr(), op_builder.dtype_code(q.dtype), B, S,
+            H, Dk, layout.shape[0], config.block, int(bool(causal)), cp, bk,
+            1.0 / math.sqrt(D), q.stride(0), q.stride(1), q.stride(2), k.stride(0),
+            k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    op_builder.check(err, "sparse_attention")
+    sparse_attention.launches += 1
+    return o if Dk == D else o[..., :D].contiguous()

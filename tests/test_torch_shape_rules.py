@@ -10,9 +10,11 @@ against the JAX package's Pallas kernels in interpret mode on the same
 numpy inputs.  The kernels
 themselves are held against these plain versions on the card by
 ``chip_smoke.py``.  The acceptance rules (``kernel_takes_head_dim``,
-``kernel_takes_block``, ``kernel_takes_group``) and the layout kernel S
-walks for blocks under its 64-row tile are pure Python and are checked
-here directly.
+``kernel_takes_block``, ``kernel_takes_group``), the layouts kernel S
+walks (64 x 64 unit tiles in fp32, 128-row query tiles with unit masks in
+bf16/fp16), its key tile and its copy route (TMA or cp.async) are pure
+Python and are checked here directly; kernel E''s plan is the library's
+and is checked where the library can be built.
 
 Tolerances are those of the existing tests of each op: flash forward fp32
 1e-5 and bf16 2e-2 (``test_torch_flash_attention.py``), flash gradients
@@ -284,6 +286,139 @@ def test_unit_lists_cover_blocks_off_16_exactly(cfg, S, causal):
     if causal:
         want &= np.tril(np.ones((S, S), bool))
     np.testing.assert_array_equal(_element_walk(layout, c.block, S, causal), want)
+
+
+# ------------------------------------- kernel S's 128-row tiles (bf16/fp16)
+def _cta_walk(layout, block, S, causal, bk):
+    """The visible (query, key) pairs as kernel S walks them in bf16/fp16:
+    per 128-row query tile its listed bk-key tiles, in each the key units
+    on for each 16-row unit (every unit when the lists carry no masks), the
+    elements of a partly visible unit tested against the layout, and the
+    diagonal when causal."""
+    row_ptr, cols, masks = sa.cta_lists(layout, block, S, causal, bk, "cpu")
+    row_ptr, cols = row_ptr.numpy(), cols.numpy()
+    masks = None if masks is None else masks.numpy()
+    heads, nq = layout.shape[0], -(-S // sa.CTA_ROWS)
+    span = max(nq * sa.CTA_ROWS, -(-S // bk) * bk)
+    elem = np.zeros((heads, span, span), bool)
+    elem[:, :S, :S] = np.kron(layout > 0, np.ones((block, block), bool))
+    u = sa.KERNEL_UNIT
+    vis = np.zeros((heads, span, span), bool)
+    for h in range(heads):
+        for qt in range(nq):
+            for e in range(row_ptr[h * nq + qt], row_ptr[h * nq + qt + 1]):
+                if masks is None:
+                    vis[h, qt * sa.CTA_ROWS:(qt + 1) * sa.CTA_ROWS,
+                        cols[e] * bk:(cols[e] + 1) * bk] = True
+                    continue
+                for r in range(sa.CTA_ROWS // u):
+                    for c in range(bk // u):
+                        if not (masks[e, r] >> c) & 1:
+                            continue
+                        r0, c0 = qt * sa.CTA_ROWS + r * u, cols[e] * bk + c * u
+                        part = (masks[e, 8 + r] >> c) & 1
+                        vis[h, r0:r0 + u, c0:c0 + u] |= (elem[h, r0:r0 + u, c0:c0 + u] if part
+                                                         else True)
+    vis = vis[:, :S, :S]
+    if causal:
+        vis &= np.tril(np.ones((S, S), bool))
+    return vis
+
+
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cfg,S", [
+    (lambda m: m.FixedSparsityConfig(num_heads=2, block=128), 1024),
+    (lambda m: m.BigBirdSparsityConfig(num_heads=2, block=256), 2048),
+    (lambda m: m.BSLongformerSparsityConfig(num_heads=1, block=128), 768),
+    (lambda m: m.BigBirdSparsityConfig(num_heads=2, block=64, num_random_blocks=2), 1024),
+    (lambda m: m.FixedSparsityConfig(num_heads=2, block=16, num_local_blocks=4,
+                                     num_global_blocks=1), 1040),
+    (lambda m: m.BigBirdSparsityConfig(num_heads=2, block=32, num_random_blocks=2), 1056),
+    (lambda m: m.FixedSparsityConfig(num_heads=2, block=48, num_local_blocks=3), 1008),
+    (lambda m: m.FixedSparsityConfig(num_heads=2, block=8, num_local_blocks=4), 520),
+    (lambda m: m.BigBirdSparsityConfig(num_heads=2, block=24, num_random_blocks=2), 600),
+])
+def test_cta_lists_cover_exactly_the_layout(cfg, S, causal, bk):
+    """Kernel S in bf16/fp16: the key tiles each 128-row query tile visits,
+    their unit masks and the element test inside partly visible units
+    cover the layout expanded to [H, S, S] (and the causal triangle)
+    exactly, for blocks of 128 and more (no masks) and for every other
+    block (S off a multiple of 128 included), at both key tiles."""
+    c = cfg(sa)
+    layout = sa._layout(c, S, c.num_heads)
+    want = np.kron(layout > 0, np.ones((c.block, c.block), bool))
+    if causal:
+        want &= np.tril(np.ones((S, S), bool))
+    np.testing.assert_array_equal(_cta_walk(layout, c.block, S, causal, bk), want)
+
+
+@pytest.mark.parametrize("block,masked", [(128, False), (256, False), (512, False),
+                                          (64, True), (32, True), (16, True), (24, True)])
+def test_cta_tile_of_each_block(block, masked):
+    """A layout block that is a multiple of 128 is one query tile's layout
+    row and holds whole key tiles: its lists carry no unit masks.  Any other
+    block is masked at 16 x 16 units; blocks that are multiples of 16 mark
+    no unit as partly visible."""
+    S = 2048 if block % 3 else 1536
+    cfg = sa.FixedSparsityConfig(num_heads=2, block=block, num_local_blocks=2)
+    layout = sa._layout(cfg, S, 2)
+    for bk in (64, 128):
+        _, cols, masks = sa.cta_lists(layout, block, S, True, bk, "cpu")
+        assert (masks is not None) == masked
+        if masked:
+            assert masks.shape == (cols.shape[0], 16) and masks.dtype == torch.uint8
+            assert masks[:, :8].any(1).all()  # a listed tile has a unit on
+            assert bool((masks[:, 8:] != 0).any()) == bool(block % 16)
+
+
+@pytest.mark.parametrize("D,masked,bk", [(16, False, 128), (48, False, 128), (64, False, 128),
+                                         (64, True, 64), (16, True, 64), (80, False, 64),
+                                         (128, True, 64), (224, False, 64), (256, False, 64)])
+def test_cta_key_tile(D, masked, bk):
+    """Kernel S's key tile at the kernel's head dim: 128 keys up to D = 64
+    for lists without unit masks, 64 for masked lists and past D = 64."""
+    assert sa.cta_key_tile(D, masked) == bk
+
+
+def test_sparse_copy_route():
+    """Kernel S reads q/k/v by TMA when every base is 16-byte aligned and
+    every stride a positive multiple of 16 bytes; else by cp.async of the
+    widest size (16, 8, 4 bytes) that divides every base and stride, and a
+    tensor that allows none is copied by the wrapper (route 0 after)."""
+    x = torch.zeros((1, 256, 4, 64), dtype=torch.bfloat16)
+    assert sa.copy_route(x, x, x) == 0
+    wide = torch.zeros((1, 256, 4, 68), dtype=torch.bfloat16)[..., :64]  # rows 136 bytes apart
+    assert sa._cp_bytes(wide) == 8 and sa.copy_route(x, wide, x) == 8
+    kv = torch.zeros((1, 256, 1, 64), dtype=torch.bfloat16).expand(1, 256, 4, 64)
+    assert sa._cp_bytes(kv) == 16 and sa.copy_route(x, kv, kv) == 16
+    base = torch.zeros(1 * 256 * 4 * 64 + 2, dtype=torch.bfloat16)
+    off4 = base[2:].view(1, 256, 4, 64)  # the base 4 bytes past 16-byte alignment
+    assert sa._cp_bytes(off4) == 4 and sa.copy_route(off4, x, x) == 4
+    odd = torch.zeros((1, 256, 4, 65), dtype=torch.bfloat16)[..., :64]  # rows 130 bytes apart
+    assert sa._cp_bytes(odd) == 0
+    assert sa._cp_bytes(odd.transpose(2, 3)) == 0  # head dim not contiguous
+
+
+def test_evoformer_dq_plan_from_the_library():
+    """Kernel E''s plan is the built library's own: at AlphaFold 2's MSA row
+    attention one key range, one chunk, K/V resident per head and a bias2
+    ring of at least two stages; a key axis past the dbias1 rows that fit
+    a block is cut into ranges; fp32 keeps its chunks of (h, query tile)
+    units.  Needs the library: skipped where nvcc cannot build it."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    try:
+        op_builder.load("evoformer_attn", ev._SIG)
+    except op_builder.KernelBuildError as e:
+        pytest.skip(f"the evoformer library cannot be built here: {str(e)[:80]}")
+    plan = ev.dq_plan(torch.bfloat16, 1, 512, 384, 384, 8, 32, True, True)
+    assert (plan.kranges, plan.chunks, plan.resident) == (1, 1, 1) and plan.b2_stages >= 2
+    assert ev.dq_plan(torch.bfloat16, 1, 2, 64, 6000, 2, 128, True, True).kranges > 1
+    assert ev.dq_plan(torch.bfloat16, 1, 4, 128, 4096, 8, 128, True, True).resident == 0
+    fp32 = ev.dq_plan(torch.float32, 1, 8, 130, 130, 2, 128, True, False)
+    assert fp32.chunks == min(2 * 3, -(-2 * torch.cuda.get_device_properties(0)
+                                       .multi_processor_count // 8))
 
 
 # ---------------------------------------------- plain paths vs JAX kernels

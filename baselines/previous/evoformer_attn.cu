@@ -23,14 +23,16 @@
 // over (h, q-block), dbias2 over s, the fastest grid axis).  Hopper runs
 // blocks in parallel and in no order, and the port's gradients must repeat
 // bit for bit, so no float atomics are used:
-//   E'  one block per (b, s, chunk of the (h, q-tile) units) loops its
-//       units; each warp sums its 16 rows of ds per column by a fixed
-//       shuffle tree into its own row of shared memory, and the block adds
-//       the 4 warps' rows in order at the end.  With more than one chunk
-//       the chunks' fp32 partials are added in chunk order by a second pass.
-//       The key axis is one range while the [4 warps][K] fp32 dbias1
-//       accumulator fits a block (K up to ~5,500 in bf16, ~20,000 in fp32);
-//       past that it is cut into the fewest ranges that fit, a grid axis of
+//   E'  one block per (b, s, chunk) walks its heads' query rows (bf16/
+//       fp16: a chunk is a range of heads, cut only while the grid would
+//       not cover the SMs once; fp32: a range of (h, q-tile) units); each
+//       warp sums its 16 rows of ds per column by a fixed shuffle tree into
+//       its own row of shared memory, and the block adds the warps' rows in
+//       order at the end.  With more than one chunk the chunks' fp32
+//       partials are added in chunk order by a second pass.  The key axis
+//       is one range while the per-warp fp32 dbias1 rows fit a block beside
+//       the tiles (K up to ~5,000 in bf16 at D = 32, ~20,000 in fp32); past
+//       that it is cut into the fewest ranges that fit, a grid axis of
 //       their own: each range's blocks sum dbias1 for its own keys (disjoint
 //       columns) and write fp32 partials of their dQ rows, which a second
 //       pass adds in range order and rounds once.  So E' takes any K, with
@@ -104,13 +106,24 @@
 // ex2.approx, the mask only on the edge tile; and two warpgroups split each
 // step's query rows.
 //
-// Tile kernel (E), E', bf16 and fp16: the flash-attention tiles
+// Kernel E', bf16 and fp16: two consumer warpgroups and a producer warp on
+// wgmma fed by TMA (see evo_bwd_dq_wgmma_kernel), E's 5-D maps and E''s
+// swizzled bias2 tiles.  A (b, s) block walks its heads' query rows in
+// steps of 128; every step of a head reads the same K and V, so a head's
+// K/V tiles are loaded once and kept for all its steps while they fit
+// (AlphaFold 2's N = 384 does up to D = 64; else they stream through a
+// ring), the next head's replacing them as the last step releases them.
+// One producer lane keeps the Q, K/V and bias2 rings full across step and
+// head boundaries, so no ring drains between units of work.  A score costs
+// an fma, an add, a subtract, a multiply and ex2.approx, the mask only on
+// ragged tiles.
+//
+// Tile kernel (E), bf16 and fp16: the flash-attention tiles
 // (csrc/flash_attention_*.cu) — 4 warps of 16 rows, mma.sync m16n8k16 with
 // fp32 accumulators, 16-byte cp.async tiles with padded rows (bias tiles
-// staged with the operand tiles of the same step), P and dS rounded to the
-// input type only as tensor-core operands.  fp32: the same loops on the FMA
-// pipes (16 x 16 threads, 4 x 4 patches), fp32 throughout, with accurate
-// exponentials.
+// staged with the operand tiles of the same step), P rounded to the input
+// type only as the PV operand.  fp32: the same loops on the FMA pipes (16 x
+// 16 threads, 4 x 4 patches), fp32 throughout, with accurate exponentials.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -899,8 +912,9 @@ __global__ void __launch_bounds__(kEvoWgThreads + 32, 1)
 }
 
 // ===========================================================================
-// kernel E': dQ and dbias1.  One block per (b, s, chunk); the chunk's units
-// are (h, query tile) pairs, h major.  With no bias1 every unit is a chunk.
+// kernel E': dQ and dbias1.  fp32: one block per (b, s, chunk) on the FMA
+// pipes, the chunk's units (h, query tile) pairs, h major (with no bias1
+// every unit is a chunk).  bf16/fp16: the wgmma kernel further down.
 // ===========================================================================
 __device__ __forceinline__ void unit_range(const Args& a, int chunk, int units, int* u0, int* u1) {
   const int per = cdiv(units, a.chunks);
@@ -908,13 +922,14 @@ __device__ __forceinline__ void unit_range(const Args& a, int chunk, int units, 
   *u1 = min(units, *u0 + per);
 }
 
-// the 4 warps' (or the block's) dbias1 rows added in order, to db1 or to
-// the chunk's partial row: columns [k_lo, k_hi) of the key range held by
-// rows of Kp floats
+// the block's n_rows dbias1 rows (one, or one per warp) added in order, to
+// db1 or to the chunk's partial row, by threads [0, threads): columns
+// [k_lo, k_hi) of the key range held by rows of Kp floats
 __device__ __forceinline__ void store_db1(const Args& a, const float* rows, int n_rows, int Kp,
-                                          long long bs, int chunk, int k_lo, int k_hi) {
+                                          long long bs, int chunk, int k_lo, int k_hi,
+                                          int threads) {
   float* dst = a.chunks > 1 ? a.part + (bs * a.chunks + chunk) * a.K : a.db1 + bs * a.K;
-  for (int col = k_lo + threadIdx.x; col < k_hi; col += blockDim.x) {
+  for (int col = k_lo + threadIdx.x; col < k_hi; col += threads) {
     float v = rows[col - k_lo];
     for (int w = 1; w < n_rows; ++w) v += rows[w * Kp + col - k_lo];
     dst[col] = v;
@@ -935,179 +950,6 @@ struct DqBlock {
     t1 = min(n_tiles, t0 + per);
   }
 };
-
-template <int D>
-constexpr size_t dq_mma_tiles() {  // Q, dO + 2 x (K, V)
-  return sizeof(uint16_t) * 6 * kB * (D + 8);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kMmaWarps * 32) evo_bwd_dq_mma_kernel(Args a) {
-  constexpr int RS = D + 8, KT = D / 16, NT = kB / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kB][RS]
-  T* dOs = Qs + kB * RS;                   // [kB][RS]
-  T* Ks = dOs + kB * RS;                   // [2][kB][RS]
-  T* Vs = Ks + 2 * kB * RS;                // [2][kB][RS]
-  float* b1s = reinterpret_cast<float*>(Vs + 2 * kB * RS);  // [2][kB]
-  float* b2s = b1s + 2 * kB;                                // [2][kB][kB2Ld]
-  float* db1w = b2s + 2 * kB * kB2Ld;                       // [4 warps][Kp]
-  const uint16_t* Qh = reinterpret_cast<const uint16_t*>(Qs);
-  const uint16_t* dOh = reinterpret_cast<const uint16_t*>(dOs);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const DqBlock blk(a);
-  const int chunk = blk.chunk, bs = blk.bs;
-  const int s = bs % a.S, b = bs / a.S;
-  // this block's key tiles [t0, t1); Kp floats of dbias1 per warp row
-  const int nq = cdiv(a.Q, kB), t0 = blk.t0, n_tiles = blk.t1, Kp = cdiv(cdiv(a.K, kB), a.kranges) * kB;
-  const int k_lo = t0 * kB;
-  const bool want_db1 = a.db1 != nullptr;
-  int u0, u1;
-  unit_range(a, chunk, a.H * nq, &u0, &u1);
-  if (want_db1)
-    for (int i = threadIdx.x; i < kMmaWarps * Kp; i += kMmaWarps * 32) db1w[i] = 0.f;
-
-  const int r0 = warp * 16 + (lane >> 2);  // this lane's rows: r0 and r0 + 8
-  const int cq = (lane & 3) * 2;           // and its column pair
-  for (int u = u0; u < u1; ++u) {
-    const int h = u / nq, q_start = (u % nq) * kB;
-    const T* qb = static_cast<const T*>(a.q) + b * a.qsb + s * a.qss + h * a.qsh;
-    const T* ob = static_cast<const T*>(a.dout) + b * a.dsb + s * a.dss + h * a.dsh;
-    const T* kb = static_cast<const T*>(a.k) + b * a.ksb + s * a.kss + h * a.ksh;
-    const T* vb = static_cast<const T*>(a.v) + b * a.vsb + s * a.vss + h * a.vsh;
-    const BiasSrc bias(a, b, s, h);
-    auto load_kv = [&](int buf, int k0) {
-      stage_async<T, D>(Ks + buf * kB * RS, kb, a.ksn, k0, kB, a.K);
-      stage_async<T, D>(Vs + buf * kB * RS, vb, a.vsn, k0, kB, a.K);
-      bias.stage(b1s + buf * kB, b2s + buf * kB * kB2Ld, kB2Ld, q_start, kB, k0);
-      cp_async_commit();
-    };
-    __syncthreads();  // the previous unit is done with every tile
-    stage_async<T, D>(Qs, qb, a.qsn, q_start, kB, a.Q);
-    stage_async<T, D>(dOs, ob, a.dsn, q_start, kB, a.Q);
-    cp_async_commit();
-    load_kv(t0 & 1, k_lo);
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const long long rowbase = ((long long)bs * a.H + h) * a.Q;
-    float lse_r[2], dl_r[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q_start + r0 + 8 * i;
-      lse_r[i] = row < a.Q ? a.lse_in[rowbase + row] : 0.f;
-      dl_r[i] = row < a.Q ? a.delta[rowbase + row] : 0.f;
-    }
-    float acc[DT][4];
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-    for (int t = t0; t < n_tiles; ++t) {
-      const int cur = t & 1;
-      const int k0 = t * kB;
-      if (t + 1 < n_tiles) {
-        load_kv(cur ^ 1, k0 + kB);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* Kc = Ks + cur * kB * RS;
-      const T* Vc = Vs + cur * kB * RS;
-      const float* b1c = bias.b1 ? b1s + cur * kB : nullptr;
-      const float* b2c = bias.b2 ? b2s + cur * kB * kB2Ld : nullptr;
-
-      float sc[NT][4], dp[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        uint32_t qa[4], oa[4];
-        load_a(qa, Qh, RS, r0, kt * 16 + cq);
-        load_a(oa, dOh, RS, r0, kt * 16 + cq);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const T* kr = Kc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
-          const T* vr = Vc + (nt * 8 + (lane >> 2)) * RS + kt * 16 + cq;
-          const uint32_t bk[2] = {lds32(kr), lds32(kr + 8)};
-          const uint32_t bv[2] = {lds32(vr), lds32(vr + 8)};
-          Mma<T>::run(sc[nt], qa, bk);
-          Mma<T>::run(dp[nt], oa, bv);
-        }
-      }
-      uint32_t dsf[NT / 2][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int lr = r0 + 8 * i, lc = nt * 8 + cq + (e & 1);
-          float p = 0.f;
-          if (q_start + lr < a.Q && k0 + lc < a.K)
-            p = expf(add_bias(sc[nt][e] * a.sm_scale, b1c, b2c, kB2Ld, lr, lc) - lse_r[i]);
-          ds[e] = p * (dp[nt][e] - dl_r[i]);
-        }
-        if (want_db1) {
-          // column sums of this warp's 16 rows: a fixed shuffle tree
-          float c0 = ds[0] + ds[2], c1 = ds[1] + ds[3];
-#pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {
-            c0 += __shfl_xor_sync(0xffffffffu, c0, off);
-            c1 += __shfl_xor_sync(0xffffffffu, c1, off);
-          }
-          if (lane < 4) {
-            float* w = db1w + warp * Kp + k0 - k_lo + nt * 8 + cq;
-            w[0] += c0;
-            w[1] += c1;
-          }
-        }
-        dsf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(ds[0] * a.sm_scale, ds[1] * a.sm_scale);
-        dsf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(ds[2] * a.sm_scale, ds[3] * a.sm_scale);
-      }
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        const T* kr = Kc + (j * 16 + (lane & 15)) * RS;
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          uint32_t bk[2];
-          ldmatrix_x2_trans(bk, kr + dt * 8);
-          Mma<T>::run(acc[dt], dsf[j], bk);
-        }
-      }
-      __syncthreads();  // every warp is done with buffer cur before it is refilled
-    }
-
-    T* dq = static_cast<T*>(a.dq);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qi = q_start + r0 + 8 * i;
-      if (qi >= a.Q) continue;
-      const long long off = (((long long)bs * a.Q + qi) * a.H + h) * D;
-      if (a.kranges > 1) {  // this key range's fp32 partial
-        float* row = a.dq_part + (long long)(blockIdx.x % a.kranges) * a.B * a.S * a.Q * a.H * D + off;
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt)
-          *reinterpret_cast<float2*>(row + dt * 8 + cq) =
-              make_float2(acc[dt][2 * i], acc[dt][2 * i + 1]);
-      } else {
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt)
-          *reinterpret_cast<uint32_t*>(dq + off + dt * 8 + cq) =
-              Mma<T>::pack(acc[dt][2 * i], acc[dt][2 * i + 1]);
-      }
-    }
-  }
-  if (want_db1) {
-    __syncthreads();
-    store_db1(a, db1w, kMmaWarps, Kp, bs, chunk, k_lo, min(a.K, n_tiles * kB));
-  }
-}
 
 template <int D>
 constexpr size_t dq_fma_tiles() {  // Q, dO, K, V tiles + dS, fp32
@@ -1247,7 +1089,7 @@ __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dq_fma_kernel(Args a) {
   }
   if (want_db1) {
     __syncthreads();
-    store_db1(a, db1s, 1, Kp, bs, chunk, k_lo, min(a.K, n_tiles * kB));
+    store_db1(a, db1s, 1, Kp, bs, chunk, k_lo, min(a.K, n_tiles * kB), kFmaThreads);
   }
 }
 
@@ -1680,6 +1522,395 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// kernel E', bf16 and fp16: wgmma fed by TMA, K and V resident per head
+// ---------------------------------------------------------------------------
+constexpr int kDqThreads = 256;  // two consumer warpgroups (+ a producer warp)
+constexpr int kDqRows = 128;     // query rows of a step, 64 per warpgroup
+constexpr int kDqMaxB2Stages = 4;
+
+// keys per tile: 64 up to D = 64, 32 at D = 128 (S, dP and the D-wide dQ
+// accumulators in registers under the producer warp's 168-register cap)
+template <int D>
+__host__ __device__ constexpr int dq_bk() {
+  return D <= 64 ? 64 : 32;
+}
+
+// E''s plan in bf16/fp16, the library's own: the key ranges and their tiles,
+// the rings, and the chunks of heads a (b, s) is cut into
+struct DqPlan {
+  int kranges, chunks;
+  int resident;   // 1: K/V tiles stay for every step of a head
+  int kv_stages;  // resident: one or two heads' tiles of the range; else the ring
+  int q_stages, b2_stages;
+};
+
+// E''s dynamic shared memory: alignment slack | the K/V tiles | the Q ring
+// (per stage: Q and dO tiles, lse and delta rows) | the bias2 ring | the
+// key range's bias1 row | 8 warps' dbias1 rows | the barriers
+template <int D>
+__host__ __device__ constexpr size_t dq_wg_smem(int kv_stages, int q_stages, int b2_stages,
+                                                int Kp, bool db1) {
+  return 1024 + (size_t)kv_stages * 2 * dq_bk<D>() * D * 2 +
+         (size_t)q_stages * (2 * kDqRows * D * 2 + 2 * kDqRows * 4) +
+         (size_t)b2_stages * kDqRows * dq_bk<D>() * 4 + (size_t)Kp * 4 +
+         (db1 ? (size_t)8 * Kp * 4 : 0) + (size_t)(2 * (q_stages + kv_stages + b2_stages) + 1) * 8;
+}
+
+// The fewest key ranges (whole tiles each, none empty) whose smallest
+// layout fits a block: K/V resident for a head (else a ring of two tiles),
+// two Q stages, two bias2 stages.  Then, while they fit: a deeper bias2 ring
+// (up to 4: a tile of it serves one key tile only), two heads of K/V
+// resident (the next head's tiles land under the current head's steps),
+// three Q stages.  The heads of a (b, s) are cut into chunks while the
+// grid would not cover the SMs once.  One range up to ~5,500 keys at D = 32.
+template <int D>
+DqPlan dq_wg_plan(int B, int S, int K, int H, bool b2, bool db1, int sms) {
+  constexpr int BK = dq_bk<D>();
+  const size_t limit = (size_t)kMaxSmem - 2048;
+  const int nk = cdiv(K, BK);
+  for (int r = 1; r <= nk; ++r) {
+    DqPlan p{};
+    p.kranges = cdiv(nk, cdiv(nk, r));  // no empty range
+    const int nt = cdiv(nk, p.kranges), Kp = nt * BK;
+    auto fits = [&](int kv, int q, int b) { return dq_wg_smem<D>(kv, q, b, Kp, db1) <= limit; };
+    p.q_stages = 2;
+    p.b2_stages = b2 ? 2 : 0;
+    if (fits(nt, 2, p.b2_stages)) {
+      p.resident = 1;
+      p.kv_stages = nt;
+    } else if (fits(2, 2, p.b2_stages)) {
+      p.kv_stages = 2;
+    } else {
+      continue;
+    }
+    while (b2 && p.b2_stages < kDqMaxB2Stages && fits(p.kv_stages, 2, p.b2_stages + 1))
+      ++p.b2_stages;
+    if (p.resident && fits(2 * nt, 2, p.b2_stages)) p.kv_stages = 2 * nt;
+    if (!p.resident)
+      while (p.kv_stages < 4 && fits(p.kv_stages + 1, 2, p.b2_stages)) ++p.kv_stages;
+    if (fits(p.kv_stages, 3, p.b2_stages)) p.q_stages = 3;
+    const long long blocks = (long long)B * S * p.kranges;
+    p.chunks = blocks >= sms || blocks == 0 ? 1 : (int)min((long long)H, (sms + blocks - 1) / blocks);
+    return p;
+  }
+  return DqPlan{};  // a tile always fits
+}
+
+// dS of one 64-query x BK-key tile in place of dP, S's P on the way, from
+// the plain version's order of operations: x = s * sm_scale + bias1 +
+// bias2, p = exp(x - lse) (taken as ex2((x - lse) log2 e), so a row masked
+// by -1e9 rounds as the plain version's does: #F3), ds = p (dp - delta).
+// Element i = 4 j + e is row lrow + 8 (e >> 1), key k0 + 8 j + cq + (e & 1);
+// b2 is the stage's bias2 tile (boxes of 32 keys, 128-byte swizzled rows),
+// b1 the bias1 row at k0.  EDGE: rows past Q and keys past K give 0.
+template <bool B2, bool EDGE, int BK>
+__device__ __forceinline__ void dq_ds(float (&s)[BK / 2], float (&dp)[BK / 2], const float* b2,
+                                      const float* b1, const float (&lse)[2],
+                                      const float (&dl)[2], int lrow, int q_row, int k0, int cq,
+                                      int Q, int K, float sm_scale) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float2 c = *reinterpret_cast<const float2*>(b1 + 8 * j + cq);
+    const int kl = 8 * j + cq;  // the pair's first key in the tile
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = lrow + 8 * r;  // in the step's tile
+      float2 bb = make_float2(0.f, 0.f);
+      if (B2)
+        bb = *reinterpret_cast<const float2*>(
+            b2 + (kl >> 5) * kDqRows * 32 + row * 32 + (((((kl & 31) >> 2) ^ (row & 7))) << 2) +
+            (kl & 3));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        float x = fmaf(s[i], sm_scale, e ? c.y : c.x);
+        if (B2) x += e ? bb.y : bb.x;
+        float p = ex2((x - lse[r]) * kLog2e);
+        if (EDGE && !(q_row + 8 * r < Q && k0 + kl + e < K)) p = 0.f;
+        dp[i] = p * (dp[i] - dl[r]);
+      }
+    }
+  }
+}
+
+// One block of two consumer warpgroups and a producer warp per (b, s, chunk
+// of heads, key range).  The block walks the chunk's heads and, for each,
+// its steps of 128 query rows; each warpgroup takes 64 rows of a step and
+// walks the range's key tiles: S = Q K^T and dP = dO V^T by wgmma m64nBKk16
+// (both operands K-major in shared memory), dS formed in registers in
+// wgmma's A layout, dQ += dS K by m64nDk16 with K read MN-major from the
+// same tile, the first product of a step starting the sums.  S and dP of
+// tile t are issued with dQ of tile t - 1.  Where a head's K/V tiles of the
+// range fit (kv_stages >= the range's tiles) they are loaded once per head
+// and kept for every step; else they stream through a ring once per step.
+// One lane of the producer warp walks the same stream the consumers do:
+// per step its Q and dO tiles and lse and delta rows (the Q ring), per key
+// tile the K and V tiles when they are loaded and the bias2 tile [128][BK]
+// (the bias2 ring), so no ring drains at a step or head boundary and a
+// head's K/V tiles are replaced as the head's last step releases them.
+// dbias1: each warp sums its 16 rows of dS per key by a fixed shuffle tree
+// into its own row of shared memory; at the end the 8 rows are added in
+// order, to db1 or to the chunk's partial.
+template <typename T, int D, bool B2>
+__global__ void __launch_bounds__(kDqThreads + 32, 1)
+    evo_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tb2, const Args a,
+                            const DqPlan plan) {
+  constexpr int W = evo_w<D>();
+  constexpr int BK = dq_bk<D>(), R = kDqRows;
+  constexpr int KVT = BK * D;  // elements of a K or V tile
+  constexpr int QT = R * D;    // elements of a Q or dO tile
+  constexpr int B2T = R * BK;  // floats of a bias2 tile
+  constexpr uint32_t SBO = 16 * W;
+  const int KVS = plan.kv_stages, QST = plan.q_stages, BST = plan.b2_stages;
+  const bool resident = plan.resident != 0;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzling repeats every 1024 bytes: tiles start on that
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* kvs = reinterpret_cast<T*>(base);      // [KVS][K, V][D/W][BK][W]
+  T* qring = kvs + (size_t)KVS * 2 * KVT;   // [QST][Q, dO][D/W][R][W]
+  float* b2ring = reinterpret_cast<float*>(qring + (size_t)QST * 2 * QT);  // [BST][BK/32][R][32]
+  float* stats = b2ring + (size_t)BST * B2T;  // [QST][lse, delta][R]
+
+  // block -> (b * S + s, chunk of heads, key range), the key range fastest
+  const int kr = blockIdx.x % a.kranges;
+  const int chunk = (blockIdx.x / a.kranges) % a.chunks;
+  const int bs = blockIdx.x / (a.kranges * a.chunks);
+  const int s = bs % a.S, b = bs / a.S;
+  const int hper = cdiv(a.H, a.chunks);
+  const int h0 = min(a.H, chunk * hper), h1 = min(a.H, h0 + hper);
+  const int nk = cdiv(a.K, BK), per = cdiv(nk, a.kranges);
+  const int t0 = min(nk, kr * per), nt = min(nk, t0 + per) - t0;
+  const int Kp = per * BK, k_lo = t0 * BK;
+  const int nqs = cdiv(a.Q, R);
+  const int n_steps = (h1 - h0) * nqs;
+  float* b1s = stats + (size_t)QST * 2 * R;  // [Kp]: the key range's bias1 row
+  float* db1w = b1s + Kp;                    // [8 warps][Kp]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(db1w + (a.db1 != nullptr ? 8 * Kp : 0));
+  uint64_t* q_empty = q_full + QST;
+  uint64_t* kv_full = q_empty + QST;
+  uint64_t* kv_empty = kv_full + KVS;
+  uint64_t* b2_full = kv_empty + KVS;
+  uint64_t* b2_empty = b2_full + BST;
+  uint64_t* b1_full = b2_empty + BST;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < QST; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], kDqThreads);
+    }
+    for (int i = 0; i < KVS; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_empty[i], kDqThreads);
+    }
+    for (int i = 0; i < BST; ++i) {
+      mbar_init(&b2_full[i], 1);
+      mbar_init(&b2_empty[i], kDqThreads);
+    }
+    mbar_init(b1_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // lse, delta and bias1 entries that a ragged copy stops short of keep
+  // finite values (their scores are masked); the dbias1 rows start at 0
+  for (int i = threadIdx.x; i < QST * 2 * R + Kp + (a.db1 != nullptr ? 8 * Kp : 0);
+       i += blockDim.x)
+    stats[i] = 0.f;
+  fence_proxy_async();  // the zeros, before the copies land
+  __syncthreads();
+
+  // the K/V load and the stage of key tile t at step j, and whether the
+  // step releases it
+  auto kv_load = [&](int j, int t) { return resident ? (j / nqs) * nt + t : j * nt + t; };
+
+  if (threadIdx.x >= kDqThreads) {
+    // the producer warp: one lane walks the consumers' stream
+    if ((threadIdx.x & 31) != 0) return;
+    const int nb1 = a.b1 != nullptr ? min(Kp, a.ldb - k_lo) : 0;
+    mbar_arrive_tx(b1_full, nb1 * 4);
+    if (nb1 > 0) bulk_copy(b1s, a.b1 + (long long)bs * a.ldb + k_lo, nb1 * 4, b1_full);
+    for (int j = 0; j < n_steps; ++j) {
+      const int h = h0 + j / nqs, q0 = (j % nqs) * R;
+      const int qst = j % QST;
+      if (j >= QST) mbar_wait(&q_empty[qst], (j / QST - 1) & 1);
+      const int nst = min(R, a.ldq - q0);  // lse and delta floats (ldq a multiple of 4)
+      T* Qd = qring + (size_t)qst * 2 * QT;
+      mbar_arrive_tx(&q_full[qst], 2 * QT * sizeof(T) + 2 * nst * 4);
+#pragma unroll
+      for (int cb = 0; cb < D / W; ++cb) {
+        tma_load_5d(Qd + cb * W * R, &tq, cb * W, h, q0, s, b, &q_full[qst]);
+        tma_load_5d(Qd + QT + cb * W * R, &tdo, cb * W, h, q0, s, b, &q_full[qst]);
+      }
+      const long long row = ((long long)bs * a.H + h) * a.ldq + q0;
+      bulk_copy(stats + qst * 2 * R, a.lse_in + row, nst * 4, &q_full[qst]);
+      bulk_copy(stats + qst * 2 * R + R, a.delta + row, nst * 4, &q_full[qst]);
+      for (int t = 0; t < nt; ++t) {
+        const int k0 = k_lo + t * BK;
+        if (!resident || j % nqs == 0) {
+          const int n = kv_load(j, t), st = n % KVS;
+          if (n >= KVS) mbar_wait(&kv_empty[st], (n / KVS - 1) & 1);
+          mbar_arrive_tx(&kv_full[st], 2 * KVT * sizeof(T));
+          T* Kd = kvs + (size_t)st * 2 * KVT;
+#pragma unroll
+          for (int cb = 0; cb < D / W; ++cb) {
+            tma_load_5d(Kd + cb * W * BK, &tk, cb * W, h, k0, s, b, &kv_full[st]);
+            tma_load_5d(Kd + KVT + cb * W * BK, &tv, cb * W, h, k0, s, b, &kv_full[st]);
+          }
+        }
+        if (B2) {
+          const int n = j * nt + t, st = n % BST;
+          if (n >= BST) mbar_wait(&b2_empty[st], (n / BST - 1) & 1);
+          mbar_arrive_tx(&b2_full[st], B2T * 4);
+          float* b2d = b2ring + (size_t)st * B2T;
+#pragma unroll
+          for (int x = 0; x < BK / 32; ++x)
+            tma_load_3d(b2d + x * R * 32, &tb2, k0 + 32 * x, q0, b * a.H + h, &b2_full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int c = threadIdx.x >> 7;  // this thread's warpgroup: rows [64 c, 64 c + 64) of a step
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int lrow = 64 * c + 16 * warp + (lane >> 2);  // the lane's rows in a step: lrow, lrow + 8
+  const int cq = (lane & 3) * 2;                      // and its column pair
+  const bool want_db1 = a.db1 != nullptr;
+  float* db1r = db1w + (4 * c + warp) * Kp;  // this warp's dbias1 row
+  float s_[BK / 2], dp[BK / 2], dq[D / 2];
+  uint32_t dsf[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s_[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(b1_full, 0);
+
+  for (int j = 0; j < n_steps; ++j) {
+    const int h = h0 + j / nqs, q0 = (j % nqs) * R;
+    const int qst = j % QST;
+    const bool release_kv = !resident || j % nqs == nqs - 1;
+    mbar_wait(&q_full[qst], (j / QST) & 1);
+    const T* Qc = qring + (size_t)qst * 2 * QT + 64 * c * W;  // this warpgroup's rows
+    const T* dOc = Qc + QT;
+    const float* lsc = stats + qst * 2 * R;
+    const float lse[2] = {lsc[lrow], lsc[lrow + 8]};
+    const float dl[2] = {lsc[R + lrow], lsc[R + lrow + 8]};
+    const bool ragged_rows = q0 + R > a.Q;
+
+    // S = Q K^T and dP = dO V^T of tile t, committed
+    auto sdp = [&](int t) {
+      const int n = kv_load(j, t);
+      mbar_wait(&kv_full[n % KVS], (n / KVS) & 1);
+      const T* Kc = kvs + (size_t)(n % KVS) * 2 * KVT;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int cb = kk * 16 / W, off = kk * 16 % W;
+        WgmmaSS<T, BK>::run(s_, gmma_desc_sw<W>(Qc + cb * W * R + off, 16, SBO),
+                            gmma_desc_sw<W>(Kc + cb * W * BK + off, 16, SBO), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int cb = kk * 16 / W, off = kk * 16 % W;
+        WgmmaSS<T, BK>::run(dp, gmma_desc_sw<W>(dOc + cb * W * R + off, 16, SBO),
+                            gmma_desc_sw<W>(Kc + KVT + cb * W * BK + off, 16, SBO), kk > 0);
+      }
+      wg_commit();
+    };
+    // dQ += dS K of tile t (dS in dsf), committed; K read MN-major
+    auto dsk = [&](int t) {
+      const T* Kc = kvs + (size_t)(kv_load(j, t) % KVS) * 2 * KVT;
+      wg_fence();
+#pragma unroll
+      for (int kq = 0; kq < BK / 16; ++kq)
+        WgmmaRS<T, D>::run(dq, dsf[kq], gmma_desc_sw<W>(Kc + kq * 16 * W, W * BK * 2, SBO),
+                           (t > 0) | kq);
+      wg_commit();
+    };
+
+    for (int t = 0; t < nt; ++t) {
+      const int k0 = k_lo + t * BK;
+      sdp(t);
+      if (t > 0) {
+        dsk(t - 1);
+        wg_wait<1>();  // S and dP of tile t are done; dQ of tile t - 1 runs on
+      } else {
+        wg_wait<0>();
+      }
+      pin(s_);
+      pin(dp);
+      const int nb = j * nt + t;
+      const float* b2c = b2ring + (size_t)(nb % BST) * B2T;
+      if (B2) mbar_wait(&b2_full[nb % BST], (nb / BST) & 1);
+      if (ragged_rows || k0 + BK > a.K)
+        dq_ds<B2, true, BK>(s_, dp, b2c, b1s + k0 - k_lo, lse, dl, lrow, q0 + lrow, k0, cq, a.Q,
+                            a.K, a.sm_scale);
+      else
+        dq_ds<B2, false, BK>(s_, dp, b2c, b1s + k0 - k_lo, lse, dl, lrow, q0 + lrow, k0, cq,
+                             a.Q, a.K, a.sm_scale);
+      if (B2) mbar_arrive(&b2_empty[nb % BST]);
+      if (want_db1) {
+        // column sums of this warp's 16 rows: a fixed shuffle tree
+#pragma unroll
+        for (int jj = 0; jj < BK / 8; ++jj) {
+          float c0 = dp[4 * jj] + dp[4 * jj + 2], c1 = dp[4 * jj + 1] + dp[4 * jj + 3];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            c0 += __shfl_xor_sync(0xffffffffu, c0, off);
+            c1 += __shfl_xor_sync(0xffffffffu, c1, off);
+          }
+          if (lane < 4) {
+            float* w = db1r + k0 - k_lo + 8 * jj + cq;
+            w[0] += c0;
+            w[1] += c1;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) dp[i] *= a.sm_scale;
+      wg_wait<0>();  // dQ of tile t - 1: its K tile and dS are free
+      pin(dq);
+      pin(dsf);
+      if (t > 0 && release_kv) mbar_arrive(&kv_empty[kv_load(j, t - 1) % KVS]);
+      pack_a<T, BK>(dsf, dp);
+    }
+    dsk(nt - 1);
+    wg_wait<0>();
+    pin(dq);
+    pin(dsf);
+    if (release_kv) mbar_arrive(&kv_empty[kv_load(j, nt - 1) % KVS]);
+    mbar_arrive(&q_empty[qst]);
+
+    // the step's dQ rows: rounded once, or this key range's fp32 partial
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + lrow + 8 * r;
+      if (qi >= a.Q) continue;
+      const long long off = (((long long)bs * a.Q + qi) * a.H + h) * D;
+      if (a.kranges > 1) {
+        float* row = a.dq_part + (long long)kr * a.B * a.S * a.Q * a.H * D + off;
+#pragma unroll
+        for (int jd = 0; jd < D / 8; ++jd)
+          *reinterpret_cast<float2*>(row + 8 * jd + cq) =
+              make_float2(dq[4 * jd + 2 * r], dq[4 * jd + 2 * r + 1]);
+      } else {
+        T* row = static_cast<T*>(a.dq) + off;
+#pragma unroll
+        for (int jd = 0; jd < D / 8; ++jd)
+          *reinterpret_cast<uint32_t*>(row + 8 * jd + cq) =
+              Cvt<T>::pack(dq[4 * jd + 2 * r], dq[4 * jd + 2 * r + 1]);
+      }
+    }
+  }
+  if (want_db1) {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(kDqThreads) : "memory");  // the consumers only
+    store_db1(a, db1w, 8, Kp, bs, chunk, k_lo, min(a.K, k_lo + nt * BK), kDqThreads);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kFmaThreads) evo_bwd_dkv_fma_kernel(Args a) {
   constexpr int DP = D + 1, PP = kB + 1, NC = D / 16;
@@ -1913,8 +2144,7 @@ size_t smem_bytes(Pass pass, bool fp32, const Args& a) {
   if (pass == kFwd || pass == kDq) {
     const size_t bias = sizeof(float) * nbuf * (kB + kB * kB2Ld);  // laid out always
     if (pass == kFwd) return (fp32 ? fwd_fma_smem<D>() : fwd_mma_smem<D>()) + bias;
-    return (fp32 ? dq_fma_tiles<D>() + (a.db1 ? sizeof(float) * Kp : 0)
-                 : dq_mma_tiles<D>() + (a.db1 ? sizeof(float) * kMmaWarps * Kp : 0)) + bias;
+    return dq_fma_tiles<D>() + (a.db1 ? sizeof(float) * Kp : 0) + bias;  // fp32 only
   }
   // E'' on the FMA pipes (fp32; bf16/fp16 take dkv_wg_smem)
   const size_t bias = sizeof(float) * (kB + kB * kB2LdT);
@@ -1944,22 +2174,6 @@ int dkv_qranges(int Q, bool db2) {
   return nq;
 }
 
-// the key ranges of E': 1 while the whole axis's dbias1 accumulator fits a
-// block, else the fewest that fit.  Ranges hold whole key tiles and none is
-// empty.
-template <int D>
-int dq_kranges(bool fp32, int K, bool db1) {
-  Args a{};
-  a.K = K;
-  a.db1 = db1 ? reinterpret_cast<float*>(16) : nullptr;  // only tested for null
-  const int nk = cdiv(K, kB);
-  for (int r = 1; r <= nk; ++r) {
-    a.kranges = cdiv(nk, cdiv(nk, r));  // no empty range
-    if (smem_bytes<D>(kDq, fp32, a) <= (size_t)kMaxSmem - 2048) return a.kranges;
-  }
-  return nk;
-}
-
 int sm_count() {
   static const int n = [] {
     int dev = 0, v = 132;
@@ -1969,6 +2183,36 @@ int sm_count() {
     return v;
   }();
   return n;
+}
+
+// the key ranges of E' in fp32: 1 while the whole axis's dbias1
+// accumulator fits a block, else the fewest that fit.  Ranges hold whole key
+// tiles and none is empty.  (bf16/fp16: dq_wg_plan.)
+template <int D>
+int dq_kranges(int K, bool db1) {
+  Args a{};
+  a.K = K;
+  a.db1 = db1 ? reinterpret_cast<float*>(16) : nullptr;  // only tested for null
+  const int nk = cdiv(K, kB);
+  for (int r = 1; r <= nk; ++r) {
+    a.kranges = cdiv(nk, cdiv(nk, r));  // no empty range
+    if (smem_bytes<D>(kDq, true, a) <= (size_t)kMaxSmem - 2048) return a.kranges;
+  }
+  return nk;
+}
+
+// E''s plan for a dtype and shape, the library's own: in fp32 the key
+// ranges above and chunks of (h, query tile) units sized so that about two
+// blocks per SM run (every unit its own chunk without bias1); in bf16/fp16
+// dq_wg_plan.
+template <int D>
+DqPlan dq_plan(bool fp32, int B, int S, int Q, int K, int H, bool db1, bool b2) {
+  if (!fp32) return dq_wg_plan<D>(B, S, K, H, b2, db1, sm_count());
+  DqPlan p{};
+  p.kranges = dq_kranges<D>(K, db1);
+  const int units = H * cdiv(Q, kB);
+  p.chunks = !db1 ? units : min(units, max(1, cdiv(2 * sm_count(), max(1, B * S))));
+  return p;
 }
 
 // the TMA map of a [B, S, N, H, D] tensor read through its element strides
@@ -2097,11 +2341,62 @@ cudaError_t launch_dkv_wgmma(const Args& args, cudaStream_t st) {
   return reduce_chunks(a.part, a.db2, (long long)a.B * a.H, a.chunks, (long long)a.Q * a.K, st);
 }
 
+// kernel E' on wgmma at its plan (dq_wg_plan: the caller's kranges and
+// chunks must be the plan's), then the second passes
+template <typename T, int D>
+cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t st) {
+  constexpr int W = evo_w<D>(), BK = dq_bk<D>();
+  const bool b2 = a.b2 != nullptr, db1 = a.db1 != nullptr;
+  const DqPlan p = dq_wg_plan<D>(a.B, a.S, a.K, a.H, b2, db1, sm_count());
+  if (p.kranges == 0 || a.kranges != p.kranges || a.chunks != p.chunks || a.ldb < a.K ||
+      a.ldb % 4 != 0 || a.ldq < a.Q || a.ldq % 4 != 0 ||
+      (a.kranges > 1 && a.dq_part == nullptr) || (db1 && a.chunks > 1 && a.part == nullptr))
+    return cudaErrorInvalidConfiguration;
+  const int Kp = cdiv(cdiv(a.K, BK), a.kranges) * BK;
+  const size_t smem = dq_wg_smem<D>(p.kv_stages, p.q_stages, p.b2_stages, Kp, db1);
+  CUtensorMap m[5] = {};
+  cudaError_t e;
+  if ((e = evo_map<T>(&m[0], a.q, D, a.H, a.Q, a.S, a.B, a.qsh, a.qsn, a.qss, a.qsb, W,
+                      kDqRows)) != cudaSuccess ||
+      (e = evo_map<T>(&m[1], a.k, D, a.H, a.K, a.S, a.B, a.ksh, a.ksn, a.kss, a.ksb, W, BK)) !=
+          cudaSuccess ||
+      (e = evo_map<T>(&m[2], a.v, D, a.H, a.K, a.S, a.B, a.vsh, a.vsn, a.vss, a.vsb, W, BK)) !=
+          cudaSuccess ||
+      (e = evo_map<T>(&m[3], a.dout, D, a.H, a.Q, a.S, a.B, a.dsh, a.dsn, a.dss, a.dsb, W,
+                      kDqRows)) != cudaSuccess ||
+      (b2 && (e = bias2_map(&m[4], a.b2, a.K, a.Q, a.B * a.H, a.ldb, kDqRows)) != cudaSuccess))
+    return e;
+  const dim3 grid((unsigned)((long long)a.B * a.S * a.chunks * a.kranges));
+  constexpr int threads = kDqThreads + 32;  // two consumer warpgroups, a producer warp
+  if (b2) {
+    static const cudaError_t attr = opt_in_max(evo_bwd_dq_wgmma_kernel<T, D, true>);
+    if (attr != cudaSuccess) return attr;
+    evo_bwd_dq_wgmma_kernel<T, D, true>
+        <<<grid, threads, smem, st>>>(m[0], m[1], m[2], m[3], m[4], a, p);
+  } else {
+    static const cudaError_t attr = opt_in_max(evo_bwd_dq_wgmma_kernel<T, D, false>);
+    if (attr != cudaSuccess) return attr;
+    evo_bwd_dq_wgmma_kernel<T, D, false>
+        <<<grid, threads, smem, st>>>(m[0], m[1], m[2], m[3], m[4], a, p);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (a.kranges > 1) {
+    const long long n = (long long)a.B * a.S * a.Q * a.H * D;
+    const long long blocks = (n + 255) / 256;
+    reduce_kranges_kernel<T><<<blocks < 4096 ? (int)blocks : 4096, 256, 0, st>>>(
+        a.dq_part, static_cast<T*>(a.dq), a.kranges, n);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (!db1 || a.chunks == 1) return e;
+  return reduce_chunks(a.part, a.db1, (long long)a.B * a.S, a.chunks, a.K, st);
+}
+
 template <typename T, int D>
 cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
   constexpr bool fp32 = std::is_same<T, float>::value;
   if constexpr (!fp32) {
     if (pass == kFwd && a.fwd_stages > 0) return launch_fwd_wgmma<T, D>(a, st);
+    if (pass == kDq) return launch_dq_wgmma<T, D>(a, st);
     if (pass == kDkv) return launch_dkv_wgmma<T, D>(a, st);
   }
   if (pass == kFwd && a.fwd_stages > 0) return cudaErrorInvalidValue;  // fp32: FMA only
@@ -2121,19 +2416,13 @@ cudaError_t launch(Pass pass, const Args& a, cudaStream_t st) {
       evo_fwd_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
     }
   } else if (pass == kDq) {
-    if (a.kranges != dq_kranges<D>(fp32, a.K, a.db1 != nullptr) ||
+    if (a.kranges != dq_kranges<D>(a.K, a.db1 != nullptr) ||
         (a.kranges > 1 && a.dq_part == nullptr))
       return cudaErrorInvalidValue;
     const dim3 grid(a.B * a.S * a.chunks * a.kranges);
-    if constexpr (fp32) {
-      static const cudaError_t attr = opt_in_max(evo_bwd_dq_fma_kernel<D>);
-      if (attr != cudaSuccess) return attr;
-      evo_bwd_dq_fma_kernel<D><<<grid, threads, smem, st>>>(a);
-    } else {
-      static const cudaError_t attr = opt_in_max(evo_bwd_dq_mma_kernel<T, D>);
-      if (attr != cudaSuccess) return attr;
-      evo_bwd_dq_mma_kernel<T, D><<<grid, threads, smem, st>>>(a);
-    }
+    static const cudaError_t attr = opt_in_max(evo_bwd_dq_fma_kernel<D>);
+    if (attr != cudaSuccess) return attr;
+    evo_bwd_dq_fma_kernel<D><<<grid, threads, smem, st>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     if (a.kranges > 1) {
@@ -2216,12 +2505,13 @@ int dispatch(Pass pass, int dtype, int D, const Args& a, void* stream) {
 // ([B*S, chunks, K] for E', [B*H, chunks, Q*K] for E'').  E'' cuts the
 // query axis into qranges ranges (dstpu_evoformer_attn_dkv_qranges); above
 // one, kv_part holds their fp32 dK/dV partials ([qranges][2][B*S*K*H*D]).
-// E'' in bf16/fp16 reads bias1 and bias2 rows padded to ldb floats
+// E' and E'' in bf16/fp16 read bias1 and bias2 rows padded to ldb floats
 // ([B, S, ldb], [B, H, Q, ldb]) and lse and delta rows padded to ldq
 // ([B, S, H, ldq]), ldb >= K and ldq >= Q multiples of 4, 16-byte aligned,
 // q/k/v/dO strides positive (TMA); fp32 takes ldb = K and ldq = Q.
-// E' cuts the key axis into kranges ranges (dstpu_evoformer_attn_dq_kranges);
-// above one, dq_part holds their fp32 dQ partials ([kranges][B*S*Q*H*D]).
+// E' cuts the key axis into kranges ranges and its blocks into chunks, both
+// the library's plan (dstpu_evoformer_attn_dq_plan); above one range,
+// dq_part holds their fp32 dQ partials ([kranges][B*S*Q*H*D]).
 // D is 16, 32, 64 or 128.  E with stages > 0 (bf16/fp16) runs the
 // resident-bias wgmma kernel with a ring of that many stages per warpgroup
 // (q/k/v strides positive; refused when its shared memory does not fit a
@@ -2250,14 +2540,15 @@ extern "C" int dstpu_evoformer_attn_bwd_dq(const void* q, const void* k, const v
                                            void* dq, void* db1, void* part, void* dq_part,
                                            int dtype, int B, int S, int Q, int K, int H, int D,
                                            float sm_scale, int chunks, int kranges,
-                                           DSTPU_EVO_STRIDES, long long dsb, long long dss,
-                                           long long dsn, long long dsh, void* stream) {
+                                           int ldb, int ldq, DSTPU_EVO_STRIDES, long long dsb,
+                                           long long dss, long long dsn, long long dsh,
+                                           void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                static_cast<const float*>(b1), static_cast<const float*>(b2), nullptr, dq,
                nullptr, nullptr, nullptr, static_cast<float*>(db1), nullptr,
                static_cast<float*>(part), B, S, Q, K, H, chunks, sm_scale, qsb, qss, qsn, qsh,
                ksb, kss, ksn, ksh, vsb, vss, vsn, vsh, dsb, dss, dsn, dsh, 1, nullptr, kranges,
-               static_cast<float*>(dq_part)};
+               static_cast<float*>(dq_part), 0, 0, ldb, ldq};
   return dispatch(kDq, dtype, D, a, stream);
 }
 
@@ -2305,22 +2596,26 @@ extern "C" int dstpu_evoformer_attn_dkv_qranges(int dtype, int Q, int D, int wan
   }
 }
 
-// the key ranges E' takes for this dtype, key length, head dim and whether
-// dbias1 is wanted: the kranges that dstpu_evoformer_attn_bwd_dq must be
-// given (above 1, dq_part holds kranges * B * S * Q * H * D floats); 0 for
+// E''s plan for this dtype and shape, whether dbias1 is wanted and whether
+// bias2 is given: out[0] the key ranges and out[1] the chunks that
+// dstpu_evoformer_attn_bwd_dq must be given (above one range, dq_part holds
+// kranges * B * S * Q * H * D floats; above one chunk with dbias1, part
+// holds B * S * chunks * K), and in bf16/fp16 the kernel's layout: out[2]
+// 1 when K and V stay resident per head, out[3] their stages, out[4] the Q
+// ring's, out[5] the bias2 ring's.  Returns 0, or cudaErrorInvalidValue for
 // a head dim the kernels do not take.
-extern "C" int dstpu_evoformer_attn_dq_kranges(int dtype, int K, int D, int want_db1) {
+extern "C" int dstpu_evoformer_attn_dq_plan(int dtype, int B, int S, int Q, int K, int H, int D,
+                                            int want_db1, int has_b2, int* out) {
   const bool fp32 = dtype == 0;
+  DqPlan p{};
   switch (D) {
-    case 16:
-      return dq_kranges<16>(fp32, K, want_db1);
-    case 32:
-      return dq_kranges<32>(fp32, K, want_db1);
-    case 64:
-      return dq_kranges<64>(fp32, K, want_db1);
-    case 128:
-      return dq_kranges<128>(fp32, K, want_db1);
-    default:
-      return 0;
+    case 16: p = dq_plan<16>(fp32, B, S, Q, K, H, want_db1, has_b2); break;
+    case 32: p = dq_plan<32>(fp32, B, S, Q, K, H, want_db1, has_b2); break;
+    case 64: p = dq_plan<64>(fp32, B, S, Q, K, H, want_db1, has_b2); break;
+    case 128: p = dq_plan<128>(fp32, B, S, Q, K, H, want_db1, has_b2); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+  const int v[6] = {p.kranges, p.chunks, p.resident, p.kv_stages, p.q_stages, p.b2_stages};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)cudaSuccess;
 }

@@ -2,7 +2,8 @@
 // mbarriers, TMA copies, wgmma descriptors and the m64nNk16 wrappers, and the
 // host's tensor-map encoder.  Included by csrc/flash_attention_fwd.cu (kernel
 // A), csrc/flash_attention_bwd.cu (A', A''), csrc/grouped_matmul.cu (G),
-// csrc/wq_matmul.cu (W) and csrc/evoformer_attn.cu (E);
+// csrc/wq_matmul.cu (W), csrc/evoformer_attn.cu (E, E', E'') and
+// csrc/sparse_attention.cu (S);
 // each is its own library, so everything here has internal linkage.
 //
 // Tiles land in shared memory as [cols/8][rows][8] panels with no swizzle:
@@ -135,6 +136,40 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+// one cp.async of N (4, 8 or 16) bytes reading src_bytes of them (N, or 0:
+// the destination is filled with zeros)
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, int src_bytes) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async size");
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "n"(N), "r"(src_bytes)
+                 : "memory");
+}
+// one arrival on `bar` once every earlier cp.async of this thread has
+// landed (the barrier's count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// writes of the generic proxy (plain stores, cp.async) to shared memory
+// made visible to the async proxy (wgmma, TMA) of this thread
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the byte that TMA writes at byte `off` of a tile (1024-byte aligned) that
+// it swizzles at rows of RB bytes (128, 64, 32): the 16-byte chunk index
+// XOR the row's place in its 8-row atom (CUTLASS's Swizzle<3|2|1, 4, 3>)
+template <int RB>
+__device__ __forceinline__ uint32_t tma_swizzle(uint32_t off) {
+  static_assert(RB == 128 || RB == 64 || RB == 32, "swizzle rows");
+  constexpr uint32_t M = RB == 128 ? 7 : RB == 64 ? 3 : 1;
+  return off ^ (((off >> 7) & M) << 4);
 }
 // wgmma shared-memory descriptor, no swizzle: lbo = bytes between core
 // matrices along K, sbo = bytes between core matrices along M or N

@@ -13,43 +13,10 @@
 // The TPU program holds a whole [S, D] K and V in VMEM and walks every
 // k-block of its row up to the diagonal, skipping the off-layout ones with
 // lax.cond.  Here the wrapper turns the layout into compact per-head lists
-// (CSR: row_ptr [Hl * NB + 1], cols ascending, only cols <= the row's block
-// when causal), and each CUDA block owns one (b, h, 64-row query tile) and
-// walks the on-blocks of its layout row only: an off-layout block costs no
-// load at all, and under causal the walk stops at the diagonal.  A layout
-// block that is a multiple of 64 (128 by default) is cut into 64-key tiles;
-// in the diagonal block the tiles wholly above the query tile's last row are
-// not visited, and keys are masked only on the diagonal (S is a multiple of
-// the block, so there are no ragged tails).
-//
-// Blocks that are a multiple of 16 but not of 64 (DeepSpeed's GPU default
-// is 16): the tile stays 64 x 64, and the wrapper ORs the layout, taken at
-// 16 x 16 units, into 64 x 64 tiles.  The lists then name the tiles to
-// visit, and each visited tile carries a 16-bit mask of its units (bit 4 *
-// row unit + column unit); a unit that is off is masked like the diagonal.
-// A 16-row unit is one warp's rows, so a warp reads 4 bits per tile.  This
-// keeps the tensor-core tile (and the block >= 64 path, timed in PERF.md)
-// as it is, where a 16- or 32-row tile would quarter the work per K/V load;
-// the cost is the masked compare on such tiles and the off units inside a
-// visited tile.  S need only be a multiple of the block there: rows and keys past S
-// are zero-filled on load, their units are off, and rows past S are not
-// stored.
-//
-// Blocks that are not a multiple of 16 (the reference takes any block that
-// divides S): the same 64 x 64 tiles over 16 x 16 units, a unit on when any
-// of its elements is visible.  The wrapper marks units that are only partly
-// visible with a second 16-bit mask (bits 16-31); inside those the kernel
-// (ELEM) tests each element's own layout entry (row / block, col / block),
-// read from a byte copy of the layout.  Fully visible units and every layout
-// whose block is a multiple of 16 keep the code above.
-//
-// Head dims past 256 (every type): the runtime-head-dim kernel
-// (csrc/wide_head.cuh) walks the unit lists on the FMA pipes, S over the whole
-// head in 32-column chunks, the output in parts of 128 columns.
-// Head dims: the wrapper pads rows to a multiple of 16 (32 past 128) with
-// zero columns; past 128 each block computes one half of the output columns
-// (a grid axis over the halves, S = QK^T still over the whole D), so the
-// register budget stays that of D <= 128.
+// (CSR: row_ptr and the key tiles to visit, ascending, none wholly above
+// the diagonal when causal), and each CUDA block owns one (b, h, query
+// tile) and walks the list of its layout row only: an off-layout block
+// costs no load at all, and under causal the walk stops at the diagonal.
 //
 // What bounds it on the H100: the arithmetic.  At B = 1, S = 4096, H = 16,
 // D = 64 (BERT-large's heads at a long sequence) a visible 128 x 128 block
@@ -59,19 +26,46 @@
 // ~30-40 % of pairs a Fixed/Longformer/BigBird layout keeps, the tensor
 // cores set the least time when K/V tiles hit L2, the bytes otherwise.
 //
-// Design, bf16 and fp16: the flash-forward tile (csrc/flash_attention_fwd.cu)
-// — 4 warps of 16 query rows, Q as mma.sync A fragments in registers, K/V
-// tiles by 16-byte cp.async, double-buffered, S = QK^T and O += PV on the
-// tensor cores (m16n8k16, fp32 accumulators), P rounded to the input type
-// only as the PV operand; the next tile's address comes from the list, so
-// its load is in flight while the current one is computed.  fp32: the same
-// walk on the FMA pipes (16 x 16 threads, 4 rows x 4 strided columns each).
+// Design, bf16 and fp16 (every head dim to 256): kernel A's forward
+// (csrc/flash_attention_fwd.cu) with the causal key range replaced by the
+// list walk.  One block of two consumer warpgroups per (b, h, 128-row query
+// tile), 64 rows each, so both share every K/V tile; K/V tiles of BK keys
+// (128 up to D = 64, 64 past it) through a ring of up to 5 stages, by TMA
+// from tensor maps over [B, S, H, D] with the tensors' strides, swizzled in
+// column blocks of W = 64, 32 or 16, thread 0 keeping the ring STAGES - 2
+// tiles ahead.  S = Q K^T and O += P V on wgmma (P from registers, V read
+// MN-major), S of tile t issued with P V of tile t - 1; the softmax in the
+// log2 domain on the unscaled scores (one fma and ex2 a score: 2^(s *
+// sm_scale * log2(e) - m')).  A layout block of 128 (the
+// default) or a multiple of it is one query tile's layout row, and its key
+// tiles need no mask but the causal diagonal's, applied only on tiles that
+// cross a warp's first row; a warpgroup skips the loaded tiles wholly past
+// its own last row.  Other blocks: the lists are of (128-row, BK-key) tiles
+// of 16 x 16 units, each listed tile with 16 bytes of masks (byte r: the
+// key units that are on for row unit r, a 16-row unit being one warp's rows
+// in wgmma's accumulator layout; byte 8 + r: those only partly visible,
+// whose elements are each tested against the layout, read as bytes).  A
+// warp masks only on tiles whose units are not all fully on, and a masked
+// score adds nothing, also to a row that has seen no key yet.  Rows and
+// keys past S (S need only be a multiple of the block) arrive as zeros and
+// are off.  Where TMA cannot read a tensor (a stride of 0 or off 16 bytes,
+// rows aligned to 4 or 8 bytes only) every thread of the block copies its
+// share of each tile by cp.async into the same swizzled layout and arrives
+// on the stage's barrier when its copies land: a path of the same kernel.
+//
+// fp32: one block of 16 x 16 threads per 64-row query tile on the FMA pipes
+// (4 rows x 4 strided columns each), walking 64 x 64 tiles: the layout's
+// blocks cut into 64-key tiles when the block is a multiple of 64, else 16 x
+// 16 unit masks as above over 64 x 64 tiles (16 bits a tile, a 16-row unit
+// being 4 of the 16 thread rows).
+//
+// Head dims past 256 (every type): the runtime-head-dim kernel
+// (csrc/wide_head.cuh) walks the fp32 kernel's unit lists on the FMA pipes,
+// S over the whole head in 32-column chunks, the output in parts of 128
+// columns.  Head dims off the kernels' widths: the wrapper pads rows to a
+// multiple of 16 (32 past 128) with zero columns.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+#include "hopper.cuh"
 #include "wide_head.cuh"
 
 namespace {
@@ -151,254 +145,324 @@ struct Walk {
   }
 };
 
-// an element of a partly visible unit: its own layout entry (ELEM)
+// an element of a partly visible unit: its own layout entry
+__device__ __forceinline__ bool layout_on(const uint8_t* layout, int Hl, int S, int lblock, int h,
+                                          int row, int col) {
+  const int nb = S / lblock;
+  return row < S && col < S &&
+         layout[((long long)(Hl == 1 ? 0 : h) * nb + row / lblock) * nb + col / lblock];
+}
 __device__ __forceinline__ bool elem_on(const Args& a, int h, int row, int col) {
-  const int nb = a.S / a.lblock;
-  return row < a.S && col < a.S &&
-         a.layout[((long long)(a.Hl == 1 ? 0 : h) * nb + row / a.lblock) * nb + col / a.lblock];
+  return layout_on(a.layout, a.Hl, a.S, a.lblock, h, row, col);
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core kernel (bf16, fp16)
+// Hopper kernel (bf16, fp16): wgmma fed by TMA, or by a cp.async producer
 // ---------------------------------------------------------------------------
-constexpr int kMmaWarps = 4;
+constexpr int kWgThreads = 256;  // two consumer warpgroups, 64 query rows each
+constexpr size_t kSmemCap = 232448 - 1024;
 
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-template <> struct Mma<__half> {
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
+struct WgArgs {
+  const void *q, *k, *v;
+  void* o;
+  const int *row_ptr, *cols;  // per (layout head, query tile): the key tiles, ascending
+  const uint8_t* masks;       // null (every unit of a listed tile on), or 16 per entry
+  const uint8_t* layout;      // partly visible units: the layout [Hl, NB, NB] as bytes
+  int B, S, H, Hl, lblock, causal;
+  int cp;  // 0: TMA; else every thread copies by cp.async, cp (16, 8, 4) bytes at a time
+  float sm_scale;
+  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-// the same, reading n (16 or 0) bytes: n = 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ uint32_t lds32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* row_addr) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row_addr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
+template <int D, int BK_>
+struct SpCfg {
+  static constexpr int BQ = 128;  // queries per block, 64 per warpgroup
+  static constexpr int BK = BK_;  // keys per tile
+  // columns of a swizzled block: the widest of 64, 32, 16 that divides D
+  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;  // one of K, V
+  static constexpr int FIT = (int)((kSmemCap - Q_BYTES) / (2 * KV_BYTES));
+  static constexpr int STAGES = FIT < 5 ? FIT : 5;
+  // a tile's stage is released while the next tile is computed (its P V
+  // runs under that tile's softmax): the ring runs STAGES - 2 tiles ahead
+  static constexpr int AHEAD = STAGES - 2;
+  static constexpr size_t smem =
+      1024 + Q_BYTES + (size_t)STAGES * 2 * KV_BYTES + (1 + 2 * STAGES) * 8;
+  static_assert(STAGES >= 2, "ring");
+};
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(uint16_t) * 5 * kBQ * (D + 8);  // Q + 2 x (K, V) tiles, padded rows
-}
-
-// UNITS: the lists are of 64 x 64 tiles with 16 x 16 unit masks (blocks off
-// the tile; S any multiple of the block).  Without it, the block-multiple path:
-// no unit test per score and no ragged rows.
-template <typename T, int D, bool UNITS, bool ELEM>
-__global__ void __launch_bounds__(kMmaWarps * 32) sparse_attn_mma_kernel(Args a) {
-  constexpr int RS = D + 8;   // padded row (+16 bytes): conflict-free fragment reads
-  constexpr int KT = D / 16;
-  constexpr int NT = kBK / 8;
-  constexpr int DO = D > 128 ? D / 2 : D;  // output columns of this block
-  constexpr int DT = DO / 8;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][RS]
-  T* Ks = Qs + kBQ * RS;                   // [2][BK][RS]
-  T* Vs = Ks + 2 * kBK * RS;               // [2][BK][RS]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh % a.H;
-  const int q_start = blockIdx.x * kBQ;
-  const int col0 = DO < D ? (int)blockIdx.z * DO : 0;
-  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + h * a.ksh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + h * a.vsh;
-  const Walk walk(a, h, q_start);
-
-  for (int i = tid; i < kBQ * CPR; i += kMmaWarps * 32) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const int qi = q_start + r;
-    if constexpr (UNITS)  // rows past S read zeros
-      cp_async16(Qs + r * RS + c, qb + (long long)min(qi, a.S - 1) * a.qss + c,
-                 qi < a.S ? 16 : 0);
-    else
-      cp_async16(Qs + r * RS + c, qb + (long long)qi * a.qss + c);
+// rows [row0, row0 + rows) x D columns of one head into a tile laid out as
+// TMA lands it ([D/W][rows][W], swizzled at W columns), CPB bytes per
+// cp.async, every thread of the block its share; rows at or past n arrive as
+// zeros.  src is the head's row 0; row_stride in elements.
+template <int CPB, int W, typename T>
+__device__ __forceinline__ void cp_tile(T* dst, const T* src, long long row_stride, int row0,
+                                        int rows, int n, int D) {
+  constexpr int RB = 2 * W;  // bytes of a swizzled row
+  const int per_row = D * 2 / CPB;
+  const char* s = reinterpret_cast<const char*>(src);
+  char* d = reinterpret_cast<char*>(dst);
+  for (int i = threadIdx.x; i < rows * per_row; i += kWgThreads) {
+    const int r = i / per_row, cb = (i % per_row) * CPB;  // row, byte in the row
+    const uint32_t off = (uint32_t)((cb / RB) * rows * RB + r * RB + cb % RB);
+    const int row = row0 + r;
+    const bool in = row < n;
+    cp_async_zfill<CPB>(d + tma_swizzle<RB>(off),
+                        s + (long long)(in ? row : 0) * row_stride * 2 + cb, in ? CPB : 0);
   }
-  cp_async_commit();
+}
 
-  auto load_kv = [&](int buf, int k0) {
-    T* kd = Ks + buf * kBK * RS;
-    T* vd = Vs + buf * kBK * RS;
-    for (int i = tid; i < kBK * CPR; i += kMmaWarps * 32) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      if constexpr (UNITS) {
-        const int n = k0 + r < a.S ? 16 : 0;
-        const long long row = min(k0 + r, a.S - 1);
-        cp_async16(kd + r * RS + c, kb + row * a.kss + c, n);
-        cp_async16(vd + r * RS + c, vb + row * a.vss + c, n);
-      } else {
-        const long long row = k0 + r;
-        cp_async16(kd + r * RS + c, kb + row * a.kss + c);
-        cp_async16(vd + r * RS + c, vb + row * a.vss + c);
-      }
+template <int W, typename T>
+__device__ __forceinline__ void cp_tile_any(int cp, T* dst, const T* src, long long row_stride,
+                                            int row0, int rows, int n, int D) {
+  if (cp == 16)
+    cp_tile<16, W>(dst, src, row_stride, row0, rows, n, D);
+  else if (cp == 8)
+    cp_tile<8, W>(dst, src, row_stride, row0, rows, n, D);
+  else
+    cp_tile<4, W>(dst, src, row_stride, row0, rows, n, D);
+}
+
+// the masked scores of one 64-query x BK-key tile set to -1e30: keys past
+// the causal diagonal and key units off in `on`, and (ELEM) in the units
+// marked in `part`, elements off the layout.  Rows are row0 and row0 + 8,
+// columns k0 + 8 j + cq (+ 1).
+template <bool ELEM, int BK>
+__device__ __forceinline__ void sp_mask(float (&s)[BK / 2], int row0, int k0, int cq,
+                                        const WgArgs& a, int h, int on, int part) {
+  // row - col of element (j, e): d0 - 8 j + 8 (e >> 1) - (e & 1)
+  const int d0 = a.causal ? row0 - k0 - cq : 1 << 20;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const int u = j >> 1;  // the key unit of columns 8 j ..
+      if (d0 - 8 * j + 8 * (e >> 1) - (e & 1) < 0 || !((on >> u) & 1)) s[i] = kNegInf;
+      if (ELEM && ((part >> u) & 1) &&
+          !layout_on(a.layout, a.Hl, a.S, a.lblock, h, row0 + 8 * (e >> 1),
+                     k0 + 8 * j + cq + (e & 1)))
+        s[i] = kNegInf;
     }
-    cp_async_commit();
-  };
+}
 
-  if (walk.n_tiles > 0) {
-    load_kv(0, walk.tile(0));
-    cp_async_wait<1>();
-  } else {
-    cp_async_wait<0>();
+template <typename T, int D, int BK>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    sparse_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv, const WgArgs a) {
+  using C = SpCfg<D, BK>;
+  constexpr int BQ = C::BQ, ST = C::STAGES, AHEAD = C::AHEAD, W = C::W;
+  constexpr int FULL = (1 << (BK / 16)) - 1;  // every key unit of a tile on
+  constexpr uint32_t SBO = 16 * W;            // an 8-row atom of a swizzled block
+  extern __shared__ unsigned char smem_raw[];
+  // swizzling repeats every 1024 bytes at most: tiles start on that
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* Qs = reinterpret_cast<T*>(base);  // [D/W][BQ][W]
+  T* Ks = Qs + BQ * D;                 // [ST][D/W][BK][W]
+  T* Vs = Ks + ST * BK * D;            // [ST][D/W][BK][W]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * BK * D);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int BH = a.B * a.H;
+  const int nq = (a.S + BQ - 1) / BQ;
+  // under causal attention the later query tiles visit more keys: first
+  const int qt = a.causal ? nq - 1 - (int)(blockIdx.x / BH) : (int)(blockIdx.x / BH);
+  const int b = (blockIdx.x % BH) / a.H, h = (blockIdx.x % BH) % a.H;
+  const int q0 = qt * BQ;
+  const int lr = (a.Hl == 1 ? 0 : h) * nq + qt;
+  const int e0 = a.row_ptr[lr];
+  const int n_kt = a.row_ptr[lr + 1] - e0;
+  const int* cols = a.cols + e0;
+  const uint8_t* masks = a.masks != nullptr ? a.masks + 16LL * e0 : nullptr;
+  const bool tma = a.cp == 0;
+  const T* qg = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+  const T* kg = static_cast<const T*>(a.k) + b * a.ksb + h * a.ksh;
+  const T* vg = static_cast<const T*>(a.v) + b * a.vsb + h * a.vsh;
+
+  if (threadIdx.x == 0) {
+    // TMA: thread 0's one arrival and the bytes; cp.async: every thread's
+    mbar_init(q_full, tma ? 1 : kWgThreads);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], tma ? 1 : kWgThreads);
+      mbar_init(&empty[s], kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int r0 = warp * 16 + (lane >> 2);  // this lane's rows: r0 and r0 + 8
-  const int cq = (lane & 3) * 2;           // and its column pair
-  uint32_t qf[KT][4];
+  // the ring: tile t of the list into stage t % ST once both warpgroups
+  // are done with the stage's previous tile (thread 0 by TMA, or every
+  // thread its share by cp.async)
+  auto issue = [&](int t) {
+    const int st = t % ST;
+    const int k0 = cols[t] * BK;
+    if (t >= ST) mbar_wait(&empty[st], (t / ST - 1) & 1);
+    T* kd = Ks + st * BK * D;
+    T* vd = Vs + st * BK * D;
+    if (tma) {
+      mbar_arrive_tx(&full[st], 2 * C::KV_BYTES);
 #pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-    const T* p = Qs + r0 * RS + kt * 16 + cq;
-    qf[kt][0] = lds32(p);
-    qf[kt][1] = lds32(p + 8 * RS);
-    qf[kt][2] = lds32(p + 8);
-    qf[kt][3] = lds32(p + 8 * RS + 8);
-  }
-
-  float oacc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int row_g = q_start + r0;
-
-  for (int t = 0; t < walk.n_tiles; ++t) {
-    const int cur = t & 1;
-    const int k0 = walk.tile(t);
-    if (t + 1 < walk.n_tiles) {
-      load_kv(cur ^ 1, walk.tile(t + 1));
-      cp_async_wait<1>();
+      for (int cb = 0; cb < D / W; ++cb) {
+        tma_load_4d(kd + cb * W * BK, &tk, cb * W, h, k0, b, &full[st]);
+        tma_load_4d(vd + cb * W * BK, &tv, cb * W, h, k0, b, &full[st]);
+      }
     } else {
-      cp_async_wait<0>();
+      cp_tile_any<W>(a.cp, kd, kg, a.kss, k0, BK, a.S, D);
+      cp_tile_any<W>(a.cp, vd, vg, a.vss, k0, BK, a.S, D);
+      cp_async_mbar_arrive(&full[st]);
     }
-    __syncthreads();
-    const T* Kc = Ks + cur * kBK * RS;
-    const T* Vc = Vs + cur * kBK * RS;
+  };
+  const bool issuer = !tma || threadIdx.x == 0;
+  if (tma) {
+    if (issuer) {
+      mbar_arrive_tx(q_full, C::Q_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < D / W; ++cb) tma_load_4d(Qs + cb * W * BQ, &tq, cb * W, h, q0, b, q_full);
+    }
+  } else {
+    cp_tile_any<W>(a.cp, Qs, qg, a.qss, q0, BQ, a.S, D);
+    cp_async_mbar_arrive(q_full);
+  }
+  if (issuer)
+    for (int t = 0; t < min(n_kt, AHEAD); ++t) issue(t);
 
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const T* kr = Kc + (nt * 8 + (lane >> 2)) * RS + cq;
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        const uint32_t bk[2] = {lds32(kr + kt * 16), lds32(kr + kt * 16 + 8)};
-        Mma<T>::run(s[nt], qf[kt], bk);
-      }
-    }
+  // warpgroup c holds queries [qw, qw + 64); warp w of it row unit 4 c + w
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x - 128 * c;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int unit = 4 * c + warp;
+  const int qw = q0 + 64 * c;
+  const int row0 = qw + 16 * warp + (lane >> 2);  // this lane's rows: row0, row0 + 8
+  const int cq = (lane & 3) * 2;                  // and its column pair
+  const bool live = qw < a.S;
+  const float scale2 = a.sm_scale * kLog2e;
+  const T* Qw = Qs + 64 * c * W;  // this warpgroup's rows of each column block
 
-    // only a tile that reaches past the query tile's first row, or that
-    // holds units that are off, is masked
-    const bool diag = a.causal && k0 + kBK - 1 > q_start;
-    const int bits = UNITS ? walk.unit_bits(t, warp) : 0xF;
-    const int pbits = ELEM ? walk.partial_bits(t, warp) : 0;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row_g + (e >> 1) * 8;
-        const int col = k0 + nt * 8 + cq + (e & 1);
-        const bool off = (diag && row < col) || (UNITS && !((bits >> (nt >> 1)) & 1)) ||
-                         (ELEM && ((pbits >> (nt >> 1)) & 1) && !elem_on(a, h, row, col));
-        const float x = off ? kNegInf : s[nt][e] * a.sm_scale;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        oacc[dt][2 * i] *= alpha;
-        oacc[dt][2 * i + 1] *= alpha;
-      }
-    }
+  // the tiles this warpgroup computes: under causal attention the listed
+  // tiles wholly past its last row (the list ascends) are loaded for the
+  // other warpgroup only
+  int n_act = live ? n_kt : 0;
+  if (a.causal)
+    while (n_act > 0 && cols[n_act - 1] * BK > qw + 63) --n_act;
 
-    uint32_t pf[NT / 2][4];
+  float o[D / 2], s[BK / 2];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      // a masked key adds 0, also (UNITS) to a row that has seen no key yet;
-      // without units every row sees a key in each tile it visits
-      const float p0 = prob<UNITS>(s[nt][0], m[0]), p1 = prob<UNITS>(s[nt][1], m[0]);
-      const float p2 = prob<UNITS>(s[nt][2], m[1]), p3 = prob<UNITS>(s[nt][3], m[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2] = Mma<T>::pack(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = Mma<T>::pack(p2, p3);
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  uint32_t pf[BK / 16][4];
+  mbar_wait(q_full, 0);
+  if (!tma) fence_proxy_async();
+
+  // S = Q K^T of tile t, committed
+  auto qk = [&](int t) {
+    const int stage = t % ST;
+    mbar_wait(&full[stage], (t / ST) & 1);
+    if (!tma) fence_proxy_async();  // the cp.async copies, before wgmma reads them
+    const T* Kc = Ks + stage * BK * D;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // column block kk * 16 / W, then 16 columns (32 bytes) into its rows
+      const int cb = kk * 16 / W, off = kk * 16 % W;
+      WgmmaSS<T, BK>::run(s, gmma_desc_sw<W>(Qw + cb * W * BQ + off, 16, SBO),
+                          gmma_desc_sw<W>(Kc + cb * W * BK + off, 16, SBO), kk > 0);
     }
+    wg_commit();
+  };
+  // O += P V of tile t (P in pf), committed; V read MN-major: its column
+  // blocks W * BK apart, 16 keys (rows) per step
+  auto pv = [&](int t) {
+    const T* Vc = Vs + (t % ST) * BK * D;
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      const T* vr = Vc + (j * 16 + (lane & 15)) * RS;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bv[2];
-        ldmatrix_x2_trans(bv, vr + col0 + dt * 8);
-        Mma<T>::run(oacc[dt], pf[j], bv);
-      }
+    for (int kq = 0; kq < BK / 16; ++kq)
+      WgmmaRS<T, D>::run(o, pf[kq], gmma_desc_sw<W>(Vc + kq * 16 * W, W * BK * 2, SBO));
+    wg_commit();
+  };
+
+  for (int t = 0; t < n_kt; ++t) {
+    if (issuer && t + AHEAD < n_kt) issue(t + AHEAD);
+    if (t >= n_act) {  // loaded for the other warpgroup only
+      mbar_wait(&full[t % ST], (t / ST) & 1);
+      mbar_arrive(&empty[t % ST]);
+      continue;
     }
-    __syncthreads();  // every warp is done with buffer cur before it is refilled
+    const int k0 = cols[t] * BK;
+    qk(t);
+    if (t > 0) {
+      pv(t - 1);
+      wg_wait<1>();  // S of tile t is done; P V of tile t - 1 runs on
+    } else {
+      wg_wait<0>();
+    }
+    pin(s);
+    // this warp's row unit: its key units on and partly visible in tile t;
+    // a tile that reaches past the warp's first row crosses the diagonal
+    const int on = masks != nullptr ? masks[16 * t + unit] : FULL;
+    const int part = masks != nullptr ? masks[16 * t + 8 + unit] : 0;
+    const bool edge = (a.causal && k0 + BK - 1 > qw + 16 * warp) || on != FULL || part != 0;
+    if (part != 0)
+      sp_mask<true, BK>(s, row0, k0, cq, a, h, on, part);
+    else if (edge)
+      sp_mask<false, BK>(s, row0, k0, cq, a, h, on, part);
+    // online softmax of the lane's two rows (element i is row (i >> 1) &
+    // 1) on the unscaled scores: p = 2^(s sm_scale log2(e) - m'), one fma
+    // and ex2 a score, m' the row's scaled maximum
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = ex2((m[r] - mx[r]) * scale2);
+      m[r] = mx[r];
+      ms[r] = mx[r] * scale2;
+      l[r] *= alpha[r];
+    }
+    // a masked score adds 0, also to a row that has seen no key yet (its
+    // maximum is still -1e30)
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float p =
+          edge && s[i] == kNegInf ? 0.f : ex2(fmaf(s[i], scale2, -ms[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += p;
+      s[i] = p;
+    }
+    wg_wait<0>();  // P V of tile t - 1: its stage is free, O may be rescaled
+    pin(o);
+    pin(pf);
+    if (t > 0) mbar_arrive(&empty[(t - 1) % ST]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    pack_a<T, BK>(pf, s);
+    if (t == n_act - 1) {  // the last tile's P V, then its stage
+      pv(t);
+      wg_wait<0>();
+      pin(o);
+      pin(pf);
+      mbar_arrive(&empty[t % ST]);
+    }
   }
 
+  if (!live) return;
+  // l is 0 only for a row that saw no key: its output is 0
+  const float lc[2] = {fmaxf(quad_sum(l[0]), 1e-20f), fmaxf(quad_sum(l[1]), 1e-20f)};
+  T* op = static_cast<T*>(a.o);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    // l is 0 only for a row that visited no tile: its output is 0
-    const float lc = fmaxf(quad_sum(l[i]), 1e-20f);
-    const int qi = q_start + r0 + 8 * i;
-    if (UNITS && qi >= a.S) continue;
-    T* orow = static_cast<T*>(a.o) + (((long long)b * a.S + qi) * a.H + h) * D + col0;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= a.S) continue;
+    T* row = op + (((long long)b * a.S + qi) * a.H + h) * D;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + cq) =
-          Mma<T>::pack(oacc[dt][2 * i] / lc, oacc[dt][2 * i + 1] / lc);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + cq) =
+          Cvt<T>::pack(o[4 * j + 2 * r] / lc[r], o[4 * j + 2 * r + 1] / lc[r]);
   }
 }
 
@@ -627,12 +691,6 @@ __global__ void __launch_bounds__(kWideThreads) sparse_attn_wide_kernel(const Ar
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <typename T>
 cudaError_t launch_wide(int D, const Args& a, cudaStream_t st) {
   constexpr size_t smem = wide_fwd_smem();
@@ -643,60 +701,70 @@ cudaError_t launch_wide(int D, const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool UNITS, bool ELEM>
-cudaError_t launch_mma_units(const Args& a, dim3 grid, cudaStream_t st) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  static const cudaError_t attr = opt_in(sparse_attn_mma_kernel<T, D, UNITS, ELEM>, smem);
-  if (attr != cudaSuccess) return attr;
-  grid.z = D > 128 ? 2 : 1;  // halves of the output columns
-  sparse_attn_mma_kernel<T, D, UNITS, ELEM><<<grid, kMmaWarps * 32, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_mma(const Args& a, dim3 grid, cudaStream_t st) {
-  if (a.layout != nullptr) return launch_mma_units<T, D, true, true>(a, grid, st);
-  return a.masks != nullptr ? launch_mma_units<T, D, true, false>(a, grid, st)
-                            : launch_mma_units<T, D, false, false>(a, grid, st);
-}
-
 template <int D, bool ELEM>
-cudaError_t launch_fma(const Args& a, dim3 grid, cudaStream_t st) {
+cudaError_t launch_fma(const Args& a, cudaStream_t st) {
   constexpr size_t smem = fma_smem_bytes<D>();
   static const cudaError_t attr = opt_in(sparse_attn_fma_kernel<D, ELEM>, smem);
   if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.H);
   sparse_attn_fma_kernel<D, ELEM><<<grid, kFmaThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
-  const dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.H);
-  if (dtype == 0) {
-    return a.layout != nullptr ? launch_fma<D, true>(a, grid, st) : launch_fma<D, false>(a, grid, st);
-  } else if (dtype == 1) {
-    return launch_mma<__nv_bfloat16, D>(a, grid, st);
-  } else if (dtype == 2) {
-    return launch_mma<__half, D>(a, grid, st);
-  } else {
-    return cudaErrorInvalidValue;
+template <typename T, int D, int BK>
+cudaError_t launch_wgmma(const WgArgs& a, cudaStream_t st) {
+  using C = SpCfg<D, BK>;
+  CUtensorMap m[3] = {};
+  if (a.cp == 0) {
+    cudaError_t e;
+    if ((e = head_map_sw<T>(&m[0], a.q, D, a.S, a.H, a.B, a.qsb, a.qss, a.qsh, C::BQ, C::W)) !=
+            cudaSuccess ||
+        (e = head_map_sw<T>(&m[1], a.k, D, a.S, a.H, a.B, a.ksb, a.kss, a.ksh, BK, C::W)) !=
+            cudaSuccess ||
+        (e = head_map_sw<T>(&m[2], a.v, D, a.S, a.H, a.B, a.vsb, a.vss, a.vsh, BK, C::W)) !=
+            cudaSuccess)
+      return e;
   }
+  static const cudaError_t attr = opt_in(sparse_attn_wgmma_kernel<T, D, BK>, C::smem);
+  if (attr != cudaSuccess) return attr;
+  const unsigned blocks = (unsigned)((a.S + C::BQ - 1) / C::BQ) * a.B * a.H;
+  sparse_attn_wgmma_kernel<T, D, BK><<<blocks, kWgThreads, C::smem, st>>>(m[0], m[1], m[2], a);
   return cudaGetLastError();
+}
+
+template <int D, int BK>
+cudaError_t launch_dtype(int dtype, const WgArgs& a, cudaStream_t st) {
+  switch (dtype) {
+    case 1: return launch_wgmma<__nv_bfloat16, D, BK>(a, st);
+    case 2: return launch_wgmma<__half, D, BK>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the key tiles a head dim is built for: 128 (up to D = 64, lists without
+// unit masks) and 64
+template <int D>
+cudaError_t dispatch_wgmma(int dtype, int bk, const WgArgs& a, cudaStream_t st) {
+  if constexpr (D <= 64) {
+    if (bk == 128) return launch_dtype<D, 128>(dtype, a, st);
+  }
+  if (bk == 64) return launch_dtype<D, 64>(dtype, a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16, 2 = fp16.  q/k/v [B, S, H, D] read through the
-// given element strides (the last dim contiguous; for bf16/fp16 every row
-// 16-byte aligned); o [B, S, H, D] contiguous.  row_ptr [Hl * NB + 1] and
+// fp32 (dtype 0) and, for every dtype (1 = bf16, 2 = fp16), head dims past
+// 256.  q/k/v [B, S, H, D] read through the given element strides (the last
+// dim contiguous); o [B, S, H, D] contiguous.  row_ptr [Hl * NB + 1] and
 // cols: the layout's on-blocks per (layout head, block row), ascending, only
 // those at or below the diagonal when causal (NB = ceil(S / block); Hl is 1
 // or H).  Without masks, block is a multiple of 64 and S a multiple of
 // block.  With masks (int32, one per entry of cols: the entry's 16 x 16 unit
 // bits, and in bits 16-31 those of partly visible units), the lists are of
 // 64 x 64 tiles and block is 64; then layout (null, or the layout as bytes
-// [Hl, S / lblock, S / lblock]) gives the partial units' elements.  D is a
-// multiple of 16 to 128, of 32 to 256, or any D past 256 (the
+// [Hl, S / lblock, S / lblock]) gives the partial units' elements.  fp32 D
+// is a multiple of 16 to 128 or of 32 to 256; past 256 any D (the
 // runtime-head-dim kernel: masks and layout required, rows read at D with
 // any alignment).  Returns cudaGetLastError() after the launch (0 =
 // launched).
@@ -715,6 +783,7 @@ extern "C" int dstpu_sparse_attention(const void* q, const void* k, const void* 
       (Hl != 1 && Hl != H) || H <= 0)
     return (int)cudaErrorInvalidValue;
   if (D > 256 && (!units || layout == nullptr)) return (int)cudaErrorInvalidValue;
+  if (D <= 256 && dtype != 0) return (int)cudaErrorInvalidValue;  // dstpu_sparse_attention_wgmma
   if (B == 0 || S == 0) return (int)cudaSuccess;
   const Args a{q, k, v, o, static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
                static_cast<const int*>(masks), static_cast<const uint8_t*>(layout), B, S, H, Hl,
@@ -731,7 +800,7 @@ extern "C" int dstpu_sparse_attention(const void* q, const void* k, const void* 
   switch (D) {
 #define DSTPU_SPARSE_CASE(d) \
   case d:                    \
-    return (int)launch<d>(dtype, a, st);
+    return (int)(a.layout != nullptr ? launch_fma<d, true>(a, st) : launch_fma<d, false>(a, st));
     DSTPU_SPARSE_CASE(16)
     DSTPU_SPARSE_CASE(32)
     DSTPU_SPARSE_CASE(48)
@@ -745,6 +814,60 @@ extern "C" int dstpu_sparse_attention(const void* q, const void* k, const void* 
     DSTPU_SPARSE_CASE(224)
     DSTPU_SPARSE_CASE(256)
 #undef DSTPU_SPARSE_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 (dtype 1) and fp16 (2), D a multiple of 16 to 128 or of 32 to 256.
+// q/k/v [B, S, H, D] read through the given element strides (the last dim
+// contiguous); cp = 0: every base 16-byte aligned and every stride a
+// positive multiple of 8 elements (TMA); else cp.async copies of cp (16, 8
+// or 4) bytes, which must divide every base and stride in bytes.  o [B, S,
+// H, D] contiguous.  row_ptr [Hl * ceil(S / 128) + 1] and cols: per (layout
+// head, 128-row query tile) the key tiles of bk keys (128 for D up to 64,
+// or 64) to visit, ascending, none wholly above the tile's last row when
+// causal.  masks: null when every unit of each listed tile is on (a layout
+// block that is a multiple of 128), else 16 bytes per entry of cols (byte r:
+// bit u set when key unit u of the tile is on for row unit r, 16 x 16
+// units; byte 8 + r: those only partly visible); layout (the layout as
+// bytes [Hl, S / lblock, S / lblock]) is read for partly visible units
+// only.  Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int dstpu_sparse_attention_wgmma(const void* q, const void* k, const void* v,
+                                            void* o, const void* row_ptr, const void* cols,
+                                            const void* masks, const void* layout,
+                                            int dtype, int B, int S, int H, int D,
+                                            int Hl, int lblock, int causal, int cp, int bk,
+                                            float sm_scale, long long qsb, long long qss,
+                                            long long qsh, long long ksb, long long kss,
+                                            long long ksh, long long vsb, long long vss,
+                                            long long vsh, void* stream) {
+  if ((Hl != 1 && Hl != H) || H <= 0 || lblock <= 0 || S % lblock != 0 ||
+      (cp != 0 && cp != 16 && cp != 8 && cp != 4))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || S == 0) return (int)cudaSuccess;
+  const WgArgs a{q, k, v, o, static_cast<const int*>(row_ptr), static_cast<const int*>(cols),
+                 static_cast<const uint8_t*>(masks), static_cast<const uint8_t*>(layout),
+                 B, S, H, Hl, lblock, causal, cp, sm_scale, qsb, qss, qsh, ksb, kss, ksh, vsb,
+                 vss, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+#define DSTPU_SPARSE_WG_CASE(d) \
+  case d:                       \
+    return (int)dispatch_wgmma<d>(dtype, bk, a, st);
+    DSTPU_SPARSE_WG_CASE(16)
+    DSTPU_SPARSE_WG_CASE(32)
+    DSTPU_SPARSE_WG_CASE(48)
+    DSTPU_SPARSE_WG_CASE(64)
+    DSTPU_SPARSE_WG_CASE(80)
+    DSTPU_SPARSE_WG_CASE(96)
+    DSTPU_SPARSE_WG_CASE(112)
+    DSTPU_SPARSE_WG_CASE(128)
+    DSTPU_SPARSE_WG_CASE(160)
+    DSTPU_SPARSE_WG_CASE(192)
+    DSTPU_SPARSE_WG_CASE(224)
+    DSTPU_SPARSE_WG_CASE(256)
+#undef DSTPU_SPARSE_WG_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

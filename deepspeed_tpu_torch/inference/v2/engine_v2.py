@@ -4,22 +4,27 @@
 Requests enter a queue, are admitted when KV pages and a decode slot are
 free, prefill and decode interleave, and finished sequences release
 their pages at once so new requests start while others are
-mid-generation.  The device work is the three programs of
-``model_runner.py`` (whole-prompt prefill, chunked prefill, batched
-decode); everything here is host bookkeeping between them.
+mid-generation.  The device work is the programs of ``model_runner.py``
+(whole-prompt and chunked prefill, run eagerly; the decode step, the
+multi-step decode and the speculative verify, captured as CUDA graphs by
+``captured.py``); everything here is host bookkeeping between them.
 
-Decode samples on the device and returns only ``[max_seqs]`` token ids.
-Prefill (once per admitted request) returns the last token's logits and
-samples on the host with numpy, exactly as the JAX engine does.
+Decode samples on the device and returns only token ids: ``[max_seqs]``
+per step, ``[max_seqs, K]`` per multi-step dispatch, the per-position
+argmax ``[max_seqs, k + 1]`` per verify.  Prefill (once per admitted
+request) returns the last token's logits and samples on the host with
+numpy, exactly as the JAX engine does.
 
 This slice ports the single-replica scheduler: admission by priority
 class, KV-pressure preemption, deadlines, whole-prompt and chunked
-prefill, the one-token decode loop, and weight-only int8/int4 weights
+prefill, the decode loop one token or ``decode_horizon`` tokens per host
+round trip, speculative decoding (``speculative``: n-gram or draft-model
+proposals, greedy requests only), and weight-only int8/int4 weights
 (``quant_bits``: every projection and the LM head through the
 ``wq_matmul`` kernel; MoE expert leaves stay full precision, as in JAX).
-Mixtral MoE models serve through the same programs.  The prefix cache, the KV tiers, speculative and
-multi-step decode and the telemetry layer are not ported yet; setting one
-of their knobs raises ``NotImplementedError`` naming the ROADMAP item that
+Mixtral MoE models serve through the same programs.  The prefix cache,
+the KV tiers and the telemetry layer are not ported yet; setting one of
+their knobs raises ``NotImplementedError`` naming the ROADMAP item that
 brings it.
 """
 
@@ -40,13 +45,13 @@ from ...runtime.config_utils import ConfigModel
 from ...runtime.precision import cast_tree
 from ..quantization import quantize_inference_params
 from ...utils.logging import logger
-from .model_runner import (paged_decode, paged_prefill, paged_prefill_chunk,
-                           sample_tokens)
+from .captured import DecodePrograms
+from .model_runner import paged_prefill, paged_prefill_chunk
 from .ragged import (PRIORITY_NORMAL, BlockAllocator, KVBlockConfig,
                      PagedKVCache, RejectedError, SequenceState)
+from .speculative import SpeculativeConfig, build_proposer, longest_accepted
 
 ROADMAP_PREFIX = "ROADMAP Queue 1 'Serving: prefix cache, KV export and tiers'"
-ROADMAP_SPEC = "ROADMAP Queue 1 'Serving: speculative and multi-step decode'"
 ROADMAP_TELEMETRY = "ROADMAP Queue 1 'Serving telemetry'"
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
@@ -59,22 +64,40 @@ def retry_after_hint(queued: int) -> float:
     return round(min(30.0, max(0.1, 0.05 * queued)), 3)
 
 
-@dataclasses.dataclass
-class SpeculativeConfig(ConfigModel):
-    """The ``speculative`` block, kept field for field so configs written
-    for the JAX engine parse; only ``mode="off"`` runs in this slice."""
+def _horizon_pages_needed(length: int, budget: int, page_size: int) -> int:
+    """Pages a decode row needs to emit ``budget`` more tokens: its t-th
+    token this dispatch (1-indexed) writes KV at position
+    ``length - 2 + t``, so the page table must cover position
+    ``length - 2 + budget`` (the multi-step headroom reservation)."""
+    return (length - 2 + budget) // page_size + 1
 
-    mode: str = "off"
-    k: int = 4
-    ngram_min: int = 1
-    ngram_max: int = 3
-    draft_model: str = ""
 
-    def validate(self) -> None:
-        if self.mode != "off":
-            raise NotImplementedError(
-                f"speculative.mode={self.mode!r}: speculative decoding is "
-                f"not ported yet ({ROADMAP_SPEC})")
+def _shrink_horizon(k: int, cap: int) -> int:
+    """Walk the halving chain ``K, ceil(K/2), ...`` down to the smallest
+    value still covering ``cap`` (floor 1).  Dispatch horizons only take
+    values on the chain, so there is one multi-step program per value."""
+    while k > 1 and (k + 1) // 2 >= cap:
+        k = (k + 1) // 2
+    return max(1, k)
+
+
+def _horizon_chain(k: int) -> List[int]:
+    """Every value of the halving chain from ``k`` down to 1."""
+    chain = [k]
+    while chain[-1] > 1:
+        chain.append((chain[-1] + 1) // 2)
+    return chain
+
+
+def _deadline_clamp(budget: int, deadline_left: float,
+                    tpot_est: Optional[float]) -> int:
+    """Clamp a row's horizon when its deadline lands mid-horizon: at
+    ~``tpot_est`` seconds per step, only the tokens that fit the time left
+    (floor 1).  Without an estimate the budget passes through: the
+    boundary sweep still expires the row, at most one horizon late."""
+    if tpot_est is None or tpot_est <= 0.0:
+        return budget
+    return min(budget, max(1, int(deadline_left / tpot_est)))
 
 
 @dataclasses.dataclass
@@ -124,7 +147,6 @@ class RaggedInferenceConfig(ConfigModel):
         not_ported = [
             ("enable_prefix_cache", self.enable_prefix_cache, ROADMAP_PREFIX),
             ("kv_tier", self.kv_tier is not None, ROADMAP_PREFIX),
-            ("decode_horizon > 1", self.decode_horizon > 1, ROADMAP_SPEC),
             ("timeline_every_n_steps", self.timeline_every_n_steps != 0,
              ROADMAP_TELEMETRY),
             ("timeline_artifact_dir", self.timeline_artifact_dir != "",
@@ -179,10 +201,17 @@ class InferenceEngineV2:
     With ``config.quant_bits`` the engine casts to the serving dtype
     first, then quantizes into a new tree (the given tree keeps its
     weights), and sets ``wq_bits``/``wq_group`` on its own model-config
-    copy; ``param_bytes`` is then the quantized tree's bytes."""
+    copy; ``param_bytes`` is then the quantized tree's bytes.
+
+    ``proposer``: anything with ``propose(tokens, k) -> list`` (see
+    ``speculative.py``); given, it turns speculative decoding on whatever
+    ``speculative.mode`` says, with ``speculative.k`` drafts a step.  On a
+    CUDA device the decode, multi-step and verify programs are captured
+    as CUDA graphs here, at construction (``captured.py``)."""
 
     def __init__(self, model: Any, config: Optional[RaggedInferenceConfig] = None,
-                 params: Any = None, seed: int = 0, device: Any = None):
+                 params: Any = None, seed: int = 0, device: Any = None,
+                 proposer: Any = None):
         self.device = resolve_device(device)
         self.config = config or RaggedInferenceConfig()
         self.config.validate()  # directly built configs skip from_dict
@@ -242,12 +271,48 @@ class InferenceEngineV2:
                        if self.config.prefill_chunk > 0 else 0)
         #: per-engine counters: program calls, tokens and the wall seconds
         #: of each phase (each phase ends in a host read of its result, so
-        #: on CUDA the seconds include the device work)
+        #: on CUDA the seconds include the device work);
+        #: ``decode_device_steps``: decode bodies run (a K-step dispatch
+        #: runs K; a verify runs none)
         self._stats = {"prefill_calls": 0, "prefill_chunk_calls": 0,
                        "prefill_admitted_tokens": 0, "prefill_computed_tokens": 0,
-                       "prefill_seconds": 0.0, "decode_model_invocations": 0,
-                       "decode_tokens": 0, "decode_seconds": 0.0,
-                       "preemptions": 0}
+                       "prefill_seconds": 0.0, "decode_seconds": 0.0,
+                       "decode_device_steps": 0, "preemptions": 0}
+        #: decode-phase counters by the JAX engine's names (decode_stats)
+        self._dstats = {"decode_model_invocations": 0, "decode_tokens": 0,
+                        "decode_host_syncs": 0, "decode_horizon_shrinks": 0,
+                        "spec_proposed_tokens": 0, "spec_accepted_tokens": 0,
+                        "spec_verify_calls": 0, "spec_rollback_pages": 0,
+                        "spec_fallback_requests": 0}
+        # speculative decoding: an explicit proposer wins; otherwise the
+        # config block builds one (None when off)
+        self.spec = self.config.speculative
+        if proposer is not None:
+            if self.spec.k < 1:
+                raise ValueError("speculative.k must be >= 1")
+            self._proposer = proposer
+        else:
+            self._proposer = build_proposer(self.spec, self.device)
+        self._spec_fallback_uids: set = set()
+        self._spec_fallback_warned = False
+        # multi-step decode: one decode path at a time, so a proposer owns
+        # the loop and the horizon stands down, loudly
+        self._horizon = int(self.config.decode_horizon)
+        if self._proposer is not None and self._horizon > 1:
+            logger.warning(
+                f"multi-step decode: speculative decoding is enabled and owns the "
+                f"decode loop; decode_horizon {self._horizon} stands down to 1 "
+                "(disable speculative.mode to fuse decode steps)")
+            self._horizon = 1
+        #: EMA of the wall time per fused step, the deadline clamp's
+        #: estimate; only warm dispatches feed it (a horizon's first
+        #: dispatch pays one-time costs: the graph's upload on CUDA)
+        self._tpot_ema: Optional[float] = None
+        self._warm_horizons: set = set()
+        self._programs = DecodePrograms(
+            self.cfg, self.params, self._pools, block.max_seqs, block.max_pages_per_seq,
+            self._seed, _horizon_chain(self._horizon) if self._horizon > 1 else (),
+            verify_width=self.spec.k + 1 if self._proposer is not None else 0)
 
     # -- request API ---------------------------------------------------------
     def put(self, request: RaggedRequest) -> int:
@@ -288,8 +353,30 @@ class InferenceEngineV2:
         return sum(1 for s in self._slots if s is not None)
 
     def stats(self) -> Dict[str, float]:
-        """Cumulative program-call, token and phase-time counters."""
-        return dict(self._stats)
+        """Cumulative program-call, token and phase-time counters (the
+        decode-phase ones of :meth:`decode_stats` included)."""
+        return {**self._stats, **self._dstats}
+
+    def decode_stats(self) -> Dict[str, float]:
+        """Decode-phase counters by the JAX engine's names (cumulative; the
+        spec entries stay 0 with speculation off): model invocations,
+        host syncs, tokens, horizon shrinks, and the speculative
+        propose/accept/rollback tallies, with the derived
+        ``decode_tokens_per_invocation``, ``decode_tokens_per_host_sync``
+        and ``spec_acceptance_rate``."""
+        s: Dict[str, float] = dict(self._dstats)
+        inv, syncs = s["decode_model_invocations"], s["decode_host_syncs"]
+        s["decode_tokens_per_invocation"] = s["decode_tokens"] / inv if inv else 0.0
+        s["decode_tokens_per_host_sync"] = s["decode_tokens"] / syncs if syncs else 0.0
+        prop = s["spec_proposed_tokens"]
+        s["spec_acceptance_rate"] = s["spec_accepted_tokens"] / prop if prop else 0.0
+        return s
+
+    def assert_no_leaks(self) -> None:
+        """Exact allocator audit against the live sequences: every page's
+        refcount equals its live references (after rollback, preemption or
+        retirement)."""
+        self.allocator.assert_no_leaks([s.pages for s in self._slots if s is not None])
 
     def abort_all(self, reason: str = "abort") -> List[int]:
         """Free every queued and admitted request without running it;
@@ -557,21 +644,51 @@ class InferenceEngineV2:
         if not active:
             return out
 
-        t0 = time.perf_counter()
-        last, pos, act, temps, sids = self._decode_inputs(active)
-        logits, self._pools = paged_decode(
-            self.cfg, self.params, self._pools, self._tensor(last).long(),
-            self._tensor(pos), self._tensor(self._page_table), self._tensor(act))
-        # the key of each row's noise is (seed, uid, position of the token
-        # being generated), never the slot
-        p_next = self._tensor(pos + 1)
-        tokens = sample_tokens(logits, self._tensor(temps), self._seed,
-                               self._tensor(sids), p_next).cpu().numpy()
-        self._stats["decode_model_invocations"] += 1
-        self._stats["decode_tokens"] += len(active)
-        self._stats["decode_seconds"] += time.perf_counter() - t0
+        # speculative split: greedy sequences go through the verify
+        # program; sampled ones fall back, loudly, to plain decode (the
+        # accept rule is exact only for argmax)
+        if self._proposer is not None:
+            spec_seqs = [s for s in active if s.temperature <= 0.0]
+            decode_seqs = [s for s in active if s.temperature > 0.0]
+            for seq in decode_seqs:
+                if seq.uid not in self._spec_fallback_uids:
+                    self._spec_fallback_uids.add(seq.uid)
+                    self._dstats["spec_fallback_requests"] += 1
+                    if not self._spec_fallback_warned:
+                        self._spec_fallback_warned = True
+                        logger.warning(
+                            "speculative decoding: sampled requests fall back to the "
+                            "plain decode program (their distribution is kept; the "
+                            "gain applies to greedy requests only)")
+            if spec_seqs:
+                decode_seqs += self._spec_step(spec_seqs, out)
+        else:
+            decode_seqs = active
+        if decode_seqs and self._horizon > 1:
+            self._multi_decode(decode_seqs, out)
+        elif decode_seqs:
+            self._decode_step(decode_seqs, out)
+        return out
 
-        for seq in active:
+    def _dispatch(self, key, k: int) -> np.ndarray:
+        """Run a decode-phase program over the staged inputs: one model
+        invocation, one host read; ``k`` decode bodies run."""
+        t0 = time.perf_counter()
+        res = self._programs.run(key)
+        self._stats["decode_seconds"] += time.perf_counter() - t0
+        self._stats["decode_device_steps"] += k
+        self._dstats["decode_model_invocations"] += 1
+        self._dstats["decode_host_syncs"] += 1
+        return res
+
+    def _decode_step(self, seqs: List[SequenceState], out: Dict[int, Dict[str, Any]]) -> None:
+        """One token for each of ``seqs`` through the decode program."""
+        last, pos, act, temps, sids = self._decode_inputs(seqs)
+        self._programs.stage(last=last, pos=pos, table=self._page_table, act=act,
+                             temps=temps, sids=sids)
+        tokens = self._dispatch("decode", 1)
+        self._dstats["decode_tokens"] += len(seqs)
+        for seq in seqs:
             tok = int(tokens[seq.slot])
             seq.tokens.append(tok)
             seq.prefilled = seq.length - 1  # the step wrote the consumed token's KV
@@ -581,20 +698,197 @@ class InferenceEngineV2:
             rec["done"] = seq.done
             if seq.done:
                 rec["finish_reason"] = seq.finish_reason
-        return out
+
+    # -- multi-step decode -----------------------------------------------------
+    def _multi_decode(self, seqs: List[SequenceState], out: Dict[int, Dict[str, Any]]) -> None:
+        """One multi-step dispatch: clamp each row's budget (max_new, the
+        model window, its deadline), take the dispatch horizon on the
+        halving chain, shrink it while the truly free pages cannot cover
+        the headroom (never preempting mid-program), reserve every row's
+        pages, run the K-step program, then advance every sequence from
+        its one ``[B, K]`` read."""
+        ps = self.block.page_size
+        B = self.block.max_seqs
+        now = time.perf_counter()
+        budgets: Dict[int, int] = {}
+        for seq in seqs:
+            b = min(self._horizon, seq.max_new_tokens - seq.generated,
+                    self.max_seq_len - seq.length)
+            if seq.deadline > 0.0:
+                b = _deadline_clamp(b, seq.deadline - now, self._tpot_ema)
+            budgets[seq.uid] = max(1, b)
+        # the smallest chain value covering the largest budget, shrunk while
+        # the headroom (tokens a row may never produce) needs more than the
+        # truly free pages; k = 1 always fits (step() gave every pending
+        # token its page)
+        k = _shrink_horizon(self._horizon, max(budgets.values()))
+
+        def extra_pages(k_: int) -> int:
+            return sum(max(0, _horizon_pages_needed(s.length, min(k_, budgets[s.uid]), ps)
+                           - len(s.pages)) for s in seqs)
+
+        while k > 1 and extra_pages(k) > self.allocator.uncached_free_pages:
+            k = (k + 1) // 2
+        if k < self._horizon:
+            self._dstats["decode_horizon_shrinks"] += 1
+        # reserve each row's headroom; a refused reservation clamps that
+        # row to the pages it holds
+        for seq in seqs:
+            b = min(k, budgets[seq.uid])
+            extra = _horizon_pages_needed(seq.length, b, ps) - len(seq.pages)
+            if extra > 0:
+                fresh = self.allocator.try_alloc(extra, uncached_only=True)
+                if fresh is None:
+                    b = max(1, len(seq.pages) * ps - seq.length + 1)
+                else:
+                    base = len(seq.pages)
+                    seq.pages.extend(fresh)
+                    self._page_table[seq.slot, base:base + extra] = fresh
+            budgets[seq.uid] = b
+
+        last, pos, act, temps, sids = self._decode_inputs(seqs)
+        eos = np.full((B,), -1, np.int32)
+        budg = np.zeros((B,), np.int32)
+        for seq in seqs:
+            if seq.eos_id is not None:
+                eos[seq.slot] = seq.eos_id
+            budg[seq.slot] = budgets[seq.uid]
+        self._programs.stage(last=last, pos=pos, table=self._page_table, act=act,
+                             temps=temps, sids=sids, eos=eos, budgets=budg)
+        warm = k in self._warm_horizons
+        self._warm_horizons.add(k)
+        t0 = time.perf_counter()
+        res = self._dispatch(("multi", k), k)
+        # the program always runs k steps (finished rows run masked), so the
+        # time per step is wall / k
+        per_step = (time.perf_counter() - t0) / k
+        if warm:
+            self._tpot_ema = (per_step if self._tpot_ema is None
+                              else 0.5 * self._tpot_ema + 0.5 * per_step)
+        toks, produced = res[:B * k].reshape(B, k), res[B * k:]
+        self._dstats["decode_tokens"] += int(produced.sum())
+        for seq in seqs:
+            rec = out.setdefault(seq.uid, {"tokens": [], "done": False})
+            reason = ""
+            for j in range(int(produced[seq.slot])):
+                tok = int(toks[seq.slot, j])
+                seq.tokens.append(tok)
+                rec["tokens"].append(tok)
+                reason = self._finish_reason_for(seq, tok)
+                if reason:
+                    break  # the program stopped the row here
+            # KV is written for every token consumed; the last one emitted
+            # is the pending one, as after a single step
+            seq.prefilled = seq.length - 1
+            if reason:
+                seq.finish_reason = reason
+                self._retire(seq)  # frees unused headroom too
+            rec["done"] = seq.done
+            if seq.done:
+                rec["finish_reason"] = seq.finish_reason
+
+    # -- speculative decoding --------------------------------------------------
+    def _spec_step(self, seqs: List[SequenceState],
+                   out: Dict[int, Dict[str, Any]]) -> List[SequenceState]:
+        """One speculative round for greedy sequences: propose, reserve,
+        one batched verify, accept the longest matching prefix and the
+        bonus token, roll back the pages of rejected drafts.  Returns the
+        sequences it did not run (all of them when every proposal is
+        empty) for the plain decode program."""
+        ps = self.block.page_size
+        k = self.spec.k
+        W = k + 1
+        B = self.block.max_seqs
+        drafts: Dict[int, List[int]] = {}
+        for seq in seqs:
+            d = list(self._proposer.propose(seq.tokens, k))[:k]
+            # cap to the model window, the page table and the request's
+            # remaining budget
+            cap = min(self.max_seq_len - seq.length,
+                      len(self._page_table[seq.slot]) * ps - seq.length,
+                      seq.max_new_tokens - seq.generated - 1)
+            if len(d) > cap:
+                d = d[:max(cap, 0)]
+            if d:
+                # drafts may be rejected: reserve only truly free pages, and
+                # preempt nobody for them
+                need = (seq.length - 1 + len(d)) // ps + 1
+                extra = need - len(seq.pages)
+                while extra > 0 and extra > self.allocator.uncached_free_pages:
+                    d.pop()
+                    need = (seq.length - 1 + len(d)) // ps + 1
+                    extra = need - len(seq.pages)
+                if extra > 0:
+                    fresh = self.allocator.alloc(extra)
+                    base = len(seq.pages)
+                    seq.pages.extend(fresh)
+                    self._page_table[seq.slot, base:base + extra] = fresh
+            drafts[seq.uid] = d
+            self._dstats["spec_proposed_tokens"] += len(d)
+        if not any(drafts.values()):
+            # blanks everywhere: plain decode emits the same one token per
+            # row at 1/W of the verify's width
+            return list(seqs)
+
+        ids = np.zeros((B, W), np.int32)
+        pos = np.zeros((B,), np.int32)
+        act = np.zeros((B,), np.int32)
+        nv = np.ones((B,), np.int32)
+        for seq in seqs:
+            row = [seq.tokens[-1]] + drafts[seq.uid]
+            ids[seq.slot, :len(row)] = row
+            pos[seq.slot] = seq.length - 1
+            act[seq.slot] = 1
+            nv[seq.slot] = len(row)
+        self._programs.stage(ids=ids, pos=pos, table=self._page_table, act=act, n_valid=nv)
+        greedy = self._dispatch("verify", 0).reshape(B, W)
+        self._dstats["spec_verify_calls"] += 1
+
+        rollback = 0
+        for seq in seqs:
+            accepted, bonus = longest_accepted(drafts[seq.uid], greedy[seq.slot])
+            base_len = seq.length
+            self._dstats["spec_accepted_tokens"] += len(accepted)
+            rec = out.setdefault(seq.uid, {"tokens": [], "done": False})
+            for tok in accepted + [bonus]:
+                seq.tokens.append(tok)
+                rec["tokens"].append(tok)
+                self._dstats["decode_tokens"] += 1
+                if self._finish_reason_for(seq, tok):
+                    break  # accepted tokens past a finish boundary are dropped
+            # KV is valid through the accepted region; the bonus token is
+            # the pending one, as after a plain step
+            seq.prefilled = min(seq.length - 1, base_len + len(accepted))
+            self._maybe_finish(seq, seq.tokens[-1])
+            rec["done"] = seq.done
+            if seq.done:
+                rec["finish_reason"] = seq.finish_reason
+            else:
+                # pages reserved for rejected drafts go back; rejected KV in
+                # kept pages is overwritten by the next window first
+                needed = (seq.prefilled - 1) // ps + 1
+                if needed < len(seq.pages):
+                    drop = seq.pages[needed:]
+                    self.allocator.free(drop)
+                    del seq.pages[needed:]
+                    self._page_table[seq.slot, needed:] = self.block.trash_page
+                    rollback += len(drop)
+        self._dstats["spec_rollback_pages"] += rollback
+        return []
 
     def _decode_inputs(self, seqs: List[SequenceState]):
-        """Dense ``[max_seqs]`` host arrays for a decode batch."""
+        """Dense ``[max_seqs]`` host arrays for a decode batch, shared by
+        the single-step and multi-step programs."""
         B = self.block.max_seqs
         last = np.zeros((B,), np.int32)
         pos = np.zeros((B,), np.int32)
-        act = np.zeros((B,), bool)
+        act = np.zeros((B,), np.int32)
         temps = np.zeros((B,), np.float32)
-        sids = np.zeros((B,), np.int64)
+        sids = np.zeros((B,), np.int32)
         for seq in seqs:
             last[seq.slot] = seq.tokens[-1]
             pos[seq.slot] = seq.length - 1
-            act[seq.slot] = True
+            act[seq.slot] = 1
             temps[seq.slot] = max(seq.temperature, 0.0)
             sids[seq.slot] = seq.uid % (1 << 31)  # stable sampling id
         return last, pos, act, temps, sids

@@ -36,6 +36,7 @@ prefill.  ``paged_prefill_chunk.plain_quant_calls`` counts those calls.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -44,7 +45,7 @@ import torch
 from ...models.transformer import (ParamTree, TransformerConfig, _attn_out, _embed,
                                    _final_logits, _repeat_kv, alibi_slopes, attn_qkv)
 from ...ops.flash_attention import flash_attention_fwd
-from ...ops.paged_attention import paged_decode_attention
+from ...ops.paged_attention import gather_window_attend, paged_decode_attention
 
 Pools = Dict[str, torch.Tensor]
 
@@ -65,8 +66,17 @@ def _alibi_bias(cfg: TransformerConfig, qpos: torch.Tensor,
     return -slopes[:, None, None] * rel[..., None, :, :]
 
 
+@functools.lru_cache(maxsize=None)
+def _cached_slopes(n_heads: int, device: torch.device) -> torch.Tensor:
+    return alibi_slopes(n_heads, device=device)
+
+
 def _slopes(cfg: TransformerConfig, device) -> torch.Tensor | None:
-    return alibi_slopes(cfg.n_heads, device=device) if cfg.position == "alibi" else None
+    """ALiBi slopes, built once per (heads, device): a captured program
+    must not copy a host list to the device."""
+    if cfg.position != "alibi":
+        return None
+    return _cached_slopes(cfg.n_heads, torch.device(device))
 
 
 def _write_pages(pools: Pools, layer_idx: int, rows: torch.Tensor,
@@ -237,45 +247,187 @@ def paged_decode(cfg: TransformerConfig, params: ParamTree, pools: Pools,
     return _final_logits(cfg, params, x)[:, 0], pools
 
 
+
+
+@torch.no_grad()
+def paged_verify(cfg: TransformerConfig, params: ParamTree, pools: Pools,
+                 ids: torch.Tensor, positions: torch.Tensor, page_table: torch.Tensor,
+                 active: torch.Tensor, n_valid: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Pools]:
+    """Score a window of ``W = k + 1`` tokens for every decode slot in one
+    model call: the verify step of speculative decoding.
+
+    :func:`paged_decode` widened from one pending token to a window (the
+    last accepted token, then up to ``k`` drafts): each valid token's K/V
+    is written into the sequence's pages where plain decode would write
+    it, then every window query attends the pooled slots at or before its
+    position, so position ``w``'s logits are what a plain decode step
+    would give after consuming ``ids[:, :w + 1]``.  Rejected KV left in
+    kept pages is harmless: reads are masked to the query's position and
+    the next window overwrites it first.  Like the JAX runner's XLA path
+    (model_runner.py:376 there) it attends through the plain gather
+    formulation (``ops/paged_attention.gather_window_attend``): the paged
+    kernel takes one query per sequence.
+
+    ids: [B, W] (ids[:, 0] the last accepted token); positions: [B] int32
+    position of ids[:, 0]; page_table: [B, MP] int32; active: [B] bool;
+    n_valid: [B] valid tokens per row (1..W).  Invalid and inactive tokens
+    write to the trash page; their logits are garbage nobody reads.
+    Returns (logits [B, W, V], pools updated in place)."""
+    quant = "k_scale" in pools
+    B, W = ids.shape
+    ps = pools["k"].shape[2]
+    trash = pools["k"].shape[1] - 1
+    dev = ids.device
+    steps = torch.arange(W, device=dev)
+    pos_w = positions.long()[:, None] + steps[None]  # [B, W]
+    x = _embed(cfg, params, ids.long(), pos_w)
+    valid = active[:, None] & (steps[None] < n_valid[:, None])
+    MP = page_table.shape[1]
+    table = page_table.long()
+    page_idx = torch.where(
+        valid, table[torch.arange(B, device=dev)[:, None], torch.clamp(pos_w // ps, max=MP - 1)],
+        torch.full_like(pos_w, trash))
+    off = pos_w % ps
+    vis = torch.arange(MP * ps, device=dev)[None, None] <= pos_w[:, :, None]  # [B, W, S]
+    slopes = _slopes(cfg, dev)
+    for i, layer in enumerate(params.layers):
+        q, k, v = attn_qkv(cfg, layer, x, pos_w)
+        k_c, v_c = pools["k"][i], pools["v"][i]
+        ks_c = vs_c = None
+        if quant:
+            ks_c, vs_c = pools["k_scale"][i], pools["v_scale"][i]
+            kq, ksc = _kv_quantize(k)
+            vq, vsc = _kv_quantize(v)
+            k_c[page_idx, off] = kq
+            v_c[page_idx, off] = vq
+            ks_c[page_idx, off] = ksc
+            vs_c[page_idx, off] = vsc
+        else:
+            k_c[page_idx, off] = k.to(k_c.dtype)
+            v_c[page_idx, off] = v.to(v_c.dtype)
+        attn = gather_window_attend(q, k_c, v_c, page_table, vis, pos_w, ks_c, vs_c, slopes)
+        x, _ = _attn_out(cfg, layer, x, attn)
+    return _final_logits(cfg, params, x), pools
+
+
+# -- sampling: a counter-based hash, no host read ------------------------------
+_M64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+_MIX1 = 0xBF58476D1CE4E5B9
+_MIX2 = 0x94D049BB133111EB
+
+
 def _row_seed(seed: int, sid: int, position: int) -> int:
     """Counter-based per-(seed, request, position) stream id: a
     splitmix64 mix of the three, so a row's noise never depends on its
-    slot or on what else is batched."""
-    z = (seed * 0x9E3779B97F4A7C15 + sid * 0xBF58476D1CE4E5B9
-         + position * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    slot or on what else is batched (the host form of the key
+    :func:`gumbel_noise` computes on the device)."""
+    z = (seed * _GOLDEN + sid * _MIX1 + position * _MIX2) & _M64
+    z = ((z ^ (z >> 30)) * _MIX1) & _M64
+    z = ((z ^ (z >> 27)) * _MIX2) & _M64
     return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
+
+
+def _i64(c: int) -> int:
+    """A 64-bit pattern as the int64 that holds it."""
+    c &= _M64
+    return c - (1 << 64) if c >> 63 else c
+
+
+def _srl(z: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic:
+    the sign bits it shifts in are masked off)."""
+    return (z >> n) & ((1 << (64 - n)) - 1)
+
+
+def _mix64(z: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer on int64 tensors (products wrap mod 2^64)."""
+    z = (z ^ _srl(z, 30)) * _i64(_MIX1)
+    z = (z ^ _srl(z, 27)) * _i64(_MIX2)
+    return z ^ _srl(z, 31)
+
+
+def _row_key(seed: int, sids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """:func:`_row_seed` of every row, as int64 tensor ops."""
+    key = (torch.full_like(sids, _i64(seed * _GOLDEN), dtype=torch.int64)
+           + sids.long() * _i64(_MIX1) + positions.long() * _i64(_MIX2))
+    return _mix64(key) & 0x7FFFFFFFFFFFFFFF
+
+
+def gumbel_noise(seed: int, sids: torch.Tensor, positions: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Gumbel(0, 1) noise ``[B, vocab]`` in fp64, the same bits on every
+    device: row b's key is ``_row_seed(seed, sids[b], positions[b])``,
+    and entry v is splitmix64's (v + 1)-th draw from that key, whose top
+    53 bits give a uniform u in (0, 1); noise = -log(-log u)."""
+    key = _row_key(seed, sids, positions)
+    ctr = torch.arange(1, vocab + 1, device=sids.device, dtype=torch.int64) * _i64(_GOLDEN)
+    bits = _mix64(key[:, None] + ctr[None])
+    u = (_srl(bits, 11).double() + 0.5) * 2.0 ** -53
+    return -torch.log(-torch.log(u))
 
 
 @torch.no_grad()
 def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, seed: int,
                   sids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Greedy argmax, or Gumbel-max categorical at temperature > 0.
+    """Greedy argmax, or Gumbel-max categorical at temperature > 0, on
+    the device and without a host read, so a captured decode program can
+    hold it.
 
-    The noise of row b is drawn from a ``torch.Generator`` seeded from
-    (seed, sids[b], positions[b]) — the request's stable id and the
-    position the sampled token will occupy — never from the slot or the
-    dispatch, so a preempted-and-readmitted stream keeps its noise and
-    co-batched requests at equal positions never share it.  (The JAX
-    package folds a PRNG key the same way; the bits differ, greedy
-    decoding is the cross-framework parity gate.)  logits [B, V]; temps
-    [B] (<= 0 = greedy); sids/positions [B].  Returns [B] int32."""
+    Row b's noise is keyed by (seed, sids[b], positions[b]) — the
+    request's stable id and the position the sampled token will occupy —
+    never by the slot or the dispatch (:func:`gumbel_noise`): a K-step
+    program draws what K single steps draw, a preempted-and-readmitted
+    stream keeps its noise, and co-batched requests at equal positions
+    never share it.  The noise and the perturbed scores are fp64 from
+    integer hashes, so the CPU and the card pick the same tokens from the
+    same logits.  (The JAX package folds a PRNG key the same way; the
+    bits differ, greedy decoding is the cross-framework parity gate.)
+    logits [B, V]; temps [B] (<= 0 = greedy); sids/positions [B].
+    Returns [B] int32."""
     z = logits.float()
-    out = torch.argmax(z, dim=-1).to(torch.int32)
-    temps_h = temps.tolist()
-    rows = [b for b, t in enumerate(temps_h) if t > 0.0]
-    if rows:
-        sids_h, pos_h = sids.tolist(), positions.tolist()
-        V = z.shape[-1]
-        noise = torch.empty((len(rows), V), dtype=torch.float32, device=z.device)
-        for j, b in enumerate(rows):
-            gen = torch.Generator(device=z.device)
-            gen.manual_seed(_row_seed(seed, int(sids_h[b]), int(pos_h[b])))
-            u = torch.rand((V,), generator=gen, device=z.device,
-                           dtype=torch.float32)
-            noise[j] = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
-        idx = torch.tensor(rows, device=z.device)
-        t = temps[idx].float().clamp(min=1e-6)[:, None]
-        out[idx] = torch.argmax(z[idx] / t + noise, dim=-1).to(torch.int32)
-    return out
+    greedy = torch.argmax(z, dim=-1).to(torch.int32)
+    t = temps.double().clamp(min=1e-6)[:, None]
+    noisy = z.double() / t + gumbel_noise(seed, sids, positions, z.shape[-1])
+    sampled = torch.argmax(noisy, dim=-1).to(torch.int32)
+    return torch.where(temps > 0, sampled, greedy)
+
+
+@torch.no_grad()
+def paged_multi_decode(cfg: TransformerConfig, params: ParamTree, pools: Pools,
+                       last_tokens: torch.Tensor, positions: torch.Tensor,
+                       page_table: torch.Tensor, active: torch.Tensor, temps: torch.Tensor,
+                       eos_ids: torch.Tensor, budgets: torch.Tensor, seed: int,
+                       sids: torch.Tensor, horizon: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, Pools]:
+    """``horizon`` decode steps in one program: each step is the
+    :func:`paged_decode` body followed by :func:`sample_tokens`, with the
+    per-row active/EOS/budget masking on the device, so a finished row
+    writes to the trash page and stops consuming pages; one host read
+    per K tokens (engine ``_multi_decode``).
+
+    last_tokens/positions/active/temps/sids: as the decode step;
+    page_table: [B, MP] covering each row's pre-reserved headroom (nothing
+    allocates mid-program); eos_ids: [B] int32 (-1 = none); budgets: [B]
+    int32 tokens row b may emit (0 = inactive).  Returns (tokens [B, K]
+    int32 with -1 past each row's produced count, produced [B] int32,
+    pools).  Contract: the emitted stream is bit-identical to K single
+    steps, greedy and sampled alike."""
+    B = last_tokens.shape[0]
+    act = active & (budgets > 0)
+    produced = torch.zeros((B,), dtype=torch.int32, device=last_tokens.device)
+    last, pos = last_tokens.long(), positions.to(torch.int32)
+    none = torch.full((B,), -1, dtype=torch.int32, device=last_tokens.device)
+    toks = []
+    for _ in range(horizon):
+        logits, pools = paged_decode(cfg, params, pools, last, pos, page_table, act)
+        emit = act
+        tok = torch.where(emit, sample_tokens(logits, temps, seed, sids, pos + 1), none)
+        produced = produced + emit.to(torch.int32)
+        eos_hit = emit & (eos_ids >= 0) & (tok == eos_ids)
+        act = emit & ~eos_hit & (produced < budgets)
+        last = torch.where(emit, tok.long(), last)
+        pos = pos + emit.to(torch.int32)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), produced, pools

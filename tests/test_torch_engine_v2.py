@@ -229,8 +229,7 @@ def test_bounded_queue_rejects(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"enable_prefix_cache": True}, {"kv_tier": {"enabled": True}},
-    {"speculative": {"mode": "ngram"}}, {"decode_horizon": 4}, {"slo_tpot_s": 0.5},
+    {"enable_prefix_cache": True}, {"kv_tier": {"enabled": True}}, {"slo_tpot_s": 0.5},
     {"timeline_every_n_steps": 5}, {"slo_ttft_s": 0.5}])
 def test_not_ported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -240,6 +239,29 @@ def test_not_ported_knobs_raise(knob):
         setattr(cfg, k, v)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngineV2(llama_model("tiny"), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [{"speculative": {"mode": "ngram"}}, {"decode_horizon": 4}],
+                         ids=["speculative_ngram", "decode_horizon_4"])
+def test_once_refused_knobs_serve_the_plain_greedy_streams(weights, knob):
+    """The two knobs that raised before speculative and multi-step decode
+    were ported: an engine built with each serves, on the CPU, the greedy
+    streams of the plain engine, through the program the knob selects."""
+    prompts = _prompts(seed=9, lengths=(7, 21, 12, 30, 5))
+    prompts.append([3, 4, 5, 6] * 4)  # repeats: the n-gram proposer drafts
+    reqs = [RaggedRequest(prompt_ids=p, max_new_tokens=10) for p in prompts]
+    want = _port_engine(weights, BASE).generate_all(reqs)
+    eng = InferenceEngineV2(llama_model("tiny", max_seq_len=256),
+                            RaggedInferenceConfig.from_dict(dict(BASE, **knob)),
+                            params=weights[2], device="cpu")
+    got = eng.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=10) for p in prompts])
+    assert got == want
+    st = eng.decode_stats()
+    if "speculative" in knob:
+        assert st["spec_verify_calls"] > 0 and st["spec_accepted_tokens"] > 0
+    else:
+        assert st["decode_tokens_per_host_sync"] > 1.0
+    eng.assert_no_leaks()
 
 
 def test_sampled_stream_independent_of_slot(weights):

@@ -56,7 +56,10 @@
 //   transposed, and every D that is a multiple of 8 needs no padding.
 //   Products.  S and dP are wgmma with both operands in shared memory; P
 //   and dS are packed from the fp32 accumulators into bf16/fp16 A fragments
-//   in registers, the A operand of the second pair.  Each warpgroup issues
+//   in registers, the A operand of the second pair; fp16 adds each one's
+//   second term (hopper.cuh pack_a_lo) and a second product into the same
+//   accumulators, so ~22 bits of P and dS reach the sums, as in the TPU
+//   kernels' fp32 P and dS (bf16 keeps one term).  Each warpgroup issues
 //   S, then dP, and forms P while dP is on the tensor cores; A'' issues
 //   dV += P^T dO before it forms dS^T, so that product runs under the dS^T
 //   arithmetic.  (Letting the last products of a tile finish under the next
@@ -634,7 +637,10 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
   for (int i = 0; i < DO / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+  // P^T and dS^T as A operands; fp16 adds their second terms pl, dsl
+  constexpr bool SPLIT = kSplitA<T>;
   uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+  uint32_t pl[SPLIT ? BQ / 16 : 1][4], dsl[SPLIT ? BQ / 16 : 1][4];
   mbar_wait(kv_full, 0);
 
   for (int it = 0; it < total; ++it) {
@@ -703,6 +709,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
         dkv_probs<false, false, BQ>(s, lse2, q0, key0, cq, a, scale2, 0.f);
       }
       pack_a<T, BQ>(pf, s);
+      if constexpr (SPLIT) pack_a_lo<BQ>(pl, s);
       wg_wait<0>();
       pin(dp);
       // dV += P^T dO (dO read MN-major) runs while dS^T is formed
@@ -710,20 +717,35 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
 #pragma unroll
       for (int kq = 0; kq < BQ / 16; ++kq)
         WgmmaRS<T, DO>::run(dv, pf[kq], gmma_desc(dOc + pan0 + kq * 16 * 8, 128, BQ * 16));
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq)
+          WgmmaRS<T, DO>::run(dv, pl[kq], gmma_desc(dOc + pan0 + kq * 16 * 8, 128, BQ * 16));
+      }
       wg_commit();
       dkv_dscores<BQ>(dp, s, dl);
       pack_a<T, BQ>(dsf, dp);
+      if constexpr (SPLIT) pack_a_lo<BQ>(dsl, dp);
       // dK += dS^T Q, Q read MN-major
       wg_fence();
 #pragma unroll
       for (int kq = 0; kq < BQ / 16; ++kq)
         WgmmaRS<T, DO>::run(dk, dsf[kq], gmma_desc(Qc + pan0 + kq * 16 * 8, 128, BQ * 16));
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq)
+          WgmmaRS<T, DO>::run(dk, dsl[kq], gmma_desc(Qc + pan0 + kq * 16 * 8, 128, BQ * 16));
+      }
       wg_commit();
       wg_wait<0>();
       pin(dv);
       pin(dk);
       pin(pf);
       pin(dsf);
+      if constexpr (SPLIT) {
+        pin(pl);
+        pin(dsl);
+      }
     }
     mbar_arrive(&empty[stage]);
   }
@@ -841,7 +863,9 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
   for (int i = 0; i < DO / 2; ++i) dq[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-  uint32_t dsf[4][4];
+  // dS as the A operand; fp16 adds its second term dsl
+  constexpr bool SPLIT = kSplitA<T>;
+  uint32_t dsf[4][4], dsl[SPLIT ? 4 : 1][4];
   mbar_wait(q_full, 0);
 
   for (int t = 0; t < n_kt; ++t) {
@@ -887,15 +911,22 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
 #pragma unroll
       for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
       pack_a<T, 64>(dsf, dp);
+      if constexpr (SPLIT) pack_a_lo<64>(dsl, dp);
       // dQ += dS K, K read MN-major
       wg_fence();
 #pragma unroll
       for (int kq = 0; kq < BK / 16; ++kq)
         WgmmaRS<T, DO>::run(dq, dsf[kq], gmma_desc(Kc + pan0 + kq * 16 * 8, 128, BK * 16));
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int kq = 0; kq < BK / 16; ++kq)
+          WgmmaRS<T, DO>::run(dq, dsl[kq], gmma_desc(Kc + pan0 + kq * 16 * 8, 128, BK * 16));
+      }
       wg_commit();
       wg_wait<0>();
       pin(dq);
       pin(dsf);
+      if constexpr (SPLIT) pin(dsl);
     }
     mbar_arrive(&empty[stage]);
   }

@@ -41,7 +41,10 @@
 //   (K-major); the online softmax in registers, in the log2 domain (ex2 of
 //   s * sm_scale * log2(e)); O += P V by wgmma with P packed from the S
 //   accumulators as the register A operand and V read MN-major from the same
-//   panels, so nothing is transposed.  Each warpgroup keeps the tensor
+//   panels, so nothing is transposed.  In fp16 P enters as two terms, hi
+//   and lo (hopper.cuh pack_a_lo), each with its own P V product into O, so
+//   ~22 bits of P reach the sum as in the TPU kernel's fp32 P; bf16 keeps
+//   one term (its limit allows for it).  Each warpgroup keeps the tensor
 //   cores busy under its own softmax: it issues S of tile t and P V of tile
 //   t - 1 together, forms tile t's probabilities while P V runs, and only
 //   then rescales O (the stage of tile t - 1 is released a tile late, so the
@@ -232,7 +235,9 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  uint32_t pf[BK / 16][4];
+  // P as the A operand; fp16 adds its second term pl (hopper.cuh pack_a_lo)
+  constexpr bool SPLIT = kSplitA<T>;
+  uint32_t pf[BK / 16][4], pl[SPLIT ? BK / 16 : 1][4];
   // the key tiles this warpgroup computes: a tile wholly past its last row
   // is masked out whole under causal attention
   const int n_act = !live ? 0 : a.causal ? min(n_kt, last_pos / BK + 1) : n_kt;
@@ -261,6 +266,11 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
 #pragma unroll
     for (int kq = 0; kq < BK / 16; ++kq)
       WgmmaRS<T, D>::run(o, pf[kq], gmma_desc_sw<W>(Vc + kq * 16 * W, W * BK * 2, SBO));
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int kq = 0; kq < BK / 16; ++kq)
+        WgmmaRS<T, D>::run(o, pl[kq], gmma_desc_sw<W>(Vc + kq * 16 * W, W * BK * 2, SBO));
+    }
     wg_commit();
   };
 
@@ -312,15 +322,18 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
     wg_wait<0>();  // P V of tile t - 1: its stage is free, O may be rescaled
     pin(o);
     pin(pf);
+    if constexpr (SPLIT) pin(pl);
     if (t > 0) mbar_arrive(&empty[(t - 1) % ST]);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
     pack_a<T, BK>(pf, s);
+    if constexpr (SPLIT) pack_a_lo<BK>(pl, s);
     if (t == n_act - 1) {  // the last tile's P V, then its stage
       pv(t);
       wg_wait<0>();
       pin(o);
       pin(pf);
+      if constexpr (SPLIT) pin(pl);
       mbar_arrive(&empty[t % ST]);
     }
   }

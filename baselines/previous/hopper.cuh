@@ -221,6 +221,24 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[N / 16][4], const float (&a
 #pragma unroll
     for (int r = 0; r < 4; ++r) f[kq][r] = Cvt<T>::pack(acc[8 * kq + 2 * r], acc[8 * kq + 2 * r + 1]);
 }
+// fp16 keeps a register A operand (P, dS) as two terms: hi = fp16(x), which
+// pack_a gives, and lo = fp16(x - hi), which this gives.  A second product
+// with lo into the same fp32 accumulator brings ~22 bits of x into the sum,
+// as the TPU kernels' fp32 P does; one fp16 term misses the fp16 limits on
+// short causal rows, where p ~ 1/2 and its rounding is ~2.4e-4 of |v|.
+// bf16 keeps one term.
+template <typename T> constexpr bool kSplitA = std::is_same<T, __half>::value;
+template <int N>
+__device__ __forceinline__ void pack_a_lo(uint32_t (&f)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int kq = 0; kq < N / 16; ++kq)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = acc[8 * kq + 2 * r], x1 = acc[8 * kq + 2 * r + 1];
+      const float2 hi = __half22float2(__floats2half2_rn(x0, x1));
+      f[kq][r] = Cvt<__half>::pack(x0 - hi.x, x1 - hi.y);
+    }
+}
 
 // m64nNk16, fp32 accumulators, at the widths the kernels use.  SS: A and B
 // K-major in shared memory.  SSt: A K-major, B MN-major (N contiguous, as a

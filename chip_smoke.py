@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, quantized-inference,
-MoE-serving, block-sparse and evoformer attention paths on one NVIDIA GPU.
+MoE-serving, MoE-training, block-sparse and evoformer attention paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,10 +13,9 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
    ``csrc/hopper.cuh`` and ``csrc/wide_head.cuh``), and beside them the
    parent commit's build of seven sources, from ``baselines/previous/``
    with the parent's ``hopper.cuh``, run under today's wrappers: every
-   kernel must give the parent's bits but the fp16 flash kernels A, A'
-   and A'', which now keep P and dS as two fp16 terms (their parent's
-   error is printed beside today's, the timed cases in turns); ptxas's
-   registers and spills per kernel, and the kernels that spill by name;
+   kernel must give the parent's bits (the timed cases run in turns with
+   the parent's); ptxas's registers and spills per kernel, and the
+   kernels that spill by name;
 2. kernel A, flash-attention forward, against its plain PyTorch version
    computed in fp32 on the same inputs (limits in ``FLASH_TOL``/``LSE_TOL``) on
    the card at llama-1b prefill shapes (+ a chunked-prefill window,
@@ -185,7 +185,31 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     launch and no plain call (the profiler naming E''s wgmma kernel), the
     five gradients within ``EVO_BWD_TOL`` of plain fp32 autograd through
     ``evoformer_attention_xla``, bit-equal across two calls, and a peak
-    memory below the 2.42 GB of the scores.
+    memory below the 2.42 GB of the scores;
+21. kernels G' and G'' (the grouped matmul's backward: grouped dX and
+    per-expert dW) against their plain versions computed in fp32
+    (``GMM_TOL``) at Mixtral-8x7b's training layout (4096 tokens at top-2
+    through the router, P = 9216; gate/up and down; bf16 timed beside
+    their bound, their plain versions and ``torch._grouped_mm``, the 3-D
+    form for dX and the 2-D x 2-D form grouped along K for dW), fp16 and
+    fp32, block_rows 64 and 16, an expert with no rows in a non-monotone
+    map, ``n_used`` below the block count, ragged H and F; every output
+    bit-equal across two calls, and the router's ``n_used`` giving the bits
+    of the whole buffer;
+22. MoE training: ``initialize`` -> ``train_batch`` on Mixtral 8x160m at
+    full width and depth (bf16, dropless, seq 1024, micro-batch 4, the
+    bench's ds-config without telemetry), 8 steps on one seeded batch (the
+    loss must fall, no host sync inside a step, a profiled step), and
+    Mixtral 8x7b at full width and 2 of 32 layers with remat
+    (nothing_saveable) and without, 2 steps each: counters zeroed before
+    and read after each drive (per step: A L times, 2L with remat, A'
+    and A'' L times, G 3L, 6L with remat, G' and G'' 3L, C once per
+    leaf), the first micro-batch's loss and every gradient, the losses
+    and the grad norms bit-equal with and without remat; step time,
+    tokens/s, MFU (active experts only), peak memory;
+23. MoE training parity: a 2-layer Mixtral-8x160m-width model (dropless)
+    in fp32 on the card and on the CPU from the same weights and batches,
+    3 steps (``TRAIN_PARITY_TOL``).
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA card,
@@ -264,9 +288,7 @@ DEV = "cuda"
 #: the parent commit's build of the kernels, built beside today's from
 #: their sources in BASELINE_DIR (which holds the parent's hopper.cuh, found
 #: before csrc's by their includes): every kernel must give the parent's
-#: bits but A, A' and A'' in fp16, which now keep P and dS as two fp16
-#: terms (previous_vs_limit); the timed cases run in turns with the
-#: parent's.
+#: bits; the timed cases run in turns with the parent's.
 BASELINE_DIR = os.path.join(ROOT, "baselines", "previous")
 BASELINE_KERNELS = ("wq_matmul", "evoformer_attn", "flash_attention_fwd",
                     "flash_attention_bwd", "paged_attention", "sparse_attention",
@@ -299,7 +321,9 @@ class Baseline:
         sigs = {"flash_attention_fwd": fa._SIG, "flash_attention_bwd": fa._BWD_SIG,
                 "paged_attention": pa._SIG, "sparse_attention": sa._SIG,
                 "wq_matmul": wq._SIG, "evoformer_attn": ev._SIG, "grouped_matmul": gm._SIG}
-        self.libs = {n: op_builder.load(n + "_previous", sigs[n]) for n in BASELINE_KERNELS}
+        # the parent's grouped_matmul has G only (G' and G'' are new)
+        prev_sigs = {**sigs, "grouped_matmul": gm._FWD_SIG}
+        self.libs = {n: op_builder.load(n + "_previous", prev_sigs[n]) for n in BASELINE_KERNELS}
         for n in BASELINE_KERNELS:  # today's, loaded before any swap
             op_builder.load(n, sigs[n])
 
@@ -325,22 +349,13 @@ def turns(prev, new):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def previous_vs_limit(rec, name, prev_out, out, dtype, refs):
+def same_as_previous(rec, name, prev_out, out):
     """The parent's outputs ``prev_out`` beside today's ``out`` on the same
-    inputs: bit-equal in bf16 and fp32, whose code paths this build keeps;
-    in fp16, where the flash kernels now keep P and dS as two terms, the
-    parent's error against each (reference, limit) of ``refs`` is reported
-    beside today's (not held: the parent missed these limits, #F4)."""
+    inputs: bit-equal in every dtype."""
     torch.cuda.synchronize()
-    if dtype != torch.float16:
-        same = all(torch.equal(x, y) for x, y in zip(prev_out, out))
-        check(same, f"{name}: other bits than the parent's build")
-        rec["bit_equal_to_previous"] = same
-        return
-    errs = [max_err(p, r, tol) for p, (r, tol) in zip(prev_out, refs)]
-    rec["previous_max_abs_err"] = max(e[0] for e in errs)
-    rec["previous_atol_used"] = max(e[1] for e in errs)
-    rec["previous_within_limit"] = all(e[2] for e in errs)
+    same = all(torch.equal(x, y) for x, y in zip(prev_out, out))
+    check(same, f"{name}: other bits than the parent's build")
+    rec["bit_equal_to_previous"] = same
 
 
 class SmokeFailure(SystemExit):
@@ -528,9 +543,7 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
         return BASE.swapped("flash_attention_fwd", new)
 
     if BASE is not None:
-        # the parent's build on the same inputs: its bits in bf16 and fp32;
-        # in fp16 (P now kept as two terms) its error beside today's
-        previous_vs_limit(rec, name, prev(), (o, lse), dtype, [(o_ref, FLASH_TOL[dtype])])
+        same_as_previous(rec, name, prev(), (o, lse))  # the parent's build, same inputs
     if timed:
         rows = q_offset + torch.arange(Sq, device=DEV)
         vis = (rows[:, None] >= torch.arange(Sk, device=DEV)[None, :]) if causal \
@@ -823,10 +836,7 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
         return BASE.swapped("flash_attention_bwd", new_bwd)
 
     if BASE is not None:
-        # the parent's build on the same inputs: its bits in bf16 and fp32,
-        # in fp16 its error beside today's
-        previous_vs_limit(rec, f"flash bwd {name}", prev_bwd(), (dq, dk, dv), dtype,
-                          [(r, tol) for r in ref])
+        same_as_previous(rec, f"flash bwd {name}", prev_bwd(), (dq, dk, dv))
     print(json.dumps({"flash_bwd_check": rec}))
     if timed and BASE is not None and dtype != torch.float32:
         p_ms, n_ms, four = turns(prev_bwd, new_bwd)
@@ -1140,22 +1150,17 @@ TRAIN_PARITY_TOL = {"fp32": {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4},
                     "fp16": {"loss": 2e-3, "grad_norm": 2e-2, "params": 1e-3}}
 
 
-def train_parity_phase():
-    """A 2-layer llama-1b-width model on the card and on the CPU from the
-    same weights and batches: 3 fp32 steps; then fp16 from an initial scale
-    of 2^20 with hysteresis 1, until one overflow step has been skipped and
-    two steps applied (at most 12)."""
+def train_parity(model, params, cases, label):
+    """``model`` on the card and on the CPU from the same ``params`` and
+    batches, for each case (name, ds-config extra, steps, B, S); fp16 runs
+    until one overflow step has been skipped and two applied (at most
+    ``steps``).  Loss, grad norm, loss scale and skipped steps per step,
+    then the master params, against ``TRAIN_PARITY_TOL``."""
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.llama import llama_model
 
-    model = llama_model("1b", max_seq_len=256, n_layers=2)
-    params = model.init_params(torch.Generator().manual_seed(7), "cpu")
     rng = torch.Generator().manual_seed(8)
     out = {}
-    for name, extra, max_steps, B, S in (
-            ("fp32", {}, 3, 2, 128),
-            ("fp16", {"fp16": {"enabled": True, "initial_scale_power": 20, "hysteresis": 1}},
-             12, 1, 64)):
+    for name, extra, max_steps, B, S in cases:
         ds = train_config(**extra)
         ds.pop("bf16")
         ds["train_micro_batch_size_per_gpu"] = B
@@ -1174,30 +1179,56 @@ def train_parity_phase():
                             "applied": int(e.state.step)}
             c, h = row["cuda"], row["cpu"]
             check(c["loss_scale"] == h["loss_scale"] and c["skipped"] == h["skipped"],
-                  f"train parity {name}: loss scale / skipped differ: {row}")
+                  f"{label} {name}: loss scale / skipped differ: {row}")
             check(abs(c["loss"] - h["loss"]) <= tol["loss"] * abs(h["loss"]),
-                  f"train parity {name}: loss {c['loss']} vs {h['loss']}")
+                  f"{label} {name}: loss {c['loss']} vs {h['loss']}")
             if math.isfinite(h["grad_norm"]):
                 check(abs(c["grad_norm"] - h["grad_norm"]) <= tol["grad_norm"] * h["grad_norm"],
-                      f"train parity {name}: grad norm {c['grad_norm']} vs {h['grad_norm']}")
+                      f"{label} {name}: grad norm {c['grad_norm']} vs {h['grad_norm']}")
             else:
-                check(not math.isfinite(c["grad_norm"]), f"train parity {name}: {row}")
+                check(not math.isfinite(c["grad_norm"]), f"{label} {name}: {row}")
             rec["per_step"].append(row)
             if name == "fp16" and c["skipped"] >= 1 and c["applied"] >= 2:
                 break
         diff = max((a.cpu() - b).abs().max().item() for a, b in zip(
             engines["cuda"]._master, engines["cpu"]._master))
-        check(diff <= tol["params"], f"train parity {name}: master params differ by {diff}")
+        check(diff <= tol["params"], f"{label} {name}: master params differ by {diff}")
         rec["params_max_abs_diff"] = diff
         rec["steps"] = len(rec["per_step"])
         if name == "fp16":
             check(engines["cuda"].skipped_steps >= 1 and int(engines["cuda"].state.step) >= 2,
-                  f"train parity fp16: wanted an overflow step and two applied: {rec}")
+                  f"{label} fp16: wanted an overflow step and two applied: {rec}")
         out[name] = rec
         del engines
         torch.cuda.empty_cache()
-    print(json.dumps({"train_parity": out}))
+    print(json.dumps({label: out}))
     return out
+
+
+def train_parity_phase():
+    """A 2-layer llama-1b-width model on the card and on the CPU from the
+    same weights and batches: 3 fp32 steps; then fp16 from an initial scale
+    of 2^20 with hysteresis 1, until one overflow step has been skipped and
+    two steps applied (at most 12)."""
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    model = llama_model("1b", max_seq_len=256, n_layers=2)
+    params = model.init_params(torch.Generator().manual_seed(7), "cpu")
+    return train_parity(model, params, (
+        ("fp32", {}, 3, 2, 128),
+        ("fp16", {"fp16": {"enabled": True, "initial_scale_power": 20, "hysteresis": 1}},
+         12, 1, 64)), "train_parity")
+
+
+def moe_train_parity_phase():
+    """A 2-layer Mixtral-8x160m-width model (dropless: G, G' and G'' on the
+    card, their plain versions on the CPU) on the card and on the CPU from
+    the same weights and batches: 3 fp32 steps."""
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+
+    model = mixtral_model("8x160m", max_seq_len=256, n_layers=2, moe_drop_tokens=False)
+    params = model.init_params(torch.Generator().manual_seed(7), "cpu")
+    return train_parity(model, params, (("fp32", {}, 3, 2, 128),), "moe_train_parity")
 
 
 # -- phase 4: the engine -----------------------------------------------------
@@ -2461,6 +2492,287 @@ def moe_parity_phase():
     return out
 
 
+# -- phase 21: kernels G' and G'', the grouped matmul's backward -------------
+
+#: Mixtral-8x7b's training layout: 4096 tokens (seq 1024 x micro-batch 4)
+#: at top-2 in the router's padded layout, P = (8192 / 128 + 8) x 128 rows
+MIXTRAL_TRAIN_TOKENS = 4096
+
+
+def _gmm_bwd_inputs(name, P, H, F, block_rows, dtype, E, routed_tokens, order, n_used_blocks,
+                    seed):
+    """(x [P, H], w [E, H, F], dy [P, F], block_expert, n_used) of one G'/G''
+    case.  ``routed_tokens``: the router's layout, x and dy random on the
+    routed rows and zero on the padding (as on the main path), n_used the
+    router's; else every row random, ``order`` (or a random draw) the
+    block -> expert map and ``n_used_blocks`` the count of used blocks."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    w = (torch.randn((E, H, F), generator=g, device=DEV) * 0.02).to(dtype)
+    n_used = None
+    if routed_tokens is not None:
+        dest, n_rows, be = routed_block_expert(routed_tokens, E, 2, block_rows, seed + 1)
+        check(n_rows == P, f"gmm bwd {name}: router layout has {n_rows} rows, not {P}")
+        x = torch.zeros((P, H), device=DEV, dtype=dtype)
+        dy = torch.zeros((P, F), device=DEV, dtype=dtype)
+        x[dest] = torch.randn((dest.numel(), H), generator=g, device=DEV).to(dtype)
+        dy[dest] = (torch.randn((dest.numel(), F), generator=g, device=DEV) * 0.1).to(dtype)
+        n_used = (torch.where(dest < P, dest, -block_rows).max() // block_rows + 1).to(
+            torch.int32).reshape(1)
+    else:
+        x = torch.randn((P, H), generator=g, device=DEV).to(dtype)
+        dy = (torch.randn((P, F), generator=g, device=DEV) * 0.1).to(dtype)
+        be = (torch.tensor(order, dtype=torch.int32, device=DEV) if order is not None else
+              torch.randint(0, E, (P // block_rows,), generator=g, device=DEV,
+                            dtype=torch.int32))
+        if n_used_blocks is not None:
+            n_used = torch.tensor([n_used_blocks], dtype=torch.int32, device=DEV)
+    return x, w, dy, be, n_used
+
+
+def gmm_bwd_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_tokens=None,
+                 order=None, n_used_blocks=None, timed=False, seed=0):
+    """Kernels G' (dx = dy w[e]^T) and G'' (dw[e] = sum of x_b^T dy_b)
+    against their plain versions computed in fp32 on the same inputs
+    (``GMM_TOL``), each bit-equal across two calls; with the router's
+    ``n_used``, the same bits as without it (the padding is zeros)."""
+    x, w, dy, be, n_used = _gmm_bwd_inputs(name, P, H, F, block_rows, dtype, E, routed_tokens,
+                                           order, n_used_blocks, seed)
+    dx = gm.grouped_matmul_dx(dy, w, be, block_rows, n_used)
+    dw = gm.grouped_matmul_dw(x, dy, be, E, block_rows, n_used)
+    dx_ref = gm.grouped_matmul_dx_plain(dy.float(), w.float(), be, block_rows, n_used)
+    dw_ref = gm.grouped_matmul_dw_plain(x.float(), dy.float(), be, E, block_rows, n_used)
+    torch.cuda.synchronize()
+    tol = GMM_TOL[dtype]
+    rec = {"case": name, "shape": [P, H, F], "E": E, "block_rows": block_rows,
+           "dtype": str(dtype)[6:], "tol": tol,
+           "experts_with_rows": int(torch.unique(
+               be if n_used is None else be[:int(n_used.item())]).numel())}
+    for what, out, ref in (("dx", dx, dx_ref), ("dw", dw, dw_ref)):
+        err, atol_used, ok = max_err(out, ref, tol)
+        rec.update({f"{what}_max_abs_err": err, f"{what}_atol_used": atol_used,
+                    f"{what}_ref_max_abs": ref.abs().max().item()})
+        check(bool(torch.isfinite(out).all()), f"gmm bwd {name}: non-finite {what}")
+        check(ok, f"gmm bwd {name}: {what} kernel vs fp32 plain beyond {tol} (max abs "
+              f"{err:.3g}, atol used {atol_used:.3g})")
+    rec["max_abs_err"] = max(rec["dx_max_abs_err"], rec["dw_max_abs_err"])
+    again = (gm.grouped_matmul_dx(dy, w, be, block_rows, n_used),
+             gm.grouped_matmul_dw(x, dy, be, E, block_rows, n_used))
+    torch.cuda.synchronize()
+    check(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
+          f"gmm bwd {name}: outputs differ between two calls")
+    rec["bit_equal_across_calls"] = True
+    live_be = be if n_used is None else be[:int(n_used.item())]
+    empty = [e for e in range(E) if not bool((live_be == e).any())]
+    if empty:
+        check(bool((dw[empty] == 0).all()), f"gmm bwd {name}: an expert with no rows got a "
+              f"nonzero dw")
+        rec["experts_without_rows"] = empty
+    if n_used is not None:
+        rec["n_used"] = int(n_used.item())
+        if routed_tokens is not None:  # the skipped blocks are the zero padding's own result
+            full = (gm.grouped_matmul_dx(dy, w, be, block_rows),
+                    gm.grouped_matmul_dw(x, dy, be, E, block_rows))
+            torch.cuda.synchronize()
+            check(torch.equal(full[0], dx) and torch.equal(full[1], dw),
+                  f"gmm bwd {name}: skipping the padding changed the gradients")
+        else:
+            live = int(n_used.item()) * block_rows
+            check(bool((dx[live:] == 0).all()), f"gmm bwd {name}: rows past n_used not zero")
+    if timed:
+        item = x.element_size()
+        rows = P if routed_tokens is None else 2 * routed_tokens
+        experts = rec["experts_with_rows"]
+        ops = 2.0 * rows * H * F
+        # dx: the routed rows of dy, each expert's matrix once, dx written;
+        # dw: the routed rows of x and dy, each expert's dw written
+        dx_bytes = (rows * F + experts * H * F + P * H) * item + be.numel() * 4
+        dw_bytes = (rows * (H + F) + E * H * F) * item + be.numel() * 4
+        offs = grouped_mm_offs(be, E, block_rows)
+        for what, fn, nbytes, lib in (
+                ("dx", lambda: gm.grouped_matmul_dx(dy, w, be, block_rows, n_used), dx_bytes,
+                 lambda: torch._grouped_mm(dy, w.transpose(1, 2), offs=offs)),
+                ("dw", lambda: gm.grouped_matmul_dw(x, dy, be, E, block_rows, n_used),
+                 dw_bytes, lambda: torch._grouped_mm(x.t(), dy, offs=offs))):
+            b_ms, b_by = bound(nbytes, ops, dtype)
+            ms = device_ms(fn)
+            rec.update({f"{what}_ms": ms, f"{what}_bound_ms": b_ms, f"{what}_bound_by": b_by,
+                        f"{what}_bound_share": b_ms / ms, f"{what}_bytes": nbytes})
+            try:  # the yardstick only: the port never calls it
+                lib()
+                rec[f"{what}_library_ms"] = device_ms(lib)
+            except (RuntimeError, AttributeError, TypeError) as e:
+                rec[f"{what}_library_ms"] = None
+                rec[f"{what}_library_error"] = str(e)[:200]
+        rec.update(routed_rows=rows, flops=ops, library="torch._grouped_mm",
+                   dx_plain_ms=device_ms(lambda: gm.grouped_matmul_dx_plain(
+                       dy, w, be, block_rows, n_used), iters=3, warmup=1),
+                   dw_plain_ms=device_ms(lambda: gm.grouped_matmul_dw_plain(
+                       x, dy, be, E, block_rows, n_used), iters=3, warmup=1))
+    print(json.dumps({"gmm_bwd": rec}))
+    return rec
+
+
+def gmm_bwd_phase(gm):
+    """Kernels G' and G'' at Mixtral-8x7b's training shapes (4096 tokens at
+    top-2 in the router's layout, P = 9216; gate/up and down; timed in
+    bf16) and the corners: fp16 and fp32, block_rows 64 and 16, an expert
+    with no rows in a non-monotone map, n_used below the block count with
+    random rows past it, ragged H and F."""
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    H, F, T = MIXTRAL_H, MIXTRAL_F, MIXTRAL_TRAIN_TOKENS
+    P = (-(-2 * T // 128) + MIXTRAL_E) * 128
+    return [
+        gmm_bwd_case(gm, f"train_up_p{P}", P, H, F, 128, bf16, routed_tokens=T, timed=True),
+        gmm_bwd_case(gm, f"train_down_p{P}", P, F, H, 128, bf16, routed_tokens=T, timed=True),
+        gmm_bwd_case(gm, f"train_up_p{P}_fp16", P, H, F, 128, fp16, routed_tokens=T),
+        gmm_bwd_case(gm, f"train_down_p{P}_fp32", P, F, H, 128, fp32, routed_tokens=T),
+        gmm_bwd_case(gm, "train_up_br64_bf16", (-(-2 * T // 64) + MIXTRAL_E) * 64, H, F, 64,
+                     bf16, routed_tokens=T),
+        gmm_bwd_case(gm, "train_down_br16_fp16", (-(-2 * T // 16) + MIXTRAL_E) * 16, F, H, 16,
+                     fp16, routed_tokens=T),
+        gmm_bwd_case(gm, "no_rows_expert3_nonmonotone_bf16", 1152, 1024, 2048, 128, bf16,
+                     order=[0, 5, 5, 1, 7, 0, 2, 6, 4]),
+        gmm_bwd_case(gm, "no_rows_expert3_br16_fp32", 512, 512, 256, 16, fp32,
+                     order=[e for e in (0, 1, 2, 4, 5, 6, 7, 1) for _ in range(4)]),
+        gmm_bwd_case(gm, "n_used_5_of_9_bf16", 1152, 1024, 2048, 128, bf16,
+                     order=[0, 1, 1, 2, 4, 4, 6, 7, 7], n_used_blocks=5),
+        gmm_bwd_case(gm, "n_used_3_of_9_br64_fp16", 576, 512, 1024, 64, fp16,
+                     order=[0, 0, 2, 3, 3, 5, 6, 7, 7], n_used_blocks=3),
+        gmm_bwd_case(gm, "ragged_f100_bf16", 1152, H, 100, 128, bf16),
+        gmm_bwd_case(gm, "ragged_h1003_f200_br16_fp16", 256, 1003, 200, 16, fp16),
+        gmm_bwd_case(gm, "ragged_h1003_f200_br16_fp32", 256, 1003, 200, 16, fp32),
+    ]
+
+
+# -- phase 22: MoE training ----------------------------------------------------
+
+#: MoE training runs: Mixtral 8x160m (deepspeed_tpu/models/mixtral.py:21) at
+#: full width and depth, and Mixtral 8x7b at full width cut to 2 of 32
+#: layers (3.16 B parameters, ~63 GB of training state) with activation
+#: checkpointing
+MOE_TRAIN_8X7B_LAYERS = 2
+
+
+def zero_moe_counters(fa, fadam, gm):
+    zero_train_counters(fa, fadam)
+    for c in (gm.grouped_matmul, gm.grouped_matmul_dx, gm.grouped_matmul_dw):
+        c.launches = 0
+
+
+def read_moe_counters(fa, fadam, gm):
+    return {**read_train_counters(fa, fadam), "grouped_matmul": gm.grouped_matmul.launches,
+            "grouped_matmul_dx": gm.grouped_matmul_dx.launches,
+            "grouped_matmul_dw": gm.grouped_matmul_dw.launches}
+
+
+def moe_train_run(fa, fadam, gm, size, layers, steps, remat, probe=None, batch_seed=123):
+    """One Mixtral model through initialize -> train_batch (bf16, dropless,
+    the bench's ds-config without its telemetry block, which the port
+    raises for until ROADMAP #16): ``steps`` steps on one seeded batch.
+    ``probe(engine, batch)`` runs first, outside the counted drive.
+    Counters zeroed just before the drive and read just after; every
+    launch count is held to what the layers and steps give.  Returns
+    (engine, batch, record)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.models.transformer import flops_per_token
+
+    model = mixtral_model(size, max_seq_len=TRAIN_SEQ, n_layers=layers, moe_drop_tokens=False,
+                          remat=remat)
+    cfg = model.config
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=train_config(), seed=0)
+    init_s = time.perf_counter() - t0
+    n_leaves = len(engine._master)
+    g = torch.Generator(device=DEV).manual_seed(batch_seed)
+    batch = torch.randint(0, cfg.vocab_size, (1, TRAIN_MICRO, TRAIN_SEQ), generator=g,
+                          device=DEV)
+    probed = probe(engine, batch) if probe is not None else None
+    zero_moe_counters(fa, fadam, gm)
+    losses, step_ms, syncs = timed_steps(engine, batch, steps)
+    launches = read_moe_counters(fa, fadam, gm)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    name = f"moe train {size} x{layers}{' remat' if remat else ''}"
+    check(all(map(math.isfinite, losses)), f"{name}: non-finite loss {losses}")
+    fwd = 2 if remat else 1  # the recompute runs each block's forward again
+    want = {"flash_fwd": fwd * layers * steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps, "fused_adam": n_leaves * steps,
+            "grouped_matmul": 3 * fwd * layers * steps,
+            "grouped_matmul_dx": 3 * layers * steps, "grouped_matmul_dw": 3 * layers * steps}
+    for k, v in want.items():
+        check(launches[k] == v, f"{name}: {k} launches {launches[k]} != {v}")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    tokens = TRAIN_MICRO * TRAIN_SEQ
+    fpt = flops_per_token(cfg, TRAIN_SEQ)
+    rec = {"model": f"mixtral-{size}", "layers": layers, "remat": remat,
+           "params": sum(p.numel() for p in engine._master), "leaves": n_leaves,
+           "seq": TRAIN_SEQ, "micro_batch": TRAIN_MICRO, "dtype": "bf16", "init_s": init_s,
+           "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+           "tokens_per_s": tokens / (med / 1e3), "flops_per_token_active": fpt,
+           "mfu": fpt * tokens / (med / 1e3) / PEAK_OPS[torch.bfloat16],
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "host_syncs": syncs, "grad_norm": engine.get_global_grad_norm(),
+           "telemetry": "left out: the port raises for the bench's telemetry block (#16)"}
+    return engine, batch, rec, probed
+
+
+def moe_train_phase(fa, fadam, gm):
+    """Run 1: Mixtral 8x160m at full width and depth, 8 steps (the loss must
+    fall, no host sync inside a step), with a profiled step.  Run 2:
+    Mixtral 8x7b at full width and ``MOE_TRAIN_8X7B_LAYERS`` layers with
+    remat (nothing_saveable), then without, from the same seed and batch:
+    the first micro-batch's loss and every leaf's gradient bit-equal, the
+    two steps' losses and grad norms bit-equal, and the peak memory of
+    each."""
+    run1, batch, rec1, _ = moe_train_run(fa, fadam, gm, "8x160m", 12, 8, remat=False)
+    check(rec1["losses"][-1] < rec1["losses"][0],
+          f"moe train 8x160m: loss did not fall over 8 steps: {rec1['losses']}")
+    check(rec1["host_syncs"] == 0, f"moe train 8x160m: {rec1['host_syncs']} host syncs "
+          f"inside bf16 train_batch calls")
+    rec1["profile"] = profile_window(
+        lambda: run1.train_batch(batch), 1, top_n=12,
+        groups={"grouped_matmul": "gmm_wgmma_kernel<__nv_bfloat16, false>",
+                "grouped_matmul_dx": "gmm_wgmma_kernel<__nv_bfloat16, true>",
+                "grouped_matmul_dw": "gmm_dw_", "flash": "flash_", "fused_adam": "adam"})
+    del run1
+    out = {"run1": rec1}
+    first = {}
+
+    def grads_of_first_micro(remat):
+        def probe(engine, batch):
+            grads, loss, _ = engine._micro_grads(batch[0])
+            torch.cuda.synchronize()
+            if remat:  # kept on the host until the run without remat
+                first["loss"], first["grads"] = loss.cpu(), [g.cpu() for g in grads]
+                return None
+            same = torch.equal(loss.cpu(), first["loss"]) and all(
+                torch.equal(g.cpu(), h) for g, h in zip(grads, first["grads"]))
+            return same
+        return probe
+
+    L = MOE_TRAIN_8X7B_LAYERS
+    for remat in (True, False):
+        eng, _, rec, same = moe_train_run(fa, fadam, gm, "8x7b", L, 2, remat=remat,
+                                          probe=grads_of_first_micro(remat))
+        rec["grad_norms_last"] = eng.get_global_grad_norm()
+        out[f"run2_remat_{remat}"] = rec
+        del eng
+        torch.cuda.empty_cache()
+    a, b = out["run2_remat_True"], out["run2_remat_False"]
+    check(same, "moe train 8x7b: remat changed the first micro-batch's loss or a gradient")
+    check(a["losses"] == b["losses"] and a["grad_norm"] == b["grad_norm"],
+          f"moe train 8x7b: remat changed the losses {a['losses']} vs {b['losses']}")
+    out["run2_bit_equal"] = {"first_grads_leaves": len(first["grads"]), "losses": True,
+                             "grad_norm": True, "first_grads": True}
+    del first["grads"]
+    print(json.dumps({"moe_train": out}))
+    return out
+
+
 # -- phase 18: kernel S, block-sparse attention -------------------------------
 
 #: Kernel S against its plain version computed in fp32 from the same
@@ -3164,6 +3476,7 @@ def main() -> int:
     wq_recs = phase(wq_phase, wq)
     quant = phase(quant_phase, qz)
     gmm_recs = phase(gmm_phase, gm)
+    gmm_bwd = phase(gmm_bwd_phase, gm)
     sparse = phase(sparse_phase, sa)
     evo = phase(evo_phase, ev)
     evo_train = phase(evo_train_phase, ev)
@@ -3178,6 +3491,8 @@ def main() -> int:
     qpar = phase(quant_parity_phase)
     moe = phase(mixtral_engine_phase, fa, pa, gm)
     mpar = phase(moe_parity_phase)
+    moe_train = phase(moe_train_phase, fa, fadam, gm)
+    mtpar = phase(moe_train_parity_phase)
     print(json.dumps({"phase_seconds": phase_s}))
 
     def timed(recs, keys):
@@ -3196,6 +3511,13 @@ def main() -> int:
     moe_gmm = {**{f"moe_serving_{m}": moe[m]["launches"]["grouped_matmul"] for m in moe_modes},
                "moe_generate": moe["generate"]["launches"]["grouped_matmul"]}
     main_gmm = next(r for r in gmm_recs if r["case"] == "decode_up_p1152")
+    moe_runs = {k: v["launches"] for k, v in moe_train.items() if k.startswith("run")
+                and "launches" in v}
+    moe_l = {k: sum(la[k] for la in moe_runs.values()) for k in next(iter(moe_runs.values()))}
+    moe_gmm["moe_training"] = moe_l["grouped_matmul"]
+    main_bwd_gmm = gmm_bwd[0]
+    bwd_gmm_shape = (f"P={main_bwd_gmm['shape'][0]} H=4096 F=14336 E=8 block_rows 128 bf16 "
+                     f"(Mixtral-8x7b training, 4096 tokens at top-2, gate/up)")
     serve_fwd = sum(r["launches"]["flash"] for r in eng.values())
     serve_paged = sum(r["launches"]["paged"] for r in eng.values())
     q_fwd = sum(la["flash"] for la in q_serving.values())
@@ -3203,7 +3525,7 @@ def main() -> int:
     codec_l = {k: v1["module_quantize_launches"][k] + v1["lora_launches"][k]
                for k in ("quantize_int8", "dequantize_int8")}
     codec_shape = "n=65,536,000 bf16 (llama-1b embed.tok)"
-    train_l = {k: train["launches"][k] + train["gas2"]["launches"][k]
+    train_l = {k: train["launches"][k] + train["gas2"]["launches"][k] + moe_l[k]
                for k in train["launches"]}
     bwd_shape = "B=4 S=1024 NH=32 KVH=8 D=64 bf16 causal"
     main_sparse = sparse[0]
@@ -3215,7 +3537,8 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:38",
          "launches": serve_fwd + q_fwd + train_l["flash_fwd"] + moe_fwd,
          "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
-                              "quantized_serving": q_fwd, "moe_serving": moe_fwd},
+                              "quantized_serving": q_fwd, "moe_serving": moe_fwd,
+                              "moe_training": moe_l["flash_fwd"]},
          "max_abs_err": max(r["max_abs_err"] for r in flash), "checked": True,
          "ms": main_flash["ms"], "kernel_ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"], "bound_ms": main_flash["bound_ms"],
@@ -3343,6 +3666,27 @@ def main() -> int:
          "timed_cases": timed(gmm_recs, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                          "context_cublas_dense_ms", "previous_ms",
                                          "bound_share"))},
+        *({"name": f"grouped_matmul_{w}", "route": "cuda",
+           "source": "deepspeed_tpu_torch/csrc/grouped_matmul.cu",
+           "replaces": "deepspeed_tpu/ops/pallas/grouped_matmul.py:38",
+           "note": f"G{mark}: the backward ({w}) of grouped_matmul, which the JAX package "
+                   "differentiates by XLA autodiff of its einsum branch (:49-53); no Pallas "
+                   "kernel of its own",
+           "launches": moe_l[f"grouped_matmul_{w}"],
+           "launches_by_path": {"moe_training": moe_l[f"grouped_matmul_{w}"]},
+           "launches_per_step": {k: moe_train[k]["launches_per_step"][f"grouped_matmul_{w}"]
+                                 for k in moe_runs},
+           "max_abs_err": max(r[f"{w}_max_abs_err"] for r in gmm_bwd), "checked": True,
+           "ms": main_bwd_gmm[f"{w}_ms"], "plain_ms": main_bwd_gmm[f"{w}_plain_ms"],
+           "bound_ms": main_bwd_gmm[f"{w}_bound_ms"],
+           "bound_by": main_bwd_gmm[f"{w}_bound_by"],
+           "bound_share": main_bwd_gmm[f"{w}_bound_share"],
+           "library_ms": main_bwd_gmm[f"{w}_library_ms"], "library": "torch._grouped_mm",
+           "shape": bwd_gmm_shape,
+           "timed_cases": timed(gmm_bwd, (f"{w}_ms", f"{w}_plain_ms", f"{w}_bound_ms",
+                                          f"{w}_bound_by", f"{w}_library_ms",
+                                          f"{w}_bound_share"))}
+          for w, mark in (("dx", "'"), ("dw", "''"))),
         {"name": "sparse_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/sparse_attention.py:128",
@@ -3415,7 +3759,7 @@ def main() -> int:
                                     "library_bwd_ms", "library_bwd_bias_ms",
                                     "previous_dkv_ms", "dkv_bound_share"))},
     ]
-    check(len(kernels) == 13 and all(k["launches"] > 0 for k in kernels),
+    check(len(kernels) == 15 and all(k["launches"] > 0 for k in kernels),
           "a kernel of the path never launched")
     print(json.dumps({"engine_summary": {m: {k: r.get(k) for k in (
         "ttft_mean_s", "ttft_p50_s", "ttft_max_s", "prefill_tok_per_s", "decode_tok_per_s",
@@ -3446,6 +3790,16 @@ def main() -> int:
         "prefill_profile": moe["whole_prompt"]["prefill_profile"],
         "generate": moe["generate"], "params": moe["params"], "peak_mem_gb": moe["peak_mem_gb"],
         "moe_parity": mpar}))
+    print(json.dumps({"moe_train_summary": {
+        k: {f: v.get(f) for f in ("model", "layers", "remat", "params", "losses",
+                                  "median_step_ms", "tokens_per_s", "mfu", "peak_mem_gb",
+                                  "launches_per_step", "host_syncs")}
+        for k, v in moe_train.items() if k in moe_runs},
+        "run1_profile": moe_train["run1"]["profile"],
+        "run2_bit_equal": moe_train["run2_bit_equal"], "moe_train_parity": mtpar,
+        "gmm_bwd": {r["case"]: {k: r.get(k) for k in ("dx_max_abs_err", "dw_max_abs_err",
+                                                       "dx_ms", "dw_ms")} for r in gmm_bwd},
+        "card": smi}))
     print(json.dumps({"evo_summary": {"train": evo_train, "cases": {r["case"]: {
         k: r[k] for k in ("max_abs_err", "bwd_max_abs_err") if k in r} for r in evo}},
         "sparse_summary": {r["case"]: r["max_abs_err"] for r in sparse}}))

@@ -37,8 +37,8 @@ def mixtral_config(size: str = "8x7b", max_seq_len: int = 2048,
 def mixtral_model(size: str = "8x7b", max_seq_len: int = 2048,
                   config: Optional[TransformerConfig] = None,
                   **overrides) -> ModelSpec:
-    """The serving and eval model; its ``loss_fn`` raises until MoE
-    training is ported (``causal_lm_loss``)."""
+    """The model: ``loss_fn`` trains it (``causal_lm_loss``, aux included),
+    ``apply_fn`` gives its logits."""
     cfg = config or mixtral_config(size, max_seq_len, **overrides)
 
     def apply_fn(params, batch):

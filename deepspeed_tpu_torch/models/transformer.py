@@ -22,14 +22,20 @@ With ``moe_experts > 0`` every layer's FFN is a mixtral-style MoE
 ``[E, H, F]`` / ``[E, F, H]``, optionally a qwen2-moe shared expert and a
 PR-MoE dense residual.  ``mlp_block`` returns the layer's aux loss beside
 its output; serving passes ``training=False`` (the capacity path then
-prices capacity with ``eval_capacity_factor``) and drops the aux.  MoE
-serves but does not train yet: :func:`causal_lm_loss` raises for it.
+prices capacity with ``eval_capacity_factor``) and drops the aux;
+:func:`causal_lm_loss` adds the layers' summed aux to the loss, as JAX's
+does, and trains every MoE leaf (the dropless layer's expert matmuls through
+the grouped-matmul kernels G, G' and G'').
 
 The training forward (:func:`transformer_forward`, :func:`causal_lm_loss`)
 runs the layers as a Python loop where JAX scans them, and differentiates
 through PyTorch autograd; attention goes through :func:`_pick_attn`, which
 takes the flash kernels (forward A, backward A' and A'') on a CUDA device
-and the plain attention on the CPU, as JAX picks flash on the TPU.
+and the plain attention on the CPU, as JAX picks flash on the TPU.  With
+``remat`` each block runs under activation checkpointing with
+``remat_policy`` (``runtime/activation_checkpointing/checkpointing.py``):
+the recompute runs the same kernels on the same inputs, so losses and
+gradients are bit-equal to those without.
 
 The functions below are plain functions on tensors with the JAX
 rounding points kept: ``_norm`` and ``_rope`` compute in fp32 and cast
@@ -52,9 +58,7 @@ from ..accelerator import DeviceLike, resolve_device
 #: ROADMAP items that bring the parts of the JAX model core this slice
 #: leaves out (named in the NotImplementedError each one raises)
 ROADMAP_FAMILIES = "ROADMAP Queue 1 #10c 'Post-norm and other model families'"
-ROADMAP_MOE_TRAIN = "ROADMAP Queue 1 #10a 'MoE training (grouped-matmul backward)'"
 ROADMAP_SP = "ROADMAP Queue 1 'Sequence parallelism'"
-ROADMAP_REMAT = "ROADMAP Queue 1 #2b 'Activation checkpointing'"
 
 
 @dataclasses.dataclass
@@ -85,8 +89,11 @@ class TransformerConfig:
     #: the JAX config's dropout field, which its model core never applies;
     #: only 0.0 is accepted here
     dropout: float = 0.0
-    #: activation checkpointing of each block (True raises: not ported yet)
+    #: activation checkpointing of each block, with a policy name of
+    #: ``checkpointing.POLICY_MAP`` (the JAX field's jax.checkpoint_policies
+    #: names)
     remat: bool = False
+    remat_policy: str = "nothing_saveable"
     attn_impl: str = "auto"  # auto | xla | flash (ulysses | ring | fpdt raise)
     # MoE (mixtral-style: every layer's MLP is replaced when moe_experts > 0)
     moe_experts: int = 0
@@ -536,8 +543,6 @@ def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: to
     stacked layers is a loop over the per-layer trees.  MoE layers run as
     JAX's training block does (``training=True``: capacity from
     ``moe_capacity_factor``)."""
-    if cfg.remat:
-        raise NotImplementedError(f"remat is not ported yet ({ROADMAP_REMAT})")
     if cfg.dropout:
         raise ValueError("dropout: the model core applies none (the JAX package's field is "
                          "unused too); leave it at 0.0")
@@ -552,9 +557,14 @@ def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: to
         n = params.embed.norm
         x = _norm(x, n.scale, n.get("bias"), cfg.norm, cfg.norm_eps)
     attn_fn = _pick_attn(cfg, x.device)
+    block = _block
+    if cfg.remat:
+        from ..runtime.activation_checkpointing.checkpointing import checkpoint_wrapper
+
+        block = checkpoint_wrapper(_block, policy=cfg.remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
-        x, a = _block(cfg, x, layer, positions, mask, attn_fn)
+        x, a = block(cfg, x, layer, positions, mask, attn_fn)
         if a is not None:
             aux = aux + a
     fn = params.final_norm
@@ -594,12 +604,9 @@ def _tiled_nll(cfg: TransformerConfig, params: ParamTree, hidden: torch.Tensor,
 
 def causal_lm_loss(cfg: TransformerConfig, params: ParamTree, batch: Any,
                    rng: Any = None) -> torch.Tensor:
-    """Next-token cross entropy.  batch: dict(input_ids, optional labels,
-    optional attention_mask) or a raw [B, S] token tensor.  MoE models
-    raise: the grouped matmul has no backward yet."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(f"training an MoE model is not ported yet "
-                                  f"({ROADMAP_MOE_TRAIN})")
+    """Next-token cross entropy plus the MoE layers' summed aux loss (0 for
+    a dense model).  batch: dict(input_ids, optional labels, optional
+    attention_mask) or a raw [B, S] token tensor."""
     if isinstance(batch, dict):
         ids = batch["input_ids"]
         labels = batch.get("labels", ids)

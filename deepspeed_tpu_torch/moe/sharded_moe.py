@@ -11,7 +11,11 @@ Two formulations of one layer, chosen by ``MoEConfig.drop_tokens``:
 * dropless (``drop_tokens=False``): every (token, expert) assignment is
   sorted by expert and padded to whole ``block_rows`` blocks
   (:func:`sort_pad_by_expert`), and the three expert matmuls run through
-  the grouped matmul (``ops/grouped_matmul.py``: kernel G on the card).
+  the grouped matmul (``ops/grouped_matmul.py``: kernel G on the card, G'
+  and G'' in its backward).
+
+Both formulations train: gradients reach ``x``, the router (through the
+gate probabilities and the aux loss) and every expert stack.
 
 Both keep every shape static, so the layer never reads a value back to
 the host: counts are a ``scatter_add_`` (``bincount`` syncs on CUDA to
@@ -24,6 +28,11 @@ equal values in ascending expert order (a stable descending sort).  The
 dropless combine adds each token's k contributions in ascending expert
 order in the activation type, the order of XLA's scatter-add over the
 expert-sorted updates, so the sum is the same on every run and device.
+The dispatch's backward keeps that rule: the gradient of each token sums
+its k rows of the sorted buffer in ascending expert order, in fp32
+(:class:`_Dispatch`), where autograd's own backward of the gather
+``xt[token_of]`` is an accumulating ``index_put_`` with no order of
+summation fixed on the card.
 
 Expert parallelism (``moe/ep_dispatch.py``) is not ported: the port runs
 on one device with no expert mesh axis, where the JAX package takes the
@@ -194,6 +203,27 @@ def _gelu(t: torch.Tensor) -> torch.Tensor:
     return F.gelu(t, approximate="tanh")
 
 
+class _Dispatch(torch.autograd.Function):
+    """``xt[token_of]``: token rows gathered into expert-sorted order.  Its
+    backward sums each token's k rows of the gradient in ascending expert
+    order (``pos`` [T, K]: the sorted positions of the token's
+    assignments, in that order), in fp32, cast once: a fixed order, so two
+    backward passes give the same bits on every device."""
+
+    @staticmethod
+    def forward(ctx, xt, token_of, pos):
+        ctx.save_for_backward(pos)
+        return xt[token_of]
+
+    @staticmethod
+    def backward(ctx, g):
+        (pos,) = ctx.saved_tensors
+        acc = g[pos[:, 0]].float()
+        for k in range(1, pos.shape[1]):
+            acc = acc + g[pos[:, k]].float()
+        return acc.to(g.dtype), None, None
+
+
 def _expert_ffn_blocks(xs: torch.Tensor, experts: Experts, block_expert: torch.Tensor,
                        activation: str, block_rows: int,
                        n_used: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -230,9 +260,14 @@ def moe_ffn_dropless(x: torch.Tensor, gate_w: torch.Tensor, experts: Experts,
     order, dest, n_rows, block_expert = sort_pad_by_expert(expert_idx.reshape(T * K), E,
                                                            block_rows)
     token_of = order // K
+    by_expert = torch.argsort(expert_idx, dim=-1)  # [T, K]: each token's choices, ascending
+    # the sorted position of each token's assignments, in ascending expert
+    # order (``order`` inverted)
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(T * K, device=x.device))
+    pos = pos.reshape(T, K).gather(1, by_expert)
     # one spare row takes what JAX's scatter drops (dest == n_rows)
     xs = torch.zeros((n_rows + 1, H), dtype=x.dtype, device=x.device)
-    xs.index_copy_(0, dest, xt[token_of])
+    xs.index_copy_(0, dest, _Dispatch.apply(xt, token_of, pos))
     # the blocks up to the last one that holds an assignment: the rest are
     # all padding, so the grouped matmuls skip them (read on the device)
     n_used = (torch.where(dest < n_rows, dest, -block_rows).max() // block_rows + 1).to(
@@ -241,9 +276,7 @@ def moe_ffn_dropless(x: torch.Tensor, gate_w: torch.Tensor, experts: Experts,
 
     # the combine, per token in ascending expert order: row of each
     # assignment (t, k) in the buffer, then its gated output
-    row_of = torch.empty_like(dest).scatter_(0, order, dest).reshape(T, K)
-    by_expert = torch.argsort(expert_idx, dim=-1)  # [T, K]
-    rows = row_of.gather(1, by_expert)
+    rows = dest[pos]
     gates = gate_k.gather(1, by_expert).to(ys.dtype)
     out = torch.zeros((T, H), dtype=x.dtype, device=x.device)
     for k in range(K):

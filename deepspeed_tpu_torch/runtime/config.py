@@ -5,7 +5,10 @@ Ported: the batch-size triangle (train_batch_size = micro_batch *
 grad_accum * dp_world_size), the ``fp16``, ``bf16``, ``optimizer`` and
 ``scheduler`` blocks, ``zero_optimization.stage`` (0 and 1: on one device
 stage 1 is the same math as stage 0), ``gradient_clipping``,
-``data_types.grad_accum_dtype``, ``seed`` and ``steps_per_print``.
+``data_types.grad_accum_dtype``, ``seed``, ``steps_per_print`` and the
+``activation_checkpointing`` block, which configures
+``runtime/activation_checkpointing/checkpointing.py`` when present (its
+``cpu_checkpointing`` raises, naming #14).
 
 A block that turns on something the port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it; a block
@@ -98,6 +101,20 @@ class OptimizerConfig(ConfigModel):
 
 
 @dataclasses.dataclass
+class ActivationCheckpointingConfig(ConfigModel):
+    """The JAX config's block, field for field; ``policy`` is a remat
+    policy name of ``checkpointing.POLICY_MAP``."""
+
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: str = "nothing_saveable"
+
+
+@dataclasses.dataclass
 class SchedulerConfig(ConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -159,6 +176,7 @@ class DeepSpeedConfig:
     zero_config: ZeroConfig
     optimizer: OptimizerConfig
     scheduler: SchedulerConfig
+    activation_checkpointing: ActivationCheckpointingConfig
     gradient_accumulation_dtype: str
 
     def __init__(self, config: Any, dp_world_size: Optional[int] = None):
@@ -191,6 +209,12 @@ class DeepSpeedConfig:
             {"stage": (g("zero_optimization") or {}).get("stage", 0)})
         self.optimizer = OptimizerConfig.from_dict(g("optimizer"))
         self.scheduler = SchedulerConfig.from_dict(g("scheduler"))
+        self.activation_checkpointing = ActivationCheckpointingConfig.from_dict(
+            g("activation_checkpointing"))
+        if g("activation_checkpointing") is not None:
+            from .activation_checkpointing import checkpointing
+
+            checkpointing.configure(deepspeed_config=self)
 
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")

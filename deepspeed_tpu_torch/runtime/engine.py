@@ -35,7 +35,7 @@ import torch
 
 from ..accelerator import DeviceLike, resolve_device
 from ..models.convert import adopt_params
-from ..models.transformer import ROADMAP_MOE_TRAIN, ParamTree
+from ..models.transformer import ParamTree
 from ..utils.logging import logger
 from .config import DeepSpeedConfig
 from .lr_schedules import LRSchedulerShim, get_schedule
@@ -103,9 +103,6 @@ class DeepSpeedTPUEngine:
         self.config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
         self.config.resolve_batch_size(1)
         self.model: ModelSpec = as_model_spec(model)
-        if getattr(self.model.config, "moe_experts", 0) > 0:
-            raise NotImplementedError(f"training an MoE model is not ported yet "
-                                      f"({ROADMAP_MOE_TRAIN})")
         self.compute_dtype = self.config.compute_dtype
         self.grad_accum_dtype = _ACC_DTYPES[self.config.gradient_accumulation_dtype]
         self.fp16_enabled = self.config.fp16.enabled

@@ -204,23 +204,35 @@ def test_init_shapes_match_jax_tree():
 
 
 def test_not_ported_model_features_raise():
-    """Post-norm models do not build; MoE models build and serve but do not
-    train (no grouped-matmul backward yet)."""
+    """Post-norm models do not build."""
     cfg = tt.TransformerConfig(vocab_size=32, hidden_size=16, n_layers=1, n_heads=2,
                                post_norm=True)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #10c"):
         tt.init_transformer_params(cfg, torch.Generator(), "cpu")
-    model = tmixtral.mixtral_model("tiny", max_seq_len=32)
+
+
+@pytest.mark.parametrize("drop", [True, False])
+def test_mixtral_trains_through_loss_and_initialize(drop):
+    """MoE models train: causal_lm_loss and the model's loss_fn give a
+    finite loss with a gradient for every leaf (the aux loss included),
+    and initialize -> train_batch takes a step on the CPU."""
+    model = tmixtral.mixtral_model("tiny", max_seq_len=32, moe_drop_tokens=drop)
     tp = model.init_params(torch.Generator().manual_seed(0), "cpu")
-    ids = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        tt.causal_lm_loss(model.config, tp, ids)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        model.loss_fn(tp, ids, None)
+    for p in tp.parameters():
+        p.requires_grad_(True)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 8)))
+    loss = tt.causal_lm_loss(model.config, tp, ids)
+    assert torch.equal(loss, model.loss_fn(tp, ids, None)) and torch.isfinite(loss)
+    loss.backward()
+    assert all(p.grad is not None and bool(p.grad.abs().sum() > 0) for p in tp.parameters())
     import deepspeed_tpu_torch
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #10a"):
-        deepspeed_tpu_torch.initialize(model=model, config={}, device="cpu")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config={"train_micro_batch_size_per_gpu": 2,
+                             "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}},
+        device="cpu")
+    first = float(engine.train_batch(ids[None]))
+    assert np.isfinite(first) and int(engine.state.step) == 1
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -353,8 +365,10 @@ def test_pick_attn_and_training_options():
             tt._pick_attn(dataclasses.replace(cfg, attn_impl=impl), torch.device("cpu"))
     tp = tllama.llama_model(config=cfg).init_params(torch.Generator().manual_seed(0), "cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.transformer_forward(dataclasses.replace(cfg, remat=True), tp, ids)
+    # remat runs, and changes no number
+    for a, b in zip(tt.transformer_forward(dataclasses.replace(cfg, remat=True), tp, ids),
+                    tt.transformer_forward(cfg, tp, ids)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="dropout"):
         tt.transformer_forward(dataclasses.replace(cfg, dropout=0.1), tp, ids)
 

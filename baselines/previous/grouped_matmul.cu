@@ -1,11 +1,16 @@
-// Grouped (block-diagonal) expert matmul for Hopper (sm_90a), plain C interface for ctypes.
+// Grouped (block-diagonal) expert matmul for Hopper (sm_90a) and its two
+// backward products, plain C interface for ctypes.
 //
-// Replaces the Pallas TPU kernel deepspeed_tpu/ops/pallas/grouped_matmul.py
+// G replaces the Pallas TPU kernel deepspeed_tpu/ops/pallas/grouped_matmul.py
 // :_gmm_kernel (via grouped_matmul): the three expert matmuls of every
 // dropless MoE layer (moe/sharded_moe.py _expert_ffn_blocks), three launches
-// per layer on every prefill, prefill-chunk and decode call.
+// per layer on every prefill, prefill-chunk, decode and training call.  G'
+// (grouped dX) and G'' (per-expert dW) are its backward, which the JAX
+// package leaves to XLA's autodiff of the einsum branch: three of each per
+// MoE layer per training micro-step (ops/grouped_matmul.py's autograd
+// Function).
 //
-// What it computes, for x [P, H] (rows sorted by expert and padded so that
+// What G computes, for x [P, H] (rows sorted by expert and padded so that
 // every block of block_rows rows belongs to one expert), stacked expert
 // weights w [E, H, F] and block_expert [P / block_rows] int32:
 //   out[r, :] = x[r, :] @ w[block_expert[r / block_rows]]
@@ -13,19 +18,30 @@
 // x_f32 @ w_f32 per block.  Products of bf16 or fp16 operands are exact in
 // fp32, so the tensor-core path differs from it in summation order only.
 // An expert index outside [0, E) is clamped (the router never makes one).
+// G':  dx[r, :] = dy[r, :] @ w[block_expert[r / block_rows]]^T, the same
+//      kernels with w read K-contiguous (template flag TW), so no transposed
+//      copy of the expert weights is ever made.
+// G'': dw[e] = sum over the blocks b of expert e of x_b^T @ dy_b, one block
+//      of threads per output tile of one expert, walking that expert's
+//      blocks in ascending order and writing once: no atomics, so G'' is
+//      bit-reproducible.
 //
 // What bounds it on the H100, at Mixtral-8x7b's widths (H 4096, F 14336):
 // decode (P = 1152: 16 assignments padded into 9 blocks of 128 rows, most
 // of them zero) is bound by the bytes of the expert weights, ~7-8 distinct
 // 117 MB matrices per call, ~0.28 ms at 3.35 TB/s; prefill of a 1024-token
 // bucket (P = 3072) by the tensor cores, 361 GFLOP, 0.365 ms at 989 TFLOP/s.
+// Training (4096 tokens at top-2: 8192 routed rows) puts G, G' and G'' all
+// on the tensor cores: 962 GFLOP each, ~0.97 ms at 989 TFLOP/s.
 //
 // Rows of blocks at or past *n_used (an optional device int: the blocks that
 // hold a real row, from the router) are written as zeros without being
-// computed, which is what zero padding rows give.
+// computed, which is what zero padding rows give; G'' leaves those blocks
+// out of every sum.
 //
-// Design, bf16 and fp16, block_rows a multiple of 128 and H, F multiples of 8
-// (the main path): wgmma fed by TMA.  Row tiles of 128 rows; one block of two
+// Design of G and G', bf16 and fp16, block_rows a multiple of 128 and H,
+// F multiples of 8 (G' reads w's tiles K-major, 128 rows of n by 64 of K):
+// wgmma fed by TMA (the main path).  Row tiles of 128 rows; one block of two
 // consumer warpgroups per (run of up to two consecutive row tiles of one
 // expert, 128-column tile, K split): a block starts at every even tile and
 // at every tile whose expert differs from the one before, and takes the next
@@ -51,9 +67,13 @@
 // blocks), a 3-stage cp.async ring with 16-byte copies (per-element loads
 // where H or F are ragged), ldmatrix fragments.
 //
-// Design, fp32 (tests and references): a 64 x 64 (or 16 x 64) tile on the
+// Design of G and G', fp32 (tests and references): a 64 x 64 (or 16 x 64) tile on the
 // fp32 FMA pipes out of shared memory, 16 x 16 threads, so fp32 stays fp32
 // end to end (no TF32).
+//
+// Design of G'', bf16 and fp16, block_rows a multiple of 16, H and F of 8:
+// gmm_dw_wgmma_kernel below (x^T and dy both MN-major wgmma operands fed by
+// TMA); fp32 and the other layouts: a 64 x 64 FMA tile, gmm_dw_fma_kernel.
 
 #include "hopper.cuh"
 
@@ -154,7 +174,7 @@ __device__ __forceinline__ void zero_tile(U* out, const TileRows& tr, int n0, in
 // ---------------------------------------------------------------------------
 // mma.sync kernel (bf16, fp16 off the wgmma kernel's layouts)
 // ---------------------------------------------------------------------------
-template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, bool TW>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, 2)
 gmm_mma_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
                const int* __restrict__ block_expert, const int* __restrict__ n_used,
@@ -165,8 +185,8 @@ gmm_mma_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
   constexpr int MT = WM / 16, NT = WN / 8;             // its m16 and n8 pieces
   static_assert(MT >= 1 && NT >= 2 && NT % 2 == 0, "warp tile");
   constexpr int XS = kBK + 8;                          // padded rows: conflict-free ldmatrix
-  constexpr int WS = BN + 8;
-  constexpr int X_ELEMS = BM * XS, W_ELEMS = kBK * WS;
+  constexpr int WS = TW ? kBK + 8 : BN + 8;             // TW: w's tile [BN][kBK], K contiguous
+  constexpr int X_ELEMS = BM * XS, W_ELEMS = TW ? BN * WS : kBK * WS;
   constexpr int XCHUNKS = BM * kBK / 8, WCHUNKS = kBK * BN / 8;  // 16-byte chunks per stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sx = reinterpret_cast<uint16_t*>(smem_raw);  // [kStages][BM][XS]
@@ -202,6 +222,22 @@ gmm_mma_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < 8; ++j) dst[j] = (m < tr.m_end && k + j < H) ? src[j] : uint16_t(0);
       }
+    }
+    if constexpr (TW) {  // w[e] stored [N][K]: (k, n) at n * H + k
+      for (int c = tid; c < WCHUNKS; c += THREADS) {
+        const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
+        const int n = n0 + r, k = k0 + kc;
+        uint16_t* dst = dw + r * WS + kc;
+        if (w_vec) {  // H % 8 == 0
+          const bool ok = n < F && k < H;
+          cp_async16(dst, ok ? we + (long long)n * H + k : we, ok ? 16 : 0);
+        } else {
+          const uint16_t* src = we + (long long)n * H + k;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) dst[j] = (n < F && k + j < H) ? src[j] : uint16_t(0);
+        }
+      }
+      return;
     }
     for (int c = tid; c < WCHUNKS; c += THREADS) {
       const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
@@ -243,8 +279,13 @@ gmm_mma_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t b[NT / 2][4];  // two n8 pieces per ldmatrix
 #pragma unroll
-      for (int j2 = 0; j2 < NT / 2; ++j2)
-        ldmatrix_x4_trans(b[j2], bw + (kk + (lane & 15)) * WS + wc0 + j2 * 16 + (lane >> 4) * 8);
+      for (int j2 = 0; j2 < NT / 2; ++j2) {
+        if constexpr (TW)  // rows n, K contiguous: the fragments without a transpose
+          ldmatrix_x4(b[j2], bw + (wc0 + j2 * 16 + (lane >> 4) * 8 + (lane & 7)) * WS + kk +
+                                 ((lane >> 3) & 1) * 8);
+        else
+          ldmatrix_x4_trans(b[j2], bw + (kk + (lane & 15)) * WS + wc0 + j2 * 16 + (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         uint32_t a[4];
@@ -285,7 +326,7 @@ gmm_mma_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
 // ---------------------------------------------------------------------------
 // FMA-pipe kernel (fp32)
 // ---------------------------------------------------------------------------
-template <int BM>
+template <int BM, bool TW>
 __global__ void __launch_bounds__(256)
 gmm_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const int* __restrict__ block_expert, const int* __restrict__ n_used,
@@ -296,7 +337,9 @@ gmm_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   constexpr int XS = BM + 4;                       // padded rows of the transposed x tile
   constexpr int XE = (BM * kBKF + 255) / 256;       // x elements per thread per stage
   __shared__ __align__(16) float sx[2][kBKF][XS];   // [k][m]
-  __shared__ __align__(16) float sw[2][kBKF][BN];
+  // TW: rows padded by 4 floats, so a warp's stores down one column of K
+  // spread over 8 banks (float4 reads stay aligned)
+  __shared__ __align__(16) float sw[2][kBKF][TW ? BN + 4 : BN];
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // columns tx*4 .. +3
@@ -319,11 +362,18 @@ gmm_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int m = tr.m0 + idx / kBKF, k = k0 + idx % kBKF;
       xr[e] = (idx < BM * kBKF && m < tr.m_end && k < H) ? __ldg(x + (long long)m * H + k) : 0.f;
     }
-    const int k = k0 + w_row;
+    if constexpr (TW) {  // w[e] [N][K]: a warp reads 32 consecutive k of one n
+      const int k = k0 + (tid & 31), nb = n0 + (tid >> 5) * 8;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + w_col + j;
-      wr[j] = (k < H && n < F) ? __ldg(we + (long long)k * F + n) : 0.f;
+      for (int j = 0; j < 8; ++j)
+        wr[j] = (k < H && nb + j < F) ? __ldg(we + (long long)(nb + j) * H + k) : 0.f;
+    } else {
+      const int k = k0 + w_row;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + w_col + j;
+        wr[j] = (k < H && n < F) ? __ldg(we + (long long)k * F + n) : 0.f;
+      }
     }
   };
   auto store_stage = [&](int buf) {
@@ -333,7 +383,12 @@ gmm_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (idx < BM * kBKF) sx[buf][idx % kBKF][idx / kBKF] = xr[e];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) sw[buf][w_row][w_col + j] = wr[j];
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (TW)
+        sw[buf][tid & 31][(tid >> 5) * 8 + j] = wr[j];
+      else
+        sw[buf][w_row][w_col + j] = wr[j];
+    }
   };
 
   float acc[TM][4];
@@ -411,7 +466,7 @@ __device__ __forceinline__ int tile_expert(const WgArgs& a, int t) {
 
 // the K loop and the epilogue of NT live row tiles (1 or 2, a compile-time
 // count, so no product is issued under a branch)
-template <typename T, int NT, typename Issue>
+template <typename T, int NT, bool TW, typename Issue>
 __device__ __forceinline__ void gmm_tiles(const WgArgs& a, const T* Xs, const T* Ws,
                                           uint64_t* full, uint64_t* empty, int steps,
                                           bool issuer, Issue issue, int t0, int n0) {
@@ -434,9 +489,14 @@ __device__ __forceinline__ void gmm_tiles(const WgArgs& a, const T* Xs, const T*
     for (int j = 0; j < NT; ++j) {
       const T* Xc = Xs + (st * kWgTiles + j) * kWgX + 64 * c * kWgBK;  // this warpgroup's rows
 #pragma unroll
-      for (int kk = 0; kk < kWgBK / 16; ++kk)
-        WgmmaSSt<T, kWgBN>::run(acc[j], gmma_desc_sw<64>(Xc + kk * 16, kXLbo, kSbo),
-                                gmma_desc_sw<64>(Wc + kk * 16 * 64, kWLbo, kSbo), 1);
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        if constexpr (TW)  // w's tile [128 n][64 k], K-major like x's
+          WgmmaSS<T, kWgBN>::run(acc[j], gmma_desc_sw<64>(Xc + kk * 16, kXLbo, kSbo),
+                                 gmma_desc_sw<64>(Wc + kk * 16, kXLbo, kSbo), 1);
+        else
+          WgmmaSSt<T, kWgBN>::run(acc[j], gmma_desc_sw<64>(Xc + kk * 16, kXLbo, kSbo),
+                                  gmma_desc_sw<64>(Wc + kk * 16 * 64, kWLbo, kSbo), 1);
+      }
     }
     wg_commit();
     wg_wait<1>();  // step i - 1's products are done: its stage is free
@@ -471,7 +531,7 @@ __device__ __forceinline__ void gmm_tiles(const WgArgs& a, const T* Xs, const T*
   }
 }
 
-template <typename T>
+template <typename T, bool TW>
 __global__ void __launch_bounds__(kWgThreads, 1)
     gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap tw, const WgArgs a) {
@@ -529,15 +589,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     mbar_arrive_tx(&full[st], (uint32_t)(live * kWgX + kWgW) * 2u);
     for (int j = 0; j < live; ++j)
       tma_load_2d(Xs + (st * kWgTiles + j) * kWgX, &tx, k, (t0 + j) * kWgBM, &full[st]);
-    for (int h = 0; h < kWgBN / 64; ++h)
-      tma_load_3d(Ws + st * kWgW + h * 64 * kWgBK, &tw, n0 + 64 * h, k, e, &full[st]);
+    if constexpr (TW)  // one box of 64 K columns x 128 rows n
+      tma_load_3d(Ws + st * kWgW, &tw, k, n0, e, &full[st]);
+    else
+      for (int h = 0; h < kWgBN / 64; ++h)
+        tma_load_3d(Ws + st * kWgW + h * 64 * kWgBK, &tw, n0 + 64 * h, k, e, &full[st]);
   };
   if (issuer)
     for (int i = 0; i < min(steps, kWgAhead); ++i) issue(i);
   if (kWgTiles == 2 && live == 2)
-    gmm_tiles<T, kWgTiles>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
+    gmm_tiles<T, kWgTiles, TW>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
   else
-    gmm_tiles<T, 1>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
+    gmm_tiles<T, 1, TW>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
 }
 
 // out = the splits' partials added in split order, rounded once; rows of
@@ -588,25 +651,27 @@ int gmm_splits(int P, int H, int F, int E) {
   return max(1, min(s, 8));
 }
 
-template <typename T>
+template <typename T, bool TW>
 cudaError_t launch_wgmma(const void* x, const void* w, const int* be, const int* n_used,
                          void* out, void* part, int P, int H, int F, int E, int block_rows,
                          cudaStream_t st) {
-  // x as (H, P), boxes of 64 x 128; w as (F, H, E), boxes of 64 x 64 x 1;
-  // K past H and columns past F arrive as zeros
+  // x as (H, P), boxes of 64 x 128; w as (F, H, E), boxes of 64 x 64 x 1
+  // (TW: w[e] stored [F][H], as (H, F, E), boxes of 64 x 128 x 1); K past H
+  // and columns past F arrive as zeros
   CUtensorMap m[2];
   const cuuint64_t e = 2;
   const cuuint64_t xd[2] = {(cuuint64_t)H, (cuuint64_t)P};
   const cuuint64_t xs[1] = {(cuuint64_t)H * e};
   const cuuint32_t xb[2] = {kWgBK, kWgBM};
-  const cuuint64_t wd[3] = {(cuuint64_t)F, (cuuint64_t)H, (cuuint64_t)E};
-  const cuuint64_t ws[2] = {(cuuint64_t)F * e, (cuuint64_t)H * F * e};
-  const cuuint32_t wb[3] = {64, kWgBK, 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)(TW ? H : F), (cuuint64_t)(TW ? F : H), (cuuint64_t)E};
+  const cuuint64_t ws[2] = {(cuuint64_t)(TW ? H : F) * e, (cuuint64_t)H * F * e};
+  const cuuint32_t wb[3] = {TW ? (cuuint32_t)kWgBK : 64u, TW ? (cuuint32_t)kWgBN : (cuuint32_t)kWgBK,
+                            1};
   cudaError_t err;
   if ((err = encode_map<T>(&m[0], x, 2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
       (err = encode_map<T>(&m[1], w, 3, wd, ws, wb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
     return err;
-  static const cudaError_t attr = opt_in(gmm_wgmma_kernel<T>, kWgSmem);
+  static const cudaError_t attr = opt_in(gmm_wgmma_kernel<T, TW>, kWgSmem);
   if (attr != cudaSuccess) return attr;
   const int nk = (H + kWgBK - 1) / kWgBK;
   const int splits = part != nullptr ? gmm_splits(P, H, F, E) : 1;
@@ -616,7 +681,7 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* be, const int*
                  P, H, F, E, block_rows, per};
   const dim3 grid((unsigned)(P / kWgBM), (unsigned)((F + kWgBN - 1) / kWgBN),
                   (unsigned)used_splits);
-  gmm_wgmma_kernel<T><<<grid, kWgThreads, kWgSmem, st>>>(m[0], m[1], a);
+  gmm_wgmma_kernel<T, TW><<<grid, kWgThreads, kWgSmem, st>>>(m[0], m[1], a);
   if (used_splits > 1) {
     const cudaError_t e1 = cudaGetLastError();
     if (e1 != cudaSuccess) return e1;
@@ -631,12 +696,12 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* be, const int*
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16u == 0; }
 
-template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, bool TW>
 cudaError_t launch_mma(const void* x, const void* w, const int* be, const int* n_used, void* out,
                        int P, int H, int F, int E, int block_rows, cudaStream_t st) {
-  constexpr int XS = kBK + 8, WS = BN + 8;
-  constexpr int SMEM = kStages * (BM * XS + kBK * WS) * 2;
-  auto kern = gmm_mma_kernel<T, BM, BN, WARPS_M, WARPS_N>;
+  constexpr int XS = kBK + 8;
+  constexpr int SMEM = kStages * (BM * XS + (TW ? BN * (kBK + 8) : kBK * (BN + 8))) * 2;
+  auto kern = gmm_mma_kernel<T, BM, BN, WARPS_M, WARPS_N, TW>;
   static bool attr_set = false;  // once per instantiation and process
   if (!attr_set) {
     const cudaError_t err =
@@ -649,7 +714,7 @@ cudaError_t launch_mma(const void* x, const void* w, const int* be, const int* n
   const int col_tiles = (F + BN - 1) / BN;
   if (row_tiles > 0x7fffffffLL || col_tiles > 65535) return cudaErrorInvalidConfiguration;
   const int x_vec = (H % 8 == 0) && aligned16(x);
-  const int w_vec = (F % 8 == 0) && aligned16(w);
+  const int w_vec = ((TW ? H : F) % 8 == 0) && aligned16(w);
   const dim3 grid((unsigned)row_tiles, (unsigned)col_tiles);
   kern<<<grid, WARPS_M * WARPS_N * 32, SMEM, st>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), be, n_used,
@@ -657,7 +722,7 @@ cudaError_t launch_mma(const void* x, const void* w, const int* be, const int* n
   return cudaGetLastError();
 }
 
-template <int BM>
+template <int BM, bool TW>
 cudaError_t launch_fma(const void* x, const void* w, const int* be, const int* n_used, void* out,
                        int P, int H, int F, int E, int block_rows, cudaStream_t st) {
   const int tiles_per_block = (block_rows + BM - 1) / BM;
@@ -665,7 +730,7 @@ cudaError_t launch_fma(const void* x, const void* w, const int* be, const int* n
   const int col_tiles = (F + 63) / 64;
   if (row_tiles > 0x7fffffffLL || col_tiles > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)row_tiles, (unsigned)col_tiles);
-  gmm_fma_kernel<BM><<<grid, 256, 0, st>>>(static_cast<const float*>(x),
+  gmm_fma_kernel<BM, TW><<<grid, 256, 0, st>>>(static_cast<const float*>(x),
                                             static_cast<const float*>(w), be, n_used,
                                             static_cast<float*>(out), P, H, F, E, block_rows,
                                             tiles_per_block);
@@ -678,6 +743,296 @@ bool wgmma_layout(const void* x, const void* w, int dtype, int H, int F, int blo
          aligned16(w);
 }
 
+
+// ---------------------------------------------------------------------------
+// G'': per-expert dW = sum over the expert's row blocks of x_b^T dy_b
+// ---------------------------------------------------------------------------
+// The blocks below *n_used that belong to expert e: the first (lo), the
+// last + 1 (hi) and their count (n; lo == hi, n == 0 when there is none).
+// Each thread scans the map itself, so nothing is read on the host.  A
+// sorted map (the router's) gives n == hi - lo; blocks of other experts
+// inside [lo, hi) are skipped, so any map gives the sum over e's blocks.
+struct BlockSpan {
+  int lo, hi, n;
+};
+__device__ __forceinline__ int clamp_expert(int e, int E) { return e < 0 ? 0 : (e >= E ? E - 1 : e); }
+__device__ __forceinline__ BlockSpan expert_span(const int* __restrict__ be,
+                                                 const int* __restrict__ n_used, int n_blocks,
+                                                 int E, int e) {
+  const int nu = n_used != nullptr ? max(0, min(__ldg(n_used), n_blocks)) : n_blocks;
+  BlockSpan s{nu, nu, 0};
+  for (int b = 0; b < nu; ++b)
+    if (clamp_expert(__ldg(be + b), E) == e) {
+      if (s.n++ == 0) s.lo = b;
+      s.hi = b + 1;
+    }
+  if (s.n == 0) s.lo = s.hi = 0;
+  return s;
+}
+
+constexpr int kDwStages = 4;
+constexpr int kDwAhead = 2;
+
+template <int S>  // rows of K per step: 64, or 16 for blocks off a multiple of 64
+constexpr size_t dw_smem() {
+  return 1024 + (size_t)kDwStages * 4 * S * 64 * 2 + 2 * kDwStages * 8;
+}
+
+// wgmma kernel (bf16, fp16; block_rows a multiple of 16, H and F of 8): one
+// block of two consumer warpgroups per (128-row tile of H, 128-column tile
+// of F, expert).  Thread 0 keeps a ring of 4 stages 2 steps ahead; a step is
+// S rows of one row block: x's S x 128 columns and dy's S x 128 columns, each
+// as two 64-column boxes with TMA's 128-byte swizzle.  x^T is wgmma's A
+// operand and dy its B operand, both MN-major (M, N contiguous), so neither
+// is transposed in memory.  Warpgroup c takes rows 64 c .. 64 c + 63 of the
+// tile.  Sums in fp32 over the expert's blocks in ascending order, written
+// once in dw's type: no atomics, the same bits on every call.
+template <typename T, int S>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tdy, const int* __restrict__ be,
+                        const int* __restrict__ n_used, T* __restrict__ dw, int P, int H, int F,
+                        int E, int block_rows) {
+  constexpr int HALF = S * 64;  // elements of one 64-column box
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * 128;
+  const BlockSpan span = expert_span(be, n_used, P / block_rows, E, e);
+  const int spb = block_rows / S;
+  const int steps = span.n * spb;  // every step a product: none is issued under a branch
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x - 128 * c;
+  const int lane = tid & 31;
+  T* out = dw + (long long)e * H * F;
+  const int rw = 64 * c + 16 * (tid >> 5) + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  if (steps == 0) {  // an expert with no rows: zeros
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + rw + 8 * r;
+      if (row >= H) continue;
+      for (int q = 0; q < 16; ++q) {
+        const int col = n0 + 8 * q + cq;
+        if (col < F) *reinterpret_cast<uint32_t*>(out + (long long)row * F + col) = 0u;
+      }
+    }
+    return;
+  }
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* As = reinterpret_cast<T*>(base);       // [stages][2][S][64]: x's columns m0 ..
+  T* Bs = As + kDwStages * 2 * HALF;        // [stages][2][S][64]: dy's columns n0 ..
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kDwStages * 2 * HALF);
+  uint64_t* empty = full + kDwStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the producer walks e's blocks in ascending order: the k-th is at cur_b
+  int cur_b = span.lo - 1, cur_k = -1;
+  auto block_of = [&](int k) {
+    while (cur_k < k)
+      if (clamp_expert(__ldg(be + ++cur_b), E) == e) ++cur_k;
+    return cur_b;
+  };
+  auto issue = [&](int i) {
+    const int st = i % kDwStages;
+    if (i >= kDwStages) mbar_wait(&empty[st], (i / kDwStages - 1) & 1);
+    const int r0 = block_of(i / spb) * block_rows + (i % spb) * S;
+    mbar_arrive_tx(&full[st], (uint32_t)(4 * HALF) * 2u);
+    for (int h = 0; h < 2; ++h) {
+      tma_load_2d(As + (st * 2 + h) * HALF, &tx, m0 + 64 * h, r0, &full[st]);
+      tma_load_2d(Bs + (st * 2 + h) * HALF, &tdy, n0 + 64 * h, r0, &full[st]);
+    }
+  };
+  const bool issuer = threadIdx.x == 0;
+  if (issuer)
+    for (int i = 0; i < min(steps, kDwAhead); ++i) issue(i);
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    if (issuer && i + kDwAhead < steps) issue(i + kDwAhead);
+    const int st = i % kDwStages;
+    mbar_wait(&full[st], (i / kDwStages) & 1);
+    wg_fence();
+    const T* Ac = As + (st * 2 + c) * HALF;  // this warpgroup's 64 rows of H
+    const T* Bc = Bs + st * 2 * HALF;
+#pragma unroll
+    for (int kk = 0; kk < S / 16; ++kk)
+      WgmmaSStt<T, 128>::run(acc, gmma_desc_sw<64>(Ac + kk * 16 * 64, HALF * 2, kSbo),
+                             gmma_desc_sw<64>(Bc + kk * 16 * 64, HALF * 2, kSbo), 1);
+    wg_commit();
+    wg_wait<1>();  // step i - 1's products are done: its stage is free
+    if (i > 0) mbar_arrive(&empty[(i - 1) % kDwStages]);
+  }
+  wg_wait<0>();
+  pin(acc);
+  // rows m0 + 64 c + 16 warp + lane / 4 (+ 8), columns n0 + 8 q + 2 (lane % 4) (+ 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + rw + 8 * r;
+    if (row >= H) continue;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int col = n0 + 8 * q + cq;
+      if (col < F)
+        *reinterpret_cast<uint32_t*>(out + (long long)row * F + col) =
+            Cvt<T>::pack(acc[4 * q + 2 * r], acc[4 * q + 2 * r + 1]);
+    }
+  }
+}
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <> __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
+
+// FMA kernel (fp32, and bf16/fp16 off the wgmma kernel's layouts): a 64 x 64
+// tile of one expert's dW on the fp32 FMA pipes, 16 x 16 threads of 4 x 4;
+// steps of 32 rows of one row block (rows past the block's end as zeros).
+// Each block's product is summed on its own and then added to the total, in
+// ascending block order, as the plain version adds whole blocks: one fp32
+// sum over all of an expert's rows (~1,150 at Mixtral's training shape)
+// drifts further from it.
+template <typename T>
+__global__ void __launch_bounds__(256)
+gmm_dw_fma_kernel(const T* __restrict__ x, const T* __restrict__ dy, const int* __restrict__ be,
+                  const int* __restrict__ n_used, T* __restrict__ dw, int P, int H, int F, int E,
+                  int block_rows) {
+  constexpr int BM = 64, BN = 64, TM = 4, SR = 32;
+  __shared__ __align__(16) float sx[SR][BM];  // [row][h]
+  __shared__ __align__(16) float sd[SR][BN];  // [row][f]
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const BlockSpan span = expert_span(be, n_used, P / block_rows, E, e);
+  const int spb = (block_rows + SR - 1) / SR;
+  const int steps = (span.hi - span.lo) * spb;
+  float acc[TM][4], part[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = part[i][j] = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    const int b = span.lo + s / spb;
+    if (clamp_expert(__ldg(be + b), E) != e) continue;  // uniform across the block
+    const int r0 = b * block_rows + (s % spb) * SR;
+    const int r_end = min(r0 + SR, (b + 1) * block_rows);
+#pragma unroll
+    for (int j = 0; j < SR * BM / 256; ++j) {
+      const int idx = tid + j * 256, k = idx / BM, m = idx % BM;
+      const int r = r0 + k;
+      sx[k][m] = (r < r_end && m0 + m < H) ? to_f32(x[(long long)r * H + m0 + m]) : 0.f;
+      sd[k][m] = (r < r_end && n0 + m < F) ? to_f32(dy[(long long)r * F + n0 + m]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < SR; ++k) {
+      const float4 d4 = *reinterpret_cast<const float4*>(&sd[k][tx * 4]);
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float xv = sx[k][ty * TM + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[i][j] = fmaf(xv, dv[j], part[i][j]);
+      }
+    }
+    __syncthreads();
+    if (s % spb == spb - 1) {  // the block's product is complete: add it
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] += part[i][j];
+          part[i][j] = 0.f;
+        }
+    }
+  }
+  T* out = dw + (long long)e * H * F;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty * TM + i;
+    if (m >= H) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < F) out[(long long)m * F + n] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int S>
+cudaError_t launch_dw_wgmma(const void* x, const void* dy, const int* be, const int* n_used,
+                            void* dw, int P, int H, int F, int E, int block_rows, cudaStream_t st) {
+  // x as (H, P) and dy as (F, P), boxes of 64 columns x S rows; columns
+  // past H or F arrive as zeros
+  CUtensorMap m[2];
+  const cuuint64_t e = 2;
+  const cuuint64_t xd[2] = {(cuuint64_t)H, (cuuint64_t)P}, xs[1] = {(cuuint64_t)H * e};
+  const cuuint64_t dd[2] = {(cuuint64_t)F, (cuuint64_t)P}, ds[1] = {(cuuint64_t)F * e};
+  const cuuint32_t box[2] = {64, S};
+  cudaError_t err;
+  if ((err = encode_map<T>(&m[0], x, 2, xd, xs, box, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = encode_map<T>(&m[1], dy, 2, dd, ds, box, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
+    return err;
+  static const cudaError_t attr = opt_in(gmm_dw_wgmma_kernel<T, S>, dw_smem<S>());
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((unsigned)((H + 127) / 128), (unsigned)((F + 127) / 128), (unsigned)E);
+  gmm_dw_wgmma_kernel<T, S><<<grid, kWgThreads, dw_smem<S>(), st>>>(
+      m[0], m[1], be, n_used, static_cast<T*>(dw), P, H, F, E, block_rows);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dw_fma(const void* x, const void* dy, const int* be, const int* n_used,
+                          void* dw, int P, int H, int F, int E, int block_rows, cudaStream_t st) {
+  if ((F + 63) / 64 > 65535 || E > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)((H + 63) / 64), (unsigned)((F + 63) / 64), (unsigned)E);
+  gmm_dw_fma_kernel<T><<<grid, 256, 0, st>>>(static_cast<const T*>(x), static_cast<const T*>(dy),
+                                            be, n_used, static_cast<T*>(dw), P, H, F, E,
+                                            block_rows);
+  return cudaGetLastError();
+}
+
+// the forward (TW false: out = x @ w[e]) and G' (TW true: out = x @ w[e]^T,
+// w[e] read as stored, so "H" is K and "F" is N in the kernels' terms)
+template <bool TW>
+int gmm_launch(const void* x, const void* w, const int* be, const int* nu, void* out, void* part,
+               int dtype, int P, int K, int N, int E, int block_rows, int big_tile,
+               cudaStream_t st) {
+  if (wgmma_layout(x, w, dtype, K, N, block_rows))
+    return dtype == 1 ? (int)launch_wgmma<__nv_bfloat16, TW>(x, w, be, nu, out, part, P, K, N, E,
+                                                             block_rows, st)
+                      : (int)launch_wgmma<__half, TW>(x, w, be, nu, out, part, P, K, N, E,
+                                                      block_rows, st);
+  switch (dtype * 2 + (big_tile ? 1 : 0)) {
+    case 0: return (int)launch_fma<16, TW>(x, w, be, nu, out, P, K, N, E, block_rows, st);
+    case 1: return (int)launch_fma<64, TW>(x, w, be, nu, out, P, K, N, E, block_rows, st);
+    case 2: return (int)launch_mma<__nv_bfloat16, 16, 64, 1, 4, TW>(x, w, be, nu, out, P, K, N, E,
+                                                                     block_rows, st);
+    case 3: return (int)launch_mma<__nv_bfloat16, 128, 128, 2, 4, TW>(x, w, be, nu, out, P, K, N,
+                                                                       E, block_rows, st);
+    case 4: return (int)launch_mma<__half, 16, 64, 1, 4, TW>(x, w, be, nu, out, P, K, N, E,
+                                                              block_rows, st);
+    case 5: return (int)launch_mma<__half, 128, 128, 2, 4, TW>(x, w, be, nu, out, P, K, N, E,
+                                                                block_rows, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // the K splits dstpu_grouped_matmul takes for this layout on this card (1: no
@@ -686,6 +1041,13 @@ bool wgmma_layout(const void* x, const void* w, int dtype, int H, int F, int blo
 extern "C" int dstpu_grouped_matmul_splits(const void* x, const void* w, int dtype, int P, int H,
                                            int F, int E, int block_rows) {
   return P > 0 && wgmma_layout(x, w, dtype, H, F, block_rows) ? gmm_splits(P, H, F, E) : 1;
+}
+
+// the same for dstpu_grouped_matmul_dx (dy [P, F] and w [E, H, F]); above 1
+// the caller passes part, fp32 [splits][P][H]
+extern "C" int dstpu_grouped_matmul_dx_splits(const void* dy, const void* w, int dtype, int P,
+                                              int H, int F, int E, int block_rows) {
+  return P > 0 && wgmma_layout(dy, w, dtype, F, H, block_rows) ? gmm_splits(P, F, H, E) : 1;
 }
 
 // out [P, F] = x [P, H] @ w[block_expert[r / block_rows]] for every row r;
@@ -704,25 +1066,58 @@ extern "C" int dstpu_grouped_matmul(const void* x, const void* w, const void* bl
   if (P < 0 || H <= 0 || F <= 0 || E <= 0 || block_rows <= 0 || P % block_rows != 0)
     return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
+  return gmm_launch<false>(x, w, static_cast<const int*>(block_expert),
+                           static_cast<const int*>(n_used), out, part, dtype, P, H, F, E,
+                           block_rows, big_tile, static_cast<cudaStream_t>(stream));
+}
+
+// G': dx [P, H] = dy [P, F] @ w[block_expert[r / block_rows]]^T for every
+// row r, reading w [E, H, F] as stored (no transposed copy); rows of blocks
+// at or past *n_used are zeros and never computed.  The same kernels,
+// layouts and arguments as dstpu_grouped_matmul, with K = F and N = H.
+extern "C" int dstpu_grouped_matmul_dx(const void* dy, const void* w, const void* block_expert,
+                                       const void* n_used, void* dx, void* part, int dtype, int P,
+                                       int H, int F, int E, int block_rows, int big_tile,
+                                       void* stream) {
+  if (P < 0 || H <= 0 || F <= 0 || E <= 0 || block_rows <= 0 || P % block_rows != 0)
+    return (int)cudaErrorInvalidValue;
+  if (P == 0) return (int)cudaSuccess;
+  return gmm_launch<true>(dy, w, static_cast<const int*>(block_expert),
+                          static_cast<const int*>(n_used), dx, part, dtype, P, F, H, E,
+                          block_rows, big_tile, static_cast<cudaStream_t>(stream));
+}
+
+// G'': dw [E, H, F], dw[e] = the sum over the row blocks b < *n_used with
+// block_expert[b] == e, in ascending b, of x_b^T @ dy_b (x [P, H], dy [P,
+// F]); fp32 sums written once in dw's type, zeros for an expert with no
+// block.  bf16/fp16 with block_rows a multiple of 16, H and F multiples of 8
+// and 16-byte aligned x and dy take the wgmma kernel, the rest the FMA one.
+extern "C" int dstpu_grouped_matmul_dw(const void* x, const void* dy, const void* block_expert,
+                                       const void* n_used, void* dw, int dtype, int P, int H,
+                                       int F, int E, int block_rows, void* stream) {
+  if (P < 0 || H <= 0 || F <= 0 || E <= 0 || block_rows <= 0 || P % block_rows != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)E * H * F * (dtype == 0 ? 4 : 2);
+  if (P == 0) return (int)cudaMemsetAsync(dw, 0, bytes, st);
   const int* be = static_cast<const int*>(block_expert);
   const int* nu = static_cast<const int*>(n_used);
-  if (wgmma_layout(x, w, dtype, H, F, block_rows))
-    return dtype == 1 ? (int)launch_wgmma<__nv_bfloat16>(x, w, be, nu, out, part, P, H, F, E,
-                                                         block_rows, st)
-                      : (int)launch_wgmma<__half>(x, w, be, nu, out, part, P, H, F, E,
-                                                  block_rows, st);
-  switch (dtype * 2 + (big_tile ? 1 : 0)) {
-    case 0: return (int)launch_fma<16>(x, w, be, nu, out, P, H, F, E, block_rows, st);
-    case 1: return (int)launch_fma<64>(x, w, be, nu, out, P, H, F, E, block_rows, st);
-    case 2: return (int)launch_mma<__nv_bfloat16, 16, 64, 1, 4>(x, w, be, nu, out, P, H, F, E,
-                                                                 block_rows, st);
-    case 3: return (int)launch_mma<__nv_bfloat16, 128, 128, 2, 4>(x, w, be, nu, out, P, H, F,
-                                                                   E, block_rows, st);
-    case 4: return (int)launch_mma<__half, 16, 64, 1, 4>(x, w, be, nu, out, P, H, F, E,
-                                                          block_rows, st);
-    case 5: return (int)launch_mma<__half, 128, 128, 2, 4>(x, w, be, nu, out, P, H, F, E,
-                                                            block_rows, st);
+  const bool tc = dtype != 0 && block_rows % 16 == 0 && H % 8 == 0 && F % 8 == 0 &&
+                  aligned16(x) && aligned16(dy);
+  if (tc && block_rows % 64 == 0)
+    return dtype == 1 ? (int)launch_dw_wgmma<__nv_bfloat16, 64>(x, dy, be, nu, dw, P, H, F, E,
+                                                                block_rows, st)
+                      : (int)launch_dw_wgmma<__half, 64>(x, dy, be, nu, dw, P, H, F, E,
+                                                         block_rows, st);
+  if (tc)
+    return dtype == 1 ? (int)launch_dw_wgmma<__nv_bfloat16, 16>(x, dy, be, nu, dw, P, H, F, E,
+                                                                block_rows, st)
+                      : (int)launch_dw_wgmma<__half, 16>(x, dy, be, nu, dw, P, H, F, E,
+                                                         block_rows, st);
+  switch (dtype) {
+    case 0: return (int)launch_dw_fma<float>(x, dy, be, nu, dw, P, H, F, E, block_rows, st);
+    case 1: return (int)launch_dw_fma<__nv_bfloat16>(x, dy, be, nu, dw, P, H, F, E, block_rows, st);
+    case 2: return (int)launch_dw_fma<__half>(x, dy, be, nu, dw, P, H, F, E, block_rows, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the port's wgmma kernels (sm_90a):
 // mbarriers, TMA copies, wgmma descriptors and the m64nNk16 wrappers, and the
 // host's tensor-map encoder.  Included by csrc/flash_attention_fwd.cu (kernel
-// A), csrc/flash_attention_bwd.cu (A', A''), csrc/grouped_matmul.cu (G),
+// A), csrc/flash_attention_bwd.cu (A', A''), csrc/grouped_matmul.cu (G, G', G''),
 // csrc/wq_matmul.cu (W), csrc/evoformer_attn.cu (E, E', E'') and
 // csrc/sparse_attention.cu (S);
 // each is its own library, so everything here has internal linkage.
@@ -242,12 +242,15 @@ __device__ __forceinline__ void pack_a_lo(uint32_t (&f)[N / 16][4], const float 
 
 // m64nNk16, fp32 accumulators, at the widths the kernels use.  SS: A and B
 // K-major in shared memory.  SSt: A K-major, B MN-major (N contiguous, as a
-// row-major [k][n] weight), both in shared memory.  RS: A from registers, B
+// row-major [k][n] weight), both in shared memory.  SStt: A and B both
+// MN-major (A's M contiguous, as a [k][m] matrix read transposed, and B's N
+// contiguous), both in shared memory.  RS: A from registers, B
 // MN-major in shared memory.  d += A B, or d = A B when acc is 0 (a
 // runtime predicate: it starts new sums without an instruction that zeroes
 // the accumulators inside a loop, which made ptxas serialize the wgmma).
 template <typename T, int N> struct WgmmaSS;
 template <typename T, int N> struct WgmmaSSt;
+template <typename T, int N> struct WgmmaSStt;
 template <typename T, int N> struct WgmmaRS;
 template <> struct WgmmaSS<__nv_bfloat16, 32> {
   __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
@@ -303,6 +306,23 @@ template <> struct WgmmaSSt<__nv_bfloat16, 128> {
         "%40, %41, %42, %43, %44, %45, %46, %47,\n"
         "%48, %49, %50, %51, %52, %53, %54, %55,\n"
         "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaSStt<__nv_bfloat16, 128> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(acc));
   }
@@ -557,6 +577,23 @@ template <> struct WgmmaSSt<__half, 128> {
         "%40, %41, %42, %43, %44, %45, %46, %47,\n"
         "%48, %49, %50, %51, %52, %53, %54, %55,\n"
         "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaSStt<__half, 128> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(acc));
   }

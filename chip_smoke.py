@@ -188,14 +188,20 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     memory below the 2.42 GB of the scores;
 21. kernels G' and G'' (the grouped matmul's backward: grouped dX and
     per-expert dW) against their plain versions computed in fp32
-    (``GMM_TOL``) at Mixtral-8x7b's training layout (4096 tokens at top-2
-    through the router, P = 9216; gate/up and down; bf16 timed beside
-    their bound, their plain versions and ``torch._grouped_mm``, the 3-D
-    form for dX and the 2-D x 2-D form grouped along K for dW), fp16 and
-    fp32, block_rows 64 and 16, an expert with no rows in a non-monotone
-    map, ``n_used`` below the block count, ragged H and F; every output
-    bit-equal across two calls, and the router's ``n_used`` giving the bits
-    of the whole buffer;
+    (``GMM_TOL``) at Mixtral-8x7b's and Mixtral-8x160m's training layouts
+    (4096 tokens at top-2 through the router, P = 9216; gate/up and down;
+    bf16 timed beside their bound, their plain versions and
+    ``torch._grouped_mm``, the 3-D form for dX and the 2-D x 2-D form
+    grouped along K for dW, and in rounds of turns with the parent's
+    build) and at a small batch (512 tokens, P = 2048, where the parent
+    split G''s K and G' splits none), fp16 and fp32, block_rows 64 and 16,
+    an expert with no rows in a non-monotone map, ``n_used`` below the
+    block count and 0, ragged H and F, an odd count of 128-row tiles of H
+    and of 128-column tiles of F, an odd run of tiles at the last expert,
+    experts alternating (more runs than G''s slots) at K 1024, 192 and
+    128; every output bit-equal across two calls and to the parent's build
+    (G' where the parent split no K), and the router's ``n_used`` giving
+    the bits of the whole buffer;
 22. MoE training: ``initialize`` -> ``train_batch`` on Mixtral 8x160m at
     full width and depth (bf16, dropless, seq 1024, micro-batch 4, the
     bench's ds-config without telemetry), 8 steps on one seeded batch (the
@@ -321,9 +327,7 @@ class Baseline:
         sigs = {"flash_attention_fwd": fa._SIG, "flash_attention_bwd": fa._BWD_SIG,
                 "paged_attention": pa._SIG, "sparse_attention": sa._SIG,
                 "wq_matmul": wq._SIG, "evoformer_attn": ev._SIG, "grouped_matmul": gm._SIG}
-        # the parent's grouped_matmul has G only (G' and G'' are new)
-        prev_sigs = {**sigs, "grouped_matmul": gm._FWD_SIG}
-        self.libs = {n: op_builder.load(n + "_previous", prev_sigs[n]) for n in BASELINE_KERNELS}
+        self.libs = {n: op_builder.load(n + "_previous", sigs[n]) for n in BASELINE_KERNELS}
         for n in BASELINE_KERNELS:  # today's, loaded before any swap
             op_builder.load(n, sigs[n])
 
@@ -2497,6 +2501,8 @@ def moe_parity_phase():
 #: Mixtral-8x7b's training layout: 4096 tokens (seq 1024 x micro-batch 4)
 #: at top-2 in the router's padded layout, P = (8192 / 128 + 8) x 128 rows
 MIXTRAL_TRAIN_TOKENS = 4096
+#: Mixtral 8x160m's widths (deepspeed_tpu/models/mixtral.py:20): hidden, ffn
+MIXTRAL_8X160M_H, MIXTRAL_8X160M_F = 768, 2048
 
 
 def _gmm_bwd_inputs(name, P, H, F, block_rows, dtype, E, routed_tokens, order, n_used_blocks,
@@ -2530,15 +2536,26 @@ def _gmm_bwd_inputs(name, P, H, F, block_rows, dtype, E, routed_tokens, order, n
 
 
 def gmm_bwd_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_tokens=None,
-                 order=None, n_used_blocks=None, timed=False, seed=0):
+                 order=None, n_used_blocks=None, timed=False, rounds=5, seed=0):
     """Kernels G' (dx = dy w[e]^T) and G'' (dw[e] = sum of x_b^T dy_b)
     against their plain versions computed in fp32 on the same inputs
-    (``GMM_TOL``), each bit-equal across two calls; with the router's
-    ``n_used``, the same bits as without it (the padding is zeros)."""
+    (``GMM_TOL``), each bit-equal across two calls and to the parent's
+    build, G' where the parent split no K (its K-split kernel added fp32
+    partials in split order; G' splits none); with the router's
+    ``n_used``, the same bits as without it (the padding is zeros).
+    ``timed``: each beside its bound, its plain version and
+    ``torch._grouped_mm``, and in ``rounds`` rounds of turns with the
+    parent's build."""
     x, w, dy, be, n_used = _gmm_bwd_inputs(name, P, H, F, block_rows, dtype, E, routed_tokens,
                                            order, n_used_blocks, seed)
-    dx = gm.grouped_matmul_dx(dy, w, be, block_rows, n_used)
-    dw = gm.grouped_matmul_dw(x, dy, be, E, block_rows, n_used)
+
+    def new_dx():
+        return gm.grouped_matmul_dx(dy, w, be, block_rows, n_used)
+
+    def new_dw():
+        return gm.grouped_matmul_dw(x, dy, be, E, block_rows, n_used)
+
+    dx, dw = new_dx(), new_dw()
     dx_ref = gm.grouped_matmul_dx_plain(dy.float(), w.float(), be, block_rows, n_used)
     dw_ref = gm.grouped_matmul_dw_plain(x.float(), dy.float(), be, E, block_rows, n_used)
     torch.cuda.synchronize()
@@ -2561,6 +2578,17 @@ def gmm_bwd_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_token
     check(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
           f"gmm bwd {name}: outputs differ between two calls")
     rec["bit_equal_across_calls"] = True
+    if BASE is not None:  # the parent's build of G' and G'' on the same inputs
+        prev = (BASE.swapped("grouped_matmul", new_dx), BASE.swapped("grouped_matmul", new_dw))
+        rec["dx_previous_splits"] = BASE.libs["grouped_matmul"].dstpu_grouped_matmul_dx_splits(
+            dy.data_ptr(), w.data_ptr(), gm.op_builder.dtype_code(dtype), P, H, F, E,
+            block_rows)
+        if rec["dx_previous_splits"] > 1:  # other partial sums: G'' alone is compared
+            torch.cuda.synchronize()
+            rec["dx_bit_equal_to_previous"] = torch.equal(prev[0], dx)
+            same_as_previous(rec, f"gmm bwd {name}", prev[1:], (dw,))
+        else:
+            same_as_previous(rec, f"gmm bwd {name}", prev, (dx, dw))
     live_be = be if n_used is None else be[:int(n_used.item())]
     empty = [e for e in range(E) if not bool((live_be == e).any())]
     if empty:
@@ -2589,12 +2617,19 @@ def gmm_bwd_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_token
         dw_bytes = (rows * (H + F) + E * H * F) * item + be.numel() * 4
         offs = grouped_mm_offs(be, E, block_rows)
         for what, fn, nbytes, lib in (
-                ("dx", lambda: gm.grouped_matmul_dx(dy, w, be, block_rows, n_used), dx_bytes,
+                ("dx", new_dx, dx_bytes,
                  lambda: torch._grouped_mm(dy, w.transpose(1, 2), offs=offs)),
-                ("dw", lambda: gm.grouped_matmul_dw(x, dy, be, E, block_rows, n_used),
-                 dw_bytes, lambda: torch._grouped_mm(x.t(), dy, offs=offs))):
+                ("dw", new_dw, dw_bytes, lambda: torch._grouped_mm(x.t(), dy, offs=offs))):
             b_ms, b_by = bound(nbytes, ops, dtype)
-            ms = device_ms(fn)
+            if BASE is not None:  # in rounds of turns with the parent's build
+                rs = [turns(lambda fn=fn: BASE.swapped("grouped_matmul", fn), fn)
+                      for _ in range(rounds)]
+                rec[f"{what}_previous_ms"] = sum(r[0] for r in rs) / rounds
+                ms = sum(r[1] for r in rs) / rounds
+                rec[f"{what}_turns_prev_new_new_prev"] = [r[2] for r in rs]
+                rec[f"{what}_speedup_per_round"] = [r[0] / r[1] for r in rs]
+            else:
+                ms = device_ms(fn)
             rec.update({f"{what}_ms": ms, f"{what}_bound_ms": b_ms, f"{what}_bound_by": b_by,
                         f"{what}_bound_share": b_ms / ms, f"{what}_bytes": nbytes})
             try:  # the yardstick only: the port never calls it
@@ -2613,17 +2648,35 @@ def gmm_bwd_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_token
 
 
 def gmm_bwd_phase(gm):
-    """Kernels G' and G'' at Mixtral-8x7b's training shapes (4096 tokens at
-    top-2 in the router's layout, P = 9216; gate/up and down; timed in
-    bf16) and the corners: fp16 and fp32, block_rows 64 and 16, an expert
-    with no rows in a non-monotone map, n_used below the block count with
-    random rows past it, ragged H and F."""
+    """Kernels G' and G'' at Mixtral-8x7b's and Mixtral-8x160m's training
+    shapes (4096 tokens at top-2 in the router's layout, P = 9216; gate/up
+    and down; timed in bf16), at a small batch's (512 tokens, P = 2048,
+    where the parent split G''s K; timed) and the corners: fp16 and fp32,
+    block_rows 64 and 16, an expert with no rows in a non-monotone map,
+    n_used below the block count with random rows past it and n_used 0,
+    ragged H and F, an odd count of 128-row tiles of H (a cluster's second
+    block past H in G'', past N in G'), an odd count of 128-column tiles
+    of F, an odd run of tiles starting at an odd tile at the last expert,
+    more runs than G''s grid has slots (experts alternating), the last two
+    with K of 192 and 128 (fewer K steps than G''s ring has stages, so a
+    block's second run meets stages its first released)."""
     bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
     H, F, T = MIXTRAL_H, MIXTRAL_F, MIXTRAL_TRAIN_TOKENS
     P = (-(-2 * T // 128) + MIXTRAL_E) * 128
+    t_s = 512  # a small batch: micro-batch 1 at seq 512
+    p_s = (-(-2 * t_s // 128) + MIXTRAL_E) * 128
+    h_s, f_s = MIXTRAL_8X160M_H, MIXTRAL_8X160M_F
     return [
         gmm_bwd_case(gm, f"train_up_p{P}", P, H, F, 128, bf16, routed_tokens=T, timed=True),
         gmm_bwd_case(gm, f"train_down_p{P}", P, F, H, 128, bf16, routed_tokens=T, timed=True),
+        gmm_bwd_case(gm, f"train_8x160m_up_p{P}", P, h_s, f_s, 128, bf16, routed_tokens=T,
+                     timed=True),
+        gmm_bwd_case(gm, f"train_8x160m_down_p{P}", P, f_s, h_s, 128, bf16, routed_tokens=T,
+                     timed=True),
+        gmm_bwd_case(gm, f"train_up_p{p_s}", p_s, H, F, 128, bf16, routed_tokens=t_s,
+                     timed=True),
+        gmm_bwd_case(gm, f"train_8x160m_up_p{p_s}", p_s, h_s, f_s, 128, bf16,
+                     routed_tokens=t_s, timed=True),
         gmm_bwd_case(gm, f"train_up_p{P}_fp16", P, H, F, 128, fp16, routed_tokens=T),
         gmm_bwd_case(gm, f"train_down_p{P}_fp32", P, F, H, 128, fp32, routed_tokens=T),
         gmm_bwd_case(gm, "train_up_br64_bf16", (-(-2 * T // 64) + MIXTRAL_E) * 64, H, F, 64,
@@ -2641,6 +2694,20 @@ def gmm_bwd_phase(gm):
         gmm_bwd_case(gm, "ragged_f100_bf16", 1152, H, 100, 128, bf16),
         gmm_bwd_case(gm, "ragged_h1003_f200_br16_fp16", 256, 1003, 200, 16, fp16),
         gmm_bwd_case(gm, "ragged_h1003_f200_br16_fp32", 256, 1003, 200, 16, fp32),
+        gmm_bwd_case(gm, "h640_odd_row_tiles_bf16", 1152, 640, 2048, 128, bf16, E=4,
+                     order=[0, 0, 1, 2, 2, 3, 3, 3, 1]),
+        gmm_bwd_case(gm, "f640_odd_col_tiles_fp16", 1152, 1024, 640, 128, fp16,
+                     order=[0, 1, 1, 2, 3, 4, 4, 6, 7]),
+        gmm_bwd_case(gm, "odd_run_at_last_expert_bf16", 1152, 1024, 1024, 128, bf16, E=4,
+                     order=[0, 0, 0, 1, 1, 2, 2, 3, 3]),
+        gmm_bwd_case(gm, "n_used_0_bf16", 1152, 1024, 2048, 128, bf16, E=4,
+                     order=[0, 1, 1, 2, 2, 3, 3, 3, 3], n_used_blocks=0),
+        gmm_bwd_case(gm, "alternating_experts_e2_bf16", 2560, 512, 1024, 128, bf16, E=2,
+                     order=[0, 1] * 10),
+        gmm_bwd_case(gm, "alternating_experts_e2_k192_bf16", 2560, 512, 192, 128, bf16, E=2,
+                     order=[0, 1] * 10),
+        gmm_bwd_case(gm, "alternating_experts_e4_h640_k128_bf16", 2560, 640, 128, 128, bf16,
+                     E=4, order=[0, 1, 2, 3] * 5),
     ]
 
 
@@ -2736,7 +2803,7 @@ def moe_train_phase(fa, fadam, gm):
     rec1["profile"] = profile_window(
         lambda: run1.train_batch(batch), 1, top_n=12,
         groups={"grouped_matmul": "gmm_wgmma_kernel<__nv_bfloat16, false>",
-                "grouped_matmul_dx": "gmm_wgmma_kernel<__nv_bfloat16, true>",
+                "grouped_matmul_dx": "gmm_dx_wgmma_kernel",
                 "grouped_matmul_dw": "gmm_dw_", "flash": "flash_", "fused_adam": "adam"})
     del run1
     out = {"run1": rec1}
@@ -3682,10 +3749,11 @@ def main() -> int:
            "bound_by": main_bwd_gmm[f"{w}_bound_by"],
            "bound_share": main_bwd_gmm[f"{w}_bound_share"],
            "library_ms": main_bwd_gmm[f"{w}_library_ms"], "library": "torch._grouped_mm",
+           "previous_ms": main_bwd_gmm.get(f"{w}_previous_ms"),
            "shape": bwd_gmm_shape,
            "timed_cases": timed(gmm_bwd, (f"{w}_ms", f"{w}_plain_ms", f"{w}_bound_ms",
                                           f"{w}_bound_by", f"{w}_library_ms",
-                                          f"{w}_bound_share"))}
+                                          f"{w}_bound_share", f"{w}_previous_ms"))}
           for w, mark in (("dx", "'"), ("dw", "''"))),
         {"name": "sparse_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
@@ -3798,7 +3866,8 @@ def main() -> int:
         "run1_profile": moe_train["run1"]["profile"],
         "run2_bit_equal": moe_train["run2_bit_equal"], "moe_train_parity": mtpar,
         "gmm_bwd": {r["case"]: {k: r.get(k) for k in ("dx_max_abs_err", "dw_max_abs_err",
-                                                       "dx_ms", "dw_ms")} for r in gmm_bwd},
+                                                       "dx_ms", "dw_ms", "dx_previous_ms",
+                                                       "dw_previous_ms")} for r in gmm_bwd},
         "card": smi}))
     print(json.dumps({"evo_summary": {"train": evo_train, "cases": {r["case"]: {
         k: r[k] for k in ("max_abs_err", "bwd_max_abs_err") if k in r} for r in evo}},

@@ -50,6 +50,38 @@ def test_plain_matches_jax(impl, block_rows, dt):
                                atol=atol, rtol=rtol)
 
 
+#: the layouts the backward's cluster kernels pair and tile differently
+#: (chip_smoke.py phase 21) through the forward, as (H, F, block_rows,
+#: block -> expert map over 4 experts): an odd count of 128-row tiles of H,
+#: an odd count of 128-column tiles of F, an odd run of tiles starting at an
+#: odd tile at the last expert, two experts alternating, also with an F
+#: (G''s K) of three steps of 64
+CORNERS = {"h384_odd_row_tiles": (384, 256, 8, (0, 0, 1, 3, 3)),
+           "f384_odd_col_tiles": (128, 384, 8, (0, 2, 2, 3, 1)),
+           "odd_run_at_last_expert": (32, 48, 128, (0, 0, 0, 1, 1, 2, 2, 3, 3, 3)),
+           "alternating_experts": (32, 48, 8, (0, 1) * 6),
+           "alternating_experts_f192": (32, 192, 8, (0, 1) * 6)}
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("corner", sorted(CORNERS))
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_plain_matches_jax_at_backward_kernel_corners(impl, corner, dt):
+    H, F, block_rows, order = CORNERS[corner]
+    x, w, be = _inputs(block_rows, dt, E=4, H=H, F=F, order=order, seed=2)
+    # weights at a layer's init scale, ~1/sqrt(H) (a power of two keeps them
+    # exact in bf16), so the fp32 sums stay O(1) as the limits assume
+    w = w * np.float32(2.0 ** -round(np.log2(H) / 2))
+    want = jax_gmm(jnp.asarray(x, JNP[dt]), jnp.asarray(w, JNP[dt]), jnp.asarray(be),
+                   block_rows=block_rows, impl=impl)
+    got = gm.grouped_matmul_plain(torch.from_numpy(x).to(TORCH[dt]),
+                                  torch.from_numpy(w).to(TORCH[dt]), torch.from_numpy(be),
+                                  block_rows=block_rows)
+    atol, rtol = TOL[dt]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
 def test_plain_gathers_in_chunks_like_one_einsum(monkeypatch):
     """More blocks than ``PLAIN_BLOCKS_PER_CHUNK``: the chunked gather gives
     what one gather of every block gives."""

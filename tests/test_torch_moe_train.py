@@ -65,6 +65,18 @@ def _rounded(a, dt):
 #: expert 1 holding no row, a non-monotone map, and one expert everywhere
 ORDERS = {"sorted_no_rows_e1": (0, 0, 2, 3, 3, 3), "nonmonotone": (2, 0, 3, 1, 1, 0),
           "one_expert": (3, 3, 3, 3, 3, 3)}
+#: the layouts the cluster kernels G' and G'' pair and tile differently
+#: (chip_smoke.py phase 21), as (H, F, block_rows, block -> expert map):
+#: an odd count of 128-row tiles of H (a cluster's second block past H in
+#: G'' and past N in G'), an odd count of 128-column tiles of F, a run of
+#: an odd count of tiles starting at an odd tile at the last expert, and
+#: two experts alternating (more runs than G''s grid has slots), also with
+#: a K of G' (F) of three steps of 64, fewer than its ring's stages
+KERNEL_CORNERS = {"h384_odd_row_tiles": (384, 256, 16, (0, 0, 1, 3, 3)),
+                  "f384_odd_col_tiles": (128, 384, 16, (0, 2, 2, 3, 1)),
+                  "odd_run_at_last_expert": (24, 40, 128, (0, 0, 0, 1, 1, 2, 2, 3, 3, 3)),
+                  "alternating_experts": (24, 40, 16, (0, 1) * 6),
+                  "alternating_experts_k192": (24, 192, 16, (0, 1) * 6)}
 
 
 def _bwd_inputs(block_rows, dt, order, E=4, H=24, F=40, seed=0):
@@ -88,11 +100,9 @@ def _jax_vjp(x, w, dy, be, block_rows, dt, n_used=None):
     return vjp(jnp.asarray(dy, JNP[dt]))
 
 
-@pytest.mark.parametrize("dt", ["fp32", "bf16"])
-@pytest.mark.parametrize("order", sorted(ORDERS))
-@pytest.mark.parametrize("block_rows", [128, 64, 16])
-def test_backward_plain_versions_match_jax_vjp(block_rows, order, dt):
-    x, w, dy, be = _bwd_inputs(block_rows, dt, ORDERS[order])
+def _check_plain_bwd_against_jax(x, w, dy, be, block_rows, dt):
+    """G' and G'' plain on (x, w, dy, be) against jax.vjp of the einsum
+    branch (the limits of the module docstring); returns (dx, dw)."""
     jdx, jdw = _jax_vjp(x, w, dy, be, block_rows, dt)
     T = TORCH[dt]
     tw, tbe = torch.from_numpy(w).to(T), torch.from_numpy(be)
@@ -112,8 +122,42 @@ def test_backward_plain_versions_match_jax_vjp(block_rows, order, dt):
             exact[e] += xb[b].T @ gb[b]
         np.testing.assert_allclose(_np(dw), exact, atol=1e-6, rtol=2.0 ** -8)
         assert np.abs(_np(dw) - _np(jdw)).max() <= 2.0 ** -6 * np.abs(exact).max()
+    return dx, dw
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("order", sorted(ORDERS))
+@pytest.mark.parametrize("block_rows", [128, 64, 16])
+def test_backward_plain_versions_match_jax_vjp(block_rows, order, dt):
+    x, w, dy, be = _bwd_inputs(block_rows, dt, ORDERS[order])
+    _, dw = _check_plain_bwd_against_jax(x, w, dy, be, block_rows, dt)
     if order == "sorted_no_rows_e1":
         assert not dw[1].any()  # an expert with no rows: zeros
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("corner", sorted(KERNEL_CORNERS))
+def test_backward_plain_versions_match_jax_vjp_at_kernel_corners(corner, dt):
+    H, F, block_rows, order = KERNEL_CORNERS[corner]
+    x, w, dy, be = _bwd_inputs(block_rows, dt, order, H=H, F=F, seed=11)
+    _check_plain_bwd_against_jax(x, w, dy, be, block_rows, dt)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_backward_with_n_used_0_is_zeros(dt):
+    """n_used 0: every block is padding, so the forward is zeros whatever x
+    and w hold; dX and dW are zeros, as JAX gives on the masked cotangent."""
+    x, w, dy, be = _bwd_inputs(16, dt, ORDERS["nonmonotone"], seed=9)
+    jdx, jdw = _jax_vjp(x, w, dy, be, 16, dt, n_used=0)
+    T = TORCH[dt]
+    n_used = torch.tensor([0], dtype=torch.int32)
+    dx = gm.grouped_matmul_dx(torch.from_numpy(dy).to(T), torch.from_numpy(w).to(T),
+                              torch.from_numpy(be), 16, n_used)
+    dw = gm.grouped_matmul_dw(torch.from_numpy(x).to(T), torch.from_numpy(dy).to(T),
+                              torch.from_numpy(be), 4, 16, n_used)
+    assert dx.shape == x.shape and tuple(dw.shape) == w.shape
+    assert not dx.any() and not dw.any()
+    assert not np.asarray(jdx, np.float32).any() and not np.asarray(jdw, np.float32).any()
 
 
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])

@@ -18,13 +18,20 @@
 // x_f32 @ w_f32 per block.  Products of bf16 or fp16 operands are exact in
 // fp32, so the tensor-core path differs from it in summation order only.
 // An expert index outside [0, E) is clamped (the router never makes one).
-// G':  dx[r, :] = dy[r, :] @ w[block_expert[r / block_rows]]^T, the same
-//      kernels with w read K-contiguous (template flag TW), so no transposed
-//      copy of the expert weights is ever made.
-// G'': dw[e] = sum over the blocks b of expert e of x_b^T @ dy_b, one block
-//      of threads per output tile of one expert, walking that expert's
-//      blocks in ascending order and writing once: no atomics, so G'' is
+// G':  dx[r, :] = dy[r, :] @ w[block_expert[r / block_rows]]^T with w read
+//      K-contiguous as stored, so no transposed copy of the expert weights
+//      is ever made: gmm_dx_wgmma_kernel on the wgmma layouts (no K split),
+//      G's mma.sync and FMA kernels with the template flag TW on the others.
+// G'': dw[e] = sum over the blocks b of expert e of x_b^T @ dy_b, each
+//      output tile owned by one block, which walks that expert's blocks in
+//      ascending order and writes once: no atomics, so G'' is
 //      bit-reproducible.
+//
+// What bounds G' and G'' at the training layout is the bytes each block
+// brings from L2 into shared memory for its products, not HBM: 128 x 128
+// tiles per block move 12-17 GB a call.  Their design therefore shares
+// every loaded tile of dy between the two blocks of a thread-block cluster
+// (one TMA load multicast into both), and the dW tile is 128 x 256.
 //
 // What bounds it on the H100, at Mixtral-8x7b's widths (H 4096, F 14336):
 // decode (P = 1152: 16 assignments padded into 9 blocks of 128 rows, most
@@ -39,13 +46,13 @@
 // computed, which is what zero padding rows give; G'' leaves those blocks
 // out of every sum.
 //
-// Design of G and G', bf16 and fp16, block_rows a multiple of 128 and H,
-// F multiples of 8 (G' reads w's tiles K-major, 128 rows of n by 64 of K):
-// wgmma fed by TMA (the main path).  Row tiles of 128 rows; one block of two
-// consumer warpgroups per (run of up to two consecutive row tiles of one
-// expert, 128-column tile, K split): a block starts at every even tile and
-// at every tile whose expert differs from the one before, and takes the next
-// tile too when that one is odd and shares its expert.  Its K loop is
+// Design of G, bf16 and fp16, block_rows a multiple of 128 and H, F
+// multiples of 8: wgmma fed by TMA (the main path).  Row tiles of
+// 128 rows; one block of two consumer warpgroups per (run of up to two
+// consecutive row tiles of one expert, 128-column tile, K split): a block
+// starts at every even tile and at every tile whose expert differs from
+// the one before, and takes the next tile too when that one is odd and
+// shares its expert.  Its K loop is
 // k-major over both tiles, so each 64 x 128 weight tile is read once for the
 // pair; the blocks of one column tile sit side by side in the grid, so the
 // rest of a run's blocks meet the same weight tiles in L2.  Warpgroup c
@@ -71,9 +78,19 @@
 // fp32 FMA pipes out of shared memory, 16 x 16 threads, so fp32 stays fp32
 // end to end (no TF32).
 //
+// Design of G', bf16 and fp16 on G's wgmma layouts: gmm_dx_wgmma_kernel
+// below (dx^T = w[e] dy^T per run of row tiles on m64n256k16, clusters of
+// two blocks along N sharing dy's tiles, a producer warp and a 4-stage
+// ring, only the blocks of real runs, no K split: on an H100 it took as
+// long as G's K-split kernel at 512 tokens of Mixtral 8x7b, and less at
+// Mixtral 8x160m's widths, chip_smoke.py phase 21).
+//
 // Design of G'', bf16 and fp16, block_rows a multiple of 16, H and F of 8:
-// gmm_dw_wgmma_kernel below (x^T and dy both MN-major wgmma operands fed by
-// TMA); fp32 and the other layouts: a 64 x 64 FMA tile, gmm_dw_fma_kernel.
+// gmm_dw_wgmma_kernel below (a persistent grid of clusters of two blocks
+// along H sharing dy's tiles, 128 x 256 tiles on m64n256k16, x^T and dy
+// both MN-major wgmma operands fed by TMA, a producer warp keeping a
+// 4-stage ring full across tiles, 16-byte stores); fp32 and the other
+// layouts: a 64 x 64 FMA tile, gmm_dw_fma_kernel.
 
 #include "hopper.cuh"
 
@@ -466,7 +483,7 @@ __device__ __forceinline__ int tile_expert(const WgArgs& a, int t) {
 
 // the K loop and the epilogue of NT live row tiles (1 or 2, a compile-time
 // count, so no product is issued under a branch)
-template <typename T, int NT, bool TW, typename Issue>
+template <typename T, int NT, typename Issue>
 __device__ __forceinline__ void gmm_tiles(const WgArgs& a, const T* Xs, const T* Ws,
                                           uint64_t* full, uint64_t* empty, int steps,
                                           bool issuer, Issue issue, int t0, int n0) {
@@ -489,14 +506,9 @@ __device__ __forceinline__ void gmm_tiles(const WgArgs& a, const T* Xs, const T*
     for (int j = 0; j < NT; ++j) {
       const T* Xc = Xs + (st * kWgTiles + j) * kWgX + 64 * c * kWgBK;  // this warpgroup's rows
 #pragma unroll
-      for (int kk = 0; kk < kWgBK / 16; ++kk) {
-        if constexpr (TW)  // w's tile [128 n][64 k], K-major like x's
-          WgmmaSS<T, kWgBN>::run(acc[j], gmma_desc_sw<64>(Xc + kk * 16, kXLbo, kSbo),
-                                 gmma_desc_sw<64>(Wc + kk * 16, kXLbo, kSbo), 1);
-        else
-          WgmmaSSt<T, kWgBN>::run(acc[j], gmma_desc_sw<64>(Xc + kk * 16, kXLbo, kSbo),
-                                  gmma_desc_sw<64>(Wc + kk * 16 * 64, kWLbo, kSbo), 1);
-      }
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        WgmmaSSt<T, kWgBN>::run(acc[j], gmma_desc_sw<64>(Xc + kk * 16, kXLbo, kSbo),
+                                gmma_desc_sw<64>(Wc + kk * 16 * 64, kWLbo, kSbo), 1);
     }
     wg_commit();
     wg_wait<1>();  // step i - 1's products are done: its stage is free
@@ -531,7 +543,7 @@ __device__ __forceinline__ void gmm_tiles(const WgArgs& a, const T* Xs, const T*
   }
 }
 
-template <typename T, bool TW>
+template <typename T>
 __global__ void __launch_bounds__(kWgThreads, 1)
     gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap tw, const WgArgs a) {
@@ -589,18 +601,208 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     mbar_arrive_tx(&full[st], (uint32_t)(live * kWgX + kWgW) * 2u);
     for (int j = 0; j < live; ++j)
       tma_load_2d(Xs + (st * kWgTiles + j) * kWgX, &tx, k, (t0 + j) * kWgBM, &full[st]);
-    if constexpr (TW)  // one box of 64 K columns x 128 rows n
-      tma_load_3d(Ws + st * kWgW, &tw, k, n0, e, &full[st]);
-    else
-      for (int h = 0; h < kWgBN / 64; ++h)
-        tma_load_3d(Ws + st * kWgW + h * 64 * kWgBK, &tw, n0 + 64 * h, k, e, &full[st]);
+    for (int h = 0; h < kWgBN / 64; ++h)
+      tma_load_3d(Ws + st * kWgW + h * 64 * kWgBK, &tw, n0 + 64 * h, k, e, &full[st]);
   };
   if (issuer)
     for (int i = 0; i < min(steps, kWgAhead); ++i) issue(i);
   if (kWgTiles == 2 && live == 2)
-    gmm_tiles<T, kWgTiles, TW>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
+    gmm_tiles<T, kWgTiles>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
   else
-    gmm_tiles<T, 1, TW>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
+    gmm_tiles<T, 1>(a, Xs, Ws, full, empty, steps, issuer, issue, t0, n0);
+}
+
+// ---------------------------------------------------------------------------
+// G': dx = dy w[e]^T, w read as stored (bf16, fp16; block_rows a multiple
+// of 128, H and F of 8; no K split)
+// ---------------------------------------------------------------------------
+constexpr int kDxStages = 4;
+constexpr int kDxThreads = kWgThreads + 32;  // two consumer warpgroups and a producer warp
+constexpr int kDxRows = kWgTiles * kWgBM;    // dy rows of a run's products (both tiles)
+// a band of runs holds this many bytes of dy rows (kernel comment below)
+constexpr long long kDxBand = 24LL << 20;
+constexpr size_t kDxSmem = 1024 + (size_t)kDxStages * (kWgTiles * kWgX + kWgW) * 2 + 2 * kDxStages * 8;
+constexpr int kDxPad = kWgBN + 8;  // elements of a staged dx row (16 bytes spread the banks)
+
+// the slot-th (from 0) block start of G's pairing rule in ascending tile
+// order (tiles that are even or whose expert differs from the tile
+// before's), -1 past the last; a warp's ballots over 32 tiles at a time,
+// every lane gets it
+__device__ __forceinline__ int run_start(const WgArgs& a, int n_tiles, int slot) {
+  const int lane = threadIdx.x & 31;
+  for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+    const int t = t0 + lane;
+    const bool start = t < n_tiles && ((t & 1) == 0 || tile_expert(a, t - 1) != tile_expert(a, t));
+    unsigned m = __ballot_sync(0xffffffffu, start);
+    const int n = __popc(m);
+    if (slot < n) {
+      for (int k = 0; k < slot; ++k) m &= m - 1;
+      return t0 + __ffs(m) - 1;
+    }
+    slot -= n;
+  }
+  return -1;
+}
+
+// the ring steps a run takes: its nk K steps and at least a whole ring.
+// The epilogue stages the tile over the ring's first stages, so it must
+// hold every stage: with nk < kDxStages the steps past K bring nothing and
+// only keep the producers off the stages a run before released.
+__device__ __forceinline__ int dx_ring_steps(int nk) { return max(nk, kDxStages); }
+
+// one run by the two consumer warpgroups: warpgroup c computes dx's
+// columns n0 + 64 c .. + 63 for the run's 256 rows as (w[e] dy^T), A its 64
+// rows of the step's w box, B the run's dy rows (a second tile's are
+// computed but not stored when only one is live), both K-major
+// (m64n256k16, 128 fp32 accumulators a thread): every dy row is read once
+// per warpgroup and k16.  Steps g0 .. g0 + dx_ring_steps(nk) - 1 of the
+// ring; the last kDxStages stages, so every stage, stay held until the
+// epilogue has staged the tile in the ring, transposed by stmatrix, and
+// written it out, 16 bytes a thread, a row's 256 bytes by 16 neighbouring
+// threads.
+template <typename T>
+__device__ __forceinline__ void dx_run(const WgArgs& a, T* ring, const T* Xs, const T* Ws,
+                                       uint64_t* full, uint64_t* empty, int g0, int nk, int t0,
+                                       int n0, int live) {
+  constexpr int N = kDxRows;
+  const int c = threadIdx.x / 128, w = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  auto release = [&](int g) {  // a warp's release of a stage to both blocks' producers
+    if (lane == 0) {
+      mbar_arrive_cluster(&empty[g % kDxStages], 0);
+      mbar_arrive_cluster(&empty[g % kDxStages], 1);
+    }
+  };
+  const int steps = dx_ring_steps(nk);
+  float acc[N / 2];  // a new sum at the first k16
+  for (int i = 0; i < steps; ++i) {
+    const int g = g0 + i, st = g % kDxStages;
+    mbar_wait(&full[st], (g / kDxStages) & 1);
+    if (i >= nk) continue;  // past K: the stage is only held
+    wg_fence();
+    const T* Ac = Ws + st * kWgW + 64 * c * kWgBK;  // w's rows n0 + 64 c ..
+    const T* Bc = Xs + st * kWgTiles * kWgX;        // the run's dy rows
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk)
+      WgmmaSS<T, N>::run(acc, gmma_desc_sw<64>(Ac + kk * 16, kXLbo, kSbo),
+                         gmma_desc_sw<64>(Bc + kk * 16, kXLbo, kSbo), (i | kk) != 0);
+    wg_commit();
+    wg_wait<1>();  // step g - 1's products are done: its stage is free
+    if (i > 0 && i - 1 < steps - kDxStages) release(g - 1);
+  }
+  wg_wait<0>();
+  pin(acc);
+  bar_sync(1, kWgThreads);  // every product of the run is done: the ring is free
+  // dx^T's 8 x 8 blocks (this warp's 16 columns, rows 8 q ..) transposed
+  // into D [N rows][kDxPad]: matrix j of a stmatrix is block (q + j / 2,
+  // column half j % 2)
+  T* D = ring;
+  const int mat = lane >> 3, t = lane & 7;
+#pragma unroll
+  for (int q = 0; q < N / 8; q += 2) {
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = Cvt<T>::pack(acc[4 * q + 2 * j], acc[4 * q + 2 * j + 1]);
+    stmatrix_x4_trans(D + (8 * (q + (mat >> 1)) + t) * kDxPad + 64 * c + 16 * w + 8 * (mat & 1), v);
+  }
+  bar_sync(1, kWgThreads);
+  T* out = static_cast<T*>(a.out);
+  const int cols = min(kWgBN, a.F - n0);
+  for (int i = threadIdx.x; i < live * kWgBM * (kWgBN / 8); i += kWgThreads) {
+    const int r = i / (kWgBN / 8), ch = i % (kWgBN / 8);
+    if (8 * ch < cols)
+      *reinterpret_cast<uint4*>(out + (long long)(t0 * kWgBM + r) * a.F + n0 + 8 * ch) =
+          *reinterpret_cast<const uint4*>(D + r * kDxPad + 8 * ch);
+  }
+  bar_sync(1, kWgThreads);  // D is read: the ring may be refilled
+  for (int i = steps - kDxStages; i < steps; ++i) release(g0 + i);
+}
+
+// G' on wgmma: the row tiles paired into runs as in G (up to two
+// consecutive tiles of one expert), in clusters of two blocks along N.
+// The two blocks of a cluster share a run and take columns n0 and n0 +
+// 128: each loads its own 128 x 64 box of w (K-major as stored) and one of
+// the run's two 128 x 64 dy tiles, multicast into both blocks, so a K step
+// brings 32 of its 48 KB from L2 (131 FLOP per byte).  The grid holds P /
+// 256 + E slots (the runs a sorted map can have) in bands of gridDim.x
+// slots along z, each band's column pairs along y: launched in that order,
+// the clusters take every column pair of a band (as many runs as kDxBand
+// bytes of dy rows) before the next band, so a band's dy rows stay in L2
+// while its experts' w streams past them once.  A slot's run is found on
+// the device by ballots (run_start), so nothing is read on the host and no
+// block is launched for an odd tile; the slots past the last run take
+// those a map with more runs has.  A producer warp keeps a 4-stage ring
+// full, refilling a stage once the consumer warps of both blocks have
+// released it; the two consumer warpgroups only compute (dx_run), with 128
+// accumulators a thread under the 168 registers a thread has beside a
+// producer warp.  The sums are G's: per output, fp32
+// over K in steps of 64, k16 by k16, rounded once.  Rows of tiles past
+// *n_used are zeros and never computed; a block whose columns lie past N
+// still multicasts its dy tile and writes nothing.
+template <typename T>
+__global__ void __launch_bounds__(kDxThreads, 1)
+    gmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tdy,
+                        const __grid_constant__ CUtensorMap tw, const WgArgs a) {
+  // in the kernels' terms a.H is K (the layer's F) and a.F is N (its H)
+  const int n_tiles = a.P / kWgBM;
+  const uint32_t rank = cluster_rank();
+  const int n0 = blockIdx.y * kWgBN;
+  const bool n_live = n0 < a.F;
+  const int nk = (a.H + kWgBK - 1) / kWgBK;
+  const int used = a.n_used != nullptr ? max(0, min(__ldg(a.n_used) * (a.block_rows / kWgBM), n_tiles))
+                                       : n_tiles;
+  const bool producer = threadIdx.x >= kWgThreads;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* Xs = reinterpret_cast<T*>(base);       // [stages][tiles][BM][BK], rows of 128 bytes
+  T* Ws = Xs + kDxStages * kWgTiles * kWgX;  // [stages][BN][BK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ws + kDxStages * kWgW);
+  uint64_t* empty = full + kDxStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWgThreads / 32);  // every consumer warp of both blocks
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  int g = 0;  // steps of the ring used so far
+  for (int slot = blockIdx.z * gridDim.x + blockIdx.x;; slot += gridDim.x * gridDim.z) {
+    const int t0 = run_start(a, n_tiles, slot);
+    if (t0 < 0) break;
+    const int e = tile_expert(a, t0);
+    const int nt = (!(t0 & 1) && t0 + 1 < n_tiles && tile_expert(a, t0 + 1) == e) ? 2 : 1;
+    const int live = max(0, min(nt, used - t0));  // tiles with a real row
+    if (!producer && live < nt && n_live)  // rows past the real ones: zeros
+      zero_rows16(static_cast<T*>(a.out), a.F, (t0 + live) * kWgBM, (t0 + nt) * kWgBM, n0,
+                  min(n0 + kWgBN, a.F), kWgThreads);
+    if (live == 0) continue;
+    if (producer) {
+      // step i: the live dy tiles' K columns (rank r brings tile r of the
+      // run, multicast) and this block's w box; a step past K brings nothing
+      if (threadIdx.x == kWgThreads)
+        for (int i = 0; i < dx_ring_steps(nk); ++i) {
+          const int gi = g + i, st = gi % kDxStages;
+          if (gi >= kDxStages) mbar_wait(&empty[st], (gi / kDxStages - 1) & 1);
+          if (i >= nk) {
+            mbar_arrive(&full[st]);
+            continue;
+          }
+          const int k = i * kWgBK;
+          mbar_arrive_tx(&full[st], (uint32_t)(live * kWgX + (n_live ? kWgW : 0)) * 2u);
+          if ((int)rank < live)
+            tma_load_2d_mc(Xs + (st * kWgTiles + (int)rank) * kWgX, &tdy, k,
+                           (t0 + (int)rank) * kWgBM, &full[st], 0x3);
+          if (n_live) tma_load_3d(Ws + st * kWgW, &tw, k, n0, e, &full[st]);
+        }
+    } else {
+      dx_run<T>(a, Xs, Xs, Ws, full, empty, g, nk, t0, n_live ? n0 : a.F, live);
+    }
+    g += dx_ring_steps(nk);
+  }
+  __syncwarp();
+  cluster_sync();  // no block exits while another may still signal it
 }
 
 // out = the splits' partials added in split order, rounded once; rows of
@@ -651,27 +853,71 @@ int gmm_splits(int P, int H, int F, int E) {
   return max(1, min(s, 8));
 }
 
-template <typename T, bool TW>
+// `kernel` launched in clusters of `cl` blocks of `threads` along x (dim
+// 0) or y (dim 1)
+template <typename... Exp, typename... Act>
+cudaError_t launch_cluster(void (*kernel)(Exp...), dim3 grid, int threads, int dim, int cl,
+                           size_t smem, cudaStream_t st, Act... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = dim == 0 ? cl : 1;
+  at[0].val.clusterDim.y = dim == 1 ? cl : 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// the clusters of `cl` blocks of `kernel` (smem bytes each) the card holds
+// at once: the occupancy query, else the SMs over cl
+template <typename Kernel>
+int max_clusters(Kernel kernel, int threads, size_t smem, int cl) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg) !=
+          cudaSuccess ||
+      n <= 0) {
+    (void)cudaGetLastError();
+    n = sm_count() / cl;
+  }
+  return n;
+}
+
+template <typename T>
 cudaError_t launch_wgmma(const void* x, const void* w, const int* be, const int* n_used,
                          void* out, void* part, int P, int H, int F, int E, int block_rows,
                          cudaStream_t st) {
-  // x as (H, P), boxes of 64 x 128; w as (F, H, E), boxes of 64 x 64 x 1
-  // (TW: w[e] stored [F][H], as (H, F, E), boxes of 64 x 128 x 1); K past H
-  // and columns past F arrive as zeros
+  // x as (H, P), boxes of 64 x 128; w as (F, H, E), boxes of 64 x 64 x 1;
+  // K past H and columns past F arrive as zeros
   CUtensorMap m[2];
   const cuuint64_t e = 2;
   const cuuint64_t xd[2] = {(cuuint64_t)H, (cuuint64_t)P};
   const cuuint64_t xs[1] = {(cuuint64_t)H * e};
   const cuuint32_t xb[2] = {kWgBK, kWgBM};
-  const cuuint64_t wd[3] = {(cuuint64_t)(TW ? H : F), (cuuint64_t)(TW ? F : H), (cuuint64_t)E};
-  const cuuint64_t ws[2] = {(cuuint64_t)(TW ? H : F) * e, (cuuint64_t)H * F * e};
-  const cuuint32_t wb[3] = {TW ? (cuuint32_t)kWgBK : 64u, TW ? (cuuint32_t)kWgBN : (cuuint32_t)kWgBK,
-                            1};
+  const cuuint64_t wd[3] = {(cuuint64_t)F, (cuuint64_t)H, (cuuint64_t)E};
+  const cuuint64_t ws[2] = {(cuuint64_t)F * e, (cuuint64_t)H * F * e};
+  const cuuint32_t wb[3] = {64u, (cuuint32_t)kWgBK, 1};
   cudaError_t err;
   if ((err = encode_map<T>(&m[0], x, 2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
       (err = encode_map<T>(&m[1], w, 3, wd, ws, wb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
     return err;
-  static const cudaError_t attr = opt_in(gmm_wgmma_kernel<T, TW>, kWgSmem);
+  static const cudaError_t attr = opt_in(gmm_wgmma_kernel<T>, kWgSmem);
   if (attr != cudaSuccess) return attr;
   const int nk = (H + kWgBK - 1) / kWgBK;
   const int splits = part != nullptr ? gmm_splits(P, H, F, E) : 1;
@@ -681,7 +927,7 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* be, const int*
                  P, H, F, E, block_rows, per};
   const dim3 grid((unsigned)(P / kWgBM), (unsigned)((F + kWgBN - 1) / kWgBN),
                   (unsigned)used_splits);
-  gmm_wgmma_kernel<T, TW><<<grid, kWgThreads, kWgSmem, st>>>(m[0], m[1], a);
+  gmm_wgmma_kernel<T><<<grid, kWgThreads, kWgSmem, st>>>(m[0], m[1], a);
   if (used_splits > 1) {
     const cudaError_t e1 = cudaGetLastError();
     if (e1 != cudaSuccess) return e1;
@@ -692,6 +938,38 @@ cudaError_t launch_wgmma(const void* x, const void* w, const int* be, const int*
                                                  block_rows, used_splits);
   }
   return cudaGetLastError();
+}
+
+// G' on the cluster kernel (no K split): dy as (K, P), boxes of 64 x 128;
+// w[e] stored [N][K], as (K, N, E), boxes of 64 x 128 x 1; K past its end
+// and rows past N arrive as zeros
+template <typename T>
+cudaError_t launch_dx_wgmma(const void* dy, const void* w, const int* be, const int* n_used,
+                            void* dx, int P, int K, int N, int E, int block_rows, cudaStream_t st) {
+  CUtensorMap m[2];
+  const cuuint64_t e = 2;
+  const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)P}, xs[1] = {(cuuint64_t)K * e};
+  const cuuint32_t xb[2] = {kWgBK, kWgBM};
+  const cuuint64_t wd[3] = {(cuuint64_t)K, (cuuint64_t)N, (cuuint64_t)E};
+  const cuuint64_t ws[2] = {(cuuint64_t)K * e, (cuuint64_t)K * N * e};
+  const cuuint32_t wb[3] = {kWgBK, kWgBN, 1};
+  cudaError_t err;
+  if ((err = encode_map<T>(&m[0], dy, 2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = encode_map<T>(&m[1], w, 3, wd, ws, wb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
+    return err;
+  auto kern = gmm_dx_wgmma_kernel<T>;
+  static const cudaError_t attr = opt_in(kern, kDxSmem);
+  if (attr != cudaSuccess) return attr;
+  const int n_tiles = P / kWgBM;
+  const int slots = min(n_tiles, (n_tiles + 1) / 2 + E);
+  const int pairs = (N + 2 * kWgBN - 1) / (2 * kWgBN);
+  if (pairs > 32767) return cudaErrorInvalidConfiguration;
+  const int band = (int)max(1LL, min((long long)slots, kDxBand / ((long long)kDxRows * K * 2)));
+  const int bands = (slots + band - 1) / band;
+  if (bands > 65535) return cudaErrorInvalidConfiguration;
+  const WgArgs a{be, n_used, dx, nullptr, P, K, N, E, block_rows, 0};
+  return launch_cluster(kern, dim3((unsigned)band, (unsigned)(2 * pairs), (unsigned)bands),
+                        kDxThreads, 1, 2, kDxSmem, st, m[0], m[1], a);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16u == 0; }
@@ -770,122 +1048,172 @@ __device__ __forceinline__ BlockSpan expert_span(const int* __restrict__ be,
   return s;
 }
 
+// a warp's scan of the same: 32 map entries a load, every lane gets the span
+__device__ __forceinline__ BlockSpan expert_span_warp(const int* __restrict__ be,
+                                                      const int* __restrict__ n_used, int n_blocks,
+                                                      int E, int e) {
+  const int lane = threadIdx.x & 31;
+  const int nu = n_used != nullptr ? max(0, min(__ldg(n_used), n_blocks)) : n_blocks;
+  BlockSpan s{0, 0, 0};
+  for (int b0 = 0; b0 < nu; b0 += 32) {
+    const int b = b0 + lane;
+    const unsigned m = __ballot_sync(0xffffffffu, b < nu && clamp_expert(__ldg(be + b), E) == e);
+    if (m != 0u) {
+      if (s.n == 0) s.lo = b0 + __ffs(m) - 1;
+      s.hi = b0 + 32 - __clz(m);
+      s.n += __popc(m);
+    }
+  }
+  return s;
+}
+
 constexpr int kDwStages = 4;
-constexpr int kDwAhead = 2;
+constexpr int kDwThreads = kWgThreads + 32;  // two consumer warpgroups and a producer warp
+constexpr int kDwBM = 128;  // rows of H a block takes (64 per warpgroup)
+constexpr int kDwBN = 256;  // columns of F a block takes
 
 template <int S>  // rows of K per step: 64, or 16 for blocks off a multiple of 64
 constexpr size_t dw_smem() {
-  return 1024 + (size_t)kDwStages * 4 * S * 64 * 2 + 2 * kDwStages * 8;
+  return 1024 + (size_t)kDwStages * ((kDwBM + kDwBN) * S * 2 + 2 * 8);
 }
 
-// wgmma kernel (bf16, fp16; block_rows a multiple of 16, H and F of 8): one
-// block of two consumer warpgroups per (128-row tile of H, 128-column tile
-// of F, expert).  Thread 0 keeps a ring of 4 stages 2 steps ahead; a step is
-// S rows of one row block: x's S x 128 columns and dy's S x 128 columns, each
-// as two 64-column boxes with TMA's 128-byte swizzle.  x^T is wgmma's A
-// operand and dy its B operand, both MN-major (M, N contiguous), so neither
-// is transposed in memory.  Warpgroup c takes rows 64 c .. 64 c + 63 of the
-// tile.  Sums in fp32 over the expert's blocks in ascending order, written
-// once in dw's type: no atomics, the same bits on every call.
+// wgmma kernel (bf16, fp16; block_rows a multiple of 16, H and F of 8).  A
+// persistent grid of clusters of two blocks.  A cluster's tile is 256 rows
+// of H x 256 columns of F of one expert's dw; rank r takes rows m0 + 128 r,
+// so the two share every dy tile: each loads its own x^T tile (S rows x 128
+// columns, two 64-column boxes) and half of the step's S x 256 dy tile,
+// multicast into both blocks (131 FLOP per byte brought from L2).  Clusters
+// walk the tiles expert-major (column tile, then row pair), so an expert's
+// rows stay in L2.  A producer warp keeps a 4-stage ring full across tile
+// boundaries, so the next tile's first loads land while a tile's epilogue
+// runs; it refills a stage once the consumer warps of both blocks have
+// released it (the empty barrier counts 16 warps), and the consumers only
+// compute.  x^T is wgmma's A operand and dy its B, both MN-major, so
+// neither is transposed in memory; warpgroup c takes 64 rows x 256 columns
+// (m64n256k16, 128 fp32 accumulators a thread, under the 168 registers a
+// thread has beside a producer warp).  Sums in fp32 over the expert's
+// blocks in ascending order, k16 by k16 (the same sum whatever the tile's
+// width), written once in dw's type with 16-byte stores: no atomics, the
+// same bits on every call.  Every warp, the producer's too, finds an
+// expert's blocks with the same ballots (expert_span_warp) when its tile's
+// expert changes, so the two sides of the ring count the same steps.  A block whose rows
+// lie past H (H off a multiple of 256) still multicasts its half of dy and
+// writes nothing.
 template <typename T, int S>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(kDwThreads, 1)
     gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                         const __grid_constant__ CUtensorMap tdy, const int* __restrict__ be,
                         const int* __restrict__ n_used, T* __restrict__ dw, int P, int H, int F,
                         int E, int block_rows) {
-  constexpr int HALF = S * 64;  // elements of one 64-column box
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * 128;
-  const BlockSpan span = expert_span(be, n_used, P / block_rows, E, e);
-  const int spb = block_rows / S;
-  const int steps = span.n * spb;  // every step a product: none is issued under a branch
-  const int c = threadIdx.x / 128;
-  const int tid = threadIdx.x - 128 * c;
-  const int lane = tid & 31;
-  T* out = dw + (long long)e * H * F;
-  const int rw = 64 * c + 16 * (tid >> 5) + (lane >> 2);
-  const int cq = 2 * (lane & 3);
-  if (steps == 0) {  // an expert with no rows: zeros
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + rw + 8 * r;
-      if (row >= H) continue;
-      for (int q = 0; q < 16; ++q) {
-        const int col = n0 + 8 * q + cq;
-        if (col < F) *reinterpret_cast<uint32_t*>(out + (long long)row * F + col) = 0u;
-      }
-    }
-    return;
-  }
+  constexpr int BOX = S * 64;  // elements of one 64-column box of S rows
+  const uint32_t rank = cluster_rank();
+  const int cluster = blockIdx.x / 2, n_clusters = gridDim.x / 2;
+  const int m_pairs = (H + 2 * kDwBM - 1) / (2 * kDwBM), n_tiles = (F + kDwBN - 1) / kDwBN;
+  const int per_e = m_pairs * n_tiles, tiles = E * per_e;
+  const int n_blocks = P / block_rows, spb = block_rows / S;
+  const int c = threadIdx.x / 128, lane = threadIdx.x & 31;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  T* As = reinterpret_cast<T*>(base);       // [stages][2][S][64]: x's columns m0 ..
-  T* Bs = As + kDwStages * 2 * HALF;        // [stages][2][S][64]: dy's columns n0 ..
-  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kDwStages * 2 * HALF);
+  T* As = reinterpret_cast<T*>(base);  // [stages][2][S][64]: x's columns m0 ..
+  T* Bs = As + kDwStages * 2 * BOX;    // [stages][4][S][64]: dy's columns n0 ..
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kDwStages * 4 * BOX);
   uint64_t* empty = full + kDwStages;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDwStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kWgThreads);
+      mbar_init(&empty[s], 2 * kWgThreads / 32);  // every consumer warp of both blocks
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();
 
-  // the producer walks e's blocks in ascending order: the k-th is at cur_b
-  int cur_b = span.lo - 1, cur_k = -1;
-  auto block_of = [&](int k) {
-    while (cur_k < k)
-      if (clamp_expert(__ldg(be + ++cur_b), E) == e) ++cur_k;
-    return cur_b;
+  // tile t: its expert, this block's first row of H and the first column
+  auto tile = [&](int t, int& e, int& m0, int& n0) {
+    e = t / per_e;
+    const int r = t % per_e;
+    n0 = (r / m_pairs) * kDwBN;
+    m0 = ((r % m_pairs) * 2 + (int)rank) * kDwBM;
   };
-  auto issue = [&](int i) {
-    const int st = i % kDwStages;
-    if (i >= kDwStages) mbar_wait(&empty[st], (i / kDwStages - 1) & 1);
-    const int r0 = block_of(i / spb) * block_rows + (i % spb) * S;
-    mbar_arrive_tx(&full[st], (uint32_t)(4 * HALF) * 2u);
-    for (int h = 0; h < 2; ++h) {
-      tma_load_2d(As + (st * 2 + h) * HALF, &tx, m0 + 64 * h, r0, &full[st]);
-      tma_load_2d(Bs + (st * 2 + h) * HALF, &tdy, n0 + 64 * h, r0, &full[st]);
-    }
-  };
-  const bool issuer = threadIdx.x == 0;
-  if (issuer)
-    for (int i = 0; i < min(steps, kDwAhead); ++i) issue(i);
 
-  float acc[64];
+  if (threadIdx.x >= kWgThreads) {
+    // the producer warp walks the cluster's tiles, finding each expert's
+    // blocks as the consumer warps do; its lane 0 brings, in each tile, the
+    // expert's blocks in ascending order (the k-th at b), every step into
+    // its stage once both blocks have released it
+    int g = 0, pe = -1;
+    BlockSpan span{0, 0, 0};
+    for (int t = cluster; t < tiles; t += n_clusters) {
+      int e, m0, n0;
+      tile(t, e, m0, n0);
+      if (e != pe) {
+        pe = e;
+        span = expert_span_warp(be, n_used, n_blocks, E, e);
+      }
+      if (lane == 0) {
+        const bool x_live = m0 < H;
+        for (int i = 0, b = span.lo - 1, k = -1; i < span.n * spb; ++i, ++g) {
+          const int st = g % kDwStages;
+          if (g >= kDwStages) mbar_wait(&empty[st], (g / kDwStages - 1) & 1);
+          while (k < i / spb)
+            if (clamp_expert(__ldg(be + ++b), E) == e) ++k;
+          const int r0 = b * block_rows + (i % spb) * S;
+          mbar_arrive_tx(&full[st], (uint32_t)((x_live ? 6 : 4) * BOX) * 2u);
+          if (x_live)
+            for (int h = 0; h < 2; ++h)
+              tma_load_2d(As + (st * 2 + h) * BOX, &tx, m0 + 64 * h, r0, &full[st]);
+          for (int h = 2 * (int)rank; h < 2 * (int)rank + 2; ++h)
+            tma_load_2d_mc(Bs + (st * 4 + h) * BOX, &tdy, n0 + 64 * h, r0, &full[st], 0x3);
+        }
+      }
+    }
+  } else {
+    // a warp's release of a stage to the producers of both blocks
+    auto release = [&](int g) {
+      if (lane == 0) {
+        mbar_arrive_cluster(&empty[g % kDwStages], 0);
+        mbar_arrive_cluster(&empty[g % kDwStages], 1);
+      }
+    };
+    float acc[kDwBN / 2];  // a new sum at each tile's first k16
+    int g = 0, cur_e = -1;
+    BlockSpan span{0, 0, 0};
+    for (int t = cluster; t < tiles; t += n_clusters) {
+      int e, m0, n0;
+      tile(t, e, m0, n0);
+      if (e != cur_e) {
+        cur_e = e;
+        span = expert_span_warp(be, n_used, n_blocks, E, e);
+      }
+      const int steps = span.n * spb;
+      T* out = dw + (long long)e * H * F;
+      if (steps == 0) {  // an expert with no rows: zeros
+        zero_rows16(out, F, m0, min(m0 + kDwBM, H), n0, min(n0 + kDwBN, F), kWgThreads);
+        continue;
+      }
+      for (int i = 0; i < steps; ++i, ++g) {
+        const int st = g % kDwStages;
+        mbar_wait(&full[st], (g / kDwStages) & 1);
+        wg_fence();
+        const T* Ac = As + (st * 2 + c) * BOX;  // this warpgroup's 64 rows of H
+        const T* Bc = Bs + st * 4 * BOX;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int i = 0; i < steps; ++i) {
-    if (issuer && i + kDwAhead < steps) issue(i + kDwAhead);
-    const int st = i % kDwStages;
-    mbar_wait(&full[st], (i / kDwStages) & 1);
-    wg_fence();
-    const T* Ac = As + (st * 2 + c) * HALF;  // this warpgroup's 64 rows of H
-    const T* Bc = Bs + st * 2 * HALF;
-#pragma unroll
-    for (int kk = 0; kk < S / 16; ++kk)
-      WgmmaSStt<T, 128>::run(acc, gmma_desc_sw<64>(Ac + kk * 16 * 64, HALF * 2, kSbo),
-                             gmma_desc_sw<64>(Bc + kk * 16 * 64, HALF * 2, kSbo), 1);
-    wg_commit();
-    wg_wait<1>();  // step i - 1's products are done: its stage is free
-    if (i > 0) mbar_arrive(&empty[(i - 1) % kDwStages]);
-  }
-  wg_wait<0>();
-  pin(acc);
-  // rows m0 + 64 c + 16 warp + lane / 4 (+ 8), columns n0 + 8 q + 2 (lane % 4) (+ 1)
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + rw + 8 * r;
-    if (row >= H) continue;
-#pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      const int col = n0 + 8 * q + cq;
-      if (col < F)
-        *reinterpret_cast<uint32_t*>(out + (long long)row * F + col) =
-            Cvt<T>::pack(acc[4 * q + 2 * r], acc[4 * q + 2 * r + 1]);
+        for (int kk = 0; kk < S / 16; ++kk)
+          WgmmaSStt<T, kDwBN>::run(acc, gmma_desc_sw<64>(Ac + kk * 16 * 64, BOX * 2, kSbo),
+                                   gmma_desc_sw<64>(Bc + kk * 16 * 64, BOX * 2, kSbo),
+                                   (i | kk) != 0);
+        wg_commit();
+        wg_wait<1>();  // step g - 1's products are done: its stage is free
+        if (i > 0) release(g - 1);
+      }
+      wg_wait<0>();
+      release(g - 1);
+      pin(acc);
+      store_acc16<T, kDwBN>(out, F, acc, m0 + 64 * c, H, n0, F);
     }
   }
+  __syncwarp();
+  cluster_sync();  // no block exits while the other may still signal it
 }
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -988,12 +1316,18 @@ cudaError_t launch_dw_wgmma(const void* x, const void* dy, const int* be, const 
   if ((err = encode_map<T>(&m[0], x, 2, xd, xs, box, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
       (err = encode_map<T>(&m[1], dy, 2, dd, ds, box, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
     return err;
-  static const cudaError_t attr = opt_in(gmm_dw_wgmma_kernel<T, S>, dw_smem<S>());
+  auto kern = gmm_dw_wgmma_kernel<T, S>;
+  static const cudaError_t attr = opt_in(kern, dw_smem<S>());
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((unsigned)((H + 127) / 128), (unsigned)((F + 127) / 128), (unsigned)E);
-  gmm_dw_wgmma_kernel<T, S><<<grid, kWgThreads, dw_smem<S>(), st>>>(
-      m[0], m[1], be, n_used, static_cast<T*>(dw), P, H, F, E, block_rows);
-  return cudaGetLastError();
+  // a persistent grid: as many clusters as the card holds at once, or one
+  // per tile when there are fewer
+  static const int resident = max_clusters(kern, kDwThreads, dw_smem<S>(), 2);
+  const long long tiles = (long long)E * ((H + 2 * kDwBM - 1) / (2 * kDwBM)) *
+                          ((F + kDwBN - 1) / kDwBN);
+  if (tiles > 0x3fffffffLL) return cudaErrorInvalidConfiguration;
+  const int clusters = (int)min(tiles, (long long)resident);
+  return launch_cluster(kern, dim3((unsigned)(2 * clusters)), kDwThreads, 0, 2, dw_smem<S>(), st,
+                        m[0], m[1], be, n_used, static_cast<T*>(dw), P, H, F, E, block_rows);
 }
 
 template <typename T>
@@ -1013,11 +1347,18 @@ template <bool TW>
 int gmm_launch(const void* x, const void* w, const int* be, const int* nu, void* out, void* part,
                int dtype, int P, int K, int N, int E, int block_rows, int big_tile,
                cudaStream_t st) {
-  if (wgmma_layout(x, w, dtype, K, N, block_rows))
-    return dtype == 1 ? (int)launch_wgmma<__nv_bfloat16, TW>(x, w, be, nu, out, part, P, K, N, E,
-                                                             block_rows, st)
-                      : (int)launch_wgmma<__half, TW>(x, w, be, nu, out, part, P, K, N, E,
-                                                      block_rows, st);
+  if (wgmma_layout(x, w, dtype, K, N, block_rows)) {
+    if constexpr (TW)  // G': the cluster kernel, no K split
+      return dtype == 1 ? (int)launch_dx_wgmma<__nv_bfloat16>(x, w, be, nu, out, P, K, N, E,
+                                                              block_rows, st)
+                        : (int)launch_dx_wgmma<__half>(x, w, be, nu, out, P, K, N, E,
+                                                       block_rows, st);
+    else
+      return dtype == 1 ? (int)launch_wgmma<__nv_bfloat16>(x, w, be, nu, out, part, P, K, N, E,
+                                                           block_rows, st)
+                        : (int)launch_wgmma<__half>(x, w, be, nu, out, part, P, K, N, E,
+                                                    block_rows, st);
+  }
   switch (dtype * 2 + (big_tile ? 1 : 0)) {
     case 0: return (int)launch_fma<16, TW>(x, w, be, nu, out, P, K, N, E, block_rows, st);
     case 1: return (int)launch_fma<64, TW>(x, w, be, nu, out, P, K, N, E, block_rows, st);
@@ -1043,11 +1384,11 @@ extern "C" int dstpu_grouped_matmul_splits(const void* x, const void* w, int dty
   return P > 0 && wgmma_layout(x, w, dtype, H, F, block_rows) ? gmm_splits(P, H, F, E) : 1;
 }
 
-// the same for dstpu_grouped_matmul_dx (dy [P, F] and w [E, H, F]); above 1
-// the caller passes part, fp32 [splits][P][H]
-extern "C" int dstpu_grouped_matmul_dx_splits(const void* dy, const void* w, int dtype, int P,
-                                              int H, int F, int E, int block_rows) {
-  return P > 0 && wgmma_layout(dy, w, dtype, F, H, block_rows) ? gmm_splits(P, F, H, E) : 1;
+// the same for dstpu_grouped_matmul_dx (dy [P, F] and w [E, H, F]): 1, G'
+// splits no K (asked as G is, so that one wrapper serves both)
+extern "C" int dstpu_grouped_matmul_dx_splits(const void*, const void*, int, int, int, int, int,
+                                              int) {
+  return 1;
 }
 
 // out [P, F] = x [P, H] @ w[block_expert[r / block_rows]] for every row r;
@@ -1073,8 +1414,10 @@ extern "C" int dstpu_grouped_matmul(const void* x, const void* w, const void* bl
 
 // G': dx [P, H] = dy [P, F] @ w[block_expert[r / block_rows]]^T for every
 // row r, reading w [E, H, F] as stored (no transposed copy); rows of blocks
-// at or past *n_used are zeros and never computed.  The same kernels,
-// layouts and arguments as dstpu_grouped_matmul, with K = F and N = H.
+// at or past *n_used are zeros and never computed.  The same layouts and
+// arguments as dstpu_grouped_matmul, with K = F and N = H, and no K split
+// (part unused): gmm_dx_wgmma_kernel on the wgmma layouts, G's mma.sync
+// and FMA kernels on the others.
 extern "C" int dstpu_grouped_matmul_dx(const void* dy, const void* w, const void* block_expert,
                                        const void* n_used, void* dx, void* part, int dtype, int P,
                                        int H, int F, int E, int block_rows, int big_tile,

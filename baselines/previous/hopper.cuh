@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the port's wgmma kernels (sm_90a):
-// mbarriers, TMA copies, wgmma descriptors and the m64nNk16 wrappers, and the
+// mbarriers, TMA copies (multicast into a thread-block cluster too), wgmma
+// descriptors and the m64nNk16 wrappers, epilogue stores, and the
 // host's tensor-map encoder.  Included by csrc/flash_attention_fwd.cu (kernel
 // A), csrc/flash_attention_bwd.cu (A', A''), csrc/grouped_matmul.cu (G, G', G''),
 // csrc/wq_matmul.cu (W), csrc/evoformer_attn.cu (E, E', E'') and
@@ -137,6 +138,39 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
+// thread-block clusters (launched with a cluster dimension): this block's
+// rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster: arrive (release), then wait
+// (acquire).  Before the first remote operation (after the mbarriers are
+// initialised) and before a block exits that others may still reach.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+// one arrival on the mbarrier at bar's offset in block `cta` of this
+// cluster (this block's own rank included)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+// tma_load_2d into the same offset of every block of the cluster in
+// `mask` (bit r: rank r), completing on bar's offset in each of them
+__device__ __forceinline__ void tma_load_2d_mc(void* dst, const CUtensorMap* map, int c0, int c1,
+                                               uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
 // one cp.async of N (4, 8 or 16) bytes reading src_bytes of them (N, or 0:
 // the destination is filled with zeros)
 template <int N>
@@ -206,6 +240,87 @@ template <int N> __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+// the 4 x 4 transpose of 32-bit words across the four lanes of a quad
+// (lanes 4 i .. 4 i + 3): lane j's v[k] becomes lane k's v[j], in four xor
+// shuffles.  Every lane of the warp takes part.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4]) {
+  const int l = threadIdx.x & 3;
+  const bool hi2 = l & 2, hi1 = l & 1;
+  // swap the off-diagonal 2 x 2 blocks between lanes l and l ^ 2
+  uint32_t s0 = hi2 ? v[0] : v[2], s1 = hi2 ? v[1] : v[3];
+  s0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+  s1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (hi2) {
+    v[0] = s0;
+    v[1] = s1;
+  } else {
+    v[2] = s0;
+    v[3] = s1;
+  }
+  // transpose each 2 x 2 block between lanes l and l ^ 1
+  uint32_t t0 = hi1 ? v[0] : v[1], t1 = hi1 ? v[2] : v[3];
+  t0 = __shfl_xor_sync(0xffffffffu, t0, 1);
+  t1 = __shfl_xor_sync(0xffffffffu, t1, 1);
+  if (hi1) {
+    v[0] = t0;
+    v[2] = t1;
+  } else {
+    v[1] = t0;
+    v[3] = t1;
+  }
+}
+// four 8 x 8 matrices of 16-bit elements stored transposed: lane l's v[j]
+// is its (row l / 4, columns 2 (l % 4), + 1) of matrix j, in wgmma's and
+// mma's accumulator layout; lanes 8 j .. 8 j + 7 give the addresses of the
+// 16-byte rows of matrix j's transpose
+__device__ __forceinline__ void stmatrix_x4_trans(void* row_addr, const uint32_t (&v)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(row_addr)),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+// named barrier `id` (1 .. 15) over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// a warpgroup's 64 x N fp32 wgmma accumulator (row 16 w + l / 4 (+ 8) of
+// warp w, lane l; columns 8 q + 2 (l % 4) (+ 1)) rounded to T and written
+// to rows row0 .. row0 + 63 and columns col0 .. col0 + N - 1 of out [.., ld],
+// those below `rows` and `cols` (cols, col0 and ld multiples of 8): a quad's
+// four 8-column pieces are transposed across its lanes, so each lane
+// stores 16 bytes of one row
+template <typename T, int N>
+__device__ __forceinline__ void store_acc16(T* out, long long ld, const float (&acc)[N / 2],
+                                            int row0, int rows, int col0, int cols) {
+  const int tid = threadIdx.x & 127, lane = tid & 31;
+  const int rw = row0 + 16 * (tid >> 5) + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rw + 8 * r;
+#pragma unroll
+    for (int j = 0; j < N / 32; ++j) {
+      uint32_t v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = Cvt<T>::pack(acc[4 * (4 * j + k) + 2 * r], acc[4 * (4 * j + k) + 2 * r + 1]);
+      quad_transpose(v);
+      const int col = col0 + 8 * (4 * j + (lane & 3));
+      if (row < rows && col < cols)
+        *reinterpret_cast<uint4*>(out + (long long)row * ld + col) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+// rows [r0, r1) x columns [c0, c1) of out [.., ld] as zeros, 16 bytes a
+// store, by threads 0 .. threads - 1 of the block (c0, c1 and ld multiples
+// of 8)
+template <typename T>
+__device__ __forceinline__ void zero_rows16(T* out, long long ld, int r0, int r1, int c0, int c1,
+                                            int threads) {
+  const int w = (c1 - c0) / 8;
+  if (w <= 0 || r1 <= r0) return;
+  for (long long i = threadIdx.x; i < (long long)(r1 - r0) * w; i += threads)
+    *reinterpret_cast<uint4*>(out + (r0 + i / w) * ld + c0 + 8 * (i % w)) = make_uint4(0u, 0u, 0u, 0u);
 }
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -595,6 +710,106 @@ template <> struct WgmmaSStt<__half, 128> {
         "%48, %49, %50, %51, %52, %53, %54, %55,\n"
         "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaSS<__nv_bfloat16, 256> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63,\n"
+        "%64, %65, %66, %67, %68, %69, %70, %71,\n"
+        "%72, %73, %74, %75, %76, %77, %78, %79,\n"
+        "%80, %81, %82, %83, %84, %85, %86, %87,\n"
+        "%88, %89, %90, %91, %92, %93, %94, %95,\n"
+        "%96, %97, %98, %99, %100, %101, %102, %103,\n"
+        "%104, %105, %106, %107, %108, %109, %110, %111,\n"
+        "%112, %113, %114, %115, %116, %117, %118, %119,\n"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaSS<__half, 256> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63,\n"
+        "%64, %65, %66, %67, %68, %69, %70, %71,\n"
+        "%72, %73, %74, %75, %76, %77, %78, %79,\n"
+        "%80, %81, %82, %83, %84, %85, %86, %87,\n"
+        "%88, %89, %90, %91, %92, %93, %94, %95,\n"
+        "%96, %97, %98, %99, %100, %101, %102, %103,\n"
+        "%104, %105, %106, %107, %108, %109, %110, %111,\n"
+        "%112, %113, %114, %115, %116, %117, %118, %119,\n"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaSStt<__nv_bfloat16, 256> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63,\n"
+        "%64, %65, %66, %67, %68, %69, %70, %71,\n"
+        "%72, %73, %74, %75, %76, %77, %78, %79,\n"
+        "%80, %81, %82, %83, %84, %85, %86, %87,\n"
+        "%88, %89, %90, %91, %92, %93, %94, %95,\n"
+        "%96, %97, %98, %99, %100, %101, %102, %103,\n"
+        "%104, %105, %106, %107, %108, %109, %110, %111,\n"
+        "%112, %113, %114, %115, %116, %117, %118, %119,\n"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+template <> struct WgmmaSStt<__half, 256> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63,\n"
+        "%64, %65, %66, %67, %68, %69, %70, %71,\n"
+        "%72, %73, %74, %75, %76, %77, %78, %79,\n"
+        "%80, %81, %82, %83, %84, %85, %86, %87,\n"
+        "%88, %89, %90, %91, %92, %93, %94, %95,\n"
+        "%96, %97, %98, %99, %100, %101, %102, %103,\n"
+        "%104, %105, %106, %107, %108, %109, %110, %111,\n"
+        "%112, %113, %114, %115, %116, %117, %118, %119,\n"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(da), "l"(db), "r"(acc));
   }
 };

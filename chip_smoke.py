@@ -215,7 +215,44 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     tokens/s, MFU (active experts only), peak memory;
 23. MoE training parity: a 2-layer Mixtral-8x160m-width model (dropless)
     in fp32 on the card and on the CPU from the same weights and batches,
-    3 steps (``TRAIN_PARITY_TOL``).
+    3 steps (``TRAIN_PARITY_TOL``);
+24. ZeRO-Offload: ``initialize`` -> ``train_batch`` on llama-7b at full
+    width and depth (bf16, AdamW, clipping 1.0, stage 2, seq 1024,
+    micro-batch 2, bf16 gradient accumulation) with the fp32 master and
+    both Adam moments in host RAM, updated there by the C++ Adam
+    (``offload_optimizer.device`` "cpu"; "nvme" when MemAvailable holds
+    the master but not the moments; the depth cut, printed as
+    ``reduced``, only when neither fits), 4 steps on one seeded batch: the
+    loss falls, no fp32 master or moment on the card, A, A' and A'' (D =
+    128) every layer every step; the step's parts (forward and backward,
+    the device-to-host and host-to-device copies, the host update and its
+    GB/s against the host's memory rate, phase 25's), tokens/s, MFU, peak
+    device memory, the host RAM held;
+25. the host ops alone on a llama-7b MLP leaf: cpu_adam, cpu_lion,
+    cpu_adagrad and ``torch._fused_adamw_`` on CPU tensors beside their
+    bound (bytes over the fastest of a STREAM-style triad on every core
+    and these ops); the async-I/O engine's write and read rates;
+26. llama-1b offload, 2 steps each: NVMe bit-equal to cpu offload,
+    SuperOffload with 4 and 1 workers bit-equal to plain offload;
+27. ZenFlow: llama-160m's loss falls with 10 % of the columns per step;
+    ``topk_ratio`` 1.0 within 1e-5 of the AdamW offload engine;
+28. ``offload_param`` on llama-1b: losses and masters bit-equal to the
+    device path, kernel C once per leaf per step, peak memory of each;
+29. the hybrid engine: 2 offload steps on llama-1b, then a greedy
+    ``generate`` of 16 tokens from the live leaves (no second copy),
+    equal to ``init_inference`` on ``get_params()`` in bf16;
+    ``offload_states`` frees the card's weights and ``reload_states``
+    brings back the same tokens;
+30. lamb, lion, adagrad, sgd, muon and the 1-bit family, card against
+    CPU: each update's arithmetic on identical leaves and gradients
+    (``OPTIMIZER_TOL``), and the five without a quantiser through a
+    2-layer llama-160m-width model, 3 fp32 steps (``TRAIN_PARITY_TOL``,
+    the params held by the norm of their difference against the norm of
+    their movement);
+31. ``cpu_checkpointing`` and the ``offload_dots`` policy on llama-1b:
+    losses and masters bit-equal to remat without them; the device memory
+    a forward's graph holds until its backward, and the peaks of the
+    forward + backward and of the step, beside remat's and no remat's.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA card,
@@ -225,14 +262,17 @@ this file; without either it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1154,6 +1194,26 @@ TRAIN_PARITY_TOL = {"fp32": {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4},
                     "fp16": {"loss": 2e-3, "grad_norm": 2e-2, "params": 1e-3}}
 
 
+def movement_parity(card, cpu, init) -> dict:
+    """Card against CPU masters after a run from ``init``: the L2 norm of
+    the difference over that of the CPU's movement, over all leaves and the
+    largest in one leaf, and the share of elements past ``OPTIMIZER_TOL``'s
+    limit (atol + rtol x the leaf's largest movement)."""
+    atol, rtol = OPTIMIZER_TOL
+    d2 = m2 = 0.0
+    worst, past, total = 0.0, 0, 0
+    for a, b, c in zip(card, cpu, init):
+        d, mv = (a.cpu() - b).double(), (b - c).double()
+        dn, mn = float(d.pow(2).sum()), float(mv.pow(2).sum())
+        d2, m2 = d2 + dn, m2 + mn
+        worst = max(worst, math.sqrt(dn / mn) if mn > 0 else (math.inf if dn > 0 else 0.0))
+        past += int((d.abs() > atol + rtol * float(mv.abs().max())).sum())
+        total += d.numel()
+    return {"params_rel_norm": math.sqrt(d2 / m2) if m2 > 0 else math.inf,
+            "params_leaf_rel_norm": worst, "params_past_tight": past,
+            "params_past_tight_share": past / total}
+
+
 def train_parity(model, params, cases, label):
     """``model`` on the card and on the CPU from the same ``params`` and
     batches, for each case (name, ds-config extra, steps, B, S); fp16 runs
@@ -1173,6 +1233,7 @@ def train_parity(model, params, cases, label):
                    for dev in ("cuda", "cpu")}
         tol = TRAIN_PARITY_TOL[name]
         rec = {"batch": [B, S], "tol": tol, "per_step": []}
+        init = [p.detach().clone() for p in engines["cpu"]._master]
         for _ in range(max_steps):
             ids = torch.randint(0, model.config.vocab_size, (1, B, S), generator=rng)
             row = {}
@@ -1196,8 +1257,14 @@ def train_parity(model, params, cases, label):
                 break
         diff = max((a.cpu() - b).abs().max().item() for a, b in zip(
             engines["cuda"]._master, engines["cpu"]._master))
-        check(diff <= tol["params"], f"{label} {name}: master params differ by {diff}")
         rec["params_max_abs_diff"] = diff
+        if "params" in tol:
+            check(diff <= tol["params"], f"{label} {name}: master params differ by {diff}")
+        else:
+            rec.update(movement_parity(engines["cuda"]._master, engines["cpu"]._master, init))
+            check(rec["params_rel_norm"] <= tol["params_rel_norm"] and
+                  rec["params_leaf_rel_norm"] <= tol["params_leaf_rel_norm"],
+                  f"{label} {name}: master params differ: {rec}")
         rec["steps"] = len(rec["per_step"])
         if name == "fp16":
             check(engines["cuda"].skipped_steps >= 1 and int(engines["cuda"].state.step) >= 2,
@@ -3479,6 +3546,641 @@ def evo_train_phase(ev):
 
 
 
+# -- phases 24-30: ZeRO-Offload, SuperOffload, ZenFlow, offload_param, the
+# hybrid engine, the other optimizers and cpu_checkpointing -----------------
+
+OFFLOAD_SEQ, OFFLOAD_MICRO, OFFLOAD_STEPS = 1024, 2, 4
+#: host RAM left beside the offload state: the process (torch, the CUDA
+#: context), the pinned staging buckets (1.5 GB at llama-7b), the page cache
+OFFLOAD_HOST_MARGIN = 10 * 2**30
+NVME_DIR = os.path.join(ROOT, "build", "nvme")
+
+
+def meminfo(key: str) -> int:
+    """A /proc/meminfo (or /proc/self/status) field in bytes."""
+    path = "/proc/self/status" if key.startswith("Vm") else "/proc/meminfo"
+    with open(path) as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise KeyError(key)
+
+
+def cpu_model() -> str:
+    """The host CPU as lscpu names it, with its family/model numbers and
+    core count (the model name may read "unknown" in a VM)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    f = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    g = lambda k: f.get(k, "?").strip()  # noqa: E731
+    isa = "AVX-512" if "avx512f" in g("Flags") else ("AVX2" if "avx2" in g("Flags") else "")
+    return (f"{g('Vendor ID')} {g('Model name')} (family {g('CPU family')} model "
+            f"{g('Model')}), {g('CPU(s)')} cores, {isa}")
+
+
+def host_triad_gbps(gib: int = 1) -> float:
+    """The host's memory rate by a STREAM-style triad a = b + 3 c over
+    ``gib`` GiB arrays on every core (torch's threads set to the core
+    count): bytes read plus bytes written per second, best of 5."""
+    b = torch.ones(gib << 28, dtype=torch.float32)
+    c, a = torch.ones_like(b), torch.empty_like(b)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count())
+    best = 0.0
+    try:
+        for _ in range(5):
+            t = time.perf_counter()
+            torch.add(b, c, alpha=3.0, out=a)
+            best = max(best, 3 * b.numel() * 4 / (time.perf_counter() - t) / 1e9)
+    finally:
+        torch.set_num_threads(threads)
+    return best
+
+
+def llama_params(cfg) -> int:
+    H, D, L = cfg.hidden_size, cfg.head_dim, cfg.n_layers
+    layer = (H * D * (cfg.n_heads + 2 * cfg.kv_heads) + cfg.n_heads * D * H
+             + 3 * H * cfg.ffn_size + 2 * H)
+    return cfg.vocab_size * H * 2 + L * layer + H
+
+
+def offload_config(device, nvme_path=None, micro=OFFLOAD_MICRO, **extra):
+    """The ZeRO-Offload config of the main path: bf16, AdamW (lr 1e-4, weight
+    decay 0.1), clipping 1.0, stage 2 with the optimizer on the host,
+    bf16 gradient accumulation (bench.py:181's setting for large models)."""
+    off = {"device": device, "pin_memory": True}
+    if nvme_path:
+        off["nvme_path"] = nvme_path
+    cfg = {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": 1,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+           "bf16": {"enabled": True}, "zero_optimization": {"stage": 2, "offload_optimizer": off},
+           "gradient_clipping": 1.0, "data_types": {"grad_accum_dtype": "bf16"}}
+    for k, v in extra.items():
+        if k == "zero_optimization":
+            cfg[k].update(v)
+        else:
+            cfg[k] = v
+    return cfg
+
+
+def offload_plan(cfg):
+    """cpu when master and moments fit MemAvailable; else nvme (master in
+    RAM, moments on disk) when the master fits and the disk holds the
+    moments; else the depth cut until cpu fits.  (mode, layers, reduced)."""
+    n = llama_params(cfg)
+    avail = meminfo("MemAvailable")
+    os.makedirs(NVME_DIR, exist_ok=True)
+    disk = shutil.disk_usage(NVME_DIR).free
+    if avail >= 12 * n + OFFLOAD_HOST_MARGIN:
+        return "cpu", cfg.n_layers, None, avail, disk
+    if avail >= 4 * n + OFFLOAD_HOST_MARGIN and disk >= 8.5 * n:
+        return "nvme", cfg.n_layers, None, avail, disk
+    per_layer = (llama_params(cfg) - llama_params(dataclasses.replace(cfg, n_layers=0))) \
+        // cfg.n_layers
+    for L in range(cfg.n_layers - 1, 0, -1):
+        if avail >= 12 * (n - (cfg.n_layers - L) * per_layer) + OFFLOAD_HOST_MARGIN:
+            return "cpu", L, (f"layers {cfg.n_layers} -> {L}: MemAvailable "
+                              f"{avail / 2**30:.1f} GB, disk {disk / 2**30:.1f} GB"), avail, disk
+    raise SmokeFailure(f"offload: no depth fits MemAvailable {avail / 2**30:.1f} GB")
+
+
+def boundary_timed(engine):
+    """Wrap the engine's offload boundary so each step's boundary wall ms is
+    kept (the rest of the step is the forward and backward)."""
+    spans = []
+    inner = engine._apply_step_offload
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inner(*a, **kw)
+        torch.cuda.synchronize()
+        spans.append({"boundary_ms": (time.perf_counter() - t) * 1e3,
+                      **engine._boundary.timings()})
+
+    engine._apply_step_offload = timed
+    return spans
+
+
+def offload_7b_phase(fa, fadam):
+    """Phase 24: llama-7b at full width (full depth unless host RAM and disk
+    force a cut) through initialize -> train_batch with the fp32 master and
+    the Adam moments in host RAM (or the moments on NVMe): OFFLOAD_STEPS
+    steps on one seeded batch, the loss must fall; no fp32 master or
+    moment on the card; A, A' and A'' at D = 128 every layer every step."""
+    import gc
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_config, llama_model
+    from deepspeed_tpu_torch.models.transformer import flops_per_token
+
+    full = llama_config("7b", max_seq_len=OFFLOAD_SEQ)
+    mode, L, reduced, avail, disk = offload_plan(full)
+    print(json.dumps({"offload_plan": {"mode": mode, "layers": L, "reduced": reduced,
+                                       "mem_available_gb": avail / 2**30,
+                                       "disk_free_gb": disk / 2**30}}))
+    if reduced:
+        print(json.dumps({"reduced": reduced}))
+    model = llama_model("7b", max_seq_len=OFFLOAD_SEQ, n_layers=L)
+    cfg = model.config
+    n_expect = llama_params(cfg)
+    torch.cuda.synchronize()
+    rss0 = meminfo("VmRSS")
+    base = torch.cuda.memory_allocated()  # what earlier phases left on the card
+    t0 = time.perf_counter()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=offload_config(mode, NVME_DIR if mode == "nvme" else None), seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt = engine.offload_optimizer
+    n_params = sum(p.numel() for p in engine._compute_leaves)
+    check(n_params == n_expect, f"offload 7b: {n_params} params, expected {n_expect}")
+    check(engine._master == [] and engine.state.opt_state == () and
+          all(p.device.type == engine.device.type and p.dtype == torch.bfloat16
+              for p in engine._compute_leaves),
+          "offload 7b: an fp32 master or optimizer state is on the card")
+    resident_gb = (torch.cuda.memory_allocated() - base) / 2**30
+    check(resident_gb <= (2 * n_params + 2**30) / 2**30,
+          f"offload 7b: {resident_gb:.2f} GB resident after init, more than the bf16 weights")
+    g = torch.Generator(device=DEV).manual_seed(123)
+    batch = torch.randint(0, cfg.vocab_size, (1, OFFLOAD_MICRO, OFFLOAD_SEQ), generator=g,
+                          device=DEV)
+    spans = boundary_timed(engine)
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counters(fa, fadam)
+    losses, step_ms, _ = timed_steps(engine, batch, OFFLOAD_STEPS)
+    launches = read_train_counters(fa, fadam)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    check(all(map(math.isfinite, losses)), f"offload 7b: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"offload 7b: loss did not fall: {losses}")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[k] == L * OFFLOAD_STEPS,
+              f"offload 7b: {k} launches {launches[k]} != {L} x {OFFLOAD_STEPS}")
+    check(launches["fused_adam"] == 0, "offload 7b: the device Adam ran")
+    steady = list(range(1, OFFLOAD_STEPS))  # step 0 also faults the moments in
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    parts = {k: med([spans[i][k] for i in steady]) for k in spans[0]}
+    step = med([step_ms[i] for i in steady])
+    fwd_bwd = med([step_ms[i] - spans[i]["boundary_ms"] for i in steady])
+    tokens = OFFLOAD_MICRO * OFFLOAD_SEQ
+    fpt = flops_per_token(cfg, OFFLOAD_SEQ)
+    triad_gbps = host_triad_gbps()
+    adam_bytes = 28 * n_params  # p, m, v read and written, g read, fp32
+    rec = {"model": "llama-7b", "layers": L, "mode": mode, "reduced": reduced,
+           "params": n_params, "seq": OFFLOAD_SEQ, "micro_batch": OFFLOAD_MICRO, "dtype": "bf16",
+           "init_s": init_s, "losses": losses, "step_ms": step_ms, "median_step_ms": step,
+           "fwd_bwd_ms": fwd_bwd, "boundary_parts_ms": parts,
+           "host_opt_gbps": adam_bytes / (parts["host_opt_ms"] / 1e3) / 1e9,
+           "host_opt_bytes": adam_bytes, "host_triad_gbps": triad_gbps,
+           "host_opt_bound_ms": adam_bytes / (triad_gbps * 1e9) * 1e3,
+           "tokens_per_s": tokens / (step / 1e3),
+           "mfu": fpt * tokens / (step / 1e3) / PEAK_OPS[torch.bfloat16],
+           "peak_mem_gb": peak_gb, "peak_above_base_gb": peak_gb - base / 2**30,
+           "base_gb": base / 2**30, "resident_after_init_gb": resident_gb,
+           "master_bytes": opt.master_bytes(), "moment_bytes": opt.moment_bytes(),
+           "pinned_bytes": engine._boundary.pinned_bytes(),
+           "rss_gb": meminfo("VmRSS") / 2**30, "rss_before_gb": rss0 / 2**30,
+           "cpu": cpu_model(), "launches": launches}
+    check(mode != "cpu" or opt.moment_bytes() == 8 * n_params,
+          "offload 7b: the moments are not all in host RAM")
+    engine._apply_step_offload = None
+    opt.close()
+    del engine, opt, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(NVME_DIR, ignore_errors=True)
+    print(json.dumps({"offload_7b": rec}))
+    return rec
+
+
+def host_ops_phase():
+    """Phase 25: the host ops alone on one llama-7b MLP leaf (4096 x 11008
+    fp32): cpu_adam, cpu_lion, cpu_adagrad and torch._fused_adamw_ on CPU
+    tensors, each beside its bound: its bytes over the host's memory rate,
+    the fastest of a STREAM-style triad on every core and the ops measured
+    here (``host_bound_gbps``, ``bound_by`` names which); the async-I/O
+    engine writing and reading the leaf's two moments."""
+    from deepspeed_tpu_torch.ops.cpu.adagrad import DeepSpeedCPUAdagrad
+    from deepspeed_tpu_torch.ops.cpu.adam import DeepSpeedCPUAdam
+    from deepspeed_tpu_torch.ops.cpu.aio import AsyncIOHandle
+    from deepspeed_tpu_torch.ops.cpu.lion import DeepSpeedCPULion
+
+    n = 4096 * 11008
+    rng = torch.Generator().manual_seed(5)
+    p = torch.randn(n, generator=rng)
+    gr = torch.randn(n, generator=rng) * 1e-3
+    triad_gbps = host_triad_gbps()
+
+    def best_ms(fn, reps=5):
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            best = min(best, (time.perf_counter() - t) * 1e3)
+        return best
+
+    out = {"leaf": "4096 x 11008 fp32 (llama-7b w_up)", "cpu": cpu_model(),
+           "host_triad_gbps": triad_gbps}
+    pn, gn = p.numpy().copy(), gr.numpy()
+    ops = ("cpu_adam", "cpu_lion", "cpu_adagrad")
+    for name, op, nbytes in zip(ops, (DeepSpeedCPUAdam(lr=1e-4, weight_decay=0.1),
+                                      DeepSpeedCPULion(lr=1e-4, weight_decay=0.1),
+                                      DeepSpeedCPUAdagrad(lr=1e-4)), (28, 20, 20)):
+        ms = best_ms(lambda: op.step(pn, gn, key=0, lr=1e-4))
+        out[name] = {"ms": ms, "gbps": nbytes * n / (ms / 1e3) / 1e9, "bytes_per_elem": nbytes}
+    m, v = torch.zeros(n), torch.zeros(n)
+    step_t = torch.tensor(1.0)
+    lib_ms = best_ms(lambda: fused_adamw_library(p, gr, m, v, step_t, 1e-4, 0.1))
+    out["cpu_adam"]["library_ms"] = lib_ms
+    out["cpu_adam"]["library"] = "torch._fused_adamw_ on CPU tensors"
+    rates = {"triad": triad_gbps, "torch._fused_adamw_": 28 * n / (lib_ms / 1e3) / 1e9,
+             **{k: out[k]["gbps"] for k in ops}}
+    out["bound_by"] = max(rates, key=rates.get)
+    out["host_bound_gbps"] = rates[out["bound_by"]]
+    for k in ops:
+        out[k]["bound_ms"] = out[k]["bytes_per_elem"] * n / (out["host_bound_gbps"] * 1e9) * 1e3
+        out[k]["bound_share"] = out[k]["bound_ms"] / out[k]["ms"]
+    os.makedirs(NVME_DIR, exist_ok=True)
+    h = AsyncIOHandle(thread_count=4)
+    mm, vv = np.zeros(n, np.float32), np.zeros(n, np.float32)
+
+    def write():
+        h.async_pwrite(mm, os.path.join(NVME_DIR, "m.bin"))
+        h.async_pwrite(vv, os.path.join(NVME_DIR, "v.bin"))
+        h.drain()
+
+    def read():
+        h.async_pread(mm, os.path.join(NVME_DIR, "m.bin"))
+        h.async_pread(vv, os.path.join(NVME_DIR, "v.bin"))
+        h.drain()
+
+    wms, rms = best_ms(write, 3), best_ms(read, 3)
+    out["aio"] = {"backend": h.backend, "write_ms": wms, "read_ms": rms,
+                  "write_gbps": 8 * n / (wms / 1e3) / 1e9, "read_gbps": 8 * n / (rms / 1e3) / 1e9,
+                  "note": "two moments of the leaf to and from files under build/ (the page "
+                          "cache included: the disk alone is not timed)"}
+    h.close()
+    shutil.rmtree(NVME_DIR, ignore_errors=True)
+    print(json.dumps({"host_ops": out}))
+    return out
+
+
+def masters_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a.offload_optimizer.master,
+                                                     b.offload_optimizer.master))
+
+
+def offload_1b_phase():
+    """Phase 26: llama-1b at full width and depth, 2 steps each: NVMe offload
+    bit-equal to cpu offload (losses and masters), SuperOffload with
+    cpu_worker_count 4 and 1 bit-equal to plain offload; the host
+    optimizer's ms per step for each."""
+    import gc
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    model = llama_model("1b", max_seq_len=OFFLOAD_SEQ)
+    g = torch.Generator(device=DEV).manual_seed(321)
+    batch = torch.randint(0, model.config.vocab_size, (1, OFFLOAD_MICRO, OFFLOAD_SEQ),
+                          generator=g, device=DEV)
+    runs = {"cpu": offload_config("cpu"), "nvme": offload_config("nvme", NVME_DIR),
+            "super_4": offload_config("cpu", zero_optimization={"offload_optimizer": {
+                "device": "cpu", "pin_memory": True, "super_offload": True,
+                "cpu_worker_count": 4}}),
+            "super_1": offload_config("cpu", zero_optimization={"offload_optimizer": {
+                "device": "cpu", "pin_memory": True, "super_offload": True,
+                "cpu_worker_count": 1}})}
+    ref, out = None, {}
+    for name, ds in runs.items():
+        e, *_ = deepspeed_tpu_torch.initialize(model=model, config=ds, seed=0)
+        spans = boundary_timed(e)
+        losses = [float(x) for x in timed_steps(e, batch, 2)[0]]
+        rec = {"losses": losses, "host_opt_ms": [s["host_opt_ms"] for s in spans],
+               "boundary_ms": [s["boundary_ms"] for s in spans],
+               "moment_bytes": e.offload_optimizer.moment_bytes()}
+        if ref is None:
+            ref = (losses, e)
+            check(losses[-1] < losses[0], f"offload 1b: loss did not fall: {losses}")
+        else:
+            check(losses == ref[0], f"offload 1b {name}: losses {losses} != cpu's {ref[0]}")
+            check(masters_equal(ref[1], e), f"offload 1b {name}: masters differ from cpu's")
+            rec["bit_equal_to_cpu"] = True
+            e._apply_step_offload = None
+            e.offload_optimizer.close()
+            del e
+            gc.collect()
+        out[name] = rec
+    check(out["nvme"]["moment_bytes"] == 0, "offload 1b nvme: moments still in RAM")
+    ref[1].offload_optimizer.close()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(NVME_DIR, ignore_errors=True)
+    print(json.dumps({"offload_1b": out}))
+    return out
+
+
+def zenflow_phase():
+    """Phase 27: ZenFlow on the card.  llama-160m at full width and depth,
+    bf16, top 10 % of columns every step and the rest every 2 steps, 4 steps
+    on one batch (a slow pass launched at step 2 and merged at step 4): the
+    loss falls.  Then at 160m width and 2 layers in fp32,
+    ZenFlow with topk_ratio 1.0 against the AdamW offload engine over 3
+    steps: losses within 1e-5 relative, masters within 1e-5 absolute (numpy's
+    Adam against the C++ op's: one formula, rounded at other points)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    model = llama_model("160m", max_seq_len=OFFLOAD_SEQ)
+    g = torch.Generator(device=DEV).manual_seed(7)
+    batch = torch.randint(0, model.config.vocab_size, (1, OFFLOAD_MICRO, OFFLOAD_SEQ),
+                          generator=g, device=DEV)
+    zf = {"enabled": True, "topk_ratio": 0.1, "update_interval": 2}
+    e, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=offload_config("cpu", zero_optimization={"zenflow": zf}), seed=0)
+    losses, step_ms, _ = timed_steps(e, batch, 4)
+    losses = [float(x) for x in losses]
+    check(losses[-1] < losses[0], f"zenflow: loss did not fall: {losses}")
+    e.offload_optimizer.close()
+    del e
+    small = llama_model("160m", max_seq_len=256, n_layers=2)
+    b2 = batch[:, :, :256]
+    fp32 = dict(bf16={"enabled": False}, data_types={"grad_accum_dtype": "fp32"})
+    runs = {}
+    for name, extra in (("adamw", {}), ("zenflow_topk_1", {"zero_optimization": {
+            "zenflow": {"enabled": True, "topk_ratio": 1.0}}})):
+        e, *_ = deepspeed_tpu_torch.initialize(model=small,
+                                               config=offload_config("cpu", **fp32, **extra),
+                                               seed=0)
+        runs[name] = ([float(x) for x in timed_steps(e, b2, 3)[0]],
+                      [m.copy() for m in e.offload_optimizer.master])
+        e.offload_optimizer.close()
+        del e
+    (la, ma), (lz, mz) = runs["adamw"], runs["zenflow_topk_1"]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(la, lz))
+    param_diff = max(float(np.abs(a.ravel() - b.ravel()).max()) for a, b in zip(ma, mz))
+    check(loss_rel <= 1e-5 and param_diff <= 1e-5,
+          f"zenflow topk 1.0 vs adamw: loss rel {loss_rel}, params {param_diff}")
+    torch.cuda.empty_cache()
+    rec = {"losses": losses, "step_ms": step_ms, "topk_1_vs_adamw": {
+        "loss_max_rel": loss_rel, "params_max_abs": param_diff}}
+    print(json.dumps({"zenflow": rec}))
+    return rec
+
+
+def offload_param_phase(fadam):
+    """Phase 28: offload_param on llama-1b at full width and depth (bf16,
+    fused AdamW): 3 steps with the fp32 master in pinned host memory and
+    each leaf streamed through kernel C, against the device path: losses
+    and masters bit-equal; peak device memory of each; C launches one per
+    leaf per step."""
+    import gc
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    model = llama_model("1b", max_seq_len=OFFLOAD_SEQ)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    batch = torch.randint(0, model.config.vocab_size, (1, OFFLOAD_MICRO, OFFLOAD_SEQ),
+                          generator=g, device=DEV)
+    out, masters = {}, {}
+    for name, extra in (("device", {}), ("offload_param", {"zero_optimization": {
+            "stage": 3, "offload_param": {"device": "cpu", "pin_memory": True}}})):
+        ds = train_config(**extra)
+        ds["train_micro_batch_size_per_gpu"] = OFFLOAD_MICRO
+        gc.collect()
+        torch.cuda.empty_cache()
+        e, *_ = deepspeed_tpu_torch.initialize(model=model, config=ds, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fadam.fused_adam_update.launches = 0
+        losses, step_ms, _ = timed_steps(e, batch, 3)
+        launches = fadam.fused_adam_update.launches
+        out[name] = {"losses": [float(x) for x in losses], "step_ms": step_ms,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                     "fused_adam_launches": launches, "leaves": len(e._compute_leaves)}
+        check(launches == 3 * len(e._compute_leaves),
+              f"{name}: fused_adam launches {launches} != 3 x {len(e._compute_leaves)}")
+        masters[name] = [p.detach().cpu() for p in e.get_params().parameters()]
+        if name == "offload_param":
+            check(all(p.device.type == "cpu" and p.is_pinned() for p in e._master),
+                  "offload_param: the master is not in pinned host memory")
+        del e
+        torch.cuda.empty_cache()
+    check(out["device"]["losses"] == out["offload_param"]["losses"],
+          f"offload_param: losses differ: {out}")
+    check(all(torch.equal(a, b) for a, b in zip(masters["device"], masters["offload_param"])),
+          "offload_param: masters differ from the device path's")
+    n = sum(t.numel() for t in masters["device"])
+    out["peak_saving_gb"] = out["device"]["peak_mem_gb"] - out["offload_param"]["peak_mem_gb"]
+    out["master_gb"] = 4 * n / 2**30
+    print(json.dumps({"offload_param": out}))
+    return out
+
+
+def hybrid_phase():
+    """Phase 29: the hybrid engine on llama-1b with the optimizer offloaded:
+    2 steps, then a greedy generate of 16 tokens from the live bf16 leaves
+    (no second copy: the inference engine's tensors are the training
+    engine's; the device memory before and after is printed), equal to
+    init_inference run on get_params() cast to bf16."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    model = llama_model("1b", max_seq_len=OFFLOAD_SEQ)
+    ds = offload_config("cpu", hybrid_engine={"enabled": True, "max_out_tokens": 16})
+    e, *_ = deepspeed_tpu_torch.initialize(model=model, config=ds, seed=0)
+    g = torch.Generator(device=DEV).manual_seed(13)
+    batch = torch.randint(0, model.config.vocab_size, (1, OFFLOAD_MICRO, OFFLOAD_SEQ),
+                          generator=g, device=DEV)
+    timed_steps(e, batch, 2)
+    prompt = torch.randint(0, model.config.vocab_size, (2, 32), generator=g, device=DEV)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    got = e.generate(prompt)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    after = torch.cuda.memory_allocated()
+    ptrs = {p.data_ptr() for p in e._compute_leaves}
+    check({p.data_ptr() for p in e._inference_engine.params.parameters()} == ptrs,
+          "hybrid: generation does not read the training engine's leaves")
+    ref = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16",
+                                                            "max_seq_len": OFFLOAD_SEQ},
+                                             params=e.get_params(torch.bfloat16))
+    want = ref.generate(prompt, max_new_tokens=16)
+    check(got.shape == (2, 48) and torch.equal(got, want),
+          "hybrid: generate differs from init_inference on get_params()")
+    # offload_states parks the live leaves in host memory and frees the card;
+    # reload_states brings back the same weights (the same greedy tokens)
+    del ref
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated()
+    e.offload_states()
+    parked = torch.cuda.memory_allocated()
+    check(live - parked >= 0.9 * 2 * sum(p.numel() for p in e._compute_leaves),
+          f"hybrid: offload_states freed {(live - parked) / 2**30:.2f} GB only")
+    e.reload_states()
+    check(torch.equal(e.generate(prompt), want), "hybrid: tokens changed over a park")
+    rec = {"generate_s": gen_s, "mem_before_gb": before / 2**30, "mem_after_gb": after / 2**30,
+           "mem_delta_gb": (after - before) / 2**30, "tokens": got[:, 32:].tolist(),
+           "offload_states_freed_gb": (live - parked) / 2**30}
+    e.offload_optimizer.close()
+    del e
+    torch.cuda.empty_cache()
+    print(json.dumps({"hybrid": rec}))
+    return rec
+
+
+#: the optimizers other than Adam.  Through a model, card against CPU, 3
+#: fp32 steps at lr 1e-4: a sign-driven step (lion) or Newton-Schulz on a
+#: near-zero momentum can move a weight the other way where the two sides'
+#: gradients differ in their last digits, up to 2 lr a step (lion: 4e-4
+#: after 3 steps, as large as a weight's whole movement), so no element's
+#: difference bounds them.  The params are held instead by the L2 norm of
+#: the card-minus-CPU difference against the norm of the CPU's movement
+#: from the initial weights, over all leaves and in every leaf (a path that
+#: applies no update, or skips a leaf, reads 1).  Observed on an H100 over
+#: all leaves: lion 7.0e-3 (1650 of 63M elements past ``OPTIMIZER_TOL``'s
+#: limit, the flips), lamb 6.6e-5, adagrad 9.6e-5, sgd 9.0e-5, muon
+#: 3.0e-4; in one leaf at most 8.3e-3.  Limits: 2e-2 for lion, 1e-3 for the
+#: others, 0.1 in a leaf.  The 1-bit family is held by its arithmetic alone:
+#: its int8 quantiser turns a last-digit difference of a gradient into a
+#: whole quantum, which a frozen variance near 0 then scales up.
+OPTIMIZERS = {"lamb": {}, "lion": {}, "adagrad": {}, "sgd": {"momentum": 0.9, "nesterov": True},
+              "muon": {}, "onebitadam": {"freeze_step": 2}, "zerooneadam": {
+                  "var_freeze_step": 2, "var_update_interval": 2},
+              "onebitlamb": {"freeze_step": 2}}
+ONEBIT = ("onebitadam", "zerooneadam", "onebitlamb")
+for _name in OPTIMIZERS:
+    TRAIN_PARITY_TOL[_name] = {"loss": 1e-5, "grad_norm": 1e-4,
+                               "params_rel_norm": 2e-2 if _name == "lion" else 1e-3,
+                               "params_leaf_rel_norm": 0.1}
+#: the optimizers' arithmetic on identical fp32 leaves and gradients, card
+#: against CPU, 3 steps at lr 1e-4: the same elementwise ops, powers,
+#: square roots, norms and fp32 matmuls (muon; no TF32) in two libraries,
+#: a few ulps of each update apart.  (atol, rtol of the leaf's largest
+#: movement): an update is a moment over a root, and where the frozen
+#: variance is near 0 the 1-bit family moves an element by up to ~1.2 in 3
+#: steps, so its last ulps scale with that movement.
+OPTIMIZER_TOL = (1e-6, 1e-5)
+
+
+def optimizers_phase():
+    """Phase 30: each of the 8 optimizers' update on the leaves of a 2-layer
+    llama-160m-width model (seeded weights, seeded gradients), card against
+    CPU, 3 fp32 steps (the 1-bit family crossing its freeze step); then the
+    five without a quantiser through that model, card against CPU, 3 fp32
+    steps from the same weights and batches."""
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.runtime.lr_schedules import get_schedule
+    from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+
+    model = llama_model("160m", max_seq_len=128, n_layers=2)
+    params = model.init_params(torch.Generator().manual_seed(9), "cpu")
+    leaves = [p.detach().float() for p in params.parameters()]
+    gen = torch.Generator().manual_seed(10)
+    grads = [[torch.randn(p.shape, generator=gen) * 1e-2 for p in leaves] for _ in range(3)]
+    arith = {}
+    for name, extra in OPTIMIZERS.items():
+        ps = {}
+        for dev in ("cuda", "cpu"):
+            tx, _ = build_optimizer(name, {"lr": 1e-4, "weight_decay": 0.1, **extra},
+                                    get_schedule(None, {}, 1e-4))
+            p = [t.clone().to(dev) for t in leaves]
+            st = tx.init(p)
+            for g in grads:
+                u, st = tx.update([x.to(dev) for x in g], st, p)
+                p = [a + b for a, b in zip(p, u)]
+            ps[dev] = p
+        atol, rtol = OPTIMIZER_TOL
+        diff = max((a.cpu() - b).abs().max().item() for a, b in zip(ps["cuda"], ps["cpu"]))
+        moved = max((b - c).abs().max().item() for b, c in zip(ps["cpu"], leaves))
+        within = all((a.cpu() - b).abs().max().item()
+                     <= atol + rtol * (b - c).abs().max().item()
+                     for a, b, c in zip(ps["cuda"], ps["cpu"], leaves))
+        check(within and moved > 0,
+              f"optimizer {name}: card vs CPU params differ by {diff} (moved {moved})")
+        arith[name] = {"params_max_abs_diff": diff, "moved": moved}
+    print(json.dumps({"optimizer_arithmetic": arith}))
+    cases = tuple((name, {"optimizer": {"type": name, "params": {
+        "lr": 1e-4, "weight_decay": 0.1, **extra}}}, 3, 2, 64)
+        for name, extra in OPTIMIZERS.items() if name not in ONEBIT)
+    return {"arithmetic": arith,
+            "training": train_parity(model, params, cases, "optimizer_parity")}
+
+
+def cpu_checkpointing_phase():
+    """Phase 31: llama-1b at full width and depth, 2 steps through the
+    forward / backward / step API: with remat, with remat and
+    cpu_checkpointing, and with the offload_dots policy (every residual of a
+    block in pinned host memory), bit-equal to each other (losses and
+    masters); without remat for scale.  The device memory a forward's graph
+    holds until its backward (``forward_graph_gb``: what remat and
+    offloading shrink), the peaks of each forward + backward and of the
+    whole step (at this size the fp32 optimizer state and the gradients set
+    them), and the memory held before each engine (``base_gb``)."""
+    import gc
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_config, llama_model
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+
+    g = torch.Generator(device=DEV).manual_seed(17)
+    batch = torch.randint(0, llama_config("1b").vocab_size, (OFFLOAD_MICRO, OFFLOAD_SEQ),
+                          generator=g, device=DEV)
+    out, masters = {}, {}
+    try:
+        for name, remat, policy, cpu in (("no_remat", False, "nothing_saveable", False),
+                                         ("remat", True, "nothing_saveable", False),
+                                         ("cpu_checkpointing", True, "nothing_saveable", True),
+                                         ("offload_dots", True, "offload_dots", False)):
+            model = llama_model("1b", max_seq_len=OFFLOAD_SEQ, remat=remat, remat_policy=policy)
+            ds = train_config(activation_checkpointing={"cpu_checkpointing": cpu})
+            ds["train_micro_batch_size_per_gpu"] = OFFLOAD_MICRO
+            gc.collect()  # the previous engine, if a reference cycle holds it
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated() / 2**30
+            e, *_ = deepspeed_tpu_torch.initialize(model=model, config=ds, seed=0)
+            losses, fb_peak, step_peak, step_ms = [], [], [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                losses.append(float(e.forward(batch)))
+                fb_peak.append(torch.cuda.max_memory_allocated() / 2**30)
+                e.backward()
+                e.step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                step_peak.append(torch.cuda.max_memory_allocated() / 2**30)
+            # what the forward's graph holds on the card until the backward:
+            # the residuals remat keeps (block inputs) or offloading moves
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            loss = e.model.loss_fn(e._compute_params(), batch, None)
+            torch.cuda.synchronize()
+            held = (torch.cuda.memory_allocated() - before) / 2**30
+            del loss
+            out[name] = {"losses": losses, "step_ms": step_ms, "base_gb": base,
+                         "fwd_bwd_peak_gb": fb_peak, "step_peak_gb": step_peak,
+                         "forward_graph_gb": held}
+            masters[name] = [p.detach().cpu() for p in e._master]
+            del e
+            torch.cuda.empty_cache()
+    finally:
+        checkpointing.configure(checkpoint_in_cpu=False)
+    for name in ("cpu_checkpointing", "offload_dots"):
+        check(out[name]["losses"] == out["remat"]["losses"],
+              f"{name}: losses differ from remat's: {out}")
+        check(all(torch.equal(a, b) for a, b in zip(masters["remat"], masters[name])),
+              f"{name}: masters differ from remat's")
+    print(json.dumps({"cpu_checkpointing": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3534,6 +4236,8 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*args)
         phase_s[fn.__name__] = round(time.perf_counter() - t, 1)
+        print(json.dumps({"phase_done": fn.__name__, "seconds": phase_s[fn.__name__]}),
+              flush=True)
         return out
 
     flash = phase(flash_phase, fa)
@@ -3560,6 +4264,19 @@ def main() -> int:
     mpar = phase(moe_parity_phase)
     moe_train = phase(moe_train_phase, fa, fadam, gm)
     mtpar = phase(moe_train_parity_phase)
+    off7 = phase(offload_7b_phase, fa, fadam)
+    hops = phase(host_ops_phase)
+    # the 7b step's host Adam against the host's memory rate (phase 25's)
+    off7["host_bound_gbps"] = hops["host_bound_gbps"]
+    off7["host_opt_bound_ms"] = off7["host_opt_bytes"] / (hops["host_bound_gbps"] * 1e9) * 1e3
+    off7["host_opt_bound_share"] = off7["host_opt_bound_ms"] / off7["boundary_parts_ms"][
+        "host_opt_ms"]
+    off1 = phase(offload_1b_phase)
+    zen = phase(zenflow_phase)
+    oparam = phase(offload_param_phase, fadam)
+    hyb = phase(hybrid_phase)
+    opars = phase(optimizers_phase)
+    ckpt = phase(cpu_checkpointing_phase)
     print(json.dumps({"phase_seconds": phase_s}))
 
     def timed(recs, keys):
@@ -3593,7 +4310,8 @@ def main() -> int:
                for k in ("quantize_int8", "dequantize_int8")}
     codec_shape = "n=65,536,000 bf16 (llama-1b embed.tok)"
     train_l = {k: train["launches"][k] + train["gas2"]["launches"][k] + moe_l[k]
-               for k in train["launches"]}
+               + off7["launches"][k] for k in train["launches"]}
+    train_l["fused_adam"] += oparam["offload_param"]["fused_adam_launches"]
     bwd_shape = "B=4 S=1024 NH=32 KVH=8 D=64 bf16 causal"
     main_sparse = sparse[0]
     main_evo = evo[0]
@@ -3605,7 +4323,8 @@ def main() -> int:
          "launches": serve_fwd + q_fwd + train_l["flash_fwd"] + moe_fwd,
          "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
                               "quantized_serving": q_fwd, "moe_serving": moe_fwd,
-                              "moe_training": moe_l["flash_fwd"]},
+                              "moe_training": moe_l["flash_fwd"],
+                              "offload_training_7b": off7["launches"]["flash_fwd"]},
          "max_abs_err": max(r["max_abs_err"] for r in flash), "checked": True,
          "ms": main_flash["ms"], "kernel_ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"], "bound_ms": main_flash["bound_ms"],
@@ -3618,6 +4337,7 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:132",
          "launches": train_l["flash_bwd_dq"],
+         "launches_by_path": {"offload_training_7b": off7["launches"]["flash_bwd_dq"]},
          "max_abs_err": max(r["dq_max_abs_err"] for r in bwd if "dq_max_abs_err" in r),
          "checked": True,
          "ms": main_bwd["dq_ms"], "plain_ms": main_bwd["plain_ms"],
@@ -3631,6 +4351,7 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:165",
          "launches": train_l["flash_bwd_dkv"],
+         "launches_by_path": {"offload_training_7b": off7["launches"]["flash_bwd_dkv"]},
          "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"]) for r in bwd
                            if "dk_max_abs_err" in r),
          "checked": True, "ms": main_bwd["dkv_ms"], "plain_ms": main_bwd["plain_ms"],
@@ -3667,6 +4388,7 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
          "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:23",
          "launches": train_l["fused_adam"],
+         "launches_by_path": {"offload_param": oparam["offload_param"]["fused_adam_launches"]},
          "max_abs_err": max(r["max_abs_err"] for r in adam), "checked": True,
          "ms": main_adam["ms"], "plain_ms": main_adam["plain_ms"],
          "bound_ms": main_adam["bound_ms"], "bound_by": main_adam["bound_by"],
@@ -3872,6 +4594,21 @@ def main() -> int:
     print(json.dumps({"evo_summary": {"train": evo_train, "cases": {r["case"]: {
         k: r[k] for k in ("max_abs_err", "bwd_max_abs_err") if k in r} for r in evo}},
         "sparse_summary": {r["case"]: r["max_abs_err"] for r in sparse}}))
+    print(json.dumps({"offload_summary": {
+        "llama7b": {k: off7[k] for k in (
+            "mode", "layers", "reduced", "params", "median_step_ms", "fwd_bwd_ms",
+            "boundary_parts_ms", "host_opt_gbps", "host_triad_gbps", "host_bound_gbps",
+            "host_opt_bound_ms", "host_opt_bound_share",
+            "tokens_per_s", "mfu", "peak_mem_gb", "peak_above_base_gb", "base_gb",
+            "resident_after_init_gb", "master_bytes",
+            "moment_bytes", "pinned_bytes", "rss_gb", "losses", "init_s", "cpu")},
+        "host_ops": hops, "llama1b": off1, "zenflow": zen, "offload_param": oparam,
+        "hybrid": hyb, "optimizer_arithmetic": opars["arithmetic"],
+        "optimizer_parity": {n: {k: r[k] for k in (
+            "steps", "params_max_abs_diff", "params_rel_norm", "params_leaf_rel_norm",
+            "params_past_tight", "params_past_tight_share")}
+            for n, r in opars["training"].items()},
+        "cpu_checkpointing": ckpt, "card": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

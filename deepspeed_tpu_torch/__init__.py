@@ -14,7 +14,10 @@ through both serving engines, the dropless layer's expert matmuls through
 the ``grouped_matmul`` kernel.  Training on one device: :func:`initialize` returns a
 :class:`DeepSpeedTPUEngine` whose ``train_batch`` runs the model forward
 through the flash kernel, the backward through the flash dQ and dK/dV
-kernels, and AdamW through the fused-Adam kernel.  Dense-cache inference:
+kernels, and AdamW through the fused-Adam kernel; ZeRO-Offload keeps the
+fp32 master and the moments in host RAM (or on NVMe) and updates them with
+the host C++ optimizers, and the hybrid engine generates with the training
+weights.  Dense-cache inference:
 :func:`init_inference` returns an :class:`InferenceEngine` (``generate``,
 ``forward``, ``module_quantize`` through the int8 quantize/dequantize
 kernels).  Entry points run on ``cuda`` unless the caller passes
@@ -49,6 +52,9 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     scheduler are the engine's own handles, and no dataloader is built (the
     data pipeline is not ported; pass batches to ``train_batch``).
 
+    ``hybrid_engine.enabled`` returns a ``DeepSpeedHybridEngine``, whose
+    ``generate`` reads the training engine's live weights.
+
     ``model_parameters``, when given, is what the engine trains instead of
     the model's random init: a JAX-layout tree of numpy arrays or a port
     ``ParamTree``, adopted leaf for leaf as the fp32 master.  ``device``
@@ -61,7 +67,12 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                                   "(ROADMAP Queue 1 #17 'Remaining modules'); pass batches "
                                   "to engine.train_batch")
     ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
-    engine = DeepSpeedTPUEngine(model=model, config=ds_config,
+    cls = DeepSpeedTPUEngine
+    if ds_config.hybrid_engine.enabled:
+        from .runtime.hybrid_engine import DeepSpeedHybridEngine
+
+        cls = DeepSpeedHybridEngine
+    engine = cls(model=model, config=ds_config,
                                 model_parameters=model_parameters, lr_scheduler=lr_scheduler,
                                 client_optimizer=optimizer, device=device, seed=seed)
     return engine, engine.optimizer, None, engine.lr_scheduler

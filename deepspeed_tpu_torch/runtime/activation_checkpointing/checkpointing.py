@@ -29,10 +29,16 @@ gating's ``generator=``) is held too: the recompute draws from the state
 the forward started from, and the generator is left as it was before the
 recompute.
 
-``cpu_checkpointing`` and ``offload_dots`` move residuals to host memory:
-they are ROADMAP Queue 1 #14's work and raise.  ``partition_activations``
-shards the saved residuals over model-parallel ranks, which one device
-does not have: accepted, nothing to do.
+``cpu_checkpointing`` (whatever the policy) and the ``offload_dots``
+policy move the block's residuals to host memory, as the JAX module's
+``save_and_offload_only_these_names`` policy offloads them to pinned host:
+the block runs under ``torch.autograd.graph.save_on_cpu(pin_memory=True)``,
+so every tensor its backward saves (the matmul outputs among them) is
+copied to pinned host memory in the forward and back in the backward, and
+nothing is recomputed.  The backward reads the very values the forward
+saved, so losses and gradients stay bit-equal to those without.
+``partition_activations`` shards the saved residuals over model-parallel
+ranks, which one device does not have: accepted, nothing to do.
 """
 
 from __future__ import annotations
@@ -44,7 +50,6 @@ from typing import Any, Callable, FrozenSet, Optional
 import torch
 
 from ...utils.logging import logger
-from ..config import ROADMAP_OFFLOAD
 
 _CONFIG = {
     "partition_activations": False,
@@ -71,11 +76,13 @@ _aten = torch.ops.aten
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """A remat policy: its JAX name and the aten ops whose outputs it keeps
-    (empty: recompute everything; None: keep everything).  Called as a
+    (empty: recompute everything; None: keep everything), and whether the
+    kept residuals live in pinned host memory (``offload``).  Called as a
     selective-checkpoint policy function."""
 
     name: str
     saves: Optional[FrozenSet[Any]]
+    offload: bool = False
 
     def __call__(self, ctx, op, *args, **kwargs):
         from torch.utils.checkpoint import CheckpointPolicy
@@ -90,6 +97,7 @@ _POLICIES = {p.name: p for p in (
     Policy("everything_saveable", None),
     Policy("dots_saveable", frozenset({_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm})),
     Policy("dots_with_no_batch_dims_saveable", frozenset({_aten.mm, _aten.addmm})),
+    Policy("save_and_offload_only_these_names", None, offload=True),
 )}
 
 
@@ -97,8 +105,7 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
               contiguous_checkpointing=None, num_checkpoints=None,
               checkpoint_in_cpu=None, synchronize=None, profile=None,
               policy: Optional[str] = None) -> None:
-    """Reference-compatible configure (checkpointing.py:892).  Host-memory
-    checkpointing raises (#14)."""
+    """Reference-compatible configure (checkpointing.py:892)."""
     if deepspeed_config is not None:
         ac = getattr(deepspeed_config, "activation_checkpointing", None)
         if ac is not None:
@@ -115,25 +122,20 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
         _CONFIG["number_checkpoints"] = num_checkpoints
     if policy is not None:
         _CONFIG["policy"] = policy
-    if _CONFIG["cpu_checkpointing"]:
-        _CONFIG["cpu_checkpointing"] = False
-        raise NotImplementedError(f"activation_checkpointing.cpu_checkpointing (residuals in "
-                                  f"host memory) is not ported yet ({ROADMAP_OFFLOAD})")
 
 
 def get_policy(name: Optional[str] = None) -> Optional[Policy]:
     """The :class:`Policy` for ``name`` (default: the configured one), or
-    None (recompute the whole block) where the JAX module's is None."""
+    None (recompute the whole block) where the JAX module's is None.  With
+    ``cpu_checkpointing`` configured, the offloading policy whatever the
+    name, as the JAX module returns."""
     name = name or _CONFIG["policy"]
     mapped = POLICY_MAP.get(name, name)
-    if mapped == "save_and_offload_only_these_names":
-        raise NotImplementedError(f"remat policy {name!r} offloads residuals to host memory: "
-                                  f"not ported yet ({ROADMAP_OFFLOAD})")
-    if mapped is None:
-        return None
-    pol = _POLICIES.get(mapped)
-    if pol is None:
+    pol = None if mapped is None else _POLICIES.get(mapped)
+    if mapped is not None and pol is None:
         logger.warning(f"unknown remat policy '{name}'; saving nothing")
+    if _CONFIG["cpu_checkpointing"]:
+        return _POLICIES["save_and_offload_only_these_names"]
     return pol
 
 
@@ -165,6 +167,9 @@ def _hold_generators(function: Callable, args, kwargs) -> Callable:
 
 
 def _run(function: Callable, pol: Optional[Policy], args, kwargs) -> Any:
+    if pol is not None and pol.offload:  # every residual to pinned host memory
+        with torch.autograd.graph.save_on_cpu(pin_memory=True):
+            return function(*args, **kwargs)
     if pol is not None and pol.saves is None:  # everything saveable
         return function(*args, **kwargs)
     from torch.utils.checkpoint import checkpoint as torch_checkpoint

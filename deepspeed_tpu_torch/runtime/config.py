@@ -3,12 +3,14 @@ subset of ``deepspeed_tpu/runtime/config.py``.
 
 Ported: the batch-size triangle (train_batch_size = micro_batch *
 grad_accum * dp_world_size), the ``fp16``, ``bf16``, ``optimizer`` and
-``scheduler`` blocks, ``zero_optimization.stage`` (0 and 1: on one device
-stage 1 is the same math as stage 0), ``gradient_clipping``,
+``scheduler`` blocks, ``zero_optimization.stage`` (0-3: on one rank
+partitioning is the identity, so every stage is the math of stage 0),
+``zero_optimization.offload_optimizer`` / ``offload_param`` / ``zenflow``
+(host-RAM or NVMe optimizer state, pinned-host masters, ZenFlow;
+``runtime/engine.py``), ``hybrid_engine``, ``gradient_clipping``,
 ``data_types.grad_accum_dtype``, ``seed``, ``steps_per_print`` and the
 ``activation_checkpointing`` block, which configures
-``runtime/activation_checkpointing/checkpointing.py`` when present (its
-``cpu_checkpointing`` raises, naming #14).
+``runtime/activation_checkpointing/checkpointing.py`` when present.
 
 A block that turns on something the port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it; a block
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import tempfile
 from typing import Any, Dict, Optional
 
 from .config_utils import AUTO, ConfigModel
@@ -30,7 +34,6 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 
 #: ROADMAP items named by the NotImplementedError of each unported block
 ROADMAP_ZERO = "ROADMAP Queue 1 #8 'ZeRO 1/2/3 across ranks'"
-ROADMAP_OFFLOAD = "ROADMAP Queue 1 #14 'Offload variants'"
 ROADMAP_PIPE = "ROADMAP Queue 1 #12 'Pipeline'"
 ROADMAP_TELEMETRY = "ROADMAP Queue 1 #16 'Training telemetry and resilience'"
 ROADMAP_COMM = "ROADMAP Queue 1 #9 'Communication and ZeRO++'"
@@ -48,7 +51,6 @@ _ENABLED_BLOCKS = {
     "flops_profiler": ROADMAP_REST,
     "comms_logger": ROADMAP_COMM,
     "gradient_compression": ROADMAP_COMM,
-    "hybrid_engine": ROADMAP_OFFLOAD,
     "elasticity": ROADMAP_REST,
 }
 #: top-level flags that are off unless true
@@ -80,18 +82,69 @@ class BF16Config(ConfigModel):
 
 
 @dataclasses.dataclass
+class OffloadConfig(ConfigModel):
+    """``offload_param`` / ``offload_optimizer`` (the JAX config's fields).
+    ``nvme_path`` empty means ``dstpu_nvme`` under the process's temporary
+    directory."""
+
+    device: str = "none"  # none | cpu | nvme
+    nvme_path: str = ""
+    pin_memory: bool = True
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    ratio: float = 1.0
+    max_in_cpu: int = 1_000_000_000
+    #: SuperOffload: the host update fanned out over CPU workers
+    super_offload: bool = False
+    cpu_worker_count: int = 4
+
+    @property
+    def enabled(self) -> bool:
+        return self.device not in ("none", None)
+
+    @property
+    def resolved_nvme_path(self) -> str:
+        return self.nvme_path or os.path.join(tempfile.gettempdir(), "dstpu_nvme")
+
+    def validate(self) -> None:
+        if self.device not in ("none", None, "cpu", "nvme"):
+            raise ValueError(f"offload device must be none, cpu or nvme, got {self.device!r}")
+        if self.super_offload and not self.enabled:
+            raise ValueError("super_offload requires offload_optimizer.device='cpu' (or "
+                             "'nvme'); got device='none'")
+
+
+@dataclasses.dataclass
+class ZenFlowConfig(ConfigModel):
+    """``zero_optimization.zenflow`` (the JAX config's fields)."""
+
+    enabled: bool = False
+    topk_ratio: float = 0.1  # fraction of columns on the immediate fast path
+    update_interval: int = 4  # the deferred host pass's cadence (boundaries)
+    full_warm_up_rounds: int = 0  # full synchronous updates first
+    overlap_step: bool = True  # run the deferred pass in a background thread
+
+    def validate(self) -> None:
+        if not (0.0 < self.topk_ratio <= 1.0):
+            raise ValueError(f"topk_ratio must be in (0, 1], got {self.topk_ratio}")
+        if self.update_interval < 1:
+            raise ValueError("update_interval must be >= 1")
+
+
+@dataclasses.dataclass
 class ZeroConfig(ConfigModel):
-    """``zero_optimization``: the stage only (0 or 1 on one device)."""
+    """``zero_optimization``: the stage and the offload blocks.  One rank
+    holds everything, so stages 1-3 partition nothing and run stage 0's
+    math."""
 
     stage: int = 0
+    offload_param: OffloadConfig = dataclasses.field(default_factory=OffloadConfig)
+    offload_optimizer: OffloadConfig = dataclasses.field(default_factory=OffloadConfig)
+    zenflow: ZenFlowConfig = dataclasses.field(default_factory=ZenFlowConfig)
 
     def validate(self) -> None:
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_optimization.stage must be 0-3, got {self.stage}")
-        if self.stage >= 2:
-            raise NotImplementedError(
-                f"zero_optimization.stage {self.stage} is not ported yet ({ROADMAP_ZERO}); "
-                "stages 0 and 1 train on one device")
 
 
 @dataclasses.dataclass
@@ -115,6 +168,19 @@ class ActivationCheckpointingConfig(ConfigModel):
 
 
 @dataclasses.dataclass
+class HybridEngineConfig(ConfigModel):
+    """``hybrid_engine``: training and generation on one copy of the
+    weights (the JAX config's fields)."""
+
+    enabled: bool = False
+    max_out_tokens: int = 512
+    inference_tp_size: int = 1
+    release_inference_cache: bool = False
+    pin_parameters: bool = True
+    tp_gather_partition_size: int = 8
+
+
+@dataclasses.dataclass
 class SchedulerConfig(ConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -130,13 +196,6 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
         if config.get(key):
             raise NotImplementedError(f"'{key}' is not ported yet ({item})")
     zero = config.get("zero_optimization") or {}
-    for key in ("offload_param", "offload_optimizer"):
-        dev = (zero.get(key) or {}).get("device", "none")
-        if dev not in ("none", None):
-            raise NotImplementedError(
-                f"zero_optimization.{key} (device {dev!r}) is not ported yet ({ROADMAP_OFFLOAD})")
-    if (zero.get("zenflow") or {}).get("enabled"):
-        raise NotImplementedError(f"zero_optimization.zenflow is not ported yet ({ROADMAP_OFFLOAD})")
     for key in _ZERO_ON:
         if zero.get(key):
             raise NotImplementedError(
@@ -174,6 +233,7 @@ class DeepSpeedConfig:
     fp16: FP16Config
     bf16: BF16Config
     zero_config: ZeroConfig
+    hybrid_engine: HybridEngineConfig
     optimizer: OptimizerConfig
     scheduler: SchedulerConfig
     activation_checkpointing: ActivationCheckpointingConfig
@@ -205,8 +265,10 @@ class DeepSpeedConfig:
 
         self.fp16 = FP16Config.from_dict(g("fp16"))
         self.bf16 = BF16Config.from_dict(g("bf16") or g("bfloat16"))
+        zero = g("zero_optimization") or {}
         self.zero_config = ZeroConfig.from_dict(
-            {"stage": (g("zero_optimization") or {}).get("stage", 0)})
+            {f.name: zero[f.name] for f in dataclasses.fields(ZeroConfig) if f.name in zero})
+        self.hybrid_engine = HybridEngineConfig.from_dict(g("hybrid_engine"))
         self.optimizer = OptimizerConfig.from_dict(g("optimizer"))
         self.scheduler = SchedulerConfig.from_dict(g("scheduler"))
         self.activation_checkpointing = ActivationCheckpointingConfig.from_dict(

@@ -23,6 +23,35 @@ the fp16 loss-scale state and the step counters.  One optimizer step:
 makes no host sync: the learning rate, the step count, the norm and the
 loss scale stay on the device.  An fp16 step syncs once, on its overflow
 verdict, to decide whether the optimizer runs.
+
+Offload (``zero_optimization``; the JAX engine's ``offload_optimizer`` /
+``zenflow`` / ``offload_param`` paths):
+
+  * ``offload_optimizer`` (``cpu`` or ``nvme``), ``zenflow``, or
+    ``super_offload``: the fp32 master and the moments live in host RAM
+    (``zero/offload.py``, ``superoffload/``, ``zenflow/``).  The card holds
+    only the compute-dtype leaves autograd differentiates — they are
+    ``TrainState.params`` — with no fp32 master and an empty
+    ``opt_state``; at initialisation each leaf's fp32 copy moves to the host
+    and its device copy is freed, one leaf at a time.  The boundary takes
+    the global norm of the gradients on the card (each leaf's fp32 sum of
+    squares, summed in float64, as ``scale_and_clip`` sums), then streams
+    them through ``zero/boundary.py``: fp32 gradients down in bounded
+    buckets, the host update as each bucket lands, compute-dtype params
+    back into the live leaves, the next forward ordered after the last
+    copy.  The learning rate and the norm cost one host sync each.
+    fp16's overflow verdict is taken over the device copy of the
+    gradients (the host copy is streamed and never whole); an overflowing
+    step touches no host state.
+  * ``offload_param`` alone: the fp32 master lives in (pinned) host memory
+    and the moments stay on the card.  At the boundary each leaf streams
+    up into a device buffer, takes the optimizer there (kernel C for the
+    fused one, in place), refreshes its compute copy and streams back.
+    With ``offload_optimizer`` also set it is subsumed, as in the JAX
+    engine.
+
+No path moves the master back to the card when host memory is short: an
+allocation that fails raises.
 """
 
 from __future__ import annotations
@@ -38,6 +67,8 @@ from ..models.convert import adopt_params
 from ..models.transformer import ParamTree
 from ..utils.logging import logger
 from .config import DeepSpeedConfig
+from .zero.boundary import OffloadBoundary
+from .zero.offload import clip_coefficient
 from .lr_schedules import LRSchedulerShim, get_schedule
 from .module import ModelSpec, as_model_spec
 from .optimizers import build_optimizer
@@ -53,8 +84,10 @@ class TrainState:
 
     step: torch.Tensor  # optimizer steps taken (int32, on the device)
     micro_step: int  # micro-steps accumulated since the last boundary
-    params: ParamTree  # fp32 master
-    opt_state: Any
+    #: the fp32 master (on the host under offload_param); under
+    #: offload_optimizer the compute-dtype leaves on the card
+    params: ParamTree
+    opt_state: Any  # () under offload_optimizer
     grad_acc: Optional[List[torch.Tensor]]  # grad_accum_dtype; None while empty
     loss_scale: Optional[LossScaleState]
     skipped_steps: torch.Tensor  # int32, on the device
@@ -130,19 +163,62 @@ class DeepSpeedTPUEngine:
         # True while forward() has written the accumulation buffer without
         # reaching a step() boundary (train_batch then drops it)
         self._acc_dirty = False
+        zc = self.config.zero_config
+        self.offload_optimizer = self._host_optimizer()
+        self._param_offload = zc.offload_param.enabled and self.offload_optimizer is None
+        if zc.offload_param.enabled and self.offload_optimizer is not None:
+            logger.warning("offload_param: the optimizer-offload path already keeps the fp32 "
+                           "master in host RAM; offload_param is subsumed")
+        pin = zc.offload_optimizer.pin_memory if self.offload_optimizer is not None else \
+            zc.offload_param.pin_memory
+        self._pin = pin and self.device.type == "cuda"
+        self._parked = False
+        self._stage: Optional[torch.Tensor] = None
         self.state = self._init_state(model_parameters,
                                       self.config.seed if seed is None else seed)
-        self._master = [p for _, p in self.state.params.named_parameters()]
-        # the compute-dtype copy autograd differentiates, refreshed from the
-        # master once per optimizer step (in fp32, the master's own storage)
-        self._compute = self.state.params.map(lambda t: t.to(self.compute_dtype),
-                                               requires_grad=True)
         self._compute_leaves = [p for _, p in self._compute.named_parameters()]
         self._compute_fresh = True
+        self._boundary = (OffloadBoundary(self._compute_leaves, self._pin)
+                          if self.offload_optimizer is not None else None)
         logger.info(f"DeepSpeedTPUEngine (torch) initialized: device={self.device} "
                     f"zero_stage={self.config.zero_config.stage} dtype={self.compute_dtype} "
                     f"micro_bs={self.config.train_micro_batch_size_per_gpu} "
-                    f"gas={self.config.gradient_accumulation_steps}")
+                    f"gas={self.config.gradient_accumulation_steps} "
+                    f"offload_optimizer={self.offload_optimizer is not None} "
+                    f"offload_param={self._param_offload}")
+
+    def _host_optimizer(self):
+        """The host optimizer the config selects (JAX engine.py:168-215), or
+        None."""
+        zc = self.config.zero_config
+        off, zf = zc.offload_optimizer, zc.zenflow
+        if not (off.enabled or zf.enabled):
+            return None
+        if self.fp16_enabled and (zf.enabled or off.super_offload):
+            raise NotImplementedError("fp16 loss scaling is supported with plain "
+                                      "offload_optimizer but not with zenflow/super_offload; "
+                                      "use bf16 there")
+        opt_cfg = {"type": self.config.optimizer.type, "params": self.config.optimizer.params}
+        clip = self.config.gradient_clipping
+        nvme = off.resolved_nvme_path if off.device == "nvme" else None
+        if zf.enabled:
+            from .zenflow.zenflow import ZenFlowOptimizer
+
+            if nvme:
+                raise NotImplementedError("zenflow keeps optimizer state in host RAM; it does "
+                                          "not spill to NVMe — drop offload_optimizer.device="
+                                          "'nvme' or disable zenflow")
+            if off.super_offload:
+                logger.warning("zenflow enabled: super_offload / cpu_worker_count are ignored")
+            return ZenFlowOptimizer(None, opt_cfg, zenflow_config=zf, grad_clip=clip)
+        if off.super_offload:
+            from .superoffload.superoffload import SuperOffloadOptimizer
+
+            return SuperOffloadOptimizer(None, opt_cfg, grad_clip=clip, nvme_path=nvme,
+                                         cpu_worker_count=off.cpu_worker_count)
+        from .zero.offload import HostOffloadedOptimizer
+
+        return HostOffloadedOptimizer(None, opt_cfg, grad_clip=clip, nvme_path=nvme)
 
     # ------------------------------------------------------------------ init
     def _init_state(self, model_parameters: Any, seed: int) -> TrainState:
@@ -156,11 +232,34 @@ class DeepSpeedTPUEngine:
             p.requires_grad_(False)
         leaves = [p for _, p in params.named_parameters()]
         dev = self.device
+        host = self.offload_optimizer
+        with torch.no_grad():
+            if host is not None:
+                # the master to host RAM leaf by leaf, each device copy freed
+                # as its compute copy replaces it
+                for i, p in enumerate(leaves):
+                    host.adopt_master(i, p)
+                    p.data = p.data.to(self.compute_dtype)
+                    p.requires_grad_(p.is_floating_point())
+                self._compute, self._master, opt_state = params, [], ()
+            else:
+                # the compute-dtype copy autograd differentiates, refreshed
+                # from the master once per optimizer step (in fp32 the
+                # master's own storage, unless the master moves to the host)
+                self._compute = params.map(lambda t: t.to(self.compute_dtype),
+                                           requires_grad=True)
+                opt_state = self.optimizer.init(leaves)
+                if self._param_offload:
+                    for p in leaves:
+                        h = torch.empty(p.shape, dtype=p.dtype, pin_memory=self._pin)
+                        h.copy_(p)
+                        p.data = h
+                self._master = leaves
         return TrainState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             micro_step=0,
             params=params,
-            opt_state=self.optimizer.init(leaves),
+            opt_state=opt_state,
             grad_acc=None,
             loss_scale=(LossScaleState.create(self.config.fp16, dev)
                         if self.fp16_enabled else None),
@@ -208,6 +307,9 @@ class DeepSpeedTPUEngine:
         src = st.grad_acc if grads_src is None else grads_src
         if src is None:
             raise RuntimeError("step(): no gradients accumulated since the last step")
+        if self.offload_optimizer is not None:
+            self._apply_step_offload(src, overflow)
+            return
         gas = self.config.gradient_accumulation_steps or 1
         # fp32 copies of non-fp32 grads; fp32 grads are this step's own
         # buffers (autograd outputs or the accumulator) and are scaled in place
@@ -231,10 +333,14 @@ class DeepSpeedTPUEngine:
             skipped = int(bool(overflow))
             st.loss_scale = update_loss_scale(st.loss_scale, overflow, self.config.fp16)
         if not skipped:
-            self._update(grads)
+            if self._param_offload:
+                self._update_streamed(grads)
+            else:
+                self._update(grads)
             st.step = st.step + 1
-            # an fp32 compute copy shares the master's storage: never stale
-            self._compute_fresh = self.compute_dtype == torch.float32
+            # an fp32 compute copy shares the master's storage, and the
+            # streamed update refreshes the compute copy itself: never stale
+            self._compute_fresh = self.compute_dtype == torch.float32 or self._param_offload
         st.skipped_steps = st.skipped_steps + skipped
         st.global_grad_norm = norm
         st.grad_acc = None
@@ -250,6 +356,65 @@ class DeepSpeedTPUEngine:
         with torch.no_grad():
             for p, u in zip(self._master, updates):
                 p.add_(u.to(p.dtype))
+
+    def _update_streamed(self, grads: List[torch.Tensor]) -> None:
+        """offload_param's boundary: each host master leaf up into a device
+        buffer, the optimizer there (kernel C in place for the fused one),
+        its compute copy refreshed, the leaf back down.  Every copy and
+        update runs on the caller's stream, in order, so one buffer the
+        size of the largest leaf serves every leaf."""
+        opt, state = self.optimizer, self.state.opt_state
+        direct = getattr(opt, "direct_update", None)
+        if self._stage is None:
+            cap = max(m.numel() for m in self._master)
+            self._stage = torch.empty(cap, dtype=torch.float32, device=self.device)
+        step = state["step"]
+        with torch.no_grad():
+            for i, (g, host, c) in enumerate(zip(grads, self._master, self._compute_leaves)):
+                p = self._stage[:host.numel()].view(host.shape)
+                p.copy_(host, non_blocking=True)
+                sub = {k: ([v[i]] if isinstance(v, list) else v) for k, v in state.items()}
+                sub["step"] = step
+                if direct is not None:
+                    direct([g], sub, [p])
+                else:
+                    (u,), sub = opt.update([g], sub, [p])
+                    p.add_(u.to(p.dtype))
+                    for k, v in sub.items():
+                        if isinstance(state.get(k), list):
+                            state[k][i] = v[0]
+                c.copy_(p)
+                host.copy_(p, non_blocking=True)
+            state["step"] = sub["step"]
+
+    def _apply_step_offload(self, src: List[torch.Tensor],
+                            overflow: Optional[torch.Tensor]) -> None:
+        """The host optimizer's boundary (JAX engine.py:1529-1610): norm and
+        clip factor on the card, then the streamed update."""
+        st = self.state
+        gas = self.config.gradient_accumulation_steps or 1
+        lr = float(self.lr_schedule(int(st.step)))
+        denom = float(gas)
+        if self.fp16_enabled:
+            if overflow is None:
+                overflow = check_overflow(src)
+            denom = float(gas) * float(st.loss_scale.cur_scale)
+            st.loss_scale = update_loss_scale(st.loss_scale, overflow, self.config.fp16)
+            if bool(overflow):  # skipped before any host state is touched
+                st.skipped_steps = st.skipped_steps + 1
+                st.global_grad_norm = torch.zeros((), dtype=torch.float32, device=self.device)
+                st.grad_acc, st.micro_step = None, 0
+                return
+        denom_t = torch.tensor(denom, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            sq = torch.stack([torch.dot(v, v) for v in
+                              (g.reshape(-1).float() / denom_t for g in src)])
+            norm = float(sq.double().sum().sqrt())
+        self._boundary.run(src, denom, clip_coefficient(norm, self.config.gradient_clipping),
+                           self.offload_optimizer, lr)
+        st.step = st.step + 1
+        st.global_grad_norm = torch.tensor(norm, dtype=torch.float32, device=self.device)
+        st.grad_acc, st.micro_step = None, 0
 
     def _train_batch(self, batches: Any) -> torch.Tensor:
         gas = self.config.gradient_accumulation_steps or 1
@@ -274,6 +439,7 @@ class DeepSpeedTPUEngine:
         ``gradient_accumulation_steps`` (:func:`stack_microbatches`), or
         ``data_iter`` yields the gas micro-batches.  Returns the mean loss
         as a device tensor."""
+        self._check_live()
         gas = self.config.gradient_accumulation_steps or 1
         if batch is None:
             if data_iter is None:
@@ -293,6 +459,7 @@ class DeepSpeedTPUEngine:
     def forward(self, batch: Any) -> torch.Tensor:
         """DeepSpeed-compatible micro-step: loss AND gradients in one pass
         (accumulated); ``backward`` then only counts the micro-step."""
+        self._check_live()
         grads, loss, _ = self._micro_grads(_to_device(batch, self.device))
         self._accumulate(grads)
         self._acc_dirty = True
@@ -310,6 +477,7 @@ class DeepSpeedTPUEngine:
 
     def step(self) -> None:
         """The optimizer at the gas boundary."""
+        self._check_live()
         if self.is_gradient_accumulation_boundary():
             self._apply_step()
             self._acc_dirty = False
@@ -318,6 +486,7 @@ class DeepSpeedTPUEngine:
 
     def eval_batch(self, batch: Any) -> Any:
         """The model's ``apply_fn`` (else its loss) on the compute copy."""
+        self._check_live()
         batch = _to_device(batch, self.device)
         with torch.no_grad():
             p = self._compute_params()
@@ -343,9 +512,86 @@ class DeepSpeedTPUEngine:
 
     def get_params(self, dtype: Optional[torch.dtype] = None) -> ParamTree:
         """The fp32 master (a cast copy when ``dtype`` is given);
-        ``models.convert.params_to_numpy`` turns it into the JAX layout."""
-        p = self.state.params
+        ``models.convert.params_to_numpy`` turns it into the JAX layout.
+        Under offload it lies in host memory: the host optimizer's arrays
+        (shared, not copied) or offload_param's pinned leaves."""
+        if self.offload_optimizer is not None:
+            p = self.offload_optimizer.master_as_tree(self._compute)
+        else:
+            if self._param_offload and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the last leaves' copies down
+            p = self.state.params
         return p.map(lambda t: t.to(dtype)) if dtype is not None else p
+
+    # ------------------------------------------------------ state offload
+    def _check_live(self) -> None:
+        if self._parked:
+            raise RuntimeError("the engine's state is parked in host memory "
+                               "(offload_states); call reload_states() first")
+
+    def _state_tensors(self) -> List[Any]:
+        """(holder, key) of every tensor of the training state: the leaves
+        of the master and compute trees, and the optimizer's and the
+        accumulation buffer's lists."""
+        out: List[Any] = []
+        seen = set()
+        for tree in (self.state.params, self._compute):  # one tree under offload_optimizer
+            for p in tree.parameters():
+                if id(p) not in seen:
+                    seen.add(id(p))
+                    out.append((p, None))
+        lists = [v for v in (self.state.opt_state or {}).values() if isinstance(v, list)] \
+            if isinstance(self.state.opt_state, dict) else []
+        if self.state.grad_acc is not None:
+            lists.append(self.state.grad_acc)
+        out += [(lst, k) for lst in lists for k in range(len(lst))]
+        return out
+
+    def _move_state(self, entries: List[Any], device: torch.device, pin: bool) -> None:
+        moved = {}  # one copy per storage: an fp32 compute copy shares the master's
+        with torch.no_grad():
+            for holder, k in entries:
+                t = holder.data if k is None else holder[k]
+                key = (t.data_ptr(), t.dtype, tuple(t.shape))
+                if key not in moved:
+                    if device.type == "cpu":
+                        moved[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                        moved[key].copy_(t)
+                    else:
+                        moved[key] = t.to(device)
+                if k is None:
+                    holder.data = moved[key]
+                else:
+                    holder[k] = moved[key]
+
+    def offload_states(self, include: Any = None, device: str = "cpu", pin_memory: bool = True,
+                       non_blocking: bool = False) -> None:
+        """Park the whole training state in host memory and free the card
+        (the reference's ``engine.offload_states``, used between RLHF
+        phases); training calls raise until :meth:`reload_states`.  Under
+        offload_optimizer the host optimizer's state is in host RAM already;
+        the card's compute leaves move."""
+        if self._parked:
+            return
+        self._parked_entries = []
+        if self.device.type != "cpu":
+            torch.cuda.synchronize(self.device)
+            self._parked_entries = [(h, k) for h, k in self._state_tensors()
+                                    if (h.data if k is None else h[k]).device.type
+                                    == self.device.type]
+            self._move_state(self._parked_entries, torch.device("cpu"), pin_memory)
+            torch.cuda.empty_cache()
+        self._parked = True
+        logger.info("offload_states: training state moved to host memory")
+
+    def reload_states(self, non_blocking: bool = False) -> None:
+        """Undo :meth:`offload_states`."""
+        if not self._parked:
+            return
+        self._move_state(self._parked_entries, self.device, False)
+        self._parked_entries = []
+        self._parked = False
+        logger.info("reload_states: training state restored to the device")
 
     def train_micro_batch_size_per_gpu(self) -> int:
         return self.config.train_micro_batch_size_per_gpu

@@ -3,12 +3,14 @@ checkpointing.py`` and ``TransformerConfig.remat``) against the JAX
 package's, on the CPU.
 
 * The module maps every ``POLICY_MAP`` name as the JAX module does (the
-  same policy, or None where JAX's is None); the names that move residuals
-  to host memory raise, naming ROADMAP #14.
+  same policy, or None where JAX's is None); ``offload_dots`` and
+  ``cpu_checkpointing`` keep the residuals in (pinned) host memory.
 * Remat changes no number: for every policy name, ``transformer_forward``
   and ``causal_lm_loss`` give losses and gradients bit-equal to
   ``remat=False`` in fp32 (the recompute runs the same ops on the same
-  inputs), for llama and for Mixtral (dropless and capacity).
+  inputs; an offloaded residual comes back with the bits it left with),
+  for llama and for Mixtral (dropless and capacity), also with
+  ``cpu_checkpointing``.
 * Against JAX's ``remat=True``: the tolerances of ``test_torch_model.py``
   without remat (fp32 1e-5 of each leaf's largest gradient).
 * A ``torch.Generator`` handed to the checkpointed function draws the
@@ -38,7 +40,7 @@ from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing a
 torch.set_num_threads(2)
 
 OFFLOAD = ("offload_dots",)
-POLICIES = sorted(set(tck.POLICY_MAP) - set(OFFLOAD))
+POLICIES = sorted(tck.POLICY_MAP)
 MODELS = {"llama": (jllama.llama_config, tllama.llama_config, {}),
           "mixtral_dropless": (jmixtral.mixtral_config, tmixtral.mixtral_config,
                                dict(moe_drop_tokens=False)),
@@ -73,11 +75,8 @@ def _port_loss_and_grads(tcfg, tree, ids):
 @pytest.mark.parametrize("name", sorted(tck.POLICY_MAP))
 def test_policy_map_matches_jax(name, fresh_config):
     assert tck.POLICY_MAP == jck.POLICY_MAP
-    if name in OFFLOAD:
-        with pytest.raises(NotImplementedError, match="#14"):
-            tck.get_policy(name)
-        return
     want, got = jck.get_policy(name), tck.get_policy(name)
+    assert (got is not None and got.offload) == (name in OFFLOAD)
     if want is None:
         assert got is None
     else:
@@ -89,10 +88,14 @@ def test_policy_map_matches_jax(name, fresh_config):
 
 
 def test_unknown_policy_saves_nothing_and_host_memory_raises(fresh_config):
+    """An unknown name saves nothing; host-memory checkpointing, which once
+    raised, now makes every name the offloading policy, as the JAX
+    module's get_policy returns its offload policy whatever the name."""
     assert tck.get_policy("no_such_policy") is None is jck.get_policy("no_such_policy")
-    with pytest.raises(NotImplementedError, match="#14"):
-        tck.configure(checkpoint_in_cpu=True)
-    assert tck.is_configured() and not tck._CONFIG["cpu_checkpointing"]
+    tck.configure(checkpoint_in_cpu=True)
+    assert tck.is_configured() and tck._CONFIG["cpu_checkpointing"]
+    for name in ("nothing_saveable", "dots_saveable", "no_such_policy"):
+        assert tck.get_policy(name).offload
 
 
 def test_config_block_configures_the_module(fresh_config):
@@ -110,8 +113,8 @@ def test_config_block_configures_the_module(fresh_config):
                                   dp_world_size=1).activation_checkpointing
     assert {f: getattr(jac, f) for f in jc.__dataclass_fields__} == \
         dataclasses.asdict(cfg.activation_checkpointing)
-    with pytest.raises(NotImplementedError, match="#14"):
-        tconfig.DeepSpeedConfig({"activation_checkpointing": {"cpu_checkpointing": True}})
+    tconfig.DeepSpeedConfig({"activation_checkpointing": {"cpu_checkpointing": True}})
+    assert tck._CONFIG["cpu_checkpointing"] and tck.get_policy().offload
 
 
 @pytest.mark.parametrize("policy", POLICIES)
@@ -131,6 +134,19 @@ def test_remat_is_bit_equal_to_no_remat(model, policy):
         for a, b in zip(tt.transformer_forward(tcfg, tp, torch.from_numpy(ids)),
                         tt.transformer_forward(rcfg, tp, torch.from_numpy(ids))):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_cpu_checkpointing_is_bit_equal_to_no_remat(model, fresh_config):
+    """cpu_checkpointing: every residual of each block goes to host memory
+    and comes back for the backward; loss and gradients bit-equal."""
+    _, tcfg, tree = _setup(model)
+    ids = np.random.RandomState(5).randint(0, tcfg.vocab_size, (2, 17))
+    loss, grads, _ = _port_loss_and_grads(tcfg, tree, ids)
+    tck.configure(checkpoint_in_cpu=True)
+    rloss, rgrads, _ = _port_loss_and_grads(dataclasses.replace(tcfg, remat=True), tree, ids)
+    assert torch.equal(loss, rloss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, rgrads))
 
 
 @pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable"])

@@ -5,7 +5,7 @@ model_runner.py`` has its counterpart at ``deepspeed_tpu_torch/inference/
 v2/model_runner.py``).  The port imports ``torch`` and numpy only: never
 JAX and nothing of ``deepspeed_tpu``.
 
-Four slices are ported.  Serving: :class:`InferenceEngineV2` (paged
+What is ported.  Serving: :class:`InferenceEngineV2` (paged
 continuous batching) over a llama-family transformer, with hand-written
 CUDA kernels for flash-attention forward (prefill) and paged decode
 attention, and weight-only int8/int4 weights (``quant_bits``) through the
@@ -20,7 +20,11 @@ the host C++ optimizers, and the hybrid engine generates with the training
 weights.  Dense-cache inference:
 :func:`init_inference` returns an :class:`InferenceEngine` (``generate``,
 ``forward``, ``module_quantize`` through the int8 quantize/dequantize
-kernels).  Entry points run on ``cuda`` unless the caller passes
+kernels).  Model families: llama, mixtral, mistral, qwen2, phi, opt,
+falcon, bloom, gpt-neox, gpt2 and BERT (``models/``); Hugging Face
+checkpoint directories load through ``checkpoint/hf_import.py`` (and
+``init_inference(<dir>)``, ``InferenceEngineV2.from_pretrained(<dir>)``)
+and are written by ``checkpoint/hf_export.py``.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
 """
 
@@ -85,19 +89,23 @@ def init_inference(model: Any = None, config: Any = None, device: DeviceLike = N
     ``config``: an :class:`InferenceConfig` or a dict of its fields; keyword
     arguments naming a field override it, and ``params`` hands the engine
     its weights (a ``ParamTree`` or a JAX-layout numpy tree).  ``device``
-    None means ``cuda``.  A Hugging Face checkpoint directory as ``model``
-    is not ported yet."""
+    None means ``cuda``.  ``model`` may be a Hugging Face checkpoint
+    directory: its ``config.json`` picks the family, and its weights are
+    imported in the config's dtype and served."""
     cfg = config if isinstance(config, InferenceConfig) else InferenceConfig.from_dict(
         config if isinstance(config, dict) else {})
     for k, v in kwargs.items():
         if hasattr(cfg, k):
             setattr(cfg, k, v)
     cfg.validate()
+    params = kwargs.get("params")
     if isinstance(model, str) and os.path.isdir(model):
-        raise NotImplementedError(
-            "init_inference from a Hugging Face checkpoint directory: checkpoint/hf_import.py "
-            "is not ported yet (ROADMAP Queue 1 #17 'Remaining modules')")
-    return InferenceEngine(model, cfg, params=kwargs.get("params"), device=device)
+        from .checkpoint.hf_import import load_hf_model
+        from .models.families import causal_lm_spec
+
+        mcfg, params = load_hf_model(model, dtype=cfg.torch_dtype)
+        model = causal_lm_spec(mcfg)
+    return InferenceEngine(model, cfg, params=params, device=device)
 
 
 def default_inference_config() -> Dict[str, Any]:

@@ -209,6 +209,20 @@ class InferenceEngineV2:
     CUDA device the decode, multi-step and verify programs are captured
     as CUDA graphs here, at construction (``captured.py``)."""
 
+    @classmethod
+    def from_pretrained(cls, model_dir: str, config: Optional[RaggedInferenceConfig] = None,
+                        **kw: Any) -> "InferenceEngineV2":
+        """Serve a Hugging Face checkpoint directory: its ``config.json``
+        picks the family, its weights are read in the serving dtype (never
+        widened on the host) and moved to the device layer by layer.
+        ``kw`` goes to the constructor (``device``, ``seed``, ...)."""
+        from ...checkpoint.hf_import import load_hf_model
+        from ...models.families import causal_lm_spec
+
+        cfg = config or RaggedInferenceConfig()
+        mcfg, params = load_hf_model(model_dir, dtype=cfg.torch_dtype)
+        return cls(causal_lm_spec(mcfg), config=cfg, params=params, **kw)
+
     def __init__(self, model: Any, config: Optional[RaggedInferenceConfig] = None,
                  params: Any = None, seed: int = 0, device: Any = None,
                  proposer: Any = None):

@@ -1,0 +1,16 @@
+from .bert import bert_config, bert_model
+from .families import (bloom_config, bloom_model, falcon_config, falcon_model,
+                       gpt_neox_config, gpt_neox_model, mistral_config, mistral_model,
+                       opt_config, opt_model, phi_config, phi_model, qwen_config,
+                       qwen_model)
+from .gpt2 import gpt2_config, gpt2_model
+from .llama import llama_config, llama_model
+from .mixtral import mixtral_config, mixtral_model
+from .transformer import TransformerConfig
+
+__all__ = ["bert_config", "bert_model", "gpt2_config", "gpt2_model",
+           "llama_config", "llama_model", "mixtral_config", "mixtral_model",
+           "mistral_config", "mistral_model", "qwen_config", "qwen_model",
+           "phi_config", "phi_model", "opt_config", "opt_model",
+           "falcon_config", "falcon_model", "bloom_config", "bloom_model",
+           "gpt_neox_config", "gpt_neox_model", "TransformerConfig"]

@@ -8,7 +8,8 @@ steps of both engines.
 
 The JAX parameter tree (``init_transformer_params`` layout: nested dicts,
 layers stacked on axis 0 as ``[L, ...]``, matmul weights ``[in, out]``)
-crosses as numpy arrays.  The port keeps the ``[in, out]`` layout
+crosses as numpy arrays, or as CPU tensors in the checkpoint's own dtype
+(``checkpoint/hf_import.load_hf_model``).  The port keeps the ``[in, out]`` layout
 (``x @ W``), so no leaf is transposed; the only reshaping is splitting
 the stacked layer axis into per-layer trees and back.  Weight-only
 quantized ``{"wq", "scale"}`` sub-trees cross both ways like any other:
@@ -28,41 +29,50 @@ from .transformer import ParamTree, TransformerConfig
 
 
 def _to_tensor(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A leaf as a new tensor on ``device``, floating leaves in ``dtype``.
+    A torch leaf (the HF importer's) is copied in its own type straight
+    to ``dtype``, so a bf16 checkpoint is never widened on the host; a
+    transposed view of a contiguous tensor (the importer's ``[in, out]``
+    of an ``[out, in]`` weight) crosses as stored and is transposed on
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        dt = dtype if a.is_floating_point() else a.dtype
+        if a.dim() >= 2 and not a.is_contiguous() and a.mT.is_contiguous():
+            return a.mT.to(device=device, dtype=dt, copy=True).mT.contiguous()
+        return a.to(device=device, dtype=dt, copy=True,
+                    memory_format=torch.contiguous_format)
     arr = np.asarray(a)
     if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
         # bfloat16 numpy arrays (ml_dtypes) are widened first: torch cannot
         # read them directly
         return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=dtype)
-    return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig,
                       device: DeviceLike = None,
                       dtype: torch.dtype = torch.float32) -> ParamTree:
-    """JAX parameter tree (numpy leaves) -> the port's ``ParamTree`` with
-    floating leaves cast to ``dtype`` on ``device`` (None means ``cuda``,
-    as everywhere in the port); the scales of a quantized sub-tree stay
-    fp32."""
+    """JAX parameter tree (numpy leaves, or CPU tensors as the HF importer
+    gives them) -> the port's ``ParamTree`` with floating leaves cast to
+    ``dtype`` on ``device`` (None means ``cuda``, as everywhere in the
+    port); the scales of a quantized sub-tree stay fp32.  Each layer's
+    slice of a stacked leaf is cut on the host and moved alone, so the
+    device never holds a stacked copy."""
     device = resolve_device(device)
 
-    def walk(node):
+    def walk(node, i=None):
         quantized = _is_quantized(node)
-        return {k: walk(v) if isinstance(v, dict) else
-                _to_tensor(v, device, torch.float32 if quantized and k == "scale" else dtype)
+        return {k: walk(v, i) if isinstance(v, dict) else
+                _to_tensor(v if i is None else v[i], device,
+                           torch.float32 if quantized and k == "scale" else dtype)
                 for k, v in node.items()}
 
     out = {k: walk(v) for k, v in tree.items() if k != "layers"}
-    stacked = walk(tree["layers"])
     n = cfg.n_layers
-    depth = {leaf.shape[0] for leaf in _leaves(stacked)}
+    depth = {leaf.shape[0] for leaf in _leaves(tree["layers"])}
     if depth != {n}:
         raise ValueError(f"stacked layer axis {sorted(depth)} != n_layers {n}")
-
-    def pick(node, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i].clone()
-                for k, v in node.items()}
-
-    out["layers"] = [pick(stacked, i) for i in range(n)]
+    out["layers"] = [walk(tree["layers"], i) for i in range(n)]
     return ParamTree(out)
 
 

@@ -1,0 +1,222 @@
+"""The other model families on the shared transformer core (the port's
+counterpart of ``deepspeed_tpu/models/families.py``).
+
+Each family is a :class:`TransformerConfig` recipe; the compute path
+(training forward, dense-cache and paged serving) is the core's:
+
+  mistral  — llama-shape with GQA (full causal attention: the sliding
+             window changes masks, not layout)
+  qwen2    — llama-shape + biases on q/k/v only (``qkv_bias``)
+  phi      — partial rotary (``rotary_pct``), parallel attention + MLP,
+             layernorm + gelu + biases
+  opt      — learned positions, relu MLP, layernorm, biases, tied head
+  falcon   — multi-query attention (one KV head), parallel block, rope
+  bloom    — ALiBi, word_embeddings_layernorm, biases, tied head
+  gpt-neox — partial rotary, parallel residual with separate norms,
+             untied embed_out
+
+The ``*_SIZES`` tables are the JAX package's, entry for entry.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from ..runtime.module import ModelSpec
+from .transformer import (TransformerConfig, causal_lm_loss, flops_per_token,
+                          init_transformer_params, logits_fn, transformer_forward)
+
+
+def causal_lm_spec(cfg: TransformerConfig) -> ModelSpec:
+    """The decoder model of ``cfg``: ``loss_fn`` trains it
+    (``causal_lm_loss``), ``apply_fn`` gives its logits."""
+
+    def apply_fn(params, batch):
+        ids = batch["input_ids"] if isinstance(batch, dict) else batch
+        return logits_fn(cfg, params, transformer_forward(cfg, params, ids)[0])
+
+    return ModelSpec(
+        cfg, lambda gen, dev: init_transformer_params(cfg, gen, dev),
+        loss_fn=lambda params, batch, rng: causal_lm_loss(cfg, params, batch, rng),
+        apply_fn=apply_fn,
+        flops_per_sample=flops_per_token(cfg, cfg.max_seq_len) * cfg.max_seq_len)
+
+
+def apply_overrides(cfg: TransformerConfig, overrides: Dict[str, Any]) -> TransformerConfig:
+    """Set each override on ``cfg``; a name that is not a field raises."""
+    for k, v in overrides.items():
+        if not hasattr(cfg, k):
+            raise AttributeError(f"TransformerConfig has no field {k!r}")
+        setattr(cfg, k, v)
+    return cfg
+
+
+# --------------------------------------------------------------- mistral
+MISTRAL_SIZES = {
+    "tiny": (64, 2, 4, 2, 128, 256),
+    "7b": (4096, 32, 32, 8, 14336, 32000),
+}
+
+
+def mistral_config(size: str = "7b", max_seq_len: int = 4096,
+                   **overrides) -> TransformerConfig:
+    h, l, nh, kvh, ffn, vocab = MISTRAL_SIZES[size]
+    return apply_overrides(TransformerConfig(
+        vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh,
+        n_kv_heads=kvh, intermediate_size=ffn, max_seq_len=max_seq_len,
+        norm="rmsnorm", activation="swiglu", position="rope",
+        rope_theta=10000.0), overrides)
+
+
+def mistral_model(size: str = "7b", max_seq_len: int = 4096,
+                  config: Optional[TransformerConfig] = None,
+                  **overrides) -> ModelSpec:
+    return causal_lm_spec(config or mistral_config(size, max_seq_len, **overrides))
+
+
+# ----------------------------------------------------------------- qwen
+QWEN_SIZES = {
+    "tiny": (64, 2, 4, 4, 128, 256),
+    "0.5b": (896, 24, 14, 2, 4864, 151936),
+    "7b": (3584, 28, 28, 4, 18944, 152064),
+}
+
+
+def qwen_config(size: str = "7b", max_seq_len: int = 4096,
+                **overrides) -> TransformerConfig:
+    h, l, nh, kvh, ffn, vocab = QWEN_SIZES[size]
+    return apply_overrides(TransformerConfig(
+        vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh,
+        n_kv_heads=kvh, intermediate_size=ffn, max_seq_len=max_seq_len,
+        norm="rmsnorm", activation="swiglu", position="rope",
+        rope_theta=1e6, qkv_bias=True), overrides)
+
+
+def qwen_model(size: str = "7b", max_seq_len: int = 4096,
+               config: Optional[TransformerConfig] = None,
+               **overrides) -> ModelSpec:
+    return causal_lm_spec(config or qwen_config(size, max_seq_len, **overrides))
+
+
+# ------------------------------------------------------------------ phi
+PHI_SIZES = {
+    "tiny": (64, 2, 4, 4, 128, 256),
+    "1.5": (2048, 24, 32, 32, 8192, 51200),
+    "2": (2560, 32, 32, 32, 10240, 51200),
+}
+
+
+def phi_config(size: str = "2", max_seq_len: int = 2048,
+               **overrides) -> TransformerConfig:
+    h, l, nh, kvh, ffn, vocab = PHI_SIZES[size]
+    return apply_overrides(TransformerConfig(
+        vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh,
+        n_kv_heads=kvh, intermediate_size=ffn, max_seq_len=max_seq_len,
+        norm="layernorm", activation="gelu", position="rope",
+        rotary_pct=0.4, parallel_block=True, use_bias=True), overrides)
+
+
+def phi_model(size: str = "2", max_seq_len: int = 2048,
+              config: Optional[TransformerConfig] = None,
+              **overrides) -> ModelSpec:
+    return causal_lm_spec(config or phi_config(size, max_seq_len, **overrides))
+
+
+# ------------------------------------------------------------------ opt
+OPT_SIZES = {
+    "tiny": (64, 2, 4, 4, 128, 256),
+    "125m": (768, 12, 12, 12, 3072, 50272),
+    "1.3b": (2048, 24, 32, 32, 8192, 50272),
+    "6.7b": (4096, 32, 32, 32, 16384, 50272),
+}
+
+
+def opt_config(size: str = "1.3b", max_seq_len: int = 2048,
+               **overrides) -> TransformerConfig:
+    h, l, nh, kvh, ffn, vocab = OPT_SIZES[size]
+    return apply_overrides(TransformerConfig(
+        vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh,
+        n_kv_heads=kvh, intermediate_size=ffn, max_seq_len=max_seq_len,
+        norm="layernorm", activation="relu", position="learned",
+        use_bias=True, tie_embeddings=True), overrides)
+
+
+def opt_model(size: str = "1.3b", max_seq_len: int = 2048,
+              config: Optional[TransformerConfig] = None,
+              **overrides) -> ModelSpec:
+    return causal_lm_spec(config or opt_config(size, max_seq_len, **overrides))
+
+
+# --------------------------------------------------------------- falcon
+FALCON_SIZES = {
+    "tiny": (64, 2, 4, 1, 128, 256),
+    "7b": (4544, 32, 71, 1, 18176, 65024),
+}
+
+
+def falcon_config(size: str = "7b", max_seq_len: int = 2048,
+                  **overrides) -> TransformerConfig:
+    h, l, nh, kvh, ffn, vocab = FALCON_SIZES[size]
+    return apply_overrides(TransformerConfig(
+        vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh,
+        n_kv_heads=kvh, intermediate_size=ffn, max_seq_len=max_seq_len,
+        norm="layernorm", activation="gelu_exact", position="rope",
+        parallel_block=True), overrides)
+
+
+def falcon_model(size: str = "7b", max_seq_len: int = 2048,
+                 config: Optional[TransformerConfig] = None,
+                 **overrides) -> ModelSpec:
+    return causal_lm_spec(config or falcon_config(size, max_seq_len, **overrides))
+
+
+# --------------------------------------------------------------- bloom
+BLOOM_SIZES = {
+    # name: (hidden, layers, heads, vocab)
+    "tiny": (64, 2, 4, 256),
+    "560m": (1024, 24, 16, 250880),
+    "7b1": (4096, 30, 32, 250880),
+    "176b": (14336, 70, 112, 250880),
+}
+
+
+def bloom_config(size: str = "560m", max_seq_len: int = 2048,
+                 **overrides) -> TransformerConfig:
+    h, l, nh, vocab = BLOOM_SIZES[size]
+    return apply_overrides(TransformerConfig(
+        vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh,
+        intermediate_size=4 * h, max_seq_len=max_seq_len,
+        norm="layernorm", activation="gelu", position="alibi",
+        use_bias=True, embed_norm=True, tie_embeddings=True,
+        norm_eps=1e-5), overrides)
+
+
+def bloom_model(size: str = "560m", max_seq_len: int = 2048,
+                config: Optional[TransformerConfig] = None,
+                **overrides) -> ModelSpec:
+    return causal_lm_spec(config or bloom_config(size, max_seq_len, **overrides))
+
+
+# --------------------------------------------------------------- gpt-neox
+NEOX_SIZES = {
+    # name: (hidden, layers, heads, ffn, vocab)
+    "tiny": (64, 2, 4, 128, 256),
+    "20b": (6144, 44, 64, 24576, 50432),
+}
+
+
+def gpt_neox_config(size: str = "20b", max_seq_len: int = 2048,
+                    **overrides) -> TransformerConfig:
+    h, l, nh, ffn, vocab = NEOX_SIZES[size]
+    return apply_overrides(TransformerConfig(
+        vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh,
+        intermediate_size=ffn, max_seq_len=max_seq_len,
+        norm="layernorm", activation="gelu_exact", position="rope",
+        rotary_pct=0.25, use_bias=True, parallel_block=True,
+        parallel_norms=2, norm_eps=1e-5), overrides)
+
+
+def gpt_neox_model(size: str = "20b", max_seq_len: int = 2048,
+                   config: Optional[TransformerConfig] = None,
+                   **overrides) -> ModelSpec:
+    return causal_lm_spec(config or gpt_neox_config(size, max_seq_len, **overrides))

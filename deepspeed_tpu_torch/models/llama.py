@@ -6,8 +6,8 @@ from __future__ import annotations
 from typing import Optional
 
 from ..runtime.module import ModelSpec
-from .transformer import (TransformerConfig, causal_lm_loss, flops_per_token,
-                          init_transformer_params, logits_fn, transformer_forward)
+from .families import apply_overrides, causal_lm_spec
+from .transformer import TransformerConfig
 
 SIZES = {
     # name: (hidden, layers, heads, kv_heads, ffn, vocab)
@@ -27,24 +27,11 @@ def llama_config(size: str = "7b", max_seq_len: int = 2048,
         vocab_size=vocab, hidden_size=h, n_layers=l, n_heads=nh, n_kv_heads=kvh,
         intermediate_size=ffn, max_seq_len=max_seq_len, norm="rmsnorm",
         activation="swiglu", position="rope", causal=True)
-    for k, v in overrides.items():
-        if not hasattr(cfg, k):
-            raise AttributeError(f"TransformerConfig has no field {k!r}")
-        setattr(cfg, k, v)
-    return cfg
+    return apply_overrides(cfg, overrides)
 
 
 def llama_model(size: str = "7b", max_seq_len: int = 2048,
                 config: Optional[TransformerConfig] = None,
                 **overrides) -> ModelSpec:
     cfg = config or llama_config(size, max_seq_len, **overrides)
-
-    def apply_fn(params, batch):
-        ids = batch["input_ids"] if isinstance(batch, dict) else batch
-        return logits_fn(cfg, params, transformer_forward(cfg, params, ids)[0])
-
-    return ModelSpec(
-        cfg, lambda gen, dev: init_transformer_params(cfg, gen, dev),
-        loss_fn=lambda params, batch, rng: causal_lm_loss(cfg, params, batch, rng),
-        apply_fn=apply_fn,
-        flops_per_sample=flops_per_token(cfg, cfg.max_seq_len) * cfg.max_seq_len)
+    return causal_lm_spec(cfg)

@@ -8,8 +8,8 @@ from __future__ import annotations
 from typing import Optional
 
 from ..runtime.module import ModelSpec
-from .transformer import (TransformerConfig, causal_lm_loss, flops_per_token,
-                          init_transformer_params, logits_fn, transformer_forward)
+from .families import apply_overrides, causal_lm_spec
+from .transformer import TransformerConfig
 
 SIZES = {
     # name: (hidden, layers, heads, kv_heads, ffn, vocab, experts, top_k)
@@ -27,11 +27,7 @@ def mixtral_config(size: str = "8x7b", max_seq_len: int = 2048,
         intermediate_size=ffn, max_seq_len=max_seq_len, norm="rmsnorm",
         activation="swiglu", position="rope", causal=True,
         moe_experts=experts, moe_top_k=top_k)
-    for k, v in overrides.items():
-        if not hasattr(cfg, k):
-            raise AttributeError(f"TransformerConfig has no field {k!r}")
-        setattr(cfg, k, v)
-    return cfg
+    return apply_overrides(cfg, overrides)
 
 
 def mixtral_model(size: str = "8x7b", max_seq_len: int = 2048,
@@ -40,13 +36,4 @@ def mixtral_model(size: str = "8x7b", max_seq_len: int = 2048,
     """The model: ``loss_fn`` trains it (``causal_lm_loss``, aux included),
     ``apply_fn`` gives its logits."""
     cfg = config or mixtral_config(size, max_seq_len, **overrides)
-
-    def apply_fn(params, batch):
-        ids = batch["input_ids"] if isinstance(batch, dict) else batch
-        return logits_fn(cfg, params, transformer_forward(cfg, params, ids)[0])
-
-    return ModelSpec(
-        cfg, lambda gen, dev: init_transformer_params(cfg, gen, dev),
-        loss_fn=lambda params, batch, rng: causal_lm_loss(cfg, params, batch, rng),
-        apply_fn=apply_fn,
-        flops_per_sample=flops_per_token(cfg, cfg.max_seq_len) * cfg.max_seq_len)
+    return causal_lm_spec(cfg)

@@ -55,9 +55,8 @@ from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
 
-#: ROADMAP items that bring the parts of the JAX model core this slice
-#: leaves out (named in the NotImplementedError each one raises)
-ROADMAP_FAMILIES = "ROADMAP Queue 1 #10c 'Post-norm and other model families'"
+#: the ROADMAP item that brings the part of the JAX model core the port
+#: leaves out (named in the NotImplementedError it raises)
 ROADMAP_SP = "ROADMAP Queue 1 'Sequence parallelism'"
 
 
@@ -84,7 +83,14 @@ class TransformerConfig:
     rotary_pct: float = 1.0  # fraction of head_dim under rope (phi/neox)
     parallel_block: bool = False  # x + attn(ln x) + mlp(ln x)
     parallel_norms: int = 1
+    #: post-norm (original-transformer/BERT ordering): the norm AFTER each
+    #: residual add, norm1(x + attn(x)) and norm2(h + ffn(h)); the embeddings
+    #: get their own norm and there is no final norm.  Encoder-style: the
+    #: generative engines refuse it.
     post_norm: bool = False
+    #: segment-embedding table size of a post-norm encoder (BERT
+    #: type_vocab_size); 0 disables the table
+    type_vocab_size: int = 2
     dtype: torch.dtype = torch.float32  # params storage dtype at init
     #: the JAX config's dropout field, which its model core never applies;
     #: only 0.0 is accepted here
@@ -141,14 +147,19 @@ class ParamTree(nn.Module):
     """A named tree of parameters: tensor leaves become ``nn.Parameter``s,
     dict children become sub-trees, and a list of dicts becomes an
     ``nn.ModuleList`` (the per-layer trees).  Leaves are frozen unless
-    ``requires_grad`` (the training engine's compute copy)."""
+    ``requires_grad`` (the training engine's compute copy).  A leaf whose
+    name is an ``nn.Module`` attribute (BERT's ``embed.type``) is held under
+    that name all the same and read through :meth:`get`."""
 
     def __init__(self, tree: Dict[str, Any], requires_grad: bool = False):
         super().__init__()
         for name, v in tree.items():
             if isinstance(v, torch.Tensor):
-                self.register_parameter(
-                    name, nn.Parameter(v, requires_grad=requires_grad and v.is_floating_point()))
+                leaf = nn.Parameter(v, requires_grad=requires_grad and v.is_floating_point())
+                if hasattr(nn.Module, name):
+                    self._parameters[name] = leaf
+                else:
+                    self.register_parameter(name, leaf)
             elif isinstance(v, dict):
                 self.add_module(name, ParamTree(v, requires_grad))
             elif isinstance(v, (list, tuple)):
@@ -160,7 +171,9 @@ class ParamTree(nn.Module):
         return name in self._parameters or name in self._modules
 
     def get(self, name: str, default: Any = None) -> Any:
-        return getattr(self, name) if name in self else default
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules.get(name, default)
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor],
             requires_grad: bool = False) -> "ParamTree":
@@ -186,10 +199,9 @@ def init_transformer_params(cfg: TransformerConfig, generator: torch.Generator,
     projections 0.02/sqrt(2L); norm scales 1, biases 0), drawn from
     ``generator`` on ``device``.  torch and JAX draw different numbers
     from the same seed: parity tests carry JAX's weights across with
-    ``convert.params_from_numpy`` instead."""
-    if cfg.post_norm:
-        raise NotImplementedError(
-            f"post-norm encoders are not ported yet ({ROADMAP_FAMILIES})")
+    ``convert.params_from_numpy`` instead.  A post-norm model norms its
+    embeddings instead of its final hidden state, and carries the segment
+    table ``embed.type`` when ``type_vocab_size > 0``."""
     H, L = cfg.hidden_size, cfg.n_layers
     D, NH, KVH = cfg.head_dim, cfg.n_heads, cfg.kv_heads
     Fs, V = cfg.ffn_size, cfg.vocab_size
@@ -213,9 +225,15 @@ def init_transformer_params(cfg: TransformerConfig, generator: torch.Generator,
             n["bias"] = zeros(H)
         return n
 
-    p: Dict[str, Any] = {"embed": {"tok": nrm(V, H)}, "final_norm": norm()}
-    if cfg.embed_norm:
+    p: Dict[str, Any] = {"embed": {"tok": nrm(V, H)}}
+    if not cfg.post_norm:
+        p["final_norm"] = norm()
+        if cfg.embed_norm:  # bloom word_embeddings_layernorm
+            p["embed"]["norm"] = norm()
+    else:
         p["embed"]["norm"] = norm()
+        if cfg.type_vocab_size > 0:
+            p["embed"]["type"] = nrm(cfg.type_vocab_size, H)
     if cfg.position == "learned":
         p["embed"]["pos"] = nrm(cfg.max_seq_len, H)
     if not cfg.tie_embeddings:
@@ -441,9 +459,9 @@ def _ffn(cfg: TransformerConfig, layer: ParamTree, h: torch.Tensor,
 
 def _attn_out(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
               attn: torch.Tensor, training: bool = False) -> Tuple[torch.Tensor, Aux]:
-    """Output projection + residual/parallel-block epilogue of a block, shared
-    by the training forward (``training=True``) and the paged and
-    dense-cache inference bodies.  attn: [B, T, NH * D].  Returns (the
+    """Output projection + residual/parallel-block/post-norm epilogue of a
+    block, shared by the training forward (``training=True``) and the paged
+    and dense-cache inference bodies.  attn: [B, T, NH * D].  Returns (the
     block's output, the FFN's aux loss)."""
     attn_delta = _mm(cfg, attn, layer.attn.wo)
     if cfg.use_bias:
@@ -451,6 +469,12 @@ def _attn_out(cfg: TransformerConfig, layer: ParamTree, x: torch.Tensor,
     if cfg.parallel_block:
         out, aux = mlp_block(cfg, layer, x, training)
         return out + attn_delta, aux
+    if cfg.post_norm:
+        # BERT ordering: the norm after each residual add
+        n1, n2 = layer.norm1, layer.norm2
+        h = _norm(x + attn_delta, n1.scale, n1.get("bias"), cfg.norm, cfg.norm_eps)
+        ffn, aux = _ffn(cfg, layer, h, training)
+        return _norm(h + ffn, n2.scale, n2.get("bias"), cfg.norm, cfg.norm_eps), aux
     return mlp_block(cfg, layer, x + attn_delta, training)
 
 
@@ -536,23 +560,27 @@ def _block(cfg: TransformerConfig, x: torch.Tensor, layer: ParamTree,
 
 
 def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: torch.Tensor,
-                        mask: Optional[torch.Tensor] = None
+                        mask: Optional[torch.Tensor] = None,
+                        token_type_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] int tokens -> ([B, S, H] final hidden states, aux loss summed
     over the layers (0 for dense models)).  The JAX ``lax.scan`` over the
     stacked layers is a loop over the per-layer trees.  MoE layers run as
     JAX's training block does (``training=True``: capacity from
-    ``moe_capacity_factor``)."""
+    ``moe_capacity_factor``).  A model with a segment table adds
+    ``embed.type[token_type_ids]`` (zeros when None); a post-norm model
+    returns its last block's output, which already ends in a norm."""
     if cfg.dropout:
         raise ValueError("dropout: the model core applies none (the JAX package's field is "
                          "unused too); leave it at 0.0")
-    if cfg.post_norm:
-        raise NotImplementedError(f"post-norm encoders are not ported yet ({ROADMAP_FAMILIES})")
     B, S = input_ids.shape
     x = params.embed.tok[input_ids]
     positions = torch.arange(S, device=input_ids.device).expand(B, S)
     if cfg.position == "learned":
         x = x + params.embed.pos[:S][None]
+    if "type" in params.embed:  # BERT segment embeddings
+        tt = token_type_ids if token_type_ids is not None else torch.zeros_like(input_ids)
+        x = x + params.embed.get("type")[tt]
     if "norm" in params.embed:
         n = params.embed.norm
         x = _norm(x, n.scale, n.get("bias"), cfg.norm, cfg.norm_eps)
@@ -567,6 +595,8 @@ def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: to
         x, a = block(cfg, x, layer, positions, mask, attn_fn)
         if a is not None:
             aux = aux + a
+    if cfg.post_norm:
+        return x, aux
     fn = params.final_norm
     hidden = _norm(x, fn.scale, fn.get("bias"), cfg.norm, cfg.norm_eps)
     return hidden, aux

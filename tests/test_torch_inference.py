@@ -240,8 +240,13 @@ def test_tensor_parallel_and_hf_directory_raise_naming_their_items(tiny, tmp_pat
     with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         deepspeed_tpu_torch.init_inference(tm, config={"dtype": "fp32"},
                                            tensor_parallel={"tp_size": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #17"):
+    # a directory is read as a Hugging Face checkpoint: an empty one raises
+    # the FileNotFoundError JAX's init_inference raises
+    with pytest.raises(FileNotFoundError) as want:
+        deepspeed_tpu.init_inference(str(tmp_path))
+    with pytest.raises(FileNotFoundError) as got:
         deepspeed_tpu_torch.init_inference(str(tmp_path), device="cpu")
+    assert type(got.value) is type(want.value) and got.value.filename == want.value.filename
 
 
 def test_default_inference_config_round_trip(tiny):

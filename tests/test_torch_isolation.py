@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``deepspeed_tpu_torch/`` nor
-``chip_smoke.py`` imports JAX or any module of the JAX package, and the
-entry points default to CUDA."""
+``chip_smoke.py`` imports JAX or any module of the JAX package, nor
+``ml_dtypes``, ``transformers`` or ``safetensors`` (none is on the card's
+machine), and the entry points default to CUDA."""
 
 import ast
 import inspect
@@ -26,7 +27,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted(Path(deepspeed_tpu_torch.__file__).parent.rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "ml_dtypes", "transformers", "safetensors")
 
 
 def _forbidden(module: str) -> bool:

@@ -204,11 +204,28 @@ def test_init_shapes_match_jax_tree():
 
 
 def test_not_ported_model_features_raise():
-    """Post-norm models do not build."""
-    cfg = tt.TransformerConfig(vocab_size=32, hidden_size=16, n_layers=1, n_heads=2,
-                               post_norm=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #10c"):
-        tt.init_transformer_params(cfg, torch.Generator(), "cpu")
+    """Post-norm models, once refused, now build JAX's tree (an embedding
+    norm, the segment table, no final norm) and match JAX's forward and
+    loss on its weights within ``TOL``."""
+    kw = dict(vocab_size=32, hidden_size=16, n_layers=2, n_heads=2, norm="layernorm",
+              activation="gelu_exact", position="learned", causal=False, use_bias=True,
+              tie_embeddings=True, post_norm=True, max_seq_len=16)
+    jcfg, tcfg = jt.TransformerConfig(**kw), tt.TransformerConfig(**kw)
+    mine = params_to_numpy(tt.init_transformer_params(tcfg, torch.Generator(), "cpu"))
+    tree = jax.tree_util.tree_map(np.asarray, jt.init_transformer_params(
+        jcfg, jax.random.PRNGKey(0)))
+    shapes = [{jax.tree_util.keystr(p): a.shape for p, a in
+               jax.tree_util.tree_leaves_with_path(t)} for t in (mine, tree)]
+    assert shapes[0] == shapes[1] and "final_norm" not in mine and "type" in mine["embed"]
+    ids = np.random.RandomState(3).randint(0, 32, (2, 9)).astype(np.int32)
+    tt_ids = (ids[::-1] % 2).copy()
+    tp = params_from_numpy(tree, tcfg, "cpu")
+    hj, _ = jt.transformer_forward(jcfg, tree, jnp.asarray(ids), None, jnp.asarray(tt_ids))
+    ht, _ = tt.transformer_forward(tcfg, tp, torch.from_numpy(ids).long(), None,
+                                   torch.from_numpy(tt_ids).long())
+    _close(ht, hj, "fp32")
+    _close(tt.causal_lm_loss(tcfg, tp, torch.from_numpy(ids).long()),
+           jt.causal_lm_loss(jcfg, tree, jnp.asarray(ids)), "fp32")
 
 
 @pytest.mark.parametrize("drop", [True, False])

@@ -49,12 +49,15 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                model_parameters: Any = None, training_data: Any = None,
                lr_scheduler: Any = None, config: Any = None, config_params: Any = None,
                device: DeviceLike = None, seed: Optional[int] = None
-               ) -> Tuple[DeepSpeedTPUEngine, Any, None, Any]:
+               ) -> Tuple[DeepSpeedTPUEngine, Any, Any, Any]:
     """Create a training engine (``deepspeed_tpu.initialize``).
 
-    Returns ``(engine, optimizer, None, lr_scheduler)``: the optimizer and
-    scheduler are the engine's own handles, and no dataloader is built (the
-    data pipeline is not ported; pass batches to ``train_batch``).
+    Returns ``(engine, optimizer, dataloader, lr_scheduler)``: the optimizer
+    and scheduler are the engine's own handles; the dataloader is the
+    engine's ``training_dataloader`` over ``training_data`` (an indexable
+    dataset such as ``runtime/data_pipeline/indexed_dataset.
+    MMapIndexedDataset``), or None, and ``engine.train_batch()`` with no
+    batch draws from it.
 
     ``hybrid_engine.enabled`` returns a ``DeepSpeedHybridEngine``, whose
     ``generate`` reads the training engine's live weights.
@@ -66,20 +69,16 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     config = config if config is not None else config_params
     if config is None and args is not None and hasattr(args, "deepspeed_config"):
         config = args.deepspeed_config
-    if training_data is not None:
-        raise NotImplementedError("training_data: the data pipeline is not ported yet "
-                                  "(ROADMAP Queue 1 #17 'Remaining modules'); pass batches "
-                                  "to engine.train_batch")
     ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
     cls = DeepSpeedTPUEngine
     if ds_config.hybrid_engine.enabled:
         from .runtime.hybrid_engine import DeepSpeedHybridEngine
 
         cls = DeepSpeedHybridEngine
-    engine = cls(model=model, config=ds_config,
-                                model_parameters=model_parameters, lr_scheduler=lr_scheduler,
-                                client_optimizer=optimizer, device=device, seed=seed)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+    engine = cls(model=model, config=ds_config, model_parameters=model_parameters,
+                 lr_scheduler=lr_scheduler, client_optimizer=optimizer, device=device,
+                 seed=seed, training_data=training_data)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
 def init_inference(model: Any = None, config: Any = None, device: DeviceLike = None,

@@ -30,10 +30,6 @@ from torch import nn
 from ..models.transformer import ParamTree, TransformerConfig
 from ..utils.logging import logger
 
-#: the ROADMAP item that brings the port's training checkpoints, which
-#: ``checkpoint_to_hf`` reads
-ROADMAP_CHECKPOINTS = "ROADMAP Queue 1 #7 'Checkpoints'"
-
 _TO_ST = {torch.float64: "F64", torch.float32: "F32", torch.float16: "F16",
           torch.bfloat16: "BF16", torch.int64: "I64", torch.int32: "I32",
           torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
@@ -511,12 +507,62 @@ def hf_config_dict(cfg: TransformerConfig, model_type: str = "llama") -> Dict[st
 
 def checkpoint_to_hf(ckpt_dir: str, tag: str, out_dir: str, cfg: TransformerConfig,
                      model_type: str = "llama", dtype: Optional[torch.dtype] = None) -> str:
-    """A saved training checkpoint -> an HF directory.  The port's engine
-    does not save checkpoints yet, so there is nothing to read."""
-    raise NotImplementedError(
-        f"checkpoint_to_hf reads the training engine's checkpoints, which are not "
-        f"ported yet ({ROADMAP_CHECKPOINTS}); export live parameters with "
-        f"save_hf_checkpoint")
+    """A training checkpoint (the consolidated layout of
+    ``checkpoint/saving.py``, the port's or the JAX engine's) -> an HF
+    directory, without building an engine.  Reads only the ``.params``
+    members (bf16 ones stored as ``uint16``): the fp32 master, or under
+    offload the compute-dtype leaves.  The caller's ``cfg`` is checked
+    against the tensors first, with the JAX exporter's messages.  The
+    partitioned layout raises (ROADMAP Queue 1 #8)."""
+    import re
+
+    from .saving import META_FILE, MODEL_FILE, PARTITIONED_META, NpzReader, refuse_partitioned
+
+    path = os.path.join(ckpt_dir, tag)
+    if os.path.exists(os.path.join(path, PARTITIONED_META)):
+        refuse_partitioned(f"checkpoint_to_hf({path})")
+    with open(os.path.join(path, META_FILE)) as f:
+        bf16 = set(json.load(f).get("bfloat16_keys", {}))
+    params: Dict[str, Any] = {}
+    reader = NpzReader(os.path.join(path, MODEL_FILE))
+    try:
+        for key in reader.keys():
+            if not key.startswith(".params"):
+                continue
+            arr = reader.read(key)
+            t = torch.from_numpy(arr)
+            if key in bf16 or arr.dtype == np.uint16:  # stored bf16
+                t = t.view(torch.bfloat16)
+            node = params
+            parts = re.findall(r"\['([^']+)'\]", key)
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = t
+    finally:
+        reader.close()
+    # the config is the caller's, not stored in the checkpoint: check it
+    # against the tensors before mapping
+    tok = params.get("embed", {}).get("tok")
+    if tok is not None and tuple(tok.shape) != (cfg.vocab_size, cfg.hidden_size):
+        raise ValueError(
+            f"checkpoint embed table is {tuple(tok.shape)} but the supplied "
+            f"config says (vocab={cfg.vocab_size}, hidden={cfg.hidden_size})"
+            f" — pass the config the model was trained with (CLI: "
+            f"--override vocab_size=... hidden_size=...)")
+    wq = params.get("layers", {}).get("attn", {}).get("wq")
+    if wq is not None and wq.shape[0] != cfg.n_layers:
+        raise ValueError(
+            f"checkpoint has {wq.shape[0]} layers but the supplied config "
+            f"says n_layers={cfg.n_layers}")
+    if ("lm_head" in params) != (not cfg.tie_embeddings):
+        # a tied checkpoint exported as untied would leave lm_head random
+        raise ValueError(
+            f"checkpoint {'has' if 'lm_head' in params else 'lacks'} an "
+            f"lm_head but the supplied config says tie_embeddings="
+            f"{cfg.tie_embeddings} — pass --override tie_embeddings="
+            f"{str('lm_head' not in params).lower()}")
+    save_hf_checkpoint(out_dir, cfg, params, model_type, dtype=dtype)
+    return out_dir
 
 
 def save_hf_checkpoint(model_dir: str, cfg: TransformerConfig, params: Any,

@@ -59,7 +59,12 @@
 //   in registers, the A operand of the second pair; fp16 adds each one's
 //   second term (hopper.cuh pack_a_lo) and a second product into the same
 //   accumulators, so ~22 bits of P and dS reach the sums, as in the TPU
-//   kernels' fp32 P and dS (bf16 keeps one term).  Each warpgroup issues
+//   kernels' fp32 P and dS.  bf16 keeps one term, except in A'' past a
+//   query-to-KV group of 4 (the kTwoTerms instantiation, type code 3): there
+//   dK and dV sum G x Sq rounded products per key, and one bf16 term missed
+//   FLASH_BWD_TOL at falcon-7b's 71:1 (dK/dV needed 0.026 / 0.032 against
+//   0.022), so P and dS enter as bf16 hi and lo (~16 bits each) at twice the
+//   tensor-core work of the two products.  Each warpgroup issues
 //   S, then dP, and forms P while dP is on the tensor cores; A'' issues
 //   dV += P^T dO before it forms dS^T, so that product runs under the dS^T
 //   arithmetic.  (Letting the last products of a tile finish under the next
@@ -547,7 +552,7 @@ struct DkvCfg {
       128 + 2 * K_BYTES + STAGES * (2 * Q_BYTES + 2 * BQ * 4) + (1 + 2 * STAGES) * 8;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kTwoTerms>
 __global__ void __launch_bounds__(kThreadsWg, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -637,8 +642,9 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
   for (int i = 0; i < DO / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
-  // P^T and dS^T as A operands; fp16 adds their second terms pl, dsl
-  constexpr bool SPLIT = kSplitA<T>;
+  // P^T and dS^T as A operands; fp16, and bf16 past a group of 4
+  // (kTwoTerms), add their second terms pl, dsl
+  constexpr bool SPLIT = kSplitA<T> || kTwoTerms;
   uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
   uint32_t pl[SPLIT ? BQ / 16 : 1][4], dsl[SPLIT ? BQ / 16 : 1][4];
   mbar_wait(kv_full, 0);
@@ -709,7 +715,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
         dkv_probs<false, false, BQ>(s, lse2, q0, key0, cq, a, scale2, 0.f);
       }
       pack_a<T, BQ>(pf, s);
-      if constexpr (SPLIT) pack_a_lo<BQ>(pl, s);
+      if constexpr (SPLIT) pack_a_lo<T, BQ>(pl, s);
       wg_wait<0>();
       pin(dp);
       // dV += P^T dO (dO read MN-major) runs while dS^T is formed
@@ -725,7 +731,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1)
       wg_commit();
       dkv_dscores<BQ>(dp, s, dl);
       pack_a<T, BQ>(dsf, dp);
-      if constexpr (SPLIT) pack_a_lo<BQ>(dsl, dp);
+      if constexpr (SPLIT) pack_a_lo<T, BQ>(dsl, dp);
       // dK += dS^T Q, Q read MN-major
       wg_fence();
 #pragma unroll
@@ -1152,7 +1158,7 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kTwoTerms>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
     const dim3 grid((a.Sk + kB - 1) / kB, a.B * a.KVH);
@@ -1168,21 +1174,21 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
     Args t = a;
     t.lse_bulk = a.Sq % 4 == 0 && reinterpret_cast<uintptr_t>(a.lse) % 16 == 0 &&
                  reinterpret_cast<uintptr_t>(a.delta) % 16 == 0;
-    static cudaError_t attr = opt_in(flash_bwd_dkv_wgmma_kernel<T, D>, C::smem);
+    static cudaError_t attr = opt_in(flash_bwd_dkv_wgmma_kernel<T, D, kTwoTerms>, C::smem);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((unsigned)((a.Sk + C::BK - 1) / C::BK) * a.B * a.KVH, D / out_cols<D>());
-    flash_bwd_dkv_wgmma_kernel<T, D><<<grid, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2],
-                                                                            m[3], t);
+    flash_bwd_dkv_wgmma_kernel<T, D, kTwoTerms>
+        <<<grid, kThreadsWg, C::smem, stream>>>(m[0], m[1], m[2], m[3], t);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kTwoTerms = false>
 cudaError_t dispatch_d(bool dkv, int D, const Args& a, cudaStream_t st) {
   switch (D) {
 #define DSTPU_BWD_CASE(d) \
   case d:                 \
-    return dkv ? launch_dkv<T, d>(a, st) : launch_dq<T, d>(a, st);
+    return dkv ? launch_dkv<T, d, kTwoTerms>(a, st) : launch_dq<T, d>(a, st);
     DSTPU_BWD_CASE(16)
     DSTPU_BWD_CASE(32)
     DSTPU_BWD_CASE(48)
@@ -1221,6 +1227,9 @@ int dispatch(bool dkv, int dtype, int D, const Args& a, void* stream) {
       return (int)dispatch_d<__nv_bfloat16>(dkv, D, a, st);
     case 2:
       return (int)dispatch_d<__half>(dkv, D, a, st);
+    case 3:  // bf16, A'' with P and dS as two terms
+      if (!dkv) return (int)cudaErrorInvalidValue;
+      return (int)dispatch_d<__nv_bfloat16, true>(dkv, D, a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1228,7 +1237,9 @@ int dispatch(bool dkv, int dtype, int D, const Args& a, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16, 2 = fp16 (q, k, v, dO and the gradients).
+// dtype: 0 = fp32, 1 = bf16, 2 = fp16 (q, k, v, dO and the gradients); 3 =
+// bf16 with A'' keeping P and dS as two bf16 terms (dK/dV only; the wrapper
+// takes it past a query-to-KV group of 4, ops/flash_attention.dkv_two_terms).
 // q and dO [B, Sq, NH, D], k and v [B, Sk, KVH, D], read through the given
 // element strides (batch, sequence, head; the last dim contiguous; for
 // bf16/fp16 each base and stride a multiple of 16 bytes).  lse and delta

@@ -341,7 +341,9 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[N / 16][4], const float (&a
 // with lo into the same fp32 accumulator brings ~22 bits of x into the sum,
 // as the TPU kernels' fp32 P does; one fp16 term misses the fp16 limits on
 // short causal rows, where p ~ 1/2 and its rounding is ~2.4e-4 of |v|.
-// bf16 keeps one term.
+// bf16 keeps one term, except where a kernel asks for two (A'' past a
+// query-to-KV group of 4: pack_a_lo<__nv_bfloat16, N>, lo = bf16(x - hi),
+// ~16 bits of x).
 template <typename T> constexpr bool kSplitA = std::is_same<T, __half>::value;
 template <int N>
 __device__ __forceinline__ void pack_a_lo(uint32_t (&f)[N / 16][4], const float (&acc)[N / 2]) {
@@ -353,6 +355,21 @@ __device__ __forceinline__ void pack_a_lo(uint32_t (&f)[N / 16][4], const float 
       const float2 hi = __half22float2(__floats2half2_rn(x0, x1));
       f[kq][r] = Cvt<__half>::pack(x0 - hi.x, x1 - hi.y);
     }
+}
+template <typename T, int N>
+__device__ __forceinline__ void pack_a_lo(uint32_t (&f)[N / 16][4], const float (&acc)[N / 2]) {
+  if constexpr (std::is_same<T, __half>::value) {
+    pack_a_lo<N>(f, acc);
+  } else {
+#pragma unroll
+    for (int kq = 0; kq < N / 16; ++kq)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = acc[8 * kq + 2 * r], x1 = acc[8 * kq + 2 * r + 1];
+        const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(x0, x1));
+        f[kq][r] = Cvt<__nv_bfloat16>::pack(x0 - hi.x, x1 - hi.y);
+      }
+  }
 }
 
 // m64nNk16, fp32 accumulators, at the widths the kernels use.  SS: A and B

@@ -32,7 +32,9 @@ within its own rounding plus ~3.5e-3 (bf16) and its LSE within ~1e-6
 fp32 throughout.  The backward kernels keep every sum in fp32, as the TPU
 ones do; in bf16/fp16 they round P and dS (before its scale) to the input
 dtype as tensor-core operands, which their plain version (fp32
-throughout, like the TPU kernels) does not; in fp32 they run on the FMA pipes and differ
+throughout, like the TPU kernels) does not (fp16, and bf16 A'' past a
+query-to-KV group of 4, :func:`dkv_two_terms`, keep each as two terms of
+the input dtype); in fp32 they run on the FMA pipes and differ
 from it by summation order only (``chip_smoke.FLASH_BWD_TOL``).
 """
 
@@ -299,15 +301,36 @@ def _bwd_checks(q, k, v, do, lse, delta, alibi_slopes):
     return q, k, v, do, slopes
 
 
+#: kernel A'' in bf16 keeps P and dS as two bf16 terms (hi and lo) past a
+#: query-to-KV group of this many heads: each key's dK and dV then sum
+#: G x Sq rounded products, and one term missed ``FLASH_BWD_TOL`` at
+#: falcon-7b's 71:1.  At G <= 4 the one-term kernel meets it.
+TWO_TERM_GROUP = 4
+#: the C entry's type code for bf16 A'' with two terms
+_BF16_TWO_TERMS = 3
+
+
+def dkv_two_terms(dtype: torch.dtype, group: int, D: int) -> bool:
+    """Whether kernel A'' runs its two-term bf16 instantiation: bf16, a
+    group wider than :data:`TWO_TERM_GROUP`, and a compile-time head
+    (``padded_head_dim(D) <= 256``; past it the runtime-head-dim kernel
+    keeps P and dS in fp32).  fp16 always takes two terms, fp32 none."""
+    return (dtype == torch.bfloat16 and group > TWO_TERM_GROUP
+            and padded_head_dim(D) <= WIDEST_INSTANCE)
+
+
 def _bwd_launch(fn: str, q, k, v, do, lse, delta, slopes, causal, scale, outs):
     B, Sq, NH, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
+    code = op_builder.dtype_code(q.dtype)
+    if fn.endswith("dkv") and dkv_two_terms(q.dtype, NH // KVH, D):
+        code = _BF16_TWO_TERMS
     lib = op_builder.load("flash_attention_bwd", _BWD_SIG)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if slopes is None else slopes.data_ptr(),
-            op_builder.dtype_code(q.dtype), B, NH, KVH, Sq, Sk, D, int(bool(causal)), scale,
+            code, B, NH, KVH, Sq, Sk, D, int(bool(causal)), scale,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), do.stride(0), do.stride(1), do.stride(2),
             *(t.data_ptr() for t in outs), torch.cuda.current_stream(q.device).cuda_stream)

@@ -8,8 +8,10 @@ partitioning is the identity, so every stage is the math of stage 0),
 ``zero_optimization.offload_optimizer`` / ``offload_param`` / ``zenflow``
 (host-RAM or NVMe optimizer state, pinned-host masters, ZenFlow;
 ``runtime/engine.py``), ``hybrid_engine``, ``gradient_clipping``,
-``data_types.grad_accum_dtype``, ``seed``, ``steps_per_print`` and the
-``activation_checkpointing`` block, which configures
+``data_types.grad_accum_dtype``, ``seed``, ``steps_per_print``, the
+``checkpoint`` block (which checkpoint engine ``make_checkpoint_engine``
+builds) with the ``aio`` block (the fast engine's threads and block size),
+and the ``activation_checkpointing`` block, which configures
 ``runtime/activation_checkpointing/checkpointing.py`` when present.
 
 A block that turns on something the port does not have yet raises
@@ -181,6 +183,38 @@ class HybridEngineConfig(ConfigModel):
 
 
 @dataclasses.dataclass
+class AIOConfig(ConfigModel):
+    """``aio`` (the JAX config's fields): the fast checkpoint engine's and
+    the NVMe spill's async-I/O settings."""
+
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+    use_gds: bool = False
+
+
+@dataclasses.dataclass
+class CheckpointConfig(ConfigModel):
+    """``checkpoint`` (the JAX config's fields).  ``load_universal``
+    (resharding a checkpoint across ranks) raises: the partitioned layout
+    comes with ZeRO across ranks."""
+
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write_pipeline: bool = False
+    async_save: bool = False
+    writer: str = ""  # "" | nebula | datastates (async engine flavors)
+
+    def validate(self) -> None:
+        if self.load_universal:
+            raise NotImplementedError(f"checkpoint.load_universal: the universal and "
+                                      f"partitioned layouts are not ported yet ({ROADMAP_ZERO})")
+
+
+@dataclasses.dataclass
 class SchedulerConfig(ConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -238,6 +272,8 @@ class DeepSpeedConfig:
     scheduler: SchedulerConfig
     activation_checkpointing: ActivationCheckpointingConfig
     gradient_accumulation_dtype: str
+    aio: AIOConfig
+    checkpoint: CheckpointConfig
 
     def __init__(self, config: Any, dp_world_size: Optional[int] = None):
         if isinstance(config, str):
@@ -271,6 +307,8 @@ class DeepSpeedConfig:
         self.hybrid_engine = HybridEngineConfig.from_dict(g("hybrid_engine"))
         self.optimizer = OptimizerConfig.from_dict(g("optimizer"))
         self.scheduler = SchedulerConfig.from_dict(g("scheduler"))
+        self.aio = AIOConfig.from_dict(g("aio"))
+        self.checkpoint = CheckpointConfig.from_dict(g("checkpoint"))
         self.activation_checkpointing = ActivationCheckpointingConfig.from_dict(
             g("activation_checkpointing"))
         if g("activation_checkpointing") is not None:

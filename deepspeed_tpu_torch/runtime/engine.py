@@ -52,12 +52,21 @@ Offload (``zero_optimization``; the JAX engine's ``offload_optimizer`` /
 
 No path moves the master back to the card when host memory is short: an
 allocation that fails raises.
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``, the JAX engine's
+signatures) go through ``checkpoint/saving.py``: the consolidated layout
+under the verified commit of ``resilience/commit.py``, streamed one leaf
+(or layer slice) at a time from and into the live buffers, wherever they
+live.  A load is followed by the step's own refresh of the compute copy,
+so the next step is the unbroken run's.  Data: ``training_data`` (or
+:meth:`deepspeed_io`) builds a :class:`DeepSpeedDataLoader`, and
+``train_batch()`` with no batch draws ``gas`` micro-batches from it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterator, List, Optional
+from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +76,7 @@ from ..models.convert import adopt_params
 from ..models.transformer import ParamTree
 from ..utils.logging import logger
 from .config import DeepSpeedConfig
+from .dataloader import DeepSpeedDataLoader, RepeatingLoader, to_device
 from .zero.boundary import OffloadBoundary
 from .zero.offload import clip_coefficient
 from .lr_schedules import LRSchedulerShim, get_schedule
@@ -94,18 +104,6 @@ class TrainState:
     global_grad_norm: torch.Tensor  # fp32, from the last boundary
 
 
-def _to_device(batch: Any, device: torch.device) -> Any:
-    if isinstance(batch, dict):
-        return {k: _to_device(v, device) for k, v in batch.items()}
-    if isinstance(batch, (list, tuple)):
-        return type(batch)(_to_device(v, device) for v in batch)
-    if isinstance(batch, np.ndarray):
-        batch = torch.from_numpy(batch)
-    if isinstance(batch, torch.Tensor):
-        return batch.to(device, non_blocking=True)
-    return batch
-
-
 def _index(batch: Any, i: int) -> Any:
     """Micro-batch ``i`` of a batch whose leaves carry a leading gas dim."""
     if isinstance(batch, dict):
@@ -131,7 +129,8 @@ def stack_microbatches(micro_batches: List[Any]) -> Any:
 class DeepSpeedTPUEngine:
     def __init__(self, model: Any, config: Any, model_parameters: Any = None,
                  lr_scheduler: Any = None, client_optimizer: Any = None,
-                 device: DeviceLike = None, seed: Optional[int] = None):
+                 device: DeviceLike = None, seed: Optional[int] = None,
+                 training_data: Any = None):
         self.device = resolve_device(device)
         self.config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
         self.config.resolve_batch_size(1)
@@ -146,6 +145,7 @@ class DeepSpeedTPUEngine:
         base = float(self.config.optimizer.params.get("lr", 1e-3))
         self.lr_schedule = lr_scheduler if lr_scheduler is not None else get_schedule(
             self.config.scheduler.type, self.config.scheduler.params, base)
+        self._client_optimizer = client_optimizer is not None
         if client_optimizer is not None:
             if not (callable(getattr(client_optimizer, "init", None))
                     and callable(getattr(client_optimizer, "update", None))):
@@ -156,6 +156,10 @@ class DeepSpeedTPUEngine:
             self.optimizer, _ = build_optimizer(
                 self.config.optimizer.type, self.config.optimizer.params, self.lr_schedule)
         self.lr_scheduler = LRSchedulerShim(self.lr_schedule)
+        self.training_dataloader = (self.deepspeed_io(training_data)
+                                    if training_data is not None else None)
+        self._train_iter: Optional[RepeatingLoader] = None
+        self._train_iter_src = None
 
         self.global_steps = 0
         self.micro_steps = 0
@@ -437,30 +441,91 @@ class DeepSpeedTPUEngine:
                     ) -> torch.Tensor:
         """One full optimizer step.  ``batch`` leaves carry a leading dim of
         ``gradient_accumulation_steps`` (:func:`stack_microbatches`), or
-        ``data_iter`` yields the gas micro-batches.  Returns the mean loss
-        as a device tensor."""
+        ``data_iter`` yields the gas micro-batches, or (neither given) the
+        training dataloader does, wrapping round at its end.  Returns the
+        mean loss as a device tensor."""
         self._check_live()
         gas = self.config.gradient_accumulation_steps or 1
         if batch is None:
-            if data_iter is None:
+            if data_iter is not None:
+                micro = [next(data_iter) for _ in range(gas)]
+            elif self.training_dataloader is not None:
+                micro = [self._next_training_batch() for _ in range(gas)]
+            else:
                 raise ValueError("train_batch needs a batch or a data iterator")
-            batch = stack_microbatches([next(data_iter) for _ in range(gas)])
+            batch = stack_microbatches(micro)
         if self._acc_dirty:
             # abandoned forward() micro-steps: drop their accumulation
             self.state.grad_acc = None
             self.state.micro_step = 0
             self.micro_steps -= self.micro_steps % gas
             self._acc_dirty = False
-        loss = self._train_batch(_to_device(batch, self.device))
+        loss = self._train_batch(to_device(batch, self.device))
         self.global_steps += 1
         self.micro_steps += gas
         return loss
+
+    def _next_training_batch(self) -> Any:
+        # one live iterator, re-made when the loader object was swapped
+        if self._train_iter_src is not self.training_dataloader:
+            self._train_iter = RepeatingLoader(self.training_dataloader)
+            self._train_iter_src = self.training_dataloader
+        try:
+            return next(self._train_iter)
+        except StopIteration:
+            raise ValueError("training dataloader is empty (fewer samples than one "
+                             "micro-batch with drop_last?)") from None
+
+    def deepspeed_io(self, dataset: Any, batch_size: Optional[int] = None,
+                     collate_fn: Any = None, num_local_io_workers: Any = None,
+                     data_sampler: Any = None) -> DeepSpeedDataLoader:
+        """The dataloader over ``dataset`` (the JAX engine's
+        ``deepspeed_io``): micro-batches of ``batch_size`` (default the
+        config's) on this engine's device, shuffled by the config's seed.
+        ``num_local_io_workers`` and ``data_sampler`` are taken for the
+        reference's signature and unused, as in the JAX engine."""
+        return DeepSpeedDataLoader(
+            dataset, batch_size=batch_size or self.config.train_micro_batch_size_per_gpu,
+            device=self.device, collate_fn=collate_fn, seed=self.config.seed)
+
+    # ------------------------------------------------------------ checkpoints
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None,
+                        partitioned: Optional[bool] = None) -> str:
+        """Save the training state as tag ``tag`` (default
+        ``global_step<N>``) in the consolidated layout; returns its path.
+        ``partitioned=True`` (per-rank shard files) raises: one rank."""
+        from ..checkpoint import saving
+
+        if partitioned:
+            saving.refuse_partitioned("save_checkpoint(partitioned=True)")
+        return saving.save_checkpoint(self, save_dir, tag=tag, client_state=client_state)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True) -> Tuple[Optional[str], dict]:
+        """Verified load: the tag is resolved through the commit protocol
+        (checksums checked; a corrupt newest tag is counted and skipped for
+        the previous good one; an explicit corrupt tag raises
+        ``CorruptCheckpointError``; a tag without a manifest loads
+        unverified).  Returns (path, client_state), or (None, {})."""
+        from ..checkpoint import saving
+        from ..resilience.commit import resolve_tag
+
+        resolved, report = resolve_tag(load_dir, tag)
+        if resolved is None:
+            logger.warning(f"no loadable checkpoint in {load_dir}; nothing loaded")
+            return None, {}
+        return saving.load_checkpoint(self, load_dir, tag=resolved,
+                                      load_optimizer_states=load_optimizer_states,
+                                      load_lr_scheduler_states=load_lr_scheduler_states,
+                                      verified=report["verified"])
 
     def forward(self, batch: Any) -> torch.Tensor:
         """DeepSpeed-compatible micro-step: loss AND gradients in one pass
         (accumulated); ``backward`` then only counts the micro-step."""
         self._check_live()
-        grads, loss, _ = self._micro_grads(_to_device(batch, self.device))
+        grads, loss, _ = self._micro_grads(to_device(batch, self.device))
         self._accumulate(grads)
         self._acc_dirty = True
         self._cached_loss = loss
@@ -487,7 +552,7 @@ class DeepSpeedTPUEngine:
     def eval_batch(self, batch: Any) -> Any:
         """The model's ``apply_fn`` (else its loss) on the compute copy."""
         self._check_live()
-        batch = _to_device(batch, self.device)
+        batch = to_device(batch, self.device)
         with torch.no_grad():
             p = self._compute_params()
             if self.model.apply_fn is not None:

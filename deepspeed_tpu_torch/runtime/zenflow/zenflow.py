@@ -124,11 +124,17 @@ class ZenFlowOptimizer:
             snap_v[i][..., sel] = vs
         self._slow_result = (snap_master, snap_m, snap_v, snap_touched, snap_accum)
 
+    def _wait_slow(self) -> None:
+        """Let the running slow pass finish; its result stays pending."""
+        if self._slow_thread is not None:
+            self._slow_thread.join()
+            self._slow_thread = None
+
     def _join_slow(self) -> None:
-        if self._slow_thread is None:
+        """Merge the pending slow pass (after it finishes)."""
+        self._wait_slow()
+        if self._slow_result is None:
             return
-        self._slow_thread.join()
-        self._slow_thread = None
         new_master, new_m, new_v, snap_touched, snap_accum = self._slow_result
         self._slow_result = None
         for i in range(len(self.master)):
@@ -264,6 +270,44 @@ class ZenFlowOptimizer:
         self._fast_mask = [None] * len(self.master)
         self._slow_touched = [np.asarray(t, bool) if t is not None else None
                               for t in sd["touched"]]
+
+    # -- checkpoints: the live arrays, read and refilled in place ---------------
+    _PENDING = ("pending_master", "pending_m", "pending_v", "pending_touched",
+                "pending_accum")
+
+    def checkpoint_scalars(self) -> Dict[str, np.ndarray]:
+        """The step count and whether a slow pass is pending (its result and
+        the fast path's columns since its launch are then saved as they
+        are, unmerged, so a resumed run merges them where this one would)."""
+        self._wait_slow()
+        return {"step": np.asarray(self.step_count, np.int64),
+                "pending": np.asarray(self._slow_result is not None)}
+
+    def load_checkpoint_scalars(self, scalars: Dict[str, np.ndarray]) -> None:
+        self._wait_slow()
+        self.step_count = int(scalars["step"])
+        pending = bool(scalars.get("pending", False))
+        self._slow_result = None
+        self._fast_mask = [None] * len(self.master)
+        if pending:
+            self._slow_result = (
+                [np.empty_like(x) for x in self.master], [np.empty_like(x) for x in self._m],
+                [np.empty_like(x) for x in self._v],
+                [None if t is None else np.empty_like(t) for t in self._slow_touched],
+                [np.empty_like(x) for x in self._accum])
+            self._fast_mask = [np.zeros(x.shape[-1], bool) if x.ndim >= 2 else None
+                               for x in self.master]
+
+    def checkpoint_state(self) -> Dict[str, List[Any]]:
+        """The host arrays by name, one entry per leaf (None where a leaf
+        has none: the column masks of 1-D leaves)."""
+        self._wait_slow()
+        out: Dict[str, List[Any]] = {"master": self.master, "m": self._m, "v": self._v,
+                                     "accum": self._accum, "touched": self._slow_touched}
+        if self._slow_result is not None:
+            out.update(zip(self._PENDING, self._slow_result))
+            out["fast_mask"] = self._fast_mask
+        return {k: list(v) for k, v in out.items()}
 
     def close(self) -> None:
         self._join_slow()

@@ -18,10 +18,16 @@ A step is ``begin_step`` -> ``step_leaves`` over consecutive runs of leaves
 -> ``finish_step``: the engine streams gradients through bounded host
 buffers and hands each run over as it lands.  :meth:`apply_step` is the
 JAX module's whole-list call (scale, clip, update every leaf).
+
+Held in RAM, each leaf's moments are allocated (and touched) with its
+master, so the host state is whole from the start: a checkpoint load
+(``checkpoint/saving.py``, through :meth:`checkpoint_state`) fills the
+live arrays in place, one leaf at a time, as the first step would.
 """
 
 from __future__ import annotations
 
+import mmap
 import os
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -67,9 +73,55 @@ def _leaves(params: Any) -> List[Any]:
 
 
 def _host_copy(x: Any) -> np.ndarray:
+    """A flat fp32 host array of ``x`` that shares no memory with it (a
+    device tensor's copy to the host is new already: no second copy)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float32).numpy().ravel().copy()
+        t = x.detach().to("cpu", torch.float32)
+        arr = t.numpy().ravel()
+        return arr.copy() if t.data_ptr() == x.data_ptr() else arr
     return np.asarray(x, np.float32).ravel().copy()
+
+
+def resident_zeros(n: int) -> np.ndarray:
+    """fp32 zeros whose pages are mapped now (``np.zeros`` maps them at the
+    first write, so the host's resident set would grow then): one write a
+    page faults each in, zeroed by the kernel."""
+    a = np.zeros(n, np.float32)
+    a[::mmap.PAGESIZE // a.itemsize] = 0.0
+    return a
+
+
+class SpilledMoment:
+    """Leaf ``key``'s moment in its NVMe spill file, read whole into a new
+    host array and written back from one.  ``moments`` is the host op's dict
+    for this moment: a key it lacks is a moment the first step has not made
+    yet, which reads as the zeros that step starts from; a write puts the
+    moment on disk and marks it so (None), so the next step fetches it."""
+
+    dtype = np.dtype(np.float32)
+
+    def __init__(self, path: str, size: int, moments: Dict[int, Any], key: int):
+        self.path, self.size, self.shape = path, size, (size,)
+        self.moments, self.key = moments, key
+
+    def read(self) -> np.ndarray:
+        out = np.zeros(self.size, np.float32)
+        if self.key not in self.moments:
+            return out
+        view = memoryview(out).cast("B")
+        with open(self.path, "rb", buffering=0) as f:
+            got = 0
+            while got < view.nbytes:
+                n = f.readinto(view[got:])
+                if not n:
+                    raise OSError(f"{self.path}: spill file ends early")
+                got += n
+        return out
+
+    def write(self, a: np.ndarray) -> None:
+        with open(self.path, "wb") as f:
+            f.write(memoryview(np.ascontiguousarray(a, np.float32)).cast("B"))
+        self.moments[self.key] = None
 
 
 def build_cpu_optimizer(optimizer_config: Dict[str, Any]):
@@ -130,6 +182,8 @@ class HostOffloadedOptimizer:
         """fp32 host copies of ``init_params`` (a ParamTree or a sequence of
         tensors / arrays), one flat array per leaf."""
         self.master = [_host_copy(x) for x in _leaves(init_params)]
+        for i in range(len(self.master)):
+            self._alloc_moments(i)
         logger.info(f"host-offload: {sum(m.size for m in self.master) / 1e6:.1f}M fp32 master "
                     f"elements in host RAM")
 
@@ -139,6 +193,14 @@ class HostOffloadedOptimizer:
         if i != len(self.master):
             raise ValueError(f"adopt_master: leaf {i} out of order ({len(self.master)} held)")
         self.master.append(_host_copy(leaf))
+        self._alloc_moments(i)
+
+    def _alloc_moments(self, i: int) -> None:
+        """Leaf ``i``'s zero moments in RAM (with NVMe they are made at the
+        first step and spilled)."""
+        if not self._nvme:
+            for _, d in self._moment_dicts():
+                d[i] = resident_zeros(self.master[i].size)
 
     # -- host memory accounting ------------------------------------------------
     def master_bytes(self) -> int:
@@ -274,6 +336,34 @@ class HostOffloadedOptimizer:
 
     def state_dict(self) -> Dict[str, Any]:
         return {"adam": self.cpu_adam.state_dict(), "master": [m.copy() for m in self.master]}
+
+    # -- checkpoints: the live arrays, read and refilled in place ---------------
+    def _spill_file(self, name: str, key: int) -> str:
+        return f"{self.nvme_path}/{name}_{key}.bin"
+
+    def checkpoint_state(self) -> Dict[str, List[Any]]:
+        """The host arrays a checkpoint holds, by name, one entry per leaf:
+        the live flat fp32 arrays (every moment in RAM exists from the
+        start), or a :class:`SpilledMoment` for a moment on NVMe or not
+        made yet there.  Making the list changes nothing: a load writes
+        only what it loads."""
+        out: Dict[str, List[Any]] = {"master": list(self.master)}
+        for name, d in self._moment_dicts():
+            out[name] = [d[i] if d.get(i) is not None else
+                         SpilledMoment(self._spill_file(name, i), m.size, d, i)
+                         for i, m in enumerate(self.master)]
+        return out
+
+    def checkpoint_scalars(self) -> Dict[str, np.ndarray]:
+        """The host op's per-leaf step counts (Adam's bias correction)."""
+        t = getattr(self.cpu_adam, "_t", None)
+        if t is None:
+            return {}
+        return {"t": np.asarray([t.get(i, 0) for i in range(len(self.master))], np.int64)}
+
+    def load_checkpoint_scalars(self, scalars: Dict[str, np.ndarray]) -> None:
+        if "t" in scalars and hasattr(self.cpu_adam, "_t"):
+            self.cpu_adam._t = {i: int(x) for i, x in enumerate(scalars["t"]) if x}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         self.cpu_adam.load_state_dict(sd["adam"])

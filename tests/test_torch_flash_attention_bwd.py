@@ -145,3 +145,27 @@ def test_flash_segment_mask_takes_the_plain_attention():
                                                 segment_mask=jnp.asarray(keep)),
                       q, k, v, do, "fp32")
     _check([x.grad.numpy() for x in t], want, "fp32")
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 5, 8, 71])
+def test_dkv_two_terms_exactly_past_a_group_of_4(group):
+    """Kernel A'' keeps P and dS as two bf16 terms exactly when the
+    query-to-KV group is wider than 4 (at a compile-time head dim); fp16
+    always takes two terms inside the kernel and fp32 none, so neither asks
+    for the two-term code."""
+    for D in (16, 64, 80, 128, 256):
+        assert fa.dkv_two_terms(torch.bfloat16, group, D) == (group > 4)
+        assert not fa.dkv_two_terms(torch.float16, group, D)
+        assert not fa.dkv_two_terms(torch.float32, group, D)
+    assert not fa.dkv_two_terms(torch.bfloat16, group, 288)  # runtime-head-dim kernel
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_flash_grads_wide_group_plain_version(dt):
+    """The plain backward, which the CPU path runs and the card holds the
+    kernels to, at a group of 8 (past the two-term threshold) against the
+    JAX Pallas kernels: unchanged by the threshold."""
+    q, k, v, do = _inputs(3, 1, 32, 8, 1, 16)
+    got = _port_grads(q, k, v, do, dt, causal=True)
+    _check(got, _jax_grads(lambda a, b, c: jax_flash(a, b, c, causal=True, block_q=16,
+                                                     block_k=16), q, k, v, do, dt), dt)

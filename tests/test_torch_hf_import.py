@@ -396,13 +396,6 @@ def test_export_refusals_match_jax(case):
     assert str(got.value) == str(want.value)
 
 
-def test_checkpoint_to_hf_names_its_item(tmp_path):
-    cfg, _ = _tree("llama")
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        tx.checkpoint_to_hf(str(tmp_path), "tag", str(tmp_path / "out"),
-                            ti.config_from_hf(jx.hf_config_dict(cfg, "llama")))
-
-
 def _prompts(vocab, seed=41):
     rng = np.random.RandomState(seed)
     return [list(map(int, rng.randint(0, vocab, n))) for n in (6, 19, 11)]

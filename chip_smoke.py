@@ -58,7 +58,15 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
    speculation and for sampled rows (plain and horizon 4); then llama-1b
    at full width and depth in fp32: the single-step, 8-step and n-gram
    programs serve identical greedy streams and a captured step gives
-   eager ``paged_decode``'s tokens (``decode_parity_phase``);
+   eager ``paged_decode``'s tokens (``decode_parity_phase``); then two
+   families of a 128-token system prompt in three waves (the last
+   repeating two prompts exactly) with the prefix cache off and on, at
+   horizon 8, with n-gram speculation, capped at 8 pages with the host
+   tier and with the NVMe tier under a 16-page host budget, every stream
+   equal to cache-off's, and a sequence exported after 8 tokens, sent
+   through ``bundle_to_bytes`` / ``bundle_from_bytes`` into a second
+   engine on the same params and released from the first, continuing to
+   its uninterrupted stream (``prefix_parity``);
 6. kernels A' (dQ) and A'' (dK, dV), flash-attention backward, against
    their plain version computed in fp32 from the same inputs, lse and delta
    (``FLASH_BWD_TOL``) at the llama-1b training shape (B=4 S=1024 NH=32
@@ -295,7 +303,21 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     the save and the load within 1 GiB, the host resident set within 0.25x
     the checkpoint (save) and 2x its largest stacked member (load); (c)
     (a)'s tag through ``checkpoint_to_hf`` into an HF directory served by
-    ``init_inference(<dir>)``: greedy streams equal to the live params'.
+    ``init_inference(<dir>)``: greedy streams equal to those of
+    ``init_inference`` on the engine's live fp32 master, which it leaves
+    fp32 with its pointers, before the resumed fused-Adam steps;
+38. prefix serving (``prefix_phase``, run right after phase 5): llama-1b
+    at full width and depth in bf16 serving four products' chat traffic
+    (768-token system prompts, 20 requests in three waves) with the
+    prefix cache off and on, whole-prompt and 256-token chunked: TTFT,
+    prefill tokens admitted against computed, the hit rate and the
+    decode entries; kernel A once per layer per prefill call (the suffix
+    only) and B once per layer per decode body; the cache capped at 64
+    pages with the host tier, bf16 and int8 KV: pages and bytes spilled
+    and restored and their GB/s, no corrupt page, every page copy on the
+    card's pools through pinned host buffers (the int8 run's restored
+    pages read back byte-equal); ``export_sequence`` and
+    ``import_sequence`` timed, each imported page byte-equal.
     Phases 2 and 6 hold A and A'/A'' at falcon-7b's 71:1 and BERT-base's
     non-causal shape too; dK and dV of a group wider than 4 (A'' with P
     and dS as two bf16 terms) within the unscaled ``FLASH_BWD_TOL`` of
@@ -1509,7 +1531,8 @@ def drive(eng, requests, fa, pa, wq=None, gmm=None):
     st = {k: v - before[k] for k, v in eng.stats().items()}
     ttft = sorted(first.values())
     return {"streams": streams, "reasons": reasons, "launches": launches, "stats": st,
-            "ttft_mean_s": sum(ttft) / len(ttft), "ttft_p50_s": ttft[len(ttft) // 2],
+            "ttft_s": ttft, "ttft_mean_s": sum(ttft) / len(ttft),
+            "ttft_p50_s": ttft[len(ttft) // 2],
             "ttft_max_s": ttft[-1], "wall_s": wall, "steps": len(step_ms),
             "mean_step_ms": sum(step_ms) / len(step_ms),
             "prefill_tok_per_s": st["prefill_computed_tokens"] / st["prefill_seconds"],
@@ -1785,8 +1808,6 @@ def decode_parity_phase():
         eng.close()
         del eng
         gc.collect()
-    del params
-    torch.cuda.empty_cache()
     for mode in runs:
         check(streams[mode] == streams["single_step"],
               f"fp32 {mode}: greedy streams differ from the single-step program's")
@@ -1799,8 +1820,384 @@ def decode_parity_phase():
                    "decode_tokens_per_host_sync", "decode_tokens_per_invocation",
                    "spec_acceptance_rate", "spec_rollback_pages",
                    "decode_horizon_shrinks")} for m in runs})
+    rec["prefix"] = prefix_parity(model, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     print(json.dumps({"decode_parity": rec}))
     return rec
+
+
+def prefix_waves(rng, vocab, prefix, turns, repeat):
+    """Shared-prefix traffic in waves: ``turns[f]`` the user turns of
+    family ``f`` (each a ``prefix``-token system prompt of its own); the
+    first wave one request per family, the second the rest (their prefixes
+    cached by then), the third repeating the first wave's prompts exactly
+    (page-aligned: full hits, decode entry) when ``repeat``."""
+    fams = [torch.randint(0, vocab, (prefix,), generator=rng).tolist() for _ in turns]
+    prompts = [[f + torch.randint(0, vocab, (n,), generator=rng).tolist() for n in ts]
+               for f, ts in zip(fams, turns)]
+    waves = [[p[0] for p in prompts], [q for p in prompts for q in p[1:]]]
+    if repeat:
+        waves.append([list(p[0]) for p in prompts])
+    return waves
+
+
+def serve_waves(eng, waves, new_tokens):
+    """Each wave through ``generate_all`` in turn: the streams, wave by
+    wave, in the order of the wave's prompts."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedRequest
+
+    out = []
+    for wave in waves:
+        got = eng.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=new_tokens)
+                                for p in wave])
+        out.append([got[u] for u in sorted(got)])
+    return out
+
+
+def page_bytes(eng) -> int:
+    """Bytes of one KV page across every pool leaf and layer."""
+    return sum(t[:, 0].numel() * t.element_size() for t in eng._pools.values())
+
+
+#: the fp32 prefix-cache modes of ``prefix_parity``: every mode's greedy
+#: streams must be cache-off's, bit for bit; the capped modes keep 8
+#: unreferenced pages on the card, the rest going to the host tier (and
+#: under a 16-page host budget on to NVMe page files)
+PREFIX_PARITY_RUNS = {
+    "cache_off": {}, "cache_on": {"enable_prefix_cache": True},
+    "cache_horizon_8": {"enable_prefix_cache": True, "decode_horizon": 8},
+    "cache_spec_ngram": {"enable_prefix_cache": True,
+                         "speculative": {"mode": "ngram", "k": 4}},
+    "cache_cap8_host": {"enable_prefix_cache": True, "prefix_cache_pages": 8,
+                        "kv_tier": {"enabled": True}},
+    "cache_cap8_nvme": {"enable_prefix_cache": True, "prefix_cache_pages": 8,
+                        "kv_tier": {"enabled": True, "nvme_enabled": True}}}
+
+
+def prefix_parity(model, params):
+    """llama-1b at full width and depth in fp32 (``params``: the caller's,
+    shared): two families of a 128-token system prompt with distinct 16-64
+    token turns, served in three waves (one per family, the rest, the first
+    two repeated exactly) in every mode of ``PREFIX_PARITY_RUNS``, 24 new
+    tokens each; every stream equal to cache-off's.  Then a sequence
+    exported after 8 tokens, through ``bundle_to_bytes`` and
+    ``bundle_from_bytes``, imported by a second engine on the same params
+    and released from the first continues to its uninterrupted stream."""
+    import gc
+
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+    from deepspeed_tpu_torch.serving import bundle_from_bytes, bundle_to_bytes
+
+    t_start = time.perf_counter()
+    rng = torch.Generator().manual_seed(4242)
+    waves = prefix_waves(rng, model.config.vocab_size, 128, ([16, 37, 53], [32, 24, 61]),
+                         repeat=True)
+    base = dict(dtype="fp32", page_size=16, max_seqs=8, max_pages_per_seq=32, num_pages=256)
+    nvme_dir = os.path.join(NVME_DIR, "kv_tier")
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+
+    def engine(extra):
+        cfg = dict(base, **extra)
+        if extra.get("kv_tier", {}).get("nvme_enabled"):
+            cfg["kv_tier"] = dict(extra["kv_tier"], nvme_dir=nvme_dir,
+                                  host_bytes=16 * 2 * model.config.n_layers * 16
+                                  * model.config.kv_heads * model.config.head_dim * 4)
+        return InferenceEngineV2(model, RaggedInferenceConfig.from_dict(cfg), params=params,
+                                 seed=0)
+
+    streams, rec = {}, {}
+    for mode, extra in PREFIX_PARITY_RUNS.items():
+        eng = engine(extra)
+        streams[mode] = serve_waves(eng, waves, 24)
+        r = {k: v for k, v in eng.cache_stats().items() if k != "cached_pages"}
+        r["decode_entries"] = eng.stats()["decode_entries"]
+        if eng.kv_tier is not None:
+            r["tier"] = eng.tier_stats()
+            r["page_bytes"] = page_bytes(eng)
+            check(r["tier"]["spilled_pages"] > 0 and r["tier"]["restored_pages"] > 0
+                  and r["tier"]["corrupt_pages"] == 0,
+                  f"fp32 prefix {mode}: the tier did not engage cleanly: {r['tier']}")
+        if mode != "cache_off":
+            # uncapped, both repeats are full hits; capped, a walk that meets
+            # a host-held page and then a device one stops there, as in JAX
+            check(r["prefix_hit_tokens"] > 0
+                  and (eng.kv_tier is not None or r["decode_entries"] == 2),
+                  f"fp32 prefix {mode}: hits {r['prefix_hit_tokens']}, decode entries "
+                  f"{r['decode_entries']}")
+        eng.assert_no_leaks()
+        eng.close()
+        rec[mode] = r
+        del eng
+        gc.collect()
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+    for mode in PREFIX_PARITY_RUNS:
+        check(streams[mode] == streams["cache_off"],
+              f"fp32 prefix {mode}: greedy streams differ from cache-off's")
+    # export after 8 tokens, through the wire, import, release, continue
+    prompt = waves[1][0]
+    ref = engine(PREFIX_PARITY_RUNS["cache_on"])
+    want = list(ref.generate_all([RaggedRequest(prompt_ids=prompt, max_new_tokens=24)])
+                .values())[0]
+    ref.close()
+    src, dst = engine(PREFIX_PARITY_RUNS["cache_on"]), None
+    uid = src.put(RaggedRequest(prompt_ids=prompt, max_new_tokens=24))
+    got = []
+    while len(got) < 8:
+        got += src.step().get(uid, {}).get("tokens", [])
+    wire = bundle_to_bytes(src.export_sequence(uid))
+    dst = InferenceEngineV2(model, RaggedInferenceConfig.from_dict(
+        dict(base, enable_prefix_cache=True)), params=src.params, seed=0)
+    check(dst.import_sequence(bundle_from_bytes(wire)), "fp32 prefix: the import was refused")
+    src.release_sequence(uid)
+    src.assert_no_leaks()
+    while dst.has_work():
+        got += dst.step().get(uid, {}).get("tokens", [])
+    check(got == want, f"fp32 prefix: the migrated stream {got} != the uninterrupted {want}")
+    dst.assert_no_leaks()
+    for e in (src, dst):
+        e.close()
+    rec["migration"] = {"tokens_before_export": 8, "bundle_bytes": len(wire),
+                        "stream_equal": True,
+                        "equal_to_cache_off_wave": want == streams["cache_off"][1][0]}
+    rec.update(requests=sum(len(w) for w in waves), tokens_each=24, streams_identical=True,
+               seconds=time.perf_counter() - t_start)
+    return rec
+
+
+#: prefix_phase's traffic: chat and agent requests behind one system prompt
+#: per product: PREFIX_FAMILIES system prompts of PREFIX_SYSTEM tokens (48
+#: pages of 16), 4 requests each with distinct 16-128-token user turns (the
+#: first page-aligned), then the first of each repeated exactly
+PREFIX_FAMILIES, PREFIX_SYSTEM, PREFIX_NEW_TOKENS = 4, 768, 32
+#: unreferenced pages the tier runs keep on the card: below the 192 pages
+#: of the four system prompts, so the rest spill to host RAM
+PREFIX_CAP = 64
+PREFIX_TIER = {"enabled": True, "spill_inflight": 256}
+PREFIX_RUNS = {
+    "off_whole": {}, "on_whole": {"enable_prefix_cache": True},
+    "off_chunked_256": {"prefill_chunk": 256},
+    "on_chunked_256": {"enable_prefix_cache": True, "prefill_chunk": 256},
+    "tier_whole": {"enable_prefix_cache": True, "prefix_cache_pages": PREFIX_CAP,
+                   "kv_tier": PREFIX_TIER},
+    "on_whole_kv_quant": {"enable_prefix_cache": True, "kv_quant": True},
+    "tier_whole_kv_quant": {"enable_prefix_cache": True, "prefix_cache_pages": PREFIX_CAP,
+                            "kv_tier": PREFIX_TIER, "kv_quant": True}}
+
+
+def drive_waves(eng, waves, fa, pa, new_tokens):
+    """``drive`` over each wave in turn; launches and stats summed, TTFT
+    over every request (and per wave), streams wave by wave."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedRequest
+
+    recs = [drive(eng, [RaggedRequest(prompt_ids=p, max_new_tokens=new_tokens) for p in w],
+                  fa, pa) for w in waves]
+    ttft = sorted(t for r in recs for t in r["ttft_s"])
+    return {"streams": [[r["streams"][u] for u in sorted(r["streams"])] for r in recs],
+            "launches": {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]},
+            "stats": {k: sum(r["stats"][k] for r in recs) for k in recs[0]["stats"]},
+            "ttft_mean_s": sum(ttft) / len(ttft), "ttft_p50_s": ttft[len(ttft) // 2],
+            "ttft_max_s": ttft[-1], "ttft_mean_s_by_wave": [r["ttft_mean_s"] for r in recs],
+            "wall_s": sum(r["wall_s"] for r in recs)}
+
+
+@contextlib.contextmanager
+def watched_page_copies(verify: bool):
+    """Wrap the engine's page gather and scatter: every pool they touch on
+    ``cuda``, every host buffer pinned; with ``verify``, each scattered
+    page read back from the card byte-equal to its source."""
+    from deepspeed_tpu_torch.inference.v2 import engine_v2 as ev2
+
+    seen = {"gathers": 0, "scatters": 0, "pools_cuda": True, "gathered_pinned": True,
+            "scattered_pinned": True, "pages_verified": 0, "scattered_equal": True}
+    gather, scatter = ev2.paged_gather_pages, ev2.paged_scatter_pages
+
+    def watched_gather(pools, pages):
+        out = gather(pools, pages)
+        seen["gathers"] += 1
+        seen["pools_cuda"] &= all(t.is_cuda for t in pools.values())
+        seen["gathered_pinned"] &= all(t.is_pinned() for t in out.values())
+        return out
+
+    def watched_scatter(pools, pages, arrays):
+        seen["scatters"] += 1
+        seen["pools_cuda"] &= all(t.is_cuda for t in pools.values())
+        seen["scattered_pinned"] &= all(t.is_pinned() for t in arrays.values())
+        out = scatter(pools, pages, arrays)
+        if verify:
+            rows = torch.tensor(list(pages), device=DEV)
+            seen["scattered_equal"] &= all(torch.equal(
+                pools[n].index_select(1, rows).cpu(), arrays[n]) for n in arrays)
+            seen["pages_verified"] += len(pages)
+        return out
+
+    ev2.paged_gather_pages, ev2.paged_scatter_pages = watched_gather, watched_scatter
+    try:
+        yield seen
+    finally:
+        ev2.paged_gather_pages, ev2.paged_scatter_pages = gather, scatter
+
+
+def prefix_phase(fa, pa):
+    """llama-1b at full width and depth (bf16, 16 layers, 8 KV heads, D 64,
+    pages of 16, 8 slots) serving ``PREFIX_FAMILIES`` products' chat
+    traffic (``prefix_waves``; 20 requests, PREFIX_NEW_TOKENS new tokens
+    each) with the prefix cache off and on, whole-prompt and 256-chunked:
+    TTFT, prefill admitted against computed tokens, the hit rate and the
+    decode entries; kernel A once per layer per prefill call (the suffix
+    only; with int8 KV a suffix attends through the plain formulation, as
+    in JAX), kernel B once per layer per decode body, fewer tokens
+    computed with the cache.  Then the cache capped at PREFIX_CAP pages with the
+    host tier, bf16 and int8 KV: pages and bytes spilled and restored and
+    their GB/s, no corrupt page, the streams against the uncapped cache's,
+    every host buffer pinned and every pool on the card (each restored page
+    read back byte-equal in the int8 run).  Then ``export_sequence`` /
+    ``import_sequence`` timed, the bundle's bytes, each imported page
+    byte-equal to the exported arrays."""
+    import gc
+
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+    from deepspeed_tpu_torch.inference.v2.model_runner import (paged_gather_pages,
+                                                               paged_prefill_chunk)
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.serving import bundle_from_bytes, bundle_to_bytes
+
+    model = llama_model("1b", max_seq_len=2048)
+    L = model.config.n_layers
+    rng = torch.Generator().manual_seed(777)
+    turns = [[16 * int(torch.randint(1, 9, (1,), generator=rng))]
+             + torch.randint(16, 129, (3,), generator=rng).tolist()
+             for _ in range(PREFIX_FAMILIES)]
+    waves = prefix_waves(rng, model.config.vocab_size, PREFIX_SYSTEM, turns, repeat=True)
+    base = dict(dtype="bf16", page_size=16, max_seqs=8, max_pages_per_seq=64, num_pages=1024)
+    results, params = {}, None
+    for mode, extra in PREFIX_RUNS.items():
+        eng = InferenceEngineV2(model, RaggedInferenceConfig.from_dict(dict(base, **extra)),
+                                params=params, seed=0)
+        params = eng.params
+        eng.generate_all([RaggedRequest(prompt_ids=[1, 2, 3] * 11, max_new_tokens=9)])
+        eng.flush_spills()
+        eng.reset_cache_stats()
+        plain0 = paged_prefill_chunk.plain_quant_calls
+        with watched_page_copies(verify=mode == "tier_whole_kv_quant") as seen:
+            rec = drive_waves(eng, waves, fa, pa, PREFIX_NEW_TOKENS)
+            eng.flush_spills()
+        st = rec["stats"]
+        calls = st["prefill_calls"] + st["prefill_chunk_calls"]
+        # with int8 KV a start-offset prefill (a cached prefix's suffix)
+        # attends through the plain formulation by design, as in JAX
+        plain = paged_prefill_chunk.plain_quant_calls - plain0
+        check(plain == (st["prefill_chunk_calls"] if "kv_quant" in extra else 0)
+              and rec["launches"]["flash"] == L * (calls - plain),
+              f"prefix {mode}: flash launches {rec['launches']['flash']} != {L} x "
+              f"({calls} prefill calls - {plain} plain int8 suffix calls)")
+        check(st["decode_device_steps"] > 0
+              and rec["launches"]["paged"] == L * st["decode_device_steps"],
+              f"prefix {mode}: paged launches {rec['launches']['paged']} != {L} x "
+              f"{st['decode_device_steps']} decode bodies")
+        check(all(len(x) == PREFIX_NEW_TOKENS for w in rec["streams"] for x in w),
+              f"prefix {mode}: stream lengths")
+        check(all(t.is_cuda for t in eng._pools.values()) and seen["pools_cuda"]
+              and seen["gathered_pinned"] and seen["scattered_pinned"]
+              and seen["scattered_equal"], f"prefix {mode}: a page copy fell back: {seen}")
+        rec.update(prefill_calls=calls, plain_int8_suffix_calls=plain,
+                   admitted_tokens=st["prefill_admitted_tokens"],
+                   computed_tokens=st["prefill_computed_tokens"],
+                   hit_tokens=st["prefix_hit_tokens"], decode_entries=st["decode_entries"],
+                   hit_rate=st["prefix_hit_tokens"] / st["prefill_admitted_tokens"],
+                   page_copies=seen)
+        if eng.kv_tier is not None:
+            t, pb = eng.kv_tier, page_bytes(eng)
+            ts = eng.tier_stats()
+            rec["tier"] = dict(ts, page_bytes=pb, spilled_bytes=ts["spilled_pages"] * pb,
+                               restored_bytes=ts["restored_pages"] * pb,
+                               spill_s=t.spill_seconds, restore_s=t.restore_seconds,
+                               spill_gbps=ts["spilled_pages"] * pb / t.spill_seconds / 1e9
+                               if t.spill_seconds else None,
+                               restore_gbps=ts["restored_pages"] * pb / t.restore_seconds / 1e9
+                               if t.restore_seconds else None)
+            check(ts["spilled_pages"] > 0 and ts["restored_pages"] > 0
+                  and ts["corrupt_pages"] == 0,
+                  f"prefix {mode}: the tier did not engage cleanly: {ts}")
+            eng.assert_no_leaks()
+        if mode == "on_whole":
+            rec["migration"] = prefix_migration(eng, waves, model, base, paged_gather_pages,
+                                                bundle_to_bytes, bundle_from_bytes)
+        eng.close()
+        results[mode] = rec
+        print(json.dumps({"prefix": mode, **{k: v for k, v in rec.items() if k != "streams"}}))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    for on, off in (("on_whole", "off_whole"), ("on_chunked_256", "off_chunked_256")):
+        check(results[on]["computed_tokens"] < results[off]["computed_tokens"]
+              and results[on]["admitted_tokens"] == results[off]["admitted_tokens"],
+              f"prefix {on}: computed {results[on]['computed_tokens']} tokens, cache-off "
+              f"{results[off]['computed_tokens']}")
+        check(results[on]["decode_entries"] == PREFIX_FAMILIES,
+              f"prefix {on}: {results[on]['decode_entries']} decode entries")
+    agree = {}
+    for mode, want in (("on_whole", "off_whole"), ("on_chunked_256", "off_chunked_256"),
+                       ("tier_whole", "on_whole"), ("tier_whole_kv_quant", "on_whole_kv_quant")):
+        got, ref = results[mode]["streams"], results[want]["streams"]
+        agree[f"{mode}_vs_{want}"] = [sum(a == b for a, b in zip(gw, rw)) for gw, rw in
+                                      zip(got, ref)]
+    for r in results.values():
+        r.pop("streams")
+    out = {"runs": results, "streams_equal_per_wave": agree,
+           "requests": sum(len(w) for w in waves), "waves": [len(w) for w in waves],
+           "turns": turns}
+    print(json.dumps({"prefix_summary": {
+        m: {k: r.get(k) for k in ("ttft_mean_s", "ttft_p50_s", "ttft_max_s", "admitted_tokens",
+                                  "computed_tokens", "hit_rate", "decode_entries")}
+        for m, r in results.items()}, "streams_equal_per_wave": agree}))
+    return out
+
+
+def prefix_migration(src, waves, model, base, paged_gather_pages, bundle_to_bytes,
+                     bundle_from_bytes):
+    """A request on family 0's cached system prompt, exported from ``src``
+    after 8 tokens and imported by a second engine on the same params:
+    the seconds of each step, the bundle's bytes, each imported page
+    byte-equal to the exported arrays."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+
+    prompt = waves[0][0][:PREFIX_SYSTEM] + waves[1][0][PREFIX_SYSTEM:][::-1] + [5, 6, 7]
+    uid = src.put(RaggedRequest(prompt_ids=prompt, max_new_tokens=PREFIX_NEW_TOKENS))
+    n = 0
+    while n < 8:
+        n += len(src.step().get(uid, {}).get("tokens", []))
+    dst = InferenceEngineV2(model, RaggedInferenceConfig.from_dict(
+        dict(base, enable_prefix_cache=True)), params=src.params, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = src.export_sequence(uid)
+    t1 = time.perf_counter()
+    wire = bundle_to_bytes(bundle)
+    t2 = time.perf_counter()
+    back = bundle_from_bytes(wire)
+    t3 = time.perf_counter()
+    check(dst.import_sequence(back), "prefix migration: the import was refused")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    got = paged_gather_pages(dst._pools, dst._find_slotted(uid).pages)
+    same = all(torch.equal(got[k], bundle.arrays[k]) for k in bundle.arrays)
+    check(same, "prefix migration: an imported page differs from the exported arrays")
+    for e in (src, dst):
+        e.release_sequence(uid)
+        e.assert_no_leaks()
+    dst.close()
+    nbytes = sum(t.numel() * t.element_size() for t in bundle.arrays.values())
+    return {"tokens": len(bundle.tokens), "pages": bundle.n_pages, "page_bytes": nbytes,
+            "wire_bytes": len(wire), "export_s": t1 - t0, "to_bytes_s": t2 - t1,
+            "from_bytes_s": t3 - t2, "import_s": t4 - t3,
+            "export_gbps": nbytes / (t1 - t0) / 1e9, "import_gbps": nbytes / (t4 - t3) / 1e9,
+            "pages_byte_equal": same}
 
 
 # -- phase 5: card vs CPU parity ---------------------------------------------
@@ -2624,8 +3021,6 @@ def moe_parity_phase():
     from the same weights, dropless and capacity: prefill logits within
     ``PARITY_LOGITS_TOL`` with identical router top-2 choices, and identical
     greedy streams from ``InferenceEngineV2`` and ``init_inference``."""
-    import copy
-
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceConfig, RaggedRequest)
@@ -2648,9 +3043,14 @@ def moe_parity_phase():
     out = {}
     for drop in (False, True):
         model = mixtral_model("8x7b", max_seq_len=2048, n_layers=1, moe_drop_tokens=drop)
-        engines = {dev: InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
-                                          params=copy.deepcopy(params), device=dev)
-                   for dev in ("cuda", "cpu")}
+        # the CPU engine serves ``params`` itself (fp32 on the CPU already:
+        # nothing to cast or move), the card's a copy moved there; no host
+        # copy of the 6.4 GB tree
+        engines = {"cuda": InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
+                                             params=params.map(lambda t: t.to(DEV)),
+                                             device="cuda"),
+                   "cpu": InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
+                                            params=params, device="cpu")}
         streams = {dev: e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=4)
                                         for p in prompts]) for dev, e in engines.items()}
         check(streams["cuda"] == streams["cpu"],
@@ -2671,8 +3071,9 @@ def moe_parity_phase():
               and torch.equal(routes["cuda"][0], routes["cpu"][0]),
               f"moe parity drop={drop}: router top-2 choices differ")
         del engines
+        # init_inference copies the tree to the card and leaves it as it is
         dense = {dev: deepspeed_tpu_torch.init_inference(
-            model, config={"dtype": "fp32"}, params=copy.deepcopy(params), device=dev)
+            model, config={"dtype": "fp32"}, params=params, device=dev)
             for dev in ("cuda", "cpu")}
         gen = {dev: e.generate(dense_ids, max_new_tokens=4).cpu() for dev, e in dense.items()}
         check(torch.equal(gen["cuda"], gen["cpu"]),
@@ -4918,17 +5319,24 @@ def checkpoint_phase(fa, fadam):
         served = deepspeed_tpu_torch.init_inference(hf, config={"dtype": "bf16"})
         got = served.generate(prompts, max_new_tokens=16)
         del served
-        # a bf16 copy: the engine casts a ParamTree it is given in place
+        # the live fp32 master itself: init_inference copies it to bf16 and
+        # leaves it as it is; the fused-Adam steps resume_case takes next
+        # must give the unbroken run's bits
+        master = engine.get_params()
+        before = [(p.data_ptr(), p.dtype) for p in master.parameters()]
         live = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"},
-                                                  params=engine.get_params(torch.bfloat16))
+                                                  params=master)
         want = live.generate(prompts, max_new_tokens=16)
         del live
         torch.cuda.synchronize()
+        check([(p.data_ptr(), p.dtype) for p in engine.get_params().parameters()] == before
+              and all(d == torch.float32 for _, d in before),
+              "init_inference altered the training engine's fp32 master")
         check(got.shape == (2, 48) and torch.equal(got, want),
               "checkpoint_to_hf: the exported directory's greedy streams differ from the "
               "live params'")
         out = {"to_hf_s": export_s, "hf_gb": dir_bytes(hf) / 1e9, "streams_equal": True,
-               "prompts": [2, 32], "new_tokens": 16}
+               "prompts": [2, 32], "new_tokens": 16, "master_kept_fp32": True}
         shutil.rmtree(hf, ignore_errors=True)
         return out
 
@@ -5091,6 +5499,7 @@ def main() -> int:
     eng = phase(engine_phase, fa, pa)
     par = phase(parity_phase)
     dpar = phase(decode_parity_phase)
+    prefix = phase(prefix_phase, fa, pa)
     train = phase(train_phase, fa, fadam)
     tpar = phase(train_parity_phase)
     qeng = phase(quant_engine_phase, fa, pa, wq)
@@ -5146,6 +5555,8 @@ def main() -> int:
                      f"(Mixtral-8x7b training, 4096 tokens at top-2, gate/up)")
     serve_fwd = sum(r["launches"]["flash"] for r in eng.values())
     serve_paged = sum(r["launches"]["paged"] for r in eng.values())
+    prefix_l = {k: sum(r["launches"][k] for r in prefix["runs"].values())
+                for k in ("flash", "paged")}
     q_fwd = sum(la["flash"] for la in q_serving.values())
     q_paged = sum(la["paged"] for la in q_serving.values())
     codec_l = {k: v1["module_quantize_launches"][k] + v1["lora_launches"][k]
@@ -5173,8 +5584,9 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:38",
          "launches": serve_fwd + q_fwd + train_l["flash_fwd"] + moe_fwd + falcon_l["flash"]
-                     + fams_l["flash"],
+                     + fams_l["flash"] + prefix_l["flash"],
          "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
+                              "prefix_serving": prefix_l["flash"],
                               "quantized_serving": q_fwd, "moe_serving": moe_fwd,
                               "moe_training": moe_l["flash_fwd"],
                               "offload_training_7b": off7["launches"]["flash_fwd"],
@@ -5226,8 +5638,10 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:35",
-         "launches": serve_paged + q_paged + moe_paged + falcon_l["paged"] + fams_l["paged"],
+         "launches": serve_paged + q_paged + moe_paged + falcon_l["paged"] + fams_l["paged"]
+                     + prefix_l["paged"],
          "launches_by_path": {"serving": serve_paged, "quantized_serving": q_paged,
+                              "prefix_serving": prefix_l["paged"],
                               "moe_serving": moe_paged, "falcon7b_serving": falcon_l["paged"],
                               "families_serving": fams_l["paged"]},
          "max_abs_err": max(r["max_abs_err"] for r in paged), "checked": True,

@@ -30,7 +30,7 @@ from ..models.convert import params_from_numpy
 from ..models.transformer import (ParamTree, TransformerConfig, forward_with_cache,
                                   init_kv_cache)
 from ..runtime.config_utils import ConfigModel
-from ..runtime.precision import cast_tree
+from ..runtime.precision import cast_tree, cast_tree_copy
 from ..utils.logging import logger
 from .v2.engine_v2 import DTYPES
 
@@ -94,8 +94,9 @@ class InferenceEngine:
     """Greedy or sampled generation over a ``models/*`` model carrying a
     :class:`TransformerConfig`.
 
-    ``params``: a :class:`ParamTree` (moved to ``device`` and cast to the
-    config's dtype in place), the JAX parameter tree as numpy arrays, or
+    ``params``: a :class:`ParamTree` (used as it is where it already lies
+    on ``device`` in the config's dtype, else copied there: the caller's
+    tree never changes), the JAX parameter tree as numpy arrays, or
     None for random weights from a ``torch.Generator`` seeded with
     ``seed``.  ``device``: None means ``cuda``."""
 
@@ -114,14 +115,14 @@ class InferenceEngine:
                 "InferenceEngine serves causal decoders with a KV cache; post_norm "
                 "(BERT-style encoder) models have no generative path")
         dtype = self.config.torch_dtype
-        if params is None:
+        if params is None:  # the engine's own tree: cast in place
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
-            params = model.init_params(gen, self.device)
+            params = cast_tree(model.init_params(gen, self.device), dtype)
         elif isinstance(params, dict):
             params = params_from_numpy(params, self.cfg, self.device, dtype)
         elif not isinstance(params, ParamTree):
             raise TypeError(f"params must be a ParamTree or a numpy tree, not {type(params)}")
-        self.params = cast_tree(params.to(self.device), dtype)
+        self.params = cast_tree_copy(params, dtype, self.device)
         logger.info(f"InferenceEngine: dtype={self.config.dtype} device={self.device}")
 
     # ------------------------------------------------------------ public API

@@ -25,8 +25,10 @@ A capture that fails raises; there is no eager fallback on CUDA.  On the
 CPU the same bodies run eagerly on the same buffer.
 
 The graphs freeze every address they touch: the KV pools are written in
-place and never replaced (model_runner.py), the parameters stay put, and
-the inputs are views of the one buffer.  Kernel wrappers count their
+place and never replaced (model_runner.py; the prefix cache's copy on
+write, a KV import and a host-tier restore write them in place too,
+between replays), the parameters stay put, and the inputs are views of
+the one buffer.  Kernel wrappers count their
 launches in Python, which a replay does not run: the counts a capture
 added are taken back and added again at each replay, so
 ``paged_decode_attention.launches`` and the others go on counting the

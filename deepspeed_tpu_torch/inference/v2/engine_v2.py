@@ -22,10 +22,22 @@ round trip, speculative decoding (``speculative``: n-gram or draft-model
 proposals, greedy requests only), and weight-only int8/int4 weights
 (``quant_bits``: every projection and the LM head through the
 ``wq_matmul`` kernel; MoE expert leaves stay full precision, as in JAX).
-Mixtral MoE models serve through the same programs.  The prefix cache,
-the KV tiers and the telemetry layer are not ported yet; setting one of
-their knobs raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+Mixtral MoE models serve through the same programs.
+
+Automatic prefix caching (``enable_prefix_cache``): retired and preempted
+sequences leave their full KV pages in a content-hash index
+(``ragged.PrefixCache``), and a new request maps the longest cached
+page-aligned prefix into its page table and prefills only the suffix (a
+fully cached prompt enters the decode program through a copy-on-write
+last page).  Greedy streams equal cache-off's, except under ``kv_quant``,
+as in JAX.  ``kv_tier`` (``serving.KVTierConfig``) spills pages evicted
+from the cache's LRU to host RAM (and NVMe) and restores them; and
+``export_sequence`` / ``import_sequence`` move a decode-ready sequence
+between engines as a ``KVPageBundle``.  Every page copy writes the live
+pools in place, outside the captured programs, which therefore read them
+after a copy on write, an import or a restore.  The telemetry layer is
+not ported yet; its knobs raise ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,12 +58,12 @@ from ...runtime.precision import cast_tree
 from ..quantization import quantize_inference_params
 from ...utils.logging import logger
 from .captured import DecodePrograms
-from .model_runner import paged_prefill, paged_prefill_chunk
-from .ragged import (PRIORITY_NORMAL, BlockAllocator, KVBlockConfig,
-                     PagedKVCache, RejectedError, SequenceState)
+from .model_runner import (host_buffer, paged_copy_page, paged_gather_pages, paged_prefill,
+                           paged_prefill_chunk, paged_scatter_pages)
+from .ragged import (PRIORITY_NORMAL, BlockAllocator, KVBlockConfig, KVPageBundle,
+                     PagedKVCache, PrefixCache, RejectedError, SequenceState)
 from .speculative import SpeculativeConfig, build_proposer, longest_accepted
 
-ROADMAP_PREFIX = "ROADMAP Queue 1 'Serving: prefix cache, KV export and tiers'"
 ROADMAP_TELEMETRY = "ROADMAP Queue 1 'Serving telemetry'"
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
@@ -122,8 +134,13 @@ class RaggedInferenceConfig(ConfigModel):
     quant_min_size: int = 1 << 14
     #: int8 KV pages + per-(page, slot, head) fp32 scales
     kv_quant: bool = False
+    #: automatic prefix caching: new requests map the longest cached
+    #: page-aligned prefix and prefill only the suffix
     enable_prefix_cache: bool = False
+    #: cap on cached-but-unreferenced pages kept (LRU); 0 = pool-bounded
     prefix_cache_pages: int = 0
+    #: tiered KV cache: a ``serving.KVTierConfig`` (or its dict form);
+    #: needs ``enable_prefix_cache``
     kv_tier: Any = None
     recompile_sentinel: bool = True
     sentinel_steady_after: int = 3
@@ -144,9 +161,11 @@ class RaggedInferenceConfig(ConfigModel):
             raise ValueError(f"dtype {self.dtype!r} not in {sorted(DTYPES)}")
         if isinstance(self.speculative, dict):
             self.speculative = SpeculativeConfig.from_dict(self.speculative)
+        if isinstance(self.kv_tier, dict):
+            from ...serving.config import KVTierConfig
+
+            self.kv_tier = KVTierConfig.from_dict(self.kv_tier)
         not_ported = [
-            ("enable_prefix_cache", self.enable_prefix_cache, ROADMAP_PREFIX),
-            ("kv_tier", self.kv_tier is not None, ROADMAP_PREFIX),
             ("timeline_every_n_steps", self.timeline_every_n_steps != 0,
              ROADMAP_TELEMETRY),
             ("timeline_artifact_dir", self.timeline_artifact_dir != "",
@@ -269,7 +288,26 @@ class InferenceEngineV2:
             dtype, kv_quant=self.config.kv_quant, device=self.device)
         self.block = block
         self.max_seq_len = min(block.max_seq_len, self.cfg.max_seq_len)
-        self.allocator = BlockAllocator(block.num_pages)
+        self.allocator = BlockAllocator(
+            block.num_pages, cache_pages=(self.config.prefix_cache_pages
+                                          if self.config.enable_prefix_cache else 0))
+        self.prefix_cache = (PrefixCache(block.page_size, self.allocator)
+                             if self.config.enable_prefix_cache else None)
+        # the host (and NVMe) tier captures the prefix cache's LRU
+        # evictions; captures wait, their pages pinned, for the next step
+        # boundary's drain
+        self.kv_tier = None
+        self._pending_spills: List[Tuple[int, Any]] = []
+        self._pending_spill_keys: set = set()
+        tier_cfg = self.config.kv_tier
+        if tier_cfg is not None and tier_cfg.enabled:
+            if not self.config.enable_prefix_cache:
+                raise ValueError("kv_tier.enabled requires enable_prefix_cache: the host "
+                                 "tier captures prefix-cache LRU evictions")
+            from ...serving.kv_tier import HostKVTier
+
+            self.kv_tier = HostKVTier(tier_cfg)
+            self.allocator.spill_hook = self._capture_evicted_page
         self._uid = itertools.count()
         self._admit_counter = itertools.count()
         self._enqueue_counter = itertools.count()
@@ -287,11 +325,12 @@ class InferenceEngineV2:
         #: of each phase (each phase ends in a host read of its result, so
         #: on CUDA the seconds include the device work);
         #: ``decode_device_steps``: decode bodies run (a K-step dispatch
-        #: runs K; a verify runs none)
+        #: runs K; a verify runs none); ``decode_entries``: fully cached
+        #: prompts admitted straight into the decode program
         self._stats = {"prefill_calls": 0, "prefill_chunk_calls": 0,
                        "prefill_admitted_tokens": 0, "prefill_computed_tokens": 0,
-                       "prefill_seconds": 0.0, "decode_seconds": 0.0,
-                       "decode_device_steps": 0, "preemptions": 0}
+                       "prefix_hit_tokens": 0, "decode_entries": 0, "prefill_seconds": 0.0,
+                       "decode_seconds": 0.0, "decode_device_steps": 0, "preemptions": 0}
         #: decode-phase counters by the JAX engine's names (decode_stats)
         self._dstats = {"decode_model_invocations": 0, "decode_tokens": 0,
                         "decode_host_syncs": 0, "decode_horizon_shrinks": 0,
@@ -386,10 +425,45 @@ class InferenceEngineV2:
         s["spec_acceptance_rate"] = s["spec_accepted_tokens"] / prop if prop else 0.0
         return s
 
+    def cache_stats(self) -> Dict[str, float]:
+        """Prefix-cache and prefill-work counters by the JAX engine's
+        names (cumulative; the cache entries stay 0 with caching off):
+        admitted, computed and cache-hit prompt tokens, page hits and
+        misses, evictions, pages registered, and ``prefix_hit_rate``."""
+        s: Dict[str, float] = {k: self._stats[k] for k in (
+            "prefill_admitted_tokens", "prefill_computed_tokens", "prefix_hit_tokens")}
+        s["cache_hits"] = self.prefix_cache.hits if self.prefix_cache else 0
+        s["cache_misses"] = self.prefix_cache.misses if self.prefix_cache else 0
+        s["cache_evictions"] = self.allocator.evictions
+        s["cached_pages"] = self.allocator.cached_pages
+        adm = s["prefill_admitted_tokens"]
+        s["prefix_hit_rate"] = (s["prefix_hit_tokens"] / adm) if adm else 0.0
+        return s
+
+    def reset_cache_stats(self) -> None:
+        """Zero every counter (the cache's and the tier's contents stay)."""
+        self._stats = {k: type(v)(0) for k, v in self._stats.items()}
+        self._dstats = {k: 0 for k in self._dstats}
+        self.allocator.evictions = 0
+        if self.prefix_cache is not None:
+            self.prefix_cache.hits = self.prefix_cache.misses = 0
+        if self.kv_tier is not None:
+            t = self.kv_tier
+            t.spilled_pages = t.restored_pages = 0
+            t.hits = t.misses = 0
+            t.host_evictions = t.corrupt_pages = t.dropped_spills = 0
+            t.spill_seconds = t.restore_seconds = 0.0
+
+    def tier_stats(self) -> Dict[str, float]:
+        """The host tier's counters (``HostKVTier.stats``); {} with the
+        tier off."""
+        return dict(self.kv_tier.stats()) if self.kv_tier else {}
+
     def assert_no_leaks(self) -> None:
         """Exact allocator audit against the live sequences: every page's
-        refcount equals its live references (after rollback, preemption or
-        retirement)."""
+        refcount equals its live references plus an in-flight spill pin,
+        and every unreferenced page is free or parked in the cache's LRU
+        (after rollback, preemption, migration or retirement)."""
         self.allocator.assert_no_leaks([s.pages for s in self._slots if s is not None])
 
     def abort_all(self, reason: str = "abort") -> List[int]:
@@ -410,12 +484,279 @@ class InferenceEngineV2:
         return uids
 
     def close(self) -> None:
-        """Abort what is still queued or running, loudly."""
+        """Drop the pending spill captures (their pins released, the hook
+        detached first so the aborts below capture nothing new), then
+        abort what is still queued or running, loudly."""
+        if self.kv_tier is not None:
+            self.allocator.spill_hook = None
+        for page, _key in self._pending_spills:
+            self.allocator.release_spill_pin(page)
+        self._pending_spills = []
+        self._pending_spill_keys = set()
         dropped = self.abort_all(reason="close")
         if dropped:
             logger.warning(
                 f"engine_v2.close: aborted {len(dropped)} unfinished "
                 f"request(s) (uids {dropped[:8]}{'…' if len(dropped) > 8 else ''})")
+
+    # -- KV-page migration: export, import, release --------------------------
+    def _find_slotted(self, uid: int) -> SequenceState:
+        seq = next((s for s in self._slots if s is not None and s.uid == uid), None)
+        if seq is None:
+            raise KeyError(f"uid {uid} is not in a decode slot (queued or unknown "
+                           "sequences have no KV pages to export)")
+        return seq
+
+    def export_sequence(self, uid: int) -> KVPageBundle:
+        """An admitted sequence's KV pages (CPU tensors, the pool's exact
+        dtype) and scheduling state as a :class:`KVPageBundle`.  The
+        sequence keeps running here: release it only after an import
+        elsewhere succeeded."""
+        seq = self._find_slotted(uid)
+        ps = self.block.page_size
+        immutable = seq.prefilled // ps  # pages never written again
+        return KVPageBundle(
+            uid=seq.uid, tokens=list(seq.tokens), prompt_len=seq.prompt_len,
+            max_new_tokens=seq.max_new_tokens, temperature=seq.temperature,
+            eos_id=seq.eos_id, prefilled=seq.prefilled, decode_entry=seq.decode_entry,
+            page_size=ps, page_keys=list(seq.page_keys[:min(immutable, len(seq.page_keys))]),
+            priority=seq.priority, deadline=seq.deadline,
+            src_pages=self.allocator.export_meta(seq.pages),
+            arrays=paged_gather_pages(self._pools, seq.pages),
+            model_sig=(self.cfg.n_layers, self.cfg.kv_heads, self.cfg.head_dim),
+            kv_quant=bool(self.config.kv_quant), dtype=self.config.dtype,
+            trace=({"trace_id": seq.trace_id, "snapshot": None, "hops": []}
+                   if seq.trace_id is not None else None))
+
+    def _check_bundle(self, b: KVPageBundle) -> None:
+        sig = (self.cfg.n_layers, self.cfg.kv_heads, self.cfg.head_dim)
+        if tuple(b.model_sig) != sig:
+            raise ValueError(f"bundle model_sig {tuple(b.model_sig)} != engine {sig}")
+        if b.page_size != self.block.page_size:
+            raise ValueError(f"bundle page_size {b.page_size} != {self.block.page_size}")
+        if bool(b.kv_quant) != bool(self.config.kv_quant):
+            raise ValueError("kv_quant mismatch between bundle and engine")
+        if str(b.dtype) != str(self.config.dtype):
+            # checked here too: an import that adopts every page scatters
+            # nothing, and sharing pages across precisions breaks identity
+            raise ValueError(f"bundle dtype {b.dtype!r} != engine dtype "
+                             f"{self.config.dtype!r}")
+        if b.n_pages > self.block.max_pages_per_seq:
+            raise ValueError(f"bundle spans {b.n_pages} pages > max_pages_per_seq "
+                             f"{self.block.max_pages_per_seq}")
+        if len(b.tokens) >= self.max_seq_len:
+            raise ValueError(f"bundle length {len(b.tokens)} >= max_seq_len "
+                             f"{self.max_seq_len}: nothing left to decode")
+        if not ((b.generated > 0 or b.decode_entry) and b.prefilled >= len(b.tokens) - 1):
+            raise ValueError("bundle is not decode-ready (mid-prefill handoff is not "
+                             "supported: re-dispatch the request instead)")
+
+    def import_sequence(self, bundle: KVPageBundle) -> bool:
+        """Adopt a migrated sequence: its pages go into this pool (sharing
+        pages registered here under the same content key instead of
+        copying them) and it takes a decode slot at once.  False, the
+        engine untouched, when no slot or not enough pages are free;
+        ``ValueError`` when the bundle does not fit this engine."""
+        self._check_bundle(bundle)
+        slot = next((i for i, s in enumerate(self._slots) if s is None), None)
+        if slot is None:
+            return False
+        n = bundle.n_pages
+        keys = list(bundle.page_keys)
+        adopt_keys: List[Any] = [None] * n
+        if self.prefix_cache is not None:
+            for j, k in enumerate(keys[:n]):
+                adopt_keys[j] = k
+        try:
+            pages, reused = self.allocator.adopt(adopt_keys)
+        except MemoryError:
+            return False
+        fresh = [j for j, r in enumerate(reused) if not r]
+        if fresh:
+            try:
+                idx = torch.tensor(fresh)
+                # the fresh pages' slices, gathered into pinned staging
+                arrays = {k: torch.index_select(v, 1, idx, out=host_buffer(
+                    (v.shape[0], len(fresh)) + tuple(v.shape[2:]), v.dtype, self.device))
+                    for k, v in bundle.arrays.items()}
+                paged_scatter_pages(self._pools, [pages[j] for j in fresh], arrays)
+            except ValueError:
+                self.allocator.free(pages)  # a refused import leaks nothing
+                raise
+        if self.prefix_cache is not None:
+            # publish the freshly written full pages here too (first writer
+            # wins); adopted pages are registered already
+            for j in fresh:
+                if j < len(keys):
+                    self.allocator.register(pages[j], keys[j])
+        trace_id = bundle.trace.get("trace_id") if bundle.trace is not None else None
+        seq = SequenceState(
+            uid=bundle.uid, tokens=list(bundle.tokens), prompt_len=bundle.prompt_len,
+            max_new_tokens=bundle.max_new_tokens, temperature=bundle.temperature,
+            eos_id=bundle.eos_id, slot=slot, pages=pages, prefilled=bundle.prefilled,
+            decode_entry=bundle.decode_entry, page_keys=keys, registered_upto=len(keys),
+            priority=bundle.priority, deadline=bundle.deadline,
+            enqueue_order=next(self._enqueue_counter), trace_id=trace_id)
+        seq.admit_order = next(self._admit_counter)
+        self._slots[slot] = seq
+        self._page_table[slot, :] = self.block.trash_page
+        self._page_table[slot, :len(pages)] = pages
+        return True
+
+    def release_sequence(self, uid: int, reason: str = "migrated") -> None:
+        """Drop an admitted sequence without finishing it (its pages are
+        freed): the source side of a migration, after the import
+        succeeded elsewhere."""
+        seq = self._find_slotted(uid)
+        self.allocator.free(seq.pages)
+        self._page_table[seq.slot, :] = self.block.trash_page
+        self._slots[seq.slot] = None
+        seq.slot, seq.pages = -1, []
+        logger.info(f"serving: released uid={uid} ({reason})")
+
+    # -- tiered KV cache: spill to host RAM and restore ------------------------
+    def _capture_evicted_page(self, page: int, key: Any) -> bool:
+        """``BlockAllocator.spill_hook``: queue an evicted prefix page for
+        the host tier (bounded by ``spill_inflight``); the allocator pins
+        it until :meth:`_drain_spills` has copied it out."""
+        tier = self.kv_tier
+        if tier is None or key is None:
+            return False
+        if len(self._pending_spills) >= tier.config.spill_inflight:
+            tier.note_capture_dropped()
+            return False
+        if tier.has(key) or key in self._pending_spill_keys:
+            # the same chain key is the same bytes: held or queued already
+            return False
+        self._pending_spills.append((page, key))
+        self._pending_spill_keys.add(key)
+        return True
+
+    def _drain_spills(self) -> None:
+        """Copy the pending captures to the host in one batched gather into
+        pinned memory (at a step boundary, no program in flight), stamp
+        each page's CRC32, insert into the host LRU and release the pins."""
+        if not self._pending_spills:
+            return
+        from ...serving.kv_tier import batch_page_crcs, page_slices
+
+        pend, self._pending_spills = self._pending_spills, []
+        self._pending_spill_keys = set()
+        t0 = time.perf_counter()
+        arrays = paged_gather_pages(self._pools, [p for p, _ in pend])
+        crcs = batch_page_crcs(arrays)
+        for j, (page, key) in enumerate(pend):
+            self.kv_tier.insert(key, page_slices(arrays, j), crcs[j])
+            self.allocator.release_spill_pin(page)
+        self.kv_tier.note_spill(len(pend), time.perf_counter() - t0)
+
+    def flush_spills(self) -> None:
+        """Commit the pending spills now (the engine otherwise drains them
+        at the next step boundary)."""
+        self._drain_spills()
+
+    def _current_match(self, seq: SequenceState):
+        """Memoized device prefix match of a queued sequence: walked again
+        only when the registry changed, resumed from the memo's end when
+        only registrations happened."""
+        if seq.match_gen != self.allocator.generation:
+            resume = (seq.cached_match
+                      if seq.match_evict_gen == self.allocator.evict_generation else None)
+            seq.cached_match = self.prefix_cache.match(seq.tokens, resume=resume)
+            seq.match_gen = self.allocator.generation
+            seq.match_evict_gen = self.allocator.evict_generation
+        return seq.cached_match
+
+    def _tier_restore(self, tokens: List[int], shared: List[int], keys: List[Any],
+                      park: bool = False) -> Tuple[List[int], List[Any]]:
+        """Extend a device prefix match with host-tier pages: walk the
+        chain keys on into the tier, allocate pages, scatter the restored
+        KV into them (one pinned staging buffer, one copy per leaf) and
+        register them, from then on device hits.  Returns new ``(shared,
+        keys)``; restored pages arrive referenced, as the claimed matches
+        do.  ``park`` (the prefetch): the references are dropped
+        at once, the pages left registered at the LRU's MRU end, spending
+        only truly free pages within the LRU cap."""
+        tier = self.kv_tier
+        ps = self.block.page_size
+        n_full = len(tokens) // ps
+        if tier is None or len(shared) >= n_full:
+            return shared, keys
+        host_keys = self.prefix_cache.host_extend(tokens, keys, tier)
+        # a miss (admissions only: the prefetch re-walks the queue head
+        # every step): the walk needed pages the tier does not hold
+        missed = len(shared) + len(host_keys) < n_full
+        if not host_keys:
+            if missed and not park:
+                tier.note_miss()
+            return shared, keys
+        if not park:
+            # an admission that cannot fit whatever it restores would only
+            # churn restore -> block -> park -> trim every step
+            n_total = -(-len(tokens) // ps)
+            if n_total - len(shared) + 1 > self.allocator.free_pages:
+                return shared, keys
+        cap = self.allocator.free_pages
+        if park:
+            cap = min(self.allocator.uncached_free_pages,
+                      (self.allocator.cache_cap - self.allocator.lru_pages
+                       if self.allocator.cache_cap > 0 else cap))
+        if cap <= 0:
+            return shared, keys
+        entries = []
+        for k in host_keys[:cap]:
+            e = tier.get(k)  # CRC-verified; a corrupt page ends the chain
+            if e is None:
+                break
+            entries.append(e)
+        if len(entries) < min(len(host_keys), cap):
+            missed = True
+        if missed and not park:
+            tier.note_miss()
+        if not entries:
+            return shared, keys
+        host_keys = host_keys[:len(entries)]
+        t0 = time.perf_counter()
+        fresh = self.allocator.alloc(len(entries))
+        arrays = {}
+        for name, first in entries[0].items():
+            shape = (first.shape[0], len(entries)) + tuple(first.shape[2:])
+            arrays[name] = torch.cat([e[name] for e in entries], dim=1,
+                                     out=host_buffer(shape, first.dtype, self.device))
+        paged_scatter_pages(self._pools, fresh, arrays)
+        for p, k in zip(fresh, host_keys):
+            self.allocator.register(p, k)
+        tier.note_restore(len(entries), time.perf_counter() - t0)
+        if park:  # parked, registered: the next admission maps them
+            self.allocator.free(fresh)
+        return shared + fresh, keys + host_keys
+
+    def _prefetch_restores(self) -> None:
+        """Restore the host-held prefixes of the queue's head requests
+        into the pool (parked in the LRU) ahead of their admission: once
+        per step, after the step's programs have returned."""
+        tier = self.kv_tier
+        if tier is None or not self._queue or tier.config.prefetch_requests <= 0:
+            return
+        heads = sorted(self._queue, key=lambda s: (s.priority, s.enqueue_order))
+        for seq in heads[:tier.config.prefetch_requests]:
+            shared, keys = self._current_match(seq)
+            self._tier_restore(seq.tokens, shared, keys, park=True)
+
+    def _register_pages(self, seq: SequenceState) -> None:
+        """Offer every fully written, not yet registered page of ``seq``
+        to the prefix-cache registry (first writer wins).  Called after
+        each program that writes KV, before a retire can free the pages:
+        a registered page freed later parks in the LRU, content intact."""
+        if self.prefix_cache is None:
+            return
+        full = seq.prefilled // self.block.page_size
+        if full <= seq.registered_upto:
+            return
+        seq.page_keys = self.prefix_cache.page_keys(seq.tokens, full, seq.page_keys)
+        for j in range(seq.registered_upto, full):
+            self.allocator.register(seq.pages[j], seq.page_keys[j])
+        seq.registered_upto = full
 
     # -- scheduling ----------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -431,11 +772,14 @@ class InferenceEngineV2:
 
     def _preempt(self, seq: SequenceState) -> None:
         """Evict a running sequence to the queue; it re-prefills its prefix
-        when pages free up."""
+        when pages free up (with the cache on, mostly a lookup of the
+        pages it registered)."""
         self.allocator.free(seq.pages)
         self._page_table[seq.slot, :] = self.block.trash_page
         self._slots[seq.slot] = None
         seq.slot, seq.pages, seq.prefilled = -1, [], 0
+        seq.page_keys, seq.registered_upto, seq.decode_entry = [], 0, False
+        seq.cached_match, seq.match_gen, seq.match_evict_gen = None, -1, -1
         seq.queued_at = time.perf_counter()
         self._queue.insert(0, seq)
         self._stats["preemptions"] += 1
@@ -455,7 +799,24 @@ class InferenceEngineV2:
                 continue
             # highest priority class first, FCFS within a class
             seq = min(self._queue, key=lambda s: (s.priority, s.enqueue_order))
-            need_new = -(-seq.length // ps)
+            shared: List[int] = []
+            keys: List[Any] = []
+            if self.prefix_cache is not None:
+                shared, keys = self._current_match(seq)
+                # claim the matched pages (+1 ref) before any allocation:
+                # the restore's alloc and this admission's own must never
+                # evict a page this sequence is about to map
+                for p in shared:
+                    self.allocator.share(p)
+                # host-tier pages past the device hit come back restored,
+                # registered and referenced, as the claims above
+                shared, keys = self._tier_restore(seq.tokens, shared, keys)
+            n_total = -(-seq.length // ps)
+            m = len(shared)
+            # a fully cached (page-aligned) prompt: its last cached page is
+            # replaced by a private copy the decode program writes into
+            full_hit = m > 0 and m * ps >= seq.length
+            need_new = n_total - m + (1 if full_hit else 0)
             while need_new > self.allocator.free_pages:
                 # a high class preempts strictly-lower-class running
                 # sequences (lowest class, then youngest)
@@ -470,12 +831,34 @@ class InferenceEngineV2:
                     break
                 self._preempt(max(victims, key=lambda s: (s.priority, s.admit_order)))
             if need_new > self.allocator.free_pages:
+                if shared:
+                    # blocked: the claims go back (parked, registered) and
+                    # the next attempt maps them as plain device hits
+                    self.allocator.free(shared)
                 break  # head-of-line blocking
             self._queue.remove(seq)
-            seq.pages = self.allocator.alloc(need_new)
-            seq.prefilled = 0
+            seq.cached_match, seq.match_gen, seq.match_evict_gen = None, -1, -1
+            fresh = self.allocator.alloc(need_new)
+            if full_hit:
+                src, dst = shared[-1], fresh[-1]
+                # the copy is queued before any program reads the page
+                paged_copy_page(self._pools, src, dst)
+                self.allocator.free([src])  # drop our ref on the original
+                seq.pages = shared[:-1] + [dst]
+                seq.prefilled = seq.length - 1
+                seq.decode_entry = True
+                self._stats["decode_entries"] += 1
+            else:
+                seq.pages = shared + fresh
+                seq.prefilled = m * ps
+            seq.page_keys = keys
+            # matched pages are registered already; the copy stays private
+            seq.registered_upto = n_total if full_hit else m
+            if self.prefix_cache is not None:
+                self.prefix_cache.count(m, seq.length // ps)
             self._stats["prefill_admitted_tokens"] += seq.length
-            self._stats["prefill_computed_tokens"] += seq.length
+            self._stats["prefix_hit_tokens"] += seq.prefilled
+            self._stats["prefill_computed_tokens"] += seq.length - seq.prefilled
             seq.slot = i
             seq.admit_order = next(self._admit_counter)
             self._page_table[i, :] = self.block.trash_page
@@ -498,8 +881,12 @@ class InferenceEngineV2:
     @staticmethod
     def _ready_to_decode(seq: SequenceState) -> bool:
         """KV written for tokens[0:length-1] and a token sampled off the
-        prefix end: mid-chunked-prefill sequences do not decode."""
-        return seq.generated > 0 and seq.prefilled >= seq.length - 1
+        prefix end: mid-chunked-prefill sequences do not decode.  A fully
+        cached prompt (``decode_entry``) decodes at once: its first decode
+        step writes the final prompt token's KV into its copied page and
+        samples the first token."""
+        return ((seq.generated > 0 or seq.decode_entry)
+                and seq.prefilled >= seq.length - 1)
 
     def _sample(self, seq: SequenceState, logits: np.ndarray) -> int:
         if seq.temperature <= 0.0:
@@ -580,6 +967,7 @@ class InferenceEngineV2:
             self._tensor(rows), self._tensor(np.ascontiguousarray(prev)), start, c_n)
         self._stats["prefill_chunk_calls"] += 1
         seq.prefilled = start + c_n
+        self._register_pages(seq)
         return logits
 
     def _prefill_whole(self, seq: SequenceState, out: Dict[int, Dict[str, Any]]) -> None:
@@ -597,6 +985,7 @@ class InferenceEngineV2:
             self._tensor(rows), n)
         self._stats["prefill_calls"] += 1
         seq.prefilled = n
+        self._register_pages(seq)
         self._emit_sampled(seq, logits, out)
 
     # -- the engine step -----------------------------------------------------
@@ -607,14 +996,24 @@ class InferenceEngineV2:
         finished records also carry ``"finish_reason"``
         ("length"/"eos"/"max_seq_len"/"deadline").  Past-deadline requests
         expire first, at the step boundary, before admission."""
+        out = self._step_impl()
+        # the host tier's prefetch for the queue head, after the step's
+        # programs have returned
+        self._prefetch_restores()
+        return out
+
+    def _step_impl(self) -> Dict[int, Dict[str, Any]]:
         out: Dict[int, Dict[str, Any]] = {}
         ps = self.block.page_size
+        # step boundary: last step's captured evictions go to the host tier
+        self._drain_spills()
         self._expire_deadlines(out)
         admitted = self._admit()
         t0 = time.perf_counter()
         if self._chunk:
-            # one chunk per pending-prefill sequence per step; decode for
-            # ready sequences runs below in the same step
+            # one chunk per pending-prefill sequence per step (a cached
+            # prefix's first chunk starts at its end); decode for ready
+            # sequences runs below in the same step
             pending = [s for s in self._slots
                        if s is not None and not self._ready_to_decode(s)]
             for seq in pending:
@@ -625,6 +1024,16 @@ class InferenceEngineV2:
                     self._emit_sampled(seq, logits, out)
         else:
             for seq in admitted:
+                if seq.decode_entry:
+                    continue  # fully cached: enters through the decode program
+                if seq.prefilled:
+                    # cached prefix: the suffix through the start-offset
+                    # program, bucketed like a whole prompt
+                    n_suf = seq.length - seq.prefilled
+                    logits = self._run_prefill_chunk(seq, seq.prefilled, n_suf,
+                                                     self._bucket(n_suf))
+                    self._emit_sampled(seq, logits, out)
+                    continue
                 self._prefill_whole(seq, out)
         self._stats["prefill_seconds"] += time.perf_counter() - t0
 
@@ -706,6 +1115,8 @@ class InferenceEngineV2:
             tok = int(tokens[seq.slot])
             seq.tokens.append(tok)
             seq.prefilled = seq.length - 1  # the step wrote the consumed token's KV
+            if seq.prefilled % self.block.page_size == 0:
+                self._register_pages(seq)  # the write completed a page
             rec = out.setdefault(seq.uid, {"tokens": [], "done": False})
             rec["tokens"].append(tok)
             self._maybe_finish(seq, tok)
@@ -794,6 +1205,7 @@ class InferenceEngineV2:
             # KV is written for every token consumed; the last one emitted
             # is the pending one, as after a single step
             seq.prefilled = seq.length - 1
+            self._register_pages(seq)
             if reason:
                 seq.finish_reason = reason
                 self._retire(seq)  # frees unused headroom too
@@ -873,6 +1285,7 @@ class InferenceEngineV2:
             # KV is valid through the accepted region; the bonus token is
             # the pending one, as after a plain step
             seq.prefilled = min(seq.length - 1, base_len + len(accepted))
+            self._register_pages(seq)
             self._maybe_finish(seq, seq.tokens[-1])
             rec["done"] = seq.done
             if seq.done:

@@ -10,6 +10,11 @@ inference/v2/model_runner.py``).
 * :func:`paged_decode` — one token for every decode slot: K/V written
   into each row's current page, attention through the paged decode
   kernel.
+* :func:`paged_copy_page`, :func:`paged_gather_pages`,
+  :func:`paged_scatter_pages` — the prefix cache's copy on write, and
+  the device half of KV export and import and of the host tier's spill
+  and restore: indexing ops, outside every program (the JAX runner
+  computes them outside Pallas too, :167-228).
 
 The pools are updated IN PLACE (``index_put_`` on each layer's slice of
 ``pools["k"]``/``pools["v"]``): that replaces the JAX engine's donation
@@ -38,7 +43,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -431,3 +436,71 @@ def paged_multi_decode(cfg: TransformerConfig, params: ParamTree, pools: Pools,
         pos = pos + emit.to(torch.int32)
         toks.append(tok)
     return torch.stack(toks, dim=1), produced, pools
+
+
+# -- page copies: copy on write, KV export/import, host-tier spill/restore -----
+def host_buffer(shape: Sequence[int], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """An empty host tensor to stage a copy to or from ``device``: pinned
+    when the device is CUDA, so the copy is one DMA."""
+    return torch.empty(tuple(shape), dtype=dtype, pin_memory=device.type == "cuda")
+
+
+@torch.no_grad()
+def paged_copy_page(pools: Pools, src: int, dst: int) -> Pools:
+    """Copy on write for the prefix cache: page ``src`` into page ``dst``
+    across every pool leaf (K/V and, under kv_quant, their scales), in
+    place.  A sequence whose whole prompt is cached writes its final
+    prompt token's KV through the decode program into this private copy,
+    never into the shared page.  Returns the same dict: the pools keep
+    their storage, which the captured programs read."""
+    for leaf in pools.values():
+        leaf[:, dst].copy_(leaf[:, src])
+    return pools
+
+
+@torch.no_grad()
+def paged_gather_pages(pools: Pools, pages: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """Host copy of the given pool pages: one CPU tensor per pool leaf,
+    ``[L, n_pages, page_size, KVH(, D)]`` in the pool's exact dtype (bf16
+    stays bf16, int8 codes and fp32 scales as they are).  One gather per
+    leaf on the device, page-major, copied into a pinned host buffer and
+    waited for, so the caller may read the bytes at once; the tensors
+    returned are ``[L, n, ...]`` views of that page-major storage (each
+    page's slice of a leaf contiguous, as the page CRC reads it).  The
+    JAX runner's ``pad_pages_pow2`` (bounding XLA's compiled shapes) has
+    no use here and is left out."""
+    some = next(iter(pools.values()))
+    rows = torch.as_tensor(list(pages), dtype=torch.long, device=some.device)
+    out = {}
+    for name, leaf in pools.items():
+        got = leaf.index_select(1, rows).transpose(0, 1)
+        buf = host_buffer(got.shape, got.dtype, leaf.device)
+        buf.copy_(got, non_blocking=True)
+        out[name] = buf.transpose(0, 1)
+    if some.device.type == "cuda":
+        torch.cuda.current_stream(some.device).synchronize()
+    return out
+
+
+@torch.no_grad()
+def paged_scatter_pages(pools: Pools, pages: Sequence[int],
+                        arrays: Dict[str, torch.Tensor]) -> Pools:
+    """Write host page tensors (:func:`paged_gather_pages`' layout) into
+    pool pages ``pages``, in place (KV import and the host tier's restore
+    share this path; the engine hands it pinned buffers, so each copy is
+    one DMA).  The dtypes must be the pool's exactly: a cast would break
+    the bit-identical import, so a mismatch raises.  The copy is queued on
+    the current stream, ahead of any program that reads the pages."""
+    if set(arrays) != set(pools):
+        raise ValueError(f"pool leaves {sorted(pools)} != bundle leaves "
+                         f"{sorted(arrays)} (kv_quant mismatch?)")
+    for name, leaf in pools.items():
+        if arrays[name].dtype != leaf.dtype:
+            raise ValueError(f"pool leaf {name!r} dtype {leaf.dtype} != bundle dtype "
+                             f"{arrays[name].dtype}: import must be bit-identical, "
+                             "refusing to cast")
+    some = next(iter(pools.values()))
+    rows = torch.as_tensor(list(pages), dtype=torch.long, device=some.device)
+    for name, leaf in pools.items():
+        leaf.index_copy_(1, rows, arrays[name].to(leaf.device, non_blocking=True))
+    return pools

@@ -1,6 +1,8 @@
 """Paged KV-cache state (the port's copy of ``deepspeed_tpu/inference/v2/
-ragged.py``, minus the prefix cache and KV page bundles, which later
-slices bring).
+ragged.py``): the ref-counted page allocator with its prefix-cache
+registry and spill pins, the content-hash :class:`PrefixCache`, the page
+pool, the :class:`KVPageBundle` that carries a sequence's pages between
+engines, and the host-side :class:`SequenceState`.
 
 Layout: ``k``/``v`` are ``[L, num_pages + 1, page_size, KVH, D]``.  The
 last page (index ``num_pages``) is the *trash page*: writes from inactive
@@ -11,6 +13,7 @@ unconditional.  Nothing ever reads the trash page for a live token.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -65,8 +68,10 @@ class BlockAllocator:
     content key: when a registered page's refcount drops to 0 it is
     parked in an LRU of cached-but-unreferenced pages instead of the free
     list, and ``alloc`` evicts from the LRU tail only after the free list
-    is empty.  ``spill_hook`` (host-tier capture) is kept for the later
-    slice that ports the KV tier."""
+    is empty.  ``spill_hook(page, key) -> bool`` is offered every page
+    evicted from the LRU: True captures it for a host-tier spill, and the
+    allocator pins it (refcount 1, ``_spill_pinned``) until the owner
+    calls :meth:`release_spill_pin` once the copy to the host is done."""
 
     def __init__(self, num_pages: int, cache_pages: int = 0):
         self.num_pages = num_pages
@@ -193,6 +198,9 @@ class BlockAllocator:
             if p not in self._key_of:
                 raise AssertionError(f"LRU page {p} is not registered")
         referenced = {p for p in range(self.num_pages) if self._ref[p] > 0}
+        if referenced & free_set:
+            raise AssertionError(
+                f"referenced pages in free list: {sorted(referenced & free_set)}")
         covered = len(free_set) + len(self._lru) + len(referenced)
         if covered != self.num_pages:
             raise AssertionError(
@@ -316,6 +324,92 @@ class BlockAllocator:
         self.free([page])
 
 
+class PrefixCache:
+    """Automatic prefix caching: a content-hash chain over FULL pages.
+
+    Page ``j``'s key is ``sha256(key[j-1], tokens[j*ps:(j+1)*ps])``, so a
+    page's identity depends on its whole token prefix and a walk from the
+    root finds the longest cached page-aligned prefix.  Partial tail pages
+    are never hashed: they stay private to their sequence (the engine
+    copies on write the one shared full page a sequence must write).
+    ``hits``/``misses`` count consumed matches; evictions are the
+    allocator's."""
+
+    def __init__(self, page_size: int, allocator: BlockAllocator):
+        self.page_size = page_size
+        self.allocator = allocator
+        self.hits = 0    # page lookups that matched (counted on admission)
+        self.misses = 0  # admission walks that ended on a missing page
+
+    @staticmethod
+    def chain_key(parent_key: Any, page_tokens: Sequence[int]) -> bytes:
+        """sha256 digest chain (not ``hash()``: a colliding key would map a
+        request onto another's KV), the reference's bytes exactly."""
+        h = hashlib.sha256()
+        if parent_key is not None:
+            h.update(parent_key)
+        h.update(",".join(str(int(t)) for t in page_tokens).encode())
+        return h.digest()
+
+    def page_keys(self, tokens: Sequence[int], n_pages: int,
+                  prefix_keys: Sequence[Any] = ()) -> List[Any]:
+        """Chain keys for full pages ``[len(prefix_keys), n_pages)``,
+        extending an already computed prefix of keys."""
+        keys = list(prefix_keys)
+        ps = self.page_size
+        for j in range(len(keys), n_pages):
+            parent = keys[j - 1] if j else None
+            keys.append(self.chain_key(parent, tokens[j * ps:(j + 1) * ps]))
+        return keys
+
+    def match(self, tokens: Sequence[int],
+              resume: Optional[Tuple[List[int], List[Any]]] = None,
+              host_tier: Any = None):
+        """Longest cached page-aligned prefix of ``tokens``: ``(pages,
+        keys)``.  Pure: the caller counts hits and misses when an admission
+        consumes the match.  ``resume``: an earlier match of the same
+        tokens still valid (no eviction since), continued from its end.
+        ``host_tier`` (anything with ``has(key)``): the walk goes on past
+        the device hit and a third element lists the chain keys of the
+        consecutive pages the tier holds."""
+        ps = self.page_size
+        pages: List[int] = list(resume[0]) if resume else []
+        keys: List[Any] = list(resume[1]) if resume else []
+        parent = keys[-1] if keys else None
+        for j in range(len(pages), len(tokens) // ps):
+            key = self.chain_key(parent, tokens[j * ps:(j + 1) * ps])
+            page = self.allocator.lookup(key)
+            if page is None:
+                break
+            pages.append(page)
+            keys.append(key)
+            parent = key
+        if host_tier is not None:
+            return pages, keys, self.host_extend(tokens, keys, host_tier)
+        return pages, keys
+
+    def host_extend(self, tokens: Sequence[int], keys: Sequence[Any],
+                    host_tier: Any) -> List[Any]:
+        """Chain keys of the consecutive full pages past ``keys`` that
+        ``host_tier`` holds (pure: no counters, no restore)."""
+        ps = self.page_size
+        out: List[Any] = []
+        parent = keys[-1] if keys else None
+        for j in range(len(keys), len(tokens) // ps):
+            key = self.chain_key(parent, tokens[j * ps:(j + 1) * ps])
+            if not host_tier.has(key):
+                break
+            out.append(key)
+            parent = key
+        return out
+
+    def count(self, matched_pages: int, n_full_pages: int) -> None:
+        """Record a consumed match in the hit/miss counters."""
+        self.hits += matched_pages
+        if matched_pages < n_full_pages:
+            self.misses += 1
+
+
 class PagedKVCache:
     """Device tensors of the page pool.
 
@@ -343,6 +437,53 @@ class PagedKVCache:
 
 
 @dataclasses.dataclass
+class KVPageBundle:
+    """One in-flight sequence's KV pages and scheduling state: the unit
+    of KV-page migration between engines.
+
+    ``arrays`` holds one CPU tensor per pool leaf (``k``/``v`` and, under
+    kv_quant, their scales), ``[L, n_pages, page_size, KVH(, D)]`` in the
+    pool's exact dtype: an import is bit-identical.  ``page_keys`` covers
+    only the leading full pages that are never written again (index <
+    ``prefilled // page_size``), which an importing engine may adopt by
+    content key; later pages always travel by value.  ``src_pages`` is
+    the exporting allocator's ``export_meta`` (page ids mean nothing in
+    another pool).  ``deadline`` is absolute on ``time.perf_counter``'s
+    clock (0 = none); the wire format re-bases it as seconds left.
+    ``trace`` is plain data (the fleet trace context), None here."""
+
+    uid: int
+    tokens: List[int]
+    prompt_len: int
+    max_new_tokens: int
+    temperature: float
+    eos_id: Optional[int]
+    #: tokens of the prefix whose KV is already written in ``arrays``
+    prefilled: int
+    #: fully cached prompt mid-handoff: enters through the decode program
+    decode_entry: bool
+    page_size: int
+    page_keys: List[Any]
+    src_pages: List[Dict[str, Any]]
+    arrays: Dict[str, Any]
+    #: (n_layers, kv_heads, head_dim): pools must agree to import
+    model_sig: Tuple[int, int, int]
+    kv_quant: bool
+    dtype: str
+    priority: int = PRIORITY_NORMAL
+    deadline: float = 0.0
+    trace: Optional[Dict[str, Any]] = None
+
+    @property
+    def n_pages(self) -> int:
+        return next(iter(self.arrays.values())).shape[1]
+
+    @property
+    def generated(self) -> int:
+        return len(self.tokens) - self.prompt_len
+
+
+@dataclasses.dataclass
 class SequenceState:
     """Host-side descriptor of one in-flight sequence."""
 
@@ -356,9 +497,24 @@ class SequenceState:
     pages: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     admit_order: int = -1  # monotonic admission stamp (preemption policy)
-    #: tokens of the prefix already prefilled; a sequence decodes only
-    #: once prefilled == length at chunk end
+    #: tokens of the prefix already prefilled (chunked prefill, or cached
+    #: prefix pages mapped at admission); a sequence decodes only once
+    #: prefilled == length at chunk end
     prefilled: int = 0
+    #: prefix cache: chain keys of the full pages computed so far, and how
+    #: many leading pages have been offered to the registry
+    page_keys: List[Any] = dataclasses.field(default_factory=list)
+    registered_upto: int = 0
+    #: fully cached prompt: every prompt page mapped from the cache (the
+    #: last one copied on write); the decode program recomputes only the
+    #: final prompt token
+    decode_entry: bool = False
+    #: memoized match of a QUEUED sequence, valid while the allocator's
+    #: registry generation is unchanged; resumed from its end while only
+    #: registrations happened (evict generation unchanged)
+    cached_match: Any = None
+    match_gen: int = -1
+    match_evict_gen: int = -1
     priority: int = PRIORITY_NORMAL
     #: absolute expiry on the ``time.perf_counter`` clock (0 = none)
     deadline: float = 0.0

@@ -4,10 +4,10 @@ counterpart of ``deepspeed_tpu/runtime/hybrid_engine.py``.
 During RLHF the actor model alternates between training steps and
 generation.  ``generate`` hands the training engine's live compute-dtype
 leaves to a cached dense-cache :class:`~..inference.engine.InferenceEngine`
-(``cast_tree`` to the same dtype keeps each tensor as it is), so no second
-copy of the weights exists: under offload those leaves are the only
-weights on the card, and every training step's update is what the next
-generation reads.
+(``cast_tree_copy`` takes a tree already on the device in its dtype as
+it is), so no second copy of the weights exists: under offload those
+leaves are the only weights on the card, and every training step's
+update is what the next generation reads.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ updates it with ``lax.cond``: the update itself needs no host value.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Sequence
+from typing import Any, Iterable, List, Sequence
 
 import torch
 from torch import nn
@@ -90,4 +90,20 @@ def cast_tree(params: nn.Module, dtype: torch.dtype) -> nn.Module:
         if p.is_floating_point():
             p.data = p.data.to(dtype)
     return params
+
+
+def cast_tree_copy(params: Any, dtype: torch.dtype, device: torch.device) -> Any:
+    """``params`` (a ``ParamTree``) on ``device`` with its floating leaves
+    in ``dtype``, never altering the tree given: returned as it is when
+    every leaf already lies there in that dtype (no second copy of the
+    weights), else a new tree built leaf by leaf, every leaf a copy."""
+    def placed(t: torch.Tensor) -> bool:
+        return (t.device.type == device.type
+                and (device.index is None or t.device.index == device.index)
+                and (not t.is_floating_point() or t.dtype == dtype))
+
+    if all(placed(p) for p in params.parameters()):
+        return params
+    return params.map(lambda t: t.to(device=device, copy=True,
+                                     dtype=dtype if t.is_floating_point() else t.dtype))
 

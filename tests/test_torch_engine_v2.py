@@ -229,8 +229,7 @@ def test_bounded_queue_rejects(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"enable_prefix_cache": True}, {"kv_tier": {"enabled": True}}, {"slo_tpot_s": 0.5},
-    {"timeline_every_n_steps": 5}, {"slo_ttft_s": 0.5}])
+    {"slo_tpot_s": 0.5}, {"timeline_every_n_steps": 5}, {"slo_ttft_s": 0.5}])
 def test_not_ported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RaggedInferenceConfig.from_dict(dict(BASE, **knob))

@@ -318,6 +318,23 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     card's pools through pinned host buffers (the int8 run's restored
     pages read back byte-equal); ``export_sequence`` and
     ``import_sequence`` timed, each imported page byte-equal.
+39. serving telemetry (``telemetry_phase``, right after phase 38):
+    llama-1b as in phase 4 (bf16, 576 pages of 16, 8 slots, its 12
+    prompts, 32 new tokens) served by two engines on the same weights in
+    turns (off, then on): ``on`` with the ``torch.profiler`` step
+    timeline every 8 decode steps, SLO limits of 1 us and every request
+    traced; ``off`` with no sentinel, no memory ledger, spans and the phase
+    watch off.  Every timeline record measured, its categories summing to
+    its wall, A L times per prefill call and B L times per decode body filed
+    under ``attention``, none of the port's kernels in ``other_compute``;
+    one compile per captured graph at construction and no serve recompile
+    after it; the memory ledger's params and KV pool exactly their
+    tensors' bytes and ``bytes_in_use`` the allocator's; the TTFT and TPOT
+    violations equal to the requests; the registry's request and token
+    counters equal to the engines' own; the Prometheus text holding every
+    family the engine registers; a merged request trace; identical greedy
+    streams on and off; the median decode-step wall and the profiled
+    device time per step of each engine.
     Phases 2 and 6 hold A and A'/A'' at falcon-7b's 71:1 and BERT-base's
     non-causal shape too; dK and dV of a group wider than 4 (A'' with P
     and dS as two bf16 terms) within the unscaled ``FLASH_BWD_TOL`` of
@@ -510,7 +527,10 @@ def _profiled_us(fn, iters: int, activities) -> tuple:
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # kernels only: a record_function range (the engines' telemetry
+        # phases) also shows as a device-side annotation event
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
         busy_us = sum(e.self_device_time_total for e in dev)
         windows.append((busy_us, sum(e.count for e in dev), wall_us, dev))
     fullest = max(w[1] for w in windows)
@@ -570,7 +590,8 @@ def profiled_kernels(fn) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        names = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)}
         if sum(names.values()) > sum(best.values()):
             best = names
     return best
@@ -2201,6 +2222,315 @@ def prefix_migration(src, waves, model, base, paged_gather_pages, bundle_to_byte
 
 
 # -- phase 5: card vs CPU parity ---------------------------------------------
+
+#: telemetry_phase: the SLO limits (below any TTFT or TPOT the card can
+#: reach: every request counts), the timeline's cadence, and the port's own
+#: kernels (none may be filed under other_compute)
+TELEMETRY_SLO_S = 1e-6
+TELEMETRY_EVERY = 8
+#: one wave each: the script's budget took the second pair of turns
+TELEMETRY_TURNS = ("off", "on")
+PORT_KERNEL_FRAGMENTS = ("flash_", "paged_", "sparse_attn", "evo_", "gmm_", "wq_")
+
+
+def telemetry_drive(eng, requests, fa, pa, ledger=None, tag=""):
+    """Serve ``requests`` to completion step by step: the streams, each
+    step's wall seconds, whether it ran a prefill and whether the profiler
+    captured it, the timeline records (with the step's prefill calls and
+    decode bodies), the launch counts.  With ``ledger`` every request is
+    traced."""
+    fa.flash_attention_fwd.launches = 0
+    pa.paged_decode_attention.launches = 0
+    streams, steps, records = {}, [], []
+    last = eng.timeline_record()
+    for i, r in enumerate(requests):
+        if ledger is not None:
+            r.trace_id = f"{tag}{i}"
+            ledger.begin(r.trace_id)
+        streams[eng.put(r)] = []
+    while eng.has_work():
+        before = eng.stats()
+        t0 = time.perf_counter()
+        out = eng.step()
+        wall = time.perf_counter() - t0
+        after = eng.stats()
+        prefills = (after["prefill_calls"] + after["prefill_chunk_calls"]
+                    - before["prefill_calls"] - before["prefill_chunk_calls"])
+        for uid, rec in out.items():
+            streams[uid] += rec["tokens"]
+        rec = eng.timeline_record()
+        captured = rec is not None and (last is None or rec["ts"] != last["ts"])
+        steps.append((wall, prefills, captured))
+        if captured:
+            rec["prefill_calls"] = prefills
+            rec["decode_bodies"] = after["decode_device_steps"] - before["decode_device_steps"]
+            records.append(rec)
+            last = rec
+    return {"streams": [streams[u] for u in sorted(streams)], "steps": steps,
+            "records": records, "launches": {"flash": fa.flash_attention_fwd.launches,
+                                             "paged": pa.paged_decode_attention.launches}}
+
+
+def named_launches(kernels: dict, frag: str, category: str) -> int:
+    """Launches of a timeline record's kernels whose names hold ``frag``,
+    each filed under ``category`` (0 if any such kernel is not)."""
+    rows = [r for name, r in kernels.items() if frag in name]
+    if any(r["category"] != category for r in rows):
+        return 0
+    return sum(r["launches"] for r in rows)
+
+
+def telemetry_phase(fa, pa):
+    """Serving telemetry on the card: llama-1b at full width and depth
+    (bf16, engine_phase's pool and prompts, 32 new tokens each) served by
+    two engines on the same weights, in turns (TELEMETRY_TURNS): ``on``
+    with the step timeline every TELEMETRY_EVERY decode steps (artifacts
+    under ``build/telemetry``), SLO limits of TELEMETRY_SLO_S and every
+    request traced; ``off`` with no sentinel, no memory ledger and the
+    span ring and phase watch off.  Checks: (1) each timeline record
+    measured, its categories summing to its wall within 1e-6 relative,
+    kernel A L times per prefill call and kernel B L times per decode body
+    in ``attention``, none of the port's kernels in ``other_compute``;
+    (2) one compile per captured graph at construction and no recompile
+    after; (3) the ledger's ``serving_params`` and ``kv_pool`` exactly the
+    tensors' bytes and ``bytes_in_use`` the allocator's, the residual >= 0,
+    the prefill and decode watermarks under the peak; (4) the TTFT and TPOT
+    violations equal to the requests, the registry's token counters equal
+    to the engines' own, the Prometheus text parsing with every family the
+    engine registers, a merged request trace written; (5) identical greedy
+    streams on and off; (6) the median decode-step wall and the profiled
+    device time per step of each engine, and their on/off ratios."""
+    import gc
+
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.telemetry import (MetricsRegistry, ReqTraceLedger,
+                                               configure_spans, get_memory_ledger,
+                                               get_registry, parse_prometheus_text,
+                                               set_memory_ledger, set_registry,
+                                               set_reqtrace_ledger, to_prometheus_text,
+                                               write_merged_trace)
+    from deepspeed_tpu_torch.telemetry.compile_sentinel import compile_counts
+
+    model = llama_model("1b", max_seq_len=2048)
+    L = model.config.n_layers
+    rng = torch.Generator().manual_seed(1234)
+    lengths = [16, 900] + torch.randint(17, 900, (10,), generator=rng).tolist()
+    prompts = pattern_prompts(rng, lengths, model.config.vocab_size)
+    art = os.path.join(ROOT, "build", "telemetry")
+    shutil.rmtree(art, ignore_errors=True)
+    set_registry(MetricsRegistry())
+    set_memory_ledger(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    ledger = ReqTraceLedger()
+    set_reqtrace_ledger(ledger)
+    reg = get_registry()
+    base = dict(dtype="bf16", page_size=16, max_seqs=8, max_pages_per_seq=64, num_pages=576)
+    secs, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        secs[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    # off first: the on engine's sentinel claims every capture before it
+    t0 = time.perf_counter()
+    off = InferenceEngineV2(model, RaggedInferenceConfig.from_dict(dict(
+        base, recompile_sentinel=False, memory_ledger=False)), seed=0)
+    c0 = compile_counts()[0]
+    on = InferenceEngineV2(model, RaggedInferenceConfig.from_dict(dict(
+        base, timeline_every_n_steps=TELEMETRY_EVERY, timeline_artifact_dir=art,
+        slo_ttft_s=TELEMETRY_SLO_S, slo_tpot_s=TELEMETRY_SLO_S)), params=off.params, seed=0)
+    build_s = time.perf_counter() - t0
+    captures = compile_counts()[0] - c0
+    check(captures == len(on._programs.keys),
+          f"telemetry: {captures} compiles counted building the engine, not one per "
+          f"graph ({on._programs.keys})")
+    led = get_memory_ledger()
+    engines = {"on": on, "off": off}
+    served = {"on": 0, "off": 0}
+
+    def turn(name):
+        configure_spans(enabled=name == "on")
+        if name == "on":
+            led.install_phase_watch()
+        else:
+            led.uninstall_phase_watch()
+        return engines[name]
+
+    mark("build")
+    # warm-up (the allocator, the graphs' first replays): one short request,
+    # 10 decode steps, so the on engine's cadence captures its one prefill
+    # (decode step 0) and a decode-only step (8), and the wave's captures
+    # (16, 24, ...) miss both of its admission steps (10 and 41)
+    warm = {}
+    for name in ("off", "on"):
+        warm[name] = telemetry_drive(turn(name), [RaggedRequest(
+            prompt_ids=prompts[0][:32], max_new_tokens=11)], fa, pa)
+        served[name] += 1
+    mark("warm_up")
+    runs = {"on": [], "off": []}
+    for name in TELEMETRY_TURNS:
+        eng = turn(name)
+        reqs = [RaggedRequest(prompt_ids=p, max_new_tokens=32) for p in prompts]
+        rec = telemetry_drive(eng, reqs, fa, pa, ledger if name == "on" else None,
+                              tag=f"{name}{len(runs[name])}-")
+        served[name] += len(reqs)
+        runs[name].append(rec)
+        mark(f"run_{len(secs) - 2}_{name}")
+    telemetry_l = {k: sum(r["launches"][k] for r in [*warm.values(), *runs["on"], *runs["off"]])
+                   for k in ("flash", "paged")}
+    # (5) telemetry changes no token
+    check(warm["on"]["streams"] == warm["off"]["streams"]
+          and all(r["streams"] == runs["off"][0]["streams"] for rs in runs.values() for r in rs),
+          "telemetry: greedy streams differ between the on and off engines")
+    # (1) the step timeline
+    records = [r for run in [warm["on"], *runs["on"]] for r in run["records"]]
+    check(records and all(r["measured"] for r in records),
+          f"telemetry: {len(records)} timeline records, measured "
+          f"{[r['measured'] for r in records]}")
+    tl = []
+    other = {}
+    for r in records:
+        cats, wall = r["categories"], r["wall_seconds"]
+        check(abs(sum(cats.values()) - wall) <= 1e-6 * wall,
+              f"telemetry: step {r['step']}: categories sum {sum(cats.values())} != wall {wall}")
+        flash = named_launches(r.get("kernels", {}), "flash_fwd", "attention")
+        paged = named_launches(r.get("kernels", {}), "paged_decode", "attention")
+        check(flash == L * r["prefill_calls"] and paged == L * r["decode_bodies"],
+              f"telemetry: step {r['step']}: {flash} flash_fwd and {paged} paged_decode "
+              f"launches in attention for {r['prefill_calls']} prefill calls and "
+              f"{r['decode_bodies']} decode bodies")
+        for name, k in r.get("kernels", {}).items():
+            if k["category"] == "other_compute":
+                o = other.setdefault(name[:120], {"launches": 0, "seconds": 0.0})
+                o["launches"] += k["launches"]
+                o["seconds"] += k["seconds"]
+        tl.append({"step": r["step"], "prefill_calls": r["prefill_calls"],
+                   "decode_bodies": r["decode_bodies"], "wall_ms": wall * 1e3,
+                   "device_busy_ms": r.get("device_busy_seconds", 0.0) * 1e3,
+                   "host_gap_share": cats["host_gap"] / wall,
+                   "categories_ms": {c: v * 1e3 for c, v in cats.items() if v},
+                   "capture_overhead_ms": r["capture_overhead_seconds"] * 1e3,
+                   "artifact": os.path.relpath(r["artifact"], ROOT) if r["artifact"] else None})
+    check(any(t["decode_bodies"] and not t["prefill_calls"] for t in tl)
+          and any(t["prefill_calls"] for t in tl),
+          f"telemetry: no decode-only or no prefill record among {len(tl)}")
+    own = [n for n in other if any(f in n for f in PORT_KERNEL_FRAGMENTS)]
+    check(not own, f"telemetry: the port's kernels {own} filed under other_compute")
+    check(all(t["artifact"] and os.path.exists(os.path.join(ROOT, t["artifact"])) for t in tl),
+          "telemetry: a capture wrote no artifact")
+    # (2) the recompile sentinel
+    recompiles = reg.get("deepspeed_tpu_recompiles_total").value(loop="serve")
+    steady = reg.get("deepspeed_tpu_steady_recompiles_total").value(loop="serve")
+    check(recompiles == 0 and steady == 0,
+          f"telemetry: {recompiles} serve recompiles ({steady} steady) after construction")
+    # (6) the cost: the wall of decode-only steps the profiler did not
+    # capture, then the profiled device time
+    cost = {}
+    for name in ("off", "on"):
+        walls = sorted(w for run in runs[name] for w, p, c in run["steps"] if not p and not c)
+        cost[name] = {"decode_steps": len(walls), "median_decode_step_ms":
+                      walls[len(walls) // 2] * 1e3}
+    for name in ("off", "on"):
+        eng = turn(name)
+        # 12 new tokens: 2 warm steps and 3 windows of 2 profiled ones,
+        # every slot decoding throughout
+        reqs = [RaggedRequest(prompt_ids=p[:64], max_new_tokens=12) for p in prompts[:8]]
+        for i, r in enumerate(reqs):
+            if name == "on":
+                r.trace_id = f"profile-{i}"
+                ledger.begin(r.trace_id)
+        prof = profile_steps(eng, reqs, warm_steps=2, steps=2, groups={"paged": "paged_decode"})
+        served[name] += len(reqs)
+        cost[name]["profile"] = prof
+    mark("profile_steps")
+    cost["median_ratio_on_off"] = (cost["on"]["median_decode_step_ms"]
+                                   / cost["off"]["median_decode_step_ms"])
+    if cost["on"]["profile"]["device_busy_ms_per_step"] and \
+            cost["off"]["profile"]["device_busy_ms_per_step"]:
+        cost["device_ratio_on_off"] = (cost["on"]["profile"]["device_busy_ms_per_step"]
+                                       / cost["off"]["profile"]["device_busy_ms_per_step"])
+    # (3) the memory ledger, on the on engine's components
+    rep = led.collect()
+    in_use_now = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    comps = rep["components"]
+    params_b = sum(p.numel() * p.element_size() for p in on.params.parameters())
+    pool_b = sum(t.numel() * t.element_size() for t in on._pools.values())
+    check(comps["serving_params"]["device"] == params_b == on.param_bytes,
+          f"telemetry: serving_params {comps['serving_params']} != {params_b} B")
+    check(comps["kv_pool"]["device"] == pool_b,
+          f"telemetry: kv_pool {comps['kv_pool']} != {pool_b} B")
+    check(rep["bytes_in_use"] == in_use_now,
+          f"telemetry: bytes_in_use {rep['bytes_in_use']} != memory_allocated {in_use_now}")
+    wm = rep["watermarks"]
+    check(rep["unattributed_bytes"] >= 0 and "prefill" in wm and "decode" in wm
+          and max(wm.values()) <= peak,
+          f"telemetry: unattributed {rep['unattributed_bytes']}, watermarks {wm}, peak {peak}")
+    off_pool_b = sum(t.numel() * t.element_size() for t in off._pools.values())
+    memory = {"serving_params_bytes": params_b, "kv_pool_bytes": pool_b,
+              "bytes_in_use": rep["bytes_in_use"], "bytes_limit": rep["stats"]["bytes_limit"],
+              "unattributed_bytes": rep["unattributed_bytes"],
+              "off_engine_pool_bytes": off_pool_b, "held_before_phase_bytes": held_before,
+              "graph_pools_and_workspaces_bytes": (rep["unattributed_bytes"] - off_pool_b
+                                                   - held_before),
+              "watermarks": wm, "max_memory_allocated": peak,
+              "kv_prefix_pinned": comps["kv_prefix_pinned"]["device"]}
+    # (4) SLO counters, token counters, the exposition text, the merged trace
+    ttft_v = reg.get("deepspeed_tpu_serving_slo_ttft_violations_total").value()
+    tpot_v = reg.get("deepspeed_tpu_serving_slo_tpot_violations_total").value()
+    check(ttft_v == served["on"] and tpot_v == served["on"],
+          f"telemetry: {ttft_v} TTFT and {tpot_v} TPOT violations for {served['on']} requests")
+    st = {k: sum(e.stats()[k] for e in engines.values())
+          for k in ("prefill_admitted_tokens", "decode_tokens")}
+    counters = {"requests_total": reg.get("deepspeed_tpu_serving_requests_total").value(),
+                "prefill_admitted_tokens_total": reg.get(
+                    "deepspeed_tpu_serving_prefill_admitted_tokens_total").value(),
+                "tokens_generated_total": reg.get(
+                    "deepspeed_tpu_serving_tokens_generated_total").value()}
+    check(counters == {"requests_total": served["on"] + served["off"],
+                       "prefill_admitted_tokens_total": st["prefill_admitted_tokens"],
+                       "tokens_generated_total": st["decode_tokens"]},
+          f"telemetry: registry {counters} != the engines' {st}, {served} requests")
+    text = to_prometheus_text()
+    samples = parse_prometheus_text(text)
+    typed = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+    families = {m.name for k, m in vars(on).items() if k.startswith("_m_")}
+    missing = sorted(families - typed)
+    check(samples and not missing,
+          f"telemetry: {len(samples)} samples parsed, families {missing} missing from the "
+          "exposition text")
+    merged = os.path.join(art, "merged_trace.json")
+    n_events = write_merged_trace(merged)
+    with open(merged) as f:
+        doc = json.load(f)
+    check(n_events == len(doc["traceEvents"]) and any(
+        e.get("name") == "decode" and e.get("cat") == "reqtrace" for e in doc["traceEvents"]),
+        f"telemetry: the merged trace holds {n_events} events and no decode slice")
+    summary = ledger.summary()
+    mark("checks")
+    on.close()
+    off.close()
+    configure_spans(enabled=True)
+    set_reqtrace_ledger(None)
+    del on, off, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"build_s": build_s, "seconds": secs, "captures": captures, "timeline": tl,
+           "other_compute_kernels": other, "recompiles": recompiles,
+           "steady_recompiles": steady, "memory": memory, "cost": cost,
+           "slo": {"ttft_violations": ttft_v, "tpot_violations": tpot_v,
+                   "requests_on": served["on"]},
+           "counters": counters, "families": len(families), "exposition_lines":
+           len(text.splitlines()), "merged_trace_events": n_events,
+           "reqtrace": summary, "launches": telemetry_l}
+    print(json.dumps({"telemetry": out}, default=str))
+    return out
+
 
 def parity_phase():
     import copy
@@ -5500,6 +5830,7 @@ def main() -> int:
     par = phase(parity_phase)
     dpar = phase(decode_parity_phase)
     prefix = phase(prefix_phase, fa, pa)
+    tele = phase(telemetry_phase, fa, pa)
     train = phase(train_phase, fa, fadam)
     tpar = phase(train_parity_phase)
     qeng = phase(quant_engine_phase, fa, pa, wq)
@@ -5584,9 +5915,10 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:38",
          "launches": serve_fwd + q_fwd + train_l["flash_fwd"] + moe_fwd + falcon_l["flash"]
-                     + fams_l["flash"] + prefix_l["flash"],
+                     + fams_l["flash"] + prefix_l["flash"] + tele["launches"]["flash"],
          "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
                               "prefix_serving": prefix_l["flash"],
+                              "telemetry_serving": tele["launches"]["flash"],
                               "quantized_serving": q_fwd, "moe_serving": moe_fwd,
                               "moe_training": moe_l["flash_fwd"],
                               "offload_training_7b": off7["launches"]["flash_fwd"],
@@ -5639,9 +5971,10 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:35",
          "launches": serve_paged + q_paged + moe_paged + falcon_l["paged"] + fams_l["paged"]
-                     + prefix_l["paged"],
+                     + prefix_l["paged"] + tele["launches"]["paged"],
          "launches_by_path": {"serving": serve_paged, "quantized_serving": q_paged,
                               "prefix_serving": prefix_l["paged"],
+                              "telemetry_serving": tele["launches"]["paged"],
                               "moe_serving": moe_paged, "falcon7b_serving": falcon_l["paged"],
                               "families_serving": fams_l["paged"]},
          "max_abs_err": max(r["max_abs_err"] for r in paged), "checked": True,

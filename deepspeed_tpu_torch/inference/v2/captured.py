@@ -21,7 +21,8 @@ each program is captured once, at construction: an eager warm step on a
 side stream (it loads the kernel libraries and cuBLAS's workspace), then
 ``torch.cuda.CUDAGraph`` capture, every graph in one memory pool.  Both
 run with every row inactive, so their KV writes land in the trash page.
-A capture that fails raises; there is no eager fallback on CUDA.  On the
+A capture that fails raises; there is no eager fallback on CUDA.  Each
+capture reports one compile to ``telemetry.compile_sentinel``.  On the
 CPU the same bodies run eagerly on the same buffer.
 
 The graphs freeze every address they touch: the KV pools are written in
@@ -37,6 +38,7 @@ kernels that ran (``launch_counters``).
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Iterable, List, Tuple
 
 import numpy as np
@@ -143,7 +145,11 @@ class DecodePrograms:
 
     def _capture(self, key) -> None:
         """Warm step, then capture, with every row inactive (the staging
-        buffer zeroed: budgets 0, ``act`` 0)."""
+        buffer zeroed: budgets 0, ``act`` 0).  Reports one compile (kind
+        ``cuda_graph``) to the recompile sentinel's stream."""
+        from ...telemetry.compile_sentinel import note_compile
+
+        t0 = time.perf_counter()
         body = self._body(key)
         self.staging[:] = 0
         self._dev.copy_(self._host)
@@ -162,6 +168,7 @@ class DecodePrograms:
         for fn, d in deltas:
             fn.launches -= d
         self._graphs[key] = (graph, out, deltas)
+        note_compile("cuda_graph", time.perf_counter() - t0)
 
     # -- dispatch --------------------------------------------------------------
     def run(self, key) -> np.ndarray:

@@ -35,9 +35,21 @@ from the cache's LRU to host RAM (and NVMe) and restores them; and
 ``export_sequence`` / ``import_sequence`` move a decode-ready sequence
 between engines as a ``KVPageBundle``.  Every page copy writes the live
 pools in place, outside the captured programs, which therefore read them
-after a copy on write, an import or a restore.  The telemetry layer is
-not ported yet; its knobs raise ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+after a copy on write, an import or a restore.
+
+Serving telemetry (``telemetry/``), as in JAX: the ``deepspeed_tpu_serving_*``
+metric family on the process registry (the per-engine ``stats()``,
+``decode_stats()`` and ``cache_stats()`` keep their own values; the
+registry takes deltas), a request span per request and point events at
+admission, preemption, expiry, horizon shrinks, rollbacks and KV moves,
+TTFT and TPOT histograms with the ``slo_ttft_s`` / ``slo_tpot_s``
+violation counters and their exemplars, the request-trace ledger's
+transitions (no-ops unless a ``ReqTraceLedger`` is set), the recompile
+sentinel over each step's program parts (``recompile_sentinel``), the
+memory ledger's components and phase watermarks (``memory_ledger``), a
+``torch.profiler`` step timeline every ``timeline_every_n_steps`` steps
+(or on ``force_timeline_capture``), and a flight-recorder dump when a
+step raises (the exception propagates).
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,6 +68,14 @@ from ...models.convert import params_from_numpy
 from ...models.transformer import ParamTree, TransformerConfig
 from ...runtime.config_utils import ConfigModel
 from ...runtime.precision import cast_tree
+from ...telemetry import get_registry
+from ...telemetry.compile_sentinel import RecompileSentinel
+from ...telemetry.compile_sentinel import expect_recompile as sentinel_expect_recompile
+from ...telemetry.flight import dump_on_exception
+from ...telemetry.reqtrace import get_reqtrace_ledger, slo_exemplar
+from ...telemetry.spans import begin_span, end_span, record_event, span
+from ...telemetry.timeline import StepTimeline
+from ...telemetry.tracing import PhaseTimer
 from ..quantization import quantize_inference_params
 from ...utils.logging import logger
 from .captured import DecodePrograms
@@ -64,16 +85,17 @@ from .ragged import (PRIORITY_NORMAL, BlockAllocator, KVBlockConfig, KVPageBundl
                      PagedKVCache, PrefixCache, RejectedError, SequenceState)
 from .speculative import SpeculativeConfig, build_proposer, longest_accepted
 
-ROADMAP_TELEMETRY = "ROADMAP Queue 1 'Serving telemetry'"
-
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 
 
-def retry_after_hint(queued: int) -> float:
-    """Back-off hint for a shed request (the port's copy of
-    ``serving/admission.retry_after_hint`` without the page term): ~50 ms
-    per queued request, clamped to [0.1 s, 30 s]."""
-    return round(min(30.0, max(0.1, 0.05 * queued)), 3)
+def _pow2(n: int) -> int:
+    """``n`` rounded up to a power of two (at least 1): the JAX engine's
+    bucketed row count of a spill drain or restore (``pad_pages_pow2``),
+    which names that work in the step's program parts."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
 
 
 def _horizon_pages_needed(length: int, budget: int, page_size: int) -> int:
@@ -114,9 +136,7 @@ def _deadline_clamp(budget: int, deadline_left: float,
 
 @dataclasses.dataclass
 class RaggedInferenceConfig(ConfigModel):
-    """Every field of the JAX engine's config, by the same name.  The
-    knobs of features this slice does not port must stay at their
-    defaults (``validate`` raises otherwise)."""
+    """Every field of the JAX engine's config, by the same name."""
 
     dtype: str = "bf16"
     page_size: int = 16
@@ -142,10 +162,16 @@ class RaggedInferenceConfig(ConfigModel):
     #: tiered KV cache: a ``serving.KVTierConfig`` (or its dict form);
     #: needs ``enable_prefix_cache``
     kv_tier: Any = None
+    #: recompile sentinel for the serving loop: attribute CUDA-graph
+    #: captures and kernel builds to steps
     recompile_sentinel: bool = True
     sentinel_steady_after: int = 3
+    #: step-time attribution: every N engine steps capture one step under
+    #: torch.profiler (0 = only on ``force_timeline_capture()``)
     timeline_every_n_steps: int = 0
+    #: directory of each capture's merged Chrome trace ("" = none)
     timeline_artifact_dir: str = ""
+    #: attach the weights and KV pools to the process memory ledger
     memory_ledger: bool = True
     speculative: SpeculativeConfig = dataclasses.field(
         default_factory=SpeculativeConfig)
@@ -153,6 +179,10 @@ class RaggedInferenceConfig(ConfigModel):
     #: bounded request queue: once this many requests wait, ``put()``
     #: raises RejectedError; <= 0 = unbounded
     max_queue_depth: int = 0
+    #: SLO limits (0 = off): first tokens later than ``slo_ttft_s`` and
+    #: finished requests whose mean inter-token time exceeds ``slo_tpot_s``
+    #: count into ``deepspeed_tpu_serving_slo_{ttft,tpot}_violations_total``
+    #: and emit an ``slo_violation`` trace event
     slo_ttft_s: float = 0.0
     slo_tpot_s: float = 0.0
 
@@ -165,18 +195,6 @@ class RaggedInferenceConfig(ConfigModel):
             from ...serving.config import KVTierConfig
 
             self.kv_tier = KVTierConfig.from_dict(self.kv_tier)
-        not_ported = [
-            ("timeline_every_n_steps", self.timeline_every_n_steps != 0,
-             ROADMAP_TELEMETRY),
-            ("timeline_artifact_dir", self.timeline_artifact_dir != "",
-             ROADMAP_TELEMETRY),
-            ("slo_ttft_s", self.slo_ttft_s > 0, ROADMAP_TELEMETRY),
-            ("slo_tpot_s", self.slo_tpot_s > 0, ROADMAP_TELEMETRY),
-        ]
-        for name, is_set, item in not_ported:
-            if is_set:
-                raise NotImplementedError(
-                    f"RaggedInferenceConfig.{name}: not ported yet ({item})")
         if self.quant_bits not in (0, 4, 8):
             raise ValueError(f"quant_bits must be 0, 4 or 8, got {self.quant_bits}")
         if self.decode_horizon < 1:
@@ -337,6 +355,16 @@ class InferenceEngineV2:
                         "spec_proposed_tokens": 0, "spec_accepted_tokens": 0,
                         "spec_verify_calls": 0, "spec_rollback_pages": 0,
                         "spec_fallback_requests": 0}
+        self._init_serving_metrics()
+        # request lifecycle bookkeeping: enqueue/first-token stamps and the
+        # open request span, keyed by uid (survives preemption)
+        self._req_meta: Dict[int, Dict[str, Any]] = {}
+        # the step's program parts for the recompile sentinel: each prefill
+        # bucket or chunk shape, the decode-phase programs, page copies
+        self._step_parts: set = set()
+        #: decode-phase dispatches (plain and multi-step), the timeline's
+        #: step clock as in JAX
+        self._decode_steps = 0
         # speculative decoding: an explicit proposer wins; otherwise the
         # config block builds one (None when off)
         self.spec = self.config.speculative
@@ -366,11 +394,308 @@ class InferenceEngineV2:
             self.cfg, self.params, self._pools, block.max_seqs, block.max_pages_per_seq,
             self._seed, _horizon_chain(self._horizon) if self._horizon > 1 else (),
             verify_width=self.spec.k + 1 if self._proposer is not None else 0)
+        self._sentinel = None
+        if self.config.recompile_sentinel:
+            self._sentinel = RecompileSentinel(
+                loop="serve", steady_after=self.config.sentinel_steady_after)
+            # the programs were just captured (one compile each on CUDA):
+            # construction's work, not the first step's
+            self._sentinel.expect_recompile("engine_construction")
+        # step-time attribution: periodic (timeline_every_n_steps) or
+        # on demand (force_timeline_capture); only the captured step pays
+        self._timeline = StepTimeline(
+            every_n_steps=self.config.timeline_every_n_steps,
+            artifact_dir=self.config.timeline_artifact_dir, device=self.device)
+        self._wire_memory_ledger()
+
+    def _wire_memory_ledger(self) -> None:
+        """Attach the engine's device residents to the process memory
+        ledger: the weights, the KV page pool and, informationally (a
+        sub-slice of the pool), the bytes parked in the prefix cache's LRU;
+        with the host tier, its host RAM.  The providers hold the engine
+        only weakly, so a dropped engine is collected with or without
+        ``close()``; ``close()`` detaches exactly what this engine
+        attached (a newer engine's components stay)."""
+        self._ledger_components: List[Tuple[str, Any]] = []
+        if not self.config.memory_ledger:
+            return
+        from ...telemetry.memory import get_memory_ledger
+
+        led = get_memory_ledger()
+        led.install_phase_watch()  # prefill/decode peak watermarks
+        ref = weakref.ref(self)
+
+        def _attach(name, read, **kw):
+            def provider():
+                eng = ref()
+                return None if eng is None else read(eng)
+            led.attach(name, provider, **kw)
+            self._ledger_components.append((name, provider))
+
+        _attach("serving_params", lambda e: e.params)
+        _attach("kv_pool", lambda e: e._pools)
+        _attach("kv_prefix_pinned", lambda e: {"device": e._pinned_page_bytes()},
+                informational=True)
+        if self.kv_tier is not None:
+            # spilled pages are host RAM this engine owns
+            _attach("kv_host_tier", lambda e: {"host": e.kv_tier.host_bytes})
+        led.update_context(
+            kv_num_pages=self.block.num_pages, kv_page_size=self.block.page_size,
+            kv_max_seqs=self.block.max_seqs, kv_quant=self.config.kv_quant,
+            prefix_cache=self.config.enable_prefix_cache)
+
+    def _pinned_page_bytes(self) -> int:
+        """Device bytes held by prefix-cache LRU pages: the pool's per-page
+        cost times the parked-page count."""
+        from ...telemetry.memory import tree_bytes
+
+        dev, _host = tree_bytes(self._pools)
+        return dev * self.allocator.lru_pages // (self.block.num_pages + 1)
+
+    # -- telemetry -----------------------------------------------------------
+    def _init_serving_metrics(self) -> None:
+        """Register the serving metric family on the process registry
+        (get-or-create: engines in one process share the cumulative
+        series; ``stats()`` and ``cache_stats()`` keep the per-engine
+        view).  Names, help strings, labels and buckets are the JAX
+        engine's."""
+        reg = get_registry()
+        self._m_queue = reg.gauge(
+            "deepspeed_tpu_serving_queue_depth",
+            "requests waiting for admission")
+        self._m_occupancy = reg.gauge(
+            "deepspeed_tpu_serving_batch_occupancy",
+            "occupied decode slots / max_seqs")
+        self._m_prefill_h = reg.histogram(
+            "deepspeed_tpu_serving_prefill_seconds",
+            "per-sequence prefill program wall time (one chunk or whole "
+            "prompt, incl. the prefix-end sample)")
+        self._m_decode_h = reg.histogram(
+            "deepspeed_tpu_serving_decode_seconds",
+            "one batched decode step wall time (dispatch + token fetch)")
+        self._m_requests = reg.counter(
+            "deepspeed_tpu_serving_requests_total", "requests enqueued")
+        self._m_gen_tokens = reg.counter(
+            "deepspeed_tpu_serving_tokens_generated_total",
+            "tokens produced by the decode program")
+        self._m_admitted = reg.counter(
+            "deepspeed_tpu_serving_prefill_admitted_tokens_total",
+            "prompt tokens admitted for prefill")
+        self._m_computed = reg.counter(
+            "deepspeed_tpu_serving_prefill_computed_tokens_total",
+            "prompt tokens actually computed (admitted minus prefix hits)")
+        self._m_hit_tokens = reg.counter(
+            "deepspeed_tpu_serving_prefix_hit_tokens_total",
+            "prompt tokens served from the prefix cache")
+        self._m_cache_hits = reg.counter(
+            "deepspeed_tpu_serving_prefix_cache_hits_total",
+            "prefix-cache page lookups that matched")
+        self._m_cache_misses = reg.counter(
+            "deepspeed_tpu_serving_prefix_cache_misses_total",
+            "admission walks ending on a missing page")
+        self._m_cache_evict = reg.counter(
+            "deepspeed_tpu_serving_prefix_cache_evictions_total",
+            "cached pages evicted (LRU or cap trim)")
+        self._m_cached_pages = reg.gauge(
+            "deepspeed_tpu_serving_prefix_cached_pages",
+            "pages currently parked in the prefix cache")
+        self._m_preemptions = reg.counter(
+            "deepspeed_tpu_serving_preemptions_total",
+            "sequences evicted to the queue under KV-pool pressure")
+        # KV page-pool occupancy: used + free == num_pages; pinned pages
+        # (cached-but-unreferenced LRU) are a subset of free
+        self._m_kv_used = reg.gauge(
+            "deepspeed_tpu_serving_kv_pages_used",
+            "KV pool pages referenced by live sequences")
+        self._m_kv_free = reg.gauge(
+            "deepspeed_tpu_serving_kv_pages_free",
+            "allocatable KV pool pages (truly free + cached-unreferenced)")
+        self._m_kv_pinned = reg.gauge(
+            "deepspeed_tpu_serving_kv_pages_pinned",
+            "cached-but-unreferenced pages parked in the prefix-cache LRU")
+        self._m_ttft_h = reg.histogram(
+            "deepspeed_tpu_serving_ttft_seconds",
+            "time to first token: enqueue to first sampled token "
+            "(includes queue wait)")
+        self._m_tpot_h = reg.histogram(
+            "deepspeed_tpu_serving_tpot_seconds",
+            "mean time per output token after the first, observed once "
+            "per finished request")
+        # speculative decoding family (flat zeros with speculation off)
+        self._m_invocations = reg.counter(
+            "deepspeed_tpu_serving_decode_model_invocations_total",
+            "decode-phase model program calls (plain decode steps + "
+            "speculative verify calls) — tokens/invocation is the "
+            "speculative figure of merit")
+        self._m_spec_proposed = reg.counter(
+            "deepspeed_tpu_serving_spec_proposed_tokens_total",
+            "draft tokens proposed for verification")
+        self._m_spec_accepted = reg.counter(
+            "deepspeed_tpu_serving_spec_accepted_tokens_total",
+            "draft tokens accepted (matched the model's greedy choice)")
+        self._m_spec_rollback = reg.counter(
+            "deepspeed_tpu_serving_spec_rollback_pages_total",
+            "draft-reserved KV pages rolled back after rejection")
+        self._m_spec_fallback = reg.counter(
+            "deepspeed_tpu_serving_spec_fallback_requests_total",
+            "non-greedy requests routed to the plain decode program by "
+            "the sampling guard (speculation never changes the "
+            "sampling distribution)")
+        self._m_spec_tps = reg.histogram(
+            "deepspeed_tpu_serving_spec_tokens_per_step",
+            "tokens emitted per sequence per verify call (accepted "
+            "prefix + the model's correction token; >= 1)")
+        self._m_spec_rate = reg.gauge(
+            "deepspeed_tpu_serving_spec_acceptance_rate",
+            "cumulative accepted / proposed draft tokens")
+        self._m_spec_verify_h = reg.histogram(
+            "deepspeed_tpu_serving_spec_verify_seconds",
+            "one batched speculative verify program wall time")
+        # multi-step decode family (decode_horizon > 1)
+        self._m_tokens_per_dispatch = reg.histogram(
+            "deepspeed_tpu_serving_decode_tokens_per_dispatch",
+            "tokens emitted per decode-phase device dispatch (a fused "
+            "multi-step scan emits up to horizon x batch per dispatch; "
+            "the K=1 loop at most batch)")
+        self._m_host_syncs = reg.counter(
+            "deepspeed_tpu_serving_decode_host_syncs_total",
+            "decode-phase host round-trips (device token pulls): the "
+            "fused multi-step scan pays ONE per horizon where the K=1 "
+            "loop pays one per token")
+        self._m_horizon_shrink = reg.counter(
+            "deepspeed_tpu_serving_decode_horizon_shrink_total",
+            "multi-step dispatches whose horizon was shrunk below "
+            "decode_horizon (KV-pool headroom pressure or short row "
+            "budgets) instead of preempting mid-scan")
+        # serving-SLO family: deadline expiry, queue wait and the TTFT/TPOT
+        # violations live on the engine; the shed half in
+        # serving/admission.py
+        self._m_deadline = reg.counter(
+            "deepspeed_tpu_serving_slo_deadline_exceeded_total",
+            "requests expired past their deadline at a step boundary "
+            '(finish_reason="deadline")')
+        self._m_queue_wait_h = reg.histogram(
+            "deepspeed_tpu_serving_slo_queue_wait_seconds",
+            "enqueue -> admission wait, observed per admission (a "
+            "preempted sequence re-admitting observes again)")
+        self._m_ttft_viol = reg.counter(
+            "deepspeed_tpu_serving_slo_ttft_violations_total",
+            "first tokens arriving later than slo_ttft_s")
+        self._m_tpot_viol = reg.counter(
+            "deepspeed_tpu_serving_slo_tpot_violations_total",
+            "finished requests whose mean inter-token time exceeded "
+            "slo_tpot_s")
+        # last-published absolutes of the per-engine cache counters: the
+        # process-cumulative registry counters receive only deltas
+        self._cache_pub = {"hits": 0, "misses": 0, "evictions": 0}
+
+    def _phase(self, name: str, hist, **attrs) -> PhaseTimer:
+        """Profiler range + wall-time histogram + trace-ring span for one
+        serving phase; ``attrs`` land on the span only."""
+        return PhaseTimer(name, sink=lambda _n, dt: hist.observe(dt), **attrs)
+
+    # -- request lifecycle bookkeeping ---------------------------------------
+    def _reqtrace(self, seq: SequenceState):
+        """The request-trace ledger's entry for ``seq`` (None when the
+        engine runs standalone: every reqtrace hook is then a no-op)."""
+        if seq is None or seq.trace_id is None:
+            return None
+        led = get_reqtrace_ledger()
+        return None if led is None else led.get(seq.trace_id)
+
+    def _note_tokens(self, seq: SequenceState, n: int = 1,
+                     t: Optional[float] = None) -> None:
+        """Account ``n`` newly emitted tokens: the first closes the TTFT
+        window (enqueue -> first token).  ``t`` is the token's emit time; a
+        multi-step dispatch passes per-token times reconstructed from the
+        horizon, so TTFT and TPOT never see a K-token burst at one
+        instant."""
+        m = self._req_meta.get(seq.uid)
+        if m is None:
+            return
+        now = t if t is not None else time.perf_counter()
+        if m["t_first"] is None:
+            m["t_first"] = now
+            ttft = now - m["t0"]
+            self._m_ttft_h.observe(ttft)
+            tr = self._reqtrace(seq)
+            if tr is not None:
+                tr.note_first_token(now)
+                tr.transition("decode", getattr(self, "trace_owner", "engine"), now)
+            if 0 < self.config.slo_ttft_s < ttft:
+                self._m_ttft_viol.inc()
+                slo_exemplar("deepspeed_tpu_serving_slo_ttft_violations_total",
+                             seq.trace_id, uid=seq.uid, ttft_s=round(ttft, 6))
+                self._slo_violation("ttft", ttft, self.config.slo_ttft_s,
+                                    seq.uid, seq.trace_id)
+        m["t_last"] = now
+        m["n"] += n
+
+    def _slo_violation(self, kind: str, value: float, limit: float,
+                       uid: int, trace_id: Optional[str] = None) -> None:
+        """The one call site of the ``slo_violation`` event (TTFT and TPOT)."""
+        record_event("slo_violation", cat="serve", kind=kind,
+                     value=round(value, 6), limit=limit, uid=uid,
+                     **({} if trace_id is None else {"trace_id": trace_id}))
+
+    def _finish_request(self, seq: SequenceState) -> None:
+        """Close the request span and observe TPOT (mean inter-token time
+        after the first)."""
+        m = self._req_meta.pop(seq.uid, None)
+        if m is None:
+            return
+        if m["n"] > 1 and m["t_first"] is not None:
+            tpot = (m["t_last"] - m["t_first"]) / (m["n"] - 1)
+            self._m_tpot_h.observe(tpot)
+            if 0 < self.config.slo_tpot_s < tpot:
+                self._m_tpot_viol.inc()
+                slo_exemplar("deepspeed_tpu_serving_slo_tpot_violations_total",
+                             seq.trace_id, uid=seq.uid, tpot_s=round(tpot, 6))
+                self._slo_violation("tpot", tpot, self.config.slo_tpot_s,
+                                    seq.uid, seq.trace_id)
+        end_span(m["span"], generated=m["n"],
+                 total_s=round(time.perf_counter() - m["t0"], 6))
+        if seq.trace_id is not None:
+            led = get_reqtrace_ledger()
+            if led is not None:
+                led.finish(seq.trace_id, seq.finish_reason or "complete")
+
+    def _pool_occupancy(self) -> Dict[str, int]:
+        """KV pool occupancy, attached to admission and preemption events."""
+        a = self.allocator
+        return {"pages_used": a.used_pages, "pages_free": a.free_pages,
+                "pages_pinned": a.lru_pages}
+
+    def _publish_pool_gauges(self) -> None:
+        occ = self._pool_occupancy()
+        self._m_kv_used.set(occ["pages_used"])
+        self._m_kv_free.set(occ["pages_free"])
+        self._m_kv_pinned.set(occ["pages_pinned"])
+
+    def _sync_cache_counters(self) -> None:
+        """Forward the allocator's and prefix cache's counter deltas to the
+        registry (they stay the per-engine source of ``cache_stats()``)."""
+        self._publish_pool_gauges()
+        pub = self._cache_pub
+        ev = self.allocator.evictions
+        if ev > pub["evictions"]:
+            self._m_cache_evict.inc(ev - pub["evictions"])
+            pub["evictions"] = ev
+        if self.prefix_cache is not None:
+            h, m = self.prefix_cache.hits, self.prefix_cache.misses
+            if h > pub["hits"]:
+                self._m_cache_hits.inc(h - pub["hits"])
+                pub["hits"] = h
+            if m > pub["misses"]:
+                self._m_cache_misses.inc(m - pub["misses"])
+                pub["misses"] = m
+        self._m_cached_pages.set(self.allocator.cached_pages)
 
     # -- request API ---------------------------------------------------------
     def put(self, request: RaggedRequest) -> int:
         """Queue a request; returns its uid.  A full bounded queue
-        (``max_queue_depth``) raises :class:`RejectedError`."""
+        (``max_queue_depth``) raises :class:`RejectedError`, counted as a
+        shed first (``serving.admission.record_shed``)."""
         uid = request.uid if request.uid is not None else next(self._uid)
         n = len(request.prompt_ids)
         if n == 0:
@@ -379,8 +704,14 @@ class InferenceEngineV2:
             raise ValueError(f"prompt length {n} >= max_seq_len {self.max_seq_len}")
         if (self.config.max_queue_depth > 0
                 and len(self._queue) >= self.config.max_queue_depth):
-            raise RejectedError("engine_queue_full",
-                                retry_after_s=retry_after_hint(len(self._queue)),
+            # deferred: serving imports inference, never the reverse at
+            # module scope
+            from ...serving.admission import record_shed, retry_after_hint
+
+            hint = retry_after_hint(len(self._queue))
+            record_shed(request.priority, "engine_queue_full", hint,
+                        uid=request.uid, trace_id=request.trace_id)
+            raise RejectedError("engine_queue_full", retry_after_s=hint,
                                 priority=request.priority)
         now = time.perf_counter()
         self._queue.append(SequenceState(
@@ -392,6 +723,17 @@ class InferenceEngineV2:
                       if request.deadline_s is not None else 0.0),
             enqueue_order=next(self._enqueue_counter),
             queued_at=now, trace_id=request.trace_id))
+        self._req_meta[uid] = {
+            "t0": now, "t_first": None, "t_last": None, "n": 0,
+            "span": begin_span("request", cat="serve", uid=uid, prompt_tokens=n,
+                               priority=request.priority,
+                               max_new_tokens=request.max_new_tokens,
+                               **({} if request.trace_id is None
+                                  else {"trace_id": request.trace_id,
+                                        "replica": getattr(self, "trace_owner",
+                                                           "engine")}))}
+        self._m_requests.inc()
+        self._m_queue.set(len(self._queue))
         return uid
 
     def has_work(self) -> bool:
@@ -429,7 +771,9 @@ class InferenceEngineV2:
         """Prefix-cache and prefill-work counters by the JAX engine's
         names (cumulative; the cache entries stay 0 with caching off):
         admitted, computed and cache-hit prompt tokens, page hits and
-        misses, evictions, pages registered, and ``prefix_hit_rate``."""
+        misses, evictions, pages registered, and ``prefix_hit_rate``.
+        Forwards the counters' deltas to the registry first."""
+        self._sync_cache_counters()
         s: Dict[str, float] = {k: self._stats[k] for k in (
             "prefill_admitted_tokens", "prefill_computed_tokens", "prefix_hit_tokens")}
         s["cache_hits"] = self.prefix_cache.hits if self.prefix_cache else 0
@@ -441,7 +785,9 @@ class InferenceEngineV2:
         return s
 
     def reset_cache_stats(self) -> None:
-        """Zero every counter (the cache's and the tier's contents stay)."""
+        """Zero every counter (the cache's and the tier's contents stay).
+        The registry's counters stay cumulative; only their delta baseline
+        resets with the sources."""
         self._stats = {k: type(v)(0) for k, v in self._stats.items()}
         self._dstats = {k: 0 for k in self._dstats}
         self.allocator.evictions = 0
@@ -453,6 +799,7 @@ class InferenceEngineV2:
             t.hits = t.misses = 0
             t.host_evictions = t.corrupt_pages = t.dropped_spills = 0
             t.spill_seconds = t.restore_seconds = 0.0
+        self._cache_pub = {"hits": 0, "misses": 0, "evictions": 0}
 
     def tier_stats(self) -> Dict[str, float]:
         """The host tier's counters (``HostKVTier.stats``); {} with the
@@ -467,8 +814,8 @@ class InferenceEngineV2:
         self.allocator.assert_no_leaks([s.pages for s in self._slots if s is not None])
 
     def abort_all(self, reason: str = "abort") -> List[int]:
-        """Free every queued and admitted request without running it;
-        returns their uids."""
+        """Free every queued and admitted request without running it (pages
+        released, request spans closed); returns their uids."""
         uids = [s.uid for s in self._queue]
         self._queue.clear()
         for i, s in enumerate(self._slots):
@@ -479,14 +826,23 @@ class InferenceEngineV2:
             self._slots[i] = None
             s.slot, s.pages = -1, []
             uids.append(s.uid)
+        for uid in uids:
+            self._spec_fallback_uids.discard(uid)
+            m = self._req_meta.pop(uid, None)
+            if m is not None:
+                end_span(m["span"], aborted=reason, generated=m["n"])
         if uids:
+            self._m_queue.set(0)
+            self._publish_pool_gauges()
             logger.info(f"serving: aborted {len(uids)} request(s) ({reason})")
         return uids
 
     def close(self) -> None:
         """Drop the pending spill captures (their pins released, the hook
-        detached first so the aborts below capture nothing new), then
-        abort what is still queued or running, loudly."""
+        detached first so the aborts below capture nothing new), abort what
+        is still queued or running, loudly, and detach this engine's
+        memory-ledger components (those a newer engine claimed stay).
+        Idempotent."""
         if self.kv_tier is not None:
             self.allocator.spill_hook = None
         for page, _key in self._pending_spills:
@@ -498,6 +854,13 @@ class InferenceEngineV2:
             logger.warning(
                 f"engine_v2.close: aborted {len(dropped)} unfinished "
                 f"request(s) (uids {dropped[:8]}{'…' if len(dropped) > 8 else ''})")
+        if self._ledger_components:
+            from ...telemetry.memory import get_memory_ledger
+
+            led = get_memory_ledger()
+            for name, prov in self._ledger_components:
+                led.detach(name, provider=prov)
+        self._ledger_components = []
 
     # -- KV-page migration: export, import, release --------------------------
     def _find_slotted(self, uid: int) -> SequenceState:
@@ -515,7 +878,7 @@ class InferenceEngineV2:
         seq = self._find_slotted(uid)
         ps = self.block.page_size
         immutable = seq.prefilled // ps  # pages never written again
-        return KVPageBundle(
+        bundle = KVPageBundle(
             uid=seq.uid, tokens=list(seq.tokens), prompt_len=seq.prompt_len,
             max_new_tokens=seq.max_new_tokens, temperature=seq.temperature,
             eos_id=seq.eos_id, prefilled=seq.prefilled, decode_entry=seq.decode_entry,
@@ -524,9 +887,23 @@ class InferenceEngineV2:
             src_pages=self.allocator.export_meta(seq.pages),
             arrays=paged_gather_pages(self._pools, seq.pages),
             model_sig=(self.cfg.n_layers, self.cfg.kv_heads, self.cfg.head_dim),
-            kv_quant=bool(self.config.kv_quant), dtype=self.config.dtype,
-            trace=({"trace_id": seq.trace_id, "snapshot": None, "hops": []}
-                   if seq.trace_id is not None else None))
+            kv_quant=bool(self.config.kv_quant), dtype=self.config.dtype)
+        tr = self._reqtrace(seq)
+        if tr is not None:
+            # the handoff starts here: the ledger's phase turns kv_transfer
+            # and the bundle carries the trace id and a clock-free snapshot
+            tr.transition("kv_transfer", getattr(self, "trace_owner", "engine"))
+            bundle.trace = {"trace_id": seq.trace_id, "snapshot": tr.wire_snapshot(),
+                            "hops": []}
+        elif seq.trace_id is not None:
+            bundle.trace = {"trace_id": seq.trace_id, "snapshot": None, "hops": []}
+        record_event("kv_export", cat="serve", uid=uid, pages=len(seq.pages),
+                     tokens=len(seq.tokens),
+                     **({} if seq.trace_id is None else {"trace_id": seq.trace_id}))
+        # work outside the step's programs, announced as the JAX engine
+        # announces its op-by-op gather
+        sentinel_expect_recompile("kv_export")
+        return bundle
 
     def _check_bundle(self, b: KVPageBundle) -> None:
         sig = (self.cfg.n_layers, self.cfg.kv_heads, self.cfg.head_dim)
@@ -583,6 +960,7 @@ class InferenceEngineV2:
             except ValueError:
                 self.allocator.free(pages)  # a refused import leaks nothing
                 raise
+            sentinel_expect_recompile("kv_import")
         if self.prefix_cache is not None:
             # publish the freshly written full pages here too (first writer
             # wins); adopted pages are registered already
@@ -601,6 +979,34 @@ class InferenceEngineV2:
         self._slots[slot] = seq
         self._page_table[slot, :] = self.block.trash_page
         self._page_table[slot, :len(pages)] = pages
+        now = time.perf_counter()
+        if trace_id is not None:
+            led = get_reqtrace_ledger()
+            if led is not None:
+                tr = led.get(trace_id)
+                if tr is None and bundle.trace.get("snapshot") is not None:
+                    # cross-process import: re-anchor the sender's ledger
+                    # here, wire transit folded into kv_transfer
+                    tr = led.adopt(bundle.trace["snapshot"],
+                                   transit_s=float(bundle.trace.get("transit_s", 0.0)))
+                if tr is not None:
+                    tr.transition("decode", getattr(self, "trace_owner", "engine"), now)
+        # TTFT belongs to the exporting engine (it sampled the first token);
+        # local TPOT accounting restarts at the handoff
+        self._req_meta[bundle.uid] = {
+            "t0": now, "t_first": now if bundle.generated > 0 else None,
+            "t_last": now, "n": bundle.generated,
+            "span": begin_span("request_migrated", cat="serve", uid=bundle.uid,
+                               tokens=len(bundle.tokens), adopted_pages=sum(reused),
+                               **({} if trace_id is None
+                                  else {"trace_id": trace_id,
+                                        "replica": getattr(self, "trace_owner",
+                                                           "engine")}))}
+        record_event("kv_import", cat="serve", uid=bundle.uid, slot=slot, pages=n,
+                     adopted=sum(reused),
+                     **({} if trace_id is None else {"trace_id": trace_id}),
+                     **self._pool_occupancy())
+        self._publish_pool_gauges()
         return True
 
     def release_sequence(self, uid: int, reason: str = "migrated") -> None:
@@ -612,6 +1018,10 @@ class InferenceEngineV2:
         self._page_table[seq.slot, :] = self.block.trash_page
         self._slots[seq.slot] = None
         seq.slot, seq.pages = -1, []
+        m = self._req_meta.pop(uid, None)
+        if m is not None:
+            end_span(m["span"], released=reason, generated=m["n"])
+        self._publish_pool_gauges()
         logger.info(f"serving: released uid={uid} ({reason})")
 
     # -- tiered KV cache: spill to host RAM and restore ------------------------
@@ -643,6 +1053,10 @@ class InferenceEngineV2:
         pend, self._pending_spills = self._pending_spills, []
         self._pending_spill_keys = set()
         t0 = time.perf_counter()
+        # the JAX engine's parts for this work (one gather program per
+        # power-of-two row count there), announced as it announces them
+        self._step_parts.add(("kv_spill", _pow2(len(pend))))
+        sentinel_expect_recompile("kv_tier_spill")
         arrays = paged_gather_pages(self._pools, [p for p, _ in pend])
         crcs = batch_page_crcs(arrays)
         for j, (page, key) in enumerate(pend):
@@ -718,6 +1132,8 @@ class InferenceEngineV2:
         host_keys = host_keys[:len(entries)]
         t0 = time.perf_counter()
         fresh = self.allocator.alloc(len(entries))
+        self._step_parts.add(("kv_restore", _pow2(len(fresh))))
+        sentinel_expect_recompile("kv_tier_restore")
         arrays = {}
         for name, first in entries[0].items():
             shape = (first.shape[0], len(entries)) + tuple(first.shape[2:])
@@ -783,11 +1199,20 @@ class InferenceEngineV2:
         seq.queued_at = time.perf_counter()
         self._queue.insert(0, seq)
         self._stats["preemptions"] += 1
-        a = self.allocator
+        self._m_preemptions.inc()
+        tr = self._reqtrace(seq)
+        if tr is not None:
+            # back to queue_wait; the re-run prefill ledgers as recompute
+            tr.note_preempt(getattr(self, "trace_owner", "engine"), seq.queued_at)
+        occ = self._pool_occupancy()
+        record_event("preempt", cat="serve", uid=seq.uid, prefix_tokens=seq.length,
+                     **({} if seq.trace_id is None else {"trace_id": seq.trace_id}),
+                     **occ)
         logger.info(
             f"serving: preempted uid={seq.uid} (prefix {seq.length} tokens) "
-            f"under KV-pool pressure: {a.used_pages} pages used, "
-            f"{a.free_pages} free of {self.block.num_pages}")
+            f"under KV-pool pressure: {occ['pages_used']} pages used, "
+            f"{occ['pages_free']} free ({occ['pages_pinned']} of them "
+            f"prefix-cache pinned) of {self.block.num_pages}")
 
     def _admit(self) -> List[SequenceState]:
         admitted = []
@@ -838,9 +1263,12 @@ class InferenceEngineV2:
                 break  # head-of-line blocking
             self._queue.remove(seq)
             seq.cached_match, seq.match_gen, seq.match_evict_gen = None, -1, -1
+            if seq.queued_at > 0.0:
+                self._m_queue_wait_h.observe(time.perf_counter() - seq.queued_at)
             fresh = self.allocator.alloc(need_new)
             if full_hit:
                 src, dst = shared[-1], fresh[-1]
+                self._step_parts.add("copy_page")
                 # the copy is queued before any program reads the page
                 paged_copy_page(self._pools, src, dst)
                 self.allocator.free([src])  # drop our ref on the original
@@ -859,12 +1287,25 @@ class InferenceEngineV2:
             self._stats["prefill_admitted_tokens"] += seq.length
             self._stats["prefix_hit_tokens"] += seq.prefilled
             self._stats["prefill_computed_tokens"] += seq.length - seq.prefilled
+            self._m_admitted.inc(seq.length)
+            self._m_hit_tokens.inc(seq.prefilled)
+            self._m_computed.inc(seq.length - seq.prefilled)
             seq.slot = i
             seq.admit_order = next(self._admit_counter)
             self._page_table[i, :] = self.block.trash_page
             self._page_table[i, :len(seq.pages)] = seq.pages
+            tr = self._reqtrace(seq)
+            if tr is not None:
+                # queue_wait closes here; "prefill" turns "recompute" after
+                # a preemption or a re-dispatch
+                tr.transition("prefill", getattr(self, "trace_owner", "engine"))
+            record_event("admit", cat="serve", uid=seq.uid, slot=i, cache_hit_pages=m,
+                         new_pages=len(fresh), full_hit=full_hit,
+                         **({} if seq.trace_id is None else {"trace_id": seq.trace_id}),
+                         **self._pool_occupancy())
             admitted.append(seq)
             self._slots[i] = seq
+        self._publish_pool_gauges()
         return admitted
 
     def _emit_sampled(self, seq: SequenceState, logits: torch.Tensor,
@@ -872,6 +1313,7 @@ class InferenceEngineV2:
         """Sample off prefix-end logits, append, record, maybe retire."""
         tok = self._sample(seq, logits.float().cpu().numpy())
         seq.tokens.append(tok)
+        self._note_tokens(seq)
         out[seq.uid] = {"tokens": [tok], "done": False}
         self._maybe_finish(seq, tok)
         if seq.done:
@@ -902,16 +1344,27 @@ class InferenceEngineV2:
         self._page_table[seq.slot, :] = self.block.trash_page
         self._slots[seq.slot] = None
         seq.slot, seq.pages, seq.done = -1, [], True
+        self._spec_fallback_uids.discard(seq.uid)
+        self._finish_request(seq)
 
     def _expire(self, seq: SequenceState, out: Dict[int, Dict[str, Any]]) -> None:
         """Retire one past-deadline sequence (queued or admitted) with
-        ``finish_reason="deadline"``."""
+        ``finish_reason="deadline"``: its pages free at once, its request
+        span closes, and the expiry counts as an SLO miss."""
         seq.finish_reason = "deadline"
+        self._m_deadline.inc()
+        slo_exemplar("deepspeed_tpu_serving_slo_deadline_exceeded_total",
+                     seq.trace_id, uid=seq.uid, generated=seq.generated)
+        record_event("deadline_expired", cat="serve", uid=seq.uid,
+                     generated=seq.generated, priority=seq.priority,
+                     **({} if seq.trace_id is None else {"trace_id": seq.trace_id}))
         if seq.slot >= 0:
             self._retire(seq)
         else:
             self.allocator.free(seq.pages)
             seq.pages, seq.done = [], True
+            self._spec_fallback_uids.discard(seq.uid)
+            self._finish_request(seq)
         out[seq.uid] = {"tokens": [], "done": True, "finish_reason": "deadline"}
 
     def _expire_deadlines(self, out: Dict[int, Dict[str, Any]]) -> None:
@@ -962,6 +1415,7 @@ class InferenceEngineV2:
         while b < max(used, 1):
             b *= 2
         prev = self._page_table[seq.slot][:min(b, self.block.max_pages_per_seq)]
+        self._step_parts.add(("prefill_chunk", C, int(prev.shape[0])))
         logits, self._pools = paged_prefill_chunk(
             self.cfg, self.params, self._pools, self._tensor(ids).long(),
             self._tensor(rows), self._tensor(np.ascontiguousarray(prev)), start, c_n)
@@ -980,13 +1434,16 @@ class InferenceEngineV2:
         ids[:n] = seq.tokens
         rows = np.full((bucket // ps,), self.block.trash_page, np.int32)
         rows[:len(seq.pages)] = seq.pages
-        logits, self._pools = paged_prefill(
-            self.cfg, self.params, self._pools, self._tensor(ids).long(),
-            self._tensor(rows), n)
-        self._stats["prefill_calls"] += 1
-        seq.prefilled = n
-        self._register_pages(seq)
-        self._emit_sampled(seq, logits, out)
+        self._step_parts.add(("prefill", bucket))
+        with self._phase("prefill", self._m_prefill_h, uid=seq.uid, tokens=n,
+                         bucket=bucket):
+            logits, self._pools = paged_prefill(
+                self.cfg, self.params, self._pools, self._tensor(ids).long(),
+                self._tensor(rows), n)
+            self._stats["prefill_calls"] += 1
+            seq.prefilled = n
+            self._register_pages(seq)
+            self._emit_sampled(seq, logits, out)
 
     # -- the engine step -----------------------------------------------------
     def step(self) -> Dict[int, Dict[str, Any]]:
@@ -995,12 +1452,39 @@ class InferenceEngineV2:
         Returns {uid: {"tokens": [newly generated], "done": bool}};
         finished records also carry ``"finish_reason"``
         ("length"/"eos"/"max_seq_len"/"deadline").  Past-deadline requests
-        expire first, at the step boundary, before admission."""
-        out = self._step_impl()
-        # the host tier's prefetch for the queue head, after the step's
-        # programs have returned
-        self._prefetch_restores()
+        expire first, at the step boundary, before admission.
+
+        A step that raises dumps the flight recorder (when one is installed,
+        or on a memory exhaustion) and the exception propagates; a step's
+        program parts go to the recompile sentinel; every
+        ``timeline_every_n_steps`` decode steps (or once after
+        ``force_timeline_capture``) the step runs under the profiler."""
+        self._step_parts = set()
+        try:
+            if self._timeline.should_capture(self._decode_steps):
+                with self._timeline.capture(self._decode_steps):
+                    out = self._step_impl()
+            else:
+                out = self._step_impl()
+            # the host tier's prefetch for the queue head, after the step's
+            # programs have returned
+            self._prefetch_restores()
+        except Exception as e:
+            dump_on_exception("engine_v2.step", e)
+            raise
+        if self._step_parts and self._sentinel is not None:
+            self._sentinel.observe_step(frozenset(self._step_parts),
+                                        step=self._decode_steps)
         return out
+
+    def force_timeline_capture(self) -> None:
+        """Capture the NEXT ``step()`` under the profiler, whatever the
+        cadence."""
+        self._timeline.force_next()
+
+    def timeline_record(self) -> Optional[Dict[str, Any]]:
+        """The last completed step-time record, or None."""
+        return self._timeline.last_record()
 
     def _step_impl(self) -> Dict[int, Dict[str, Any]]:
         out: Dict[int, Dict[str, Any]] = {}
@@ -1009,6 +1493,9 @@ class InferenceEngineV2:
         self._drain_spills()
         self._expire_deadlines(out)
         admitted = self._admit()
+        self._m_queue.set(len(self._queue))
+        self._m_occupancy.set(sum(1 for s in self._slots if s is not None)
+                              / max(1, self.block.max_seqs))
         t0 = time.perf_counter()
         if self._chunk:
             # one chunk per pending-prefill sequence per step (a cached
@@ -1019,9 +1506,11 @@ class InferenceEngineV2:
             for seq in pending:
                 start = seq.prefilled  # page-aligned: chunk % ps == 0
                 c_n = min(self._chunk, seq.length - start)
-                logits = self._run_prefill_chunk(seq, start, c_n, self._chunk)
-                if seq.prefilled >= seq.length:
-                    self._emit_sampled(seq, logits, out)
+                with self._phase("prefill", self._m_prefill_h, uid=seq.uid,
+                                 start=start, tokens=c_n):
+                    logits = self._run_prefill_chunk(seq, start, c_n, self._chunk)
+                    if seq.prefilled >= seq.length:
+                        self._emit_sampled(seq, logits, out)
         else:
             for seq in admitted:
                 if seq.decode_entry:
@@ -1030,9 +1519,11 @@ class InferenceEngineV2:
                     # cached prefix: the suffix through the start-offset
                     # program, bucketed like a whole prompt
                     n_suf = seq.length - seq.prefilled
-                    logits = self._run_prefill_chunk(seq, seq.prefilled, n_suf,
-                                                     self._bucket(n_suf))
-                    self._emit_sampled(seq, logits, out)
+                    with self._phase("prefill", self._m_prefill_h, uid=seq.uid,
+                                     start=seq.prefilled, tokens=n_suf):
+                        logits = self._run_prefill_chunk(seq, seq.prefilled, n_suf,
+                                                         self._bucket(n_suf))
+                        self._emit_sampled(seq, logits, out)
                     continue
                 self._prefill_whole(seq, out)
         self._stats["prefill_seconds"] += time.perf_counter() - t0
@@ -1077,6 +1568,7 @@ class InferenceEngineV2:
                 if seq.uid not in self._spec_fallback_uids:
                     self._spec_fallback_uids.add(seq.uid)
                     self._dstats["spec_fallback_requests"] += 1
+                    self._m_spec_fallback.inc()
                     if not self._spec_fallback_warned:
                         self._spec_fallback_warned = True
                         logger.warning(
@@ -1091,17 +1583,22 @@ class InferenceEngineV2:
             self._multi_decode(decode_seqs, out)
         elif decode_seqs:
             self._decode_step(decode_seqs, out)
+        self._sync_cache_counters()
         return out
 
-    def _dispatch(self, key, k: int) -> np.ndarray:
-        """Run a decode-phase program over the staged inputs: one model
-        invocation, one host read; ``k`` decode bodies run."""
+    def _dispatch(self, key, k: int, phase: str, hist, **attrs) -> np.ndarray:
+        """Run a decode-phase program over the staged inputs inside its
+        telemetry ``phase``: one model invocation, one host read; ``k``
+        decode bodies run."""
         t0 = time.perf_counter()
-        res = self._programs.run(key)
+        with self._phase(phase, hist, **attrs):
+            res = self._programs.run(key)
         self._stats["decode_seconds"] += time.perf_counter() - t0
         self._stats["decode_device_steps"] += k
         self._dstats["decode_model_invocations"] += 1
         self._dstats["decode_host_syncs"] += 1
+        self._m_invocations.inc()
+        self._m_host_syncs.inc()
         return res
 
     def _decode_step(self, seqs: List[SequenceState], out: Dict[int, Dict[str, Any]]) -> None:
@@ -1109,11 +1606,16 @@ class InferenceEngineV2:
         last, pos, act, temps, sids = self._decode_inputs(seqs)
         self._programs.stage(last=last, pos=pos, table=self._page_table, act=act,
                              temps=temps, sids=sids)
-        tokens = self._dispatch("decode", 1)
+        self._decode_steps += 1
+        self._step_parts.add("decode")
+        tokens = self._dispatch("decode", 1, "decode", self._m_decode_h, batch=len(seqs))
         self._dstats["decode_tokens"] += len(seqs)
+        self._m_gen_tokens.inc(len(seqs))
+        self._m_tokens_per_dispatch.observe(len(seqs))
         for seq in seqs:
             tok = int(tokens[seq.slot])
             seq.tokens.append(tok)
+            self._note_tokens(seq)
             seq.prefilled = seq.length - 1  # the step wrote the consumed token's KV
             if seq.prefilled % self.block.page_size == 0:
                 self._register_pages(seq)  # the write completed a page
@@ -1156,6 +1658,9 @@ class InferenceEngineV2:
             k = (k + 1) // 2
         if k < self._horizon:
             self._dstats["decode_horizon_shrinks"] += 1
+            self._m_horizon_shrink.inc()
+            record_event("horizon_shrink", cat="serve", horizon=k,
+                         configured=self._horizon, **self._pool_occupancy())
         # reserve each row's headroom; a refused reservation clamps that
         # row to the pages it holds
         for seq in seqs:
@@ -1180,10 +1685,13 @@ class InferenceEngineV2:
             budg[seq.slot] = budgets[seq.uid]
         self._programs.stage(last=last, pos=pos, table=self._page_table, act=act,
                              temps=temps, sids=sids, eos=eos, budgets=budg)
+        self._decode_steps += 1
+        self._step_parts.add(("multi_decode", k))
         warm = k in self._warm_horizons
         self._warm_horizons.add(k)
         t0 = time.perf_counter()
-        res = self._dispatch(("multi", k), k)
+        res = self._dispatch(("multi", k), k, "multi_decode", self._m_decode_h,
+                             batch=len(seqs), horizon=k)
         # the program always runs k steps (finished rows run masked), so the
         # time per step is wall / k
         per_step = (time.perf_counter() - t0) / k
@@ -1191,7 +1699,10 @@ class InferenceEngineV2:
             self._tpot_ema = (per_step if self._tpot_ema is None
                               else 0.5 * self._tpot_ema + 0.5 * per_step)
         toks, produced = res[:B * k].reshape(B, k), res[B * k:]
-        self._dstats["decode_tokens"] += int(produced.sum())
+        total = int(produced.sum())
+        self._dstats["decode_tokens"] += total
+        self._m_gen_tokens.inc(total)
+        self._m_tokens_per_dispatch.observe(total)
         for seq in seqs:
             rec = out.setdefault(seq.uid, {"tokens": [], "done": False})
             reason = ""
@@ -1199,6 +1710,8 @@ class InferenceEngineV2:
                 tok = int(toks[seq.slot, j])
                 seq.tokens.append(tok)
                 rec["tokens"].append(tok)
+                # token j landed ~(j + 1) device steps into the dispatch
+                self._note_tokens(seq, t=t0 + (j + 1) * per_step)
                 reason = self._finish_reason_for(seq, tok)
                 if reason:
                     break  # the program stopped the row here
@@ -1226,31 +1739,33 @@ class InferenceEngineV2:
         W = k + 1
         B = self.block.max_seqs
         drafts: Dict[int, List[int]] = {}
-        for seq in seqs:
-            d = list(self._proposer.propose(seq.tokens, k))[:k]
-            # cap to the model window, the page table and the request's
-            # remaining budget
-            cap = min(self.max_seq_len - seq.length,
-                      len(self._page_table[seq.slot]) * ps - seq.length,
-                      seq.max_new_tokens - seq.generated - 1)
-            if len(d) > cap:
-                d = d[:max(cap, 0)]
-            if d:
-                # drafts may be rejected: reserve only truly free pages, and
-                # preempt nobody for them
-                need = (seq.length - 1 + len(d)) // ps + 1
-                extra = need - len(seq.pages)
-                while extra > 0 and extra > self.allocator.uncached_free_pages:
-                    d.pop()
+        with span("spec_propose", cat="serve", seqs=len(seqs)):
+            for seq in seqs:
+                d = list(self._proposer.propose(seq.tokens, k))[:k]
+                # cap to the model window, the page table and the request's
+                # remaining budget
+                cap = min(self.max_seq_len - seq.length,
+                          len(self._page_table[seq.slot]) * ps - seq.length,
+                          seq.max_new_tokens - seq.generated - 1)
+                if len(d) > cap:
+                    d = d[:max(cap, 0)]
+                if d:
+                    # drafts may be rejected: reserve only truly free pages,
+                    # and preempt nobody for them
                     need = (seq.length - 1 + len(d)) // ps + 1
                     extra = need - len(seq.pages)
-                if extra > 0:
-                    fresh = self.allocator.alloc(extra)
-                    base = len(seq.pages)
-                    seq.pages.extend(fresh)
-                    self._page_table[seq.slot, base:base + extra] = fresh
-            drafts[seq.uid] = d
-            self._dstats["spec_proposed_tokens"] += len(d)
+                    while extra > 0 and extra > self.allocator.uncached_free_pages:
+                        d.pop()
+                        need = (seq.length - 1 + len(d)) // ps + 1
+                        extra = need - len(seq.pages)
+                    if extra > 0:
+                        fresh = self.allocator.alloc(extra)
+                        base = len(seq.pages)
+                        seq.pages.extend(fresh)
+                        self._page_table[seq.slot, base:base + extra] = fresh
+                drafts[seq.uid] = d
+                self._dstats["spec_proposed_tokens"] += len(d)
+                self._m_spec_proposed.inc(len(d))
         if not any(drafts.values()):
             # blanks everywhere: plain decode emits the same one token per
             # row at 1/W of the verify's width
@@ -1267,7 +1782,9 @@ class InferenceEngineV2:
             act[seq.slot] = 1
             nv[seq.slot] = len(row)
         self._programs.stage(ids=ids, pos=pos, table=self._page_table, act=act, n_valid=nv)
-        greedy = self._dispatch("verify", 0).reshape(B, W)
+        self._step_parts.add(("verify", W))
+        greedy = self._dispatch("verify", 0, "spec_verify", self._m_spec_verify_h,
+                                batch=len(seqs), width=W).reshape(B, W)
         self._dstats["spec_verify_calls"] += 1
 
         rollback = 0
@@ -1275,13 +1792,19 @@ class InferenceEngineV2:
             accepted, bonus = longest_accepted(drafts[seq.uid], greedy[seq.slot])
             base_len = seq.length
             self._dstats["spec_accepted_tokens"] += len(accepted)
+            self._m_spec_accepted.inc(len(accepted))
             rec = out.setdefault(seq.uid, {"tokens": [], "done": False})
+            emitted = 0
             for tok in accepted + [bonus]:
                 seq.tokens.append(tok)
                 rec["tokens"].append(tok)
-                self._dstats["decode_tokens"] += 1
+                emitted += 1
+                self._note_tokens(seq)
                 if self._finish_reason_for(seq, tok):
                     break  # accepted tokens past a finish boundary are dropped
+            self._dstats["decode_tokens"] += emitted
+            self._m_gen_tokens.inc(emitted)
+            self._m_spec_tps.observe(emitted)
             # KV is valid through the accepted region; the bonus token is
             # the pending one, as after a plain step
             seq.prefilled = min(seq.length - 1, base_len + len(accepted))
@@ -1300,7 +1823,13 @@ class InferenceEngineV2:
                     del seq.pages[needed:]
                     self._page_table[seq.slot, needed:] = self.block.trash_page
                     rollback += len(drop)
-        self._dstats["spec_rollback_pages"] += rollback
+        if rollback:
+            self._dstats["spec_rollback_pages"] += rollback
+            self._m_spec_rollback.inc(rollback)
+            record_event("spec_rollback", cat="serve", pages=rollback, seqs=len(seqs))
+        prop = self._dstats["spec_proposed_tokens"]
+        if prop:
+            self._m_spec_rate.set(self._dstats["spec_accepted_tokens"] / prop)
         return []
 
     def _decode_inputs(self, seqs: List[SequenceState]):

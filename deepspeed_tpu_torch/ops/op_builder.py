@@ -94,8 +94,10 @@ build_log: Dict[str, Dict[str, object]] = {}
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile the named kernels (default: all) that are not built yet,
-    all nvcc processes started together.  Returns seconds per kernel
-    compiled in this call; raises KernelBuildError on any failure."""
+    all nvcc processes started together; each build reports one compile
+    (kind ``nvcc``) to the recompile sentinel's stream.  Returns seconds
+    per kernel compiled in this call; raises KernelBuildError on any
+    failure."""
     names = list(SOURCES) if names is None else list(names)
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
@@ -125,6 +127,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             os.replace(tmp, final)  # atomic: a reader never sees half a file
     if errors:
         raise KernelBuildError("\n".join(errors))
+    from ..telemetry.compile_sentinel import note_compile
+
+    for n in todo:
+        note_compile("nvcc", secs[n])
     return secs
 
 

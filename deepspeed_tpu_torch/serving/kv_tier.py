@@ -27,10 +27,12 @@ One page's path::
 
 The engine side (capture hook, drain, restore, prefetch) lives in
 ``inference/v2/engine_v2.py``.  The counters are plain attributes, read
-through ``stats()`` under the JAX tier's keys; the serving telemetry
-(ROADMAP Queue 1 'Serving telemetry') registers them later as the
+through ``stats()`` under the JAX tier's keys, and mirrored onto the
 ``deepspeed_tpu_serving_kv_tier_*`` and ``deepspeed_tpu_serving_kv_nvme_*``
-metric families.  ``spill_seconds`` and ``restore_seconds`` (wall time of
+metric families of the process registry under the reference's names,
+help strings and labels; the tier's trace events (``kv_tier_spill``,
+``kv_tier_restore``, ``kv_nvme_demote``, ``kv_nvme_promote``) have their
+one owner here.  ``spill_seconds`` and ``restore_seconds`` (wall time of
 the drains and restores) are kept beside them.
 """
 
@@ -44,6 +46,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..telemetry import get_registry
+from ..telemetry.spans import record_event
 from ..utils.logging import logger
 from .config import KVTierConfig
 from .kv_transfer import (CorruptBundleError, bundle_from_bytes, bundle_to_bytes, page_crcs,
@@ -76,6 +80,42 @@ class NVMeKVTier:
         self.evicted_pages = 0
         self.corrupt_pages = 0
         self.misses = 0
+        self._init_metrics()
+
+    def _init_metrics(self) -> None:
+        reg = get_registry()
+        self._m_spilled = reg.counter(
+            "deepspeed_tpu_serving_kv_nvme_spilled_pages_total",
+            "pages demoted from the host LRU to NVMe page files "
+            "(DSTPUKV2 records, atomic tmp+rename writes)")
+        self._m_restored = reg.counter(
+            "deepspeed_tpu_serving_kv_nvme_restored_pages_total",
+            "NVMe page files promoted back to the host tier "
+            "(CRC-verified on read, bit-identical)")
+        self._m_bytes = reg.gauge(
+            "deepspeed_tpu_serving_kv_nvme_bytes",
+            "bytes of KV page files on disk (byte-budgeted LRU)")
+        self._m_evicted = reg.counter(
+            "deepspeed_tpu_serving_kv_nvme_evicted_pages_total",
+            "page files unlinked from the NVMe LRU to hold the byte "
+            "budget (the tier's floor: past it, pages are recomputed)")
+        self._m_corrupt = reg.counter(
+            "deepspeed_tpu_serving_kv_nvme_corrupt_pages_total",
+            "page files refusing restore on CRC mismatch or torn read "
+            "(file unlinked; the walk treats the page as a miss)")
+        self._m_miss = reg.counter(
+            "deepspeed_tpu_serving_kv_nvme_misses_total",
+            "restore walks that consulted the NVMe tier for a page it "
+            "does not hold")
+        self._m_hit_rate = reg.gauge(
+            "deepspeed_tpu_serving_kv_nvme_hit_rate",
+            "cumulative NVMe promotes / (promotes + NVMe misses)")
+
+    def _publish(self) -> None:
+        self._m_bytes.set(self._bytes)
+        looked = self.restored_pages + self.misses
+        if looked:
+            self._m_hit_rate.set(self.restored_pages / looked)
 
     @staticmethod
     def _key_name(key: Any) -> str:
@@ -133,11 +173,16 @@ class NVMeKVTier:
         self._lru[key] = (path, len(blob))
         self._bytes += len(blob)
         self.spilled_pages += 1
+        self._m_spilled.inc()
         while self._bytes > self.config.nvme_bytes:
             _, (p, nb) = self._lru.popitem(last=False)
             self._unlink(p)
             self._bytes -= nb
             self.evicted_pages += 1
+            self._m_evicted.inc()
+        self._publish()
+        record_event("kv_nvme_demote", cat="serve",
+                     nvme_pages=self.nvme_pages, nvme_bytes=self._bytes)
         return True
 
     def get(self, key: Any) -> Optional[Page]:
@@ -147,6 +192,8 @@ class NVMeKVTier:
         entry = self._lru.get(key)
         if entry is None:
             self.misses += 1
+            self._m_miss.inc()
+            self._publish()
             return None
         path, nb = entry
         try:
@@ -157,13 +204,18 @@ class NVMeKVTier:
             self._lru.pop(key, None)
             self._bytes -= nb
             self.corrupt_pages += 1
+            self._m_corrupt.inc()
             self._unlink(path)
+            self._publish()
             logger.error(f"kv_nvme: REFUSING promote of page {self._key_name(key)[:16]}…: "
                          f"{e}; file dropped: the device recomputes the suffix, nothing is "
                          "lost")
             return None
         self._lru.move_to_end(key)
         self.restored_pages += 1
+        self._m_restored.inc()
+        self._publish()
+        record_event("kv_nvme_promote", cat="serve", nvme_pages=self.nvme_pages)
         return arrays
 
     def pop(self, key: Any) -> None:
@@ -172,6 +224,7 @@ class NVMeKVTier:
         if entry is not None:
             self._bytes -= entry[1]
             self._unlink(entry[0])
+            self._publish()
 
     def spill_bundle(self, bundle: Any) -> str:
         """Park a whole exported sequence on disk (``bundle_to_bytes``)."""
@@ -220,6 +273,49 @@ class HostKVTier:
         self.restore_seconds = 0.0
         self.nvme: Optional[NVMeKVTier] = (
             NVMeKVTier(self.config) if self.config.nvme_enabled else None)
+        self._init_metrics()
+
+    def _init_metrics(self) -> None:
+        reg = get_registry()
+        self._m_spilled = reg.counter(
+            "deepspeed_tpu_serving_kv_tier_spilled_pages_total",
+            "prefix-cache pages captured into the host tier on LRU "
+            "eviction (D2H commit counted, not queueing)")
+        self._m_restored = reg.counter(
+            "deepspeed_tpu_serving_kv_tier_restored_pages_total",
+            "host-tier pages restored into the device pool (H2D, "
+            "CRC-verified bit-identical)")
+        self._m_host_bytes = reg.gauge(
+            "deepspeed_tpu_serving_kv_tier_host_bytes",
+            "host RAM held by spilled KV pages (byte-budgeted LRU)")
+        self._m_hit_rate = reg.gauge(
+            "deepspeed_tpu_serving_kv_tier_hit_rate",
+            "cumulative restored pages / (restored + restore walks that "
+            "missed)")
+        self._m_restore_h = reg.histogram(
+            "deepspeed_tpu_serving_kv_tier_restore_seconds",
+            "one batched host->device restore (H2D scatter + CRC "
+            "verification) wall time")
+        self._m_host_evict = reg.counter(
+            "deepspeed_tpu_serving_kv_tier_host_evicted_pages_total",
+            "spilled pages dropped from the host LRU to hold the byte "
+            "budget")
+        self._m_corrupt = reg.counter(
+            "deepspeed_tpu_serving_kv_tier_corrupt_pages_total",
+            "host-tier pages refusing restore on CRC mismatch (entry "
+            "dropped; the device treats the page as a miss)")
+        self._m_dropped = reg.counter(
+            "deepspeed_tpu_serving_kv_tier_dropped_spills_total",
+            "evictions whose spill was refused: the bounded in-flight "
+            "queue was full, or a single page exceeded the whole host "
+            "byte budget (the device never blocks on the tier either "
+            "way)")
+
+    def _publish(self) -> None:
+        self._m_host_bytes.set(self._bytes)
+        looked = self.restored_pages + self.misses
+        if looked:
+            self._m_hit_rate.set(self.restored_pages / looked)
 
     @property
     def host_bytes(self) -> int:
@@ -248,6 +344,7 @@ class HostKVTier:
             k, (arrs, _, nb) = self._lru.popitem(last=False)
             self._bytes -= nb
             self.host_evictions += 1
+            self._m_host_evict.inc()
             if self.nvme is not None and k != keep:
                 self.nvme.put(k, arrs)
 
@@ -258,6 +355,7 @@ class HostKVTier:
         nbytes = _nbytes(arrays)
         if nbytes > self.config.host_bytes:
             self.dropped_spills += 1
+            self._m_dropped.inc()
             logger.warning(f"kv_tier: one page ({nbytes} B) exceeds the host byte budget "
                            f"({self.config.host_bytes} B); not spilled")
             return False
@@ -267,7 +365,9 @@ class HostKVTier:
         self._lru[key] = (arrays, int(crc) & 0xFFFFFFFF, nbytes)
         self._bytes += nbytes
         self.spilled_pages += 1
+        self._m_spilled.inc()
         self._evict_over_budget()
+        self._publish()
         return True
 
     def get(self, key: Any) -> Optional[Page]:
@@ -289,6 +389,7 @@ class HostKVTier:
                 self._lru[key] = (arrays, crc, nbytes)
                 self._bytes += nbytes
                 self._evict_over_budget(keep=key)
+                self._publish()
             return arrays
         arrays, crc, _nbytes_ = entry
         got = page_crcs(arrays, sorted(arrays))[0]
@@ -302,6 +403,8 @@ class HostKVTier:
         _arrays, _crc, nb = self._lru.pop(key)
         self._bytes -= nb
         self.corrupt_pages += 1
+        self._m_corrupt.inc()
+        self._publish()
         kh = key.hex()[:16] if isinstance(key, bytes) else str(key)
         logger.error(f"kv_tier: REFUSING restore of page {kh}…: CRC32 {got:#010x} != "
                      f"captured {want:#010x} (host-RAM bit flip or torn copy); entry "
@@ -311,20 +414,30 @@ class HostKVTier:
     def note_capture_dropped(self, n: int = 1) -> None:
         """The in-flight spill queue was full: ``n`` evictions not captured."""
         self.dropped_spills += n
+        self._m_dropped.inc(n)
 
     def note_spill(self, pages: int, wall_s: float) -> None:
         """One drained spill batch committed ``pages`` copies."""
         self.spill_seconds += wall_s
+        record_event("kv_tier_spill", cat="serve", pages=pages,
+                     host_pages=self.host_pages, host_bytes=self._bytes,
+                     wall_s=round(wall_s, 6))
 
     def note_restore(self, pages: int, wall_s: float) -> None:
         """One restore batch moved ``pages`` pages to the device."""
         self.restored_pages += pages
         self.hits += pages
         self.restore_seconds += wall_s
+        self._m_restored.inc(pages)
+        self._m_restore_h.observe(wall_s)
+        self._publish()
+        record_event("kv_tier_restore", cat="serve", pages=pages,
+                     host_pages=self.host_pages, wall_s=round(wall_s, 6))
 
     def note_miss(self) -> None:
         """A restore walk needed a page the tier does not hold."""
         self.misses += 1
+        self._publish()
 
     def stats(self) -> Dict[str, float]:
         """Cumulative tier counters, under the JAX tier's keys."""

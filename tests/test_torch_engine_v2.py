@@ -229,15 +229,43 @@ def test_bounded_queue_rejects(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"slo_tpot_s": 0.5}, {"timeline_every_n_steps": 5}, {"slo_ttft_s": 0.5}])
-def test_not_ported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RaggedInferenceConfig.from_dict(dict(BASE, **knob))
-    cfg = RaggedInferenceConfig(**BASE)
-    for k, v in knob.items():
-        setattr(cfg, k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngineV2(llama_model("tiny"), cfg, device="cpu")
+    {"slo_tpot_s": 1e-9}, {"timeline_every_n_steps": 5}, {"slo_ttft_s": 1e-9}])
+def test_once_refused_telemetry_knobs_serve(weights, knob):
+    """The three telemetry knobs that raised before serving telemetry was
+    ported: an engine built with each serves, on the CPU, the greedy
+    streams of the plain engine and produces what the knob asks for — a
+    host-only timeline record of a step on the cadence, or one SLO
+    violation per request (every request misses a 1 ns limit)."""
+    from deepspeed_tpu_torch.telemetry import MetricsRegistry, get_registry, set_registry
+
+    prompts = _prompts(seed=9, lengths=(7, 21, 12, 30, 5))
+    reqs = [RaggedRequest(prompt_ids=p, max_new_tokens=10) for p in prompts]
+    want = _port_engine(weights, BASE).generate_all(reqs)
+    saved = get_registry()
+    set_registry(MetricsRegistry())
+    try:
+        eng = InferenceEngineV2(llama_model("tiny", max_seq_len=256),
+                                RaggedInferenceConfig.from_dict(dict(BASE, **knob)),
+                                params=weights[2], device="cpu")
+        got = eng.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=10)
+                                for p in prompts])
+        reg = get_registry()
+    finally:
+        set_registry(saved)
+    assert got == want
+    ttft = reg.get("deepspeed_tpu_serving_slo_ttft_violations_total").value()
+    tpot = reg.get("deepspeed_tpu_serving_slo_tpot_violations_total").value()
+    if "timeline_every_n_steps" in knob:
+        rec = eng.timeline_record()
+        assert rec is not None and rec["measured"] is False and rec["step"] % 5 == 0
+        assert sum(rec["categories"].values()) == pytest.approx(rec["wall_seconds"], abs=1e-9)
+        assert reg.get("deepspeed_tpu_timeline_captures_total").value(measured="false") > 0
+        assert ttft == tpot == 0
+    else:
+        assert eng.timeline_record() is None
+        assert (ttft, tpot) == ((len(prompts), 0) if "slo_ttft_s" in knob
+                                else (0, len(prompts)))
+    eng.assert_no_leaks()
 
 
 @pytest.mark.parametrize("knob", [{"speculative": {"mode": "ngram"}}, {"decode_horizon": 4}],

@@ -355,6 +355,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1288,6 +1289,9 @@ def train_phase(fa, fadam, steps=8, gas2_steps=2):
     med = sorted(step_ms)[len(step_ms) // 2]
     tokens = TRAIN_MICRO * TRAIN_SEQ
     fpt = flops_per_token(cfg, TRAIN_SEQ)
+    # the fp32 master after the timed steps: train_telemetry_phase's
+    # telemetry-on engine must reach the same bits
+    checksums = master_checksums(engine)
     prof = profile_window(lambda: engine.train_batch(batch), 1, top_n=10,
                           groups={"flash_bwd_dq": "flash_bwd_dq_wgmma",
                                   "flash_bwd_dkv": "flash_bwd_dkv_wgmma"})
@@ -1319,6 +1323,217 @@ def train_phase(fa, fadam, steps=8, gas2_steps=2):
     del engine
     torch.cuda.empty_cache()
     print(json.dumps({"train": rec}))
+    rec["master_checksums"] = checksums
+    return rec
+
+
+def master_checksums(engine) -> dict:
+    """The fp32 master's per-leaf checksums (``telemetry.numerics.
+    leaf_checksums``: bit-exact, keyed by the JAX leaf paths)."""
+    from deepspeed_tpu_torch.telemetry.numerics import leaf_checksums
+
+    return {k: int(v) for k, v in leaf_checksums(engine.state.params).items()}
+
+
+# -- phase 8a: training telemetry ------------------------------------------------
+
+#: 8 steps at steps_per_print 4 cross two reporting boundaries; the step
+#: timeline captures the second boundary's step
+TRAIN_TELEMETRY_STEPS, TRAIN_TELEMETRY_SPP, TRAIN_TELEMETRY_CAPTURE = 8, 4, 8
+TRAIN_TELEMETRY_DIR = os.path.join(ROOT, "build", "telemetry", "train")
+
+
+def train_telemetry_block(tag="train"):
+    """bench.py's training telemetry block (``enabled``, ``numerics``) with
+    goodput, the stall watchdog, the memory ledger, the recompile sentinel,
+    the flight recorder and both file exporters under build/."""
+    d = TRAIN_TELEMETRY_DIR
+    return {"enabled": True, "numerics": {"enabled": True},
+            "goodput": {"enabled": True}, "stall_watchdog": {"enabled": True},
+            "memory": {"enabled": True}, "recompile_sentinel": {"enabled": True},
+            "flight_recorder": {"enabled": True, "path": os.path.join(d, f"{tag}_flight")},
+            "prometheus_path": os.path.join(d, f"{tag}.prom"),
+            "jsonl_path": os.path.join(d, f"{tag}.jsonl")}
+
+
+def train_telemetry_phase(fa, fadam, base):
+    """Phase 8a: train_phase's llama-1b run (seed 0, its config and seeded
+    batch) with the telemetry block on, steps_per_print
+    TRAIN_TELEMETRY_SPP, TRAIN_TELEMETRY_STEPS steps, step
+    TRAIN_TELEMETRY_CAPTURE captured by the timeline.  Checks: (1) losses
+    and the fp32 master's checksums bit-equal to phase 8's; (2) 0 host syncs
+    in the steps neither at a boundary nor captured, each step's launches of
+    A, A', A'' and C phase 8's; (3) two numerics boundaries, no anomaly,
+    16-entry grad/param/act layers, the report's loss the step's and its
+    grad norm the engine's; (4) the MFU gauge its arithmetic on the
+    engine's window; (5) goodput's buckets summing to the lifetime, step >
+    0, compile 0; (6) the memory ledger's training components the tensors'
+    bytes and bytes_in_use the allocator's; (7) the captured step's
+    categories summing to its wall, A, A', A'' L times each in attention,
+    the GEMMs in gemm; (8) no recompile, no stall, the Prometheus file
+    holding every family the engine registers; (9) the cost against phase
+    8: median wall of the plain steps and a profiled step's device time."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.models.transformer import flops_per_token
+    from deepspeed_tpu_torch.telemetry import get_registry, parse_prometheus_text
+    from deepspeed_tpu_torch.telemetry.memory import get_memory_ledger
+    from deepspeed_tpu_torch.telemetry.mfu import PEAK_BF16_FLOPS
+
+    shutil.rmtree(TRAIN_TELEMETRY_DIR, ignore_errors=True)
+    model = llama_model("1b", max_seq_len=TRAIN_SEQ)
+    cfg = model.config
+    L = cfg.n_layers
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config=train_config(steps_per_print=TRAIN_TELEMETRY_SPP,
+                                         telemetry=train_telemetry_block()), seed=0)
+    tm = engine.telemetry
+    reg = get_registry()
+    n_leaves = len(engine._master)
+    g = torch.Generator(device=DEV).manual_seed(123)
+    batch = torch.randint(0, cfg.vocab_size, (1, TRAIN_MICRO, TRAIN_SEQ), generator=g,
+                          device=DEV)
+    losses, per_step, boundary = [], [], {}
+    launches = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_adam")}
+    for step in range(1, TRAIN_TELEMETRY_STEPS + 1):
+        if step == TRAIN_TELEMETRY_CAPTURE:
+            tm.timeline.force_next()
+        zero_train_counters(fa, fadam)
+        (loss,), (ms,), syncs = timed_steps(engine, batch, 1)
+        la = read_train_counters(fa, fadam)
+        for k in launches:
+            launches[k] += la[k]
+        losses.append(float(loss))
+        kind = ("captured" if step == TRAIN_TELEMETRY_CAPTURE else
+                "boundary" if step % TRAIN_TELEMETRY_SPP == 0 else "plain")
+        per_step.append({"step": step, "kind": kind, "ms": ms, "syncs": syncs})
+        check(all(la[k] == L for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+              and la["fused_adam"] == n_leaves,
+              f"train telemetry: step {step} launches {la} != phase 8's per step")
+        if step % TRAIN_TELEMETRY_SPP == 0:
+            boundary[step] = {"report": engine.numerics_report()["last_report"],
+                              "grad_norm": engine.get_global_grad_norm(), "loss": losses[-1]}
+    # (1) telemetry changes no bit
+    check(losses == base["losses"][:TRAIN_TELEMETRY_STEPS],
+          f"train telemetry: losses {losses} != phase 8's {base['losses']}")
+    sums = master_checksums(engine)
+    check(sums == base["master_checksums"],
+          "train telemetry: the fp32 master's checksums differ from phase 8's after "
+          f"{TRAIN_TELEMETRY_STEPS} steps")
+    # (2) host syncs off the boundaries
+    plain = [p for p in per_step if p["kind"] == "plain"]
+    check(len(plain) == 6 and all(p["syncs"] == 0 for p in plain),
+          f"train telemetry: host syncs in the plain steps {[p['syncs'] for p in plain]}")
+    # (3) numerics
+    nm = engine.numerics_report()
+    check(nm["boundaries"] == 2 and not nm["anomaly_counts"],
+          f"train telemetry: {nm['boundaries']} boundaries, anomalies {nm['anomaly_counts']}")
+    for step, b in boundary.items():
+        r, lay = b["report"], b["report"].get("layers", {})
+        check(all(len(lay.get(k, [])) == L for k in ("grad_norm", "param_norm", "act_norm")),
+              f"train telemetry: step {step} layers {{k: len(v) for k, v in lay.items()}}")
+        check(r["step"] == step and r["loss"] == b["loss"]
+              and abs(r["grad_norm"] - b["grad_norm"]) <= 1e-6 * b["grad_norm"],
+              f"train telemetry: step {step} report loss {r['loss']} grad norm "
+              f"{r['grad_norm']} against {b['loss']} {b['grad_norm']}")
+    # (4) MFU on the engine's own window (the last boundary's)
+    w = engine._mfu_window
+    fpt = flops_per_token(cfg, TRAIN_SEQ)
+    want_mfu = fpt * TRAIN_MICRO * TRAIN_SEQ * w["steps"] / w["seconds"] / 989e12
+    mfu_gauge = reg.get("deepspeed_tpu_train_mfu").value()
+    check(PEAK_BF16_FLOPS["H100"] == 989e12 and "H100" in torch.cuda.get_device_name(0)
+          and abs(mfu_gauge - want_mfu) <= 1e-9 * want_mfu,
+          f"train telemetry: MFU gauge {mfu_gauge} != {want_mfu} from the window {w}")
+    # (5) goodput
+    gp = engine.goodput_summary()
+    life = gp["lifetime_seconds"]
+    check(abs(sum(gp["buckets"].values()) - life) <= 1e-6 * life
+          and gp["buckets"]["step"] > 0 and gp["buckets"]["compile"] == 0,
+          f"train telemetry: goodput {gp}")
+    # (6) the memory ledger
+    rep = get_memory_ledger().collect()
+    in_use = torch.cuda.memory_allocated()
+    comps = rep["components"]
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    st = engine.state
+    want = {"master_params": nbytes(st.params.parameters()),
+            "optimizer_state": nbytes(engine._opt_tensors()),
+            "grads": nbytes(st.grad_acc or []),
+            "train_scalars": nbytes([st.step, st.skipped_steps, st.global_grad_norm]),
+            "params": nbytes(engine._compute.parameters())}
+    got = {k: comps[k]["device"] for k in want}
+    check(got == want and rep["bytes_in_use"] == in_use,
+          f"train telemetry: ledger {got} != {want} or bytes_in_use {rep['bytes_in_use']} "
+          f"!= memory_allocated {in_use}")
+    # (7) the captured step's timeline
+    tl = engine.timeline_record()
+    check(tl is not None and tl["measured"] and tl["step"] == TRAIN_TELEMETRY_CAPTURE - 1,
+          f"train telemetry: timeline record {tl and {k: tl[k] for k in ('step', 'measured')}}")
+    cats, wall = tl["categories"], tl["wall_seconds"]
+    kern = tl.get("kernels", {})
+    check(abs(sum(cats.values()) - wall) <= 1e-6 * wall,
+          f"train telemetry: categories sum {sum(cats.values())} != wall {wall}")
+    att = {k: named_launches(kern, frag, "attention") for k, frag in
+           (("flash_fwd", "flash_fwd"), ("flash_bwd_dq", "flash_bwd_dq"),
+            ("flash_bwd_dkv", "flash_bwd_dkv"))}
+    check(all(v == L for v in att.values()), f"train telemetry: attention launches {att}")
+    gemm_like = ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")
+    misfiled = sorted({n[:80] for n, k in kern.items()
+                       if any(f in n.lower() for f in gemm_like) and k["category"] != "gemm"})
+    check(cats.get("gemm", 0) > 0 and not misfiled,
+          f"train telemetry: gemm {cats.get('gemm')} s, GEMMs filed elsewhere {misfiled}")
+    adam_rows = {n[:80]: {"category": k["category"], "launches": k["launches"]}
+                 for n, k in kern.items() if "adam" in n.lower()}
+    # (8) the sentinel, the watchdog and the exporters
+    recompiles = reg.get("deepspeed_tpu_recompiles_total").value(loop="train")
+    steady = reg.get("deepspeed_tpu_steady_recompiles_total").value(loop="train")
+    stalls = reg.get("deepspeed_tpu_stalled_steps_total").value(loop="train")
+    check(recompiles == 0 and steady == 0 and stalls == 0,
+          f"train telemetry: recompiles {recompiles} (steady {steady}), stalls {stalls}")
+    tm.export(engine.global_steps, force=True)
+    with open(tm.config.prometheus_path) as f:
+        text = f.read()
+    samples = parse_prometheus_text(text)
+    fams = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+    missing = sorted(m.name for m in reg.collect() if m.name not in fams)
+    check(samples and not missing,
+          f"train telemetry: families missing from the Prometheus file {missing}")
+    # (9) the cost against phase 8
+    plain_med = sorted(p["ms"] for p in plain)[len(plain) // 2]
+    prof = profile_window(lambda: engine.train_batch(batch), 1, top_n=10,
+                          groups={"flash_bwd_dq": "flash_bwd_dq_wgmma",
+                                  "flash_bwd_dkv": "flash_bwd_dkv_wgmma"})
+    cost = {"median_plain_step_ms": plain_med, "phase8_median_step_ms": base["median_step_ms"],
+            "wall_ratio_on_off": plain_med / base["median_step_ms"],
+            "device_ms": prof["device_busy_ms_per_step"],
+            "phase8_device_ms": base["profile"]["device_busy_ms_per_step"]}
+    if cost["device_ms"] and cost["phase8_device_ms"]:
+        cost["device_ratio_on_off"] = cost["device_ms"] / cost["phase8_device_ms"]
+    rec = {"model": "llama-1b", "layers": L, "steps": TRAIN_TELEMETRY_STEPS,
+           "steps_per_print": TRAIN_TELEMETRY_SPP, "losses_equal": True,
+           "master_checksums_equal": True, "per_step": per_step,
+           "boundary_syncs": {p["step"]: p["syncs"] for p in per_step
+                              if p["kind"] != "plain"},
+           "launches": launches, "numerics": {"boundaries": nm["boundaries"],
+                                              "grad_norm_median": nm["grad_norm_median"],
+                                              "last": boundary[TRAIN_TELEMETRY_STEPS]["report"]},
+           "mfu_gauge": mfu_gauge, "mfu_window": w, "phase8_mfu": base["mfu"],
+           "goodput": gp, "ledger": got, "bytes_in_use": rep["bytes_in_use"],
+           "timeline": {"step": tl["step"], "wall_ms": wall * 1e3,
+                        "host_gap_ms": cats.get("host_gap", 0.0) * 1e3,
+                        "host_gap_share": cats.get("host_gap", 0.0) / wall,
+                        "categories_ms": {c: v * 1e3 for c, v in cats.items() if v},
+                        "attention_launches": att, "fused_adam": adam_rows,
+                        "capture_overhead_ms": tl["capture_overhead_seconds"] * 1e3},
+           "recompiles": recompiles, "stalls": stalls, "prometheus_families": len(fams),
+           "cost": cost, "profile": prof}
+    engine.close()
+    del engine
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_telemetry": rec}))
     return rec
 
 
@@ -3657,8 +3872,8 @@ def read_moe_counters(fa, fadam, gm):
 
 def moe_train_run(fa, fadam, gm, size, layers, steps, remat, probe=None, batch_seed=123):
     """One Mixtral model through initialize -> train_batch (bf16, dropless,
-    the bench's ds-config without its telemetry block, which the port
-    raises for until ROADMAP #16): ``steps`` steps on one seeded batch.
+    the bench's ds-config without its telemetry block, which phase 8a runs
+    on llama-1b): ``steps`` steps on one seeded batch.
     ``probe(engine, batch)`` runs first, outside the counted drive.
     Counters zeroed just before the drive and read just after; every
     launch count is held to what the layers and steps give.  Returns
@@ -3706,7 +3921,8 @@ def moe_train_run(fa, fadam, gm, size, layers, steps, remat, probe=None, batch_s
            "peak_mem_gb": peak_gb, "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
            "host_syncs": syncs, "grad_norm": engine.get_global_grad_norm(),
-           "telemetry": "left out: the port raises for the bench's telemetry block (#16)"}
+           "telemetry": "left out here: phase 8a (train_telemetry_phase) runs the bench's "
+                        "telemetry block on llama-1b"}
     return engine, batch, rec, probed
 
 
@@ -3734,7 +3950,7 @@ def moe_train_phase(fa, fadam, gm):
 
     def grads_of_first_micro(remat):
         def probe(engine, batch):
-            grads, loss, _ = engine._micro_grads(batch[0])
+            grads, loss, *_ = engine._micro_grads(batch[0])
             torch.cuda.synchronize()
             if remat:  # kept on the host until the run without remat
                 first["loss"], first["grads"] = loss.cpu(), [g.cpu() for g in grads]
@@ -4405,7 +4621,8 @@ def evo_train_phase(ev):
 # -- phases 24-30: ZeRO-Offload, SuperOffload, ZenFlow, offload_param, the
 # hybrid engine, the other optimizers and cpu_checkpointing -----------------
 
-OFFLOAD_SEQ, OFFLOAD_MICRO, OFFLOAD_STEPS = 1024, 2, 4
+#: 3 steps (the script's time budget): the step time is their median
+OFFLOAD_SEQ, OFFLOAD_MICRO, OFFLOAD_STEPS = 1024, 2, 3
 #: host RAM left beside the offload state: the process (torch, the CUDA
 #: context), the pinned staging buckets (1.5 GB at llama-7b), the page cache
 OFFLOAD_HOST_MARGIN = 10 * 2**30
@@ -4573,7 +4790,9 @@ def offload_7b_phase(fa, fadam):
         check(launches[k] == L * OFFLOAD_STEPS,
               f"offload 7b: {k} launches {launches[k]} != {L} x {OFFLOAD_STEPS}")
     check(launches["fused_adam"] == 0, "offload 7b: the device Adam ran")
-    steady = list(range(1, OFFLOAD_STEPS))  # step 0 also faults the moments in
+    # the median of all three is robust to step 0, which also faults the
+    # moments in
+    steady = list(range(OFFLOAD_STEPS))
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
     parts = {k: med([spans[i][k] for i in steady]) for k in spans[0]}
     step = med([step_ms[i] for i in steady])
@@ -5504,6 +5723,9 @@ CKPT_STEPS, CKPT_7B_LAYERS, CKPT_7B_STEPS = 3, 4, 2
 #: bytes, the load's against its largest stacked [L, ...] member, and the
 #: device peak above the allocation before either
 CKPT_SAVE_RSS_SHARE, CKPT_LOAD_RSS_MEMBERS, CKPT_DEVICE_SLACK = 0.25, 2.0, 2**30
+#: (a)'s steps_per_print: a numerics boundary before the emergency save,
+#: so the sentinel's state the tag carries is not empty
+CKPT_RESILIENCE_SPP = 2
 
 
 def dir_bytes(path):
@@ -5576,14 +5798,128 @@ def resume_case(engine_a, make_engine, save_dir, steps_before, steps_after, step
     return rec, engine_b
 
 
+def span_seconds(name: str) -> float:
+    """The duration of the newest span ``name`` in the span ring."""
+    from deepspeed_tpu_torch.telemetry.spans import get_span_recorder
+
+    return [sp for sp in get_span_recorder().spans() if sp.name == name][-1].dur_us / 1e6
+
+
+def preempt_case(engine_a, make_engine, save_dir, flight_dir, step_b, after_load):
+    """Phase 37 (a) through resilience: CKPT_STEPS - 1 steps, a real
+    SIGTERM to this process, and the next step completes, saves
+    ``emergency_step<CKPT_STEPS>`` through the verified commit and raises
+    ``PreemptionInterrupt`` (exit code 75), caught at that one call; the
+    notice cleared, ``engine_a`` takes CKPT_STEPS more steps (the unbroken
+    run).  A fresh engine auto-resumes at construction (step CKPT_STEPS,
+    one restore counted, goodput's restart bucket > 0, the numerics
+    sentinel's state back), ``after_load`` runs on it, and it takes the
+    same CKPT_STEPS steps: losses and the fp32 master bit-equal.  Save and
+    load seconds are the ``checkpoint_save`` / ``checkpoint_load`` spans',
+    with their GB/s, the verify seconds and the host and device rises."""
+    from deepspeed_tpu_torch.resilience import (EXIT_RESUMABLE, PreemptionInterrupt, commit,
+                                                exit_code_for_exception)
+    from deepspeed_tpu_torch.resilience import metrics as rmetrics
+
+    for _ in range(CKPT_STEPS - 1):
+        engine_a.train_batch()
+    watcher = engine_a.resilience.watcher
+    check(signal.getsignal(signal.SIGTERM) == watcher._on_signal,
+          "checkpoint 1b: the preemption watcher's SIGTERM handler is not installed")
+    t_signal = time.perf_counter()
+    os.kill(os.getpid(), signal.SIGTERM)
+    check(watcher.requested == "signal:SIGTERM",
+          f"checkpoint 1b: SIGTERM gave the request {watcher.requested!r}")
+    saves = []
+    real_save = engine_a.save_checkpoint
+
+    def measured_save(*args, **kw):  # the emergency save, measured as any save
+        out, r = timed_checkpoint(engine_a, "save", lambda: real_save(*args, **kw))
+        saves.append((out, r))
+        return out
+
+    engine_a.save_checkpoint = measured_save
+    code = None
+    try:
+        engine_a.train_batch()
+    except PreemptionInterrupt as e:
+        code = exit_code_for_exception(e)
+    finally:
+        del engine_a.save_checkpoint
+    preempt_s = time.perf_counter() - t_signal
+    tag = f"emergency_step{CKPT_STEPS}"
+    check(code == EXIT_RESUMABLE and len(saves) == 1 and engine_a.global_steps == CKPT_STEPS,
+          f"checkpoint 1b: exit code {code}, {len(saves)} saves, step {engine_a.global_steps}")
+    path, rec = saves[0]
+    check(os.path.basename(path) == tag and commit.verify_tag(save_dir, tag)["ok"],
+          f"checkpoint 1b: the emergency tag {path} does not verify")
+    notes = [json.loads(line) for f in sorted(os.listdir(flight_dir))
+             for line in open(os.path.join(flight_dir, f))]
+    check(any(n.get("kind") == "log" and n.get("name") == "preemption_exit" for n in notes),
+          "checkpoint 1b: no preemption_exit note in the flight dump")
+    gb = dir_bytes(path) / 1e9
+    rec.update(path=path, tag=tag, exit_code=code, ckpt_gb=gb,
+               save_s=span_seconds("checkpoint_save"), signal_to_exit_s=preempt_s)
+    rec["save_gbps"] = gb / rec["save_s"]
+    numerics_saved = engine_a._numerics.state_dict()
+    watcher.clear()
+    la = [float(engine_a.train_batch()) for _ in range(CKPT_STEPS)]
+    restores = rmetrics.restores_total().total()
+    engine_cls = type(engine_a)
+    real_load, real_resolve = engine_cls.load_checkpoint, commit.resolve_tag
+    loads, verify = [], []
+
+    def measured_load(self, *args, **kw):
+        out, r = timed_checkpoint(self, "load", lambda: real_load(self, *args, **kw))
+        loads.append(r)
+        return out
+
+    def timed_resolve(*args, **kw):
+        t = time.perf_counter()
+        out = real_resolve(*args, **kw)
+        verify.append(time.perf_counter() - t)
+        return out
+
+    engine_cls.load_checkpoint, commit.resolve_tag = measured_load, timed_resolve
+    try:
+        engine_b = make_engine()[0]
+    finally:
+        engine_cls.load_checkpoint, commit.resolve_tag = real_load, real_resolve
+    gp = engine_b.goodput_summary()
+    check(engine_b.global_steps == CKPT_STEPS and len(loads) == 1
+          and rmetrics.restores_total().total() == restores + 1
+          and gp["buckets"]["restart"] > 0,
+          f"checkpoint 1b: auto-resume at step {engine_b.global_steps}, {len(loads)} loads, "
+          f"restores {rmetrics.restores_total().total() - restores}, restart "
+          f"{gp['buckets']['restart']} s")
+    check(engine_b._numerics.state_dict() == numerics_saved,
+          "checkpoint 1b: the numerics sentinel's state did not come back with the tag")
+    load_s = span_seconds("checkpoint_load")
+    rec.update(loads[0], load_s=load_s, verify_s=verify[0], load_read_s=load_s - verify[0],
+               load_gbps=gb / load_s, load_read_gbps=gb / (load_s - verify[0]),
+               restart_s=gp["buckets"]["restart"], numerics_state_equal=True)
+    rec["after_load"] = after_load(engine_b, path)
+    lb = [float(step_b(engine_b, CKPT_STEPS + i)) for i in range(CKPT_STEPS)]
+    pa, pb = engine_a.get_params(), engine_b.get_params()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(pa.parameters(), pb.parameters()))
+    rec.update(losses_unbroken=la, losses_resumed=lb, master_bit_equal=same, engine_b=engine_b)
+    check(la == lb, f"checkpoint 1b: resumed losses {lb} != unbroken {la}")
+    check(same, "checkpoint 1b: the resumed fp32 master differs from the unbroken run's")
+    return rec
+
+
 def checkpoint_phase(fa, fadam):
     """Phase 37.  (a) llama-1b at full width and depth (the train phase's
-    config) fed from a Megatron indexed dataset of seeded uint16 tokens
-    through ``initialize(training_data=...)`` -> ``train_batch()``:
-    CKPT_STEPS steps, save, CKPT_STEPS more; a fresh engine loads the tag
-    and takes the same steps on the same batches: losses and fp32 master
-    bit-equal.  Save and load seconds and GB/s, the verify seconds, the
-    host resident-set and device-peak rises.  (b) llama-7b at full width
+    config with the ``resilience`` block and phase 8a's telemetry block)
+    fed from a Megatron indexed dataset of seeded uint16 tokens through
+    ``initialize(training_data=...)`` -> ``train_batch()``: a SIGTERM
+    after CKPT_STEPS - 1 steps, an emergency save at the end of the next
+    step and exit code 75, CKPT_STEPS more steps; a fresh engine
+    auto-resumes from the tag and takes the same steps on the same
+    batches: losses and fp32 master bit-equal (``preempt_case``).  Save and
+    load seconds and GB/s, the verify seconds, the host resident-set and
+    device-peak rises.  (b) llama-7b at full width
     under offload_optimizer cpu, CKPT_7B_LAYERS of 32 layers, the same with
     CKPT_7B_STEPS steps: no state staged on the card (device peak within
     CKPT_DEVICE_SLACK), the host resident set within its limits.  (c) the
@@ -5615,11 +5951,21 @@ def checkpoint_phase(fa, fadam):
         b.end_document()
     data = MMapIndexedDataset(b.finalize())
 
-    def make_1b():
-        return deepspeed_tpu_torch.initialize(model=model, config=train_config(), seed=0,
-                                              training_data=data)
+    save_dir = os.path.join(CKPT_DIR, "llama1b")
+    flight_dir = train_telemetry_block("ckpt")["flight_recorder"]["path"]
+    shutil.rmtree(flight_dir, ignore_errors=True)
 
+    def make_1b():
+        return deepspeed_tpu_torch.initialize(
+            model=model, config=train_config(
+                steps_per_print=CKPT_RESILIENCE_SPP, telemetry=train_telemetry_block("ckpt"),
+                resilience={"enabled": True, "save_dir": save_dir, "auto_resume": True,
+                            "emergency_save": True, "keep_n": 2, "watch_signals": True}),
+            seed=0, training_data=data)
+
+    handlers = signal.getsignal(signal.SIGTERM)
     engine_a, _, loader_a, _ = make_1b()
+    check(engine_a.global_steps == 0, "checkpoint 1b: a fresh run resumed from an old tag")
     check(loader_a is engine_a.training_dataloader and len(loader_a) == 64 // TRAIN_MICRO,
           f"checkpoint 1b: the dataloader has {len(loader_a)} batches")
     first = next(iter(loader_a))
@@ -5650,8 +5996,8 @@ def checkpoint_phase(fa, fadam):
         got = served.generate(prompts, max_new_tokens=16)
         del served
         # the live fp32 master itself: init_inference copies it to bf16 and
-        # leaves it as it is; the fused-Adam steps resume_case takes next
-        # must give the unbroken run's bits
+        # leaves it as it is; the fused-Adam steps the resumed run takes
+        # next must give the unbroken run's bits
         master = engine.get_params()
         before = [(p.data_ptr(), p.dtype) for p in master.parameters()]
         live = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"},
@@ -5671,10 +6017,14 @@ def checkpoint_phase(fa, fadam):
         return out
 
     zero_train_counters(fa, fadam)
-    a, engine_b = resume_case(
-        engine_a, lambda: make_1b()[0], os.path.join(CKPT_DIR, "llama1b"), CKPT_STEPS,
-        CKPT_STEPS, lambda e, i: e.train_batch(), step_b, "checkpoint 1b",
-        after_load=export_and_serve)
+    a = preempt_case(engine_a, make_1b, save_dir, flight_dir, step_b, export_and_serve)
+    engine_b = a.pop("engine_b")
+    # close in reverse order of construction: each watcher restores the
+    # handler it replaced
+    engine_b.close()
+    engine_a.close()
+    check(signal.getsignal(signal.SIGTERM) == handlers,
+          "checkpoint 1b: closing the engines left another SIGTERM handler installed")
     launches = read_train_counters(fa, fadam)
     n_steps = 3 * CKPT_STEPS
     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -5832,6 +6182,7 @@ def main() -> int:
     prefix = phase(prefix_phase, fa, pa)
     tele = phase(telemetry_phase, fa, pa)
     train = phase(train_phase, fa, fadam)
+    ttel = phase(train_telemetry_phase, fa, fadam, train)
     tpar = phase(train_parity_phase)
     qeng = phase(quant_engine_phase, fa, pa, wq)
     v1 = phase(inference_v1_phase, qz)
@@ -5905,7 +6256,7 @@ def main() -> int:
     ckpt_l = {k: ckpt["llama1b"]["launches"][k] + ckpt["llama7b_offload"]["launches"][k]
               for k in train_l}
     for k in train_l:
-        train_l[k] += lm_train_l[k] + ckpt_l[k]
+        train_l[k] += lm_train_l[k] + ckpt_l[k] + ttel["launches"][k]
     bwd_shape = "B=4 S=1024 NH=32 KVH=8 D=64 bf16 causal"
     main_sparse = sparse[0]
     main_evo = evo[0]
@@ -5926,7 +6277,8 @@ def main() -> int:
                               "families_serving": fams_l["flash"],
                               "gpt2_training": gpt2["launches"]["flash_fwd"],
                               "bert_training": bert["launches"]["flash_fwd"],
-                              "checkpoint_training": ckpt_l["flash_fwd"]},
+                              "checkpoint_training": ckpt_l["flash_fwd"],
+                              "train_telemetry": ttel["launches"]["flash_fwd"]},
          "max_abs_err": max(r["max_abs_err"] for r in flash), "checked": True,
          "ms": main_flash["ms"], "kernel_ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"], "bound_ms": main_flash["bound_ms"],
@@ -5942,7 +6294,8 @@ def main() -> int:
          "launches_by_path": {"offload_training_7b": off7["launches"]["flash_bwd_dq"],
                               "gpt2_training": gpt2["launches"]["flash_bwd_dq"],
                               "bert_training": bert["launches"]["flash_bwd_dq"],
-                              "checkpoint_training": ckpt_l["flash_bwd_dq"]},
+                              "checkpoint_training": ckpt_l["flash_bwd_dq"],
+                              "train_telemetry": ttel["launches"]["flash_bwd_dq"]},
          "max_abs_err": max(r["dq_max_abs_err"] for r in bwd if "dq_max_abs_err" in r),
          "checked": True,
          "ms": main_bwd["dq_ms"], "plain_ms": main_bwd["plain_ms"],
@@ -5959,7 +6312,8 @@ def main() -> int:
          "launches_by_path": {"offload_training_7b": off7["launches"]["flash_bwd_dkv"],
                               "gpt2_training": gpt2["launches"]["flash_bwd_dkv"],
                               "bert_training": bert["launches"]["flash_bwd_dkv"],
-                              "checkpoint_training": ckpt_l["flash_bwd_dkv"]},
+                              "checkpoint_training": ckpt_l["flash_bwd_dkv"],
+                              "train_telemetry": ttel["launches"]["flash_bwd_dkv"]},
          "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"]) for r in bwd
                            if "dk_max_abs_err" in r),
          "checked": True, "ms": main_bwd["dkv_ms"], "plain_ms": main_bwd["plain_ms"],
@@ -6004,7 +6358,8 @@ def main() -> int:
                               "gpt2_training": gpt2["launches"]["fused_adam"],
                               "bert_training": lm_train_l["fused_adam"]
                               - gpt2["launches"]["fused_adam"],
-                              "checkpoint_training": ckpt_l["fused_adam"]},
+                              "checkpoint_training": ckpt_l["fused_adam"],
+                              "train_telemetry": ttel["launches"]["fused_adam"]},
          "max_abs_err": max(r["max_abs_err"] for r in adam), "checked": True,
          "ms": main_adam["ms"], "plain_ms": main_adam["plain_ms"],
          "bound_ms": main_adam["bound_ms"], "bound_by": main_adam["bound_by"],

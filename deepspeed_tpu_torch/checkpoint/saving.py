@@ -602,6 +602,21 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         scalars = host.checkpoint_scalars()
         members += host_members(engine, host.checkpoint_state(), scalars)
     commit_meta = {"global_steps": engine.global_steps, "world": 1, "mesh": {"data": 1}}
+    try:
+        # numerics observatory: if the anomaly sentinel fired since the
+        # last save, stamp the incident into this tag's commit manifest —
+        # resume-time triage (``manifest_meta``, the load-time warning)
+        # sees WHAT fired and WHICH layer.  Consume-once: only the first
+        # checkpoint after the incident carries it.
+        from ..telemetry.numerics import pending_incident_meta
+
+        inc = pending_incident_meta()
+        if inc is not None:
+            commit_meta["numerics_incident"] = inc
+    # dstpu-lint: allow[swallow] annotation only — a broken sentinel must
+    # never block the checkpoint itself
+    except Exception:
+        pass
     os.makedirs(save_dir, exist_ok=True)
     with checkpoint_commit(save_dir, tag, meta=commit_meta, keep_n=keep_n) as staging:
         # the manifest is finalized after this block: the CRCs the write

@@ -119,6 +119,11 @@ class TransformerConfig:
     moe_use_residual: bool = False
     #: tiled logits + loss: sequence chunk size (0 = off)
     loss_chunk: int = 0
+    #: numerics observatory (set by the training engine around the loss
+    #: of a boundary step): the forward takes a [L, 3] (l2_norm, max_abs,
+    #: nonfinite) row per block output and causal_lm_loss returns
+    #: (loss, act) (telemetry/numerics.py)
+    numerics_act_stats: bool = False
     #: weight-only quantized inference: big matmul weights stored as int8 /
     #: int4 codes + fp32 group scales; 0 = off.  Set by InferenceEngineV2 on
     #: ITS OWN config copy, never on a shared one.
@@ -561,15 +566,21 @@ def _block(cfg: TransformerConfig, x: torch.Tensor, layer: ParamTree,
 
 def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
-                        token_type_ids: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        token_type_ids: Optional[torch.Tensor] = None,
+                        with_act_stats: bool = False) -> Tuple[torch.Tensor, ...]:
     """[B, S] int tokens -> ([B, S, H] final hidden states, aux loss summed
     over the layers (0 for dense models)).  The JAX ``lax.scan`` over the
     stacked layers is a loop over the per-layer trees.  MoE layers run as
     JAX's training block does (``training=True``: capacity from
     ``moe_capacity_factor``).  A model with a segment table adds
     ``embed.type[token_type_ids]`` (zeros when None); a post-norm model
-    returns its last block's output, which already ends in a norm."""
+    returns its last block's output, which already ends in a norm.
+
+    ``with_act_stats`` (numerics observatory): a third element, the
+    ``[L, 3]`` activation-health rows (``telemetry.numerics.
+    activation_stats``) of each block's output, taken OUTSIDE the block
+    call (so a remat'd block's recompute in the backward takes none) and
+    read without an autograd edge (the forward's bits do not change)."""
     if cfg.dropout:
         raise ValueError("dropout: the model core applies none (the JAX package's field is "
                          "unused too); leave it at 0.0")
@@ -590,16 +601,23 @@ def transformer_forward(cfg: TransformerConfig, params: ParamTree, input_ids: to
         from ..runtime.activation_checkpointing.checkpointing import checkpoint_wrapper
 
         block = checkpoint_wrapper(_block, policy=cfg.remat_policy)
+    if with_act_stats:
+        # lazy: telemetry stays an optional dependency of the model code
+        from ..telemetry.numerics import activation_stats as _act_row
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    act_rows = []
     for layer in params.layers:
         x, a = block(cfg, x, layer, positions, mask, attn_fn)
         if a is not None:
             aux = aux + a
+        if with_act_stats:
+            act_rows.append(_act_row(x))
+    act = torch.stack(act_rows) if with_act_stats else None
     if cfg.post_norm:
-        return x, aux
+        return (x, aux, act) if with_act_stats else (x, aux)
     fn = params.final_norm
     hidden = _norm(x, fn.scale, fn.get("bias"), cfg.norm, cfg.norm_eps)
-    return hidden, aux
+    return (hidden, aux, act) if with_act_stats else (hidden, aux)
 
 
 def nll_pick(logp: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -636,21 +654,32 @@ def causal_lm_loss(cfg: TransformerConfig, params: ParamTree, batch: Any,
                    rng: Any = None) -> torch.Tensor:
     """Next-token cross entropy plus the MoE layers' summed aux loss (0 for
     a dense model).  batch: dict(input_ids, optional labels, optional
-    attention_mask) or a raw [B, S] token tensor."""
+    attention_mask) or a raw [B, S] token tensor.
+
+    With ``cfg.numerics_act_stats`` set (by the training engine, around a
+    boundary step's loss), returns ``(loss, act)`` where ``act`` is the
+    forward's ``[L, 3]`` per-layer activation-health rows."""
     if isinstance(batch, dict):
         ids = batch["input_ids"]
         labels = batch.get("labels", ids)
         mask = batch.get("attention_mask")
     else:
         ids, labels, mask = batch, batch, None
-    hidden, aux = transformer_forward(cfg, params, ids, mask)
+    with_act = bool(cfg.numerics_act_stats)
+    fwd = transformer_forward(cfg, params, ids, mask, with_act_stats=with_act)
+    hidden, aux = fwd[0], fwd[1]
+    act = fwd[2] if with_act else None
+
+    def _out(loss):
+        return (loss, act) if with_act else loss
+
     hidden = hidden[:, :-1]
     targets = labels[:, 1:]
     m = mask[:, 1:].float() if mask is not None else None
     if cfg.loss_chunk and hidden.shape[1] > cfg.loss_chunk:
         if hidden.shape[1] % cfg.loss_chunk == 0:
             nll_sum, cnt = _tiled_nll(cfg, params, hidden, targets, m, cfg.loss_chunk)
-            return nll_sum / torch.clamp_min(cnt, 1.0) + aux
+            return _out(nll_sum / torch.clamp_min(cnt, 1.0) + aux)
         from ..utils.logging import warning_once
 
         warning_once(f"loss_chunk={cfg.loss_chunk} does not divide sequence "
@@ -659,8 +688,8 @@ def causal_lm_loss(cfg: TransformerConfig, params: ParamTree, batch: Any,
     logp = torch.log_softmax(logits_fn(cfg, params, hidden).float(), dim=-1)
     nll = nll_pick(logp, targets)
     if m is not None:
-        return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0) + aux
-    return nll.mean() + aux
+        return _out((nll * m).sum() / torch.clamp_min(m.sum(), 1.0) + aux)
+    return _out(nll.mean() + aux)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,7 @@
-"""Fault injection for the checkpoint path — the port's copy of
+"""Fault-injection (chaos) harness — the port's copy of
 ``deepspeed_tpu/resilience/chaos.py``: the I/O fault hook the commit
-protocol calls and the on-disk corrupters.  The preemption notices and
-the serving engines' gray-failure injectors come with ROADMAP Queue 1 #16
-and #15.
+protocol calls, the kill point and the simulated preemption notice, the
+gray-failure injectors, and the on-disk corrupters.
 
 Injection points: the commit protocol calls ``io_fault_point(path, op)``
 around manifest/pointer writes, checksum reads and the commit rename;
@@ -62,6 +61,114 @@ class FlakyIO:
             self.remaining -= 1
             raise OSError(f"chaos: injected {op} failure on {path} "
                           f"({self.remaining} more to come)")
+
+
+# ------------------------------------------------------------ kill-at-step
+KILL_EXIT_CODE = 137  # what a SIGKILLed process reports
+
+
+def kill_point(step: int, kill_at_step: Optional[int],
+               exit_code: int = KILL_EXIT_CODE) -> None:
+    """Hard-kill the process (``os._exit`` — no atexit, no flushes, the
+    honest simulation of a SIGKILL) when ``step`` reaches
+    ``kill_at_step``.  No-op when ``kill_at_step`` is None."""
+    if kill_at_step is not None and step == kill_at_step:
+        os._exit(exit_code)
+
+
+def simulate_preemption(target, reason: str = "chaos:simulated-maintenance") -> None:
+    """Deliver a maintenance notice to a ``PreemptionWatcher`` (or
+    anything exposing ``.watcher`` or ``.notify``)."""
+    watcher = getattr(target, "watcher", target)
+    watcher.notify(reason)
+
+
+# --------------------------------------------------- gray-failure injectors
+# The failure modes liveness checks never see: a replica that is SLOW
+# (not dead), a step that THROWS (not crashes), a KV pool that SHRINKS
+# (not OOMs).  All are deterministic/seeded so any failing drill replays
+# from its logged seed.  SlowReplica/FlakyStep are hooks a serving
+# replica calls at the top of every step (the fleet that installs them
+# is not ported yet); PoolSqueeze works on the port's ``BlockAllocator``.
+class ChaosStepError(RuntimeError):
+    """The injected step exception ``FlakyStep`` raises."""
+
+
+class SlowReplica:
+    """Per-step latency injection: every step of the afflicted replica
+    sleeps ``delay_s`` (+ seeded jitter up to ``jitter_s``) before
+    running — the gray-failure profile of a replica on a sick host or a
+    congested interconnect.  Deterministic for a fixed seed."""
+
+    def __init__(self, delay_s: float = 0.05, jitter_s: float = 0.0,
+                 seed: int = 0):
+        self.delay_s = float(delay_s)
+        self.jitter_s = float(jitter_s)
+        self._rng = random.Random(seed)
+        self.calls = 0
+
+    def __call__(self, replica=None) -> None:
+        self.calls += 1
+        time.sleep(self.delay_s + (self._rng.random() * self.jitter_s
+                                   if self.jitter_s else 0.0))
+
+
+class FlakyStep:
+    """Seeded step-exception injection: raise :class:`ChaosStepError`
+    for the first ``fail_steps`` steps (deterministic count — the
+    consecutive-error breaker profile), or with probability ``p`` per
+    step under a seeded RNG (the intermittent-fault profile).  The hook
+    fires BEFORE the engine step, so engine state is never torn."""
+
+    def __init__(self, fail_steps: int = 3, p: float = 0.0, seed: int = 0):
+        self.remaining = int(fail_steps)
+        self.p = float(p)
+        self._rng = random.Random(seed)
+        self.calls = 0
+        self.raised = 0
+
+    def __call__(self, replica=None) -> None:
+        self.calls += 1
+        fail = False
+        if self.remaining > 0:
+            self.remaining -= 1
+            fail = True
+        elif self.p and self._rng.random() < self.p:
+            fail = True
+        if fail:
+            self.raised += 1
+            raise ChaosStepError(
+                f"chaos: injected step failure #{self.raised}"
+                + (f" ({self.remaining} deterministic left)"
+                   if self.remaining else ""))
+
+
+class PoolSqueeze:
+    """Shrink an engine's allocatable KV pool by holding ``pages``
+    truly-free pages out of circulation (never evicting prefix-cache
+    LRU content) — the slow-leak / noisy-neighbor memory profile that
+    turns admission into preemption storms.  Context manager; or call
+    ``release()`` explicitly."""
+
+    def __init__(self, engine, pages: int):
+        take = min(int(pages), engine.allocator.uncached_free_pages)
+        self.engine = engine
+        self.held = engine.allocator.alloc(take) if take > 0 else []
+
+    @property
+    def pages(self) -> int:
+        return len(self.held)
+
+    def release(self) -> None:
+        if self.held:
+            self.engine.allocator.free(self.held)
+            self.held = []
+
+    def __enter__(self) -> "PoolSqueeze":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
 
 
 # ------------------------------------------------------- on-disk corrupters

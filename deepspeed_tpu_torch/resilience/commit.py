@@ -30,9 +30,8 @@ still load, flagged as unverified.
 
 ``io_retry`` wraps checkpoint I/O in bounded exponential backoff for
 transient filesystem errors; ``chaos.io_fault_point`` hooks let the
-fault-injection harness exercise every path deterministically.  (The
-JAX module also notes a corrupt tag in the flight recorder; that waits
-for ROADMAP Queue 1 #16.)
+fault-injection harness exercise every path deterministically.  A
+corrupt tag is also noted in the flight recorder, with a dump.
 """
 
 from __future__ import annotations
@@ -421,6 +420,18 @@ def _record_corruption(save_dir: str, tag: str, problems: list) -> None:
     metrics.corrupt_checkpoints_total().inc()
     logger.error(f"resilience: checkpoint {save_dir}/{tag} FAILED "
                  f"verification: {problems}")
+    try:
+        from ..telemetry.flight import get_flight_recorder
+
+        fr = get_flight_recorder()
+        if fr is not None:
+            fr.note("corrupt_checkpoint", dir=save_dir, tag=tag,
+                    problems=[str(p) for p in problems])
+            fr.dump(reason=f"corrupt_checkpoint:{tag}")
+    # dstpu-lint: allow[swallow] incident logging must never break the
+    # corrupt-tag fallback path it is reporting on
+    except Exception:
+        pass
 
 
 def resolve_tag(load_dir: str, tag: Optional[str] = None) -> Tuple[Optional[str], dict]:

@@ -11,8 +11,12 @@ partitioning is the identity, so every stage is the math of stage 0),
 ``data_types.grad_accum_dtype``, ``seed``, ``steps_per_print``, the
 ``checkpoint`` block (which checkpoint engine ``make_checkpoint_engine``
 builds) with the ``aio`` block (the fast engine's threads and block size),
-and the ``activation_checkpointing`` block, which configures
-``runtime/activation_checkpointing/checkpointing.py`` when present.
+the ``activation_checkpointing`` block, which configures
+``runtime/activation_checkpointing/checkpointing.py`` when present, the
+``telemetry`` block (``telemetry.Telemetry`` on the training engine), the
+``resilience`` block (``resilience.ResilienceManager``), and the
+``sanity_checks``, ``wall_clock_breakdown`` and ``memory_breakdown`` flags
+(the last parsed and read by nothing, as in the JAX package).
 
 A block that turns on something the port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it; a block
@@ -37,15 +41,12 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 #: ROADMAP items named by the NotImplementedError of each unported block
 ROADMAP_ZERO = "ROADMAP Queue 1 #8 'ZeRO 1/2/3 across ranks'"
 ROADMAP_PIPE = "ROADMAP Queue 1 #12 'Pipeline'"
-ROADMAP_TELEMETRY = "ROADMAP Queue 1 #16 'Training telemetry and resilience'"
 ROADMAP_COMM = "ROADMAP Queue 1 #9 'Communication and ZeRO++'"
 ROADMAP_REST = "ROADMAP Queue 1 #17 'Remaining modules'"
 ROADMAP_SERVING = "ROADMAP Queue 1 #15 'Serving fleet'"
 
 #: top-level blocks whose "enabled" flag turns on an unported feature
 _ENABLED_BLOCKS = {
-    "telemetry": ROADMAP_TELEMETRY,
-    "resilience": ROADMAP_TELEMETRY,
     "tensorboard": ROADMAP_REST,
     "wandb": ROADMAP_REST,
     "comet": ROADMAP_REST,
@@ -56,8 +57,7 @@ _ENABLED_BLOCKS = {
     "elasticity": ROADMAP_REST,
 }
 #: top-level flags that are off unless true
-_TRUE_FLAGS = {"sanity_checks": ROADMAP_TELEMETRY, "wall_clock_breakdown": ROADMAP_TELEMETRY,
-               "prescale_gradients": ROADMAP_COMM, "memory_breakdown": ROADMAP_TELEMETRY}
+_TRUE_FLAGS = {"prescale_gradients": ROADMAP_COMM}
 #: zero_optimization keys that switch on a mechanism beyond stage 0/1
 _ZERO_ON = ("zero_quantized_weights", "zero_quantized_gradients",
             "zero_hierarchical_grad_reduce", "overlap_grad_reduce", "zero3_param_prefetch",
@@ -215,6 +215,255 @@ class CheckpointConfig(ConfigModel):
 
 
 @dataclasses.dataclass
+class StallWatchdogConfig(ConfigModel):
+    """stall_watchdog sub-block of ``telemetry``: flag steps exceeding
+    ``multiple`` x the rolling median over the last ``window`` steps."""
+
+    enabled: bool = True
+    multiple: float = 3.0
+    window: int = 32
+
+    def validate(self) -> None:
+        if self.multiple <= 1.0:
+            raise ValueError(f"stall_watchdog.multiple must be > 1, "
+                             f"got {self.multiple}")
+        if self.window < 2:
+            raise ValueError("stall_watchdog.window must be >= 2")
+
+
+@dataclasses.dataclass
+class SpanTraceConfig(ConfigModel):
+    """``spans`` sub-block of ``telemetry``: the host-side span ring
+    (telemetry/spans.py) feeding Chrome-trace dumps and the flight
+    recorder.  ``profiler_annotations`` nests each span in a
+    ``torch.profiler.record_function`` range so profiler captures carry
+    the same names."""
+
+    enabled: bool = True
+    ring_size: int = 4096
+    profiler_annotations: bool = True
+
+    def validate(self) -> None:
+        if self.ring_size < 16:
+            raise ValueError("telemetry.spans.ring_size must be >= 16")
+
+
+@dataclasses.dataclass
+class FlightRecorderConfig(ConfigModel):
+    """``flight_recorder`` sub-block of ``telemetry``: dump the span
+    ring + recent log events + a registry snapshot to a timestamped
+    JSONL on exception-in-step, watchdog trip, or demand (``path`` is
+    the dump DIRECTORY, default ./flight_recorder)."""
+
+    enabled: bool = True
+    path: str = ""
+    events: int = 256
+
+    def validate(self) -> None:
+        if self.events < 16:
+            raise ValueError("telemetry.flight_recorder.events must be >= 16")
+
+
+@dataclasses.dataclass
+class RecompileSentinelConfig(ConfigModel):
+    """``recompile_sentinel`` sub-block of ``telemetry``: attribute the
+    process's compiles (``nvcc`` builds, CUDA-graph captures;
+    telemetry/compile_sentinel.py) to steps and warn when a step
+    compiles after ``steady_after`` steady steps with unchanged arg
+    shapes."""
+
+    enabled: bool = True
+    steady_after: int = 3
+
+    def validate(self) -> None:
+        if self.steady_after < 0:
+            raise ValueError(
+                "telemetry.recompile_sentinel.steady_after must be >= 0")
+
+
+@dataclasses.dataclass
+class MemoryLedgerConfig(ConfigModel):
+    """``memory`` sub-block of ``telemetry``: the device memory ledger
+    (telemetry/memory.py).  When enabled the engines attribute device
+    bytes to named components (params / master params / grads /
+    optimizer state / KV pool), track per-phase peak watermarks off the
+    span enters/exits, and upgrade out-of-memory step failures to OOM
+    incident reports through the flight recorder.
+    ``top_buffers`` bounds the live-buffer table in an incident."""
+
+    enabled: bool = True
+    top_buffers: int = 10
+
+    def validate(self) -> None:
+        if self.top_buffers < 1:
+            raise ValueError("telemetry.memory.top_buffers must be >= 1")
+
+
+@dataclasses.dataclass
+class TimelineConfig(ConfigModel):
+    """``timeline`` sub-block of ``telemetry``: measured step-time
+    attribution (telemetry/timeline.py).  Every ``every_n_steps`` the
+    engine captures a ``torch.profiler`` trace of ONE step and publishes
+    the ``deepspeed_tpu_timeline_*`` decomposition (0 = no periodic
+    captures; one-shot captures via ``engine.capture_timeline()`` /
+    bench stamps still work).  ``artifact_dir`` receives one merged
+    host-span + device-op Chrome-trace file per capture ("" = no
+    artifact files)."""
+
+    enabled: bool = True
+    every_n_steps: int = 0
+    artifact_dir: str = ""
+
+    def validate(self) -> None:
+        if self.every_n_steps < 0:
+            raise ValueError(
+                "telemetry.timeline.every_n_steps must be >= 0")
+
+
+@dataclasses.dataclass
+class GoodputConfig(ConfigModel):
+    """``goodput`` sub-block of ``telemetry``: the run-level goodput /
+    badput ledger (telemetry/goodput.py).  ``run_file`` is the
+    cross-attempt union ledger for preempted runs; when left "" on a
+    resilient engine it defaults into the resilience ``save_dir`` so a
+    relaunched attempt attributes recomputed steps to restart badput."""
+
+    enabled: bool = True
+    run_file: str = ""
+
+
+@dataclasses.dataclass
+class NumericsConfig(ConfigModel):
+    """``numerics`` sub-block of ``telemetry``: the numerics observatory
+    (telemetry/numerics.py).  When enabled the step that ends at a
+    ``steps_per_print`` boundary computes per-layer / per-leaf health
+    stats (grad/param norm, max-abs, nonfinite count, loss-scale state)
+    on the device and the host pulls them once, where the anomaly
+    sentinel runs its detectors.  ``activation_stats`` additionally
+    takes a ``[L, 3]`` activation-health row per block output of that
+    step's forward.  The divergence audit checksums master params across the
+    data axis every ``divergence_every``-th boundary (ZeRO stage <= 1
+    only — ranks must be bit-identical there; higher stages skip it).
+
+    Detector knobs: spikes fire when the boundary value exceeds
+    ``*_factor`` x the rolling median of the last ``history`` healthy
+    boundaries (armed after ``min_history``); ``overflow_storm`` is the
+    skipped-step delta between boundaries that rates as a storm;
+    ``stagnant_boundaries``/``stagnant_tol`` flag a loss pinned within
+    tolerance for that many consecutive boundaries (0 disables)."""
+
+    enabled: bool = False
+    activation_stats: bool = True
+    history: int = 64
+    min_history: int = 8
+    loss_spike_factor: float = 3.0
+    grad_spike_factor: float = 10.0
+    overflow_storm: int = 3
+    stagnant_boundaries: int = 8
+    stagnant_tol: float = 0.0
+    divergence_audit: bool = True
+    divergence_every: int = 1
+
+    def validate(self) -> None:
+        if self.history < 2:
+            raise ValueError("telemetry.numerics.history must be >= 2")
+        if self.min_history < 2:
+            raise ValueError("telemetry.numerics.min_history must be >= 2")
+        if self.loss_spike_factor <= 1.0 or self.grad_spike_factor <= 1.0:
+            raise ValueError(
+                "telemetry.numerics spike factors must be > 1")
+        if self.overflow_storm < 1:
+            raise ValueError("telemetry.numerics.overflow_storm must be >= 1")
+        if self.stagnant_boundaries < 0 or self.stagnant_tol < 0:
+            raise ValueError(
+                "telemetry.numerics stagnant knobs must be >= 0")
+        if self.divergence_every < 1:
+            raise ValueError(
+                "telemetry.numerics.divergence_every must be >= 1")
+
+
+@dataclasses.dataclass
+class TelemetryConfig(ConfigModel):
+    """``telemetry`` block: the unified metrics registry + export paths
+    (see ``telemetry/``).
+
+    ``enabled`` turns on registry collection in the engines; each export
+    sink is then individually opt-in: ``prometheus_path`` rewrites a
+    Prometheus textfile every ``export_interval`` steps,
+    ``prometheus_port`` serves /metrics over HTTP (0 = off),
+    ``jsonl_path`` appends snapshot events to a JSON-lines log.
+    ``trace_annotations`` wraps steps in ``torch.profiler`` step/phase
+    ranges (no-op without a live profiler capture).  ``spans``,
+    ``flight_recorder``, ``recompile_sentinel`` and ``memory`` configure
+    the timeline/memory side (all default-on once ``enabled`` is set)."""
+
+    enabled: bool = False
+    prometheus_path: str = ""
+    prometheus_port: int = 0
+    jsonl_path: str = ""
+    export_interval: int = 10
+    trace_annotations: bool = True
+    stall_watchdog: StallWatchdogConfig = dataclasses.field(
+        default_factory=StallWatchdogConfig)
+    spans: SpanTraceConfig = dataclasses.field(
+        default_factory=SpanTraceConfig)
+    flight_recorder: FlightRecorderConfig = dataclasses.field(
+        default_factory=FlightRecorderConfig)
+    recompile_sentinel: RecompileSentinelConfig = dataclasses.field(
+        default_factory=RecompileSentinelConfig)
+    memory: MemoryLedgerConfig = dataclasses.field(
+        default_factory=MemoryLedgerConfig)
+    timeline: TimelineConfig = dataclasses.field(
+        default_factory=TimelineConfig)
+    goodput: GoodputConfig = dataclasses.field(
+        default_factory=GoodputConfig)
+    numerics: NumericsConfig = dataclasses.field(
+        default_factory=NumericsConfig)
+
+    def validate(self) -> None:
+        if self.export_interval < 1:
+            raise ValueError("telemetry.export_interval must be >= 1")
+        if not (0 <= self.prometheus_port < 65536):
+            raise ValueError(f"telemetry.prometheus_port out of range: "
+                             f"{self.prometheus_port}")
+
+
+@dataclasses.dataclass
+class ResilienceConfig(ConfigModel):
+    """``resilience`` block: preemption-aware emergency checkpoints,
+    verified atomic commits, auto-resume and checkpoint-I/O retries
+    (see ``resilience/``).
+
+    ``save_dir`` is both where emergency checkpoints go and where
+    ``auto_resume`` looks for the latest *verified* checkpoint on
+    engine startup.  ``keep_n`` bounds the committed tags kept on disk
+    (partial ``tmp.*`` staging dirs are always garbage-collected).
+    ``watch_signals`` installs SIGTERM/SIGINT handlers for the
+    preemption watcher (off for embedded/test use — ``notify()`` still
+    works)."""
+
+    enabled: bool = False
+    save_dir: str = ""
+    auto_resume: bool = True
+    emergency_save: bool = True
+    keep_n: int = 3
+    io_retries: int = 3
+    io_retry_base_s: float = 0.1
+    watch_signals: bool = True
+
+    def validate(self) -> None:
+        if self.keep_n < 1:
+            raise ValueError(f"resilience.keep_n must be >= 1, got {self.keep_n}")
+        if self.io_retries < 0:
+            raise ValueError("resilience.io_retries must be >= 0")
+        if self.enabled and (self.auto_resume or self.emergency_save) \
+                and not self.save_dir:
+            raise ValueError(
+                "resilience.enabled with auto_resume/emergency_save needs "
+                "resilience.save_dir (where checkpoints live)")
+
+
+@dataclasses.dataclass
 class SchedulerConfig(ConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -274,6 +523,11 @@ class DeepSpeedConfig:
     gradient_accumulation_dtype: str
     aio: AIOConfig
     checkpoint: CheckpointConfig
+    wall_clock_breakdown: bool
+    memory_breakdown: bool
+    sanity_checks: bool
+    telemetry: TelemetryConfig
+    resilience: ResilienceConfig
 
     def __init__(self, config: Any, dp_world_size: Optional[int] = None):
         if isinstance(config, str):
@@ -299,6 +553,13 @@ class DeepSpeedConfig:
             raise ValueError(f"data_types.grad_accum_dtype must be fp32, fp16 or bf16, got "
                              f"{self.gradient_accumulation_dtype!r}")
 
+        self.wall_clock_breakdown = bool(g("wall_clock_breakdown", False))
+        self.memory_breakdown = bool(g("memory_breakdown", False))
+        # reference is_sanity_checks_enabled: opt-in NaN guard (a host sync
+        # per step)
+        self.sanity_checks = bool(g("sanity_checks", False))
+        self.telemetry = TelemetryConfig.from_dict(g("telemetry"))
+        self.resilience = ResilienceConfig.from_dict(g("resilience"))
         self.fp16 = FP16Config.from_dict(g("fp16"))
         self.bf16 = BF16Config.from_dict(g("bf16") or g("bfloat16"))
         zero = g("zero_optimization") or {}

@@ -41,6 +41,13 @@ def check_overflow(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack(flags).any()
 
 
+def loss_scale_summary(state: LossScaleState) -> dict:
+    """The dynamic loss-scale state's scalars, for the numerics stats tree."""
+    return {"cur_scale": state.cur_scale,
+            "growth_tracker": state.growth_tracker,
+            "hysteresis_tracker": state.hysteresis_tracker}
+
+
 def update_loss_scale(state: LossScaleState, overflow: torch.Tensor,
                       config) -> LossScaleState:
     """Dynamic scaling: on overflow the hysteresis tracker drops by one and

@@ -1,16 +1,16 @@
 """Flight recorder: a black box for crashed or hung runs (the port's
-copy of ``deepspeed_tpu/telemetry/flight.py``; the goodput and numerics
-records come with training telemetry, ROADMAP "Training telemetry and
-resilience").
+copy of ``deepspeed_tpu/telemetry/flight.py``).
 
 Keeps the last few hundred spans (shared with ``spans.py``'s ring), a
 bounded ring of log events (``note()``), and — at dump time — a full
 registry snapshot, and writes them all to one timestamped JSONL file.
 Dumps fire:
 
-* on demand (``dump()``), and
-* when an engine step raises (``dump_on_exception`` from the serving
-  engine's ``step()`` exception path),
+* on demand (``dump()``),
+* when an engine step raises (``dump_on_exception`` from the engines'
+  ``step()``/``train_batch()`` exception paths), and
+* when the stall watchdog trips (``Telemetry`` wires the watchdog's
+  ``on_stall`` callback here),
 
 so a wedged collective or a mid-step crash leaves a reconstructable
 timeline instead of an empty log.  The recorder itself only ever
@@ -29,7 +29,10 @@ File schema (one JSON object per line, same spirit as
   — the memory ledger's reading at dump time (telemetry/memory.py), so
   every incident file answers memory questions too
 * ``{"kind": "timeline", ...}`` — the last completed step-time record
+* ``{"kind": "goodput", ...}`` — the goodput ledger's summary
 * ``{"kind": "reqtrace", ...}`` — the request-trace ledger's summary
+* ``{"kind": "numerics", ...}`` — the numerics observatory's last
+  boundary report + sentinel window (``numerics.last_numerics_summary``)
 * ``{"kind": "snapshot", "ts", "metrics": {...}}`` — the registry at
   dump time (the final record of a plain dump)
 * ``{"kind": "oom_incident", ...}`` — appended by OOM forensics
@@ -137,11 +140,33 @@ class FlightRecorder:
             except Exception:
                 pass
             try:
+                from .goodput import last_goodput_summary
+
+                gp = last_goodput_summary()
+                if gp is not None:
+                    line(dict({"kind": "goodput"}, **gp))
+            # dstpu-lint: allow[swallow] same contract as the memory record
+            except Exception:
+                pass
+            try:
                 from .reqtrace import last_reqtrace_summary
 
                 rt = last_reqtrace_summary()
                 if rt is not None:
                     line(dict({"kind": "reqtrace"}, **rt))
+            # dstpu-lint: allow[swallow] same contract as the memory record
+            except Exception:
+                pass
+            try:
+                # numerics observatory: the last boundary's per-layer
+                # health report + sentinel window, so any dump (stall,
+                # exception, OOM — not just numerics-triggered ones)
+                # answers "was training numerically healthy?"
+                from .numerics import last_numerics_summary
+
+                nm = last_numerics_summary()
+                if nm is not None:
+                    line(dict({"kind": "numerics"}, **nm))
             # dstpu-lint: allow[swallow] same contract as the memory record
             except Exception:
                 pass

@@ -12,6 +12,7 @@ into the capture's directory, where ``timeline.py`` reads it.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Optional, Tuple
@@ -25,6 +26,11 @@ TRACE_FILE = "torch_trace.json"
 
 #: the running capture: (profiler, directory), or None
 _active: Optional[Tuple[Any, str]] = None
+
+
+@contextlib.contextmanager
+def _noop():
+    yield
 
 
 def profiler_available() -> bool:

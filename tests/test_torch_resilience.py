@@ -4,10 +4,11 @@ injectors (``resilience/chaos.py``) and the checkpoint engines
 commit-protocol and checkpoint-engine cases of the JAX package's
 ``tests/unit/test_resilience.py``, run against the port's engine (a tiny
 llama).  Where a JAX case goes through the ``resilience`` config block
-(``keep_n``, ``io_retries``; the block comes with ROADMAP Queue 1 #16)
-the same mechanism is driven through ``checkpoint/saving.save_checkpoint``
-and ``io_retry`` directly, and the every-engine round trip through the
-engines themselves (the JAX case uses the partitioned layout, #8).
+(``keep_n``, ``io_retries``) the same mechanism is driven here through
+``checkpoint/saving.save_checkpoint`` and ``io_retry`` directly (the block
+itself, preemption and auto-resume are ``test_torch_resilience_manager.py``),
+and the every-engine round trip through the engines themselves (the JAX
+case uses the partitioned layout, #8).
 
 Also the streamed writer: a stacked member written slice by slice is
 byte for byte ``np.savez`` of the stacked arrays, and its CRCs are

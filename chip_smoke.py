@@ -11,11 +11,12 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
 1. build every CUDA kernel of the path from ``deepspeed_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together; the sources include
    ``csrc/hopper.cuh`` and ``csrc/wide_head.cuh``), and beside them the
-   parent commit's build of seven sources, from ``baselines/previous/``
-   with the parent's ``hopper.cuh``, run under today's wrappers: every
-   kernel must give the parent's bits (the timed cases run in turns with
-   the parent's); ptxas's registers and spills per kernel, and the
-   kernels that spill by name;
+   parent commit's build of each source in ``baselines/previous/`` whose
+   bytes differ from today's (with the parent's ``hopper.cuh``; a
+   byte-identical source would be compared with a build of itself), run
+   under today's wrappers: those kernels must give the parent's bits (their
+   timed cases run in turns with the parent's); ptxas's registers and
+   spills per kernel, and the kernels that spill by name;
 2. kernel A, flash-attention forward, against its plain PyTorch version
    computed in fp32 on the same inputs (limits in ``FLASH_TOL``/``LSE_TOL``) on
    the card at llama-1b prefill shapes (+ a chunked-prefill window,
@@ -335,6 +336,37 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     family the engine registers; a merged request trace; identical greedy
     streams on and off; the median decode-step wall and the profiled
     device time per step of each engine.
+40. monitors, the FLOPs profiler and elasticity (``monitor_profiler_phase``,
+    8b, after phase 8a): phase 8's run with 8a's telemetry block plus
+    csv_monitor (and tensorboard where it imports), flops_profiler and an
+    elasticity block deriving phase 8's batch sizes; 4 steps: losses
+    bit-equal to phase 8's, the CSV rows the engine's losses and learning
+    rates, the boundary's registry rows, one host sync a step for the
+    monitor, the profile's FLOPs per micro-step its FlopCounterMode part
+    plus the FLOPs A, A' and A'' report (the analytic count beside them);
+41. the autotuner (``autotune_phase``): grid mode on llama-1b at full width,
+    micro batch 2 and 4 at ZeRO 1, each trial an engine, a warm-up and 2
+    timed steps (A, A', A'' and C launched every step; none may fail), and
+    llama-7b's width pruned by its state floor without building an engine;
+42. the launcher and elastic agent (``launcher_phase``):
+    ``launcher.runner.main --elastic_training`` on ``localhost slots=1``
+    starting a training script (llama tiny widths, a named cut) on the card
+    with resilience on; the script SIGTERMs itself, exits 75 after its
+    emergency save, is relaunched without using up a budget of 0 restarts
+    and auto-resumes: its env, and both attempts' losses bit-equal to an
+    uninterrupted run in this process;
+43. the diffusers blocks (``spatial_phase``): ``diffusers_transformer_block``
+    at Stable Diffusion v1.5's three UNet widths (C 320 / 640 / 1280, D 40 /
+    80 / 160, a 77-token context, fp16, B 2): A launched for self and cross
+    attention, each block within ``SPATIAL_TOL`` of its fp32 plain version;
+    A alone at 4096 x 4096 and 4096 x 77 (``FLASH_TOL``), timed beside its
+    bound, plain version and SDPA;
+44. ``aux_phase``: ``env_report`` (its JSON), ``FP_Quantize`` fp8 on
+    llama-1b's ``embed.tok`` shape (codes and scales bit-equal card vs
+    CPU), ``top_eigenvalue`` of a 2048-wide quadratic of known spectrum,
+    ``see_memory_usage`` against the caching allocator, and one launch of
+    each of G, G', G'', W, S, E, E' and E'' under the profiler's count:
+    each reports its module's ``kernel_flops`` (``kernel_flop_reports``).
     Phases 2 and 6 hold A and A'/A'' at falcon-7b's 71:1 and BERT-base's
     non-causal shape too; dK and dV of a group wider than 4 (A'' with P
     and dS as two bf16 terms) within the unscaled ``FLASH_BWD_TOL`` of
@@ -424,23 +456,38 @@ WQ_COSINE = {8: 0.999}
 WQ_DEQUANT_COSINE = 0.999
 PARITY_LOGITS_TOL = 2e-3
 DEV = "cuda"
-#: the parent commit's build of the kernels, built beside today's from
-#: their sources in BASELINE_DIR (which holds the parent's hopper.cuh, found
-#: before csrc's by their includes): every kernel must give the parent's
-#: bits; the timed cases run in turns with the parent's.
+#: the previous build of the kernels, built beside today's from their
+#: sources in BASELINE_DIR (which holds its own hopper.cuh, found before
+#: csrc's by their includes): every kernel must give the previous bits;
+#: the timed cases run in turns with the previous build.
 BASELINE_DIR = os.path.join(ROOT, "baselines", "previous")
-BASELINE_KERNELS = ("wq_matmul", "evoformer_attn", "flash_attention_fwd",
-                    "flash_attention_bwd", "paged_attention", "sparse_attention",
-                    "grouped_matmul")
+BASELINE_CANDIDATES = ("wq_matmul", "evoformer_attn", "flash_attention_fwd",
+                       "flash_attention_bwd", "paged_attention", "sparse_attention",
+                       "grouped_matmul")
 
 
-def register_baselines(op_builder):
-    """Add the previous kernels' sources to the builder under ``*_previous``
-    names."""
+def baseline_kernels(op_builder) -> tuple:
+    """The kernels whose previous build would differ from today's: only
+    those get one.  The builder's digest decides (the source, each header
+    as the build finds it, the flags), so an edit to a shared header alone
+    also brings every previous build back; an equal digest would compare a
+    library with a build of itself."""
     from pathlib import Path
 
-    for name in BASELINE_KERNELS:
+    return tuple(n for n in BASELINE_CANDIDATES
+                 if op_builder.source_digest(Path(BASELINE_DIR) / f"{n}.cu")
+                 != op_builder.source_digest(op_builder.SOURCES[n]))
+
+
+def register_baselines(op_builder) -> tuple:
+    """Add the previous sources that differ from today's to the builder
+    under ``*_previous`` names; returns their kernels."""
+    from pathlib import Path
+
+    names = baseline_kernels(op_builder)
+    for name in names:
         op_builder.SOURCES[name + "_previous"] = Path(BASELINE_DIR) / f"{name}.cu"
+    return names
 
 
 class Baseline:
@@ -448,7 +495,7 @@ class Baseline:
     library swapped in (``swapped``): every C entry point kept its
     signature."""
 
-    def __init__(self, op_builder):
+    def __init__(self, op_builder, names):
         from deepspeed_tpu_torch.ops import evoformer_attn as ev
         from deepspeed_tpu_torch.ops import flash_attention as fa
         from deepspeed_tpu_torch.ops import grouped_matmul as gm
@@ -460,8 +507,8 @@ class Baseline:
         sigs = {"flash_attention_fwd": fa._SIG, "flash_attention_bwd": fa._BWD_SIG,
                 "paged_attention": pa._SIG, "sparse_attention": sa._SIG,
                 "wq_matmul": wq._SIG, "evoformer_attn": ev._SIG, "grouped_matmul": gm._SIG}
-        self.libs = {n: op_builder.load(n + "_previous", sigs[n]) for n in BASELINE_KERNELS}
-        for n in BASELINE_KERNELS:  # today's, loaded before any swap
+        self.libs = {n: op_builder.load(n + "_previous", sigs[n]) for n in names}
+        for n in names:  # today's, loaded before any swap
             op_builder.load(n, sigs[n])
 
     def swapped(self, name, fn):
@@ -477,6 +524,11 @@ class Baseline:
 
 #: set in main(): the parent's kernels
 BASE = None
+
+
+def has_previous(name: str) -> bool:
+    """Whether the parent's build of kernel library ``name`` is loaded."""
+    return BASE is not None and name in BASE.libs
 
 
 def turns(prev, new):
@@ -683,7 +735,7 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
     def prev():
         return BASE.swapped("flash_attention_fwd", new)
 
-    if BASE is not None:
+    if has_previous("flash_attention_fwd"):
         same_as_previous(rec, name, prev(), (o, lse))  # the parent's build, same inputs
     if timed:
         rows = q_offset + torch.arange(Sq, device=DEV)
@@ -705,7 +757,7 @@ def flash_case(fa, name, B, Sq, Sk, NH, KVH, D, dtype, causal=True, q_offset=0,
             plain_ms=device_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
             library_ms=device_ms(lambda: sdpa(qh, kh, vh, mask, NH // KVH, top_left)),
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=4.0 * D * pairs)
-        if BASE is None:
+        if not has_previous("flash_attention_fwd"):
             rec["ms"] = device_ms(new)
         else:  # the parent's build in turns
             prev_ms, rec["ms"], four = turns(prev, new)
@@ -780,7 +832,7 @@ def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False
     def prev():
         return BASE.swapped("paged_attention", new)
 
-    if BASE is not None:  # the parent's build on the same inputs: its bits
+    if has_previous("paged_attention"):  # the parent's build on the same inputs: its bits
         same = torch.equal(prev(), out)
         check(same, f"paged {name}: other bits than the parent's build")
         rec["bit_equal_to_previous"] = same
@@ -813,7 +865,7 @@ def paged_case(pa, name, B, NH, KVH, D, ps, MP, dtype, quant=False, poison=False
             vv = v_pool[table.long()].reshape(B, S, KVH, D).transpose(1, 2)
             return sdpa(q[:, :, None], kk, vv, vis, G)
 
-        if BASE is not None:  # the parent's kernel in turns
+        if has_previous("paged_attention"):  # the parent's kernel in turns
             rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
         else:
             ms = device_ms(new)
@@ -1000,7 +1052,7 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
     def prev_bwd():
         return previous(new_bwd)
 
-    if BASE is not None:
+    if has_previous("flash_attention_bwd"):
         if two_terms:  # other bits than the parent's one-term kernel, by design
             prev = prev_bwd()
             torch.cuda.synchronize()
@@ -1011,7 +1063,7 @@ def flash_bwd_case(fa, name, B, S, NH, KVH, D, dtype, causal=True, alibi=False, 
         else:
             same_as_previous(rec, f"flash bwd {name}", prev_bwd(), (dq, dk, dv))
     print(json.dumps({"flash_bwd_check": rec}))
-    if timed and BASE is not None and dtype != torch.float32:
+    if timed and has_previous("flash_attention_bwd") and dtype != torch.float32:
         p_ms, n_ms, four = turns(prev_bwd, new_bwd)
         rec.update(previous_dq_dkv_ms=p_ms, turns_dq_dkv_prev_new_new_prev=four)
         if two_terms:  # A'' alone: the one-term parent against two terms
@@ -1535,6 +1587,581 @@ def train_telemetry_phase(fa, fadam, base):
     torch.cuda.empty_cache()
     print(json.dumps({"train_telemetry": rec}))
     return rec
+
+
+# -- phase 8b: monitors, the FLOPs profiler and elasticity on training --------
+
+MONITOR_STEPS, MONITOR_SPP, MONITOR_PROFILE_STEP = 4, 4, 2
+MONITOR_DIR = os.path.join(ROOT, "build", "monitor")
+
+
+def tensorboard_available() -> bool:
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def monitor_profiler_phase(fa, fadam, base, ttel):
+    """Phase 8b: phase 8's llama-1b run (seed 0, its seeded batch, bf16, ZeRO
+    1, fused AdamW, clipping 1.0) with phase 8a's telemetry block (numerics
+    on) at steps_per_print MONITOR_SPP, plus csv_monitor (and tensorboard
+    where ``torch.utils.tensorboard`` imports), flops_profiler at
+    profile_step MONITOR_PROFILE_STEP and an elasticity block whose derived
+    batch, micro batch and gas are phase 8's (no batch size given).
+    MONITOR_STEPS steps.  Checks: the derived sizes; losses bit-equal to
+    phase 8's; each step's launches of A, A', A'' and C phase 8's (A, A'
+    and A'' twice on the profiled step); the CSV
+    rows the engine's losses and learning rates, the boundary's registry
+    rows at step MONITOR_SPP; host syncs a step = 1 (the monitor's) + what
+    the step costs without it (0 off the boundary, phase 8a's count at it); the profile's FLOPs per
+    micro-step (one micro-step priced apart on the profiled step, so A, A'
+    and A'' launch twice there) = FlopCounterMode's part + the kernels'
+    reported part, the kernels' part A, A' and A'' at their PERF.md §6
+    counts."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.models.transformer import flops_per_token
+    from deepspeed_tpu_torch.profiling.flops_profiler import attention_pairs
+
+    shutil.rmtree(MONITOR_DIR, ignore_errors=True)
+    tb = tensorboard_available()
+    cfg_d = train_config(steps_per_print=MONITOR_SPP, telemetry=train_telemetry_block("monitor"),
+                         csv_monitor={"enabled": True, "output_path": MONITOR_DIR,
+                                      "job_name": "csv"},
+                         tensorboard={"enabled": tb, "output_path": MONITOR_DIR,
+                                      "job_name": "tb"},
+                         flops_profiler={"enabled": True, "profile_step": MONITOR_PROFILE_STEP},
+                         elasticity={"enabled": True, "micro_batch_sizes": [TRAIN_MICRO],
+                                     "max_train_batch_size": TRAIN_MICRO})
+    for k in ("train_micro_batch_size_per_gpu", "gradient_accumulation_steps"):
+        cfg_d.pop(k)
+    model = llama_model("1b", max_seq_len=TRAIN_SEQ)
+    cfg = model.config
+    L = cfg.n_layers
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg_d, seed=0)
+    derived = (engine.train_batch_size(), engine.train_micro_batch_size_per_gpu(),
+               engine.gradient_accumulation_steps())
+    check(derived == (TRAIN_MICRO, TRAIN_MICRO, 1),
+          f"monitor: elasticity derived (batch, micro, gas) {derived} != phase 8's")
+    check([type(m).__name__ for m in engine.monitor.monitors]
+          == ["CSVMonitor"] + (["TensorBoardMonitor"] if tb else []),
+          f"monitor: writers {[type(m).__name__ for m in engine.monitor.monitors]}")
+    n_leaves = len(engine._master)
+    g = torch.Generator(device=DEV).manual_seed(123)
+    batch = torch.randint(0, cfg.vocab_size, (1, TRAIN_MICRO, TRAIN_SEQ), generator=g,
+                          device=DEV)
+    losses, lrs, per_step = [], [], []
+    for step in range(1, MONITOR_STEPS + 1):
+        zero_train_counters(fa, fadam)
+        (loss,), (ms,), syncs = timed_steps(engine, batch, 1)
+        la = read_train_counters(fa, fadam)
+        # the profiled step also prices one micro-step apart: A, A', A'' twice
+        per_layer = 2 if step == MONITOR_PROFILE_STEP + 1 else 1
+        check(all(la[k] == per_layer * L for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+              and la["fused_adam"] == n_leaves, f"monitor: step {step} launches {la}")
+        losses.append(float(loss))
+        lrs.append(engine.get_lr()[0])
+        per_step.append({"step": step, "ms": ms, "syncs": syncs, "launches": la})
+    launches = {k: sum(p["launches"][k] for p in per_step) for k in per_step[0]["launches"]}
+    check(losses == base["losses"][:MONITOR_STEPS],
+          f"monitor: losses {losses} != phase 8's {base['losses'][:MONITOR_STEPS]}")
+    # host syncs: the monitor's one a step over the step's own
+    # (the profiler's fence on its step is an explicit torch.cuda.synchronize,
+    # which the sync debug mode does not count)
+    own = {s: 0 for s in range(1, MONITOR_STEPS + 1)}
+    own[MONITOR_SPP] += ttel["boundary_syncs"][TRAIN_TELEMETRY_SPP]
+    syncs = {p["step"]: p["syncs"] for p in per_step}
+    check(all(syncs[s] == own[s] + 1 for s in syncs),
+          f"monitor: host syncs {syncs}, expected the step's own {own} plus one")
+    prof = engine.flops_profiler.last_profile
+    engine.close()
+    tb_files = sorted(os.listdir(os.path.join(MONITOR_DIR, "tb"))) if tb else []
+    csv_dir = os.path.join(MONITOR_DIR, "csv")
+
+    def rows(tag):
+        with open(os.path.join(csv_dir, tag.replace("/", "_") + ".csv")) as f:
+            return [(int(a), float(b)) for a, b in (ln.strip().split(",")
+                                                   for ln in f.readlines()[1:])]
+
+    steps = list(range(1, MONITOR_STEPS + 1))
+    check(rows("Train/Samples/train_loss") == list(zip(steps, losses))
+          and rows("Train/Samples/lr") == list(zip(steps, lrs)),
+          "monitor: the CSV rows are not the engine's losses and learning rates")
+    train_rows = sorted(f for f in os.listdir(csv_dir) if f.startswith("deepspeed_tpu_train_"))
+    check(rows("deepspeed_tpu_train_loss") == [(MONITOR_SPP, losses[MONITOR_SPP - 1])]
+          and len(train_rows) > 5, f"monitor: the boundary's registry rows {train_rows}")
+    # the profile
+    B, S, NH, D = TRAIN_MICRO, TRAIN_SEQ, cfg.n_heads, cfg.head_dim
+    pairs = attention_pairs(B, NH, S, S, True)
+    want_kernels = {"flash_attention_fwd": L * fa.FLOPS_PER_PAIR["fwd"] * D * pairs,
+                    "flash_attention_bwd_dq": L * fa.FLOPS_PER_PAIR["dq"] * D * pairs,
+                    "flash_attention_bwd_dkv": L * fa.FLOPS_PER_PAIR["dkv"] * D * pairs}
+    kern = prof["kernel_flops_per_micro_step"]
+    total = prof["torch_flops_per_micro_step"] + sum(kern.values())
+    analytic = flops_per_token(cfg, S) * B * S
+    check(prof["step"] == MONITOR_PROFILE_STEP and prof["micro_steps"] == 1
+          and kern == want_kernels and prof["flops_per_micro_step"] == total,
+          f"monitor: profile {dict((k, v) for k, v in prof.items() if k != 'modules')} "
+          f"against kernels {want_kernels}")
+    rec = {"model": "llama-1b", "steps": MONITOR_STEPS, "derived_batch_micro_gas": derived,
+           "tensorboard": tb, "tensorboard_files": tb_files, "losses_equal_phase8": True,
+           "syncs": syncs, "syncs_without_monitor": own, "per_step_ms": [p["ms"] for p in
+                                                                        per_step],
+           "launches": launches, "csv_files": len(os.listdir(csv_dir)),
+           "profile": {"flops_per_micro_step": prof["flops_per_micro_step"],
+                       "torch_part": prof["torch_flops_per_micro_step"],
+                       "kernel_part": kern, "analytic_flops_per_token_x_tokens": analytic,
+                       "step_seconds": prof["step_seconds"],
+                       "achieved_tflops": prof["achieved_tflops"],
+                       "modules": {r["module"]: r["flops"] for r in prof.get("modules", [])
+                                   if not r["module"].startswith("layers.")
+                                   or r["module"].startswith("layers.0.")}}}
+    del engine
+    torch.cuda.empty_cache()
+    print(json.dumps({"monitor_profiler": rec}))
+    return rec
+
+
+# -- the autotuner on llama-1b ----------------------------------------------------
+
+AUTOTUNE_SPACE = {"zero_stage": [1], "micro_batch": [2, 4]}
+AUTOTUNE_STEPS = 2
+
+
+def autotune_phase(fa, fadam):
+    """``Autotuner`` in grid mode on llama-1b at full width (phase 8's config
+    without its batch sizes): micro batch 2 and 4 at ZeRO 1, one warm-up and
+    AUTOTUNE_STEPS timed steps each; every candidate fits the card and must
+    give a throughput, with A, A' and A'' launched per layer and micro-step
+    and C per leaf and step.  Then the same candidates at llama-7b's width,
+    whose state floor (18 B a parameter) passes the card's memory: pruned,
+    and no engine built."""
+    from deepspeed_tpu_torch.autotuning.autotuner import Autotuner
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    base_cfg = train_config()
+    for k in ("train_micro_batch_size_per_gpu", "gradient_accumulation_steps"):
+        base_cfg.pop(k)
+    cfg = llama_model("1b", max_seq_len=TRAIN_SEQ).config
+    g = torch.Generator(device=DEV).manual_seed(7)
+    ids = torch.randint(0, cfg.vocab_size, (1, max(AUTOTUNE_SPACE["micro_batch"]), TRAIN_SEQ),
+                        generator=g, device=DEV)
+    tuner = Autotuner(lambda: llama_model("1b", max_seq_len=TRAIN_SEQ), base_cfg,
+                      lambda mb: ids[:, :mb], tuning_space=AUTOTUNE_SPACE,
+                      steps_per_trial=AUTOTUNE_STEPS, mode="grid")
+    mem0 = torch.cuda.memory_allocated()
+    zero_train_counters(fa, fadam)
+    t0 = time.perf_counter()
+    best = tuner.tune()
+    tune_s = time.perf_counter() - t0
+    launches = read_train_counters(fa, fadam)
+    mem1 = torch.cuda.memory_allocated()
+    trials = [{"config": r["config"], "tokens_per_s": r["throughput"]} for r in best["trials"]]
+    check(len(trials) == 2 and all(t["tokens_per_s"] for t in trials),
+          f"autotune: a candidate that fits returned None: {trials}")
+    steps = len(trials) * (1 + AUTOTUNE_STEPS)
+    n_leaves = len(list(llama_model("1b", max_seq_len=TRAIN_SEQ)._init_params(
+        torch.Generator(), torch.device("meta")).parameters()))
+    check(all(launches[k] == cfg.n_layers * steps for k in ("flash_fwd", "flash_bwd_dq",
+                                                          "flash_bwd_dkv"))
+          and launches["fused_adam"] == n_leaves * steps,
+          f"autotune: launches {launches} over {steps} steps")
+    big = Autotuner(lambda: llama_model("7b", max_seq_len=TRAIN_SEQ), base_cfg,
+                    lambda mb: ids[:, :mb], tuning_space={"zero_stage": [1], "micro_batch": [2]},
+                    steps_per_trial=AUTOTUNE_STEPS)
+    pool = big._pruned_pool()
+    est = big._estimate_state_bytes({"zero_stage": 1})
+    hbm = big._device_memory()
+    check(pool == [] and big.results == [{"config": {"zero_stage": 1, "micro_batch": 2},
+                                          "throughput": None, "pruned": True}]
+          and big.engines_built == 0 and est > hbm,
+          f"autotune: the 7b candidate (floor {est}, card {hbm}) was not pruned: {big.results}")
+    rec = {"model": "llama-1b", "space": AUTOTUNE_SPACE, "trials": trials,
+           "best": best["best"], "best_tokens_per_s": best["throughput"], "tune_s": tune_s,
+           "engines_built": tuner.engines_built, "launches": launches,
+           "allocated_before_gb": mem0 / 1e9, "allocated_after_gb": mem1 / 1e9,
+           "pruned": {"model": "llama-7b", "state_floor_gb": est / 1e9,
+                      "card_gb": hbm / 1e9, "engines_built": big.engines_built}}
+    torch.cuda.empty_cache()
+    print(json.dumps({"autotune": rec}))
+    return rec
+
+
+# -- the diffusers blocks through kernel A ---------------------------------------
+
+#: Stable Diffusion v1.5's UNet (unet/config.json): block_out_channels
+#: [320, 640, 1280, 1280], 8 heads, cross_attention_dim 768, sample_size 64
+#: (a 64 x 64 latent: HW 4096 at the first level, 1024, 256, 64 below); a
+#: 77-token text context; B = 2, the classifier-free-guidance pair; GEGLU
+#: inner width 4C.  The three levels of distinct width: (C, HW).
+SD_BLOCKS = ((320, 4096), (640, 1024), (1280, 64))
+SD_HEADS, SD_CTX, SD_CTX_LEN, SD_BATCH = 8, 768, 77, 2
+#: a block in fp16 (cuBLAS GEMMs, kernel A) against the same block computed
+#: in fp32 with the plain attention, on the card: |out - ref| <= atol +
+#: rtol |ref|, rtol the output's fp16 rounding; atol covers the fp16
+#: roundings of every GEMM, norm and attention output inside the block,
+#: about twice the 3.2e-3 the three blocks needed on an H100 (PERF.md §6).
+SPATIAL_TOL = (7e-3, 2.0 ** -11)
+
+
+def sd_block_params(C, g):
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=DEV) / math.sqrt(shape[0]))
+
+    def ln():
+        return {"scale": 1 + 0.1 * torch.randn(C, generator=g, device=DEV),
+                "bias": 0.1 * torch.randn(C, generator=g, device=DEV)}
+
+    def attn(c_in):
+        return {"wq": w(C, C), "wk": w(c_in, C), "wv": w(c_in, C), "wo": w(C, C),
+                "bo": 0.1 * torch.randn(C, generator=g, device=DEV)}
+
+    return {"norm1": ln(), "norm2": ln(), "norm3": ln(), "attn1": attn(C),
+            "attn2": attn(SD_CTX), "ff": {"w_in": w(C, 8 * C), "w_out": w(4 * C, C)}}
+
+
+def sd_block_plain(spatial, x, p, heads, ctx):
+    """The diffusers block composed here again, its attention the plain
+    einsum formulation (``spatial._attention_plain``): the reference of
+    ``spatial_phase``, whatever path ``diffusers_attention`` takes."""
+    def norm(h, n):
+        return F.layer_norm(h, h.shape[-1:], n["scale"], n["bias"], 1e-5)
+
+    def attn(h, a, c):
+        B, HW, C = h.shape
+        D = C // heads
+        q = (h @ a["wq"]).reshape(B, HW, heads, D)
+        k, v = ((c @ a[n]).reshape(B, c.shape[1], heads, D) for n in ("wk", "wv"))
+        return spatial._attention_plain(q, k, v).reshape(B, HW, C) @ a["wo"] + a["bo"]
+
+    h = norm(x, p["norm1"])
+    h = x + attn(h, p["attn1"], h)
+    h = h + attn(norm(h, p["norm2"]), p["attn2"], ctx)
+    val, gate = torch.chunk(norm(h, p["norm3"]) @ p["ff"]["w_in"], 2, dim=-1)
+    return h + (val * F.gelu(gate, approximate="tanh")) @ p["ff"]["w_out"]
+
+
+def tree_to(tree, dtype):
+    return {k: tree_to(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def spatial_phase(fa):
+    """``diffusers_transformer_block`` at SD v1.5's three widths (SD_BLOCKS)
+    from seeded weights in fp16, a 77-token context: A launched once for
+    each block's self attention and once for its cross attention (counters
+    zeroed just before each block, read just after), the output finite and
+    within SPATIAL_TOL of the same block composed in fp32 with the plain
+    einsum attention (``sd_block_plain``) on the card.  Then A alone at the first level's self (4096 x 4096) and
+    cross (4096 x 77) attention, D = 40: held to FLASH_TOL, timed beside its
+    bound (PERF.md §6's count), its plain version and SDPA."""
+    from deepspeed_tpu_torch.ops import spatial
+
+    g = torch.Generator(device=DEV).manual_seed(20)
+    blocks = []
+    for C, HW in SD_BLOCKS:
+        D = C // SD_HEADS
+        p32 = sd_block_params(C, g)
+        x32 = torch.randn((SD_BATCH, HW, C), generator=g, device=DEV)
+        ctx32 = torch.randn((SD_BATCH, SD_CTX_LEN, SD_CTX), generator=g, device=DEV)
+        p16, x16, ctx16 = tree_to(p32, torch.float16), x32.half(), ctx32.half()
+        fa.flash_attention_fwd.launches = 0
+        t = time.perf_counter()
+        out = spatial.diffusers_transformer_block(x16, p16, SD_HEADS, ctx16)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        launches = fa.flash_attention_fwd.launches
+        ref = sd_block_plain(spatial, x16.float(), tree_to(p16, torch.float32), SD_HEADS,
+                             ctx16.float())
+        torch.cuda.synchronize()
+        check(fa.flash_attention_fwd.launches == launches,
+              f"spatial C={C}: the plain reference launched kernel A")
+        err, atol_used, ok = max_err(out, ref, SPATIAL_TOL)
+        rec = {"C": C, "HW": HW, "D": D, "heads": SD_HEADS, "context": [SD_CTX_LEN, SD_CTX],
+               "batch": SD_BATCH, "dtype": "fp16", "launches": launches,
+               "max_abs_err": err, "atol_used": atol_used, "tol": SPATIAL_TOL,
+               "first_call_s": first_s,
+               "block_ms": device_ms(lambda: spatial.diffusers_transformer_block(
+                   x16, p16, SD_HEADS, ctx16), iters=5, warmup=1)}
+        print(json.dumps({"spatial_block": rec}))
+        check(launches == 2, f"spatial C={C}: kernel A launched {launches} times, not self + "
+              "cross")
+        check(bool(torch.isfinite(out).all()), f"spatial C={C}: non-finite output")
+        check(ok, f"spatial C={C}: block vs its fp32 plain version beyond {SPATIAL_TOL} "
+              f"(max abs {err:.3g}, atol used {atol_used:.3g})")
+        blocks.append(rec)
+    C, HW = SD_BLOCKS[0]
+    D = C // SD_HEADS
+    alone = {"self_4096x4096": flash_case(fa, "sd_self_4096", SD_BATCH, HW, HW, SD_HEADS,
+                                          SD_HEADS, D, torch.float16, causal=False, timed=True,
+                                          seed=21),
+             "cross_4096x77": flash_case(fa, "sd_cross_4096x77", SD_BATCH, HW, SD_CTX_LEN,
+                                         SD_HEADS, SD_HEADS, D, torch.float16, causal=False,
+                                         timed=True, seed=22)}
+    rec = {"blocks": blocks, "launches": sum(b["launches"] for b in blocks),
+           "kernel_alone": {k: {f: r.get(f) for f in ("ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "bound_by", "bound_share",
+                                                      "max_abs_err", "flops", "bytes")}
+                            for k, r in alone.items()}}
+    print(json.dumps({"spatial": rec}))
+    return rec
+
+
+# -- the launcher and elastic agent on the card ------------------------------------
+
+LAUNCH_DIR = os.path.join(ROOT, "build", "launcher")
+LAUNCH_STEPS, LAUNCH_SIGTERM_AFTER = 6, 3
+#: the script the launcher starts: llama "tiny" widths (a named depth and
+#: width cut: phase 37 checks the same emergency save and resume at
+#: llama-1b's full width, and this phase checks process control)
+LAUNCH_SCRIPT = '''
+import json, os, signal, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models.llama import llama_model
+from deepspeed_tpu_torch.ops import flash_attention as fa, fused_adam as fadam
+from deepspeed_tpu_torch.resilience import PreemptionInterrupt, exit_code_for_exception
+
+out, steps, sigterm_after = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+cfg = json.load(open(os.path.join(out, "ds_config.json")))
+engine, *_ = deepspeed_tpu_torch.initialize(model=llama_model("tiny", max_seq_len=128),
+                                            config=cfg, seed=0)
+first = engine.global_steps == 0
+env = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                                      "CUDA_VISIBLE_DEVICES", "MASTER_ADDR", "MASTER_PORT")}
+rec = {"pid": os.getpid(), "start_step": engine.global_steps, "env": env, "losses": {},
+       "device": torch.cuda.get_device_name(0)}
+for c in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+          fadam.fused_adam_update):
+    c.launches = 0
+last = []  # the step's loss, also when train_batch ends in the emergency save
+step_fn = engine._train_batch
+engine._train_batch = lambda *a, **kw: last.append(step_fn(*a, **kw)) or last[-1]
+code = 0
+try:
+    while engine.global_steps < steps:
+        g = torch.Generator(device="cuda").manual_seed(1000 + engine.global_steps)
+        batch = torch.randint(0, 256, (1, 2, 128), generator=g, device="cuda")
+        engine.train_batch(batch)
+        rec["losses"][engine.global_steps] = float(last[-1])
+        if first and engine.global_steps == sigterm_after:
+            os.kill(os.getpid(), signal.SIGTERM)
+except PreemptionInterrupt as e:
+    rec["losses"][engine.global_steps] = float(last[-1])
+    code = exit_code_for_exception(e)
+rec.update(end_step=engine.global_steps, exit_code=code,
+           launches={"flash_fwd": fa.flash_attention_fwd.launches,
+                     "flash_bwd_dq": fa.flash_attention_bwd_dq.launches,
+                     "flash_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+                     "fused_adam": fadam.fused_adam_update.launches})
+with open(os.path.join(out, "attempts.jsonl"), "a") as f:
+    f.write(json.dumps(rec) + "\\n")
+engine.close()
+sys.exit(code)
+'''
+
+
+def launch_config(save_dir):
+    return {"train_micro_batch_size_per_gpu": 2,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "fused_kernel": True}},
+            "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+            "resilience": {"enabled": True, "save_dir": save_dir, "watch_signals": True,
+                           "keep_n": 2}}
+
+
+def launcher_phase():
+    """``launcher.runner.main`` with ``--elastic_training`` (the
+    ``ElasticAgent``) and ``--max_elastic_restarts 0`` on a one-line
+    ``localhost slots=1`` hostfile, starting LAUNCH_SCRIPT on the card with
+    the resilience block on: after step LAUNCH_SIGTERM_AFTER the script
+    SIGTERMs itself, the next step ends in an emergency save and exit code
+    75, the agent relaunches (a budget of 0 failures: a counted relaunch
+    would stop there), the script auto-resumes and ends at LAUNCH_STEPS.
+    Checks: exit 0, two attempts, the child's RANK / WORLD_SIZE /
+    LOCAL_RANK / LOCAL_WORLD_SIZE / CUDA_VISIBLE_DEVICES, the second
+    attempt starting at the emergency step, and the union of both
+    attempts' losses bit-equal to an uninterrupted run of the same config
+    in this process (resilience off)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.launcher import runner
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    os.makedirs(LAUNCH_DIR)
+    script = os.path.join(LAUNCH_DIR, "train.py")
+    with open(script, "w") as f:
+        f.write(LAUNCH_SCRIPT)
+    with open(os.path.join(LAUNCH_DIR, "ds_config.json"), "w") as f:
+        json.dump(launch_config(os.path.join(LAUNCH_DIR, "ckpt")), f)
+    hostfile = os.path.join(LAUNCH_DIR, "hostfile")
+    with open(hostfile, "w") as f:
+        f.write("localhost slots=1\n")
+    sig_before = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    rc = runner.main(["--hostfile", hostfile, "--elastic_training", "--max_elastic_restarts",
+                      "0", "--master_port", "29561", script, ROOT, LAUNCH_DIR, str(LAUNCH_STEPS),
+                      str(LAUNCH_SIGTERM_AFTER)])
+    wall = time.perf_counter() - t0
+    check(signal.getsignal(signal.SIGTERM) == sig_before,
+          "launcher: the agent's process changed its SIGTERM handler")
+    with open(os.path.join(LAUNCH_DIR, "attempts.jsonl")) as f:
+        attempts = [json.loads(line) for line in f]
+    check(rc == 0 and [a["exit_code"] for a in attempts] == [75, 0],
+          f"launcher: rc {rc}, attempts' exit codes {[a['exit_code'] for a in attempts]}")
+    # the child's one card is the first this process was given
+    card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
+    want_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                "CUDA_VISIBLE_DEVICES": card, "MASTER_ADDR": "localhost", "MASTER_PORT": "29561"}
+    check(all(a["env"] == want_env for a in attempts), f"launcher: child env "
+          f"{[a['env'] for a in attempts]}")
+    stop = LAUNCH_SIGTERM_AFTER + 1
+    check(attempts[0]["end_step"] == stop and attempts[1]["start_step"] == stop
+          and attempts[1]["end_step"] == LAUNCH_STEPS,
+          f"launcher: attempts ran {[(a['start_step'], a['end_step']) for a in attempts]}")
+    got = {int(k): v for a in attempts for k, v in a["losses"].items()}
+    cfg = launch_config("")
+    del cfg["resilience"]
+    engine, *_ = deepspeed_tpu_torch.initialize(model=llama_model("tiny", max_seq_len=128),
+                                                config=cfg, seed=0)
+    control = {}
+    while engine.global_steps < LAUNCH_STEPS:
+        gen = torch.Generator(device=DEV).manual_seed(1000 + engine.global_steps)
+        batch = torch.randint(0, 256, (1, 2, 128), generator=gen, device=DEV)
+        loss = engine.train_batch(batch)
+        control[engine.global_steps] = float(loss)
+    del engine
+    check(got == control, f"launcher: losses {got} != the uninterrupted run's {control}")
+    launches = {k: sum(a["launches"][k] for a in attempts) for k in attempts[0]["launches"]}
+    check(all(v > 0 for v in launches.values()), f"launcher: child launches {launches}")
+    rec = {"rc": rc, "attempts": [{k: a[k] for k in ("start_step", "end_step", "exit_code",
+                                                     "env", "launches")} for a in attempts],
+           "losses": got, "losses_bit_equal_to_control": True, "wall_s": wall,
+           "launches": launches, "reduced": "llama tiny widths (phase 37 checks the same "
+                                             "emergency save and resume at llama-1b width)"}
+    shutil.rmtree(os.path.join(LAUNCH_DIR, "ckpt"), ignore_errors=True)
+    print(json.dumps({"launcher": rec}))
+    return rec
+
+
+# -- env report, the fp8 quantizer, the Hessian eigenvalue, see_memory_usage -----
+
+EIG_N = 2048
+EIG_TOL = 1e-3  # relative to the known top eigenvalue (5.0), 20 power iterations
+
+
+def aux_phase():
+    """``env_report`` once (its JSON printed); ``FP_Quantize`` fp8 (e4m3 and
+    e5m2) on a seeded tensor of llama-1b's ``embed.tok`` shape, codes and
+    scales bit-equal card vs CPU; ``top_eigenvalue`` of a 2048-wide
+    quadratic whose spectrum is known (top 5.0, the next -2.0) within
+    EIG_TOL; ``see_memory_usage`` reading the caching allocator."""
+    from deepspeed_tpu_torch import env_report
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.ops.fp_quantizer import FP_Quantize
+    from deepspeed_tpu_torch.runtime.eigenvalue import top_eigenvalue
+    from deepspeed_tpu_torch.runtime.utils import see_memory_usage
+
+    rep = env_report.report()
+    print(json.dumps({"env_report": rep}))
+    check(rep["cuda_available"] and rep["device_count"] >= 1
+          and all(k["built"] for k in rep["kernels"].values()),
+          f"aux: env_report {({n: k['built'] for n, k in rep['kernels'].items()})}")
+    cfg = llama_model("1b").config
+    g = torch.Generator(device=DEV).manual_seed(30)
+    tok = torch.randn((cfg.vocab_size, cfg.hidden_size), generator=g, device=DEV) * 0.02
+    fp8 = {}
+    for fmt in ("e4m3", "e5m2"):
+        q = FP_Quantize(group_size=512, q_bits=8, fmt=fmt)
+        codes, scales = q.quantize(tok)
+        ccodes, cscales = q.quantize(tok.cpu())
+        torch.cuda.synchronize()
+        same = (torch.equal(codes.view(torch.uint8).cpu(), ccodes.view(torch.uint8))
+                and torch.equal(scales.cpu().view(torch.int32), cscales.view(torch.int32)))
+        check(same, f"aux: fp8 {fmt} codes or scales differ card vs CPU")
+        back = q.dequantize(codes, scales, tok.shape)
+        fp8[fmt] = {"bit_equal_card_cpu": same, "ms": device_ms(lambda: q.quantize(tok), iters=5),
+                    "max_rel_err": ((back - tok).abs().max() / tok.abs().max()).item()}
+    rng = np.random.RandomState(0)
+    lam = np.concatenate([[5.0, -2.0], rng.uniform(-1.5, 1.5, EIG_N - 2)])
+    qm, _ = np.linalg.qr(rng.randn(EIG_N, EIG_N))
+    A = torch.from_numpy((qm * lam) @ qm.T).float().to(DEV)
+    x = torch.randn(EIG_N, generator=g, device=DEV)
+    t = time.perf_counter()
+    eig = float(top_eigenvalue(lambda ps: 0.5 * ps[0] @ (A @ ps[0]), [x],
+                               generator=torch.Generator(device=DEV).manual_seed(31)))
+    eig_s = time.perf_counter() - t
+    check(abs(eig - 5.0) <= EIG_TOL * 5.0, f"aux: top eigenvalue {eig} != 5.0")
+    del tok, A
+    stats = see_memory_usage("aux_phase", force=True)
+    check(stats["bytes_in_use"] == torch.cuda.memory_allocated()
+          and stats["bytes_limit"] == torch.cuda.mem_get_info()[1],
+          f"aux: see_memory_usage {stats}")
+    rec = {"fp8_embed_tok": fp8, "shape": [cfg.vocab_size, cfg.hidden_size],
+           "top_eigenvalue": eig, "eigenvalue_s": eig_s, "memory": stats,
+           "kernel_flop_reports": kernel_flop_reports()}
+    print(json.dumps({"aux": rec}))
+    return rec
+
+
+def kernel_flop_reports():
+    """One launch of each wrapper past the flash kernels (whose reports
+    phase 8b holds) under ``flops_profiler.count_flops``, at small bf16
+    shapes: each must report, under its own name, its module's
+    ``kernel_flops`` (PERF.md §6's count) and nothing else."""
+    from deepspeed_tpu_torch.ops import evoformer_attn as ev
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops import wq_matmul as wq
+    from deepspeed_tpu_torch.profiling.flops_profiler import count_flops
+
+    g = torch.Generator(device=DEV).manual_seed(32)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+    P, H, F, E, rows = 256, 512, 256, 4, 128
+    x, dy, w = rnd(P, H), rnd(P, F), rnd(E, H, F)
+    be = torch.tensor([3, 1], dtype=torch.int32, device=DEV)
+    codes, scale = wq.quantize_weight(rnd(1024, 512, dtype=torch.float32), bits=8)
+    xq = rnd(8, 1024)
+    scfg = sa.FixedSparsityConfig(num_heads=4, block=64, num_local_blocks=2,
+                                  num_global_blocks=1)
+    sq, sk, sv = (rnd(1, 512, 4, 64) for _ in range(3))
+    B, S, Q, K, NH, D = 1, 2, 64, 64, 4, 32
+    eq, ek, evv, edo = (rnd(B, S, Q, NH, D) for _ in range(4))
+    b1, b2 = rnd(B, S, K, dtype=torch.float32), rnd(B, NH, Q, K, dtype=torch.float32)
+    o, lse = ev.evoformer_attn_fwd(eq, ek, evv, b1, b2)
+    delta = ev._delta(o, edo)
+    cases = {
+        "grouped_matmul": (lambda: gm.grouped_matmul(x, w, be, rows), gm.kernel_flops(P, H, F)),
+        "grouped_matmul_dx": (lambda: gm.grouped_matmul_dx(dy, w, be, rows),
+                              gm.kernel_flops(P, H, F)),
+        "grouped_matmul_dw": (lambda: gm.grouped_matmul_dw(x, dy, be, E, rows),
+                              gm.kernel_flops(P, H, F)),
+        "wq_matmul": (lambda: wq.wq_matmul(xq, codes, scale, bits=8),
+                      wq.kernel_flops(8, 1024, 512)),
+        "sparse_attention": (lambda: sa.sparse_attention(sq, sk, sv, scfg, causal=True),
+                             sa.kernel_flops(sa._layout(scfg, 512, 4), 1, 4, 64, 64, True)),
+        "evoformer_attn_fwd": (lambda: ev.evoformer_attn_fwd(eq, ek, evv, b1, b2),
+                               ev.kernel_flops(eq, ek, "fwd")),
+        "evoformer_attn_bwd_dq": (lambda: ev.evoformer_attn_bwd_dq(
+            eq, ek, evv, edo, lse, delta, b1, b2), ev.kernel_flops(eq, ek, "dq")),
+        "evoformer_attn_bwd_dkv": (lambda: ev.evoformer_attn_bwd_dkv(
+            eq, ek, evv, edo, lse, delta, b1, b2), ev.kernel_flops(eq, ek, "dkv")),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (fn, want) in cases.items():
+            with count_flops() as c:
+                fn()
+            out[name] = c.kernels.get(name)
+            check(c.kernels == {name: want}, f"aux: {name} reported {c.kernels}, not {want}")
+    torch.cuda.synchronize()
+    return out
 
 
 # -- phase 9: card vs CPU training parity --------------------------------------
@@ -2625,7 +3252,8 @@ def telemetry_phase(fa, pa):
                 o["launches"] += k["launches"]
                 o["seconds"] += k["seconds"]
         tl.append({"step": r["step"], "prefill_calls": r["prefill_calls"],
-                   "decode_bodies": r["decode_bodies"], "wall_ms": wall * 1e3,
+                   "decode_bodies": r["decode_bodies"],
+                   "events_outside_window": r["events_outside_window"], "wall_ms": wall * 1e3,
                    "device_busy_ms": r.get("device_busy_seconds", 0.0) * 1e3,
                    "host_gap_share": cats["host_gap"] / wall,
                    "categories_ms": {c: v * 1e3 for c, v in cats.items() if v},
@@ -2881,7 +3509,7 @@ def wq_case(wq, name, M, K, N, bits, dtype, group=128, timed=False, seed=0):
         def new():
             return wq.wq_matmul(x, codes, scale, **kw)
 
-        if BASE is not None:
+        if has_previous("wq_matmul"):
             # the parent's build on the same inputs: its bits, and its time
             # in turns
             def prev():
@@ -3387,7 +4015,7 @@ def gmm_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_tokens=No
         def new():
             return gm.grouped_matmul(x, w, be, block_rows, n_used)
 
-        if BASE is not None:
+        if has_previous("grouped_matmul"):
             # the parent's build on the same inputs: its bits, and its time
             # in turns
             def prev():
@@ -3716,7 +4344,7 @@ def gmm_bwd_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_token
     check(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
           f"gmm bwd {name}: outputs differ between two calls")
     rec["bit_equal_across_calls"] = True
-    if BASE is not None:  # the parent's build of G' and G'' on the same inputs
+    if has_previous("grouped_matmul"):  # the parent's build of G' and G'' on the same inputs
         prev = (BASE.swapped("grouped_matmul", new_dx), BASE.swapped("grouped_matmul", new_dw))
         rec["dx_previous_splits"] = BASE.libs["grouped_matmul"].dstpu_grouped_matmul_dx_splits(
             dy.data_ptr(), w.data_ptr(), gm.op_builder.dtype_code(dtype), P, H, F, E,
@@ -3759,7 +4387,7 @@ def gmm_bwd_case(gm, name, P, H, F, block_rows, dtype, E=MIXTRAL_E, routed_token
                  lambda: torch._grouped_mm(dy, w.transpose(1, 2), offs=offs)),
                 ("dw", new_dw, dw_bytes, lambda: torch._grouped_mm(x.t(), dy, offs=offs))):
             b_ms, b_by = bound(nbytes, ops, dtype)
-            if BASE is not None:  # in rounds of turns with the parent's build
+            if has_previous("grouped_matmul"):  # in rounds of turns with the parent's build
                 rs = [turns(lambda fn=fn: BASE.swapped("grouped_matmul", fn), fn)
                       for _ in range(rounds)]
                 rec[f"{what}_previous_ms"] = sum(r[0] for r in rs) / rounds
@@ -4088,7 +4716,7 @@ def sparse_case(sa, name, cfg, causal, dtype, shape=None, timed=False, seed=0,
     def prev():  # the parent's library under today's wrapper
         return BASE.swapped("sparse_attention", new)
 
-    if BASE is not None:
+    if has_previous("sparse_attention"):
         same = torch.equal(prev(), out)
         check(same, f"sparse {name}: other bits than the parent's build")
         rec["bit_equal_to_previous"] = same
@@ -4105,7 +4733,7 @@ def sparse_case(sa, name, cfg, causal, dtype, shape=None, timed=False, seed=0,
         if causal:
             mask &= torch.ones((S, S), dtype=torch.bool, device=DEV).tril()
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        if BASE is not None:  # the parent's build on the same inputs, in turns
+        if has_previous("sparse_attention"):  # the parent's build on the same inputs, in turns
             rec["previous_ms"], ms, rec["turns_prev_new_new_prev"] = turns(prev, new)
         else:
             ms = device_ms(new)
@@ -4347,7 +4975,7 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
                for x, y in zip((dq, db1, dk, dv, db2), again))
     check(same, f"evo {name}: gradients differ between two calls")
     rec["bit_equal_across_calls"] = same
-    if BASE is not None:
+    if has_previous("evoformer_attn"):
         # E, E' and E'' are the parent's build's: the same bits from the
         # same inputs (and lse, delta)
         prev = BASE.swapped("evoformer_attn", lambda: (
@@ -4439,7 +5067,7 @@ def evo_case(ev, name, shape, dtype, biases=("b1", "b2"), K=None, masked_row=Non
         def new_dq():
             return ev.evoformer_attn_bwd_dq(q, k, v, do, lse, delta, b1f, b2f)
 
-        if BASE is not None:
+        if has_previous("evoformer_attn"):
             # the parent's E, E' and E'' on the same inputs, timed in turns
             rec["previous_fwd_ms"], fwd_ms, rec["turns_prev_new_new_prev"] = turns(
                 lambda: BASE.swapped("evoformer_attn", new_fwd), new_fwd)
@@ -6133,7 +6761,10 @@ def main() -> int:
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     global BASE
-    register_baselines(op_builder)
+    previous = register_baselines(op_builder)
+    print(json.dumps({"previous_builds": list(previous),
+                      "previous_identical_skipped": [n for n in BASELINE_CANDIDATES
+                                                     if n not in previous]}))
     t0 = time.perf_counter()
     secs = op_builder.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per kernel "
@@ -6152,7 +6783,7 @@ def main() -> int:
     # the kernels that spill, by name
     print(json.dumps({"ptxas_spills": spills}))
 
-    BASE = Baseline(op_builder)
+    BASE = Baseline(op_builder, previous)
     warm_clocks()
     phase_s = {}
 
@@ -6183,6 +6814,11 @@ def main() -> int:
     tele = phase(telemetry_phase, fa, pa)
     train = phase(train_phase, fa, fadam)
     ttel = phase(train_telemetry_phase, fa, fadam, train)
+    mon = phase(monitor_profiler_phase, fa, fadam, train, ttel)
+    tune = phase(autotune_phase, fa, fadam)
+    launch = phase(launcher_phase)
+    sd = phase(spatial_phase, fa)
+    aux = phase(aux_phase)
     tpar = phase(train_parity_phase)
     qeng = phase(quant_engine_phase, fa, pa, wq)
     v1 = phase(inference_v1_phase, qz)
@@ -6256,7 +6892,11 @@ def main() -> int:
     ckpt_l = {k: ckpt["llama1b"]["launches"][k] + ckpt["llama7b_offload"]["launches"][k]
               for k in train_l}
     for k in train_l:
-        train_l[k] += lm_train_l[k] + ckpt_l[k] + ttel["launches"][k]
+        train_l[k] += (lm_train_l[k] + ckpt_l[k] + ttel["launches"][k] + mon["launches"][k]
+                       + tune["launches"][k] + launch["launches"][k])
+    # the paths this slice added, by wrapper
+    slice_paths = {k: {"monitor_profiler": mon["launches"][k], "autotune": tune["launches"][k],
+                       "launcher_child": launch["launches"][k]} for k in train_l}
     bwd_shape = "B=4 S=1024 NH=32 KVH=8 D=64 bf16 causal"
     main_sparse = sparse[0]
     main_evo = evo[0]
@@ -6266,7 +6906,8 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:38",
          "launches": serve_fwd + q_fwd + train_l["flash_fwd"] + moe_fwd + falcon_l["flash"]
-                     + fams_l["flash"] + prefix_l["flash"] + tele["launches"]["flash"],
+                     + fams_l["flash"] + prefix_l["flash"] + tele["launches"]["flash"]
+                     + sd["launches"],
          "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
                               "prefix_serving": prefix_l["flash"],
                               "telemetry_serving": tele["launches"]["flash"],
@@ -6278,7 +6919,8 @@ def main() -> int:
                               "gpt2_training": gpt2["launches"]["flash_fwd"],
                               "bert_training": bert["launches"]["flash_fwd"],
                               "checkpoint_training": ckpt_l["flash_fwd"],
-                              "train_telemetry": ttel["launches"]["flash_fwd"]},
+                              "train_telemetry": ttel["launches"]["flash_fwd"],
+                              **slice_paths["flash_fwd"], "diffusers": sd["launches"]},
          "max_abs_err": max(r["max_abs_err"] for r in flash), "checked": True,
          "ms": main_flash["ms"], "kernel_ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"], "bound_ms": main_flash["bound_ms"],
@@ -6286,7 +6928,9 @@ def main() -> int:
          "previous_ms": main_flash.get("previous_ms"),
          "shape": "B=1 S=1024 NH=32 KVH=8 D=64 bf16 causal",
          "timed_cases": timed(flash, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                      "previous_ms", "bound_share"))},
+                                      "previous_ms", "bound_share")),
+         "sd_cases": {"shape": "B=2 NH=8 D=40 fp16 non-causal (SD v1.5 first level)",
+                      **sd["kernel_alone"]}},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:132",
@@ -6295,7 +6939,8 @@ def main() -> int:
                               "gpt2_training": gpt2["launches"]["flash_bwd_dq"],
                               "bert_training": bert["launches"]["flash_bwd_dq"],
                               "checkpoint_training": ckpt_l["flash_bwd_dq"],
-                              "train_telemetry": ttel["launches"]["flash_bwd_dq"]},
+                              "train_telemetry": ttel["launches"]["flash_bwd_dq"],
+                              **slice_paths["flash_bwd_dq"]},
          "max_abs_err": max(r["dq_max_abs_err"] for r in bwd if "dq_max_abs_err" in r),
          "checked": True,
          "ms": main_bwd["dq_ms"], "plain_ms": main_bwd["plain_ms"],
@@ -6313,7 +6958,8 @@ def main() -> int:
                               "gpt2_training": gpt2["launches"]["flash_bwd_dkv"],
                               "bert_training": bert["launches"]["flash_bwd_dkv"],
                               "checkpoint_training": ckpt_l["flash_bwd_dkv"],
-                              "train_telemetry": ttel["launches"]["flash_bwd_dkv"]},
+                              "train_telemetry": ttel["launches"]["flash_bwd_dkv"],
+                              **slice_paths["flash_bwd_dkv"]},
          "max_abs_err": max(max(r["dk_max_abs_err"], r["dv_max_abs_err"]) for r in bwd
                            if "dk_max_abs_err" in r),
          "checked": True, "ms": main_bwd["dkv_ms"], "plain_ms": main_bwd["plain_ms"],
@@ -6359,7 +7005,8 @@ def main() -> int:
                               "bert_training": lm_train_l["fused_adam"]
                               - gpt2["launches"]["fused_adam"],
                               "checkpoint_training": ckpt_l["fused_adam"],
-                              "train_telemetry": ttel["launches"]["fused_adam"]},
+                              "train_telemetry": ttel["launches"]["fused_adam"],
+                              **slice_paths["fused_adam"]},
          "max_abs_err": max(r["max_abs_err"] for r in adam), "checked": True,
          "ms": main_adam["ms"], "plain_ms": main_adam["plain_ms"],
          "bound_ms": main_adam["bound_ms"], "bound_by": main_adam["bound_by"],
@@ -6606,6 +7253,16 @@ def main() -> int:
             "load_device_peak_above_gb", "master_bit_equal", "reduced")},
         "disk_free_gb": ckpt["disk_free_gb"], "mem_available_gb": ckpt["mem_available_gb"],
         "host_rss_start_gb": ckpt["host_rss_start_gb"], "card": smi}}))
+    print(json.dumps({"slice_summary": {
+        "monitor_profiler": {k: mon[k] for k in ("derived_batch_micro_gas", "tensorboard",
+                                                 "syncs", "profile")},
+        "autotune": {k: tune[k] for k in ("trials", "best", "tune_s", "pruned")},
+        "launcher": {k: launch[k] for k in ("rc", "attempts", "wall_s")},
+        "spatial": sd, "aux": aux,
+        "phase_seconds": {k: phase_s[k] for k in ("monitor_profiler_phase", "autotune_phase",
+                                                  "launcher_phase", "spatial_phase",
+                                                  "aux_phase")},
+        "card": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -60,7 +60,10 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     batch draws from it.
 
     ``hybrid_engine.enabled`` returns a ``DeepSpeedHybridEngine``, whose
-    ``generate`` reads the training engine's live weights.
+    ``generate`` reads the training engine's live weights.  An enabled
+    ``elasticity`` block sets the batch size, micro batch and gradient
+    accumulation for the world size (one rank), and refuses batch sizes
+    given beside it unless ``ignore_non_elastic_batch_info``.
 
     ``model_parameters``, when given, is what the engine trains instead of
     the model's random init: a JAX-layout tree of numpy arrays or a port
@@ -70,6 +73,16 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     if config is None and args is not None and hasattr(args, "deepspeed_config"):
         config = args.deepspeed_config
     ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+    if ds_config.elasticity.enabled:
+        # the batch sizes derived from the world size keep the global batch
+        # across restarts at another scale; the engine trains on one rank
+        from .elasticity.elasticity import apply_elastic_config
+        from .utils.logging import logger
+
+        info = apply_elastic_config(ds_config, world_size=1)
+        logger.info(f"elasticity: world=1 -> train_batch={ds_config.train_batch_size} "
+                    f"micro={info['micro_batch_per_gpu']} "
+                    f"gas={info['gradient_accumulation_steps']}")
     cls = DeepSpeedTPUEngine
     if ds_config.hybrid_engine.enabled:
         from .runtime.hybrid_engine import DeepSpeedHybridEngine

@@ -801,6 +801,14 @@ class InferenceEngineV2:
             t.spill_seconds = t.restore_seconds = 0.0
         self._cache_pub = {"hits": 0, "misses": 0, "evictions": 0}
 
+    def publish_metrics(self, monitor, step: int) -> None:
+        """The serving counters of :meth:`cache_stats` through a monitor
+        writer (``monitor.monitor.MonitorMaster`` or any object with
+        ``write_events``), tagged ``serving/<name>``; host counters only,
+        nothing is read from the card."""
+        monitor.write_events([(f"serving/{k}", float(v), int(step))
+                              for k, v in self.cache_stats().items()])
+
     def tier_stats(self) -> Dict[str, float]:
         """The host tier's counters (``HostKVTier.stats``); {} with the
         tier off."""

@@ -40,7 +40,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..profiling.flops_profiler import report_kernel_flops
 from . import op_builder
+from .flash_attention import FLOPS_PER_PAIR
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -243,6 +245,13 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def kernel_flops(q: torch.Tensor, k: torch.Tensor, what: str) -> float:
+    """FLOPs of one E (``what`` "fwd"), E' ("dq") or E'' ("dkv") launch:
+    ``FLOPS_PER_PAIR[what] D`` for each (query, key) pair of each (b, s, h)."""
+    B, S, Q, K, H, D = _dims(q, k)
+    return FLOPS_PER_PAIR[what] * D * B * S * H * Q * K
+
+
 def _dims(q, k):
     if q.ndim != 5 or k.ndim != 5:
         raise ValueError(f"evoformer kernels take [B, S, N, H, D]; got {tuple(q.shape)}")
@@ -332,6 +341,7 @@ def evoformer_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "evoformer_attn_fwd")
     evoformer_attn_fwd.launches += 1
+    report_kernel_flops("evoformer_attn_fwd", kernel_flops(q, k, "fwd"))
     return o, lse
 
 
@@ -393,6 +403,7 @@ def evoformer_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "evoformer_attn_bwd_dq")
     evoformer_attn_bwd_dq.launches += 1
+    report_kernel_flops("evoformer_attn_bwd_dq", kernel_flops(q, k, "dq"))
     return dq, db1
 
 
@@ -484,6 +495,7 @@ def evoformer_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "evoformer_attn_bwd_dkv")
     evoformer_attn_bwd_dkv.launches += 1
+    report_kernel_flops("evoformer_attn_bwd_dkv", kernel_flops(q, k, "dkv"))
     return dk, dv, db2
 
 

@@ -15,7 +15,9 @@ Each wrapper (:func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
 :func:`flash_attention_bwd_dkv`) launches its kernel for CUDA tensors and
 runs the plain version for CPU tensors — the tensor's device is the only
 switch, and a CUDA tensor the kernel cannot take raises.  Each launch adds
-one to the wrapper's ``launches``.
+one to the wrapper's ``launches`` and reports its FLOPs to the FLOPs
+profiler (``profiling.flops_profiler.report_kernel_flops``: ``4 D``, ``6 D``
+and ``8 D`` a computed (query, key) pair).
 
 :func:`flash_attention` is the training entry (the counterpart of the JAX
 ``flash_attention``): a ``torch.autograd.Function`` whose forward is kernel
@@ -46,6 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..profiling.flops_profiler import attention_pairs, report_kernel_flops
 from . import op_builder
 
 NEG_INF = -1e30
@@ -54,6 +57,12 @@ NEG_INF = -1e30
 #: the widest head of the compile-time instantiations; past it the kernels
 #: take D as an argument (the runtime-head-dim path, fp32 on the FMA pipes)
 WIDEST_INSTANCE = 256
+
+
+#: FLOPs a computed (query, key) pair costs each kernel, per unit of D
+#: (PERF.md §6's bounds): A forms S = QK^T and PV; A' recomputes S and dP =
+#: dO V^T and forms dS K; A'' recomputes both and forms P^T dO and dS^T Q
+FLOPS_PER_PAIR = {"fwd": 4.0, "dq": 6.0, "dkv": 8.0}
 
 
 def kernel_takes_head_dim(D: int) -> bool:
@@ -213,6 +222,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    report_kernel_flops("flash_attention_fwd", FLOPS_PER_PAIR["fwd"] * D
+                        * attention_pairs(B, NH, Sq, Sk, causal, q_offset, valid_k))
     return o, lse
 
 
@@ -337,6 +348,13 @@ def _bwd_launch(fn: str, q, k, v, do, lse, delta, slopes, causal, scale, outs):
     op_builder.check(err, fn[len("dstpu_"):])
 
 
+def _bwd_pairs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> int:
+    """(query, key) pairs the backward kernels compute (query i sees key j
+    at or before i when causal)."""
+    B, Sq, NH, _ = q.shape
+    return attention_pairs(B, NH, Sq, k.shape[1], causal)
+
+
 def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
     return t if t.shape[-1] == D else t[..., :D].contiguous()
 
@@ -356,6 +374,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _bwd_launch("dstpu_flash_attention_bwd_dq", q, k, v, do, lse, delta, slopes, causal,
                 scale, (dq,))
     flash_attention_bwd_dq.launches += 1
+    report_kernel_flops("flash_attention_bwd_dq",
+                        FLOPS_PER_PAIR["dq"] * D * _bwd_pairs(q, k, causal))
     return _unpad(dq, D)
 
 
@@ -376,6 +396,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _bwd_launch("dstpu_flash_attention_bwd_dkv", q, k, v, do, lse, delta, slopes, causal,
                 scale, (dk, dv))
     flash_attention_bwd_dkv.launches += 1
+    report_kernel_flops("flash_attention_bwd_dkv",
+                        FLOPS_PER_PAIR["dkv"] * D * _bwd_pairs(q, k, causal))
     return _unpad(dk, D), _unpad(dv, D)
 
 
@@ -414,7 +436,10 @@ class _FlashAttention(torch.autograd.Function):
         return o
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, do):
+        # the backward is kernels A' and A'' (their plain version on the
+        # CPU), not differentiable ops: a second derivative raises
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
                                          sm_scale=ctx.sm_scale,

@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from ..profiling.flops_profiler import report_kernel_flops
 from . import op_builder
 
 _P = ctypes.c_void_p
@@ -95,6 +96,12 @@ def _dw_shapes(x: torch.Tensor, dy: torch.Tensor, block_expert: torch.Tensor,
                          f"block_expert [{P // max(block_rows, 1)}], got "
                          f"{tuple(block_expert.shape)}")
     return P, H, dy.shape[1]
+
+
+def kernel_flops(P: int, H: int, F: int) -> float:
+    """FLOPs of one G, G' or G'' launch (``PERF.md`` §6): ``2 P H F``, every
+    row of x counted, the blocks past ``n_used`` too."""
+    return 2.0 * P * H * F
 
 
 def _check_n_used(n_used, x: torch.Tensor) -> None:
@@ -225,6 +232,7 @@ def _grouped_matmul(x, w, block_expert, block_rows, n_used):
     out = _launch_gmm("dstpu_grouped_matmul", x, w, block_expert, n_used, P, H, F, E,
                       block_rows, F)
     grouped_matmul.launches += 1
+    report_kernel_flops("grouped_matmul", kernel_flops(P, H, F))
     return out
 
 
@@ -242,6 +250,7 @@ def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor, block_expert: torch.Ten
     out = _launch_gmm("dstpu_grouped_matmul_dx", dy, w, block_expert, n_used, P, H, F, E,
                       block_rows, H)
     grouped_matmul_dx.launches += 1
+    report_kernel_flops("grouped_matmul_dx", kernel_flops(P, H, F))
     return out
 
 
@@ -267,6 +276,7 @@ def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor, block_expert: torch.Ten
             torch.cuda.current_stream(x.device).cuda_stream)
     op_builder.check(err, "grouped_matmul_dw")
     grouped_matmul_dw.launches += 1
+    report_kernel_flops("grouped_matmul_dw", kernel_flops(P, H, F))
     return out
 
 

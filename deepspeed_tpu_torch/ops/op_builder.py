@@ -77,12 +77,21 @@ def _nvcc() -> str:
                            "CUDA kernels are built from source at first use")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
+def source_digest(src: Path) -> str:
+    """sha256 of a kernel source, each shared header as its build finds it
+    (the source's own directory first, then ``csrc/``, as nvcc resolves
+    ``#include "..."``) and the flags: two sources with one digest build
+    the same library."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted({p.name for p in (*CSRC.glob("*.cuh"), *src.parent.glob("*.cuh"))}):
+        own = src.parent / header
+        h.update((own if own.exists() else CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS[:-1]).encode())  # not the checkout's path
-    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()
+
+
+def _lib_path(name: str) -> Path:
+    return build_dir() / f"lib{name}_{source_digest(SOURCES[name])[:16]}.so"
 
 
 _lock = threading.Lock()

@@ -42,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..profiling.flops_profiler import report_kernel_flops
 from . import op_builder
 from .flash_attention import (WIDEST_INSTANCE, check_head_dim, pad_head_dim,
                               padded_head_dim)
@@ -188,6 +189,19 @@ def _layout(config: SparsityConfig, S: int, H: int) -> np.ndarray:
     if layout.shape[0] not in (1, H):
         raise ValueError(f"layout heads {layout.shape[0]} != {H}")
     return layout
+
+
+def kernel_flops(layout: np.ndarray, B: int, H: int, D: int, block: int,
+                 causal: bool) -> float:
+    """FLOPs of one S launch (``PERF.md`` §6): ``4 D`` a (query, key) pair
+    of the layout's visible blocks for every (b, h), a diagonal block
+    counting half under causal."""
+    on = np.broadcast_to(np.asarray(layout) > 0, (H, *np.shape(layout)[1:]))
+    if causal:
+        blocks = np.tril(on, -1).sum() + 0.5 * np.diagonal(on, axis1=1, axis2=2).sum()
+    else:
+        blocks = on.sum()
+    return 4.0 * D * block * block * B * float(blocks)
 
 
 # --------------------------------------------------------------- plain
@@ -462,6 +476,8 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "sparse_attention")
     sparse_attention.launches += 1
+    report_kernel_flops("sparse_attention",
+                        lambda: kernel_flops(layout, B, H, D, config.block, causal))
     return o if Dk == D else o[..., :D].contiguous()
 
 
@@ -494,4 +510,6 @@ def _sparse_wgmma(q, k, v, config, layout, causal, D, Dk):
             torch.cuda.current_stream(q.device).cuda_stream)
     op_builder.check(err, "sparse_attention")
     sparse_attention.launches += 1
+    report_kernel_flops("sparse_attention",
+                        lambda: kernel_flops(layout, B, H, D, config.block, causal))
     return o if Dk == D else o[..., :D].contiguous()

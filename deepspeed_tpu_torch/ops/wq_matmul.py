@@ -41,6 +41,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..profiling.flops_profiler import report_kernel_flops
 from . import op_builder
 
 _P = ctypes.c_void_p
@@ -146,6 +147,11 @@ def wq_matmul_plain(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *
     return (x.reshape(-1, K).float() @ w).to(x.dtype).reshape(*x.shape[:-1], N)
 
 
+def kernel_flops(M: int, K: int, N: int) -> float:
+    """FLOPs of one W launch (``PERF.md`` §6): ``2 M K N``."""
+    return 2.0 * M * K * N
+
+
 def kernel_takes_group(group: int, bits: int) -> bool:
     """The groups kernel W takes on the card: every group the reference
     takes, any positive one (even for int4; it must also divide the padded
@@ -219,6 +225,7 @@ def wq_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor, *,
             torch.cuda.current_stream(x.device).cuda_stream)
     op_builder.check(err, "wq_matmul")
     wq_matmul.launches += 1
+    report_kernel_flops("wq_matmul", kernel_flops(M, K, N))
     return out.reshape(*x.shape[:-1], N)
 
 

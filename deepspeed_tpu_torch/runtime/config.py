@@ -16,7 +16,12 @@ the ``activation_checkpointing`` block, which configures
 ``telemetry`` block (``telemetry.Telemetry`` on the training engine), the
 ``resilience`` block (``resilience.ResilienceManager``), and the
 ``sanity_checks``, ``wall_clock_breakdown`` and ``memory_breakdown`` flags
-(the last parsed and read by nothing, as in the JAX package).
+(the last parsed and read by nothing, as in the JAX package), the monitor
+blocks (``tensorboard``, ``wandb``, ``comet``, ``csv_monitor``:
+``monitor/monitor.py``), ``flops_profiler``
+(``profiling/flops_profiler.py``) and ``elasticity``
+(``elasticity/elasticity.py``; ``initialize`` derives the batch sizes
+from it).
 
 A block that turns on something the port does not have yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it; a block
@@ -42,19 +47,12 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 ROADMAP_ZERO = "ROADMAP Queue 1 #8 'ZeRO 1/2/3 across ranks'"
 ROADMAP_PIPE = "ROADMAP Queue 1 #12 'Pipeline'"
 ROADMAP_COMM = "ROADMAP Queue 1 #9 'Communication and ZeRO++'"
-ROADMAP_REST = "ROADMAP Queue 1 #17 'Remaining modules'"
 ROADMAP_SERVING = "ROADMAP Queue 1 #15 'Serving fleet'"
 
 #: top-level blocks whose "enabled" flag turns on an unported feature
 _ENABLED_BLOCKS = {
-    "tensorboard": ROADMAP_REST,
-    "wandb": ROADMAP_REST,
-    "comet": ROADMAP_REST,
-    "csv_monitor": ROADMAP_REST,
-    "flops_profiler": ROADMAP_REST,
     "comms_logger": ROADMAP_COMM,
     "gradient_compression": ROADMAP_COMM,
-    "elasticity": ROADMAP_REST,
 }
 #: top-level flags that are off unless true
 _TRUE_FLAGS = {"prescale_gradients": ROADMAP_COMM}
@@ -464,6 +462,59 @@ class ResilienceConfig(ConfigModel):
 
 
 @dataclasses.dataclass
+class FlopsProfilerConfig(ConfigModel):
+    """``flops_profiler``: profile the train step that ends at
+    ``profile_step`` (``profiling/flops_profiler.py``)."""
+
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
+@dataclasses.dataclass
+class MonitorConfig(ConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJob"
+
+
+@dataclasses.dataclass
+class TensorBoardConfig(MonitorConfig):
+    pass
+
+
+@dataclasses.dataclass
+class CSVConfig(MonitorConfig):
+    pass
+
+
+@dataclasses.dataclass
+class WandbConfig(ConfigModel):
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed_tpu"
+
+
+@dataclasses.dataclass
+class CometConfig(ConfigModel):
+    """The comet_ml writer's settings."""
+
+    enabled: bool = False
+    samples_log_interval: int = 100
+    project: Optional[str] = None
+    workspace: Optional[str] = None
+    api_key: Optional[str] = None
+    experiment_name: Optional[str] = None
+    experiment_key: Optional[str] = None
+    online: Optional[bool] = None
+    mode: Optional[str] = None
+
+
+@dataclasses.dataclass
 class SchedulerConfig(ConfigModel):
     type: Optional[str] = None
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -528,6 +579,12 @@ class DeepSpeedConfig:
     sanity_checks: bool
     telemetry: TelemetryConfig
     resilience: ResilienceConfig
+    flops_profiler: FlopsProfilerConfig
+    tensorboard: TensorBoardConfig
+    wandb: WandbConfig
+    comet: CometConfig
+    csv_monitor: CSVConfig
+    elasticity: Any
 
     def __init__(self, config: Any, dp_world_size: Optional[int] = None):
         if isinstance(config, str):
@@ -560,6 +617,14 @@ class DeepSpeedConfig:
         self.sanity_checks = bool(g("sanity_checks", False))
         self.telemetry = TelemetryConfig.from_dict(g("telemetry"))
         self.resilience = ResilienceConfig.from_dict(g("resilience"))
+        self.flops_profiler = FlopsProfilerConfig.from_dict(g("flops_profiler"))
+        self.tensorboard = TensorBoardConfig.from_dict(g("tensorboard"))
+        self.wandb = WandbConfig.from_dict(g("wandb"))
+        self.comet = CometConfig.from_dict(g("comet"))
+        self.csv_monitor = CSVConfig.from_dict(g("csv_monitor"))
+        from ..elasticity.elasticity import ElasticityConfig
+
+        self.elasticity = ElasticityConfig.from_dict(g("elasticity"))
         self.fp16 = FP16Config.from_dict(g("fp16"))
         self.bf16 = BF16Config.from_dict(g("bf16") or g("bfloat16"))
         zero = g("zero_optimization") or {}

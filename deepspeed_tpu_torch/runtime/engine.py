@@ -78,6 +78,15 @@ cost analysis to fall back on).  Resilience (the ``resilience`` block):
 a preemption watcher whose request is honoured at the next step boundary
 by an emergency save and ``PreemptionInterrupt`` (exit code 75), and
 auto-resume from the newest verified tag at construction.
+
+Monitors (``tensorboard``, ``wandb``, ``comet``, ``csv_monitor``:
+``monitor.MonitorMaster``): each step writes ``Train/Samples/train_loss``
+and ``Train/Samples/lr``, which costs one host sync (the loss and the
+step count in one copy) and only with a writer on; at each
+``steps_per_print`` boundary the telemetry registry's snapshot goes
+through the writers too.  ``flops_profiler``: the step that starts at
+``profile_step`` is timed (one fence) and one micro-step is priced apart
+(``profiling.flops_profiler``).
 """
 
 from __future__ import annotations
@@ -225,6 +234,17 @@ class DeepSpeedTPUEngine:
             sink=(self._observe_phase if self.telemetry is not None else None))
         self.tput_timer = ThroughputTimer(batch_size=self.config.train_batch_size or 1,
                                           steps_per_output=self.config.steps_per_print)
+        c = self.config
+        self.monitor = None
+        if c.tensorboard.enabled or c.csv_monitor.enabled or c.wandb.enabled or c.comet.enabled:
+            from ..monitor.monitor import MonitorMaster
+
+            self.monitor = MonitorMaster(c)
+        self.flops_profiler = None
+        if c.flops_profiler.enabled:
+            from ..profiling.flops_profiler import FlopsProfiler
+
+            self.flops_profiler = FlopsProfiler(self, c.flops_profiler)
         self.training_dataloader = (self.deepspeed_io(training_data)
                                     if training_data is not None else None)
         self._train_iter: Optional[RepeatingLoader] = None
@@ -649,6 +669,8 @@ class DeepSpeedTPUEngine:
             else:
                 raise ValueError("train_batch needs a batch or a data iterator")
             batch = stack_microbatches(micro)
+        if self.flops_profiler is not None:
+            self.flops_profiler.start_profile_maybe(self.global_steps, batch)
         self.tput_timer.start()
         skipped_before = self._skipped_steps_snapshot()
         if self._acc_dirty:
@@ -690,6 +712,8 @@ class DeepSpeedTPUEngine:
         if tm is not None and tm.sentinel is not None:
             tm.sentinel.observe_step([("train_batch", _shape_signature(batch))],
                                      step=self.global_steps)
+        if self.flops_profiler is not None:
+            self.flops_profiler.stop_profile_maybe(self.global_steps)
         if tm is not None:
             self._report_telemetry(loss, batch, time.perf_counter() - t0)
         self._report(loss)
@@ -816,6 +840,8 @@ class DeepSpeedTPUEngine:
         """DeepSpeed-compatible micro-step: loss AND gradients in one pass
         (accumulated); ``backward`` then only counts the micro-step."""
         self._check_live()
+        if self.flops_profiler is not None:
+            self.flops_profiler.start_profile_maybe(self.global_steps, batch, stacked=False)
         self.timers(FORWARD_GLOBAL_TIMER).start()
         with span("forward", cat="train", micro_step=self.micro_steps):
             grads, loss, _, _ = self._micro_grads(to_device(batch, self.device))
@@ -865,6 +891,8 @@ class DeepSpeedTPUEngine:
             if self.resilience is not None:
                 self.resilience.at_step_boundary(self)
         self.timers(STEP_GLOBAL_TIMER).stop()
+        if self.flops_profiler is not None:
+            self.flops_profiler.stop_profile_maybe(self.global_steps)
 
     def eval_batch(self, batch: Any) -> Any:
         """The model's ``apply_fn`` (else its loss) on the compute copy."""
@@ -1209,6 +1237,8 @@ class DeepSpeedTPUEngine:
                 self._m_mfu.set(_mfu(flops * self._win_steps, self._win_time,
                                      n_chips=1, device=self.device))
         self._win_time, self._win_steps, self._win_tokens = 0.0, 0, 0
+        if self.monitor is not None:
+            self.monitor.write_registry(tm.registry, self.global_steps)
         tm.export(self.global_steps)
 
     def _numerics_boundary(self, loss: Any) -> None:
@@ -1277,6 +1307,8 @@ class DeepSpeedTPUEngine:
         if self.telemetry is not None:
             self.telemetry.export(self.global_steps, force=True)
             self.telemetry.close()
+        if self.monitor is not None:
+            self.monitor.close()
         if self.resilience is not None:
             # restore the previous signal handlers — a later engine (or
             # the embedding process) owns SIGTERM/SIGINT again
@@ -1293,6 +1325,15 @@ class DeepSpeedTPUEngine:
 
     def _report(self, loss: Any) -> None:
         cfg = self.config
+        if self.monitor is not None and self.monitor.enabled and loss is not None:
+            # the monitor's one host sync a step: the loss and the step the
+            # schedule reads, in one copy
+            host = torch.stack([loss.detach().float().reshape(()),
+                                self.state.step.float()]).tolist()
+            step = self.global_steps
+            self.monitor.write_events([
+                ("Train/Samples/train_loss", host[0], step),
+                ("Train/Samples/lr", float(self.lr_schedule(int(host[1]))), step)])
         if cfg.wall_clock_breakdown and self.global_steps % cfg.steps_per_print == 0:
             self.timers.log([FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])
 

@@ -14,13 +14,18 @@ categories, and publishes a **measured** per-step decomposition:
   to exactly ONE category (:func:`decompose_events`, unchanged from the
   JAX package), so the categories sum to the step wall.
 * the record's ``kernels``: launches and device seconds per kernel name,
-  with the category each was filed under.
+  with the category each was filed under; its ``events_outside_window``:
+  how many of the step's device events the device clock placed outside
+  the step's window.
 * a per-capture Chrome-trace artifact merging the host span ring and
   the device events into ONE Perfetto file.
 
 The step's wall window is a ``record_function`` range
-(:data:`TIMELINE_RANGE`) read from the same trace, on the same clock as
-the kernels, not a host timer.  On the CPU the profiler has no device
+(:data:`TIMELINE_RANGE`) read from the same trace, not a host timer.  A
+device event is the step's when the host call that launched it lies in
+the window: the kernels' times are converted from the device clock and
+can land milliseconds off the host's, so they place an event in the
+step's time line but do not decide whether it belongs there.  On the CPU the profiler has no device
 events: the capture falls back to the span-derived host timeline and
 stamps ``measured: false``.  On CUDA a capture that yields no kernel
 event raises :class:`DeviceTraceMissing` instead of falling back.  While
@@ -83,8 +88,14 @@ _COLLECTIVE_PAT = (("all-reduce", "all_reduce"), ("all_reduce", "all_reduce"),
 
 #: the ``record_function`` range that marks a captured step's window
 TIMELINE_RANGE = "dstpu_timeline_step"
-#: the Chrome-trace categories of device work
+#: the Chrome-trace categories of device work, and of the host calls
+#: that launch it
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+#: seconds the profiler runs idle before and after a captured step on the
+#: card: it drops a device event whose converted time falls outside its
+#: own run, and that conversion can be milliseconds off the host's clock
+EDGE_S = 0.02
 
 
 class DeviceTraceMissing(RuntimeError):
@@ -203,6 +214,11 @@ def _device_trace_events(log_dir: str) -> Tuple[List[Dict[str, Any]],
         return [], [], None
     with open(paths[-1]) as f:
         chrome = json.load(f).get("traceEvents", []) or []
+    # each launch call's host time, by correlation id (a graph's kernels
+    # carry their cudaGraphLaunch's)
+    launched = {ev["args"]["correlation"]: float(ev["ts"]) / 1e6 for ev in chrome
+                if ev.get("ph") == "X" and ev.get("cat") in _LAUNCH_CATS
+                and "correlation" in (ev.get("args") or {})}
     events, artifact, window, pids = [], [], None, set()
     for ev in chrome:
         if ev.get("ph") != "X":
@@ -213,7 +229,8 @@ def _device_trace_events(log_dir: str) -> Tuple[List[Dict[str, Any]],
             pids.add(ev.get("pid"))
             events.append({"name": ev.get("name", ""),
                            "ts": float(ev["ts"]) / 1e6,
-                           "dur": float(ev["dur"]) / 1e6})
+                           "dur": float(ev["dur"]) / 1e6,
+                           "launch_ts": launched.get((ev.get("args") or {}).get("correlation"))})
         elif cat == "user_annotation" and ev.get("name") == TIMELINE_RANGE:
             window = (float(ev["ts"]) / 1e6, float(ev.get("dur", 0.0)) / 1e6)
     artifact.extend(ev for ev in chrome
@@ -222,9 +239,16 @@ def _device_trace_events(log_dir: str) -> Tuple[List[Dict[str, Any]],
 
 
 def _clip(events: List[Dict[str, Any]], t0: float, t1: float) -> List[Dict[str, Any]]:
-    """The parts of ``events`` inside ``[t0, t1]``."""
+    """The step's device work in the window ``[t0, t1]`` (host clock).  An
+    event launched inside the window is the step's, whole, wherever the
+    device clock's conversion placed it (milliseconds off, at times);
+    any other event counts for its part inside the window."""
     out = []
     for ev in events:
+        launch = ev.get("launch_ts")
+        if launch is not None and t0 <= launch <= t1:
+            out.append({"name": ev["name"], "ts": ev["ts"], "dur": ev["dur"]})
+            continue
         a, b = max(ev["ts"], t0), min(ev["ts"] + ev["dur"], t1)
         if b > a:
             out.append({"name": ev["name"], "ts": a, "dur": b - a})
@@ -353,10 +377,13 @@ class StepTimeline:
             return
         self._active = True
         self._force = False
-        if sync is None and self.device.type == "cuda":
+        on_card = self.device.type == "cuda"
+        if sync is None and on_card:
             def sync():
                 torch.cuda.synchronize(self.device)
         try:
+            if on_card:
+                time.sleep(EDGE_S)
             t0 = time.perf_counter()
             t0_us = _now_us()
             ok = False
@@ -373,6 +400,8 @@ class StepTimeline:
                     ann.__exit__(None, None, None)
                     wall = time.perf_counter() - t0
                     t1_us = _now_us()
+                    if on_card:
+                        time.sleep(EDGE_S)
                     stop_trace()
             if ok:
                 try:
@@ -399,10 +428,15 @@ class StepTimeline:
         window = None
         if trace_dir is not None:
             events, artifact_events, window = _device_trace_events(trace_dir)
+        outside = 0
         if window is not None and events:
-            # the step's wall on the kernels' clock; device work outside
-            # it (none after the in-window sync) is not this step's
-            events = _clip(events, window[0], window[0] + window[1])
+            # the step's wall window; device work launched before it
+            # (none after the in-window sync) counts for its part inside
+            w0, w1 = window[0], window[0] + window[1]
+            outside = sum(1 for ev in events if ev["launch_ts"] is not None
+                          and w0 <= ev["launch_ts"] <= w1
+                          and (ev["ts"] < w0 or ev["ts"] + ev["dur"] > w1))
+            events = _clip(events, w0, w1)
         measured = bool(events) and window is not None
         if self.device.type == "cuda" and not measured:
             raise DeviceTraceMissing(
@@ -413,7 +447,8 @@ class StepTimeline:
             wall = window[1]
             dec = decompose_events(events, wall, pipe_bubble_fraction=bubble)
             record = {"step": step, "measured": True, "wall_seconds": wall,
-                      **dec, "kernels": kernel_table(events)}
+                      **dec, "kernels": kernel_table(events),
+                      "events_outside_window": outside}
         else:
             record = {"step": step, "measured": False, "wall_seconds": wall,
                       "categories": self._host_fallback(wall, t0_us, t1_us),

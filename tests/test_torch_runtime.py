@@ -103,18 +103,29 @@ def test_config_blocks_and_errors():
     {"resilience": {"enabled": True}},
     {"hybrid_engine": {"enabled": True}},
     {"tensorboard": {"enabled": True}},
+    {"csv_monitor": {"enabled": True}},
+    {"wandb": {"enabled": True}},
+    {"comet": {"enabled": True}},
+    {"flops_profiler": {"enabled": True}},
+    {"elasticity": {"enabled": True, "max_train_batch_size": 2, "micro_batch_sizes": [2],
+                    "ignore_non_elastic_batch_info": True}},
     {"sanity_checks": True},
 ])
 def test_unported_blocks_raise_with_their_roadmap_item(block, tmp_path):
     """The blocks still unported raise naming their ROADMAP item; the ones
     ported since (stages 2 and 3, offload_optimizer, offload_param,
-    zenflow, hybrid_engine, telemetry, resilience, sanity_checks) build an
-    engine that takes a step."""
+    zenflow, hybrid_engine, telemetry, resilience, sanity_checks, the
+    monitors, flops_profiler, elasticity) build an engine that takes a
+    step.  A monitor whose package is missing (wandb, comet here) warns and
+    writes nothing."""
     zero = block.get("zero_optimization", {})
     if "resilience" in block:
         block = {"resilience": dict(block["resilience"], save_dir=str(tmp_path))}
+    if "tensorboard" in block or "csv_monitor" in block:
+        block = {k: dict(v, output_path=str(tmp_path)) for k, v in block.items()}
     if set(block) <= {"zero_optimization", "hybrid_engine", "telemetry", "resilience",
-                      "sanity_checks"} and \
+                      "sanity_checks", "tensorboard", "csv_monitor", "wandb", "comet",
+                      "flops_profiler", "elasticity"} and \
             set(zero) <= {"stage", "offload_optimizer", "offload_param", "zenflow"}:
         _steps({"train_micro_batch_size_per_gpu": 2, **block}).close()
         return

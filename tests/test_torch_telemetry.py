@@ -396,6 +396,41 @@ def test_a_cuda_record_reads_the_profilers_trace(tmp_path):
     assert any(e.get("name") == "nvjet_tst_64x8_64x16_4x1_v_bz_NNT" for e in art["traceEvents"])
 
 
+def test_a_kernel_launched_in_the_window_is_the_steps_wherever_its_clock_puts_it(tmp_path):
+    """Kernels carry their launch call's correlation id: one launched in
+    the window counts whole even when the device clock's conversion put
+    it outside the window (here 1.8 ms early and 3 ms late, as seen on an
+    H100), while one launched before the window counts only for its part
+    inside it."""
+    ev = [{"ph": "X", "cat": "user_annotation", "name": ttl.TIMELINE_RANGE, "pid": 7,
+           "tid": 7, "ts": 10000.0, "dur": 100.0}]
+    kernels = [(1, 10005.0, 8200.0, "early"),   # launched in window, shifted early
+               (2, 10020.0, 10030.0, "inside"),
+               (3, 10090.0, 13100.0, "late"),   # launched in window, shifted late
+               (4, 9950.0, 9990.0, "earlier_step")]  # launched before, straddles
+    for corr, launch, ts, name in kernels:
+        ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "pid": 7,
+                   "tid": 7, "ts": launch, "dur": 2.0, "args": {"correlation": corr}})
+        ev.append({"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "ts": ts, "dur": 20.0,
+                   "name": f"void paged_decode_{name}", "args": {"correlation": corr}})
+    (tmp_path / "trace").mkdir()
+    (tmp_path / "trace" / "torch_trace.json").write_text(json.dumps({"traceEvents": ev}))
+    tl = ttl.StepTimeline(registry=treg.MetricsRegistry(), device="cuda")
+    tl._finish(5, 0.5, 0.0, 100.0, str(tmp_path / "trace"), None, 0.0)
+    rec = tl.last_record()
+    k = rec["kernels"]
+    assert {n: r["launches"] for n, r in k.items()} == {
+        "void paged_decode_early": 1, "void paged_decode_inside": 1,
+        "void paged_decode_late": 1, "void paged_decode_earlier_step": 1}
+    for name in ("early", "inside", "late"):
+        assert k[f"void paged_decode_{name}"]["seconds"] == pytest.approx(20e-6)
+    assert rec["events_outside_window"] == 2
+    assert k["void paged_decode_earlier_step"]["seconds"] == pytest.approx(10e-6)
+    # 70 us of device work in a 100 us wall: the categories still sum to it
+    assert sum(rec["categories"].values()) == pytest.approx(100e-6, rel=1e-9)
+    assert rec["categories"]["attention"] == pytest.approx(70e-6)
+
+
 def test_a_cuda_capture_without_device_events_raises(tmp_path):
     tl = ttl.StepTimeline(registry=treg.MetricsRegistry(), device="cuda")
     with pytest.raises(ttl.DeviceTraceMissing):

@@ -454,13 +454,19 @@ def test_bundle_close_releases_only_what_it_installed(tmp_path):
 
 
 # ---------------------------------------------------- the engines, end to end
-def _cfg(dtype="fp32", gas=1, tmp=None, **extra):
+def _cfg(dtype="fp32", gas=1, tmp=None, watchdog=False, **extra):
+    """The engines' ds-config.  The stall watchdog is off unless asked for:
+    it rates a step against the wall-clock median of the steps before it,
+    so on a loaded host one slow step would turn a numerics comparison
+    into a scheduling one (``test_a_slow_step_is_a_stall_only_with_the_
+    watchdog_on`` shows it)."""
     ds = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": gas,
           "steps_per_print": 2,
           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.1}},
           "gradient_clipping": 1.0, "zero_optimization": {"stage": 1},
           "data_types": {"grad_accum_dtype": "fp32"},
           "telemetry": {"enabled": True, "numerics": {"enabled": True, "min_history": 2},
+                        "stall_watchdog": {"enabled": watchdog},
                         "flight_recorder": {"path": str(tmp)}}}
     if dtype == "fp16":
         ds["fp16"] = {"enabled": True, "initial_scale_power": 20, "hysteresis": 1}
@@ -550,6 +556,46 @@ def test_engines_give_the_same_boundary_reports(dtype, gas, tmp_path):
         assert tc["nonfinite"] >= 1
     assert summary["productive_steps"] == 6
     assert abs(sum(summary["buckets"].values()) - summary["lifetime_seconds"]) < 1e-9
+
+
+class _SteppedClock:
+    """A stand-in for the engine's ``time`` module: ``perf_counter`` gives
+    each train_batch call (two reads: its start and its end) ``durations[i]``
+    seconds of wall time."""
+
+    def __init__(self, durations):
+        self.durations, self.reads, self.now = list(durations), 0, 1000.0
+
+    def perf_counter(self):
+        if self.reads % 2 == 1:  # the end of step reads // 2
+            self.now += self.durations[self.reads // 2]
+        else:
+            self.now += 1.0  # the gap between steps
+        self.reads += 1
+        return self.now
+
+
+@pytest.mark.parametrize("watchdog", [True, False], ids=["watchdog_on", "watchdog_off"])
+def test_a_slow_step_is_a_stall_only_with_the_watchdog_on(watchdog, tmp_path, monkeypatch):
+    """The cause of the boundary-report test's flakes: with the watchdog on
+    (multiple 3, five samples) a sixth step longer than 3x the median of
+    the first five is rated a stall, and goodput counts it out of the
+    productive steps; with the watchdog off the same step is productive."""
+    import deepspeed_tpu_torch.runtime.engine as teng
+
+    tree = _tree()
+    rng = np.random.RandomState(1)
+    batches = [rng.randint(0, 256, (1, 2, 17)) for _ in range(6)]
+    monkeypatch.setattr(teng, "time", _SteppedClock([0.1] * 5 + [0.35]))
+    stalls = treg.get_registry().counter("deepspeed_tpu_stalled_steps_total", "",
+                                         labelnames=("loop",))
+    before = stalls.value(loop="train")
+    _, _, counters, summary, _ = _run(deepspeed_tpu_torch, _cfg(tmp=tmp_path, watchdog=watchdog),
+                                      tree, batches)
+    assert counters["steps_total"] == 6
+    assert stalls.value(loop="train") - before == (1 if watchdog else 0)
+    assert summary["productive_steps"] == (5 if watchdog else 6)
+    assert summary["buckets"]["stall"] == (pytest.approx(0.35) if watchdog else 0.0)
 
 
 def test_offload_boundary_reads_host_scalars_only(tmp_path):

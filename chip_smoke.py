@@ -2216,7 +2216,9 @@ def train_parity(model, params, cases, label):
                    for dev in ("cuda", "cpu")}
         tol = TRAIN_PARITY_TOL[name]
         rec = {"batch": [B, S], "tol": tol, "per_step": [], "seconds": dict.fromkeys(engines, 0.0)}
-        init = [p.detach().clone() for p in engines["cpu"]._master]
+        # the start, for the movement comparison of a case limited that way
+        init = (None if "params" in tol
+                else [p.detach().clone() for p in engines["cpu"]._master])
         for _ in range(max_steps):
             ids = torch.randint(0, model.config.vocab_size, (1, B, S), generator=rng)
             row = {}
@@ -2284,6 +2286,21 @@ def cpu_fp16_products_in_fp32():
         transformer._mm = mm
 
 
+_PARITY_TREE = {}
+
+
+def parity_llama_tree():
+    """The 2-layer llama-1b-width weights the card-vs-CPU parity phases
+    share (seed 7, on the CPU), drawn once: no engine alters a tree its
+    caller passes in."""
+    if "tree" not in _PARITY_TREE:
+        from deepspeed_tpu_torch.models.llama import llama_model
+
+        _PARITY_TREE["tree"] = llama_model("1b", n_layers=2).init_params(
+            torch.Generator().manual_seed(7), "cpu")
+    return _PARITY_TREE["tree"]
+
+
 def train_parity_phase():
     """A 2-layer llama-1b-width model on the card and on the CPU from the
     same weights and batches: 3 fp32 steps; then fp16 from an initial scale
@@ -2293,7 +2310,7 @@ def train_parity_phase():
     from deepspeed_tpu_torch.models.llama import llama_model
 
     model = llama_model("1b", max_seq_len=256, n_layers=2)
-    params = model.init_params(torch.Generator().manual_seed(7), "cpu")
+    params = parity_llama_tree()
     with cpu_fp16_products_in_fp32():
         return train_parity(model, params, (
             ("fp32", {}, 3, 2, 128),
@@ -3376,24 +3393,31 @@ def telemetry_phase(fa, pa):
 
 
 def parity_phase():
-    import copy
-
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceConfig, RaggedRequest)
-    from deepspeed_tpu_torch.inference.v2.model_runner import paged_prefill
     from deepspeed_tpu_torch.models.llama import llama_model
 
     model = llama_model("1b", max_seq_len=2048, n_layers=2)
-    params = model.init_params(torch.Generator().manual_seed(7), "cpu")
+    params = parity_llama_tree()
     cfg = dict(dtype="fp32", page_size=16, max_seqs=4, max_pages_per_seq=16, num_pages=64)
     rng = torch.Generator().manual_seed(8)
     prompts = [torch.randint(0, model.config.vocab_size, (n,), generator=rng).tolist()
                for n in (7, 40, 100, 23)]
-    engines = {dev: InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
-                                      params=copy.deepcopy(params), device=dev)
+    secs = {"cuda": 0.0, "cpu": 0.0}  # each device's engines: built and served
+
+    def timed(dev, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        secs[dev] += time.perf_counter() - t
+        return out
+
+    engines = {dev: timed(dev, InferenceEngineV2, model, RaggedInferenceConfig(**cfg),
+                          params=params, device=dev)
                for dev in ("cuda", "cpu")}
-    streams = {dev: e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=8)
-                                    for p in prompts]) for dev, e in engines.items()}
+    # the prefill logits of the 100-token prompt, as each engine ran it
+    with captured_prefill(100) as prefill:
+        streams = {dev: timed(dev, e.generate_all, [RaggedRequest(
+            prompt_ids=p, max_new_tokens=8) for p in prompts]) for dev, e in engines.items()}
     check(streams["cuda"] == streams["cpu"],
           f"parity: greedy streams differ: {streams['cuda']} vs {streams['cpu']}")
     # the captured programs (card) against the eager ones (CPU): int8 KV,
@@ -3409,10 +3433,11 @@ def parity_phase():
     for name, (extra, temp) in variants.items():
         got, counts = {}, {}
         for dev in ("cuda", "cpu"):
-            e = InferenceEngineV2(model, RaggedInferenceConfig.from_dict(dict(cfg, **extra)),
-                                  params=engines[dev].params, device=dev, seed=3)
-            got[dev] = e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=24,
-                                                     temperature=temp) for p in rep_prompts])
+            e = timed(dev, InferenceEngineV2, model,
+                      RaggedInferenceConfig.from_dict(dict(cfg, **extra)),
+                      params=engines[dev].params, device=dev, seed=3)
+            got[dev] = timed(dev, e.generate_all, [RaggedRequest(
+                prompt_ids=p, max_new_tokens=24, temperature=temp) for p in rep_prompts])
             counts[dev] = {**e.decode_stats(), "preemptions": e.stats()["preemptions"]}
             e.assert_no_leaks()
             e.close()
@@ -3423,21 +3448,14 @@ def parity_phase():
             check(counts["cuda"]["preemptions"] > 0, "parity preemption: nothing preempted")
         variant_rec[name] = {k: counts["cuda"][k] for k in (
             "preemptions", "decode_host_syncs", "spec_accepted_tokens", "spec_verify_calls")}
-    # prefill logits of the 100-token prompt through the same program
-    ids = torch.zeros(128, dtype=torch.long)
-    ids[:100] = torch.tensor(prompts[2])
-    rows = torch.arange(8, dtype=torch.int32)
-    logits = {}
-    for dev, e in engines.items():
-        logits[dev], _ = paged_prefill(e.cfg, e.params, e._pools, ids.to(e.device),
-                                       rows.to(e.device), 100)
+    logits = {dev: prefill[dev][0] for dev in engines}
     err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
     scale = logits["cpu"].abs().max().item()
     check(err <= PARITY_LOGITS_TOL, f"parity: prefill logits max err {err:.3g}")
     rec = {"streams_identical": True, "requests": len(prompts), "tokens_each": 8,
            "variants_identical": variant_rec,
            "prefill_logits_max_abs_err": err, "logits_max_abs": scale,
-           "tol": PARITY_LOGITS_TOL}
+           "tol": PARITY_LOGITS_TOL, "engine_seconds": secs}
     print(json.dumps({"parity": rec}))
     return rec
 
@@ -3875,15 +3893,13 @@ def inference_v1_phase(qz):
 # -- phase 14: card vs CPU parity of the quantized paths ---------------------
 
 def quant_parity_phase():
-    import copy
-
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceConfig, RaggedRequest)
     from deepspeed_tpu_torch.models.llama import llama_model
 
     model = llama_model("1b", max_seq_len=2048, n_layers=2)
-    params = model.init_params(torch.Generator().manual_seed(7), "cpu")
+    params = parity_llama_tree()
     rng = torch.Generator().manual_seed(9)
     prompts = [torch.randint(0, model.config.vocab_size, (n,), generator=rng).tolist()
                for n in (7, 40, 100, 23)]
@@ -3892,7 +3908,7 @@ def quant_parity_phase():
         cfg = dict(dtype="fp32", page_size=16, max_seqs=4, max_pages_per_seq=16, num_pages=64,
                    quant_bits=bits, quant_group=128)
         engines = {dev: InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
-                                          params=copy.deepcopy(params), device=dev)
+                                          params=params, device=dev)
                    for dev in ("cuda", "cpu")}
         codes = {dev: e.params.layers[1].mlp.w_down.wq.cpu() for dev, e in engines.items()}
         check(torch.equal(codes["cuda"], codes["cpu"]),
@@ -3904,8 +3920,10 @@ def quant_parity_phase():
         rec[f"engine_v2_int{bits}"] = {"streams_identical": True, "requests": len(prompts)}
         del engines
     ids = torch.randint(0, model.config.vocab_size, (2, 24), generator=rng)
+    # the card's engine copies the host tree there; the CPU's serves it as it
+    # is, and module_quantize rewrites a copy of it
     engines = {dev: deepspeed_tpu_torch.init_inference(model, config={"dtype": "fp32"},
-                                                       params=copy.deepcopy(params), device=dev)
+                                                       params=params, device=dev)
                for dev in ("cuda", "cpu")}
     for stage in ("generate", "generate_after_module_quantize"):
         if stage != "generate":
@@ -4189,6 +4207,34 @@ def record_routing():
     return seen, lambda: setattr(sharded_moe, "_gate_and_aux", orig)
 
 
+@contextlib.contextmanager
+def captured_prefill(n_tokens: int, routes: bool = False):
+    """While open, keep per device the logits (and with ``routes`` the
+    router's top-k choices) of the engines' whole-prompt prefill of
+    ``n_tokens`` tokens: the parity phases compare the prefill the engines
+    ran instead of running it again."""
+    from deepspeed_tpu_torch.inference.v2 import engine_v2
+
+    got, orig = {}, engine_v2.paged_prefill
+
+    def wrapped(cfg, params, pools, ids, rows, n):
+        if n != n_tokens or ids.device.type in got:
+            return orig(cfg, params, pools, ids, rows, n)
+        seen, restore = record_routing() if routes else ([], lambda: None)
+        try:
+            logits, pools = orig(cfg, params, pools, ids, rows, n)
+        finally:
+            restore()
+        got[ids.device.type] = (logits.clone(), seen)
+        return logits, pools
+
+    engine_v2.paged_prefill = wrapped
+    try:
+        yield got
+    finally:
+        engine_v2.paged_prefill = orig
+
+
 def moe_parity_phase():
     """A 1-layer Mixtral-8x7b-width model in fp32 on the card and on the CPU
     from the same weights, dropless and capacity: prefill logits within
@@ -4197,46 +4243,36 @@ def moe_parity_phase():
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceConfig, RaggedRequest)
-    from deepspeed_tpu_torch.inference.v2.model_runner import paged_prefill
     from deepspeed_tpu_torch.models.mixtral import mixtral_model
 
     t_start = time.perf_counter()
     base = mixtral_model("8x7b", max_seq_len=2048, n_layers=1)
-    params = base.init_params(torch.Generator(device=DEV).manual_seed(7), DEV).map(
-        lambda t: t.cpu())
-    torch.cuda.empty_cache()
+    # one copy of the tree on the card, served as it is by both modes' engines
+    # (fp32 on the card already: nothing to cast or move), and one on the
+    # host, which the CPU engines serve as it is: no other copy of 6.4 GB
+    on_card = base.init_params(torch.Generator(device=DEV).manual_seed(7), DEV)
+    params = on_card.map(lambda t: t.cpu())
     rng = torch.Generator().manual_seed(10)
     prompts = [torch.randint(0, base.config.vocab_size, (n,), generator=rng).tolist()
                for n in (9, 40)]
     cfg = dict(dtype="fp32", page_size=16, max_seqs=2, max_pages_per_seq=8, num_pages=16)
-    ids = torch.zeros(64, dtype=torch.long)
-    ids[:40] = torch.tensor(prompts[1])
-    rows = torch.arange(4, dtype=torch.int32)
     dense_ids = torch.randint(0, base.config.vocab_size, (2, 12), generator=rng)
     out = {}
+    trees = {"cuda": on_card, "cpu": params}
     for drop in (False, True):
         model = mixtral_model("8x7b", max_seq_len=2048, n_layers=1, moe_drop_tokens=drop)
-        # the CPU engine serves ``params`` itself (fp32 on the CPU already:
-        # nothing to cast or move), the card's a copy moved there; no host
-        # copy of the 6.4 GB tree
         engines = {"cuda": InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
-                                             params=params.map(lambda t: t.to(DEV)),
-                                             device="cuda"),
+                                             params=on_card, device="cuda"),
                    "cpu": InferenceEngineV2(model, RaggedInferenceConfig(**cfg),
                                             params=params, device="cpu")}
-        streams = {dev: e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=4)
-                                        for p in prompts]) for dev, e in engines.items()}
+        # the 40-token prompt's prefill logits and routes, as each engine ran it
+        with captured_prefill(40, routes=True) as prefill:
+            streams = {dev: e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=4)
+                                            for p in prompts]) for dev, e in engines.items()}
         check(streams["cuda"] == streams["cpu"],
               f"moe parity drop={drop}: greedy streams differ: {streams}")
-        logits, routes = {}, {}
-        for dev, e in engines.items():
-            seen, restore = record_routing()
-            try:
-                logits[dev], _ = paged_prefill(e.cfg, e.params, e._pools, ids.to(e.device),
-                                               rows.to(e.device), 40)
-            finally:
-                restore()
-            routes[dev] = seen
+        logits = {dev: prefill[dev][0] for dev in engines}
+        routes = {dev: prefill[dev][1] for dev in engines}
         err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
         check(err <= PARITY_LOGITS_TOL, f"moe parity drop={drop}: prefill logits max err "
               f"{err:.3g}")
@@ -4244,9 +4280,10 @@ def moe_parity_phase():
               and torch.equal(routes["cuda"][0], routes["cpu"][0]),
               f"moe parity drop={drop}: router top-2 choices differ")
         del engines
-        # init_inference copies the tree to the card and leaves it as it is
+        # init_inference serves a tree already on its device in its dtype as
+        # it is and leaves it unchanged
         dense = {dev: deepspeed_tpu_torch.init_inference(
-            model, config={"dtype": "fp32"}, params=params, device=dev)
+            model, config={"dtype": "fp32"}, params=trees[dev], device=dev)
             for dev in ("cuda", "cpu")}
         gen = {dev: e.generate(dense_ids, max_new_tokens=4).cpu() for dev, e in dense.items()}
         check(torch.equal(gen["cuda"], gen["cpu"]),
@@ -4257,6 +4294,8 @@ def moe_parity_phase():
             "streams_identical": True, "router_choices_identical": True,
             "generate_identical": True, "prefill_logits_max_abs_err": err,
             "logits_max_abs": logits["cpu"].abs().max().item(), "tol": PARITY_LOGITS_TOL}
+    del on_card, trees
+    torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_start
     print(json.dumps({"moe_parity": out}))
     return out
@@ -6181,7 +6220,6 @@ def families_parity_phase():
 
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceConfig, RaggedRequest)
-    from deepspeed_tpu_torch.inference.v2.model_runner import paged_prefill
     from deepspeed_tpu_torch.models import families
 
     out = {}
@@ -6197,15 +6235,13 @@ def families_parity_phase():
                                           params=params if dev == "cuda" else params.map(
                                               lambda t: t.cpu()), device=dev)
                    for dev in ("cuda", "cpu")}
-        streams = {dev: e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=8)
-                                        for p in prompts]) for dev, e in engines.items()}
+        # the 40-token prompt's prefill logits, as each engine ran it
+        with captured_prefill(40) as prefill:
+            streams = {dev: e.generate_all([RaggedRequest(prompt_ids=p, max_new_tokens=8)
+                                            for p in prompts]) for dev, e in engines.items()}
         check(streams["cuda"] == streams["cpu"],
               f"{name} parity: greedy streams differ: {streams['cuda']} vs {streams['cpu']}")
-        ids = torch.zeros(48, dtype=torch.long)
-        ids[:40] = torch.tensor(prompts[1])
-        rows = torch.arange(3, dtype=torch.int32)
-        logits = {dev: paged_prefill(e.cfg, e.params, e._pools, ids.to(e.device),
-                                     rows.to(e.device), 40)[0] for dev, e in engines.items()}
+        logits = {dev: prefill[dev][0] for dev in engines}
         err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
         check(err <= PARITY_LOGITS_TOL, f"{name} parity: prefill logits max err {err:.3g}")
         out[name] = {"streams_identical": True, "prefill_logits_max_abs_err": err,
@@ -6733,6 +6769,357 @@ def checkpoint_phase(fa, fadam):
     return rec
 
 
+# -- phases 45-46: the single-card API, the accelerator and compression -----
+
+API_TRACE_DIR = os.path.join(ROOT, "build", "api_trace")
+
+
+def trace_kernel_names(path: str) -> set:
+    """The device kernels' names in a Chrome trace ``torch.profiler`` wrote."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def api_phase(fa, fadam, card_name):
+    """The accelerator over ``torch.cuda`` (a CUDA accelerator named as
+    ``nvidia-smi`` names the card; A timed on an accelerator stream between
+    two accelerator events beside the profiler's time; ``manual_seed``
+    repeating a draw; ``memory_stats`` against the caching allocator; the
+    host Adam through ``create_op_builder``), the engine's API on full-width
+    llama-1b (a step inside ``no_sync`` bit-equal to one outside it from the
+    same state; ``no_sync`` refused at ZeRO 2; ``set_train_batch_size`` to
+    gas 2 doubling A, A', A'' a step and leaving C's; a profiler trace
+    naming A), and the deprecated ``cpu_offload`` config refused before
+    any device allocation."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.accelerator import CUDAAccelerator, get_accelerator
+    from deepspeed_tpu_torch.models.llama import llama_model
+
+    acc = get_accelerator()
+    check(isinstance(acc, CUDAAccelerator), f"get_accelerator() is {type(acc).__name__}")
+    check(acc.device_kind() == card_name,
+          f"device_kind {acc.device_kind()!r} is not nvidia-smi's {card_name!r}")
+    check(acc.is_fp8_supported(), "the accelerator says sm_90 has no fp8")
+    rec = {"accelerator": type(acc).__name__, "device_kind": acc.device_kind(),
+           "communication_backend": acc.communication_backend_name(),
+           "supported_dtypes": [str(d) for d in acc.supported_dtypes()]}
+    # A at the training shape on an accelerator stream, between two events
+    g = torch.Generator(device=DEV).manual_seed(0)
+    q = torch.randn((TRAIN_MICRO, TRAIN_SEQ, 32, 64), generator=g, device=DEV).bfloat16()
+    k = torch.randn((TRAIN_MICRO, TRAIN_SEQ, 8, 64), generator=g, device=DEV).bfloat16()
+    v = torch.randn((TRAIN_MICRO, TRAIN_SEQ, 8, 64), generator=g, device=DEV).bfloat16()
+    launch = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+    launch()
+    s, e0, e1 = acc.Stream(), acc.Event(), acc.Event()
+    s.wait_stream(acc.current_stream())
+    with acc.stream(s):
+        e0.record(s)
+        launch()
+        e1.record(s)
+    e1.synchronize()
+    rec["event_ms"] = e0.elapsed_time(e1)
+    rec["profiler_ms"] = device_ms(launch, iters=5, warmup=1)
+    check(rec["event_ms"] > 0, f"accelerator events timed A at {rec['event_ms']} ms")
+    # the RNG: manual_seed repeats a draw bit for bit (the global state restored)
+    state = torch.cuda.get_rng_state()
+    acc.manual_seed(1234)
+    a = torch.randn(1 << 16, device=DEV)
+    check(acc.initial_seed() == 1234, f"initial_seed {acc.initial_seed()}")
+    acc.manual_seed(1234)
+    check(torch.equal(a, torch.randn(1 << 16, device=DEV)), "manual_seed did not repeat a draw")
+    torch.cuda.set_rng_state(state)
+    ms = acc.memory_stats()
+    rec["memory_stats"] = ms
+    check(ms["bytes_in_use"] == torch.cuda.memory_allocated(),
+          f"memory_stats bytes_in_use {ms['bytes_in_use']} != {torch.cuda.memory_allocated()}")
+    lib = acc.create_op_builder("cpu_adam").load()
+    check(hasattr(lib, "dstpu_adam_step"), "create_op_builder('cpu_adam') loaded no host Adam")
+    check(acc.get_op_builder("CPUAdamBuilder").name == "cpu_adam", "get_op_builder")
+    del q, k, v
+
+    # the engine's API at full width
+    model = llama_model("1b", max_seq_len=TRAIN_SEQ)
+    L = model.config.n_layers
+    gb = torch.Generator(device=DEV).manual_seed(123)
+    batch = torch.randint(0, model.config.vocab_size, (1, TRAIN_MICRO, TRAIN_SEQ),
+                          generator=gb, device=DEV)
+    engines = [deepspeed_tpu_torch.initialize(model=model, config=train_config(), seed=0)[0]
+               for _ in range(2)]
+    n_leaves = len(engines[0]._master)
+    zero_train_counters(fa, fadam)
+    la = engines[0].train_batch(batch)
+    with engines[1].no_sync():
+        lb = engines[1].train_batch(batch)
+    gas1 = read_train_counters(fa, fadam)
+    check(torch.equal(la, lb) and master_checksums(engines[0]) == master_checksums(engines[1]),
+          "api: a step inside no_sync differs from the same step outside it")
+    rec["no_sync_bit_equal"] = True
+    del engines[1]
+    torch.cuda.empty_cache()
+    tiny = deepspeed_tpu_torch.initialize(model=llama_model("tiny", max_seq_len=64),
+                                          config=train_config(zero_optimization={"stage": 2}))[0]
+    try:
+        tiny.no_sync()
+        refused = False
+    except AssertionError:
+        refused = True
+    check(refused, "api: no_sync at ZeRO 2 did not raise")
+    del tiny
+    eng = engines[0]
+    eng.set_train_batch_size(2 * TRAIN_MICRO)
+    check(eng.gradient_accumulation_steps() == 2, "set_train_batch_size: gas is not 2")
+    batch2 = torch.randint(0, model.config.vocab_size, (2, TRAIN_MICRO, TRAIN_SEQ),
+                           generator=gb, device=DEV)
+    before = read_train_counters(fa, fadam)
+    eng.train_batch(batch2)
+    gas2 = {k: v - before[k] for k, v in read_train_counters(fa, fadam).items()}
+    for kk in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(gas2[kk] == 2 * L and gas1[kk] == 2 * L,
+              f"api: {kk} {gas2[kk]} at gas 2 (want 2 x {L}), {gas1[kk]} over two gas-1 steps")
+    check(gas2["fused_adam"] == n_leaves and gas1["fused_adam"] == 2 * n_leaves,
+          f"api: fused_adam {gas2['fused_adam']} at gas 2, want {n_leaves}")
+    rec["per_step_launches"] = {"gas1": {k: v // 2 for k, v in gas1.items()}, "gas2": gas2}
+    shutil.rmtree(API_TRACE_DIR, ignore_errors=True)
+    eng.start_profiler_trace(API_TRACE_DIR)
+    eng.train_batch(batch2)
+    path = eng.stop_profiler_trace()
+    names = trace_kernel_names(path)
+    check(any("flash_fwd" in n for n in names),
+          f"api: the profiler trace names no flash_fwd kernel: {sorted(names)[:20]}")
+    rec["trace_flash_kernels"] = sorted(n for n in names if "flash" in n)
+    rec["launches"] = read_train_counters(fa, fadam)
+    shutil.rmtree(API_TRACE_DIR, ignore_errors=True)
+    del eng, engines
+    torch.cuda.empty_cache()
+
+    # #F10: the deprecated key is refused before anything reaches the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    try:
+        deepspeed_tpu_torch.initialize(model=model, config={
+            "train_micro_batch_size_per_gpu": 1,
+            "zero_optimization": {"stage": 2, "cpu_offload": True}})
+        msg = None
+    except ValueError as e:
+        msg = str(e)
+    check(msg is not None and "cpu_offload" in msg and "offload_optimizer" in msg,
+          f"api: the cpu_offload config was not refused ({msg})")
+    check(torch.cuda.max_memory_allocated() == held,
+          "api: the refused config allocated device memory first")
+    rec["cpu_offload_refused"] = msg
+    print(json.dumps({"api": rec}))
+    return rec
+
+
+#: the compression transforms of phase 46 (a): ``compression_training``
+COMPRESS_LLAMA = {"compression_training": {
+    "weight_quantization": {"shared_parameters": {"enabled": True, "bits": 8}},
+    "sparse_pruning": {"shared_parameters": {"enabled": True, "ratio": 0.5, "method": "l1"}},
+    "channel_pruning": {"shared_parameters": {"enabled": True, "dense_ratio": 0.75}}}}
+COMPRESS_GPT2 = {"compression_training": {
+    "head_pruning": {"shared_parameters": {"enabled": True, "dense_ratio": 0.5}},
+    "channel_pruning": {"shared_parameters": {"enabled": True, "dense_ratio": 0.5}}}}
+#: causal_lm_loss of the shrunk GPT-2 against the masked one (the JAX
+#: package's test_structured_pruning_and_physical_clean)
+SHRINK_LOSS_RTOL = 1e-5
+KD_RTOL = 1e-5
+
+
+def _mlp_subtree(params) -> dict:
+    """``embed.tok`` and every layer's MLP on the CPU: what the transform of
+    ``embed.tok`` and the FFN leaves reads (its groups, and the channel
+    importances of the gate, up and down projections)."""
+    return {"embed": {"tok": params.embed.tok.detach().cpu()},
+            "layers": [{"mlp": {n: lay.mlp.get(n).detach().cpu()
+                                for n in ("w_gate", "w_up", "w_down")}}
+                       for lay in params.layers]}
+
+
+def _host_transform(sub):
+    """``COMPRESS_LLAMA`` on a host tree: (the transformed tree, seconds)."""
+    from deepspeed_tpu_torch.compression import init_compression
+
+    t0 = time.perf_counter()
+    out, _ = init_compression(sub, COMPRESS_LLAMA)
+    return out, time.perf_counter() - t0
+
+
+def compression_phase(fa, pa):
+    """(a) llama-1b on the card in fp32: 8-bit fake quantization, 50 % l1
+    pruning and 75 % dense FFN channels through ``init_compression``; the
+    FFN groups and ``embed.tok`` bit-equal to the same transform on the
+    CPU, which runs on a worker thread beside (b)-(d) (host tensors only:
+    it issues no CUDA call).  (b) ``redundancy_clean`` to 4128 channels:
+    the masked and the shrunk model served in fp32 through the captured
+    decode programs (8
+    requests of 64-512 tokens, 32 new tokens each), greedy streams equal,
+    the 512-token prefill's logits within ``PARITY_LOGITS_TOL``, A and B
+    counted; then both served in bf16 for the decode step's device time and
+    the parameter bytes.  (c) GPT-2 1.3B in fp32, head and channel pruning
+    at 0.5 dense, shrunk to 8 heads: the loss of a 4 x 1024 batch equal to
+    the masked model's within ``SHRINK_LOSS_RTOL``, A at 16 and 8 heads.
+    (d) an 8-layer llama-1b student from teacher layers 0, 2, ..., 14, its
+    leaves the teacher's; ``distillation_loss`` at T = 2 card vs CPU."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepspeed_tpu_torch.compression import (distillation_loss, init_compression,
+                                                 redundancy_clean)
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceConfig, RaggedRequest)
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.models.transformer import causal_lm_loss
+
+    rec = {}
+    model = llama_model("1b", max_seq_len=2048)
+    mc = model.config
+    L = mc.n_layers
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(21), DEV)
+    # (a) the transform on the card; the host's starts beside (b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masked, sched = init_compression(params, COMPRESS_LLAMA)
+    torch.cuda.synchronize()
+    rec["transform_card_s"] = time.perf_counter() - t0
+    pool = ThreadPoolExecutor(max_workers=1)
+    host_job = pool.submit(_host_transform, _mlp_subtree(params))
+    up = torch.stack([lay.mlp.w_up for lay in masked.layers])
+    rec["w_up_zero_share"] = float((up == 0).float().mean())
+    rec["w_up_zero_columns_per_layer"] = (up == 0).all(dim=1).sum(-1).tolist()
+    check(rec["w_up_zero_columns_per_layer"] == [mc.ffn_size - 4128] * L,
+          f"compression: zero FFN channels {rec['w_up_zero_columns_per_layer']}")
+    del up
+    # (b) the redundancy clean, then both served
+    shrunk, scfg = redundancy_clean(params, sched, mc)
+    check(scfg.intermediate_size == 4128 and shrunk.layers[0].mlp.w_up.shape[-1] == 4128,
+          f"compression: shrunk FFN {scfg.intermediate_size}")
+    smodel = llama_model(config=scfg)
+    rng = torch.Generator().manual_seed(46)
+    lengths = [64, 512] + torch.randint(65, 512, (6,), generator=rng).tolist()
+    prompts = pattern_prompts(rng, lengths, mc.vocab_size)
+    serve = dict(page_size=16, max_seqs=8, max_pages_per_seq=48, num_pages=8 * 48)
+    runs, logits = {}, {}
+    launches = {"flash": 0, "paged": 0}
+    for name, (m, p) in {"masked": (model, masked), "shrunk": (smodel, shrunk)}.items():
+        eng = InferenceEngineV2(m, RaggedInferenceConfig(dtype="fp32", **serve), params=p,
+                                seed=0)
+        with captured_prefill(512) as prefill:  # the 512-token prompt's logits
+            r = drive(eng, [RaggedRequest(prompt_ids=x, max_new_tokens=32) for x in prompts],
+                      fa, pa)
+        st = r["stats"]
+        calls = st["prefill_calls"] + st["prefill_chunk_calls"]
+        check(r["launches"]["flash"] == L * calls and calls > 0,
+              f"compression {name}: flash launches {r['launches']['flash']} != {L} x {calls}")
+        check(st["decode_device_steps"] > 0
+              and r["launches"]["paged"] == L * st["decode_device_steps"],
+              f"compression {name}: paged launches {r['launches']['paged']}")
+        for kk in launches:
+            launches[kk] += r["launches"][kk]
+        logits[name] = prefill["cuda"][0]
+        runs[name] = {"streams": r["streams"], "launches": r["launches"],
+                      "decode_device_steps": st["decode_device_steps"]}
+        eng.close()
+        del eng
+    check(runs["masked"]["streams"] == runs["shrunk"]["streams"],
+          "compression: the shrunk model's greedy streams differ from the masked model's")
+    err = (logits["masked"] - logits["shrunk"]).abs().max().item()
+    check(err <= PARITY_LOGITS_TOL, f"compression: prefill logits differ by {err:.3g}")
+    rec["serving_fp32"] = {"streams_equal": True, "prefill_logits_max_abs_err": err,
+                           "tol": PARITY_LOGITS_TOL,
+                           **{n: {k: v for k, v in r.items() if k != "streams"}
+                              for n, r in runs.items()}}
+    rec["launches"] = launches
+    del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = {}
+    for name, (m, p) in {"unpruned": (model, params), "shrunk": (smodel, shrunk)}.items():
+        eng = InferenceEngineV2(m, RaggedInferenceConfig(dtype="bf16", **serve), params=p,
+                                seed=0)
+        prof = profile_steps(eng, [RaggedRequest(prompt_ids=x[:64], max_new_tokens=128)
+                                   for x in prompts], warm_steps=2, steps=4,
+                             groups={"paged": "paged_decode"})
+        bf16[name] = {"param_bytes": sum(t.numel() * t.element_size()
+                                         for t in eng.params.parameters()),
+                      "decode_device_ms_per_step": prof["device_busy_ms_per_step"],
+                      "decode_wall_ms_per_step": prof["wall_ms_per_step"],
+                      "decode_tokens_per_step": prof["decode_tokens_per_step"]}
+        eng.close()
+        del eng
+    rec["serving_bf16"] = bf16
+    del shrunk, smodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the student, from the teacher still on the card
+    ids8 = list(range(0, L, 2))
+    student_model = llama_model("1b", max_seq_len=2048, n_layers=len(ids8))
+    sparams = student_model.init_params(torch.Generator(device=DEV).manual_seed(23), DEV)
+    student, _ = init_compression(sparams, {"compression_training": {"layer_reduction": {
+        "enabled": True, "keep_number_layer": len(ids8), "teacher_layer": ids8}}},
+        teacher_params=params)
+    same = all(torch.equal(a, b) for i, t in enumerate(ids8) for a, b in zip(
+        student.layers[i].parameters(), params.layers[t].parameters()))
+    same = same and torch.equal(student.embed.tok, params.embed.tok) and all(
+        torch.equal(a, b) for a, b in zip(student.final_norm.parameters(),
+                                          params.final_norm.parameters()))
+    check(same, "compression: the student's leaves are not the teacher's slices")
+    gk = torch.Generator(device=DEV).manual_seed(24)
+    s_logits = torch.randn((4, 256, mc.vocab_size), generator=gk, device=DEV)
+    t_logits = torch.randn((4, 256, mc.vocab_size), generator=gk, device=DEV)
+    kd = float(distillation_loss(s_logits, t_logits, temperature=2.0))
+    kd_cpu = float(distillation_loss(s_logits.cpu(), t_logits.cpu(), temperature=2.0))
+    check(abs(kd - kd_cpu) <= KD_RTOL * abs(kd_cpu), f"compression: KD {kd} vs CPU {kd_cpu}")
+    rec["student"] = {"layers": ids8, "leaves_equal": True, "kd_card": kd, "kd_cpu": kd_cpu,
+                      "kd_rtol": KD_RTOL}
+    del student, sparams, params, s_logits, t_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) GPT-2 1.3B, heads and channels
+    gm = gpt2_model("1.3b")
+    gp = gm.init_params(torch.Generator(device=DEV).manual_seed(22), DEV)
+    gmasked, gs = init_compression(gp, COMPRESS_GPT2, n_heads=gm.config.n_heads)
+    gshrunk, gcfg = redundancy_clean(gp, gs, gm.config)
+    del gp
+    check(gcfg.n_heads == 8 and gcfg.head_dim == 128
+          and gcfg.intermediate_size == gm.config.ffn_size // 2,
+          f"compression gpt2: {gcfg.n_heads} heads, ffn {gcfg.intermediate_size}")
+    batch = torch.randint(0, gm.config.vocab_size, (4, 1024),
+                          generator=torch.Generator(device=DEV).manual_seed(25), device=DEV)
+    losses, a_launches = {}, {}
+    with torch.no_grad():
+        for name, (cfg, p) in {"masked": (gm.config, gmasked), "shrunk": (gcfg, gshrunk)}.items():
+            fa.flash_attention_fwd.launches = 0
+            losses[name] = float(causal_lm_loss(cfg, p, batch))
+            a_launches[name] = fa.flash_attention_fwd.launches
+    check(all(n == gm.config.n_layers for n in a_launches.values()),
+          f"compression gpt2: flash launches {a_launches}")
+    rel = abs(losses["shrunk"] - losses["masked"]) / abs(losses["masked"])
+    check(rel <= SHRINK_LOSS_RTOL, f"compression gpt2: losses {losses} (rel {rel:.3g})")
+    rec["gpt2"] = {"losses": losses, "rel_diff": rel, "rtol": SHRINK_LOSS_RTOL,
+                   "heads": [gm.config.n_heads, gcfg.n_heads],
+                   "ffn": [gm.config.ffn_size, gcfg.intermediate_size],
+                   "flash_launches": a_launches}
+    del gmasked, gshrunk
+    # (a)'s host transform, against the card's
+    host, rec["transform_cpu_s"] = host_job.result()
+    pool.shutdown()
+    check(torch.equal(masked.embed.tok.cpu(), host["embed"]["tok"]),
+          "compression: embed.tok differs card vs CPU")
+    for n in ("w_up", "w_gate", "w_down"):
+        same = all(torch.equal(lay.mlp.get(n).cpu(), h["mlp"][n])
+                   for lay, h in zip(masked.layers, host["layers"]))
+        check(same, f"compression: the stacked {n} group differs card vs CPU")
+    rec["card_vs_cpu_bit_equal"] = ["embed.tok", "w_up", "w_gate", "w_down"]
+    del host, masked
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"compression": rec}))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6815,6 +7202,8 @@ def main() -> int:
     train = phase(train_phase, fa, fadam)
     ttel = phase(train_telemetry_phase, fa, fadam, train)
     mon = phase(monitor_profiler_phase, fa, fadam, train, ttel)
+    api = phase(api_phase, fa, fadam, smi.split(",")[0].strip())
+    comp = phase(compression_phase, fa, pa)
     tune = phase(autotune_phase, fa, fadam)
     launch = phase(launcher_phase)
     sd = phase(spatial_phase, fa)
@@ -6893,10 +7282,12 @@ def main() -> int:
               for k in train_l}
     for k in train_l:
         train_l[k] += (lm_train_l[k] + ckpt_l[k] + ttel["launches"][k] + mon["launches"][k]
-                       + tune["launches"][k] + launch["launches"][k])
-    # the paths this slice added, by wrapper
+                       + tune["launches"][k] + launch["launches"][k] + api["launches"][k])
+    # the paths the later slices added, by wrapper
     slice_paths = {k: {"monitor_profiler": mon["launches"][k], "autotune": tune["launches"][k],
-                       "launcher_child": launch["launches"][k]} for k in train_l}
+                       "launcher_child": launch["launches"][k],
+                       "api_training": api["launches"][k]} for k in train_l}
+    comp_fwd = comp["launches"]["flash"] + sum(comp["gpt2"]["flash_launches"].values())
     bwd_shape = "B=4 S=1024 NH=32 KVH=8 D=64 bf16 causal"
     main_sparse = sparse[0]
     main_evo = evo[0]
@@ -6907,7 +7298,7 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:38",
          "launches": serve_fwd + q_fwd + train_l["flash_fwd"] + moe_fwd + falcon_l["flash"]
                      + fams_l["flash"] + prefix_l["flash"] + tele["launches"]["flash"]
-                     + sd["launches"],
+                     + sd["launches"] + comp_fwd,
          "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
                               "prefix_serving": prefix_l["flash"],
                               "telemetry_serving": tele["launches"]["flash"],
@@ -6920,7 +7311,9 @@ def main() -> int:
                               "bert_training": bert["launches"]["flash_fwd"],
                               "checkpoint_training": ckpt_l["flash_fwd"],
                               "train_telemetry": ttel["launches"]["flash_fwd"],
-                              **slice_paths["flash_fwd"], "diffusers": sd["launches"]},
+                              **slice_paths["flash_fwd"], "diffusers": sd["launches"],
+                              "compressed_serving": comp["launches"]["flash"],
+                              "compressed_gpt2": sum(comp["gpt2"]["flash_launches"].values())},
          "max_abs_err": max(r["max_abs_err"] for r in flash), "checked": True,
          "ms": main_flash["ms"], "kernel_ms": main_flash["ms"],
          "plain_ms": main_flash["plain_ms"], "bound_ms": main_flash["bound_ms"],
@@ -6971,12 +7364,13 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:35",
          "launches": serve_paged + q_paged + moe_paged + falcon_l["paged"] + fams_l["paged"]
-                     + prefix_l["paged"] + tele["launches"]["paged"],
+                     + prefix_l["paged"] + tele["launches"]["paged"] + comp["launches"]["paged"],
          "launches_by_path": {"serving": serve_paged, "quantized_serving": q_paged,
                               "prefix_serving": prefix_l["paged"],
                               "telemetry_serving": tele["launches"]["paged"],
                               "moe_serving": moe_paged, "falcon7b_serving": falcon_l["paged"],
-                              "families_serving": fams_l["paged"]},
+                              "families_serving": fams_l["paged"],
+                              "compressed_serving": comp["launches"]["paged"]},
          "max_abs_err": max(r["max_abs_err"] for r in paged), "checked": True,
          "ms": main_paged["ms"], "kernel_ms": main_paged["ms"],
          "plain_ms": main_paged["plain_ms"], "bound_ms": main_paged["bound_ms"],
@@ -7262,6 +7656,16 @@ def main() -> int:
         "phase_seconds": {k: phase_s[k] for k in ("monitor_profiler_phase", "autotune_phase",
                                                   "launcher_phase", "spatial_phase",
                                                   "aux_phase")},
+        "card": smi}}))
+    print(json.dumps({"api_compression_summary": {
+        "api": {k: api[k] for k in ("device_kind", "event_ms", "profiler_ms",
+                                    "per_step_launches", "cpu_offload_refused")},
+        "compression": {k: comp[k] for k in ("transform_card_s", "transform_cpu_s",
+                                             "serving_bf16", "gpt2")},
+        "compressed_serving_launches": comp["launches"],
+        "phase_seconds": {k: phase_s[k] for k in ("api_phase", "compression_phase",
+                                                  "parity_phase", "train_parity_phase",
+                                                  "moe_parity_phase")},
         "card": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

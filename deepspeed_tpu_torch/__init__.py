@@ -33,7 +33,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional, Tuple
 
-from .accelerator import DeviceLike
+from .accelerator import DeviceLike, get_accelerator
 from .inference.engine import InferenceConfig, InferenceEngine
 from .runtime.config import DeepSpeedConfig
 from .runtime.engine import DeepSpeedTPUEngine, TrainState
@@ -42,7 +42,7 @@ from .runtime.module import ModelSpec
 __version__ = "0.2.0"
 __all__ = ["initialize", "init_inference", "default_inference_config", "DeepSpeedConfig",
            "DeepSpeedTPUEngine", "TrainState", "ModelSpec", "InferenceConfig",
-           "InferenceEngine"]
+           "InferenceEngine", "add_config_arguments", "get_accelerator"]
 
 
 def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
@@ -124,3 +124,17 @@ def default_inference_config() -> Dict[str, Any]:
     """The default inference config as a dict, to edit and pass back to
     :func:`init_inference`."""
     return InferenceConfig().to_dict()
+
+
+def add_config_arguments(parser):
+    """Add the standard flags to an argparse parser (the JAX package's
+    ``add_config_arguments``: ``--deepspeed``, ``--deepspeed_config``,
+    ``--local_rank``)."""
+    group = parser.add_argument_group("DeepSpeed-TPU", "DeepSpeed-TPU configuration")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed-TPU")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to the config JSON")
+    group.add_argument("--local_rank", type=int, default=0,
+                       help="Local process index (set by the launcher)")
+    return parser

@@ -77,6 +77,8 @@ def filter_logits(logits: torch.Tensor, temperature: float, top_k: int = 0,
     logits = logits / temperature
     neg_inf = torch.full_like(logits, float("-inf"))
     if top_k and top_k > 0:
+        # dstpu-lint: allow[host-sync] top_k is a Python sampling setting, not a device
+        # value
         k = min(int(top_k), logits.shape[-1])
         kth = torch.topk(logits, k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, neg_inf, logits)
@@ -115,6 +117,7 @@ class InferenceEngine:
                 "InferenceEngine serves causal decoders with a KV cache; post_norm "
                 "(BERT-style encoder) models have no generative path")
         dtype = self.config.torch_dtype
+        given = params
         if params is None:  # the engine's own tree: cast in place
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
             params = cast_tree(model.init_params(gen, self.device), dtype)
@@ -123,6 +126,9 @@ class InferenceEngine:
         elif not isinstance(params, ParamTree):
             raise TypeError(f"params must be a ParamTree or a numpy tree, not {type(params)}")
         self.params = cast_tree_copy(params, dtype, self.device)
+        #: the caller's own tree, served as it is: ``module_quantize`` rewrites
+        #: a copy of it, never the caller's leaves
+        self._shares_callers_tree = self.params is given
         logger.info(f"InferenceEngine: dtype={self.config.dtype} device={self.device}")
 
     # ------------------------------------------------------------ public API
@@ -147,6 +153,7 @@ class InferenceEngine:
                               self.device)
         logits, cache = forward_with_cache(self.cfg, self.params, ids, cache, 0)
         last = logits[:, -1]
+        # dstpu-lint: allow[host-sync] seed is a Python sampling setting, not a device value
         gen = (torch.Generator(device=self.device).manual_seed(int(seed))
                if temperature > 0 else None)
         tokens: List[torch.Tensor] = []
@@ -163,6 +170,8 @@ class InferenceEngine:
         """Token ids (a tensor on any device, a numpy array or a list) as
         int64 on the engine's device."""
         if not isinstance(input_ids, torch.Tensor):
+            # dstpu-lint: allow[host-sync] a host input (numpy array or list) becomes a
+            # tensor; a tensor never takes this branch
             input_ids = torch.as_tensor(np.asarray(input_ids))
         return input_ids.to(self.device).long()
 
@@ -197,7 +206,8 @@ class InferenceEngine:
     @torch.no_grad()
     def module_quantize(self, bits: int = 8) -> "InferenceEngine":
         """Quantize-dequantize every floating leaf of two or more dimensions
-        in place through the int8 block codec (``bits`` is accepted for API
+        in place (in a copy first when the engine serves its caller's tree
+        as it is) through the int8 block codec (``bits`` is accepted for API
         parity: the codec is int8, as in JAX).
 
         The rule applies to each leaf as the JAX engine stacks it: a
@@ -207,6 +217,9 @@ class InferenceEngine:
         per stacked leaf) and split back."""
         from ..ops.quantization import dequantize_int8, quantize_int8
 
+        if self._shares_callers_tree:
+            self.params = self.params.map(lambda t: t.clone())
+            self._shares_callers_tree = False
         for _, ndim, tensors in self._stacked_leaves():
             if ndim < 2 or not tensors[0].is_floating_point():
                 continue

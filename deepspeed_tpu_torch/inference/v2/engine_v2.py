@@ -67,7 +67,7 @@ from ...accelerator import resolve_device
 from ...models.convert import params_from_numpy
 from ...models.transformer import ParamTree, TransformerConfig
 from ...runtime.config_utils import ConfigModel
-from ...runtime.precision import cast_tree
+from ...runtime.precision import cast_tree, cast_tree_copy
 from ...telemetry import get_registry
 from ...telemetry.compile_sentinel import RecompileSentinel
 from ...telemetry.compile_sentinel import expect_recompile as sentinel_expect_recompile
@@ -283,16 +283,20 @@ class InferenceEngineV2:
                 f"({block.max_pages_per_seq}): one sequence could never run to "
                 "completion even with the whole pool")
         dtype = self.config.torch_dtype
+        # cast first: casting takes every floating leaf, so it must never
+        # run after quantization (the scales stay fp32)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
-            params = model.init_params(gen, self.device)
+            params = cast_tree(model.init_params(gen, self.device), dtype)
         elif isinstance(params, dict):
             params = params_from_numpy(params, self.cfg, self.device, dtype)
-        elif not isinstance(params, ParamTree):
+        elif isinstance(params, ParamTree):
+            # a caller's tree is served as it is when it already lies on the
+            # device in the dtype, else copied: never moved or cast in place
+            params = cast_tree_copy(params, dtype, self.device)
+        else:
             raise TypeError(f"params must be a ParamTree or a numpy tree, not {type(params)}")
-        # cast first: cast_tree casts every floating leaf, so it must never
-        # run after quantization (the scales stay fp32)
-        self.params = cast_tree(params.to(self.device), dtype)
+        self.params = params
         self.param_bytes = sum(p.numel() * p.element_size()
                                for p in self.params.parameters())
         if self.config.quant_bits:
@@ -1319,6 +1323,9 @@ class InferenceEngineV2:
     def _emit_sampled(self, seq: SequenceState, logits: torch.Tensor,
                       out: Dict[int, Dict[str, Any]]) -> None:
         """Sample off prefix-end logits, append, record, maybe retire."""
+        # dstpu-lint: allow[host-sync] a prefill's sampled token: the host scheduler appends
+        # it and decides retirement, one copy of one row of logits a finished prefill (the
+        # JAX engine pulls the same)
         tok = self._sample(seq, logits.float().cpu().numpy())
         seq.tokens.append(tok)
         self._note_tokens(seq)

@@ -6,11 +6,16 @@ against files (the NVMe spill of ZeRO-Infinity's optimizer moments) and
 waits for them per op or all together.  ``backend="auto"`` takes the
 io_uring engine and falls back to the worker-thread pool where io_uring
 is unavailable, inside the C++ engine, as the JAX module does.
+:class:`PinnedBufferPool` recycles page-aligned, mlock'd host buffers
+(the engine's own allocation) and :func:`default_aio_handle` is the
+process's shared handle.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -81,3 +86,61 @@ class AsyncIOHandle:
     def pending(self) -> int:
         return self._lib.dstpu_aio_pending(self._h)
 
+
+class PinnedBufferPool:
+    """Page-aligned, mlock'd staging buffers from the host op's
+    ``dstpu_pin_alloc``, reused across I/O so O_DIRECT and DMA paths never
+    see pageable memory.  ``get`` returns an ``np.uint8`` view; ``put``
+    recycles it."""
+
+    def __init__(self):
+        self._lib = AsyncIOBuilder().load()
+        self._free = {}  # nbytes -> [ptr]
+        self._out = {}  # ptr -> nbytes, checked out
+
+    def get(self, nbytes: int) -> np.ndarray:
+        nbytes = int(nbytes)
+        bucket = self._free.get(nbytes)
+        if bucket:
+            ptr = bucket.pop()
+        else:
+            ptr = self._lib.dstpu_pin_alloc(nbytes)
+            if not ptr:
+                raise MemoryError(f"pin_alloc({nbytes}) failed")
+        arr = np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)),
+                                    shape=(nbytes,))
+        self._out[ptr] = nbytes
+        return arr
+
+    def put(self, arr: np.ndarray) -> None:
+        """Recycle a buffer ``get`` returned.  A second put, a view or a
+        foreign array raises: accepting one would hand the same pinned
+        memory to two later ``get`` calls."""
+        nbytes = self._out.pop(arr.ctypes.data, None)
+        if nbytes is None:
+            raise ValueError("PinnedBufferPool.put: not a checked-out pool "
+                             "buffer (double put, a view, or foreign array)")
+        self._free.setdefault(nbytes, []).append(arr.ctypes.data)
+
+    def close(self) -> None:
+        """Free every buffer, checked out or not: no pool array may be
+        touched after this."""
+        for nbytes, ptrs in self._free.items():
+            for p in ptrs:
+                self._lib.dstpu_pin_free(p, nbytes)
+        self._free.clear()
+        for ptr, nbytes in self._out.items():
+            self._lib.dstpu_pin_free(ptr, nbytes)
+        self._out.clear()
+
+
+_DEFAULT: Optional[AsyncIOHandle] = None
+
+
+def default_aio_handle(**kw) -> AsyncIOHandle:
+    """The process's shared handle, made by the first call with its
+    keyword arguments."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = AsyncIOHandle(**kw)
+    return _DEFAULT

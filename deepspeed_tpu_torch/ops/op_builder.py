@@ -11,7 +11,8 @@ Libraries land in ``build/kernels/`` at the repo root (git-ignored;
 rebuilt and never read stale.  All sources build in parallel, one ``nvcc`` each.  A build
 failure raises: nothing falls back.
 
-Host ops (:class:`HostOpBuilder`): the ZeRO-Offload optimizers and the
+Host ops (:class:`OpBuilder`, in the JAX package's ``BUILDERS`` table,
+:func:`get_builder`): the ZeRO-Offload optimizers and the
 async-I/O engine are the repo's own host C++ (``csrc/adam/cpu_adam.cpp``,
 ``csrc/lion/cpu_lion.cpp``, ``csrc/adagrad/cpu_adagrad.cpp``,
 ``csrc/aio/aio_engine.cpp`` at the repo root), compiled in place by
@@ -214,9 +215,10 @@ def _cxx_version(cxx: str) -> str:
     return out.stdout.splitlines()[0] if out.stdout else ""
 
 
-class HostOpBuilder:
+class OpBuilder:
     """One host C++ op: ``load()`` compiles it if its library is missing and
-    binds ``signatures`` (name -> (restype, argtypes))."""
+    binds ``signatures`` (name -> (restype, argtypes)); ``is_compatible()``
+    says whether it builds and loads here."""
 
     name = ""
     source = ""  # relative to the repo root's csrc/
@@ -265,8 +267,19 @@ class HostOpBuilder:
                 _libs[self.name] = lib
             return lib
 
+    def is_compatible(self) -> bool:
+        try:
+            self.load()
+            return True
+        except (KernelBuildError, OSError):
+            return False
 
-class CPUAdamBuilder(HostOpBuilder):
+
+#: the name the host builders had before they took the JAX package's
+HostOpBuilder = OpBuilder
+
+
+class CPUAdamBuilder(OpBuilder):
     name = "cpu_adam"
     source = "adam/cpu_adam.cpp"
     simd_candidates = SIMD_CANDIDATES
@@ -281,21 +294,21 @@ class CPUAdamBuilder(HostOpBuilder):
     }
 
 
-class CPULionBuilder(HostOpBuilder):
+class CPULionBuilder(OpBuilder):
     name = "cpu_lion"
     source = "lion/cpu_lion.cpp"
     simd_candidates = SIMD_CANDIDATES
     signatures = {"dstpu_lion_step": (_c_i, [_c_p, _c_p, _c_p, _c_i64, _c_f, _c_f, _c_f, _c_f])}
 
 
-class CPUAdagradBuilder(HostOpBuilder):
+class CPUAdagradBuilder(OpBuilder):
     name = "cpu_adagrad"
     source = "adagrad/cpu_adagrad.cpp"
     simd_candidates = SIMD_CANDIDATES
     signatures = {"dstpu_adagrad_step": (_c_i, [_c_p, _c_p, _c_p, _c_i64, _c_f, _c_f, _c_f])}
 
 
-class AsyncIOBuilder(HostOpBuilder):
+class AsyncIOBuilder(OpBuilder):
     name = "async_io"
     source = "aio/aio_engine.cpp"
     extra_flags = ["-lpthread"]
@@ -314,3 +327,19 @@ class AsyncIOBuilder(HostOpBuilder):
     }
 
 
+#: the JAX package's builder table (``ops/op_builder.py`` ``BUILDERS``)
+BUILDERS = {
+    "CPUAdamBuilder": CPUAdamBuilder,
+    "CPULionBuilder": CPULionBuilder,
+    "CPUAdagradBuilder": CPUAdagradBuilder,
+    "AsyncIOBuilder": AsyncIOBuilder,
+}
+
+
+def get_builder(name: str) -> OpBuilder:
+    """A builder by its ``BUILDERS`` key or its op name (``"cpu_adam"``);
+    any other name raises ``KeyError``."""
+    cls = BUILDERS.get(name) or {c.name: c for c in BUILDERS.values()}.get(name)
+    if cls is None:
+        raise KeyError(name)
+    return cls()

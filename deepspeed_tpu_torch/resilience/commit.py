@@ -257,6 +257,8 @@ def finalize_commit(save_dir: str, tag: str, meta: Optional[dict] = None,
                               "crc32": _crc32_file(full)}
                 synced.result()
     # the manifest's timestamp orders tags for humans and retention tools
+    # dstpu-lint: allow[wall-clock] manifest metadata timestamp for humans and retention
+    # tools: not a duration, not replayed
     manifest = {"format": COMMIT_FORMAT, "tag": tag, "ts": time.time(),
                 "files": files, "meta": dict(meta or {})}
     atomic_write_text(os.path.join(staging, MANIFEST),

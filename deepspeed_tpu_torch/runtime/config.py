@@ -37,6 +37,7 @@ import os
 import tempfile
 from typing import Any, Dict, Optional
 
+from ..utils.logging import logger
 from .config_utils import AUTO, ConfigModel
 
 TRAIN_BATCH_SIZE = "train_batch_size"
@@ -145,6 +146,17 @@ class ZeroConfig(ConfigModel):
     def validate(self) -> None:
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_optimization.stage must be 0-3, got {self.stage}")
+        if isinstance(self.offload_optimizer, bool):
+            # the deprecated ``cpu_offload: true|false`` lands here as a bare
+            # boolean; training on without offload would drop what was asked
+            raise ValueError(
+                f"zero_optimization.offload_optimizer={self.offload_optimizer!r} (the deprecated "
+                f"'cpu_offload' key) is not a block: write offload_optimizer: "
+                f'{{"device": "cpu"}} to offload, or leave both keys out')
+
+    @classmethod
+    def deprecated_fields(cls) -> Dict[str, str]:
+        return {"cpu_offload": "offload_optimizer"}
 
 
 @dataclasses.dataclass
@@ -520,6 +532,9 @@ class SchedulerConfig(ConfigModel):
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+_ZERO_FIELDS = frozenset(f.name for f in dataclasses.fields(ZeroConfig))
+
+
 def _refuse_unported(config: Dict[str, Any]) -> None:
     """Raise for any block that enables something not ported yet."""
     for key, item in _ENABLED_BLOCKS.items():
@@ -629,7 +644,8 @@ class DeepSpeedConfig:
         self.bf16 = BF16Config.from_dict(g("bf16") or g("bfloat16"))
         zero = g("zero_optimization") or {}
         self.zero_config = ZeroConfig.from_dict(
-            {f.name: zero[f.name] for f in dataclasses.fields(ZeroConfig) if f.name in zero})
+            {k: v for k, v in zero.items()
+             if k in ZeroConfig.deprecated_fields() or k in _ZERO_FIELDS})
         self.hybrid_engine = HybridEngineConfig.from_dict(g("hybrid_engine"))
         self.optimizer = OptimizerConfig.from_dict(g("optimizer"))
         self.scheduler = SchedulerConfig.from_dict(g("scheduler"))
@@ -646,6 +662,10 @@ class DeepSpeedConfig:
             raise ValueError("fp16 and bf16 cannot both be enabled")
         if dp_world_size is not None:
             self.resolve_batch_size(dp_world_size)
+
+    def print_config(self) -> None:
+        """Log the raw config as indented JSON (the JAX package's line)."""
+        logger.info(f"DeepSpeedTPU config: {json.dumps(self.raw, indent=2, default=str)}")
 
     # -- batch-size triangle ------------------------------------------------
     def resolve_batch_size(self, dp_world_size: int) -> None:

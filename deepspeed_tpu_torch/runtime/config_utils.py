@@ -1,6 +1,7 @@
 """Typed config models (the port's copy of ``deepspeed_tpu/runtime/
 config_utils.py``): dataclass-style field declaration, type coercion,
-``"auto"`` passthrough and unknown-key warnings."""
+``"auto"`` passthrough, unknown-key warnings and deprecated-field
+redirection."""
 
 from __future__ import annotations
 
@@ -46,8 +47,17 @@ class ConfigModel:
     """Base class: ``MyConfig.from_dict({...})`` with coercion + warnings."""
 
     @classmethod
+    def deprecated_fields(cls) -> Dict[str, str]:
+        """Old key -> new key, renamed before the fields are resolved."""
+        return {}
+
+    @classmethod
     def from_dict(cls: Type[T], data: Optional[Dict[str, Any]]) -> T:
         data = dict(data or {})
+        for old, new in cls.deprecated_fields().items():
+            if old in data:
+                logger.warning(f"Config field '{old}' is deprecated; use '{new}'")
+                data.setdefault(new, data.pop(old))
         fields = {f.name: f for f in dataclasses.fields(cls)}
         kwargs = {}
         for key, value in data.items():
@@ -81,3 +91,8 @@ def _resolve(cls: type, field: dataclasses.Field) -> Any:
         except (NameError, SyntaxError, TypeError):
             return Any
     return ann
+
+
+def get_scalar_param(d: Dict[str, Any], name: str, default: Any) -> Any:
+    """``d[name]``, or ``default`` when the key is absent."""
+    return d.get(name, default)

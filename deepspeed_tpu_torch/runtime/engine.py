@@ -245,6 +245,7 @@ class DeepSpeedTPUEngine:
             from ..profiling.flops_profiler import FlopsProfiler
 
             self.flops_profiler = FlopsProfiler(self, c.flops_profiler)
+        self._training_data = training_data
         self.training_dataloader = (self.deepspeed_io(training_data)
                                     if training_data is not None else None)
         self._train_iter: Optional[RepeatingLoader] = None
@@ -460,11 +461,13 @@ class DeepSpeedTPUEngine:
         # buffers (autograd outputs or the accumulator) and are scaled in place
         grads = [g.float() for g in src]
         if self.fp16_enabled:
+            # dstpu-lint: allow[host-sync] gas is a Python int: no device value is read
             denom = float(gas) * st.loss_scale.cur_scale
             for g in grads:
                 g.div_(denom)
         else:
             for g in grads:
+                # dstpu-lint: allow[host-sync] gas is a Python int: no device value is read
                 g.div_(float(gas))
         norm = global_grad_norm(grads)
         clip = self.config.gradient_clipping
@@ -538,11 +541,16 @@ class DeepSpeedTPUEngine:
         clip factor on the card, then the streamed update."""
         st = self.state
         gas = self.config.gradient_accumulation_steps or 1
+        # dstpu-lint: allow[host-sync] the host optimizer's boundary: the host update needs
+        # the schedule's lr at the step actually taken, read once a boundary
         lr = float(self.lr_schedule(int(st.step)))
+        # dstpu-lint: allow[host-sync] gas is a Python int: no device value is read
         denom = float(gas)
         if self.fp16_enabled:
             if overflow is None:
                 overflow = check_overflow(src)
+            # dstpu-lint: allow[host-sync] fp16 under offload: the host divides by the loss
+            # scale, read once a boundary (the overflow flag is read beside it)
             denom = float(gas) * float(st.loss_scale.cur_scale)
             st.loss_scale = update_loss_scale(st.loss_scale, overflow, self.config.fp16)
             if bool(overflow):  # skipped before any host state is touched
@@ -608,6 +616,7 @@ class DeepSpeedTPUEngine:
         ``_numerics_boundary`` folds it into JAX's tree."""
         st = self.state
         gas = self.config.gradient_accumulation_steps or 1
+        # dstpu-lint: allow[host-sync] gas is a Python int: no device value is read
         inv = torch.tensor(1.0 / float(gas), dtype=torch.float32, device=self.device)
         if self.fp16_enabled:
             inv = inv / st.loss_scale.cur_scale
@@ -914,6 +923,8 @@ class DeepSpeedTPUEngine:
 
     # ---------------------------------------------------------- accessors
     def get_lr(self) -> List[float]:
+        # dstpu-lint: allow[host-sync] a public accessor; on the step path only at a
+        # steps_per_print boundary (_report_telemetry), after the device fence
         return [float(self.lr_schedule(int(self.state.step)))]
 
     def get_global_grad_norm(self) -> float:
@@ -922,6 +933,8 @@ class DeepSpeedTPUEngine:
     def loss_scale(self) -> float:
         if self.state.loss_scale is None:
             return 1.0
+        # dstpu-lint: allow[host-sync] a public accessor; on the step path only at a
+        # steps_per_print boundary (_report_telemetry), after the device fence
         return float(self.state.loss_scale.cur_scale)
 
     @property
@@ -952,7 +965,12 @@ class DeepSpeedTPUEngine:
         (dynamic scaling only — a static scale never recovers, so a
         non-finite loss there is immediately fatal); None = no tolerance."""
         if (self.config.sanity_checks and self.fp16_enabled
+                # dstpu-lint: allow[host-sync] the config's loss_scale is a Python float;
+                # the skipped-steps read is the opt-in sanity_checks guard's one sync a step
+                # under a dynamic fp16 scale, as in the JAX engine
                 and float(self.config.fp16.loss_scale) == 0.0):
+            # dstpu-lint: allow[host-sync] sanity_checks under a dynamic fp16 scale only:
+            # the guard's skipped-steps read
             return int(self.state.skipped_steps)
         return None
 
@@ -964,10 +982,14 @@ class DeepSpeedTPUEngine:
         consecutive non-finite losses."""
         if not self.config.sanity_checks or loss is None:
             return
+        # dstpu-lint: allow[host-sync] sanity_checks is the opt-in non-finite guard: one
+        # sync a step by design, as in the JAX engine
         lv = float(loss)
         if np.isfinite(lv):
             self._sanity_skip_run = 0
             return
+        # dstpu-lint: allow[host-sync] sanity_checks only, after its loss read: the overflow
+        # skip it tolerates
         if skipped_before is not None and int(self.state.skipped_steps) > skipped_before:
             self._sanity_skip_run = getattr(self, "_sanity_skip_run", 0) + 1
             if self._sanity_skip_run <= self._SANITY_MAX_SKIP_RUN:
@@ -975,6 +997,8 @@ class DeepSpeedTPUEngine:
         raise FloatingPointError(
             f"sanity_checks: non-finite loss {lv} at step "
             f"{self.global_steps} (grad norm "
+            # dstpu-lint: allow[host-sync] the error message of a dead job: the sync
+            # enriches the post-mortem
             f"{float(self.state.global_grad_norm):.3g}, "
             f"consecutive tolerated skips "
             f"{getattr(self, '_sanity_skip_run', 0)})")
@@ -985,6 +1009,9 @@ class DeepSpeedTPUEngine:
         CPU): at a reporting boundary, and closing a timeline capture's
         window after the traced step's device work has retired."""
         if self.device.type == "cuda":
+            # dstpu-lint: allow[host-sync] the device fence: called only at a
+            # steps_per_print boundary with telemetry on, with wall_clock_breakdown, around
+            # a timeline capture and by stop_profiler_trace, never on a plain step
             torch.cuda.synchronize(self.device)
 
     def capture_timeline(self, batch: Any = None, data_iter: Optional[Iterator] = None):
@@ -1203,12 +1230,18 @@ class DeepSpeedTPUEngine:
         if self.global_steps % self.config.steps_per_print != 0:
             return
         if loss is not None:
+            # dstpu-lint: allow[host-sync] after the steps_per_print gate: boundary cadence,
+            # the queue already drained by the device fence
             self._m_loss.set(float(loss))
         self._m_lr.set(self.get_lr()[0])
+        # dstpu-lint: allow[host-sync] after the steps_per_print gate: boundary cadence, the
+        # queue already drained by the device fence
         self._m_grad_norm.set(float(self.state.global_grad_norm))
         self._m_loss_scale.set(self.loss_scale())
         if tm.ledger is not None:
             tm.ledger.publish()
+        # dstpu-lint: allow[host-sync] after the steps_per_print gate: boundary cadence, the
+        # queue already drained by the device fence
         skipped = int(self.state.skipped_steps)
         if skipped > self._skipped_pub:
             self._m_skipped.inc(skipped - self._skipped_pub)
@@ -1257,8 +1290,14 @@ class DeepSpeedTPUEngine:
         if stats is not None:
             report.update(shape_boundary_report(self._fold_numerics(pull_to_host(stats))))
         else:
+            # dstpu-lint: allow[host-sync] the numerics boundary (steps_per_print cadence)
+            # without a stats tree: the host scalars the sentinel watches
             report["loss"] = None if loss is None else float(loss)
+            # dstpu-lint: allow[host-sync] the numerics boundary (steps_per_print cadence)
+            # without a stats tree: the host scalars the sentinel watches
             report["grad_norm"] = float(self.state.global_grad_norm)
+            # dstpu-lint: allow[host-sync] the numerics boundary (steps_per_print cadence)
+            # without a stats tree: the host scalars the sentinel watches
             report["skipped_steps"] = int(self.state.skipped_steps)
             if self.state.loss_scale is not None:
                 report["loss_scale"] = self.loss_scale()
@@ -1328,6 +1367,8 @@ class DeepSpeedTPUEngine:
         if self.monitor is not None and self.monitor.enabled and loss is not None:
             # the monitor's one host sync a step: the loss and the step the
             # schedule reads, in one copy
+            # dstpu-lint: allow[host-sync] the monitor's one host sync a step (only with a
+            # monitor writer on): the loss and the step in one copy
             host = torch.stack([loss.detach().float().reshape(()),
                                 self.state.step.float()]).tolist()
             step = self.global_steps
@@ -1418,3 +1459,76 @@ class DeepSpeedTPUEngine:
 
     def zero_optimization_stage(self) -> int:
         return self.config.zero_config.stage
+
+    def set_train_batch_size(self, train_batch_size: int) -> None:
+        """Change the batch by changing only gradient accumulation (the
+        micro-batch stays); the next ``train_batch`` takes batches with the
+        new leading gas dim."""
+        micro = self.config.train_micro_batch_size_per_gpu
+        if train_batch_size % micro != 0:
+            raise ValueError(f"train_batch_size {train_batch_size} not divisible by "
+                             f"micro_batch*dp = {micro}")
+        self.config.gradient_accumulation_steps = train_batch_size // micro
+        self.config.train_batch_size = train_batch_size
+        self._batch_size_changed()
+
+    def set_train_micro_batch_size(self, micro_batch_size: int) -> None:
+        """Change the micro-batch, keeping gas; the batch follows, and the
+        training dataloader (when the engine made one) draws micro-batches
+        of the new size."""
+        self.config.train_micro_batch_size_per_gpu = int(micro_batch_size)
+        self.config.train_batch_size = (int(micro_batch_size)
+                                        * (self.config.gradient_accumulation_steps or 1))
+        if self._training_data is not None:
+            self.training_dataloader = self.deepspeed_io(self._training_data)
+        self._batch_size_changed()
+
+    def _batch_size_changed(self) -> None:
+        """Everything that counts per step reads the new sizes: throughput,
+        MFU's FLOPs per step, the memory ledger's hints (the FLOPs profiler
+        and the loaders read the config at each step)."""
+        self.tput_timer.batch_size = max(1, self.config.train_batch_size)
+        self._flops_per_step = None
+        if self.telemetry is not None and self.telemetry.ledger is not None:
+            self.telemetry.ledger.update_context(
+                gas=self.config.gradient_accumulation_steps,
+                micro_batch=self.config.train_micro_batch_size_per_gpu)
+
+    def no_sync(self):
+        """The reference's ``no_sync`` context: micro-steps inside it skip
+        the cross-rank gradient reduction.  One rank reduces nothing, so it
+        changes no step; under ZeRO >= 2 it is refused, as in the JAX
+        engine (partitioned gradients need every reduce-scatter)."""
+        import contextlib
+
+        if self.config.zero_config.stage >= 2:
+            raise AssertionError(
+                "no_sync is not compatible with ZeRO stage >= 2: gradients "
+                "are partitioned and every micro-step's reduce-scatter is "
+                "load-bearing (reference engine.no_sync assert)")
+        return contextlib.nullcontext()
+
+    def stack_microbatches(self, micro_batches: List[Any]) -> Any:
+        """Stack micro-batches on a new leading (gas) dim, leaf by leaf."""
+        return stack_microbatches(micro_batches)
+
+    def start_profiler_trace(self, log_dir: str) -> None:
+        """Start a ``torch.profiler`` capture of this engine's device (the
+        process's one profiler session, shared with ``telemetry/
+        tracing.py`` and the step timeline); raises while another runs."""
+        from ..telemetry.tracing import start_trace
+
+        if not start_trace(log_dir, self.device):
+            raise RuntimeError("start_profiler_trace: a torch.profiler session is "
+                               "already running")
+
+    def stop_profiler_trace(self) -> str:
+        """Wait for the launched work, stop the capture and write its Chrome
+        trace under the start's ``log_dir``; returns the file's path."""
+        from ..telemetry.tracing import stop_trace
+
+        self._device_fence()
+        path = stop_trace()
+        if path is None:
+            raise RuntimeError("stop_profiler_trace: no trace was started")
+        return path

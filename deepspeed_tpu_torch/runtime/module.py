@@ -43,6 +43,18 @@ class ModelSpec:
         None means ``cuda``, as everywhere in the port."""
         return self._init_params(generator, resolve_device(device))
 
+    @staticmethod
+    def from_functions(init_params: Callable, loss_fn: Callable, partition_rules=None,
+                       apply_fn: Optional[Callable] = None, config: Any = None
+                       ) -> "ModelSpec":
+        """The JAX package's constructor by plain functions.  Partition
+        rules shard over a mesh, which waits for ZeRO across ranks (ROADMAP
+        Queue 1 #8): a non-empty list raises."""
+        if partition_rules:
+            raise NotImplementedError("ModelSpec partition rules: sharding over a mesh is "
+                                      "not ported yet (ROADMAP Queue 1 #8)")
+        return ModelSpec(config, init_params, loss_fn, apply_fn)
+
 
 def as_model_spec(model: Any) -> ModelSpec:
     """A ModelSpec, or an object with ``init_params`` and ``loss_fn``

@@ -41,6 +41,29 @@ def check_overflow(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack(flags).any()
 
 
+def _tensor_leaves(tree: Any) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return []
+
+
+def nonfinite_count(tree: Any) -> torch.Tensor:
+    """Total inf and NaN elements over a tree of tensors (dicts, lists,
+    ``ParamTree``s) as a 0-d int32 tensor on the leaves' device, with no
+    host read: the counting sibling of :func:`check_overflow`."""
+    leaves = _tensor_leaves(tree)
+    if not leaves:
+        return torch.tensor(0, dtype=torch.int32)
+    return sum(torch.logical_not(torch.isfinite(g.float())).sum()
+               for g in leaves).to(torch.int32)
+
+
 def loss_scale_summary(state: LossScaleState) -> dict:
     """The dynamic loss-scale state's scalars, for the numerics stats tree."""
     return {"cur_scale": state.cur_scale,

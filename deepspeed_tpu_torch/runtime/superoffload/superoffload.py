@@ -5,7 +5,9 @@ superoffload/superoffload.py``.
 The host update is the C++ SIMD op (``ops/cpu``), whose ctypes call
 releases the GIL, so a thread pool runs leaves on several cores at once
 with the arrays in this process's RAM.  The global norm (and clipping) is
-taken before any task starts.  Each worker thread that spills to NVMe has
+taken before any task starts (``apply_step``, the JAX module's
+whole-list call, is the base class's: scale and clip, then this class's
+``step_leaves``).  Each worker thread that spills to NVMe has
 its own async-I/O handle: handles share no in-flight state, and the
 moment dicts are written per key only.
 

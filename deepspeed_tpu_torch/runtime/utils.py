@@ -1,7 +1,7 @@
 """Runtime utilities (``deepspeed_tpu/runtime/utils.py``).
 
-``see_memory_usage`` reads the caching allocator through the memory
-ledger, ``clip_grad_norm_`` clips a list of gradients by their global norm,
+``see_memory_usage`` reads the accelerator (``get_accelerator()``: the
+caching allocator on the card) through the memory ledger, ``clip_grad_norm_`` clips a list of gradients by their global norm,
 ``flatten_tree`` / ``unflatten_tree`` pack a tree of tensors into one 1-D
 buffer and back, ``partition_uniform`` / ``partition_balanced`` split items
 into parts, and ``set_random_seed`` seeds every host generator and
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..accelerator import memory_stats
+from ..accelerator import get_accelerator
 from ..utils.logging import logger
 from .precision import clip_by_global_norm, global_grad_norm
 
@@ -36,7 +36,7 @@ def see_memory_usage(message: str, force: bool = False) -> dict:
 
     stats = get_memory_ledger().publish_stats()
     if force:
-        s = stats or memory_stats()
+        s = stats or get_accelerator().memory_stats()
         used = s.get("bytes_in_use", 0) / 2**30
         peak = s.get("peak_bytes_in_use", 0) / 2**30
         limit = s.get("bytes_limit", 0) / 2**30

@@ -69,6 +69,8 @@ def rebase_deadline_left(left: Any, sent_unix: Any) -> Optional[float]:
     if left is None:
         return None
     if sent_unix is not None:
+        # dstpu-lint: allow[wall-clock] transit vs the sender's wall-clock stamp; clamped
+        # non-negative so skew never grants budget back
         transit = max(0.0, time.time() - float(sent_unix))
         left = max(0.0, float(left) - transit)
     return float(left)
@@ -194,6 +196,8 @@ def bundle_to_bytes(bundle: KVPageBundle) -> bytes:
         "priority": bundle.priority,
         "deadline_left_s": (max(0.0, bundle.deadline - time.perf_counter())
                             if bundle.deadline else None),
+        # dstpu-lint: allow[wall-clock] cross-host wire timestamp; monotonic clocks do not
+        # compare across machines
         "sent_unix": time.time(),
         "page_keys": [k.hex() if isinstance(k, bytes) else k for k in bundle.page_keys],
         "src_pages": [{"page": m["page"], "refcount": m["refcount"],
@@ -204,6 +208,8 @@ def bundle_to_bytes(bundle: KVPageBundle) -> bytes:
     }
     if bundle.trace is not None:
         trace = dict(bundle.trace)
+        # dstpu-lint: allow[wall-clock] per-hop wire timestamp; transit is sender wall vs
+        # receiver wall, as sent_unix
         trace["hops"] = list(trace.get("hops") or []) + [{"sent_unix": time.time()}]
         header["trace"] = trace
         header["trace_crc"] = _trace_crc(trace)
@@ -225,6 +231,8 @@ def bundle_from_bytes(data: bytes) -> KVPageBundle:
                 "trace context): refused; a legacy bundle would omit the block")
         hops = trace.get("hops") or []
         if hops and hops[-1].get("sent_unix") is not None:
+            # dstpu-lint: allow[wall-clock] receive stamp paired with the sender's
+            # wall-clock hop stamp (cross-host transit)
             now_unix = time.time()
             hops[-1]["recv_unix"] = now_unix
             trace["transit_s"] = max(0.0, now_unix - float(hops[-1]["sent_unix"]))

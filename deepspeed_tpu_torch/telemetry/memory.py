@@ -174,16 +174,15 @@ class MemoryLedger:
     attribution sum so the unattributed residual stays honest.
 
     ``accelerator``: an object with ``memory_stats()`` (and optionally
-    ``memory_counters()``) returning the reference's keys; None reads the
-    port's accelerator on its default device."""
+    ``memory_counters()``) returning the reference's keys; None reads
+    ``get_accelerator()`` on its current device (one process drives one
+    card)."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
                  accelerator: Any = None,
                  watch_phases=DEFAULT_WATCH_PHASES):
         self.registry = registry or get_registry()
         self._acc = accelerator
-        #: the device the port's accelerator is read on, fixed at first use
-        self._device = None
         self._lock = threading.Lock()
         self._components: Dict[str, _Component] = {}
         #: hint context the engines register (KV geometry); feeds ``oom_hints``
@@ -256,9 +255,9 @@ class MemoryLedger:
     def memory_stats(self) -> Dict[str, int]:
         """Live accelerator stats (empty dict when the platform reports
         nothing)."""
+        acc = self._acc if self._acc is not None else accelerator.get_accelerator()
         try:
-            s = (self._acc.memory_stats() if self._acc is not None
-                 else accelerator.memory_stats(self._dev()))
+            s = acc.memory_stats()
         except Exception:
             s = {}
         return {k: int(v) for k, v in (s or {}).items()
@@ -267,15 +266,9 @@ class MemoryLedger:
     def memory_counters(self) -> Dict[str, int]:
         """The two cheap occupancy counters (``bytes_in_use``,
         ``peak_bytes_in_use``) the phase watch reads at every edge."""
-        if self._acc is None:
-            return accelerator.memory_counters(self._dev())
-        fn = getattr(self._acc, "memory_counters", None)
-        return fn() if fn is not None else self._acc.memory_stats()
-
-    def _dev(self):
-        if self._device is None:
-            self._device = accelerator.default_device()
-        return self._device
+        acc = self._acc if self._acc is not None else accelerator.get_accelerator()
+        fn = getattr(acc, "memory_counters", None)
+        return fn() if fn is not None else acc.memory_stats()
 
     def publish_stats(self, stats: Optional[Dict[str, int]] = None
                       ) -> Dict[str, int]:

@@ -1,11 +1,13 @@
 """Logging (the port's copy of ``deepspeed_tpu/utils/logging.py``): one
-process-wide logger whose level an environment variable can set."""
+process-wide logger whose level an environment variable can set, and
+:func:`log_dist` for messages that only some ranks should print."""
 
 from __future__ import annotations
 
 import logging
 import os
 import sys
+from typing import Iterable, Optional
 
 log_levels = {
     "debug": logging.DEBUG,
@@ -43,6 +45,26 @@ def _env_log_level(default: int = logging.INFO) -> int:
 
 
 logger = _create_logger(level=_env_log_level())
+
+
+def _process_index() -> int:
+    """This process's rank: ``torch.distributed``'s when a process group is
+    initialised, else 0."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def log_dist(message: str, ranks: Optional[Iterable[int]] = None,
+             level: int = logging.INFO) -> None:
+    """Log ``message`` only on the given ranks (default: rank 0);
+    ``ranks=[-1]`` logs on every rank."""
+    ranks = list(ranks) if ranks is not None else [0]
+    my_rank = _process_index()
+    if -1 in ranks or my_rank in ranks:
+        logger.log(level, f"[Rank {my_rank}] {message}")
 
 _WARNED_ONCE: set = set()
 

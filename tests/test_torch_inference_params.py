@@ -99,3 +99,48 @@ def test_training_master_survives_and_the_next_step_is_unchanged():
     losses = [(served.train_batch(b), plain.train_batch(b)) for b in batches[1:]]
     assert all(torch.equal(torch.as_tensor(a), torch.as_tensor(b)) for a, b in losses)
     assert _same(served.get_params(), _leaves(plain.get_params()))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp16"])
+def test_engine_v2_leaves_the_callers_fp32_tree(dtype):
+    """``InferenceEngineV2`` likewise (#F11): a caller's fp32 tree served in
+    another dtype keeps its dtype and bits, and the engine's greedy tokens
+    equal those of an engine given a copy already in that dtype."""
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2, RaggedInferenceConfig,
+                                                  RaggedRequest)
+
+    _, tree = _tree()
+    model = llama_model("tiny", max_seq_len=32)
+    params = params_from_numpy(tree, model.config, "cpu", torch.float32)
+    saved = _leaves(params)
+    cfg = RaggedInferenceConfig(dtype=dtype, page_size=8, max_seqs=2, max_pages_per_seq=4,
+                                num_pages=8)
+    eng = InferenceEngineV2(model, cfg, params=params, device="cpu")
+    assert _same(params, saved)
+    assert all(p.dtype == cfg.torch_dtype for p in eng.params.parameters())
+    copy = cast_tree_copy(params, cfg.torch_dtype, torch.device("cpu"))
+    ref = InferenceEngineV2(model, cfg, params=copy, device="cpu")
+    assert ref.params is copy  # already there in its dtype: served as it is
+    reqs = [RaggedRequest(prompt_ids=[3, 5, 7, 9], max_new_tokens=4)]
+    assert eng.generate_all(reqs) == ref.generate_all(reqs)
+    assert _same(params, saved)
+
+
+def test_module_quantize_leaves_a_tree_served_as_it_is():
+    """#F12: an engine serving its caller's tree as it is (already on the
+    device in its dtype) quantizes a copy; the caller's leaves keep their
+    bits, and the engine's quantized tree equals one from an engine given
+    a copy."""
+    _, tree = _tree()
+    model = llama_model("tiny", max_seq_len=32)
+    params = params_from_numpy(tree, model.config, "cpu", torch.float32)
+    saved = _leaves(params)
+    eng = deepspeed_tpu_torch.init_inference(model, config={"dtype": "fp32"}, params=params,
+                                             device="cpu")
+    assert eng.params is params
+    eng.module_quantize()
+    assert _same(params, saved) and eng.params is not params
+    ref = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "fp32"}, params=params.map(lambda t: t.clone()),
+        device="cpu").module_quantize()
+    assert all(torch.equal(a, b) for a, b in zip(eng.params.parameters(), ref.params.parameters()))

@@ -118,9 +118,15 @@ def _rows(path):
 
 def test_monitored_engines_write_the_same_tags_and_values(tmp_path, monkeypatch):
     # each engine publishes to its package's process registry: a fresh one
-    # each, so no series an earlier test left in this process is written
-    monkeypatch.setattr(jreg, "_default_registry", jreg.MetricsRegistry())
-    monkeypatch.setattr(treg, "_default_registry", treg.MetricsRegistry())
+    # each, so no series an earlier test left in this process is written;
+    # the process memory ledgers made under them go with them, so no later
+    # test finds a ledger bound to a registry no longer the process's
+    from deepspeed_tpu.telemetry import memory as jmem
+    from deepspeed_tpu_torch.telemetry import memory as tmem
+
+    for reg, mem in ((jreg, jmem), (treg, tmem)):
+        monkeypatch.setattr(reg, "_default_registry", reg.MetricsRegistry())
+        monkeypatch.setattr(mem, "_default_ledger", None)
     cfg = jllama.llama_config("tiny", max_seq_len=32)
     tree = jax.tree_util.tree_map(np.asarray, jt.init_transformer_params(
         cfg, jax.random.PRNGKey(0)))

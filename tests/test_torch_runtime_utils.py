@@ -93,7 +93,17 @@ def test_set_random_seed_seeds_the_host_generators_as_jax():
                        torch.rand(2, generator=torch.Generator().manual_seed(7)))
 
 
-def test_see_memory_usage_publishes_the_jax_gauges():
+def test_see_memory_usage_publishes_the_jax_gauges(monkeypatch):
+    # each package's process ledger binds its gauges to the registry of its
+    # creation: start both from none, on fresh registries, so that what an
+    # earlier test in this worker left behind (a ledger made under a
+    # registry it had swapped in) cannot hide the gauges
+    from deepspeed_tpu.telemetry import memory as jmem
+    from deepspeed_tpu_torch.telemetry import memory as tmem
+
+    for reg, mem in ((jreg, jmem), (treg, tmem)):
+        monkeypatch.setattr(reg, "_default_registry", reg.MetricsRegistry())
+        monkeypatch.setattr(mem, "_default_ledger", None)
     names = ("deepspeed_tpu_memory_bytes_in_use", "deepspeed_tpu_memory_peak_bytes_in_use",
              "deepspeed_tpu_memory_bytes_limit")
     jutils.see_memory_usage("x", force=True)

@@ -253,11 +253,14 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     ``offload_states`` frees the card's weights and ``reload_states``
     brings back the same tokens;
 30. lamb, lion, adagrad, sgd, muon and the 1-bit family, card against
-    CPU: each update's arithmetic on identical leaves and gradients
-    (``OPTIMIZER_TOL``), and the five without a quantiser through a
-    2-layer llama-160m-width model, 3 fp32 steps (``TRAIN_PARITY_TOL``,
-    the params held by the norm of their difference against the norm of
-    their movement);
+    CPU: each update's arithmetic on identical leaves and gradients, 3
+    steps (``OPTIMIZER_TOL``; the CPU half computed on a worker thread on
+    3 of the host's cores while phases 2-3, 6-7, 10-11, 15 and 21 keep
+    the card busy, joined before phase 18, whose launches, like phase
+    19's, are counted in profiler windows), and the five without a
+    quantiser through a 2-layer llama-160m-width model, 3 fp32 steps
+    (``TRAIN_PARITY_TOL``, the params held by the norm of their difference
+    against the norm of their movement);
 31. ``cpu_checkpointing`` and the ``offload_dots`` policy on llama-1b:
     losses and masters bit-equal to remat without them; the device memory
     a forward's graph holds until its backward, and the peaks of the
@@ -372,6 +375,27 @@ Phases (any failed check exits non-zero; nothing is caught and passed):
     and dS as two bf16 terms) within the unscaled ``FLASH_BWD_TOL`` of
     the fp32 plain version, SDPA's own error beside them, timed in turns
     with the parent's one-term build.
+47. the serving fleet (``fleet_phase``, right after phase 39): llama-1b at
+    full width and depth behind ``build_fleet`` -> ``FleetRouter``,
+    ``prefix_phase``'s four 768-token system prompts with 16-128-token
+    user turns, 8 requests a leg, 32 greedy tokens, pages of 16, 8 slots.
+    (a) fp32, one prefill replica (chunks of 256) and two decode replicas
+    sharing one weight tree, the breaker off (a replica's failed step
+    fails the phase): disaggregated, then a decode replica killed
+    mid-stream, then a fresh decode replica joined and the other given a
+    preemption notice mid-stream; every stream equal to a single engine's
+    on the same tree, token for token, migrations and re-dispatches both
+    seen, no leaked page, each replica's A and B launches L per prefill
+    call and per decode body.  (b) bf16, a decode replica in a second
+    process on this card (``spawn_engine_server``, its start-up
+    overlapping (a)) behind ``RemoteEngineProxy``: its probe stream equal
+    to the in-process replica's (the same seeded weights), the fleet's
+    streams equal to the all-in-process fleet's, a batch handed over by
+    ``pipelined_migrate`` equal to in-process migration, the child's A and
+    B launches from the report it writes at shutdown (no kernel rebuilt).
+    The child's start-up, bundle bytes, export / wire / import seconds and
+    GB/s, TTFT and TPOT fleet against single engine, prefix hits per
+    replica.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA card,
@@ -3392,6 +3416,503 @@ def telemetry_phase(fa, pa):
     return out
 
 
+# -- phase 47: the serving fleet -----------------------------------------------
+
+#: fleet_phase: engine_phase's geometry (pages of 16, 8 slots, 64 pages a
+#: sequence) with each pool sized for the traffic (8 requests of at most
+#: 928 tokens: 8 x 58 pages), the prefix cache on; prefix_phase's four
+#: 768-token system prompts with 16-128-token user turns, greedy, 32 new
+#: tokens; the prefill replica chunks at 256
+FLEET_CFG = dict(page_size=16, max_seqs=8, max_pages_per_seq=64, num_pages=512,
+                 enable_prefix_cache=True)
+FLEET_MODEL, FLEET_REQUESTS, FLEET_CHUNK, FLEET_SEED, FLEET_PROBE_TOKENS = "1b", 8, 256, 0, 16
+FLEET_DIR = os.path.join(ROOT, "build", "fleet")
+
+
+def fleet_serving(prefill, decode):
+    """The phase's fleet config: ``prefill`` and ``decode`` replicas, the
+    prefill replica chunking at ``FLEET_CHUNK``, and the breaker off, so
+    that a replica's failed step (a kernel that does not launch, a CUDA
+    error, an error in the child) stops the pump and fails the phase: with
+    the breaker on, the router would log it and recompute the replica's
+    streams elsewhere, and every stream would still come out right."""
+    from deepspeed_tpu_torch.serving import ServingConfig
+
+    return ServingConfig(enabled=True, prefill_replicas=prefill, decode_replicas=decode,
+                         prefill_chunk=FLEET_CHUNK, breaker_enabled=False)
+
+
+def fleet_requests(rng, vocab, families, n, new_tokens):
+    """``n`` chat and agent requests, round robin over ``families`` (each a
+    product's system prompt), each with a 16-128-token user turn."""
+    from deepspeed_tpu_torch.inference.v2 import RaggedRequest
+
+    out = []
+    for i in range(n):
+        turn = int(torch.randint(16, 129, (1,), generator=rng))
+        out.append(RaggedRequest(prompt_ids=families[i % len(families)]
+                                 + torch.randint(0, vocab, (turn,), generator=rng).tolist(),
+                                 max_new_tokens=new_tokens))
+    return out
+
+
+def registry_value(name, kind="total"):
+    """A process-registry family's running total (counter) or (count,
+    sum) (histogram); 0 before anything registered it."""
+    from deepspeed_tpu_torch.telemetry import get_registry
+
+    m = get_registry().get(name)
+    if kind == "total":
+        return m.total() if m is not None else 0.0
+    return (m.count(), m.sum()) if m is not None else (0, 0.0)
+
+
+def latency_means(before):
+    """Mean TTFT and TPOT of the requests finished since ``before`` (the
+    ``deepspeed_tpu_serving_{ttft,tpot}_seconds`` histograms)."""
+    out = {}
+    for k in ("ttft", "tpot"):
+        n, s = registry_value(f"deepspeed_tpu_serving_{k}_seconds", "hist")
+        n0, s0 = before[k]
+        out[f"{k}_mean_s"] = (s - s0) / (n - n0) if n > n0 else None
+        out[f"{k}_count"] = n - n0
+    return out
+
+
+def latency_marks():
+    return {k: registry_value(f"deepspeed_tpu_serving_{k}_seconds", "hist")
+            for k in ("ttft", "tpot")}
+
+
+def count_replica_launches(fleet, fa, pa, per):
+    """Wrap each replica's ``step`` (once) so that the A and B launches of
+    its engine's steps add up in ``per[name]``, with its engine's prefill
+    calls and decode bodies beside them."""
+    for name, r in fleet.replicas.items():
+        if "step" in vars(r):
+            continue
+        orig = r.step
+
+        def step(orig=orig, name=name, eng=r.engine):
+            a, b = fa.flash_attention_fwd.launches, pa.paged_decode_attention.launches
+            s0 = eng.stats() if hasattr(eng, "stats") else None
+            out = orig()
+            rec = per.setdefault(name, {"flash": 0, "paged": 0, "prefill_calls": 0,
+                                        "decode_bodies": 0})
+            rec["flash"] += fa.flash_attention_fwd.launches - a
+            rec["paged"] += pa.paged_decode_attention.launches - b
+            if s0 is not None:
+                s1 = eng.stats()
+                rec["prefill_calls"] += (s1["prefill_calls"] + s1["prefill_chunk_calls"]
+                                         - s0["prefill_calls"] - s0["prefill_chunk_calls"])
+                rec["decode_bodies"] += s1["decode_device_steps"] - s0["decode_device_steps"]
+            return out
+
+        r.step = step
+
+
+def serve_fleet(fleet, requests, new_tokens, on_pump=None):
+    """Submit ``requests`` and pump the fleet to the end; ``on_pump(uids)``
+    runs after each pump.  The streams in submission order, the client
+    side's TTFT and TPOT (submit to first token; mean gap after it), the
+    wall seconds and pumps."""
+    t0 = time.perf_counter()
+    uids = [fleet.submit(r) for r in requests]
+    first, last = {}, {}
+    pumps = 0
+    while fleet.has_work():
+        out = fleet.step()
+        now = time.perf_counter()
+        pumps += 1
+        for uid, rec in out.items():
+            if rec["tokens"]:
+                first.setdefault(uid, now)
+                last[uid] = now
+        if on_pump is not None:
+            on_pump(uids)
+    wall = time.perf_counter() - t0
+    streams = [fleet.request_state(u)["emitted"] for u in uids]
+    check(all(len(s) == new_tokens for s in streams)
+          and not any(fleet.request_state(u)["failed"] for u in uids),
+          f"fleet: a stream failed or fell short: {[len(s) for s in streams]}")
+    return {"streams": streams, "wall_s": wall, "pumps": pumps,
+            "client_ttft_mean_s": sum(first[u] - t0 for u in uids) / len(uids),
+            "client_tpot_mean_s": sum((last[u] - first[u]) / (new_tokens - 1)
+                                      for u in uids) / len(uids)}
+
+
+def serve_one(eng, request):
+    """One request through an engine (or a remote proxy) by put/step."""
+    uid = eng.put(request)
+    toks = []
+    while eng.has_work():
+        toks += eng.step().get(uid, {}).get("tokens", [])
+    return toks
+
+
+def fleet_handoff(src, dst, requests, move, remote):
+    """Serve ``requests`` on ``src`` and hand each decode-ready sequence to
+    ``dst`` before every step, as the router's pump does: the first one
+    alone with each part timed, the rest by ``move`` (a batch).  Returns
+    the streams, the first handoff's parts and the batches' seconds."""
+    from deepspeed_tpu_torch.serving import bundle_from_bytes, bundle_to_bytes
+
+    streams = {src.put(r): [] for r in requests}
+    timed, batches = None, []
+    while src.has_work() or dst.has_work():
+        ready = src.ready_uids()
+        if ready and timed is None:
+            uid, ready = ready[0], ready[1:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bundle = src.export_sequence(uid)
+            t1 = time.perf_counter()
+            nbytes = sum(t.numel() * t.element_size() for t in bundle.arrays.values())
+            if remote:
+                pending = dst.import_begin(bundle)  # serialized here, then on the wire
+                t2 = time.perf_counter()
+                ok = dst.import_commit(pending)  # the child verifies, imports, ACKs
+                t3 = t4 = time.perf_counter()
+                wire = None
+            else:
+                wire = bundle_to_bytes(bundle)
+                t2 = time.perf_counter()
+                back = bundle_from_bytes(wire)
+                t3 = time.perf_counter()
+                ok = dst.import_sequence(back)
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
+            check(ok, "fleet handoff: the destination refused the first sequence")
+            src.release_sequence(uid, reason="migrated")
+            timed = {"pages": bundle.n_pages, "page_bytes": nbytes, "export_s": t1 - t0,
+                     "to_bytes_s": t2 - t1, "from_bytes_s": t3 - t2 if wire is not None else None,
+                     "import_s": t4 - t3 if wire is not None else None,
+                     "wire_import_s": t3 - t2 if wire is None else None,
+                     "wire_bytes": len(wire) if wire is not None else None}
+        if ready:
+            t0 = time.perf_counter()
+            n = move(src, dst, ready)
+            batches.append({"sequences": len(ready), "moved": n,
+                            "seconds": time.perf_counter() - t0})
+        for eng in (src, dst):
+            for uid, rec in eng.step().items():
+                streams[uid] += rec["tokens"]
+    return {"streams": [streams[u] for u in sorted(streams)], "first": timed,
+            "batches": batches}
+
+
+def fleet_phase(fa, pa):
+    """The serving fleet on llama-1b at full width and depth: (a) in fp32,
+    ``build_fleet`` with one prefill replica (chunks of 256) and two decode
+    replicas sharing one weight tree, against a single engine on the same
+    tree: 8 requests disaggregated, then 8 with a decode replica killed
+    mid-stream (its streams re-dispatched), then 8 with a fresh decode
+    replica joined and the other sent a preemption notice mid-stream (its
+    streams evacuated by migration, by re-dispatch where that fails):
+    every stream the single engine's, token for token; the decode replicas
+    carried the decode, migrations and re-dispatches both happened, no
+    surviving engine leaks a page, and each replica's A and B launches are
+    L per prefill call and per decode body.  (b) in bf16, a decode replica
+    in a second process on this card (``spawn_engine_server``, started at
+    the phase's start so its start-up overlaps (a)) behind a
+    ``RemoteEngineProxy``: a probe stream equal to the in-process decode
+    replica's (the child drew the parent's weights from the seed), the
+    fleet's streams equal to the all-in-process fleet's, a batch handed
+    over by ``pipelined_migrate`` equal to in-process migration, the
+    child's A and B launches from its report (no kernel rebuilt there).
+    Times and rates beside the card's name: the child's start-up, bundle
+    bytes, export / wire / import seconds and GB/s, TTFT and TPOT fleet
+    against single engine, prefix hits per replica.  The child is
+    terminated in a ``finally``."""
+    import gc
+    import multiprocessing
+    import tempfile
+    import threading
+
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2, RaggedInferenceConfig
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.serving import (ROLE_DECODE, ROLE_PREFILL, EngineReplica,
+                                             FleetRouter, RemoteEngineProxy,
+                                             build_fleet, fleet_params, migrate_sequence,
+                                             pipelined_migrate, spawn_engine_server)
+
+    model = llama_model(FLEET_MODEL, max_seq_len=2048)
+    L, vocab = model.config.n_layers, model.config.vocab_size
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    report_path = os.path.join(FLEET_DIR, "child_report.json")
+    if os.path.exists(report_path):
+        os.remove(report_path)
+    sock_dir = tempfile.mkdtemp(prefix="dstpu_fleet_")
+    if len(sock_dir) > 90:  # AF_UNIX paths stop at 108 bytes
+        shutil.rmtree(sock_dir)
+        sock_dir = tempfile.mkdtemp(prefix="dstpu_fleet_", dir="/tmp")
+    spec = {"model": FLEET_MODEL, "max_seq_len": 2048, "seed": FLEET_SEED, "device": DEV,
+            "engine_config": dict(FLEET_CFG, dtype="bf16"), "report_path": report_path}
+    child = {}
+
+    def start_child():
+        t = time.perf_counter()
+        try:
+            child["proc"], child["address"] = spawn_engine_server(
+                spec, address=os.path.join(sock_dir, "engine.sock"), wait_for_socket_s=300)
+        except BaseException as e:  # re-raised on the phase's thread below
+            child["error"] = e
+        child["start_s"] = time.perf_counter() - t
+
+    starter = threading.Thread(target=start_child, daemon=True)
+    starter.start()
+    rng = torch.Generator().manual_seed(2222)
+    families = [torch.randint(0, vocab, (PREFIX_SYSTEM,), generator=rng).tolist()
+                for _ in range(PREFIX_FAMILIES)]
+    sets = [fleet_requests(rng, vocab, families, FLEET_REQUESTS, PREFIX_NEW_TOKENS)
+            for _ in range(3)]
+    rec = {"requests_per_leg": FLEET_REQUESTS, "new_tokens": PREFIX_NEW_TOKENS,
+           "prompt_tokens": [[len(r.prompt_ids) for r in s] for s in sets]}
+    try:
+        # -- (a) fp32, every replica in this process, one weight tree ------------
+        cfg = RaggedInferenceConfig.from_dict(dict(FLEET_CFG, dtype="fp32"))
+        tree = fleet_params(model, None, torch.float32, DEV, FLEET_SEED)
+        control = InferenceEngineV2(model, cfg, params=tree, seed=FLEET_SEED, device=DEV)
+        want, ctl_lat = [], []
+        for reqs in sets:
+            marks = latency_marks()
+            t0 = time.perf_counter()
+            got = control.generate_all([dataclasses.replace(r) for r in reqs])
+            ctl_lat.append(dict(latency_means(marks), wall_s=time.perf_counter() - t0))
+            want.append([got[u] for u in sorted(got)])
+        control.close()
+        del control
+        fleet = build_fleet(model, fleet_serving(1, 2), engine_config=cfg, params=tree,
+                            seed=FLEET_SEED, device=DEV)
+        check(all(r.engine.params is tree for r in fleet.replicas.values()),
+              "fleet: a replica holds its own copy of the weights")
+        per = {}
+        count_replica_launches(fleet, fa, pa, per)
+        legs = {}
+        mig0 = registry_value("deepspeed_tpu_serving_fleet_migrations_total")
+        red0 = registry_value("deepspeed_tpu_serving_fleet_redispatches_total")
+
+        def drive_leg(name, reqs, on_pump=None):
+            fa.flash_attention_fwd.launches = 0
+            pa.paged_decode_attention.launches = 0
+            m0 = registry_value("deepspeed_tpu_serving_fleet_migrations_total")
+            r0 = registry_value("deepspeed_tpu_serving_fleet_redispatches_total")
+            marks = latency_marks()
+            out = serve_fleet(fleet, reqs, PREFIX_NEW_TOKENS, on_pump)
+            out.update(latency_means(marks),
+                       launches={"flash": fa.flash_attention_fwd.launches,
+                                 "paged": pa.paged_decode_attention.launches},
+                       migrations=registry_value(
+                           "deepspeed_tpu_serving_fleet_migrations_total") - m0,
+                       redispatches=registry_value(
+                           "deepspeed_tpu_serving_fleet_redispatches_total") - r0)
+            legs[name] = out
+            return out
+
+        def mid_stream(act, among):
+            """An ``on_pump`` that calls ``act(name)`` once, on the first of
+            the replicas ``among`` holding a stream between its first and
+            last token."""
+            done = []
+
+            def on_pump(uids):
+                if done:
+                    return
+                for u in uids:
+                    s = fleet.request_state(u)
+                    if s["replica"] in among and 1 <= len(s["emitted"]) < PREFIX_NEW_TOKENS:
+                        done.append(s["replica"])
+                        act(s["replica"])
+                        return
+            return on_pump, done
+
+        steps0 = {n: r.engine._decode_steps for n, r in fleet.replicas.items()}
+        drive_leg("disaggregated", sets[0])
+        decode_steps = {n: r.engine._decode_steps - steps0[n]
+                        for n, r in fleet.replicas.items()}
+        check(decode_steps["decode0"] + decode_steps["decode1"] >= FLEET_REQUESTS,
+              f"fleet: the decode replicas did not carry the decode: {decode_steps}")
+        on_kill, killed = mid_stream(fleet.kill_replica, ("decode0", "decode1"))
+        drive_leg("kill", sets[1], on_kill)
+        check(len(killed) == 1 and not fleet.replicas[killed[0]].alive,
+              f"fleet: no decode replica was killed mid-stream ({killed})")
+        survivor = next(n for n in ("decode0", "decode1") if n not in killed)
+        fleet.add_replica(EngineReplica("decode2", InferenceEngineV2(
+            model, cfg, params=tree, seed=FLEET_SEED, device=DEV), role=ROLE_DECODE))
+        count_replica_launches(fleet, fa, pa, per)
+        on_preempt, preempted = mid_stream(
+            lambda n: fleet.replicas[n].watcher.notify("maintenance notice"), (survivor,))
+        drive_leg("preempt", sets[2], on_preempt)
+        check(preempted == [survivor] and fleet.replicas[survivor].retired,
+              f"fleet: {survivor} was not evacuated ({preempted})")
+        for leg, reqs_want in zip(("disaggregated", "kill", "preempt"), want):
+            got = legs[leg]["streams"]
+            if got != reqs_want:
+                bad = [i for i, (g, w) in enumerate(zip(got, reqs_want)) if g != w]
+                firsts = [next(j for j, (a, b) in enumerate(zip(got[i], reqs_want[i]))
+                               if a != b) for i in bad]
+                check(False, f"fleet {leg}: streams {bad} differ from the single engine's "
+                             f"(first differing tokens at {firsts})")
+        migrations = registry_value("deepspeed_tpu_serving_fleet_migrations_total") - mig0
+        redispatches = registry_value("deepspeed_tpu_serving_fleet_redispatches_total") - red0
+        check(migrations > 0 and redispatches > 0,
+              f"fleet: migrations {migrations}, re-dispatches {redispatches}")
+        for name, r in fleet.replicas.items():
+            if r.alive:
+                r.engine.assert_no_leaks()
+            got_l = per.get(name, {"flash": 0, "paged": 0, "prefill_calls": 0,
+                                   "decode_bodies": 0})
+            check(got_l["flash"] == L * got_l["prefill_calls"]
+                  and got_l["paged"] == L * got_l["decode_bodies"],
+                  f"fleet: replica {name}'s launches {got_l} are not L per prefill call "
+                  "and per decode body")
+        check(sum(p["paged"] for n, p in per.items() if n.startswith("decode")) > 0
+              and per["prefill0"]["flash"] > 0, f"fleet: launches by replica {per}")
+        hits = {n: r.engine.cache_stats()["prefix_hit_tokens"] for n, r in fleet.replicas.items()}
+        rec["fp32"] = {
+            "legs": {k: {f: v for f, v in leg.items() if f != "streams"}
+                     for k, leg in legs.items()},
+            "control": ctl_lat, "decode_steps_leg1": decode_steps, "killed": killed,
+            "preempted": preempted, "migrations": migrations, "redispatches": redispatches,
+            "launches_by_replica": per, "prefix_hit_tokens": hits,
+            "launches": {k: sum(leg["launches"][k] for leg in legs.values())
+                         for k in ("flash", "paged")}}
+        print(json.dumps({"fleet_fp32": rec["fp32"]}))
+        for r in fleet.replicas.values():
+            if r.alive:
+                r.engine.close()
+        del fleet, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (b) bf16, the decode replica in a second process -------------------
+        starter.join(timeout=300)
+        check(not starter.is_alive(), "fleet: the engine server did not start in 300 s")
+        if "error" in child:
+            raise child["error"]
+        cfg_b = RaggedInferenceConfig.from_dict(dict(FLEET_CFG, dtype="bf16"))
+        tree_b = fleet_params(model, None, torch.bfloat16, DEV, FLEET_SEED)
+        serving_b = fleet_serving(1, 1)
+        local = build_fleet(model, serving_b, engine_config=cfg_b, params=tree_b,
+                            seed=FLEET_SEED, device=DEV)
+        proxy = RemoteEngineProxy(child["address"])
+        probe = dataclasses.replace(sets[0][0], max_new_tokens=FLEET_PROBE_TOKENS)
+        probe_local = serve_one(local.replicas["decode0"].engine, dataclasses.replace(probe))
+        probe_child = serve_one(proxy, dataclasses.replace(probe))
+        check(probe_child == probe_local and len(probe_child) == FLEET_PROBE_TOKENS,
+              f"fleet: the child's probe stream {probe_child} differs from the parent's "
+              f"{probe_local}: it did not draw the parent's weights")
+        fa.flash_attention_fwd.launches = 0
+        pa.paged_decode_attention.launches = 0
+        local_run = serve_fleet(local, [dataclasses.replace(r) for r in sets[0]],
+                                PREFIX_NEW_TOKENS)
+        local_l = {"flash": fa.flash_attention_fwd.launches,
+                   "paged": pa.paged_decode_attention.launches}
+        pf = InferenceEngineV2(model, dataclasses.replace(cfg_b, prefill_chunk=FLEET_CHUNK),
+                               params=tree_b, seed=FLEET_SEED, device=DEV)
+        cross = FleetRouter([EngineReplica("prefill0", pf, role=ROLE_PREFILL),
+                             EngineReplica("decode0", proxy, role=ROLE_DECODE)], serving_b)
+        sent0 = registry_value("deepspeed_tpu_serving_transport_bytes_sent_total")
+        fa.flash_attention_fwd.launches = 0
+        pa.paged_decode_attention.launches = 0
+        cross_run = serve_fleet(cross, [dataclasses.replace(r) for r in sets[0]],
+                                PREFIX_NEW_TOKENS)
+        parent_l = {"flash": fa.flash_attention_fwd.launches,
+                    "paged": pa.paged_decode_attention.launches}
+        cross_bytes = registry_value("deepspeed_tpu_serving_transport_bytes_sent_total") - sent0
+        check(cross_run["streams"] == local_run["streams"],
+              "fleet bf16: the cross-process fleet's streams differ from the in-process "
+              f"fleet's ({sum(a == b for a, b in zip(cross_run['streams'], local_run['streams']))}"
+              f" of {FLEET_REQUESTS} equal)")
+        batch = [dataclasses.replace(r, uid=1000 + i) for i, r in enumerate(sets[1])]
+
+        def move_local(src, dst, uids):
+            return sum(1 for u in uids if migrate_sequence(src, dst, u))
+
+        fa.flash_attention_fwd.launches = 0
+        pa.paged_decode_attention.launches = 0
+        hand_local = fleet_handoff(local.replicas["prefill0"].engine,
+                                   local.replicas["decode0"].engine,
+                                   [dataclasses.replace(r) for r in batch], move_local, False)
+        local_l = {"flash": local_l["flash"] + fa.flash_attention_fwd.launches,
+                   "paged": local_l["paged"] + pa.paged_decode_attention.launches}
+        fa.flash_attention_fwd.launches = 0
+        pa.paged_decode_attention.launches = 0
+        sent1 = registry_value("deepspeed_tpu_serving_transport_bytes_sent_total")
+        hand_cross = fleet_handoff(pf, proxy, [dataclasses.replace(r) for r in batch],
+                                   pipelined_migrate, True)
+        hand_bytes = registry_value("deepspeed_tpu_serving_transport_bytes_sent_total") - sent1
+        parent_l = {k: parent_l[k] + (fa.flash_attention_fwd.launches if k == "flash"
+                                      else pa.paged_decode_attention.launches)
+                    for k in parent_l}
+        check(hand_cross["streams"] == hand_local["streams"]
+              and all(b["moved"] == b["sequences"] for b in hand_cross["batches"])
+              and any(b["sequences"] > 1 for b in hand_cross["batches"]),
+              f"fleet bf16: pipelined handoff streams or batches differ "
+              f"({hand_cross['batches']})")
+        for e in (pf, local.replicas["prefill0"].engine, local.replicas["decode0"].engine, proxy):
+            e.assert_no_leaks()
+        proxy.close()  # the child closes its engine, writes its report and exits
+        child["proc"].join(timeout=60)
+        check(child["proc"].exitcode == 0, f"fleet: the child exited {child['proc'].exitcode}")
+        with open(report_path) as f:
+            rep = json.load(f)
+        st = rep["stats"]
+        check(rep["compiled"] == [] and rep["device"].startswith(DEV)
+              and "jax" not in rep["packages"] and "deepspeed_tpu" not in rep["packages"],
+              f"fleet: the child rebuilt {rep['compiled']} or ran on {rep['device']}")
+        check(rep["launches"]["flash_attention_fwd"]
+              == L * (st["prefill_calls"] + st["prefill_chunk_calls"]) > 0
+              and rep["launches"]["paged_decode_attention"] == L * st["decode_device_steps"] > 0,
+              f"fleet: the child's launches {rep['launches']} against its stats {st}")
+        first = hand_cross["first"]
+        first_l = hand_local["first"]
+        rec["bf16"] = {
+            "child_start_s": child["start_s"], "child_weights_s": rep["weights_s"],
+            "child_engine_s": rep["engine_s"],
+            "child_import_and_cuda_s": child["start_s"] - rep["weights_s"] - rep["engine_s"],
+            "probe_equal": True, "child_launches": rep["launches"], "child_stats": {
+                k: st[k] for k in ("prefill_calls", "prefill_chunk_calls",
+                                   "decode_device_steps", "decode_seconds")},
+            "parent_launches_cross": parent_l, "parent_launches_local": local_l,
+            "local": {k: v for k, v in local_run.items() if k != "streams"},
+            "cross": {k: v for k, v in cross_run.items() if k != "streams"},
+            "cross_transport_bytes": cross_bytes,
+            "handoff_local": {"first": first_l, "batches": hand_local["batches"],
+                              "export_gbps": first_l["page_bytes"] / first_l["export_s"] / 1e9,
+                              "import_gbps": first_l["page_bytes"] / first_l["import_s"] / 1e9},
+            "handoff_cross": {"first": first, "batches": hand_cross["batches"],
+                              "transport_bytes": hand_bytes,
+                              "export_gbps": first["page_bytes"] / first["export_s"] / 1e9,
+                              "wire_import_gbps": first["page_bytes"] / first["wire_import_s"]
+                              / 1e9,
+                              "pipelined_gbps": hand_bytes / sum(
+                                  b["seconds"] for b in hand_cross["batches"]) / 1e9}}
+        rec["launches"] = {
+            "flash": rec["fp32"]["launches"]["flash"] + local_l["flash"] + parent_l["flash"]
+            + rep["launches"]["flash_attention_fwd"],
+            "paged": rec["fp32"]["launches"]["paged"] + local_l["paged"] + parent_l["paged"]
+            + rep["launches"]["paged_decode_attention"]}
+        rec["launches_by_path"] = {
+            "fp32_fleet": rec["fp32"]["launches"], "bf16_in_process": local_l,
+            "bf16_cross_parent": parent_l,
+            "bf16_cross_child": {"flash": rep["launches"]["flash_attention_fwd"],
+                                 "paged": rep["launches"]["paged_decode_attention"]}}
+        print(json.dumps({"fleet_bf16": rec["bf16"]}))
+        for e in (pf, local.replicas["prefill0"].engine, local.replicas["decode0"].engine):
+            e.close()
+        del local, cross, pf, tree_b
+    finally:
+        starter.join(timeout=1)
+        for p in multiprocessing.active_children():
+            p.terminate()
+            p.join(timeout=10)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
 def parity_phase():
     from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
                                                   RaggedInferenceConfig, RaggedRequest)
@@ -5810,33 +6331,102 @@ for _name in OPTIMIZERS:
 OPTIMIZER_TOL = (1e-6, 1e-5)
 
 
-def optimizers_phase():
-    """Phase 30: each of the 8 optimizers' update on the leaves of a 2-layer
-    llama-160m-width model (seeded weights, seeded gradients), card against
-    CPU, 3 fp32 steps (the 1-bit family crossing its freeze step); then the
-    five without a quantiser through that model, card against CPU, 3 fp32
-    steps from the same weights and batches."""
+def optimizer_inputs():
+    """The arithmetic's inputs: a 2-layer llama-160m-width model, its
+    seeded weights, their fp32 leaves and 3 steps of seeded gradients."""
     from deepspeed_tpu_torch.models.llama import llama_model
-    from deepspeed_tpu_torch.runtime.lr_schedules import get_schedule
-    from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
 
     model = llama_model("160m", max_seq_len=128, n_layers=2)
     params = model.init_params(torch.Generator().manual_seed(9), "cpu")
     leaves = [p.detach().float() for p in params.parameters()]
     gen = torch.Generator().manual_seed(10)
     grads = [[torch.randn(p.shape, generator=gen) * 1e-2 for p in leaves] for _ in range(3)]
+    return model, params, leaves, grads
+
+
+def optimizer_steps(name, extra, leaves, grads, dev):
+    """``name``'s 3 updates of ``leaves`` on ``dev``: the final leaves."""
+    from deepspeed_tpu_torch.runtime.lr_schedules import get_schedule
+    from deepspeed_tpu_torch.runtime.optimizers import build_optimizer
+
+    tx, _ = build_optimizer(name, {"lr": 1e-4, "weight_decay": 0.1, **extra},
+                            get_schedule(None, {}, 1e-4))
+    p = [t.clone().to(dev) for t in leaves]
+    st = tx.init(p)
+    for g in grads:
+        u, st = tx.update([x.to(dev) for x in g], st, p)
+        p = [a + b for a, b in zip(p, u)]
+    return p
+
+
+def optimizer_cpu_reference():
+    """The CPU half of ``optimizers_phase``'s arithmetic: its inputs and
+    each optimizer's final leaves on the CPU, with the seconds it took."""
+    t0 = time.perf_counter()
+    inputs = optimizer_inputs()
+    cpu = {name: optimizer_steps(name, extra, inputs[2], inputs[3], "cpu")
+           for name, extra in OPTIMIZERS.items()}
+    return {"inputs": inputs, "cpu": cpu, "seconds": time.perf_counter() - t0}
+
+
+class BackgroundReference:
+    """CPU reference work on a worker thread, started where the card keeps
+    the phases busy and the host's cores are idle (the first kernel
+    phases), and joined before any phase that counts launches in profiler
+    windows or times the host (a worker beside phase 18 once cost its
+    profiler a launch).  The thread and the intra-op threads it starts run
+    on the last ``threads`` cores of this process's mask only (affinity and
+    intra-op thread count are per-thread settings: the main thread keeps
+    every core), so the phases beside it never wait for a core; an
+    exception raised there re-raises at ``join``."""
+
+    def __init__(self, fn, threads):
+        import threading
+
+        self.result, self.error, self.threads = None, None, threads
+        self.started = time.perf_counter()
+        self._thread = threading.Thread(target=self._run, args=(fn,), daemon=True)
+        self._thread.start()
+
+    def _run(self, fn):
+        before = torch.get_num_threads()
+        self.cores = sorted(os.sched_getaffinity(0))[-self.threads:]
+        os.sched_setaffinity(0, self.cores)  # this thread, and the threads it starts
+        torch.set_num_threads(len(self.cores))
+        try:
+            self.result = fn()
+        except BaseException as e:  # re-raised on the joining thread
+            self.error = e
+        finally:
+            # the count a thread started later begins with is process-wide
+            torch.set_num_threads(before)
+        self.finished = time.perf_counter()
+
+    def join(self):
+        """The result (waiting for it the first time: ``waited_s``)."""
+        if not hasattr(self, "waited_s"):
+            t = time.perf_counter()
+            self._thread.join()
+            self.waited_s = time.perf_counter() - t
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def optimizers_phase(reference=None):
+    """Phase 30: each of the 8 optimizers' update on the leaves of a 2-layer
+    llama-160m-width model (seeded weights, seeded gradients), card against
+    CPU, 3 fp32 steps (the 1-bit family crossing its freeze step); then the
+    five without a quantiser through that model, card against CPU, 3 fp32
+    steps from the same weights and batches.  ``reference``: a
+    ``BackgroundReference`` of ``optimizer_cpu_reference`` (the CPU half of
+    the arithmetic, computed while the kernel phases ran); None computes it
+    here."""
+    ref = reference.join() if reference is not None else optimizer_cpu_reference()
+    model, params, leaves, grads = ref["inputs"]
     arith = {}
     for name, extra in OPTIMIZERS.items():
-        ps = {}
-        for dev in ("cuda", "cpu"):
-            tx, _ = build_optimizer(name, {"lr": 1e-4, "weight_decay": 0.1, **extra},
-                                    get_schedule(None, {}, 1e-4))
-            p = [t.clone().to(dev) for t in leaves]
-            st = tx.init(p)
-            for g in grads:
-                u, st = tx.update([x.to(dev) for x in g], st, p)
-                p = [a + b for a, b in zip(p, u)]
-            ps[dev] = p
+        ps = {"cuda": optimizer_steps(name, extra, leaves, grads, "cuda"), "cpu": ref["cpu"][name]}
         atol, rtol = OPTIMIZER_TOL
         diff = max((a.cpu() - b).abs().max().item() for a, b in zip(ps["cuda"], ps["cpu"]))
         moved = max((b - c).abs().max().item() for b, c in zip(ps["cpu"], leaves))
@@ -5846,11 +6436,12 @@ def optimizers_phase():
         check(within and moved > 0,
               f"optimizer {name}: card vs CPU params differ by {diff} (moved {moved})")
         arith[name] = {"params_max_abs_diff": diff, "moved": moved}
-    print(json.dumps({"optimizer_arithmetic": arith}))
+    print(json.dumps({"optimizer_arithmetic": arith, "cpu_reference_s": ref["seconds"],
+                      "cpu_reference_waited_s": getattr(reference, "waited_s", None)}))
     cases = tuple((name, {"optimizer": {"type": name, "params": {
         "lr": 1e-4, "weight_decay": 0.1, **extra}}}, 3, 2, 64)
         for name, extra in OPTIMIZERS.items() if name not in ONEBIT)
-    return {"arithmetic": arith,
+    return {"arithmetic": arith, "cpu_reference_s": ref["seconds"],
             "training": train_parity(model, params, cases, "optimizer_parity")}
 
 
@@ -7173,6 +7764,9 @@ def main() -> int:
     BASE = Baseline(op_builder, previous)
     warm_clocks()
     phase_s = {}
+    # the optimizers' CPU arithmetic (phase 30's reference) runs on a worker
+    # thread while the first kernel phases keep the card busy
+    opt_ref = BackgroundReference(optimizer_cpu_reference, max(1, (os.cpu_count() or 2) // 2 - 1))
 
     def phase(fn, *args):  # fn(*args), its wall seconds kept under its name
         t = time.perf_counter()
@@ -7190,6 +7784,13 @@ def main() -> int:
     quant = phase(quant_phase, qz)
     gmm_recs = phase(gmm_phase, gm)
     gmm_bwd = phase(gmm_bwd_phase, gm)
+    # joined before the phases that count launches in profiler windows
+    # (sparse, evoformer, the engine's) and the host-timed ones: none of
+    # them shares the host with the worker
+    opt_ref.join()
+    print(json.dumps({"background_reference": {
+        "seconds": opt_ref.result["seconds"], "waited_s": opt_ref.waited_s,
+        "cores": opt_ref.cores}}), flush=True)
     sparse = phase(sparse_phase, sa)
     evo = phase(evo_phase, ev)
     evo_train = phase(evo_train_phase, ev)
@@ -7199,6 +7800,7 @@ def main() -> int:
     dpar = phase(decode_parity_phase)
     prefix = phase(prefix_phase, fa, pa)
     tele = phase(telemetry_phase, fa, pa)
+    flt = phase(fleet_phase, fa, pa)
     train = phase(train_phase, fa, fadam)
     ttel = phase(train_telemetry_phase, fa, fadam, train)
     mon = phase(monitor_profiler_phase, fa, fadam, train, ttel)
@@ -7227,7 +7829,7 @@ def main() -> int:
     zen = phase(zenflow_phase)
     oparam = phase(offload_param_phase, fadam)
     hyb = phase(hybrid_phase)
-    opars = phase(optimizers_phase)
+    opars = phase(optimizers_phase, opt_ref)
     ckpt = phase(cpu_checkpointing_phase)
     falcon = phase(falcon_phase, fa, pa)
     fams = phase(families_phase, fa, pa)
@@ -7298,10 +7900,12 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:38",
          "launches": serve_fwd + q_fwd + train_l["flash_fwd"] + moe_fwd + falcon_l["flash"]
                      + fams_l["flash"] + prefix_l["flash"] + tele["launches"]["flash"]
-                     + sd["launches"] + comp_fwd,
+                     + sd["launches"] + comp_fwd + flt["launches"]["flash"],
          "launches_by_path": {"serving": serve_fwd, "training": train_l["flash_fwd"],
                               "prefix_serving": prefix_l["flash"],
                               "telemetry_serving": tele["launches"]["flash"],
+                              **{f"fleet_{k}": v["flash"]
+                                 for k, v in flt["launches_by_path"].items()},
                               "quantized_serving": q_fwd, "moe_serving": moe_fwd,
                               "moe_training": moe_l["flash_fwd"],
                               "offload_training_7b": off7["launches"]["flash_fwd"],
@@ -7364,10 +7968,13 @@ def main() -> int:
          "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:35",
          "launches": serve_paged + q_paged + moe_paged + falcon_l["paged"] + fams_l["paged"]
-                     + prefix_l["paged"] + tele["launches"]["paged"] + comp["launches"]["paged"],
+                     + prefix_l["paged"] + tele["launches"]["paged"] + comp["launches"]["paged"]
+                     + flt["launches"]["paged"],
          "launches_by_path": {"serving": serve_paged, "quantized_serving": q_paged,
                               "prefix_serving": prefix_l["paged"],
                               "telemetry_serving": tele["launches"]["paged"],
+                              **{f"fleet_{k}": v["paged"]
+                                 for k, v in flt["launches_by_path"].items()},
                               "moe_serving": moe_paged, "falcon7b_serving": falcon_l["paged"],
                               "families_serving": fams_l["paged"],
                               "compressed_serving": comp["launches"]["paged"]},
@@ -7667,6 +8274,19 @@ def main() -> int:
                                                   "parity_phase", "train_parity_phase",
                                                   "moe_parity_phase")},
         "card": smi}}))
+    print(json.dumps({"fleet_summary": {
+        "fp32": {k: flt["fp32"][k] for k in ("migrations", "redispatches", "killed", "preempted",
+                                            "prefix_hit_tokens", "launches_by_replica")},
+        "fp32_legs": {k: {f: v.get(f) for f in ("ttft_mean_s", "tpot_mean_s", "wall_s", "pumps",
+                                                "client_ttft_mean_s", "client_tpot_mean_s")}
+                      for k, v in flt["fp32"]["legs"].items()},
+        "control": flt["fp32"]["control"],
+        "bf16": {k: flt["bf16"][k] for k in (
+            "child_start_s", "child_weights_s", "child_engine_s", "child_import_and_cuda_s",
+            "child_launches", "cross_transport_bytes", "handoff_local", "handoff_cross")},
+        "bf16_fleets": {k: flt["bf16"][k] for k in ("local", "cross")},
+        "launches_by_path": flt["launches_by_path"],
+        "phase_seconds": phase_s["fleet_phase"], "card": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

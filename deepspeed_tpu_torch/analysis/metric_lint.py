@@ -99,13 +99,9 @@ _FAMILY_OWNERS = {
 
 #: catalog families whose registering module the port has not yet: a
 #: row of one is pending while its owner file is absent (ROADMAP Queue 1
-#: #9 for the comms logger, #15 for the serving fleet)
+#: #9 for the comms logger)
 PENDING_OWNERS = {
     "deepspeed_tpu_comm_": os.path.join(PKG, "comm", "comms_logger.py"),
-    "deepspeed_tpu_serving_fleet_": os.path.join(PKG, "serving", "router.py"),
-    "deepspeed_tpu_serving_slo_breaker_": os.path.join(PKG, "serving", "router.py"),
-    "deepspeed_tpu_serving_transport_": os.path.join(PKG, "serving", "transport.py"),
-    "deepspeed_tpu_serving_autoscale_": os.path.join(PKG, "serving", "autoscale.py"),
 }
 
 Site = Tuple[str, int, str]  # (relpath, lineno, metric_type)

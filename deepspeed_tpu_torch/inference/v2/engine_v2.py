@@ -33,7 +33,10 @@ last page).  Greedy streams equal cache-off's, except under ``kv_quant``,
 as in JAX.  ``kv_tier`` (``serving.KVTierConfig``) spills pages evicted
 from the cache's LRU to host RAM (and NVMe) and restores them; and
 ``export_sequence`` / ``import_sequence`` move a decode-ready sequence
-between engines as a ``KVPageBundle``.  Every page copy writes the live
+between engines as a ``KVPageBundle`` (``ready_uids`` lists the
+candidates, ``inflight_uids`` every unfinished uid, and ``drain`` retires
+the engine for the serving fleet: admission stops, admitted work runs
+out, the queue is handed back).  Every page copy writes the live
 pools in place, outside the captured programs, which therefore read them
 after a copy on write, an import or a restore.
 
@@ -337,6 +340,8 @@ class InferenceEngineV2:
         self._seed = int(seed)
         self._queue: List[SequenceState] = []
         self._slots: List[Optional[SequenceState]] = [None] * block.max_seqs
+        #: set by drain(): the engine is retiring, put() refuses admissions
+        self._draining = False
         # host mirror of the device page tables, trash-filled
         self._page_table = np.full((block.max_seqs, block.max_pages_per_seq),
                                    block.trash_page, dtype=np.int32)
@@ -696,10 +701,16 @@ class InferenceEngineV2:
         self._m_cached_pages.set(self.allocator.cached_pages)
 
     # -- request API ---------------------------------------------------------
-    def put(self, request: RaggedRequest) -> int:
+    def put(self, request: RaggedRequest, *, record_shed: bool = True) -> int:
         """Queue a request; returns its uid.  A full bounded queue
         (``max_queue_depth``) raises :class:`RejectedError`, counted as a
-        shed first (``serving.admission.record_shed``)."""
+        shed first (``serving.admission.record_shed``) unless
+        ``record_shed=False``: a placer that tries several engines (the
+        fleet router) counts at most one shed per request itself.  A
+        draining engine refuses every request."""
+        if self._draining:
+            raise RuntimeError("engine is draining/retired: no new "
+                               "admissions (route to another replica)")
         uid = request.uid if request.uid is not None else next(self._uid)
         n = len(request.prompt_ids)
         if n == 0:
@@ -710,11 +721,13 @@ class InferenceEngineV2:
                 and len(self._queue) >= self.config.max_queue_depth):
             # deferred: serving imports inference, never the reverse at
             # module scope
-            from ...serving.admission import record_shed, retry_after_hint
+            from ...serving.admission import record_shed as _record_shed
+            from ...serving.admission import retry_after_hint
 
             hint = retry_after_hint(len(self._queue))
-            record_shed(request.priority, "engine_queue_full", hint,
-                        uid=request.uid, trace_id=request.trace_id)
+            if record_shed:
+                _record_shed(request.priority, "engine_queue_full", hint,
+                             uid=request.uid, trace_id=request.trace_id)
             raise RejectedError("engine_queue_full", retry_after_s=hint,
                                 priority=request.priority)
         now = time.perf_counter()
@@ -750,6 +763,19 @@ class InferenceEngineV2:
     @property
     def active_count(self) -> int:
         return sum(1 for s in self._slots if s is not None)
+
+    def inflight_uids(self) -> List[int]:
+        """uids of every unfinished request this engine owns: admitted (in
+        a slot) first, then queued."""
+        return ([s.uid for s in self._slots if s is not None]
+                + [s.uid for s in self._queue])
+
+    def ready_uids(self) -> List[int]:
+        """uids of admitted sequences that are decode-ready (prefill
+        complete, first token sampled): the migration candidates a
+        disaggregated router streams from prefill to decode replicas."""
+        return [s.uid for s in self._slots
+                if s is not None and self._ready_to_decode(s)]
 
     def stats(self) -> Dict[str, float]:
         """Cumulative program-call, token and phase-time counters (the
@@ -824,6 +850,37 @@ class InferenceEngineV2:
         and every unreferenced page is free or parked in the cache's LRU
         (after rollback, preemption, migration or retirement)."""
         self.allocator.assert_no_leaks([s.pages for s in self._slots if s is not None])
+
+    def drain(self, max_steps: int = 10_000) -> Dict[str, Any]:
+        """Stop admission and run every admitted sequence to completion.
+
+        Returns ``{"finished": {uid: SequenceState}, "pending":
+        [SequenceState, ...]}``: ``finished`` holds the final states (full
+        token lists, ``done`` flags) of the sequences that were in flight;
+        ``pending`` the queued requests never admitted, returned un-run for
+        the caller to re-dispatch.  Afterwards ``put()`` refuses every
+        request: clean replica retirement (``close()`` alone would drop
+        in-flight work).  The host tier's pending captures are committed."""
+        self._draining = True
+        pending = list(self._queue)
+        self._queue.clear()
+        for s in pending:
+            m = self._req_meta.pop(s.uid, None)
+            if m is not None:
+                end_span(m["span"], requeued=True)
+        inflight = {s.uid: s for s in self._slots if s is not None}
+        steps = 0
+        while any(s is not None for s in self._slots) or self._queue:
+            if steps >= max_steps:
+                logger.warning("engine_v2.drain: max_steps reached with work pending")
+                break
+            self.step()
+            steps += 1
+        self._m_queue.set(len(self._queue))
+        self._drain_spills()  # retirement commits captures, frees pins
+        record_event("engine_drain", cat="serve", finished=len(inflight),
+                     requeued=len(pending), steps=steps)
+        return {"finished": inflight, "pending": pending}
 
     def abort_all(self, reason: str = "abort") -> List[int]:
         """Free every queued and admitted request without running it (pages

@@ -88,8 +88,8 @@ def simulate_preemption(target, reason: str = "chaos:simulated-maintenance") -> 
 # (not dead), a step that THROWS (not crashes), a KV pool that SHRINKS
 # (not OOMs).  All are deterministic/seeded so any failing drill replays
 # from its logged seed.  SlowReplica/FlakyStep are hooks a serving
-# replica calls at the top of every step (the fleet that installs them
-# is not ported yet); PoolSqueeze works on the port's ``BlockAllocator``.
+# replica calls at the top of every step (``EngineReplica.inject_chaos``);
+# PoolSqueeze works on the port's ``BlockAllocator``.
 class ChaosStepError(RuntimeError):
     """The injected step exception ``FlakyStep`` raises."""
 

@@ -48,7 +48,6 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 ROADMAP_ZERO = "ROADMAP Queue 1 #8 'ZeRO 1/2/3 across ranks'"
 ROADMAP_PIPE = "ROADMAP Queue 1 #12 'Pipeline'"
 ROADMAP_COMM = "ROADMAP Queue 1 #9 'Communication and ZeRO++'"
-ROADMAP_SERVING = "ROADMAP Queue 1 #15 'Serving fleet'"
 
 #: top-level blocks whose "enabled" flag turns on an unported feature
 _ENABLED_BLOCKS = {
@@ -560,8 +559,6 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
                 f"mesh axis {axis}={size}: the port trains on one device ({ROADMAP_ZERO})")
     if (config.get("pipeline") or {}).get("hop_compression") not in (None, False):
         raise NotImplementedError(f"pipeline is not ported yet ({ROADMAP_PIPE})")
-    if config.get("serving"):
-        raise NotImplementedError(f"the serving block is not ported yet ({ROADMAP_SERVING})")
     if (config.get("communication_data_type") is not None
             or float(config.get("gradient_predivide_factor", 1.0)) != 1.0):
         raise NotImplementedError(f"gradient communication settings are not ported yet "
@@ -600,6 +597,7 @@ class DeepSpeedConfig:
     comet: CometConfig
     csv_monitor: CSVConfig
     elasticity: Any
+    serving: Any
 
     def __init__(self, config: Any, dp_world_size: Optional[int] = None):
         if isinstance(config, str):
@@ -640,6 +638,12 @@ class DeepSpeedConfig:
         from ..elasticity.elasticity import ElasticityConfig
 
         self.elasticity = ElasticityConfig.from_dict(g("elasticity"))
+        # fleet front tier (serving/config.py): router + replica pools,
+        # parsed here so one ds-config json describes the whole process;
+        # the nested blocks (speculative, kv_tier, autoscale, transport)
+        # coerce and validate inside ServingConfig
+        from ..serving.config import ServingConfig
+        self.serving = ServingConfig.from_dict(g("serving"))
         self.fp16 = FP16Config.from_dict(g("fp16"))
         self.bf16 = BF16Config.from_dict(g("bf16") or g("bfloat16"))
         zero = g("zero_optimization") or {}

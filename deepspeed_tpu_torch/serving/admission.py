@@ -1,6 +1,6 @@
 """Admission control & load shedding for the serving fleet (the port's
 copy of ``deepspeed_tpu/serving/admission.py``, pure Python, unchanged).
-The fleet (ROADMAP Queue 1 #15) will drive :class:`AdmissionController`;
+The fleet router (``serving/router.py``) drives :class:`AdmissionController`;
 the engine's bounded queue counts its sheds through :func:`record_shed`.
 
 The dominant production failure mode is not a crash but **overload**: a

@@ -176,7 +176,7 @@ def pages_from_bytes(data: bytes) -> Tuple[Dict[str, torch.Tensor], Dict[str, An
     if bad:
         raise CorruptBundleError(
             f"corrupt bundle: CRC32 mismatch on page(s) {bad} of {len(got)} (bit flip or "
-            "torn write in transport): refused; source still holds the sequence")
+            "torn write in transport) — refused; source still holds the sequence")
     return arrays, header
 
 
@@ -228,7 +228,8 @@ def bundle_from_bytes(data: bytes) -> KVPageBundle:
                 or _trace_crc(trace) != int(want_crc)):
             raise CorruptBundleError(
                 "corrupt bundle: trace block failed its CRC32 (torn or bit-flipped "
-                "trace context): refused; a legacy bundle would omit the block")
+                "trace context) — refused; a legacy bundle would OMIT the block, not "
+                "carry a broken one")
         hops = trace.get("hops") or []
         if hops and hops[-1].get("sent_unix") is not None:
             # dstpu-lint: allow[wall-clock] receive stamp paired with the sender's

@@ -282,19 +282,19 @@ def test_catalog_drift_both_directions(tmp_path):
         "| `deepspeed_tpu_documented_total` | counter |\n"
         "| `deepspeed_tpu_combined_hits_total` / `_misses_total` | counter |\n"
         "| `deepspeed_tpu_ghost_rows_total` | counter |\n"
-        "| `deepspeed_tpu_serving_fleet_ghost_total` | counter |\n")
+        "| `deepspeed_tpu_comm_ghost_total` | counter |\n")
     joined = "\n".join(tmetric.check(str(tmp_path)))
     assert "deepspeed_tpu_undocumented_total" in joined
     assert "deepspeed_tpu_ghost_rows_total" in joined and "dead catalog row" in joined
     assert "deepspeed_tpu_documented_total'" not in joined
     assert "deepspeed_tpu_combined_hits_total" not in joined
     assert "deepspeed_tpu_combined_misses_total" not in joined
-    # a fleet row is pending while the port has no serving/router.py, dead after
-    assert "deepspeed_tpu_serving_fleet_ghost_total" not in joined
-    assert set(tmetric.pending_rows(str(tmp_path))) == {"deepspeed_tpu_serving_fleet_ghost_total"}
-    (pkg / "serving").mkdir()
-    (pkg / "serving" / "router.py").write_text("x = 1\n")
-    assert "deepspeed_tpu_serving_fleet_ghost_total" in "\n".join(tmetric.check(str(tmp_path)))
+    # a comm row is pending while the port has no comm/comms_logger.py, dead after
+    assert "deepspeed_tpu_comm_ghost_total" not in joined
+    assert set(tmetric.pending_rows(str(tmp_path))) == {"deepspeed_tpu_comm_ghost_total"}
+    (pkg / "comm").mkdir()
+    (pkg / "comm" / "comms_logger.py").write_text("x = 1\n")
+    assert "deepspeed_tpu_comm_ghost_total" in "\n".join(tmetric.check(str(tmp_path)))
 
 
 def test_catalog_checks_skipped_without_doc(tmp_path):
@@ -364,6 +364,4 @@ def test_pending_rows_are_those_of_jax_modules_the_port_lacks():
                            for n in missing), sorted(missing)
     assert set(tmetric.pending_rows(REPO)) == missing
     owners = {f for n in missing for f, _l, _t in jax_found[n]}
-    assert owners == {os.path.join("deepspeed_tpu", *p) for p in (
-        ("comm", "comms_logger.py"), ("serving", "router.py"), ("serving", "transport.py"),
-        ("serving", "autoscale.py"))}
+    assert owners == {os.path.join("deepspeed_tpu", "comm", "comms_logger.py")}

@@ -29,10 +29,7 @@ OMITTED = {
     "inference/engine.py": {
         "InferenceConfig.jnp_dtype": "no torch counterpart: torch_dtype is the port's"},
     "inference/v2/engine_v2.py": {
-        "RaggedInferenceConfig.jnp_dtype": "no torch counterpart: torch_dtype is the port's",
-        "InferenceEngineV2.drain": f"{Q1} #15 (serving fleet)",
-        "InferenceEngineV2.inflight_uids": f"{Q1} #15 (serving fleet)",
-        "InferenceEngineV2.ready_uids": f"{Q1} #15 (serving fleet)"},
+        "RaggedInferenceConfig.jnp_dtype": "no torch counterpart: torch_dtype is the port's"},
     "inference/v2/model_runner.py": {
         "pad_pages_pow2": "no torch counterpart: eager torch compiles no shapes"},
     "models/transformer.py": {"transformer_partition_rules": f"{Q1} #8 (ZeRO across ranks)"},
@@ -47,9 +44,6 @@ OMITTED = {
     "runtime/module.py": {"ModelSpec.partition_rules": f"{Q1} #8 (ZeRO across ranks)",
                           "ModelSpec.from_flax": "no torch counterpart: flax modules"},
     "runtime/optimizers.py": {"pallas_fused_adam": "renamed: optimizers.fused_adam"},
-    "serving/config.py": {"TransportConfig": f"{Q1} #15 (serving fleet)",
-                          "AutoscaleConfig": f"{Q1} #15 (serving fleet)",
-                          "ServingConfig": f"{Q1} #15 (serving fleet)"},
     "telemetry/compile_sentinel.py": {
         "install_compile_listener": "no torch counterpart: jax.monitoring's listener"},
 }

@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``deepspeed_tpu_torch/``, nor
-``chip_smoke.py`` or ``timeline_clock_check.py``, imports JAX or any module of the JAX package, nor
+``chip_smoke.py``, ``timeline_clock_check.py`` or ``smoke_cut_turns.py``, imports JAX or any
+module of the JAX package, nor
 ``ml_dtypes``, ``transformers``, ``safetensors``, ``tensorflow`` or
 ``prometheus_client`` (none is on the card's machine), and the entry
 points default to CUDA."""
@@ -27,7 +28,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted(Path(deepspeed_tpu_torch.__file__).parent.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "timeline_clock_check.py"]
+    ROOT / "chip_smoke.py", ROOT / "timeline_clock_check.py", ROOT / "smoke_cut_turns.py"]
 FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "ml_dtypes", "transformers", "safetensors",
              "tensorflow", "prometheus_client")
 

@@ -90,6 +90,33 @@ def test_config_blocks_and_errors():
                                  "gradient_accumulation_steps": 2}, 1)
 
 
+def test_serving_block_parses_into_serving_config():
+    """The ``serving`` block parses into ``ServingConfig`` as in the JAX
+    package (once refused), its nested blocks coerced, a bad one refused
+    with JAX's message."""
+    from deepspeed_tpu_torch.serving import ServingConfig
+
+    block = {"serving": {"enabled": True, "load_gap": 2, "prefill_chunk": 256,
+                         "speculative": {"mode": "ngram", "k": 3},
+                         "autoscale": {"enabled": True, "max_replicas": 3},
+                         "transport": {"sender_depth": 4}}}
+    t, j = tconfig.DeepSpeedConfig(block), jconfig.DeepSpeedConfig(block)
+    assert isinstance(t.serving, ServingConfig)
+    assert (t.serving.enabled, t.serving.load_gap, t.serving.prefill_chunk,
+            t.serving.speculative.k, t.serving.autoscale.max_replicas,
+            t.serving.transport.sender_depth) == (
+        j.serving.enabled, j.serving.load_gap, j.serving.prefill_chunk,
+        j.serving.speculative.k, j.serving.autoscale.max_replicas,
+        j.serving.transport.sender_depth)
+    assert tconfig.DeepSpeedConfig({}).serving.enabled is False
+    bad = {"serving": {"enabled": True, "prefill_replicas": 0}}
+    with pytest.raises(ValueError) as want:
+        jconfig.DeepSpeedConfig(bad)
+    with pytest.raises(ValueError) as got:
+        tconfig.DeepSpeedConfig(bad)
+    assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("block", [
     {"zero_optimization": {"stage": 2}},
     {"zero_optimization": {"stage": 3}},
